@@ -1,0 +1,314 @@
+"""Maximum-likelihood fitting.
+
+The reference minimizes the negative log likelihood with lmfit BFGS over
+finite-difference gradients (extrack/tracking.py:1299-1387).  Here the
+objective (parameter constraint graph -> model tables -> likelihood) is
+differentiable end to end, so each evaluation is one value-and-gradient
+pass and scipy's L-BFGS-B runs on exact gradients.  Bounds are honored
+through the sigmoid bijection in ``params``.
+
+On CUDA every length bucket runs the gradient kernel (K2) for value and
+gradient and the forward kernel (K1) for value-only calls; a bucket outside
+the kernels' envelope raises when the objective is built.  On the CPU the
+plain engine runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import tempfile
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import scipy.optimize
+import torch
+
+from extrack_tpu_torch import data as tdata
+from extrack_tpu_torch import params as tparams
+from extrack_tpu_torch.core import tables
+from extrack_tpu_torch.ops import forward_kernel, grad_kernel
+
+
+@dataclasses.dataclass
+class FitResult:
+    params: tparams.Parameters
+    logl: float
+    success: bool
+    n_evals: int
+    message: str
+    history: list
+    std_errors: Optional[Dict[str, float]] = None
+    residual: float = 0.0          # -logL, lmfit-style
+
+    def __repr__(self):
+        lines = [f"FitResult(logL={self.logl:.4f}, success={self.success}, "
+                 f"evals={self.n_evals})"]
+        for name, p in self.params.items():
+            err = ""
+            if self.std_errors and name in self.std_errors:
+                err = f" +/- {self.std_errors[name]:.4g}"
+            lines.append(f"  {name} = {p.value:.6g}{err}")
+        return "\n".join(lines)
+
+
+def default_window(nb_states: int, nb_substeps: int = 1) -> int:
+    """Per-state-count fitting window: 6 / 5 / 4 / 3 for 2 / 3 / 4 / >=5
+    states, the reference tutorials' own step-down pattern.  K = S**window
+    stays in the low hundreds (2: 64, 3: 243, 4: 256, 5: 125)."""
+    w = 6 if nb_states <= 2 else 5 if nb_states == 3 else \
+        4 if nb_states == 4 else 3
+    return max(w, nb_substeps + 1)
+
+
+def make_objective(batch,
+                   spec: tparams.Parameters,
+                   dt,
+                   nb_states: int,
+                   cell_dims=(1.0,),
+                   nb_substeps: int = 1,
+                   window: Optional[int] = None,
+                   min_len: Optional[int] = None,
+                   matrix_type: int = 1,
+                   input_loc_err: bool = False) -> Callable:
+    """Build -logL(z) over the unconstrained free-parameter tensor z.
+
+    ``batch`` is a TrackBatch or a list of them (length buckets from
+    data.from_dict_bucketed), all on one device in one dtype; the objective
+    computes on that device in that dtype, and z must match.  Parameter
+    extraction happens inside the objective so its gradient flows
+    (cum_Proba_Cs, extrack/tracking.py:991-1088); ``min_len`` defaults to
+    the shortest track length present (tracking.py:1009).
+    """
+    if window is None:
+        window = default_window(nb_states, nb_substeps)
+    batches = list(batch) if isinstance(batch, (list, tuple)) else [batch]
+    if min_len is None:
+        lens = np.concatenate([tdata.host_lengths(b) for b in batches])
+        min_len = tdata.default_min_len(lens)
+    device = batches[0].positions.device
+    dtype = batches[0].positions.dtype
+    if device.type == "cuda":
+        for i, b in enumerate(batches):
+            forward_kernel.check_envelope(
+                b.max_len, b.nb_dims, nb_states, window, nb_substeps,
+                variable_dt=b.dt is not None, dtype=dtype,
+                what=f"length bucket {i} ({b.batch_size} tracks, "
+                     f"T={b.max_len})")
+
+    def neg_logl(z: torch.Tensor) -> torch.Tensor:
+        values = spec.resolve(spec.from_unconstrained(z))
+        total = 0.0
+        Fs = None
+        for b in batches:
+            Ds, Fs, rates, loc_err, pBL = tparams.extract_arrays(
+                values, nb_states,
+                input_loc_err=b.loc_err if input_loc_err else None,
+                device=device, dtype=dtype)
+            tb = tables.build_tables(
+                Ds, loc_err, Fs, rates, pBL,
+                b.dt if b.dt is not None else dt, cell_dims=cell_dims,
+                nb_substeps=nb_substeps, matrix_type=matrix_type)
+            total = total + grad_kernel.neg_log_likelihood(
+                b.positions, b.lengths, b.is_bleached, tb, window=window,
+                nb_substeps=nb_substeps, min_len=min_len)
+        # reference validity guard (tracking.py:1017): the derived last
+        # fraction can go negative at >= 3 states; the finite log floor
+        # would otherwise keep such a prior silently unnormalized
+        return torch.where((Fs >= 0).all(), total,
+                           torch.full_like(total, math.inf))
+
+    neg_logl.device = device
+    neg_logl.dtype = dtype
+    return neg_logl
+
+
+def _save_checkpoint(path: str, values: Dict[str, object], objective: float,
+                     n_eval: int):
+    """Atomic JSON checkpoint (same format as the JAX package's)."""
+    payload = {"values": {k: float(v) for k, v in values.items()
+                          if np.ndim(v) == 0},
+               "objective": float(objective), "n_eval": int(n_eval),
+               "extra": {}}
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".ckpt")
+    with os.fdopen(fd, "w") as fh:
+        json.dump(payload, fh)
+    os.replace(tmp, path)
+
+
+def fit(batch,
+        spec: tparams.Parameters,
+        dt,
+        nb_states: int,
+        cell_dims=(1.0,),
+        nb_substeps: int = 1,
+        window: Optional[int] = None,
+        min_len: Optional[int] = None,
+        matrix_type: int = 1,
+        input_loc_err: bool = False,
+        method: str = "L-BFGS-B",
+        verbose: int = 0,
+        max_iter: int = 500,
+        compute_errors: bool = False,
+        callback=None,
+        checkpoint_path: Optional[str] = None,
+        resume: bool = True,
+        n_starts: int = 1,
+        start_scale: float = 1.0,
+        seed: int = 0) -> FitResult:
+    """Fit the free parameters of ``spec`` to a TrackBatch (or buckets).
+
+    callback: called as ``callback(n_eval, objective, values)`` per
+        evaluation.
+    checkpoint_path: JSON checkpoint written on every improvement; with
+        ``resume=True`` an existing checkpoint warm-starts the fit.
+    n_starts: run the optimizer from the initial values plus ``n_starts-1``
+        perturbed restarts (scale ``start_scale`` in unconstrained space)
+        and keep the best optimum.
+    Gradient-free methods (Powell, Nelder-Mead, COBYLA) evaluate the value
+    only.
+    """
+    if compute_errors:
+        raise NotImplementedError(
+            "Fisher errors need the HVP kernel (K3), not yet ported")
+    if checkpoint_path and resume and os.path.exists(checkpoint_path):
+        with open(checkpoint_path) as fh:
+            state = json.load(fh)
+        spec = spec.copy()
+        spec.set_values(state["values"])
+    neg_logl = make_objective(batch, spec, dt, nb_states, cell_dims,
+                              nb_substeps, window, min_len, matrix_type,
+                              input_loc_err)
+    device, dtype = neg_logl.device, neg_logl.dtype
+
+    def as_z(z, grad=False):
+        return torch.tensor(np.asarray(z), dtype=dtype, device=device,
+                            requires_grad=grad)
+
+    z0 = spec.to_unconstrained()
+    history = []
+    n_evals = [0]
+    best = [np.inf]
+
+    def record(z, v):
+        n_evals[0] += 1
+        history.append(v)
+        if callback or checkpoint_path or verbose:
+            with torch.no_grad():
+                vals = {k: float(x) for k, x in
+                        spec.resolve(spec.from_unconstrained(as_z(z))).items()
+                        if np.ndim(x) == 0}
+            if callback:
+                callback(n_evals[0], v, vals)
+            if checkpoint_path and v < best[0]:
+                best[0] = v
+                _save_checkpoint(checkpoint_path, vals, v, n_evals[0])
+            if verbose:
+                print(-v, {k: round(x, 6) for k, x in vals.items()})
+
+    def fun(z):
+        zt = as_z(z, grad=True)
+        value = neg_logl(zt)
+        (g,) = torch.autograd.grad(value, zt)
+        v = float(value.detach())
+        g = g.detach().cpu().numpy().astype(np.float64)
+        if not np.isfinite(v):
+            # out-of-domain guard, mirrors the reference's inf objective
+            # (extrack/tracking.py:1078-1086)
+            return 1e300, np.zeros_like(g)
+        record(z, v)
+        return v, g
+
+    def value_only(z):
+        with torch.no_grad():
+            v = float(neg_logl(as_z(z)))
+        if not np.isfinite(v):
+            return 1e300
+        record(z, v)
+        return v
+
+    if method.lower() in ("powell", "nelder-mead", "cobyla"):
+        def run_opt(z_init):
+            return scipy.optimize.minimize(value_only, z_init, method=method,
+                                           options={"maxiter": max_iter})
+    else:
+        def run_opt(z_init):
+            return scipy.optimize.minimize(fun, z_init, jac=True,
+                                           method=method,
+                                           options={"maxiter": max_iter})
+
+    t0 = time.time()
+    res = run_opt(z0)
+    if n_starts > 1:
+        rng = np.random.default_rng(seed)
+        for _ in range(n_starts - 1):
+            alt = run_opt(z0 + rng.normal(0, start_scale, z0.shape))
+            if np.isfinite(alt.fun) and alt.fun < res.fun:
+                res = alt
+    if verbose:
+        print(f"fit: {n_evals[0]} evaluations in {time.time() - t0:.2f}s")
+
+    fitted = spec.copy()
+    with torch.no_grad():
+        values = fitted.resolve(fitted.from_unconstrained(
+            torch.as_tensor(res.x, dtype=torch.float64)))
+    fitted.set_values({k: float(v) for k, v in values.items()
+                       if np.ndim(v) == 0})
+    return FitResult(params=fitted, logl=-float(res.fun),
+                     success=bool(res.success), n_evals=n_evals[0],
+                     message=str(res.message), history=history,
+                     residual=float(res.fun))
+
+
+def param_fitting(all_tracks,
+                  dt,
+                  params: Optional[tparams.Parameters] = None,
+                  nb_states: int = 2,
+                  nb_substeps: int = 1,
+                  frame_len: Optional[int] = None,
+                  verbose: int = 1,
+                  workers: int = 1,
+                  Matrix_type: int = 1,
+                  method: str = "L-BFGS-B",
+                  steady_state: bool = False,
+                  cell_dims=(1.0,),
+                  input_LocErr=None,
+                  threshold: float = 0.2,
+                  max_nb_states: int = 120,
+                  compute_errors: bool = False,
+                  length_buckets: int = 4,
+                  *,
+                  device="cpu",
+                  dtype=None,
+                  **fit_kwargs) -> FitResult:
+    """Drop-in style equivalent of the reference param_fitting
+    (extrack/tracking.py:1299-1387), on ``device`` in ``dtype``.  ``dtype``
+    defaults to float32 on CUDA, where the kernels compute in float32 and
+    raise for any other dtype, and to float64 elsewhere.
+
+    ``all_tracks`` is the length-keyed dict format.  ``workers``,
+    ``threshold`` and ``max_nb_states`` are accepted for API compatibility:
+    the engine's fixed window (``frame_len``, default per state count,
+    ``default_window``) replaces the reference's threshold pruning.
+    """
+    del workers, threshold, max_nb_states
+    if dtype is None:
+        dtype = (torch.float32 if torch.device(device).type == "cuda"
+                 else torch.float64)
+    if params is None:
+        params = tparams.generate_params(
+            nb_states=nb_states, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+            D_max=3.0, estimated_transition_rates=0.1,
+            steady_state=steady_state)
+    batch = tdata.from_dict_bucketed(
+        all_tracks, max_buckets=max(1, length_buckets),
+        input_loc_err=input_LocErr,
+        dt=dt if isinstance(dt, dict) else None, device=device, dtype=dtype)
+    return fit(batch, params, dt if not isinstance(dt, dict) else 0.0,
+               nb_states, cell_dims=cell_dims, nb_substeps=nb_substeps,
+               window=frame_len, matrix_type=Matrix_type, method=method,
+               verbose=verbose, input_loc_err=input_LocErr is not None,
+               compute_errors=compute_errors, **fit_kwargs)

@@ -1,0 +1,226 @@
+"""K1: the forward likelihood kernel (csrc/forward.cu) and its host side.
+
+Replaces extrack_tpu/ops/pallas_engine.py:_kernel.  The host side builds
+the per-slot tables the kernel reads (``build_slot_tables``,
+``build_next_tables``), folds the per-step 2*pi normalizer constants into
+the transition table, and lays the track data out as (B, T, D) float32.
+
+``forward`` is the entry point: CUDA tensors launch the kernel (or raise,
+outside its envelope); CPU tensors run ``forward_plain``, which is
+``core.engine.forward`` on the same inputs.  ``LAUNCHES`` counts kernel
+launches, ``PLAIN_CALLS`` calls of the plain version.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from extrack_tpu_torch.core import engine
+from extrack_tpu_torch.core.tables import LOG_FLOOR, ModelTables
+from extrack_tpu_torch.ops import cuda_lib
+
+LAUNCHES = 0
+PLAIN_CALLS = 0
+MAX_SLOTS = 1024          # one thread per register slot, one block per track
+
+
+def _dig(k, i, S, W):
+    """i-th newest window digit of slot k (digit 0 = newest)."""
+    return (k // S ** (W - 1 - i)) % S
+
+
+def build_slot_tables(tables: ModelTables, window: int, nb_substeps: int):
+    """(lp0, s20, lt, lsurv, end, sig2v) as (K,) tensors in the engine's
+    slot encoding (newest digit highest).  ``lt``, ``lsurv`` and ``sig2v``
+    describe the child a slot becomes after a fusion step; ``s20`` and
+    ``sig2v`` are the same tensor.  Log tables are re-floored at -1e15 so
+    hand-built tables with -inf entries stay finite."""
+    S = tables.nb_states
+    W, n = window, nb_substeps
+    if W < n + 1:
+        raise ValueError(f"window ({W}) must be >= nb_substeps+1 ({n + 1})")
+    K = S ** W
+    k = np.arange(K)
+    log_T = tables.log_trans.clamp_min(LOG_FLOOR)
+    # transition chain of the n newest digits: digit n -> ... -> digit 0
+    lt = sum(log_T[_dig(k, j + 1, S, W), _dig(k, j, S, W)] for j in range(n))
+    lsurv = tables.log_survive.clamp_min(LOG_FLOOR)[k // S ** (W - n)]
+    end = tables.end_ll.clamp_min(LOG_FLOOR)[_dig(k, 0, S, W)]
+    sig2_row = tables.sig2.reshape(-1, tables.sig2.shape[-1])[0]
+    sig2 = sig2_row[k // S ** (W - n - 1)]            # n+1 newest digits
+    lp0 = tables.log_frac.clamp_min(LOG_FLOOR)[_dig(k, n, S, W)]
+    for j in range(n):
+        lp0 = lp0 + log_T[_dig(k, j + 1, S, W), _dig(k, j, S, W)]
+    lp0 = lp0 - (W - n - 1) * math.log(S)
+    return lp0, sig2, lt, lsurv, end, sig2
+
+
+def build_next_tables(tables: ModelTables, window: int, nb_substeps: int):
+    """(ltn, s2n, lsn, endn) as (K, A) tensors for the look-ahead closing:
+    column a describes the pre-fusion child of slot k under new sub-state
+    pattern a (chain transitions, displacement variance, survival, folded
+    end term)."""
+    S = tables.nb_states
+    W, n = window, nb_substeps
+    K, A = S ** W, S ** n
+    k = np.arange(K)[:, None]
+    a = np.arange(A)[None, :]
+    newest_k = k // S ** (W - 1)
+
+    def dig_a(i):
+        return (a // S ** (n - 1 - i)) % S
+
+    log_T = tables.log_trans.clamp_min(LOG_FLOOR)
+    ltn = log_T[newest_k, dig_a(n - 1)]
+    for j in range(n - 1):
+        ltn = ltn + log_T[dig_a(j + 1), dig_a(j)]
+    ltn = ltn.expand(K, A)
+    sig2_row = tables.sig2.reshape(-1, tables.sig2.shape[-1])[0]
+    s2n = sig2_row[a * S + newest_k]
+    lsn = tables.log_survive.clamp_min(LOG_FLOOR)[None, :].expand(K, A)
+    endn = tables.end_ll.clamp_min(LOG_FLOOR)[a // S ** (n - 1)].expand(K, A)
+    return ltn, s2n, lsn, endn
+
+
+def classify_sig2(sig2: torch.Tensor, T: int) -> bool:
+    """True when the displacement-variance table varies per step or per
+    track (variable dt).  Classified by the batch dimension too: a per-track
+    (B, 1, P) table at T=2 has one step row yet differs across tracks.
+    Also validates the step-row count."""
+    batch = sig2.shape[0] if sig2.ndim == 3 else 1
+    step_rows = sig2.reshape(-1, sig2.shape[-1]).shape[0] // batch
+    if step_rows not in (1, T - 1):
+        raise NotImplementedError(
+            f"per-step sig2 must have T-1={T - 1} rows, got {step_rows}")
+    return step_rows != 1 or batch != 1
+
+
+def kernel_dtype(positions, tables: ModelTables) -> torch.dtype:
+    """float32 when the positions and every table are float32; otherwise
+    the first other dtype among them."""
+    return next((t.dtype for t in (positions, *tables)
+                 if t.dtype != torch.float32), torch.float32)
+
+
+def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
+                   variable_dt: bool = False, dtype=torch.float32,
+                   what: str = "batch"):
+    """Raise NotImplementedError, naming ``what``, when the kernels cannot
+    run this configuration."""
+    K = S ** window
+    reasons = []
+    if dtype != torch.float32:
+        reasons.append(f"dtype {dtype} (the kernels compute in float32: "
+                       "pass float32 tensors)")
+    if D not in (1, 2, 3):
+        reasons.append(f"D={D} (kernels take 1..3 dimensions)")
+    if K > MAX_SLOTS:
+        reasons.append(f"K=S**window={K} > {MAX_SLOTS} register slots")
+    if window < nb_substeps + 1:
+        reasons.append(f"window {window} < nb_substeps+1")
+    if variable_dt:
+        reasons.append("per-step / per-track dt (the streamed "
+                       "displacement-variance table is not ported yet)")
+    if reasons:
+        raise NotImplementedError(
+            f"{what} (T={T}, D={D}, S={S}, window={window}, "
+            f"nb_substeps={nb_substeps}) is outside the CUDA kernels' "
+            "envelope: " + "; ".join(reasons))
+
+
+def kernel_inputs(positions, lengths, is_bleached, tables: ModelTables,
+                  window: int, nb_substeps: int):
+    """Kernel arguments: (xs, l2, lengths, isbl) as contiguous (B, T, D) /
+    (B,) tensors, and the ten table tensors in float32 (lp0, s20, lt, lsurv,
+    end, sig2v, ltn, s2n, lsn, endn), differentiable w.r.t. ``tables``.
+    The kernels drop the per-step 2*pi constants of the Gaussian
+    normalizers; every fusion adds lt, so the constant folds into lt
+    (exact, and lt's cotangent is unchanged)."""
+    B, T, D = positions.shape
+    f32 = torch.float32
+    lp0, sig2v, lt, lsurv, end, _ = (
+        v.to(f32) for v in build_slot_tables(tables, window, nb_substeps))
+    lt = lt - 0.5 * D * math.log(2 * math.pi)
+    nxt = [v.to(f32).contiguous()
+           for v in build_next_tables(tables, window, nb_substeps)]
+    xs = positions.to(f32).contiguous()
+    l2 = tables.loc_err2.to(f32).expand(B, T, D).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    isbl = is_bleached.to(f32).contiguous()
+    sig2v = sig2v.contiguous()
+    # s20 and sig2v are one table passed twice: autograd sums both
+    # cotangents into it
+    tabs = [lp0.contiguous(), sig2v, lt.contiguous(), lsurv.contiguous(),
+            end.contiguous(), sig2v] + nxt
+    return (xs, l2, lens, isbl), tabs
+
+
+def validate(data, tabs, K: int, A: int):
+    """Device, dtype, shape and contiguity checks before handing raw
+    pointers to a kernel."""
+    xs, l2, lens, isbl = data
+    dev = xs.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs must be CUDA tensors, got {dev}")
+    B, T, D = xs.shape
+    want = [(xs, (B, T, D), torch.float32), (l2, (B, T, D), torch.float32),
+            (lens, (B,), torch.int32), (isbl, (B,), torch.float32)]
+    want += [(t, (K,), torch.float32) for t in tabs[:6]]
+    want += [(t, (K, A), torch.float32) for t in tabs[6:]]
+    for t, shape, dtype in want:
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"kernel input {tuple(t.shape)} {t.dtype} on {t.device} "
+                f"(contiguous={t.is_contiguous()}); expected {shape} "
+                f"{dtype} contiguous on {dev}")
+
+
+def launch(data, tabs, min_len: int) -> torch.Tensor:
+    """Launch K1 on the current stream; returns logL (B,) float32."""
+    global LAUNCHES
+    xs = data[0]
+    B, T, D = xs.shape
+    K, A = tabs[6].shape
+    validate(data, tabs, K, A)
+    lib = cuda_lib.library()
+    logl = torch.empty(B, dtype=torch.float32, device=xs.device)
+    rc = lib.extrack_forward(
+        *(t.data_ptr() for t in (*data, *tabs, logl)),
+        B, T, D, K, A, int(min_len),
+        torch.cuda.current_stream(xs.device).cuda_stream)
+    cuda_lib.check(rc, "forward")
+    LAUNCHES += 1
+    return logl
+
+
+def forward_plain(positions, lengths, is_bleached, tables: ModelTables, *,
+                  window: int = 6, nb_substeps: int = 1,
+                  min_len: int = 3) -> torch.Tensor:
+    """The plain version of K1: ``core.engine.forward``."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    return engine.forward(positions, lengths, is_bleached, tables,
+                          window=window, nb_substeps=nb_substeps,
+                          min_len=min_len)
+
+
+def forward(positions, lengths, is_bleached, tables: ModelTables, *,
+            window: int = 6, nb_substeps: int = 1,
+            min_len: int = 3) -> torch.Tensor:
+    """Per-track log likelihood (B,).  CUDA inputs run K1 (float32 only;
+    anything outside its envelope raises); CPU inputs run the plain
+    version."""
+    if positions.device.type == "cpu":
+        return forward_plain(positions, lengths, is_bleached, tables,
+                             window=window, nb_substeps=nb_substeps,
+                             min_len=min_len)
+    B, T, D = positions.shape
+    check_envelope(T, D, tables.nb_states, window, nb_substeps,
+                   classify_sig2(tables.sig2, T),
+                   kernel_dtype(positions, tables))
+    data, tabs = kernel_inputs(positions, lengths, is_bleached, tables,
+                               window, nb_substeps)
+    return launch(data, [t.detach() for t in tabs], min_len)

@@ -10,7 +10,8 @@ setup(
                  "duration histograms, position refinement"),
     author="extrack-tpu developers",
     license="GPLv3",
-    packages=find_packages(include=["extrack_tpu", "extrack_tpu.*"]),
+    packages=find_packages(include=["extrack_tpu", "extrack_tpu.*",
+                                    "extrack_tpu_torch*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy", "pandas"],
     extras_require={
