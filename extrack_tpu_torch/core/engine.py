@@ -11,9 +11,11 @@ copies carrying a ``-r*log(S)`` offset.  The reference skips the fusion at its
 last loop step (tracking.py:255), so each track closes one step early, on the
 pre-fusion children of step L-2; 2-frame tracks close on the register itself.
 
-This module is the plain version of the forward kernel (ops/forward_kernel)
-and, through autograd, of the gradient kernel (ops/grad_kernel).  It runs on
-any device and dtype; the kernels run float32 on CUDA.
+This module is the plain version of the forward kernel (ops/forward_kernel),
+through autograd of the gradient and Hessian-vector-product kernels
+(ops/grad_kernel, ops/hvp_kernel), and with ``return_preds=True`` of the
+posterior kernel (ops/predict_kernel).  It runs on any device and dtype; the
+kernels run float32 on CUDA.
 
 Layout: working arrays keep the track axis last, (D, K, B) and (K, B), the
 same layout as the JAX engine, so the two transcribe line by line.  Slot
@@ -129,17 +131,30 @@ def forward(positions: torch.Tensor,
             *,
             window: int = 6,
             nb_substeps: int = 1,
-            min_len: int = 3) -> torch.Tensor:
-    """Per-track log likelihood (B,).
+            min_len: int = 3,
+            return_preds: bool = False):
+    """Per-track log likelihood (B,), or ``(logl, preds (B, T, S))`` with
+    ``return_preds=True``.
 
     positions: (B, T, D) padded tracks; lengths: (B,) valid frame counts
     (padded/empty tracks use length 0 and contribute exactly 0);
     is_bleached: (B,) 1.0 where the track ended inside the observation
     window.  Computes in ``positions.dtype`` on ``positions.device``.
+
+    The posteriors are carried through the fusions like the reference's
+    ``cur_Bs_cat`` (extrack/tracking.py:479,543-544,645-649): each slot keeps
+    a history ``cat (K, T+W, S)`` over the states of the frames that left
+    the window (row t+1 <-> frame t+1-W), mixed by the fusion weights every
+    step; at a track's last frame the register's softmax reduces the
+    histories and the register codes give the window's frames.  Padded
+    frames get 0.  Requires nb_substeps == 1, as predict_Bs
+    (extrack/tracking.py:839).
     """
     B, T, D = positions.shape
     spec = make_register_spec(tables.nb_states, window, nb_substeps)
-    S, n, K, A, G = spec.S, spec.n, spec.K, spec.A, spec.G
+    S, W, n, K, A, G = spec.S, spec.W, spec.n, spec.K, spec.A, spec.G
+    if return_preds and n != 1:
+        raise ValueError("posteriors require nb_substeps == 1")
     dtype, dev = positions.dtype, positions.device
 
     def idx(a):
@@ -177,6 +192,12 @@ def forward(positions: torch.Tensor,
     lp = lp_init[:, None].expand(K, B)
     logl = torch.zeros(B, dtype=dtype, device=dev)
 
+    if return_preds:
+        cat = torch.zeros((K, T + W, S, B), dtype=dtype, device=dev)
+        preds = torch.zeros((T, S, B), dtype=dtype, device=dev)
+        onehot = idx((spec.codes[:, ::-1, None] == np.arange(S))
+                     .astype(np.float64)).to(dtype)        # (K,W,S)
+
     lt_b = lt_ag[:, :, None, None].to(dtype)              # (A,G,1,1)
     lsurv_b = lsurv[:, None, None, None]                  # (A,1,1,1)
     zero = torch.zeros((), dtype=dtype, device=dev)
@@ -201,7 +222,7 @@ def forward(positions: torch.Tensor,
         new_m = (m * l2_t[:, None, :] + x_t[:, None, :] * s2) / tot
         tail = l2_t[:, None, :] * s2 / tot                # (D,K,B)
         gate = float(t + 1 >= min_len)
-        lp_child, _, lp_new, m_f, _, s2_new = branch_fuse(
+        lp_child, wn, lp_new, m_f, _, s2_new = branch_fuse(
             lp, lc, new_m, tail, sig2_ag, gate, lt_b, lsurv_b, G, A)
 
         # look-ahead closing on the pre-fusion children for tracks ending
@@ -222,5 +243,21 @@ def forward(positions: torch.Tensor,
         m = torch.where(keep[None], m_f.reshape(D, K, B), m)
         s2 = torch.where(keep[None], s2_new.reshape(D, K, B), s2)
         lp = torch.where(keep, lp_new.reshape(K, B), lp)
+
+        if return_preds:
+            # mix the histories with the fusion weights, then record the
+            # state distribution of the frame dropped from the window
+            catv = cat.reshape(G, A, T + W, S, B)
+            mixed = torch.einsum("agob,gotsb->agtsb", wn, catv)
+            mixed = mixed.reshape(K, T + W, S, B)
+            mixed[:, t + 1] = wn.reshape(K, S, B)
+            cat = torch.where(keep[None, None], mixed, cat)
+
+            pbar = torch.softmax(fin, dim=0)              # (K,B)
+            hist = torch.einsum("kb,ktsb->tsb", pbar, cat)
+            hist[t + 1:t + 1 + W] = torch.einsum("kb,kws->wsb", pbar, onehot)
+            preds = preds + torch.where(is_final[None, None], hist[W:], zero)
+    if return_preds:
+        return logl, preds.permute(2, 0, 1)
     return logl
 

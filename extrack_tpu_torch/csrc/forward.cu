@@ -34,8 +34,8 @@ __global__ void __launch_bounds__(1024)
   if (L >= 2) {
     float mx, s;
     const size_t off = (size_t)b * T * D;
-    out = track_forward<D>(tb, xs + off, l2s + off, L, isbls[b], sh, red,
-                           nullptr, &mx, &s);
+    out = track_forward<float, D>(tb, xs + off, l2s + off, L, isbls[b], sh,
+                                  red, nullptr, &mx, &s);
   }
   if (threadIdx.x == 0) logl[b] = out;
 }

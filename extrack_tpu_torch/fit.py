@@ -9,8 +9,11 @@ through the sigmoid bijection in ``params``.
 
 On CUDA every length bucket runs the gradient kernel (K2) for value and
 gradient and the forward kernel (K1) for value-only calls; a bucket outside
-the kernels' envelope raises when the objective is built.  On the CPU the
-plain engine runs.
+the kernels' envelope raises when the objective is built.  Fisher error bars
+come from exact Hessians: on CUDA one Hessian-vector-product kernel (K3)
+launch per free parameter and bucket (``hessian_hvp_exact``), on the CPU
+second-order autograd of the plain engine over chunks of tracks
+(``hessian_chunked``).  On the CPU the plain engine runs throughout.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ import torch
 
 from extrack_tpu_torch import data as tdata
 from extrack_tpu_torch import params as tparams
-from extrack_tpu_torch.core import tables
-from extrack_tpu_torch.ops import forward_kernel, grad_kernel
+from extrack_tpu_torch.core import engine, tables
+from extrack_tpu_torch.ops import cuda_lib, forward_kernel, grad_kernel, \
+    hvp_kernel
 
 
 @dataclasses.dataclass
@@ -122,6 +126,9 @@ def make_objective(batch,
 
     neg_logl.device = device
     neg_logl.dtype = dtype
+    neg_logl.batches = batches
+    neg_logl.window = window
+    neg_logl.min_len = min_len
     return neg_logl
 
 
@@ -171,9 +178,6 @@ def fit(batch,
     Gradient-free methods (Powell, Nelder-Mead, COBYLA) evaluate the value
     only.
     """
-    if compute_errors:
-        raise NotImplementedError(
-            "Fisher errors need the HVP kernel (K3), not yet ported")
     if checkpoint_path and resume and os.path.exists(checkpoint_path):
         with open(checkpoint_path) as fh:
             state = json.load(fh)
@@ -257,10 +261,162 @@ def fit(batch,
             torch.as_tensor(res.x, dtype=torch.float64)))
     fitted.set_values({k: float(v) for k, v in values.items()
                        if np.ndim(v) == 0})
+
+    std_errors = None
+    if compute_errors:
+        hessian = (hessian_hvp_exact if device.type == "cuda"
+                   else hessian_chunked)
+        H = hessian(neg_logl.batches, spec, res.x, dt, nb_states,
+                    cell_dims=cell_dims, nb_substeps=nb_substeps,
+                    window=neg_logl.window, min_len=neg_logl.min_len,
+                    matrix_type=matrix_type, input_loc_err=input_loc_err)
+        std_errors = fisher_errors_from_hessian(H, fitted, res.x)
     return FitResult(params=fitted, logl=-float(res.fun),
                      success=bool(res.success), n_evals=n_evals[0],
                      message=str(res.message), history=history,
-                     residual=float(res.fun))
+                     std_errors=std_errors, residual=float(res.fun))
+
+
+def _tables_fn(b, spec, dt, nb_states, cell_dims, nb_substeps, matrix_type,
+               input_loc_err):
+    """z -> ModelTables of bucket ``b``, on its device in its dtype."""
+    device, dtype = b.positions.device, b.positions.dtype
+
+    def tables_fn(z):
+        values = spec.resolve(spec.from_unconstrained(z))
+        Ds, Fs, rates, loc_err, pBL = tparams.extract_arrays(
+            values, nb_states,
+            input_loc_err=b.loc_err if input_loc_err else None,
+            device=device, dtype=dtype)
+        return tables.build_tables(
+            Ds, loc_err, Fs, rates, pBL, b.dt if b.dt is not None else dt,
+            cell_dims=tuple(cell_dims), nb_substeps=nb_substeps,
+            matrix_type=matrix_type)
+    return tables_fn
+
+
+def hessian_hvp_columns(batches, spec: tparams.Parameters, z_opt, dt,
+                        nb_states: int, *, cell_dims=(1.0,), nb_substeps=1,
+                        window=6, min_len=3, matrix_type=1,
+                        input_loc_err=False) -> np.ndarray:
+    """Observed-information Hessian of -logL at z_opt, one exact column
+    per free parameter and bucket, not symmetrised.
+
+    Over z, H = J_t^T H_t J_t + d(J_t^T g)/dz, with J_t the Jacobian of
+    z -> tables and g, H_t the gradient and Hessian of -logL w.r.t. the
+    tables.  Column j of the first term is one ``hvp_kernel.table_hvp``
+    along J_t e_j (one K3 launch for a CUDA bucket, the plain double
+    backward for a CPU one); J_t and the second term (g is the same for
+    every column) are plain autograd of z -> tables.  A CUDA bucket outside
+    the kernels' envelope raises, naming the bucket."""
+    device = batches[0].positions.device
+    dtype = batches[0].positions.dtype
+    z = torch.as_tensor(np.asarray(z_opt), dtype=dtype, device=device)
+    n = int(z.shape[0])
+    H = torch.zeros((n, n), dtype=torch.float64, device=device)
+    for i, b in enumerate(batches):
+        if device.type == "cuda":
+            forward_kernel.check_envelope(
+                b.max_len, b.nb_dims, nb_states, window, nb_substeps,
+                variable_dt=b.dt is not None, dtype=dtype,
+                what=f"length bucket {i} ({b.batch_size} tracks, "
+                     f"T={b.max_len})")
+        tables_fn = _tables_fn(b, spec, dt, nb_states, cell_dims,
+                               nb_substeps, matrix_type, input_loc_err)
+        with torch.no_grad():
+            tb = tables.ModelTables(*(f.detach() for f in tables_fn(z)))
+        jac = torch.autograd.functional.jacobian(
+            lambda z_: tuple(tables_fn(z_)), z)     # per field (*shape, n)
+        for j in range(n):
+            _, g, hv = hvp_kernel.table_hvp(
+                b.positions, b.lengths, b.is_bleached, tb,
+                tables.ModelTables(*(J[..., j] for J in jac)),
+                window=window, nb_substeps=nb_substeps, min_len=min_len)
+            H[:, j] += sum(torch.einsum("...i,...->i", J, hv[k]).double()
+                           for k, J in zip(tb._fields, jac))
+        H += torch.autograd.functional.hessian(
+            lambda z_: sum((f * g[k]).sum() for k, f in
+                           zip(tb._fields, tables_fn(z_))), z).double()
+    return H.cpu().numpy()
+
+
+def hessian_hvp_exact(batches, spec: tparams.Parameters, z_opt, dt,
+                      nb_states: int, **kw) -> np.ndarray:
+    """``hessian_hvp_columns`` symmetrised, 0.5 (H + H^T): the Hessian
+    fit(compute_errors=True) uses on CUDA."""
+    H = hessian_hvp_columns(batches, spec, z_opt, dt, nb_states, **kw)
+    return 0.5 * (H + H.T)
+
+
+def hessian_chunked(batches, spec: tparams.Parameters, z_opt, dt,
+                    nb_states: int, *, cell_dims=(1.0,), nb_substeps=1,
+                    window=6, min_len=3, matrix_type=1,
+                    input_loc_err=False, chunk: int = 65536) -> np.ndarray:
+    """Observed-information Hessian of -logL at z_opt by second-order
+    autograd of the plain engine, accumulated over chunks of ``chunk``
+    tracks: logL is additive over tracks, so memory stays O(chunk) at any
+    dataset size."""
+    device = batches[0].positions.device
+    dtype = batches[0].positions.dtype
+    z = torch.as_tensor(np.asarray(z_opt), dtype=dtype, device=device)
+    if min_len is None:
+        min_len = tdata.default_min_len(
+            np.concatenate([tdata.host_lengths(b) for b in batches]))
+    H = np.zeros((len(z), len(z)))
+    for b in batches:
+        for start in range(0, b.batch_size, chunk):
+            sl = slice(start, start + chunk)
+            part = tdata.TrackBatch(
+                b.positions[sl], b.lengths[sl],
+                None if b.loc_err is None else b.loc_err[sl],
+                b.is_bleached[sl], dt=None if b.dt is None else b.dt[sl])
+            tables_fn = _tables_fn(part, spec, dt, nb_states, cell_dims,
+                                   nb_substeps, matrix_type, input_loc_err)
+
+            def nl(z_, _b=part, _fn=tables_fn):
+                return -engine.forward(
+                    _b.positions, _b.lengths, _b.is_bleached, _fn(z_),
+                    window=window, nb_substeps=nb_substeps,
+                    min_len=min_len).sum()
+            H += torch.autograd.functional.hessian(nl, z).detach().cpu(
+            ).numpy().astype(np.float64)
+    return H
+
+
+def fisher_errors_from_hessian(H: np.ndarray, spec: tparams.Parameters,
+                               z_opt) -> Dict[str, float]:
+    """Standard errors of the free natural parameters from a Hessian in
+    unconstrained space: cov = J H^-1 J^T with J the bijection Jacobian
+    (pinv when H is singular)."""
+    z = torch.as_tensor(np.asarray(z_opt), dtype=torch.float64)
+
+    def natural(z_):
+        vals = spec.from_unconstrained(z_)
+        return torch.stack([vals[n] * torch.ones((), dtype=torch.float64)
+                            for n in spec.free_names()])
+
+    J = torch.autograd.functional.jacobian(natural, z).numpy()
+    try:
+        cov_z = np.linalg.inv(H)
+    except np.linalg.LinAlgError:
+        cov_z = np.linalg.pinv(H)
+    cov = J @ cov_z @ J.T
+    var = np.clip(np.diag(cov), 0.0, np.inf)
+    return {n: float(np.sqrt(v)) for n, v in zip(spec.free_names(), var)}
+
+
+def fisher_errors(neg_logl, spec: tparams.Parameters,
+                  z_opt) -> Dict[str, float]:
+    """Parameter standard errors from the inverse observed Fisher
+    information, by second-order autograd of ``neg_logl`` (an objective of
+    ``make_objective``) at z_opt.  Its CUDA kernels are once
+    differentiable, so on the card use ``hessian_hvp_exact`` +
+    ``fisher_errors_from_hessian`` (what fit() does)."""
+    z = torch.as_tensor(np.asarray(z_opt), dtype=neg_logl.dtype,
+                        device=neg_logl.device)
+    H = torch.autograd.functional.hessian(neg_logl, z)
+    return fisher_errors_from_hessian(
+        H.detach().cpu().numpy().astype(np.float64), spec, z_opt)
 
 
 def param_fitting(all_tracks,
@@ -281,13 +437,15 @@ def param_fitting(all_tracks,
                   compute_errors: bool = False,
                   length_buckets: int = 4,
                   *,
-                  device="cpu",
+                  device="cuda",
                   dtype=None,
                   **fit_kwargs) -> FitResult:
     """Drop-in style equivalent of the reference param_fitting
-    (extrack/tracking.py:1299-1387), on ``device`` in ``dtype``.  ``dtype``
-    defaults to float32 on CUDA, where the kernels compute in float32 and
-    raise for any other dtype, and to float64 elsewhere.
+    (extrack/tracking.py:1299-1387), on ``device`` in ``dtype``.  The
+    device defaults to the card and raises without one; ``device="cpu"``
+    runs the plain engine.  ``dtype`` defaults to float32 on CUDA, where
+    the kernels compute in float32 and raise for any other dtype, and to
+    float64 elsewhere.
 
     ``all_tracks`` is the length-keyed dict format.  ``workers``,
     ``threshold`` and ``max_nb_states`` are accepted for API compatibility:
@@ -295,6 +453,7 @@ def param_fitting(all_tracks,
     ``default_window``) replaces the reference's threshold pruning.
     """
     del workers, threshold, max_nb_states
+    cuda_lib.check_device(device)
     if dtype is None:
         dtype = (torch.float32 if torch.device(device).type == "cuda"
                  else torch.float64)

@@ -2,7 +2,8 @@
 library with a plain C interface, bound through ctypes.
 
 The library is compiled with nvcc for sm_90a (Hopper) on first use, from
-the package's own sources only, into ``extrack_tpu_torch/_build/``; the
+the package's own sources only, into ``extrack_tpu_torch/_build/``: one
+nvcc process per ``.cu`` file, all started together, then one link.  The
 file name carries a hash of the sources and flags, so an edited kernel is
 rebuilt and a current one is reused.  nvcc's ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside the library
@@ -23,13 +24,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer arguments, then int arguments, then the stream
 _SIGNATURES = {
     "extrack_forward": [_P] * 15 + [_I] * 6 + [_P],
     "extrack_grad": [_P] * 19 + [_I] * 7 + [_P],
+    "extrack_hvp": [_P] * 19 + [_I] * 7 + [_P],
+    "extrack_predict": [_P] * 17 + [_I] * 9 + [_P],
 }
 
 
@@ -59,13 +62,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    failed = [o.stem for o, p in zip(objs, procs) if p.returncode != 0]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append("link")
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           + "".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -79,6 +100,8 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.extrack_error_string.argtypes = [ctypes.c_int]
     lib.extrack_error_string.restype = ctypes.c_char_p
+    lib.extrack_predict_smem.argtypes = [ctypes.c_int]
+    lib.extrack_predict_smem.restype = ctypes.c_int
     return lib
 
 
@@ -89,6 +112,17 @@ def library() -> ctypes.CDLL:
             "the extrack CUDA kernels need a CUDA device, and "
             "torch.cuda.is_available() is False")
     return _load()
+
+
+def check_device(device):
+    """Raise unless ``device`` is the CPU or CUDA with a device present:
+    entry points that default to the card never carry on quietly on the
+    CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} needs a CUDA device, and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain engine on the CPU")
 
 
 def check(rc: int, name: str):

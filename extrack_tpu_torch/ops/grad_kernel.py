@@ -13,8 +13,10 @@ localization-error variances:
 * CPU tensors: the plain version, torch autograd of ``core.engine.forward``.
 
 Positions get no gradient on the kernel path (the fit differentiates
-parameters, never data).  ``LAUNCHES`` counts K2 launches, ``PLAIN_CALLS``
-calls of the plain version.
+parameters, never data).  The kernel path is once differentiable: a second
+derivative through it raises (exact second order is K3, ops/hvp_kernel).
+``LAUNCHES`` counts K2 launches, ``PLAIN_CALLS`` calls of the plain
+version.
 """
 from __future__ import annotations
 
@@ -30,12 +32,14 @@ PLAIN_CALLS = 0
 STASH_BUDGET = 1 << 30
 
 
-def grid_size(B: int, T: int, D: int, K: int, device) -> int:
+def grid_size(B: int, T: int, D: int, K: int, device,
+              itemsize: int = 4) -> int:
     """Persistent grid: enough blocks to fill the card, capped so the
-    carry history (T-1)*(2D+1)*K floats per block fits STASH_BUDGET."""
+    carry history (T-1)*(2D+1)*K scalars of ``itemsize`` bytes per block
+    fits STASH_BUDGET."""
     threads = (K + 31) // 32 * 32
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_block = max(1, (T - 1) * (2 * D + 1) * K * 4)
+    per_block = max(1, (T - 1) * (2 * D + 1) * K * itemsize)
     return max(1, min(B, sms * max(1, 2048 // threads),
                       STASH_BUDGET // per_block))
 
@@ -81,6 +85,7 @@ class NegLogLikelihood(torch.autograd.Function):
         return -logl.sum()
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         ct_l2, *cts = ctx.saved_tensors
         s = -g

@@ -78,19 +78,28 @@ def test_three_iteration_fit_reaches_same_z(dataset):
 
 def test_fit_options(dataset, tmp_path):
     tracks, _, tspec = dataset
-    with pytest.raises(NotImplementedError, match="K3"):
-        tfit.param_fitting(tracks, 0.02, compute_errors=True)
+    res_e = tfit.param_fitting(tracks, 0.02, params=tspec, verbose=0,
+                               max_iter=2, cell_dims=(0.5,),
+                               compute_errors=True, device="cpu")
+    assert list(res_e.std_errors) == tspec.free_names()
+    assert all(np.isfinite(v) for v in res_e.std_errors.values())
+    assert "+/-" in repr(res_e)
     ckpt = tmp_path / "fit.json"
     res = tfit.param_fitting(tracks, 0.02, params=tspec, verbose=0,
                              max_iter=2, cell_dims=(0.5,),
-                             checkpoint_path=str(ckpt), n_starts=2)
+                             checkpoint_path=str(ckpt), n_starts=2,
+                             device="cpu")
     saved = json.loads(ckpt.read_text())
     assert saved["objective"] == pytest.approx(-res.logl, rel=1e-9)
     assert np.isfinite(res.logl) and "FitResult" in repr(res)
     # gradient-free branch: value-only evaluations
     res_p = tfit.param_fitting(tracks, 0.02, params=tspec, verbose=0,
                                max_iter=1, method="Powell",
-                               cell_dims=(0.5,))
+                               cell_dims=(0.5,), device="cpu")
     assert np.isfinite(res_p.logl) and res_p.n_evals > 1
     assert tfit.default_window(2) == 6 and tfit.default_window(5) == 3
     assert tfit.default_window(5, nb_substeps=3) == 4
+    # the entry point runs on the card unless told otherwise
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tfit.param_fitting(tracks, 0.02, params=tspec, max_iter=1)

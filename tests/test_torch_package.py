@@ -11,11 +11,13 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import extrack_tpu_torch as e\n"
-        "from extrack_tpu_torch import data, fit, params, simulate\n"
+        "from extrack_tpu_torch import data, fit, params, predict, simulate\n"
         "from extrack_tpu_torch.core import engine, tables\n"
         "from extrack_tpu_torch.ops import cuda_lib, forward_kernel, "
-        "grad_kernel\n"
+        "grad_kernel, hvp_kernel, predict_kernel\n"
         "assert e.fit is fit and e.grad_kernel is grad_kernel\n"
+        "assert e.predict is predict and e.hvp_kernel is hvp_kernel\n"
+        "assert e.predict_kernel is predict_kernel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'extrack_tpu' or m.startswith('extrack_tpu.')]\n"
         "assert not bad, bad\n"
@@ -29,6 +31,10 @@ def test_import_leaves_jax_out():
 def test_kernel_sources_present():
     from extrack_tpu_torch.ops import cuda_lib
     names = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu*"))
-    assert names == ["common.cuh", "forward.cu", "grad.cu"]
+    assert names == ["common.cuh", "dual.cuh", "forward.cu", "grad.cu",
+                     "grad.cuh", "hvp.cu", "predict.cu"]
+    # every C entry point the wrappers call has a ctypes signature
+    assert set(cuda_lib._SIGNATURES) == {
+        "extrack_forward", "extrack_grad", "extrack_hvp", "extrack_predict"}
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert cuda_lib.library_path().parent == cuda_lib.BUILD_DIR
