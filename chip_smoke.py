@@ -36,7 +36,28 @@ Phases (each prints its lines; a failed check exits non-zero):
    with its K4 launch count, each bucket against the plain version, and
    the share of frames whose most probable state is the simulated one;
    K4's time at 2^20 tracks (T=10, W=5, S=2), launched on prepared inputs
-   and through ``predict_kernel.predict``.
+   and through ``predict_kernel.predict``;
+7. K5 (csrc/hist.cu): the histogram against ``hist_plain`` at seven
+   configurations with a forbidden transition (3 states, per-peak LocErr,
+   T=2 and 0/1-frame rows, D = 1 and 3, rows in global scratch), twice
+   for repeatability; then the histogram main path,
+   ``histograms.len_hist`` on the 10^5 tracks with the fitted parameters
+   (window 7, 4 length buckets), with its K5 launch count, each bucket
+   against the plain version, frame conservation, and the simulated
+   states' histogram beside it; K5's time at 2^20 tracks (T=10, W=7,
+   S=2), launched on prepared inputs and through ``hist_kernel.hist``;
+8. K6 (csrc/refine.cu): refined positions against ``refine_plain`` at
+   eight configurations with a zero in the transition matrix (odd K,
+   4 states, per-peak LocErr, T=2 and 0/1-frame rows, D = 1 and 3, a
+   stash in global scratch); then the refinement main path,
+   ``refine.position_refinement`` on the 10^5 tracks with the fitted
+   parameters (window 7, 4 length buckets), with its K6 launch count and
+   each bucket's first 4096 tracks against the plain version; the
+   refined and raw positions' RMS error on random walks with known true
+   positions; K6's time at 2^20 tracks (T=10, W=7, S=2), launched on
+   prepared inputs and through ``refine_kernel.refine``, and the plain
+   version's time on the same 2^20 tracks (in the chunks ``refine_plain``
+   makes, about 40 s on an H100).
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -46,7 +67,8 @@ operations its walk does on this run's lengths (``walk_ops``) over
 The line before the last is a JSON object describing each kernel: ``ms``
 is the bare launches' time, ``wrapper_ms`` the same work through the
 wrapper a caller uses (``forward``, ``value_and_table_grads``,
-``table_hvp``, ``predict``), host work included; the last
+``table_hvp``, ``predict``, ``hist``, ``refine``), host work included;
+the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without output of
 a result when no CUDA device is present.
 """
@@ -89,6 +111,24 @@ HVP_TRACKS = 1500
 PREDICT_CASES = [(2, 5, 2, 3001, 10, False), (3, 4, 2, 3001, 10, True),
                  (2, 3, 2, 257, 2, True), (2, 3, 3, 301, 12, False),
                  (2, 9, 1, 64, 60, True)]
+TOL_K5 = dict(rtol=2e-3, atol=2e-4)       # tests/test_pallas_hist.py
+TOL_FRAMES = 2e-3                          # frame conservation, relative
+TOL_K6_MU = dict(rtol=2e-4, atol=2e-5)     # tests/test_pallas_refine.py
+TOL_K6_SIGMA = dict(rtol=2e-3, atol=2e-5)
+# K5: (S, W, D, B, T, per-peak LocErr); the last one's rows do not fit in
+# shared memory and go to global scratch
+HIST_CASES = [(2, 7, 2, 3001, 10, False), (3, 5, 2, 3001, 10, False),
+              (2, 5, 2, 3001, 10, True), (2, 4, 2, 257, 2, True),
+              (2, 5, 1, 301, 12, False), (2, 4, 3, 301, 12, False),
+              (2, 9, 2, 64, 60, True)]
+# K6: the same fields; odd K (S=3), 4 states, and a stash in global scratch
+# last
+REFINE_CASES = [(2, 7, 2, 1001, 10, False), (3, 5, 2, 1001, 10, False),
+                (4, 4, 2, 1001, 10, False), (2, 5, 2, 3001, 10, True),
+                (2, 4, 2, 257, 2, True), (2, 5, 1, 301, 12, False),
+                (2, 4, 3, 301, 12, False), (2, 8, 2, 32, 60, True)]
+REFINE_CHECK = 4096           # main-path tracks per bucket held to plain
+REFINE_PLAIN_WARMUP = 1 << 10  # tracks per bucket of the plain K6 warm-up
 SIM = dict(nb_tracks=100_000, max_track_len=20, min_track_len=3,
            Ds=(0.0, 0.08), LocErr=0.02, dt=0.02, pBL=0.1, cell_dims=(0.5,),
            seed=0)
@@ -96,6 +136,7 @@ FIT_ITERS = 200
 BENCH_TRACKS = 1 << 20
 PLAIN_CHUNK = 1 << 17         # tracks per plain autograd call (memory)
 PLAIN_HVP_CHUNK = 1 << 15     # double backward keeps ~3x more per track
+PLAIN_HIST_CHUNK = 1 << 16    # the plain histogram carries ~4K*(1+S)*T
 HESS_CHUNK = 1 << 14          # hessian_chunked on the main path
 PEAK_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -186,12 +227,43 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
     slot.  K2 counts its backward walk at twice the forward's (each
     operation's pullback costs about two); K3 counts three per K2
     operation (value and product rule); K4 adds the live fusion at L-2,
-    the update at L-1, its history mix and the harvest."""
+    the update at L-1, its history mix and the harvest.  K5 runs L-2
+    fusions, each child mixing A members' (1+S)*min(t+1, T) run/hist
+    bins at step t (a weight of 4 and 2 per bin and member), and a
+    harvest of 4 per slot and bin.  K6 runs 2(L-2) transition-only
+    fusions (the suffix and the prefix scan), two one-sided ends of
+    9D+5 per slot, and at each of the L-2 interior positions the two
+    sides' precision forms (13D+6 per slot) and S*(K/S)^2 pairs of
+    11D+8 each (P, N, 1/P, the mean, the exponent and the product of P
+    per dimension; the weight's exp, rsqrt and products; the 1+2D
+    accumulations)."""
     L = np.asarray(lengths, dtype=np.int64)
     L = L[L >= 2]
     G = K // A
     step = K * (14 * D + 2) + G * (A * (5 + 4 * D) + 3 * D + 3) \
         + K * (D + 3)
+    if kind == "K5":
+        ops = 0.0
+        for t in range(1, int(L.max(initial=2)) - 1):
+            bins = (1 + S) * min(t + 1, T)
+            ops += float((L - 2 >= t).sum()) * (step + K * A * (4 + 2 * bins))
+        return ops + float(L.size) * K * (14 * D + 7 + 4 * S * T)
+    if kind == "K6":
+        pairs = S * (K // S) ** 2 * (11 * D + 8) + K * (13 * D + 6)
+        return float((2 * (L - 2) * step + 2 * K * (9 * D + 5)
+                      + (L - 2) * pairs).sum())
+    if kind == "K7":
+        # K = M register rows: each of steps 1..L-1 folds the observation
+        # into M rows (14D), closes (softmax, 4) and scores A*M children
+        # (9D+6); steps 1..L-2 also select the top M of NS = 2^ceil(log2
+        # A*M) rows by a bitonic network of log2(NS)(log2(NS)+1)/2
+        # compare-exchange stages, each row per stage a compare, a
+        # direction test and 2D+4 selects (key and payloads)
+        NS = 1 << int(np.ceil(np.log2(A * K)))
+        lg = int(np.log2(NS))
+        net = lg * (lg + 1) // 2 * NS * (2 * D + 6)
+        per_step = K * (14 * D + 4) + A * K * (9 * D + 6)
+        return float(((L - 1) * per_step + (L - 2) * net).sum())
     close = K * (14 * D + 4) + K * A * (9 * D + 8)
     close2 = K * (14 * D + 8)
     fwd = float(np.where(L == 2, close2,
@@ -263,6 +335,75 @@ def check_table_grads(tag, pos, lens, isbl, tb, **kw) -> float:
     return worst
 
 
+def check_hist(tag, got, want, frames: float) -> float:
+    """K5's (T, S) histogram against the plain one at TOL_K5, and frame
+    conservation: sum over l and s of l * hist[l-1, s] equals ``frames``
+    (the frames of the tracks of 2 frames or more) within TOL_FRAMES.
+    Prints one line, exits on a failure, returns the largest absolute
+    error."""
+    T = got.shape[0]
+    err = float((got - want).abs().max())
+    counted = float((got.double().cpu()
+                     * torch.arange(1, T + 1, dtype=torch.float64)[:, None]
+                     ).sum())
+    rel = abs(counted - frames) / max(frames, 1.0)
+    ok = (torch.allclose(got, want, **TOL_K5) and rel <= TOL_FRAMES
+          and bool(torch.isfinite(got).all()))
+    log(f"{tag}: max_abs_err {err:.3e} (max|hist| "
+        f"{float(want.abs().max()):.4e}), frames {counted:.1f} of "
+        f"{frames:.0f} (rel {rel:.2e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"K5 disagrees with hist_plain or loses frames at {tag}")
+    return err
+
+
+def refine_case(S, W, D, B, T, per_peak, seed, dev):
+    """Random walks (lengths 2..T, with 0/1-frame rows) and K6's inputs on
+    ``dev``: positions, lengths, l2, the floored log of a transition
+    matrix with a zero, per-state displacement variances."""
+    from extrack_tpu_torch.core import tables
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, T + 1, B)
+    lengths[:5] = (2, T, min(3, T), 0, 1)
+    xs = rng.normal(0, 0.05, (B, T, D)).cumsum(1)
+    tr = rng.uniform(0.05, 0.3, (S, S)) / S
+    tr[0, 1] = 0.0                                     # forbidden
+    np.fill_diagonal(tr, 0.0)
+    np.fill_diagonal(tr, 1.0 - tr.sum(1))
+    f32 = dict(dtype=torch.float32, device=dev)
+    l2 = (rng.uniform(1e-4, 9e-4, (B, T, D)) if per_peak
+          else np.full((1, 1, 1), 4e-4))
+    return (torch.tensor(xs, **f32),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.tensor(l2, **f32), tables.cap_log(torch.tensor(tr, **f32)),
+            torch.tensor((0.08 * (1 + np.arange(S))) ** 2, **f32))
+
+
+def check_refine(tag, mu, sig, mu0, sig0, pos, lens, l2) -> float:
+    """K6's (mu, sigma) against the plain version's at TOL_K6_MU /
+    TOL_K6_SIGMA; padded frames exact zeros, 1-frame rows the observation
+    and its localization error.  Prints one line, exits on a failure,
+    returns the largest absolute error."""
+    B, T, D = pos.shape
+    L = lens.cpu().numpy()
+    e_mu = float((mu - mu0).abs().max())
+    e_sig = float((sig - sig0).abs().max())
+    pad = torch.tensor(np.arange(T)[None, :] >= L[:, None], device=mu.device)
+    lone = torch.tensor(L == 1, device=mu.device)
+    l2 = l2.expand(B, T, D)
+    ok = (torch.allclose(mu, mu0, **TOL_K6_MU)
+          and torch.allclose(sig, sig0, **TOL_K6_SIGMA)
+          and bool(torch.isfinite(mu).all() and torch.isfinite(sig).all())
+          and bool((mu[pad] == 0).all() and (sig[pad] == 0).all())
+          and torch.equal(mu[lone, 0], pos[lone, 0])
+          and torch.equal(sig[lone, 0], l2[lone, 0].sqrt()))
+    log(f"{tag}: mu max_abs_err {e_mu:.3e}, sigma max_abs_err {e_sig:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"K6 disagrees with refine_plain at {tag}")
+    return max(e_mu, e_sig)
+
+
 def plain_hessian_columns(*args, **kw):
     """``fit.hessian_hvp_columns`` with the plain double backward in place
     of K3."""
@@ -323,10 +464,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from extrack_tpu_torch import data, fit, params, predict, simulate
+    from extrack_tpu_torch import (data, fit, histograms, params, predict,
+                                   refine, simulate)
     from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, grad_kernel,
-                                       hvp_kernel, predict_kernel)
+                                       hist_kernel, hvp_kernel,
+                                       predict_kernel, refine_kernel)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -351,16 +494,21 @@ def main() -> int:
                     "extrack_tpu/ops/pallas_hvp.py:78"),
         "K4": entry("posteriors", "predict.cu",
                     "extrack_tpu/ops/pallas_predict.py:65"),
+        "K5": entry("duration_hist", "hist.cu",
+                    "extrack_tpu/ops/pallas_hist.py:63"),
+        "K6": entry("refinement", "refine.cu",
+                    "extrack_tpu/ops/pallas_refine.py:108"),
     }
+    kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
+             hist_kernel, refine_kernel)
     errs = {k: [] for k in kinfo}
 
     def reset_counts():
-        for m in (forward_kernel, grad_kernel, hvp_kernel, predict_kernel):
+        for m in kmods:
             m.LAUNCHES = m.PLAIN_CALLS = 0
 
     def plain_calls():
-        return sum(m.PLAIN_CALLS for m in (forward_kernel, grad_kernel,
-                                           hvp_kernel, predict_kernel))
+        return sum(m.PLAIN_CALLS for m in kmods)
 
     # ---- phase 0: toolchain and build ---------------------------------
     nvcc = cuda_lib.find_nvcc()
@@ -771,6 +919,221 @@ def main() -> int:
         f"its wrapper {wms4:.3f} ms); plain "
         f"{pms4:.3f} ms; bound {kinfo['K4']['bound_ms']:.4f} ms "
         f"({kinfo['K4']['bound_by']}) [{card}]")
+
+    # ---- phase 7: K5 -------------------------------------------------------
+    for S, W, D, B, T, per_peak in HIST_CASES:
+        pos, lens, isbl, tb7 = parity_case(S, W, 1, 400 + S * 10 + W + T,
+                                           dev, B=B, T=T, D=D,
+                                           per_peak=per_peak)
+        kw7 = dict(window=W, min_len=2)
+        h = hist_kernel.hist(pos, lens, isbl, tb7, **kw7)
+        again = hist_kernel.hist(pos, lens, isbl, tb7, **kw7)
+        h0 = hist_kernel.hist_plain(pos, lens, isbl, tb7, **kw7)
+        L = lens.cpu().numpy()
+        errs["K5"].append(check_hist(
+            f"phase 7: K5 S={S} W={W} D={D} B={B} T={T} per-peak={per_peak}",
+            h, h0, float(L[L >= 2].sum())))
+        if not torch.equal(h, again):
+            fail(f"K5 gave two histograms for one input at S={S} W={W}")
+
+    # the histogram main path, through the default entry point
+    reset_counts()
+    t0 = time.time()
+    hist = histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                               nb_states=2)
+    t_hist = time.time() - t0
+    k5, plain = hist_kernel.LAUNCHES, plain_calls()
+    log(f"phase 7: len_hist on {n_tr} tracks (window 7) {t_hist:.2f} s; K5 "
+        f"launches {k5}, plain calls {plain} [{card}]")
+    if k5 != len(pbuckets) or plain != 0:
+        fail(f"histogram main path K5 launches {k5} (want {len(pbuckets)}), "
+             f"plain calls {plain}")
+    kinfo["K5"]["launches"] = k5
+    summed = np.zeros_like(hist)
+    for b in pbuckets:
+        args = (b.positions, b.lengths, b.is_bleached, tbf)
+        h = hist_kernel.hist(*args, window=7, min_len=min_len)
+        h0 = hist_kernel.hist_plain(*args, window=7, min_len=min_len)
+        L = data.host_lengths(b)
+        errs["K5"].append(check_hist(
+            f"phase 7: bucket T={b.max_len} B={b.batch_size}", h, h0,
+            float(L[L >= 2].sum())))
+        summed[:b.max_len] += h.double().cpu().numpy()
+    frames = sum(int(k) * len(v) for k, v in tracks.items() if int(k) >= 2)
+    counted = float((hist * np.arange(1, hist.shape[0] + 1)[:, None]).sum())
+    ok = (np.array_equal(summed, hist)
+          and abs(counted - frames) <= TOL_FRAMES * frames)
+    log(f"phase 7: len_hist = the sum of its buckets' K5 histograms: "
+        f"{np.array_equal(summed, hist)}; frames {counted:.1f} of {frames} "
+        f"(rel {abs(counted - frames) / frames:.2e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("len_hist differs from its buckets or loses frames")
+    truth = histograms.ground_truth_hist(true_states, nb_states=2)
+    log("phase 7: segments of length l, state 0 / state 1, fitted model vs "
+        "simulated states (for reading, not a gate):")
+    for ln in range(1, min(10, hist.shape[0]) + 1):
+        log(f"  l={ln:2d}: {hist[ln - 1, 0]:10.1f} / {hist[ln - 1, 1]:10.1f}"
+            f"   simulated {truth[ln - 1, 0]:8.0f} / {truth[ln - 1, 1]:8.0f}")
+
+    # K5 time at 2^20 tracks, T=10, W=7
+    args7 = [forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                          b.is_bleached, tb, 7, 1)
+             for b in bench]
+    args7 = [(d, [t.detach() for t in tabs[:6]]) for d, tabs in args7]
+
+    def k5_run():
+        for d, tabs in args7:
+            hist_kernel.launch(d, tabs, 3, 2, 7)
+
+    def k5_wrapped():
+        for b in bench:
+            hist_kernel.hist(b.positions, b.lengths, b.is_bleached, tb,
+                             window=7, min_len=3)
+
+    def p5_run():
+        with torch.no_grad():
+            for b in bench:
+                for i in range(0, b.batch_size, PLAIN_HIST_CHUNK):
+                    sl = slice(i, i + PLAIN_HIST_CHUNK)
+                    hist_kernel.hist_plain(
+                        b.positions[sl], b.lengths[sl], b.is_bleached[sl],
+                        tb, window=7, min_len=3)
+
+    ms5, wms5 = cuda_ms(k5_run, 10), cuda_ms(k5_wrapped, 5)
+    pms5 = cuda_ms(p5_run, 1)
+    # bytes: positions and l2 in, lengths and isBL in, the static segment
+    # tables once per bucket, the (T, S) histogram out
+    seg_bytes = sum(9 * 2 * b.max_len * 128 * 4 for b in bench)
+    kinfo["K5"]["ms"], kinfo["K5"]["plain_ms"] = ms5, pms5
+    kinfo["K5"]["wrapper_ms"] = wms5
+    kinfo["K5"]["bound_ms"], kinfo["K5"]["bound_by"] = bound(
+        2 * rows + 8 * n_bench + seg_bytes,
+        sum(walk_ops(data.host_lengths(b), 128, 2, 2, "K5", T=b.max_len,
+                     W=7, S=2) for b in bench))
+    log(f"phase 7: K5 {n_bench} tracks ({len(bench)} buckets), W=7: kernel "
+        f"{ms5:.3f} ms = {n_bench / ms5 * 1e3 / 1e6:.3f}M tracks/s (with "
+        f"its wrapper {wms5:.3f} ms); plain {pms5:.3f} ms (chunks of "
+        f"{PLAIN_HIST_CHUNK}); bound {kinfo['K5']['bound_ms']:.4f} ms "
+        f"({kinfo['K5']['bound_by']}) [{card}]")
+
+    # ---- phase 8: K6 -------------------------------------------------------
+    for S, W, D, B, T, per_peak in REFINE_CASES:
+        pos, lens, l2, lt, sig2 = refine_case(S, W, D, B, T, per_peak,
+                                              500 + S * 10 + W + T, dev)
+        mu, sig = refine_kernel.refine(pos, lens, l2, lt, sig2, window=W)
+        mu0, sig0 = refine_kernel.refine_plain(pos, lens, l2, lt, sig2,
+                                               window=W)
+        errs["K6"].append(check_refine(
+            f"phase 8: K6 S={S} W={W} D={D} B={B} T={T} per-peak={per_peak}",
+            mu, sig, mu0, sig0, pos, lens, l2))
+
+    # the refinement main path, through the default entry point, with the
+    # fitted parameters: ds = sqrt(2 D dt), the port's transition matrix
+    loc8 = values["LocErr"]
+    ds8 = np.sqrt(2.0 * np.array([values["D0"], values["D1"]]) * 0.02)
+    tr8 = tables.transition_matrix(rates).cpu().numpy()
+    reset_counts()
+    t0 = time.time()
+    mus, sigmas = refine.position_refinement(
+        tracks, loc8, ds8, [values["F0"], values["F1"]], tr8)
+    t_ref = time.time() - t0
+    k6, plain = refine_kernel.LAUNCHES, plain_calls()
+    log(f"phase 8: position_refinement on {n_tr} tracks (window "
+        f"{refine.default_window(2)}) {t_ref:.2f} s; K6 launches {k6}, plain "
+        f"calls {plain} [{card}]")
+    if k6 != len(pbuckets) or plain != 0:
+        fail(f"refinement main path K6 launches {k6} (want {len(pbuckets)}), "
+             f"plain calls {plain}")
+    kinfo["K6"]["launches"] = k6
+    f32 = dict(dtype=torch.float32, device=dev)
+    l2_8 = (torch.tensor(loc8, **f32) ** 2).reshape(1, 1, 1)
+    lt8 = tables.cap_log(torch.tensor(tr8, **f32))
+    sig2_8 = torch.tensor(ds8, **f32) ** 2
+    for b in pbuckets:
+        mu, sig = refine.refine_batch(b, loc8, ds8, tr8)
+        got_mu, got_sig = data.to_dict(b, mu), data.to_dict(b, sig[..., 0])
+        same = all(np.array_equal(got_mu[k], mus[k])
+                   and np.array_equal(got_sig[k], sigmas[k]) for k in got_mu)
+        n = min(REFINE_CHECK, b.batch_size)
+        mu0, sig0 = refine_kernel.refine_plain(
+            b.positions[:n], b.lengths[:n], l2_8, lt8, sig2_8, window=7)
+        errs["K6"].append(check_refine(
+            f"phase 8: bucket T={b.max_len} B={b.batch_size}, first {n} "
+            f"tracks", mu[:n], sig[:n], mu0, sig0, b.positions[:n],
+            b.lengths[:n], l2_8))
+        if not same:
+            fail(f"position_refinement differs from K6 on bucket "
+                 f"T={b.max_len}")
+
+    # for reading: random walks with known true positions
+    rng = np.random.default_rng(8)
+    n_rw, L_rw = 20_000, 12
+    st = np.zeros((n_rw, L_rw), int)
+    st[:, 0] = rng.random(n_rw) < 0.5
+    for t in range(1, L_rw):
+        st[:, t] = np.where(rng.random(n_rw) < tr8[st[:, t - 1], 1], 1, 0)
+    true = np.cumsum(rng.normal(0, 1, (n_rw, L_rw, 2))
+                     * ds8[st][..., None], axis=1)
+    obs = true + rng.normal(0, loc8, true.shape)
+    mu_rw, _ = refine.position_refinement({str(L_rw): obs}, loc8, ds8,
+                                          [0.5, 0.5], tr8)
+    rms_raw = float(np.sqrt(((obs - true) ** 2).mean()))
+    rms_ref = float(np.sqrt(((mu_rw[str(L_rw)] - true) ** 2).mean()))
+    log(f"phase 8: {n_rw} random walks of {L_rw} frames with known true "
+        f"positions (fitted ds, LocErr {loc8:.4g}): RMS error raw "
+        f"{rms_raw:.5f}, refined {rms_ref:.5f} (for reading, not a gate)")
+
+    # K6 time at 2^20 tracks, T=10, W=7; the plain version on all of them,
+    # in the chunks refine_plain makes (its mixture bounds their size)
+    tr_b = tables.transition_matrix(torch.tensor([[0.0, 0.1], [0.1, 0.0]],
+                                                 **f32))
+    lt_b = tables.cap_log(tr_b)
+    sig2_b = torch.tensor([0.0, 2 * 0.08 * 0.02], **f32)
+    l2_b = torch.full((1, 1, 1), 0.02 ** 2, **f32)
+    tabs8 = [t.contiguous() for t in (
+        *refine_kernel.build_refine_tables(lt_b, sig2_b, 7)[:2],
+        *refine_kernel.build_refine_tables(lt_b.T, sig2_b, 7)[:2],
+        refine_kernel.build_refine_tables(lt_b, sig2_b, 7)[2])]
+    args8 = [(b.positions.contiguous(), b.lengths.contiguous(),
+              l2_b.expand(b.positions.shape).contiguous()) for b in bench]
+
+    def k6_run():
+        for pos_, lens_, l2_ in args8:
+            refine_kernel.launch(pos_, lens_, l2_, tabs8, 2)
+
+    def k6_wrapped():
+        for b in bench:
+            refine_kernel.refine(b.positions, b.lengths, l2_b, lt_b, sig2_b,
+                                 window=7)
+
+    def p6_run(n=None):
+        with torch.no_grad():
+            for b in bench:
+                refine_kernel.refine_plain(b.positions[:n], b.lengths[:n],
+                                           l2_b, lt_b, sig2_b, window=7)
+
+    ms6, wms6 = cuda_ms(k6_run, 5), cuda_ms(k6_wrapped, 3)
+    p6_run(REFINE_PLAIN_WARMUP)         # warm-up on the first tracks only
+    pms6 = cuda_ms(p6_run, 1, warmup=0)
+    kinfo["K6"]["ms"], kinfo["K6"]["plain_ms"] = ms6, pms6
+    kinfo["K6"]["wrapper_ms"] = wms6
+    kinfo["K6"]["bound_ms"], kinfo["K6"]["bound_by"] = bound(
+        4 * rows + 4 * n_bench,
+        walk_ops(bench_lens, 128, 2, 2, "K6", S=2))
+    log(f"phase 8: K6 {n_bench} tracks ({len(bench)} buckets), W=7: kernel "
+        f"{ms6:.3f} ms = {n_bench / ms6 * 1e3 / 1e6:.3f}M tracks/s (with "
+        f"its wrapper {wms6:.3f} ms); plain {pms6:.3f} ms on all "
+        f"{n_bench} tracks; "
+        f"bound {kinfo['K6']['bound_ms']:.4f} ms "
+        f"({kinfo['K6']['bound_by']}) [{card}]")
+    # K7 is not ported: its bound alone, at the TPU benchmark's M=512 over
+    # the bench lengths (T=10); bytes: positions and l2 in, the parent and
+    # state backpointers ((T-1)*M each) and the final weights (M) out
+    k7_bytes = sum(b.batch_size * (2 * 9 * 512 + 512) * 4 for b in bench)
+    k7_ms, k7_by = bound(2 * rows + k7_bytes,
+                         walk_ops(bench_lens, 512, 2, 2, "K7"))
+    log(f"K7 (top-K histogram, not ported) at M=512 over the {n_bench} "
+        f"bench tracks: bound {k7_ms:.4f} ms ({k7_by})")
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])

@@ -2,19 +2,23 @@
 
 Single-particle-tracking state inference on the ExTrack model: maximum
 likelihood fitting of multi-state diffusion models on localization tracks,
-with Fisher error bars, and per-frame state annotation.  The likelihood,
-its gradient, its Hessian-vector products and the posteriors are
-hand-written CUDA kernels for NVIDIA Hopper (``ops/``); a plain PyTorch
-engine (``core.engine``) serves CPU tensors and checks the kernels.  Imports neither JAX nor the
-JAX package.
+with Fisher error bars, per-frame state annotation, state-duration
+histograms and position refinement.  The likelihood, its gradient, its
+Hessian-vector products, the posteriors, the histograms and the
+refinement are hand-written CUDA kernels for NVIDIA Hopper (``ops/``);
+plain PyTorch versions (``core.engine``, ``histograms``, ``refine``) serve
+CPU tensors and check the kernels.  Imports neither JAX nor the JAX
+package.
 """
 from extrack_tpu_torch.version import __version__  # noqa: F401
 
 _SUBMODULES = {
     "data": "extrack_tpu_torch.data",
     "fit": "extrack_tpu_torch.fit",
+    "histograms": "extrack_tpu_torch.histograms",
     "params": "extrack_tpu_torch.params",
     "predict": "extrack_tpu_torch.predict",
+    "refine": "extrack_tpu_torch.refine",
     "simulate": "extrack_tpu_torch.simulate",
     "engine": "extrack_tpu_torch.core.engine",
     "tables": "extrack_tpu_torch.core.tables",
@@ -22,6 +26,8 @@ _SUBMODULES = {
     "grad_kernel": "extrack_tpu_torch.ops.grad_kernel",
     "hvp_kernel": "extrack_tpu_torch.ops.hvp_kernel",
     "predict_kernel": "extrack_tpu_torch.ops.predict_kernel",
+    "hist_kernel": "extrack_tpu_torch.ops.hist_kernel",
+    "refine_kernel": "extrack_tpu_torch.ops.refine_kernel",
 }
 
 

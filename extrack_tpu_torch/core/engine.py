@@ -124,6 +124,62 @@ def _moment_match(lp, values):
     return lp_new, fused, wn
 
 
+class Walk(NamedTuple):
+    """Per-walk constants and the initial register, shared by the
+    likelihood walk (``forward``) and the window histogram."""
+    xs_pos: torch.Tensor        # (T, D, B) positions
+    xs_l2: torch.Tensor         # (T, D, B) localization variances
+    lt_b: torch.Tensor          # (A, G, 1, 1) branch transitions
+    lsurv_b: torch.Tensor       # (A, 1, 1, 1) survival
+    end_k: torch.Tensor         # (K, 1) end term per slot
+    sig2_ag_at: object          # step -> (A, G, 1|B) displacement variance
+    m: torch.Tensor             # (D, K, B) initial register
+    s2: torch.Tensor            # (D, K, B)
+    lp: torch.Tensor            # (K, B)
+
+
+def walk_setup(positions: torch.Tensor, tables: ModelTables,
+               spec: RegisterSpec) -> Walk:
+    """Walk constants and initial register for ``positions`` (B, T, D), in
+    its dtype and on its device."""
+    B, T, D = positions.shape
+    S, n, K, A, G = spec.S, spec.n, spec.K, spec.A, spec.G
+    dtype, dev = positions.dtype, positions.device
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    l2 = tables.loc_err2.to(dtype).expand(B, T, D)
+    xs_pos = positions.permute(1, 2, 0)                               # (T,D,B)
+    xs_l2 = l2.permute(1, 2, 0)
+    lt_ag = branch_log_trans(tables.log_trans, n)[:, idx(spec.prev0_g)]
+    lsurv = tables.log_survive.to(dtype)                              # (A,)
+    end_k = tables.end_ll[idx(spec.prev0_k)].to(dtype)[:, None]       # (K,1)
+    lp0 = init_log_prob(tables.log_trans, tables.log_frac, n)         # (P,)
+
+    # displacement variance tables as (A, G, 1|B) per step
+    sig2 = tables.sig2.to(dtype)
+    R = sig2.shape[-2]
+    ag_pat = idx((np.arange(A)[:, None] * S + spec.prev0_g[None, :]).ravel())
+
+    def sig2_ag_at(t_idx):
+        row = sig2[..., min(t_idx, R - 1), :]             # (P,)|(B,P)
+        agg = row[..., ag_pat]
+        if agg.ndim == 1:
+            return agg.reshape(A, G, 1)
+        return agg.T.reshape(A, G, B)
+
+    sig2_init = sig2[..., 0, :][..., idx(spec.init_pat)]  # (K,)|(B,K)
+    sig2_init = sig2_init[:, None] if sig2_init.ndim == 1 else sig2_init.T
+    m = xs_pos[0][:, None, :].expand(D, K, B)
+    s2 = (xs_l2[0][:, None, :] + sig2_init[None]).expand(D, K, B)
+    lp_init = (lp0[idx(spec.init_pat)]
+               - spec.dummy_digits * math.log(S)).to(dtype)
+    return Walk(xs_pos, xs_l2, lt_ag[:, :, None, None].to(dtype),
+                lsurv[:, None, None, None], end_k, sig2_ag_at, m, s2,
+                lp_init[:, None].expand(K, B))
+
+
 def forward(positions: torch.Tensor,
             lengths: torch.Tensor,
             is_bleached: torch.Tensor,
@@ -162,34 +218,11 @@ def forward(positions: torch.Tensor,
 
     lengths = lengths.to(device=dev, dtype=torch.int64)
     isbl = is_bleached.to(dtype)[None, :]                             # (1,B)
-    l2 = tables.loc_err2.to(dtype).expand(B, T, D)
-    xs_pos = positions.permute(1, 2, 0)                               # (T,D,B)
-    xs_l2 = l2.permute(1, 2, 0)
-    lt_ag = branch_log_trans(tables.log_trans, n)[:, idx(spec.prev0_g)]
-    lsurv = tables.log_survive.to(dtype)                              # (A,)
-    end_k = tables.end_ll[idx(spec.prev0_k)].to(dtype)[:, None]       # (K,1)
+    wk = walk_setup(positions, tables, spec)
+    xs_pos, xs_l2, end_k, sig2_ag_at = (wk.xs_pos, wk.xs_l2, wk.end_k,
+                                        wk.sig2_ag_at)
+    lt_b, lsurv_b, m, s2, lp = wk.lt_b, wk.lsurv_b, wk.m, wk.s2, wk.lp
     end_a = tables.end_ll[idx(state_codes(S, n)[:, 0])].to(dtype)     # (A,)
-    lp0 = init_log_prob(tables.log_trans, tables.log_frac, n)         # (P,)
-
-    # displacement variance tables as (A, G, 1|B) per step
-    sig2 = tables.sig2.to(dtype)
-    R = sig2.shape[-2]
-    ag_pat = idx((np.arange(A)[:, None] * S + spec.prev0_g[None, :]).ravel())
-
-    def sig2_ag_at(t_idx):
-        row = sig2[..., min(t_idx, R - 1), :]             # (P,)|(B,P)
-        agg = row[..., ag_pat]
-        if agg.ndim == 1:
-            return agg.reshape(A, G, 1)
-        return agg.T.reshape(A, G, B)
-
-    sig2_init = sig2[..., 0, :][..., idx(spec.init_pat)]  # (K,)|(B,K)
-    sig2_init = sig2_init[:, None] if sig2_init.ndim == 1 else sig2_init.T
-    m = xs_pos[0][:, None, :].expand(D, K, B)
-    s2 = (xs_l2[0][:, None, :] + sig2_init[None]).expand(D, K, B)
-    lp_init = (lp0[idx(spec.init_pat)]
-               - spec.dummy_digits * math.log(S)).to(dtype)
-    lp = lp_init[:, None].expand(K, B)
     logl = torch.zeros(B, dtype=dtype, device=dev)
 
     if return_preds:
@@ -198,8 +231,6 @@ def forward(positions: torch.Tensor,
         onehot = idx((spec.codes[:, ::-1, None] == np.arange(S))
                      .astype(np.float64)).to(dtype)        # (K,W,S)
 
-    lt_b = lt_ag[:, :, None, None].to(dtype)              # (A,G,1,1)
-    lsurv_b = lsurv[:, None, None, None]                  # (A,1,1,1)
     zero = torch.zeros((), dtype=dtype, device=dev)
     for t in range(1, T):
         x_t, l2_t = xs_pos[t], xs_l2[t]                    # (D,B)

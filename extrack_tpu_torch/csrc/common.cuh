@@ -1,6 +1,7 @@
 // Shared device code of the forward (forward.cu), gradient (grad.cu),
-// Hessian-vector-product (hvp.cu) and posterior (predict.cu) kernels: block
-// reductions, the per-slot Gaussian update and its pullback, and the
+// Hessian-vector-product (hvp.cu), posterior (predict.cu), histogram
+// (hist.cu) and refinement (refine.cu) kernels: block reductions, the
+// per-slot Gaussian update and its pullback, the fusion step and the
 // per-track forward walk.
 //
 // Mapping: one thread block walks one track at a time; thread k owns
@@ -164,6 +165,59 @@ static __device__ __forceinline__ Real look_child(
   return -quad_n;
 }
 
+// One fusion step, shared by every kernel's walk: slot k publishes its
+// Gaussian update `p` and base log weight `base` (lp - quad) to `pub`
+// ((2+2D)*K scalars), then child k moment-matches the A members of its
+// group, slots m0 .. m0+A-1 (m0 = (k % (K/A)) * A, computed by the caller),
+// into m and s2 (plus the child's displacement variance sig2v[k]).  The
+// per-step normalizers ride as rsqrt factors in the exp-sum shifted by the
+// group's max base.  Returns the group's log mass (the caller adds the
+// child's transition terms) and sets mx and inv_sw, so that member o's
+// fusion weight is xexp(pub[m0+o] - mx) * pub[K+m0+o] * inv_sw.  `pub`
+// stays readable until the caller's next barrier.
+template <typename Real, int D>
+static __device__ __forceinline__ Real fuse_group(
+    const Prep<Real, D>& p, Real base, Real* m, Real* s2, const Real* sig2v,
+    Real* pub, int K, int m0, int A, bool act, Real& mx, Real& inv_sw) {
+  const int k = threadIdx.x;
+  Real* sbase = pub;
+  Real* srq = pub + K;
+  Real* snm = pub + 2 * K;
+  Real* stl = pub + (2 + D) * K;
+  if (act) {
+    sbase[k] = base;
+    srq[k] = xrsqrt(p.prod);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      snm[d * K + k] = p.nm[d];
+      stl[d * K + k] = p.tl[d];
+    }
+  }
+  __syncthreads();
+  if (!act) return Real(0.f);
+  mx = Real(-INFINITY);
+  for (int o = 0; o < A; ++o) mx = shift_max(mx, sbase[m0 + o]);
+  Real sw = Real(0.f), mf[D], tf[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) mf[d] = tf[d] = Real(0.f);
+  for (int o = 0; o < A; ++o) {
+    const Real w = xexp(sbase[m0 + o] - mx) * srq[m0 + o];
+    sw += w;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      mf[d] += w * snm[d * K + m0 + o];
+      tf[d] += w * stl[d * K + m0 + o];
+    }
+  }
+  inv_sw = 1.0f / clamp_min(sw, kTiny);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    m[d] = mf[d] * inv_sw;
+    s2[d] = sig2v[k] + tf[d] * inv_sw;
+  }
+  return mx + xlog(clamp_min(sw, kTiny));
+}
+
 // Forward walk of one track of length L >= 2 (x, l2: (T, D) rows of the
 // track).  Returns the track's log likelihood (valid in every thread) and
 // the closing's max shift and exp-sum.  With `stash` non-null each step's
@@ -174,14 +228,11 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
                                      const Real* l2, int L, float isbl,
                                      Real* sh, Real* red, Real* stash,
                                      Real* close_mx, Real* close_sum) {
-  const int K = tb.K, A = tb.A, G = K / A;
+  const int K = tb.K, A = tb.A;
   const int k = threadIdx.x;
   const bool act = k < K;
+  const int m0 = (k % (K / A)) * A;   // first member of child k's group
   const float cl2pi = 0.5f * D * kLog2Pi;
-  Real* sbase = sh;
-  Real* srq = sh + K;
-  Real* snm = sh + 2 * K;
-  Real* stl = sh + (2 + D) * K;
 
   Real m[D], s2[D], lp = act ? tb.lp0[k] : Real(0.f);
   const Real s20 = act ? tb.s20[k] : Real(1.f);
@@ -260,43 +311,12 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
       *close_sum = s;
       out = mx + xlog(s);
     } else {
-      // fuse the oldest digits: per-step normalizers ride as rsqrt factors
-      // in the exp-sum shifted by max(lp - quad); their 2*pi constants are
-      // folded into lt by the host
-      if (act) {
-        sbase[k] = lp - p.quad;
-        srq[k] = xrsqrt(p.prod);
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          snm[d * K + k] = p.nm[d];
-          stl[d * K + k] = p.tl[d];
-        }
-      }
-      __syncthreads();
-      if (act) {
-        const int m0 = (k % G) * A;     // first member of this child's group
-        Real mx = Real(-INFINITY);
-        for (int o = 0; o < A; ++o) mx = shift_max(mx, sbase[m0 + o]);
-        Real sw = Real(0.f), mf[D], tf[D];
-#pragma unroll
-        for (int d = 0; d < D; ++d) mf[d] = tf[d] = Real(0.f);
-        for (int o = 0; o < A; ++o) {
-          const Real w = xexp(sbase[m0 + o] - mx) * srq[m0 + o];
-          sw += w;
-#pragma unroll
-          for (int d = 0; d < D; ++d) {
-            mf[d] += w * snm[d * K + m0 + o];
-            tf[d] += w * stl[d * K + m0 + o];
-          }
-        }
-        const Real inv_sw = 1.0f / clamp_min(sw, kTiny);
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          m[d] = mf[d] * inv_sw;
-          s2[d] = tb.sig2v[k] + tf[d] * inv_sw;
-        }
-        lp = mx + xlog(clamp_min(sw, kTiny)) + tb.lt[k] + gate * tb.lsurv[k];
-      }
+      // fuse the oldest digits; the 2*pi constants of the per-step
+      // normalizers are folded into lt by the host
+      Real mx = Real(0.f), inv_sw = Real(0.f);
+      const Real lse = fuse_group<Real, D>(p, lp - p.quad, m, s2, tb.sig2v,
+                                           sh, K, m0, A, act, mx, inv_sw);
+      if (act) lp = lse + tb.lt[k] + gate * tb.lsurv[k];
       __syncthreads();
     }
   }

@@ -47,15 +47,14 @@ __global__ void __launch_bounds__(1024)
                    float* __restrict__ cat_scratch) {
   extern __shared__ float sh[];
   __shared__ float red[33];
-  const int K = tb.K, A = tb.A, G = K / A;      // A == S (one sub-step)
+  const int K = tb.K, A = tb.A;                 // A == S (one sub-step)
   const int k = threadIdx.x;
   const bool act = k < K;
+  const int m0 = (k % (K / A)) * A;             // first member of k's group
   const float cl2pi = 0.5f * D * kLog2Pi;
   const int HS = max(T - W, 0) * S;             // history floats per slot
-  float* sbase = sh;
+  float* sbase = sh;                            // fuse_group's publish area
   float* srq = sh + K;
-  float* snm = sh + 2 * K;
-  float* stl = sh + (2 + D) * K;
   float* spb = sh + (2 + 2 * D) * K;            // softmax over the register
   float* cat0 = cat_scratch != nullptr
                     ? cat_scratch + (size_t)blockIdx.x * 2 * K * HS
@@ -159,33 +158,10 @@ __global__ void __launch_bounds__(1024)
         out = mxl + logf(block_sum(sl, red));
       }
       // fusion (as K1) and the history mix
+      float mx = 0.f, inv_sw = 0.f;
+      const float lse = fuse_group<float, D>(p, lp - p.quad, m, s2, tb.sig2v,
+                                             sh, K, m0, A, act, mx, inv_sw);
       if (act) {
-        sbase[k] = lp - p.quad;
-        srq[k] = rsqrtf(p.prod);
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          snm[d * K + k] = p.nm[d];
-          stl[d * K + k] = p.tl[d];
-        }
-      }
-      __syncthreads();
-      if (act) {
-        const int m0 = (k % G) * A;     // first member of this child's group
-        float mx = -INFINITY;
-        for (int o = 0; o < A; ++o) mx = fmaxf(mx, sbase[m0 + o]);
-        float sw = 0.f, mf[D], tf[D];
-#pragma unroll
-        for (int d = 0; d < D; ++d) mf[d] = tf[d] = 0.f;
-        for (int o = 0; o < A; ++o) {
-          const float w = expf(sbase[m0 + o] - mx) * srq[m0 + o];
-          sw += w;
-#pragma unroll
-          for (int d = 0; d < D; ++d) {
-            mf[d] += w * snm[d * K + m0 + o];
-            tf[d] += w * stl[d * K + m0 + o];
-          }
-        }
-        const float inv_sw = 1.0f / fmaxf(sw, kTiny);
         // dropped frame t+1-W: its posterior is the fusion weight of the
         // oldest digit o, the same for every child of the group
         const int fd = t + 1 - W;
@@ -199,12 +175,7 @@ __global__ void __launch_bounds__(1024)
             for (int j = 0; j < fd * S; ++j) dst[j] += wo * src[j];
           if (fd >= 0) dst[fd * S + o] = wo;
         }
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          m[d] = mf[d] * inv_sw;
-          s2[d] = tb.sig2v[k] + tf[d] * inv_sw;
-        }
-        lp = mx + logf(fmaxf(sw, kTiny)) + tb.lt[k] + gate * tb.lsurv[k];
+        lp = lse + tb.lt[k] + gate * tb.lsurv[k];
       }
       __syncthreads();
       float* tmp = cur;

@@ -33,7 +33,15 @@ _SIGNATURES = {
     "extrack_grad": [_P] * 19 + [_I] * 7 + [_P],
     "extrack_hvp": [_P] * 19 + [_I] * 7 + [_P],
     "extrack_predict": [_P] * 17 + [_I] * 9 + [_P],
+    "extrack_hist": [_P] * 14 + [_I] * 8 + [_P],
+    "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
 }
+# dynamic shared memory one block of a kernel may opt in to, per device
+_SMEM_QUERIES = ("extrack_predict_smem", "extrack_hist_smem",
+                 "extrack_refine_smem")
+# bytes of per-track carries the persistent blocks may hold in global
+# scratch when the carries do not fit in shared memory
+SCRATCH_BUDGET = 1 << 30
 
 
 def find_nvcc() -> str:
@@ -100,8 +108,9 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.extrack_error_string.argtypes = [ctypes.c_int]
     lib.extrack_error_string.restype = ctypes.c_char_p
-    lib.extrack_predict_smem.argtypes = [ctypes.c_int]
-    lib.extrack_predict_smem.restype = ctypes.c_int
+    for name in _SMEM_QUERIES:
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -123,6 +132,35 @@ def check_device(device):
             f"device {device!r} needs a CUDA device, and "
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain engine on the CPU")
+
+
+@functools.cache
+def smem_bytes(query: str, device_index: int) -> int:
+    """Dynamic shared memory a block of one kernel may opt in to on this
+    card: ``query`` (one of ``_SMEM_QUERIES``) returns the card's opt-in
+    limit (227 KB on Hopper) less the kernel's static shared memory."""
+    rc = getattr(library(), query)(device_index)
+    if rc < 0:
+        check(-rc, f"{query} (shared memory query)")
+    return rc
+
+
+def grid(query: str, dev, B: int, K: int, fixed_bytes: int,
+         carry_bytes: int):
+    """Blocks and scratch for a kernel that walks one track per block with
+    one thread per slot (K4, K5, K6).  When ``fixed_bytes`` of shared
+    memory plus the track's ``carry_bytes`` fit what a block may opt in to
+    (``query``), one block per track and no scratch; else persistent
+    blocks, as many as the card keeps resident, each with its carries in
+    global scratch.  Returns (nblk, float32 scratch tensor or None)."""
+    if fixed_bytes + carry_bytes <= smem_bytes(query, dev.index):
+        return max(B, 1), None
+    threads = (K + 31) // 32 * 32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblk = max(1, min(B, sms * max(1, 2048 // threads),
+                      SCRATCH_BUDGET // carry_bytes))
+    return nblk, torch.empty(nblk * carry_bytes // 4, dtype=torch.float32,
+                             device=dev)
 
 
 def check(rc: int, name: str):

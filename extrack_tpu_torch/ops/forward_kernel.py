@@ -117,7 +117,10 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
     if D not in (1, 2, 3):
         reasons.append(f"D={D} (kernels take 1..3 dimensions)")
     if K > MAX_SLOTS:
-        reasons.append(f"K=S**window={K} > {MAX_SLOTS} register slots")
+        fits = max((w for w in range(1, window) if S ** w <= MAX_SLOTS),
+                   default=0)
+        reasons.append(f"K=S**window={K} > {MAX_SLOTS} register slots "
+                       f"(the largest window that fits is {fits})")
     if window < nb_substeps + 1:
         reasons.append(f"window {window} < nb_substeps+1")
     if variable_dt:

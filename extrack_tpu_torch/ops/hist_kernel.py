@@ -1,0 +1,122 @@
+"""K5: the duration-histogram kernel (csrc/hist.cu) and its host side.
+
+Replaces extrack_tpu/ops/pallas_hist.py:_kernel (driven by hist_pallas).
+``hist`` returns the (T, S) posterior-expected segment-length histogram of
+a batch, summed over its tracks:
+
+* CUDA tensors (float32): one K5 launch on the K1 per-slot tables
+  (``forward_kernel.kernel_inputs``) and the window's static segment
+  tables (``segment_tables``).  Outside the envelope it raises.
+* CPU tensors: ``hist_plain``, which is
+  ``histograms.window_segment_histogram`` on the same inputs.
+
+``LAUNCHES`` counts K5 launches, ``PLAIN_CALLS`` calls of the plain version.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from extrack_tpu_torch import histograms
+from extrack_tpu_torch.core import engine
+from extrack_tpu_torch.core.tables import ModelTables
+from extrack_tpu_torch.ops import cuda_lib, forward_kernel
+
+LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+@functools.lru_cache(maxsize=16)
+def segment_tables(S: int, W: int, T: int):
+    """K5's static tables as numpy: ``seg`` (W+2, S*T, K) float32 and
+    ``ext`` (K,) int32.  ``seg[v]`` for v <= W counts the runs among the
+    newest v frames of each slot's window (``seg_all``), ``seg[W+1]`` the
+    runs completed inside the window (``seg_int``); bin j = s*T + m is a
+    length-(m+1) segment in state s, and the slot axis is last so that a
+    warp reads consecutive slots.  ``ext`` is the length of the run at
+    each window's oldest end."""
+    spec = engine.make_register_spec(S, W, 1)
+    seg_int, seg_all, ext = histograms._segment_tables(spec.codes, W, T, S)
+    seg = np.concatenate([seg_all, seg_int[None]])        # (W+2, K, T, S)
+    seg = seg.transpose(0, 3, 2, 1).reshape(W + 2, S * T, S ** W)
+    return (np.ascontiguousarray(seg, dtype=np.float32),
+            ext.astype(np.int32))
+
+
+@functools.lru_cache(maxsize=16)
+def device_segment_tables(S: int, W: int, T: int, device: torch.device):
+    """``segment_tables`` as tensors on ``device``, built once per shape."""
+    seg_np, ext_np = segment_tables(S, W, T)
+    return (torch.tensor(seg_np, device=device),
+            torch.tensor(ext_np, device=device))
+
+
+def rows_floats(T: int, S: int) -> int:
+    """Run and histogram rows per slot: T run-length bins and S*T
+    segment bins."""
+    return (1 + S) * T
+
+
+def launch(data, tabs, min_len: int, S: int, W: int) -> torch.Tensor:
+    """Launch K5 on the current stream; returns the (T, S) histogram,
+    float32 (the per-track rows are summed in float64 by one reduction
+    without atomics, so the same input gives the same bits)."""
+    global LAUNCHES
+    xs = data[0]
+    B, T, D = xs.shape
+    K = S ** W
+    forward_kernel.validate(data, tabs, K, S)
+    lib = cuda_lib.library()
+    dev = xs.device
+    seg, ext = device_segment_tables(S, W, T, dev)
+    rows = torch.empty((B, S * T), dtype=torch.float32, device=dev)
+    nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, K,
+                                  (3 + 2 * D) * K * 4,
+                                  2 * K * rows_floats(T, S) * 4)
+    rc = lib.extrack_hist(
+        *(t.data_ptr() for t in (*data, *tabs, seg, ext, rows)),
+        None if scratch is None else scratch.data_ptr(),
+        B, T, D, K, int(min_len), S, W, nblk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(rc, "histogram")
+    LAUNCHES += 1
+    out = rows.sum(dim=0, dtype=torch.float64).to(torch.float32)
+    return out.reshape(S, T).T
+
+
+def hist_plain(positions, lengths, is_bleached, tables: ModelTables, *,
+               window: int = 7, min_len: int = 3, nb_substeps: int = 1):
+    """The plain version of K5: ``histograms.window_segment_histogram``."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    return histograms.window_segment_histogram(
+        positions, lengths, is_bleached, tables, window=window,
+        min_len=min_len, nb_substeps=nb_substeps)
+
+
+def hist(positions, lengths, is_bleached, tables: ModelTables, *,
+         window: int = 7, min_len: int = 3, nb_substeps: int = 1):
+    """(T, S) segment-length histogram summed over the tracks.  CUDA
+    inputs run K5 (float32, one sub-step per frame; anything outside its
+    envelope raises); CPU inputs run the plain version."""
+    if positions.device.type == "cpu":
+        return hist_plain(positions, lengths, is_bleached, tables,
+                          window=window, min_len=min_len,
+                          nb_substeps=nb_substeps)
+    _, T, D = positions.shape
+    S = tables.nb_states
+    if nb_substeps != 1:
+        raise NotImplementedError(
+            f"histogram batch (nb_substeps={nb_substeps}) is outside K5's "
+            "envelope: it takes one sub-step per frame (the plain version "
+            "on the CPU takes more)")
+    forward_kernel.check_envelope(
+        T, D, S, window, 1, forward_kernel.classify_sig2(tables.sig2, T),
+        forward_kernel.kernel_dtype(positions, tables),
+        what="histogram batch")
+    with torch.no_grad():
+        data, tabs = forward_kernel.kernel_inputs(
+            positions, lengths, is_bleached, tables, window, 1)
+    return launch(data, tabs[:6], min_len, S, window)

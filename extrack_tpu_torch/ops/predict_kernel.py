@@ -14,8 +14,6 @@ per frame:
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from extrack_tpu_torch.core import engine
@@ -24,25 +22,12 @@ from extrack_tpu_torch.ops import cuda_lib, forward_kernel
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
-# bytes of posterior history the persistent blocks may hold when it does
-# not fit in shared memory
-HISTORY_BUDGET = 1 << 30
 
 
 def history_floats(T: int, W: int, S: int) -> int:
     """Posterior history per slot: the states of the frames that can leave
     the window before a track ends (frames 0 .. T-W-1)."""
     return max(T - W, 0) * S
-
-
-@functools.cache
-def smem_bytes(device_index: int) -> int:
-    """Dynamic shared memory a K4 block may opt in to on this card (227 KB
-    on Hopper, less the kernel's static reduction buffer)."""
-    rc = cuda_lib.library().extrack_predict_smem(device_index)
-    if rc < 0:
-        cuda_lib.check(-rc, "posterior (shared memory query)")
-    return rc
 
 
 def launch(data, tabs, min_len: int, S: int, W: int):
@@ -61,15 +46,9 @@ def launch(data, tabs, min_len: int, S: int, W: int):
     f32 = dict(dtype=torch.float32, device=dev)
     logl = torch.empty(B, **f32)
     preds = torch.empty((B, T, S), **f32)
-    hist = 2 * K * history_floats(T, W, S) * 4
-    if (3 + 2 * D) * K * 4 + hist <= smem_bytes(dev.index):
-        nblk, scratch = max(B, 1), None
-    else:
-        threads = (K + 31) // 32 * 32
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        nblk = max(1, min(B, sms * max(1, 2048 // threads),
-                          HISTORY_BUDGET // max(hist, 1)))
-        scratch = torch.empty(nblk * hist // 4, **f32)
+    nblk, scratch = cuda_lib.grid("extrack_predict_smem", dev, B, K,
+                                  (3 + 2 * D) * K * 4,
+                                  2 * K * history_floats(T, W, S) * 4)
     rc = lib.extrack_predict(
         *(t.data_ptr() for t in (*data, *tabs, logl, preds)),
         None if scratch is None else scratch.data_ptr(),

@@ -7,7 +7,9 @@ Tolerances (float32): per-track logL rtol 2e-5 / atol 2e-4; value rtol
 2e-5; table gradients rtol/atol 2e-3; Hessian columns rtol 5e-3 / atol
 1e-3 max|H| and symmetry 2e-3 max|H| (as tests/test_hvp.py holds the TPU
 kernel); posteriors' logL rtol/atol 2e-4, posteriors rtol 2e-3 / atol 2e-4
-(as tests/test_pallas_predict.py).
+(as tests/test_pallas_predict.py); histograms rtol 2e-3 / atol 2e-4 (as
+tests/test_pallas_hist.py); refined mu rtol 2e-4 / atol 2e-5 and sigma rtol
+2e-3 / atol 2e-5 (as tests/test_pallas_refine.py).
 """
 import numpy as np
 import pytest
@@ -15,8 +17,8 @@ import torch
 
 from extrack_tpu_torch import data, fit, params
 from extrack_tpu_torch.core import tables
-from extrack_tpu_torch.ops import (forward_kernel, grad_kernel, hvp_kernel,
-                                   predict_kernel)
+from extrack_tpu_torch.ops import (forward_kernel, grad_kernel, hist_kernel,
+                                   hvp_kernel, predict_kernel, refine_kernel)
 
 
 @pytest.fixture
@@ -141,3 +143,55 @@ def test_cuda_posteriors_match_plain(cuda, S, W, B, T, D):
     sums = preds.sum(-1).cpu().numpy()
     np.testing.assert_allclose(sums[valid], 1.0, atol=1e-3)
     assert np.all(sums[~valid] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,B,T,D", [(2, 5, 300, 9, 2), (3, 3, 77, 12, 3),
+                                       (2, 4, 5, 2, 1), (2, 9, 40, 60, 2)])
+def test_cuda_histogram_matches_plain(cuda, S, W, B, T, D):
+    pos, lens, isbl, tb = _case(cuda, S, 1, B, T, D)
+    kw = dict(window=W, min_len=3)
+    before = hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS
+    got = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+    again = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+    assert (hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    assert torch.equal(got, again)            # no atomics: repeatable
+    want = hist_kernel.hist_plain(pos, lens, isbl, tb, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4)
+    L = lens.cpu().numpy()
+    frames = float((got.cpu().double()
+                    * torch.arange(1, T + 1)[:, None]).sum())
+    np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
+    with pytest.raises(NotImplementedError, match="largest window"):
+        hist_kernel.hist(pos, lens, isbl, tb, window=11 if S == 2 else 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,B,T,D,per_peak", [
+    (2, 5, 300, 9, 2, False), (3, 4, 77, 12, 3, True), (4, 3, 5, 2, 1, False),
+    (2, 8, 16, 60, 2, True)])               # stash in global scratch
+def test_cuda_refinement_matches_plain(cuda, S, W, B, T, D, per_peak):
+    pos, lens, _, _ = _case(cuda, S, 1, B, T, D)
+    rng = np.random.default_rng(S + W)
+    tr = np.full((S, S), 0.1 / (S - 1))
+    np.fill_diagonal(tr, 0.9)
+    tr[0, -1] = 0.0                                   # forbidden
+    tr /= tr.sum(1, keepdims=True)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    log_trans = tables.cap_log(torch.tensor(tr, **f32))
+    sig2 = torch.tensor((0.08 * (1 + np.arange(S))) ** 2, **f32)
+    l2 = (torch.tensor(rng.uniform(1e-4, 9e-4, (B, T, D)), **f32)
+          if per_peak else torch.full((1, 1, 1), 4e-4, **f32))
+    before = refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS
+    mu, sig = refine_kernel.refine(pos, lens, l2, log_trans, sig2, window=W)
+    assert (refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    mu0, sig0 = refine_kernel.refine_plain(pos, lens, l2, log_trans, sig2,
+                                           window=W)
+    torch.testing.assert_close(mu, mu0, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(sig, sig0, rtol=2e-3, atol=2e-5)
+    L = lens.cpu().numpy()
+    valid = np.arange(T)[None, :] < L[:, None]
+    assert np.all(mu.cpu().numpy()[~valid] == 0.0)
+    assert np.all(sig.cpu().numpy()[~valid] == 0.0)
