@@ -57,7 +57,22 @@ Phases (each prints its lines; a failed check exits non-zero):
    positions; K6's time at 2^20 tracks (T=10, W=7, S=2), launched on
    prepared inputs and through ``refine_kernel.refine``, and the plain
    version's time on the same 2^20 tracks (in the chunks ``refine_plain``
-   makes, about 40 s on an H100).
+   makes, about 40 s on an H100);
+9. K7 (csrc/topk.cu): the top-K histogram against ``segment_topk_plain``
+   at ten configurations with a forbidden transition (M = 512 at 2 and 4
+   states, 3 states, two sub-steps, per-peak LocErr, D = 1 and 3, T = 2
+   and 0/1-frame rows, a saturated register, and a register that keeps
+   every sequence but at the last step, whose raw parents and states are
+   held slot by slot), each twice for repeatability; then the top-K main
+   path, ``histograms.len_hist(engine="topk")`` on the 10^5 tracks with
+   the fitted parameters (M = 512, one K7 launch per 32768 tracks of a
+   bucket), each bucket against the plain version, frame conservation,
+   and the window engine's histogram beside it; ``len_hist(engine="topk")``
+   on 3-state tracks, where the window engine's default raises; K7's time
+   at 2^20 tracks (T=10 with M=512, T=30 with M=128), launched on prepared
+   inputs and through ``topk_kernel.segment_topk`` (with the decode), the
+   plain version's time on the 2^20 tracks at T=10, M=512, and, for
+   reading, ``torch.topk`` on one step's (2^20, 1024) scores.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -67,7 +82,8 @@ operations its walk does on this run's lengths (``walk_ops``) over
 The line before the last is a JSON object describing each kernel: ``ms``
 is the bare launches' time, ``wrapper_ms`` the same work through the
 wrapper a caller uses (``forward``, ``value_and_table_grads``,
-``table_hvp``, ``predict``, ``hist``, ``refine``), host work included;
+``table_hvp``, ``predict``, ``hist``, ``refine``, ``segment_topk``), host
+work included;
 the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without output of
 a result when no CUDA device is present.
@@ -129,6 +145,25 @@ REFINE_CASES = [(2, 7, 2, 1001, 10, False), (3, 5, 2, 1001, 10, False),
                 (2, 4, 3, 301, 12, False), (2, 8, 2, 32, 60, True)]
 REFINE_CHECK = 4096           # main-path tracks per bucket held to plain
 REFINE_PLAIN_WARMUP = 1 << 10  # tracks per bucket of the plain K6 warm-up
+TOL_TOPK_UNPRUNED = dict(rtol=1e-4, atol=1e-5)   # tests/test_pallas_topk.py
+TOL_TOPK_PRUNED = dict(rtol=2e-3, atol=2e-2)
+# larger pruned cases, rtol and a fraction of max|hist| as atol: a near-tie
+# in f32 re-ranks only a marginal sequence; the kernel has agreed with the
+# plain version within 8e-8 of max|hist| (the f32 rounding of the sums)
+TOL_TOPK_LARGE = 1e-5
+# K7: (S, n, M, D, B, T, per-peak LocErr, tolerance): M = 512 is len_hist's
+# register (NS = 2048 at 4 states); the saturated register and the one that
+# keeps every sequence but at the last step run a few dozen tracks
+TOPK_CASES = [(2, 1, 512, 2, 3001, 10, False, "large"),
+              (3, 1, 128, 2, 3001, 10, False, "large"),
+              (2, 2, 64, 2, 3001, 10, False, "large"),
+              (4, 1, 512, 2, 3001, 10, False, "large"),
+              (2, 1, 128, 2, 3001, 10, True, "large"),
+              (2, 1, 128, 1, 301, 12, False, "large"),
+              (2, 1, 128, 3, 301, 12, False, "large"),
+              (2, 1, 128, 2, 257, 2, True, "large"),
+              (2, 1, 8, 2, 40, 8, False, "pruned"),
+              (3, 1, 88, 2, 24, 5, False, "unpruned")]
 SIM = dict(nb_tracks=100_000, max_track_len=20, min_track_len=3,
            Ds=(0.0, 0.08), LocErr=0.02, dt=0.02, pBL=0.1, cell_dims=(0.5,),
            seed=0)
@@ -217,6 +252,39 @@ def bench_buckets(dev, T=10, seed=0):
                                    dtype=torch.float32)
 
 
+def topk_bare(buckets, tb, M: int, dev):
+    """A function that launches K7 on prepared inputs over the 2-state
+    ``buckets`` (min_len 3), in the chunks hist_batch cuts, reusing one set
+    of output buffers per bucket across its chunks."""
+    from extrack_tpu_torch.histograms import TOPK_CHUNK
+    from extrack_tpu_torch.ops import topk_kernel
+    prep = []
+    for b in buckets:
+        d, t = topk_kernel.kernel_inputs(b.positions, b.lengths,
+                                         b.is_bleached, tb, M, 1)
+        prep.append((d, t, topk_kernel.buffers(
+            min(TOPK_CHUNK, b.batch_size), b.max_len, M, dev)))
+
+    def run():
+        for d, t, o in prep:
+            for i in range(0, d[0].shape[0], TOPK_CHUNK):
+                n = min(TOPK_CHUNK, d[0].shape[0] - i)
+                topk_kernel.launch([x[i:i + n] for x in d], t,
+                                   [x[:n] for x in o], 2, 1, 3)
+    return run
+
+
+def topk_wrapped(buckets, tb, M: int):
+    """A function that runs ``topk_kernel.segment_topk`` (K7 and the
+    decode) over ``buckets`` in the chunks hist_batch cuts."""
+    from extrack_tpu_torch.ops import topk_kernel
+
+    def run():
+        for b in buckets:
+            topk_chunks(b, M, topk_kernel.segment_topk, tb)
+    return run
+
+
 def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
     """Operations (flops, with each exp / log / rsqrt / division counted as
     one) that a kernel's walk needs on tracks of these lengths, without
@@ -253,17 +321,20 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
         return float((2 * (L - 2) * step + 2 * K * (9 * D + 5)
                       + (L - 2) * pairs).sum())
     if kind == "K7":
-        # K = M register rows: each of steps 1..L-1 folds the observation
-        # into M rows (14D), closes (softmax, 4) and scores A*M children
-        # (9D+6); steps 1..L-2 also select the top M of NS = 2^ceil(log2
-        # A*M) rows by a bitonic network of log2(NS)(log2(NS)+1)/2
-        # compare-exchange stages, each row per stage a compare, a
-        # direction test and 2D+4 selects (key and payloads)
-        NS = 1 << int(np.ceil(np.log2(A * K)))
-        lg = int(np.log2(NS))
-        net = lg * (lg + 1) // 2 * NS * (2 * D + 6)
-        per_step = K * (14 * D + 4) + A * K * (9 * D + 6)
-        return float(((L - 1) * per_step + (L - 2) * net).sum())
+        # K = M register rows: steps 1..L-1 fold the observation into the
+        # rows (14D each), the last one closes (softmax, 4 per row); each
+        # interior step 1..L-2 scores A*M children (9D+6), keeps the top M
+        # in order and rebuilds each survivor's payload (2D+4).  Keeping
+        # the top M needs no more than one compare and one tie compare per
+        # child against the M-th key, then a sort of the M survivors:
+        # M*log2(M) compare-exchanges of (key, index) pairs, each a
+        # compare, a tie compare and four selects.  The kernel's bitonic
+        # network over all 2^ceil(log2 A*M) children does 8 to 10 times
+        # that work at M = 128 to 512
+        interior = (A * K * (9 * D + 6) + 2 * A * K
+                    + 6 * K * int(np.log2(K)) + K * (2 * D + 4))
+        return float(((L - 1) * K * 14 * D + K * 4
+                      + (L - 2) * interior).sum())
     close = K * (14 * D + 4) + K * A * (9 * D + 8)
     close2 = K * (14 * D + 8)
     fwd = float(np.where(L == 2, close2,
@@ -335,26 +406,68 @@ def check_table_grads(tag, pos, lens, isbl, tb, **kw) -> float:
     return worst
 
 
-def check_hist(tag, got, want, frames: float) -> float:
-    """K5's (T, S) histogram against the plain one at TOL_K5, and frame
-    conservation: sum over l and s of l * hist[l-1, s] equals ``frames``
-    (the frames of the tracks of 2 frames or more) within TOL_FRAMES.
-    Prints one line, exits on a failure, returns the largest absolute
-    error."""
+def check_hist(tag, got, want, frames: float, tol=TOL_K5,
+               kernel="K5") -> float:
+    """A kernel's (T, S) histogram against the plain one at ``tol``, and
+    frame conservation: sum over l and s of l * hist[l-1, s] equals
+    ``frames`` (the frames of the tracks of 2 frames or more) within
+    TOL_FRAMES.  Prints one line, exits on a failure, returns the largest
+    absolute error."""
     T = got.shape[0]
     err = float((got - want).abs().max())
     counted = float((got.double().cpu()
                      * torch.arange(1, T + 1, dtype=torch.float64)[:, None]
                      ).sum())
     rel = abs(counted - frames) / max(frames, 1.0)
-    ok = (torch.allclose(got, want, **TOL_K5) and rel <= TOL_FRAMES
+    ok = (torch.allclose(got, want, **tol) and rel <= TOL_FRAMES
           and bool(torch.isfinite(got).all()))
     log(f"{tag}: max_abs_err {err:.3e} (max|hist| "
-        f"{float(want.abs().max()):.4e}), frames {counted:.1f} of "
-        f"{frames:.0f} (rel {rel:.2e}) {'ok' if ok else 'FAIL'}")
+        f"{float(want.abs().max()):.4e}, tol rtol {tol['rtol']:.0e} atol "
+        f"{tol['atol']:.3e}), frames {counted:.1f} of {frames:.0f} (rel "
+        f"{rel:.2e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"K5 disagrees with hist_plain or loses frames at {tag}")
+        fail(f"{kernel} disagrees with its plain version or loses frames at "
+             f"{tag}")
     return err
+
+
+def topk_tol(kind: str, want) -> dict:
+    """K7's tolerance for one TOPK_CASES kind against the plain histogram
+    ``want``."""
+    if kind == "large":
+        return dict(rtol=TOL_TOPK_LARGE,
+                    atol=TOL_TOPK_LARGE * float(want.abs().max()))
+    return TOL_TOPK_UNPRUNED if kind == "unpruned" else TOL_TOPK_PRUNED
+
+
+def live_backpointers_equal(got, want, P: int):
+    """(equal, live slots): K7's parents and states against the plain
+    version's on every live slot (one that descends from a real initial
+    pattern, as the plain version's parents trace it)."""
+    par, st, _ = got
+    par0, st0, _ = want
+    Tm1, B, M = par0.shape
+    live = torch.arange(M, device=par0.device).expand(B, M) < P
+    same, count = True, 0
+    for i in range(Tm1):
+        live = live.gather(1, par0[i])
+        same &= bool(torch.equal(par[i].long()[live], par0[i][live])
+                     and torch.equal(st[i][live], st0[i][live]))
+        count += int(live.sum())
+    return same, count
+
+
+def topk_chunks(b, M, fn, tb, min_len=3):
+    """Sum of ``fn`` (segment_topk or its plain version) over the chunks of
+    bucket ``b`` that hist_batch cuts for K7."""
+    from extrack_tpu_torch.histograms import TOPK_CHUNK
+    out = None
+    for i in range(0, b.batch_size, TOPK_CHUNK):
+        sl = slice(i, i + TOPK_CHUNK)
+        h = fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl], tb,
+               max_nb_states=M, min_len=min_len)
+        out = h if out is None else out + h
+    return out
 
 
 def refine_case(S, W, D, B, T, per_peak, seed, dev):
@@ -469,7 +582,8 @@ def main() -> int:
     from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, grad_kernel,
                                        hist_kernel, hvp_kernel,
-                                       predict_kernel, refine_kernel)
+                                       predict_kernel, refine_kernel,
+                                       topk_kernel)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -484,7 +598,8 @@ def main() -> int:
                 "bound_ms": None, "bound_by": None, "library_ms": None}
 
     # no single PyTorch call computes any of these recurrences, so
-    # library_ms stays null
+    # library_ms stays null (torch.topk does K7's selection only: its time
+    # is printed for reading)
     kinfo = {
         "K1": entry("forward_loglik", "forward.cu",
                     "extrack_tpu/ops/pallas_engine.py:218"),
@@ -498,9 +613,11 @@ def main() -> int:
                     "extrack_tpu/ops/pallas_hist.py:63"),
         "K6": entry("refinement", "refine.cu",
                     "extrack_tpu/ops/pallas_refine.py:108"),
+        "K7": entry("topk_hist", "topk.cu",
+                    "extrack_tpu/ops/pallas_topk.py:113"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
-             hist_kernel, refine_kernel)
+             hist_kernel, refine_kernel, topk_kernel)
     errs = {k: [] for k in kinfo}
 
     def reset_counts():
@@ -1126,14 +1243,172 @@ def main() -> int:
         f"{n_bench} tracks; "
         f"bound {kinfo['K6']['bound_ms']:.4f} ms "
         f"({kinfo['K6']['bound_by']}) [{card}]")
-    # K7 is not ported: its bound alone, at the TPU benchmark's M=512 over
-    # the bench lengths (T=10); bytes: positions and l2 in, the parent and
-    # state backpointers ((T-1)*M each) and the final weights (M) out
-    k7_bytes = sum(b.batch_size * (2 * 9 * 512 + 512) * 4 for b in bench)
-    k7_ms, k7_by = bound(2 * rows + k7_bytes,
-                         walk_ops(bench_lens, 512, 2, 2, "K7"))
-    log(f"K7 (top-K histogram, not ported) at M=512 over the {n_bench} "
-        f"bench tracks: bound {k7_ms:.4f} ms ({k7_by})")
+    # ---- phase 9: K7 -------------------------------------------------------
+    TOPK_CHUNK = histograms.TOPK_CHUNK
+    for S, n, M, D, B, T, per_peak, kind in TOPK_CASES:
+        pos, lens, isbl, tb9 = parity_case(S, 0, n, 600 + S * 10 + M + T,
+                                           dev, B=B, T=T, D=D,
+                                           per_peak=per_peak)
+        kw9 = dict(max_nb_states=M, min_len=2, nb_substeps=n)
+        tag = (f"phase 9: K7 S={S} n={n} M={M} D={D} B={B} T={T} "
+               f"per-peak={per_peak}")
+        raw = topk_kernel.backpointers(pos, lens, isbl, tb9, **kw9)
+        raw2 = topk_kernel.backpointers(pos, lens, isbl, tb9, **kw9)
+        h = topk_kernel.segment_topk(pos, lens, isbl, tb9, **kw9)
+        again = topk_kernel.segment_topk(pos, lens, isbl, tb9, **kw9)
+        h0 = topk_kernel.segment_topk_plain(pos, lens, isbl, tb9, **kw9)
+        L = lens.cpu().numpy()
+        errs["K7"].append(check_hist(tag, h, h0, float(L[L >= 2].sum()),
+                                     topk_tol(kind, h0), "K7"))
+        if not (all(torch.equal(a, b_) for a, b_ in zip(raw, raw2))
+                and torch.equal(h, again)):
+            fail(f"K7 gave two results for one input at {tag}")
+        if kind == "unpruned":
+            raw0 = histograms.segment_backpointers(pos, lens, isbl, tb9,
+                                                   **kw9)
+            same, count = live_backpointers_equal(raw, raw0, S ** (n + 1))
+            e_w = float((raw[2] - raw0[2]).abs().max())
+            ok = same and torch.allclose(raw[2], raw0[2],
+                                         **TOL_TOPK_UNPRUNED)
+            log(f"{tag}: raw parents and states equal on {count} live "
+                f"slots: {same}; w_final max_abs_err {e_w:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K7 backpointers differ from the plain version at {tag}")
+
+    # the top-K main path, through the default entry point
+    reset_counts()
+    t0 = time.time()
+    hist9 = histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                                nb_states=2, engine="topk")
+    t_topk = time.time() - t0
+    k7, plain = topk_kernel.LAUNCHES, plain_calls()
+    want_k7 = sum(-(-b.batch_size // TOPK_CHUNK) for b in pbuckets)
+    log(f"phase 9: len_hist(engine='topk') on {n_tr} tracks (M=512) "
+        f"{t_topk:.2f} s; K7 launches {k7} (want {want_k7}), plain calls "
+        f"{plain} [{card}]")
+    if k7 != want_k7 or plain != 0:
+        fail(f"top-K main path K7 launches {k7} (want {want_k7}), plain "
+             f"calls {plain}")
+    kinfo["K7"]["launches"] = k7
+    summed = np.zeros_like(hist9)
+    for b in pbuckets:
+        h = topk_chunks(b, 512, topk_kernel.segment_topk, tbf, min_len)
+        h0 = topk_chunks(b, 512, topk_kernel.segment_topk_plain, tbf,
+                         min_len)
+        L = data.host_lengths(b)
+        errs["K7"].append(check_hist(
+            f"phase 9: bucket T={b.max_len} B={b.batch_size}", h, h0,
+            float(L[L >= 2].sum()), topk_tol("large", h0), "K7"))
+        summed[:b.max_len] += h.double().cpu().numpy()
+    counted = float((hist9 * np.arange(1, hist9.shape[0] + 1)[:, None]).sum())
+    ok = (np.array_equal(summed, hist9)
+          and abs(counted - frames) <= TOL_FRAMES * frames)
+    log(f"phase 9: len_hist = the sum of its buckets' K7 histograms: "
+        f"{np.array_equal(summed, hist9)}; frames {counted:.1f} of {frames} "
+        f"(rel {abs(counted - frames) / frames:.2e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("len_hist(engine='topk') differs from its buckets or loses "
+             "frames")
+    log("phase 9: segments of length l, state 0 / state 1, top-K (M=512) vs "
+        "window (W=7) engine (for reading, not a gate):")
+    for ln in range(1, min(10, hist9.shape[0]) + 1):
+        log(f"  l={ln:2d}: {hist9[ln - 1, 0]:10.1f} / {hist9[ln - 1, 1]:10.1f}"
+            f"   window {hist[ln - 1, 0]:10.1f} / {hist[ln - 1, 1]:10.1f}")
+
+    # 3 states: the window engine's default (K = 3^7 > 1024) raises, the
+    # top-K engine runs through K7
+    tr3 = np.full((3, 3), 0.05) + np.eye(3) * 0.85
+    tracks3, _, _ = simulate.sim_fov(
+        nb_tracks=20_000, max_track_len=20, min_track_len=3, LocErr=0.02,
+        Ds=(0.0, 0.02, 0.1), TrMat=tr3, dt=0.02, pBL=0.1, cell_dims=(0.5,),
+        seed=3)
+    values3 = {"LocErr": 0.02, "D0": 0.0, "D1": 0.02, "D2": 0.1,
+               "F0": 1 / 3, "F1": 1 / 3, "F2": 1 / 3, "pBL": 0.1,
+               **{f"p{i}{j}": 0.05 for i in range(3) for j in range(3)
+                  if i != j}}
+    try:
+        histograms.len_hist(tracks3, values3, 0.02, cell_dims=(0.5,),
+                            nb_states=3)
+        fail("len_hist at 3 states, window 7, did not raise")
+    except NotImplementedError as e:
+        log(f"phase 9: 3 states, window engine: raises ({str(e)[:90]}...)")
+    buckets3 = data.from_dict_bucketed(tracks3, max_buckets=4, device=dev,
+                                       dtype=torch.float32)
+    reset_counts()
+    t0 = time.time()
+    hist3 = histograms.len_hist(tracks3, values3, 0.02, cell_dims=(0.5,),
+                                nb_states=3, engine="topk")
+    t3 = time.time() - t0
+    k7_3, plain = topk_kernel.LAUNCHES, plain_calls()
+    n3 = sum(b.batch_size for b in buckets3)
+    frames3 = sum(int(k) * len(v) for k, v in tracks3.items())
+    counted3 = float((hist3 * np.arange(1, hist3.shape[0] + 1)[:, None]
+                      ).sum())
+    want3 = sum(-(-b.batch_size // TOPK_CHUNK) for b in buckets3)
+    ok = (k7_3 == want3 and plain == 0 and np.isfinite(hist3).all()
+          and abs(counted3 - frames3) <= TOL_FRAMES * frames3)
+    log(f"phase 9: len_hist(nb_states=3, engine='topk') on {n3} tracks "
+        f"{t3:.2f} s: K7 launches {k7_3} (want {want3}), plain calls "
+        f"{plain}, frames {counted3:.1f} of {frames3} "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail("the 3-state top-K path did not run through K7 or lost frames")
+
+    # K7 times at 2^20 tracks: bare launches on prepared inputs (the output
+    # buffers reused across the chunks), through segment_topk (with the
+    # decode), the plain version at T=10, M=512
+    def topk_times(bench9, M9, reps):
+        return (cuda_ms(topk_bare(bench9, tb, M9, dev), reps),
+                cuda_ms(topk_wrapped(bench9, tb, M9), 2))
+
+    ms7, wms7 = topk_times(bench, 512, 5)
+    log(f"phase 9: K7 {n_bench} tracks ({len(bench)} buckets, T=10), M=512: "
+        f"kernel {ms7:.3f} ms = {n_bench / ms7 * 1e3 / 1e6:.4f}M tracks/s "
+        f"(with its wrapper and the decode {wms7:.3f} ms) [{card}]")
+
+    def p7_run(n=None):
+        with torch.no_grad():
+            for b in bench:
+                k = b.batch_size if n is None else n
+                sub = data.TrackBatch(b.positions[:k], b.lengths[:k],
+                                      is_bleached=b.is_bleached[:k])
+                topk_chunks(sub, 512, topk_kernel.segment_topk_plain, tb)
+
+    p7_run(1024)                        # warm-up on the first tracks only
+    pms7 = cuda_ms(p7_run, 1, warmup=0)
+    keys = torch.randn((n_bench, 1024), device=dev)
+    tk_ms = cuda_ms(lambda: torch.topk(keys, 512, dim=1), 3)
+    del keys
+    k7_ops = walk_ops(bench_lens, 512, 2, 2, "K7")
+    # bytes: positions and l2 in, lengths and isBL in; w_final (M floats)
+    # and the int16 / int8 backpointers ((T-1)*M each) out
+    k7_bytes = sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
+                   + b.batch_size * 512 * (4 + 3 * (b.max_len - 1))
+                   for b in bench)
+    kinfo["K7"]["ms"], kinfo["K7"]["plain_ms"] = ms7, pms7
+    kinfo["K7"]["wrapper_ms"] = wms7
+    kinfo["K7"]["bound_ms"], kinfo["K7"]["bound_by"] = bound(k7_bytes,
+                                                             k7_ops)
+    log(f"phase 9: K7 plain version on all {n_bench} tracks (chunks of "
+        f"{TOPK_CHUNK}) {pms7:.3f} ms; bound {kinfo['K7']['bound_ms']:.4f} "
+        f"ms ({kinfo['K7']['bound_by']}; bytes "
+        f"{k7_bytes / PEAK_BYTES * 1e3:.4f} ms, operations "
+        f"{k7_ops / PEAK_FLOPS * 1e3:.4f} ms); torch.topk(k=512) of one "
+        f"step's ({n_bench}, 1024) scores {tk_ms:.3f} ms (for reading: the "
+        f"selection only) [{card}]")
+    del bench
+    bench30 = bench_buckets(dev, T=30)
+    ms30, wms30 = topk_times(bench30, 128, 3)
+    lens30 = np.concatenate([data.host_lengths(b) for b in bench30])
+    b30, by30 = bound(sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
+                          + b.batch_size * 128 * (4 + 3 * (b.max_len - 1))
+                          for b in bench30),
+                      walk_ops(lens30, 128, 2, 2, "K7"))
+    log(f"phase 9: K7 {n_bench} tracks ({len(bench30)} buckets, T=30), "
+        f"M=128: kernel {ms30:.3f} ms (with its wrapper and the decode "
+        f"{wms30:.3f} ms); bound {b30:.4f} ms ({by30}) [{card}]")
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])

@@ -4,8 +4,9 @@ Single-particle-tracking state inference on the ExTrack model: maximum
 likelihood fitting of multi-state diffusion models on localization tracks,
 with Fisher error bars, per-frame state annotation, state-duration
 histograms and position refinement.  The likelihood, its gradient, its
-Hessian-vector products, the posteriors, the histograms and the
-refinement are hand-written CUDA kernels for NVIDIA Hopper (``ops/``);
+Hessian-vector products, the posteriors, the histograms (window and
+top-K) and the refinement are hand-written CUDA kernels for NVIDIA Hopper
+(``ops/``);
 plain PyTorch versions (``core.engine``, ``histograms``, ``refine``) serve
 CPU tensors and check the kernels.  Imports neither JAX nor the JAX
 package.
@@ -28,6 +29,7 @@ _SUBMODULES = {
     "predict_kernel": "extrack_tpu_torch.ops.predict_kernel",
     "hist_kernel": "extrack_tpu_torch.ops.hist_kernel",
     "refine_kernel": "extrack_tpu_torch.ops.refine_kernel",
+    "topk_kernel": "extrack_tpu_torch.ops.topk_kernel",
 }
 
 

@@ -4,19 +4,26 @@ Equivalent of the reference histogram engine (extrack/histograms.py:26-457):
 the posterior-weighted distribution of consecutive same-state segment
 lengths, a non-Markovian diagnostic of the fitted model.
 
-The engine is the fixed-window DP (``window_segment_histogram``): the
-likelihood engine's K = S**window register is augmented with a per-slot
-distribution over the length of the run holding the window's oldest frame
-and a per-slot histogram of the segments completed in the dropped history,
-both mixed by the same fusion weights as the Gaussian moments.  Exact when
-the window covers the whole track.  On CUDA every batch runs kernel K5
-(ops/hist_kernel); CPU tensors run this plain version.  The top-K engines
-of the JAX package (the XLA ``segment_histogram`` and kernel K7) are not
-ported yet.
+Two engines:
+
+* the fixed-window DP (``window_segment_histogram``, the default): the
+  likelihood engine's K = S**window register is augmented with a per-slot
+  distribution over the length of the run holding the window's oldest
+  frame and a per-slot histogram of the segments completed in the dropped
+  history, both mixed by the same fusion weights as the Gaussian moments.
+  Exact when the window covers the whole track.  On CUDA every batch runs
+  kernel K5 (ops/hist_kernel); CPU tensors run this plain version.
+* the top-K engine (``segment_histogram``), the reference's own pruning
+  rule (extrack/histograms.py:179-206): a register of ``max_nb_states``
+  explicit state sequences per track, re-selected each frame by a one-step
+  look-ahead score, with parent/state backpointers decoded at the end
+  (``decode_backpointers``).  On CUDA the register walk is kernel K7
+  (ops/topk_kernel); CPU tensors run ``segment_backpointers``.
 
 Deviations from the reference are the JAX package's, kept as they are:
 the end-of-track term is the tracking module's transition-weighted fold,
-and full-track-length segments are counted (DEVIATIONS.md 3b).
+pruning also applies at the last interior step, and full-track-length
+segments are counted (DEVIATIONS.md 3b).
 """
 from __future__ import annotations
 
@@ -29,6 +36,13 @@ from extrack_tpu_torch import data as tdata
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import engine, tables
 from extrack_tpu_torch.ops import cuda_lib
+
+_NEG = -1e30              # log weight of an unused register slot
+# engine names accepted by hist_batch / len_hist, as the JAX package's, and
+# the engine each runs: one implementation per device
+_ENGINES = {"window": "window", "pallas": "window", "xla": "window",
+            "topk": "topk", "topk_pallas": "topk"}
+TOPK_CHUNK = 32768        # tracks per K7 launch: the backpointers dominate
 
 
 def _segment_tables(codes: np.ndarray, W: int, T: int, S: int,
@@ -195,52 +209,214 @@ def window_segment_histogram(positions, lengths, is_bleached,
     return out.reshape(S, T).T
 
 
+def segment_backpointers(positions, lengths, is_bleached,
+                         tb: tables.ModelTables, *, max_nb_states: int = 512,
+                         min_len: int = 3, nb_substeps: int = 1):
+    """The top-K register walk, the plain version of K7, in ``positions``'
+    dtype on its device.
+
+    Each track keeps M = ``max_nb_states`` explicit state sequences, each
+    with a Gaussian mean and variance per dimension, a log-probability, an
+    accumulated survival term and its newest state; unused slots carry log
+    weight -1e30.  At each frame t = 1..T-1 the observation is folded into
+    every row, a track ending at t adds the softmax of its closing weights
+    to ``w_final``, and each row branches into A = S**n children scored by
+    the look-ahead integral of the next observation; a stable sort keeps
+    the top M (ties go to the lower child index a*M + parent).  Tracks
+    that have ended record identity parents and unchanged states.  dt may
+    be constant, per step or per track.
+
+    Returns (parents (T-1, B, M) int64, states (T-1, B, M) int8, w_final
+    (B, M)): row t-1 holds each survivor's parent slot and newest state
+    after step t, the JAX package's layout.
+    """
+    B, T, D = positions.shape
+    S = tb.nb_states
+    n = nb_substeps
+    A = S ** n                                 # branch patterns per step
+    P = S ** (n + 1)
+    newest_div = S ** (n - 1)                  # pattern -> newest digit
+    M = max_nb_states
+    if M < P:
+        raise ValueError(f"max_nb_states ({M}) must be >= "
+                         f"nb_states^(nb_substeps+1) = {P}")
+    dtype, dev = positions.dtype, positions.device
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    isbl = is_bleached.to(device=dev, dtype=dtype)[:, None]
+    l2 = tb.loc_err2.to(dtype).expand(B, T, D)
+    lsurv = tb.log_survive.to(dtype)[:, None]                  # (A, 1)
+    lt_tab = tables.branch_log_trans(tb.log_trans, n).to(dtype)  # (A, S)
+    end_k = tb.end_ll.to(dtype)
+    sig2 = tb.sig2.to(dtype)
+    R = sig2.shape[-2]
+
+    def sig2_at(t):
+        return sig2[..., min(t, R - 1), :]     # (P,) or (B, P)
+
+    def log_normal(x, mean, var):
+        # summed over the dimensions left to right, as K7 sums them, so that
+        # the two compute the same scores bit for bit
+        terms = -0.5 * torch.log(2 * np.pi * var) - (x - mean) ** 2 / (2 * var)
+        return sum(terms[..., d] for d in range(D))
+
+    # initial register: all S^(n+1) two-frame patterns, then unused slots
+    pairs = tables.state_codes(S, n + 1)       # (P, n+1) newest first
+    lp = torch.full((B, M), _NEG, dtype=dtype, device=dev)
+    lp[:, :P] = tables.init_log_prob(tb.log_trans, tb.log_frac, n).to(dtype)
+    ll = torch.zeros((B, M), dtype=dtype, device=dev)
+    newest = torch.zeros(M, dtype=torch.int64, device=dev)
+    newest[:P] = torch.as_tensor(pairs[:, 0], device=dev)
+    newest = newest.expand(B, M)
+    sig2_pat = sig2_at(0)[..., np.pad(np.arange(P), (0, M - P))]
+    m = positions[:, 0, None, :].expand(B, M, D)
+    s2 = (l2[:, 0, None, :] + sig2_pat.reshape(-1, M)[..., None]).expand(
+        B, M, D)
+    w_final = torch.zeros((B, M), dtype=dtype, device=dev)
+
+    a_idx = torch.arange(A, device=dev)[:, None]                # (A, 1)
+    slots = torch.arange(M, device=dev).expand(B, M)
+    parents, states = [], []
+    for t in range(1, T):
+        x_t, l2_t = positions[:, t, None, :], l2[:, t, None, :]
+        tn = min(t + 1, T - 1)
+        x_n, l2_n = positions[:, tn, None, None, :], l2[:, tn, None, None, :]
+        s2row = sig2_at(t)
+        is_final = (t == lengths - 1)[:, None]
+        keep = (t < lengths - 1)[:, None]
+
+        # observation at frame t, shared by the closing and the branch
+        tot = l2_t + s2
+        lc = log_normal(x_t, m, tot)
+        fin = lp + ll + isbl * end_k[newest] + lc
+        w_final = w_final + torch.where(is_final, torch.softmax(fin, -1), 0.0)
+
+        # children (B, A, M): new sub-state pattern axis first
+        new_m = (m * l2_t + x_t * s2) / tot
+        tail = l2_t * s2 / tot
+        gate = float(t + 1 >= min_len)
+        lt = lt_tab.T[newest].transpose(1, 2)
+        pat = a_idx * S + newest[:, None, :]
+        sig2_new = (s2row[pat] if s2row.ndim == 1 else
+                    s2row.gather(1, pat.reshape(B, A * M)).reshape(B, A, M))
+        lp_child = lp[:, None, :] + lt + lc[:, None, :]
+        ll_child = ll[:, None, :] + gate * lsurv
+        s2_child = sig2_new[..., None] + tail[:, None]          # (B,A,M,D)
+
+        # look-ahead score (histograms.py:183-199): LP + next-obs integral
+        look = lp_child + log_normal(x_n, new_m[:, None], l2_n + s2_child)
+        order = torch.sort(-look.reshape(B, A * M), dim=1,
+                           stable=True).indices[:, :M]
+        parent = order % M
+        new_state = order // M // newest_div
+
+        m = torch.where(keep[..., None],
+                        new_m.gather(1, parent[..., None].expand(B, M, D)), m)
+        s2 = torch.where(keep[..., None], s2_child.reshape(B, A * M, D).gather(
+            1, order[..., None].expand(B, M, D)), s2)
+        lp = torch.where(keep, lp_child.reshape(B, -1).gather(1, order), lp)
+        ll = torch.where(keep, ll_child.reshape(B, -1).gather(1, order), ll)
+        newest = torch.where(keep, new_state, newest)
+        parents.append(torch.where(keep, parent, slots))
+        states.append(newest.to(torch.int8))
+    if T < 2:
+        empty = torch.zeros((0, B, M), dtype=torch.int64, device=dev)
+        return empty, empty.to(torch.int8), w_final
+    return torch.stack(parents), torch.stack(states), w_final
+
+
+def segment_histogram(positions, lengths, is_bleached,
+                      tb: tables.ModelTables, *, max_nb_states: int = 512,
+                      min_len: int = 3, nb_substeps: int = 1):
+    """(T, S) posterior-weighted segment-length histogram of the top-K
+    engine, summed over the tracks: ``segment_backpointers`` decoded by
+    ``decode_backpointers``.  With ``nb_substeps`` = n > 1 each frame step
+    branches over all S**n sub-state patterns and segments are decoded at
+    frame resolution (DEVIATIONS.md 3b); ``tb`` is built with the same n.
+    """
+    S = tb.nb_states
+    parents, states, w_final = segment_backpointers(
+        positions, lengths, is_bleached, tb, max_nb_states=max_nb_states,
+        min_len=min_len, nb_substeps=nb_substeps)
+    return decode_backpointers(parents, states, w_final, lengths,
+                               tables.state_codes(S, nb_substeps + 1), S,
+                               max_nb_states)
+
+
+def decode_backpointers(parents, states, w_final, lengths, pairs, S, M):
+    """Backtrack (T-1, B, M) parent/state backpointers (any integer dtype,
+    any strides) into explicit sequences and decode their segments, on
+    their device.  Shared by the plain top-K engine and K7.
+
+    After reverse step i (walk step t = i+1) the chain maps final slots to
+    the register after step t-1; vals[i] is the state at frame i+2 of each
+    final slot."""
+    Tm1, B, _ = parents.shape
+    dev = w_final.device
+    chain = torch.arange(M, device=dev).expand(B, M)
+    vals = [None] * Tm1
+    for i in range(Tm1 - 1, -1, -1):
+        vals[i] = states[i].gather(1, chain)
+        chain = parents[i].gather(1, chain).long()
+    # chain now indexes the INITIAL register: frames 0 and 1 come from the
+    # two-frame init patterns; vals[T-2] targets frame T (discarded)
+    pairs_pad = torch.zeros((M, pairs.shape[1]), dtype=torch.int8,
+                            device=dev)
+    pairs_pad[:pairs.shape[0]] = torch.as_tensor(pairs, device=dev)
+    seqs = torch.stack([pairs_pad[:, -1][chain], pairs_pad[:, 0][chain]]
+                       + vals[:Tm1 - 1], dim=-1)
+    return decode_segments(seqs, w_final, lengths, S)
+
+
 def decode_segments(seqs, weights, lengths, nb_states: int):
     """Histogram of same-state run lengths, weighted per sequence.
 
     seqs: (B, M, T) int states in forward time order; weights: (B, M);
     lengths: (B,) valid frame counts.  Returns (T, S).
-    Vectorized equivalent of the reference's per-step run decoding
-    (extrack/histograms.py:253-284).
+    Equivalent of the reference's per-step run decoding
+    (extrack/histograms.py:253-284), one pass over the frames with a run
+    counter per sequence: a segment ends at frame t when the next state
+    differs or the track ends there, and its weight goes to bin (its
+    length - 1, state).  Each sequence keeps its own column of T*S bins: a frame adds
+    one value to each column, so no two adds of one launch meet and the
+    bins take the same bits on every run on the card (unlike an atomic
+    index_add_ into one histogram); a row sum reduces them at the end.
+    Bin-major columns keep a frame's adds to neighbouring sequences close
+    in memory.  Work and memory are linear in T.
     """
     B, M, T = seqs.shape
     S = nb_states
-    seqs = seqs.long()
-    lengths = lengths.long()
-    t_idx = torch.arange(T, device=seqs.device)
-    valid = t_idx[None, :] < lengths[:, None]                   # (B, T)
-    change = torch.cat([seqs[:, :, 1:] != seqs[:, :, :-1],
-                        torch.ones((B, M, 1), dtype=torch.bool,
-                                   device=seqs.device)], dim=-1)
-    is_end = ((change | (t_idx[None, None] == (lengths - 1)[:, None, None]))
-              & valid[:, None, :])
-    endpos = torch.where(is_end, t_idx[None, None], -1)
-    last_end = torch.cummax(
-        torch.cat([torch.full((B, M, 1), -1, device=seqs.device),
-                   endpos[:, :, :-1]], dim=-1), dim=2).values
-    seg_len = torch.where(is_end, t_idx[None, None] - last_end, 0)  # 1..T
-
-    flat_idx = ((seg_len - 1) * S + seqs).reshape(-1)
-    vals = (weights[..., None].expand(seqs.shape) * is_end).reshape(-1)
-    hist = torch.zeros(T * S, dtype=weights.dtype, device=weights.device)
-    hist.index_add_(0, flat_idx.clamp(0, T * S - 1), vals)
-    return hist.reshape(T, S)
+    N = B * M
+    dev, dtype = weights.device, weights.dtype
+    seqs = seqs.reshape(N, T)
+    w = weights.reshape(N)
+    last = lengths.to(device=dev, dtype=torch.int32).repeat_interleave(M) - 1
+    run = torch.zeros(N, dtype=torch.int32, device=dev)    # length - 1
+    bins = torch.zeros((T * S, N), dtype=dtype, device=dev)
+    for t in range(T):
+        cur = seqs[:, t]
+        end = last == t
+        if t + 1 < T:
+            end |= (last > t) & (seqs[:, t + 1] != cur)
+        bins.scatter_add_(0, (run * S + cur).long()[None], (w * end)[None])
+        run = torch.where(end, 0, run + 1)
+    return bins.sum(1).reshape(T, S)
 
 
-def _check_engine(engine_name: str, sharded: bool):
-    if engine_name in ("topk", "topk_pallas"):
+def _check_engine(engine_name: str, sharded: bool, nb_substeps: int) -> str:
+    """The engine that ``engine_name`` runs, 'window' or 'topk'.  The JAX
+    package's names of its two implementations of each ('pallas'/'xla',
+    'topk_pallas') run the port's one implementation per device."""
+    if engine_name not in _ENGINES:
+        raise ValueError(f"unknown engine {engine_name!r}; the engines are "
+                         f"{sorted(_ENGINES)}")
+    if engine_name == "pallas" and nb_substeps != 1:
         raise NotImplementedError(
-            f"engine={engine_name!r}: the top-K histogram engines (the XLA "
-            "segment_histogram, extrack_tpu/histograms.py:59, and kernel "
-            "K7, extrack_tpu/ops/pallas_topk.py) are not ported yet; use "
-            "engine='window'")
-    if engine_name != "window":
-        raise ValueError(f"unknown engine {engine_name!r}; the port's "
-                         "engine is 'window'")
+            "nb_substeps > 1 requires engine='window' or 'topk'")
     if sharded:
         raise NotImplementedError(
             "sharded histograms wait for the torch.distributed port "
             "(ROADMAP Queue 1 item 15)")
+    return _ENGINES[engine_name]
 
 
 def hist_batch(batch: tdata.TrackBatch,
@@ -259,25 +435,38 @@ def hist_batch(batch: tdata.TrackBatch,
                sharded: bool = False) -> torch.Tensor:
     """(T, S) duration histogram of a TrackBatch, on its device.
 
-    ``window`` counts frames; with nb_substeps = n the register covers
-    n*(window-1)+1 sub-steps.  A CUDA batch is one K5 launch (or one per
-    ``chunk`` tracks when given); the plain version on the CPU carries
-    ~K*S*T floats per track, so CPU batches run in chunks.
-    ``max_nb_states`` belongs to the top-K engines, which are not ported.
+    engine 'window' (or 'pallas' / 'xla'): ``window`` counts frames; with
+    nb_substeps = n the register covers n*(window-1)+1 sub-steps.  A CUDA
+    batch is one K5 launch (or one per ``chunk`` tracks when given); the
+    plain version on the CPU carries ~K*S*T floats per track, so CPU
+    batches run in chunks.
+
+    engine 'topk' (or 'topk_pallas'): a register of ``max_nb_states``
+    sequences, rounded up to a multiple of 128 as the JAX package does
+    (500 -> 512).  A CUDA batch is one K7 launch per 32768 tracks at most,
+    each followed by the decode; CPU batches run the plain version in
+    chunks.
     """
-    from extrack_tpu_torch.ops import hist_kernel
-    del max_nb_states
-    _check_engine(engine, sharded)
+    from extrack_tpu_torch.ops import hist_kernel, topk_kernel
+    kind = _check_engine(engine, sharded, nb_substeps)
     values = (params.resolve() if isinstance(params, tparams.Parameters)
               else params)
     if min_len is None:
         min_len = tdata.default_min_len(tdata.host_lengths(batch))
     window_sub = nb_substeps * (window - 1) + 1
+    M = max(-(-max_nb_states // 128) * 128, 128)
     B = batch.batch_size
+    on_card = batch.positions.device.type == "cuda"
     if chunk is None:
         per_track = nb_states ** window_sub * nb_states * batch.max_len * 16
-        chunk = (max(B, 1) if batch.positions.device.type == "cuda"
+        chunk = (max(B, 1) if on_card
                  else int(min(65536, max(4096, (1 << 31) // per_track))))
+        if kind == "topk" and not on_card:
+            # backpointers and the decode's temporaries: ~64 bytes per
+            # slot and frame
+            chunk = max(1, (1 << 30) // (M * batch.max_len * 64))
+    if kind == "topk" and on_card:
+        chunk = min(chunk, TOPK_CHUNK)
     dt_arr = batch.dt if batch.dt is not None else dt
     cell_dims = tuple(c for c in cell_dims if c is not None)
 
@@ -296,9 +485,14 @@ def hist_batch(batch: tdata.TrackBatch,
                                  rows(dt_arr, sl), cell_dims=cell_dims,
                                  nb_substeps=nb_substeps,
                                  matrix_type=matrix_type)
-        h = hist_kernel.hist(pos, batch.lengths[sl], batch.is_bleached[sl],
-                             tb, window=window_sub, min_len=min_len,
-                             nb_substeps=nb_substeps)
+        args = (pos, batch.lengths[sl], batch.is_bleached[sl], tb)
+        if kind == "topk":
+            h = topk_kernel.segment_topk(*args, max_nb_states=M,
+                                         min_len=min_len,
+                                         nb_substeps=nb_substeps)
+        else:
+            h = hist_kernel.hist(*args, window=window_sub, min_len=min_len,
+                                 nb_substeps=nb_substeps)
         hist = h if hist is None else hist + h
     return hist
 
@@ -322,19 +516,21 @@ def len_hist(all_tracks: Dict[str, np.ndarray],
              dtype=None) -> np.ndarray:
     """Reference-compatible entry point (extrack/histograms.py:294-373), on
     ``device`` (the card by default; ``device="cpu"`` runs the plain
-    version) in ``dtype`` (float32 on CUDA, where K5 computes, float64
-    elsewhere).
+    version) in ``dtype`` (float32 on CUDA, where the kernels compute,
+    float64 elsewhere).
 
     Returns (max_track_len, S) as float64.  The tracks go into 4 length
-    buckets (one K5 launch each on the card); each bucket's histogram is
-    padded to the longest length and the buckets are summed, which gives
-    the histogram of one padded batch.  ``min_len`` comes from all
-    lengths.  ``workers`` is accepted for compatibility; ``engine`` must
-    be 'window' (the top-K engines raise ``NotImplementedError``).
+    buckets; each bucket's histogram is padded to the longest length and
+    the buckets are summed, which gives the histogram of one padded batch.
+    ``min_len`` comes from all lengths.  ``workers`` is accepted for
+    compatibility.  ``engine``: 'window' (the default; 'pallas' and 'xla'
+    name it too) runs one K5 launch per bucket on the card; 'topk' (or
+    'topk_pallas') keeps the top ``max_nb_states`` sequences (rounded up
+    to a multiple of 128), one K7 launch per 32768 tracks of a bucket.
     """
     del workers
     cuda_lib.check_device(device)
-    _check_engine(engine, sharded)
+    _check_engine(engine, sharded, nb_substeps)
     if dtype is None:
         dtype = (torch.float32 if torch.device(device).type == "cuda"
                  else torch.float64)
@@ -347,10 +543,10 @@ def len_hist(all_tracks: Dict[str, np.ndarray],
     for b in batches:
         h = hist_batch(b, params, dt if not isinstance(dt, dict) else 0.0,
                        cell_dims=cell_dims, nb_states=nb_states,
-                       nb_substeps=nb_substeps,
+                       max_nb_states=max_nb_states, nb_substeps=nb_substeps,
                        input_loc_err=input_LocErr is not None,
-                       matrix_type=matrix_type, window=window, chunk=chunk,
-                       min_len=min_len)
+                       matrix_type=matrix_type, engine=engine, window=window,
+                       chunk=chunk, min_len=min_len)
         out[:b.max_len] += h.double().cpu().numpy()
     return out
 

@@ -35,10 +35,11 @@ _SIGNATURES = {
     "extrack_predict": [_P] * 17 + [_I] * 9 + [_P],
     "extrack_hist": [_P] * 14 + [_I] * 8 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
+    "extrack_topk": [_P] * 11 + [_I] * 8 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
 _SMEM_QUERIES = ("extrack_predict_smem", "extrack_hist_smem",
-                 "extrack_refine_smem")
+                 "extrack_refine_smem", "extrack_topk_smem")
 # bytes of per-track carries the persistent blocks may hold in global
 # scratch when the carries do not fit in shared memory
 SCRATCH_BUDGET = 1 << 30
@@ -161,6 +162,21 @@ def grid(query: str, dev, B: int, K: int, fixed_bytes: int,
                       SCRATCH_BUDGET // carry_bytes))
     return nblk, torch.empty(nblk * carry_bytes // 4, dtype=torch.float32,
                              device=dev)
+
+
+def check_args(want, dev):
+    """Raise unless every (tensor, shape, dtype) of ``want`` is contiguous
+    on ``dev`` with that shape and dtype: the checks before raw pointers go
+    to a kernel."""
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs must be CUDA tensors, got {dev}")
+    for t, shape, dtype in want:
+        if (t.device != dev or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"kernel input {tuple(t.shape)} {t.dtype} on {t.device} "
+                f"(contiguous={t.is_contiguous()}); expected {tuple(shape)} "
+                f"{dtype} contiguous on {dev}")
 
 
 def check(rc: int, name: str):

@@ -164,21 +164,12 @@ def validate(data, tabs, K: int, A: int):
     """Device, dtype, shape and contiguity checks before handing raw
     pointers to a kernel."""
     xs, l2, lens, isbl = data
-    dev = xs.device
-    if dev.type != "cuda":
-        raise ValueError(f"kernel inputs must be CUDA tensors, got {dev}")
     B, T, D = xs.shape
     want = [(xs, (B, T, D), torch.float32), (l2, (B, T, D), torch.float32),
             (lens, (B,), torch.int32), (isbl, (B,), torch.float32)]
     want += [(t, (K,), torch.float32) for t in tabs[:6]]
     want += [(t, (K, A), torch.float32) for t in tabs[6:]]
-    for t, shape, dtype in want:
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"kernel input {tuple(t.shape)} {t.dtype} on {t.device} "
-                f"(contiguous={t.is_contiguous()}); expected {shape} "
-                f"{dtype} contiguous on {dev}")
+    cuda_lib.check_args(want, xs.device)
 
 
 def launch(data, tabs, min_len: int) -> torch.Tensor:

@@ -63,13 +63,7 @@ def launch(positions, lengths, l2, tabs, S: int):
     want = [(positions, (B, T, D), torch.float32),
             (l2, (B, T, D), torch.float32), (lengths, (B,), torch.int32)]
     want += [(t, (K,), torch.float32) for t in tabs]
-    for t, shape, dtype in want:
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"kernel input {tuple(t.shape)} {t.dtype} on {t.device} "
-                f"(contiguous={t.is_contiguous()}); expected {shape} "
-                f"{dtype} contiguous on {dev}")
+    cuda_lib.check_args(want, dev)
     lib = cuda_lib.library()
     f32 = dict(dtype=torch.float32, device=dev)
     mu = torch.empty((B, T, D), **f32)

@@ -9,16 +9,20 @@ Tolerances (float32): per-track logL rtol 2e-5 / atol 2e-4; value rtol
 kernel); posteriors' logL rtol/atol 2e-4, posteriors rtol 2e-3 / atol 2e-4
 (as tests/test_pallas_predict.py); histograms rtol 2e-3 / atol 2e-4 (as
 tests/test_pallas_hist.py); refined mu rtol 2e-4 / atol 2e-5 and sigma rtol
-2e-3 / atol 2e-5 (as tests/test_pallas_refine.py).
+2e-3 / atol 2e-5 (as tests/test_pallas_refine.py); top-K histograms rtol
+1e-5 / atol 1e-5 max|hist| (the kernel and the plain version keep the same
+sequences, stably; only the f32 rounding of the sums differs), final
+weights of an unpruned register rtol 1e-4 / atol 1e-5.
 """
 import numpy as np
 import pytest
 import torch
 
-from extrack_tpu_torch import data, fit, params
+from extrack_tpu_torch import data, fit, histograms, params
 from extrack_tpu_torch.core import tables
 from extrack_tpu_torch.ops import (forward_kernel, grad_kernel, hist_kernel,
-                                   hvp_kernel, predict_kernel, refine_kernel)
+                                   hvp_kernel, predict_kernel, refine_kernel,
+                                   topk_kernel)
 
 
 @pytest.fixture
@@ -195,3 +199,38 @@ def test_cuda_refinement_matches_plain(cuda, S, W, B, T, D, per_peak):
     valid = np.arange(T)[None, :] < L[:, None]
     assert np.all(mu.cpu().numpy()[~valid] == 0.0)
     assert np.all(sig.cpu().numpy()[~valid] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,M,B,T,D", [
+    (2, 1, 512, 300, 9, 2),       # unpruned: 2^9 sequences fit
+    (3, 1, 88, 77, 6, 3), (2, 2, 64, 40, 8, 1)])
+def test_cuda_topk_matches_plain(cuda, S, n, M, B, T, D):
+    pos, lens, isbl, tb = _case(cuda, S, n, B, T, D)
+    kw = dict(max_nb_states=M, min_len=3, nb_substeps=n)
+    before = topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS
+    got = topk_kernel.segment_topk(pos, lens, isbl, tb, **kw)
+    again = topk_kernel.segment_topk(pos, lens, isbl, tb, **kw)
+    assert (topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    assert torch.equal(got, again)            # no atomics: repeatable
+    want = topk_kernel.segment_topk_plain(pos, lens, isbl, tb, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    L = lens.cpu().numpy()
+    frames = float((got.cpu().double()
+                    * torch.arange(1, T + 1)[:, None]).sum())
+    np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
+    if S ** T <= M:
+        # unpruned: the same sequences in the same slots
+        par, st, wf = topk_kernel.backpointers(pos, lens, isbl, tb, **kw)
+        par0, st0, wf0 = histograms.segment_backpointers(pos, lens, isbl,
+                                                         tb, **kw)
+        assert torch.equal(par.long(), par0) and torch.equal(st, st0)
+        torch.testing.assert_close(wf, wf0, rtol=1e-4, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="largest max_nb_states"):
+        topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=2048,
+                                 nb_substeps=n)
+    per_track = tb._replace(sig2=tb.sig2.expand(B, T - 1, -1))
+    with pytest.raises(NotImplementedError, match="dt"):
+        topk_kernel.segment_topk(pos, lens, isbl, per_track, **kw)

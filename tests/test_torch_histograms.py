@@ -162,11 +162,18 @@ def test_hist_batch_chunks_and_engines(sim):
     chunked = thist.hist_batch(batch, values, 0.02, cell_dims=(0.5,),
                                window=4, chunk=23)
     torch.testing.assert_close(chunked, whole, rtol=1e-12, atol=1e-12)
-    for engine in ("topk", "topk_pallas"):
-        with pytest.raises(NotImplementedError, match="K7"):
-            thist.hist_batch(batch, values, 0.02, engine=engine)
-    with pytest.raises(ValueError, match="engine"):
-        thist.hist_batch(batch, values, 0.02, engine="pallas")
+    # the JAX package's names of its two window implementations run the
+    # port's one implementation per device
+    before = hist_kernel.PLAIN_CALLS
+    for engine in ("pallas", "xla"):
+        assert torch.equal(thist.hist_batch(batch, values, 0.02,
+                                            cell_dims=(0.5,), window=4,
+                                            engine=engine), whole)
+    assert hist_kernel.PLAIN_CALLS == before + 2
+    with pytest.raises(NotImplementedError, match="nb_substeps > 1"):
+        thist.hist_batch(batch, values, 0.02, engine="pallas", nb_substeps=2)
+    with pytest.raises(ValueError, match="unknown engine"):
+        thist.hist_batch(batch, values, 0.02, engine="exact")
     with pytest.raises(NotImplementedError, match="item 15"):
         thist.hist_batch(batch, values, 0.02, sharded=True)
 

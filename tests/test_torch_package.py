@@ -16,13 +16,14 @@ def test_import_leaves_jax_out():
         "from extrack_tpu_torch.core import engine, tables\n"
         "from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, "
         "grad_kernel, hist_kernel, hvp_kernel, predict_kernel, "
-        "refine_kernel)\n"
+        "refine_kernel, topk_kernel)\n"
         "assert e.fit is fit and e.grad_kernel is grad_kernel\n"
         "assert e.predict is predict and e.hvp_kernel is hvp_kernel\n"
         "assert e.predict_kernel is predict_kernel\n"
         "assert e.histograms is histograms and e.refine is refine\n"
         "assert e.hist_kernel is hist_kernel\n"
         "assert e.refine_kernel is refine_kernel\n"
+        "assert e.topk_kernel is topk_kernel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'extrack_tpu' or m.startswith('extrack_tpu.')]\n"
         "assert not bad, bad\n"
@@ -38,10 +39,10 @@ def test_kernel_sources_present():
     names = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu*"))
     assert names == ["common.cuh", "dual.cuh", "forward.cu", "grad.cu",
                      "grad.cuh", "hist.cu", "hvp.cu", "predict.cu",
-                     "refine.cu"]
+                     "refine.cu", "topk.cu"]
     # every C entry point the wrappers call has a ctypes signature
     assert set(cuda_lib._SIGNATURES) == {
         "extrack_forward", "extrack_grad", "extrack_hvp", "extrack_predict",
-        "extrack_hist", "extrack_refine"}
+        "extrack_hist", "extrack_refine", "extrack_topk"}
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert cuda_lib.library_path().parent == cuda_lib.BUILD_DIR

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Bare-launch times of K1 (csrc/forward.cu) and K2 (csrc/grad.cu) for two
-checkouts of the port, alternated on one card.
+"""Bare-launch times of K1 (csrc/forward.cu), K2 (csrc/grad.cu) and, where
+both checkouts have it, K7 (csrc/topk.cu) for two checkouts of the port,
+alternated on one card.
 
     python3 tools/kernel_ab.py PARENT_ROOT CHANGE_ROOT
 
 Each side runs in a process of its own, importing ``extrack_tpu_torch``
 from its root (and building that root's kernels there), at
 ``chip_smoke.py``'s bench shape: 2 states, W=6, D=2, 2^20 tracks of
-lengths 3..10 in four length buckets, f32.  Over PAIRS rounds, round i
+lengths 3..10 in four length buckets, f32; K7 with a register of M=512
+sequences, as ``chip_smoke.py`` times it, bare and through
+``segment_topk`` (K7 and the backpointer decode), and through
+``segment_topk`` on 2^20 tracks of lengths 3..30 at M=128.  Over PAIRS
+rounds, round i
 runs the two sides in the order (parent, change) when i is even and
 (change, parent) when it is odd, so a drift of the card's clock over the
 call weighs on both.  Each
@@ -27,6 +32,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 PAIRS = 5
 REPS = 20
+REPS_K7 = 5
 
 
 def worker(root: str) -> None:
@@ -53,7 +59,8 @@ def worker(root: str) -> None:
         torch.tensor([[0.0, 0.1], [0.1, 0.0]], **f32),
         torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,))
     args = []
-    for b in smoke.bench_buckets(dev):
+    bench = smoke.bench_buckets(dev)
+    for b in bench:
         d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
                                                b.is_bleached, tb, 6, 1)
         args.append((d, [t.detach() for t in tabs]))
@@ -66,8 +73,18 @@ def worker(root: str) -> None:
         for d, tabs in args:
             grad_kernel.launch(d, tabs, 3)
 
-    print(json.dumps({"K1": smoke.cuda_ms(k1, REPS, warmup=2),
-                      "K2": smoke.cuda_ms(k2, REPS, warmup=2)}), flush=True)
+    out = {"K1": smoke.cuda_ms(k1, REPS, warmup=2),
+           "K2": smoke.cuda_ms(k2, REPS, warmup=2)}
+    if (Path(root) / "extrack_tpu_torch" / "ops" / "topk_kernel.py").exists():
+        out["K7"] = smoke.cuda_ms(smoke.topk_bare(bench, tb, 512, dev),
+                                  REPS_K7)
+        out["K7+decode"] = smoke.cuda_ms(smoke.topk_wrapped(bench, tb, 512),
+                                         REPS_K7)
+        del bench, args
+        bench30 = smoke.bench_buckets(dev, T=30)
+        out["K7+decode T=30"] = smoke.cuda_ms(
+            smoke.topk_wrapped(bench30, tb, 128), REPS_K7)
+    print(json.dumps(out), flush=True)
 
 
 def main() -> int:
@@ -91,10 +108,10 @@ def main() -> int:
                 return 1
             t = json.loads(out.stdout.strip().splitlines()[-1])
             times[side].append(t)
-            print(f"round {i} {side}: K1 {t['K1']:.4f} ms, K2 "
-                  f"{t['K2']:.4f} ms", flush=True)
+            print(f"round {i} {side}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in t.items()), flush=True)
     for side, ts in times.items():
-        for k in ("K1", "K2"):
+        for k in ts[0]:
             xs = sorted(t[k] for t in ts)
             print(f"{side} {k}: median {xs[len(xs) // 2]:.4f} ms, range "
                   f"{xs[0]:.4f}-{xs[-1]:.4f} ms over {len(xs)} processes")
