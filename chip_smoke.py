@@ -11,7 +11,10 @@ Phases (each prints its lines; a failed check exits non-zero):
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each;
 2. K2 (csrc/grad.cu): value and every table gradient against
-   ``value_and_table_grads_plain`` (torch autograd of the engine);
+   ``value_and_table_grads_plain`` (torch autograd of the engine), at the
+   same configurations, then on both of its mappings (the warp mapping
+   at K = 8, 16, 32, 64 and the block mapping at the same K and at
+   K = 243);
 3. the fit main path on 10^5 simulated tracks: first the kernels against
    the plain version at the fit's own bucket shapes (each table cotangent
    per bucket, then the objective's value and each z-gradient component);
@@ -21,14 +24,16 @@ Phases (each prints its lines; a failed check exits non-zero):
 4. times at the fit benchmark shape (2 states, T=10, W=6, D=2, 2^20 tracks,
    lengths 3..10, length-bucketed, f32): K1 and K2 launched on prepared
    inputs and through their wrappers, against their plain versions,
-   CUDA events, median of several reps after warm-up;
+   CUDA events, median of several reps after warm-up; K2 also on its
+   block mapping and with its carry history in global scratch, for
+   reading;
 5. K3 (csrc/hvp.cu): every Hessian column of ``hessian_hvp_columns``
    against the same assembly on the plain double backward, at four
    register configurations with a forbidden transition; then the main
    path's Hessian and standard errors against ``hessian_chunked`` (plain
    second-order autograd) at the fitted parameters; K3's time for one
    tangent direction over the 2^20 bench tracks, launched on prepared
-   inputs and through ``table_hvp``;
+   inputs and through ``table_hvp``, and on the block mapping for reading;
 6. K4 (csrc/predict.cu): logL and posteriors against ``predict_plain`` at
    five configurations (T=2 rows, 0/1-frame rows, per-peak LocErr, a
    history in global scratch); then the annotation main path,
@@ -58,21 +63,25 @@ Phases (each prints its lines; a failed check exits non-zero):
    prepared inputs and through ``refine_kernel.refine``, and the plain
    version's time on the same 2^20 tracks (in the chunks ``refine_plain``
    makes, about 40 s on an H100);
-9. K7 (csrc/topk.cu): the top-K histogram against ``segment_topk_plain``
-   at ten configurations with a forbidden transition (M = 512 at 2 and 4
-   states, 3 states, two sub-steps, per-peak LocErr, D = 1 and 3, T = 2
-   and 0/1-frame rows, a saturated register, and a register that keeps
-   every sequence but at the last step, whose raw parents and states are
-   held slot by slot), each twice for repeatability; then the top-K main
+9. K7 (csrc/topk.cu): the top-K histogram (K7 with its decode fused in)
+   against ``segment_topk_plain`` at twelve configurations with a
+   forbidden transition (M = 512 at 2 and 4 states, 3 states, two
+   sub-steps, per-peak LocErr, D = 1 and 3, T = 2 and 3 with 0/1-frame
+   rows, a saturated register, a register that keeps every sequence but
+   at the last step, whose raw parents and states are held slot by slot
+   on the live slots, and one that never fills, held slot by slot on
+   every slot), each twice for repeatability; then the top-K main
    path, ``histograms.len_hist(engine="topk")`` on the 10^5 tracks with
    the fitted parameters (M = 512, one K7 launch per 32768 tracks of a
    bucket), each bucket against the plain version, frame conservation,
    and the window engine's histogram beside it; ``len_hist(engine="topk")``
    on 3-state tracks, where the window engine's default raises; K7's time
    at 2^20 tracks (T=10 with M=512, T=30 with M=128), launched on prepared
-   inputs and through ``topk_kernel.segment_topk`` (with the decode), the
-   plain version's time on the 2^20 tracks at T=10, M=512, and, for
-   reading, ``torch.topk`` on one step's (2^20, 1024) scores.
+   inputs and through ``topk_kernel.segment_topk``, both with the decode
+   fused in, the plain version's time on the 2^20 tracks at T=10, M=512,
+   and, for reading, ``torch.topk`` on one step's (2^20, 1024) scores;
+   K7's bound as the live register needs it (``topk_ops``) beside the
+   count of all M rows.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -117,6 +126,9 @@ TOL_K4_PREDS = dict(rtol=2e-3, atol=2e-4)
 PARITY_CASES = [(2, 6, 1, 2, 3001, 10), (3, 5, 1, 2, 3001, 10),
                 (2, 4, 2, 2, 3001, 10), (2, 5, 1, 1, 257, 6),
                 (3, 3, 2, 3, 37, 12), (2, 3, 1, 2, 5, 2)]
+# (S, W): K2 on each of its mappings, K = 8, 16, 32, 64 (warp and block)
+# and K = 243 (block)
+K2_MAPPING_CASES = [(2, 3), (2, 4), (2, 5), (2, 6), (3, 5)]
 # K3: (S, W, nb_substeps, per-peak LocErr), 1500 tracks of T <= 10 in two
 # buckets, p01 fixed at 0 (a forbidden transition) in every case
 HVP_CASES = [(2, 6, 1, False), (2, 4, 2, False), (3, 5, 1, True),
@@ -151,9 +163,10 @@ TOL_TOPK_PRUNED = dict(rtol=2e-3, atol=2e-2)
 # in f32 re-ranks only a marginal sequence; the kernel has agreed with the
 # plain version within 8e-8 of max|hist| (the f32 rounding of the sums)
 TOL_TOPK_LARGE = 1e-5
-# K7: (S, n, M, D, B, T, per-peak LocErr, tolerance): M = 512 is len_hist's
-# register (NS = 2048 at 4 states); the saturated register and the one that
-# keeps every sequence but at the last step run a few dozen tracks
+# K7: (S, n, M, D, B, T, per-peak LocErr, kind): M = 512 is len_hist's
+# register (2048 children at 4 states); the saturated register and the one
+# that keeps every sequence but at the last step run a few dozen tracks;
+# "prefix" never fills (held slot by slot on every slot, live or unused)
 TOPK_CASES = [(2, 1, 512, 2, 3001, 10, False, "large"),
               (3, 1, 128, 2, 3001, 10, False, "large"),
               (2, 2, 64, 2, 3001, 10, False, "large"),
@@ -162,8 +175,10 @@ TOPK_CASES = [(2, 1, 512, 2, 3001, 10, False, "large"),
               (2, 1, 128, 1, 301, 12, False, "large"),
               (2, 1, 128, 3, 301, 12, False, "large"),
               (2, 1, 128, 2, 257, 2, True, "large"),
+              (3, 1, 64, 2, 300, 3, False, "large"),
               (2, 1, 8, 2, 40, 8, False, "pruned"),
-              (3, 1, 88, 2, 24, 5, False, "unpruned")]
+              (3, 1, 88, 2, 24, 5, False, "unpruned"),
+              (2, 1, 512, 2, 300, 8, False, "prefix")]
 SIM = dict(nb_tracks=100_000, max_track_len=20, min_track_len=3,
            Ds=(0.0, 0.08), LocErr=0.02, dt=0.02, pBL=0.1, cell_dims=(0.5,),
            seed=0)
@@ -255,22 +270,37 @@ def bench_buckets(dev, T=10, seed=0):
 def topk_bare(buckets, tb, M: int, dev):
     """A function that launches K7 on prepared inputs over the 2-state
     ``buckets`` (min_len 3), in the chunks hist_batch cuts, reusing one set
-    of output buffers per bucket across its chunks."""
+    of output buffers per bucket across its chunks: fused (histogram rows
+    out), or raw (backpointers out) where the package predates the fused
+    decode (tools/kernel_ab.py runs this against a parent checkout)."""
     from extrack_tpu_torch.histograms import TOPK_CHUNK
     from extrack_tpu_torch.ops import topk_kernel
+    fused = hasattr(topk_kernel, "launch_fused")
     prep = []
     for b in buckets:
         d, t = topk_kernel.kernel_inputs(b.positions, b.lengths,
                                          b.is_bleached, tb, M, 1)
-        prep.append((d, t, topk_kernel.buffers(
-            min(TOPK_CHUNK, b.batch_size), b.max_len, M, dev)))
+        n, T = min(TOPK_CHUNK, b.batch_size), b.max_len
+        if fused:
+            out = (torch.empty((n, T * 2), device=dev),
+                   topk_kernel.fused_layout(n, T, 2, M, 2, 1, dev))
+        else:
+            out = topk_kernel.buffers(n, T, M, dev)
+        prep.append((d, t, out))
 
     def run():
         for d, t, o in prep:
             for i in range(0, d[0].shape[0], TOPK_CHUNK):
                 n = min(TOPK_CHUNK, d[0].shape[0] - i)
-                topk_kernel.launch([x[i:i + n] for x in d], t,
-                                   [x[:n] for x in o], 2, 1, 3)
+                chunk = [x[i:i + n] for x in d]
+                if fused:
+                    plan = (o[1][0], None if o[1][1] is None
+                            else [x[:n] for x in o[1][1]])
+                    topk_kernel.launch_fused(chunk, t, o[0][:n], 2, 1, 3,
+                                             plan)
+                else:
+                    topk_kernel.launch(chunk, t, [x[:n] for x in o], 2, 1,
+                                       3)
     return run
 
 
@@ -355,6 +385,46 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
     return fwd + float((L >= 3).sum()) * (step + K * 14 * D) + mix + harvest
 
 
+def live_rows(L: int, P: int, A: int, M: int):
+    """The live register rows of a top-K walk entering each step t = 1 ..
+    L-1 of a track of L frames: P, then min(M, A * previous)."""
+    live = [P]
+    for _ in range(L - 2):
+        live.append(min(M, A * live[-1]))
+    return live
+
+
+def topk_ops(lengths, M: int, A: int, D: int, P: int) -> float:
+    """Operations K7's function needs on tracks of these lengths, counting
+    only the live rows (``live_rows``): each step folds the observation
+    into the live rows (14D), the last one closes (softmax, 4 per row);
+    each interior step scores the A * live children (9D+6), keeps the top
+    M of them in order and rebuilds each survivor's payload (2D+4).
+    Keeping them in order needs N*log2(N) compare-exchanges of (key,
+    index) pairs at 6 operations when all N children survive, else a
+    compare and a tie compare per child against the M-th key and
+    M*log2(M) compare-exchanges.  The decode walks each final live row
+    back over the L frames (a parent and a state read, a compare and an
+    add: 4 per row and frame)."""
+    L = np.asarray(lengths, dtype=np.int64)
+    counts = np.bincount(L[L >= 2])
+    ops = 0.0
+    for n_len, ntr in enumerate(counts):
+        if not ntr:
+            continue
+        live = live_rows(n_len, P, A, M)
+        per = sum(14 * D * v for v in live) + 4 * live[-1]
+        for v in live[:-1]:
+            N = A * v
+            keep = min(N, M)
+            sel = (6 * N * np.log2(max(N, 2)) if N <= M
+                   else 2 * N + 6 * M * np.log2(M))
+            per += N * (9 * D + 6) + sel + keep * (2 * D + 4)
+        per += 4 * live[-1] * n_len
+        ops += ntr * per
+    return float(ops)
+
+
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the larger of bytes over the card's memory
     rate and operations over its f32 rate."""
@@ -437,7 +507,8 @@ def topk_tol(kind: str, want) -> dict:
     if kind == "large":
         return dict(rtol=TOL_TOPK_LARGE,
                     atol=TOL_TOPK_LARGE * float(want.abs().max()))
-    return TOL_TOPK_UNPRUNED if kind == "unpruned" else TOL_TOPK_PRUNED
+    return (TOL_TOPK_UNPRUNED if kind in ("unpruned", "prefix")
+            else TOL_TOPK_PRUNED)
 
 
 def live_backpointers_equal(got, want, P: int):
@@ -653,6 +724,20 @@ def main() -> int:
                                         isbl, tb, **kw))
         errs["K2"].append(check_table_grads(f"phase 2: K2 {tag}", pos, lens,
                                             isbl, tb, **kw))
+    # K2 on each mapping: the block mapping is forced by a zero warp limit
+    for S, W in K2_MAPPING_CASES:
+        pos, lens, isbl, tb = parity_case(S, W, 1, 150 + S * 10 + W, dev)
+        kw = dict(window=W, nb_substeps=1, min_len=2)
+        saved = grad_kernel.WARP_MAX_K
+        for mapping in (("warp", "block") if S ** W <= saved
+                        else ("block",)):
+            grad_kernel.WARP_MAX_K = saved if mapping == "warp" else 0
+            try:
+                errs["K2"].append(check_table_grads(
+                    f"phase 2: K2 {mapping} mapping S={S} W={W} "
+                    f"(K={S ** W})", pos, lens, isbl, tb, **kw))
+            finally:
+                grad_kernel.WARP_MAX_K = saved
 
     # ---- phase 3: the fit main path --------------------------------------
     t0 = time.time()
@@ -801,6 +886,13 @@ def main() -> int:
                     tb, **kw)
 
     ms = {"K1": cuda_ms(k1_run, 10), "K2": cuda_ms(k2_run, 10)}
+    k2_other = {}
+    for mapping, stash in (("block", None), ("warp", "global")):
+        def k2_forced(mapping=mapping, stash=stash):
+            for d, tabs in args4:
+                grad_kernel.launch(d, tabs, 3, mapping=mapping, stash=stash)
+        k2_other[f"{mapping}, history {stash or 'default'}"] = cuda_ms(
+            k2_forced, 10)
     wms = {"K1": cuda_ms(k1_wrapped, 5), "K2": cuda_ms(k2_wrapped, 5)}
     pms = {"K1": cuda_ms(p1_run, 3), "K2": cuda_ms(p2_run, 3)}
     # bytes: positions and l2 (B, T, D) in, lengths and isBL in, logL out;
@@ -819,6 +911,9 @@ def main() -> int:
             f"{n_bench / pms[k] * 1e3 / 1e6:.3f}M tracks/s; bound "
             f"{kinfo[k]['bound_ms']:.4f} ms ({kinfo[k]['bound_by']}) "
             f"[{card}]")
+    log("phase 4: K2 for reading: " + ", ".join(
+        f"{k} mapping {v:.3f} ms" for k, v in k2_other.items())
+        + f" (default: warp mapping {ms['K2']:.3f} ms) [{card}]")
 
     # ---- phase 5: K3 -------------------------------------------------------
     for S, W, n, per_peak in HVP_CASES:
@@ -906,7 +1001,12 @@ def main() -> int:
                     b.positions[sl], b.lengths[sl], b.is_bleached[sl], tb,
                     tb_dot, **kw)
 
+    def k3_block():
+        for d, tabs, dots in args5:
+            hvp_kernel.launch(d, tabs, dots[0], dots[1:], 3, mapping="block")
+
     ms3, wms3 = cuda_ms(k3_run, 10), cuda_ms(k3_wrapped, 5)
+    ms3_block = cuda_ms(k3_block, 10)
     pms3 = cuda_ms(p3_run, 1, warmup=0)
     dual_rows = sum(b.positions.numel() for b in bench) * 4
     kinfo["K3"]["ms"], kinfo["K3"]["plain_ms"] = ms3, pms3
@@ -918,8 +1018,8 @@ def main() -> int:
         f"direction: kernel {ms3:.3f} ms (with its wrapper {wms3:.3f} ms); "
         f"plain (double backward, chunks of "
         f"{PLAIN_HVP_CHUNK}) {pms3:.3f} ms; bound "
-        f"{kinfo['K3']['bound_ms']:.4f} ms ({kinfo['K3']['bound_by']}) "
-        f"[{card}]")
+        f"{kinfo['K3']['bound_ms']:.4f} ms ({kinfo['K3']['bound_by']}); "
+        f"block mapping {ms3_block:.3f} ms (for reading) [{card}]")
 
     # ---- phase 6: K4 -------------------------------------------------------
     for S, W, D, B, T, per_peak in PREDICT_CASES:
@@ -1275,6 +1375,16 @@ def main() -> int:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"K7 backpointers differ from the plain version at {tag}")
+        if kind == "prefix":
+            par0, st0, w0 = histograms.segment_backpointers(pos, lens, isbl,
+                                                            tb9, **kw9)
+            ok = (torch.equal(raw[0].long(), par0)
+                  and torch.equal(raw[1], st0)
+                  and torch.allclose(raw[2], w0, **TOL_TOPK_UNPRUNED))
+            log(f"{tag}: raw parents and states equal on all "
+                f"{par0.numel()} slots, live and unused: {ok}")
+            if not ok:
+                fail(f"K7 backpointers differ from the plain version at {tag}")
 
     # the top-K main path, through the default entry point
     reset_counts()
@@ -1366,7 +1476,7 @@ def main() -> int:
     ms7, wms7 = topk_times(bench, 512, 5)
     log(f"phase 9: K7 {n_bench} tracks ({len(bench)} buckets, T=10), M=512: "
         f"kernel {ms7:.3f} ms = {n_bench / ms7 * 1e3 / 1e6:.4f}M tracks/s "
-        f"(with its wrapper and the decode {wms7:.3f} ms) [{card}]")
+        f"(through segment_topk {wms7:.3f} ms) [{card}]")
 
     def p7_run(n=None):
         with torch.no_grad():
@@ -1381,34 +1491,40 @@ def main() -> int:
     keys = torch.randn((n_bench, 1024), device=dev)
     tk_ms = cuda_ms(lambda: torch.topk(keys, 512, dim=1), 3)
     del keys
-    k7_ops = walk_ops(bench_lens, 512, 2, 2, "K7")
-    # bytes: positions and l2 in, lengths and isBL in; w_final (M floats)
-    # and the int16 / int8 backpointers ((T-1)*M each) out
-    k7_bytes = sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
-                   + b.batch_size * 512 * (4 + 3 * (b.max_len - 1))
-                   for b in bench)
+    # bound: what the function needs, positions and l2 (and lengths and
+    # isBL) in, the histogram rows out, the live rows' work (topk_ops);
+    # the count of all M rows (``walk_ops``, the backpointers out) beside it
+    def k7_bounds(bench9, lens9, M9):
+        rows_in = sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
+                      for b in bench9)
+        new = bound(rows_in + sum(b.batch_size * b.max_len * 2 * 4
+                                  for b in bench9),
+                    topk_ops(lens9, M9, 2, 2, 4))
+        old = bound(rows_in + sum(b.batch_size * M9 * (4 + 3 * (b.max_len
+                                                                - 1))
+                                  for b in bench9),
+                    walk_ops(lens9, M9, 2, 2, "K7"))
+        return new, old
+
+    (b7, by7), (b7_old, by7_old) = k7_bounds(bench, bench_lens, 512)
     kinfo["K7"]["ms"], kinfo["K7"]["plain_ms"] = ms7, pms7
     kinfo["K7"]["wrapper_ms"] = wms7
-    kinfo["K7"]["bound_ms"], kinfo["K7"]["bound_by"] = bound(k7_bytes,
-                                                             k7_ops)
+    kinfo["K7"]["bound_ms"], kinfo["K7"]["bound_by"] = b7, by7
     log(f"phase 9: K7 plain version on all {n_bench} tracks (chunks of "
-        f"{TOPK_CHUNK}) {pms7:.3f} ms; bound {kinfo['K7']['bound_ms']:.4f} "
-        f"ms ({kinfo['K7']['bound_by']}; bytes "
-        f"{k7_bytes / PEAK_BYTES * 1e3:.4f} ms, operations "
-        f"{k7_ops / PEAK_FLOPS * 1e3:.4f} ms); torch.topk(k=512) of one "
-        f"step's ({n_bench}, 1024) scores {tk_ms:.3f} ms (for reading: the "
-        f"selection only) [{card}]")
+        f"{TOPK_CHUNK}) {pms7:.3f} ms; bound {b7:.4f} ms ({by7}; live "
+        f"rows, histogram rows out), all-rows count {b7_old:.4f} ms "
+        f"({by7_old}; all M rows, backpointers out); torch.topk(k=512) of "
+        f"one step's ({n_bench}, 1024) scores {tk_ms:.3f} ms (for reading: "
+        f"the selection only) [{card}]")
     del bench
     bench30 = bench_buckets(dev, T=30)
     ms30, wms30 = topk_times(bench30, 128, 3)
     lens30 = np.concatenate([data.host_lengths(b) for b in bench30])
-    b30, by30 = bound(sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
-                          + b.batch_size * 128 * (4 + 3 * (b.max_len - 1))
-                          for b in bench30),
-                      walk_ops(lens30, 128, 2, 2, "K7"))
+    (b30, by30), (b30_old, by30_old) = k7_bounds(bench30, lens30, 128)
     log(f"phase 9: K7 {n_bench} tracks ({len(bench30)} buckets, T=30), "
-        f"M=128: kernel {ms30:.3f} ms (with its wrapper and the decode "
-        f"{wms30:.3f} ms); bound {b30:.4f} ms ({by30}) [{card}]")
+        f"M=128: kernel {ms30:.3f} ms (through segment_topk {wms30:.3f} "
+        f"ms); bound {b30:.4f} ms ({by30}), all-rows count {b30_old:.4f} ms "
+        f"({by30_old}) [{card}]")
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])

@@ -31,6 +31,40 @@ constexpr float kTiny = 1e-30f;                 // f32-safe sum guard
 constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr float k2Pi = 6.283185307179586f;
 
+// Cycle split of a walk (tools/k2_profile.py, tools/topk_profile.py), built
+// only with -DEXTRACK_PROFILE: one lead thread per track adds the clock64()
+// cycles since its last mark to section i, and at the end adds its sections
+// to a device array that the host reads (extrack_grad_prof,
+// extrack_topk_prof).  In a normal build every call is empty.
+constexpr int kProfSlots = 12;
+// sections of the forward walk (track_forward and K2's warp walk)
+enum { kPfStash = 0, kPfStep = 1, kPfClose = 2 };
+struct Prof {
+#ifdef EXTRACK_PROFILE
+  long long acc[kProfSlots];
+  long long t;
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int i = 0; i < kProfSlots; ++i) acc[i] = 0;
+    t = clock64();
+  }
+  __device__ __forceinline__ void mark(int i) {
+    const long long now = clock64();
+    acc[i] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void flush(unsigned long long* out, bool lead) {
+    if (lead)
+      for (int i = 0; i < kProfSlots; ++i)
+        atomicAdd(out + i, (unsigned long long)acc[i]);
+  }
+#else
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush(unsigned long long*, bool) {}
+#endif
+};
+
 template <typename Real>
 struct TablesT {
   // per-slot (K,) tables: init prior, init displacement variance, transition
@@ -165,6 +199,35 @@ static __device__ __forceinline__ Real look_child(
   return -quad_n;
 }
 
+// The sums of a fusion group's A members m0 .. m0+A-1 as published in `pub`
+// (fuse_group's layout): their largest base log weight mx, the exp-sum sw
+// of their weights shifted by mx (normalizers as rsqrt factors), and their
+// weighted posterior means mf and tails tf, not yet divided by sw.
+template <typename Real, int D>
+static __device__ __forceinline__ void group_sums(const Real* pub, int K,
+                                                  int m0, int A, Real& mx,
+                                                  Real& sw, Real* mf,
+                                                  Real* tf) {
+  const Real* sbase = pub;
+  const Real* srq = pub + K;
+  const Real* snm = pub + 2 * K;
+  const Real* stl = pub + (2 + D) * K;
+  mx = Real(-INFINITY);
+  for (int o = 0; o < A; ++o) mx = shift_max(mx, sbase[m0 + o]);
+  sw = Real(0.f);
+#pragma unroll
+  for (int d = 0; d < D; ++d) mf[d] = tf[d] = Real(0.f);
+  for (int o = 0; o < A; ++o) {
+    const Real w = xexp(sbase[m0 + o] - mx) * srq[m0 + o];
+    sw += w;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      mf[d] += w * snm[d * K + m0 + o];
+      tf[d] += w * stl[d * K + m0 + o];
+    }
+  }
+}
+
 // One fusion step, shared by every kernel's walk: slot k publishes its
 // Gaussian update `p` and base log weight `base` (lp - quad) to `pub`
 // ((2+2D)*K scalars), then child k moment-matches the A members of its
@@ -195,20 +258,8 @@ static __device__ __forceinline__ Real fuse_group(
   }
   __syncthreads();
   if (!act) return Real(0.f);
-  mx = Real(-INFINITY);
-  for (int o = 0; o < A; ++o) mx = shift_max(mx, sbase[m0 + o]);
-  Real sw = Real(0.f), mf[D], tf[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) mf[d] = tf[d] = Real(0.f);
-  for (int o = 0; o < A; ++o) {
-    const Real w = xexp(sbase[m0 + o] - mx) * srq[m0 + o];
-    sw += w;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      mf[d] += w * snm[d * K + m0 + o];
-      tf[d] += w * stl[d * K + m0 + o];
-    }
-  }
+  Real sw, mf[D], tf[D];
+  group_sums<Real, D>(pub, K, m0, A, mx, sw, mf, tf);
   inv_sw = 1.0f / clamp_min(sw, kTiny);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -227,7 +278,8 @@ template <typename Real, int D>
 static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
                                      const Real* l2, int L, float isbl,
                                      Real* sh, Real* red, Real* stash,
-                                     Real* close_mx, Real* close_sum) {
+                                     Real* close_mx, Real* close_sum,
+                                     Prof* pf = nullptr) {
   const int K = tb.K, A = tb.A;
   const int k = threadIdx.x;
   const bool act = k < K;
@@ -255,6 +307,7 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
       }
       row[2 * D * K] = lp;
     }
+    if (pf) pf->mark(kPfStash);
     float xt[D];
     Real l2t[D];
 #pragma unroll
@@ -274,6 +327,7 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
       *close_mx = mx;
       *close_sum = s;
       out = mx + xlog(s);
+      if (pf) pf->mark(kPfClose);
     } else if (t == tlast) {
       float xn[D];
       Real l2n[D], invn[D], diffn[D];
@@ -310,6 +364,7 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
       *close_mx = mx;
       *close_sum = s;
       out = mx + xlog(s);
+      if (pf) pf->mark(kPfClose);
     } else {
       // fuse the oldest digits; the 2*pi constants of the per-step
       // normalizers are folded into lt by the host
@@ -318,6 +373,7 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
                                            sh, K, m0, A, act, mx, inv_sw);
       if (act) lp = lse + tb.lt[k] + gate * tb.lsurv[k];
       __syncthreads();
+      if (pf) pf->mark(kPfStep);
     }
   }
   return out;

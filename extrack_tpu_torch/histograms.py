@@ -17,8 +17,9 @@ Two engines:
   rule (extrack/histograms.py:179-206): a register of ``max_nb_states``
   explicit state sequences per track, re-selected each frame by a one-step
   look-ahead score, with parent/state backpointers decoded at the end
-  (``decode_backpointers``).  On CUDA the register walk is kernel K7
-  (ops/topk_kernel); CPU tensors run ``segment_backpointers``.
+  (``decode_backpointers``).  On CUDA kernel K7 (ops/topk_kernel) runs
+  the register walk and the decode, one histogram row per track; CPU
+  tensors run ``segment_backpointers``.
 
 Deviations from the reference are the JAX package's, kept as they are:
 the end-of-track term is the tracking module's transition-weighted fold,
@@ -326,12 +327,15 @@ def segment_backpointers(positions, lengths, is_bleached,
 
 def segment_histogram(positions, lengths, is_bleached,
                       tb: tables.ModelTables, *, max_nb_states: int = 512,
-                      min_len: int = 3, nb_substeps: int = 1):
+                      min_len: int = 3, nb_substeps: int = 1,
+                      per_track: bool = False):
     """(T, S) posterior-weighted segment-length histogram of the top-K
     engine, summed over the tracks: ``segment_backpointers`` decoded by
     ``decode_backpointers``.  With ``nb_substeps`` = n > 1 each frame step
     branches over all S**n sub-state patterns and segments are decoded at
     frame resolution (DEVIATIONS.md 3b); ``tb`` is built with the same n.
+    ``per_track``: each track's own (B, T, S) histogram instead, the rows
+    that K7's fused decode writes.
     """
     S = tb.nb_states
     parents, states, w_final = segment_backpointers(
@@ -339,13 +343,16 @@ def segment_histogram(positions, lengths, is_bleached,
         min_len=min_len, nb_substeps=nb_substeps)
     return decode_backpointers(parents, states, w_final, lengths,
                                tables.state_codes(S, nb_substeps + 1), S,
-                               max_nb_states)
+                               max_nb_states, per_track)
 
 
-def decode_backpointers(parents, states, w_final, lengths, pairs, S, M):
+def decode_backpointers(parents, states, w_final, lengths, pairs, S, M,
+                        per_track: bool = False):
     """Backtrack (T-1, B, M) parent/state backpointers (any integer dtype,
     any strides) into explicit sequences and decode their segments, on
-    their device.  Shared by the plain top-K engine and K7.
+    their device, into the (T, S) histogram or, with ``per_track``, each
+    track's (B, T, S) histogram.  Shared by the plain top-K engine and
+    K7's raw mode.
 
     After reverse step i (walk step t = i+1) the chain maps final slots to
     the register after step t-1; vals[i] is the state at frame i+2 of each
@@ -364,14 +371,16 @@ def decode_backpointers(parents, states, w_final, lengths, pairs, S, M):
     pairs_pad[:pairs.shape[0]] = torch.as_tensor(pairs, device=dev)
     seqs = torch.stack([pairs_pad[:, -1][chain], pairs_pad[:, 0][chain]]
                        + vals[:Tm1 - 1], dim=-1)
-    return decode_segments(seqs, w_final, lengths, S)
+    return decode_segments(seqs, w_final, lengths, S, per_track)
 
 
-def decode_segments(seqs, weights, lengths, nb_states: int):
+def decode_segments(seqs, weights, lengths, nb_states: int,
+                    per_track: bool = False):
     """Histogram of same-state run lengths, weighted per sequence.
 
     seqs: (B, M, T) int states in forward time order; weights: (B, M);
-    lengths: (B,) valid frame counts.  Returns (T, S).
+    lengths: (B,) valid frame counts.  Returns (T, S), or with
+    ``per_track`` each track's (B, T, S).
     Equivalent of the reference's per-step run decoding
     (extrack/histograms.py:253-284), one pass over the frames with a run
     counter per sequence: a segment ends at frame t when the next state
@@ -399,6 +408,8 @@ def decode_segments(seqs, weights, lengths, nb_states: int):
             end |= (last > t) & (seqs[:, t + 1] != cur)
         bins.scatter_add_(0, (run * S + cur).long()[None], (w * end)[None])
         run = torch.where(end, 0, run + 1)
+    if per_track:
+        return bins.reshape(T * S, B, M).sum(2).T.reshape(B, T, S)
     return bins.sum(1).reshape(T, S)
 
 

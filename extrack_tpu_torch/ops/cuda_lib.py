@@ -7,7 +7,9 @@ nvcc process per ``.cu`` file, all started together, then one link.  The
 file name carries a hash of the sources and flags, so an edited kernel is
 rebuilt and a current one is reused.  nvcc's ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside the library
-as ``<name>.log``.
+as ``<name>.log``.  ``enable_profile()`` switches a process to a build
+with the kernels' clock64 cycle split compiled in (``-DEXTRACK_PROFILE``,
+read by ``profile_counters``), for the profiling tools only.
 """
 from __future__ import annotations
 
@@ -30,19 +32,44 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer arguments, then int arguments, then the stream
 _SIGNATURES = {
     "extrack_forward": [_P] * 15 + [_I] * 6 + [_P],
-    "extrack_grad": [_P] * 19 + [_I] * 7 + [_P],
-    "extrack_hvp": [_P] * 19 + [_I] * 7 + [_P],
+    "extrack_grad": [_P] * 19 + [_I] * 9 + [_P],
+    "extrack_hvp": [_P] * 19 + [_I] * 9 + [_P],
+    "extrack_grad_occupancy": [_I] * 6,
+    "extrack_hvp_occupancy": [_I] * 6,
     "extrack_predict": [_P] * 17 + [_I] * 9 + [_P],
     "extrack_hist": [_P] * 14 + [_I] * 8 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
-    "extrack_topk": [_P] * 11 + [_I] * 8 + [_P],
+    "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
-_SMEM_QUERIES = ("extrack_predict_smem", "extrack_hist_smem",
+_SMEM_QUERIES = ("extrack_grad_smem", "extrack_predict_smem", "extrack_hist_smem",
                  "extrack_refine_smem", "extrack_topk_smem")
 # bytes of per-track carries the persistent blocks may hold in global
 # scratch when the carries do not fit in shared memory
 SCRATCH_BUDGET = 1 << 30
+
+
+PROFILE_SECTIONS = 12      # kProfSlots in csrc/common.cuh
+
+
+def enable_profile():
+    """Build and load the kernels with their cycle split compiled in.  Call
+    before the first ``library()``; the profile build is a library of its
+    own (its flags are in the hash)."""
+    if _load.cache_info().currsize:
+        raise RuntimeError("enable_profile() after the library was loaded")
+    if "-DEXTRACK_PROFILE" not in NVCC_FLAGS:
+        NVCC_FLAGS.append("-DEXTRACK_PROFILE")
+
+
+def profile_counters(kernel: str) -> list:
+    """The cycle counters of ``kernel`` ("grad" or "topk") summed over every
+    track since the last read, then zeroed (profile builds only)."""
+    out = (ctypes.c_ulonglong * PROFILE_SECTIONS)()
+    fn = getattr(library(), f"extrack_{kernel}_prof")
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    check(fn(ctypes.addressof(out)), f"{kernel} profile read")
+    return list(out)
 
 
 def find_nvcc() -> str:

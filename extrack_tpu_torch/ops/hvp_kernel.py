@@ -31,11 +31,14 @@ LAUNCHES = 0
 PLAIN_CALLS = 0
 
 
-def launch(data, tabs, l2_dot, tabs_dot, min_len: int):
+def launch(data, tabs, l2_dot, tabs_dot, min_len: int,
+           mapping: str | None = None, stash: str | None = None):
     """Launch K3 on the current stream.  ``data`` and ``tabs`` as for K2,
     ``l2_dot`` and ``tabs_dot`` their tangents (same shapes).  Returns
     (logL, its tangent), (d(sum logL)/d l2, its tangent) and the ten table
-    cotangents with their tangents, each as (value, tangent) pairs."""
+    cotangents with their tangents, each as (value, tangent) pairs.  The
+    mapping is K2's (``grad_kernel.plan`` on dual scalars); ``mapping``
+    and ``stash`` force it."""
     global LAUNCHES
     xs, l2 = data[0], data[1]
     B, T, D = xs.shape
@@ -48,19 +51,22 @@ def launch(data, tabs, l2_dot, tabs_dot, min_len: int):
     def dual(v, t):
         return torch.stack([v, t], dim=-1).contiguous()
 
-    nblk = grad_kernel.grid_size(B, T, D, K, dev, itemsize=8)
+    pl, nblk, nscratch = grad_kernel.setup(lib, lib.extrack_hvp_occupancy,
+                                           B, T, D, K, A, dev, 8, mapping,
+                                           stash)
     ncols = 6 * K + 4 * K * A
     f32 = dict(dtype=torch.float32, device=dev)
     logl = torch.empty((B, 2), **f32)
     ct_l2 = torch.zeros((B, T, D, 2), **f32)
     ct_tab = torch.empty((ncols, 2), **f32)
-    stash = torch.empty(max(1, nblk * (T - 1) * (2 * D + 1) * K * 2), **f32)
+    scratch = torch.empty(max(1, nscratch), **f32)
     partial = torch.empty(nblk * ncols * 2, **f32)
     args = (xs, dual(l2, l2_dot), data[2], data[3],
             *(dual(t, d) for t, d in zip(tabs, tabs_dot)), logl, ct_l2,
-            ct_tab, stash, partial)
+            ct_tab, scratch, partial)
     rc = lib.extrack_hvp(
         *(t.data_ptr() for t in args), B, T, D, K, A, int(min_len), nblk,
+        pl.warps, int(pl.stash_smem),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "Hessian-vector product")
     LAUNCHES += 1

@@ -234,3 +234,106 @@ def test_cuda_topk_matches_plain(cuda, S, n, M, B, T, D):
     per_track = tb._replace(sig2=tb.sig2.expand(B, T - 1, -1))
     with pytest.raises(NotImplementedError, match="dt"):
         topk_kernel.segment_topk(pos, lens, isbl, per_track, **kw)
+
+
+def _kernel_args(args, W, n=1):
+    (xs, l2, lens, isbl), tabs = forward_kernel.kernel_inputs(*args, W, n)
+    return (xs, l2, lens, isbl), [t.detach() for t in tabs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D", [(2, 3, 2), (2, 4, 2), (2, 5, 2),
+                                   (2, 6, 2), (2, 6, 1), (2, 6, 3),
+                                   (3, 5, 2)])
+def test_cuda_k2_mappings_match_plain(cuda, monkeypatch, S, W, D):
+    # K = 8, 16, 32, 64 on the warp mapping (history in shared memory and
+    # in global scratch) against the block mapping, and K = 243 on the
+    # block mapping; each through value_and_table_grads against the plain
+    # version
+    args = _case(cuda, S, 1, 300, 9, D)
+    kw = dict(window=W, nb_substeps=1, min_len=2)
+    data_, tabs = _kernel_args(args, W)
+    K = S ** W
+    runs = ([("warp", None), ("warp", "global"), ("block", None)]
+            if K <= 64 else [("block", None)])
+    outs = [grad_kernel.launch(data_, tabs, 2, mapping=m, stash=st)
+            for m, st in runs]
+    ref = outs[-1]
+    for out in outs[:-1]:
+        torch.testing.assert_close(out[0], ref[0], rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(out[1], ref[1], rtol=2e-4,
+                                   atol=2e-5 * float(ref[1].abs().max()))
+        for c, c0 in zip(out[2], ref[2]):
+            torch.testing.assert_close(c, c0, rtol=2e-4,
+                                       atol=2e-5 * float(c0.abs().max()))
+    v0, g0 = grad_kernel.value_and_table_grads_plain(*args, **kw)
+    for warp_max in ((64, 0) if K <= 64 else (64,)):
+        monkeypatch.setattr(grad_kernel, "WARP_MAX_K", warp_max)
+        v, g = grad_kernel.value_and_table_grads(*args, **kw)
+        torch.testing.assert_close(v, v0, rtol=2e-5, atol=0.0)
+        for k in g:
+            torch.testing.assert_close(g[k], g0[k], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [4, 6])
+def test_cuda_k3_mappings_agree(cuda, W):
+    # K3 (dual numbers) on both mappings: the same values and tangents
+    args = _case(cuda, 2, 1, 200, 9, 2)
+    data_, tabs = _kernel_args(args, W)
+    rng = np.random.default_rng(W)
+    dots = [torch.tensor(rng.normal(0, 1, t.shape), dtype=torch.float32,
+                         device=cuda) for t in tabs]
+    l2_dot = torch.zeros_like(data_[1])
+    warp = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2, mapping="warp")
+    block = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2, mapping="block")
+    for (a, a_dot), (b, b_dot) in zip(warp[:2], block[:2]):
+        torch.testing.assert_close(a, b, rtol=2e-4,
+                                   atol=2e-5 * float(b.abs().max()))
+        torch.testing.assert_close(a_dot, b_dot, rtol=2e-4,
+                                   atol=2e-5 * float(b_dot.abs().max()))
+    for a, b in zip(warp[2][0] + warp[2][1], block[2][0] + block[2][1]):
+        torch.testing.assert_close(a, b, rtol=2e-4,
+                                   atol=2e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,M,B,T,D", [
+    (2, 1, 512, 300, 9, 2), (3, 1, 88, 77, 6, 3), (2, 2, 64, 40, 8, 1),
+    (2, 1, 128, 200, 30, 2)])
+def test_cuda_topk_fused_matches_raw_decode(cuda, S, n, M, B, T, D):
+    # the fused decode's rows against the raw backpointers decoded track by
+    # track in plain torch, and the same bits on a second run
+    pos, lens, isbl, tb = _case(cuda, S, n, B, T, D)
+    data_, tabs = topk_kernel.kernel_inputs(pos, lens, isbl, tb, M, n)
+    rows = [torch.empty((B, T * S), device=cuda) for _ in range(2)]
+    for r in rows:
+        topk_kernel.launch_fused(data_, tabs, r, S, n, 3)
+    assert torch.equal(rows[0], rows[1])
+    par, st, wf = topk_kernel.backpointers(pos, lens, isbl, tb,
+                                           max_nb_states=M, min_len=3,
+                                           nb_substeps=n)
+    want = histograms.decode_backpointers(
+        par, st, wf, lens, tables.state_codes(S, n + 1), S, M,
+        per_track=True)
+    torch.testing.assert_close(rows[0].view(B, T, S), want, rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,M,B,T,D", [
+    (2, 1, 512, 300, 8, 2), (3, 1, 256, 77, 5, 3), (2, 2, 64, 40, 3, 1),
+    (2, 1, 88, 60, 6, 2)])
+def test_cuda_topk_pad_prefix_backpointers_match_plain(cuda, S, n, M, B, T,
+                                                       D):
+    # registers that never fill: every slot past the live children holds an
+    # unused child in closed form, and every parent and state, live or not,
+    # is the plain version's
+    pos, lens, isbl, tb = _case(cuda, S, n, B, T, D)
+    assert S ** (n + 1) * (S ** n) ** (T - 2) <= M
+    kw = dict(max_nb_states=M, min_len=3, nb_substeps=n)
+    par, st, wf = topk_kernel.backpointers(pos, lens, isbl, tb, **kw)
+    par0, st0, wf0 = histograms.segment_backpointers(pos, lens, isbl, tb,
+                                                     **kw)
+    assert torch.equal(par.long(), par0) and torch.equal(st, st0)
+    torch.testing.assert_close(wf, wf0, rtol=1e-4, atol=1e-5)

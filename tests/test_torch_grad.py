@@ -157,3 +157,77 @@ def test_kernel_loader_raises_without_cuda():
     with pytest.raises(ValueError, match="CUDA tensors"):
         grad_kernel.launch(data, [t.detach() for t in tabs], 3)
     assert (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES) == before
+
+
+def _occupancy(K, A, T, itemsize=4):
+    """Blocks per SM of a warp-mapping launch on an H100-like SM: 228 KB of
+    shared memory (1 KB reserved per block) and at most 16 warps (the
+    registers)."""
+    def occ(warps, stash_smem):
+        block = warps * grad_kernel.warp_slice_bytes(K, A, 2, T, stash_smem,
+                                                     itemsize)
+        return min(16 // warps, (228 * 1024) // (block + 1024))
+    return occ
+
+
+@pytest.mark.parametrize("K,A,T,plan", [
+    (8, 2, 10, (4, True)), (16, 2, 10, (4, True)), (32, 2, 10, (4, True)),
+    (27, 3, 10, (4, True)), (64, 2, 10, (4, False)), (64, 4, 10, (4, False)),
+    (64, 2, 4, (4, True)), (64, 2, 7, (4, True))])
+def test_k2_plan_warp_mapping_up_to_64_slots(K, A, T, plan):
+    # every slot count up to 64 walks one track per warp.  Up to 32 slots
+    # 16 warps fit an SM with the carry history in shared memory however
+    # they are grouped (the largest block wins the tie).  At K = 64 and
+    # T = 10 a warp's slice is 18 KB: the best grouping keeps 12 warps
+    # resident against 16 with the history in global scratch, so it goes
+    # there; at T = 4 or 7 the slices keep 16 resident
+    pl = grad_kernel.plan(K, A, 2, T, 227 * 1024, _occupancy(K, A, T))
+    assert pl == grad_kernel.Plan(*plan)
+    assert grad_kernel.plan(K, A, 2, T, 227 * 1024, _occupancy(K, A, T),
+                            stash="smem").stash_smem
+    assert grad_kernel.warp_slice_bytes(64, 2, 2, 10, True) == 4 * (
+        17 * 64 + 8 * 64 + 4 * 10 * 2 + 4 + 9 * 5 * 64)
+
+
+@pytest.mark.parametrize("K,A", [(81, 3), (243, 3), (256, 4), (1024, 2)])
+def test_k2_plan_block_mapping_above_64_slots(K, A):
+    occ = _occupancy(K, A, 10)
+    assert grad_kernel.plan(K, A, 2, 10, 227 * 1024, occ) == (
+        grad_kernel.Plan(0, False))
+    with pytest.raises(ValueError, match="K <= 64"):
+        grad_kernel.plan(K, A, 2, 10, 227 * 1024, occ, mapping="warp")
+
+
+def test_k2_plan_history_in_global_scratch_when_it_does_not_fit():
+    # T = 400 at K = 64: one warp's history alone is 456 KB
+    occ = _occupancy(64, 2, 400)
+    assert grad_kernel.plan(64, 2, 2, 400, 227 * 1024, occ) == (
+        grad_kernel.Plan(4, False))
+    with pytest.raises(ValueError, match="does not fit"):
+        grad_kernel.plan(64, 2, 2, 400, 227 * 1024, occ, stash="smem")
+    occ = _occupancy(64, 2, 10)
+    assert grad_kernel.plan(64, 2, 2, 10, 227 * 1024, occ,
+                            stash="global") == grad_kernel.Plan(4, False)
+    assert grad_kernel.plan(32, 2, 2, 10, 227 * 1024, occ,
+                            mapping="block") == grad_kernel.Plan(0, False)
+    # dual numbers (K3) double every slice
+    assert grad_kernel.warp_slice_bytes(64, 2, 2, 10, True, 8) == 2 * (
+        grad_kernel.warp_slice_bytes(64, 2, 2, 10, True))
+
+
+def test_k2_grid():
+    pl = grad_kernel.Plan(2, True)
+    # resident blocks fill the card, no more blocks than the tracks need
+    assert grad_kernel.grid(1 << 20, 10, 2, 64, pl, 132, 7) == (924, 0)
+    assert grad_kernel.grid(5, 10, 2, 64, pl, 132, 7) == (3, 0)
+    # global scratch: one history per warp, capped by STASH_BUDGET
+    nblk, floats = grad_kernel.grid(1 << 20, 10, 2, 64,
+                                    grad_kernel.Plan(4, False), 132, 4)
+    assert (nblk, floats) == (528, 528 * 4 * 9 * 5 * 64)
+    hist = grad_kernel.history_floats(2000, 2, 64) * 4
+    nblk, _ = grad_kernel.grid(1 << 20, 2000, 2, 64,
+                               grad_kernel.Plan(4, False), 132, 4)
+    assert nblk == grad_kernel.STASH_BUDGET // (4 * hist)
+    # block mapping: one history per block
+    assert grad_kernel.grid(1 << 20, 10, 2, 243, grad_kernel.Plan(0, False),
+                            132, 8) == (1056, 1056 * 9 * 5 * 243)

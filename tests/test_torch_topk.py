@@ -200,11 +200,12 @@ def test_check_envelope():
         topk_kernel.check_envelope(T=10, D=2, S=3, M=8)
     with pytest.raises(NotImplementedError, match="D=4"):
         topk_kernel.check_envelope(T=10, D=4, S=2, M=512)
-    # NS = 1024 sort words (8 KB) + 8 floats per row (16 KB) at M=512
-    assert topk_kernel.smem_needed(512, 2, 2) == 8192 + 16384
+    # 2 runs of 512 children's words and two merge buffers (16 KB) + 8
+    # floats per row (16 KB) at M=512
+    assert topk_kernel.walk_bytes(512, 2, 2) == 16384 + 16384
     with pytest.raises(NotImplementedError,
                        match="largest max_nb_states that fits is 256"):
-        topk_kernel.check_envelope(**ok, smem_limit=topk_kernel.smem_needed(
+        topk_kernel.check_envelope(**ok, smem_limit=topk_kernel.walk_bytes(
             256, 2, 2))
     with pytest.raises(NotImplementedError, match="that fits is 1024"):
         topk_kernel.check_envelope(T=10, D=2, S=2, M=1152)
@@ -228,7 +229,9 @@ def test_topk_tables_layout():
         ttables.init_log_prob(tt.log_trans, tt.log_frac, 1).numpy(),
         rtol=1e-6)
     assert (lp0[9:] == -1e30).all()
-    np.testing.assert_array_equal(nw0[:9].numpy(), codes[:, 0])
+    np.testing.assert_array_equal(nw0[0, :9].numpy(), codes[:, 0])
+    np.testing.assert_array_equal(nw0[1, :9].numpy(), codes[:, -1])
+    assert (nw0[:, 9:] == 0).all()
     sig2 = tt.sig2.reshape(-1, 9)[0].float()
     torch.testing.assert_close(s20[9:], sig2[0].expand(M - 9))
     torch.testing.assert_close(tab[-9:], sig2)
@@ -241,3 +244,56 @@ def test_topk_engine_defaults_to_the_card(sim):
     with pytest.raises(RuntimeError, match="CUDA device"):
         thist.len_hist(sim[0], sim[1], 0.02, cell_dims=(0.5,),
                        engine="topk")
+
+
+def test_fused_layout_keeps_backpointers_in_shared_memory():
+    limit = 227 * 1024
+    # T=10, M=512: 2 blocks of 512 threads fit an SM's registers, so the
+    # decode's 20 bins of columns (40 KB) take one pass beside the
+    # backpointers, (T-1)*M*3 bytes
+    assert topk_kernel.layout(512, 2, 2, 2, 10, limit) == (
+        20 * 512 * 4, 20, True)
+    # T=30, M=128: 8 blocks fit the registers; the columns are cut to what
+    # keeps 8 resident (27 KB a block with the backpointers): 2 passes
+    share = (limit + 1024) // 8 - 2048
+    bp = 29 * 128 * 3
+    assert topk_kernel.layout(128, 2, 2, 2, 30, limit) == (
+        share - bp, (share - bp) // 512, True)
+    # 3 states at T = 20 (the 3-state main path's longest bucket)
+    region, chunk, bp_smem = topk_kernel.layout(512, 2, 3, 3, 20, limit)
+    assert bp_smem and chunk == region // 2048 < 60
+    assert region + 19 * 512 * 3 <= limit
+    # too long to keep the backpointers: they go to global scratch
+    walk = topk_kernel.walk_bytes(1024, 2, 2)
+    assert walk == 8 * 4 * 1024 + 4 * 8 * 1024
+    assert topk_kernel.layout(1024, 2, 2, 2, 60, limit) == (walk, 16, False)
+    # the backpointers fit beside the walk's region alone, not beside the
+    # decode's: the decode then takes more passes
+    lim = topk_kernel.walk_bytes(128, 2, 2) + 3 * 29 * 128
+    region, chunk, bp_smem = topk_kernel.layout(128, 2, 2, 2, 30, lim)
+    assert bp_smem and region == topk_kernel.walk_bytes(128, 2, 2)
+    assert chunk == region // (4 * 128)
+
+
+@pytest.mark.parametrize("S,n,M,T", [(2, 1, 16, 8), (3, 1, 88, 5),
+                                     (2, 2, 16, 7)])
+def test_per_track_rows_match_jax_track_by_track(S, n, M, T):
+    # the rows K7's fused decode writes, one per track: each against the
+    # JAX package's histogram of that track alone
+    xs, lengths, isbl, jt, tt = _case(S * 7 + M + T + n, S, 6, T, n=n)
+    rows = thist.segment_histogram(
+        torch.tensor(xs), torch.tensor(lengths), torch.tensor(isbl), tt,
+        max_nb_states=M, min_len=3, nb_substeps=n, per_track=True)
+    assert rows.shape == (6, T, S)
+    for b in range(6):
+        want = np.asarray(jhist.segment_histogram(
+            jnp.asarray(xs[b:b + 1]), jnp.asarray(lengths[b:b + 1]),
+            jnp.asarray(isbl[b:b + 1]), jt, max_nb_states=M, min_len=3,
+            nb_substeps=n))
+        np.testing.assert_allclose(rows[b].numpy(), want, rtol=1e-10,
+                                   atol=1e-10)
+    total = thist.segment_histogram(
+        torch.tensor(xs), torch.tensor(lengths), torch.tensor(isbl), tt,
+        max_nb_states=M, min_len=3, nb_substeps=n)
+    np.testing.assert_allclose(rows.sum(0).numpy(), total.numpy(),
+                               rtol=1e-12, atol=1e-12)

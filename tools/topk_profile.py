@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of ``topk_kernel.segment_topk`` (K7 and the backpointer
-decode) goes on one chunk of 32768 tracks, by ``torch.profiler``.
+decode) goes on one chunk of 32768 tracks, by ``torch.profiler``, or with
+``--split`` inside K7, by its clock64 marks.
 
-    python3 tools/topk_profile.py
+    python3 tools/topk_profile.py [--split]
 
 At ``chip_smoke.py``'s two K7 bench shapes (2 states, D=2, f32: lengths
 3..10 at M=512, lengths 3..30 at M=128) it takes the first 32768 tracks
@@ -10,9 +11,15 @@ of the largest length bucket, runs ``segment_topk`` twice to warm up,
 then profiles REPS calls and prints, per call, the total device time,
 the aten operators' device time (their kernels' included) and the
 kernels' own, the largest first, with the card's name and power limit.
+With ``--split`` it builds the kernels with their clock64 marks
+(``cuda_lib.enable_profile``), launches K7 bare on all 2^20 tracks of
+each shape (``chip_smoke.topk_bare``) and prints each section's share of
+the cycles that the tracks' lead threads spent (summed over all tracks;
+the marks cost a little, so read shares, not times).
 """
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import subprocess
 import sys
@@ -24,15 +31,43 @@ HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
 REPS = 3
 ROWS = 18
+SECTIONS = ["fold", "closing", "fold published", "scoring",
+            "selection of a full register (runs sorted, merged)",
+            "sort of every live child", "survivors rebuilt, backpointers",
+            "identity tail", "decode", "histogram reduction", "", ""]
+
+
+def split(smoke, tb, dev) -> None:
+    """K7's cycle split at both bench shapes (profile build)."""
+    from extrack_tpu_torch.ops import cuda_lib
+    for T, M in ((10, 512), (30, 128)):
+        run = smoke.topk_bare(smoke.bench_buckets(dev, T=T), tb, M, dev)
+        run()
+        torch.cuda.synchronize()
+        cuda_lib.profile_counters("topk")
+        ms = smoke.cuda_ms(run, REPS, warmup=0)
+        cyc = cuda_lib.profile_counters("topk")
+        total = sum(cyc)
+        print(f"T={T} M={M}, 2^20 tracks, profile build: {ms:.3f} ms per "
+              f"pass (marks included); lead-thread cycles over {REPS} "
+              f"passes:")
+        for name, c in zip(SECTIONS, cyc):
+            if c:
+                print(f"  {c / total * 100:6.2f}%  {c:16d}  {name}")
 
 
 def main() -> int:
-    from extrack_tpu_torch import data
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--split", action="store_true")
+    a = ap.parse_args()
     from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.histograms import TOPK_CHUNK
     from extrack_tpu_torch.ops import topk_kernel
+    from extrack_tpu_torch.ops import cuda_lib
     from torch.profiler import ProfilerActivity, profile
 
+    if a.split:
+        cuda_lib.enable_profile()
     spec = importlib.util.spec_from_file_location("smoke",
                                                   HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -44,7 +79,7 @@ def main() -> int:
         torch.tensor([0.5, 0.5], **f32),
         torch.tensor([[0.0, 0.1], [0.1, 0.0]], **f32),
         torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,))
-    for T, M in ((10, 512), (30, 128)):
+    for T, M in (() if a.split else ((10, 512), (30, 128))):
         b = max(smoke.bench_buckets(dev, T=T), key=lambda x: x.max_len)
         args = (b.positions[:TOPK_CHUNK], b.lengths[:TOPK_CHUNK],
                 b.is_bleached[:TOPK_CHUNK], tb)
@@ -73,6 +108,8 @@ def main() -> int:
             for e in sorted(rows, key=lambda e: -getattr(e, attr))[:ROWS]:
                 print(f"  {getattr(e, attr) / REPS / 1e3:9.3f} ms "
                       f"{e.count // REPS:5d}x  {e.key[:100]}")
+    if a.split:
+        split(smoke, tb, dev)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
