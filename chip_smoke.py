@@ -7,7 +7,8 @@ Phases (each prints its lines; a failed check exits non-zero):
 
 0. toolchain: torch / CUDA versions, nvcc, the card's name and power limit,
    the kernel build time (one nvcc per source, in parallel) and nvcc's
-   register / spill report;
+   register / spill report, which fails the run on a spill in any K5 or K6
+   instantiation of up to 512 threads;
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each;
 2. K2 (csrc/grad.cu): value and every table gradient against
@@ -62,7 +63,11 @@ Phases (each prints its lines; a failed check exits non-zero):
    positions; K6's time at 2^20 tracks (T=10, W=7, S=2), launched on
    prepared inputs and through ``refine_kernel.refine``, and the plain
    version's time on the same 2^20 tracks (in the chunks ``refine_plain``
-   makes, about 40 s on an H100);
+   makes, about 40 s on an H100), with the SFU floor beside the bound (one
+   rsqrt and one exp2 per pair at 16 a clock per SM); then a 3-state
+   ``position_refinement`` at the JAX package's default window (tracks of
+   up to 9 frames: W=6, K=729), its time, launches and each bucket's
+   first tracks against the plain version;
 9. K7 (csrc/topk.cu): the top-K histogram (K7 with its decode fused in)
    against ``segment_topk_plain`` at twelve configurations with a
    forbidden transition (M = 512 at 2 and 4 states, 3 states, two
@@ -101,6 +106,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -156,6 +162,7 @@ REFINE_CASES = [(2, 7, 2, 1001, 10, False), (3, 5, 2, 1001, 10, False),
                 (2, 4, 2, 257, 2, True), (2, 5, 1, 301, 12, False),
                 (2, 4, 3, 301, 12, False), (2, 8, 2, 32, 60, True)]
 REFINE_CHECK = 4096           # main-path tracks per bucket held to plain
+REFINE3_CHECK = 256           # 3-state (K=729) tracks per bucket held to plain
 REFINE_PLAIN_WARMUP = 1 << 10  # tracks per bucket of the plain K6 warm-up
 TOL_TOPK_UNPRUNED = dict(rtol=1e-4, atol=1e-5)   # tests/test_pallas_topk.py
 TOL_TOPK_PRUNED = dict(rtol=2e-3, atol=2e-2)
@@ -423,6 +430,17 @@ def topk_ops(lengths, M: int, A: int, D: int, P: int) -> float:
         per += 4 * live[-1] * n_len
         ops += ntr * per
     return float(ops)
+
+
+def sfu_ms(mufu_ops: float, dev) -> float:
+    """The least time the card's special-function units take for
+    ``mufu_ops`` results: 16 a clock per SM (sm_90) at the top SM clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return mufu_ops / (16 * sms * mhz * 1e6) * 1e3
 
 
 def bound(nbytes: float, ops: float):
@@ -709,10 +727,24 @@ def main() -> int:
     cuda_lib.library()
     log(f"phase 0: kernel build + load {time.time() - t0:.1f} s -> "
         f"{lib_path.name}")
+    spills = []
+    entry_name = ""
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
             log("  ptxas " + line.strip())
+        if "Compiling entry" in line:
+            entry_name = line.split("'")[1]
+        spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill",
+                            line)
+        block = re.match(r"_ZN7extrack1[13](?:hist|refine)_kernelILi\dELi"
+                         r"(\d+)E", entry_name)
+        if (spilled and block and int(block.group(1)) <= 512
+                and (int(spilled.group(1)) or int(spilled.group(2)))):
+            spills.append(entry_name)
+    if spills:
+        fail(f"K5/K6 instantiations of <= 512 threads spill: {spills}")
+    log("phase 0: no K5/K6 instantiation of <= 512 threads spills")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -1255,8 +1287,9 @@ def main() -> int:
         tracks, loc8, ds8, [values["F0"], values["F1"]], tr8)
     t_ref = time.time() - t0
     k6, plain = refine_kernel.LAUNCHES, plain_calls()
-    log(f"phase 8: position_refinement on {n_tr} tracks (window "
-        f"{refine.default_window(2)}) {t_ref:.2f} s; K6 launches {k6}, plain "
+    W8 = refine.default_window(2, max(int(k) for k in tracks), 2)
+    log(f"phase 8: position_refinement on {n_tr} tracks (window {W8}, the "
+        f"JAX package's default) {t_ref:.2f} s; K6 launches {k6}, plain "
         f"calls {plain} [{card}]")
     if k6 != len(pbuckets) or plain != 0:
         fail(f"refinement main path K6 launches {k6} (want {len(pbuckets)}), "
@@ -1273,7 +1306,7 @@ def main() -> int:
                    and np.array_equal(got_sig[k], sigmas[k]) for k in got_mu)
         n = min(REFINE_CHECK, b.batch_size)
         mu0, sig0 = refine_kernel.refine_plain(
-            b.positions[:n], b.lengths[:n], l2_8, lt8, sig2_8, window=7)
+            b.positions[:n], b.lengths[:n], l2_8, lt8, sig2_8, window=W8)
         errs["K6"].append(check_refine(
             f"phase 8: bucket T={b.max_len} B={b.batch_size}, first {n} "
             f"tracks", mu[:n], sig[:n], mu0, sig0, b.positions[:n],
@@ -1337,12 +1370,69 @@ def main() -> int:
     kinfo["K6"]["bound_ms"], kinfo["K6"]["bound_by"] = bound(
         4 * rows + 4 * n_bench,
         walk_ops(bench_lens, 128, 2, 2, "K6", S=2))
+    # the SFU floor beside the operation bound: one rsqrt and one exp2 per
+    # pair, 16 results per clock per SM at the card's top SM clock
+    pairs = float((np.maximum(bench_lens - 2, 0) * 2 * 64 ** 2).sum())
+    sfu6 = sfu_ms(2 * pairs, dev)   # for the log only: not a measurement
     log(f"phase 8: K6 {n_bench} tracks ({len(bench)} buckets), W=7: kernel "
         f"{ms6:.3f} ms = {n_bench / ms6 * 1e3 / 1e6:.3f}M tracks/s (with "
         f"its wrapper {wms6:.3f} ms); plain {pms6:.3f} ms on all "
         f"{n_bench} tracks; "
         f"bound {kinfo['K6']['bound_ms']:.4f} ms "
-        f"({kinfo['K6']['bound_by']}) [{card}]")
+        f"({kinfo['K6']['bound_by']}), SFU floor "
+        f"{sfu6:.4f} ms ({pairs:.4g} pairs) [{card}]")
+
+    # 3 states at the JAX package's default window: tracks of up to 9
+    # frames take W=6 (K=729, the 1024-thread instantiation)
+    tr3r = np.full((3, 3), 0.05) + np.eye(3) * 0.85
+    tracks3r, _, _ = simulate.sim_fov(
+        nb_tracks=20_000, max_track_len=9, min_track_len=3, LocErr=0.02,
+        Ds=(0.0, 0.02, 0.1), TrMat=tr3r, dt=0.02, pBL=0.1, cell_dims=(0.5,),
+        seed=4)
+    ds3 = np.sqrt(2.0 * np.array([0.0, 0.02, 0.1]) * 0.02)
+    T3 = max(int(k) for k in tracks3r)
+    W3 = refine.default_window(3, T3, 2)
+    buckets3r = data.from_dict_bucketed(tracks3r, max_buckets=4, device=dev)
+    for b in buckets3r:             # warm-up (and the buckets to check)
+        refine.refine_batch(b, 0.02, ds3, tr3r, frame_len=W3)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    mus3, sigmas3 = refine.position_refinement(tracks3r, 0.02, ds3,
+                                               [1 / 3] * 3, tr3r)
+    torch.cuda.synchronize()
+    t_r3 = time.time() - t0
+    k6_3, plain = refine_kernel.LAUNCHES, plain_calls()
+    n3r = sum(len(v) for v in tracks3r.values())
+    log(f"phase 8: position_refinement on {n3r} 3-state tracks of up to "
+        f"{T3} frames: window {W3} (K={3 ** W3}, the JAX package's default "
+        f"at T={T3}, D=2) {t_r3:.3f} s; K6 launches {k6_3}, plain calls "
+        f"{plain} [{card}]")
+    if k6_3 != len(buckets3r) or plain != 0 or W3 != 6:
+        fail(f"3-state refinement: K6 launches {k6_3} (want "
+             f"{len(buckets3r)}), plain calls {plain}, window {W3}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    lt3 = tables.cap_log(torch.tensor(tr3r, **f32))
+    sig2_3 = torch.tensor(ds3, **f32) ** 2
+    l2_3 = torch.full((1, 1, 1), 0.02 ** 2, **f32)
+    # each bucket: the entry point's output is refine_batch's bit for bit,
+    # and that output holds to the plain version on the first tracks
+    for b in buckets3r:
+        mu, sig = refine.refine_batch(b, 0.02, ds3, tr3r, frame_len=W3)
+        got_mu, got_sig = data.to_dict(b, mu), data.to_dict(b, sig[..., 0])
+        same = all(np.array_equal(got_mu[k], mus3[k])
+                   and np.array_equal(got_sig[k], sigmas3[k])
+                   for k in got_mu)
+        n = min(REFINE3_CHECK, b.batch_size)
+        mu0, sig0 = refine_kernel.refine_plain(
+            b.positions[:n], b.lengths[:n], l2_3, lt3, sig2_3, window=W3)
+        errs["K6"].append(check_refine(
+            f"phase 8: 3 states, W={W3}, bucket T={b.max_len}, first {n} "
+            f"tracks", mu[:n], sig[:n], mu0, sig0, b.positions[:n],
+            b.lengths[:n], l2_3))
+        if not same:
+            fail(f"3-state position_refinement differs from K6 on bucket "
+                 f"T={b.max_len}")
     # ---- phase 9: K7 -------------------------------------------------------
     TOPK_CHUNK = histograms.TOPK_CHUNK
     for S, n, M, D, B, T, per_peak, kind in TOPK_CASES:

@@ -31,6 +31,28 @@ constexpr float kTiny = 1e-30f;                 // f32-safe sum guard
 constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr float k2Pi = 6.283185307179586f;
 
+// The block of a kernel that walks one track per block (K5, K6) for one
+// launch: its threads, its shared bytes besides the per-track carries, and
+// the carries' bytes per track (in shared memory where they fit, else in
+// global scratch).  The host asks for it (extrack_hist_layout,
+// extrack_refine_layout) to choose between the two.
+struct BlockLayout {
+  int threads;
+  size_t fixed, carry;
+};
+
+// Writes `lay` to out[0..2] for the host; cudaErrorInvalidValue outside
+// D = 1..3 or above 1024 threads, where the launch would fail too.
+static inline int write_layout(const BlockLayout& lay, int D,
+                               long long* out) {
+  if (D < 1 || D > 3 || lay.threads > 1024)
+    return (int)cudaErrorInvalidValue;
+  out[0] = lay.threads;
+  out[1] = (long long)lay.fixed;
+  out[2] = (long long)lay.carry;
+  return 0;
+}
+
 // Cycle split of a walk (tools/k2_profile.py, tools/topk_profile.py), built
 // only with -DEXTRACK_PROFILE: one lead thread per track adds the clock64()
 // cycles since its last mark to section i, and at the end adds its sections
@@ -267,6 +289,119 @@ static __device__ __forceinline__ Real fuse_group(
     s2[d] = sig2v[k] + tf[d] * inv_sw;
   }
   return mx + xlog(clamp_min(sw, kTiny));
+}
+
+// ---- the base-2 fusion of K5 and K6 (hist.cu, refine.cu) ----------------
+// The same fusion step as fuse_group, on the special-function unit's
+// approximations (ex2, lg2, rcp, rsqrt: a few ulp each) and with the base
+// log weights published in base 2; split in two around the caller's
+// barrier, so that the caller can double-buffer `pub` and put other work
+// (K6's pair loop, K5's run/hist transport) between the two halves.
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegBig = -1e30f;       // below every real log2 weight
+
+static __device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+static __device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+static __device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+static __device__ __forceinline__ float rsq(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Publish slot k's Gaussian update against observation (x, l2) to `pub`
+// (fuse_group's layout, with the base log weight lp - quad in base 2); the
+// caller's barrier makes it readable.  Returns prod_d (l2 + s2), the
+// update's normalizer, for a caller that closes on it.
+template <int D>
+static __device__ __forceinline__ float publish2(bool act, const float* m,
+                                                 const float* s2, float lp,
+                                                 const float* x,
+                                                 const float* l2, float* pub,
+                                                 int K, float* quad_out =
+                                                     nullptr) {
+  if (!act) return 1.f;
+  const int k = threadIdx.x;
+  float quad = 0.f, prod = 1.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float tot = l2[d] + s2[d];
+    const float inv = rcp(tot);
+    const float diff = x[d] - m[d];
+    prod *= tot;
+    quad += 0.5f * diff * diff * inv;
+    pub[(2 + d) * K + k] = (m[d] * l2[d] + x[d] * s2[d]) * inv;
+    pub[(2 + D + d) * K + k] = l2[d] * s2[d] * inv;
+  }
+  pub[k] = kLog2e * (lp - quad);
+  pub[K + k] = rsq(prod);
+  if (quad_out != nullptr) *quad_out = quad;
+  return prod;
+}
+
+// After the publish barrier: child k moment-matches the A members m0 ..
+// m0+A-1 of its group from `pub` into m and s2 (plus the child's
+// displacement variance sig2v_k) and sets lp to the group's log mass plus
+// `add` (the child's transition terms).  Sets mx (the members' largest
+// base-2 weight) and inv_sw, so that member o's fusion weight is
+// ex2(pub[m0+o] - mx) * pub[K+m0+o] * inv_sw; with MW > 0 (and A <= MW)
+// also w[0..MW-1], those weights (zero past A).
+template <int D, int MW>
+static __device__ __forceinline__ void gather2(bool act, float* m, float* s2,
+                                               float& lp, const float* pub,
+                                               float add, float sig2v_k,
+                                               int K, int m0, int A,
+                                               float& mx, float& inv_sw,
+                                               float* w = nullptr) {
+  if (!act) return;
+  mx = kNegBig;
+  for (int o = 0; o < A; ++o) mx = fmaxf(mx, pub[m0 + o]);
+  float sw = 0.f, mf[D] = {}, tf[D] = {};
+  auto add_member = [&](int o) {
+    const float wo = ex2(pub[m0 + o] - mx) * pub[K + m0 + o];
+    sw += wo;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      mf[d] = fmaf(wo, pub[(2 + d) * K + m0 + o], mf[d]);
+      tf[d] = fmaf(wo, pub[(2 + D + d) * K + m0 + o], tf[d]);
+    }
+    return wo;
+  };
+  if constexpr (MW > 0) {
+#pragma unroll
+    for (int o = 0; o < MW; ++o) w[o] = o < A ? add_member(o) : 0.f;
+  } else {
+    for (int o = 0; o < A; ++o) add_member(o);
+  }
+  sw = fmaxf(sw, kTiny);
+  inv_sw = rcp(sw);
+  if constexpr (MW > 0) {
+#pragma unroll
+    for (int o = 0; o < MW; ++o) w[o] *= inv_sw;
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    m[d] = mf[d] * inv_sw;
+    s2[d] = sig2v_k + tf[d] * inv_sw;
+  }
+  lp = (mx + lg2(sw)) * kLn2 + add;
 }
 
 // Forward walk of one track of length L >= 2 (x, l2: (T, D) rows of the

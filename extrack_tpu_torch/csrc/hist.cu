@@ -18,54 +18,145 @@
 // (the static tables `seg`, read from global memory: the same for every
 // track, so they stay in L2).
 //
+// Rows per fusion group.  The fusion weights of a group's A = S members
+// are the group's, and whether a member's oldest run goes on depends on
+// the group alone (its second-oldest state q), so the S children of a
+// group get the same rows: the kernel keeps G = K/S rows per bin, one per
+// group, and slot c's rows are those of group c % G.  Group g's members
+// are slots g*S .. g*S+S-1, whose rows are the S consecutive groups
+// (g*S) % G + o.  With w_o the members' weights, a fusion writes, bin by
+// bin (each bin mixed in registers and written once):
+//   run(r)    = sum_o w_o run_o(r)                     (frames all kept)
+//             = r == 0 ? 1 - w_q : w_q run_q(r-1)      (the oldest drops)
+//   hist_s(r) = sum_o w_o hist_{s,o}(r) + c_s run_s(r),
+//               c_s = w_s where the oldest drops and s != q, else 0:
+// no branch on the member inside a warp.  At step t only bins 0..t can be
+// nonzero and bin t is new (zero in the sources), so a track starts with
+// bin 0 set (run 1, hist 0) and no other zeroing: every bin is written
+// before it is read, and the harvest reads only the bins written.
+//
 // Mapping: K4's.  One block per track; thread k owns slot k's Gaussian
-// carry in registers, and a fusion publishes the update to shared memory.
-// The run/hist rows ((1+S)*T floats per slot) are double-buffered (a
-// child's mix reads its siblings' rows) and bin-major (row r of slot c at
-// r*K + c, so a warp touches consecutive banks), in shared memory when
-// both buffers fit what a block may opt in to, else in global scratch per
-// persistent block.  A fusion at step t writes bins 0..t only (no run or
-// segment is longer yet) and both buffers start each track at zero.  The
+// carry in registers; a fusion publishes the update to one of two shared
+// areas in turn (one barrier a step), and the S children of group g split
+// its bins (child a = k / G takes the bins r = a mod S).  The rows are
+// double-buffered and bin-major (bin r of group g at r*G + g, so a warp
+// touches consecutive banks), in shared memory when both buffers fit what
+// a block may opt in to, else in global scratch per persistent block.  The
 // harvest gives each warp a share of the bins and each lane a share of the
-// slots (warp sums, no barrier), and writes one (S*T) row per track; the
-// host sums the rows in float64 with one reduction over the tracks, so no
-// float atomics are needed and a histogram computed twice is bitwise
-// identical.
+// slots (per-slot constants c % S, c % G and the oldest run's length from
+// shared memory, loaded once per block), and writes one (S*T) row per
+// track; the host sums the rows in float64 with one reduction over the
+// tracks, so no float atomics are needed and a histogram computed twice is
+// bitwise identical.
 //
 // What bounds it on Hopper: as K4, instruction issue and barriers, not
-// device memory.  The transport adds (1+S)*(t+1)*S multiply-adds per slot
-// at step t, and the harvest K*S*T multiply-adds per track.
+// device memory.  The transport adds (1+S)*(t+1)*(S+1) multiply-adds per
+// group at step t, and the harvest K*S*T multiply-adds per track.
 #include "common.cuh"
 
 namespace extrack {
 
-// The explicit minimum of one block per SM lets ptxas use up to 64
-// registers: with the thread bound alone it gave this kernel 32 registers
-// and spills.
+// Sections of K5's cycle split (tools/walk_profile.py --split).
+enum {
+  kHsZero = 0, kHsFusion = 1, kHsTransport = 2, kHsBarrier = 3,
+  kHsHarvest = 4
+};
+static __device__ unsigned long long g_hist_prof[kProfSlots];
+
+// Group g's run/hist bins at step t that child a takes, from the rows
+// `cur` of the previous step into `nxt` (bin r of set u = 0 (run), 1+s
+// (hist of state s) at (u*T + r)*G + g).  mb0 = (g*S) % G is the members'
+// first group, q the group's second-oldest state.  MS = S (2, 3 or 4): the
+// members' weights w in registers and every member loop unrolled; MS = 0,
+// any S: the weights recomputed from the fusion's `pub`, mx and inv_sw.
+template <int MS>
+static __device__ __forceinline__ void transport(
+    const float* cur, float* nxt, int G, int T, int S, int t, bool drop,
+    int g, int a, int q, int mb0, const float* w, const float* pub, int K,
+    int m0, float mx, float inv_sw) {
+  auto wt = [&](int o) {
+    if constexpr (MS > 0) {
+      float v = w[0];
+#pragma unroll
+      for (int i = 1; i < MS; ++i)
+        if (i == o) v = w[i];
+      return v;
+    } else {
+      return ex2(pub[m0 + o] - mx) * pub[K + m0 + o] * inv_sw;
+    }
+  };
+  // the weighted sum over the members of row u, bin r
+  auto mix = [&](int u, int r) {
+    const float* in = cur + (size_t)(u * T + r) * G + mb0;
+    float v = 0.f;
+    if constexpr (MS > 0) {
+#pragma unroll
+      for (int o = 0; o < MS; ++o) v = fmaf(w[o], in[o], v);
+    } else {
+      for (int o = 0; o < S; ++o) v = fmaf(wt(o), in[o], v);
+    }
+    return v;
+  };
+  const int nb = min(t + 1, T);        // bins written at this step
+  const int nold = min(t, T);          // bins the sources hold
+  if (drop) {
+    const float wq = wt(q);
+    for (int r = a; r < nb; r += S)
+      nxt[(size_t)r * G + g] =
+          r == 0 ? 1.f - wq : wq * cur[(size_t)(r - 1) * G + mb0 + q];
+  } else {
+    for (int r = a; r < nb; r += S)
+      nxt[(size_t)r * G + g] = r < nold ? mix(0, r) : 0.f;
+  }
+  for (int s = 0; s < S; ++s) {
+    const float cs = drop && s != q ? wt(s) : 0.f;
+    for (int r = a; r < nb; r += S)
+      nxt[(size_t)((1 + s) * T + r) * G + g] =
+          r < nold ? fmaf(cs, cur[(size_t)r * G + mb0 + s], mix(1 + s, r))
+                   : 0.f;
+  }
+}
+
+// One fusion and transport step of thread k (after the publish barrier):
+// gather2 with the members' weights, then transport<MS>.
+template <int D, int MS>
+static __device__ __forceinline__ void fuse_step(
+    bool act, float* m, float* s2, float& lp, const float* pub, float add,
+    float sig2v_k, int K, int m0, const float* cur, float* nxt, int G, int T,
+    int S, int t, bool drop, int g, int a, int q, int mb0, Prof& pf) {
+  float gmx = 0.f, ginv = 0.f, w[MS > 0 ? MS : 1];
+  gather2<D, MS>(act, m, s2, lp, pub, add, sig2v_k, K, m0, S, gmx, ginv, w);
+  pf.mark(kHsFusion);
+  if (act)
+    transport<MS>(cur, nxt, G, T, S, t, drop, g, a, q, mb0, w, pub, K, m0,
+                  gmx, ginv);
+}
+
+// The track loop of hist_kernel on the row buffers at `rows_at` (both
+// buffers, 2 * (K/S) * (1+S) * T floats).  The kernel calls it at two
+// sites, so that the one on shared memory reads its rows with shared loads
+// (a pointer that may be either is read with generic loads).
 template <int D>
-__global__ void __launch_bounds__(1024, 1)
-    hist_kernel(Tables tb, const float* __restrict__ xs,
-                const float* __restrict__ l2s,
-                const int* __restrict__ lengths,
-                const float* __restrict__ isbls,
-                const float* __restrict__ seg, const int* __restrict__ ext,
-                int B, int T, int S, int W, float* __restrict__ rows,
-                float* __restrict__ scratch) {
-  extern __shared__ float sh[];
-  __shared__ float red[33];
+static __device__ __forceinline__ void hist_tracks(
+    const Tables& tb, const float* __restrict__ xs,
+    const float* __restrict__ l2s, const int* __restrict__ lengths,
+    const float* __restrict__ isbls, const float* __restrict__ seg, int B,
+    int T, int S, int W, float* __restrict__ rows, float* rows_at,
+    float* pubs, float* spb, const int* cst, const int* cgr, const int* cext,
+    float* red) {
   const int K = tb.K, A = tb.A, G = K / A;      // A == S (one sub-step)
   const int k = threadIdx.x;
   const bool act = k < K;
   const int lane = k & 31, wid = k >> 5, nwarp = blockDim.x >> 5;
   const int m0 = (k % G) * A;                   // first member of k's group
-  const int ST = S * T, HS = (1 + S) * T;       // hist bins, rows per slot
-  float* pub = sh;                              // fusion publish area
-  float* spb = sh + (2 + 2 * D) * K;            // softmax over the register
-  float* buf0 = scratch != nullptr
-                    ? scratch + (size_t)blockIdx.x * 2 * K * HS
-                    : sh + (3 + 2 * D) * K;
-  float* buf1 = buf0 + (size_t)K * HS;
+  const int g = k % G, a = k / G;               // k's group, child index
+  const int q = g % S, mb0 = (g * S) % G;
+  const int ST = S * T, HS = (1 + S) * T;       // hist bins, rows per group
+  const int F = 2 + 2 * D;
+  int buf = 0;                                  // publish area in turn
 
+  Prof pf;
+  pf.start();
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
     const int L = min(lengths[b], T);
     float* row = rows + (size_t)b * ST;
@@ -83,14 +174,15 @@ __global__ void __launch_bounds__(1024, 1)
       m[d] = x[d];
       s2[d] = l2[d] + s20;
     }
-    // every slot starts with a run of length 1 and no completed segment
-    if (act)
-      for (int r = 0; r < HS; ++r) {
-        buf0[(size_t)r * K + k] = r == 0 ? 1.f : 0.f;
-        buf1[(size_t)r * K + k] = 0.f;
-      }
-    float* cur = buf0;      // rows entering this step
-    float* nxt = buf1;      // rows this step's fusion writes
+    // every group starts with a run of length 1 and no completed segment:
+    // bin 0 of every row, the only bin read before it is written
+    float* cur = rows_at;   // rows entering this step
+    float* nxt = rows_at + (size_t)G * HS;  // rows this step's fusion writes
+    if (k < G) {
+      cur[k] = 1.f;
+      for (int s = 0; s < S; ++s) cur[(size_t)(1 + s) * T * G + k] = 0.f;
+    }
+    pf.mark(kHsZero);
     for (int t = 1; t < L; ++t) {
       float xt[D], l2t[D];
 #pragma unroll
@@ -98,14 +190,15 @@ __global__ void __launch_bounds__(1024, 1)
         xt[d] = x[t * D + d];
         l2t[d] = l2[t * D + d];
       }
-      Prep<float, D> p;
-      prep<float, D>(m, s2, xt, l2t, p);
       if (t == L - 1) {
         // harvest: softmax of fin = lp + isBL * end + log N(x_t) (the
         // per-step constants cancel), then per bin a K-sum
+        Prep<float, D> p;
+        prep<float, D>(m, s2, xt, l2t, p);
         const float fin = act ? lp + isbl * tb.endv[k] - 0.5f * logf(p.prod) -
                                     p.quad
                               : -INFINITY;
+        pf.mark(kHsFusion);
         const float mx = block_max(fin, red);
         const float e = act ? expf(fin - mx) : 0.f;
         const float se = block_sum(e, red);
@@ -113,64 +206,134 @@ __global__ void __launch_bounds__(1024, 1)
         __syncthreads();
         // coverage: tracks longer than the window add the carried run
         // and the window's inner segments, shorter ones the segments of
-        // their t+1 frames
+        // their t+1 frames; the rows hold bins 0 .. nw-1
         const bool carry = t + 1 > W;
+        const int nw = min(t, T);
         const float* sg = seg + (size_t)(carry ? W + 1 : t + 1) * ST * K;
         for (int j = wid; j < ST; j += nwarp) {
           const int s = j / T, mb = j - s * T;
+          const bool hv = mb < nw;
           float v = 0.f;
           for (int c = lane; c < K; c += 32) {
-            float tot = cur[(size_t)(T + j) * K + c] + sg[(size_t)j * K + c];
-            if (carry && c % S == s) {
+            const int gc = cgr[c];
+            float tot = sg[(size_t)j * K + c];
+            if (hv) tot += cur[(size_t)(T + j) * G + gc];
+            if (carry && cst[c] == s) {
               // the oldest run: carried length + the window's run - 1
-              const int src = mb - ext[c] + 1;
-              if (src >= 0) tot += cur[(size_t)src * K + c];
+              const int src = mb - cext[c] + 1;
+              if (src >= 0 && src < nw) tot += cur[(size_t)src * G + gc];
             }
-            v += spb[c] * tot;
+            v = fmaf(spb[c], tot, v);
           }
           v = warp_sum(v);
           if (lane == 0) row[j] = v;
         }
         __syncthreads();    // spb and the rows are reused by the next track
+        pf.mark(kHsHarvest);
         break;
       }
-      // fusion (as K1) and the run/hist transport
+      // fusion (K1's, base 2) and the run/hist transport
       const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
-      float mx = 0.f, inv_sw = 0.f;
-      const float lse = fuse_group<float, D>(p, lp - p.quad, m, s2, tb.sig2v,
-                                             pub, K, m0, A, act, mx, inv_sw);
-      if (act) {
-        const bool drop = t >= W - 1;   // the oldest frame leaves the window
-        // member o's oldest state is o, its second-oldest state q (the
-        // same for the whole group): the oldest run goes on iff o == q
-        const int q = (k % G) % S;
-        const int nb = min(t + 1, T);
-        float* dst = nxt + k;
-        for (int o = 0; o < A; ++o) {
-          const float w = expf(pub[m0 + o] - mx) * pub[K + m0 + o] * inv_sw;
-          const float* src = cur + m0 + o;
-          for (int r = 0; r < nb; ++r) {
-            float v = src[(size_t)r * K];
-            if (drop) v = o == q ? (r > 0 ? src[(size_t)(r - 1) * K] : 0.f)
-                                 : (r == 0 ? 1.f : 0.f);
-            dst[(size_t)r * K] = o == 0 ? w * v : dst[(size_t)r * K] + w * v;
-          }
-          for (int s = 0; s < S; ++s)
-            for (int r = 0; r < nb; ++r) {
-              const size_t i = (size_t)(T + s * T + r) * K;
-              float v = src[i];
-              if (drop && o != q && s == o) v += src[(size_t)r * K];
-              dst[i] = o == 0 ? w * v : dst[i] + w * v;
-            }
-        }
-        lp = lse + tb.lt[k] + gate * tb.lsurv[k];
-      }
+      float* pub = pubs + buf * F * K;
+      buf ^= 1;
+      publish2<D>(act, m, s2, lp, xt, l2t, pub, K);
+      pf.mark(kHsFusion);
       __syncthreads();
+      pf.mark(kHsBarrier);
+      const bool drop = t >= W - 1;   // the oldest frame leaves the window
+      const float add = act ? tb.lt[k] + gate * tb.lsurv[k] : 0.f;
+      const float sv = act ? tb.sig2v[k] : 0.f;
+#define EXTRACK_HIST_STEP(MS)                                              \
+  fuse_step<D, MS>(act, m, s2, lp, pub, add, sv, K, m0, cur, nxt, G, T, S, \
+                   t, drop, g, a, q, mb0, pf)
+      switch (S) {
+        case 2: EXTRACK_HIST_STEP(2); break;
+        case 3: EXTRACK_HIST_STEP(3); break;
+        case 4: EXTRACK_HIST_STEP(4); break;
+        default: EXTRACK_HIST_STEP(0);
+      }
+#undef EXTRACK_HIST_STEP
+      pf.mark(kHsTransport);
       float* tmp = cur;
       cur = nxt;
       nxt = tmp;
     }
   }
+  pf.flush(g_hist_prof, threadIdx.x == 0);
+}
+
+// NT: the largest block the instantiation is launched with.  The walk is
+// latency-bound, so residency counts more than registers: up to 256
+// threads ptxas is held to 85 registers (6 blocks of 128 threads an SM;
+// it uses 80); measured on an H100 at the bench shape, 80 registers ran
+// 14.2 ms, 72 13.1 ms with 4 bytes of spill, 64 13.1 ms with 8, 125
+// 22.0 ms.
+template <int NT>
+constexpr int hist_min_blocks() {
+  return 65536 / (NT * 80) > 1 ? 65536 / (NT * 80) : 1;
+}
+template <int D, int NT>
+__global__ void __launch_bounds__(NT, hist_min_blocks<NT>())
+    hist_kernel(Tables tb, const float* __restrict__ xs,
+                const float* __restrict__ l2s,
+                const int* __restrict__ lengths,
+                const float* __restrict__ isbls,
+                const float* __restrict__ seg, const int* __restrict__ ext,
+                int B, int T, int S, int W, float* __restrict__ rows,
+                float* __restrict__ scratch) {
+  extern __shared__ float sh[];
+  __shared__ float red[33];
+  const int K = tb.K, G = K / tb.A;
+  const int F = 2 + 2 * D;
+  // shared memory: two fusion publish areas, the softmax over the
+  // register, per-slot constants (c % S, c % G, the oldest run's length),
+  // then both row buffers unless they are in global scratch
+  float* pubs = sh;
+  float* spb = sh + 2 * F * K;
+  int* cst = reinterpret_cast<int*>(spb + K);
+  int* cgr = cst + K;
+  int* cext = cgr + K;
+  for (int c = threadIdx.x; c < K; c += blockDim.x) {
+    cst[c] = c % S;
+    cgr[c] = c % G;
+    cext[c] = ext[c];
+  }
+  if (scratch == nullptr)
+    hist_tracks<D>(tb, xs, l2s, lengths, isbls, seg, B, T, S, W, rows,
+                   reinterpret_cast<float*>(cext + K), pubs, spb, cst, cgr,
+                   cext, red);
+  else
+    hist_tracks<D>(tb, xs, l2s, lengths, isbls, seg, B, T, S, W, rows,
+                   scratch + (size_t)blockIdx.x * 2 * G * (1 + S) * T, pubs,
+                   spb, cst, cgr, cext, red);
+}
+
+template <int D, int NT>
+static int launch_nt(const Tables& tb, const float* xs, const float* l2,
+                     const int* lengths, const float* isbl, const float* seg,
+                     const int* ext, float* rows, float* scratch, int B,
+                     int T, int S, int W, int nblk, int threads, size_t smem,
+                     cudaStream_t stream) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(hist_kernel<D, NT>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  if (B > 0)
+    hist_kernel<D, NT><<<nblk, threads, smem, stream>>>(
+        tb, xs, l2, lengths, isbl, seg, ext, B, T, S, W, rows, scratch);
+  return (int)cudaGetLastError();
+}
+
+// K5's block for T frames, D dimensions, K slots at S states: a thread per
+// slot; shared memory besides the rows: two fusion publish areas of
+// (2+2D)*K floats, the softmax over the register and three per-slot int
+// constants (c % S, c % G, the oldest run's length).  Carry: the
+// double-buffered run and histogram rows, (1+S)*T floats for each of the
+// K/S fusion groups (the S children of a group carry the same rows).
+static BlockLayout hist_layout(int T, int D, int K, int S) {
+  return {(K + 31) / 32 * 32,
+          (size_t)(2 * (2 + 2 * D) + 4) * K * sizeof(float),
+          (size_t)2 * (K / S) * (1 + S) * T * sizeof(float)};
 }
 
 template <int D>
@@ -179,22 +342,31 @@ static int launch_hist(const Tables& tb, const float* xs, const float* l2,
                        const float* seg, const int* ext, float* rows,
                        float* scratch, int B, int T, int S, int W, int nblk,
                        cudaStream_t stream) {
-  const int threads = (tb.K + 31) / 32 * 32;
-  const size_t bufs = (size_t)2 * tb.K * (1 + S) * T;
-  const size_t smem =
-      ((size_t)(3 + 2 * D) * tb.K + (scratch != nullptr ? 0 : bufs)) *
-      sizeof(float);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(hist_kernel<D>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  if (B > 0)
-    hist_kernel<D><<<nblk, threads, smem, stream>>>(
-        tb, xs, l2, lengths, isbl, seg, ext, B, T, S, W, rows, scratch);
-  return (int)cudaGetLastError();
+  const BlockLayout lay = hist_layout(T, D, tb.K, S);
+  const int threads = lay.threads;
+  const size_t smem = lay.fixed + (scratch != nullptr ? 0 : lay.carry);
+#define EXTRACK_HIST_NT(NT)                                                \
+  launch_nt<D, NT>(tb, xs, l2, lengths, isbl, seg, ext, rows, scratch, B,  \
+                   T, S, W, nblk, threads, smem, stream)
+  if (threads <= 128) return EXTRACK_HIST_NT(128);
+  if (threads <= 256) return EXTRACK_HIST_NT(256);
+  if (threads <= 512) return EXTRACK_HIST_NT(512);
+  if (threads <= 1024) return EXTRACK_HIST_NT(1024);
+#undef EXTRACK_HIST_NT
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace extrack
+
+// Reads and zeroes K5's cycle split (profile builds; zeros otherwise).
+extern "C" int extrack_hist_prof(unsigned long long* out) {
+  unsigned long long zero[extrack::kProfSlots] = {};
+  cudaError_t err =
+      cudaMemcpyFromSymbol(out, extrack::g_hist_prof, sizeof zero);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(extrack::g_hist_prof, zero, sizeof zero);
+  return (int)err;
+}
 
 // Dynamic shared memory one K5 block may opt in to on `device` (as
 // extrack_predict_smem).
@@ -204,9 +376,16 @@ extern "C" int extrack_hist_smem(int device) {
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncAttributes attr;
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, extrack::hist_kernel<2>);
+    err = cudaFuncGetAttributes(&attr, extrack::hist_kernel<2, 1024>);
   if (err != cudaSuccess) return -(int)err;
   return optin - (int)attr.sharedSizeBytes;
+}
+
+// K5's block for a launch (hist_layout): out = threads, shared bytes
+// besides the rows, row bytes per track.
+extern "C" int extrack_hist_layout(int T, int D, int K, int S,
+                                   long long* out) {
+  return extrack::write_layout(extrack::hist_layout(T, D, K, S), D, out);
 }
 
 // Inputs: xs, l2 (B, T, D), lengths (B,), isbl (B,) and the six (K,) slot
@@ -215,9 +394,9 @@ extern "C" int extrack_hist_smem(int device) {
 // (ops/hist_kernel.segment_tables).  Output: rows (B, S*T), each track's
 // expected histogram (bin s*T + m: segments of length m+1 in state s;
 // zero for tracks of fewer than 2 frames).  scratch: null to keep the
-// double-buffered rows in shared memory, or nblk * 2 * K * (1+S) * T
-// floats of global scratch.  Blocks are persistent over nblk.  Returns
-// cudaGetLastError().
+// double-buffered rows in shared memory, or nblk times the row bytes of
+// extrack_hist_layout in global scratch.  Blocks are
+// persistent over nblk.  Returns cudaGetLastError().
 extern "C" int extrack_hist(const float* xs, const float* l2,
                             const int* lengths, const float* isbl,
                             const float* lp0, const float* s20,

@@ -14,6 +14,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from extrack_tpu_torch.device import resolve_device
+
 
 class TrackBatch:
     """A batch of tracks padded to a common length.
@@ -66,10 +68,15 @@ def from_dict(all_tracks: Dict[str, np.ndarray],
               pad_batch: int = 0,
               data_max: Optional[int] = None,
               *,
-              device="cpu",
-              dtype=torch.float64) -> TrackBatch:
+              device=None,
+              dtype=None) -> TrackBatch:
     """Convert the reference's length-keyed dict format to a padded batch
     on ``device`` in ``dtype``.
+
+    ``device`` defaults to the card (``"cuda"``), as the port's entry
+    points do, and raises where there is none: pass ``device="cpu"`` for a
+    batch on the CPU.  ``dtype`` defaults to float32 on the card, where
+    the kernels compute, and float64 elsewhere.
 
     ``is_bleached`` follows the reference convention: tracks whose length
     equals the dataset maximum (``data_max``, default this dict's maximum)
@@ -77,6 +84,7 @@ def from_dict(all_tracks: Dict[str, np.ndarray],
     (extrack/tracking.py:1037-1040).  ``max_len`` / ``pad_batch`` pad the
     time / track axes on the host before the one transfer.
     """
+    device, dtype = resolve_device(device, dtype)
     keys = sorted((k for k in all_tracks if len(all_tracks[k]) > 0),
                   key=lambda s: int(s))
     if not keys:
@@ -187,7 +195,8 @@ def from_dict_bucketed(all_tracks: Dict[str, np.ndarray],
     The ``is_bleached`` convention stays global: only tracks at the
     dataset's maximum length are censored.  ``canonical_shapes`` is
     accepted for call compatibility and has no effect: eager PyTorch has no
-    per-shape program to reuse.  Other keywords go to ``from_dict``.
+    per-shape program to reuse.  Other keywords go to ``from_dict``
+    (``device`` defaults to the card there).
     """
     del canonical_shapes
     lens = sorted(int(k) for k in all_tracks if len(all_tracks[k]) > 0)

@@ -30,10 +30,10 @@ import scipy.optimize
 import torch
 
 from extrack_tpu_torch import data as tdata
+from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import engine, tables
-from extrack_tpu_torch.ops import cuda_lib, forward_kernel, grad_kernel, \
-    hvp_kernel
+from extrack_tpu_torch.ops import forward_kernel, grad_kernel, hvp_kernel
 
 
 @dataclasses.dataclass
@@ -160,12 +160,14 @@ def fit(batch,
         verbose: int = 0,
         max_iter: int = 500,
         compute_errors: bool = False,
+        sharded: bool = False,
         callback=None,
         checkpoint_path: Optional[str] = None,
         resume: bool = True,
         n_starts: int = 1,
         start_scale: float = 1.0,
-        seed: int = 0) -> FitResult:
+        seed: int = 0,
+        compute_engine: str = "auto") -> FitResult:
     """Fit the free parameters of ``spec`` to a TrackBatch (or buckets).
 
     callback: called as ``callback(n_eval, objective, values)`` per
@@ -177,7 +179,18 @@ def fit(batch,
         and keep the best optimum.
     Gradient-free methods (Powell, Nelder-Mead, COBYLA) evaluate the value
     only.
+    compute_engine: 'auto' or 'pallas' run the CUDA kernels on a CUDA
+        batch; 'xla' raises there (``tdevice.check_compute_engine``).
+        CPU batches run the plain engine whatever the value.
+    ``sharded=True`` (several devices) is not ported yet and raises.
     """
+    if sharded:
+        raise NotImplementedError(
+            "sharded fits wait for the torch.distributed port "
+            "(ROADMAP Queue 1 item 15)")
+    first = batch[0] if isinstance(batch, (list, tuple)) else batch
+    tdevice.check_compute_engine(compute_engine, first.positions.device,
+                                  "fit")
     if checkpoint_path and resume and os.path.exists(checkpoint_path):
         with open(checkpoint_path) as fh:
             state = json.load(fh)
@@ -435,6 +448,7 @@ def param_fitting(all_tracks,
                   threshold: float = 0.2,
                   max_nb_states: int = 120,
                   compute_errors: bool = False,
+                  sharded: bool = False,
                   length_buckets: int = 4,
                   *,
                   device="cuda",
@@ -453,10 +467,7 @@ def param_fitting(all_tracks,
     ``default_window``) replaces the reference's threshold pruning.
     """
     del workers, threshold, max_nb_states
-    cuda_lib.check_device(device)
-    if dtype is None:
-        dtype = (torch.float32 if torch.device(device).type == "cuda"
-                 else torch.float64)
+    device, dtype = tdevice.resolve_device(device, dtype)
     if params is None:
         params = tparams.generate_params(
             nb_states=nb_states, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
@@ -470,4 +481,4 @@ def param_fitting(all_tracks,
                nb_states, cell_dims=cell_dims, nb_substeps=nb_substeps,
                window=frame_len, matrix_type=Matrix_type, method=method,
                verbose=verbose, input_loc_err=input_LocErr is not None,
-               compute_errors=compute_errors, **fit_kwargs)
+               compute_errors=compute_errors, sharded=sharded, **fit_kwargs)

@@ -34,9 +34,9 @@ import numpy as np
 import torch
 
 from extrack_tpu_torch import data as tdata
+from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import engine, tables
-from extrack_tpu_torch.ops import cuda_lib
 
 _NEG = -1e30              # log weight of an unused register slot
 # engine names accepted by hist_batch / len_hist, as the JAX package's, and
@@ -540,11 +540,8 @@ def len_hist(all_tracks: Dict[str, np.ndarray],
     to a multiple of 128), one K7 launch per 32768 tracks of a bucket.
     """
     del workers
-    cuda_lib.check_device(device)
+    device, dtype = tdevice.resolve_device(device, dtype)
     _check_engine(engine, sharded, nb_substeps)
-    if dtype is None:
-        dtype = (torch.float32 if torch.device(device).type == "cuda"
-                 else torch.float64)
     batches = tdata.from_dict_bucketed(
         all_tracks, max_buckets=4, input_loc_err=input_LocErr,
         dt=dt if isinstance(dt, dict) else None, device=device, dtype=dtype)

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "extrack_hist": [_P] * 14 + [_I] * 8 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
     "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],
+    "extrack_hist_layout": [_I] * 4 + [_P],
+    "extrack_refine_layout": [_I] * 4 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
 _SMEM_QUERIES = ("extrack_grad_smem", "extrack_predict_smem", "extrack_hist_smem",
@@ -63,8 +65,9 @@ def enable_profile():
 
 
 def profile_counters(kernel: str) -> list:
-    """The cycle counters of ``kernel`` ("grad" or "topk") summed over every
-    track since the last read, then zeroed (profile builds only)."""
+    """The cycle counters of ``kernel`` ("grad", "topk", "hist" or
+    "refine") summed over every track since the last read, then zeroed
+    (profile builds only)."""
     out = (ctypes.c_ulonglong * PROFILE_SECTIONS)()
     fn = getattr(library(), f"extrack_{kernel}_prof")
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
@@ -151,15 +154,17 @@ def library() -> ctypes.CDLL:
     return _load()
 
 
-def check_device(device):
-    """Raise unless ``device`` is the CPU or CUDA with a device present:
-    entry points that default to the card never carry on quietly on the
-    CPU."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} needs a CUDA device, and "
-            "torch.cuda.is_available() is False; pass device='cpu' to run "
-            "the plain engine on the CPU")
+@functools.cache
+def layout(kernel: str, T: int, D: int, K: int, S: int):
+    """(threads, shared bytes besides the carries, carry bytes per track)
+    of one block of ``kernel`` ("hist" or "refine") for a launch at T
+    frames, D dimensions, K slots and S states, as the kernel's source
+    defines its block (``extrack_{kernel}_layout``)."""
+    out = (ctypes.c_longlong * 3)()
+    rc = getattr(library(), f"extrack_{kernel}_layout")(
+        T, D, K, S, ctypes.addressof(out))
+    check(rc, f"{kernel} layout")
+    return tuple(out)
 
 
 @functools.cache
@@ -174,16 +179,18 @@ def smem_bytes(query: str, device_index: int) -> int:
 
 
 def grid(query: str, dev, B: int, K: int, fixed_bytes: int,
-         carry_bytes: int):
+         carry_bytes: int, threads: int = 0):
     """Blocks and scratch for a kernel that walks one track per block with
     one thread per slot (K4, K5, K6).  When ``fixed_bytes`` of shared
     memory plus the track's ``carry_bytes`` fit what a block may opt in to
     (``query``), one block per track and no scratch; else persistent
     blocks, as many as the card keeps resident, each with its carries in
-    global scratch.  Returns (nblk, float32 scratch tensor or None)."""
+    global scratch.  ``threads`` is the block's size where it is not K
+    rounded up to a warp.  Returns (nblk, float32 scratch tensor or
+    None)."""
     if fixed_bytes + carry_bytes <= smem_bytes(query, dev.index):
         return max(B, 1), None
-    threads = (K + 31) // 32 * 32
+    threads = threads or (K + 31) // 32 * 32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nblk = max(1, min(B, sms * max(1, 2048 // threads),
                       SCRATCH_BUDGET // carry_bytes))

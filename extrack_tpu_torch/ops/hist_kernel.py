@@ -53,12 +53,6 @@ def device_segment_tables(S: int, W: int, T: int, device: torch.device):
             torch.tensor(ext_np, device=device))
 
 
-def rows_floats(T: int, S: int) -> int:
-    """Run and histogram rows per slot: T run-length bins and S*T
-    segment bins."""
-    return (1 + S) * T
-
-
 def launch(data, tabs, min_len: int, S: int, W: int) -> torch.Tensor:
     """Launch K5 on the current stream; returns the (T, S) histogram,
     float32 (the per-track rows are summed in float64 by one reduction
@@ -72,9 +66,9 @@ def launch(data, tabs, min_len: int, S: int, W: int) -> torch.Tensor:
     dev = xs.device
     seg, ext = device_segment_tables(S, W, T, dev)
     rows = torch.empty((B, S * T), dtype=torch.float32, device=dev)
-    nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, K,
-                                  (3 + 2 * D) * K * 4,
-                                  2 * K * rows_floats(T, S) * 4)
+    threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S)
+    nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, K, fixed,
+                                  rows_bytes, threads=threads)
     rc = lib.extrack_hist(
         *(t.data_ptr() for t in (*data, *tabs, seg, ext, rows)),
         None if scratch is None else scratch.data_ptr(),

@@ -46,12 +46,6 @@ def build_refine_tables(log_trans: torch.Tensor, sig2_states: torch.Tensor,
     return lt - (W - 2) * math.log(S), lt, sig2
 
 
-def stash_floats(T: int, D: int, K: int) -> int:
-    """Suffix stash per track: (2D+1) floats per slot for frames
-    0 .. T-2."""
-    return max(T - 1, 0) * (2 * D + 1) * K
-
-
 def launch(positions, lengths, l2, tabs, S: int):
     """Launch K6 on the current stream: ``positions``, ``l2`` (B, T, D)
     float32, ``lengths`` (B,) int32, ``tabs`` the five (K,) float32 tables
@@ -68,9 +62,9 @@ def launch(positions, lengths, l2, tabs, S: int):
     f32 = dict(dtype=torch.float32, device=dev)
     mu = torch.empty((B, T, D), **f32)
     sigma = torch.empty((B, T, D), **f32)
-    nblk, scratch = cuda_lib.grid("extrack_refine_smem", dev, B, K,
-                                  (2 + 2 * D) * K * 4,
-                                  stash_floats(T, D, K) * 4)
+    threads, fixed, stash = cuda_lib.layout("refine", T, D, K, S)
+    nblk, scratch = cuda_lib.grid("extrack_refine_smem", dev, B, K, fixed,
+                                  stash, threads=threads)
     rc = lib.extrack_refine(
         *(t.data_ptr() for t in (positions, l2, lengths, *tabs, mu, sigma)),
         None if scratch is None else scratch.data_ptr(),
@@ -101,12 +95,13 @@ def refine_plain(positions, lengths, loc_err2, log_trans, sig2_states, *,
 
 
 def refine(positions, lengths, loc_err2, log_trans, sig2_states, *,
-           window: int = 7):
+           window: int = 7, what: str = "refinement batch"):
     """(mu, sigma) (B, T, D) refined positions.  ``loc_err2`` broadcasts
     to (B, T, D) (per-peak errors included), ``log_trans`` is the (S, S)
     log transition matrix, ``sig2_states`` (S,) the per-state displacement
     variances 2*D*dt.  CUDA inputs run K6 (float32 only; anything outside
-    its envelope raises); CPU inputs run the plain version."""
+    its envelope raises, naming ``what``); CPU inputs run the plain
+    version."""
     if positions.device.type == "cpu":
         return refine_plain(positions, lengths, loc_err2, log_trans,
                             sig2_states, window=window)
@@ -116,7 +111,7 @@ def refine(positions, lengths, loc_err2, log_trans, sig2_states, *,
                                     sig2_states)
                   if t.dtype != torch.float32), torch.float32)
     forward_kernel.check_envelope(T, D, S, window, 1, dtype=dtype,
-                                  what="refinement batch")
+                                  what=what)
     lp0f, ltf, sig2v = build_refine_tables(log_trans, sig2_states, window)
     lp0r, ltr, _ = build_refine_tables(log_trans.T, sig2_states, window)
     tabs = [t.contiguous() for t in (lp0f, ltf, lp0r, ltr, sig2v)]

@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 from extrack_tpu_torch import data as tdata
+from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import tables
-from extrack_tpu_torch.ops import cuda_lib, forward_kernel, predict_kernel
+from extrack_tpu_torch.ops import forward_kernel, predict_kernel
 
 
 def forward_from_values(values, positions, lengths, is_bleached,
@@ -55,18 +56,23 @@ def predict_batch(batch: tdata.TrackBatch,
                   matrix_type: int = 1,
                   input_loc_err: bool = False,
                   chunk_size: int = 16384,
+                  compute_engine: str = "auto",
                   sharded: bool = False):
     """(logl (B,), preds (B, T, S)) for a TrackBatch, on its device.
 
     The plain engine carries K*(T+W)*S history floats per track, so CPU
     batches run in ``chunk_size`` chunks; K4 keeps the history on chip
-    and takes a CUDA batch in one launch.  ``sharded=True`` (several
-    devices) is not ported yet.
+    and takes a CUDA batch in one launch.  ``compute_engine``: 'auto' or
+    'pallas' run K4 on a CUDA batch, 'xla' raises there; a CPU batch runs
+    the plain engine whatever the value.  ``sharded=True`` (several
+    devices) is not ported yet and raises.
     """
     if sharded:
         raise NotImplementedError(
             "sharded posteriors wait for the torch.distributed port "
             "(ROADMAP Queue 1 item 15)")
+    tdevice.check_compute_engine(compute_engine, batch.positions.device,
+                                  "predict_batch")
     values = (spec_or_values.resolve()
               if isinstance(spec_or_values, tparams.Parameters)
               else spec_or_values)
@@ -121,10 +127,7 @@ def predict_Bs(all_tracks: Dict[str, np.ndarray],
     posteriors.
     """
     del max_nb_states, threshold, workers, verbose, nb_max
-    cuda_lib.check_device(device)
-    if dtype is None:
-        dtype = (torch.float32 if torch.device(device).type == "cuda"
-                 else torch.float64)
+    device, dtype = tdevice.resolve_device(device, dtype)
     batches = tdata.from_dict_bucketed(
         all_tracks, max_buckets=4, input_loc_err=input_LocErr, dt=dt if isinstance(dt, dict) else None,
         device=device, dtype=dtype)

@@ -29,15 +29,17 @@ import numpy as np
 import torch
 
 from extrack_tpu_torch import data as tdata
+from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch.core.engine import _moment_match, make_register_spec
 from extrack_tpu_torch.core.tables import (branch_log_trans, cap_log,
                                            state_codes)
-from extrack_tpu_torch.ops import cuda_lib
 
 _TINY = 1e-30
-# refinement window per state count: what the JAX package's default_window
-# gives at its planning shape (T=16, D=2); 2 beyond 8 states
-_WINDOWS = {2: 7, 3: 5, 4: 4, 5: 4, 6: 3, 7: 3, 8: 3}
+# the reference's default refinement schedule (extrack_tpu/refine.py
+# default_window, ops/pallas_refine.py pick_jb / refine_block_cap): the
+# largest window <= 7 whose register, suffix stash and pair chunk fit a
+# 40 MiB budget of the TPU kernel's scratch memory for at least 128 tracks
+_SCHEDULE_BUDGET = 40 * 1024 * 1024
 
 
 def _refine_scan(positions, l2, lengths, log_trans, sig2_states, W):
@@ -257,39 +259,71 @@ def refine_positions(positions, lengths, loc_err2, log_trans, sig2_states,
     return torch.where(valid, mu, zero), torch.where(valid, var.sqrt(), zero)
 
 
-def default_window(nb_states: int) -> int:
-    """Refinement window per state count: 7/5/4/4/3/3/3 for 2..8 states,
-    2 beyond (the windows the JAX package's ``default_window`` picks at
-    T=16, D=2).  ``position_refinement`` and ``refine_batch`` use it when
-    ``frame_len`` is not given.  The window sets how many neighbouring
-    frames inform each refined position; the register, and the kernel's
-    pair loop with it, grows S-fold per extra frame."""
-    return _WINDOWS.get(int(nb_states), 2)
+def _pick_jb(KS: int) -> int:
+    """The reference schedule's pair-chunk height: the largest divisor of
+    K/S up to 16."""
+    return next(j for j in range(min(16, KS), 0, -1) if KS % j == 0)
+
+
+def _block_cap(T: int, D: int, K: int, KS: int, JB: int) -> int:
+    """The reference schedule's track block: how many tracks (a multiple
+    of 128) whose stash, register, combine precomputes, pair chunk and end
+    products fit the schedule's budget."""
+    per_track = 4 * ((2 * D + 1) * T * K + (2 * D + 1) * K
+                     + (4 * D + 4) * K + 14 * KS * JB + 6 * K)
+    return (_SCHEDULE_BUDGET // per_track) // 128 * 128
+
+
+def default_window(nb_states: int, T: int = 16, D: int = 2) -> int:
+    """Refinement window for ``nb_states`` states on tracks padded to ``T``
+    frames in ``D`` dimensions: the JAX package's default schedule, not a
+    budget of this card.  It is the largest window <= 7 (the reference's
+    default) whose register of S**window slots would fit the TPU kernel's
+    40 MiB scratch budget for 128 tracks, else 2 (7/5/4/3 for 2/3/4/5
+    states at T=16, D=2).  ``position_refinement`` and ``refine_batch``
+    call it with the batch's padded length and dimensions when
+    ``frame_len`` is not given, so a refinement without ``frame_len``
+    uses the reference's window.  Where that window needs more than the
+    CUDA kernel's 1024 slots (6 states on short 1-D tracks), a CUDA
+    bucket raises and names a ``frame_len`` that fits."""
+    S = int(nb_states)
+    for w in range(7, 1, -1):
+        K = S ** w
+        if _block_cap(T, D, K, K // S, _pick_jb(K // S)) >= 128:
+            return w
+    return 2
 
 
 def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
-                 frame_len: Optional[int] = None, sharded: bool = False):
+                 frame_len: Optional[int] = None,
+                 compute_engine: str = "auto",
+                 sharded: bool = False):
     """TrackBatch-native refinement: (mu (B,T,D), sigma (B,T,D)) on the
     batch's device.  ``LocErr`` may be a scalar or array, or anything
     dict-like to signal that ``batch.loc_err`` holds per-peak errors.
     ``TrMat`` is the (S, S) transition probability matrix, ``ds`` the
     per-state step stds sqrt(2*D*dt).  ``frame_len`` defaults to
-    ``default_window``.  A forbidden transition (a zero in ``TrMat``) gets
-    the finite log floor of ``tables.cap_log``.  ``sharded=True`` (several
-    devices) is not ported yet."""
+    ``default_window(S, batch.max_len, batch.nb_dims)``.  A forbidden
+    transition (a zero in ``TrMat``) gets the finite log floor of
+    ``tables.cap_log``.  ``compute_engine``: 'auto' or 'pallas' run K6 on
+    a CUDA batch, 'xla' raises there; a CPU batch runs the plain version
+    whatever the value.  ``sharded=True`` (several devices) is not ported
+    yet and raises."""
     from extrack_tpu_torch.ops import refine_kernel
     if sharded:
         raise NotImplementedError(
             "sharded refinement waits for the torch.distributed port "
             "(ROADMAP Queue 1 item 15)")
     dev, dtype = batch.positions.device, batch.positions.dtype
+    tdevice.check_compute_engine(compute_engine, dev, "refine_batch")
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
                                device=dev)
 
     log_trans = cap_log(tensor(TrMat))
-    window = frame_len or default_window(log_trans.shape[0])
+    S = log_trans.shape[0]
+    window = frame_len or default_window(S, batch.max_len, batch.nb_dims)
     if isinstance(LocErr, dict) or (LocErr is None
                                     and batch.loc_err is not None):
         loc_err2 = batch.loc_err ** 2
@@ -297,8 +331,10 @@ def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
         loc_err2 = tensor(LocErr) ** 2
         loc_err2 = loc_err2.reshape((1,) * (3 - loc_err2.ndim)
                                     + loc_err2.shape)
-    return refine_kernel.refine(batch.positions, batch.lengths, loc_err2,
-                                log_trans, tensor(ds) ** 2, window=window)
+    return refine_kernel.refine(
+        batch.positions, batch.lengths, loc_err2, log_trans, tensor(ds) ** 2,
+        window=window, what=f"refinement bucket of {batch.batch_size} tracks "
+                            "(pass frame_len to choose the window)")
 
 
 def position_refinement(all_tracks: Dict[str, np.ndarray],
@@ -309,6 +345,7 @@ def position_refinement(all_tracks: Dict[str, np.ndarray],
                         frame_len: Optional[int] = None,
                         threshold: float = 0.1,
                         max_nb_states: int = 1000,
+                        compute_engine: str = "auto",
                         sharded: bool = False,
                         *,
                         device="cuda",
@@ -327,13 +364,18 @@ def position_refinement(all_tracks: Dict[str, np.ndarray],
     the fixed window replaces threshold pruning).  The tracks go into 4
     length buckets, one K6 launch each on the card.  Returns (mus, sigmas)
     dicts; sigmas follow the reference in reporting the first dimension's
-    std per position.
+    std per position.  ``frame_len`` defaults to ``default_window`` at the
+    longest track and the tracks' dimensions, as the JAX package's
+    one-batch entry point computes it; ``compute_engine`` and ``sharded``
+    as ``refine_batch``.
     """
     del Fs, threshold, max_nb_states
-    cuda_lib.check_device(device)
-    if dtype is None:
-        dtype = (torch.float32 if torch.device(device).type == "cuda"
-                 else torch.float64)
+    device, dtype = tdevice.resolve_device(device, dtype)
+    if frame_len is None:       # the JAX package's window: one batch
+        lens = [int(k) for k, v in all_tracks.items() if len(v)]
+        D = np.shape(all_tracks[str(max(lens))])[-1] if lens else 2
+        frame_len = default_window(np.shape(TrMat)[0], max(lens, default=1),
+                                   D)
     batches = tdata.from_dict_bucketed(
         all_tracks, max_buckets=4,
         input_loc_err=LocErr if isinstance(LocErr, dict) else None,
@@ -342,6 +384,7 @@ def position_refinement(all_tracks: Dict[str, np.ndarray],
     sigmas: Dict[str, np.ndarray] = {}
     for b in batches:
         mu, sigma = refine_batch(b, LocErr, ds, TrMat, frame_len=frame_len,
+                                 compute_engine=compute_engine,
                                  sharded=sharded)
         mus.update(tdata.to_dict(b, mu))
         sigmas.update(tdata.to_dict(b, sigma[..., 0]))

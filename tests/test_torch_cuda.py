@@ -149,9 +149,19 @@ def test_cuda_posteriors_match_plain(cuda, S, W, B, T, D):
     assert np.all(sums[~valid] == 0.0)
 
 
+# every hist_kernel<D, NT> instantiation (NT = 128, 256, 512, 1024
+# threads), K = 8, 128, 243, 729 and 1024 among them, D = 1..3, and rows
+# in global scratch (K = 512 at T = 60, K = 729 at T = 24)
+HIST_CASES = [
+    (2, 5, 300, 9, 2), (3, 3, 77, 12, 3), (2, 4, 5, 2, 1), (2, 9, 40, 60, 2),
+    (2, 3, 64, 7, 1), (2, 7, 64, 10, 2), (3, 4, 40, 9, 3), (3, 5, 40, 9, 1),
+    (3, 5, 40, 9, 2), (3, 5, 40, 9, 3), (2, 9, 12, 8, 1), (7, 3, 12, 8, 2),
+    (2, 9, 12, 8, 3), (3, 6, 12, 8, 2), (2, 10, 8, 6, 1), (4, 5, 8, 6, 3),
+    (3, 6, 8, 24, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,W,B,T,D", [(2, 5, 300, 9, 2), (3, 3, 77, 12, 3),
-                                       (2, 4, 5, 2, 1), (2, 9, 40, 60, 2)])
+@pytest.mark.parametrize("S,W,B,T,D", HIST_CASES)
 def test_cuda_histogram_matches_plain(cuda, S, W, B, T, D):
     pos, lens, isbl, tb = _case(cuda, S, 1, B, T, D)
     kw = dict(window=W, min_len=3)
@@ -171,10 +181,21 @@ def test_cuda_histogram_matches_plain(cuda, S, W, B, T, D):
         hist_kernel.hist(pos, lens, isbl, tb, window=11 if S == 2 else 7)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("S,W,B,T,D,per_peak", [
+# every refine_kernel<D, NT> instantiation (NT = 128, 256, 512, 1024
+# threads), K = 8, 128, 243, 729 and 1024 among them, odd K and state
+# blocks that straddle warps (S = 3, 5, 7), D = 1..3, and stashes in
+# global scratch (the last two)
+REFINE_CASES = [
     (2, 5, 300, 9, 2, False), (3, 4, 77, 12, 3, True), (4, 3, 5, 2, 1, False),
-    (2, 8, 16, 60, 2, True)])               # stash in global scratch
+    (2, 3, 64, 7, 1, False), (2, 7, 64, 10, 2, True), (3, 4, 40, 9, 3, False),
+    (3, 5, 40, 9, 1, True), (3, 5, 40, 9, 2, False), (5, 3, 40, 9, 3, True),
+    (2, 9, 12, 8, 2, False), (7, 3, 12, 8, 1, True), (2, 9, 12, 8, 3, False),
+    (3, 6, 12, 8, 2, True), (2, 10, 8, 6, 1, False), (4, 5, 8, 6, 3, True),
+    (2, 8, 16, 60, 2, True), (3, 6, 8, 24, 3, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,B,T,D,per_peak", REFINE_CASES)
 def test_cuda_refinement_matches_plain(cuda, S, W, B, T, D, per_peak):
     pos, lens, _, _ = _case(cuda, S, 1, B, T, D)
     rng = np.random.default_rng(S + W)
@@ -199,6 +220,60 @@ def test_cuda_refinement_matches_plain(cuda, S, W, B, T, D, per_peak):
     valid = np.arange(T)[None, :] < L[:, None]
     assert np.all(mu.cpu().numpy()[~valid] == 0.0)
     assert np.all(sig.cpu().numpy()[~valid] == 0.0)
+
+
+@pytest.mark.cuda
+def test_refine_layout(cuda):
+    """K6's block as its source defines it (``cuda_lib.layout``): frames of
+    forms 16-byte aligned, a stash frame per interior position, and a
+    thread for every slot and every pair-loop thread of two prefix slots
+    (odd K included)."""
+    from extrack_tpu_torch.ops import cuda_lib
+    for D, per in ((1, 4), (2, 5), (3, 8)):
+        for S, W in ((2, 3), (2, 7), (3, 5), (3, 6), (5, 3), (7, 3),
+                     (2, 10)):
+            K, KS = S ** W, S ** (W - 1)
+            n, fixed, stash = cuda_lib.layout("refine", 10, D, K, S)
+            frame = per * (-(-K // 4) * 4) * 4
+            assert stash == 8 * frame and frame % 16 == 0
+            assert fixed == (2 * frame + 2 * (2 + 2 * D) * K * 4
+                             + 32 * (n // 32) * (2 + 2 * D) * 4)
+            assert n % 32 == 0 and n >= K and n <= 1024
+            assert n >= S * -(-KS // 2) * 2
+            assert cuda_lib.layout("refine", 2, D, K, S)[2] == 0
+    with pytest.raises(RuntimeError):
+        cuda_lib.layout("refine", 10, 4, 128, 2)
+
+
+@pytest.mark.cuda
+def test_hist_layout(cuda):
+    """K5's block as its source defines it: a thread per slot, rows per
+    fusion group (K/S of them, double-buffered)."""
+    from extrack_tpu_torch.ops import cuda_lib
+    for S, W, T in ((2, 7, 10), (3, 5, 10), (4, 2, 60), (2, 3, 8)):
+        K = S ** W
+        for D in (1, 2, 3):
+            n, fixed, rows = cuda_lib.layout("hist", T, D, K, S)
+            assert n == -(-K // 32) * 32
+            assert rows == 2 * (K // S) * (1 + S) * T * 4
+            assert fixed == (2 * (2 + 2 * D) + 4) * K * 4
+
+
+@pytest.mark.cuda
+def test_cuda_refinement_window_past_the_envelope_raises(cuda):
+    """The reference's default window for 6 states on short 1-D tracks
+    needs 6^4 > 1024 slots: the bucket raises and points to frame_len."""
+    from extrack_tpu_torch import refine
+    rng = np.random.default_rng(0)
+    batch = data.from_dict({"3": rng.normal(0, 0.05, (5, 3, 1))},
+                           device=cuda)
+    assert refine.default_window(6, 3, 1) == 4
+    with pytest.raises(NotImplementedError, match="frame_len"):
+        refine.refine_batch(batch, 0.02, np.full(6, 0.05),
+                            np.full((6, 6), 1 / 6))
+    mu, _ = refine.refine_batch(batch, 0.02, np.full(6, 0.05),
+                                np.full((6, 6), 1 / 6), frame_len=3)
+    assert mu.shape == (5, 3, 1) and bool(torch.isfinite(mu).all())
 
 
 @pytest.mark.cuda

@@ -25,7 +25,8 @@ def test_from_dict_bucketed_matches(max_buckets):
            for k, v in tracks.items()}
     kw = dict(max_buckets=max_buckets, input_loc_err=sigmas, dt=dts)
     jb = jdata.from_dict_bucketed(tracks, **kw)
-    tb = tdata.from_dict_bucketed(tracks, **kw, dtype=torch.float64)
+    tb = tdata.from_dict_bucketed(tracks, **kw, device="cpu",
+                                   dtype=torch.float64)
     assert len(jb) == len(tb)
     for j, t in zip(jb, tb):
         assert (t.batch_size, t.max_len, t.nb_dims) == (
@@ -48,7 +49,7 @@ def test_partition_cuts_and_helpers():
                 jdata.partition_cuts(lens, counts, mb)
     tracks, _ = _tracks(3)
     b = tdata.from_dict(tracks, pad_batch=sum(map(len, tracks.values())) + 5,
-                        dtype=torch.float32)
+                        device="cpu", dtype=torch.float32)
     assert b.positions.dtype == torch.float32
     assert b.lengths.dtype == torch.int32
     assert (tdata.host_lengths(b)[-5:] == 0).all()
@@ -76,3 +77,19 @@ def test_sim_fov_matches_jax_simulator():
                     tsim.sim_fov(cell_dims=(0.5, None, None), **kw2)):
         for k in w:
             np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_from_dict_defaults_to_the_card():
+    """Without ``device`` a batch is built on the card (float32), and
+    where there is none the call raises, naming device='cpu'."""
+    tracks, _ = _tracks(4)
+    if torch.cuda.is_available():
+        b = tdata.from_dict(tracks)
+        assert b.positions.device.type == "cuda"
+        assert b.positions.dtype == torch.float32
+        return
+    for build in (tdata.from_dict, tdata.from_dict_bucketed):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(tracks)
+    b = tdata.from_dict(tracks, device="cpu")
+    assert b.positions.dtype == torch.float64

@@ -25,7 +25,8 @@ def two_state():
 def test_hessian_chunked_matches_jax(two_state):
     tracks, jspec, tspec, z = two_state
     jb = jdata.from_dict_bucketed(tracks, max_buckets=2)
-    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, dtype=torch.float64)
+    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, device="cpu",
+                                   dtype=torch.float64)
     kw = dict(cell_dims=(0.5,), window=4, min_len=2)
     H_ref = jfit.hessian_chunked(jb, jspec, z, 0.02, 2, **kw)
     H = tfit.hessian_chunked(tb, tspec, z, 0.02, 2, chunk=16, **kw)
@@ -57,7 +58,8 @@ def test_fisher_errors_from_hessian_matches_jax(two_state):
 
 def test_fisher_errors_of_objective(two_state):
     tracks, _, tspec, z = two_state
-    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, dtype=torch.float64)
+    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, device="cpu",
+                                   dtype=torch.float64)
     to = tfit.make_objective(tb, tspec, 0.02, 2, cell_dims=(0.5,), window=4)
     H = tfit.hessian_chunked(tb, tspec, z, 0.02, 2, cell_dims=(0.5,),
                              window=4, min_len=to.min_len)
@@ -70,7 +72,8 @@ def test_fisher_errors_of_objective(two_state):
 def test_fit_compute_errors_matches_jax(two_state):
     tracks, jspec, tspec, _ = two_state
     jb = jdata.from_dict_bucketed(tracks, max_buckets=2)
-    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, dtype=torch.float64)
+    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, device="cpu",
+                                   dtype=torch.float64)
     jr = jfit.fit(jb, jspec, 0.02, 2, cell_dims=(0.5,), max_iter=3,
                   compute_errors=True, compute_engine="xla")
     tr = tfit.fit(tb, tspec, 0.02, 2, cell_dims=(0.5,), max_iter=3,

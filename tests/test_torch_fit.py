@@ -38,7 +38,8 @@ def dataset():
 def _objectives(dataset, **kw):
     tracks, jspec, tspec = dataset
     jb = jdata.from_dict_bucketed(tracks, max_buckets=2)
-    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, dtype=torch.float64)
+    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, device="cpu",
+                                   dtype=torch.float64)
     jo = jfit.make_objective(jb, jspec, 0.02, 2, cell_dims=(0.5,),
                              compute_engine="xla", **kw)
     to = tfit.make_objective(tb, tspec, 0.02, 2, cell_dims=(0.5,), **kw)
@@ -62,7 +63,8 @@ def test_objective_value_and_gradient(dataset, kw):
 def test_three_iteration_fit_reaches_same_z(dataset):
     tracks, jspec, tspec = dataset
     jb = jdata.from_dict_bucketed(tracks, max_buckets=2)
-    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, dtype=torch.float64)
+    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, device="cpu",
+                                   dtype=torch.float64)
     jr = jfit.fit(jb, jspec, 0.02, 2, cell_dims=(0.5,), max_iter=3,
                   compute_engine="xla")
     evals = []

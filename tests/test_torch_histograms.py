@@ -106,6 +106,111 @@ def test_segment_tables_layout():
         seg[W + 1], seg_int.transpose(2, 1, 0).reshape(S * T, -1))
 
 
+def _group_rows_histogram(positions, lengths, is_bleached, tb, window,
+                          min_len):
+    """K5's algorithm (csrc/hist.cu) in torch f64: run/hist rows per fusion
+    group, each bin mixed once, the branch-free drop (run(0) = 1 - w_q,
+    run(r) = w_q run_q(r-1), hist_s += w_s run_s for s != q), bin 0 as the
+    only initialised bin and a harvest that reads only the bins written.
+    Unwritten bins hold NaN, so a read of one shows in the result."""
+    B, T, D = positions.shape
+    S, W = tb.nb_states, window
+    spec = tengine.make_register_spec(S, W, 1)
+    K, A, G = spec.K, spec.A, spec.G
+    f64 = dict(dtype=torch.float64)
+    lengths = torch.as_tensor(lengths, dtype=torch.int64)
+    isbl = torch.as_tensor(is_bleached, **f64)[None, :]
+    wk = tengine.walk_setup(positions, tb, spec)
+    m, s2, lp = wk.m, wk.s2, wk.lp
+    seg_np, ext_np = hist_kernel.segment_tables(S, W, T)
+    seg = torch.tensor(seg_np, **f64)                       # (W+2, ST, K)
+    ext = torch.tensor(ext_np.astype(np.int64))
+    gc, sc = torch.arange(K) % G, torch.arange(K) % S
+    q = torch.arange(G) % S
+    mb0 = (torch.arange(G) * S) % G
+    nan = float("nan")
+    run = torch.full((T, G, B), nan, **f64)
+    hist = torch.full((S, T, G, B), nan, **f64)
+    run[0], hist[:, 0] = 1.0, 0.0
+    out = torch.zeros(S * T, **f64)
+    for t in range(1, T):
+        x_t, l2_t = wk.xs_pos[t], wk.xs_l2[t]
+        tot = l2_t[:, None, :] + s2
+        lc = (-0.5 * torch.log(2 * np.pi * tot)
+              - (x_t[:, None, :] - m) ** 2 / (2 * tot)).sum(0)   # (K, B)
+        # harvest of the tracks that end here
+        pbar = (torch.softmax(lp + isbl * wk.end_k + lc, 0)
+                * (t == lengths - 1)[None, :])
+        carry, nw = t + 1 > W, min(t, T)
+        sg = seg[W + 1 if carry else t + 1]
+        for j in range(S * T):
+            s, mb = divmod(j, T)
+            tj = sg[j][:, None].expand(K, B)
+            if mb < nw:
+                tj = tj + hist[s, mb, gc]
+            if carry:
+                src = mb - ext + 1
+                ok = (sc == s) & (src >= 0) & (src < nw)
+                tj = tj + torch.where(ok[:, None],
+                                      run[src.clamp(0, T - 1), gc], 0.0)
+            out[j] += (torch.where(pbar > 0, pbar * tj, 0.0)).sum()
+        # fusion: one set of member weights per group
+        new_m = (m * l2_t[:, None, :] + x_t[:, None, :] * s2) / tot
+        tail = l2_t[:, None, :] * s2 / tot
+        _, wn, lp_new, m_f, _, s2_new = tengine.branch_fuse(
+            lp, lc, new_m, tail, wk.sig2_ag_at(t), float(t + 1 >= min_len),
+            wk.lt_b, wk.lsurv_b, G, A)
+        # the members' weights without the children's transition terms;
+        # where those are finite they cancel, and every child of a group
+        # has the group's weights (the log floor of a forbidden transition
+        # rounds them, on children that carry no posterior weight)
+        w = torch.softmax((lp + lc).reshape(G, A, B), dim=1)  # (G, O, B)
+        ok = wk.lt_b[:, :, 0, 0] > -1e10
+        torch.testing.assert_close(wn[ok], w[None].expand_as(wn)[ok],
+                                   rtol=1e-12, atol=1e-15)
+        drop, nb, nold = t >= W - 1, min(t + 1, T), min(t, T)
+        new_run = torch.full_like(run, nan)
+        new_hist = torch.full_like(hist, nan)
+        wq = w.gather(1, q[:, None, None].expand(G, 1, B))[:, 0]
+        if drop:
+            new_run[0] = 1.0 - wq
+            for r in range(1, nb):
+                new_run[r] = wq * run[r - 1, mb0 + q]
+        else:
+            for r in range(nold):
+                new_run[r] = sum(w[:, o] * run[r, mb0 + o] for o in range(S))
+        for s in range(S):
+            cs = torch.where((q != s)[:, None] & drop, w[:, s], 0.0)
+            for r in range(nold):
+                new_hist[s, r] = sum(w[:, o] * hist[s, r, mb0 + o]
+                                     for o in range(S)) + cs * run[r, mb0 + s]
+        if nold < nb:
+            if not drop:
+                new_run[nold] = 0.0
+            new_hist[:, nold] = 0.0
+        keep = (t < lengths - 1)[None, :]
+        m = torch.where(keep[None], m_f.reshape(D, K, B), m)
+        s2 = torch.where(keep[None], s2_new.reshape(D, K, B), s2)
+        lp = torch.where(keep, lp_new.reshape(K, B), lp)
+        run = torch.where(keep, new_run, run)
+        hist = torch.where(keep, new_hist, hist)
+    return out.reshape(S, T).T
+
+
+@pytest.mark.parametrize("S,W,T", [(2, 5, 9), (3, 3, 7), (2, 3, 2),
+                                   (2, 6, 4), (4, 2, 6)])
+def test_group_rows_match_window_histogram(S, W, T):
+    """K5 keeps one run/hist row per fusion group, mixes each bin once with
+    a branch-free drop and zeroes only bin 0: the same histogram as the
+    plain version, to 1e-10 in float64."""
+    xs, lengths, isbl, _, tt = _case(S * 10 + W + T, S, 17, T)
+    args = (torch.tensor(xs), torch.tensor(lengths), torch.tensor(isbl), tt)
+    want = thist.window_segment_histogram(*args, window=W, min_len=2)
+    got = _group_rows_histogram(*args, window=W, min_len=2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-12)
+
+
 def test_decoders_match_jax_exactly():
     rng = np.random.default_rng(3)
     B, M, T, S = 9, 4, 7, 3
@@ -144,19 +249,19 @@ def test_len_hist_matches_jax_and_ignores_buckets(sim):
     before = hist_kernel.PLAIN_CALLS
     got = thist.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
                          nb_states=2, window=5, device="cpu")
-    batches = tdata.from_dict_bucketed(tracks, max_buckets=4)
+    batches = tdata.from_dict_bucketed(tracks, max_buckets=4, device="cpu")
     assert hist_kernel.PLAIN_CALLS == before + len(batches)
     assert got.shape == want.shape == (9, 2)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-9)
     # one padded batch gives the same histogram as the 4 buckets
-    one = thist.hist_batch(tdata.from_dict(tracks), values, 0.02,
+    one = thist.hist_batch(tdata.from_dict(tracks, device="cpu"), values, 0.02,
                            cell_dims=(0.5,), window=5)
     np.testing.assert_allclose(got, one.numpy(), rtol=1e-12, atol=1e-12)
 
 
 def test_hist_batch_chunks_and_engines(sim):
     tracks, _, values = sim
-    batch = tdata.from_dict(tracks)
+    batch = tdata.from_dict(tracks, device="cpu")
     whole = thist.hist_batch(batch, values, 0.02, cell_dims=(0.5,),
                              window=4)
     chunked = thist.hist_batch(batch, values, 0.02, cell_dims=(0.5,),

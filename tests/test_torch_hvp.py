@@ -47,7 +47,8 @@ def _dataset(S, nb_tracks, max_len, seed):
 def test_hessian_hvp_exact_matches_jax_hessian(S, n, W):
     tracks, jspec, tspec, z = _dataset(S, 40 if S == 2 else 12, 6, 10 + S)
     jb = jdata.from_dict_bucketed(tracks, max_buckets=2)
-    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, dtype=torch.float64)
+    tb = tdata.from_dict_bucketed(tracks, max_buckets=2, device="cpu",
+                                   dtype=torch.float64)
     jo = jfit.make_objective(jb, jspec, 0.02, S, cell_dims=(0.5,),
                              window=W, nb_substeps=n, compute_engine="xla")
     H_ref = np.asarray(jax.hessian(jo)(jnp.asarray(z)))

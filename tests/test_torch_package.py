@@ -44,6 +44,7 @@ def test_kernel_sources_present():
     assert set(cuda_lib._SIGNATURES) == {
         "extrack_forward", "extrack_grad", "extrack_hvp", "extrack_predict",
         "extrack_hist", "extrack_refine", "extrack_topk",
-        "extrack_grad_occupancy", "extrack_hvp_occupancy"}
+        "extrack_grad_occupancy", "extrack_hvp_occupancy",
+        "extrack_hist_layout", "extrack_refine_layout"}
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert cuda_lib.library_path().parent == cuda_lib.BUILD_DIR

@@ -118,7 +118,7 @@ def test_predict_batch_chunks_and_parameters(sim):
     tracks, values = sim
     spec = tparams.generate_params(nb_states=2, D_max=1.0)
     spec.set_values(values)
-    batch = tdata.from_dict(tracks)
+    batch = tdata.from_dict(tracks, device="cpu")
     logl, preds = tpredict.predict_batch(batch, spec, 0.02, 2,
                                          cell_dims=(0.5,), window=4)
     logl_c, preds_c = tpredict.predict_batch(batch, spec.resolve(), 0.02, 2,

@@ -15,6 +15,8 @@ sigma rtol 2e-3 / atol 2e-5, as tests/test_pallas_refine.py), and at
 The CUDA kernel K6 itself is checked against its plain version in
 tests/test_torch_cuda.py (needs a GPU).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -123,9 +125,11 @@ def test_refine_tables_match_pallas():
             np.testing.assert_allclose(g.numpy(), w, rtol=1e-14)
 
 
-def test_default_window_matches_jax():
-    for S in range(2, 13):
-        assert trefine.default_window(S) == jrefine.default_window(S, 16, 2)
+@pytest.mark.parametrize("S", range(2, 9))
+@pytest.mark.parametrize("T", [3, 5, 10, 16, 20, 30, 50, 100])
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_default_window_matches_jax(S, T, D):
+    assert trefine.default_window(S, T, D) == jrefine.default_window(S, T, D)
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +154,8 @@ def test_position_refinement_matches_jax(tracks, per_peak):
     mus, sigs = trefine.position_refinement(all_tracks, loc, ds, Fs, tr,
                                             frame_len=5, device="cpu")
     assert refine_kernel.PLAIN_CALLS == before + len(
-        tdata.from_dict_bucketed(all_tracks, max_buckets=4))
+        tdata.from_dict_bucketed(all_tracks, max_buckets=4,
+                                 device="cpu"))
     assert list(mus) == list(mus_j) == list(all_tracks)
     for k in all_tracks:
         assert mus[k].shape == all_tracks[k].shape
@@ -160,12 +165,29 @@ def test_position_refinement_matches_jax(tracks, per_peak):
                                    atol=1e-12)
 
 
+def test_position_refinement_default_window_matches_jax(tracks):
+    """frame_len=None: both packages take the window of the longest track
+    (2 states, T=9, D=2: 7) and refine alike."""
+    all_tracks, _ = tracks
+    ds, tr = np.array([0.02, 0.1]), np.array([[0.9, 0.1], [0.2, 0.8]])
+    mus_j, sigs_j = jrefine.position_refinement(
+        all_tracks, 0.02, ds, [0.5, 0.5], tr, compute_engine="xla")
+    mus, sigs = trefine.position_refinement(all_tracks, 0.02, ds, [0.5, 0.5],
+                                            tr, device="cpu")
+    for k in all_tracks:
+        np.testing.assert_allclose(mus[k], mus_j[k], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(sigs[k], sigs_j[k], rtol=1e-9,
+                                   atol=1e-12)
+
+
 def test_refine_batch_defaults_and_sharding(tracks):
-    batch = tdata.from_dict(tracks[0])
+    batch = tdata.from_dict(tracks[0], device="cpu")
     ds, tr = np.array([0.02, 0.1, 0.2]), np.full((3, 3), 1 / 3)
+    W = jrefine.default_window(3, batch.max_len, batch.nb_dims)
+    assert W == 6                      # 3 states at T=9, D=2
     mu, _ = trefine.refine_batch(batch, 0.02, ds, tr)
-    mu5, _ = trefine.refine_batch(batch, 0.02, ds, tr, frame_len=5)
-    torch.testing.assert_close(mu, mu5, rtol=0, atol=0)  # 3 states: W = 5
+    muW, _ = trefine.refine_batch(batch, 0.02, ds, tr, frame_len=W)
+    torch.testing.assert_close(mu, muW, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="item 15"):
         trefine.refine_batch(batch, 0.02, ds, tr, sharded=True)
 
@@ -176,3 +198,108 @@ def test_position_refinement_defaults_to_the_card(tracks):
     with pytest.raises(RuntimeError, match="CUDA device"):
         trefine.position_refinement(tracks[0], 0.02, [0.02, 0.1],
                                     [0.5, 0.5], np.eye(2))
+
+
+LOG2E = 1.0 / math.log(2.0)
+
+
+def _forms32(m, s2, lp, x, l2, obs):
+    """K6's precision form of each slot (csrc/refine.cu make_form) in f32:
+    Pt = l2/s2 (+ obs), Nt = (m - x)/s2 sqrt(l2 log2(e) / 2), and the base-2
+    log weight with the slot's normalizer."""
+    p = 1.0 / s2
+    a = m - x[..., None, :]
+    b = (LOG2E * (lp - 0.5 * (a * a * p).sum(-1))
+         - 0.5 * torch.log2(s2.prod(-1)))
+    return (b, l2[..., None, :] * p + obs,
+            a * p * torch.sqrt(0.5 * LOG2E * l2[..., None, :]))
+
+
+def _pairs32(pre, suf, x, l2, S, tile=4):
+    """K6's pair algebra (csrc/refine.cu pair_loop) in f32 at every position
+    at once: per pair o_d = prod_{e != d} Pt_e, a_d = Nt_d o_d, one rsqrt r
+    of prod_d Pt (1/Pt_d = r^2 o_d), the exponent b2 + r^2 sum_d Nt_d a_d in
+    base 2 with b1 added per row (through an offset no smaller than the
+    row's max), the accumulators of each prefix slot
+    rescaled once per tile of ``tile`` suffix slots; then the sum over
+    prefix slots at their common max.  Returns mu, sigma (..., D)."""
+    (b1, A, C), (b2, B2, N2) = pre, suf
+    lead, (K, D) = b1.shape[:-1], A.shape[-2:]
+    KS = K // S
+
+    def blocks(t):
+        return t.reshape(lead + (S, KS) + t.shape[len(lead) + 1:])
+
+    b1, A, C, b2, B2, N2 = map(blocks, (b1, A, C, b2, B2, N2))
+    P = A[..., :, None, :] + B2[..., None, :, :]          # (.., S, i, j, D)
+    N = C[..., :, None, :] + N2[..., None, :, :]
+    o = torch.stack([torch.prod(P[..., [e for e in range(D) if e != d]], -1)
+                     for d in range(D)], -1)
+    r = torch.rsqrt(P[..., 0] * o[..., 0])
+    a = N * o
+    arg = (N * a).sum(-1) * r * r + b2[..., None, :]
+    mx = torch.full(arg.shape[:-1], -1e30, dtype=arg.dtype)
+    acc = torch.zeros(arg.shape[:-1] + (1 + 2 * D,), dtype=arg.dtype)
+    for c in range(0, KS, tile):
+        sl = slice(c, c + tile)
+        row = arg[..., sl].amax(-1)
+        top = torch.maximum(mx, row + b1)
+        acc = acc * torch.exp2(mx - top)[..., None]
+        mx = top
+        e = torch.exp2(arg[..., sl] - torch.maximum(mx - b1, row)[..., None])
+        z = (e * r[..., sl] ** 3)[..., None]
+        acc = acc + torch.cat([(e * r[..., sl]).sum(-1, keepdim=True),
+                               (z * a[..., sl, :]).sum(-2),
+                               (z * o[..., sl, :]).sum(-2)], -1)
+    mx = mx.flatten(-2)
+    acc = acc.flatten(-3, -2)
+    top = mx.amax(-1, keepdim=True)
+    tot = (acc * torch.exp2(mx - top)[..., None]).sum(-2)
+    mean = tot[..., 1:1 + D] / tot[..., :1] * torch.sqrt(2 * l2 / LOG2E)
+    var = tot[..., 1 + D:] / tot[..., :1] * l2
+    return x + mean, var.sqrt()
+
+
+@pytest.mark.parametrize("sigma", [1e-4, 1e-2, 1.0])
+@pytest.mark.parametrize("S,W,D", [(2, 5, 1), (2, 4, 2), (3, 3, 3)])
+def test_pair_algebra_f32_matches_refine_positions(S, W, D, sigma):
+    """K6's reformulated pair algebra, rendered in torch f32 on the
+    registers of the plain scans, against refine_positions in f64 at
+    every interior position, within K6's tolerances (mu rtol 2e-4 / atol
+    2e-5 relative to the localization error's scale, sigma rtol 2e-3 /
+    atol 2e-5): the single rsqrt, base-2 exponents, the per-position scale
+    by l2 and the tiled rescale are exact up to f32 rounding, from
+    localization errors of 1e-4 to 1."""
+    rng = np.random.default_rng(int(S * 100 + W * 10 + D + 1e4 * sigma))
+    B, T = 9, 7
+    xs = rng.normal(0, 0.05, (B, T, D)).cumsum(1) + rng.normal(
+        0, sigma, (B, T, D))
+    lengths = np.full(B, T)
+    l2 = (sigma * rng.uniform(0.5, 1.5, (B, T, D))) ** 2      # per peak
+    tr = np.full((S, S), 0.2 / (S - 1))
+    np.fill_diagonal(tr, 0.8)
+    tr[0, 1] = 0.0
+    tr /= tr.sum(1, keepdims=True)
+    args = (torch.tensor(xs), torch.tensor(lengths), torch.tensor(l2),
+            ttables.cap_log(torch.tensor(tr)),
+            torch.tensor((0.08 * (1 + np.arange(S))) ** 2 * 0.04))
+    mu0, sig0 = trefine.refine_positions(*args, window=W)
+    pos, lens, l2t, lt, sig2 = args
+    pm, ps2, plp = trefine._refine_scan(pos, l2t, lens, lt, sig2, W)
+    rev = trefine._reverse_tracks
+    sm, ss2, slp = trefine._refine_scan(rev(pos, lens), rev(l2t, lens), lens,
+                                        lt.T, sig2, W)
+    sm, ss2, slp = rev(sm, lens), rev(ss2, lens), rev(slp, lens)
+    f = {n: v.float() for n, v in dict(pm=pm, ps2=ps2, plp=plp, sm=sm,
+                                        ss2=ss2, slp=slp, x=pos,
+                                        l2=l2t).items()}
+    pre = _forms32(f["pm"], f["ps2"], f["plp"], f["x"], f["l2"], 1.0)
+    suf = _forms32(f["sm"], f["ss2"], f["slp"], f["x"], f["l2"], 0.0)
+    mu, sig = _pairs32(pre, suf, f["x"], f["l2"], S)
+    inner = slice(1, T - 1)
+    scale = sigma + 0.05
+    np.testing.assert_allclose(mu[:, inner].numpy(), mu0[:, inner].numpy(),
+                               rtol=2e-4, atol=2e-5 * scale)
+    np.testing.assert_allclose(sig[:, inner].numpy(),
+                               sig0[:, inner].numpy(), rtol=2e-3,
+                               atol=2e-5 * scale)

@@ -145,10 +145,10 @@ def test_len_hist_topk_matches_jax(sim):
     before = topk_kernel.PLAIN_CALLS
     got = thist.len_hist(tracks, values, 0.02, device="cpu", **kw)
     assert topk_kernel.PLAIN_CALLS == before + len(
-        tdata.from_dict_bucketed(tracks, max_buckets=4))
+        tdata.from_dict_bucketed(tracks, max_buckets=4, device="cpu"))
     assert got.shape == want.shape == (9, 2)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
-    batch = tdata.from_dict(tracks)
+    batch = tdata.from_dict(tracks, device="cpu")
     Ds, Fs, rates, loc_err, pBL = tparams.extract_arrays(values, 2)
     tb = ttables.build_tables(Ds, loc_err, Fs, rates, pBL, 0.02,
                               cell_dims=(0.5,))
@@ -160,7 +160,7 @@ def test_len_hist_topk_matches_jax(sim):
 
 def test_topk_engine_names_are_one_computation(sim):
     tracks, values = sim
-    batch = tdata.from_dict(tracks)
+    batch = tdata.from_dict(tracks, device="cpu")
     kw = dict(cell_dims=(0.5,), max_nb_states=128)
     before = topk_kernel.PLAIN_CALLS, topk_kernel.LAUNCHES
     a = thist.hist_batch(batch, values, 0.02, engine="topk", **kw)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Bare-launch times of K1 (csrc/forward.cu), K2 (csrc/grad.cu), K3
-(csrc/hvp.cu, one tangent direction) and, where both checkouts have it, K7
+(csrc/hvp.cu, one tangent direction), K4 (csrc/predict.cu), K5
+(csrc/hist.cu), K6 (csrc/refine.cu) and, where both checkouts have it, K7
 (csrc/topk.cu) for two checkouts of the port, alternated on one card.
 
     python3 tools/kernel_ab.py PARENT_ROOT CHANGE_ROOT [--pairs N] [--k1]
@@ -10,7 +11,9 @@ from its root (and building that root's kernels there), at
 ``chip_smoke.py``'s bench shape: 2 states, W=6, D=2, 2^20 tracks of
 lengths 3..10 in four length buckets, f32, and K2 also with 3 states at
 W=5 (K=243, a 3-state fit's default window); K3 on tangents drawn from one
-seed; K7 with a register of M=512 sequences, as ``chip_smoke.py`` times
+seed; K4 at W=5, K5 and K6 at W=7 (K=128) as ``chip_smoke.py`` times
+them (``tools/walk_profile.py``'s launches), K6 also with 3 states at W=5
+(K=243); K7 with a register of M=512 sequences, as ``chip_smoke.py`` times
 it, bare (``chip_smoke.topk_bare``: the fused kernel where the checkout
 has it, else the kernel that writes backpointers) and through
 ``segment_topk`` (with the decode), and both again on 2^20 tracks of
@@ -38,7 +41,32 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 PAIRS = 5
 REPS = 20
+REPS_K6 = 5
 REPS_K7 = 5
+
+
+def load_module(name: str, path: Path):
+    """A module of this checkout's scripts by path (they import
+    ``extrack_tpu_torch`` lazily, so they use the package on sys.path)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k4_runner(bench, tb):
+    """Bare K4 launches over the bench buckets at W=5."""
+    from extrack_tpu_torch.ops import forward_kernel, predict_kernel
+    args = []
+    for b in bench:
+        d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                               b.is_bleached, tb, 5, 1)
+        args.append((d, [t.detach() for t in tabs]))
+
+    def run():
+        for d, tabs in args:
+            predict_kernel.launch(d, tabs, 3, 2, 5)
+    return run
 
 
 def worker(root: str, k1_only: bool) -> None:
@@ -52,10 +80,7 @@ def worker(root: str, k1_only: bool) -> None:
                                        hvp_kernel)
     # chip_smoke's helpers import extrack_tpu_torch lazily, so they use the
     # package under ``root``
-    spec = importlib.util.spec_from_file_location("smoke",
-                                                  HERE / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = load_module("smoke", HERE / "chip_smoke.py")
     assert Path(forward_kernel.__file__).resolve().is_relative_to(
         Path(root).resolve()), forward_kernel.__file__
     cuda_lib.library()
@@ -115,6 +140,14 @@ def worker(root: str, k1_only: bool) -> None:
            "K2 S=3 W=5": smoke.cuda_ms(k2_243, REPS, warmup=2),
            "K3": smoke.cuda_ms(k3, REPS, warmup=2)}
     del args3
+    walk = load_module("walk", HERE / "tools" / "walk_profile.py")
+    out["K4"] = smoke.cuda_ms(k4_runner(bench, tb), REPS, warmup=2)
+    out["K5"] = smoke.cuda_ms(walk.k5_runner(smoke, bench, dev), REPS,
+                              warmup=2)
+    out["K6"] = smoke.cuda_ms(walk.k6_runner(smoke, bench, dev, 2, 7), REPS_K6,
+                              warmup=1)
+    out["K6 S=3 W=5"] = smoke.cuda_ms(walk.k6_runner(smoke, bench, dev, 3, 5),
+                                      REPS_K6, warmup=1)
     if (Path(root) / "extrack_tpu_torch" / "ops" / "topk_kernel.py").exists():
         out["K7"] = smoke.cuda_ms(smoke.topk_bare(bench, tb, 512, dev),
                                   REPS_K7)

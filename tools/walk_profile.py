@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Where K5's (csrc/hist.cu) and K6's (csrc/refine.cu) time goes, at
+``chip_smoke.py``'s bench shape: 2^20 tracks of lengths 3..10 in four
+length buckets, D=2, f32, a register of W=7 frames (K=128) at 2 states
+(``--states``/``--window`` change K6's register, e.g. 3 states at W=5 or
+6; K5 stays at its bench register).
+
+    python3 tools/walk_profile.py [--kernel k5|k6|both]
+    python3 tools/walk_profile.py --split [--kernel ...]
+
+Without ``--split`` it times REPS bare launches over the four buckets by
+CUDA events, then prints nvcc's register and spill report of every
+``hist_kernel`` and ``refine_kernel`` instantiation.  With ``--split`` it
+builds the kernels with their clock64 marks (``cuda_lib.enable_profile``),
+runs the same launches and prints each section's share of the cycles that
+the tracks' lead threads spent (summed over all tracks; the marks cost a
+little, so read shares, not times).  The last line is the card's name and
+power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(HERE))
+REPS = 5
+SECTIONS = {
+    "refine": ["suffix scan (fusions)", "suffix stash writes",
+               "precision forms", "pair loop", "finish reductions",
+               "prefix scan (fusions)"],
+    "hist": ["buffer zeroing and track set-up", "update and fusion",
+             "run/hist transport", "the step's barrier",
+             "harvest"],
+}
+
+
+def k5_runner(smoke, bench, dev):
+    """Bare K5 launches over the bench buckets (W=7, 2 states)."""
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import forward_kernel, hist_kernel
+    f32 = dict(dtype=torch.float32, device=dev)
+    tb = tables.build_tables(
+        torch.tensor([0.0, 0.08], **f32), torch.tensor(0.02, **f32),
+        torch.tensor([0.5, 0.5], **f32),
+        torch.tensor([[0.0, 0.1], [0.1, 0.0]], **f32),
+        torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,))
+    args = []
+    for b in bench:
+        d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                               b.is_bleached, tb, 7, 1)
+        args.append((d, [t.detach() for t in tabs[:6]]))
+
+    def run():
+        for d, tabs in args:
+            hist_kernel.launch(d, tabs, 3, 2, 7)
+    return run
+
+
+def k6_runner(smoke, bench, dev, S: int, W: int):
+    """Bare K6 launches over the bench buckets, as ``chip_smoke.py`` phase 8
+    times them (S states, window W)."""
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import refine_kernel
+    f32 = dict(dtype=torch.float32, device=dev)
+    rates = torch.full((S, S), 0.1, **f32)
+    rates.fill_diagonal_(0.0)
+    lt = tables.cap_log(tables.transition_matrix(rates))
+    sig2 = 2 * torch.linspace(0.0, 0.08, S, **f32) * 0.02
+    fw = refine_kernel.build_refine_tables(lt, sig2, W)
+    bw = refine_kernel.build_refine_tables(lt.T, sig2, W)
+    tabs = [t.contiguous() for t in (fw[0], fw[1], bw[0], bw[1], fw[2])]
+    l2 = torch.full((1, 1, 1), 0.02 ** 2, **f32)
+    args = [(b.positions.contiguous(), b.lengths.contiguous(),
+             l2.expand(b.positions.shape).contiguous()) for b in bench]
+
+    def run():
+        for pos, lens, l2_ in args:
+            refine_kernel.launch(pos, lens, l2_, tabs, S)
+    return run
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--kernel", choices=("k5", "k6", "both"), default="both")
+    ap.add_argument("--states", type=int, default=2)
+    ap.add_argument("--window", type=int, default=7)
+    a = ap.parse_args()
+    from extrack_tpu_torch.ops import cuda_lib
+    if a.split:
+        cuda_lib.enable_profile()
+    spec = importlib.util.spec_from_file_location("smoke",
+                                                  HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device("cuda", 0)
+    lib_path = cuda_lib.build()
+    cuda_lib.library()
+    bench = smoke.bench_buckets(dev)
+    runs = []
+    if a.kernel in ("k5", "both"):
+        runs.append(("hist", "K5 S=2 W=7", k5_runner(smoke, bench, dev)))
+    if a.kernel in ("k6", "both"):
+        runs.append(("refine", f"K6 S={a.states} W={a.window}",
+                     k6_runner(smoke, bench, dev, a.states, a.window)))
+    for name, what, run in runs:
+        if a.split:
+            run()
+            torch.cuda.synchronize()
+            cuda_lib.profile_counters(name)
+            ms = smoke.cuda_ms(run, REPS, warmup=0)
+            cyc = cuda_lib.profile_counters(name)
+            total = max(sum(cyc), 1)
+            print(f"{what}, profile build: {ms:.3f} ms per pass (marks "
+                  f"included); lead-thread cycles over {REPS} passes:")
+            for sec, c in zip(SECTIONS[name], cyc):
+                print(f"  {c / total * 100:6.2f}%  {c:16d}  {sec}")
+        else:
+            ms = smoke.cuda_ms(run, REPS, warmup=2)
+            print(f"{what}: {ms:.3f} ms per pass (CUDA events, median of "
+                  f"{REPS})")
+    if not a.split:
+        keep = False
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry" in line:
+                keep = "hist_kernel" in line or "refine_kernel" in line
+            if keep and ("registers" in line or "spill" in line
+                         or "Compiling entry" in line):
+                print("  ptxas " + line.strip())
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
