@@ -7,10 +7,12 @@ Phases (each prints its lines; a failed check exits non-zero):
 
 0. toolchain: torch / CUDA versions, nvcc, the card's name and power limit,
    the kernel build time (one nvcc per source, in parallel) and nvcc's
-   register / spill report, which fails the run on a spill in any K5 or K6
-   instantiation of up to 512 threads;
+   register / spill report, which fails the run on a spill in any K1, K4,
+   K5 or K6 instantiation of up to 512 threads;
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
-   on the card, three register configurations, ~3000 tracks each;
+   on the card, three register configurations, ~3000 tracks each, then on
+   both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
+   block mapping at the same K and at K = 243);
 2. K2 (csrc/grad.cu): value and every table gradient against
    ``value_and_table_grads_plain`` (torch autograd of the engine), at the
    same configurations, then on both of its mappings (the warp mapping
@@ -36,13 +38,15 @@ Phases (each prints its lines; a failed check exits non-zero):
    tangent direction over the 2^20 bench tracks, launched on prepared
    inputs and through ``table_hvp``, and on the block mapping for reading;
 6. K4 (csrc/predict.cu): logL and posteriors against ``predict_plain`` at
-   five configurations (T=2 rows, 0/1-frame rows, per-peak LocErr, a
-   history in global scratch); then the annotation main path,
-   ``predict.predict_Bs`` on the 10^5 tracks with the fitted parameters,
-   with its K4 launch count, each bucket against the plain version, and
-   the share of frames whose most probable state is the simulated one;
-   K4's time at 2^20 tracks (T=10, W=5, S=2), launched on prepared inputs
-   and through ``predict_kernel.predict``;
+   five configurations (T=2 rows, 0/1-frame rows, per-peak LocErr, K = 8
+   to 512), through ``predict`` and then on each of its mappings (a warp
+   per track up to 64 slots, a block per track at any K) with its stash
+   of fusion weights in shared memory and in global scratch; then the
+   annotation main path, ``predict.predict_Bs`` on the 10^5 tracks with
+   the fitted parameters, with its K4 launch count, each bucket against
+   the plain version, and the share of frames whose most probable state
+   is the simulated one; K4's time at 2^20 tracks (T=10, W=5, S=2),
+   launched on prepared inputs and through ``predict_kernel.predict``;
 7. K5 (csrc/hist.cu): the histogram against ``hist_plain`` at seven
    configurations with a forbidden transition (3 states, per-peak LocErr,
    T=2 and 0/1-frame rows, D = 1 and 3, rows in global scratch), twice
@@ -132,16 +136,15 @@ TOL_K4_PREDS = dict(rtol=2e-3, atol=2e-4)
 PARITY_CASES = [(2, 6, 1, 2, 3001, 10), (3, 5, 1, 2, 3001, 10),
                 (2, 4, 2, 2, 3001, 10), (2, 5, 1, 1, 257, 6),
                 (3, 3, 2, 3, 37, 12), (2, 3, 1, 2, 5, 2)]
-# (S, W): K2 on each of its mappings, K = 8, 16, 32, 64 (warp and block)
-# and K = 243 (block)
-K2_MAPPING_CASES = [(2, 3), (2, 4), (2, 5), (2, 6), (3, 5)]
+# (S, W): K1 and K2 on each of their mappings, K = 8, 16, 32, 64 (warp
+# and block) and K = 243 (block)
+MAPPING_CASES = [(2, 3), (2, 4), (2, 5), (2, 6), (3, 5)]
 # K3: (S, W, nb_substeps, per-peak LocErr), 1500 tracks of T <= 10 in two
 # buckets, p01 fixed at 0 (a forbidden transition) in every case
 HVP_CASES = [(2, 6, 1, False), (2, 4, 2, False), (3, 5, 1, True),
              (4, 4, 1, False)]
 HVP_TRACKS = 1500
-# K4: (S, W, D, B, T, per-peak LocErr); the last one's history does not fit
-# in shared memory and goes to global scratch
+# K4: (S, W, D, B, T, per-peak LocErr); K = 32, 81, 8, 8 and 512
 PREDICT_CASES = [(2, 5, 2, 3001, 10, False), (3, 4, 2, 3001, 10, True),
                  (2, 3, 2, 257, 2, True), (2, 3, 3, 301, 12, False),
                  (2, 9, 1, 64, 60, True)]
@@ -256,14 +259,14 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     return float(np.median(times))
 
 
-def bench_buckets(dev, T=10, seed=0):
-    """BENCH_TRACKS 2-state random walks, lengths 3..T, length-bucketed on
+def bench_buckets(dev, T=10, seed=0, lo=3):
+    """BENCH_TRACKS 2-state random walks, lengths lo..T, length-bucketed on
     ``dev``."""
     from extrack_tpu_torch import data
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(3, T + 1, BENCH_TRACKS)
+    lengths = rng.integers(lo, T + 1, BENCH_TRACKS)
     tracks = {}
-    for L in range(3, T + 1):
+    for L in range(lo, T + 1):
         nb = int((lengths == L).sum())
         state = rng.integers(0, 2, (nb, 1, 1))
         sig = np.where(state == 1, math.sqrt(2 * 0.08 * 0.02), 1e-4)
@@ -332,7 +335,9 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
     slot.  K2 counts its backward walk at twice the forward's (each
     operation's pullback costs about two); K3 counts three per K2
     operation (value and product rule); K4 adds the live fusion at L-2,
-    the update at L-1, its history mix and the harvest.  K5 runs L-2
+    the update at L-1 and the harvest (the posteriors of the frames that
+    left the window carried back through their fusions' weights, linear
+    in the length, rather than the engine's history mix).  K5 runs L-2
     fusions, each child mixing A members' (1+S)*min(t+1, T) run/hist
     bins at step t (a weight of 4 and 2 per bin and member), and a
     harvest of 4 per slot and bin.  K6 runs 2(L-2) transition-only
@@ -382,14 +387,14 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
         return 3.0 * fwd
     if kind == "K3":
         return 9.0 * fwd
-    # K4: one more fusion and update per track, the mix of the filled
-    # history frames (2*A flops per float per group) and the harvest
-    mix = 0.0
-    for t in range(1, int(L.max(initial=2)) - 1):
-        fd = max(0, t + 1 - W)
-        mix += G * A * 2.0 * fd * S * float((L - 2 >= t).sum())
-    harvest = float((K * (3 + 2 * S * np.minimum(L, T))).sum())
-    return fwd + float((L >= 3).sum()) * (step + K * 14 * D) + mix + harvest
+    # K4: one more fusion and update per track and the harvest: the
+    # softmax (3 a slot), one add a slot for each frame still in the window
+    # and, for each frame that left it, the weights carried back through
+    # that frame's fusion (group sums, member masses and their sums by
+    # state: 3 a slot)
+    harvest = float((K * (3 + np.minimum(L, W)
+                          + 3 * np.maximum(L - W, 0))).sum())
+    return fwd + float((L >= 3).sum()) * (step + K * 14 * D) + harvest
 
 
 def live_rows(L: int, P: int, A: int, M: int):
@@ -737,14 +742,18 @@ def main() -> int:
             entry_name = line.split("'")[1]
         spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill",
                             line)
-        block = re.match(r"_ZN7extrack1[13](?:hist|refine)_kernelILi\dELi"
-                         r"(\d+)E", entry_name)
-        if (spilled and block and int(block.group(1)) <= 512
+        block = re.match(r"_ZN7extrack(?:1[13](?:hist|refine)_kernel|17walk_"
+                         r"block_kernel)ILi\dELi(\d+)E", entry_name)
+        threads = (int(block.group(1)) if block
+                   else 128 if entry_name.startswith(
+                       "_ZN7extrack16walk_warp_kernel") else 0)
+        if (spilled and 0 < threads <= 512
                 and (int(spilled.group(1)) or int(spilled.group(2)))):
             spills.append(entry_name)
     if spills:
-        fail(f"K5/K6 instantiations of <= 512 threads spill: {spills}")
-    log("phase 0: no K5/K6 instantiation of <= 512 threads spills")
+        fail(f"K1/K4/K5/K6 instantiations of <= 512 threads spill: {spills}")
+    log("phase 0: no K1, K4, K5 or K6 instantiation of <= 512 threads "
+        "spills")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -756,20 +765,23 @@ def main() -> int:
                                         isbl, tb, **kw))
         errs["K2"].append(check_table_grads(f"phase 2: K2 {tag}", pos, lens,
                                             isbl, tb, **kw))
-    # K2 on each mapping: the block mapping is forced by a zero warp limit
-    for S, W in K2_MAPPING_CASES:
+    # K1 and K2 on each mapping: the block mapping is forced by a zero
+    # warp limit
+    for S, W in MAPPING_CASES:
         pos, lens, isbl, tb = parity_case(S, W, 1, 150 + S * 10 + W, dev)
         kw = dict(window=W, nb_substeps=1, min_len=2)
-        saved = grad_kernel.WARP_MAX_K
-        for mapping in (("warp", "block") if S ** W <= saved
-                        else ("block",)):
-            grad_kernel.WARP_MAX_K = saved if mapping == "warp" else 0
-            try:
-                errs["K2"].append(check_table_grads(
-                    f"phase 2: K2 {mapping} mapping S={S} W={W} "
-                    f"(K={S ** W})", pos, lens, isbl, tb, **kw))
-            finally:
-                grad_kernel.WARP_MAX_K = saved
+        for k, mod, check in (("K1", forward_kernel, check_forward),
+                              ("K2", grad_kernel, check_table_grads)):
+            saved = mod.WARP_MAX_K
+            for mapping in (("warp", "block") if S ** W <= saved
+                            else ("block",)):
+                mod.WARP_MAX_K = saved if mapping == "warp" else 0
+                try:
+                    errs[k].append(check(
+                        f"phase {k[1]}: {k} {mapping} mapping S={S} W={W} "
+                        f"(K={S ** W})", pos, lens, isbl, tb, **kw))
+                finally:
+                    mod.WARP_MAX_K = saved
 
     # ---- phase 3: the fit main path --------------------------------------
     t0 = time.time()
@@ -1059,26 +1071,44 @@ def main() -> int:
                                            dev, B=B, T=T, D=D,
                                            per_peak=per_peak)
         kw6 = dict(window=W, min_len=2)
-        logl, preds = predict_kernel.predict(pos, lens, isbl, tb6, **kw6)
         logl0, preds0 = predict_kernel.predict_plain(pos, lens, isbl, tb6,
                                                      **kw6)
-        torch.cuda.synchronize()
-        e_l = float((logl - logl0).abs().max())
-        e_p = float((preds - preds0).abs().max())
         L = lens.cpu().numpy()
         valid = (np.arange(T)[None, :] < L[:, None]) & (L >= 2)[:, None]
-        sums = preds.sum(-1).cpu().numpy()
-        ok = (torch.allclose(logl, logl0, **TOL_K4_LOGL)
-              and torch.allclose(preds, preds0, **TOL_K4_PREDS)
-              and np.allclose(sums[valid], 1.0, atol=1e-3)
-              and bool(np.all(sums[~valid] == 0.0)))
-        errs["K4"].append(max(e_l, e_p))
-        log(f"phase 6: K4 S={S} W={W} D={D} B={B} T={T} per-peak="
-            f"{per_peak}: logL max_abs_err {e_l:.3e}, preds max_abs_err "
-            f"{e_p:.3e}, |sum-1| max {np.abs(sums[valid] - 1).max():.2e} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"K4 disagrees with predict_plain at S={S} W={W} T={T}")
+        # through the wrapper's plan, then on every mapping with the stash
+        # of fusion weights in shared memory and in global scratch
+        d6, t6 = forward_kernel.kernel_inputs(pos, lens, isbl, tb6, W, 1)
+        t6 = [t.detach() for t in t6]
+        for mapping, stash in [(None, None)] + [
+                (m, st) for m in (("warp", "block") if S ** W <= 64
+                                  else ("block",))
+                for st in ("smem", "global")]:
+            if mapping is None:
+                logl, preds = predict_kernel.predict(pos, lens, isbl, tb6,
+                                                     **kw6)
+            else:
+                logl, preds = predict_kernel.launch(d6, t6, 2, S, W,
+                                                    mapping=mapping,
+                                                    stash=stash)
+            torch.cuda.synchronize()
+            e_l = float((logl - logl0).abs().max())
+            e_p = float((preds - preds0).abs().max())
+            sums = preds.sum(-1).cpu().numpy()
+            ok = (torch.allclose(logl, logl0, **TOL_K4_LOGL)
+                  and torch.allclose(preds, preds0, **TOL_K4_PREDS)
+                  and np.allclose(sums[valid], 1.0, atol=1e-3)
+                  and bool(np.all(sums[~valid] == 0.0)))
+            errs["K4"].append(max(e_l, e_p))
+            how = (f"{mapping} mapping, stash in {stash}" if mapping
+                   else "predict")
+            log(f"phase 6: K4 S={S} W={W} D={D} B={B} T={T} per-peak="
+                f"{per_peak} ({how}): logL max_abs_err {e_l:.3e}, preds "
+                f"max_abs_err {e_p:.3e}, |sum-1| max "
+                f"{np.abs(sums[valid] - 1).max():.2e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K4 disagrees with predict_plain at S={S} W={W} T={T} "
+                     f"({how})")
 
     # the annotation main path, through the default entry point
     values = {k: p.value for k, p in res.params.items()}

@@ -326,10 +326,52 @@ static __device__ __forceinline__ float rsq(float x) {
   return y;
 }
 
+// Gaussian update of one slot against observation x with variance l2, on
+// the special-function unit: the posterior mean nm and tail tl per
+// dimension, quad = sum 0.5 (x-m)^2 / tot and prod = prod tot.
+template <int D>
+struct Upd {
+  float nm[D], tl[D], quad, prod;
+};
+
+template <int D>
+static __device__ __forceinline__ void update2(const float* m,
+                                               const float* s2,
+                                               const float* x,
+                                               const float* l2, Upd<D>& u) {
+  u.quad = 0.f;
+  u.prod = 1.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float tot = l2[d] + s2[d];
+    const float inv = rcp(tot);
+    const float diff = x[d] - m[d];
+    u.prod *= tot;
+    u.quad += 0.5f * diff * diff * inv;
+    u.nm[d] = (m[d] * l2[d] + x[d] * s2[d]) * inv;
+    u.tl[d] = l2[d] * s2[d] * inv;
+  }
+}
+
+// Slot k's update `u` into `pub` (fuse_group's layout, with the base log
+// weight lp - quad in base 2).
+template <int D>
+static __device__ __forceinline__ void publish_upd(int k, float lp,
+                                                   const Upd<D>& u,
+                                                   float* pub, int K) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    pub[(2 + d) * K + k] = u.nm[d];
+    pub[(2 + D + d) * K + k] = u.tl[d];
+  }
+  pub[k] = kLog2e * (lp - u.quad);
+  pub[K + k] = rsq(u.prod);
+}
+
 // Publish slot k's Gaussian update against observation (x, l2) to `pub`
-// (fuse_group's layout, with the base log weight lp - quad in base 2); the
-// caller's barrier makes it readable.  Returns prod_d (l2 + s2), the
-// update's normalizer, for a caller that closes on it.
+// (k = threadIdx.x); the caller's barrier makes it readable.  Returns
+// prod_d (l2 + s2), the update's normalizer, for a caller that closes on
+// it.
 template <int D>
 static __device__ __forceinline__ float publish2(bool act, const float* m,
                                                  const float* s2, float lp,
@@ -338,42 +380,29 @@ static __device__ __forceinline__ float publish2(bool act, const float* m,
                                                  int K, float* quad_out =
                                                      nullptr) {
   if (!act) return 1.f;
-  const int k = threadIdx.x;
-  float quad = 0.f, prod = 1.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float tot = l2[d] + s2[d];
-    const float inv = rcp(tot);
-    const float diff = x[d] - m[d];
-    prod *= tot;
-    quad += 0.5f * diff * diff * inv;
-    pub[(2 + d) * K + k] = (m[d] * l2[d] + x[d] * s2[d]) * inv;
-    pub[(2 + D + d) * K + k] = l2[d] * s2[d] * inv;
-  }
-  pub[k] = kLog2e * (lp - quad);
-  pub[K + k] = rsq(prod);
-  if (quad_out != nullptr) *quad_out = quad;
-  return prod;
+  Upd<D> u;
+  update2<D>(m, s2, x, l2, u);
+  publish_upd<D>(threadIdx.x, lp, u, pub, K);
+  if (quad_out != nullptr) *quad_out = u.quad;
+  return u.prod;
 }
 
-// After the publish barrier: child k moment-matches the A members m0 ..
-// m0+A-1 of its group from `pub` into m and s2 (plus the child's
-// displacement variance sig2v_k) and sets lp to the group's log mass plus
-// `add` (the child's transition terms).  Sets mx (the members' largest
-// base-2 weight) and inv_sw, so that member o's fusion weight is
-// ex2(pub[m0+o] - mx) * pub[K+m0+o] * inv_sw; with MW > 0 (and A <= MW)
-// also w[0..MW-1], those weights (zero past A).
+// After the publish barrier: the fusion of group members m0 .. m0+A-1 of
+// `pub`: their weighted mean mf and tail tf, their log mass lse (natural
+// log), the members' largest base-2 weight mx and inv_sw, so that member
+// o's fusion weight is ex2(pub[m0+o] - mx) * pub[K+m0+o] * inv_sw; with
+// MW > 0 (and A <= MW) also w[0..MW-1], those weights (zero past A).
 template <int D, int MW>
-static __device__ __forceinline__ void gather2(bool act, float* m, float* s2,
-                                               float& lp, const float* pub,
-                                               float add, float sig2v_k,
-                                               int K, int m0, int A,
-                                               float& mx, float& inv_sw,
-                                               float* w = nullptr) {
-  if (!act) return;
+static __device__ __forceinline__ void group2(const float* pub, int K, int m0,
+                                              int A, float& mx,
+                                              float& inv_sw, float& lse,
+                                              float* mf, float* tf,
+                                              float* w = nullptr) {
   mx = kNegBig;
   for (int o = 0; o < A; ++o) mx = fmaxf(mx, pub[m0 + o]);
-  float sw = 0.f, mf[D] = {}, tf[D] = {};
+  float sw = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) mf[d] = tf[d] = 0.f;
   auto add_member = [&](int o) {
     const float wo = ex2(pub[m0 + o] - mx) * pub[K + m0 + o];
     sw += wo;
@@ -398,10 +427,32 @@ static __device__ __forceinline__ void gather2(bool act, float* m, float* s2,
   }
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    m[d] = mf[d] * inv_sw;
-    s2[d] = sig2v_k + tf[d] * inv_sw;
+    mf[d] *= inv_sw;
+    tf[d] *= inv_sw;
   }
-  lp = (mx + lg2(sw)) * kLn2 + add;
+  lse = (mx + lg2(sw)) * kLn2;
+}
+
+// After the publish barrier: child k moment-matches the A members m0 ..
+// m0+A-1 of its group from `pub` into m and s2 (plus the child's
+// displacement variance sig2v_k) and sets lp to the group's log mass plus
+// `add` (the child's transition terms); mx, inv_sw and w as group2's.
+template <int D, int MW>
+static __device__ __forceinline__ void gather2(bool act, float* m, float* s2,
+                                               float& lp, const float* pub,
+                                               float add, float sig2v_k,
+                                               int K, int m0, int A,
+                                               float& mx, float& inv_sw,
+                                               float* w = nullptr) {
+  if (!act) return;
+  float mf[D], tf[D], lse;
+  group2<D, MW>(pub, K, m0, A, mx, inv_sw, lse, mf, tf, w);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    m[d] = mf[d];
+    s2[d] = sig2v_k + tf[d];
+  }
+  lp = lse + add;
 }
 
 // Forward walk of one track of length L >= 2 (x, l2: (T, D) rows of the

@@ -1,0 +1,687 @@
+// The walk of K1 (forward.cu: per-track log likelihood) and K4
+// (predict.cu: the same plus per-frame state posteriors), one template for
+// both (PRED), on two mappings of a track onto threads:
+//
+// * warp mapping, K <= 64 (walk_warp_kernel): one warp walks one track;
+//   lane l owns slots l and, when J = 2, l + 32.  Blocks of up to four
+//   warps are persistent over the tracks, and each warp copies the next
+//   track's rows into its slice of shared memory by cp.async while it
+//   walks the current one.  A fusion step's exchange goes through the
+//   warp's slice between __syncwarp()s, and every reduction over the slots
+//   is a warp shuffle: the walk has no block barrier.
+// * block mapping, 64 < K <= 1024 (walk_block_kernel): one persistent
+//   block walks one track at a time, thread k owning slot k, with one
+//   barrier per fusion step.
+//
+// Both keep each slot's (K,) tables in registers for the whole launch,
+// fuse in base 2 on the special-function unit (common.cuh's update2 /
+// group2: ex2, lg2, rcp, rsqrt), double-buffer the publish area (one
+// barrier per step), and close in one pass: an online log-sum-exp in base
+// 2 that rescales its sum on a new maximum, so each look-ahead child is
+// evaluated once.
+//
+// K4's posteriors.  The plain engine carries, per slot, a history of
+// posteriors over the frames that left the window and mixes it at every
+// fusion (work quadratic in T).  The kernel carries none: at each fusion
+// step that drops a frame it stashes the step's fusion weights, K floats
+// (member o of group g's weight w_{g,o}, written by g's child o; every
+// child of g holds all of them), and at the track's last frame it carries
+// the register's softmax back through them, linear in T: group g's mass is
+// the sum of its children's, member c = g*A + o of the step's register
+// gets mass_g * w_{g,o} (written over the stash row in place), and the
+// dropped frame's posterior of state o is the sum of those over the groups
+// (A = S: a member's oldest digit is that frame's state).  The stash is
+// (T-W) rows of K floats (only frames 0 .. T-W-1 can leave the window
+// before a track ends), each padded to an odd count so that a lane per
+// output reading down its row hits every bank once; it lives in the
+// team's shared memory when that costs no resident tracks
+// (ops/forward_kernel.plan), else in global scratch, and the walk is
+// called at two sites so that each compiles to its own loads.  The frames
+// still in the window are sums of the softmax weights of the slots whose
+// digit matches (digits from a per-slot code): a reduce-scatter over the
+// lanes in the warp mapping, warp partials in the block mapping.
+#pragma once
+
+#include <cuda_pipeline.h>
+
+#include "common.cuh"
+
+namespace extrack {
+
+// Sections of K1's and K4's cycle split (tools/walk_profile.py --split).
+enum {
+  kWkSetup = 0, kWkStep = 1, kWkClose = 2, kWkMix = 3, kWkHarvest = 4,
+  kWkBarrier = 5
+};
+
+constexpr int kWalkWarpBlock = 128;    // the warp mapping's block: 4 warps
+
+// Blocks per SM each instantiation is compiled for (__launch_bounds__'
+// second argument): up to 80 registers with one slot a lane (24 warps an
+// SM) and 128 with two, none spilling.  Measured on an H100, caps from 64
+// to 102 registers moved the bench shape by less than the spread between
+// runs.
+template <int J>
+constexpr int walk_warp_min_blocks() {
+  return J == 1 ? 6 : 4;
+}
+template <int NT>
+constexpr int walk_block_min_blocks() {
+  return 65536 / (NT * 80) > 1 ? 65536 / (NT * 80) : 1;
+}
+
+// Slot k's (K,) tables, loaded once per launch.
+struct SlotTabs {
+  float lp0, s20, lt, lsurv, endv, sig2v;
+};
+
+static __device__ __forceinline__ SlotTabs load_slot(const Tables& tb, int k,
+                                                     bool act) {
+  if (!act) return {0.f, 1.f, 0.f, 0.f, 0.f, 0.f};
+  return {tb.lp0[k], tb.s20[k], tb.lt[k], tb.lsurv[k], tb.endv[k],
+          tb.sig2v[k]};
+}
+
+// Online log-sum-exp in base 2: (mx, s) stands for s * 2^mx.  Adding a
+// term r * 2^g rescales s only when g is a new maximum.  mx starts at
+// kNegBig (not -inf, so that an empty sum rescales to an empty sum).
+static __device__ __forceinline__ void lse2_add(float& mx, float& s, float g,
+                                                float r) {
+  if (g > mx) {
+    s = fmaf(s, ex2(mx - g), r);
+    mx = g;
+  } else {
+    s = fmaf(r, ex2(g - mx), s);
+  }
+}
+
+// The warp's (mx, s) in every lane: the lanes' largest mx, each lane's
+// sum rescaled to it once, then summed.
+static __device__ __forceinline__ void warp_lse2(float& mx, float& s) {
+  const float m = warp_max(mx);
+  s = warp_sum(s * ex2(mx - m));
+  mx = m;
+}
+
+// The block's (mx, s) in every thread: warps' partials through `red`
+// (2 floats a warp), combined in warp order.  The caller keeps `red` from
+// being reused before every thread has read it.
+static __device__ __forceinline__ void block_lse2(float& mx, float& s,
+                                                  float* red) {
+  warp_lse2(mx, s);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  if (lane == 0) {
+    red[2 * wid] = mx;
+    red[2 * wid + 1] = s;
+  }
+  __syncthreads();
+  mx = red[0];
+  for (int w = 1; w < nw; ++w) mx = fmaxf(mx, red[2 * w]);
+  s = 0.f;
+  for (int w = 0; w < nw; ++w) s += red[2 * w + 1] * ex2(red[2 * w] - mx);
+}
+
+// The bytes of one team's shared memory (per warp for the warp mapping,
+// per block for the block mapping), besides K4's stash, and the stash's
+// bytes per team.
+struct WalkLayout {
+  int threads;
+  size_t fixed, stash;
+};
+
+// warps > 0: the warp mapping with `warps` warps a block; 0: the block
+// mapping.  Floats of a team's slice, in order: two publish areas
+// ((2+2D)K each); warp mapping: two buffers of a track's (T, D) variances
+// and positions, then its length and flag; block mapping: the closings'
+// and the harvest's warp partials; K4: the softmax over the register (K)
+// and the groups' masses (G); then K4's stash of fusion weights, when in
+// shared memory.
+static __host__ __device__ inline WalkLayout walk_layout(int warps, int K,
+                                                         int A, int D, int T,
+                                                         int S, int W,
+                                                         bool pred) {
+  const int G = K / A;
+  size_t fixed = (size_t)2 * (2 + 2 * D) * K;
+  if (warps > 0)
+    fixed += (size_t)4 * T * D + 4;
+  else
+    fixed += 4 * 32 + (pred ? (size_t)W * S * 32 : 0);
+  if (pred) fixed += K + G;
+  const size_t stash = pred && T > W ? (size_t)(T - W) * (K | 1) : 0;
+  return {warps > 0 ? 32 * warps : (K + 31) / 32 * 32, fixed * 4, stash * 4};
+}
+
+// Everything a walk kernel reads and writes.
+struct WalkArgs {
+  Tables tb;
+  const float* xs;
+  const float* l2s;
+  const int* lengths;
+  const float* isbls;
+  int B, T, S, W;
+  float* logl;
+  float* preds;           // K4: (B, T, S)
+  float* stash_all;       // K4: global stash scratch, or null
+  int stash_smem;         // K4: the stash in the team's shared memory
+};
+
+// Index math of one slot of a team.
+struct Slot {
+  int k;                  // slot
+  bool act;               // k < K
+  int m0;                 // first member of k's fusion group
+  int g, a;               // k's group and its child index (k = a*G + g)
+  int pg;                 // the group whose member k is (k / A)
+  unsigned code;          // K4: the slot's digits, oldest lowest, b bits
+  unsigned hm;            // K4, warp mapping: bit i*S + s set when digit i
+                          // of k is s (i*S + s < 16)
+};
+
+// One track's walk on a team (a warp for the warp mapping, BLOCK for the
+// block mapping) whose J slots a thread are `sl`.  x / l2: the track's
+// (T, D) rows; stash: K4's stash of fusion weights; scr: K4's softmax
+// and group masses; red: the block mapping's partials.  Writes logL (and
+// K4's posterior row) for track b.
+template <int D, int J, int AS, bool PRED, bool BLOCK>
+static __device__ __forceinline__ void walk_track(
+    const WalkArgs& wa, const SlotTabs* tab, const Slot* sl, bool one_group,
+    int bits, int b, int L, float isbl, const float* x, const float* l2,
+    float* pubs, float* scr, float* red, float* stash, int tid, int nteam,
+    Prof& pf) {
+  const Tables& tb = wa.tb;
+  const int K = tb.K, A = AS > 0 ? AS : tb.A, G = K / A;
+  const int T = wa.T, S = wa.S, W = wa.W;
+  const int F = 2 + 2 * D;
+  const float cl2pi = 0.5f * D * kLog2Pi;
+  const int ks = K | 1;                         // stash row stride
+  float* pr = PRED ? wa.preds + (size_t)b * T * S : nullptr;
+
+  auto sync = [&]() {
+    if constexpr (BLOCK)
+      __syncthreads();
+    else
+      __syncwarp();
+  };
+  auto lse2_team = [&](float& mx, float& s, float* r) {
+    if constexpr (BLOCK)
+      block_lse2(mx, s, r);
+    else
+      warp_lse2(mx, s);
+  };
+
+  float m[J][D], s2[J][D], lp[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    lp[j] = tab[j].lp0;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      m[j][d] = x[d];
+      s2[j][d] = l2[d] + tab[j].s20;
+    }
+  }
+  float out = 0.f;
+  int pb = 0;                                   // publish area in turn
+  pf.mark(kWkSetup);
+  for (int t = 1;; ++t) {
+    float xt[D], l2t[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      xt[d] = x[t * D + d];
+      l2t[d] = l2[t * D + d];
+    }
+    Upd<D> u[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) update2<D>(m[j], s2[j], xt, l2t, u[j]);
+    if (t == L - 1) {
+      // the register's own closing (2-frame tracks) and K4's softmax:
+      // weight 2^fin * prod^-1/2 per slot; the 2 pi constants cancel in
+      // the softmax and come back as cl2pi in logL
+      float fin[J], r[J], mx = kNegBig, s = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        fin[j] = sl[j].act ? kLog2e * (lp[j] + isbl * tab[j].endv - u[j].quad)
+                           : kNegBig;
+        r[j] = sl[j].act ? rsq(u[j].prod) : 0.f;
+        lse2_add(mx, s, fin[j], r[j]);
+      }
+      lse2_team(mx, s, red + 64);
+      if (L == 2) out = (mx + lg2(s)) * kLn2 - cl2pi;
+      pf.mark(kWkClose);
+      if constexpr (PRED) {
+        const float inv_s = rcp(s);
+        const int nh = L - W;
+        float p[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          p[j] = ex2(fin[j] - mx) * r[j] * inv_s;
+          if (nh > 0 && sl[j].act) scr[sl[j].k] = p[j];
+        }
+        // frames still in the window: window position i (0 = oldest) is
+        // frame nh + i and digit i of the slot code
+        if constexpr (BLOCK) {
+          const unsigned mask = (1u << bits) - 1u;
+          for (int i = nh < 0 ? -nh : 0; i < W; ++i) {
+            for (int s_ = 0; s_ < S; ++s_) {
+              float v = (((sl[0].code >> (bits * i)) & mask) == s_ &&
+                         sl[0].act) ? p[0] : 0.f;
+              v = warp_sum(v);
+              if ((tid & 31) == 0)
+                red[128 + (i * S + s_) * 32 + (tid >> 5)] = v;
+            }
+          }
+        } else {
+          // the W*S <= 16 sums eight at a time: a reduce-scatter over the
+          // lanes leaves the sum of output o0 + o in lanes 4o .. 4o+3
+          for (int o0 = 0; o0 < W * S; o0 += 8) {
+            float v[8];
+#pragma unroll
+            for (int o = 0; o < 8; ++o) {
+              v[o] = 0.f;
+#pragma unroll
+              for (int j = 0; j < J; ++j)
+                if ((sl[j].hm >> (o0 + o)) & 1u) v[o] += p[j];
+            }
+#pragma unroll
+            for (int c = 4, off = 16; c >= 1; c >>= 1, off >>= 1) {
+              const bool up = (tid & off) != 0;
+#pragma unroll
+              for (int i = 0; i < c; ++i) {
+                const float send = up ? v[i] : v[i + c];
+                const float keep = up ? v[i + c] : v[i];
+                v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+              }
+            }
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+            const int o = o0 + (tid >> 2);
+            if ((tid & 3) == 0 && o < W * S && nh * S + o >= 0)
+              pr[nh * S + o] = v[0];
+          }
+        }
+        sync();   // scr, the block's partials and the last fusion's rows
+        if constexpr (BLOCK) {
+          const int nw = nteam >> 5;
+          for (int o = tid; o < W * S; o += nteam) {
+            const int i = o / S;
+            if (nh + i < 0) continue;
+            float v = 0.f;
+            for (int w = 0; w < nw; ++w) v += red[128 + o * 32 + w];
+            pr[nh * S + o] = v;
+          }
+        }
+        // frames that left the window
+        if (nh > 0) {
+          float* mass = scr + K;
+          // carry the slots' masses back through the stashed fusion
+          // weights: the fusion that dropped frame f gave member c = g*A + o
+          // of group g the mass mass_g * w_{g,o}, and frame f's posterior
+          // of state o sums those over g.  Each stash row becomes those
+          // masses in place, and is the next step's q.
+          const float* q = scr;
+          for (int f = nh - 1; f >= 0; --f) {
+            sync();
+            for (int g = tid; g < G; g += nteam) {
+              float v = 0.f;
+              for (int a = 0; a < A; ++a) v += q[a * G + g];
+              mass[g] = v;
+            }
+            sync();
+            float* row = stash + (size_t)f * ks;
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+              if (sl[j].act) row[sl[j].k] *= mass[sl[j].pg];
+            q = row;
+          }
+          sync();
+          for (int o = tid; o < nh * S; o += nteam) {
+            const int f = o / S;
+            const float* row = stash + (size_t)f * ks + (o - f * S);
+            float v = 0.f;
+            for (int g = 0; g < G; ++g) v += row[g * A];
+            pr[o] = v;
+          }
+        }
+        for (int o = L * S + tid; o < T * S; o += nteam) pr[o] = 0.f;
+        pf.mark(kWkHarvest);
+      }
+      break;
+    }
+    const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
+    if (t == L - 2) {
+      // look-ahead closing on the pre-fusion children, in one pass
+      float xn[D], l2n[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        xn[d] = x[(t + 1) * D + d];
+        l2n[d] = l2[(t + 1) * D + d];
+      }
+      const float c2pi = D == 1 ? k2Pi : D == 2 ? k2Pi * k2Pi
+                                                : k2Pi * k2Pi * k2Pi;
+      float mx = kNegBig, s = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (!sl[j].act) continue;
+        const float base = lp[j] - u[j].quad;
+        const float rq = rsq(u[j].prod);
+        const int kA = sl[j].k * A;
+        for (int a = 0; a < A; ++a) {
+          float prod_n = c2pi, quad_n = 0.f;
+          const float s2n = __ldg(tb.s2n + kA + a);
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float totn = s2n + u[j].tl[d] + l2n[d];
+            const float df = xn[d] - u[j].nm[d];
+            prod_n *= totn;
+            quad_n = fmaf(0.5f * df * df, rcp(totn), quad_n);
+          }
+          const float c = __ldg(tb.ltn + kA + a) +
+                          gate * __ldg(tb.lsn + kA + a) +
+                          isbl * __ldg(tb.endn + kA + a);
+          lse2_add(mx, s, kLog2e * (base + c - quad_n), rq * rsq(prod_n));
+        }
+      }
+      lse2_team(mx, s, red);
+      out = (mx + lg2(s)) * kLn2 - cl2pi;
+      pf.mark(kWkClose);
+      if constexpr (!PRED) break;
+    }
+    // fusion: publish, then each child gathers its group's members
+    float* pub = pubs + pb * F * K;
+    pb ^= 1;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (sl[j].act) publish_upd<D>(sl[j].k, lp[j], u[j], pub, K);
+    pf.mark(kWkStep);
+    sync();
+    pf.mark(kWkBarrier);
+    // the lane's second child reuses the first one's group sums when both
+    // are in one group (K = 64 at A = 2, 4, 8)
+    float w[J][AS > 0 ? AS : 1], gmx[J], ginv[J];
+    float mf[D], tf[D], lse = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (!sl[j].act) continue;
+      if (j == 0 || !one_group)
+        group2<D, AS>(pub, K, sl[j].m0, A, gmx[j], ginv[j], lse, mf, tf,
+                      w[j]);
+      else {
+        gmx[j] = gmx[0];
+        ginv[j] = ginv[0];
+#pragma unroll
+        for (int o = 0; o < (AS > 0 ? AS : 1); ++o) w[j][o] = w[0][o];
+      }
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        m[j][d] = mf[d];
+        s2[j][d] = tab[j].sig2v + tf[d];
+      }
+      lp[j] = lse + tab[j].lt + gate * tab[j].lsurv;
+    }
+    pf.mark(kWkStep);
+    if constexpr (PRED) {
+      const int fd = t + 1 - W;               // the frame this step drops
+      if (fd >= 0) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          if (!sl[j].act) continue;
+          const int g = sl[j].g, a = sl[j].a;
+          auto wt = [&](int o) {
+            if constexpr (AS > 0) {
+              float v = w[j][0];
+#pragma unroll
+              for (int i = 1; i < AS; ++i)
+                if (i == o) v = w[j][i];
+              return v;
+            } else {
+              return ex2(pub[sl[j].m0 + o] - gmx[j]) * pub[K + sl[j].m0 + o] *
+                     ginv[j];
+            }
+          };
+          // stash the fusion weight of member g*A + a (child a of group g
+          // writes it) for the harvest's backward pass
+          stash[(size_t)fd * ks + g * A + a] = wt(a);
+        }
+      }
+      pf.mark(kWkMix);
+    }
+  }
+  if (tid == 0) wa.logl[b] = out;
+}
+
+// A thread's J slots and, for K4, their digit codes; `bits` per digit.
+template <int J>
+static __device__ __forceinline__ void slots_of(const Tables& tb, int S,
+                                                int W, int first, int step,
+                                                Slot* sl, SlotTabs* tab,
+                                                int& bits) {
+  const int K = tb.K, G = K / tb.A;
+  bits = 32 - __clz(max(S - 1, 1));
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int k = first + j * step;
+    sl[j].k = k;
+    sl[j].act = k < K;
+    sl[j].m0 = (k % G) * tb.A;
+    sl[j].g = k % G;
+    sl[j].a = k / G;
+    sl[j].pg = k / tb.A;
+    unsigned code = 0, hm = 0;
+    for (int i = 0, q = k; i < W; ++i, q /= S) {
+      code |= (unsigned)(q % S) << (bits * i);
+      if (i * S + q % S < 16) hm |= 1u << (i * S + q % S);
+    }
+    sl[j].code = code;
+    sl[j].hm = sl[j].act ? hm : 0u;
+    tab[j] = load_slot(tb, k, sl[j].act);
+  }
+}
+
+// The warp mapping's track loop; `stash` is the warp's stash (shared or
+// global memory: the kernel calls this at two sites).
+template <int D, int J, int AS, bool PRED>
+static __device__ __forceinline__ void warp_tracks(const WalkArgs& wa,
+                                                   float* ws, float* stash,
+                                                   unsigned long long* prof) {
+  const Tables& tb = wa.tb;
+  const int K = tb.K, T = wa.T, B = wa.B;
+  const int lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
+  const int gw = blockIdx.x * wpb + (threadIdx.x >> 5);
+  const int nwarps = gridDim.x * wpb;
+  const int TD = T * D;
+  float* pubs = ws;
+  float* rows = ws + 2 * (2 + 2 * D) * K;     // two (l2, x) buffers
+  int* meta = reinterpret_cast<int*>(rows + 4 * TD);
+  float* scr = rows + 4 * TD + 4;
+  Slot sl[J];
+  SlotTabs tab[J];
+  int bits;
+  slots_of<J>(tb, wa.S, wa.W, lane, 32, sl, tab, bits);
+  const int G = K / tb.A;
+  const bool one_group = J == 2 && 32 % G == 0;
+  Prof pf;
+  pf.start();
+
+  // track bb's rows, length and flag into buffer `buf`, asynchronously
+  auto fetch = [&](int bb, int buf) {
+    float* l2d = rows + buf * 2 * TD;
+    float* xd = l2d + TD;
+    for (int i = lane; i < TD; i += 32) {
+      __pipeline_memcpy_async(l2d + i, wa.l2s + (size_t)bb * TD + i, 4);
+      __pipeline_memcpy_async(xd + i, wa.xs + (size_t)bb * TD + i, 4);
+    }
+    if (lane == 0) {
+      __pipeline_memcpy_async(meta + 2 * buf, wa.lengths + bb, 4);
+      __pipeline_memcpy_async(meta + 2 * buf + 1, wa.isbls + bb, 4);
+    }
+    __pipeline_commit();
+  };
+  if (gw < B) fetch(gw, 0);
+  int buf = 0;
+  for (int b = gw; b < B; b += nwarps, buf ^= 1) {
+    __pipeline_wait_prior(0);
+    __syncwarp();           // this track's rows landed; the last one's read
+    const float* l2 = rows + buf * 2 * TD;
+    const float* x = l2 + TD;
+    const int L = min(meta[2 * buf], T);
+    const float isbl = __int_as_float(meta[2 * buf + 1]);
+    if (b + nwarps < B) fetch(b + nwarps, buf ^ 1);
+    if (L < 2) {            // empty / 1-frame rows: logL 0, posteriors 0
+      if (lane == 0) wa.logl[b] = 0.f;
+      if constexpr (PRED)
+        for (int o = lane; o < T * wa.S; o += 32)
+          wa.preds[(size_t)b * T * wa.S + o] = 0.f;
+      continue;
+    }
+    walk_track<D, J, AS, PRED, false>(wa, tab, sl, one_group, bits, b, L,
+                                      isbl, x, l2, pubs, scr, nullptr, stash,
+                                      lane, 32, pf);
+  }
+  pf.flush(prof, lane == 0);
+}
+
+template <int D, int J, int AS, bool PRED>
+__global__ void __launch_bounds__(kWalkWarpBlock, walk_warp_min_blocks<J>())
+    walk_warp_kernel(WalkArgs wa, unsigned long long* prof) {
+  extern __shared__ __align__(16) float smem[];
+  const WalkLayout lay = walk_layout(blockDim.x >> 5, wa.tb.K, wa.tb.A, D,
+                                     wa.T, wa.S, wa.W, PRED);
+  const int wib = threadIdx.x >> 5;
+  const size_t fixed = lay.fixed / 4, stash = lay.stash / 4;
+  if (wa.stash_smem) {
+    float* ws = smem + wib * (fixed + stash);
+    warp_tracks<D, J, AS, PRED>(wa, ws, ws + fixed, prof);
+  } else {
+    const int gw = blockIdx.x * (blockDim.x >> 5) + wib;
+    warp_tracks<D, J, AS, PRED>(wa, smem + wib * fixed,
+                                wa.stash_all + (size_t)gw * stash, prof);
+  }
+}
+
+// The block mapping's track loop (the kernel calls it at two sites).
+template <int D, bool PRED>
+static __device__ __forceinline__ void block_tracks(const WalkArgs& wa,
+                                                    float* sh, float* stash,
+                                                    unsigned long long* prof) {
+  const Tables& tb = wa.tb;
+  const int K = tb.K, T = wa.T;
+  const int k = threadIdx.x;
+  float* pubs = sh;
+  float* red = sh + 2 * (2 + 2 * D) * K;
+  float* scr = red + 128 + (PRED ? wa.W * wa.S * 32 : 0);
+  Slot sl[1];
+  SlotTabs tab[1];
+  int bits;
+  slots_of<1>(tb, wa.S, wa.W, k, 0, sl, tab, bits);
+  Prof pf;
+  pf.start();
+  for (int b = blockIdx.x; b < wa.B; b += gridDim.x) {
+    __syncthreads();        // the last track's partials, softmax and rows
+    const int L = min(wa.lengths[b], T);
+    if (L < 2) {
+      if (k == 0) wa.logl[b] = 0.f;
+      if constexpr (PRED)
+        for (int o = k; o < T * wa.S; o += blockDim.x)
+          wa.preds[(size_t)b * T * wa.S + o] = 0.f;
+      continue;
+    }
+    walk_track<D, 1, 0, PRED, true>(
+        wa, tab, sl, false, bits, b, L, wa.isbls[b],
+        wa.xs + (size_t)b * T * D, wa.l2s + (size_t)b * T * D, pubs, scr,
+        red, stash, k, blockDim.x, pf);
+  }
+  pf.flush(prof, k == 0);
+}
+
+template <int D, int NT, bool PRED>
+__global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
+    walk_block_kernel(WalkArgs wa, unsigned long long* prof) {
+  extern __shared__ __align__(16) float smem[];
+  const WalkLayout lay = walk_layout(0, wa.tb.K, wa.tb.A, D, wa.T, wa.S,
+                                     wa.W, PRED);
+  if (wa.stash_smem)
+    block_tracks<D, PRED>(wa, smem, smem + lay.fixed / 4, prof);
+  else
+    block_tracks<D, PRED>(wa, smem,
+                          wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4),
+                          prof);
+}
+
+// The instantiation a launch runs: warps > 0, the warp mapping (J by K,
+// the fusion's A unrolled at 2 and 4: two states, or two sub-steps or four
+// states); else the block mapping by block size.
+template <int D, bool PRED>
+static const void* walk_instance(int K, int A, int warps) {
+  if (warps > 0) {
+    if (K <= 32) {
+      switch (A) {
+        case 2: return (const void*)walk_warp_kernel<D, 1, 2, PRED>;
+        case 4: return (const void*)walk_warp_kernel<D, 1, 4, PRED>;
+        default: return (const void*)walk_warp_kernel<D, 1, 0, PRED>;
+      }
+    }
+    switch (A) {
+      case 2: return (const void*)walk_warp_kernel<D, 2, 2, PRED>;
+      case 4: return (const void*)walk_warp_kernel<D, 2, 4, PRED>;
+      default: return (const void*)walk_warp_kernel<D, 2, 0, PRED>;
+    }
+  }
+  const int threads = (K + 31) / 32 * 32;
+  return threads <= 128   ? (const void*)walk_block_kernel<D, 128, PRED>
+         : threads <= 256 ? (const void*)walk_block_kernel<D, 256, PRED>
+         : threads <= 512 ? (const void*)walk_block_kernel<D, 512, PRED>
+                          : (const void*)walk_block_kernel<D, 1024, PRED>;
+}
+
+static size_t walk_smem(const WalkLayout& lay, int warps, bool stash_smem) {
+  return (size_t)(warps > 0 ? warps : 1) *
+         (lay.fixed + (stash_smem ? lay.stash : 0));
+}
+
+// Blocks of a K1 / K4 launch one SM keeps resident, or -error.
+template <bool PRED>
+static int walk_occupancy(int D, int K, int A, int T, int S, int W,
+                          int warps, int stash_smem) {
+  const void* fn = nullptr;
+  switch (D) {
+    case 1: fn = walk_instance<1, PRED>(K, A, warps); break;
+    case 2: fn = walk_instance<2, PRED>(K, A, warps); break;
+    case 3: fn = walk_instance<3, PRED>(K, A, warps); break;
+    default: return -(int)cudaErrorInvalidValue;
+  }
+  const WalkLayout lay = walk_layout(warps, K, A, D, T, S, W, PRED);
+  const size_t smem = walk_smem(lay, warps, stash_smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, lay.threads,
+                                                        smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Launches K1 (PRED false) or K4 on `nblk` persistent blocks.
+template <bool PRED>
+static int launch_walk(const WalkArgs& wa, int D, int nblk, int warps,
+                       unsigned long long* prof, cudaStream_t stream) {
+  const int K = wa.tb.K, A = wa.tb.A;
+  if (D < 1 || D > 3 || K > 1024 || warps < 0 ||
+      32 * warps > kWalkWarpBlock || (warps > 0 && K > 64) ||
+      (!PRED && wa.stash_smem) || (PRED && A != wa.S))
+    return (int)cudaErrorInvalidValue;
+  if (wa.B <= 0) return 0;
+  const void* fn = D == 1   ? walk_instance<1, PRED>(K, A, warps)
+                   : D == 2 ? walk_instance<2, PRED>(K, A, warps)
+                            : walk_instance<3, PRED>(K, A, warps);
+  const WalkLayout lay = walk_layout(warps, K, A, D, wa.T, wa.S, wa.W, PRED);
+  const size_t smem = walk_smem(lay, warps, wa.stash_smem);
+  // always: an occupancy query may have set a smaller limit
+  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  WalkArgs a = wa;
+  void* args[] = {(void*)&a, (void*)&prof};
+  cudaLaunchKernel(fn, nblk, lay.threads, args, smem, stream);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace extrack

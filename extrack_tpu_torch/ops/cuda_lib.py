@@ -31,12 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer arguments, then int arguments, then the stream
 _SIGNATURES = {
-    "extrack_forward": [_P] * 15 + [_I] * 6 + [_P],
+    "extrack_forward": [_P] * 15 + [_I] * 8 + [_P],
+    "extrack_forward_occupancy": [_I] * 5,
     "extrack_grad": [_P] * 19 + [_I] * 9 + [_P],
     "extrack_hvp": [_P] * 19 + [_I] * 9 + [_P],
     "extrack_grad_occupancy": [_I] * 6,
     "extrack_hvp_occupancy": [_I] * 6,
-    "extrack_predict": [_P] * 17 + [_I] * 9 + [_P],
+    "extrack_predict": [_P] * 17 + [_I] * 11 + [_P],
+    "extrack_predict_occupancy": [_I] * 7,
+    "extrack_predict_layout": [_I] * 6 + [_P],
     "extrack_hist": [_P] * 14 + [_I] * 8 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
     "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],
@@ -65,9 +68,9 @@ def enable_profile():
 
 
 def profile_counters(kernel: str) -> list:
-    """The cycle counters of ``kernel`` ("grad", "topk", "hist" or
-    "refine") summed over every track since the last read, then zeroed
-    (profile builds only)."""
+    """The cycle counters of ``kernel`` ("forward", "grad", "predict",
+    "topk", "hist" or "refine") summed over every track since the last
+    read, then zeroed (profile builds only)."""
     out = (ctypes.c_ulonglong * PROFILE_SECTIONS)()
     fn = getattr(library(), f"extrack_{kernel}_prof")
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
@@ -181,7 +184,7 @@ def smem_bytes(query: str, device_index: int) -> int:
 def grid(query: str, dev, B: int, K: int, fixed_bytes: int,
          carry_bytes: int, threads: int = 0):
     """Blocks and scratch for a kernel that walks one track per block with
-    one thread per slot (K4, K5, K6).  When ``fixed_bytes`` of shared
+    one thread per slot (K5, K6).  When ``fixed_bytes`` of shared
     memory plus the track's ``carry_bytes`` fit what a block may opt in to
     (``query``), one block per track and no scratch; else persistent
     blocks, as many as the card keeps resident, each with its carries in

@@ -7,12 +7,16 @@ the transition table, and lays the track data out as (B, T, D) float32.
 
 ``forward`` is the entry point: CUDA tensors launch the kernel (or raise,
 outside its envelope); CPU tensors run ``forward_plain``, which is
-``core.engine.forward`` on the same inputs.  ``LAUNCHES`` counts kernel
-launches, ``PLAIN_CALLS`` calls of the plain version.
+``core.engine.forward`` on the same inputs.  ``plan`` and ``grid`` map a
+K1 or K4 launch onto the card (csrc/walk.cuh): one warp per track for
+K <= 64, one block per track above, persistent blocks.  ``LAUNCHES``
+counts kernel launches, ``PLAIN_CALLS`` calls of the plain version.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,7 +27,79 @@ from extrack_tpu_torch.ops import cuda_lib
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
-MAX_SLOTS = 1024          # one thread per register slot, one block per track
+MAX_SLOTS = 1024          # the block mapping: one thread per register slot
+WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
+WARPS = (4, 2, 1)         # warps a block the warp mapping may launch
+
+
+class Plan(NamedTuple):
+    """How one K1 / K4 launch maps tracks onto the card."""
+    warps: int            # warps a block of the warp mapping; 0: block
+    stash_smem: bool      # K4's stash of fusion weights in shared memory
+
+
+def plan(K: int, fixed: int, stash_bytes: int, smem_limit: int, occupancy,
+         mapping: str | None = None, stash: str | None = None) -> Plan:
+    """The mapping of a K1 (``stash_bytes`` 0) or K4 launch: one warp per
+    track for K <= WARP_MAX_K, else one block per track (``mapping``
+    "warp"/"block" forces one).  ``fixed`` and ``stash_bytes`` are one
+    team's (a warp's, or a block's for the block mapping) shared bytes
+    besides K4's stash of fusion weights and the stash's bytes;
+    ``occupancy(warps, stash_smem)`` gives the blocks an SM keeps
+    resident.  The stash goes to shared memory where a block's share fits
+    ``smem_limit`` and, with the block size of WARPS that keeps the most
+    tracks resident, as many tracks stay resident as with the stash in
+    global scratch (``stash`` "smem"/"global" forces it)."""
+    mapping = mapping or ("warp" if K <= WARP_MAX_K else "block")
+    if mapping == "warp" and K > WARP_MAX_K:
+        raise ValueError(f"the warp mapping takes K <= {WARP_MAX_K}, got {K}")
+    sizes = WARPS if mapping == "warp" else (0,)
+    if stash_bytes == 0:
+        return Plan(sizes[0], False)
+
+    def resident(w, smem):
+        return max(w, 1) * occupancy(w, smem)
+
+    if stash != "global":
+        fits = [w for w in sizes
+                if max(w, 1) * (fixed + stash_bytes) <= smem_limit]
+        if fits:
+            best = max(fits, key=lambda w: resident(w, True))
+            if stash == "smem" or (resident(best, True)
+                                   >= resident(sizes[0], False)):
+                return Plan(best, True)
+        elif stash == "smem":
+            raise ValueError(f"one team's stash ({stash_bytes} bytes) does "
+                             f"not fit {smem_limit} bytes of shared memory")
+    return Plan(sizes[0], False)
+
+
+def grid(B: int, pl: Plan, sms: int, occupancy: int, stash_bytes: int = 0):
+    """(blocks, bytes of global stash scratch) of a persistent launch on
+    ``sms`` SMs: as many blocks as the card keeps resident (``occupancy``
+    an SM), no more than the tracks need, and no more than
+    cuda_lib.SCRATCH_BUDGET of stash (``stash_bytes`` a team) in global
+    scratch."""
+    team = max(1, pl.warps)
+    nblk = max(1, min(-(-B // team), sms * max(1, occupancy)))
+    if pl.stash_smem or stash_bytes == 0:
+        return nblk, 0
+    nblk = max(1, min(nblk, cuda_lib.SCRATCH_BUDGET // (team * stash_bytes)))
+    return nblk, nblk * team * stash_bytes
+
+
+@functools.cache
+def _occupancy(query: str, *args) -> int:
+    """Blocks an SM keeps resident, from a kernel's occupancy query."""
+    n = getattr(cuda_lib.library(), query)(*args)
+    if n < 0:
+        cuda_lib.check(-n, f"{query} (occupancy query)")
+    return n
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _dig(k, i, S, W):
@@ -172,19 +248,25 @@ def validate(data, tabs, K: int, A: int):
     cuda_lib.check_args(want, xs.device)
 
 
-def launch(data, tabs, min_len: int) -> torch.Tensor:
-    """Launch K1 on the current stream; returns logL (B,) float32."""
+def launch(data, tabs, min_len: int,
+           mapping: str | None = None) -> torch.Tensor:
+    """Launch K1 on the current stream; returns logL (B,) float32.
+    ``mapping`` forces ``plan``'s choice (tests, tools)."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape
     K, A = tabs[6].shape
     validate(data, tabs, K, A)
     lib = cuda_lib.library()
-    logl = torch.empty(B, dtype=torch.float32, device=xs.device)
+    dev = xs.device
+    pl = plan(K, 0, 0, 0, None, mapping)
+    nblk, _ = grid(B, pl, _sms(dev.index), _occupancy(
+        "extrack_forward_occupancy", D, K, A, T, pl.warps))
+    logl = torch.empty(B, dtype=torch.float32, device=dev)
     rc = lib.extrack_forward(
         *(t.data_ptr() for t in (*data, *tabs, logl)),
-        B, T, D, K, A, int(min_len),
-        torch.cuda.current_stream(xs.device).cuda_stream)
+        B, T, D, K, A, int(min_len), nblk, pl.warps,
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "forward")
     LAUNCHES += 1
     return logl

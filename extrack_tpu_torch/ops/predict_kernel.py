@@ -6,13 +6,18 @@ per-track log likelihood and per-frame state posteriors, for one sub-step
 per frame:
 
 * CUDA tensors (float32): one K4 launch on ``forward_kernel.kernel_inputs``
-  (the K1 tables).  Outside the envelope it raises.
+  (the K1 tables), mapped as K1 (``forward_kernel.plan``), with its stash
+  of fusion weights in shared memory or global scratch.  Outside the
+  envelope it raises.
 * CPU tensors: ``predict_plain``, which is ``core.engine.forward(...,
   return_preds=True)`` on the same inputs.
 
 ``LAUNCHES`` counts K4 launches, ``PLAIN_CALLS`` calls of the plain version.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -24,15 +29,45 @@ LAUNCHES = 0
 PLAIN_CALLS = 0
 
 
-def history_floats(T: int, W: int, S: int) -> int:
-    """Posterior history per slot: the states of the frames that can leave
-    the window before a track ends (frames 0 .. T-W-1)."""
-    return max(T - W, 0) * S
+@functools.cache
+def layout(T: int, D: int, K: int, S: int, W: int, warp: bool):
+    """(shared bytes of one team besides its stash, the stash's bytes) of
+    a K4 launch, as the kernel's source defines its team
+    (``extrack_predict_layout``; a warp, or a block for the block
+    mapping)."""
+    out = (ctypes.c_longlong * 3)()
+    cuda_lib.check(cuda_lib.library().extrack_predict_layout(
+        T, D, K, S, W, int(warp), ctypes.addressof(out)), "K4 layout")
+    return out[1], out[2]
 
 
-def launch(data, tabs, min_len: int, S: int, W: int):
+def setup(B: int, T: int, D: int, K: int, S: int, W: int, dev,
+          mapping: str | None = None, stash: str | None = None):
+    """The plan, blocks and bytes of global stash scratch of one K4 launch
+    on ``dev``, from the kernel's own layout and occupancy queries."""
+    def occ(warps, smem):
+        return forward_kernel._occupancy("extrack_predict_occupancy", D, K,
+                                         S, T, W, warps, int(smem))
+
+    warp = (mapping or ("warp" if K <= forward_kernel.WARP_MAX_K
+                        else "block")) == "warp"
+    fixed, stash_bytes = layout(T, D, K, S, W, warp)
+    pl = forward_kernel.plan(K, fixed, stash_bytes,
+                             cuda_lib.smem_bytes("extrack_predict_smem",
+                                                 dev.index),
+                             occ, mapping, stash)
+    nblk, scratch = forward_kernel.grid(B, pl, forward_kernel._sms(dev.index),
+                                        occ(pl.warps, pl.stash_smem),
+                                        stash_bytes)
+    return pl, nblk, scratch
+
+
+def launch(data, tabs, min_len: int, S: int, W: int,
+           mapping: str | None = None, stash: str | None = None):
     """Launch K4 on the current stream; returns logL (B,) and preds
-    (B, T, S), float32."""
+    (B, T, S), float32.  ``mapping`` ("warp"/"block") and ``stash`` (the
+    fusion weights' stash in "smem" or "global" memory) force
+    ``forward_kernel.plan``'s choices (tests, tools)."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape
@@ -43,17 +78,16 @@ def launch(data, tabs, min_len: int, S: int, W: int):
     forward_kernel.validate(data, tabs, K, A)
     lib = cuda_lib.library()
     dev = xs.device
+    pl, nblk, nscratch = setup(B, T, D, K, S, W, dev, mapping, stash)
     f32 = dict(dtype=torch.float32, device=dev)
     logl = torch.empty(B, **f32)
     preds = torch.empty((B, T, S), **f32)
-    nblk, scratch = cuda_lib.grid("extrack_predict_smem", dev, B, K,
-                                  (3 + 2 * D) * K * 4,
-                                  2 * K * history_floats(T, W, S) * 4)
+    scratch = torch.empty(nscratch // 4, **f32) if nscratch else None
     rc = lib.extrack_predict(
         *(t.data_ptr() for t in (*data, *tabs, logl, preds)),
         None if scratch is None else scratch.data_ptr(),
-        B, T, D, K, A, int(min_len), S, W, nblk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        B, T, D, K, A, int(min_len), S, W, nblk, pl.warps,
+        int(pl.stash_smem), torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "posterior")
     LAUNCHES += 1
     return logl, preds

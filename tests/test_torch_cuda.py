@@ -32,7 +32,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, S, n, B, T, D, seed=5):
+def _case(dev, S, n, B, T, D, seed=5, per_peak=False):
     rng = np.random.default_rng(seed)
     xs = rng.normal(0, 0.06, (B, T, D)).cumsum(1)
     lengths = rng.integers(0, T + 1, B)
@@ -45,6 +45,9 @@ def _case(dev, S, n, B, T, D, seed=5):
         torch.linspace(0, 0.12, S, **f32), torch.tensor(0.02, **f32),
         torch.full((S,), 1.0 / S, **f32), rates, torch.tensor(0.1, **f32),
         0.02, cell_dims=(0.8,), nb_substeps=n)
+    if per_peak:
+        tb = tb._replace(loc_err2=torch.tensor(
+            rng.uniform(1e-4, 9e-4, (B, T, D)), **f32))
     return (torch.tensor(xs, **f32),
             torch.tensor(lengths, dtype=torch.int32, device=dev),
             torch.tensor(isbl, **f32), tb)
@@ -147,6 +150,96 @@ def test_cuda_posteriors_match_plain(cuda, S, W, B, T, D):
     sums = preds.sum(-1).cpu().numpy()
     np.testing.assert_allclose(sums[valid], 1.0, atol=1e-3)
     assert np.all(sums[~valid] == 0.0)
+
+
+# (S, W, n, B, T, D, per-peak LocErr): K1 on both mappings at K = 8, 16,
+# 32, 64 (warp and block; A = 2, 3, 4 unrolled and 8 at run time), and
+# on the block mapping at K = 243 and 1024 (S = 2 and 32)
+K1_MAPPING_CASES = [
+    (2, 3, 1, 300, 9, 2, False), (2, 4, 1, 300, 9, 1, True),
+    (2, 5, 1, 300, 9, 3, False), (2, 6, 1, 300, 9, 2, True),
+    (3, 3, 1, 200, 9, 2, False), (2, 4, 2, 200, 9, 2, False),
+    (2, 6, 3, 100, 9, 2, False), (3, 5, 1, 200, 9, 2, True),
+    (2, 10, 1, 40, 12, 2, False), (32, 2, 1, 40, 6, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,B,T,D,per_peak", K1_MAPPING_CASES)
+def test_cuda_k1_mappings_match_plain(cuda, S, W, n, B, T, D, per_peak):
+    args = _case(cuda, S, n, B, T, D, per_peak=per_peak)
+    kw = dict(window=W, nb_substeps=n, min_len=2)
+    want = forward_kernel.forward_plain(*args, **kw)
+    data_, tabs = _kernel_args(args, W, n)
+    K = S ** W
+    for mapping in (("warp", "block") if K <= 64 else ("block",)):
+        got = forward_kernel.launch(data_, tabs, 2, mapping=mapping)
+        again = forward_kernel.launch(data_, tabs, 2, mapping=mapping)
+        assert torch.equal(got, again)        # no atomics: repeatable
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+    if K > 64:
+        with pytest.raises(ValueError, match="K <= 64"):
+            forward_kernel.launch(data_, tabs, 2, mapping="warp")
+
+
+# (S, W, B, T, D, per-peak LocErr): K4 on both mappings at K = 8, 16, 32,
+# 64 (warp and block), 243 and 1024 (block), each with its stash of
+# fusion weights in shared memory and in global scratch; T = 2 and a
+# window wider than the tracks among them
+K4_MAPPING_CASES = [
+    (2, 3, 300, 9, 2, False), (2, 4, 300, 12, 1, True),
+    (2, 5, 300, 20, 2, False), (2, 6, 200, 14, 3, True),
+    (3, 3, 200, 10, 2, False), (4, 3, 100, 9, 2, True),
+    (5, 2, 100, 8, 3, False), (2, 5, 50, 2, 2, False),
+    (2, 6, 50, 4, 2, True), (3, 5, 100, 12, 2, False),
+    (2, 10, 30, 14, 2, True), (4, 5, 20, 8, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,B,T,D,per_peak", K4_MAPPING_CASES)
+def test_cuda_k4_mappings_match_plain(cuda, S, W, B, T, D, per_peak):
+    args = _case(cuda, S, 1, B, T, D, per_peak=per_peak)
+    kw = dict(window=W, min_len=2)
+    logl0, preds0 = predict_kernel.predict_plain(*args, **kw)
+    data_, tabs = _kernel_args(args, W)
+    K = S ** W
+    for mapping in (("warp", "block") if K <= 64 else ("block",)):
+        for stash in ("smem", "global"):
+            logl, preds = predict_kernel.launch(data_, tabs, 2, S, W,
+                                                mapping=mapping, stash=stash)
+            again = predict_kernel.launch(data_, tabs, 2, S, W,
+                                          mapping=mapping, stash=stash)
+            assert torch.equal(logl, again[0])
+            assert torch.equal(preds, again[1])
+            torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
+            torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_predict_layout(cuda):
+    """K4's team as its source defines it (``extrack_predict_layout``): a
+    warp's slice holds two publish areas, two buffers of a track's rows and
+    its length and flag, the softmax and the groups' masses; a block's
+    holds the publish areas, the closings' and the harvest's warp partials,
+    the softmax and the masses; the stash of fusion weights is T-W rows of
+    K floats, padded to an odd length."""
+    import ctypes
+    from extrack_tpu_torch.ops import cuda_lib
+    lib = cuda_lib.library()
+    for S, W, T, D in ((2, 5, 10, 2), (2, 6, 20, 3), (3, 3, 9, 1),
+                       (3, 5, 20, 2), (2, 10, 14, 2), (2, 5, 4, 2)):
+        K, G = S ** W, S ** (W - 1)
+        out = (ctypes.c_longlong * 3)()
+        stash = 4 * max(T - W, 0) * (K | 1)
+        for warps in ((1, 0) if K <= 64 else (0,)):
+            assert lib.extrack_predict_layout(T, D, K, S, W, warps,
+                                              ctypes.addressof(out)) == 0
+            pub = 2 * (2 + 2 * D) * K
+            fixed = (pub + 4 * T * D + 4 + K + G if warps
+                     else pub + 128 + W * S * 32 + K + G)
+            assert tuple(out) == (32 if warps else -(-K // 32) * 32,
+                                  4 * fixed, stash)
+        assert lib.extrack_predict_layout(T, D, 81, 3, 4, 1,
+                                          ctypes.addressof(out)) != 0
 
 
 # every hist_kernel<D, NT> instantiation (NT = 128, 256, 512, 1024

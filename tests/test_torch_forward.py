@@ -1,0 +1,320 @@
+"""The algorithms of K1 (csrc/forward.cu) and K4 (csrc/predict.cu) as the
+kernels run them (csrc/walk.cuh), rendered in float64 torch on the CPU and
+held to the plain engine, which tests/test_torch_engine.py and
+tests/test_torch_predict.py hold to the JAX package.
+
+The rendition follows the kernels step for step: the fusion in base 2 with
+each step's normalizers as rsqrt factors; the one-pass closings (an online
+log-sum-exp in base 2 per lane of a warp, then the lanes' largest maximum
+and their rescaled sums); and K4's posteriors without a history: each
+fusion that drops a frame stashes its weights, and at the last frame the
+register's softmax is carried back through them (group masses, then member
+masses in place of the weights, whose sums over the groups are the dropped
+frames' posteriors), while the frames still in the window come from the
+slots' digit codes.  In float64 every operation is exact to rounding, so
+it matches the engine within 1e-10.  Also here: the pure-Python ``plan``
+and ``grid`` that map a K1 or K4 launch onto the card.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from extrack_tpu_torch.core import engine, tables
+from extrack_tpu_torch.ops import forward_kernel
+
+LOG2E = 1.0 / math.log(2.0)
+NEG_BIG = -1e30
+
+
+def _case(S, n, B, T, D, seed):
+    """Tracks of lengths 0..T (0, 1, 2 and T among them), per-peak
+    localization errors and a forbidden transition, in float64."""
+    rng = np.random.default_rng(seed)
+    xs = torch.tensor(rng.normal(0, 0.06, (B, T, D)).cumsum(1))
+    lengths = rng.integers(0, T + 1, B)
+    lengths[:4] = (T, 2, 1, 0)
+    isbl = torch.tensor((rng.random(B) < 0.5).astype(np.float64))
+    rates = torch.tensor(rng.uniform(0.03, 0.2, (S, S)))
+    rates[0, -1] = 0.0                                # forbidden
+    tb = tables.build_tables(
+        torch.linspace(0.0, 0.12, S, dtype=torch.float64),
+        torch.tensor(0.02, dtype=torch.float64),
+        torch.full((S,), 1.0 / S, dtype=torch.float64), rates,
+        torch.tensor(0.1, dtype=torch.float64), 0.02, cell_dims=(0.8,),
+        nb_substeps=n)
+    tb = tb._replace(loc_err2=torch.tensor(rng.uniform(1e-4, 9e-4,
+                                                       (B, T, D))))
+    return xs, torch.tensor(lengths), isbl, tb
+
+
+def _slot_tables(tb, W, n, D):
+    """The kernels' ten tables in float64 (forward_kernel.kernel_inputs
+    without the cast to float32): the per-step 2 pi constant folded into
+    lt."""
+    lp0, sig2v, lt, lsurv, end, _ = forward_kernel.build_slot_tables(
+        tb, W, n)
+    lt = lt - 0.5 * D * math.log(2 * math.pi)
+    return ([lp0, sig2v, lt, lsurv, end, sig2v],
+            forward_kernel.build_next_tables(tb, W, n))
+
+
+def _lse2_add(acc, g, r):
+    """lse2_add: a term r * 2^g into (mx, s), rescaling on a new max."""
+    mx, s = acc
+    if g > mx:
+        return g, s * 2.0 ** (mx - g) + r
+    return mx, s + r * 2.0 ** (g - mx)
+
+
+def _team_lse2(lanes):
+    """warp_lse2: the lanes' largest maximum, each lane's sum rescaled to
+    it once, then summed."""
+    m = max(mx for mx, _ in lanes)
+    return m, sum(s * 2.0 ** (mx - m) for mx, s in lanes)
+
+
+def _warp_lse2(terms):
+    """The one-pass closing of a warp: lane l accumulates the terms of its
+    slots l, l+32, ... in order, then the lanes combine."""
+    lanes = [(NEG_BIG, 0.0)] * 32
+    for k, g, r in terms:
+        lanes[k % 32] = _lse2_add(lanes[k % 32], g, r)
+    return _team_lse2(lanes)
+
+
+def walk_rendition(xs, lengths, isbl, tb, W, n=1, min_len=3, preds=False):
+    """logL (B,) and, with ``preds``, the posteriors (B, T, S) as K1 / K4
+    compute them, track by track."""
+    B, T, D = xs.shape
+    S = tb.nb_states
+    K, A = S ** W, S ** n
+    G = K // A
+    (lp0, s20, lt, lsurv, endv, sig2v), (ltn, s2n, lsn, endn) = _slot_tables(
+        tb, W, n, D)
+    l2s = tb.loc_err2.expand(B, T, D)
+    cl2pi = 0.5 * D * math.log(2 * math.pi)
+    bits = max(S - 1, 1).bit_length()
+    codes = [sum(((k // S ** i) % S) << (bits * i) for i in range(W))
+             for k in range(K)]
+    slot = torch.arange(K)
+    logl = torch.zeros(B, dtype=torch.float64)
+    post = torch.zeros((B, T, S), dtype=torch.float64)
+    for b in range(B):
+        L = min(int(lengths[b]), T)
+        if L < 2:
+            continue
+        x, l2, bl = xs[b], l2s[b], float(isbl[b])
+        m = x[0].expand(K, D).clone()
+        s2 = l2[0] + s20[:, None]
+        lp = lp0.clone()
+        stash = torch.full((max(T - W, 0), K), float("nan"),
+                           dtype=torch.float64)
+        for t in range(1, L):
+            # update2: the slot's Gaussian update against frame t
+            tot = l2[t] + s2
+            quad = (0.5 * (x[t] - m) ** 2 / tot).sum(1)
+            prod = tot.prod(1)
+            nm = (m * l2[t] + x[t] * s2) / tot
+            tl = l2[t] * s2 / tot
+            if t == L - 1:
+                fin = LOG2E * (lp + bl * endv - quad)
+                r = prod ** -0.5
+                mx, s = _warp_lse2(zip(range(K), fin.tolist(), r.tolist()))
+                if L == 2:
+                    logl[b] = (mx + math.log2(s)) * math.log(2) - cl2pi
+                if preds:
+                    p = 2.0 ** (fin - mx) * r / s
+                    nh = L - W
+                    for i in range(max(-nh, 0), W):
+                        dig = torch.tensor([(c >> (bits * i)) & ((1 << bits)
+                                                                 - 1)
+                                            for c in codes])
+                        for st in range(S):
+                            post[b, nh + i, st] = p[dig == st].sum()
+                    # carry the softmax back through the stashed weights:
+                    # group masses (slot c = a*G + g is g's child a), then
+                    # member c = g*A + o of the step gets mass_g * w_{g,o}
+                    q = p
+                    for f in range(nh - 1, -1, -1):
+                        mass = q.view(A, G).sum(0)
+                        stash[f] = mass.repeat_interleave(A) * stash[f]
+                        q = stash[f]
+                    if nh > 0:
+                        post[b, :nh] = stash[:nh].view(nh, G, A).sum(1)
+                break
+            gate = 1.0 if t + 1 >= min_len else 0.0
+            if t == L - 2:
+                # the look-ahead closing, each child once
+                terms = []
+                for k in range(K):
+                    for a in range(A):
+                        totn = s2n[k, a] + tl[k] + l2[t + 1]
+                        quad_n = (0.5 * (x[t + 1] - nm[k]) ** 2 / totn).sum()
+                        c = ltn[k, a] + gate * lsn[k, a] + bl * endn[k, a]
+                        g = LOG2E * (lp[k] - quad[k] + c - quad_n)
+                        rr = (prod[k] * (2 * math.pi) ** D
+                              * totn.prod()) ** -0.5
+                        terms.append((k, float(g), float(rr)))
+                mx, s = _warp_lse2(terms)
+                logl[b] = (mx + math.log2(s)) * math.log(2) - cl2pi
+                if not preds:
+                    break
+            # publish2 / group2: base-2 weights of each group's members
+            base = (LOG2E * (lp - quad)).view(G, A)
+            rq = (prod ** -0.5).view(G, A)
+            gmx = base.max(1, keepdim=True).values
+            w = 2.0 ** (base - gmx) * rq
+            sw = w.sum(1, keepdim=True)
+            w = w / sw                                 # (G, A) weights
+            mf = torch.einsum("go,god->gd", w, nm.view(G, A, D))
+            tf = torch.einsum("go,god->gd", w, tl.view(G, A, D))
+            lse = (gmx[:, 0] + torch.log2(sw[:, 0])) * math.log(2)
+            g_of = slot % G                            # child c = a*G + g
+            m = mf[g_of]
+            s2 = sig2v[:, None] + tf[g_of]
+            lp = lse[g_of] + lt + gate * lsurv
+            fd = t + 1 - W
+            if preds and fd >= 0:
+                # member g*A + o's fusion weight, for the backward pass
+                stash[fd] = w.reshape(K)
+    return (logl, post) if preds else logl
+
+
+@pytest.mark.parametrize("S,W,T,D", [
+    (2, 5, 10, 2), (2, 3, 9, 1), (2, 4, 3, 3), (3, 3, 8, 2), (2, 6, 5, 2),
+    (4, 2, 7, 2), (3, 4, 9, 3)])
+def test_k4_rendition_matches_engine(S, W, T, D):
+    # group-level frame-major history with the fusion's own weights,
+    # digit-masked window harvest; T = 3 and W >= T give tracks shorter
+    # than the window, and every case has 0-, 1- and 2-frame tracks
+    xs, lengths, isbl, tb = _case(S, 1, 9, T, D, seed=S * 100 + W * 10 + T)
+    logl, post = walk_rendition(xs, lengths, isbl, tb, W, preds=True)
+    l0, p0 = engine.forward(xs, lengths, isbl, tb, window=W, min_len=3,
+                            return_preds=True)
+    torch.testing.assert_close(logl, l0, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(post, p0, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("S,W,n,T,D", [
+    (2, 6, 1, 9, 2), (2, 4, 2, 8, 1), (3, 3, 1, 7, 3), (2, 5, 3, 6, 2),
+    (2, 3, 1, 2, 2), (5, 2, 1, 6, 2)])
+def test_k1_one_pass_closing_matches_engine(S, W, n, T, D):
+    # the look-ahead closing in one pass (online max and sum per lane, a
+    # butterfly merge), at one to three sub-steps; T = 2 closes on the
+    # register itself
+    xs, lengths, isbl, tb = _case(S, n, 9, T, D, seed=S * 100 + W * 10 + n)
+    logl = walk_rendition(xs, lengths, isbl, tb, W, n=n, min_len=2)
+    want = engine.forward(xs, lengths, isbl, tb, window=W, nb_substeps=n,
+                          min_len=2)
+    torch.testing.assert_close(logl, want, rtol=1e-10, atol=1e-10)
+
+
+def test_lse2_lanes_without_slots_add_nothing():
+    # lanes without a slot stay at (kNegBig, 0) and must not turn a real
+    # sum into NaN; a floored log weight (-1e15 in base 2) stays finite
+    assert _team_lse2([(NEG_BIG, 0.0)] * 32) == (NEG_BIG, 0.0)
+    assert _team_lse2([(NEG_BIG, 0.0)] * 31 + [(3.0, 2.0)]) == (3.0, 2.0)
+    mx, s = _lse2_add(_lse2_add((NEG_BIG, 0.0), -1.4e15, 1.0), 2.0, 0.5)
+    assert (mx, s) == (2.0, 0.5)
+
+
+def _occupancy(fixed, hist, regs_warps=24, K=0):
+    """Blocks an SM keeps resident on an H100-like SM: 228 KB of shared
+    memory (1 KB reserved a block) and ``regs_warps`` warps by the
+    registers; a team is a warp (warps > 0) or a block of K slots."""
+    def occ(warps, smem):
+        block = max(warps, 1) * (fixed + (hist if smem else 0))
+        by_regs = regs_warps // (warps or -(-K // 32))
+        return min(by_regs, (228 * 1024) // (block + 1024))
+    return occ
+
+
+def _team_bytes(K, S, D, T, W, warp=True):
+    """A K4 team's shared bytes besides its stash of fusion weights, and
+    the stash's (csrc/walk.cuh walk_layout; the card test
+    test_predict_layout reads the kernel's own)."""
+    G = K // S
+    pub = 2 * (2 + 2 * D) * K
+    fixed = pub + (4 * T * D + 4 if warp else 128 + W * S * 32) + K + G
+    return 4 * fixed, 4 * max(T - W, 0) * (K | 1)
+
+
+@pytest.mark.parametrize("S,W,T,plan", [
+    (2, 3, 10, (4, True)), (2, 4, 10, (4, True)), (2, 5, 10, (4, True)),
+    (3, 3, 20, (4, True)), (2, 5, 20, (4, True)), (2, 6, 20, (4, True)),
+    (2, 6, 40, (4, False)), (2, 5, 60, (4, False))])
+def test_walk_plan_warp_mapping_up_to_64_slots(S, W, T, plan):
+    # every register up to 64 slots walks one track a warp.  The stash
+    # stays in shared memory while 24 warps an SM still fit there; at
+    # K = 64, T = 40 a warp's slice is 14 KB and at K = 32, T = 60 11 KB:
+    # global scratch keeps more tracks resident
+    K = S ** W
+    fixed, stash = _team_bytes(K, S, 2, T, W)
+    occ = _occupancy(fixed, stash)
+    pl = forward_kernel.plan(K, fixed, stash, 227 * 1024, occ)
+    assert pl == forward_kernel.Plan(*plan)
+    assert forward_kernel.plan(K, fixed, stash, 227 * 1024, occ,
+                               stash="smem").stash_smem
+    assert forward_kernel.plan(K, fixed, stash, 227 * 1024, occ,
+                               stash="global") == forward_kernel.Plan(4, False)
+    # K1 has no stash: four warps a block
+    assert forward_kernel.plan(K, fixed, 0, 227 * 1024, None) == (
+        forward_kernel.Plan(4, False))
+
+
+@pytest.mark.parametrize("S,W,T,smem", [
+    (3, 5, 10, True), (2, 10, 14, True), (4, 4, 9, True), (3, 4, 10, True),
+    (3, 4, 30, False)])
+def test_walk_plan_block_mapping_above_64_slots(S, W, T, smem):
+    # one block a track above 64 slots.  At K = 81 and T = 30 the stash
+    # would cost 7 of 21 resident blocks, so it goes to global scratch; at
+    # T = 10 it costs none, and at K = 243, 256 and 1024 the registers bind
+    # first
+    K = S ** W
+    fixed, stash = _team_bytes(K, S, 2, T, W, warp=False)
+    occ = _occupancy(fixed, stash, regs_warps=64, K=K)
+    assert forward_kernel.plan(K, fixed, stash, 227 * 1024, occ) == (
+        forward_kernel.Plan(0, smem))
+    assert forward_kernel.plan(K, fixed, 0, 227 * 1024, None) == (
+        forward_kernel.Plan(0, False))
+    with pytest.raises(ValueError, match="K <= 64"):
+        forward_kernel.plan(K, fixed, stash, 227 * 1024, occ,
+                            mapping="warp")
+    assert forward_kernel.plan(32, fixed, stash, 227 * 1024, occ,
+                               mapping="block", stash="smem") == (
+        forward_kernel.Plan(0, True))
+
+
+def test_walk_plan_stash_in_global_scratch_when_it_does_not_fit():
+    # T = 2000 at K = 32: one warp's stash alone is 263 KB
+    fixed, stash = _team_bytes(32, 2, 2, 2000, 5)
+    occ = _occupancy(fixed, stash)
+    assert forward_kernel.plan(32, fixed, stash, 227 * 1024, occ) == (
+        forward_kernel.Plan(4, False))
+    with pytest.raises(ValueError, match="does not fit"):
+        forward_kernel.plan(32, fixed, stash, 227 * 1024, occ, stash="smem")
+    # K = 243 at T = 200: it fits, but one block an SM against eight
+    fixed, stash = _team_bytes(243, 3, 2, 200, 5, warp=False)
+    assert forward_kernel.plan(243, fixed, stash, 227 * 1024,
+                               _occupancy(fixed, stash, 64, 243)) == (
+        forward_kernel.Plan(0, False))
+
+
+def test_walk_grid():
+    # resident blocks fill the card, no more blocks than the tracks need
+    pl = forward_kernel.Plan(4, True)
+    assert forward_kernel.grid(1 << 20, pl, 132, 6, 4096) == (792, 0)
+    assert forward_kernel.grid(5, pl, 132, 6, 4096) == (2, 0)
+    # K1 (no history) and the block mapping: one track a block
+    assert forward_kernel.grid(1 << 20, forward_kernel.Plan(0, False), 132,
+                               3) == (396, 0)
+    # global scratch: one history a warp, capped by the budget
+    nblk, nbytes = forward_kernel.grid(1 << 20, forward_kernel.Plan(4, False),
+                                       132, 6, 4096)
+    assert (nblk, nbytes) == (792, 792 * 4 * 4096)
+    big = 1 << 22
+    nblk, nbytes = forward_kernel.grid(1 << 20, forward_kernel.Plan(4, False),
+                                       132, 6, big)
+    assert nblk == (1 << 30) // (4 * big) and nbytes == nblk * 4 * big

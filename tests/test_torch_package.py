@@ -39,12 +39,14 @@ def test_kernel_sources_present():
     names = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu*"))
     assert names == ["common.cuh", "dual.cuh", "forward.cu", "grad.cu",
                      "grad.cuh", "hist.cu", "hvp.cu", "predict.cu",
-                     "refine.cu", "topk.cu"]
+                     "refine.cu", "topk.cu", "walk.cuh"]
     # every C entry point the wrappers call has a ctypes signature
     assert set(cuda_lib._SIGNATURES) == {
         "extrack_forward", "extrack_grad", "extrack_hvp", "extrack_predict",
         "extrack_hist", "extrack_refine", "extrack_topk",
-        "extrack_grad_occupancy", "extrack_hvp_occupancy",
-        "extrack_hist_layout", "extrack_refine_layout"}
+        "extrack_forward_occupancy", "extrack_grad_occupancy",
+        "extrack_hvp_occupancy", "extrack_predict_occupancy",
+        "extrack_predict_layout", "extrack_hist_layout",
+        "extrack_refine_layout"}
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert cuda_lib.library_path().parent == cuda_lib.BUILD_DIR

@@ -4,18 +4,21 @@
 (csrc/hist.cu), K6 (csrc/refine.cu) and, where both checkouts have it, K7
 (csrc/topk.cu) for two checkouts of the port, alternated on one card.
 
-    python3 tools/kernel_ab.py PARENT_ROOT CHANGE_ROOT [--pairs N] [--k1]
+    python3 tools/kernel_ab.py PARENT_ROOT CHANGE_ROOT [--pairs N]
+        [--k1 | --k4]
 
 Each side runs in a process of its own, importing ``extrack_tpu_torch``
 from its root (and building that root's kernels there), at
 ``chip_smoke.py``'s bench shape: 2 states, W=6, D=2, 2^20 tracks of
 lengths 3..10 in four length buckets, f32, and K2 also with 3 states at
 W=5 (K=243, a 3-state fit's default window); K3 on tangents drawn from one
-seed; K4 at W=5, K5 and K6 at W=7 (K=128) as ``chip_smoke.py`` times
-them (``tools/walk_profile.py``'s launches), K6 also with 3 states at W=5
-(K=243); K7 with a register of M=512 sequences, as ``chip_smoke.py`` times
-it, bare (``chip_smoke.topk_bare``: the fused kernel where the checkout
-has it, else the kernel that writes backpointers) and through
+seed; K4 at W=5, and on the main path's 93,963 simulated tracks bare and
+through ``predict_Bs``; K5 and K6 at W=7 (K=128) as ``chip_smoke.py``
+times them (``tools/walk_profile.py``'s launches), K6 also with 3 states
+at W=5 (K=243); K7 with a register of M=512 sequences, as
+``chip_smoke.py`` times it, bare (``chip_smoke.topk_bare``: the fused
+kernel where the checkout has it, else the kernel that writes
+backpointers) and through
 ``segment_topk`` (with the decode), and both again on 2^20 tracks of
 lengths 3..30 at M=128.  Over PAIRS
 rounds, round i
@@ -26,8 +29,13 @@ process prints the median of REPS timed passes (CUDA events, after two
 warm-up passes); the script prints one line per process, then each side's
 median over its rounds and the card's name and power limit.  ``--k1``
 times K1 alone (a check of a kernel whose source did not change, without
-the other kernels' heat in the same process) and then compares
-``forward_kernel<2>``'s SASS in the two builds (``cuobjdump -sass``).
+the other kernels' heat in the same process) and then compares the SASS of
+K1's instantiation at the bench shape (D=2, K=64) in the two builds
+(``cuobjdump -sass``): ``forward_kernel<2>`` in a checkout that predates
+the warp mapping, ``walk_warp_kernel<2, 2, 2, false>`` after it, so across
+that change the two differ by construction.  ``--k4`` times K4 alone: at
+the bench shape, on the main path's tracks bare, and through
+``predict_Bs`` (host work included, so more passes).
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
 PAIRS = 5
@@ -54,24 +64,47 @@ def load_module(name: str, path: Path):
     return mod
 
 
-def k4_runner(bench, tb):
-    """Bare K4 launches over the bench buckets at W=5."""
+def k4_main_path(smoke, dev):
+    """Two functions on the main path's tracks (``chip_smoke.SIM``, 93,963
+    tracks in four length buckets, T = 5, 9, 14, 20): bare K4 launches over
+    the buckets at W=5, and ``predict.predict_Bs`` (frame_len=5), the entry
+    point, host work included."""
+    import torch
+
+    from extrack_tpu_torch import data, params, predict, simulate
+    from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import forward_kernel, predict_kernel
+    tracks, _, _ = simulate.sim_fov(**smoke.SIM)
+    values = {"LocErr": 0.02, "D0": 0.0, "D1": 0.08, "F0": 0.5, "F1": 0.5,
+              "p01": 0.1, "p10": 0.1, "pBL": 0.1}
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    Ds, Fs, rates, loc_err, pBL = params.extract_arrays(
+        values, 2, device=dev, dtype=torch.float32)
+    tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, 0.02,
+                             cell_dims=(0.5,))
+    min_len = data.default_min_len(
+        np.concatenate([data.host_lengths(b) for b in buckets]))
     args = []
-    for b in bench:
+    for b in buckets:
         d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
                                                b.is_bleached, tb, 5, 1)
         args.append((d, [t.detach() for t in tabs]))
 
-    def run():
+    def bare():
         for d, tabs in args:
-            predict_kernel.launch(d, tabs, 3, 2, 5)
-    return run
+            predict_kernel.launch(d, tabs, min_len, 2, 5)
+
+    def entry():
+        predict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                           nb_states=2, frame_len=5)
+    return bare, entry
 
 
-def worker(root: str, k1_only: bool) -> None:
-    """Time bare K1, K2, K3 and K7 launches of the package under
-    ``root`` (K1 alone with ``k1_only``)."""
+def worker(root: str, only: str) -> None:
+    """Time bare launches of every kernel of the package under ``root``
+    (``only`` "--k1": K1 alone; "--k4": K4 alone, at the bench shape and
+    on the main path, bare and through ``predict_Bs``)."""
     sys.path.insert(0, root)
     import torch
 
@@ -102,9 +135,18 @@ def worker(root: str, k1_only: bool) -> None:
         for d, tabs in args:
             forward_kernel.launch(d, tabs, 3)
 
-    if k1_only:
+    if only == "--k1":
         print(json.dumps({"K1": smoke.cuda_ms(k1, 2 * REPS, warmup=5),
                           "lib": str(cuda_lib.library_path())}), flush=True)
+        return
+    walk = load_module("walk", HERE / "tools" / "walk_profile.py")
+    if only == "--k4":
+        bare, entry = k4_main_path(smoke, dev)
+        print(json.dumps({
+            "K4": smoke.cuda_ms(walk.k4_runner(smoke, bench, dev, 2, 5),
+                                2 * REPS, warmup=5),
+            "K4 main path": smoke.cuda_ms(bare, 2 * REPS, warmup=5),
+            "predict_Bs": smoke.cuda_ms(entry, REPS, warmup=3)}), flush=True)
         return
 
     def k2():
@@ -140,8 +182,11 @@ def worker(root: str, k1_only: bool) -> None:
            "K2 S=3 W=5": smoke.cuda_ms(k2_243, REPS, warmup=2),
            "K3": smoke.cuda_ms(k3, REPS, warmup=2)}
     del args3
-    walk = load_module("walk", HERE / "tools" / "walk_profile.py")
-    out["K4"] = smoke.cuda_ms(k4_runner(bench, tb), REPS, warmup=2)
+    out["K4"] = smoke.cuda_ms(walk.k4_runner(smoke, bench, dev, 2, 5), REPS,
+                              warmup=2)
+    bare, entry = k4_main_path(smoke, dev)
+    out["K4 main path"] = smoke.cuda_ms(bare, REPS, warmup=2)
+    out["predict_Bs"] = smoke.cuda_ms(entry, REPS_K7, warmup=1)
     out["K5"] = smoke.cuda_ms(walk.k5_runner(smoke, bench, dev), REPS,
                               warmup=2)
     out["K6"] = smoke.cuda_ms(walk.k6_runner(smoke, bench, dev, 2, 7), REPS_K6,
@@ -164,13 +209,15 @@ def worker(root: str, k1_only: bool) -> None:
 
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2], sys.argv[3:4] == ["--k1"])
+        worker(sys.argv[2], (sys.argv[3:4] or [""])[0])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--pairs", type=int, default=PAIRS)
-    ap.add_argument("--k1", action="store_true")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--k1", action="store_true")
+    only.add_argument("--k4", action="store_true")
     a = ap.parse_args()
     sides = {"parent": a.parent, "change": a.change}
     times = {"parent": [], "change": []}
@@ -180,7 +227,7 @@ def main() -> int:
                      else ("change", "parent")):
             out = subprocess.run(
                 [sys.executable, __file__, "--worker", sides[side],
-                 *(["--k1"] if a.k1 else [])],
+                 *(["--k1"] if a.k1 else ["--k4"] if a.k4 else [])],
                 capture_output=True, text=True)
             if out.returncode != 0:
                 print(out.stdout + out.stderr, file=sys.stderr)
@@ -201,7 +248,7 @@ def main() -> int:
         print(f"{k}: change lower in {lower} of {a.pairs} pairs")
     if a.k1:
         sass = {side: forward_sass(lib) for side, lib in libs.items()}
-        print(f"forward_kernel<2> SASS: {len(sass['parent'])} and "
+        print(f"K1 (D=2, K=64) SASS: {len(sass['parent'])} and "
               f"{len(sass['change'])} instructions, identical: "
               f"{sass['parent'] == sass['change']}")
     card = subprocess.run(
@@ -211,16 +258,22 @@ def main() -> int:
     return 0
 
 
+# K1's instantiation at the bench shape: the block-per-track kernel, or the
+# warp mapping's (D=2, two slots a lane, A=2, no posteriors)
+K1_BENCH = ("_ZN7extrack14forward_kernelILi2E",
+            "_ZN7extrack16walk_warp_kernelILi2ELi2ELi2ELb0E")
+
+
 def forward_sass(lib: str) -> list:
-    """The instructions of forward_kernel<2> in a built library, without
-    addresses and encodings."""
+    """The instructions of K1's bench-shape instantiation in a built
+    library, without addresses and encodings."""
     sys.path.insert(0, str(HERE))
     from extrack_tpu_torch.ops import cuda_lib
     tool = Path(cuda_lib.find_nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     body = next((b for b in text.split("Function : ")
-                 if b.startswith("_ZN7extrack14forward_kernelILi2E")), "")
+                 if b.startswith(K1_BENCH)), "")
     return [line.split("*/")[1].strip() for line in body.splitlines()
             if line.strip().startswith("/*") and "*/" in line
             and line.split("*/")[1].strip()]

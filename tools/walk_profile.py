@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Where K5's (csrc/hist.cu) and K6's (csrc/refine.cu) time goes, at
+"""Where the walks of K1 (csrc/forward.cu), K4 (csrc/predict.cu), K5
+(csrc/hist.cu) and K6 (csrc/refine.cu) spend their time, at
 ``chip_smoke.py``'s bench shape: 2^20 tracks of lengths 3..10 in four
-length buckets, D=2, f32, a register of W=7 frames (K=128) at 2 states
-(``--states``/``--window`` change K6's register, e.g. 3 states at W=5 or
-6; K5 stays at its bench register).
+length buckets, D=2, f32.  K1 runs a register of W=6 frames (K=64), K4
+W=5 (K=32), K5 and K6 W=7 (K=128), each as ``chip_smoke.py`` times it;
+``--states``/``--window`` change K1's, K4's and K6's register (e.g. 3
+states at W=5), ``--lengths LO:HI`` the track lengths (e.g. 15:20, the
+main path's longest bucket).
 
-    python3 tools/walk_profile.py [--kernel k5|k6|both]
+    python3 tools/walk_profile.py [--kernel k1|k4|k5|k6|both]
     python3 tools/walk_profile.py --split [--kernel ...]
 
 Without ``--split`` it times REPS bare launches over the four buckets by
-CUDA events, then prints nvcc's register and spill report of every
-``hist_kernel`` and ``refine_kernel`` instantiation.  With ``--split`` it
-builds the kernels with their clock64 marks (``cuda_lib.enable_profile``),
-runs the same launches and prints each section's share of the cycles that
-the tracks' lead threads spent (summed over all tracks; the marks cost a
-little, so read shares, not times).  The last line is the card's name and
-power limit.
+CUDA events, then prints nvcc's register and spill report of the chosen
+kernels' instantiations.  With ``--split`` it builds the kernels with
+their clock64 marks (``cuda_lib.enable_profile``), runs the same launches
+and prints each section's share of the cycles that the tracks' lead
+threads spent (summed over all tracks; the marks cost a little, so read
+shares, not times).  ``both`` is K5 and K6.  The last line is the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
 REPS = 5
 SECTIONS = {
+    "forward": ["track set-up", "update and fusion", "closing", "", "",
+                "barriers"],
+    "predict": ["track set-up", "update and fusion", "closing",
+                "fusion-weight stash", "harvest", "barriers"],
     "refine": ["suffix scan (fusions)", "suffix stash writes",
                "precision forms", "pair loop", "finish reductions",
                "prefix scan (fusions)"],
@@ -38,6 +45,52 @@ SECTIONS = {
              "run/hist transport", "the step's barrier",
              "harvest"],
 }
+
+
+def bench_tables(dev, S: int):
+    """The bench shape's model tables at S states (chip_smoke.py's at 2)."""
+    from extrack_tpu_torch.core import tables
+    f32 = dict(dtype=torch.float32, device=dev)
+    rates = torch.full((S, S), 0.1, **f32)
+    rates.fill_diagonal_(0.0)
+    return tables.build_tables(
+        torch.linspace(0.0, 0.08, S, **f32), torch.tensor(0.02, **f32),
+        torch.full((S,), 1.0 / S, **f32), rates, torch.tensor(0.1, **f32),
+        0.02, cell_dims=(0.5,))
+
+
+def k1_runner(smoke, bench, dev, S: int, W: int):
+    """Bare K1 launches over the bench buckets (``chip_smoke.py`` phase 4
+    at S=2, W=6)."""
+    from extrack_tpu_torch.ops import forward_kernel
+    tb = bench_tables(dev, S)
+    args = []
+    for b in bench:
+        d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                               b.is_bleached, tb, W, 1)
+        args.append((d, [t.detach() for t in tabs]))
+
+    def run():
+        for d, tabs in args:
+            forward_kernel.launch(d, tabs, 3)
+    return run
+
+
+def k4_runner(smoke, bench, dev, S: int, W: int):
+    """Bare K4 launches over the bench buckets (``chip_smoke.py`` phase 6
+    at S=2, W=5)."""
+    from extrack_tpu_torch.ops import forward_kernel, predict_kernel
+    tb = bench_tables(dev, S)
+    args = []
+    for b in bench:
+        d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                               b.is_bleached, tb, W, 1)
+        args.append((d, [t.detach() for t in tabs]))
+
+    def run():
+        for d, tabs in args:
+            predict_kernel.launch(d, tabs, 3, S, W)
+    return run
 
 
 def k5_runner(smoke, bench, dev):
@@ -88,10 +141,14 @@ def k6_runner(smoke, bench, dev, S: int, W: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--split", action="store_true")
-    ap.add_argument("--kernel", choices=("k5", "k6", "both"), default="both")
+    ap.add_argument("--kernel", choices=("k1", "k4", "k5", "k6", "both"),
+                    default="both")
     ap.add_argument("--states", type=int, default=2)
-    ap.add_argument("--window", type=int, default=7)
+    ap.add_argument("--window", type=int, default=0,
+                    help="K1 6, K4 5, K6 7 unless given")
+    ap.add_argument("--lengths", default="3:10")
     a = ap.parse_args()
+    lo, hi = (int(v) for v in a.lengths.split(":"))
     from extrack_tpu_torch.ops import cuda_lib
     if a.split:
         cuda_lib.enable_profile()
@@ -102,13 +159,22 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     lib_path = cuda_lib.build()
     cuda_lib.library()
-    bench = smoke.bench_buckets(dev)
+    bench = smoke.bench_buckets(dev, T=hi, lo=lo)
     runs = []
+    if a.kernel == "k1":
+        W = a.window or 6
+        runs.append(("forward", f"K1 S={a.states} W={W} lengths {lo}..{hi}",
+                     k1_runner(smoke, bench, dev, a.states, W)))
+    if a.kernel == "k4":
+        W = a.window or 5
+        runs.append(("predict", f"K4 S={a.states} W={W} lengths {lo}..{hi}",
+                     k4_runner(smoke, bench, dev, a.states, W)))
     if a.kernel in ("k5", "both"):
         runs.append(("hist", "K5 S=2 W=7", k5_runner(smoke, bench, dev)))
     if a.kernel in ("k6", "both"):
-        runs.append(("refine", f"K6 S={a.states} W={a.window}",
-                     k6_runner(smoke, bench, dev, a.states, a.window)))
+        W = a.window or 7
+        runs.append(("refine", f"K6 S={a.states} W={W}",
+                     k6_runner(smoke, bench, dev, a.states, W)))
     for name, what, run in runs:
         if a.split:
             run()
@@ -120,16 +186,22 @@ def main() -> int:
             print(f"{what}, profile build: {ms:.3f} ms per pass (marks "
                   f"included); lead-thread cycles over {REPS} passes:")
             for sec, c in zip(SECTIONS[name], cyc):
-                print(f"  {c / total * 100:6.2f}%  {c:16d}  {sec}")
+                if sec:
+                    print(f"  {c / total * 100:6.2f}%  {c:16d}  {sec}")
         else:
             ms = smoke.cuda_ms(run, REPS, warmup=2)
             print(f"{what}: {ms:.3f} ms per pass (CUDA events, median of "
                   f"{REPS})")
     if not a.split:
         keep = False
+        # K1 and K4 are the walk kernels with PRED false and true
+        names = {"k1": ("walk_", "Lb0E"), "k4": ("walk_", "Lb1E"),
+                 "k5": ("hist_",), "k6": ("refine_",),
+                 "both": ("hist_", "refine_")}[a.kernel]
         for line in lib_path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry" in line:
-                keep = "hist_kernel" in line or "refine_kernel" in line
+                keep = (all(n in line for n in names) if a.kernel in
+                        ("k1", "k4") else any(n in line for n in names))
             if keep and ("registers" in line or "spill" in line
                          or "Compiling entry" in line):
                 print("  ptxas " + line.strip())
