@@ -90,12 +90,35 @@ Phases (each prints its lines; a failed check exits non-zero):
    fused in, the plain version's time on the 2^20 tracks at T=10, M=512,
    and, for reading, ``torch.topk`` on one step's (2^20, 1024) scores;
    K7's bound as the live register needs it (``topk_ops``) beside the
-   count of all M rows.
+   count of all M rows;
+10. variable dt (K1..K4 reading the streamed (B, T-1, P) displacement
+   variances): K1's logL, K2's value and every table gradient (the
+   stream's, through ``sig2``, included), K3's Hessian-vector products and
+   K4's posteriors against their plain versions in float64 (on the same
+   float32 inputs) at phases 1-2's six
+   configurations (2 states at W=6, 3 at W=5, two sub-steps, D = 1 and 3,
+   a T = 2 bucket, ragged lengths with padded dt tails), each with a
+   per-step (T-1, P) and a per-track (B, T-1, P) table (per-track only at
+   T = 2, where a per-step table is one row: a constant dt), K2's stream
+   cotangent exactly 0 past each track's length, K3's Hessian columns on
+   per-track dt buckets, and a stream of a constant dt against the
+   constant-dt kernels; then the mixed-frame-rate main path: ``sim_fov``
+   at dt 0.02 (seed 0) and 0.05 (seed 1), 50,000 tracks each, merged into
+   one length-keyed dict with a per-track dt dict; per bucket the
+   objective's value and z-gradient against the plain version; then
+   ``fit.param_fitting(dt=dt_dict, compute_errors=True)`` with its K2 and
+   K3 launch counts, a value-only objective (K1), and
+   ``predict.predict_Bs(dt=dt_dict)`` with its K4 launches, each bucket
+   against the plain version; the variable-dt kernels' times at the bench
+   shape with per-track dt uniform in 0.01..0.03, bare and through their
+   wrappers, beside their plain versions and the constant-dt times.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
 operations its walk does on this run's lengths (``walk_ops``) over
-67 TFLOP/s f32 (one H100 SXM's published peaks at 700 W).
+67 TFLOP/s f32 (one H100 SXM's published peaks at 700 W); a variable-dt
+variant also reads its (B, T-1, P) stream (and K2 and K3 write its
+cotangent).
 
 The line before the last is a JSON object describing each kernel: ``ms``
 is the bare launches' time, ``wrapper_ms`` the same work through the
@@ -121,6 +144,11 @@ import torch
 TOL_K1 = dict(rtol=2e-5, atol=2e-4)     # per-track logL, f32 vs f32 plain
 TOL_K2_VALUE = dict(rtol=2e-5, atol=0.0)
 TOL_K2_GRAD = dict(rtol=2e-3, atol=2e-3)
+# phase 10: a cotangent with an entry per track (a per-track sig2 table, a
+# per-peak l2) is a sum of per-slot terms as large as the field's largest
+# entry that cancel; their f32 rounding adds this fraction of max|ref| to
+# the absolute tolerance (the plain version in f32 rounds them as much)
+TOL_K2_TRACK_FLOOR = 2e-6
 # objective z-gradient at ~10^5 tracks, each component against its own
 # size; the fixed atol is the f32 rounding of a sum over 10^5 tracks
 TOL_Z_GRAD = dict(rtol=2e-3, atol=0.5)
@@ -192,6 +220,11 @@ TOPK_CASES = [(2, 1, 512, 2, 3001, 10, False, "large"),
 SIM = dict(nb_tracks=100_000, max_track_len=20, min_track_len=3,
            Ds=(0.0, 0.08), LocErr=0.02, dt=0.02, pBL=0.1, cell_dims=(0.5,),
            seed=0)
+# phase 10's mixed frame rates: two movies of SIM's cells, at 50 and 20
+# frames a second
+SIM_DT = [dict(SIM, nb_tracks=50_000, dt=0.02, seed=0),
+          dict(SIM, nb_tracks=50_000, dt=0.05, seed=1)]
+BENCH_DT = (0.01, 0.03)       # phase 10's per-track intervals at the bench
 FIT_ITERS = 200
 BENCH_TRACKS = 1 << 20
 PLAIN_CHUNK = 1 << 17         # tracks per plain autograd call (memory)
@@ -218,9 +251,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def parity_case(S, W, n, seed, dev, B=3001, T=10, D=2, per_peak=False):
+def parity_case(S, W, n, seed, dev, B=3001, T=10, D=2, per_peak=False,
+                dt=None):
     """Random tracks (lengths 2..T, isBL on) and f32 tables with one
-    forbidden transition, built on ``dev``."""
+    forbidden transition, built on ``dev``.  ``dt`` "step" or "track":
+    variable dt, a (T-1,) or (B, T-1) table of intervals uniform in
+    0.01..0.05 (a track's steps from its length on at the median, as
+    data.from_dict pads them); else 0.02."""
     from extrack_tpu_torch.core import tables
     rng = np.random.default_rng(seed)
     lengths = rng.integers(2, T + 1, B)
@@ -232,8 +269,17 @@ def parity_case(S, W, n, seed, dev, B=3001, T=10, D=2, per_peak=False):
     rates = torch.tensor(rng.uniform(0.02, 0.2, (S, S)), **f32)
     rates[0, 1] = 0.0                                  # forbidden: log floor
     Fs = torch.full((S,), 1.0 / S, **f32)
+    dts = 0.02
+    if dt is not None:
+        rng_dt = np.random.default_rng(seed + 7)
+        d = rng_dt.uniform(0.01, 0.05, (B, T - 1) if dt == "track"
+                           else T - 1)
+        if dt == "track":
+            d[np.arange(T - 1)[None, :] >= lengths[:, None] - 1] = (
+                np.median(d))
+        dts = torch.tensor(d, **f32)
     tb = tables.build_tables(Ds, torch.tensor(0.02, **f32), Fs, rates,
-                             torch.tensor(0.1, **f32), 0.02,
+                             torch.tensor(0.1, **f32), dts,
                              cell_dims=(0.5,), nb_substeps=n)
     if per_peak:
         tb = tb._replace(loc_err2=torch.tensor(
@@ -259,9 +305,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     return float(np.median(times))
 
 
-def bench_buckets(dev, T=10, seed=0, lo=3):
+def bench_buckets(dev, T=10, seed=0, lo=3, dt_range=None):
     """BENCH_TRACKS 2-state random walks, lengths lo..T, length-bucketed on
-    ``dev``."""
+    ``dev``; with ``dt_range`` (lo, hi) each track's intervals are drawn
+    uniform in it (a per-track dt dict, from its own seed), else none."""
     from extrack_tpu_torch import data
     rng = np.random.default_rng(seed)
     lengths = rng.integers(lo, T + 1, BENCH_TRACKS)
@@ -273,7 +320,12 @@ def bench_buckets(dev, T=10, seed=0, lo=3):
         steps = rng.normal(0, 1, (nb, L, 2)) * sig
         tracks[str(L)] = (steps.cumsum(1)
                           + rng.normal(0, 0.02, (nb, L, 2))).astype(np.float32)
-    return data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+    dts = None
+    if dt_range is not None:
+        rng_dt = np.random.default_rng(seed + 1)
+        dts = {k: rng_dt.uniform(*dt_range, (v.shape[0], v.shape[1] - 1))
+               for k, v in tracks.items()}
+    return data.from_dict_bucketed(tracks, max_buckets=4, dt=dts, device=dev,
                                    dtype=torch.float32)
 
 
@@ -455,12 +507,26 @@ def bound(nbytes: float, ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def check_forward(tag, pos, lens, isbl, tb, **kw) -> float:
-    """K1's per-track logL against ``forward_plain``'s at TOL_K1; prints one
+def float64(pos, isbl, tb):
+    """Float64 copies of a case's positions, flags and tables: the plain
+    version's inputs where it is the float64 reference (phase 10)."""
+    from extrack_tpu_torch.core import tables
+    return (pos.double(), isbl.double(),
+            tables.ModelTables(*(f.double() for f in tb)))
+
+
+def check_forward(tag, pos, lens, isbl, tb, ref64=False, **kw) -> float:
+    """K1's per-track logL against ``forward_plain``'s at TOL_K1 (with
+    ``ref64`` the plain version in float64 on the same inputs); prints one
     line, exits on a disagreement, returns the largest absolute error."""
     from extrack_tpu_torch.ops import forward_kernel
     got = forward_kernel.forward(pos, lens, isbl, tb, **kw)
-    want = forward_kernel.forward_plain(pos, lens, isbl, tb, **kw)
+    if ref64:
+        p64, i64, tb64 = float64(pos, isbl, tb)
+        want = forward_kernel.forward_plain(p64, lens, i64, tb64, **kw)
+        got = got.double()
+    else:
+        want = forward_kernel.forward_plain(pos, lens, isbl, tb, **kw)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
@@ -473,24 +539,41 @@ def check_forward(tag, pos, lens, isbl, tb, **kw) -> float:
     return err
 
 
-def check_table_grads(tag, pos, lens, isbl, tb, **kw) -> float:
+def check_table_grads(tag, pos, lens, isbl, tb, ref64=False, **kw) -> float:
     """K2's value and every table cotangent against the plain version's at
-    TOL_K2_VALUE / TOL_K2_GRAD; prints one line per table, exits on a
+    TOL_K2_VALUE / TOL_K2_GRAD (with ``ref64`` the plain version in
+    float64 on the same inputs); prints one line per table, exits on a
     disagreement, returns the largest absolute error."""
     from extrack_tpu_torch.ops import grad_kernel
     v, g = grad_kernel.value_and_table_grads(pos, lens, isbl, tb, **kw)
-    v0, g0 = grad_kernel.value_and_table_grads_plain(pos, lens, isbl, tb,
-                                                     **kw)
+    if ref64:
+        p64, i64, tb64 = float64(pos, isbl, tb)
+        v0, g0 = grad_kernel.value_and_table_grads_plain(p64, lens, i64,
+                                                         tb64, **kw)
+        _, g32 = grad_kernel.value_and_table_grads_plain(pos, lens, isbl, tb,
+                                                         **kw)
+        v, g = v.double(), {k: x.double() for k, x in g.items()}
+    else:
+        v0, g0 = grad_kernel.value_and_table_grads_plain(pos, lens, isbl,
+                                                         tb, **kw)
     torch.cuda.synchronize()
     ok = torch.allclose(v, v0, **TOL_K2_VALUE)
     worst = abs(float(v - v0))
     for name in g:
-        good = torch.allclose(g[name], g0[name], **TOL_K2_GRAD)
+        scale = float(g0[name].abs().max())
+        per_track = ref64 and g0[name].ndim == 3 and (
+            g0[name].shape[0] == pos.shape[0] > 1)
+        tol = dict(TOL_K2_GRAD, atol=TOL_K2_GRAD["atol"]
+                   + (TOL_K2_TRACK_FLOOR * scale if per_track else 0.0))
+        good = torch.allclose(g[name], g0[name], **tol)
         e = float((g[name] - g0[name]).abs().max())
         worst = max(worst, e)
+        e32 = (float((g32[name].double() - g0[name]).abs().max())
+               if ref64 else 0.0)
+        also = (f"; plain f32 {e32:.3e}, atol {tol['atol']:.3e}" if ref64
+                else "")
         log(f"{tag}: d/d{name} {tuple(g[name].shape)} max_abs_err {e:.3e} "
-            f"(|ref|max {float(g0[name].abs().max()):.3e}) "
-            f"{'ok' if good else 'FAIL'}")
+            f"(|ref|max {scale:.3e}{also}) {'ok' if good else 'FAIL'}")
         ok &= good
     log(f"{tag}: value {float(v):.6f} vs plain {float(v0):.6f} "
         f"{'ok' if ok else 'FAIL'}")
@@ -641,9 +724,10 @@ def check_hessian(tag, H, H0) -> float:
     return err
 
 
-def hvp_case(S, W, n, per_peak, dev, seed, T=10):
+def hvp_case(S, W, n, per_peak, dev, seed, T=10, dt=False):
     """Length-bucketed random tracks and a spec with p01 fixed at 0 (and
-    an affine per-peak LocErr when ``per_peak``) for a K3 parity case."""
+    an affine per-peak LocErr when ``per_peak``) for a K3 parity case;
+    ``dt``: per-track intervals uniform in 0.01..0.05 (a dt dict)."""
     from extrack_tpu_torch import data, params
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, T + 1, HVP_TRACKS)
@@ -654,9 +738,14 @@ def hvp_case(S, W, n, per_peak, dev, seed, T=10):
         if nb:
             tracks[str(L)] = rng.normal(0, 0.05, (nb, L, 2)).cumsum(1)
             errs[str(L)] = rng.uniform(0.01, 0.03, (nb, L, 2))
+    dts = None
+    if dt:
+        rng_dt = np.random.default_rng(seed + 1)
+        dts = {k: rng_dt.uniform(0.01, 0.05, (v.shape[0], v.shape[1] - 1))
+               for k, v in tracks.items()}
     buckets = data.from_dict_bucketed(
         tracks, max_buckets=2, input_loc_err=errs if per_peak else None,
-        device=dev, dtype=torch.float32)
+        dt=dts, device=dev, dtype=torch.float32)
     spec = params.generate_params(
         nb_states=S, D_max=1.0, LocErr_type=4 if per_peak else 1,
         slope_offsets_estimates=(1.0, 0.001))
@@ -664,6 +753,111 @@ def hvp_case(S, W, n, per_peak, dev, seed, T=10):
     kw = dict(cell_dims=(0.5,), nb_substeps=n, window=W, min_len=2,
               input_loc_err=per_peak)
     return buckets, spec, kw
+
+
+def merged_movies(sims):
+    """``sim_fov`` once per configuration of ``sims``, merged into one
+    length-keyed dict of tracks, a per-track dt dict (each track's steps at
+    its movie's dt) and the simulated states."""
+    from extrack_tpu_torch import simulate
+    tracks, dts, states = {}, {}, {}
+    for cfg in sims:
+        tr, st, _ = simulate.sim_fov(**cfg)
+        for k, v in tr.items():
+            d = np.full((v.shape[0], v.shape[1] - 1), cfg["dt"])
+            tracks[k] = np.concatenate([tracks[k], v]) if k in tracks else v
+            dts[k] = np.concatenate([dts[k], d]) if k in dts else d
+            states[k] = (np.concatenate([states[k], st[k]]) if k in states
+                         else st[k])
+    return tracks, dts, states
+
+
+def stream_zero_past_lengths(tag, pos, lens, isbl, tb, W, n) -> None:
+    """K2's stream cotangent is exactly 0 in every row from a track's
+    length on (and nonzero somewhere before); exits otherwise."""
+    from extrack_tpu_torch.ops import forward_kernel, grad_kernel
+    d, tabs = forward_kernel.kernel_inputs(pos, lens, isbl, tb, W, n)
+    _, _, cts = grad_kernel.launch(d, [t.detach() for t in tabs], 2)
+    T = pos.shape[1]
+    dead = torch.arange(T - 1, device=pos.device)[None, :] >= (
+        lens.long()[:, None] - 1)
+    ok = (len(cts) == 11 and bool((cts[10][dead] == 0).all())
+          and bool((cts[10][~dead] != 0).any())
+          and all(bool((cts[i] == 0).all()) for i in (1, 5, 7)))
+    log(f"{tag}: stream cotangent rows past each length exactly 0 "
+        f"({int(dead.sum())} rows), s20/sig2v/s2n cotangents 0 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"K2's stream cotangent at {tag}")
+
+
+def check_table_hvp(tag, pos, lens, isbl, tb, seed, **kw) -> float:
+    """K3's Hessian-vector product along one random tangent of every
+    table, against the plain double backward in float64 on the same inputs
+    at TOL_H (each field's atol a fraction of its max); prints one line,
+    exits on a disagreement, returns the largest absolute error."""
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import hvp_kernel
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dot = tables.ModelTables(*(
+        1e-2 * torch.randn(f.shape, generator=gen).to(f.device)
+        for f in tb))
+    _, _, hv = hvp_kernel.table_hvp(pos, lens, isbl, tb, dot, **kw)
+    p64, i64, tb64 = float64(pos, isbl, tb)
+    _, _, hv0 = hvp_kernel.table_hvp_plain(
+        p64, lens, i64, tb64, tables.ModelTables(*(f.double() for f in dot)),
+        **kw)
+    torch.cuda.synchronize()
+    ok, worst = True, 0.0
+    for name in hv0:
+        scale = float(hv0[name].abs().max())
+        hv[name] = hv[name].double()
+        e = float((hv[name] - hv0[name]).abs().max())
+        worst = max(worst, e)
+        ok &= torch.allclose(hv[name], hv0[name], rtol=TOL_H["rtol"],
+                             atol=TOL_H["atol"] * scale) and bool(
+            torch.isfinite(hv[name]).all())
+    log(f"{tag}: H.v of every table max_abs_err {worst:.3e} (tol rtol "
+        f"{TOL_H['rtol']}, atol {TOL_H['atol']} max|H.v| a field) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"K3 disagrees with table_hvp_plain at {tag}")
+    return worst
+
+
+def check_predict(tag, pos, lens, isbl, tb, W, runs) -> float:
+    """K4's logL and posteriors against ``predict_plain`` in float64 on the
+    same inputs at TOL_K4_LOGL / TOL_K4_PREDS, through ``predict`` and each
+    (mapping, stash) of ``runs``; prints one line each, exits on a
+    disagreement, returns the largest absolute error."""
+    from extrack_tpu_torch.ops import forward_kernel, predict_kernel
+    S = tb.nb_states
+    p64, i64, tb64 = float64(pos, isbl, tb)
+    logl0, preds0 = predict_kernel.predict_plain(p64, lens, i64, tb64,
+                                                 window=W, min_len=2)
+    d, tabs = forward_kernel.kernel_inputs(pos, lens, isbl, tb, W, 1)
+    tabs = [t.detach() for t in tabs]
+    worst = 0.0
+    for mapping, stash in [(None, None)] + list(runs):
+        if mapping is None:
+            logl, preds = predict_kernel.predict(pos, lens, isbl, tb,
+                                                 window=W, min_len=2)
+        else:
+            logl, preds = predict_kernel.launch(d, tabs, 2, S, W,
+                                                mapping=mapping, stash=stash)
+        torch.cuda.synchronize()
+        logl, preds = logl.double(), preds.double()
+        e = max(float((logl - logl0).abs().max()),
+                float((preds - preds0).abs().max()))
+        worst = max(worst, e)
+        ok = (torch.allclose(logl, logl0, **TOL_K4_LOGL)
+              and torch.allclose(preds, preds0, **TOL_K4_PREDS))
+        how = f"{mapping} mapping, stash in {stash}" if mapping else "predict"
+        log(f"{tag} ({how}): logL and preds max_abs_err {e:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K4 disagrees with predict_plain at {tag} ({how})")
+    return worst
 
 
 def main() -> int:
@@ -709,6 +903,16 @@ def main() -> int:
                     "extrack_tpu/ops/pallas_refine.py:108"),
         "K7": entry("topk_hist", "topk.cu",
                     "extrack_tpu/ops/pallas_topk.py:113"),
+        # variable dt: the same kernels reading the streamed displacement
+        # variances (the TPU kernels' streamed-sig2 paths)
+        "K1 dt": entry("forward_loglik_variable_dt", "forward.cu",
+                       "extrack_tpu/ops/pallas_engine.py:218"),
+        "K2 dt": entry("loglik_grad_variable_dt", "grad.cu",
+                       "extrack_tpu/ops/pallas_grad.py:549"),
+        "K3 dt": entry("loglik_hvp_variable_dt", "hvp.cu",
+                       "extrack_tpu/ops/pallas_hvp.py:78"),
+        "K4 dt": entry("posteriors_variable_dt", "predict.cu",
+                       "extrack_tpu/ops/pallas_predict.py:65"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -752,8 +956,8 @@ def main() -> int:
             spills.append(entry_name)
     if spills:
         fail(f"K1/K4/K5/K6 instantiations of <= 512 threads spill: {spills}")
-    log("phase 0: no K1, K4, K5 or K6 instantiation of <= 512 threads "
-        "spills")
+    log("phase 0: no K1, K4 (constant or variable dt), K5 or K6 "
+        "instantiation of <= 512 threads spills")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -1646,6 +1850,9 @@ def main() -> int:
         f"ms); bound {b30:.4f} ms ({by30}), all-rows count {b30_old:.4f} ms "
         f"({by30_old}) [{card}]")
 
+    del bench30
+    phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3, ms4)
+
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
     log(card)
@@ -1654,6 +1861,321 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
+            ms4):
+    """Variable dt: parity of K1..K4 with the streamed table, the
+    mixed-frame-rate main path, and the variable-dt kernels' times (``ms``,
+    ``ms3``, ``ms4``: the constant-dt bare times of phases 4-6)."""
+    from extrack_tpu_torch import data, fit, params, predict
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
+                                       hvp_kernel, predict_kernel)
+    t10 = time.time()
+    # parity, kernel against the plain version in float64 on the same
+    # (float32) inputs: the f32 plain version's own rounding of the
+    # per-peak l2 cotangents (sums of terms up to 1e4 that cancel) reaches
+    # the tolerance, the kernel's stays below it.  Per-step and per-track
+    # tables
+    for S, W, n, D, B, T in PARITY_CASES:
+        # a per-step table at T = 2 has one row: a constant dt
+        for kind in ("step", "track") if T > 2 else ("track",):
+            pos, lens, isbl, tb = parity_case(
+                S, W, n, 500 + S * 10 + W + n, dev, B=B, T=T, D=D,
+                per_peak=(S == 3), dt=kind)
+            if not forward_kernel.classify_sig2(tb.sig2, T):
+                fail(f"phase 10: S={S} W={W} T={T} {kind} dt not variable")
+            kw = dict(window=W, nb_substeps=n, min_len=2)
+            tag = (f"phase 10: {{}} S={S} W={W} n={n} D={D} B={B} T={T} "
+                   f"{kind} dt")
+            errs["K1 dt"].append(check_forward(tag.format("K1"), pos, lens,
+                                               isbl, tb, ref64=True, **kw))
+            errs["K2 dt"].append(check_table_grads(tag.format("K2"), pos,
+                                                   lens, isbl, tb,
+                                                   ref64=True, **kw))
+            stream_zero_past_lengths(tag.format("K2"), pos, lens, isbl, tb,
+                                     W, n)
+            errs["K3 dt"].append(check_table_hvp(tag.format("K3"), pos, lens,
+                                                 isbl, tb, 600 + W, **kw))
+            if n == 1:
+                runs = [(m, st) for m in (("warp", "block") if S ** W <= 64
+                                          else ("block",))
+                        for st in ("smem", "global")]
+                errs["K4 dt"].append(check_predict(tag.format("K4"), pos,
+                                                   lens, isbl, tb, W, runs))
+    # K3's Hessian columns on per-track dt buckets
+    for S, W, n, per_peak in HVP_CASES[:3]:
+        buckets, spec, kw = hvp_case(S, W, n, per_peak, dev,
+                                     700 + S * 10 + W + n, dt=True)
+        z = spec.to_unconstrained()
+        H = fit.hessian_hvp_columns(buckets, spec, z, 0.02, S, **kw)
+        H0 = plain_hessian_columns(buckets, spec, z, 0.02, S, **kw)
+        errs["K3 dt"].append(check_hessian(
+            f"phase 10: K3 S={S} W={W} n={n} per-peak={per_peak} per-track "
+            f"dt T={[b.max_len for b in buckets]}", H, H0))
+    # a stream of the constant table gives the constant-dt kernels' logL
+    for S, W, n in ((2, 6, 1), (3, 5, 1), (2, 4, 2)):
+        pos, lens, isbl, tb = parity_case(S, W, n, 800 + S + W, dev)
+        d, tabs = forward_kernel.kernel_inputs(pos, lens, isbl, tb, W, n)
+        tabs = [t.detach() for t in tabs]
+        streamed = tabs + [forward_kernel.sig2_stream(tb.sig2, *pos.shape[:2])]
+        a = forward_kernel.launch(d, streamed, 2)
+        b = forward_kernel.launch(d, tabs, 2)
+        e = float((a - b).abs().max())
+        ok = torch.allclose(a, b, rtol=1e-6, atol=1e-5)
+        log(f"phase 10: K1 S={S} W={W} n={n}: a stream of the constant "
+            f"table against the constant-dt kernel: max_abs_err {e:.3e} "
+            f"(rtol 1e-6, atol 1e-5) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("K1 on a constant stream differs from constant-dt K1")
+
+    log(f"phase 10: parity {time.time() - t10:.1f} s")
+    # the mixed-frame-rate main path
+    t0 = time.time()
+    tracks, dts, states = merged_movies(SIM_DT)
+    n_tr = sum(len(v) for v in tracks.values())
+    log(f"phase 10: simulated {n_tr} tracks (dt 0.02 and 0.05, "
+        f"{len(SIM_DT)} movies) in {time.time() - t0:.1f} s")
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, dt=dts,
+                                      device=dev, dtype=torch.float32)
+    spec = params.generate_params(
+        nb_states=2, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+        D_max=3.0, estimated_transition_rates=0.1)
+    z0 = torch.tensor(spec.to_unconstrained(), dtype=torch.float32,
+                      device=dev, requires_grad=True)
+    min_len = data.default_min_len(
+        np.concatenate([data.host_lengths(b) for b in buckets]))
+    for b in buckets:
+        obj = fit.make_objective([b], spec, 0.0, 2, cell_dims=(0.5,),
+                                 min_len=min_len)
+        v_k = obj(z0)
+        (g_k,) = torch.autograd.grad(v_k, z0)
+        saved = grad_kernel.neg_log_likelihood
+        grad_kernel.neg_log_likelihood = grad_kernel.neg_log_likelihood_plain
+        try:
+            v_p = obj(z0)
+            (g_p,) = torch.autograd.grad(v_p, z0)
+        finally:
+            grad_kernel.neg_log_likelihood = saved
+        ok = (torch.allclose(v_k, v_p, **TOL_K2_VALUE)
+              and torch.allclose(g_k, g_p, **TOL_Z_GRAD))
+        e = float((g_k - g_p).abs().max())
+        errs["K2 dt"].append(abs(float((v_k - v_p).detach())))
+        log(f"phase 10: bucket T={b.max_len} B={b.batch_size}: objective "
+            f"{float(v_k.detach()):.4f} vs plain {float(v_p.detach()):.4f}, "
+            f"z-gradient "
+            f"max_abs_err {e:.3e} (value {TOL_K2_VALUE}, z-grad "
+            f"{TOL_Z_GRAD}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"mixed-frame-rate objective at bucket T={b.max_len}")
+
+    reset_counts()
+    evals = []
+    t0 = time.time()
+    res = fit.param_fitting(
+        tracks, dts, nb_states=2, compute_errors=True, max_iter=FIT_ITERS,
+        verbose=0, cell_dims=(0.5,),
+        callback=lambda i, v, vals: evals.append((v, time.time())))
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    k1, k2, k3 = (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
+                  hvp_kernel.LAUNCHES)
+    plain = plain_calls()
+    n_free = len(res.params.free_names())
+    log(f"phase 10: fit with error bars on mixed frame rates {t_fit:.2f} s: "
+        f"{res.n_evals} evals ({res.message}) {evals[-1][1] - t0:.2f} s, "
+        f"then the error bars {t0 + t_fit - evals[-1][1]:.2f} s; logL "
+        f"{-evals[0][0]:.4f} -> {res.logl:.4f}; K1 launches {k1}, K2 "
+        f"launches {k2}, K3 launches {k3}, plain calls {plain} [{card}]")
+    if k2 == 0 or k3 != n_free * len(buckets) or plain != 0:
+        fail(f"mixed-frame-rate fit: K2 launches {k2}, K3 launches {k3} "
+             f"(want {n_free} x {len(buckets)}), plain calls {plain}")
+    # D1 = D0 + D1_minus_D0 is derived: its error bar by the delta method
+    # on the fit's Hessian (K3 again, after the counts above)
+    z_fit = res.params.to_unconstrained()
+    H = fit.hessian_hvp_exact(buckets, res.params, z_fit, 0.0, 2,
+                              cell_dims=(0.5,), window=fit.default_window(2),
+                              min_len=min_len)
+    J = torch.autograd.functional.jacobian(
+        lambda z_: res.params.resolve(res.params.from_unconstrained(z_))[
+            "D1"] * torch.ones((), dtype=torch.float64),
+        torch.tensor(z_fit, dtype=torch.float64)).numpy()
+    se1 = float(np.sqrt(max(J @ np.linalg.pinv(H) @ J, 0.0)))
+    d1 = res.params["D1"].value
+    log(f"phase 10: fitted D1 = {d1:.5f} +/- {se1:.5f} (true 0.08); "
+        + ", ".join(f"{k}={p.value:.5g}"
+                    + (f" +/- {res.std_errors[k]:.3g}"
+                       if k in res.std_errors else "")
+                    for k, p in res.params.items()))
+    if not (res.logl > -evals[0][0] and math.isfinite(res.logl)
+            and math.isfinite(se1) and se1 > 0):
+        fail("the mixed-frame-rate fit did not improve or has no error bar")
+    # the value-only objective (K1) at the fit, against K2's value there
+    obj = fit.make_objective(buckets, spec, 0.0, 2, cell_dims=(0.5,))
+    z_t = torch.tensor(z_fit, dtype=torch.float32, device=dev,
+                       requires_grad=True)
+    v2 = float(obj(z_t).detach())
+    reset_counts()
+    with torch.no_grad():
+        v = float(obj(z_t))
+    k1, plain = forward_kernel.LAUNCHES, plain_calls()
+    log(f"phase 10: value-only objective at the fit {v:.4f} (K2's "
+        f"{v2:.4f}): K1 launches {k1}, plain calls {plain}")
+    if k1 != len(buckets) or plain != 0 or abs(v - v2) > 2e-5 * abs(v2):
+        fail("mixed-frame-rate value-only objective")
+    kinfo["K1 dt"]["launches"] = k1
+    kinfo["K2 dt"]["launches"] = k2
+    kinfo["K3 dt"]["launches"] = k3
+
+    values = {k: p.value for k, p in res.params.items()}
+    reset_counts()
+    t0 = time.time()
+    out = predict.predict_Bs(tracks, dts, values, cell_dims=(0.5,),
+                             nb_states=2, frame_len=5)
+    torch.cuda.synchronize()
+    t_pred = time.time() - t0
+    k4, plain = predict_kernel.LAUNCHES, plain_calls()
+    log(f"phase 10: predict_Bs on {n_tr} mixed-frame-rate tracks "
+        f"{t_pred:.2f} s; K4 launches {k4}, plain calls {plain}")
+    if k4 != len(buckets) or plain != 0:
+        fail(f"mixed-frame-rate annotation: K4 launches {k4}, plain {plain}")
+    kinfo["K4 dt"]["launches"] = k4
+    Ds, Fs, rates, loc_err, pBL = params.extract_arrays(
+        values, 2, device=dev, dtype=torch.float32)
+    hits = total = 0
+    for b in buckets:
+        tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, b.dt,
+                                 cell_dims=(0.5,))
+        args = (b.positions, b.lengths, b.is_bleached, tb)
+        logl, preds = predict_kernel.predict(*args, window=5,
+                                             min_len=min_len)
+        logl0, preds0 = predict_kernel.predict_plain(*args, window=5,
+                                                     min_len=min_len)
+        got = data.to_dict(b, preds0)
+        e_d = max(float(np.abs(out[k] - got[k]).max()) for k in got)
+        ok = (torch.allclose(logl, logl0, **TOL_K4_LOGL)
+              and torch.allclose(preds, preds0, **TOL_K4_PREDS)
+              and e_d <= TOL_K4_PREDS["atol"] + TOL_K4_PREDS["rtol"])
+        errs["K4 dt"].append(float((preds - preds0).abs().max()))
+        log(f"phase 10: bucket T={b.max_len} B={b.batch_size}: logL "
+            f"max_abs_err {float((logl - logl0).abs().max()):.3e}, preds "
+            f"max_abs_err {float((preds - preds0).abs().max()):.3e}, "
+            f"predict_Bs vs plain {e_d:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"mixed-frame-rate predict_Bs bucket T={b.max_len}")
+        for k in got:
+            hits += int((out[k].argmax(-1) == states[k]).sum())
+            total += states[k].size
+    log(f"phase 10: frames whose most probable state is the simulated one: "
+        f"{hits}/{total} = {hits / total:.4f} (for reading, not a gate)")
+    del tracks, buckets, out
+    log(f"phase 10: parity and main path {time.time() - t10:.1f} s")
+
+    # times at the bench shape, per-track dt uniform in BENCH_DT
+    bench = bench_buckets(dev, dt_range=BENCH_DT)
+    n_bench = sum(b.batch_size for b in bench)
+    bench_lens = np.concatenate([data.host_lengths(b) for b in bench])
+    f32 = dict(dtype=torch.float32, device=dev)
+    tbs = [tables.build_tables(
+        torch.tensor([0.0, 0.08], **f32), torch.tensor(0.02, **f32),
+        torch.tensor([0.5, 0.5], **f32),
+        torch.tensor([[0.0, 0.1], [0.1, 0.0]], **f32),
+        torch.tensor(0.1, **f32), b.dt, cell_dims=(0.5,)) for b in bench]
+    kw = dict(window=6, nb_substeps=1, min_len=3)
+
+    def inputs(W):
+        out = []
+        for b, tb in zip(bench, tbs):
+            d, tabs = forward_kernel.kernel_inputs(
+                b.positions, b.lengths, b.is_bleached, tb, W, 1)
+            out.append((d, [t.detach() for t in tabs]))
+        return out
+
+    args6, args5 = inputs(6), inputs(5)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    tb_dots = [tables.ModelTables(*(
+        1e-3 * torch.randn(f.shape, generator=gen).to(dev) for f in tb))
+        for tb in tbs]
+    args3 = []
+    for b, tb, tb_dot, (d, tabs) in zip(bench, tbs, tb_dots, args6):
+        def args_of(*fs, _b=b):
+            d_, t_ = forward_kernel.kernel_inputs(
+                _b.positions, _b.lengths, _b.is_bleached,
+                tables.ModelTables(*fs), 6, 1)
+            return (d_[1], *t_)
+        _, dots = torch.autograd.functional.jvp(args_of, tuple(tb),
+                                                tuple(tb_dot))
+        args3.append((d, tabs, [t.contiguous() for t in dots]))
+
+    def each(fn, chunk=None):
+        def run():
+            for b, tb, dot in zip(bench, tbs, tb_dots):
+                step = chunk or b.batch_size
+                for i in range(0, b.batch_size, step):
+                    sl = slice(i, i + step)
+                    fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl],
+                       tb._replace(sig2=tb.sig2[sl]), dot._replace(
+                           sig2=dot.sig2[sl]))
+        return run
+
+    runs = {
+        "K1 dt": (lambda: [forward_kernel.launch(d, t, 3) for d, t in args6],
+                  each(lambda p, l, i, tb, _: forward_kernel.forward(
+                      p, l, i, tb, **kw)),
+                  each(lambda p, l, i, tb, _: forward_kernel.forward_plain(
+                      p, l, i, tb, **kw))),
+        "K2 dt": (lambda: [grad_kernel.launch(d, t, 3) for d, t in args6],
+                  each(lambda p, l, i, tb, _:
+                       grad_kernel.value_and_table_grads(p, l, i, tb, **kw)),
+                  each(lambda p, l, i, tb, _:
+                       grad_kernel.value_and_table_grads_plain(
+                           p, l, i, tb, **kw), PLAIN_CHUNK)),
+        "K3 dt": (lambda: [hvp_kernel.launch(d, t, dd[0], dd[1:], 3)
+                           for d, t, dd in args3],
+                  each(lambda p, l, i, tb, dot: hvp_kernel.table_hvp(
+                      p, l, i, tb, dot, **kw)),
+                  each(lambda p, l, i, tb, dot: hvp_kernel.table_hvp_plain(
+                      p, l, i, tb, dot, **kw), PLAIN_HVP_CHUNK)),
+        "K4 dt": (lambda: [predict_kernel.launch(d, t, 3, 2, 5)
+                           for d, t in args5],
+                  each(lambda p, l, i, tb, _: predict_kernel.predict(
+                      p, l, i, tb, window=5, min_len=3)),
+                  each(lambda p, l, i, tb, _: predict_kernel.predict_plain(
+                      p, l, i, tb, window=5, min_len=3), PLAIN_CHUNK)),
+    }
+    const = {"K1 dt": ms["K1"], "K2 dt": ms["K2"], "K3 dt": ms3,
+             "K4 dt": ms4}
+    rows = sum(b.positions.numel() for b in bench) * 4
+    stream = sum(b.batch_size * (b.max_len - 1) * 4 for b in bench) * 4
+    nbytes = {"K1 dt": 2 * rows + 12 * n_bench + stream,
+              "K2 dt": 3 * rows + 12 * n_bench + 2 * stream,
+              "K3 dt": rows * 5 + 16 * n_bench + 4 * stream,
+              "K4 dt": 2 * rows + 12 * n_bench + stream
+              + sum(b.batch_size * b.max_len for b in bench) * 2 * 4}
+    nops = {"K1 dt": walk_ops(bench_lens, 64, 2, 2, "K1"),
+            "K2 dt": walk_ops(bench_lens, 64, 2, 2, "K2"),
+            "K3 dt": walk_ops(bench_lens, 64, 2, 2, "K3"),
+            "K4 dt": walk_ops(bench_lens, 32, 2, 2, "K4", T=10, W=5, S=2)}
+    for k, (bare, wrapped, plain_run) in runs.items():
+        info = kinfo[k]
+        info["ms"] = cuda_ms(bare, 10)
+        info["wrapper_ms"] = cuda_ms(wrapped, 5)
+        if k == "K3 dt":
+            info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
+        else:
+            with torch.no_grad() if k in ("K1 dt", "K4 dt") else (
+                    torch.enable_grad()):
+                info["plain_ms"] = cuda_ms(plain_run, 2)
+        info["bound_ms"], info["bound_by"] = bound(nbytes[k], nops[k])
+        log(f"phase 10: {k} {n_bench} tracks ({len(bench)} buckets), "
+            f"per-track dt in {BENCH_DT}: kernel {info['ms']:.3f} ms = "
+            f"{info['ms'] / const[k]:.3f}x constant dt's {const[k]:.3f} ms "
+            f"(with its wrapper {info['wrapper_ms']:.3f} ms); plain "
+            f"{info['plain_ms']:.3f} ms; bound {info['bound_ms']:.4f} ms "
+            f"({info['bound_by']}; the stream {stream / 1e6:.1f} MB) "
+            f"[{card}]")
+    log(f"phase 10: {time.time() - t10:.1f} s")
 
 
 if __name__ == "__main__":

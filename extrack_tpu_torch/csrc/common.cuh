@@ -99,6 +99,17 @@ struct TablesT {
 };
 using Tables = TablesT<float>;
 
+// Variable dt for the gradient walks (grad.cuh): the (B, T-1, P)
+// displacement variances and their cotangent (zeroed by the caller), and
+// the stream's index constants: P = S^(n+1) patterns (0 for constant dt),
+// S states, KP slots a pattern (K/P) and KS slots a newest digit (K/S).
+template <typename Real>
+struct StreamT {
+  const Real* s2;
+  Real* ct;
+  int P, S, KP, KS;
+};
+
 template <typename Real>
 static __device__ __forceinline__ Real warp_max(Real v) {
   for (int o = 16; o > 0; o >>= 1) v = shift_max(v, shfl_xor(v, o));
@@ -254,7 +265,7 @@ static __device__ __forceinline__ void group_sums(const Real* pub, int K,
 // Gaussian update `p` and base log weight `base` (lp - quad) to `pub`
 // ((2+2D)*K scalars), then child k moment-matches the A members of its
 // group, slots m0 .. m0+A-1 (m0 = (k % (K/A)) * A, computed by the caller),
-// into m and s2 (plus the child's displacement variance sig2v[k]).  The
+// into m and s2 (plus the child's displacement variance sig2v_k).  The
 // per-step normalizers ride as rsqrt factors in the exp-sum shifted by the
 // group's max base.  Returns the group's log mass (the caller adds the
 // child's transition terms) and sets mx and inv_sw, so that member o's
@@ -262,7 +273,7 @@ static __device__ __forceinline__ void group_sums(const Real* pub, int K,
 // stays readable until the caller's next barrier.
 template <typename Real, int D>
 static __device__ __forceinline__ Real fuse_group(
-    const Prep<Real, D>& p, Real base, Real* m, Real* s2, const Real* sig2v,
+    const Prep<Real, D>& p, Real base, Real* m, Real* s2, Real sig2v_k,
     Real* pub, int K, int m0, int A, bool act, Real& mx, Real& inv_sw) {
   const int k = threadIdx.x;
   Real* sbase = pub;
@@ -286,7 +297,7 @@ static __device__ __forceinline__ Real fuse_group(
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     m[d] = mf[d] * inv_sw;
-    s2[d] = sig2v[k] + tf[d] * inv_sw;
+    s2[d] = sig2v_k + tf[d] * inv_sw;
   }
   return mx + xlog(clamp_min(sw, kTiny));
 }
@@ -459,13 +470,18 @@ static __device__ __forceinline__ void gather2(bool act, float* m, float* s2,
 // track).  Returns the track's log likelihood (valid in every thread) and
 // the closing's max shift and exp-sum.  With `stash` non-null each step's
 // entering carry is written to stash[((t-1)*(2D+1) + field)*K + k] for the
-// gradient kernel's backward walk.  `sh` holds (2+2D)*K scalars.
-template <typename Real, int D>
+// gradient kernel's backward walk.  `sh` holds (2+2D)*K scalars.  VDT
+// (variable dt): the displacement variances come from the track's
+// (T-1, P) rows `sg` in place of s20, sig2v and s2n (row t: step
+// t -> t+1; slot k reads pattern k / KP, look-ahead child (k, a)
+// pattern a*S + k's newest digit, k / KS; the constants are `st`'s).
+template <typename Real, int D, bool VDT>
 static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
-                                     const Real* l2, int L, float isbl,
-                                     Real* sh, Real* red, Real* stash,
-                                     Real* close_mx, Real* close_sum,
-                                     Prof* pf = nullptr) {
+                                     const Real* l2, const Real* sg,
+                                     const StreamT<Real>& st, int L,
+                                     float isbl, Real* sh, Real* red,
+                                     Real* stash, Real* close_mx,
+                                     Real* close_sum, Prof* pf = nullptr) {
   const int K = tb.K, A = tb.A;
   const int k = threadIdx.x;
   const bool act = k < K;
@@ -473,7 +489,7 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
   const float cl2pi = 0.5f * D * kLog2Pi;
 
   Real m[D], s2[D], lp = act ? tb.lp0[k] : Real(0.f);
-  const Real s20 = act ? tb.s20[k] : Real(1.f);
+  const Real s20 = act ? (VDT ? sg[k / st.KP] : tb.s20[k]) : Real(1.f);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     m[d] = Real(x[d]);
@@ -530,7 +546,10 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
           Real r;
           const Real g =
               base_n + tb.ltn[ka] + gate * tb.lsn[ka] + isbl * tb.endn[ka] +
-              look_child<Real, D>(p, xn, l2n, tb.s2n[ka], invn, diffn, r);
+              look_child<Real, D>(
+                  p, xn, l2n,
+                  VDT ? sg[t * st.P + a * st.S + k / st.KS] : tb.s2n[ka],
+                  invn, diffn, r);
           gmax = shift_max(gmax, g);
         }
       }
@@ -542,7 +561,10 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
           Real r;
           const Real g =
               base_n + tb.ltn[ka] + gate * tb.lsn[ka] + isbl * tb.endn[ka] +
-              look_child<Real, D>(p, xn, l2n, tb.s2n[ka], invn, diffn, r);
+              look_child<Real, D>(
+                  p, xn, l2n,
+                  VDT ? sg[t * st.P + a * st.S + k / st.KS] : tb.s2n[ka],
+                  invn, diffn, r);
           sl += xexp(g - mx) * r;
         }
       }
@@ -555,8 +577,10 @@ static __device__ Real track_forward(const TablesT<Real>& tb, const float* x,
       // fuse the oldest digits; the 2*pi constants of the per-step
       // normalizers are folded into lt by the host
       Real mx = Real(0.f), inv_sw = Real(0.f);
-      const Real lse = fuse_group<Real, D>(p, lp - p.quad, m, s2, tb.sig2v,
-                                           sh, K, m0, A, act, mx, inv_sw);
+      const Real sv =
+          act ? (VDT ? sg[t * st.P + k / st.KP] : tb.sig2v[k]) : Real(0.f);
+      const Real lse = fuse_group<Real, D>(p, lp - p.quad, m, s2, sv, sh, K,
+                                           m0, A, act, mx, inv_sw);
       if (act) lp = lse + tb.lt[k] + gate * tb.lsurv[k];
       __syncthreads();
       if (pf) pf->mark(kPfStep);

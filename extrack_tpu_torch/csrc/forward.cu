@@ -17,6 +17,11 @@
 // one-pass closing; one persistent block per track above 64 slots.
 // Tracks are independent, so nothing is reduced across teams and the
 // result is bitwise repeatable.
+//
+// Variable dt (per-track or per-step intervals): the displacement
+// variances come from a (B, T-1, P) stream, read from the team's shared
+// slice (warp mapping, prefetched with the positions) or global memory
+// (block mapping) where the constant path reads its tables (walk.cuh).
 #include "walk.cuh"
 
 namespace extrack {
@@ -26,10 +31,12 @@ static __device__ unsigned long long g_forward_prof[kProfSlots];
 }  // namespace extrack
 
 // xs, l2: (B, T, D) float32; lengths int32 (B,); isbl float32 (B,); the
-// (K,) and (K, A) tables as in extrack::Tables; logl float32 (B,).  nblk
-// persistent blocks; warps > 0: the warp mapping with that many warps a
-// block (K <= 64), 0: the block mapping.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// (K,) and (K, A) tables as in extrack::Tables; sig2s: with P > 0
+// (variable dt, P = S^(n+1)) the (B, T-1, P) float32 displacement
+// variances, which replace s20, sig2v and s2n (null for P = 0); logl
+// float32 (B,).  nblk persistent blocks; warps > 0: the warp mapping with
+// that many warps a block (K <= 64), 0: the block mapping.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int extrack_forward(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,
                                const float* lp0, const float* s20,
@@ -37,13 +44,14 @@ extern "C" int extrack_forward(const float* xs, const float* l2,
                                const float* endv, const float* sig2v,
                                const float* ltn, const float* s2n,
                                const float* lsn, const float* endn,
-                               float* logl, int B, int T, int D, int K, int A,
-                               int min_len, int nblk, int warps,
-                               void* stream) {
+                               const float* sig2s, float* logl, int B, int T,
+                               int D, int K, int A, int P, int min_len,
+                               int nblk, int warps, void* stream) {
   const extrack::Tables tb{lp0, s20, lt,  lsurv, endv, sig2v, ltn,
                            s2n, lsn, endn, K,    A,    min_len};
-  const extrack::WalkArgs wa{tb, xs, l2, lengths, isbl, B, T, A, 0,
-                             logl, nullptr, nullptr, 0};
+  const extrack::WalkArgs wa{tb,   xs,      l2,      lengths, isbl,
+                             B,    T,       A,       0,       logl,
+                             nullptr, nullptr, 0,    sig2s,   P};
   unsigned long long* prof = nullptr;
 #ifdef EXTRACK_PROFILE
   cudaGetSymbolAddress((void**)&prof, extrack::g_forward_prof);
@@ -52,11 +60,11 @@ extern "C" int extrack_forward(const float* xs, const float* l2,
                                      static_cast<cudaStream_t>(stream));
 }
 
-// Blocks of a K1 launch one SM keeps resident (warps as extrack_forward),
-// or a CUDA error code, negated.
+// Blocks of a K1 launch one SM keeps resident (warps and P as
+// extrack_forward), or a CUDA error code, negated.
 extern "C" int extrack_forward_occupancy(int D, int K, int A, int T,
-                                         int warps) {
-  return extrack::walk_occupancy<false>(D, K, A, T, A, 0, warps, 0);
+                                         int warps, int P) {
+  return extrack::walk_occupancy<false>(D, K, A, T, A, 0, warps, 0, P);
 }
 
 // Reads and zeroes K1's cycle split (profile builds; zeros otherwise).

@@ -36,6 +36,10 @@
 // adds the per-block partials in block order, in double, so a fit is
 // repeatable from run to run (no atomics).
 //
+// Variable dt (per-track or per-step intervals): the walk reads a
+// (B, T-1, P) stream of displacement variances and writes its cotangent,
+// (B, T-1, P), in place of the s20, sig2v and s2n tables' (grad.cuh).
+//
 // The walk itself is grad.cuh's template, instantiated here on float; K3
 // (hvp.cu) instantiates the same template on dual numbers.
 #include "grad.cuh"
@@ -43,7 +47,10 @@
 // Inputs as extrack_forward.  Outputs: logl (B,); ct_l2 (B, T, D), zeroed
 // by the caller (rows past a track's length are not written); ct_tab
 // (6K + 4KA,) = d(sum logL)/d(lp0, s20, lt, lsurv, endv, sig2v, ltn, s2n,
-// lsn, endn) in that order.  Mapping: warps = 0 for the block mapping,
+// lsn, endn) in that order; with P > 0 (variable dt) ct_s2 (B, T-1, P) =
+// d(sum logL)/d(sig2s), zeroed by the caller (rows from a track's length
+// on are not written), and the s20, sig2v and s2n columns of ct_tab are
+// 0.  Mapping: warps = 0 for the block mapping,
 // else the warp mapping with `warps` (1..4) warps per block (K <= 64);
 // stash_smem = 1 keeps the warp mapping's carry history in shared memory.
 // Scratch: stash, unless stash_smem, one (T-1)*(2D+1)*K-float history per
@@ -55,24 +62,24 @@ extern "C" int extrack_grad(const float* xs, const float* l2,
                             const float* lt, const float* lsurv,
                             const float* endv, const float* sig2v,
                             const float* ltn, const float* s2n,
-                            const float* lsn, const float* endn, float* logl,
-                            float* ct_l2, float* ct_tab, float* stash,
+                            const float* lsn, const float* endn,
+                            const float* sig2s, float* logl, float* ct_l2,
+                            float* ct_tab, float* ct_s2, float* stash,
                             float* partial, int B, int T, int D, int K, int A,
-                            int min_len, int nblk, int warps, int stash_smem,
-                            void* stream) {
+                            int P, int min_len, int nblk, int warps,
+                            int stash_smem, void* stream) {
   const float* tabs[10] = {lp0, s20, lt, lsurv, endv,
                            sig2v, ltn, s2n, lsn, endn};
-  return extrack::launch_grad_c<float>(xs, l2, lengths, isbl, tabs, logl,
-                                       ct_l2, ct_tab, stash, partial, B, T,
-                                       D, K, A, min_len, nblk, warps,
-                                       stash_smem, stream);
+  return extrack::launch_grad_c<float>(
+      xs, l2, lengths, isbl, tabs, sig2s, logl, ct_l2, ct_tab, ct_s2, stash,
+      partial, B, T, D, K, A, P, min_len, nblk, warps, stash_smem, stream);
 }
 
 // Blocks of one K2 launch (arguments as extrack_grad's) that one SM keeps
 // resident, or -(CUDA error).
 extern "C" int extrack_grad_occupancy(int D, int K, int A, int T, int warps,
-                                      int stash_smem) {
-  return extrack::grad_occupancy_c<float>(D, K, A, T, warps, stash_smem);
+                                      int stash_smem, int P) {
+  return extrack::grad_occupancy_c<float>(D, K, A, T, warps, stash_smem, P);
 }
 
 // Dynamic shared memory one block of the warp mapping may opt in to on
@@ -84,7 +91,7 @@ extern "C" int extrack_grad_smem(int device) {
   cudaFuncAttributes attr;
   if (err == cudaSuccess)
     err = cudaFuncGetAttributes(&attr,
-                                extrack::grad_warp_kernel<float, 2, 2>);
+                                extrack::grad_warp_kernel<float, 2, 2, false>);
   if (err != cudaSuccess) return -(int)err;
   return optin - (int)attr.sharedSizeBytes;
 }

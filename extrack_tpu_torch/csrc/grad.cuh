@@ -3,6 +3,21 @@
 // kernel replaces and how it is laid out.  Two mappings of a track onto
 // threads: grad_warp_kernel (one warp per track, K <= 64) and grad_kernel
 // (one block per track, any K up to 1024); the host picks one per launch.
+//
+// Variable dt (the VDT template flag, so that the constant-dt
+// instantiations keep their code): the displacement variances come from a
+// (B, T-1, P) stream (P = S^(n+1) patterns of the n+1 newest sub-states;
+// row t holds step t -> t+1) in place of s20, sig2v and s2n, read as
+// common.cuh's track_forward reads them, and the walk writes the stream's
+// cotangent, (B, T-1, P), in place of those three tables'.  Each row a
+// track uses gets exactly one kind of term, so each is written once, by
+// the team that owns the track (no atomics, no accumulation): row 0 the
+// initial register's s20 cotangents, rows 1 .. L-3 a fusion's children's
+// variance cotangents, row L-2 the look-ahead children's; each summed over
+// the slots of a pattern in slot order, from the team's shared memory (the
+// block mapping's look-ahead terms from its row of the partial buffer,
+// whose s2n columns the stream leaves unused).  Rows past a track's length
+// stay as the caller zeroed them.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -54,13 +69,14 @@ constexpr int block_min_blocks() {
 // Outputs d(sum logL)/d(l2) per track and the per-block partial sums of the
 // ten table cotangents (reduced by reduce_partials).  MaxT is the largest
 // block it is launched with (kBlockSmall, kBlockMid or 1024).
-template <typename Real, int D, int MaxT>
+template <typename Real, int D, int MaxT, bool VDT>
 __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
     grad_kernel(TablesT<Real> tb, const float* __restrict__ xs,
                 const Real* __restrict__ l2s, const int* __restrict__ lengths,
                 const float* __restrict__ isbls, int B, int T,
                 Real* __restrict__ logl, Real* __restrict__ ct_l2,
-                Real* __restrict__ stash_all, Real* __restrict__ partial) {
+                Real* __restrict__ stash_all, Real* __restrict__ partial,
+                StreamT<Real> st) {
   extern __shared__ __align__(16) unsigned char sh_raw[];
   Real* sh = reinterpret_cast<Real*>(sh_raw);
   __shared__ Real red[33];
@@ -68,6 +84,10 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
   const int k = threadIdx.x;
   const bool act = k < K;
   const float cl2pi = 0.5f * D * kLog2Pi;
+  // variable dt: the stream's constants stay kernel parameters (st.P,
+  // st.S, st.KP, st.KS) and a track's rows are recomputed where read, to
+  // spare registers
+  const int P = VDT ? st.P : 0;
 
   Real* sbase = sh;
   Real* srq = sh + K;
@@ -110,10 +130,13 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
     const float* x = xs + (size_t)b * T * D;
     const Real* l2 = l2s + (size_t)b * T * D;
     Real* cl2 = ct_l2 + (size_t)b * T * D;
+    auto sg = [&]() { return st.s2 + (size_t)b * (T - 1) * P; };
+    auto csg = [&]() { return st.ct + (size_t)b * (T - 1) * P; };
     const float isbl = isbls[b];
     Real cmx, csum;
-    const Real out = track_forward<Real, D>(tb, x, l2, L, isbl, sh, red,
-                                            stash, &cmx, &csum, &pf);
+    const Real out = track_forward<Real, D, VDT>(
+        tb, x, l2, VDT ? sg() : nullptr, st, L, isbl, sh, red, stash, &cmx,
+        &csum, &pf);
     if (k == 0) logl[b] = out;
 
     // backward walk; (cm, cs2, clp) is the cotangent of the carry that
@@ -182,7 +205,10 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
             Real r;
             const Real g =
                 base_n + tb.ltn[ka] + gate * tb.lsn[ka] + isbl * tb.endn[ka] +
-                look_child<Real, D>(p, xn, l2n, tb.s2n[ka], invn, diffn, r);
+                look_child<Real, D>(
+                    p, xn, l2n,
+                    VDT ? sg()[t * P + a * st.S + k / st.KS] : tb.s2n[ka],
+                    invn, diffn, r);
             const Real q = xexp(g - cmx) * r * inv_sum;
             p_ltn[ka] += q;
             p_lsn[ka] += gate * q;
@@ -197,7 +223,12 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
               cl2n[d] += ct_totn;
               cs += ct_totn;
             }
-            p_s2n[ka] += cs;
+            // variable dt: the block's p_s2n row holds this track's
+            // look-ahead cotangents, summed into the stream below
+            if constexpr (VDT)
+              p_s2n[ka] = cs;
+            else
+              p_s2n[ka] += cs;
             cb += q;
           }
         }
@@ -206,6 +237,16 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
           const Real v = block_sum(cl2n[d], red);
           if (k == 0) cl2[(t + 1) * D + d] = v;
         }
+        if constexpr (VDT) {
+          // row t, pattern q = a*S + s: child (kk, a) over the slots kk of
+          // newest digit s
+          for (int q = k; q < P; q += blockDim.x) {
+            const int a = q / st.S, s0 = (q % st.S) * st.KS;
+            Real v = Real(0.f);
+            for (int kk = s0; kk < s0 + st.KS; ++kk) v += p_s2n[kk * A + a];
+            csg()[t * P + q] = v;
+          }
+        }
         pf.mark(kPfCloseBwd);
       } else {
         // fusion pullback.  The children's cotangents go through shared
@@ -213,10 +254,12 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
         if (act) {
           *a_lt += clp;
           *a_lsurv += gate * clp;
-          Real cs = Real(0.f);
+          if constexpr (!VDT) {
+            Real cs = Real(0.f);
 #pragma unroll
-          for (int d = 0; d < D; ++d) cs += cs2[d];
-          *a_sig2v += cs;
+            for (int d = 0; d < D; ++d) cs += cs2[d];
+            *a_sig2v += cs;
+          }
           sbase[k] = lp - p.quad;
           srq[k] = xrsqrt(p.prod);
           sclp[k] = clp;
@@ -229,6 +272,17 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
           }
         }
         __syncthreads();
+        if constexpr (VDT) {
+          // row t: the children's variance cotangents over each pattern's
+          // slots
+          for (int q = k; q < P; q += blockDim.x) {
+            Real v = Real(0.f);
+            for (int kk = q * st.KP; kk < (q + 1) * st.KP; ++kk)
+#pragma unroll
+              for (int d = 0; d < D; ++d) v += scs2[d * K + kk];
+            csg()[t * P + q] = v;
+          }
+        }
         if (act) {
           const int g = k / A;           // this slot's fusion group
           Real mx, sw, mf[D], tf[D], cmf[D], ctf[D];
@@ -281,16 +335,34 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
     // initial register: m = x_0 (no parameter), s2 = l2_0 + s20, lp = lp0
     Real cs = Real(0.f);
 #pragma unroll
+    for (int d = 0; d < D; ++d) cs += cs2[d];
+    if constexpr (VDT) {
+      // row 0: the s20 cotangents over each pattern's slots (the block
+      // sums below keep sbase from the next track until they are read)
+      if (act) sbase[k] = cs;
+      __syncthreads();
+      for (int q = k; q < P; q += blockDim.x) {
+        Real v = Real(0.f);
+        for (int kk = q * st.KP; kk < (q + 1) * st.KP; ++kk) v += sbase[kk];
+        csg()[q] = v;
+      }
+    }
+#pragma unroll
     for (int d = 0; d < D; ++d) {
-      cs += cs2[d];
       const Real v = block_sum(cs2[d], red);
       if (k == 0) cl2[d] = v;
     }
     if (act) {
       *a_lp0 += clp;
-      *a_s20 += cs;
+      if constexpr (!VDT) *a_s20 += cs;
     }
     pf.mark(kPfInit);
+  }
+  if constexpr (VDT) {
+    // the look-ahead scratch out of the s2n partials (their table is unused)
+    __syncthreads();
+    if (act)
+      for (int a = 0; a < A; ++a) p_s2n[k * A + a] = Real(0.f);
   }
   pf.mark(kPfPartials);
 #ifdef EXTRACK_PROFILE
@@ -302,11 +374,14 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 
 // Scalars of one warp's slice of shared memory in grad_warp_kernel: the
 // publish area, the cotangent accumulators, two buffers of a track's
-// positions, variances, length and flag, and, when it lives there, the
+// positions and variances, two of its (T-1, P) displacement variances
+// (variable dt, P > 0), its length and flag, and, when it lives there, the
 // carry history.
 static __host__ __device__ inline size_t warp_slice(int K, int A, int D,
-                                                    int T, int stash_smem) {
-  return (size_t)(9 + 4 * D) * K + (size_t)4 * K * A + (size_t)4 * T * D + 4 +
+                                                    int T, int stash_smem,
+                                                    int P) {
+  return (size_t)(9 + 4 * D) * K + (size_t)4 * K * A + (size_t)4 * T * D +
+         (size_t)2 * (T - 1) * P + 4 +
          (stash_smem ? (size_t)(T - 1) * (2 * D + 1) * K : 0);
 }
 
@@ -319,13 +394,14 @@ static __host__ __device__ inline size_t warp_slice(int K, int A, int D,
 // barrier.  The warp's slice (warp_slice) holds the publish area
 // ((3+4D)K scalars), the cotangent accumulators of its tracks (6K for the
 // (K,) tables, then 4KA, [table][pattern][slot]; lane-private), the
-// track's positions, variances, length and flag, double-buffered: the
-// next track's are copied in by cp.async while the warp walks this one;
-// and, when stash_smem, the carry history ((T-1)(2D+1)K); else the
-// history is the warp's slice of stash_all.
+// track's positions, variances, (T-1, P) displacement variances (variable
+// dt), length and flag, double-buffered: the next track's are copied in
+// by cp.async while the warp walks this one; and, when stash_smem, the
+// carry history ((T-1)(2D+1)K); else the history is the warp's slice of
+// stash_all.
 // At the end the block sums its warps' partials in warp order (its one
 // barrier) into its row of `partial`.
-template <typename Real, int D, int J>
+template <typename Real, int D, int J, bool VDT>
 __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
     grad_warp_kernel(TablesT<Real> tb, const float* __restrict__ xs,
                      const Real* __restrict__ l2s,
@@ -333,16 +409,19 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
                      const float* __restrict__ isbls, int B, int T,
                      Real* __restrict__ logl, Real* __restrict__ ct_l2,
                      Real* __restrict__ stash_all, Real* __restrict__ partial,
-                     int stash_smem) {
+                     int stash_smem, StreamT<Real> st) {
   extern __shared__ __align__(16) unsigned char sh_raw[];
   const int K = tb.K, A = tb.A, G = K / A;
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
   const float cl2pi = 0.5f * D * kLog2Pi;
+  // variable dt: patterns, states, slots per pattern and per newest digit
+  const int P = VDT ? st.P : 0, SP = st.S, KP = st.KP, KS = st.KS;
+  const int SG = (T - 1) * P;                 // a track's streamed scalars
   const size_t hist_n = (size_t)(T - 1) * (2 * D + 1) * K;
   const size_t pub_n = (size_t)(3 + 4 * D) * K;
   const size_t acc_n = (size_t)6 * K + (size_t)4 * K * A;
-  const size_t slice = warp_slice(K, A, D, T, stash_smem);
+  const size_t slice = warp_slice(K, A, D, T, stash_smem, P);
   Real* const smem = reinterpret_cast<Real*>(sh_raw);
   Real* ws = smem + wib * slice;
   Real* sbase = ws;
@@ -352,14 +431,16 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
   Real* scs2 = scm + D * K;
   Real* kacc = ws + pub_n;                    // (K,) tables' cotangents
   Real* pacc = kacc + 6 * K;                  // (K, A) tables'
-  // two buffers of (T, D) variances, then (T, D) positions; length, flag
+  // two buffers of (T, D) variances, then (T, D) positions; two of the
+  // (T-1, P) displacement variances (variable dt); length, flag
   Real* rows = kacc + acc_n;
-  int* meta = reinterpret_cast<int*>(rows + 4 * T * D);
+  Real* sgb = rows + 4 * T * D;
+  int* meta = reinterpret_cast<int*>(sgb + 2 * SG);
   const int gw = blockIdx.x * wpb + wib, nwarps = gridDim.x * wpb;
-  Real* stash = stash_smem ? rows + 4 * T * D + 4
+  Real* stash = stash_smem ? sgb + 2 * SG + 4
                            : stash_all + (size_t)gw * hist_n;
 
-  int ks[J];
+  int ks[J], pat[J], nw[J];
   bool act[J];
   // the (K,) accumulators, kacc[f * K + k]: lp0, s20, lt, lsurv, endv, sig2v
   enum { kLp0 = 0, kS20 = 1, kLt = 2, kLsurv = 3, kEnd = 4, kSig2v = 5 };
@@ -367,6 +448,8 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
   for (int j = 0; j < J; ++j) {
     ks[j] = j * 32 + lane;
     act[j] = ks[j] < K;
+    pat[j] = VDT && act[j] ? ks[j] / KP : 0;
+    nw[j] = VDT && act[j] ? ks[j] / KS : 0;
     if (act[j]) {
       const int k = ks[j];
       for (int i = 0; i < 6 + 4 * A; ++i) kacc[i * K + k] = Real(0.f);
@@ -389,6 +472,12 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
       __pipeline_memcpy_async(xd + i, xs + (size_t)bb * TD + i,
                               sizeof(float));
     }
+    if constexpr (VDT) {
+      Real* sgd = sgb + buf * SG;
+      for (int i = lane; i < SG; i += 32)
+        __pipeline_memcpy_async(sgd + i, st.s2 + (size_t)bb * SG + i,
+                                sizeof(Real));
+    }
     if (lane == 0) {
       __pipeline_memcpy_async(meta + 2 * buf, lengths + bb, sizeof(int));
       __pipeline_memcpy_async(meta + 2 * buf + 1, isbls + bb, sizeof(float));
@@ -410,6 +499,8 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
       continue;
     }
     Real* cl2 = ct_l2 + (size_t)b * T * D;
+    const Real* sg = sgb + buf * SG;              // variable dt only
+    Real* csg = VDT ? st.ct + (size_t)b * SG : nullptr;
     const int tlast = L == 2 ? 1 : L - 2;
 
     // forward walk (track_forward), stashing each step's entering carry
@@ -417,7 +508,8 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       lp[j] = act[j] ? tb.lp0[ks[j]] : Real(0.f);
-      const Real s20 = act[j] ? tb.s20[ks[j]] : Real(1.f);
+      const Real s20 =
+          act[j] ? (VDT ? sg[pat[j]] : tb.s20[ks[j]]) : Real(1.f);
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         m[j][d] = Real(x[d]);
@@ -484,10 +576,12 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
           for (int a = 0; a < A; ++a) {
             const int ka = ks[j] * A + a;
             Real r;
-            const Real g = base_n + tb.ltn[ka] + gate * tb.lsn[ka] +
-                           isbl * tb.endn[ka] +
-                           look_child<Real, D>(p[j], xn, l2n, tb.s2n[ka],
-                                               invn, diffn, r);
+            const Real g =
+                base_n + tb.ltn[ka] + gate * tb.lsn[ka] + isbl * tb.endn[ka] +
+                look_child<Real, D>(
+                    p[j], xn, l2n,
+                    VDT ? sg[t * P + a * SP + nw[j]] : tb.s2n[ka], invn,
+                    diffn, r);
             gmax = shift_max(gmax, g);
           }
         }
@@ -501,10 +595,12 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
           for (int a = 0; a < A; ++a) {
             const int ka = ks[j] * A + a;
             Real r;
-            const Real g = base_n + tb.ltn[ka] + gate * tb.lsn[ka] +
-                           isbl * tb.endn[ka] +
-                           look_child<Real, D>(p[j], xn, l2n, tb.s2n[ka],
-                                               invn, diffn, r);
+            const Real g =
+                base_n + tb.ltn[ka] + gate * tb.lsn[ka] + isbl * tb.endn[ka] +
+                look_child<Real, D>(
+                    p[j], xn, l2n,
+                    VDT ? sg[t * P + a * SP + nw[j]] : tb.s2n[ka], invn,
+                    diffn, r);
             sl += xexp(g - mx) * r;
           }
         }
@@ -536,10 +632,11 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
             inv_sw = 1.0f / clamp_min(sw, kTiny);
             lse = mx + xlog(clamp_min(sw, kTiny));
           }
+          const Real sv = VDT ? sg[t * P + pat[j]] : tb.sig2v[ks[j]];
 #pragma unroll
           for (int d = 0; d < D; ++d) {
             m[j][d] = mf[d] * inv_sw;
-            s2[j][d] = tb.sig2v[ks[j]] + tf[d] * inv_sw;
+            s2[j][d] = sv + tf[d] * inv_sw;
           }
           lp[j] = lse + tb.lt[ks[j]] + gate * tb.lsurv[ks[j]];
         }
@@ -630,10 +727,12 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
           for (int a = 0; a < A; ++a) {
             const int ka = k * A + a;
             Real r;
-            const Real g = base_n + tb.ltn[ka] + gate * tb.lsn[ka] +
-                           isbl * tb.endn[ka] +
-                           look_child<Real, D>(p[j], xn, l2n, tb.s2n[ka],
-                                               invn, diffn, r);
+            const Real g =
+                base_n + tb.ltn[ka] + gate * tb.lsn[ka] + isbl * tb.endn[ka] +
+                look_child<Real, D>(
+                    p[j], xn, l2n,
+                    VDT ? sg[t * P + a * SP + nw[j]] : tb.s2n[ka], invn,
+                    diffn, r);
             const Real q = xexp(g - cmx) * r * inv_sum;
             pacc[(0 * A + a) * K + k] += q;
             pacc[(2 * A + a) * K + k] += gate * q;
@@ -648,7 +747,12 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
               cl2n[d] += ct_totn;
               cs += ct_totn;
             }
-            pacc[(1 * A + a) * K + k] += cs;
+            // variable dt: the s2n accumulators hold this track's
+            // look-ahead cotangents, summed into the stream below
+            if constexpr (VDT)
+              pacc[(1 * A + a) * K + k] = cs;
+            else
+              pacc[(1 * A + a) * K + k] += cs;
             cb[j] += q;
           }
         }
@@ -656,6 +760,18 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
         for (int d = 0; d < D; ++d) {
           const Real v = warp_sum(cl2n[d]);
           if (lane == 0) cl2[(t + 1) * D + d] = v;
+        }
+        if constexpr (VDT) {
+          // row t, pattern q = a*S + s: child (kk, a) over the slots kk of
+          // newest digit s
+          __syncwarp();
+          for (int q = lane; q < P; q += 32) {
+            const int a = q / SP, s0 = (q % SP) * KS;
+            Real v = Real(0.f);
+            for (int kk = s0; kk < s0 + KS; ++kk)
+              v += pacc[(1 * A + a) * K + kk];
+            csg[t * P + q] = v;
+          }
         }
         pf.mark(kPfCloseBwd);
       } else {
@@ -667,10 +783,12 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
           const int k = ks[j];
           kacc[kLt * K + k] += clp[j];
           kacc[kLsurv * K + k] += gate * clp[j];
-          Real cs = Real(0.f);
+          if constexpr (!VDT) {
+            Real cs = Real(0.f);
 #pragma unroll
-          for (int d = 0; d < D; ++d) cs += cs2[j][d];
-          kacc[kSig2v * K + k] += cs;
+            for (int d = 0; d < D; ++d) cs += cs2[j][d];
+            kacc[kSig2v * K + k] += cs;
+          }
           sbase[k] = lp[j] - p[j].quad;
           srq[k] = xrsqrt(p[j].prod);
           sclp[k] = clp[j];
@@ -683,6 +801,17 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
           }
         }
         __syncwarp();
+        if constexpr (VDT) {
+          // row t: the children's variance cotangents over each pattern's
+          // slots
+          for (int q = lane; q < P; q += 32) {
+            Real v = Real(0.f);
+            for (int kk = q * KP; kk < (q + 1) * KP; ++kk)
+#pragma unroll
+              for (int d = 0; d < D; ++d) v += scs2[d * K + kk];
+            csg[t * P + q] = v;
+          }
+        }
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           if (!act[j]) continue;
@@ -762,9 +891,30 @@ __global__ void __launch_bounds__(kWarpBlock, (warp_min_blocks<Real, D>()))
 #pragma unroll
       for (int d = 0; d < D; ++d) cs += cs2[j][d];
       kacc[kLp0 * K + ks[j]] += clp[j];
-      kacc[kS20 * K + ks[j]] += cs;
+      if constexpr (VDT)
+        sbase[ks[j]] = cs;
+      else
+        kacc[kS20 * K + ks[j]] += cs;
+    }
+    if constexpr (VDT) {
+      // row 0: the s20 cotangents over each pattern's slots (the next
+      // track's first __syncwarp keeps sbase until they are read)
+      __syncwarp();
+      for (int q = lane; q < P; q += 32) {
+        Real v = Real(0.f);
+        for (int kk = q * KP; kk < (q + 1) * KP; ++kk) v += sbase[kk];
+        csg[q] = v;
+      }
     }
     pf.mark(kPfInit);
+  }
+  if constexpr (VDT) {
+    // the look-ahead scratch out of the s2n partials (their table is unused)
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (act[j])
+        for (int a = 0; a < A; ++a) pacc[(1 * A + a) * K + ks[j]] = Real(0.f);
   }
   // the block's partial: every column summed over the warps in warp order
   __syncthreads();
@@ -801,31 +951,41 @@ static __global__ void reduce_partials(const float* __restrict__ partial,
 
 // The kernel instantiation that launch_grad runs for this K and mapping
 // (warps > 0: the warp mapping with `warps` warps per block).
-template <typename Real, int D>
+template <typename Real, int D, bool VDT>
 static const void* grad_instance(int K, int warps) {
   if (warps > 0)
-    return K <= 32 ? (const void*)grad_warp_kernel<Real, D, 1>
-                   : (const void*)grad_warp_kernel<Real, D, 2>;
+    return K <= 32 ? (const void*)grad_warp_kernel<Real, D, 1, VDT>
+                   : (const void*)grad_warp_kernel<Real, D, 2, VDT>;
   const int threads = (K + 31) / 32 * 32;
-  return threads <= kBlockSmall ? (const void*)grad_kernel<Real, D, kBlockSmall>
-         : threads <= kBlockMid ? (const void*)grad_kernel<Real, D, kBlockMid>
-                                : (const void*)grad_kernel<Real, D, 1024>;
+  return threads <= kBlockSmall
+             ? (const void*)grad_kernel<Real, D, kBlockSmall, VDT>
+         : threads <= kBlockMid
+             ? (const void*)grad_kernel<Real, D, kBlockMid, VDT>
+             : (const void*)grad_kernel<Real, D, 1024, VDT>;
+}
+
+// grad_instance with P > 0 for variable dt.
+template <typename Real, int D>
+static const void* grad_instance(int K, int warps, int P) {
+  return P > 0 ? grad_instance<Real, D, true>(K, warps)
+               : grad_instance<Real, D, false>(K, warps);
 }
 
 // Dynamic shared memory of one block, as launch_grad asks for it.
 template <typename Real>
 static size_t grad_smem(int K, int A, int D, int T, int warps,
-                        int stash_smem) {
-  return (warps > 0 ? warps * warp_slice(K, A, D, T, stash_smem)
+                        int stash_smem, int P) {
+  return (warps > 0 ? warps * warp_slice(K, A, D, T, stash_smem, P)
                     : (size_t)(3 + 4 * D) * K) *
          sizeof(Real);
 }
 
 // Blocks of a K2 (or K3) launch one SM keeps resident, or -error.
 template <typename Real, int D>
-static int grad_occupancy(int K, int A, int T, int warps, int stash_smem) {
-  const void* fn = grad_instance<Real, D>(K, warps);
-  const size_t smem = grad_smem<Real>(K, A, D, T, warps, stash_smem);
+static int grad_occupancy(int K, int A, int T, int warps, int stash_smem,
+                          int P) {
+  const void* fn = grad_instance<Real, D>(K, warps, P);
+  const size_t smem = grad_smem<Real>(K, A, D, T, warps, stash_smem, P);
   const int threads = warps > 0 ? 32 * warps : (K + 31) / 32 * 32;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -840,14 +1000,17 @@ template <typename Real, int D>
 static int launch_grad(const TablesT<Real>& tb, const float* xs,
                        const Real* l2, const int* lengths, const float* isbl,
                        Real* logl, Real* ct_l2, Real* ct_tab, Real* stash,
-                       Real* partial, int B, int T, int nblk, int warps,
-                       int stash_smem, cudaStream_t stream) {
-  const int K = tb.K;
+                       Real* partial, StreamT<Real> st, int B, int T,
+                       int nblk, int warps, int stash_smem,
+                       cudaStream_t stream) {
+  const int K = tb.K, P = st.P;
   if (warps < 0 || 32 * warps > kWarpBlock || (warps > 0 && K > 64) ||
-      (warps == 0 && stash_smem))
+      (warps == 0 && stash_smem) || P < 0 ||
+      (P > 0 && (st.s2 == nullptr || st.ct == nullptr || P % tb.A != 0 ||
+                 K % P != 0 || T < 2)))
     return (int)cudaErrorInvalidValue;
-  const void* fn = grad_instance<Real, D>(K, warps);
-  const size_t smem = grad_smem<Real>(K, tb.A, D, T, warps, stash_smem);
+  const void* fn = grad_instance<Real, D>(K, warps, P);
+  const size_t smem = grad_smem<Real>(K, tb.A, D, T, warps, stash_smem, P);
   // the opt-in covers the static shared memory's share of the 48 KB too
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -856,12 +1019,13 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
     void* args[] = {(void*)&tb, (void*)&xs, (void*)&l2, (void*)&lengths,
                     (void*)&isbl, (void*)&B, (void*)&T, (void*)&logl,
                     (void*)&ct_l2, (void*)&stash, (void*)&partial,
-                    (void*)&stash_smem};
+                    (void*)&stash_smem, (void*)&st};
     cudaLaunchKernel(fn, nblk, threads, args, smem, stream);
   } else {
     void* args[] = {(void*)&tb, (void*)&xs, (void*)&l2, (void*)&lengths,
                     (void*)&isbl, (void*)&B, (void*)&T, (void*)&logl,
-                    (void*)&ct_l2, (void*)&stash, (void*)&partial};
+                    (void*)&ct_l2, (void*)&stash, (void*)&partial,
+                    (void*)&st};
     cudaLaunchKernel(fn, nblk, threads, args, smem, stream);
   }
   const int err = (int)cudaGetLastError();
@@ -876,14 +1040,16 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
 
 // The C entry points of K2 and K3 share one argument list; Real is float
 // (K2) or Dual (K3), every Real array given as floats (a Dual array as
-// interleaved value / tangent pairs).
+// interleaved value / tangent pairs).  sig2s / ct_s2: the (B, T-1, P)
+// stream and its cotangent for variable dt (P > 0), else null.
 template <typename Real>
 static int launch_grad_c(const float* xs, const float* l2,
                          const int* lengths, const float* isbl,
-                         const float* const* tabs, float* logl, float* ct_l2,
-                         float* ct_tab, float* stash, float* partial, int B,
-                         int T, int D, int K, int A, int min_len, int nblk,
-                         int warps, int stash_smem, void* stream) {
+                         const float* const* tabs, const float* sig2s,
+                         float* logl, float* ct_l2, float* ct_tab,
+                         float* ct_s2, float* stash, float* partial, int B,
+                         int T, int D, int K, int A, int P, int min_len,
+                         int nblk, int warps, int stash_smem, void* stream) {
   const Real* t[10];
   for (int i = 0; i < 10; ++i) t[i] = reinterpret_cast<const Real*>(tabs[i]);
   const TablesT<Real> tb{t[0], t[1], t[2], t[3], t[4], t[5], t[6],
@@ -895,16 +1061,20 @@ static int launch_grad_c(const float* xs, const float* l2,
   Real* ct = reinterpret_cast<Real*>(ct_tab);
   Real* sa = reinterpret_cast<Real*>(stash);
   Real* pa = reinterpret_cast<Real*>(partial);
+  const StreamT<Real> sm{reinterpret_cast<const Real*>(sig2s),
+                         reinterpret_cast<Real*>(ct_s2), P,
+                         P > 0 ? P / A : 1, P > 0 ? K / P : 1,
+                         P > 0 ? K * A / P : 1};
   switch (D) {
     case 1:
       return launch_grad<Real, 1>(tb, xs, l2r, lengths, isbl, lo, cl, ct, sa,
-                                  pa, B, T, nblk, warps, stash_smem, st);
+                                  pa, sm, B, T, nblk, warps, stash_smem, st);
     case 2:
       return launch_grad<Real, 2>(tb, xs, l2r, lengths, isbl, lo, cl, ct, sa,
-                                  pa, B, T, nblk, warps, stash_smem, st);
+                                  pa, sm, B, T, nblk, warps, stash_smem, st);
     case 3:
       return launch_grad<Real, 3>(tb, xs, l2r, lengths, isbl, lo, cl, ct, sa,
-                                  pa, B, T, nblk, warps, stash_smem, st);
+                                  pa, sm, B, T, nblk, warps, stash_smem, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -913,11 +1083,11 @@ static int launch_grad_c(const float* xs, const float* l2,
 // Occupancy query behind extrack_grad_occupancy / extrack_hvp_occupancy.
 template <typename Real>
 static int grad_occupancy_c(int D, int K, int A, int T, int warps,
-                            int stash_smem) {
+                            int stash_smem, int P) {
   switch (D) {
-    case 1: return grad_occupancy<Real, 1>(K, A, T, warps, stash_smem);
-    case 2: return grad_occupancy<Real, 2>(K, A, T, warps, stash_smem);
-    case 3: return grad_occupancy<Real, 3>(K, A, T, warps, stash_smem);
+    case 1: return grad_occupancy<Real, 1>(K, A, T, warps, stash_smem, P);
+    case 2: return grad_occupancy<Real, 2>(K, A, T, warps, stash_smem, P);
+    case 3: return grad_occupancy<Real, 3>(K, A, T, warps, stash_smem, P);
     default: return -(int)cudaErrorInvalidValue;
   }
 }

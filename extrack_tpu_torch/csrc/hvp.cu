@@ -24,8 +24,10 @@
 
 // Arguments as extrack_grad, with every Real array as interleaved (value,
 // tangent) float pairs: l2 (B, T, D, 2); each table (K, 2) or (K, A, 2);
-// outputs logl (B, 2), ct_l2 (B, T, D, 2) zeroed by the caller, ct_tab
-// (6K + 4KA, 2); scratch stash (unless stash_smem) one
+// variable dt: sig2s (B, T-1, P, 2), the stream with its tangent, and
+// ct_s2 (B, T-1, P, 2), its cotangent with the cotangent's tangent,
+// zeroed by the caller; outputs logl (B, 2), ct_l2 (B, T, D, 2) zeroed by
+// the caller, ct_tab (6K + 4KA, 2); scratch stash (unless stash_smem) one
 // (T-1)*(2D+1)*K*2-float history per block or warp and partial
 // nblk*(6K + 4KA)*2 floats; warps and stash_smem as extrack_grad's.
 // Positions, lengths and the bleaching flags carry no tangent.  Returns
@@ -36,22 +38,23 @@ extern "C" int extrack_hvp(const float* xs, const float* l2,
                            const float* lt, const float* lsurv,
                            const float* endv, const float* sig2v,
                            const float* ltn, const float* s2n,
-                           const float* lsn, const float* endn, float* logl,
-                           float* ct_l2, float* ct_tab, float* stash,
+                           const float* lsn, const float* endn,
+                           const float* sig2s, float* logl, float* ct_l2,
+                           float* ct_tab, float* ct_s2, float* stash,
                            float* partial, int B, int T, int D, int K, int A,
-                           int min_len, int nblk, int warps, int stash_smem,
-                           void* stream) {
+                           int P, int min_len, int nblk, int warps,
+                           int stash_smem, void* stream) {
   const float* tabs[10] = {lp0, s20, lt, lsurv, endv,
                            sig2v, ltn, s2n, lsn, endn};
   return extrack::launch_grad_c<extrack::Dual>(
-      xs, l2, lengths, isbl, tabs, logl, ct_l2, ct_tab, stash, partial, B, T,
-      D, K, A, min_len, nblk, warps, stash_smem, stream);
+      xs, l2, lengths, isbl, tabs, sig2s, logl, ct_l2, ct_tab, ct_s2, stash,
+      partial, B, T, D, K, A, P, min_len, nblk, warps, stash_smem, stream);
 }
 
 // Blocks of one K3 launch that one SM keeps resident (as
 // extrack_grad_occupancy).
 extern "C" int extrack_hvp_occupancy(int D, int K, int A, int T, int warps,
-                                     int stash_smem) {
+                                     int stash_smem, int P) {
   return extrack::grad_occupancy_c<extrack::Dual>(D, K, A, T, warps,
-                                                  stash_smem);
+                                                  stash_smem, P);
 }

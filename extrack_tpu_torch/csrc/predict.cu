@@ -19,7 +19,8 @@
 // at K <= 64, persistent blocks, tables in registers, base-2 fusion,
 // one-pass closing), plus the stash and backward pass in place of the
 // quadratic history mix (which took half the cycles at 15..20 frames on
-// an H100), and a harvest by warp reductions.
+// an H100), and a harvest by warp reductions.  Variable dt reads the
+// (B, T-1, P) stream of displacement variances as K1 does (walk.cuh).
 #include "walk.cuh"
 
 namespace extrack {
@@ -49,12 +50,13 @@ extern "C" int extrack_predict_smem(int device) {
 }
 
 // One K4 team for a launch (warps > 0: a warp of the warp mapping, 0: a
-// block of the block mapping): out = threads a block, shared bytes of a
-// team besides the stash of fusion weights, the stash's bytes a team.
+// block of the block mapping; P > 0: variable dt with P = S^2 patterns):
+// out = threads a block, shared bytes of a team besides the stash of
+// fusion weights, the stash's bytes a team.
 extern "C" int extrack_predict_layout(int T, int D, int K, int S, int W,
-                                      int warps, long long* out) {
+                                      int warps, int P, long long* out) {
   const extrack::WalkLayout lay =
-      extrack::walk_layout(warps, K, S, D, T, S, W, true);
+      extrack::walk_layout(warps, K, S, D, T, S, W, true, P);
   if (D < 1 || D > 3 || K > 1024 || (warps > 0 && K > 64))
     return (int)cudaErrorInvalidValue;
   out[0] = lay.threads;
@@ -66,16 +68,17 @@ extern "C" int extrack_predict_layout(int T, int D, int K, int S, int W,
 // Blocks of a K4 launch one SM keeps resident, or a CUDA error code,
 // negated.
 extern "C" int extrack_predict_occupancy(int D, int K, int S, int T, int W,
-                                         int warps, int stash_smem) {
-  return extrack::walk_occupancy<true>(D, K, S, T, S, W, warps, stash_smem);
+                                         int warps, int stash_smem, int P) {
+  return extrack::walk_occupancy<true>(D, K, S, T, S, W, warps, stash_smem,
+                                       P);
 }
 
-// Inputs as extrack_forward, with A == S (one sub-step) and K == S^W.
-// Outputs: logl (B,), preds (B, T, S) float32 (every entry written).
-// stash_scratch: null when the stash of fusion weights is in shared memory
-// (stash_smem 1), else the stash bytes of extrack_predict_layout for every
-// team (nblk blocks of `warps` warps, or nblk blocks).  Returns
-// cudaGetLastError().
+// Inputs as extrack_forward (sig2s and P: variable dt), with A == S (one
+// sub-step) and K == S^W.  Outputs: logl (B,), preds (B, T, S) float32
+// (every entry written).  stash_scratch: null when the stash of fusion
+// weights is in shared memory (stash_smem 1), else the stash bytes of
+// extrack_predict_layout for every team (nblk blocks of `warps` warps, or
+// nblk blocks).  Returns cudaGetLastError().
 extern "C" int extrack_predict(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,
                                const float* lp0, const float* s20,
@@ -83,17 +86,19 @@ extern "C" int extrack_predict(const float* xs, const float* l2,
                                const float* endv, const float* sig2v,
                                const float* ltn, const float* s2n,
                                const float* lsn, const float* endn,
-                               float* logl, float* preds, float* stash_scratch,
-                               int B, int T, int D, int K, int A, int min_len,
-                               int S, int W, int nblk, int warps,
-                               int stash_smem, void* stream) {
+                               const float* sig2s, float* logl, float* preds,
+                               float* stash_scratch, int B, int T, int D,
+                               int K, int A, int min_len, int S, int W,
+                               int nblk, int warps, int stash_smem, int P,
+                               void* stream) {
   const extrack::Tables tb{lp0, s20, lt,  lsurv, endv, sig2v, ltn,
                            s2n, lsn, endn, K,    A,    min_len};
   if (!stash_smem && stash_scratch == nullptr && T > W)
     return (int)cudaErrorInvalidValue;
-  const extrack::WalkArgs wa{tb,   xs,    l2,           lengths,  isbl,
-                             B,    T,     S,            W,        logl,
-                             preds, stash_scratch, stash_smem};
+  const extrack::WalkArgs wa{tb,    xs,    l2,           lengths,
+                             isbl,  B,     T,            S,
+                             W,     logl,  preds,        stash_scratch,
+                             stash_smem, sig2s, P};
   unsigned long long* prof = nullptr;
 #ifdef EXTRACK_PROFILE
   cudaGetSymbolAddress((void**)&prof, extrack::g_predict_prof);

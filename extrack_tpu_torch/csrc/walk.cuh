@@ -40,6 +40,18 @@
 // still in the window are sums of the softmax weights of the slots whose
 // digit matches (digits from a per-slot code): a reduce-scatter over the
 // lanes in the warp mapping, warp partials in the block mapping.
+//
+// Variable dt (VDT): the displacement variances come per track and step
+// from a (B, T-1, P) stream (P = S^(n+1) patterns of the n+1 newest
+// sub-states; row t holds step t -> t+1) in place of the (K,) and (K, A)
+// tables.  The walk reads the track's row of step t where the constant
+// path reads its tables: slot k's initial variance at row 0, pattern
+// k / (K/P); a fusion's child k at row t, the same pattern; the
+// look-ahead child (k, a) at row t, pattern a*S + (k's newest digit).
+// The warp mapping prefetches the track's (T-1)*P floats into its slice
+// of shared memory with its positions; the block mapping reads them from
+// global memory, as it does its positions.  The choice is a template
+// flag, so the constant-dt instantiations keep their code.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -133,18 +145,19 @@ struct WalkLayout {
 // warps > 0: the warp mapping with `warps` warps a block; 0: the block
 // mapping.  Floats of a team's slice, in order: two publish areas
 // ((2+2D)K each); warp mapping: two buffers of a track's (T, D) variances
-// and positions, then its length and flag; block mapping: the closings'
-// and the harvest's warp partials; K4: the softmax over the register (K)
-// and the groups' masses (G); then K4's stash of fusion weights, when in
-// shared memory.
+// and positions, two of its (T-1, P) displacement variances (variable dt,
+// P > 0), then its length and flag; block mapping: the closings' and the
+// harvest's warp partials; K4: the softmax over the register (K) and the
+// groups' masses (G); then K4's stash of fusion weights, when in shared
+// memory.
 static __host__ __device__ inline WalkLayout walk_layout(int warps, int K,
                                                          int A, int D, int T,
                                                          int S, int W,
-                                                         bool pred) {
+                                                         bool pred, int P) {
   const int G = K / A;
   size_t fixed = (size_t)2 * (2 + 2 * D) * K;
   if (warps > 0)
-    fixed += (size_t)4 * T * D + 4;
+    fixed += (size_t)4 * T * D + (size_t)2 * (T - 1) * P + 4;
   else
     fixed += 4 * 32 + (pred ? (size_t)W * S * 32 : 0);
   if (pred) fixed += K + G;
@@ -164,6 +177,8 @@ struct WalkArgs {
   float* preds;           // K4: (B, T, S)
   float* stash_all;       // K4: global stash scratch, or null
   int stash_smem;         // K4: the stash in the team's shared memory
+  const float* sig2s;     // variable dt: (B, T-1, P) displacement variances
+  int P;                  // their patterns, S^(n+1); 0: constant dt
 };
 
 // Index math of one slot of a team.
@@ -176,22 +191,27 @@ struct Slot {
   unsigned code;          // K4: the slot's digits, oldest lowest, b bits
   unsigned hm;            // K4, warp mapping: bit i*S + s set when digit i
                           // of k is s (i*S + s < 16)
+  int pat, nw;            // variable dt: k's pattern of its n+1 newest
+                          // digits (k / (K/P)) and its newest digit (0 for
+                          // a slot past K)
 };
 
 // One track's walk on a team (a warp for the warp mapping, BLOCK for the
 // block mapping) whose J slots a thread are `sl`.  x / l2: the track's
-// (T, D) rows; stash: K4's stash of fusion weights; scr: K4's softmax
-// and group masses; red: the block mapping's partials.  Writes logL (and
-// K4's posterior row) for track b.
-template <int D, int J, int AS, bool PRED, bool BLOCK>
+// (T, D) rows; sg: its (T-1, P) displacement variances (VDT); stash: K4's
+// stash of fusion weights; scr: K4's softmax and group masses; red: the
+// block mapping's partials.  Writes logL (and K4's posterior row) for
+// track b.
+template <int D, int J, int AS, bool PRED, bool BLOCK, bool VDT>
 static __device__ __forceinline__ void walk_track(
     const WalkArgs& wa, const SlotTabs* tab, const Slot* sl, bool one_group,
     int bits, int b, int L, float isbl, const float* x, const float* l2,
-    float* pubs, float* scr, float* red, float* stash, int tid, int nteam,
-    Prof& pf) {
+    const float* sg, float* pubs, float* scr, float* red, float* stash,
+    int tid, int nteam, Prof& pf) {
   const Tables& tb = wa.tb;
   const int K = tb.K, A = AS > 0 ? AS : tb.A, G = K / A;
   const int T = wa.T, S = wa.S, W = wa.W;
+  const int P = VDT ? wa.P : 0, SP = VDT ? wa.P / A : 0;   // SP: states
   const int F = 2 + 2 * D;
   const float cl2pi = 0.5f * D * kLog2Pi;
   const int ks = K | 1;                         // stash row stride
@@ -214,10 +234,11 @@ static __device__ __forceinline__ void walk_track(
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     lp[j] = tab[j].lp0;
+    const float s20 = VDT ? sg[sl[j].pat] : tab[j].s20;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       m[j][d] = x[d];
-      s2[j][d] = l2[d] + tab[j].s20;
+      s2[j][d] = l2[d] + s20;
     }
   }
   float out = 0.f;
@@ -367,7 +388,8 @@ static __device__ __forceinline__ void walk_track(
         const int kA = sl[j].k * A;
         for (int a = 0; a < A; ++a) {
           float prod_n = c2pi, quad_n = 0.f;
-          const float s2n = __ldg(tb.s2n + kA + a);
+          const float s2n = VDT ? sg[t * P + a * SP + sl[j].nw]
+                                : __ldg(tb.s2n + kA + a);
 #pragma unroll
           for (int d = 0; d < D; ++d) {
             const float totn = s2n + u[j].tl[d] + l2n[d];
@@ -411,10 +433,12 @@ static __device__ __forceinline__ void walk_track(
 #pragma unroll
         for (int o = 0; o < (AS > 0 ? AS : 1); ++o) w[j][o] = w[0][o];
       }
+      // the child's variance of step t -> t+1 (t <= L-2 <= T-2 here)
+      const float sv = VDT ? sg[t * P + sl[j].pat] : tab[j].sig2v;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         m[j][d] = mf[d];
-        s2[j][d] = tab[j].sig2v + tf[d];
+        s2[j][d] = sv + tf[d];
       }
       lp[j] = lse + tab[j].lt + gate * tab[j].lsurv;
     }
@@ -452,9 +476,9 @@ static __device__ __forceinline__ void walk_track(
 // A thread's J slots and, for K4, their digit codes; `bits` per digit.
 template <int J>
 static __device__ __forceinline__ void slots_of(const Tables& tb, int S,
-                                                int W, int first, int step,
-                                                Slot* sl, SlotTabs* tab,
-                                                int& bits) {
+                                                int W, int P, int first,
+                                                int step, Slot* sl,
+                                                SlotTabs* tab, int& bits) {
   const int K = tb.K, G = K / tb.A;
   bits = 32 - __clz(max(S - 1, 1));
 #pragma unroll
@@ -473,13 +497,15 @@ static __device__ __forceinline__ void slots_of(const Tables& tb, int S,
     }
     sl[j].code = code;
     sl[j].hm = sl[j].act ? hm : 0u;
+    sl[j].pat = P > 0 && sl[j].act ? k / (K / P) : 0;
+    sl[j].nw = P > 0 && sl[j].act ? k / (K * tb.A / P) : 0;
     tab[j] = load_slot(tb, k, sl[j].act);
   }
 }
 
 // The warp mapping's track loop; `stash` is the warp's stash (shared or
 // global memory: the kernel calls this at two sites).
-template <int D, int J, int AS, bool PRED>
+template <int D, int J, int AS, bool PRED, bool VDT>
 static __device__ __forceinline__ void warp_tracks(const WalkArgs& wa,
                                                    float* ws, float* stash,
                                                    unsigned long long* prof) {
@@ -489,14 +515,16 @@ static __device__ __forceinline__ void warp_tracks(const WalkArgs& wa,
   const int gw = blockIdx.x * wpb + (threadIdx.x >> 5);
   const int nwarps = gridDim.x * wpb;
   const int TD = T * D;
+  const int SG = VDT ? (T - 1) * wa.P : 0;   // a track's streamed floats
   float* pubs = ws;
   float* rows = ws + 2 * (2 + 2 * D) * K;     // two (l2, x) buffers
-  int* meta = reinterpret_cast<int*>(rows + 4 * TD);
-  float* scr = rows + 4 * TD + 4;
+  float* sgb = rows + 4 * TD;                 // two (T-1, P) buffers (VDT)
+  int* meta = reinterpret_cast<int*>(sgb + 2 * SG);
+  float* scr = sgb + 2 * SG + 4;
   Slot sl[J];
   SlotTabs tab[J];
   int bits;
-  slots_of<J>(tb, wa.S, wa.W, lane, 32, sl, tab, bits);
+  slots_of<J>(tb, wa.S, wa.W, VDT ? wa.P : 0, lane, 32, sl, tab, bits);
   const int G = K / tb.A;
   const bool one_group = J == 2 && 32 % G == 0;
   Prof pf;
@@ -509,6 +537,11 @@ static __device__ __forceinline__ void warp_tracks(const WalkArgs& wa,
     for (int i = lane; i < TD; i += 32) {
       __pipeline_memcpy_async(l2d + i, wa.l2s + (size_t)bb * TD + i, 4);
       __pipeline_memcpy_async(xd + i, wa.xs + (size_t)bb * TD + i, 4);
+    }
+    if constexpr (VDT) {
+      float* sgd = sgb + buf * SG;
+      for (int i = lane; i < SG; i += 32)
+        __pipeline_memcpy_async(sgd + i, wa.sig2s + (size_t)bb * SG + i, 4);
     }
     if (lane == 0) {
       __pipeline_memcpy_async(meta + 2 * buf, wa.lengths + bb, 4);
@@ -533,33 +566,34 @@ static __device__ __forceinline__ void warp_tracks(const WalkArgs& wa,
           wa.preds[(size_t)b * T * wa.S + o] = 0.f;
       continue;
     }
-    walk_track<D, J, AS, PRED, false>(wa, tab, sl, one_group, bits, b, L,
-                                      isbl, x, l2, pubs, scr, nullptr, stash,
-                                      lane, 32, pf);
+    walk_track<D, J, AS, PRED, false, VDT>(
+        wa, tab, sl, one_group, bits, b, L, isbl, x, l2,
+        VDT ? sgb + buf * SG : nullptr, pubs, scr, nullptr, stash, lane, 32,
+        pf);
   }
   pf.flush(prof, lane == 0);
 }
 
-template <int D, int J, int AS, bool PRED>
+template <int D, int J, int AS, bool PRED, bool VDT>
 __global__ void __launch_bounds__(kWalkWarpBlock, walk_warp_min_blocks<J>())
     walk_warp_kernel(WalkArgs wa, unsigned long long* prof) {
   extern __shared__ __align__(16) float smem[];
   const WalkLayout lay = walk_layout(blockDim.x >> 5, wa.tb.K, wa.tb.A, D,
-                                     wa.T, wa.S, wa.W, PRED);
+                                     wa.T, wa.S, wa.W, PRED, VDT ? wa.P : 0);
   const int wib = threadIdx.x >> 5;
   const size_t fixed = lay.fixed / 4, stash = lay.stash / 4;
   if (wa.stash_smem) {
     float* ws = smem + wib * (fixed + stash);
-    warp_tracks<D, J, AS, PRED>(wa, ws, ws + fixed, prof);
+    warp_tracks<D, J, AS, PRED, VDT>(wa, ws, ws + fixed, prof);
   } else {
     const int gw = blockIdx.x * (blockDim.x >> 5) + wib;
-    warp_tracks<D, J, AS, PRED>(wa, smem + wib * fixed,
-                                wa.stash_all + (size_t)gw * stash, prof);
+    warp_tracks<D, J, AS, PRED, VDT>(wa, smem + wib * fixed,
+                                     wa.stash_all + (size_t)gw * stash, prof);
   }
 }
 
 // The block mapping's track loop (the kernel calls it at two sites).
-template <int D, bool PRED>
+template <int D, bool PRED, bool VDT>
 static __device__ __forceinline__ void block_tracks(const WalkArgs& wa,
                                                     float* sh, float* stash,
                                                     unsigned long long* prof) {
@@ -572,7 +606,7 @@ static __device__ __forceinline__ void block_tracks(const WalkArgs& wa,
   Slot sl[1];
   SlotTabs tab[1];
   int bits;
-  slots_of<1>(tb, wa.S, wa.W, k, 0, sl, tab, bits);
+  slots_of<1>(tb, wa.S, wa.W, VDT ? wa.P : 0, k, 0, sl, tab, bits);
   Prof pf;
   pf.start();
   for (int b = blockIdx.x; b < wa.B; b += gridDim.x) {
@@ -585,52 +619,66 @@ static __device__ __forceinline__ void block_tracks(const WalkArgs& wa,
           wa.preds[(size_t)b * T * wa.S + o] = 0.f;
       continue;
     }
-    walk_track<D, 1, 0, PRED, true>(
+    walk_track<D, 1, 0, PRED, true, VDT>(
         wa, tab, sl, false, bits, b, L, wa.isbls[b],
-        wa.xs + (size_t)b * T * D, wa.l2s + (size_t)b * T * D, pubs, scr,
+        wa.xs + (size_t)b * T * D, wa.l2s + (size_t)b * T * D,
+        VDT ? wa.sig2s + (size_t)b * (T - 1) * wa.P : nullptr, pubs, scr,
         red, stash, k, blockDim.x, pf);
   }
   pf.flush(prof, k == 0);
 }
 
-template <int D, int NT, bool PRED>
+template <int D, int NT, bool PRED, bool VDT>
 __global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
     walk_block_kernel(WalkArgs wa, unsigned long long* prof) {
   extern __shared__ __align__(16) float smem[];
   const WalkLayout lay = walk_layout(0, wa.tb.K, wa.tb.A, D, wa.T, wa.S,
-                                     wa.W, PRED);
+                                     wa.W, PRED, 0);
   if (wa.stash_smem)
-    block_tracks<D, PRED>(wa, smem, smem + lay.fixed / 4, prof);
+    block_tracks<D, PRED, VDT>(wa, smem, smem + lay.fixed / 4, prof);
   else
-    block_tracks<D, PRED>(wa, smem,
-                          wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4),
-                          prof);
+    block_tracks<D, PRED, VDT>(
+        wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
 }
 
 // The instantiation a launch runs: warps > 0, the warp mapping (J by K,
 // the fusion's A unrolled at 2 and 4: two states, or two sub-steps or four
 // states); else the block mapping by block size.
-template <int D, bool PRED>
+template <int D, bool PRED, bool VDT>
 static const void* walk_instance(int K, int A, int warps) {
   if (warps > 0) {
     if (K <= 32) {
       switch (A) {
-        case 2: return (const void*)walk_warp_kernel<D, 1, 2, PRED>;
-        case 4: return (const void*)walk_warp_kernel<D, 1, 4, PRED>;
-        default: return (const void*)walk_warp_kernel<D, 1, 0, PRED>;
+        case 2: return (const void*)walk_warp_kernel<D, 1, 2, PRED, VDT>;
+        case 4: return (const void*)walk_warp_kernel<D, 1, 4, PRED, VDT>;
+        default: return (const void*)walk_warp_kernel<D, 1, 0, PRED, VDT>;
       }
     }
     switch (A) {
-      case 2: return (const void*)walk_warp_kernel<D, 2, 2, PRED>;
-      case 4: return (const void*)walk_warp_kernel<D, 2, 4, PRED>;
-      default: return (const void*)walk_warp_kernel<D, 2, 0, PRED>;
+      case 2: return (const void*)walk_warp_kernel<D, 2, 2, PRED, VDT>;
+      case 4: return (const void*)walk_warp_kernel<D, 2, 4, PRED, VDT>;
+      default: return (const void*)walk_warp_kernel<D, 2, 0, PRED, VDT>;
     }
   }
   const int threads = (K + 31) / 32 * 32;
-  return threads <= 128   ? (const void*)walk_block_kernel<D, 128, PRED>
-         : threads <= 256 ? (const void*)walk_block_kernel<D, 256, PRED>
-         : threads <= 512 ? (const void*)walk_block_kernel<D, 512, PRED>
-                          : (const void*)walk_block_kernel<D, 1024, PRED>;
+  return threads <= 128   ? (const void*)walk_block_kernel<D, 128, PRED, VDT>
+         : threads <= 256 ? (const void*)walk_block_kernel<D, 256, PRED, VDT>
+         : threads <= 512 ? (const void*)walk_block_kernel<D, 512, PRED, VDT>
+                          : (const void*)walk_block_kernel<D, 1024, PRED, VDT>;
+}
+
+// walk_instance for a launch at D dimensions; P > 0: variable dt.
+template <bool PRED>
+static const void* walk_instance_for(int D, int K, int A, int warps, int P) {
+  switch (D) {
+    case 1: return P > 0 ? walk_instance<1, PRED, true>(K, A, warps)
+                         : walk_instance<1, PRED, false>(K, A, warps);
+    case 2: return P > 0 ? walk_instance<2, PRED, true>(K, A, warps)
+                         : walk_instance<2, PRED, false>(K, A, warps);
+    case 3: return P > 0 ? walk_instance<3, PRED, true>(K, A, warps)
+                         : walk_instance<3, PRED, false>(K, A, warps);
+    default: return nullptr;
+  }
 }
 
 static size_t walk_smem(const WalkLayout& lay, int warps, bool stash_smem) {
@@ -641,15 +689,10 @@ static size_t walk_smem(const WalkLayout& lay, int warps, bool stash_smem) {
 // Blocks of a K1 / K4 launch one SM keeps resident, or -error.
 template <bool PRED>
 static int walk_occupancy(int D, int K, int A, int T, int S, int W,
-                          int warps, int stash_smem) {
-  const void* fn = nullptr;
-  switch (D) {
-    case 1: fn = walk_instance<1, PRED>(K, A, warps); break;
-    case 2: fn = walk_instance<2, PRED>(K, A, warps); break;
-    case 3: fn = walk_instance<3, PRED>(K, A, warps); break;
-    default: return -(int)cudaErrorInvalidValue;
-  }
-  const WalkLayout lay = walk_layout(warps, K, A, D, T, S, W, PRED);
+                          int warps, int stash_smem, int P) {
+  const void* fn = walk_instance_for<PRED>(D, K, A, warps, P);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  const WalkLayout lay = walk_layout(warps, K, A, D, T, S, W, PRED, P);
   const size_t smem = walk_smem(lay, warps, stash_smem);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -664,16 +707,17 @@ static int walk_occupancy(int D, int K, int A, int T, int S, int W,
 template <bool PRED>
 static int launch_walk(const WalkArgs& wa, int D, int nblk, int warps,
                        unsigned long long* prof, cudaStream_t stream) {
-  const int K = wa.tb.K, A = wa.tb.A;
+  const int K = wa.tb.K, A = wa.tb.A, P = wa.P;
   if (D < 1 || D > 3 || K > 1024 || warps < 0 ||
       32 * warps > kWalkWarpBlock || (warps > 0 && K > 64) ||
-      (!PRED && wa.stash_smem) || (PRED && A != wa.S))
+      (!PRED && wa.stash_smem) || (PRED && A != wa.S) || P < 0 ||
+      (P > 0 && (wa.sig2s == nullptr || P % A != 0 || K % P != 0 ||
+                 wa.T < 2)))
     return (int)cudaErrorInvalidValue;
   if (wa.B <= 0) return 0;
-  const void* fn = D == 1   ? walk_instance<1, PRED>(K, A, warps)
-                   : D == 2 ? walk_instance<2, PRED>(K, A, warps)
-                            : walk_instance<3, PRED>(K, A, warps);
-  const WalkLayout lay = walk_layout(warps, K, A, D, wa.T, wa.S, wa.W, PRED);
+  const void* fn = walk_instance_for<PRED>(D, K, A, warps, P);
+  const WalkLayout lay = walk_layout(warps, K, A, D, wa.T, wa.S, wa.W, PRED,
+                                     P);
   const size_t smem = walk_smem(lay, warps, wa.stash_smem);
   // always: an occupancy query may have set a smaller limit
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

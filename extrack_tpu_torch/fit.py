@@ -100,7 +100,7 @@ def make_objective(batch,
                 b.max_len, b.nb_dims, nb_states, window, nb_substeps,
                 variable_dt=b.dt is not None, dtype=dtype,
                 what=f"length bucket {i} ({b.batch_size} tracks, "
-                     f"T={b.max_len})")
+                     f"T={b.max_len})", kernel="K2")
 
     def neg_logl(z: torch.Tensor) -> torch.Tensor:
         values = spec.resolve(spec.from_unconstrained(z))
@@ -333,13 +333,18 @@ def hessian_hvp_columns(batches, spec: tparams.Parameters, z_opt, dt,
                 b.max_len, b.nb_dims, nb_states, window, nb_substeps,
                 variable_dt=b.dt is not None, dtype=dtype,
                 what=f"length bucket {i} ({b.batch_size} tracks, "
-                     f"T={b.max_len})")
+                     f"T={b.max_len})", kernel="K3")
         tables_fn = _tables_fn(b, spec, dt, nb_states, cell_dims,
                                nb_substeps, matrix_type, input_loc_err)
         with torch.no_grad():
             tb = tables.ModelTables(*(f.detach() for f in tables_fn(z)))
-        jac = torch.autograd.functional.jacobian(
-            lambda z_: tuple(tables_fn(z_)), z)     # per field (*shape, n)
+        # J_t column by column, one JVP per free parameter: with variable
+        # dt sig2 is per track and step, and reverse mode would take one
+        # pass per entry
+        eye = torch.eye(n, dtype=dtype, device=device)
+        cols = [torch.autograd.functional.jvp(
+            lambda z_: tuple(tables_fn(z_)), z, eye[j])[1] for j in range(n)]
+        jac = [torch.stack(c, dim=-1) for c in zip(*cols)]  # (*shape, n)
         for j in range(n):
             _, g, hv = hvp_kernel.table_hvp(
                 b.positions, b.lengths, b.is_bleached, tb,

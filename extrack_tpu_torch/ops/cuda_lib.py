@@ -31,15 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer arguments, then int arguments, then the stream
 _SIGNATURES = {
-    "extrack_forward": [_P] * 15 + [_I] * 8 + [_P],
-    "extrack_forward_occupancy": [_I] * 5,
-    "extrack_grad": [_P] * 19 + [_I] * 9 + [_P],
-    "extrack_hvp": [_P] * 19 + [_I] * 9 + [_P],
-    "extrack_grad_occupancy": [_I] * 6,
-    "extrack_hvp_occupancy": [_I] * 6,
-    "extrack_predict": [_P] * 17 + [_I] * 11 + [_P],
-    "extrack_predict_occupancy": [_I] * 7,
-    "extrack_predict_layout": [_I] * 6 + [_P],
+    "extrack_forward": [_P] * 16 + [_I] * 9 + [_P],
+    "extrack_forward_occupancy": [_I] * 6,
+    "extrack_grad": [_P] * 21 + [_I] * 10 + [_P],
+    "extrack_hvp": [_P] * 21 + [_I] * 10 + [_P],
+    "extrack_grad_occupancy": [_I] * 7,
+    "extrack_hvp_occupancy": [_I] * 7,
+    "extrack_predict": [_P] * 18 + [_I] * 12 + [_P],
+    "extrack_predict_occupancy": [_I] * 8,
+    "extrack_predict_layout": [_I] * 7 + [_P],
     "extrack_hist": [_P] * 14 + [_I] * 8 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
     "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],

@@ -4,6 +4,10 @@ Replaces extrack_tpu/ops/pallas_engine.py:_kernel.  The host side builds
 the per-slot tables the kernel reads (``build_slot_tables``,
 ``build_next_tables``), folds the per-step 2*pi normalizer constants into
 the transition table, and lays the track data out as (B, T, D) float32.
+With variable dt (per-track or per-step intervals) it also streams the
+displacement-variance table, (B, T-1, P) float32 (``sig2_stream``), which
+K1, K2, K3 and K4 read in place of the s20, sig2v and s2n tables
+(``stream_index`` says which entry each slot reads).
 
 ``forward`` is the entry point: CUDA tensors launch the kernel (or raise,
 outside its envelope); CPU tensors run ``forward_plain``, which is
@@ -30,6 +34,8 @@ PLAIN_CALLS = 0
 MAX_SLOTS = 1024          # the block mapping: one thread per register slot
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 WARPS = (4, 2, 1)         # warps a block the warp mapping may launch
+# the kernels that take the streamed displacement-variance table
+STREAMED = ("K1", "K2", "K3", "K4")
 
 
 class Plan(NamedTuple):
@@ -107,6 +113,35 @@ def _dig(k, i, S, W):
     return (k // S ** (W - 1 - i)) % S
 
 
+def stream_index(S: int, W: int, n: int):
+    """Where the kernels read the streamed displacement variances: (pat
+    (K,), nxt (K, A)) column indices into a step's row of P = S^(n+1)
+    patterns.  Slot k's initial register and a fusion's child k read
+    pattern k // S^(W-n-1) (its n+1 newest digits); the look-ahead child
+    of slot k under new sub-state pattern a reads a*S + (k's newest
+    digit)."""
+    K, A = S ** W, S ** n
+    k = np.arange(K)
+    pat = k // S ** (W - n - 1)
+    nxt = np.arange(A)[None, :] * S + (k // S ** (W - 1))[:, None]
+    return pat, nxt
+
+
+def sig2_stream(sig2: torch.Tensor, B: int, T: int) -> torch.Tensor:
+    """The kernels' streamed displacement-variance table: (B, T-1, P)
+    float32, contiguous, row t of track b holding step t -> t+1, from a
+    per-step (T-1, P), per-track (B, T-1, P) or constant (1, P) table
+    (a per-track T=2 table is (B, 1, P)).  Differentiable w.r.t.
+    ``sig2``: a shared table is expanded over the tracks (and a one-row
+    table over the steps).  The JAX package's counterpart is
+    ``pallas_engine._sig2_stream``, which also moves the tracks onto the
+    TPU's lanes."""
+    s = sig2.to(torch.float32)
+    if s.ndim == 2:
+        s = s[None]
+    return s.expand(B, T - 1, s.shape[-1]).contiguous()
+
+
 def build_slot_tables(tables: ModelTables, window: int, nb_substeps: int):
     """(lp0, s20, lt, lsurv, end, sig2v) as (K,) tensors in the engine's
     slot encoding (newest digit highest).  ``lt``, ``lsurv`` and ``sig2v``
@@ -125,7 +160,7 @@ def build_slot_tables(tables: ModelTables, window: int, nb_substeps: int):
     lsurv = tables.log_survive.clamp_min(LOG_FLOOR)[k // S ** (W - n)]
     end = tables.end_ll.clamp_min(LOG_FLOOR)[_dig(k, 0, S, W)]
     sig2_row = tables.sig2.reshape(-1, tables.sig2.shape[-1])[0]
-    sig2 = sig2_row[k // S ** (W - n - 1)]            # n+1 newest digits
+    sig2 = sig2_row[stream_index(S, W, n)[0]]         # n+1 newest digits
     lp0 = tables.log_frac.clamp_min(LOG_FLOOR)[_dig(k, n, S, W)]
     for j in range(n):
         lp0 = lp0 + log_T[_dig(k, j + 1, S, W), _dig(k, j, S, W)]
@@ -154,7 +189,7 @@ def build_next_tables(tables: ModelTables, window: int, nb_substeps: int):
         ltn = ltn + log_T[dig_a(j + 1), dig_a(j)]
     ltn = ltn.expand(K, A)
     sig2_row = tables.sig2.reshape(-1, tables.sig2.shape[-1])[0]
-    s2n = sig2_row[a * S + newest_k]
+    s2n = sig2_row[stream_index(S, W, n)[1]]
     lsn = tables.log_survive.clamp_min(LOG_FLOOR)[None, :].expand(K, A)
     endn = tables.end_ll.clamp_min(LOG_FLOOR)[a // S ** (n - 1)].expand(K, A)
     return ltn, s2n, lsn, endn
@@ -182,9 +217,10 @@ def kernel_dtype(positions, tables: ModelTables) -> torch.dtype:
 
 def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                    variable_dt: bool = False, dtype=torch.float32,
-                   what: str = "batch"):
-    """Raise NotImplementedError, naming ``what``, when the kernels cannot
-    run this configuration."""
+                   what: str = "batch", kernel: str = "K1"):
+    """Raise NotImplementedError, naming ``what``, when ``kernel`` ("K1"
+    .. "K6") cannot run this configuration.  Variable dt is in the
+    envelope of the kernels in STREAMED only."""
     K = S ** window
     reasons = []
     if dtype != torch.float32:
@@ -199,9 +235,11 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                        f"(the largest window that fits is {fits})")
     if window < nb_substeps + 1:
         reasons.append(f"window {window} < nb_substeps+1")
-    if variable_dt:
-        reasons.append("per-step / per-track dt (the streamed "
-                       "displacement-variance table is not ported yet)")
+    if variable_dt and kernel not in STREAMED:
+        reasons.append(f"per-step / per-track dt ({kernel} takes constant "
+                       "dt only: it does not read the streamed "
+                       "displacement-variance table yet; device='cpu' runs "
+                       "the plain version, which takes variable dt)")
     if reasons:
         raise NotImplementedError(
             f"{what} (T={T}, D={D}, S={S}, window={window}, "
@@ -213,7 +251,10 @@ def kernel_inputs(positions, lengths, is_bleached, tables: ModelTables,
                   window: int, nb_substeps: int):
     """Kernel arguments: (xs, l2, lengths, isbl) as contiguous (B, T, D) /
     (B,) tensors, and the ten table tensors in float32 (lp0, s20, lt, lsurv,
-    end, sig2v, ltn, s2n, lsn, endn), differentiable w.r.t. ``tables``.
+    end, sig2v, ltn, s2n, lsn, endn), differentiable w.r.t. ``tables``;
+    with variable dt (``classify_sig2``) an eleventh, the streamed
+    displacement variances (``sig2_stream``), which the kernels read in
+    place of s20, sig2v and s2n (built from the first row, unread).
     The kernels drop the per-step 2*pi constants of the Gaussian
     normalizers; every fusion adds lt, so the constant folds into lt
     (exact, and lt's cotangent is unchanged)."""
@@ -233,18 +274,33 @@ def kernel_inputs(positions, lengths, is_bleached, tables: ModelTables,
     # cotangents into it
     tabs = [lp0.contiguous(), sig2v, lt.contiguous(), lsurv.contiguous(),
             end.contiguous(), sig2v] + nxt
+    if T >= 2 and classify_sig2(tables.sig2, T):
+        tabs.append(sig2_stream(tables.sig2, B, T))
     return (xs, l2, lens, isbl), tabs
+
+
+def stream_patterns(tabs) -> int:
+    """P of the streamed displacement variances among a kernel's tables
+    (the eleventh, variable dt), else 0 (constant dt)."""
+    return tabs[10].shape[-1] if len(tabs) > 10 else 0
 
 
 def validate(data, tabs, K: int, A: int):
     """Device, dtype, shape and contiguity checks before handing raw
-    pointers to a kernel."""
+    pointers to a kernel; a stream (variable dt) must be (B, T-1, P) with
+    P a multiple of A dividing K."""
     xs, l2, lens, isbl = data
     B, T, D = xs.shape
     want = [(xs, (B, T, D), torch.float32), (l2, (B, T, D), torch.float32),
             (lens, (B,), torch.int32), (isbl, (B,), torch.float32)]
     want += [(t, (K,), torch.float32) for t in tabs[:6]]
-    want += [(t, (K, A), torch.float32) for t in tabs[6:]]
+    want += [(t, (K, A), torch.float32) for t in tabs[6:10]]
+    P = stream_patterns(tabs)
+    if P:
+        if len(tabs) != 11 or T < 2 or P % A or K % P:
+            raise ValueError(f"a stream of {P} patterns does not fit K={K}, "
+                             f"A={A}, T={T}")
+        want.append((tabs[10], (B, T - 1, P), torch.float32))
     cuda_lib.check_args(want, xs.device)
 
 
@@ -257,15 +313,17 @@ def launch(data, tabs, min_len: int,
     B, T, D = xs.shape
     K, A = tabs[6].shape
     validate(data, tabs, K, A)
+    P = stream_patterns(tabs)
     lib = cuda_lib.library()
     dev = xs.device
     pl = plan(K, 0, 0, 0, None, mapping)
     nblk, _ = grid(B, pl, _sms(dev.index), _occupancy(
-        "extrack_forward_occupancy", D, K, A, T, pl.warps))
+        "extrack_forward_occupancy", D, K, A, T, pl.warps, P))
     logl = torch.empty(B, dtype=torch.float32, device=dev)
     rc = lib.extrack_forward(
-        *(t.data_ptr() for t in (*data, *tabs, logl)),
-        B, T, D, K, A, int(min_len), nblk, pl.warps,
+        *(t.data_ptr() for t in (*data, *tabs[:10])),
+        tabs[10].data_ptr() if P else None, logl.data_ptr(),
+        B, T, D, K, A, P, int(min_len), nblk, pl.warps,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "forward")
     LAUNCHES += 1
@@ -286,9 +344,9 @@ def forward_plain(positions, lengths, is_bleached, tables: ModelTables, *,
 def forward(positions, lengths, is_bleached, tables: ModelTables, *,
             window: int = 6, nb_substeps: int = 1,
             min_len: int = 3) -> torch.Tensor:
-    """Per-track log likelihood (B,).  CUDA inputs run K1 (float32 only;
-    anything outside its envelope raises); CPU inputs run the plain
-    version."""
+    """Per-track log likelihood (B,).  CUDA inputs run K1 (float32 only,
+    constant or variable dt; anything outside its envelope raises); CPU
+    inputs run the plain version."""
     if positions.device.type == "cpu":
         return forward_plain(positions, lengths, is_bleached, tables,
                              window=window, nb_substeps=nb_substeps,

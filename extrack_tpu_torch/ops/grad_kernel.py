@@ -9,7 +9,11 @@ localization-error variances:
 * CUDA tensors (float32 only), gradient wanted: one K2 launch computes the value and every
   table cotangent; ``backward`` only scales them.  ``plan`` picks K2's
   mapping: one warp per track for K <= 64 (its carry history in shared
-  memory when it fits), one block per track above.
+  memory when it fits), one block per track above.  With variable dt the
+  kernel reads the streamed displacement variances (``kernel_inputs``'
+  eleventh tensor) and returns their cotangent, which autograd carries
+  through the stream's expand and ``tables.build_tables`` to the
+  parameters.
 * CUDA tensors, no gradient wanted (``torch.no_grad`` or no input requires
   grad): the cheaper forward kernel K1.
 * CPU tensors: the plain version, torch autograd of ``core.engine.forward``.
@@ -51,18 +55,20 @@ def history_floats(T: int, D: int, K: int) -> int:
 
 
 def warp_slice_bytes(K: int, A: int, D: int, T: int, stash_smem: bool,
-                     itemsize: int = 4) -> int:
+                     itemsize: int = 4, P: int = 0) -> int:
     """Shared memory of one warp of the warp mapping (grad.cuh's
     warp_slice): the publish area, the cotangent accumulators of the (K,)
     and (K, A) tables, two buffers of a track's positions, variances,
-    length and flag and, when ``stash_smem``, the carry history."""
-    return itemsize * ((9 + 4 * D) * K + 4 * K * A + 4 * T * D + 4
+    (T-1, P) displacement variances (variable dt, ``P`` > 0), length and
+    flag and, when ``stash_smem``, the carry history."""
+    return itemsize * ((9 + 4 * D) * K + 4 * K * A + 4 * T * D
+                       + 2 * max(T - 1, 0) * P + 4
                        + (history_floats(T, D, K) if stash_smem else 0))
 
 
 def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
          itemsize: int = 4, mapping: str | None = None,
-         stash: str | None = None) -> Plan:
+         stash: str | None = None, P: int = 0) -> Plan:
     """K2's mapping for one launch: the warp mapping for K <= WARP_MAX_K,
     else the block mapping (``mapping`` "warp"/"block" forces one).  The
     warp mapping keeps the carry history in shared memory where it fits:
@@ -71,7 +77,8 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
     most warps resident on an SM (``occupancy(warps, stash_smem)`` gives
     the blocks), as many warps stay resident as with the history in global
     scratch; else in global scratch, 4 warps per block (``stash``
-    "smem"/"global" forces where)."""
+    "smem"/"global" forces where).  ``P`` > 0: variable dt, whose
+    streamed rows take a warp's slice too."""
     mapping = mapping or ("warp" if K <= WARP_MAX_K else "block")
     if mapping == "block":
         if stash == "smem":
@@ -82,7 +89,7 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
         raise ValueError(f"the warp mapping takes K <= {WARP_MAX_K}, got {K}")
     if stash != "global":
         fits = [w for w in WARPS
-                if w * warp_slice_bytes(K, A, D, T, True, itemsize)
+                if w * warp_slice_bytes(K, A, D, T, True, itemsize, P)
                 <= smem_limit]
         if fits:
             best = max(fits, key=lambda w: w * occupancy(w, True))
@@ -110,16 +117,17 @@ def grid(B: int, T: int, D: int, K: int, pl: Plan, sms: int, occupancy: int,
 
 
 def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
-          itemsize: int, mapping=None, stash=None):
+          itemsize: int, mapping=None, stash=None, P: int = 0):
     """The plan and grid of one K2 (``occupancy_fn`` extrack_grad_occupancy)
-    or K3 launch on ``dev``: (Plan, blocks, global scratch floats)."""
+    or K3 launch on ``dev`` (``P`` > 0: variable dt): (Plan, blocks, global
+    scratch floats)."""
     def occ(warps, smem):
-        n = occupancy_fn(D, K, A, T, warps, int(smem))
+        n = occupancy_fn(D, K, A, T, warps, int(smem), P)
         if n < 0:
             cuda_lib.check(-n, "occupancy query")
         return n
     pl = plan(K, A, D, T, cuda_lib.smem_bytes("extrack_grad_smem", dev.index),
-              occ, itemsize, mapping, stash)
+              occ, itemsize, mapping, stash, P)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nblk, scratch = grid(B, T, D, K, pl, sms, occ(pl.warps, pl.stash_smem),
                          itemsize)
@@ -129,33 +137,38 @@ def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
 def launch(data, tabs, min_len: int, mapping: str | None = None,
            stash: str | None = None):
     """Launch K2 on the current stream.  Returns logL (B,), d(sum logL)/d l2
-    (B, T, D) and the ten table cotangents, shaped like ``tabs``.
+    (B, T, D) and the table cotangents, shaped like ``tabs`` (with
+    variable dt the stream's last, its rows past each track's length 0).
     ``mapping`` and ``stash`` force ``plan``'s choices (tests, tools)."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape
     K, A = tabs[6].shape
     forward_kernel.validate(data, tabs, K, A)
+    P = forward_kernel.stream_patterns(tabs)
     lib = cuda_lib.library()
     dev = xs.device
     pl, nblk, nscratch = setup(lib, lib.extrack_grad_occupancy, B, T, D, K,
-                               A, dev, 4, mapping, stash)
+                               A, dev, 4, mapping, stash, P)
     ncols = 6 * K + 4 * K * A
     logl = torch.empty(B, dtype=torch.float32, device=dev)
     ct_l2 = torch.zeros((B, T, D), dtype=torch.float32, device=dev)
     ct_tab = torch.empty(ncols, dtype=torch.float32, device=dev)
+    ct_s2 = torch.zeros_like(tabs[10]) if P else None
     scratch = torch.empty(max(1, nscratch), dtype=torch.float32, device=dev)
     partial = torch.empty(nblk * ncols, dtype=torch.float32, device=dev)
     rc = lib.extrack_grad(
-        *(t.data_ptr() for t in (*data, *tabs, logl, ct_l2, ct_tab, scratch,
-                                 partial)),
-        B, T, D, K, A, int(min_len), nblk, pl.warps, int(pl.stash_smem),
+        *(t.data_ptr() for t in (*data, *tabs[:10])),
+        *(None if t is None else t.data_ptr()
+          for t in (tabs[10] if P else None, logl, ct_l2, ct_tab, ct_s2,
+                    scratch, partial)),
+        B, T, D, K, A, P, int(min_len), nblk, pl.warps, int(pl.stash_smem),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "gradient")
     LAUNCHES += 1
     vecs = ct_tab[:6 * K].view(6, K).unbind(0)
     mats = ct_tab[6 * K:].view(4, K, A).unbind(0)
-    return logl, ct_l2, list(vecs) + list(mats)
+    return logl, ct_l2, list(vecs) + list(mats) + ([ct_s2] if P else [])
 
 
 class NegLogLikelihood(torch.autograd.Function):
@@ -202,7 +215,7 @@ def neg_log_likelihood(positions, lengths, is_bleached, tables: ModelTables,
     forward_kernel.check_envelope(
         T, D, tables.nb_states, window, nb_substeps,
         forward_kernel.classify_sig2(tables.sig2, T),
-        forward_kernel.kernel_dtype(positions, tables))
+        forward_kernel.kernel_dtype(positions, tables), kernel="K2")
     (xs, l2, lens, isbl), tabs = forward_kernel.kernel_inputs(
         positions, lengths, is_bleached, tables, window, nb_substeps)
     if torch.is_grad_enabled() and (

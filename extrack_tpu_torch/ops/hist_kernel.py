@@ -109,7 +109,7 @@ def hist(positions, lengths, is_bleached, tables: ModelTables, *,
     forward_kernel.check_envelope(
         T, D, S, window, 1, forward_kernel.classify_sig2(tables.sig2, T),
         forward_kernel.kernel_dtype(positions, tables),
-        what="histogram batch")
+        what="histogram batch", kernel="K5")
     with torch.no_grad():
         data, tabs = forward_kernel.kernel_inputs(
             positions, lengths, is_bleached, tables, window, 1)

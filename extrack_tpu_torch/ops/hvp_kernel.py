@@ -7,7 +7,8 @@ returns ``(-sum logL, {field: gradient}, {field: H . tables_dot})`` for the
 ModelTables fields, H the Hessian of -sum logL w.r.t. the tables:
 
 * CUDA tensors (float32): ``kernel_inputs`` (forward_kernel) is piecewise
-  linear in the tables (gathers, sums, clamp_min, a constant, an expand),
+  linear in the tables (gathers, sums, clamp_min, a constant, an expand;
+  with variable dt also the streamed displacement variances),
   so H = K^T M K with M the kernel-level Hessian and K the Jacobian of
   ``kernel_inputs``.  ``tables_dot`` goes through ``kernel_inputs``' JVP,
   one K3 launch gives the kernel-level cotangents and their tangents, and
@@ -35,16 +36,20 @@ def launch(data, tabs, l2_dot, tabs_dot, min_len: int,
            mapping: str | None = None, stash: str | None = None):
     """Launch K3 on the current stream.  ``data`` and ``tabs`` as for K2,
     ``l2_dot`` and ``tabs_dot`` their tangents (same shapes).  Returns
-    (logL, its tangent), (d(sum logL)/d l2, its tangent) and the ten table
-    cotangents with their tangents, each as (value, tangent) pairs.  The
-    mapping is K2's (``grad_kernel.plan`` on dual scalars); ``mapping``
-    and ``stash`` force it."""
+    (logL, its tangent), (d(sum logL)/d l2, its tangent) and the table
+    cotangents with their tangents (with variable dt the stream's last),
+    each as (value, tangent) pairs.  The mapping is K2's
+    (``grad_kernel.plan`` on dual scalars); ``mapping`` and ``stash``
+    force it."""
     global LAUNCHES
     xs, l2 = data[0], data[1]
     B, T, D = xs.shape
     K, A = tabs[6].shape
     forward_kernel.validate(data, tabs, K, A)
     forward_kernel.validate((xs, l2_dot, data[2], data[3]), tabs_dot, K, A)
+    P = forward_kernel.stream_patterns(tabs)
+    if P != forward_kernel.stream_patterns(tabs_dot):
+        raise ValueError("tabs and tabs_dot differ in their stream")
     lib = cuda_lib.library()
     dev = xs.device
 
@@ -53,30 +58,33 @@ def launch(data, tabs, l2_dot, tabs_dot, min_len: int,
 
     pl, nblk, nscratch = grad_kernel.setup(lib, lib.extrack_hvp_occupancy,
                                            B, T, D, K, A, dev, 8, mapping,
-                                           stash)
+                                           stash, P)
     ncols = 6 * K + 4 * K * A
     f32 = dict(dtype=torch.float32, device=dev)
     logl = torch.empty((B, 2), **f32)
     ct_l2 = torch.zeros((B, T, D, 2), **f32)
     ct_tab = torch.empty((ncols, 2), **f32)
+    ct_s2 = torch.zeros((B, T - 1, P, 2), **f32) if P else None
     scratch = torch.empty(max(1, nscratch), **f32)
     partial = torch.empty(nblk * ncols * 2, **f32)
-    args = (xs, dual(l2, l2_dot), data[2], data[3],
-            *(dual(t, d) for t, d in zip(tabs, tabs_dot)), logl, ct_l2,
-            ct_tab, scratch, partial)
+    duals = [dual(t, d) for t, d in zip(tabs, tabs_dot)]
+    args = (xs, dual(l2, l2_dot), data[2], data[3], *duals[:10],
+            duals[10] if P else None, logl, ct_l2, ct_tab, ct_s2, scratch,
+            partial)
     rc = lib.extrack_hvp(
-        *(t.data_ptr() for t in args), B, T, D, K, A, int(min_len), nblk,
-        pl.warps, int(pl.stash_smem),
+        *(None if t is None else t.data_ptr() for t in args), B, T, D, K, A,
+        P, int(min_len), nblk, pl.warps, int(pl.stash_smem),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "Hessian-vector product")
     LAUNCHES += 1
 
-    def split(ct):
-        return (list(ct[:6 * K].view(6, K).unbind(0))
-                + list(ct[6 * K:].view(4, K, A).unbind(0)))
+    def split(i):
+        return (list(ct_tab[:6 * K, i].view(6, K).unbind(0))
+                + list(ct_tab[6 * K:, i].view(4, K, A).unbind(0))
+                + ([ct_s2[..., i]] if P else []))
 
     return ((logl[:, 0], logl[:, 1]), (ct_l2[..., 0], ct_l2[..., 1]),
-            (split(ct_tab[:, 0]), split(ct_tab[:, 1])))
+            (split(0), split(1)))
 
 
 def _as_dict(grads, like):
@@ -116,7 +124,7 @@ def table_hvp(positions, lengths, is_bleached, tables: ModelTables,
     forward_kernel.check_envelope(
         T, D, tables.nb_states, window, nb_substeps,
         forward_kernel.classify_sig2(tables.sig2, T),
-        forward_kernel.kernel_dtype(positions, tables))
+        forward_kernel.kernel_dtype(positions, tables), kernel="K3")
     return _table_hvp_kernel(positions, lengths, is_bleached, tables,
                              tables_dot, window, nb_substeps, min_len)
 

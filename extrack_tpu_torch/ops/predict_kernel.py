@@ -6,8 +6,9 @@ per-track log likelihood and per-frame state posteriors, for one sub-step
 per frame:
 
 * CUDA tensors (float32): one K4 launch on ``forward_kernel.kernel_inputs``
-  (the K1 tables), mapped as K1 (``forward_kernel.plan``), with its stash
-  of fusion weights in shared memory or global scratch.  Outside the
+  (the K1 tables, and with variable dt the streamed displacement
+  variances), mapped as K1 (``forward_kernel.plan``), with its stash of
+  fusion weights in shared memory or global scratch.  Outside the
   envelope it raises.
 * CPU tensors: ``predict_plain``, which is ``core.engine.forward(...,
   return_preds=True)`` on the same inputs.
@@ -30,28 +31,29 @@ PLAIN_CALLS = 0
 
 
 @functools.cache
-def layout(T: int, D: int, K: int, S: int, W: int, warp: bool):
+def layout(T: int, D: int, K: int, S: int, W: int, warp: bool, P: int = 0):
     """(shared bytes of one team besides its stash, the stash's bytes) of
-    a K4 launch, as the kernel's source defines its team
-    (``extrack_predict_layout``; a warp, or a block for the block
+    a K4 launch (``P`` > 0: variable dt), as the kernel's source defines
+    its team (``extrack_predict_layout``; a warp, or a block for the block
     mapping)."""
     out = (ctypes.c_longlong * 3)()
     cuda_lib.check(cuda_lib.library().extrack_predict_layout(
-        T, D, K, S, W, int(warp), ctypes.addressof(out)), "K4 layout")
+        T, D, K, S, W, int(warp), P, ctypes.addressof(out)), "K4 layout")
     return out[1], out[2]
 
 
 def setup(B: int, T: int, D: int, K: int, S: int, W: int, dev,
-          mapping: str | None = None, stash: str | None = None):
+          mapping: str | None = None, stash: str | None = None, P: int = 0):
     """The plan, blocks and bytes of global stash scratch of one K4 launch
-    on ``dev``, from the kernel's own layout and occupancy queries."""
+    on ``dev`` (``P`` > 0: variable dt), from the kernel's own layout and
+    occupancy queries."""
     def occ(warps, smem):
         return forward_kernel._occupancy("extrack_predict_occupancy", D, K,
-                                         S, T, W, warps, int(smem))
+                                         S, T, W, warps, int(smem), P)
 
     warp = (mapping or ("warp" if K <= forward_kernel.WARP_MAX_K
                         else "block")) == "warp"
-    fixed, stash_bytes = layout(T, D, K, S, W, warp)
+    fixed, stash_bytes = layout(T, D, K, S, W, warp, P)
     pl = forward_kernel.plan(K, fixed, stash_bytes,
                              cuda_lib.smem_bytes("extrack_predict_smem",
                                                  dev.index),
@@ -76,18 +78,20 @@ def launch(data, tabs, min_len: int, S: int, W: int,
         raise ValueError(f"K4 takes one sub-step per frame: K={K}, A={A} "
                          f"for S={S}, W={W}")
     forward_kernel.validate(data, tabs, K, A)
+    P = forward_kernel.stream_patterns(tabs)
     lib = cuda_lib.library()
     dev = xs.device
-    pl, nblk, nscratch = setup(B, T, D, K, S, W, dev, mapping, stash)
+    pl, nblk, nscratch = setup(B, T, D, K, S, W, dev, mapping, stash, P)
     f32 = dict(dtype=torch.float32, device=dev)
     logl = torch.empty(B, **f32)
     preds = torch.empty((B, T, S), **f32)
     scratch = torch.empty(nscratch // 4, **f32) if nscratch else None
     rc = lib.extrack_predict(
-        *(t.data_ptr() for t in (*data, *tabs, logl, preds)),
-        None if scratch is None else scratch.data_ptr(),
+        *(t.data_ptr() for t in (*data, *tabs[:10])),
+        *(None if t is None else t.data_ptr()
+          for t in (tabs[10] if P else None, logl, preds, scratch)),
         B, T, D, K, A, int(min_len), S, W, nblk, pl.warps,
-        int(pl.stash_smem), torch.cuda.current_stream(dev).cuda_stream)
+        int(pl.stash_smem), P, torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "posterior")
     LAUNCHES += 1
     return logl, preds
@@ -106,9 +110,9 @@ def predict_plain(positions, lengths, is_bleached, tables: ModelTables, *,
 
 def predict(positions, lengths, is_bleached, tables: ModelTables, *,
             window: int = 5, min_len: int = 3):
-    """(logL (B,), preds (B, T, S)).  CUDA inputs run K4 (float32 only;
-    anything outside its envelope raises); CPU inputs run the plain
-    version."""
+    """(logL (B,), preds (B, T, S)).  CUDA inputs run K4 (float32 only,
+    constant or variable dt; anything outside its envelope raises); CPU
+    inputs run the plain version."""
     if positions.device.type == "cpu":
         return predict_plain(positions, lengths, is_bleached, tables,
                              window=window, min_len=min_len)
@@ -116,7 +120,8 @@ def predict(positions, lengths, is_bleached, tables: ModelTables, *,
     forward_kernel.check_envelope(T, D, tables.nb_states, window, 1,
                                   forward_kernel.classify_sig2(tables.sig2, T),
                                   forward_kernel.kernel_dtype(positions,
-                                                              tables))
+                                                              tables),
+                                  kernel="K4")
     with torch.no_grad():
         data, tabs = forward_kernel.kernel_inputs(
             positions, lengths, is_bleached, tables, window, 1)

@@ -111,7 +111,7 @@ def refine(positions, lengths, loc_err2, log_trans, sig2_states, *,
                                     sig2_states)
                   if t.dtype != torch.float32), torch.float32)
     forward_kernel.check_envelope(T, D, S, window, 1, dtype=dtype,
-                                  what=what)
+                                  what=what, kernel="K6")
     lp0f, ltf, sig2v = build_refine_tables(log_trans, sig2_states, window)
     lp0r, ltr, _ = build_refine_tables(log_trans.T, sig2_states, window)
     tabs = [t.contiguous() for t in (lp0f, ltf, lp0r, ltr, sig2v)]

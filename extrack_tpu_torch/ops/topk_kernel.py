@@ -90,8 +90,10 @@ def check_envelope(T: int, D: int, S: int, M: int, nb_substeps: int = 1,
     if D not in (1, 2, 3):
         reasons.append(f"D={D} (K7 takes 1..3 dimensions)")
     if variable_dt:
-        reasons.append("per-step / per-track dt (the streamed "
-                       "displacement-variance table is not ported yet)")
+        reasons.append("per-step / per-track dt (K7 takes constant dt "
+                       "only, as the TPU kernel does: it does not read the "
+                       "streamed displacement-variance table; device='cpu' "
+                       "runs the plain version, which takes variable dt)")
     if M < P:
         reasons.append(f"max_nb_states={M} < nb_states^(nb_substeps+1)"
                        f"={P}")

@@ -12,7 +12,9 @@ tests/test_pallas_hist.py); refined mu rtol 2e-4 / atol 2e-5 and sigma rtol
 2e-3 / atol 2e-5 (as tests/test_pallas_refine.py); top-K histograms rtol
 1e-5 / atol 1e-5 max|hist| (the kernel and the plain version keep the same
 sequences, stably; only the f32 rounding of the sums differs), final
-weights of an unpruned register rtol 1e-4 / atol 1e-5.
+weights of an unpruned register rtol 1e-4 / atol 1e-5.  Variable dt (the
+streamed displacement-variance table of K1..K4) is held to the same
+tolerances.
 """
 import numpy as np
 import pytest
@@ -32,22 +34,33 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, S, n, B, T, D, seed=5, per_peak=False):
+def _case(dev, S, n, B, T, D, seed=5, per_peak=False, dt=None):
+    """Random tracks (lengths 0..T) and f32 tables with a forbidden
+    transition.  ``dt`` "step" or "track": variable dt, a (T-1,) or (B, T-1)
+    table of intervals uniform in 0.01..0.05 (a track's steps from its
+    length on at the median, as data.from_dict pads them); else 0.02."""
     rng = np.random.default_rng(seed)
     xs = rng.normal(0, 0.06, (B, T, D)).cumsum(1)
     lengths = rng.integers(0, T + 1, B)
     lengths[:2] = (T, 2)
     isbl = (lengths < T).astype(np.float32)
     f32 = dict(dtype=torch.float32, device=dev)
+    l2 = rng.uniform(1e-4, 9e-4, (B, T, D)) if per_peak else None
+    dts = 0.02
+    if dt == "step":
+        dts = torch.tensor(rng.uniform(0.01, 0.05, T - 1), **f32)
+    elif dt == "track":
+        d = rng.uniform(0.01, 0.05, (B, T - 1))
+        d[np.arange(T - 1)[None, :] >= lengths[:, None] - 1] = np.median(d)
+        dts = torch.tensor(d, **f32)
     rates = torch.full((S, S), 0.08, **f32)
     rates[0, -1] = 0.0
     tb = tables.build_tables(
         torch.linspace(0, 0.12, S, **f32), torch.tensor(0.02, **f32),
         torch.full((S,), 1.0 / S, **f32), rates, torch.tensor(0.1, **f32),
-        0.02, cell_dims=(0.8,), nb_substeps=n)
+        dts, cell_dims=(0.8,), nb_substeps=n)
     if per_peak:
-        tb = tb._replace(loc_err2=torch.tensor(
-            rng.uniform(1e-4, 9e-4, (B, T, D)), **f32))
+        tb = tb._replace(loc_err2=torch.tensor(l2, **f32))
     return (torch.tensor(xs, **f32),
             torch.tensor(lengths, dtype=torch.int32, device=dev),
             torch.tensor(isbl, **f32), tb)
@@ -85,9 +98,22 @@ def test_cuda_value_only_and_envelope(cuda):
         v, grad_kernel.neg_log_likelihood_plain(pos, lens, isbl, tb,
                                                 window=4), rtol=2e-5,
         atol=0.0)
+    # a per-track table (variable dt) streams through K1 and K2: here every
+    # track's rows are the constant table's
     per_track = tb._replace(sig2=tb.sig2.expand(50, 5, -1))
-    with pytest.raises(NotImplementedError, match="dt"):
-        grad_kernel.neg_log_likelihood(pos, lens, isbl, per_track, window=4)
+    with torch.no_grad():
+        v_dt = grad_kernel.neg_log_likelihood(pos, lens, isbl, per_track,
+                                              window=4)
+    torch.testing.assert_close(v_dt, v, rtol=2e-5, atol=0.0)
+    v_dt, g_dt = grad_kernel.value_and_table_grads(pos, lens, isbl,
+                                                   per_track, window=4)
+    v0, g0 = grad_kernel.value_and_table_grads_plain(pos, lens, isbl,
+                                                     per_track, window=4)
+    torch.testing.assert_close(v_dt, v0, rtol=2e-5, atol=0.0)
+    for k in g0:
+        torch.testing.assert_close(g_dt[k], g0[k], rtol=2e-3, atol=2e-3)
+    before = (before[0] + 2, before[1] + 1)
+    assert (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES) == before
     # a float64 input raises instead of running the kernel in float32
     with pytest.raises(NotImplementedError, match="float64"):
         grad_kernel.neg_log_likelihood(pos.double(), lens, isbl, tb, window=4)
@@ -95,8 +121,169 @@ def test_cuda_value_only_and_envelope(cuda):
         forward_kernel.forward(pos, lens, isbl,
                                tb._replace(log_trans=tb.log_trans.double()),
                                window=4)
-    assert (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES) == (
-        before[0] + 1, before[1])
+    assert (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES) == before
+
+
+# (S, W, n, B, T, D, dt): variable dt on K1, K2 and K4 (one sub-step), per
+# step and per track: the warp mapping at K = 64 (and forced onto the block
+# mapping), the block mapping at K = 243, two sub-steps, D = 1 and 3, and
+# T = 2 per track (a per-step table at T = 2 is one row: a constant dt)
+DT_CASES = [c + (dt,) for c in [
+    (2, 6, 1, 300, 9, 2), (3, 5, 1, 120, 9, 2), (2, 4, 2, 200, 8, 2),
+    (2, 4, 1, 150, 9, 1), (2, 3, 1, 150, 12, 3)] for dt in ("step", "track")
+] + [(2, 4, 1, 60, 2, 2, "track")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,B,T,D,dt", DT_CASES)
+def test_cuda_variable_dt_matches_plain(cuda, monkeypatch, S, W, n, B, T, D,
+                                        dt):
+    args = _case(cuda, S, n, B, T, D, seed=11, per_peak=(D == 1), dt=dt)
+    tb = args[3]
+    assert forward_kernel.classify_sig2(tb.sig2, T)
+    kw = dict(window=W, nb_substeps=n, min_len=2)
+    want = forward_kernel.forward_plain(*args, **kw)
+    v0, g0 = grad_kernel.value_and_table_grads_plain(*args, **kw)
+    K = S ** W
+    for warp_max in ((64, 0) if K <= 64 else (64,)):
+        monkeypatch.setattr(forward_kernel, "WARP_MAX_K", warp_max)
+        monkeypatch.setattr(grad_kernel, "WARP_MAX_K", warp_max)
+        before = forward_kernel.LAUNCHES, grad_kernel.LAUNCHES
+        torch.testing.assert_close(forward_kernel.forward(*args, **kw), want,
+                                   rtol=2e-5, atol=2e-4)
+        v, g = grad_kernel.value_and_table_grads(*args, **kw)
+        assert (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(v, v0, rtol=2e-5, atol=0.0)
+        for k in g:
+            torch.testing.assert_close(g[k], g0[k], rtol=2e-3, atol=2e-3)
+    monkeypatch.undo()
+    # K2's stream cotangent: rows from each track's length on are exactly 0,
+    # and s20, sig2v and s2n (unread) get none
+    data_, tabs = _kernel_args(args, W, n)
+    assert len(tabs) == 11
+    _, _, cts = grad_kernel.launch(data_, tabs, 2)
+    L = args[1].cpu().numpy()
+    dead = np.arange(T - 1)[None, :] >= L[:, None] - 1
+    assert bool((cts[10][torch.tensor(dead, device=cuda)] == 0).all())
+    assert bool((cts[10][torch.tensor(~dead, device=cuda)] != 0).any())
+    for i in (1, 5, 7):
+        assert bool((cts[i] == 0).all())
+    if n == 1:
+        logl0, preds0 = predict_kernel.predict_plain(*args, window=W,
+                                                     min_len=2)
+        logl, preds = predict_kernel.predict(*args, window=W, min_len=2)
+        torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
+        for mapping in (("warp", "block") if K <= 64 else ("block",)):
+            for stash in ("smem", "global"):
+                logl, preds = predict_kernel.launch(
+                    data_, tabs, 2, S, W, mapping=mapping, stash=stash)
+                torch.testing.assert_close(logl, logl0, rtol=2e-4,
+                                           atol=2e-4)
+                torch.testing.assert_close(preds, preds0, rtol=2e-3,
+                                           atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n", [(2, 6, 1), (3, 5, 1), (2, 4, 2)])
+def test_cuda_stream_of_constant_dt_matches_constant_kernels(cuda, S, W, n):
+    # the constant table streamed gives the constant-dt kernels' results
+    args = _case(cuda, S, n, 300, 9, 2)
+    data_, tabs = _kernel_args(args, W, n)
+    stream = forward_kernel.sig2_stream(args[3].sig2, 300, 9)
+    torch.testing.assert_close(
+        forward_kernel.launch(data_, tabs + [stream], 2),
+        forward_kernel.launch(data_, tabs, 2), rtol=1e-6, atol=1e-5)
+    got = grad_kernel.launch(data_, tabs + [stream], 2)
+    ref = grad_kernel.launch(data_, tabs, 2)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=1e-5)
+    # the stream's cotangent, summed over tracks and rows, is the constant
+    # sig2 row's, gathered from s20, sig2v and s2n
+    pat, nxt = forward_kernel.stream_index(S, W, n)
+    P = S ** (n + 1)
+    row = torch.zeros(P, dtype=torch.float64, device=cuda)
+    for i, idx in ((1, pat), (5, pat), (7, nxt)):
+        row.index_add_(0, torch.tensor(idx.ravel(), device=cuda),
+                       ref[2][i].double().ravel())
+    torch.testing.assert_close(got[2][10].double().sum((0, 1)), row,
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,dt", [(4, "track"), (6, "step")])
+def test_cuda_k3_variable_dt_mappings_agree(cuda, W, dt):
+    # K3 with the stream's tangent in and its cotangent pair out, on both
+    # mappings
+    args = _case(cuda, 2, 1, 200, 9, 2, dt=dt)
+    data_, tabs = _kernel_args(args, W)
+    rng = np.random.default_rng(W)
+    dots = [torch.tensor(rng.normal(0, 1e-3, t.shape), dtype=torch.float32,
+                         device=cuda) for t in tabs]
+    l2_dot = torch.zeros_like(data_[1])
+    warp = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2, mapping="warp")
+    block = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2, mapping="block")
+    assert len(warp[2][0]) == len(warp[2][1]) == 11
+    for a, b in zip(warp[2][0] + warp[2][1], block[2][0] + block[2][1]):
+        torch.testing.assert_close(a, b, rtol=2e-4,
+                                   atol=2e-5 * float(b.abs().max()))
+    L = args[1].cpu().numpy()
+    dead = torch.tensor(np.arange(8)[None, :] >= L[:, None] - 1, device=cuda)
+    for c in (warp[2][0][10], warp[2][1][10]):
+        assert bool((c[dead] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n", [(2, 4, 1), (2, 3, 2), (3, 3, 1)])
+def test_cuda_hessian_columns_per_track_dt_match_plain(cuda, S, W, n):
+    rng = np.random.default_rng(S + W + n + 40)
+    B, T = 200, 8
+    lengths = rng.integers(1, T + 1, B)
+    lengths[:2] = (T, 2)
+    tracks, dts = {}, {}
+    for L in range(1, T + 1):
+        nb = int((lengths == L).sum())
+        if nb:
+            tracks[str(L)] = rng.normal(0, 0.05, (nb, L, 2)).cumsum(1)
+            dts[str(L)] = rng.uniform(0.01, 0.05, (nb, max(L - 1, 0)))
+    buckets = data.from_dict_bucketed(tracks, max_buckets=2, dt=dts,
+                                      device=cuda, dtype=torch.float32)
+    assert all(b.dt is not None for b in buckets)
+    spec = params.generate_params(nb_states=S, D_max=1.0)
+    spec.add("p01", 0.0, vary=False)                   # forbidden transition
+    z = spec.to_unconstrained()
+    kw = dict(cell_dims=(0.8,), nb_substeps=n, window=W, min_len=2)
+    before = hvp_kernel.LAUNCHES, hvp_kernel.PLAIN_CALLS
+    H = fit.hessian_hvp_columns(buckets, spec, z, 0.02, S, **kw)
+    assert (hvp_kernel.LAUNCHES, hvp_kernel.PLAIN_CALLS) == (
+        before[0] + len(z) * len(buckets), before[1])
+    saved = hvp_kernel.table_hvp
+    hvp_kernel.table_hvp = hvp_kernel.table_hvp_plain
+    try:
+        H0 = fit.hessian_hvp_columns(buckets, spec, z, 0.02, S, **kw)
+    finally:
+        hvp_kernel.table_hvp = saved
+    scale = np.abs(H0).max()
+    np.testing.assert_allclose(H, H0, rtol=5e-3, atol=1e-3 * scale)
+    np.testing.assert_allclose(H, H.T, atol=2e-3 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_histograms_with_variable_dt_raise_naming_the_kernel(cuda):
+    # K5 and K7 take constant dt only: the card raises, naming the kernel
+    pos, lens, isbl, tb = _case(cuda, 2, 1, 40, 8, 2, dt="track")
+    with pytest.raises(NotImplementedError, match="K5.*dt|dt.*K5"):
+        hist_kernel.hist(pos, lens, isbl, tb, window=5, min_len=2)
+    with pytest.raises(NotImplementedError, match="K7"):
+        topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=64,
+                                 min_len=2)
+    rng = np.random.default_rng(3)
+    tracks = {"6": rng.normal(0, 0.05, (20, 6, 2)).cumsum(1)}
+    values = {"LocErr": 0.02, "D0": 0.0, "D1": 0.08, "F0": 0.5, "F1": 0.5,
+              "p01": 0.1, "p10": 0.1, "pBL": 0.1}
+    with pytest.raises(NotImplementedError, match="K5"):
+        histograms.len_hist(tracks, values, {"6": np.full((20, 5), 0.03)},
+                            nb_states=2, window=5)
 
 
 @pytest.mark.cuda
@@ -221,7 +408,9 @@ def test_predict_layout(cuda):
     its length and flag, the softmax and the groups' masses; a block's
     holds the publish areas, the closings' and the harvest's warp partials,
     the softmax and the masses; the stash of fusion weights is T-W rows of
-    K floats, padded to an odd length."""
+    K floats, padded to an odd length.  With variable dt (P = S^2) a
+    warp's slice also holds two buffers of the track's (T-1, P) streamed
+    displacement variances."""
     import ctypes
     from extrack_tpu_torch.ops import cuda_lib
     lib = cuda_lib.library()
@@ -231,14 +420,15 @@ def test_predict_layout(cuda):
         out = (ctypes.c_longlong * 3)()
         stash = 4 * max(T - W, 0) * (K | 1)
         for warps in ((1, 0) if K <= 64 else (0,)):
-            assert lib.extrack_predict_layout(T, D, K, S, W, warps,
-                                              ctypes.addressof(out)) == 0
-            pub = 2 * (2 + 2 * D) * K
-            fixed = (pub + 4 * T * D + 4 + K + G if warps
-                     else pub + 128 + W * S * 32 + K + G)
-            assert tuple(out) == (32 if warps else -(-K // 32) * 32,
-                                  4 * fixed, stash)
-        assert lib.extrack_predict_layout(T, D, 81, 3, 4, 1,
+            for P in (0, S * S):
+                assert lib.extrack_predict_layout(
+                    T, D, K, S, W, warps, P, ctypes.addressof(out)) == 0
+                pub = 2 * (2 + 2 * D) * K
+                fixed = (pub + 4 * T * D + 2 * (T - 1) * P + 4 + K + G
+                         if warps else pub + 128 + W * S * 32 + K + G)
+                assert tuple(out) == (32 if warps else -(-K // 32) * 32,
+                                      4 * fixed, stash)
+        assert lib.extrack_predict_layout(T, D, 81, 3, 4, 1, 0,
                                           ctypes.addressof(out)) != 0
 
 
@@ -402,6 +592,8 @@ def test_cuda_topk_matches_plain(cuda, S, n, M, B, T, D):
     per_track = tb._replace(sig2=tb.sig2.expand(B, T - 1, -1))
     with pytest.raises(NotImplementedError, match="dt"):
         topk_kernel.segment_topk(pos, lens, isbl, per_track, **kw)
+    with pytest.raises(NotImplementedError, match="K5"):
+        hist_kernel.hist(pos, lens, isbl, per_track, window=3, min_len=3)
 
 
 def _kernel_args(args, W, n=1):

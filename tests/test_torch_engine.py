@@ -131,6 +131,10 @@ def test_classify_sig2_and_envelope():
     assert forward_kernel.kernel_dtype(pos.double(), tb) == torch.float64
     assert forward_kernel.kernel_dtype(
         pos, tb._replace(loc_err2=tb.loc_err2.double())) == torch.float64
-    with pytest.raises(NotImplementedError, match="bucket 3"):
+    # variable dt is in K1's envelope (the streamed table); K5 raises,
+    # naming the bucket and itself
+    forward_kernel.check_envelope(10, 2, 2, 6, 1, variable_dt=True,
+                                  what="bucket 3")
+    with pytest.raises(NotImplementedError, match="bucket 3.*K5"):
         forward_kernel.check_envelope(10, 2, 2, 6, 1, variable_dt=True,
-                                      what="bucket 3")
+                                      what="bucket 3", kernel="K5")

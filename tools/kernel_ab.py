@@ -32,8 +32,10 @@ times K1 alone (a check of a kernel whose source did not change, without
 the other kernels' heat in the same process) and then compares the SASS of
 K1's instantiation at the bench shape (D=2, K=64) in the two builds
 (``cuobjdump -sass``): ``forward_kernel<2>`` in a checkout that predates
-the warp mapping, ``walk_warp_kernel<2, 2, 2, false>`` after it, so across
-that change the two differ by construction.  ``--k4`` times K4 alone: at
+the warp mapping, ``walk_warp_kernel<2, 2, 2, false>`` after it (and
+``walk_warp_kernel<2, 2, 2, false, false>``, constant dt, once the walk
+has its variable-dt flag), so across the first change the two differ by
+construction.  ``--k4`` times K4 alone: at
 the bench shape, on the main path's tracks bare, and through
 ``predict_Bs`` (host work included, so more passes).
 """
@@ -259,9 +261,11 @@ def main() -> int:
 
 
 # K1's instantiation at the bench shape: the block-per-track kernel, or the
-# warp mapping's (D=2, two slots a lane, A=2, no posteriors)
+# warp mapping's (D=2, two slots a lane, A=2, no posteriors; constant dt
+# where the walk also has a variable-dt flag)
 K1_BENCH = ("_ZN7extrack14forward_kernelILi2E",
-            "_ZN7extrack16walk_warp_kernelILi2ELi2ELi2ELb0E")
+            "_ZN7extrack16walk_warp_kernelILi2ELi2ELi2ELb0EE",
+            "_ZN7extrack16walk_warp_kernelILi2ELi2ELi2ELb0ELb0EE")
 
 
 def forward_sass(lib: str) -> list:
