@@ -8,7 +8,8 @@ Phases (each prints its lines; a failed check exits non-zero):
 0. toolchain: torch / CUDA versions, nvcc, the card's name and power limit,
    the kernel build time (one nvcc per source, in parallel) and nvcc's
    register / spill report, which fails the run on a spill in any K1, K4,
-   K5 or K6 instantiation of up to 512 threads;
+   K5 or K6 instantiation of up to 512 threads, constant or variable dt
+   (K5's variable-dt instantiations listed with their spill bytes);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
@@ -54,8 +55,14 @@ Phases (each prints its lines; a failed check exits non-zero):
    ``histograms.len_hist`` on the 10^5 tracks with the fitted parameters
    (window 7, 4 length buckets), with its K5 launch count, each bucket
    against the plain version, frame conservation, and the simulated
-   states' histogram beside it; K5's time at 2^20 tracks (T=10, W=7,
-   S=2), launched on prepared inputs and through ``hist_kernel.hist``;
+   states' histogram beside it; then K5 at two sub-steps a frame against
+   the plain version in float64 (S=2 at windows of 4 and 5 frames, K =
+   128 and 512; S=3 at 3 frames, K = 243) and
+   ``len_hist(nb_substeps=2, window=4)`` on the 10^5 tracks (its K5
+   launches, each bucket against the plain version, frame conservation);
+   K5's time at 2^20 tracks (T=10, W=7 sub-steps, S=2) at one and at two
+   sub-steps a frame, launched on prepared inputs and through
+   ``hist_kernel.hist``;
 8. K6 (csrc/refine.cu): refined positions against ``refine_plain`` at
    eight configurations with a zero in the transition matrix (odd K,
    4 states, per-peak LocErr, T=2 and 0/1-frame rows, D = 1 and 3, a
@@ -91,7 +98,7 @@ Phases (each prints its lines; a failed check exits non-zero):
    and, for reading, ``torch.topk`` on one step's (2^20, 1024) scores;
    K7's bound as the live register needs it (``topk_ops``) beside the
    count of all M rows;
-10. variable dt (K1..K4 reading the streamed (B, T-1, P) displacement
+10. variable dt (K1..K5 reading the streamed (B, T-1, P) displacement
    variances): K1's logL, K2's value and every table gradient (the
    stream's, through ``sig2``, included), K3's Hessian-vector products and
    K4's posteriors against their plain versions in float64 (on the same
@@ -101,17 +108,21 @@ Phases (each prints its lines; a failed check exits non-zero):
    per-step (T-1, P) and a per-track (B, T-1, P) table (per-track only at
    T = 2, where a per-step table is one row: a constant dt), K2's stream
    cotangent exactly 0 past each track's length, K3's Hessian columns on
-   per-track dt buckets, and a stream of a constant dt against the
-   constant-dt kernels; then the mixed-frame-rate main path: ``sim_fov``
+   per-track dt buckets, a stream of a constant dt against the
+   constant-dt kernels, and K5's histogram per step and per track at one
+   and two sub-steps a frame (K = 128 and 243); then the mixed-frame-rate
+   main path: ``sim_fov``
    at dt 0.02 (seed 0) and 0.05 (seed 1), 50,000 tracks each, merged into
    one length-keyed dict with a per-track dt dict; per bucket the
    objective's value and z-gradient against the plain version; then
    ``fit.param_fitting(dt=dt_dict, compute_errors=True)`` with its K2 and
    K3 launch counts, a value-only objective (K1), and
-   ``predict.predict_Bs(dt=dt_dict)`` with its K4 launches, each bucket
-   against the plain version; the variable-dt kernels' times at the bench
-   shape with per-track dt uniform in 0.01..0.03, bare and through their
-   wrappers, beside their plain versions and the constant-dt times.
+   ``predict.predict_Bs(dt=dt_dict)`` with its K4 launches and
+   ``histograms.len_hist(dt=dt_dict)`` (window 7) with its K5 launches,
+   each bucket against the plain version (the histogram's frames
+   conserved); the variable-dt kernels' times at the bench shape with
+   per-track dt uniform in 0.01..0.03, bare and through their wrappers,
+   beside their plain versions and the constant-dt times.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -186,6 +197,12 @@ HIST_CASES = [(2, 7, 2, 3001, 10, False), (3, 5, 2, 3001, 10, False),
               (2, 5, 2, 3001, 10, True), (2, 4, 2, 257, 2, True),
               (2, 5, 1, 301, 12, False), (2, 4, 3, 301, 12, False),
               (2, 9, 2, 64, 60, True)]
+# K5 past one sub-step (phase 7) and with variable dt (phase 10), against
+# the plain version in float64 on the same inputs: (S, frames in the
+# window, sub-steps a frame); K = 128, 512, 243 at two sub-steps, and
+# with variable dt K = 128 and 243 at one and at two
+HIST_SUB_CASES = [(2, 4, 2), (2, 5, 2), (3, 3, 2)]
+HIST_DT_CASES = [(2, 7, 1), (3, 5, 1), (2, 4, 2), (3, 3, 2)]
 # K6: the same fields; odd K (S=3), 4 states, and a stash in global scratch
 # last
 REFINE_CASES = [(2, 7, 2, 1001, 10, False), (3, 5, 2, 1001, 10, False),
@@ -390,9 +407,12 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
     the update at L-1 and the harvest (the posteriors of the frames that
     left the window carried back through their fusions' weights, linear
     in the length, rather than the engine's history mix).  K5 runs L-2
-    fusions, each child mixing A members' (1+S)*min(t+1, T) run/hist
-    bins at step t (a weight of 4 and 2 per bin and member), and a
-    harvest of 4 per slot and bin.  K6 runs 2(L-2) transition-only
+    fusions (A = S^n children a group), each fusion group mixing its A
+    members' (1+S)*min(t+1, T) run/hist bins at step t, 2 per bin and
+    member (where the oldest frame drops, the run mixes the A/S members
+    whose run goes on and the histogram adds the (S-1)A/S whose run ends:
+    A members a bin all the same), and a harvest of 4 per slot and bin.
+    K6 runs 2(L-2) transition-only
     fusions (the suffix and the prefix scan), two one-sided ends of
     9D+5 per slot, and at each of the L-2 interior positions the two
     sides' precision forms (13D+6 per slot) and S*(K/S)^2 pairs of
@@ -408,7 +428,7 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
         ops = 0.0
         for t in range(1, int(L.max(initial=2)) - 1):
             bins = (1 + S) * min(t + 1, T)
-            ops += float((L - 2 >= t).sum()) * (step + K * A * (4 + 2 * bins))
+            ops += float((L - 2 >= t).sum()) * (step + G * A * 2 * bins)
         return ops + float(L.size) * K * (14 * D + 7 + 4 * S * T)
     if kind == "K6":
         pairs = S * (K // S) ** 2 * (11 * D + 8) + K * (13 * D + 6)
@@ -860,6 +880,54 @@ def check_predict(tag, pos, lens, isbl, tb, W, runs) -> float:
     return worst
 
 
+def k5_bound(buckets, n: int, stream: int = 0):
+    """K5's bound (2 states, W=7 sub-steps, K=128) on ``buckets`` at n
+    sub-steps a frame: positions and l2 in, lengths and isBL in, the
+    static segment tables (Wf+2 rows) once per bucket, ``stream`` bytes
+    of variable dt, the (T, S) histogram out."""
+    from extrack_tpu_torch import data
+    wf = (7 - 1) // n + 1
+    rows = sum(b.positions.numel() for b in buckets) * 4
+    n_tr = sum(b.batch_size for b in buckets)
+    seg_bytes = sum((wf + 2) * 2 * b.max_len * 128 * 4 for b in buckets)
+    return bound(2 * rows + 8 * n_tr + seg_bytes + stream,
+                 sum(walk_ops(data.host_lengths(b), 128, 2 ** n, 2, "K5",
+                              T=b.max_len, W=7, S=2) for b in buckets))
+
+
+def k5_runs(buckets, tbs, n: int, W: int = 7, min_len: int = 3):
+    """Three functions over ``buckets`` (each with its tables in ``tbs``)
+    at W sub-steps, n a frame: bare K5 launches on prepared inputs, K5
+    through ``hist_kernel.hist``, and the plain version in chunks of
+    PLAIN_HIST_CHUNK tracks (a per-track table sliced with them)."""
+    from extrack_tpu_torch.ops import forward_kernel, hist_kernel
+    args = []
+    for b, tb in zip(buckets, tbs):
+        d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                               b.is_bleached, tb, W, n)
+        args.append((d, [t.detach() for t in tabs]))
+    kw = dict(window=W, min_len=min_len, nb_substeps=n)
+
+    def bare():
+        for d, tabs in args:
+            hist_kernel.launch(d, tabs, min_len, 2, W, n)
+
+    def wrapped():
+        for b, tb in zip(buckets, tbs):
+            hist_kernel.hist(b.positions, b.lengths, b.is_bleached, tb, **kw)
+
+    def plain():
+        with torch.no_grad():
+            for b, tb in zip(buckets, tbs):
+                for i in range(0, b.batch_size, PLAIN_HIST_CHUNK):
+                    sl = slice(i, i + PLAIN_HIST_CHUNK)
+                    hist_kernel.hist_plain(
+                        b.positions[sl], b.lengths[sl], b.is_bleached[sl],
+                        tb._replace(sig2=tb.sig2[sl] if tb.sig2.ndim == 3
+                                    else tb.sig2), **kw)
+    return bare, wrapped, plain
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -913,6 +981,12 @@ def main() -> int:
                        "extrack_tpu/ops/pallas_hvp.py:78"),
         "K4 dt": entry("posteriors_variable_dt", "predict.cu",
                        "extrack_tpu/ops/pallas_predict.py:65"),
+        "K5 dt": entry("duration_hist_variable_dt", "hist.cu",
+                       "extrack_tpu/ops/pallas_hist.py:63"),
+        # two sub-steps a frame: the TPU kernel stops at one, and JAX runs
+        # its XLA window engine there (extrack_tpu/histograms.py:290)
+        "K5 n=2": entry("duration_hist_substeps", "hist.cu",
+                        "extrack_tpu/ops/pallas_hist.py:63"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -938,6 +1012,7 @@ def main() -> int:
         f"{lib_path.name}")
     spills = []
     entry_name = ""
+    k5_new = {}     # spill bytes of K5's variable-dt and sub-step kernels
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
@@ -946,6 +1021,11 @@ def main() -> int:
             entry_name = line.split("'")[1]
         spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill",
                             line)
+        k5 = re.match(r"_ZN7extrack11hist_kernelILi(\d)ELi(\d+)ELb([01])E"
+                      r"Lb([01])E", entry_name)
+        if spilled and k5 and "1" in k5.group(3, 4):
+            key = "D={} NT={} VDT={} SUB={}".format(*k5.group(1, 2, 3, 4))
+            k5_new[key] = int(spilled.group(1)) + int(spilled.group(2))
         block = re.match(r"_ZN7extrack(?:1[13](?:hist|refine)_kernel|17walk_"
                          r"block_kernel)ILi\dELi(\d+)E", entry_name)
         threads = (int(block.group(1)) if block
@@ -956,8 +1036,13 @@ def main() -> int:
             spills.append(entry_name)
     if spills:
         fail(f"K1/K4/K5/K6 instantiations of <= 512 threads spill: {spills}")
-    log("phase 0: no K1, K4 (constant or variable dt), K5 or K6 "
-        "instantiation of <= 512 threads spills")
+    log("phase 0: no K1, K4, K5 (constant or variable dt) or K6 "
+        "instantiation of <= 512 threads spills; K5's variable-dt and "
+        "sub-step instantiations, spill bytes (stores + loads): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(k5_new.items())))
+    if len(k5_new) != 36:
+        fail(f"K5 has {len(k5_new)} variable-dt or sub-step instantiations, "
+             "not 36 (D 1..3, 4 block sizes, 3 flag pairs)")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -1458,46 +1543,80 @@ def main() -> int:
         log(f"  l={ln:2d}: {hist[ln - 1, 0]:10.1f} / {hist[ln - 1, 1]:10.1f}"
             f"   simulated {truth[ln - 1, 0]:8.0f} / {truth[ln - 1, 1]:8.0f}")
 
-    # K5 time at 2^20 tracks, T=10, W=7
-    args7 = [forward_kernel.kernel_inputs(b.positions, b.lengths,
-                                          b.is_bleached, tb, 7, 1)
-             for b in bench]
-    args7 = [(d, [t.detach() for t in tabs[:6]]) for d, tabs in args7]
+    # K5 past one sub-step: parity against the plain version in float64,
+    # then len_hist(nb_substeps=2) on the main path
+    for S, wf, n in HIST_SUB_CASES:
+        W = n * (wf - 1) + 1
+        pos, lens, isbl, tb7 = parity_case(S, W, n, 430 + S * 10 + wf, dev)
+        kw7 = dict(window=W, min_len=2, nb_substeps=n)
+        h = hist_kernel.hist(pos, lens, isbl, tb7, **kw7)
+        again = hist_kernel.hist(pos, lens, isbl, tb7, **kw7)
+        p64, i64, t64 = float64(pos, isbl, tb7)
+        h0 = hist_kernel.hist_plain(p64, lens, i64, t64, **kw7)
+        L = lens.cpu().numpy()
+        errs["K5 n=2"].append(check_hist(
+            f"phase 7: K5 S={S} window {wf} frames n={n} (W={W}, K={S ** W})"
+            " against the plain version in float64", h.double(), h0,
+            float(L[L >= 2].sum())))
+        if not torch.equal(h, again):
+            fail(f"K5 gave two histograms for one input at S={S} n={n}")
+    reset_counts()
+    t0 = time.time()
+    hist2 = histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                                nb_states=2, nb_substeps=2, window=4)
+    t_hist2 = time.time() - t0
+    k5, plain = hist_kernel.LAUNCHES, plain_calls()
+    log(f"phase 7: len_hist(nb_substeps=2, window=4) on {n_tr} tracks "
+        f"(W=7, K=128) {t_hist2:.2f} s; K5 launches {k5}, plain calls "
+        f"{plain} [{card}]")
+    if k5 != len(pbuckets) or plain != 0:
+        fail(f"two-sub-step histogram path K5 launches {k5} (want "
+             f"{len(pbuckets)}), plain calls {plain}")
+    kinfo["K5 n=2"]["launches"] = k5
+    tbf2 = tables.build_tables(Ds, loc_err, Fs, rates, pBL, 0.02,
+                               cell_dims=(0.5,), nb_substeps=2)
+    summed = np.zeros_like(hist2)
+    for b in pbuckets:
+        args = (b.positions, b.lengths, b.is_bleached, tbf2)
+        kw7 = dict(window=7, min_len=min_len, nb_substeps=2)
+        h = hist_kernel.hist(*args, **kw7)
+        h0 = hist_kernel.hist_plain(*args, **kw7)
+        L = data.host_lengths(b)
+        errs["K5 n=2"].append(check_hist(
+            f"phase 7: n=2 bucket T={b.max_len} B={b.batch_size}", h, h0,
+            float(L[L >= 2].sum()), kernel="K5 (n=2)"))
+        summed[:b.max_len] += h.double().cpu().numpy()
+    counted = float((hist2 * np.arange(1, hist2.shape[0] + 1)[:, None]).sum())
+    ok = (np.array_equal(summed, hist2)
+          and abs(counted - frames) <= TOL_FRAMES * frames)
+    log(f"phase 7: len_hist(nb_substeps=2) = the sum of its buckets' K5 "
+        f"histograms: {np.array_equal(summed, hist2)}; frames {counted:.1f} "
+        f"of {frames} (rel {abs(counted - frames) / frames:.2e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("len_hist(nb_substeps=2) differs from its buckets or loses "
+             "frames")
 
-    def k5_run():
-        for d, tabs in args7:
-            hist_kernel.launch(d, tabs, 3, 2, 7)
-
-    def k5_wrapped():
-        for b in bench:
-            hist_kernel.hist(b.positions, b.lengths, b.is_bleached, tb,
-                             window=7, min_len=3)
-
-    def p5_run():
-        with torch.no_grad():
-            for b in bench:
-                for i in range(0, b.batch_size, PLAIN_HIST_CHUNK):
-                    sl = slice(i, i + PLAIN_HIST_CHUNK)
-                    hist_kernel.hist_plain(
-                        b.positions[sl], b.lengths[sl], b.is_bleached[sl],
-                        tb, window=7, min_len=3)
-
-    ms5, wms5 = cuda_ms(k5_run, 10), cuda_ms(k5_wrapped, 5)
-    pms5 = cuda_ms(p5_run, 1)
-    # bytes: positions and l2 in, lengths and isBL in, the static segment
-    # tables once per bucket, the (T, S) histogram out
-    seg_bytes = sum(9 * 2 * b.max_len * 128 * 4 for b in bench)
-    kinfo["K5"]["ms"], kinfo["K5"]["plain_ms"] = ms5, pms5
-    kinfo["K5"]["wrapper_ms"] = wms5
-    kinfo["K5"]["bound_ms"], kinfo["K5"]["bound_by"] = bound(
-        2 * rows + 8 * n_bench + seg_bytes,
-        sum(walk_ops(data.host_lengths(b), 128, 2, 2, "K5", T=b.max_len,
-                     W=7, S=2) for b in bench))
-    log(f"phase 7: K5 {n_bench} tracks ({len(bench)} buckets), W=7: kernel "
-        f"{ms5:.3f} ms = {n_bench / ms5 * 1e3 / 1e6:.3f}M tracks/s (with "
-        f"its wrapper {wms5:.3f} ms); plain {pms5:.3f} ms (chunks of "
-        f"{PLAIN_HIST_CHUNK}); bound {kinfo['K5']['bound_ms']:.4f} ms "
-        f"({kinfo['K5']['bound_by']}) [{card}]")
+    # K5 time at 2^20 tracks, T=10, W=7: one sub-step, then two (window
+    # of 4 frames, K=128, A=4)
+    tb2 = tables.build_tables(
+        torch.tensor([0.0, 0.08], **f32), torch.tensor(0.02, **f32),
+        torch.tensor([0.5, 0.5], **f32),
+        torch.tensor([[0.0, 0.1], [0.1, 0.0]], **f32),
+        torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,), nb_substeps=2)
+    for k, n, tbk in (("K5", 1, tb), ("K5 n=2", 2, tb2)):
+        bare, wrapped, plain_run = k5_runs(bench, [tbk] * len(bench), n)
+        info = kinfo[k]
+        info["ms"], info["wrapper_ms"] = cuda_ms(bare, 10), cuda_ms(wrapped, 5)
+        info["plain_ms"] = cuda_ms(plain_run, 1)
+        info["bound_ms"], info["bound_by"] = k5_bound(bench, n)
+        log(f"phase 7: {k} {n_bench} tracks ({len(bench)} buckets), W=7, "
+            f"n={n}: kernel {info['ms']:.3f} ms = "
+            f"{n_bench / info['ms'] * 1e3 / 1e6:.3f}M tracks/s (with its "
+            f"wrapper {info['wrapper_ms']:.3f} ms); plain "
+            f"{info['plain_ms']:.3f} ms (chunks of {PLAIN_HIST_CHUNK}); "
+            f"bound {info['bound_ms']:.4f} ms ({info['bound_by']}) [{card}]")
+    ms5 = kinfo["K5"]["ms"]
 
     # ---- phase 8: K6 -------------------------------------------------------
     for S, W, D, B, T, per_peak in REFINE_CASES:
@@ -1851,7 +1970,8 @@ def main() -> int:
         f"({by30_old}) [{card}]")
 
     del bench30
-    phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3, ms4)
+    phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3, ms4,
+            ms5)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
@@ -1864,14 +1984,16 @@ def main() -> int:
 
 
 def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
-            ms4):
-    """Variable dt: parity of K1..K4 with the streamed table, the
+            ms4, ms5):
+    """Variable dt: parity of K1..K5 with the streamed table, the
     mixed-frame-rate main path, and the variable-dt kernels' times (``ms``,
-    ``ms3``, ``ms4``: the constant-dt bare times of phases 4-6)."""
-    from extrack_tpu_torch import data, fit, params, predict
+    ``ms3``, ``ms4``, ``ms5``: the constant-dt bare times of phases
+    4-7)."""
+    from extrack_tpu_torch import data, fit, histograms, params, predict
     from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
-                                       hvp_kernel, predict_kernel)
+                                       hist_kernel, hvp_kernel,
+                                       predict_kernel)
     t10 = time.time()
     # parity, kernel against the plain version in float64 on the same
     # (float32) inputs: the f32 plain version's own rounding of the
@@ -1930,6 +2052,21 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
         if not ok:
             fail("K1 on a constant stream differs from constant-dt K1")
 
+    # K5 per step and per track, at one and two sub-steps a frame
+    for S, wf, n in HIST_DT_CASES:
+        W = n * (wf - 1) + 1
+        for kind in ("step", "track"):
+            pos, lens, isbl, tb = parity_case(S, W, n, 560 + S * 10 + wf + n,
+                                              dev, dt=kind)
+            kw = dict(window=W, min_len=2, nb_substeps=n)
+            h = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+            p64, i64, t64 = float64(pos, isbl, tb)
+            h0 = hist_kernel.hist_plain(p64, lens, i64, t64, **kw)
+            L = lens.cpu().numpy()
+            errs["K5 dt"].append(check_hist(
+                f"phase 10: K5 S={S} window {wf} frames n={n} (K={S ** W}) "
+                f"{kind} dt against the plain version in float64",
+                h.double(), h0, float(L[L >= 2].sum()), kernel="K5 dt"))
     log(f"phase 10: parity {time.time() - t10:.1f} s")
     # the mixed-frame-rate main path
     t0 = time.time()
@@ -2044,9 +2181,12 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
     Ds, Fs, rates, loc_err, pBL = params.extract_arrays(
         values, 2, device=dev, dtype=torch.float32)
     hits = total = 0
+    # predict_Bs and len_hist give every bucket the dataset's
+    # representative dt for its survival tables
+    dt_repr = data.dt_median(tracks, dts)
     for b in buckets:
         tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, b.dt,
-                                 cell_dims=(0.5,))
+                                 cell_dims=(0.5,), dt_repr=dt_repr)
         args = (b.positions, b.lengths, b.is_bleached, tb)
         logl, preds = predict_kernel.predict(*args, window=5,
                                              min_len=min_len)
@@ -2069,6 +2209,40 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
             total += states[k].size
     log(f"phase 10: frames whose most probable state is the simulated one: "
         f"{hits}/{total} = {hits / total:.4f} (for reading, not a gate)")
+    # the duration histogram of the mixed frame rates (K5 on the stream)
+    reset_counts()
+    t0 = time.time()
+    hist = histograms.len_hist(tracks, values, dts, cell_dims=(0.5,),
+                               nb_states=2)
+    t_hist = time.time() - t0
+    k5, plain = hist_kernel.LAUNCHES, plain_calls()
+    log(f"phase 10: len_hist on {n_tr} mixed-frame-rate tracks (window 7) "
+        f"{t_hist:.2f} s; K5 launches {k5}, plain calls {plain} [{card}]")
+    if k5 != len(buckets) or plain != 0:
+        fail(f"mixed-frame-rate histogram: K5 launches {k5}, plain {plain}")
+    kinfo["K5 dt"]["launches"] = k5
+    summed = np.zeros_like(hist)
+    for b in buckets:
+        tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, b.dt,
+                                 cell_dims=(0.5,), dt_repr=dt_repr)
+        args = (b.positions, b.lengths, b.is_bleached, tb)
+        h = hist_kernel.hist(*args, window=7, min_len=min_len)
+        h0 = hist_kernel.hist_plain(*args, window=7, min_len=min_len)
+        L = data.host_lengths(b)
+        errs["K5 dt"].append(check_hist(
+            f"phase 10: histogram bucket T={b.max_len} B={b.batch_size}", h,
+            h0, float(L[L >= 2].sum()), kernel="K5 dt"))
+        summed[:b.max_len] += h.double().cpu().numpy()
+    frames = sum(int(k) * len(v) for k, v in tracks.items() if int(k) >= 2)
+    counted = float((hist * np.arange(1, hist.shape[0] + 1)[:, None]).sum())
+    ok = (np.array_equal(summed, hist)
+          and abs(counted - frames) <= TOL_FRAMES * frames)
+    log(f"phase 10: len_hist = the sum of its buckets' K5 histograms: "
+        f"{np.array_equal(summed, hist)}; frames {counted:.1f} of {frames} "
+        f"(rel {abs(counted - frames) / frames:.2e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("mixed-frame-rate len_hist differs from its buckets or loses "
+             "frames")
     del tracks, buckets, out
     log(f"phase 10: parity and main path {time.time() - t10:.1f} s")
 
@@ -2144,8 +2318,9 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
                   each(lambda p, l, i, tb, _: predict_kernel.predict_plain(
                       p, l, i, tb, window=5, min_len=3), PLAIN_CHUNK)),
     }
+    runs["K5 dt"] = k5_runs(bench, tbs, 1)
     const = {"K1 dt": ms["K1"], "K2 dt": ms["K2"], "K3 dt": ms3,
-             "K4 dt": ms4}
+             "K4 dt": ms4, "K5 dt": ms5}
     rows = sum(b.positions.numel() for b in bench) * 4
     stream = sum(b.batch_size * (b.max_len - 1) * 4 for b in bench) * 4
     nbytes = {"K1 dt": 2 * rows + 12 * n_bench + stream,
@@ -2161,13 +2336,15 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
         info = kinfo[k]
         info["ms"] = cuda_ms(bare, 10)
         info["wrapper_ms"] = cuda_ms(wrapped, 5)
-        if k == "K3 dt":
+        if k in ("K3 dt", "K5 dt"):
             info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
         else:
             with torch.no_grad() if k in ("K1 dt", "K4 dt") else (
                     torch.enable_grad()):
                 info["plain_ms"] = cuda_ms(plain_run, 2)
-        info["bound_ms"], info["bound_by"] = bound(nbytes[k], nops[k])
+        info["bound_ms"], info["bound_by"] = (
+            k5_bound(bench, 1, stream) if k == "K5 dt"
+            else bound(nbytes[k], nops[k]))
         log(f"phase 10: {k} {n_bench} tracks ({len(bench)} buckets), "
             f"per-track dt in {BENCH_DT}: kernel {info['ms']:.3f} ms = "
             f"{info['ms'] / const[k]:.3f}x constant dt's {const[k]:.3f} ms "

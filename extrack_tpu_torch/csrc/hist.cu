@@ -1,35 +1,50 @@
 // K5: the posterior-expected duration (segment-length) histogram of the
-// window DP, for nb_substeps = 1.
+// window DP, at any number n of sub-steps a frame, with constant or
+// variable dt.
 //
 // Replaces the TPU kernel extrack_tpu/ops/pallas_hist.py:_kernel (driven
-// by hist_pallas).  Same semantics as the plain
-// histograms.window_segment_histogram: K1's register walk, in which each
-// slot also carries `run`, the distribution over the length of the run
-// that holds the window's oldest frame (T bins), and `hist`, the expected
-// histogram of the segments completed in the frames already dropped (S*T
-// bins, state-major).  Every fusion mixes a child's rows from its group's
-// members with the fusion weights; once frames drop out of the window, a
-// member whose oldest run goes on into the next frame passes its run on
-// grown by one, and a member whose oldest run ends there adds it to its
-// histogram and passes on a fresh run of length 1.  At the track's last
-// frame the softmax of the register weighs, per bin, the carried
+// by hist_pallas; one sub-step), and JAX's XLA window engine past one
+// sub-step (extrack_tpu/histograms.py:window_segment_histogram).  Same
+// semantics as the plain histograms.window_segment_histogram: K1's
+// register walk, in which each slot also carries `run`, the distribution
+// over the length in frames of the run that holds the window's oldest
+// frame (T bins), and `hist`, the expected histogram of the segments
+// completed in the frames already dropped (S*T bins, state-major).  Every
+// fusion mixes a child's rows from its group's members with the fusion
+// weights; once frames drop out of the window (one a step, n sub-steps),
+// a member whose oldest run goes on into the next frame passes its run
+// on grown by one, and a member whose oldest run ends there adds it to
+// its histogram and passes on a fresh run of length 1.  At the track's
+// last frame the softmax of the register weighs, per bin, the carried
 // histogram, the carried run placed in the oldest state's row and shifted
 // by the length of the window's oldest run, and the window's own segments
 // (the static tables `seg`, read from global memory: the same for every
 // track, so they stay in L2).
 //
-// Rows per fusion group.  The fusion weights of a group's A = S members
+// Variable dt (VDT): the displacement variances come from the track's
+// (T-1, P) rows of the streamed table (P = S^(n+1) patterns, as K1's
+// walk reads them, walk.cuh): the initial register reads row 0 and the
+// fusion at step t row t, slot k at pattern k / (K/P), in place of s20
+// and sig2v.  The read is issued before the step's barrier, from global
+// memory (a block reads P floats of one row a step, so they stay in L1).
+//
+// Rows per fusion group.  The fusion weights of a group's A = S^n members
 // are the group's, and whether a member's oldest run goes on depends on
-// the group alone (its second-oldest state q), so the S children of a
-// group get the same rows: the kernel keeps G = K/S rows per bin, one per
-// group, and slot c's rows are those of group c % G.  Group g's members
-// are slots g*S .. g*S+S-1, whose rows are the S consecutive groups
-// (g*S) % G + o.  With w_o the members' weights, a fusion writes, bin by
-// bin (each bin mixed in registers and written once):
-//   run(r)    = sum_o w_o run_o(r)                     (frames all kept)
-//             = r == 0 ? 1 - w_q : w_q run_q(r-1)      (the oldest drops)
-//   hist_s(r) = sum_o w_o hist_{s,o}(r) + c_s run_s(r),
-//               c_s = w_s where the oldest drops and s != q, else 0:
+// the group and the member's oldest state alone (it goes on where that
+// state is q, the group's digit n sub-steps newer, a frame's), so the A
+// children of a group get the same rows: the kernel keeps G = K/A rows
+// per bin, one per group, and slot c's rows are those of group c % G.
+// Group g's members are slots g*A .. g*A+A-1, whose rows are those of the
+// groups (g*A + o) % G: the A consecutive groups (g*A) % G + o where A
+// divides G, and o % G where it does not (a window of two frames, W = n+1,
+// n >= 2).  With w_o the members' weights and old(o) = o % S member o's
+// oldest state, a fusion writes, bin by bin (each bin mixed in registers
+// and written once):
+//   run(r)    = sum_o w_o run_o(r)                          (frames kept)
+//             = r == 0 ? 1 - sum_{old(o)=q} w_o             (the oldest
+//                      : sum_{old(o)=q} w_o run_o(r-1)        frame drops)
+//   hist_s(r) = sum_o w_o hist_{s,o}(r) + sum_{old(o)=s} c_o run_o(r),
+//               c_o = w_o where the oldest frame drops and s != q, else 0:
 // no branch on the member inside a warp.  At step t only bins 0..t can be
 // nonzero and bin t is new (zero in the sources), so a track starts with
 // bin 0 set (run 1, hist 0) and no other zeroing: every bin is written
@@ -37,8 +52,8 @@
 //
 // Mapping: K4's.  One block per track; thread k owns slot k's Gaussian
 // carry in registers; a fusion publishes the update to one of two shared
-// areas in turn (one barrier a step), and the S children of group g split
-// its bins (child a = k / G takes the bins r = a mod S).  The rows are
+// areas in turn (one barrier a step), and the A children of group g split
+// its bins (child a = k / G takes the bins r = a mod A).  The rows are
 // double-buffered and bin-major (bin r of group g at r*G + g, so a warp
 // touches consecutive banks), in shared memory when both buffers fit what
 // a block may opt in to, else in global scratch per persistent block.  The
@@ -50,7 +65,7 @@
 // bitwise identical.
 //
 // What bounds it on Hopper: as K4, instruction issue and barriers, not
-// device memory.  The transport adds (1+S)*(t+1)*(S+1) multiply-adds per
+// device memory.  The transport adds (1+S)*(t+1)*(A+1) multiply-adds per
 // group at step t, and the harvest K*S*T multiply-adds per track.
 #include "common.cuh"
 
@@ -65,15 +80,18 @@ static __device__ unsigned long long g_hist_prof[kProfSlots];
 
 // Group g's run/hist bins at step t that child a takes, from the rows
 // `cur` of the previous step into `nxt` (bin r of set u = 0 (run), 1+s
-// (hist of state s) at (u*T + r)*G + g).  mb0 = (g*S) % G is the members'
-// first group, q the group's second-oldest state.  MS = S (2, 3 or 4): the
-// members' weights w in registers and every member loop unrolled; MS = 0,
-// any S: the weights recomputed from the fusion's `pub`, mx and inv_sw.
-template <int MS>
+// (hist of state s) at (u*T + r)*G + g).  mb0 = (g*A) % G is the members'
+// first group (`wrap`: A does not divide G, member o's group is o % G), q
+// the group's state a frame newer than the oldest.  MS = A (2, 3 or 4):
+// the members' weights w in registers and every member loop unrolled, SS
+// = S their states; MS = SS = 0, any S and A: the weights recomputed from
+// the fusion's `pub`, mx and inv_sw.  SUB: more than one sub-step a frame
+// (A = S^n > S); without it A == S and member o's oldest state is o.
+template <int MS, int SS, bool SUB>
 static __device__ __forceinline__ void transport(
-    const float* cur, float* nxt, int G, int T, int S, int t, bool drop,
-    int g, int a, int q, int mb0, const float* w, const float* pub, int K,
-    int m0, float mx, float inv_sw) {
+    const float* cur, float* nxt, int G, int T, int S, int A, int t,
+    bool drop, int g, int a, int q, int mb0, bool wrap, const float* w,
+    const float* pub, int K, int m0, float mx, float inv_sw) {
   auto wt = [&](int o) {
     if constexpr (MS > 0) {
       float v = w[0];
@@ -85,72 +103,129 @@ static __device__ __forceinline__ void transport(
       return ex2(pub[m0 + o] - mx) * pub[K + m0 + o] * inv_sw;
     }
   };
+  // member o's rows: those of group (g*A + o) % G
+  auto row = [&](int o) {
+    if constexpr (MS > 0 || !SUB) {
+      return mb0 + o;
+    } else {
+      return wrap ? o % G : mb0 + o;
+    }
+  };
   // the weighted sum over the members of row u, bin r
   auto mix = [&](int u, int r) {
-    const float* in = cur + (size_t)(u * T + r) * G + mb0;
+    const float* in = cur + (size_t)(u * T + r) * G;
     float v = 0.f;
     if constexpr (MS > 0) {
+      in += mb0;
 #pragma unroll
       for (int o = 0; o < MS; ++o) v = fmaf(w[o], in[o], v);
-    } else {
+    } else if constexpr (!SUB) {
+      in += mb0;
       for (int o = 0; o < S; ++o) v = fmaf(wt(o), in[o], v);
+    } else {
+      for (int o = 0; o < A; ++o) v = fmaf(wt(o), in[row(o)], v);
     }
     return v;
   };
   const int nb = min(t + 1, T);        // bins written at this step
   const int nold = min(t, T);          // bins the sources hold
-  if (drop) {
-    const float wq = wt(q);
-    for (int r = a; r < nb; r += S)
-      nxt[(size_t)r * G + g] =
-          r == 0 ? 1.f - wq : wq * cur[(size_t)(r - 1) * G + mb0 + q];
+  if constexpr (!SUB) {
+    // one sub-step: member o's oldest state is o
+    if (drop) {
+      const float wq = wt(q);
+      for (int r = a; r < nb; r += S)
+        nxt[(size_t)r * G + g] =
+            r == 0 ? 1.f - wq : wq * cur[(size_t)(r - 1) * G + mb0 + q];
+    } else {
+      for (int r = a; r < nb; r += S)
+        nxt[(size_t)r * G + g] = r < nold ? mix(0, r) : 0.f;
+    }
+    for (int s = 0; s < S; ++s) {
+      const float cs = drop && s != q ? wt(s) : 0.f;
+      for (int r = a; r < nb; r += S)
+        nxt[(size_t)((1 + s) * T + r) * G + g] =
+            r < nold ? fmaf(cs, cur[(size_t)r * G + mb0 + s], mix(1 + s, r))
+                     : 0.f;
+    }
   } else {
-    for (int r = a; r < nb; r += S)
-      nxt[(size_t)r * G + g] = r < nold ? mix(0, r) : 0.f;
-  }
-  for (int s = 0; s < S; ++s) {
-    const float cs = drop && s != q ? wt(s) : 0.f;
-    for (int r = a; r < nb; r += S)
-      nxt[(size_t)((1 + s) * T + r) * G + g] =
-          r < nold ? fmaf(cs, cur[(size_t)r * G + mb0 + s], mix(1 + s, r))
-                   : 0.f;
+    // A = S^n members: member o's oldest state is o % S; the runs of the
+    // members o = q, q+S, ... go on across the drop, the others end
+    const int nS = SS > 0 ? SS : S, nA = MS > 0 ? MS : A;
+    if (drop) {
+      float wq = 0.f;
+      for (int o = q; o < nA; o += nS) wq += wt(o);
+      for (int r = a; r < nb; r += nA) {
+        float v = 1.f - wq;
+        if (r > 0) {
+          v = 0.f;
+          for (int o = q; o < nA; o += nS)
+            v = fmaf(wt(o), cur[(size_t)(r - 1) * G + row(o)], v);
+        }
+        nxt[(size_t)r * G + g] = v;
+      }
+    } else {
+      for (int r = a; r < nb; r += nA)
+        nxt[(size_t)r * G + g] = r < nold ? mix(0, r) : 0.f;
+    }
+    for (int s = 0; s < S; ++s) {
+      const bool ends = drop && s != q;   // runs of oldest state s end
+      for (int r = a; r < nb; r += nA) {
+        float v = 0.f;
+        if (r < nold) {
+          v = mix(1 + s, r);
+          if (ends)
+            for (int o = s; o < nA; o += nS)
+              v = fmaf(wt(o), cur[(size_t)r * G + row(o)], v);
+        }
+        nxt[(size_t)((1 + s) * T + r) * G + g] = v;
+      }
+    }
   }
 }
 
 // One fusion and transport step of thread k (after the publish barrier):
-// gather2 with the members' weights, then transport<MS>.
-template <int D, int MS>
+// gather2 with the members' weights, then transport<MS, SS, SUB>.
+template <int D, int MS, int SS, bool SUB>
 static __device__ __forceinline__ void fuse_step(
     bool act, float* m, float* s2, float& lp, const float* pub, float add,
     float sig2v_k, int K, int m0, const float* cur, float* nxt, int G, int T,
-    int S, int t, bool drop, int g, int a, int q, int mb0, Prof& pf) {
+    int S, int A, int t, bool drop, int g, int a, int q, int mb0, bool wrap,
+    Prof& pf) {
   float gmx = 0.f, ginv = 0.f, w[MS > 0 ? MS : 1];
-  gather2<D, MS>(act, m, s2, lp, pub, add, sig2v_k, K, m0, S, gmx, ginv, w);
+  gather2<D, MS>(act, m, s2, lp, pub, add, sig2v_k, K, m0, A, gmx, ginv, w);
   pf.mark(kHsFusion);
   if (act)
-    transport<MS>(cur, nxt, G, T, S, t, drop, g, a, q, mb0, w, pub, K, m0,
-                  gmx, ginv);
+    transport<MS, SS, SUB>(cur, nxt, G, T, S, A, t, drop, g, a, q, mb0,
+                           wrap, w, pub, K, m0, gmx, ginv);
 }
 
 // The track loop of hist_kernel on the row buffers at `rows_at` (both
-// buffers, 2 * (K/S) * (1+S) * T floats).  The kernel calls it at two
+// buffers, 2 * (K/A) * (1+S) * T floats).  The kernel calls it at two
 // sites, so that the one on shared memory reads its rows with shared loads
-// (a pointer that may be either is read with generic loads).
-template <int D>
+// (a pointer that may be either is read with generic loads).  Wf: the
+// frames the window covers; VDT: the (B, T-1, P) stream `s2st`; SUB:
+// A = S^n children a group, n > 1.
+template <int D, bool VDT, bool SUB>
 static __device__ __forceinline__ void hist_tracks(
     const Tables& tb, const float* __restrict__ xs,
     const float* __restrict__ l2s, const int* __restrict__ lengths,
-    const float* __restrict__ isbls, const float* __restrict__ seg, int B,
-    int T, int S, int W, float* __restrict__ rows, float* rows_at,
-    float* pubs, float* spb, const int* cst, const int* cgr, const int* cext,
-    float* red) {
-  const int K = tb.K, A = tb.A, G = K / A;      // A == S (one sub-step)
+    const float* __restrict__ isbls, const float* __restrict__ s2st,
+    const float* __restrict__ seg, int B, int T, int S, int P, int Wf,
+    float* __restrict__ rows, float* rows_at, float* pubs, float* spb,
+    const int* cst, const int* cgr, const int* cext, float* red) {
+  const int K = tb.K, A = tb.A, G = K / A;
   const int k = threadIdx.x;
   const bool act = k < K;
   const int lane = k & 31, wid = k >> 5, nwarp = blockDim.x >> 5;
   const int m0 = (k % G) * A;                   // first member of k's group
   const int g = k % G, a = k / G;               // k's group, child index
-  const int q = g % S, mb0 = (g * S) % G;
+  // the members a group, A; without sub-steps (A == S) read as S, which
+  // keeps the one-sub-step walk's registers as they were tuned (read as A,
+  // it ran 6% slower and spilled at D = 3)
+  const int NA = SUB ? A : S;
+  const int q = g % S, mb0 = (g * NA) % G;
+  const bool wrap = A > G;                      // Wf = 2 past one sub-step
+  const int pk = VDT ? k / (K / P) : 0;         // k's pattern in the stream
   const int ST = S * T, HS = (1 + S) * T;       // hist bins, rows per group
   const int F = 2 + 2 * D;
   int buf = 0;                                  // publish area in turn
@@ -166,9 +241,13 @@ static __device__ __forceinline__ void hist_tracks(
     }
     const float* x = xs + (size_t)b * T * D;
     const float* l2 = l2s + (size_t)b * T * D;
+    // slot k's displacement variance of step t from the stream (VDT)
+    auto s2_at = [&](int t) {
+      return s2st[((size_t)b * (T - 1) + t) * P + pk];
+    };
     const float isbl = isbls[b];
     float m[D], s2[D], lp = act ? tb.lp0[k] : 0.f;
-    const float s20 = act ? tb.s20[k] : 1.f;
+    const float s20 = act ? (VDT ? s2_at(0) : tb.s20[k]) : 1.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       m[d] = x[d];
@@ -207,9 +286,9 @@ static __device__ __forceinline__ void hist_tracks(
         // coverage: tracks longer than the window add the carried run
         // and the window's inner segments, shorter ones the segments of
         // their t+1 frames; the rows hold bins 0 .. nw-1
-        const bool carry = t + 1 > W;
+        const bool carry = t + 1 > Wf;
         const int nw = min(t, T);
-        const float* sg = seg + (size_t)(carry ? W + 1 : t + 1) * ST * K;
+        const float* sg = seg + (size_t)(carry ? Wf + 1 : t + 1) * ST * K;
         for (int j = wid; j < ST; j += nwarp) {
           const int s = j / T, mb = j - s * T;
           const bool hv = mb < nw;
@@ -232,7 +311,11 @@ static __device__ __forceinline__ void hist_tracks(
         pf.mark(kHsHarvest);
         break;
       }
-      // fusion (K1's, base 2) and the run/hist transport
+      // fusion (K1's, base 2) and the run/hist transport; with VDT the
+      // child's variance of step t (t <= L-2 <= T-2) is read before the
+      // barrier
+      float sv = 0.f;
+      if constexpr (VDT) sv = act ? s2_at(t) : 0.f;
       const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
       float* pub = pubs + buf * F * K;
       buf ^= 1;
@@ -240,17 +323,25 @@ static __device__ __forceinline__ void hist_tracks(
       pf.mark(kHsFusion);
       __syncthreads();
       pf.mark(kHsBarrier);
-      const bool drop = t >= W - 1;   // the oldest frame leaves the window
+      const bool drop = t >= Wf - 1;  // the oldest frame leaves the window
       const float add = act ? tb.lt[k] + gate * tb.lsurv[k] : 0.f;
-      const float sv = act ? tb.sig2v[k] : 0.f;
-#define EXTRACK_HIST_STEP(MS)                                              \
-  fuse_step<D, MS>(act, m, s2, lp, pub, add, sv, K, m0, cur, nxt, G, T, S, \
-                   t, drop, g, a, q, mb0, pf)
-      switch (S) {
-        case 2: EXTRACK_HIST_STEP(2); break;
-        case 3: EXTRACK_HIST_STEP(3); break;
-        case 4: EXTRACK_HIST_STEP(4); break;
-        default: EXTRACK_HIST_STEP(0);
+      if constexpr (!VDT) sv = act ? tb.sig2v[k] : 0.f;
+#define EXTRACK_HIST_STEP(MS, SS)                                          \
+  fuse_step<D, MS, SS, SUB>(act, m, s2, lp, pub, add, sv, K, m0, cur, nxt, \
+                            G, T, S, NA, t, drop, g, a, q, mb0, wrap, pf)
+      if constexpr (!SUB) {
+        switch (S) {
+          case 2: EXTRACK_HIST_STEP(2, 2); break;
+          case 3: EXTRACK_HIST_STEP(3, 3); break;
+          case 4: EXTRACK_HIST_STEP(4, 4); break;
+          default: EXTRACK_HIST_STEP(0, 0);
+        }
+      } else if (A == 4 && !wrap) {
+        // two states, two sub-steps, the weights in registers: 18.4 ms at
+        // the bench shape on an H100 against the generic loop's 25.7
+        EXTRACK_HIST_STEP(4, 2);
+      } else {
+        EXTRACK_HIST_STEP(0, 0);
       }
 #undef EXTRACK_HIST_STEP
       pf.mark(kHsTransport);
@@ -267,19 +358,21 @@ static __device__ __forceinline__ void hist_tracks(
 // threads ptxas is held to 85 registers (6 blocks of 128 threads an SM;
 // it uses 80); measured on an H100 at the bench shape, 80 registers ran
 // 14.2 ms, 72 13.1 ms with 4 bytes of spill, 64 13.1 ms with 8, 125
-// 22.0 ms.
+// 22.0 ms.  The variable-dt and sub-step instantiations get the same:
+// none spills at 85.
 template <int NT>
 constexpr int hist_min_blocks() {
   return 65536 / (NT * 80) > 1 ? 65536 / (NT * 80) : 1;
 }
-template <int D, int NT>
+template <int D, int NT, bool VDT, bool SUB>
 __global__ void __launch_bounds__(NT, hist_min_blocks<NT>())
     hist_kernel(Tables tb, const float* __restrict__ xs,
                 const float* __restrict__ l2s,
                 const int* __restrict__ lengths,
                 const float* __restrict__ isbls,
+                const float* __restrict__ s2st,
                 const float* __restrict__ seg, const int* __restrict__ ext,
-                int B, int T, int S, int W, float* __restrict__ rows,
+                int B, int T, int S, int P, int Wf, float* __restrict__ rows,
                 float* __restrict__ scratch) {
   extern __shared__ float sh[];
   __shared__ float red[33];
@@ -293,67 +386,84 @@ __global__ void __launch_bounds__(NT, hist_min_blocks<NT>())
   int* cst = reinterpret_cast<int*>(spb + K);
   int* cgr = cst + K;
   int* cext = cgr + K;
+  float* srows = reinterpret_cast<float*>(cext + K);
   for (int c = threadIdx.x; c < K; c += blockDim.x) {
     cst[c] = c % S;
     cgr[c] = c % G;
     cext[c] = ext[c];
   }
   if (scratch == nullptr)
-    hist_tracks<D>(tb, xs, l2s, lengths, isbls, seg, B, T, S, W, rows,
-                   reinterpret_cast<float*>(cext + K), pubs, spb, cst, cgr,
-                   cext, red);
+    hist_tracks<D, VDT, SUB>(tb, xs, l2s, lengths, isbls, s2st, seg, B, T,
+                             S, P, Wf, rows, srows, pubs, spb, cst, cgr,
+                             cext, red);
   else
-    hist_tracks<D>(tb, xs, l2s, lengths, isbls, seg, B, T, S, W, rows,
-                   scratch + (size_t)blockIdx.x * 2 * G * (1 + S) * T, pubs,
-                   spb, cst, cgr, cext, red);
+    hist_tracks<D, VDT, SUB>(
+        tb, xs, l2s, lengths, isbls, s2st, seg, B, T, S, P, Wf, rows,
+        scratch + (size_t)blockIdx.x * 2 * G * (1 + S) * T, pubs, spb, cst,
+        cgr, cext, red);
 }
 
-template <int D, int NT>
-static int launch_nt(const Tables& tb, const float* xs, const float* l2,
-                     const int* lengths, const float* isbl, const float* seg,
-                     const int* ext, float* rows, float* scratch, int B,
-                     int T, int S, int W, int nblk, int threads, size_t smem,
+// The launch's arguments besides its geometry.
+struct HistArgs {
+  Tables tb;
+  const float *xs, *l2, *isbl, *s2st, *seg;
+  const int *lengths, *ext;
+  float *rows, *scratch;
+  int B, T, S, P, Wf;
+};
+
+template <int D, int NT, bool VDT, bool SUB>
+static int launch_nt(const HistArgs& h, int nblk, int threads, size_t smem,
                      cudaStream_t stream) {
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(hist_kernel<D, NT>,
+    cudaFuncSetAttribute(hist_kernel<D, NT, VDT, SUB>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  if (B > 0)
-    hist_kernel<D, NT><<<nblk, threads, smem, stream>>>(
-        tb, xs, l2, lengths, isbl, seg, ext, B, T, S, W, rows, scratch);
+  if (h.B > 0)
+    hist_kernel<D, NT, VDT, SUB><<<nblk, threads, smem, stream>>>(
+        h.tb, h.xs, h.l2, h.lengths, h.isbl, h.s2st, h.seg, h.ext, h.B, h.T,
+        h.S, h.P, h.Wf, h.rows, h.scratch);
   return (int)cudaGetLastError();
 }
 
-// K5's block for T frames, D dimensions, K slots at S states: a thread per
-// slot; shared memory besides the rows: two fusion publish areas of
-// (2+2D)*K floats, the softmax over the register and three per-slot int
-// constants (c % S, c % G, the oldest run's length).  Carry: the
-// double-buffered run and histogram rows, (1+S)*T floats for each of the
-// K/S fusion groups (the S children of a group carry the same rows).
-static BlockLayout hist_layout(int T, int D, int K, int S) {
+// K5's block for T frames, D dimensions, K slots at S states and A
+// children a fusion group: a thread per slot; shared memory besides the
+// rows: two fusion publish areas of (2+2D)*K floats, the softmax over the
+// register and three per-slot int constants (c % S, c % G, the oldest
+// run's length).  Carry: the double-buffered run and histogram rows,
+// (1+S)*T floats for each of the K/A fusion groups (the A children of a
+// group carry the same rows).
+static BlockLayout hist_layout(int T, int D, int K, int S, int A) {
   return {(K + 31) / 32 * 32,
           (size_t)(2 * (2 + 2 * D) + 4) * K * sizeof(float),
-          (size_t)2 * (K / S) * (1 + S) * T * sizeof(float)};
+          (size_t)2 * (K / A) * (1 + S) * T * sizeof(float)};
 }
 
-template <int D>
-static int launch_hist(const Tables& tb, const float* xs, const float* l2,
-                       const int* lengths, const float* isbl,
-                       const float* seg, const int* ext, float* rows,
-                       float* scratch, int B, int T, int S, int W, int nblk,
-                       cudaStream_t stream) {
-  const BlockLayout lay = hist_layout(T, D, tb.K, S);
+template <int D, bool VDT, bool SUB>
+static int launch_hist(const HistArgs& h, int nblk, cudaStream_t stream) {
+  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A);
   const int threads = lay.threads;
-  const size_t smem = lay.fixed + (scratch != nullptr ? 0 : lay.carry);
-#define EXTRACK_HIST_NT(NT)                                                \
-  launch_nt<D, NT>(tb, xs, l2, lengths, isbl, seg, ext, rows, scratch, B,  \
-                   T, S, W, nblk, threads, smem, stream)
-  if (threads <= 128) return EXTRACK_HIST_NT(128);
-  if (threads <= 256) return EXTRACK_HIST_NT(256);
-  if (threads <= 512) return EXTRACK_HIST_NT(512);
-  if (threads <= 1024) return EXTRACK_HIST_NT(1024);
-#undef EXTRACK_HIST_NT
+  const size_t smem = lay.fixed + (h.scratch != nullptr ? 0 : lay.carry);
+  if (threads <= 128)
+    return launch_nt<D, 128, VDT, SUB>(h, nblk, threads, smem, stream);
+  if (threads <= 256)
+    return launch_nt<D, 256, VDT, SUB>(h, nblk, threads, smem, stream);
+  if (threads <= 512)
+    return launch_nt<D, 512, VDT, SUB>(h, nblk, threads, smem, stream);
+  if (threads <= 1024)
+    return launch_nt<D, 1024, VDT, SUB>(h, nblk, threads, smem, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The instantiation for the launch: variable dt (P > 0), more than one
+// sub-step (A > S).
+template <int D>
+static int launch_dt(const HistArgs& h, int nblk, cudaStream_t stream) {
+  if (h.tb.A > h.S)
+    return h.P > 0 ? launch_hist<D, true, true>(h, nblk, stream)
+                   : launch_hist<D, false, true>(h, nblk, stream);
+  return h.P > 0 ? launch_hist<D, true, false>(h, nblk, stream)
+                 : launch_hist<D, false, false>(h, nblk, stream);
 }
 
 }  // namespace extrack
@@ -376,21 +486,26 @@ extern "C" int extrack_hist_smem(int device) {
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncAttributes attr;
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, extrack::hist_kernel<2, 1024>);
+    err = cudaFuncGetAttributes(&attr,
+                                extrack::hist_kernel<2, 1024, false, false>);
   if (err != cudaSuccess) return -(int)err;
   return optin - (int)attr.sharedSizeBytes;
 }
 
 // K5's block for a launch (hist_layout): out = threads, shared bytes
 // besides the rows, row bytes per track.
-extern "C" int extrack_hist_layout(int T, int D, int K, int S,
+extern "C" int extrack_hist_layout(int T, int D, int K, int S, int A,
                                    long long* out) {
-  return extrack::write_layout(extrack::hist_layout(T, D, K, S), D, out);
+  if (A < 1 || K % A) return (int)cudaErrorInvalidValue;
+  return extrack::write_layout(extrack::hist_layout(T, D, K, S, A), D, out);
 }
 
 // Inputs: xs, l2 (B, T, D), lengths (B,), isbl (B,) and the six (K,) slot
-// tables of extrack_forward (lp0, s20, lt, lsurv, endv, sig2v), K = S^W;
-// seg (W+2, S*T, K) static segment tables and ext (K,) oldest-run lengths
+// tables of extrack_forward (lp0, s20, lt, lsurv, endv, sig2v), K = S^W
+// at A = S^n children a fusion group (n sub-steps a frame, Wf frames in
+// the window); s2st: with P > 0 (variable dt) the (B, T-1, P) streamed
+// displacement variances, read in place of s20 and sig2v (P = S^(n+1));
+// seg (Wf+2, S*T, K) static segment tables and ext (K,) oldest-run lengths
 // (ops/hist_kernel.segment_tables).  Output: rows (B, S*T), each track's
 // expected histogram (bin s*T + m: segments of length m+1 in state s;
 // zero for tracks of fewer than 2 frames).  scratch: null to keep the
@@ -402,25 +517,22 @@ extern "C" int extrack_hist(const float* xs, const float* l2,
                             const float* lp0, const float* s20,
                             const float* lt, const float* lsurv,
                             const float* endv, const float* sig2v,
-                            const float* seg, const int* ext, float* rows,
-                            float* scratch, int B, int T, int D, int K,
-                            int min_len, int S, int W, int nblk,
+                            const float* s2st, const float* seg,
+                            const int* ext, float* rows, float* scratch,
+                            int B, int T, int D, int K, int A, int P,
+                            int min_len, int S, int Wf, int nblk,
                             void* stream) {
-  const extrack::Tables tb{lp0,     s20,     lt,      lsurv, endv,
-                           sig2v,   nullptr, nullptr, nullptr, nullptr,
-                           K,       S,       min_len};
+  if (A < 1 || K % A || (P > 0 && (s2st == nullptr || K % P)))
+    return (int)cudaErrorInvalidValue;
+  const extrack::HistArgs h{
+      {lp0, s20, lt, lsurv, endv, sig2v, nullptr, nullptr, nullptr, nullptr,
+       K, A, min_len},
+      xs, l2, isbl, s2st, seg, lengths, ext, rows, scratch, B, T, S, P, Wf};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 1:
-      return extrack::launch_hist<1>(tb, xs, l2, lengths, isbl, seg, ext,
-                                     rows, scratch, B, T, S, W, nblk, st);
-    case 2:
-      return extrack::launch_hist<2>(tb, xs, l2, lengths, isbl, seg, ext,
-                                     rows, scratch, B, T, S, W, nblk, st);
-    case 3:
-      return extrack::launch_hist<3>(tb, xs, l2, lengths, isbl, seg, ext,
-                                     rows, scratch, B, T, S, W, nblk, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return extrack::launch_dt<1>(h, nblk, st);
+    case 2: return extrack::launch_dt<2>(h, nblk, st);
+    case 3: return extrack::launch_dt<3>(h, nblk, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -97,9 +97,8 @@ def from_dict(all_tracks: Dict[str, np.ndarray],
     # per-step dt tails pad with the dataset's median dt, so the survival
     # table's representative dt (build_tables) is the same after padding
     if dt is not None:
-        _all_dt = np.concatenate(
-            [np.asarray(dt[k], dtype=np.float64).ravel() for k in keys])
-        dt_fill = float(np.median(_all_dt)) if _all_dt.size else 1.0
+        dt_fill = dt_median(all_tracks, dt)
+        dt_fill = 1.0 if dt_fill is None else dt_fill
     pos_l, len_l, err_l, frm_l, dt_l, bl_l = [], [], [], [], [], []
     for k in keys:
         arr = np.asarray(all_tracks[k], dtype=np.float64)
@@ -215,6 +214,21 @@ def from_dict_bucketed(all_tracks: Dict[str, np.ndarray],
         batches.append(from_dict(group, data_max=max(lens), **sub_kw))
         start = end
     return batches
+
+
+def dt_median(all_tracks: Dict[str, np.ndarray],
+              dt: Optional[Dict[str, np.ndarray]]) -> Optional[float]:
+    """The median of a dataset's per-step dt dict (the intervals of every
+    track with a position, as ``from_dict`` pads with it), or None without
+    one: the survival tables' representative dt
+    (``tables.build_tables``) of the dataset as one batch, which
+    ``len_hist`` and ``predict_Bs`` give every length bucket."""
+    if dt is None:
+        return None
+    keys = [k for k in all_tracks if len(all_tracks[k]) > 0]
+    steps = np.concatenate([np.asarray(dt[k], dtype=np.float64).ravel()
+                            for k in keys])
+    return float(np.median(steps)) if steps.size else None
 
 
 def host_lengths(batch: TrackBatch) -> np.ndarray:

@@ -187,7 +187,7 @@ def fit(batch,
     if sharded:
         raise NotImplementedError(
             "sharded fits wait for the torch.distributed port "
-            "(ROADMAP Queue 1 item 15)")
+            "(ROADMAP Queue 1)")
     first = batch[0] if isinstance(batch, (list, tuple)) else batch
     tdevice.check_compute_engine(compute_engine, first.positions.device,
                                   "fit")

@@ -426,7 +426,7 @@ def _check_engine(engine_name: str, sharded: bool, nb_substeps: int) -> str:
     if sharded:
         raise NotImplementedError(
             "sharded histograms wait for the torch.distributed port "
-            "(ROADMAP Queue 1 item 15)")
+            "(ROADMAP Queue 1)")
     return _ENGINES[engine_name]
 
 
@@ -458,8 +458,23 @@ def hist_batch(batch: tdata.TrackBatch,
     each followed by the decode; CPU batches run the plain version in
     chunks.
     """
+    return _hist_batch(
+        batch, params, dt, cell_dims=cell_dims, nb_states=nb_states,
+        max_nb_states=max_nb_states, nb_substeps=nb_substeps,
+        input_loc_err=input_loc_err, matrix_type=matrix_type,
+        kind=_check_engine(engine, sharded, nb_substeps), window=window,
+        chunk=chunk, min_len=min_len)
+
+
+def _hist_batch(batch: tdata.TrackBatch, params, dt, *, cell_dims,
+                nb_states: int, max_nb_states: int, nb_substeps: int,
+                input_loc_err: bool, matrix_type: int, kind: str,
+                window: int, chunk: Optional[int], min_len: Optional[int],
+                dt_repr: Optional[float] = None) -> torch.Tensor:
+    """``hist_batch`` after its engine check (``kind`` 'window' or
+    'topk'), with the survival tables' representative dt ``dt_repr``
+    (None: each table build's own, ``tables.build_tables``)."""
     from extrack_tpu_torch.ops import hist_kernel, topk_kernel
-    kind = _check_engine(engine, sharded, nb_substeps)
     values = (params.resolve() if isinstance(params, tparams.Parameters)
               else params)
     if min_len is None:
@@ -495,7 +510,7 @@ def hist_batch(batch: tdata.TrackBatch,
         tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL,
                                  rows(dt_arr, sl), cell_dims=cell_dims,
                                  nb_substeps=nb_substeps,
-                                 matrix_type=matrix_type)
+                                 matrix_type=matrix_type, dt_repr=dt_repr)
         args = (pos, batch.lengths[sl], batch.is_bleached[sl], tb)
         if kind == "topk":
             h = topk_kernel.segment_topk(*args, max_nb_states=M,
@@ -538,23 +553,28 @@ def len_hist(all_tracks: Dict[str, np.ndarray],
     name it too) runs one K5 launch per bucket on the card; 'topk' (or
     'topk_pallas') keeps the top ``max_nb_states`` sequences (rounded up
     to a multiple of 128), one K7 launch per 32768 tracks of a bucket.
+    With a dt dict every bucket's survival tables take the dataset's
+    representative dt (``tdata.dt_median``), as JAX's one padded batch
+    does.
     """
     del workers
     device, dtype = tdevice.resolve_device(device, dtype)
-    _check_engine(engine, sharded, nb_substeps)
+    kind = _check_engine(engine, sharded, nb_substeps)
+    dts = dt if isinstance(dt, dict) else None
     batches = tdata.from_dict_bucketed(
-        all_tracks, max_buckets=4, input_loc_err=input_LocErr,
-        dt=dt if isinstance(dt, dict) else None, device=device, dtype=dtype)
+        all_tracks, max_buckets=4, input_loc_err=input_LocErr, dt=dts,
+        device=device, dtype=dtype)
     min_len = tdata.default_min_len(
         np.concatenate([tdata.host_lengths(b) for b in batches]))
+    dt_repr = tdata.dt_median(all_tracks, dts)
     out = np.zeros((max(b.max_len for b in batches), nb_states))
     for b in batches:
-        h = hist_batch(b, params, dt if not isinstance(dt, dict) else 0.0,
-                       cell_dims=cell_dims, nb_states=nb_states,
-                       max_nb_states=max_nb_states, nb_substeps=nb_substeps,
-                       input_loc_err=input_LocErr is not None,
-                       matrix_type=matrix_type, engine=engine, window=window,
-                       chunk=chunk, min_len=min_len)
+        h = _hist_batch(b, params, dt if dts is None else 0.0,
+                        cell_dims=cell_dims, nb_states=nb_states,
+                        max_nb_states=max_nb_states, nb_substeps=nb_substeps,
+                        input_loc_err=input_LocErr is not None,
+                        matrix_type=matrix_type, kind=kind, window=window,
+                        chunk=chunk, min_len=min_len, dt_repr=dt_repr)
         out[:b.max_len] += h.double().cpu().numpy()
     return out
 

@@ -40,10 +40,10 @@ _SIGNATURES = {
     "extrack_predict": [_P] * 18 + [_I] * 12 + [_P],
     "extrack_predict_occupancy": [_I] * 8,
     "extrack_predict_layout": [_I] * 7 + [_P],
-    "extrack_hist": [_P] * 14 + [_I] * 8 + [_P],
+    "extrack_hist": [_P] * 15 + [_I] * 10 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
     "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],
-    "extrack_hist_layout": [_I] * 4 + [_P],
+    "extrack_hist_layout": [_I] * 5 + [_P],
     "extrack_refine_layout": [_I] * 4 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
@@ -158,14 +158,15 @@ def library() -> ctypes.CDLL:
 
 
 @functools.cache
-def layout(kernel: str, T: int, D: int, K: int, S: int):
+def layout(kernel: str, *dims: int):
     """(threads, shared bytes besides the carries, carry bytes per track)
-    of one block of ``kernel`` ("hist" or "refine") for a launch at T
-    frames, D dimensions, K slots and S states, as the kernel's source
-    defines its block (``extrack_{kernel}_layout``)."""
+    of one block of ``kernel`` for a launch at ``dims``, as the kernel's
+    source defines its block (``extrack_{kernel}_layout``): "hist" takes
+    (T, D, K, S, A), T frames, D dimensions, K slots, S states and A
+    children a fusion group (S^nb_substeps); "refine" (T, D, K, S)."""
     out = (ctypes.c_longlong * 3)()
     rc = getattr(library(), f"extrack_{kernel}_layout")(
-        T, D, K, S, ctypes.addressof(out))
+        *dims, ctypes.addressof(out))
     check(rc, f"{kernel} layout")
     return tuple(out)
 

@@ -6,7 +6,7 @@ the per-slot tables the kernel reads (``build_slot_tables``,
 the transition table, and lays the track data out as (B, T, D) float32.
 With variable dt (per-track or per-step intervals) it also streams the
 displacement-variance table, (B, T-1, P) float32 (``sig2_stream``), which
-K1, K2, K3 and K4 read in place of the s20, sig2v and s2n tables
+K1, K2, K3, K4 and K5 read in place of the s20, sig2v and s2n tables
 (``stream_index`` says which entry each slot reads).
 
 ``forward`` is the entry point: CUDA tensors launch the kernel (or raise,
@@ -35,7 +35,7 @@ MAX_SLOTS = 1024          # the block mapping: one thread per register slot
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 WARPS = (4, 2, 1)         # warps a block the warp mapping may launch
 # the kernels that take the streamed displacement-variance table
-STREAMED = ("K1", "K2", "K3", "K4")
+STREAMED = ("K1", "K2", "K3", "K4", "K5")
 
 
 class Plan(NamedTuple):
@@ -220,7 +220,9 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                    what: str = "batch", kernel: str = "K1"):
     """Raise NotImplementedError, naming ``what``, when ``kernel`` ("K1"
     .. "K6") cannot run this configuration.  Variable dt is in the
-    envelope of the kernels in STREAMED only."""
+    envelope of the kernels in STREAMED only (K6 reads no dt table; K7
+    checks its own envelope, ``topk_kernel.check_envelope``, where
+    variable dt raises)."""
     K = S ** window
     reasons = []
     if dtype != torch.float32:
@@ -232,13 +234,14 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
         fits = max((w for w in range(1, window) if S ** w <= MAX_SLOTS),
                    default=0)
         reasons.append(f"K=S**window={K} > {MAX_SLOTS} register slots "
-                       f"(the largest window that fits is {fits})")
+                       f"({kernel} runs a thread per slot; the largest "
+                       f"window that fits is {fits})")
     if window < nb_substeps + 1:
         reasons.append(f"window {window} < nb_substeps+1")
     if variable_dt and kernel not in STREAMED:
         reasons.append(f"per-step / per-track dt ({kernel} takes constant "
                        "dt only: it does not read the streamed "
-                       "displacement-variance table yet; device='cpu' runs "
+                       "displacement-variance table; device='cpu' runs "
                        "the plain version, which takes variable dt)")
     if reasons:
         raise NotImplementedError(

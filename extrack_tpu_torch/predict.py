@@ -24,18 +24,19 @@ from extrack_tpu_torch.ops import forward_kernel, predict_kernel
 def forward_from_values(values, positions, lengths, is_bleached,
                         loc_err_in, dt_arr, *, nb_states, cell_dims,
                         window, min_len, matrix_type=1, nb_substeps=1,
-                        return_preds=True):
+                        return_preds=True, dt_repr=None):
     """Parameter extraction, table build and the walk in one call, on the
     device and in the dtype of ``positions``.  ``values`` is the resolved
-    parameter dict; ``loc_err_in`` is the per-peak error batch or None.
-    Returns ``(logl, preds)`` with ``return_preds`` (one sub-step only),
-    else ``logl``."""
+    parameter dict; ``loc_err_in`` is the per-peak error batch or None;
+    ``dt_repr`` the survival tables' representative dt (None: the median
+    of ``dt_arr``).  Returns ``(logl, preds)`` with ``return_preds`` (one
+    sub-step only), else ``logl``."""
     Ds, Fs, rates, loc_err, pBL = tparams.extract_arrays(
         values, nb_states, input_loc_err=loc_err_in,
         device=positions.device, dtype=positions.dtype)
     tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, dt_arr,
                              cell_dims=cell_dims, nb_substeps=nb_substeps,
-                             matrix_type=matrix_type)
+                             matrix_type=matrix_type, dt_repr=dt_repr)
     if return_preds:
         if nb_substeps != 1:
             raise ValueError("posteriors require nb_substeps == 1")
@@ -44,6 +45,13 @@ def forward_from_values(values, positions, lengths, is_bleached,
     return forward_kernel.forward(positions, lengths, is_bleached, tb,
                                   window=window, nb_substeps=nb_substeps,
                                   min_len=min_len)
+
+
+def _check_unsharded(sharded: bool):
+    if sharded:
+        raise NotImplementedError(
+            "sharded posteriors wait for the torch.distributed port "
+            "(ROADMAP Queue 1)")
 
 
 def predict_batch(batch: tdata.TrackBatch,
@@ -67,12 +75,22 @@ def predict_batch(batch: tdata.TrackBatch,
     the plain engine whatever the value.  ``sharded=True`` (several
     devices) is not ported yet and raises.
     """
-    if sharded:
-        raise NotImplementedError(
-            "sharded posteriors wait for the torch.distributed port "
-            "(ROADMAP Queue 1 item 15)")
+    _check_unsharded(sharded)
     tdevice.check_compute_engine(compute_engine, batch.positions.device,
                                   "predict_batch")
+    return _predict_batch(batch, spec_or_values, dt, nb_states,
+                          cell_dims=cell_dims, window=window,
+                          min_len=min_len, matrix_type=matrix_type,
+                          input_loc_err=input_loc_err, chunk_size=chunk_size)
+
+
+def _predict_batch(batch: tdata.TrackBatch, spec_or_values, dt,
+                   nb_states: int, *, cell_dims, window: int,
+                   min_len: Optional[int], input_loc_err: bool,
+                   matrix_type: int = 1, chunk_size: int = 16384,
+                   dt_repr: Optional[float] = None):
+    """``predict_batch`` after its checks, with the survival tables'
+    representative dt ``dt_repr`` (None: each chunk's own)."""
     values = (spec_or_values.resolve()
               if isinstance(spec_or_values, tparams.Parameters)
               else spec_or_values)
@@ -94,7 +112,7 @@ def predict_batch(batch: tdata.TrackBatch,
             batch.is_bleached[sl],
             batch.loc_err[sl] if input_loc_err else None, rows(dt_arr, sl),
             nb_states=nb_states, cell_dims=tuple(cell_dims), window=window,
-            min_len=min_len, matrix_type=matrix_type)
+            min_len=min_len, matrix_type=matrix_type, dt_repr=dt_repr)
         logls.append(lg)
         preds.append(pr)
     return torch.cat(logls), torch.cat(preds)
@@ -128,16 +146,19 @@ def predict_Bs(all_tracks: Dict[str, np.ndarray],
     """
     del max_nb_states, threshold, workers, verbose, nb_max
     device, dtype = tdevice.resolve_device(device, dtype)
+    _check_unsharded(sharded)
+    dts = dt if isinstance(dt, dict) else None
     batches = tdata.from_dict_bucketed(
-        all_tracks, max_buckets=4, input_loc_err=input_LocErr, dt=dt if isinstance(dt, dict) else None,
+        all_tracks, max_buckets=4, input_loc_err=input_LocErr, dt=dts,
         device=device, dtype=dtype)
     min_len = tdata.default_min_len(
         np.concatenate([tdata.host_lengths(b) for b in batches]))
+    dt_repr = tdata.dt_median(all_tracks, dts)
     out: Dict[str, np.ndarray] = {}
     for b in batches:
-        _, preds = predict_batch(
-            b, params, dt if not isinstance(dt, dict) else 0.0, nb_states,
+        _, preds = _predict_batch(
+            b, params, dt if dts is None else 0.0, nb_states,
             cell_dims=cell_dims, window=frame_len, min_len=min_len,
-            input_loc_err=input_LocErr is not None, sharded=sharded)
+            input_loc_err=input_LocErr is not None, dt_repr=dt_repr)
         out.update(tdata.to_dict(b, preds))
     return out

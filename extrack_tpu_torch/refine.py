@@ -313,7 +313,7 @@ def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
     if sharded:
         raise NotImplementedError(
             "sharded refinement waits for the torch.distributed port "
-            "(ROADMAP Queue 1 item 15)")
+            "(ROADMAP Queue 1)")
     dev, dtype = batch.positions.device, batch.positions.dtype
     tdevice.check_compute_engine(compute_engine, dev, "refine_batch")
 

@@ -13,8 +13,9 @@ tests/test_pallas_hist.py); refined mu rtol 2e-4 / atol 2e-5 and sigma rtol
 1e-5 / atol 1e-5 max|hist| (the kernel and the plain version keep the same
 sequences, stably; only the f32 rounding of the sums differs), final
 weights of an unpruned register rtol 1e-4 / atol 1e-5.  Variable dt (the
-streamed displacement-variance table of K1..K4) is held to the same
-tolerances.
+streamed displacement-variance table of K1..K5) and K5 past one sub-step
+are held to the same tolerances (K5 there against the plain version in
+float64 on the same inputs).
 """
 import numpy as np
 import pytest
@@ -270,10 +271,16 @@ def test_cuda_hessian_columns_per_track_dt_match_plain(cuda, S, W, n):
 
 @pytest.mark.cuda
 def test_cuda_histograms_with_variable_dt_raise_naming_the_kernel(cuda):
-    # K5 and K7 take constant dt only: the card raises, naming the kernel
+    # K5 reads the streamed table; K7 takes constant dt only: the card
+    # raises there, naming the kernel
     pos, lens, isbl, tb = _case(cuda, 2, 1, 40, 8, 2, dt="track")
-    with pytest.raises(NotImplementedError, match="K5.*dt|dt.*K5"):
-        hist_kernel.hist(pos, lens, isbl, tb, window=5, min_len=2)
+    before = hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS
+    got = hist_kernel.hist(pos, lens, isbl, tb, window=5, min_len=2)
+    assert (hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    torch.testing.assert_close(
+        got, hist_kernel.hist_plain(pos, lens, isbl, tb, window=5,
+                                    min_len=2), rtol=2e-3, atol=2e-4)
     with pytest.raises(NotImplementedError, match="K7"):
         topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=64,
                                  min_len=2)
@@ -281,9 +288,43 @@ def test_cuda_histograms_with_variable_dt_raise_naming_the_kernel(cuda):
     tracks = {"6": rng.normal(0, 0.05, (20, 6, 2)).cumsum(1)}
     values = {"LocErr": 0.02, "D0": 0.0, "D1": 0.08, "F0": 0.5, "F1": 0.5,
               "p01": 0.1, "p10": 0.1, "pBL": 0.1}
-    with pytest.raises(NotImplementedError, match="K5"):
-        histograms.len_hist(tracks, values, {"6": np.full((20, 5), 0.03)},
-                            nb_states=2, window=5)
+    dts = {"6": np.full((20, 5), 0.03)}
+    h = histograms.len_hist(tracks, values, dts, nb_states=2, window=5)
+    h0 = histograms.len_hist(tracks, values, dts, nb_states=2, window=5,
+                             device="cpu")
+    np.testing.assert_allclose(h, h0, rtol=2e-3, atol=2e-4)
+    with pytest.raises(NotImplementedError, match="K7"):
+        histograms.len_hist(tracks, values, dts, nb_states=2,
+                            engine="topk")
+
+
+# K5 with variable dt and past one sub-step: (S, W, n, B, T, D, dt);
+# A = S^n children a group (2, 4, 8, 9), A not dividing G (W = n+1), the
+# 1024-thread block (K = 729) and rows in global scratch (K = 512, T = 80)
+HIST_DT_CASES = [
+    (2, 7, 1, 300, 9, 2, "track"), (3, 5, 1, 77, 12, 3, "step"),
+    (2, 5, 2, 300, 9, 2, None), (2, 7, 2, 300, 10, 2, "track"),
+    (2, 9, 2, 60, 80, 2, "step"), (3, 5, 2, 77, 9, 1, "track"),
+    (2, 7, 3, 64, 9, 2, "track"), (2, 3, 2, 40, 6, 2, None),
+    (3, 6, 1, 12, 8, 2, "track"), (2, 2, 1, 40, 5, 3, "step")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,B,T,D,dt", HIST_DT_CASES)
+def test_cuda_histogram_variable_dt_and_substeps_match_plain(
+        cuda, S, W, n, B, T, D, dt):
+    pos, lens, isbl, tb = _case(cuda, S, n, B, T, D, dt=dt)
+    kw = dict(window=W, min_len=2, nb_substeps=n)
+    got = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+    assert torch.equal(got, hist_kernel.hist(pos, lens, isbl, tb, **kw))
+    want = hist_kernel.hist_plain(pos.double(), lens, isbl.double(),
+                                  tables.ModelTables(*(f.double()
+                                                       for f in tb)), **kw)
+    torch.testing.assert_close(got.double(), want, rtol=2e-3, atol=2e-4)
+    L = lens.cpu().numpy()
+    frames = float((got.cpu().double()
+                    * torch.arange(1, T + 1)[:, None]).sum())
+    np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
 
 
 @pytest.mark.cuda
@@ -531,14 +572,16 @@ def test_refine_layout(cuda):
 @pytest.mark.cuda
 def test_hist_layout(cuda):
     """K5's block as its source defines it: a thread per slot, rows per
-    fusion group (K/S of them, double-buffered)."""
+    fusion group (K/A of them at A = S^n children, double-buffered)."""
     from extrack_tpu_torch.ops import cuda_lib
-    for S, W, T in ((2, 7, 10), (3, 5, 10), (4, 2, 60), (2, 3, 8)):
-        K = S ** W
+    for S, W, T, n in ((2, 7, 10, 1), (3, 5, 10, 1), (4, 2, 60, 1),
+                       (2, 3, 8, 1), (2, 7, 10, 2), (3, 5, 9, 2),
+                       (2, 3, 8, 2)):
+        K, A = S ** W, S ** n
         for D in (1, 2, 3):
-            n, fixed, rows = cuda_lib.layout("hist", T, D, K, S)
-            assert n == -(-K // 32) * 32
-            assert rows == 2 * (K // S) * (1 + S) * T * 4
+            threads, fixed, rows = cuda_lib.layout("hist", T, D, K, S, A)
+            assert threads == -(-K // 32) * 32
+            assert rows == 2 * (K // A) * (1 + S) * T * 4
             assert fixed == (2 * (2 + 2 * D) + 4) * K * 4
 
 
@@ -592,8 +635,12 @@ def test_cuda_topk_matches_plain(cuda, S, n, M, B, T, D):
     per_track = tb._replace(sig2=tb.sig2.expand(B, T - 1, -1))
     with pytest.raises(NotImplementedError, match="dt"):
         topk_kernel.segment_topk(pos, lens, isbl, per_track, **kw)
-    with pytest.raises(NotImplementedError, match="K5"):
-        hist_kernel.hist(pos, lens, isbl, per_track, window=3, min_len=3)
+    # K5 reads the per-track table (one and two sub-steps a frame)
+    kw5 = dict(window=3, min_len=3, nb_substeps=n)
+    torch.testing.assert_close(
+        hist_kernel.hist(pos, lens, isbl, per_track, **kw5),
+        hist_kernel.hist_plain(pos, lens, isbl, per_track, **kw5),
+        rtol=2e-3, atol=2e-4)
 
 
 def _kernel_args(args, W, n=1):

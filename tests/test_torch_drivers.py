@@ -69,7 +69,7 @@ def test_refine_batch_engines_on_the_cpu(tracks):
         assert torch.equal(mu, mu2) and torch.equal(sig, sig2)
     with pytest.raises(ValueError, match="unknown compute_engine"):
         trefine.refine_batch(batch, 0.02, ds, tr, 4, "tpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
         trefine.refine_batch(batch, 0.02, ds, tr, 4, "auto", True)
 
 
@@ -77,11 +77,11 @@ def test_fit_rejects_sharded_and_unknown_engines(tracks):
     from extrack_tpu_torch import params as tparams
     batch = tdata.from_dict(tracks, device="cpu")
     spec = tparams.generate_params(nb_states=2)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
         tfit.fit(batch, spec, 0.02, 2, sharded=True)
     with pytest.raises(ValueError, match="unknown compute_engine"):
         tfit.fit(batch, spec, 0.02, 2, compute_engine="tpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
         tfit.param_fitting(tracks, 0.02, nb_states=2, sharded=True,
                            device="cpu")
     with pytest.raises(ValueError, match="unknown compute_engine"):

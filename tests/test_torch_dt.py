@@ -1,5 +1,5 @@
 """Variable dt in the port: the streamed displacement-variance table that
-the CUDA kernels K1..K4 read, and the fit, Hessian and annotation drivers
+the CUDA kernels K1..K5 read, and the fit, Hessian and annotation drivers
 on variable dt, against the JAX package.
 
 The same inputs (numpy, fixed seeds) go to both packages on the CPU, in
@@ -217,15 +217,42 @@ def test_check_envelope_streams_variable_dt_through_k1_to_k4(kernel):
 
 
 def test_check_envelope_names_k5_and_k7_for_variable_dt():
-    with pytest.raises(NotImplementedError,
-                       match=r"histogram batch .*K5 takes constant dt.*"
-                             r"device='cpu'"):
-        forward_kernel.check_envelope(10, 2, 2, 7, 1, variable_dt=True,
-                                      what="histogram batch", kernel="K5")
+    # K5 reads the stream (one and two sub-steps a frame); K7 raises for
+    # variable dt, naming itself and the CPU's plain version
+    forward_kernel.check_envelope(10, 2, 2, 7, 1, variable_dt=True,
+                                  what="histogram batch", kernel="K5")
+    forward_kernel.check_envelope(10, 2, 2, 7, 2, variable_dt=True,
+                                  what="histogram batch", kernel="K5")
     forward_kernel.check_envelope(10, 2, 2, 7, 1, kernel="K5")
     with pytest.raises(NotImplementedError, match=r"dt \(K7 .*device='cpu'"):
         topk_kernel.check_envelope(10, 2, 2, 512, variable_dt=True)
-    # other reasons still name themselves beside the dt one
+    # past 1024 slots K5 still raises, naming itself
     with pytest.raises(NotImplementedError, match=r"K=.*1024.*K5"):
         forward_kernel.check_envelope(10, 2, 3, 7, 1, variable_dt=True,
                                       kernel="K5")
+
+
+@pytest.mark.parametrize("frame_len", [4, 5])
+def test_predict_Bs_with_dt_dict_matches_jax(frame_len):
+    """A per-track dt dict: the port's four length buckets take the
+    dataset's representative dt for their survival tables, as JAX's one
+    padded batch does."""
+    tracks, _, _ = jsim.sim_fov(
+        nb_tracks=60, max_track_len=7, min_track_len=2, LocErr=0.02,
+        Ds=(0.0, 0.08), dt=0.02, pBL=0.1, cell_dims=(0.5, None, None),
+        seed=13)
+    rng = np.random.default_rng(frame_len)
+    values = {"LocErr": 0.021, "D0": 0.001, "D1": 0.07, "F0": 0.45,
+              "F1": 0.55, "p01": 0.08, "p10": 0.12, "pBL": 0.09}
+    dts = {k: rng.uniform(0.01, 0.05, (v.shape[0], v.shape[1] - 1))
+           for k, v in tracks.items()}
+    assert len(tdata.from_dict_bucketed(tracks, dt=dts, device="cpu")) > 1
+    want = jpredict.predict_Bs(tracks, dts, values, cell_dims=(0.5,),
+                               nb_states=2, frame_len=frame_len)
+    got = tpredict.predict_Bs(tracks, dts, values, cell_dims=(0.5,),
+                              nb_states=2, frame_len=frame_len,
+                              device="cpu")
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-8,
+                                   atol=1e-8)

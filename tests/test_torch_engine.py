@@ -131,10 +131,12 @@ def test_classify_sig2_and_envelope():
     assert forward_kernel.kernel_dtype(pos.double(), tb) == torch.float64
     assert forward_kernel.kernel_dtype(
         pos, tb._replace(loc_err2=tb.loc_err2.double())) == torch.float64
-    # variable dt is in K1's envelope (the streamed table); K5 raises,
-    # naming the bucket and itself
+    # variable dt is in K1's and K5's envelope (the streamed table); a
+    # kernel that reads no stream (K6) raises, naming the bucket and itself
     forward_kernel.check_envelope(10, 2, 2, 6, 1, variable_dt=True,
                                   what="bucket 3")
-    with pytest.raises(NotImplementedError, match="bucket 3.*K5"):
+    forward_kernel.check_envelope(10, 2, 2, 6, 1, variable_dt=True,
+                                  what="bucket 3", kernel="K5")
+    with pytest.raises(NotImplementedError, match="bucket 3.*K6"):
         forward_kernel.check_envelope(10, 2, 2, 6, 1, variable_dt=True,
-                                      what="bucket 3", kernel="K5")
+                                      what="bucket 3", kernel="K6")

@@ -126,7 +126,7 @@ def test_predict_batch_chunks_and_parameters(sim):
                                              chunk_size=37)
     torch.testing.assert_close(logl_c, logl, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(preds_c, preds, rtol=1e-12, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
         tpredict.predict_batch(batch, spec, 0.02, 2, sharded=True)
 
 

@@ -188,7 +188,7 @@ def test_refine_batch_defaults_and_sharding(tracks):
     mu, _ = trefine.refine_batch(batch, 0.02, ds, tr)
     muW, _ = trefine.refine_batch(batch, 0.02, ds, tr, frame_len=W)
     torch.testing.assert_close(mu, muW, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
         trefine.refine_batch(batch, 0.02, ds, tr, sharded=True)
 
 

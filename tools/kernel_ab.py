@@ -103,6 +103,28 @@ def k4_main_path(smoke, dev):
     return bare, entry
 
 
+def k5_runner(walk, smoke, bench, dev):
+    """Bare K5 launches at the bench shape (``tools/walk_profile.py``'s), in
+    the call form of the checkout under test: a K5 that predates its
+    sub-steps and stream takes the six (K,) tables and no sub-step count."""
+    import inspect
+
+    from extrack_tpu_torch.ops import forward_kernel, hist_kernel
+    if "n" in inspect.signature(hist_kernel.launch).parameters:
+        return walk.k5_runner(smoke, bench, dev)
+    tb = walk.bench_tables(dev, 2)
+    args = []
+    for b in bench:
+        d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                               b.is_bleached, tb, 7, 1)
+        args.append((d, [t.detach() for t in tabs[:6]]))
+
+    def run():
+        for d, tabs in args:
+            hist_kernel.launch(d, tabs, 3, 2, 7)
+    return run
+
+
 def worker(root: str, only: str) -> None:
     """Time bare launches of every kernel of the package under ``root``
     (``only`` "--k1": K1 alone; "--k4": K4 alone, at the bench shape and
@@ -189,7 +211,7 @@ def worker(root: str, only: str) -> None:
     bare, entry = k4_main_path(smoke, dev)
     out["K4 main path"] = smoke.cuda_ms(bare, REPS, warmup=2)
     out["predict_Bs"] = smoke.cuda_ms(entry, REPS_K7, warmup=1)
-    out["K5"] = smoke.cuda_ms(walk.k5_runner(smoke, bench, dev), REPS,
+    out["K5"] = smoke.cuda_ms(k5_runner(walk, smoke, bench, dev), REPS,
                               warmup=2)
     out["K6"] = smoke.cuda_ms(walk.k6_runner(smoke, bench, dev, 2, 7), REPS_K6,
                               warmup=1)

@@ -6,10 +6,13 @@ length buckets, D=2, f32.  K1 runs a register of W=6 frames (K=64), K4
 W=5 (K=32), K5 and K6 W=7 (K=128), each as ``chip_smoke.py`` times it;
 ``--states``/``--window`` change K1's, K4's and K6's register (e.g. 3
 states at W=5), ``--lengths LO:HI`` the track lengths (e.g. 15:20, the
-main path's longest bucket).
+main path's longest bucket); ``--dt`` gives K5 per-track dt (the
+streamed table, as ``chip_smoke.py`` phase 10) and ``--substeps N`` N
+sub-steps a frame.
 
     python3 tools/walk_profile.py [--kernel k1|k4|k5|k6|both]
     python3 tools/walk_profile.py --split [--kernel ...]
+    python3 tools/walk_profile.py --kernel k5 [--dt] [--substeps N]
 
 Without ``--split`` it times REPS bare launches over the four buckets by
 CUDA events, then prints nvcc's register and spill report of the chosen
@@ -47,8 +50,10 @@ SECTIONS = {
 }
 
 
-def bench_tables(dev, S: int):
-    """The bench shape's model tables at S states (chip_smoke.py's at 2)."""
+def bench_tables(dev, S: int, dt=0.02, n: int = 1):
+    """The bench shape's model tables at S states (chip_smoke.py's at 2),
+    at ``dt`` (a bucket's per-track table or a constant) and n sub-steps
+    a frame."""
     from extrack_tpu_torch.core import tables
     f32 = dict(dtype=torch.float32, device=dev)
     rates = torch.full((S, S), 0.1, **f32)
@@ -56,7 +61,7 @@ def bench_tables(dev, S: int):
     return tables.build_tables(
         torch.linspace(0.0, 0.08, S, **f32), torch.tensor(0.02, **f32),
         torch.full((S,), 1.0 / S, **f32), rates, torch.tensor(0.1, **f32),
-        0.02, cell_dims=(0.5,))
+        dt, cell_dims=(0.5,), nb_substeps=n)
 
 
 def k1_runner(smoke, bench, dev, S: int, W: int):
@@ -93,25 +98,21 @@ def k4_runner(smoke, bench, dev, S: int, W: int):
     return run
 
 
-def k5_runner(smoke, bench, dev):
-    """Bare K5 launches over the bench buckets (W=7, 2 states)."""
-    from extrack_tpu_torch.core import tables
+def k5_runner(smoke, bench, dev, n: int = 1):
+    """Bare K5 launches over the bench buckets (W=7 sub-steps, 2 states,
+    n a frame; with the buckets' per-track dt where they have one), as
+    ``chip_smoke.py`` phases 7 and 10 time them."""
     from extrack_tpu_torch.ops import forward_kernel, hist_kernel
-    f32 = dict(dtype=torch.float32, device=dev)
-    tb = tables.build_tables(
-        torch.tensor([0.0, 0.08], **f32), torch.tensor(0.02, **f32),
-        torch.tensor([0.5, 0.5], **f32),
-        torch.tensor([[0.0, 0.1], [0.1, 0.0]], **f32),
-        torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,))
     args = []
     for b in bench:
+        tb = bench_tables(dev, 2, 0.02 if b.dt is None else b.dt, n)
         d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
-                                               b.is_bleached, tb, 7, 1)
-        args.append((d, [t.detach() for t in tabs[:6]]))
+                                               b.is_bleached, tb, 7, n)
+        args.append((d, [t.detach() for t in tabs]))
 
     def run():
         for d, tabs in args:
-            hist_kernel.launch(d, tabs, 3, 2, 7)
+            hist_kernel.launch(d, tabs, 3, 2, 7, n)
     return run
 
 
@@ -147,6 +148,11 @@ def main() -> int:
     ap.add_argument("--window", type=int, default=0,
                     help="K1 6, K4 5, K6 7 unless given")
     ap.add_argument("--lengths", default="3:10")
+    ap.add_argument("--dt", action="store_true",
+                    help="K5: per-track dt uniform in chip_smoke.BENCH_DT "
+                         "(the streamed table)")
+    ap.add_argument("--substeps", type=int, default=1,
+                    help="K5: sub-steps a frame (W=7 sub-steps)")
     a = ap.parse_args()
     lo, hi = (int(v) for v in a.lengths.split(":"))
     from extrack_tpu_torch.ops import cuda_lib
@@ -159,7 +165,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     lib_path = cuda_lib.build()
     cuda_lib.library()
-    bench = smoke.bench_buckets(dev, T=hi, lo=lo)
+    bench = smoke.bench_buckets(dev, T=hi, lo=lo,
+                                dt_range=smoke.BENCH_DT if a.dt else None)
     runs = []
     if a.kernel == "k1":
         W = a.window or 6
@@ -170,7 +177,9 @@ def main() -> int:
         runs.append(("predict", f"K4 S={a.states} W={W} lengths {lo}..{hi}",
                      k4_runner(smoke, bench, dev, a.states, W)))
     if a.kernel in ("k5", "both"):
-        runs.append(("hist", "K5 S=2 W=7", k5_runner(smoke, bench, dev)))
+        runs.append(("hist", f"K5 S=2 W=7 n={a.substeps}"
+                     + (" per-track dt" if a.dt else ""),
+                     k5_runner(smoke, bench, dev, a.substeps)))
     if a.kernel in ("k6", "both"):
         W = a.window or 7
         runs.append(("refine", f"K6 S={a.states} W={W}",
