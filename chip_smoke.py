@@ -9,11 +9,13 @@ Phases (each prints its lines; a failed check exits non-zero):
    the kernel build time (one nvcc per source, in parallel) and nvcc's
    register / spill report, which fails the run on a spill in any K1, K4,
    K5 or K6 instantiation of up to 512 threads, constant or variable dt
-   (K5's variable-dt instantiations listed with their spill bytes);
+   (K5's variable-dt instantiations listed with their spill bytes, and
+   the 21 instantiations of the wide mapping with their registers and
+   spill bytes);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
-   block mapping at the same K and at K = 243);
+   wide mapping at the same K and at K = 243);
 2. K2 (csrc/grad.cu): value and every table gradient against
    ``value_and_table_grads_plain`` (torch autograd of the engine), at the
    same configurations, then on both of its mappings (the warp mapping
@@ -90,8 +92,10 @@ Phases (each prints its lines; a failed check exits non-zero):
    path, ``histograms.len_hist(engine="topk")`` on the 10^5 tracks with
    the fitted parameters (M = 512, one K7 launch per 32768 tracks of a
    bucket), each bucket against the plain version, frame conservation,
-   and the window engine's histogram beside it; ``len_hist(engine="topk")``
-   on 3-state tracks, where the window engine's default raises; K7's time
+   and the window engine's histogram beside it; on 3-state tracks
+   ``len_hist`` at its default window 7 (K = 2187, K5's wide mapping: each
+   bucket against the plain version, frames conserved) and
+   ``len_hist(engine="topk")``; K7's time
    at 2^20 tracks (T=10 with M=512, T=30 with M=128), launched on prepared
    inputs and through ``topk_kernel.segment_topk``, both with the decode
    fused in, the plain version's time on the 2^20 tracks at T=10, M=512,
@@ -122,7 +126,19 @@ Phases (each prints its lines; a failed check exits non-zero):
    each bucket against the plain version (the histogram's frames
    conserved); the variable-dt kernels' times at the bench shape with
    per-track dt uniform in 0.01..0.03, bare and through their wrappers,
-   beside their plain versions and the constant-dt times.
+   beside their plain versions and the constant-dt times;
+11. past 1024 register slots (K1, K4, K5 and K6 on their wide mapping, a
+   thread a fusion group): the README workflow at 3 states and the JAX
+   package's defaults on ~10^5 ``sim_fov`` tracks (``param_fitting(
+   compute_errors=True)`` from a rough guess of the Ds, its fitted Ds held
+   to the simulated ones, ``predict_Bs``, ``len_hist`` at window 7 with
+   K = 2187, ``position_refinement``), a value-only objective at window 7
+   (K1), ``predict_Bs`` at 5 states and frame_len 5 (K4, K = 3125) and
+   ``position_refinement`` of 6-state 1-D tracks of 3-5 frames at the
+   default window 4 (K6, K = 1296), each with its launches, 0 plain calls,
+   its wall time and its buckets' first tracks against the plain version;
+   then each wide kernel's bare time on 2^16 random walks of lengths
+   3..10 (K6 on 2^14), beside its bound and its plain version's time.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -176,7 +192,7 @@ PARITY_CASES = [(2, 6, 1, 2, 3001, 10), (3, 5, 1, 2, 3001, 10),
                 (2, 4, 2, 2, 3001, 10), (2, 5, 1, 1, 257, 6),
                 (3, 3, 2, 3, 37, 12), (2, 3, 1, 2, 5, 2)]
 # (S, W): K1 and K2 on each of their mappings, K = 8, 16, 32, 64 (warp
-# and block) and K = 243 (block)
+# and K1's wide / K2's block) and K = 243 (K1 wide, K2 block)
 MAPPING_CASES = [(2, 3), (2, 4), (2, 5), (2, 6), (3, 5)]
 # K3: (S, W, nb_substeps, per-peak LocErr), 1500 tracks of T <= 10 in two
 # buckets, p01 fixed at 0 (a forbidden transition) in every case
@@ -241,6 +257,37 @@ SIM = dict(nb_tracks=100_000, max_track_len=20, min_track_len=3,
 # frames a second
 SIM_DT = [dict(SIM, nb_tracks=50_000, dt=0.02, seed=0),
           dict(SIM, nb_tracks=50_000, dt=0.05, seed=1)]
+# phase 11: the wide mapping's paths.  The README workflow at 3 states
+# (phase 9's model: Ds 0, 0.02, 0.1; 0.85 + 0.05 on the diagonal), 5
+# states annotated at frame_len 5, 6 states refined on 1-D tracks of 3-5
+# frames, each at the JAX package's defaults (K = 2187, 3125, 1296)
+TR3 = np.full((3, 3), 0.05) + np.eye(3) * 0.85
+SIM3 = dict(SIM, Ds=(0.0, 0.02, 0.1), TrMat=TR3, seed=5)
+# the 3-state fit's start: param_fitting's own parameters but for a rough
+# guess of the Ds.  From param_fitting's default start (Ds 0, 0.375, 1.5)
+# L-BFGS-B stops after 4 evaluations at D2 ~ 1.2, in the JAX package
+# alike (tests/test_torch_fit.py); from this one both converge
+FIT3_START = dict(nb_states=3, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+                  D_max=3.0, estimated_Ds=[0.001, 0.01, 0.2],
+                  estimated_transition_rates=0.1)
+# the fitted Ds against SIM3's: D1 and D2 within this share, D0 below this
+# share of D1
+TOL_FIT3_D = 0.1
+TR5 = np.full((5, 5), 0.03) + np.eye(5) * 0.85
+SIM5 = dict(SIM, nb_tracks=20_000, Ds=(0.0, 0.01, 0.03, 0.06, 0.1),
+            TrMat=TR5, seed=6)
+TR6 = np.full((6, 6), 0.02) + np.eye(6) * 0.88
+SIM6 = dict(SIM, nb_tracks=50_000, max_track_len=5, nb_dims=1,
+            Ds=(0.0, 0.005, 0.01, 0.02, 0.05, 0.1), TrMat=TR6, seed=7)
+WIDE_CHECK = 1024             # tracks per bucket held to the plain version
+# (kernel, S, W, D): the bare times of the wide kernels at the main paths'
+# registers, on WIDE_TRACKS random walks of lengths 3..10 (K6: 2^14, its
+# plain version's chunks are small)
+WIDE_TIMES = [("K1 wide", 3, 7, 2), ("K4 wide", 5, 5, 2),
+              ("K5 wide", 3, 7, 2), ("K6 wide", 6, 4, 1)]
+WIDE_TRACKS = 1 << 16
+WIDE_K6_TRACKS = 1 << 14
+WIDE_PLAIN_CHUNK = 1 << 12    # the plain versions carry K*(T or (1+S)T)
 BENCH_DT = (0.01, 0.03)       # phase 10's per-track intervals at the bench
 FIT_ITERS = 200
 BENCH_TRACKS = 1 << 20
@@ -322,21 +369,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     return float(np.median(times))
 
 
-def bench_buckets(dev, T=10, seed=0, lo=3, dt_range=None):
-    """BENCH_TRACKS 2-state random walks, lengths lo..T, length-bucketed on
-    ``dev``; with ``dt_range`` (lo, hi) each track's intervals are drawn
-    uniform in it (a per-track dt dict, from its own seed), else none."""
+def bench_buckets(dev, T=10, seed=0, lo=3, dt_range=None, n=BENCH_TRACKS,
+                  D=2):
+    """``n`` 2-state random walks in D dimensions, lengths lo..T,
+    length-bucketed on ``dev``; with ``dt_range`` (lo, hi) each track's
+    intervals are drawn uniform in it (a per-track dt dict, from its own
+    seed), else none."""
     from extrack_tpu_torch import data
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(lo, T + 1, BENCH_TRACKS)
+    lengths = rng.integers(lo, T + 1, n)
     tracks = {}
     for L in range(lo, T + 1):
         nb = int((lengths == L).sum())
         state = rng.integers(0, 2, (nb, 1, 1))
         sig = np.where(state == 1, math.sqrt(2 * 0.08 * 0.02), 1e-4)
-        steps = rng.normal(0, 1, (nb, L, 2)) * sig
+        steps = rng.normal(0, 1, (nb, L, D)) * sig
         tracks[str(L)] = (steps.cumsum(1)
-                          + rng.normal(0, 0.02, (nb, L, 2))).astype(np.float32)
+                          + rng.normal(0, 0.02, (nb, L, D))).astype(np.float32)
     dts = None
     if dt_range is not None:
         rng_dt = np.random.default_rng(seed + 1)
@@ -987,6 +1036,18 @@ def main() -> int:
         # its XLA window engine there (extrack_tpu/histograms.py:290)
         "K5 n=2": entry("duration_hist_substeps", "hist.cu",
                         "extrack_tpu/ops/pallas_hist.py:63"),
+        # past 1024 slots, the wide mapping (a thread a fusion group): JAX
+        # runs its XLA engines there when the TPU kernels' VMEM budget
+        # is exceeded (extrack_tpu/histograms.py:632-645, predict.py:113-121,
+        # refine.py:654-668)
+        "K1 wide": entry("forward_loglik_wide", "forward.cu",
+                         "extrack_tpu/ops/pallas_engine.py:218"),
+        "K4 wide": entry("posteriors_wide", "predict.cu",
+                         "extrack_tpu/ops/pallas_predict.py:65"),
+        "K5 wide": entry("duration_hist_wide", "hist.cu",
+                         "extrack_tpu/ops/pallas_hist.py:63"),
+        "K6 wide": entry("refinement_wide", "refine.cu",
+                         "extrack_tpu/ops/pallas_refine.py:108"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1013,6 +1074,7 @@ def main() -> int:
     spills = []
     entry_name = ""
     k5_new = {}     # spill bytes of K5's variable-dt and sub-step kernels
+    wide_regs = {}  # registers and spill bytes of the wide instantiations
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
@@ -1026,6 +1088,17 @@ def main() -> int:
         if spilled and k5 and "1" in k5.group(3, 4):
             key = "D={} NT={} VDT={} SUB={}".format(*k5.group(1, 2, 3, 4))
             k5_new[key] = int(spilled.group(1)) + int(spilled.group(2))
+        wide = re.match(r"_ZN7extrack1[68](walk|hist|refine)_wide_kernel",
+                        entry_name)
+        regs = re.search(r"Used (\d+) registers", line)
+        if wide and (spilled or regs):
+            key = entry_name[:60]
+            wide_regs.setdefault(key, [0, 0])
+            if regs:
+                wide_regs[key][0] = int(regs.group(1))
+            if spilled:
+                wide_regs[key][1] = (int(spilled.group(1))
+                                     + int(spilled.group(2)))
         block = re.match(r"_ZN7extrack(?:1[13](?:hist|refine)_kernel|17walk_"
                          r"block_kernel)ILi\dELi(\d+)E", entry_name)
         threads = (int(block.group(1)) if block
@@ -1043,6 +1116,13 @@ def main() -> int:
     if len(k5_new) != 36:
         fail(f"K5 has {len(k5_new)} variable-dt or sub-step instantiations, "
              "not 36 (D 1..3, 4 block sizes, 3 flag pairs)")
+    log("phase 0: the wide mapping's instantiations (1024 threads, K <= "
+        "4096; registers, spill bytes stores + loads): " + ", ".join(
+            f"{k} {r} regs {b} B" for k, (r, b) in sorted(wide_regs.items())))
+    if len(wide_regs) != 21:
+        fail(f"{len(wide_regs)} wide instantiations, not 21 (K1 and K4: D "
+             "1..3 x constant and variable dt; K5: D 1..3 x constant and "
+             "variable dt; K6: D 1..3)")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -1054,16 +1134,17 @@ def main() -> int:
                                         isbl, tb, **kw))
         errs["K2"].append(check_table_grads(f"phase 2: K2 {tag}", pos, lens,
                                             isbl, tb, **kw))
-    # K1 and K2 on each mapping: the block mapping is forced by a zero
-    # warp limit
+    # K1 and K2 on each mapping: K1's wide mapping and K2's block mapping
+    # are forced by a zero warp limit
     for S, W in MAPPING_CASES:
         pos, lens, isbl, tb = parity_case(S, W, 1, 150 + S * 10 + W, dev)
         kw = dict(window=W, nb_substeps=1, min_len=2)
-        for k, mod, check in (("K1", forward_kernel, check_forward),
-                              ("K2", grad_kernel, check_table_grads)):
+        for k, mod, check, team in (
+                ("K1", forward_kernel, check_forward, "wide"),
+                ("K2", grad_kernel, check_table_grads, "block")):
             saved = mod.WARP_MAX_K
-            for mapping in (("warp", "block") if S ** W <= saved
-                            else ("block",)):
+            for mapping in (("warp", team) if S ** W <= saved
+                            else (team,)):
                 mod.WARP_MAX_K = saved if mapping == "warp" else 0
                 try:
                     errs[k].append(check(
@@ -1870,25 +1951,57 @@ def main() -> int:
         log(f"  l={ln:2d}: {hist9[ln - 1, 0]:10.1f} / {hist9[ln - 1, 1]:10.1f}"
             f"   window {hist[ln - 1, 0]:10.1f} / {hist[ln - 1, 1]:10.1f}")
 
-    # 3 states: the window engine's default (K = 3^7 > 1024) raises, the
-    # top-K engine runs through K7
-    tr3 = np.full((3, 3), 0.05) + np.eye(3) * 0.85
+    # 3 states: the window engine's default (K = 3^7 = 2187) runs K5's
+    # wide mapping, each bucket held to the plain version; the top-K
+    # engine runs through K7
     tracks3, _, _ = simulate.sim_fov(
         nb_tracks=20_000, max_track_len=20, min_track_len=3, LocErr=0.02,
-        Ds=(0.0, 0.02, 0.1), TrMat=tr3, dt=0.02, pBL=0.1, cell_dims=(0.5,),
+        Ds=(0.0, 0.02, 0.1), TrMat=TR3, dt=0.02, pBL=0.1, cell_dims=(0.5,),
         seed=3)
     values3 = {"LocErr": 0.02, "D0": 0.0, "D1": 0.02, "D2": 0.1,
                "F0": 1 / 3, "F1": 1 / 3, "F2": 1 / 3, "pBL": 0.1,
                **{f"p{i}{j}": 0.05 for i in range(3) for j in range(3)
                   if i != j}}
-    try:
-        histograms.len_hist(tracks3, values3, 0.02, cell_dims=(0.5,),
-                            nb_states=3)
-        fail("len_hist at 3 states, window 7, did not raise")
-    except NotImplementedError as e:
-        log(f"phase 9: 3 states, window engine: raises ({str(e)[:90]}...)")
     buckets3 = data.from_dict_bucketed(tracks3, max_buckets=4, device=dev,
                                        dtype=torch.float32)
+    reset_counts()
+    t0 = time.time()
+    hist3w = histograms.len_hist(tracks3, values3, 0.02, cell_dims=(0.5,),
+                                 nb_states=3)
+    t3w = time.time() - t0
+    k5_3, plain = hist_kernel.LAUNCHES, plain_calls()
+    n3 = sum(len(v) for v in tracks3.values())
+    log(f"phase 9: len_hist(nb_states=3) on {n3} tracks, window 7 "
+        f"(K=2187: K5 wide) {t3w:.2f} s; K5 launches "
+        f"{k5_3}, plain calls {plain} [{card}]")
+    if k5_3 != len(buckets3) or plain != 0:
+        fail(f"3-state len_hist: K5 launches {k5_3}, plain calls {plain}")
+    Ds3, Fs3, rates3, loc3, pBL3 = params.extract_arrays(
+        values3, 3, device=dev, dtype=torch.float32)
+    tb3 = tables.build_tables(Ds3, loc3, Fs3, rates3, pBL3, 0.02,
+                              cell_dims=(0.5,))
+    min3 = data.default_min_len(
+        np.concatenate([data.host_lengths(b) for b in buckets3]))
+    summed = np.zeros_like(hist3w)
+    for b in buckets3:
+        args = (b.positions, b.lengths, b.is_bleached, tb3)
+        h = hist_kernel.hist(*args, window=7, min_len=min3)
+        with torch.no_grad():
+            h0 = sum(hist_kernel.hist_plain(
+                *(x[i:i + WIDE_PLAIN_CHUNK] for x in args[:3]), tb3,
+                window=7, min_len=min3)
+                for i in range(0, b.batch_size, WIDE_PLAIN_CHUNK))
+        L = data.host_lengths(b)
+        errs["K5 wide"].append(check_hist(
+            f"phase 9: 3 states, window 7 (K5 wide), bucket T={b.max_len} "
+            f"B={b.batch_size}", h, h0, float(L[L >= 2].sum()),
+            kernel="K5 wide"))
+        summed[:b.max_len] += h.double().cpu().numpy()
+    frames3 = sum(int(k) * len(v) for k, v in tracks3.items())
+    if not np.array_equal(summed, hist3w) or abs(
+            float((hist3w * np.arange(1, hist3w.shape[0] + 1)[:, None]
+                   ).sum()) - frames3) > TOL_FRAMES * frames3:
+        fail("3-state len_hist differs from its buckets or loses frames")
     reset_counts()
     t0 = time.time()
     hist3 = histograms.len_hist(tracks3, values3, 0.02, cell_dims=(0.5,),
@@ -1972,6 +2085,7 @@ def main() -> int:
     del bench30
     phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3, ms4,
             ms5)
+    phase11(dev, card, kinfo, errs, reset_counts, plain_calls)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
@@ -2353,6 +2467,364 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
             f"({info['bound_by']}; the stream {stream / 1e6:.1f} MB) "
             f"[{card}]")
     log(f"phase 10: {time.time() - t10:.1f} s")
+
+
+def wide_bucket_checks(tag, buckets, fn, plain, check, n=WIDE_CHECK):
+    """Each bucket's first ``n`` tracks through a wide kernel's wrapper
+    (``fn``) and its plain version (``plain``), held by ``check(tag, got,
+    want, bucket slice)``; returns the largest error."""
+    from extrack_tpu_torch import data
+    worst = 0.0
+    for b in buckets:
+        k = min(n, b.batch_size)
+        sub = data.TrackBatch(b.positions[:k], b.lengths[:k],
+                              is_bleached=b.is_bleached[:k])
+        with torch.no_grad():
+            got, want = fn(sub), plain(sub)
+        worst = max(worst, check(f"{tag} bucket T={b.max_len}, first {k} "
+                                 "tracks", got, want, sub))
+    return worst
+
+
+def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
+    """Past 1024 slots: K1, K4, K5 and K6 on their wide mapping (a thread
+    a fusion group, csrc/walk.cuh, hist.cu, refine.cu) on the paths that
+    reach them at the JAX package's defaults, each with its launches, 0
+    plain calls, its wall time and its buckets' first tracks against the
+    plain version; then each wide kernel's bare time beside its bound and
+    its plain version's time."""
+    from extrack_tpu_torch import (data, fit, histograms, params, predict,
+                                   refine, simulate)
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import (forward_kernel, hist_kernel,
+                                       predict_kernel, refine_kernel)
+    t11 = time.time()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def tables_of(values, S):
+        Ds, Fs, rates, loc_err, pBL = params.extract_arrays(
+            values, S, device=dev, dtype=torch.float32)
+        return tables.build_tables(Ds, loc_err, Fs, rates, pBL, 0.02,
+                                   cell_dims=(0.5,))
+
+    # ---- 3 states: the README workflow at the JAX package's defaults
+    # (windows, frame_len), the fit started from FIT3_START ----
+    tracks, _, _ = simulate.sim_fov(**SIM3)
+    n_tr = sum(len(v) for v in tracks.values())
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    lens = np.concatenate([data.host_lengths(b) for b in buckets])
+    min_len = data.default_min_len(lens)
+    reset_counts()
+    t0 = time.time()
+    res = fit.param_fitting(tracks, 0.02,
+                            params=params.generate_params(**FIT3_START),
+                            nb_states=3, compute_errors=True,
+                            max_iter=FIT_ITERS, verbose=0, cell_dims=(0.5,))
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    values = {k: p.value for k, p in res.params.items()}
+    Ds = [values[f"D{i}"] for i in range(3)]
+    log(f"phase 11: 3 states, fitted Ds {Ds[0]:.5g}, {Ds[1]:.5g}, "
+        f"{Ds[2]:.5g} (simulated {SIM3['Ds']}) after {res.n_evals} "
+        f"evaluations ({res.message})")
+    if not (all(abs(d - d0) <= TOL_FIT3_D * d0
+                for d, d0 in zip(Ds[1:], SIM3["Ds"][1:]))
+            and 0.0 <= Ds[0] <= TOL_FIT3_D * SIM3["Ds"][1]):
+        fail(f"the 3-state fit's Ds {Ds} are not the simulated "
+             f"{SIM3['Ds']} (within {TOL_FIT3_D:.0%})")
+    t0 = time.time()
+    preds = predict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                               nb_states=3)
+    torch.cuda.synchronize()
+    t_pred = time.time() - t0
+    k4 = predict_kernel.LAUNCHES
+    t0 = time.time()
+    hist = histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                               nb_states=3)
+    t_hist = time.time() - t0
+    k5 = hist_kernel.LAUNCHES
+    # refinement with the fitted model: ds = sqrt(2 D dt), the port's
+    # transition matrix (phase 8's)
+    ds = np.sqrt(2.0 * np.array([values[f"D{i}"] for i in range(3)]) * 0.02)
+    _, Fs, rates, _, _ = params.extract_arrays(values, 3, device=dev,
+                                               dtype=torch.float32)
+    TrMat = tables.transition_matrix(rates).cpu().numpy()
+    Fs = Fs.cpu().numpy()
+    t0 = time.time()
+    mus, _ = refine.position_refinement(tracks, values["LocErr"], ds, Fs,
+                                        TrMat)
+    torch.cuda.synchronize()
+    t_ref = time.time() - t0
+    k6, plain = refine_kernel.LAUNCHES, plain_calls()
+    frames = int(lens[lens >= 2].sum())
+    counted = float((hist * np.arange(1, hist.shape[0] + 1)[:, None]).sum())
+    T3 = max(int(k) for k in tracks)
+    W6 = refine.default_window(3, T3, 2)
+    log(f"phase 11: 3 states, {n_tr} tracks: param_fitting(compute_errors"
+        f"=True) {t_fit:.2f} s ({res.n_evals} evals; "
+        + ", ".join(f"{k}={p.value:.4g}" for k, p in res.params.items())
+        + f"), predict_Bs (frame_len 5, K=243) {t_pred:.2f} s, len_hist "
+        f"(window 7, K=2187: wide) {t_hist:.2f} s, position_refinement "
+        f"(window {W6}, K={3 ** W6}) {t_ref:.2f} s; whole workflow "
+        f"{t_fit + t_pred + t_hist + t_ref:.2f} s; launches K4 {k4}, K5 "
+        f"{k5}, K6 {k6}, plain calls {plain}; frames {counted:.1f} of "
+        f"{frames} [{card}]")
+    if (k4 != len(buckets) or k5 != len(buckets) or k6 != len(buckets)
+            or plain != 0 or abs(counted - frames) > TOL_FRAMES * frames
+            or len(preds) != len(tracks) or len(mus) != len(tracks)):
+        fail("the 3-state workflow did not run through its kernels, or "
+             "lost frames")
+    kinfo["K5 wide"]["launches"] = k5
+    tb3 = tables_of(values, 3)
+
+    def hist_check(tag, got, want, sub):
+        L = data.host_lengths(sub)
+        return check_hist(tag, got, want, float(L[L >= 2].sum()),
+                          kernel="K5 wide")
+
+    errs["K5 wide"].append(wide_bucket_checks(
+        "phase 11: K5 wide, 3 states, window 7,", buckets,
+        lambda b: hist_kernel.hist(b.positions, b.lengths, b.is_bleached,
+                                   tb3, window=7, min_len=min_len),
+        lambda b: hist_kernel.hist_plain(b.positions, b.lengths,
+                                         b.is_bleached, tb3, window=7,
+                                         min_len=min_len), hist_check))
+    # a value-only objective at window 7 (K1 on the wide mapping): the
+    # likelihood of the fitted model at a longer memory
+    spec = params.generate_params(nb_states=3)
+    spec.set_values(values)
+    obj = fit.make_objective(buckets, spec, 0.02, 3, cell_dims=(0.5,),
+                             window=7, min_len=min_len)
+    z = torch.tensor(spec.to_unconstrained(), **f32)
+    reset_counts()
+    t0 = time.time()
+    with torch.no_grad():
+        v = float(obj(z))
+    t_obj = time.time() - t0
+    k1, plain = forward_kernel.LAUNCHES, plain_calls()
+    log(f"phase 11: 3 states, value-only objective at window 7 (K=2187: "
+        f"K1 wide) {v:.4f} in {t_obj:.3f} s; K1 launches {k1}, plain calls "
+        f"{plain} [{card}]")
+    if k1 != len(buckets) or plain != 0 or not math.isfinite(v):
+        fail(f"value-only objective at window 7: K1 launches {k1}, plain "
+             f"{plain}, value {v}")
+    kinfo["K1 wide"]["launches"] = k1
+
+    def logl_check(tag, got, want, sub):
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, **TOL_K1) and bool(
+            torch.isfinite(got).all())
+        log(f"{tag}: logL max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K1 wide disagrees with forward_plain at {tag}")
+        return err
+
+    errs["K1 wide"].append(wide_bucket_checks(
+        "phase 11: K1 wide, 3 states, window 7,", buckets,
+        lambda b: forward_kernel.forward(b.positions, b.lengths,
+                                         b.is_bleached, tb3, window=7,
+                                         min_len=min_len),
+        lambda b: forward_kernel.forward_plain(b.positions, b.lengths,
+                                               b.is_bleached, tb3, window=7,
+                                               min_len=min_len),
+        logl_check))
+    del tracks, buckets, preds, mus
+
+    # ---- 5 states: predict_Bs at its default frame_len 5 (K4 wide) -----
+    tracks, states, _ = simulate.sim_fov(**SIM5)
+    n_tr = sum(len(v) for v in tracks.values())
+    values = {"LocErr": 0.02, "pBL": 0.1,
+              **{f"D{i}": d for i, d in enumerate(SIM5["Ds"])},
+              **{f"F{i}": 0.2 for i in range(5)},
+              **{f"p{i}{j}": 0.03 for i in range(5) for j in range(5)
+                 if i != j}}
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    lens = np.concatenate([data.host_lengths(b) for b in buckets])
+    min_len = data.default_min_len(lens)
+    for b in buckets[:1]:           # warm-up
+        predict.predict_batch(b, values, 0.02, 5, cell_dims=(0.5,),
+                              window=5)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    out = predict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                             nb_states=5)
+    torch.cuda.synchronize()
+    t_pred = time.time() - t0
+    k4, plain = predict_kernel.LAUNCHES, plain_calls()
+    hits = sum(int((out[k].argmax(-1) == states[k]).sum()) for k in out)
+    total = sum(states[k].size for k in out)
+    log(f"phase 11: 5 states, predict_Bs on {n_tr} tracks (frame_len 5, "
+        f"K=3125: K4 wide) {t_pred:.2f} s; K4 launches {k4}, plain calls "
+        f"{plain}; most probable state the simulated one in {hits}/{total} "
+        f"frames [{card}]")
+    if k4 != len(buckets) or plain != 0:
+        fail(f"5-state predict_Bs: K4 launches {k4}, plain calls {plain}")
+    kinfo["K4 wide"]["launches"] = k4
+    tb5 = tables_of(values, 5)
+
+    def preds_check(tag, got, want, sub):
+        (logl, p), (logl0, p0) = got, want
+        e = max(float((logl - logl0).abs().max()),
+                float((p - p0).abs().max()))
+        ok = (torch.allclose(logl, logl0, **TOL_K4_LOGL)
+              and torch.allclose(p, p0, **TOL_K4_PREDS))
+        log(f"{tag}: logL and preds max_abs_err {e:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K4 wide disagrees with predict_plain at {tag}")
+        return e
+
+    errs["K4 wide"].append(wide_bucket_checks(
+        "phase 11: K4 wide, 5 states, W=5,", buckets,
+        lambda b: predict_kernel.predict(b.positions, b.lengths,
+                                         b.is_bleached, tb5, window=5,
+                                         min_len=min_len),
+        lambda b: predict_kernel.predict_plain(b.positions, b.lengths,
+                                               b.is_bleached, tb5, window=5,
+                                               min_len=min_len),
+        preds_check, n=256))
+    # predict_Bs gives each bucket's K4 result
+    for b in buckets:
+        _, p = predict_kernel.predict(b.positions, b.lengths, b.is_bleached,
+                                      tb5, window=5, min_len=min_len)
+        got = data.to_dict(b, p)
+        if not all(np.array_equal(got[k], out[k]) for k in got):
+            fail(f"5-state predict_Bs differs from K4 on bucket "
+                 f"T={b.max_len}")
+    del tracks, states, out, buckets
+
+    # ---- 6 states, 1-D tracks of 3-5 frames: refinement (K6 wide) ------
+    tracks, _, _ = simulate.sim_fov(**SIM6)
+    n_tr = sum(len(v) for v in tracks.values())
+    ds6 = np.sqrt(2.0 * np.array(SIM6["Ds"]) * 0.02)
+    T6 = max(int(k) for k in tracks)
+    W6 = refine.default_window(6, T6, 1)
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev)
+    refine.refine_batch(buckets[0], 0.02, ds6, TR6)          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    mus, sigmas = refine.position_refinement(tracks, 0.02, ds6,
+                                             [1 / 6] * 6, TR6)
+    torch.cuda.synchronize()
+    t_ref = time.time() - t0
+    k6, plain = refine_kernel.LAUNCHES, plain_calls()
+    log(f"phase 11: 6 states, position_refinement on {n_tr} 1-D tracks of "
+        f"up to {T6} frames: window {W6} (K={6 ** W6}: K6 wide, the JAX "
+        f"package's default at T={T6}, D=1) {t_ref:.3f} s; K6 launches "
+        f"{k6}, plain calls {plain} [{card}]")
+    if k6 != len(buckets) or plain != 0 or W6 != 4:
+        fail(f"6-state refinement: K6 launches {k6}, plain calls {plain}, "
+             f"window {W6}")
+    kinfo["K6 wide"]["launches"] = k6
+    lt6 = tables.cap_log(torch.tensor(TR6, **f32))
+    sig2_6 = torch.tensor(ds6, **f32) ** 2
+    l2_6 = torch.full((1, 1, 1), 0.02 ** 2, **f32)
+    for b in buckets:
+        mu, sig = refine.refine_batch(b, 0.02, ds6, TR6)
+        got_mu = data.to_dict(b, mu)
+        if not all(np.array_equal(got_mu[k], mus[k]) for k in got_mu):
+            fail(f"6-state position_refinement differs from K6 on bucket "
+                 f"T={b.max_len}")
+        n = min(WIDE_CHECK, b.batch_size)
+        mu0, sig0 = refine_kernel.refine_plain(
+            b.positions[:n], b.lengths[:n], l2_6, lt6, sig2_6, window=W6)
+        errs["K6 wide"].append(check_refine(
+            f"phase 11: K6 wide, 6 states, W={W6}, bucket T={b.max_len}, "
+            f"first {n} tracks", mu[:n], sig[:n], mu0, sig0,
+            b.positions[:n], b.lengths[:n], l2_6))
+    del tracks, buckets, mus, sigmas
+    log(f"phase 11: paths {time.time() - t11:.1f} s")
+
+    # ---- bare times at the main paths' registers ------------------------
+    for name, S, W, D in WIDE_TIMES:
+        n = WIDE_K6_TRACKS if name == "K6 wide" else WIDE_TRACKS
+        bench = bench_buckets(dev, n=n, D=D)
+        blens = np.concatenate([data.host_lengths(b) for b in bench])
+        K = S ** W
+        info = kinfo[name]
+        rows = sum(b.positions.numel() for b in bench) * 4
+        if name == "K6 wide":
+            tr = np.full((S, S), 0.1 / (S - 1)) + np.eye(S) * (0.9 - 0.1
+                                                               / (S - 1))
+            lt = tables.cap_log(torch.tensor(tr, **f32))
+            s2 = torch.tensor((0.08 * (1 + np.arange(S))) ** 2, **f32)
+            l2 = torch.full((1, 1, 1), 4e-4, **f32)
+            tabs = [t.contiguous() for t in (
+                *refine_kernel.build_refine_tables(lt, s2, W)[:2],
+                *refine_kernel.build_refine_tables(lt.T, s2, W))]
+            prep = [(b.positions, b.lengths.to(torch.int32),
+                     l2.expand(b.positions.shape).contiguous())
+                    for b in bench]
+
+            def bare():
+                for p_, l_, e_ in prep:
+                    refine_kernel.launch(p_, l_, e_, tabs, S)
+
+            def plain_run():
+                for b in bench:
+                    refine_kernel.refine_plain(b.positions, b.lengths, l2,
+                                               lt, s2, window=W)
+            nbytes = 2 * rows + 4 * len(blens) + 2 * rows
+            ops = walk_ops(blens, K, S, D, "K6", S=S)
+        else:
+            rates = torch.full((S, S), 0.1, **f32)
+            rates.fill_diagonal_(0.0)
+            tb = tables.build_tables(
+                torch.linspace(0.0, 0.08, S, **f32),
+                torch.tensor(0.02, **f32), torch.full((S,), 1.0 / S, **f32),
+                rates, torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,))
+            args = []
+            for b in bench:
+                d, t = forward_kernel.kernel_inputs(
+                    b.positions, b.lengths, b.is_bleached, tb, W, 1)
+                args.append((b, d, [x.detach() for x in t]))
+            if name == "K1 wide":
+                def bare():
+                    for _, d, t in args:
+                        forward_kernel.launch(d, t, 3)
+                plain_fn = forward_kernel.forward_plain
+                nbytes = 2 * rows + 12 * len(blens)
+                ops = walk_ops(blens, K, S, D, "K1")
+            elif name == "K4 wide":
+                def bare():
+                    for _, d, t in args:
+                        predict_kernel.launch(d, t, 3, S, W)
+                plain_fn = predict_kernel.predict_plain
+                nbytes = 2 * rows + 12 * len(blens) + sum(
+                    b.batch_size * b.max_len for b in bench) * S * 4
+                ops = walk_ops(blens, K, S, D, "K4", T=10, W=W, S=S)
+            else:
+                def bare():
+                    for _, d, t in args:
+                        hist_kernel.launch(d, t, 3, S, W)
+                plain_fn = hist_kernel.hist_plain
+                nbytes = 2 * rows + 8 * len(blens) + sum(
+                    (W + 2) * S * b.max_len * K * 4 for b in bench)
+                ops = sum(walk_ops(data.host_lengths(b), K, S, D, "K5",
+                                   T=b.max_len, W=W, S=S) for b in bench)
+
+            def plain_run(_fn=plain_fn):
+                with torch.no_grad():
+                    for b in bench:
+                        for i in range(0, b.batch_size, WIDE_PLAIN_CHUNK):
+                            sl = slice(i, i + WIDE_PLAIN_CHUNK)
+                            _fn(b.positions[sl], b.lengths[sl],
+                                b.is_bleached[sl], tb, window=W, min_len=3)
+        info["ms"] = cuda_ms(bare, 5)
+        info["plain_ms"] = cuda_ms(plain_run, 1)
+        info["bound_ms"], info["bound_by"] = bound(nbytes, ops)
+        log(f"phase 11: {name} S={S} W={W} (K={K}) D={D}, {len(blens)} "
+            f"tracks of lengths 3..10 ({len(bench)} buckets): kernel "
+            f"{info['ms']:.3f} ms = {len(blens) / info['ms'] * 1e3 / 1e6:.4f}"
+            f"M tracks/s; plain {info['plain_ms']:.3f} ms; bound "
+            f"{info['bound_ms']:.4f} ms ({info['bound_by']}), "
+            f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
+        del bench
+    log(f"phase 11: {time.time() - t11:.1f} s")
 
 
 if __name__ == "__main__":

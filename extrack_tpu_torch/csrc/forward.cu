@@ -14,14 +14,17 @@
 // walk: with one cold block per track, the loads before the first step
 // took 42% of the cycles on an H100), persistent blocks, the slot tables
 // in registers, the base-2 fusion on the special-function unit and a
-// one-pass closing; one persistent block per track above 64 slots.
+// one-pass closing; one persistent block per track above 64 slots, a
+// thread a fusion group up to 4096 (walk.cuh's wide mapping: the carries
+// in shared memory as the groups' fused Gaussians, the tables read
+// through L1).
 // Tracks are independent, so nothing is reduced across teams and the
 // result is bitwise repeatable.
 //
 // Variable dt (per-track or per-step intervals): the displacement
 // variances come from a (B, T-1, P) stream, read from the team's shared
 // slice (warp mapping, prefetched with the positions) or global memory
-// (block mapping) where the constant path reads its tables (walk.cuh).
+// (wide mapping) where the constant path reads its tables (walk.cuh).
 #include "walk.cuh"
 
 namespace extrack {
@@ -35,7 +38,8 @@ static __device__ unsigned long long g_forward_prof[kProfSlots];
 // (variable dt, P = S^(n+1)) the (B, T-1, P) float32 displacement
 // variances, which replace s20, sig2v and s2n (null for P = 0); logl
 // float32 (B,).  nblk persistent blocks; warps > 0: the warp mapping with
-// that many warps a block (K <= 64), 0: the block mapping.  Launches on
+// that many warps a block (K <= 64), -1: the wide mapping (K <= 4096; K1
+// has no block mapping).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int extrack_forward(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,

@@ -67,6 +67,20 @@
 // What bounds it on Hopper: as K4, instruction issue and barriers, not
 // device memory.  The transport adds (1+S)*(t+1)*(A+1) multiply-adds per
 // group at step t, and the harvest K*S*T multiply-adds per track.
+//
+// Past 1024 slots (up to 4096; hist_wide_kernel) a thread owns whole
+// fusion groups, as K1's and K4's wide walk (walk.cuh): member c = g*A + o
+// of group g is child c / G of group c % G of the last fusion, so its
+// carry is that group's fused Gaussian from shared memory plus its child
+// terms (the tables through L1; VDT: the stream), and a step mixes the
+// group's A member updates in registers and publishes G fused Gaussians
+// ((2D+1) floats each) in place of K updates.  The thread then moves its
+// group's rows itself, all (1+S)*(t+1) bins (transport_group: transport's
+// sums, with the members' weights from shared memory), so the rows keep
+// their layout.  The harvest computes each slot's constants (c % S, c % G,
+// the oldest run's length through L1) in place of the per-slot tables in
+// shared memory.  At 3 states and window 7 (K = 2187, G = 729) a track's
+// rows at T = 20 take 466,560 bytes, in global scratch.
 #include "common.cuh"
 
 namespace extrack {
@@ -403,6 +417,279 @@ __global__ void __launch_bounds__(NT, hist_min_blocks<NT>())
         cgr, cext, red);
 }
 
+// ---- the wide mapping: 1024 < K <= 4096 slots -------------------------
+
+constexpr int kHistWideThreads = 1024;  // the wide block's largest size
+constexpr int kHistWideMaxK = 4096;
+
+// Group g's rows at step t, every bin, from `cur` into `nxt` (transport's
+// sums for all A children of the group); w: the group's A member weights,
+// q, mb0 and wrap as transport's.
+static __device__ __forceinline__ void transport_group(
+    const float* cur, float* nxt, int G, int T, int S, int A, int t,
+    bool drop, int g, int q, int mb0, bool wrap, const float* w) {
+  auto row = [&](int o) { return wrap ? o % G : mb0 + o; };
+  const int nb = min(t + 1, T);        // bins written at this step
+  const int nold = min(t, T);          // bins the sources hold
+  if (drop) {
+    // the runs of the members of oldest state q go on, the others end
+    float wq = 0.f;
+    for (int o = q; o < A; o += S) wq += w[o];
+    nxt[g] = 1.f - wq;
+    for (int r = 1; r < nb; ++r) {
+      float v = 0.f;
+      for (int o = q; o < A; o += S)
+        v = fmaf(w[o], cur[(size_t)(r - 1) * G + row(o)], v);
+      nxt[(size_t)r * G + g] = v;
+    }
+  } else {
+    for (int r = 0; r < nb; ++r) {
+      float v = 0.f;
+      if (r < nold)
+        for (int o = 0; o < A; ++o)
+          v = fmaf(w[o], cur[(size_t)r * G + row(o)], v);
+      nxt[(size_t)r * G + g] = v;
+    }
+  }
+  for (int s = 0; s < S; ++s) {
+    const bool ends = drop && s != q;   // runs of oldest state s end
+    const float* hin = cur + (size_t)(1 + s) * T * G;
+    float* hout = nxt + (size_t)(1 + s) * T * G;
+    for (int r = 0; r < nb; ++r) {
+      float v = 0.f;
+      if (r < nold) {
+        for (int o = 0; o < A; ++o)
+          v = fmaf(w[o], hin[(size_t)r * G + row(o)], v);
+        if (ends)
+          for (int o = s; o < A; o += S)
+            v = fmaf(w[o], cur[(size_t)r * G + row(o)], v);
+      }
+      hout[(size_t)r * G + g] = v;
+    }
+  }
+}
+
+// The wide mapping's track loop (hist_tracks' arguments; the kernel calls
+// it at two sites, rows in shared memory or in global scratch).  `spb`
+// holds K floats: each group's member weights during the walk, the
+// register's softmax at the harvest.
+template <int D, bool VDT>
+static __device__ __forceinline__ void hist_wide_tracks(
+    const Tables& tb, const float* __restrict__ xs,
+    const float* __restrict__ l2s, const int* __restrict__ lengths,
+    const float* __restrict__ isbls, const float* __restrict__ s2st,
+    const float* __restrict__ seg, const int* __restrict__ ext, int B,
+    int T, int S, int P, int Wf, float* __restrict__ rows, float* rows_at,
+    float* pubs, float* spb, float* red) {
+  const int K = tb.K, A = tb.A, G = K / A;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, wid = tid >> 5, nwarp = nt >> 5;
+  const int KP = VDT ? K / P : 1;               // slots a pattern
+  const bool wrap = A > G;                      // Wf = 2 past one sub-step
+  const int ST = S * T, HS = (1 + S) * T;       // hist bins, rows per group
+  const int F = 2 * D + 1;
+  int pb = 0;                                   // publish area in turn
+
+  Prof pf;
+  pf.start();
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int L = min(lengths[b], T);
+    float* row = rows + (size_t)b * ST;
+    if (L < 2) {            // empty / 1-frame rows are never harvested
+      for (int j = tid; j < ST; j += nt) row[j] = 0.f;
+      continue;
+    }
+    const float* x = xs + (size_t)b * T * D;
+    const float* l2 = l2s + (size_t)b * T * D;
+    const float* sg = VDT ? s2st + (size_t)b * (T - 1) * P : nullptr;
+    const float isbl = isbls[b];
+    const float* prev = nullptr;                // the last step's groups
+    float gate_prev = 0.f;
+    // member c's carry entering step t (walk.cuh's wide_track)
+    auto carry = [&](int c, int t, float* m, float* s2, float& lp) {
+      if (t == 1) {
+        lp = __ldg(tb.lp0 + c);
+        const float s20 = VDT ? sg[c / KP] : __ldg(tb.s20 + c);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          m[d] = x[d];
+          s2[d] = l2[d] + s20;
+        }
+      } else {
+        const int gp = c % G;
+        const float sv =
+            VDT ? sg[(size_t)(t - 1) * P + c / KP] : __ldg(tb.sig2v + c);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          m[d] = prev[d * G + gp];
+          s2[d] = sv + prev[(D + d) * G + gp];
+        }
+        lp = prev[2 * D * G + gp] + __ldg(tb.lt + c) +
+             gate_prev * __ldg(tb.lsurv + c);
+      }
+    };
+    // every group starts with a run of length 1 and no completed segment
+    float* cur = rows_at;
+    float* nxt = rows_at + (size_t)G * HS;
+    for (int g = tid; g < G; g += nt) {
+      cur[g] = 1.f;
+      for (int s = 0; s < S; ++s) cur[(size_t)(1 + s) * T * G + g] = 0.f;
+    }
+    __syncthreads();        // the rows' bin 0 before the first transport
+    pf.mark(kHsZero);
+    for (int t = 1; t < L; ++t) {
+      float xt[D], l2t[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        xt[d] = x[t * D + d];
+        l2t[d] = l2[t * D + d];
+      }
+      if (t == L - 1) {
+        // harvest: the softmax of fin = lp + isBL * end + log N(x_t), each
+        // thread's slots' fin kept in spb until the block's max is known
+        float tmx = -INFINITY;
+        for (int g = tid; g < G; g += nt)
+          for (int o = 0; o < A; ++o) {
+            const int c = g * A + o;
+            float m[D], s2[D], lp;
+            carry(c, t, m, s2, lp);
+            Prep<float, D> p;
+            prep<float, D>(m, s2, xt, l2t, p);
+            const float fin = lp + isbl * __ldg(tb.endv + c) -
+                              0.5f * logf(p.prod) - p.quad;
+            spb[c] = fin;
+            tmx = fmaxf(tmx, fin);
+          }
+        pf.mark(kHsFusion);
+        const float mx = block_max(tmx, red);
+        float te = 0.f;
+        for (int g = tid; g < G; g += nt)
+          for (int o = 0; o < A; ++o) {
+            const float e = expf(spb[g * A + o] - mx);
+            spb[g * A + o] = e;
+            te += e;
+          }
+        const float se = fmaxf(block_sum(te, red), kTiny);
+        for (int g = tid; g < G; g += nt)
+          for (int o = 0; o < A; ++o) spb[g * A + o] /= se;
+        __syncthreads();
+        const bool held = t + 1 > Wf;
+        const int nw = min(t, T);
+        const float* sgt = seg + (size_t)(held ? Wf + 1 : t + 1) * ST * K;
+        for (int j = wid; j < ST; j += nwarp) {
+          const int s = j / T, mb = j - s * T;
+          const bool hv = mb < nw;
+          float v = 0.f;
+          for (int c = lane; c < K; c += 32) {
+            const int gc = c % G;
+            float tot = sgt[(size_t)j * K + c];
+            if (hv) tot += cur[(size_t)(T + j) * G + gc];
+            if (held && c % S == s) {
+              // the oldest run: carried length + the window's run - 1
+              const int src = mb - __ldg(ext + c) + 1;
+              if (src >= 0 && src < nw) tot += cur[(size_t)src * G + gc];
+            }
+            v = fmaf(spb[c], tot, v);
+          }
+          v = warp_sum(v);
+          if (lane == 0) row[j] = v;
+        }
+        __syncthreads();    // spb and the rows are reused by the next track
+        pf.mark(kHsHarvest);
+        break;
+      }
+      // fusion of each of the thread's groups in registers, then its
+      // rows; spb holds the members' log2 weights until the group's sum
+      const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
+      const bool drop = t >= Wf - 1;  // the oldest frame leaves the window
+      float* pub = pubs + pb * F * G;
+      pb ^= 1;
+      for (int g = tid; g < G; g += nt) {
+        float gmx = kNegBig, gsw = 0.f, mf[D], tf[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) mf[d] = tf[d] = 0.f;
+        float* w = spb + g * A;
+        for (int o = 0; o < A; ++o) {
+          float m[D], s2[D], lp;
+          carry(g * A + o, t, m, s2, lp);
+          Upd<D> u;
+          update2<D>(m, s2, xt, l2t, u);
+          const float base = kLog2e * (lp - u.quad);
+          float wo = rsq(u.prod);
+          if (base > gmx) {
+            const float sc = ex2(gmx - base);
+            gsw *= sc;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              mf[d] *= sc;
+              tf[d] *= sc;
+            }
+            gmx = base;
+          } else {
+            wo *= ex2(base - gmx);
+          }
+          gsw += wo;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            mf[d] = fmaf(wo, u.nm[d], mf[d]);
+            tf[d] = fmaf(wo, u.tl[d], tf[d]);
+          }
+          w[o] = base - 0.5f * lg2(u.prod);
+        }
+        gsw = fmaxf(gsw, kTiny);
+        const float inv = rcp(gsw);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          pub[d * G + g] = mf[d] * inv;
+          pub[(D + d) * G + g] = tf[d] * inv;
+        }
+        pub[2 * D * G + g] = (gmx + lg2(gsw)) * kLn2;
+        for (int o = 0; o < A; ++o) w[o] = ex2(w[o] - gmx) * inv;
+        pf.mark(kHsFusion);
+        transport_group(cur, nxt, G, T, S, A, t, drop, g, g % S,
+                        (g * A) % G, wrap, w);
+        pf.mark(kHsTransport);
+      }
+      __syncthreads();
+      pf.mark(kHsBarrier);
+      prev = pub;
+      gate_prev = gate;
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+  }
+  pf.flush(g_hist_prof, threadIdx.x == 0);
+}
+
+template <int D, bool VDT>
+__global__ void __launch_bounds__(kHistWideThreads, 1)
+    hist_wide_kernel(Tables tb, const float* __restrict__ xs,
+                     const float* __restrict__ l2s,
+                     const int* __restrict__ lengths,
+                     const float* __restrict__ isbls,
+                     const float* __restrict__ s2st,
+                     const float* __restrict__ seg,
+                     const int* __restrict__ ext, int B, int T, int S, int P,
+                     int Wf, float* __restrict__ rows,
+                     float* __restrict__ scratch) {
+  extern __shared__ float sh[];
+  __shared__ float red[33];
+  const int G = tb.K / tb.A;
+  // shared memory: two publish areas of (2D+1)*G floats, K floats of
+  // member weights / softmax, then both row buffers unless they are in
+  // global scratch
+  float* pubs = sh;
+  float* spb = sh + 2 * (2 * D + 1) * G;
+  if (scratch == nullptr)
+    hist_wide_tracks<D, VDT>(tb, xs, l2s, lengths, isbls, s2st, seg, ext, B,
+                             T, S, P, Wf, rows, spb + tb.K, pubs, spb, red);
+  else
+    hist_wide_tracks<D, VDT>(
+        tb, xs, l2s, lengths, isbls, s2st, seg, ext, B, T, S, P, Wf, rows,
+        scratch + (size_t)blockIdx.x * 2 * G * (1 + S) * T, pubs, spb, red);
+}
+
 // The launch's arguments besides its geometry.
 struct HistArgs {
   Tables tb;
@@ -410,15 +697,17 @@ struct HistArgs {
   const int *lengths, *ext;
   float *rows, *scratch;
   int B, T, S, P, Wf;
+  bool wide;
 };
 
 template <int D, int NT, bool VDT, bool SUB>
 static int launch_nt(const HistArgs& h, int nblk, int threads, size_t smem,
                      cudaStream_t stream) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(hist_kernel<D, NT, VDT, SUB>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+  // always: at 48 KB of dynamic shared memory (K = 1024 at D = 1, rows in
+  // global scratch) the static red[] passes the default limit
+  cudaFuncSetAttribute(hist_kernel<D, NT, VDT, SUB>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
   if (h.B > 0)
     hist_kernel<D, NT, VDT, SUB><<<nblk, threads, smem, stream>>>(
         h.tb, h.xs, h.l2, h.lengths, h.isbl, h.s2st, h.seg, h.ext, h.B, h.T,
@@ -432,16 +721,41 @@ static int launch_nt(const HistArgs& h, int nblk, int threads, size_t smem,
 // register and three per-slot int constants (c % S, c % G, the oldest
 // run's length).  Carry: the double-buffered run and histogram rows,
 // (1+S)*T floats for each of the K/A fusion groups (the A children of a
-// group carry the same rows).
-static BlockLayout hist_layout(int T, int D, int K, int S, int A) {
+// group carry the same rows).  The wide mapping: a thread per group (at
+// most 1024), shared memory besides the rows two publish areas of
+// (2D+1)*G floats and K floats of member weights; the same rows.
+static BlockLayout hist_layout(int T, int D, int K, int S, int A,
+                               bool wide) {
+  const int G = K / A;
+  const size_t carry = (size_t)2 * G * (1 + S) * T * sizeof(float);
+  if (wide) {
+    const int threads = (G + 31) / 32 * 32;
+    return {threads < kHistWideThreads ? threads : kHistWideThreads,
+            ((size_t)2 * (2 * D + 1) * G + K) * sizeof(float), carry};
+  }
   return {(K + 31) / 32 * 32,
-          (size_t)(2 * (2 + 2 * D) + 4) * K * sizeof(float),
-          (size_t)2 * (K / A) * (1 + S) * T * sizeof(float)};
+          (size_t)(2 * (2 + 2 * D) + 4) * K * sizeof(float), carry};
+}
+
+template <int D, bool VDT>
+static int launch_wide(const HistArgs& h, int nblk, cudaStream_t stream) {
+  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A, true);
+  const size_t smem = lay.fixed + (h.scratch != nullptr ? 0 : lay.carry);
+  // always: at 48 KB of dynamic shared memory the static red[] passes the
+  // default limit
+  cudaFuncSetAttribute(hist_wide_kernel<D, VDT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  if (h.B > 0)
+    hist_wide_kernel<D, VDT><<<nblk, lay.threads, smem, stream>>>(
+        h.tb, h.xs, h.l2, h.lengths, h.isbl, h.s2st, h.seg, h.ext, h.B, h.T,
+        h.S, h.P, h.Wf, h.rows, h.scratch);
+  return (int)cudaGetLastError();
 }
 
 template <int D, bool VDT, bool SUB>
 static int launch_hist(const HistArgs& h, int nblk, cudaStream_t stream) {
-  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A);
+  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A, false);
   const int threads = lay.threads;
   const size_t smem = lay.fixed + (h.scratch != nullptr ? 0 : lay.carry);
   if (threads <= 128)
@@ -455,10 +769,13 @@ static int launch_hist(const HistArgs& h, int nblk, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The instantiation for the launch: variable dt (P > 0), more than one
-// sub-step (A > S).
+// The instantiation for the launch: the wide mapping (any number of
+// sub-steps), variable dt (P > 0), more than one sub-step (A > S).
 template <int D>
 static int launch_dt(const HistArgs& h, int nblk, cudaStream_t stream) {
+  if (h.wide)
+    return h.P > 0 ? launch_wide<D, true>(h, nblk, stream)
+                   : launch_wide<D, false>(h, nblk, stream);
   if (h.tb.A > h.S)
     return h.P > 0 ? launch_hist<D, true, true>(h, nblk, stream)
                    : launch_hist<D, false, true>(h, nblk, stream);
@@ -492,12 +809,14 @@ extern "C" int extrack_hist_smem(int device) {
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// K5's block for a launch (hist_layout): out = threads, shared bytes
-// besides the rows, row bytes per track.
+// K5's block for a launch (hist_layout; wide: the wide mapping, K <=
+// 4096): out = threads, shared bytes besides the rows, row bytes per track.
 extern "C" int extrack_hist_layout(int T, int D, int K, int S, int A,
-                                   long long* out) {
-  if (A < 1 || K % A) return (int)cudaErrorInvalidValue;
-  return extrack::write_layout(extrack::hist_layout(T, D, K, S, A), D, out);
+                                   int wide, long long* out) {
+  if (A < 1 || K % A || (wide && K > extrack::kHistWideMaxK))
+    return (int)cudaErrorInvalidValue;
+  return extrack::write_layout(extrack::hist_layout(T, D, K, S, A, wide), D,
+                               out);
 }
 
 // Inputs: xs, l2 (B, T, D), lengths (B,), isbl (B,) and the six (K,) slot
@@ -510,8 +829,9 @@ extern "C" int extrack_hist_layout(int T, int D, int K, int S, int A,
 // expected histogram (bin s*T + m: segments of length m+1 in state s;
 // zero for tracks of fewer than 2 frames).  scratch: null to keep the
 // double-buffered rows in shared memory, or nblk times the row bytes of
-// extrack_hist_layout in global scratch.  Blocks are
-// persistent over nblk.  Returns cudaGetLastError().
+// extrack_hist_layout in global scratch.  wide: the wide mapping (a
+// thread per fusion group, K <= 4096), else a thread per slot (K <= 1024).
+// Blocks are persistent over nblk.  Returns cudaGetLastError().
 extern "C" int extrack_hist(const float* xs, const float* l2,
                             const int* lengths, const float* isbl,
                             const float* lp0, const float* s20,
@@ -520,14 +840,16 @@ extern "C" int extrack_hist(const float* xs, const float* l2,
                             const float* s2st, const float* seg,
                             const int* ext, float* rows, float* scratch,
                             int B, int T, int D, int K, int A, int P,
-                            int min_len, int S, int Wf, int nblk,
+                            int min_len, int S, int Wf, int nblk, int wide,
                             void* stream) {
-  if (A < 1 || K % A || (P > 0 && (s2st == nullptr || K % P)))
+  if (A < 1 || K % A || (P > 0 && (s2st == nullptr || K % P)) ||
+      K > (wide ? extrack::kHistWideMaxK : 1024))
     return (int)cudaErrorInvalidValue;
   const extrack::HistArgs h{
       {lp0, s20, lt, lsurv, endv, sig2v, nullptr, nullptr, nullptr, nullptr,
        K, A, min_len},
-      xs, l2, isbl, s2st, seg, lengths, ext, rows, scratch, B, T, S, P, Wf};
+      xs, l2, isbl, s2st, seg, lengths, ext, rows, scratch, B, T, S, P, Wf,
+      wide != 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 1: return extrack::launch_dt<1>(h, nblk, st);

@@ -21,6 +21,10 @@
 // quadratic history mix (which took half the cycles at 15..20 frames on
 // an H100), and a harvest by warp reductions.  Variable dt reads the
 // (B, T-1, P) stream of displacement variances as K1 does (walk.cuh).
+// Past 1024 slots (up to 4096) a thread owns whole fusion groups and the
+// carries live in shared memory as the groups' fused Gaussians (walk.cuh's
+// wide mapping); the stash then holds each member's log2 weight until its
+// group's sum is known.
 #include "walk.cuh"
 
 namespace extrack {
@@ -50,15 +54,16 @@ extern "C" int extrack_predict_smem(int device) {
 }
 
 // One K4 team for a launch (warps > 0: a warp of the warp mapping, 0: a
-// block of the block mapping; P > 0: variable dt with P = S^2 patterns):
-// out = threads a block, shared bytes of a team besides the stash of
-// fusion weights, the stash's bytes a team.
+// block of the block mapping, -1: a block of the wide mapping; P > 0:
+// variable dt with P = S^2 patterns): out = threads a block, shared bytes
+// of a team besides the stash of fusion weights, the stash's bytes a team.
 extern "C" int extrack_predict_layout(int T, int D, int K, int S, int W,
                                       int warps, int P, long long* out) {
-  const extrack::WalkLayout lay =
-      extrack::walk_layout(warps, K, S, D, T, S, W, true, P);
-  if (D < 1 || D > 3 || K > 1024 || (warps > 0 && K > 64))
+  if (D < 1 || D > 3 || warps < -1 || (warps > 0 && K > 64) ||
+      K > (warps < 0 ? extrack::kWideMaxK : 1024))
     return (int)cudaErrorInvalidValue;
+  const extrack::WalkLayout lay =
+      extrack::team_layout(warps, K, S, D, T, S, W, true, P);
   out[0] = lay.threads;
   out[1] = (long long)lay.fixed;
   out[2] = (long long)lay.stash;
@@ -78,7 +83,8 @@ extern "C" int extrack_predict_occupancy(int D, int K, int S, int T, int W,
 // (every entry written).  stash_scratch: null when the stash of fusion
 // weights is in shared memory (stash_smem 1), else the stash bytes of
 // extrack_predict_layout for every team (nblk blocks of `warps` warps, or
-// nblk blocks).  Returns cudaGetLastError().
+// nblk blocks; warps 0 the block mapping, -1 the wide one).  Returns
+// cudaGetLastError().
 extern "C" int extrack_predict(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,
                                const float* lp0, const float* s20,

@@ -52,6 +52,18 @@
 // (two of them MUFU), then the scans' latency around it.  It is not a
 // matrix product (the N^2/P term does not separate), so the tensor cores
 // cannot take it.
+//
+// Past 1024 slots (up to 4096; refine_wide_kernel, 1024 threads) both
+// scans give a thread whole fusion groups, as K1's wide walk (walk.cuh):
+// member c = g*S + o of group g is child c / G of group c % G of the last
+// fusion (G = K/S), so its carry is that group's fused Gaussian from
+// shared memory plus its transition and variance, and a step writes the
+// member's form, mixes the group's S updates in registers and publishes G
+// fused Gaussians ((2D+1) floats each).  The pair loop's units (state
+// block, row group, column range; PairShape<1024>) are dealt to the
+// threads in turn.  The two prefix-form frames go with the stash (at K =
+// 4096, D = 3 they alone take 262,144 bytes): in shared memory when both
+// fit, else in global scratch.
 #include "common.cuh"
 
 namespace extrack {
@@ -510,13 +522,255 @@ __global__ void __launch_bounds__(NT, PairShape<NT>::kMinBlocks)
   pf.flush(g_refine_prof, threadIdx.x == 0);
 }
 
+// ---- the wide mapping: 1024 < K <= 4096 slots -------------------------
+
+constexpr int kRefineWideThreads = 1024;
+constexpr int kRefineWideMaxK = 4096;
+
+// Both scans and the pair loop of one block on the wide mapping.  `forms`:
+// two frames of prefix forms, then the suffix stash (shared memory or
+// global scratch: the kernel calls this at two sites).
+template <int D>
+static __device__ __forceinline__ void refine_wide_tracks(
+    const float* __restrict__ xs, const float* __restrict__ l2s,
+    const int* __restrict__ lengths, const float* __restrict__ lp0f,
+    const float* __restrict__ ltf, const float* __restrict__ lp0r,
+    const float* __restrict__ ltr, const float* __restrict__ sig2v, int B,
+    int T, int K, int S, float* __restrict__ mu_out,
+    float* __restrict__ sig_out, float* pubs, float* ring, float* forms) {
+  constexpr int F = 2 + 2 * D;                  // a warp partial's floats
+  constexpr int FG = 2 * D + 1;                 // a fused group's floats
+  const int tid = threadIdx.x, nt = blockDim.x, nwarp = nt >> 5;
+  const int KS = K / S, G = KS;                 // groups: A = S members
+  const int KP = pad4(K);
+  const int FS = form_floats(D) * KP;           // floats per frame of forms
+  constexpr int R = PairShape<kRefineWideThreads>::R;
+  constexpr int J = PairShape<kRefineWideThreads>::J;
+  const int NR = (KS + R - 1) / R;              // row groups per block
+  const int TB = NR * R;                        // units per state block
+  const int CW = (KS + R - 1) / R;              // columns per range
+  float* stash = forms + 2 * FS;
+  int buf = 0;                                  // publish area in turn
+
+  Prof pf;
+  pf.start();
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int L = min(lengths[b], T);
+    const float* x = xs + (size_t)b * T * D;
+    const float* l2 = l2s + (size_t)b * T * D;
+    float* mu = mu_out + (size_t)b * T * D;
+    float* sig = sig_out + (size_t)b * T * D;
+    for (int j = L * D + tid; j < T * D; j += nt) mu[j] = sig[j] = 0.f;
+    if (L < 2) {
+      if (L == 1 && tid < D) {
+        mu[tid] = x[tid];
+        sig[tid] = sqrtf(l2[tid]);
+      }
+      continue;
+    }
+    __syncthreads();        // the previous track's readers are done
+    // member c's carry: fresh (frame `f0` with table lp0) or group c % G
+    // of the last fusion plus the transition `lt`
+    const float* prev = nullptr;
+    auto carry = [&](int c, int f0, const float* lp0, const float* lt,
+                     float* m, float* s2, float& lp) {
+      const float sv = __ldg(sig2v + c);
+      if (prev == nullptr) {
+        lp = __ldg(lp0 + c);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          m[d] = x[f0 * D + d];
+          s2[d] = l2[f0 * D + d] + sv;
+        }
+      } else {
+        const int gp = c % G;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          m[d] = prev[d * G + gp];
+          s2[d] = sv + prev[(D + d) * G + gp];
+        }
+        lp = prev[2 * D * G + gp] + __ldg(lt + c);
+      }
+    };
+    // one scan step at frame f: every member's form into `frame` (obs: the
+    // prefix side's own precision), then its update mixed into its group
+    // and the groups published; the caller's barrier follows
+    auto scan_step = [&](int f, int f0, const float* lp0, const float* lt,
+                         float obs, float* frame, const float* kn) {
+      const float* xf = x + f * D;
+      const float* l2f = l2 + f * D;
+      float* pub = pubs + buf * FG * G;
+      buf ^= 1;
+      for (int g = tid; g < G; g += nt) {
+        float gmx = kNegBig, gsw = 0.f, mf[D], tf[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) mf[d] = tf[d] = 0.f;
+        for (int o = 0; o < S; ++o) {
+          const int c = g * S + o;
+          float m[D], s2[D], lp;
+          carry(c, f0, lp0, lt, m, s2, lp);
+          float fb, fP[D], fN[D];
+          make_form<D>(m, s2, lp, xf, l2f, kn, obs, fb, fP, fN);
+          store_form<D>(frame, KP, c, fb, fP, fN);
+          Upd<D> u;
+          update2<D>(m, s2, xf, l2f, u);
+          const float base = kLog2e * (lp - u.quad);
+          float wo = rsq(u.prod);
+          if (base > gmx) {
+            const float sc = ex2(gmx - base);
+            gsw *= sc;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              mf[d] *= sc;
+              tf[d] *= sc;
+            }
+            gmx = base;
+          } else {
+            wo *= ex2(base - gmx);
+          }
+          gsw += wo;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            mf[d] = fmaf(wo, u.nm[d], mf[d]);
+            tf[d] = fmaf(wo, u.tl[d], tf[d]);
+          }
+        }
+        gsw = fmaxf(gsw, kTiny);
+        const float inv = rcp(gsw);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          pub[d * G + g] = mf[d] * inv;
+          pub[(D + d) * G + g] = tf[d] * inv;
+        }
+        pub[2 * D * G + g] = (gmx + lg2(gsw)) * kLn2;
+      }
+      return pub;
+    };
+    // one side alone at frame f (a track end): the thread's slots' shares
+    auto end_sides = [&](int f, int f0, const float* lp0, const float* lt,
+                         float& mx, float* acc) {
+      mx = kNegBig;
+#pragma unroll
+      for (int q = 0; q < 1 + 2 * D; ++q) acc[q] = 0.f;
+      for (int c = tid; c < K; c += nt) {
+        float m[D], s2[D], lp, cm, ca[1 + 2 * D];
+        carry(c, f0, lp0, lt, m, s2, lp);
+        end_side<D>(true, m, s2, lp, x + f * D, l2 + f * D, cm, ca);
+        const float top = fmaxf(mx, cm);
+        const float s0 = ex2(mx - top), s1 = ex2(cm - top);
+#pragma unroll
+        for (int q = 0; q < 1 + 2 * D; ++q) acc[q] = acc[q] * s0 + ca[q] * s1;
+        mx = top;
+      }
+    };
+    // ---- suffix scan from frame L-1 down, stashing frames L-2 .. 1 -----
+    float kn[D];
+    for (int f = L - 2; f >= 1; --f) {
+      scale_n<D>(l2 + f * D, kn);
+      prev = scan_step(f, L - 1, lp0r, ltr, 0.f,
+                       stash + (size_t)(f - 1) * FS, kn);
+      pf.mark(kRfSuffix);
+      __syncthreads();
+    }
+    // ---- position 0: the suffix side alone ----------------------------
+    float acc[1 + 2 * D], mx;
+    end_sides(0, L - 1, lp0r, ltr, mx, acc);
+    partials<D>(mx, acc, ring);
+    int done = 0;                                // positions written out
+    pf.mark(kRfFinish);
+    // ---- prefix scan with the combine ---------------------------------
+    prev = nullptr;
+    for (int t = 1; t < L - 1; ++t) {
+      const float* l2t = l2 + t * D;
+      float* pform = forms + (t & 1) * FS;
+      scale_n<D>(l2t, kn);
+      const float* pub = scan_step(t, 0, lp0f, ltf, 1.f, pform, kn);
+      pf.mark(kRfForms);
+      __syncthreads();
+      pf.mark(kRfPrefix);
+      prev = pub;
+      if (t - done == kRing / 2) {               // half the ring is full
+        flush<D>(ring, nwarp, done, t, x, mu, sig);
+        done = t;
+      }
+      mx = kNegBig;
+#pragma unroll
+      for (int q = 0; q < 1 + 2 * D; ++q) acc[q] = 0.f;
+      const float* sform = stash + (size_t)(t - 1) * FS;
+      for (int u = tid; u < S * TB; u += nt) {
+        const int blk = (u / TB) * KS;
+        const int gr = (u % TB) % NR, h = (u % TB) / NR;
+        const int c0 = min(h * CW, KS), c1 = min(c0 + CW, KS);
+        pair_loop<D, R, J>(pform, sform, KP, blk, KS, gr * R, c0, c1, mx,
+                           acc);
+      }
+      pf.mark(kRfPairs);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        acc[1 + d] *= l2t[d] * rcp(kn[d]);
+        acc[1 + D + d] *= l2t[d];
+      }
+      partials<D>(mx, acc, ring + (t % kRing) * nwarp * F);
+      pf.mark(kRfFinish);
+    }
+    // ---- position L-1: the prefix side alone --------------------------
+    end_sides(L - 1, 0, lp0f, ltf, mx, acc);
+    partials<D>(mx, acc, ring + ((L - 1) % kRing) * nwarp * F);
+    __syncthreads();
+    flush<D>(ring, nwarp, done, L, x, mu, sig);
+    pf.mark(kRfFinish);
+  }
+  pf.flush(g_refine_prof, threadIdx.x == 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRefineWideThreads, 1)
+    refine_wide_kernel(const float* __restrict__ xs,
+                       const float* __restrict__ l2s,
+                       const int* __restrict__ lengths,
+                       const float* __restrict__ lp0f,
+                       const float* __restrict__ ltf,
+                       const float* __restrict__ lp0r,
+                       const float* __restrict__ ltr,
+                       const float* __restrict__ sig2v, int B, int T, int K,
+                       int S, float* __restrict__ mu_out,
+                       float* __restrict__ sig_out,
+                       float* __restrict__ forms_scratch) {
+  extern __shared__ float4 sh4[];
+  float* sh = reinterpret_cast<float*>(sh4);
+  // shared memory: the forms (two prefix frames, then the stash) unless
+  // they are in global scratch, two publish areas of (2D+1)*G floats, the
+  // ring of partials
+  const size_t nforms = T > 2 ? (size_t)T * form_floats(D) * pad4(K) : 0;
+  float* pubs = sh + (forms_scratch != nullptr ? 0 : nforms);
+  float* ring = pubs + 2 * (2 * D + 1) * (K / S);
+  if (forms_scratch == nullptr)
+    refine_wide_tracks<D>(xs, l2s, lengths, lp0f, ltf, lp0r, ltr, sig2v, B,
+                          T, K, S, mu_out, sig_out, pubs, ring, sh);
+  else
+    refine_wide_tracks<D>(xs, l2s, lengths, lp0f, ltf, lp0r, ltr, sig2v, B,
+                          T, K, S, mu_out, sig_out, pubs, ring,
+                          forms_scratch + (size_t)blockIdx.x * nforms);
+}
+
 // K6's block for T frames, D dimensions, K slots at S states.  Threads: one
 // per slot, and enough for the pair loop's S * ceil(K/S / R) * R threads.
 // Shared memory besides the stash: two frames of prefix forms, two fusion
 // publish areas of (2+2D)*K floats, and the ring of kRing positions' warp
 // partials ((2+2D) floats per warp).  Carry: the suffix stash, a frame of
-// forms for each interior position 1 .. T-2.
-static BlockLayout refine_layout(int T, int D, int K, int S) {
+// forms for each interior position 1 .. T-2.  The wide mapping: 1024
+// threads; shared memory besides the forms two publish areas of (2D+1)*K/S
+// floats and the ring; carry: the two prefix frames and the stash, T frames
+// of forms (none for T = 2, which has no interior position).
+static BlockLayout refine_layout(int T, int D, int K, int S, bool wide) {
+  if (wide) {
+    const size_t FS = (size_t)form_floats(D) * pad4(K);
+    const size_t fixed = (size_t)2 * (2 * D + 1) * (K / S) +
+                         (size_t)kRing * (kRefineWideThreads / 32) *
+                             (2 + 2 * D);
+    return {kRefineWideThreads, fixed * sizeof(float),
+            (T > 2 ? (size_t)T * FS : 0) * sizeof(float)};
+  }
   const int KS = K / S;
   const int t = max(K, S * ((KS + kRows - 1) / kRows) * kRows);
   const int threads = (t + 31) / 32 * 32;
@@ -551,10 +805,20 @@ static int launch_refine(const float* xs, const float* l2, const int* lengths,
                          const float* lp0r, const float* ltr,
                          const float* sig2v, float* mu, float* sig,
                          float* stash_scratch, int B, int T, int K, int S,
-                         int nblk, cudaStream_t stream) {
-  const BlockLayout lay = refine_layout(T, D, K, S);
+                         int nblk, bool wide, cudaStream_t stream) {
+  const BlockLayout lay = refine_layout(T, D, K, S, wide);
   const int threads = lay.threads;
   const size_t smem = lay.fixed + (stash_scratch != nullptr ? 0 : lay.carry);
+  if (wide) {
+    cudaFuncSetAttribute(refine_wide_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    if (B > 0)
+      refine_wide_kernel<D><<<nblk, threads, smem, stream>>>(
+          xs, l2, lengths, lp0f, ltf, lp0r, ltr, sig2v, B, T, K, S, mu, sig,
+          stash_scratch);
+    return (int)cudaGetLastError();
+  }
 #define EXTRACK_REFINE_NT(NT)                                                 \
   launch_nt<D, NT>(xs, l2, lengths, lp0f, ltf, lp0r, ltr, sig2v, mu, sig,    \
                    stash_scratch, B, T, K, S, nblk, threads, smem, stream)
@@ -591,11 +855,15 @@ extern "C" int extrack_refine_smem(int device) {
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// K6's block for a launch (refine_layout): out = threads, shared bytes
-// besides the stash, stash bytes per track.
-extern "C" int extrack_refine_layout(int T, int D, int K, int S,
+// K6's block for a launch (refine_layout; wide: the wide mapping, K <=
+// 4096): out = threads, shared bytes besides the stash (wide: besides the
+// forms), stash (forms) bytes per track.
+extern "C" int extrack_refine_layout(int T, int D, int K, int S, int wide,
                                      long long* out) {
-  return extrack::write_layout(extrack::refine_layout(T, D, K, S), D, out);
+  if (S < 1 || K % S || (wide && K > extrack::kRefineWideMaxK))
+    return (int)cudaErrorInvalidValue;
+  return extrack::write_layout(extrack::refine_layout(T, D, K, S, wide), D,
+                               out);
 }
 
 // Inputs: xs, l2 (B, T, D) positions and localization variances, lengths
@@ -606,29 +874,33 @@ extern "C" int extrack_refine_layout(int T, int D, int K, int S,
 // Outputs mu, sig (B, T, D), every entry written (zeros past each track's
 // length).  stash_scratch: null to keep the suffix stash in shared memory,
 // or nblk times the stash bytes of extrack_refine_layout in global
-// scratch.  Blocks are persistent over nblk.
-// Returns cudaGetLastError().
+// scratch (wide: the forms, both prefix frames and the stash).  wide: the
+// wide mapping (K <= 4096), else a thread per slot (K <= 1024).  Blocks
+// are persistent over nblk.  Returns cudaGetLastError().
 extern "C" int extrack_refine(const float* xs, const float* l2,
                               const int* lengths, const float* lp0f,
                               const float* ltf, const float* lp0r,
                               const float* ltr, const float* sig2v,
                               float* mu, float* sig, float* stash_scratch,
                               int B, int T, int D, int K, int S, int nblk,
-                              void* stream) {
+                              int wide, void* stream) {
+  if (S < 1 || K % S ||
+      K > (wide ? extrack::kRefineWideMaxK : 1024))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 1:
       return extrack::launch_refine<1>(xs, l2, lengths, lp0f, ltf, lp0r, ltr,
                                        sig2v, mu, sig, stash_scratch, B, T,
-                                       K, S, nblk, st);
+                                       K, S, nblk, wide, st);
     case 2:
       return extrack::launch_refine<2>(xs, l2, lengths, lp0f, ltf, lp0r, ltr,
                                        sig2v, mu, sig, stash_scratch, B, T,
-                                       K, S, nblk, st);
+                                       K, S, nblk, wide, st);
     case 3:
       return extrack::launch_refine<3>(xs, l2, lengths, lp0f, ltf, lp0r, ltr,
                                        sig2v, mu, sig, stash_scratch, B, T,
-                                       K, S, nblk, st);
+                                       K, S, nblk, wide, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

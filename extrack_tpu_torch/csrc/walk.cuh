@@ -9,16 +9,21 @@
 //   walks the current one.  A fusion step's exchange goes through the
 //   warp's slice between __syncwarp()s, and every reduction over the slots
 //   is a warp shuffle: the walk has no block barrier.
-// * block mapping, 64 < K <= 1024 (walk_block_kernel): one persistent
-//   block walks one track at a time, thread k owning slot k, with one
-//   barrier per fusion step.
+// * block mapping, 64 < K <= 1024, K4 only (walk_block_kernel): one
+//   persistent block walks one track at a time, thread k owning slot k,
+//   with one barrier per fusion step.
+// * wide mapping, 1024 < K <= 4096, and K1 from 65 slots on (it ran
+//   1.14-1.75x faster than the block mapping at every K1 register of
+//   81..1024 slots measured) (walk_wide_kernel, below): one persistent
+//   block a track, a thread owning whole fusion groups; the carries live
+//   in shared memory as the G = K/A fused Gaussians.
 //
-// Both keep each slot's (K,) tables in registers for the whole launch,
-// fuse in base 2 on the special-function unit (common.cuh's update2 /
-// group2: ex2, lg2, rcp, rsqrt), double-buffer the publish area (one
-// barrier per step), and close in one pass: an online log-sum-exp in base
-// 2 that rescales its sum on a new maximum, so each look-ahead child is
-// evaluated once.
+// The warp and block mappings keep each slot's (K,) tables in registers
+// for the whole launch; all three fuse in base 2 on the special-function
+// unit (common.cuh's update2 / group2: ex2, lg2, rcp, rsqrt), double-buffer
+// the publish area (one barrier per step), and close in one pass: an
+// online log-sum-exp in base 2 that rescales its sum on a new maximum, so
+// each look-ahead child is evaluated once.
 //
 // K4's posteriors.  The plain engine carries, per slot, a history of
 // posteriors over the frames that left the window and mixes it at every
@@ -641,11 +646,349 @@ __global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
         wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
 }
 
+// ---- the wide mapping: 1024 < K <= 4096 slots -------------------------
+//
+// One slot a thread stops at 1024 slots, and the per-slot (K,) and (K, A)
+// tables in registers stop well before: at K = 4096 and D = 3 a track's
+// carries alone are 7 floats a slot.  The wide mapping keeps no slot in
+// registers between steps.  A thread owns whole fusion groups g = tid,
+// tid + blockDim.x, ... (G = K/A of them): group g's members are slots
+// g*A .. g*A+A-1, and member c is child c / G of group c % G of the last
+// fusion, so its carry is that group's fused Gaussian (mean and tail per
+// dimension, log mass), published to shared memory at the last step, plus
+// its own child terms (lt, lsurv and the displacement variance, read from
+// the tables through L1; VDT: from the stream).  A step reads each of the
+// thread's members' groups, updates the member against the frame and
+// mixes the group's A updates in registers, an online log-sum-exp in base
+// 2 that rescales its sums on a new maximum; it publishes G fused
+// Gaussians, (2D+1) floats each, in place of K updates ((2+2D) floats
+// each), double-buffered, so a step costs one barrier.  At K = 4096 and
+// D = 3 the two publish areas take 114,688 bytes at 2 states (G = 2048)
+// and 57,344 at 4 (the per-slot publish of the block mapping would take
+// 262,144, more than a block may opt in to).  Closings and K4's harvest
+// are block reductions over the thread's partial sums; K4's stash of
+// fusion weights holds each member's log2 weight until its group's sum is
+// known, then the weight.
+static constexpr int kWideThreads = 1024;   // the block's largest size
+constexpr int kWideMaxK = 4096;             // the envelope of the mapping
+
+// One team's bytes of the wide mapping: two publish areas of (2D+1)*G
+// floats, the closings' warp partials (2*32 each), K4's harvest partials
+// (W*S per warp) and softmax over the register (K), then K4's stash.
+static __host__ __device__ inline WalkLayout wide_layout(int K, int A,
+                                                         int D, int T,
+                                                         int S, int W,
+                                                         bool pred) {
+  const int G = K / A;
+  size_t fixed = (size_t)2 * (2 * D + 1) * G + 4 * 32;
+  if (pred) fixed += (size_t)W * S * 32 + K;
+  const size_t stash = pred && T > W ? (size_t)(T - W) * (K | 1) : 0;
+  const int threads = (G + 31) / 32 * 32;
+  return {threads < kWideThreads ? threads : kWideThreads, fixed * 4,
+          stash * 4};
+}
+
+// One track's walk on the wide mapping (x, l2: its (T, D) rows; sg: its
+// (T-1, P) displacement variances, VDT; stash: K4's fusion weights).
+template <int D, bool PRED, bool VDT>
+static __device__ __forceinline__ void wide_track(
+    const WalkArgs& wa, int b, int L, float isbl, const float* x,
+    const float* l2, const float* sg, float* pubs, float* scr, float* red,
+    float* stash, Prof& pf) {
+  const Tables& tb = wa.tb;
+  const int K = tb.K, A = tb.A, G = K / A;
+  const int T = wa.T, S = wa.S, W = wa.W;
+  const int P = VDT ? wa.P : 0, SP = VDT ? wa.P / A : 0;
+  const int KP = VDT ? K / P : 1;             // slots a pattern
+  const int KN = VDT ? K * A / P : 1;         // slots a newest digit
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int F = 2 * D + 1;
+  const float cl2pi = 0.5f * D * kLog2Pi;
+  const int ks = K | 1;                       // stash row stride
+  const float* prev = nullptr;                // the last step's groups
+  float gate_prev = 0.f;
+  float out = 0.f;
+  int pb = 0;
+
+  // member c's carry entering step t: the track's first frame at t = 1,
+  // else group c % G of the last fusion plus child c's terms
+  auto carry = [&](int c, int t, float* m, float* s2, float& lp) {
+    if (t == 1) {
+      lp = __ldg(tb.lp0 + c);
+      const float s20 = VDT ? sg[c / KP] : __ldg(tb.s20 + c);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        m[d] = x[d];
+        s2[d] = l2[d] + s20;
+      }
+    } else {
+      const int gp = c % G;
+      const float sv = VDT ? sg[(t - 1) * P + c / KP] : __ldg(tb.sig2v + c);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        m[d] = prev[d * G + gp];
+        s2[d] = sv + prev[(D + d) * G + gp];
+      }
+      lp = prev[2 * D * G + gp] + __ldg(tb.lt + c) +
+           gate_prev * __ldg(tb.lsurv + c);
+    }
+  };
+
+  pf.mark(kWkSetup);
+  for (int t = 1;; ++t) {
+    float xt[D], l2t[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      xt[d] = x[t * D + d];
+      l2t[d] = l2[t * D + d];
+    }
+    if (t == L - 1) {
+      // the register's own closing (2-frame tracks) and K4's softmax; K4
+      // keeps each slot's log2 weight in scr until the sum is known
+      float mx = kNegBig, s = 0.f;
+      for (int g = tid; g < G; g += nt) {
+        for (int o = 0; o < A; ++o) {
+          const int c = g * A + o;
+          float m[D], s2[D], lp;
+          carry(c, t, m, s2, lp);
+          Upd<D> u;
+          update2<D>(m, s2, xt, l2t, u);
+          const float fin =
+              kLog2e * (lp + isbl * __ldg(tb.endv + c) - u.quad);
+          const float r = rsq(u.prod);
+          lse2_add(mx, s, fin, r);
+          if constexpr (PRED) scr[c] = fin - 0.5f * lg2(u.prod);
+        }
+      }
+      block_lse2(mx, s, red + 64);
+      if (L == 2) out = (mx + lg2(s)) * kLn2 - cl2pi;
+      pf.mark(kWkClose);
+      if constexpr (PRED) {
+        float* pr = wa.preds + (size_t)b * T * S;
+        const float inv_s = rcp(s);
+        const int nh = L - W;
+        for (int g = tid; g < G; g += nt)
+          for (int o = 0; o < A; ++o)
+            scr[g * A + o] = ex2(scr[g * A + o] - mx) * inv_s;
+        // frames still in the window: window position i (0 = oldest) is
+        // frame nh + i and digit i of the slot; the thread's sums, then
+        // warp sums, then the warps' partials
+        const int i0 = nh < 0 ? -nh : 0;
+        int pw = 1;                     // S^i
+        for (int j = 0; j < i0; ++j) pw *= S;
+        for (int i = i0; i < W; ++i, pw *= S) {
+          for (int s_ = 0; s_ < S; ++s_) {
+            float v = 0.f;
+            for (int g = tid; g < G; g += nt)
+              for (int o = 0; o < A; ++o) {
+                const int c = g * A + o;
+                if ((c / pw) % S == s_) v += scr[c];
+              }
+            v = warp_sum(v);
+            if ((tid & 31) == 0) red[128 + (i * S + s_) * 32 + (tid >> 5)] = v;
+          }
+        }
+        __syncthreads();
+        const int nw = nt >> 5;
+        for (int o = tid; o < W * S; o += nt) {
+          const int i = o / S;
+          if (nh + i < 0) continue;
+          float v = 0.f;
+          for (int w = 0; w < nw; ++w) v += red[128 + o * 32 + w];
+          pr[nh * S + o] = v;
+        }
+        // frames that left the window: the masses carried back through
+        // the stashed fusion weights; a thread scales its own groups'
+        // members (member c = g*A + o of group g gets mass_g * w_{g,o})
+        if (nh > 0) {
+          const float* q = scr;
+          for (int f = nh - 1; f >= 0; --f) {
+            __syncthreads();
+            float* row = stash + (size_t)f * ks;
+            for (int g = tid; g < G; g += nt) {
+              float mass = 0.f;
+              for (int a = 0; a < A; ++a) mass += q[a * G + g];
+              for (int o = 0; o < A; ++o) row[g * A + o] *= mass;
+            }
+            q = row;
+          }
+          __syncthreads();
+          for (int o = tid; o < nh * S; o += nt) {
+            const int f = o / S;
+            const float* row = stash + (size_t)f * ks + (o - f * S);
+            float v = 0.f;
+            for (int g = 0; g < G; ++g) v += row[g * A];
+            pr[o] = v;
+          }
+        }
+        for (int o = L * S + tid; o < T * S; o += nt) pr[o] = 0.f;
+        pf.mark(kWkHarvest);
+      }
+      break;
+    }
+    const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
+    const bool look = t == L - 2;   // the look-ahead closing (logL)
+    const bool fuse = PRED || !look;
+    const int fd = t + 1 - W;       // K4: the frame this step drops
+    float xn[D], l2n[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      xn[d] = look ? x[(t + 1) * D + d] : 0.f;
+      l2n[d] = look ? l2[(t + 1) * D + d] : 0.f;
+    }
+    const float c2pi = D == 1 ? k2Pi : D == 2 ? k2Pi * k2Pi
+                                              : k2Pi * k2Pi * k2Pi;
+    float* pub = pubs + pb * F * G;
+    pb ^= 1;
+    float lmx = kNegBig, ls = 0.f;  // the look-ahead's log-sum-exp
+    for (int g = tid; g < G; g += nt) {
+      float gmx = kNegBig, gsw = 0.f, mf[D], tf[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) mf[d] = tf[d] = 0.f;
+      for (int o = 0; o < A; ++o) {
+        const int c = g * A + o;
+        float m[D], s2[D], lp;
+        carry(c, t, m, s2, lp);
+        Upd<D> u;
+        update2<D>(m, s2, xt, l2t, u);
+        const float base = kLog2e * (lp - u.quad);
+        const float r = rsq(u.prod);
+        if (look) {
+          const int cA = c * A;
+          for (int a = 0; a < A; ++a) {
+            float prod_n = c2pi, quad_n = 0.f;
+            const float s2n = VDT ? sg[t * P + a * SP + c / KN]
+                                  : __ldg(tb.s2n + cA + a);
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              const float totn = s2n + u.tl[d] + l2n[d];
+              const float df = xn[d] - u.nm[d];
+              prod_n *= totn;
+              quad_n = fmaf(0.5f * df * df, rcp(totn), quad_n);
+            }
+            const float cc = __ldg(tb.ltn + cA + a) +
+                             gate * __ldg(tb.lsn + cA + a) +
+                             isbl * __ldg(tb.endn + cA + a);
+            lse2_add(lmx, ls, base + kLog2e * (cc - quad_n),
+                     r * rsq(prod_n));
+          }
+        }
+        if (fuse) {
+          // the group's online sums, rescaled on a new maximum
+          float wo = r;
+          if (base > gmx) {
+            const float sc = ex2(gmx - base);
+            gsw *= sc;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              mf[d] *= sc;
+              tf[d] *= sc;
+            }
+            gmx = base;
+          } else {
+            wo *= ex2(base - gmx);
+          }
+          gsw += wo;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            mf[d] = fmaf(wo, u.nm[d], mf[d]);
+            tf[d] = fmaf(wo, u.tl[d], tf[d]);
+          }
+          if (PRED && fd >= 0)
+            stash[(size_t)fd * ks + c] = base - 0.5f * lg2(u.prod);
+        }
+      }
+      if (fuse) {
+        gsw = fmaxf(gsw, kTiny);
+        const float inv = rcp(gsw);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          pub[d * G + g] = mf[d] * inv;
+          pub[(D + d) * G + g] = tf[d] * inv;
+        }
+        pub[2 * D * G + g] = (gmx + lg2(gsw)) * kLn2;
+        // K4: member o's fusion weight, for the harvest's backward pass
+        if (PRED && fd >= 0)
+          for (int o = 0; o < A; ++o) {
+            float* w = stash + (size_t)fd * ks + g * A + o;
+            *w = ex2(*w - gmx) * inv;
+          }
+      }
+    }
+    pf.mark(kWkStep);
+    if (look) {
+      block_lse2(lmx, ls, red);
+      out = (lmx + lg2(ls)) * kLn2 - cl2pi;
+      pf.mark(kWkClose);
+      if constexpr (!PRED) break;
+    }
+    __syncthreads();
+    pf.mark(kWkBarrier);
+    prev = pub;
+    gate_prev = gate;
+  }
+  if (tid == 0) wa.logl[b] = out;
+}
+
+// The wide mapping's track loop (the kernel calls it at two sites).
+template <int D, bool PRED, bool VDT>
+static __device__ __forceinline__ void wide_tracks(const WalkArgs& wa,
+                                                   float* sh, float* stash,
+                                                   unsigned long long* prof) {
+  const Tables& tb = wa.tb;
+  const int T = wa.T, G = tb.K / tb.A;
+  float* pubs = sh;
+  float* red = sh + 2 * (2 * D + 1) * G;
+  float* scr = red + 128 + (PRED ? wa.W * wa.S * 32 : 0);
+  Prof pf;
+  pf.start();
+  for (int b = blockIdx.x; b < wa.B; b += gridDim.x) {
+    __syncthreads();        // the last track's partials, softmax and rows
+    const int L = min(wa.lengths[b], T);
+    if (L < 2) {
+      if (threadIdx.x == 0) wa.logl[b] = 0.f;
+      if constexpr (PRED)
+        for (int o = threadIdx.x; o < T * wa.S; o += blockDim.x)
+          wa.preds[(size_t)b * T * wa.S + o] = 0.f;
+      continue;
+    }
+    wide_track<D, PRED, VDT>(
+        wa, b, L, wa.isbls[b], wa.xs + (size_t)b * T * D,
+        wa.l2s + (size_t)b * T * D,
+        VDT ? wa.sig2s + (size_t)b * (T - 1) * wa.P : nullptr, pubs, scr,
+        red, stash, pf);
+  }
+  pf.flush(prof, threadIdx.x == 0);
+}
+
+template <int D, bool PRED, bool VDT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    walk_wide_kernel(WalkArgs wa, unsigned long long* prof) {
+  extern __shared__ __align__(16) float smem[];
+  const WalkLayout lay = wide_layout(wa.tb.K, wa.tb.A, D, wa.T, wa.S, wa.W,
+                                     PRED);
+  if (wa.stash_smem)
+    wide_tracks<D, PRED, VDT>(wa, smem, smem + lay.fixed / 4, prof);
+  else
+    wide_tracks<D, PRED, VDT>(
+        wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
+}
+
+// The team layout of a launch: warps > 0 the warp mapping, 0 the block
+// mapping, -1 the wide mapping.
+static inline WalkLayout team_layout(int warps, int K, int A, int D, int T,
+                                     int S, int W, bool pred, int P) {
+  return warps < 0 ? wide_layout(K, A, D, T, S, W, pred)
+                   : walk_layout(warps, K, A, D, T, S, W, pred, P);
+}
+
 // The instantiation a launch runs: warps > 0, the warp mapping (J by K,
 // the fusion's A unrolled at 2 and 4: two states, or two sub-steps or four
-// states); else the block mapping by block size.
+// states); 0, the block mapping by block size (K4 only: K1 goes from the
+// warp mapping to the wide one); -1, the wide mapping.
 template <int D, bool PRED, bool VDT>
 static const void* walk_instance(int K, int A, int warps) {
+  if (warps < 0) return (const void*)walk_wide_kernel<D, PRED, VDT>;
   if (warps > 0) {
     if (K <= 32) {
       switch (A) {
@@ -660,11 +1003,15 @@ static const void* walk_instance(int K, int A, int warps) {
       default: return (const void*)walk_warp_kernel<D, 2, 0, PRED, VDT>;
     }
   }
-  const int threads = (K + 31) / 32 * 32;
-  return threads <= 128   ? (const void*)walk_block_kernel<D, 128, PRED, VDT>
+  if constexpr (PRED) {
+    const int threads = (K + 31) / 32 * 32;
+    return threads <= 128 ? (const void*)walk_block_kernel<D, 128, PRED, VDT>
          : threads <= 256 ? (const void*)walk_block_kernel<D, 256, PRED, VDT>
          : threads <= 512 ? (const void*)walk_block_kernel<D, 512, PRED, VDT>
                           : (const void*)walk_block_kernel<D, 1024, PRED, VDT>;
+  } else {
+    return nullptr;
+  }
 }
 
 // walk_instance for a launch at D dimensions; P > 0: variable dt.
@@ -692,7 +1039,7 @@ static int walk_occupancy(int D, int K, int A, int T, int S, int W,
                           int warps, int stash_smem, int P) {
   const void* fn = walk_instance_for<PRED>(D, K, A, warps, P);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-  const WalkLayout lay = walk_layout(warps, K, A, D, T, S, W, PRED, P);
+  const WalkLayout lay = team_layout(warps, K, A, D, T, S, W, PRED, P);
   const size_t smem = walk_smem(lay, warps, stash_smem);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -708,15 +1055,16 @@ template <bool PRED>
 static int launch_walk(const WalkArgs& wa, int D, int nblk, int warps,
                        unsigned long long* prof, cudaStream_t stream) {
   const int K = wa.tb.K, A = wa.tb.A, P = wa.P;
-  if (D < 1 || D > 3 || K > 1024 || warps < 0 ||
+  if (D < 1 || D > 3 || K > (warps < 0 ? kWideMaxK : 1024) || warps < -1 ||
       32 * warps > kWalkWarpBlock || (warps > 0 && K > 64) ||
+      (!PRED && warps == 0) ||
       (!PRED && wa.stash_smem) || (PRED && A != wa.S) || P < 0 ||
       (P > 0 && (wa.sig2s == nullptr || P % A != 0 || K % P != 0 ||
                  wa.T < 2)))
     return (int)cudaErrorInvalidValue;
   if (wa.B <= 0) return 0;
   const void* fn = walk_instance_for<PRED>(D, K, A, warps, P);
-  const WalkLayout lay = walk_layout(warps, K, A, D, wa.T, wa.S, wa.W, PRED,
+  const WalkLayout lay = team_layout(warps, K, A, D, wa.T, wa.S, wa.W, PRED,
                                      P);
   const size_t smem = walk_smem(lay, warps, wa.stash_smem);
   // always: an occupancy query may have set a smaller limit

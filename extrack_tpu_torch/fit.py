@@ -95,12 +95,15 @@ def make_objective(batch,
     device = batches[0].positions.device
     dtype = batches[0].positions.dtype
     if device.type == "cuda":
+        # the objective's value runs K1; its gradient K2, whose envelope
+        # (1024 slots) grad_kernel.neg_log_likelihood checks where a
+        # gradient is taken
         for i, b in enumerate(batches):
             forward_kernel.check_envelope(
                 b.max_len, b.nb_dims, nb_states, window, nb_substeps,
                 variable_dt=b.dt is not None, dtype=dtype,
                 what=f"length bucket {i} ({b.batch_size} tracks, "
-                     f"T={b.max_len})", kernel="K2")
+                     f"T={b.max_len})", kernel="K1")
 
     def neg_logl(z: torch.Tensor) -> torch.Tensor:
         values = spec.resolve(spec.from_unconstrained(z))

@@ -40,11 +40,11 @@ _SIGNATURES = {
     "extrack_predict": [_P] * 18 + [_I] * 12 + [_P],
     "extrack_predict_occupancy": [_I] * 8,
     "extrack_predict_layout": [_I] * 7 + [_P],
-    "extrack_hist": [_P] * 15 + [_I] * 10 + [_P],
-    "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
+    "extrack_hist": [_P] * 15 + [_I] * 11 + [_P],
+    "extrack_refine": [_P] * 11 + [_I] * 7 + [_P],
     "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],
-    "extrack_hist_layout": [_I] * 5 + [_P],
-    "extrack_refine_layout": [_I] * 4 + [_P],
+    "extrack_hist_layout": [_I] * 6 + [_P],
+    "extrack_refine_layout": [_I] * 5 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
 _SMEM_QUERIES = ("extrack_grad_smem", "extrack_predict_smem", "extrack_hist_smem",
@@ -162,8 +162,10 @@ def layout(kernel: str, *dims: int):
     """(threads, shared bytes besides the carries, carry bytes per track)
     of one block of ``kernel`` for a launch at ``dims``, as the kernel's
     source defines its block (``extrack_{kernel}_layout``): "hist" takes
-    (T, D, K, S, A), T frames, D dimensions, K slots, S states and A
-    children a fusion group (S^nb_substeps); "refine" (T, D, K, S)."""
+    (T, D, K, S, A, wide), T frames, D dimensions, K slots, S states, A
+    children a fusion group (S^nb_substeps) and 1 for the wide mapping (a
+    thread a fusion group), else 0 (a thread a slot); "refine" (T, D, K,
+    S, wide)."""
     out = (ctypes.c_longlong * 3)()
     rc = getattr(library(), f"extrack_{kernel}_layout")(
         *dims, ctypes.addressof(out))
@@ -182,22 +184,26 @@ def smem_bytes(query: str, device_index: int) -> int:
     return rc
 
 
-def grid(query: str, dev, B: int, K: int, fixed_bytes: int,
-         carry_bytes: int, threads: int = 0):
-    """Blocks and scratch for a kernel that walks one track per block with
-    one thread per slot (K5, K6).  When ``fixed_bytes`` of shared
+def scratch_blocks(B: int, sms: int, threads: int, carry_bytes: int):
+    """Persistent blocks of a kernel whose carries go to global scratch:
+    as many as ``sms`` SMs keep resident by threads (2048 a SM), no more
+    than the ``B`` tracks, and no more than SCRATCH_BUDGET of carries."""
+    return max(1, min(B, sms * max(1, 2048 // threads),
+                      SCRATCH_BUDGET // carry_bytes))
+
+
+def grid(query: str, dev, B: int, fixed_bytes: int, carry_bytes: int,
+         threads: int):
+    """Blocks and scratch for a kernel that walks one track per block of
+    ``threads`` (K5, K6, from ``layout``).  When ``fixed_bytes`` of shared
     memory plus the track's ``carry_bytes`` fit what a block may opt in to
     (``query``), one block per track and no scratch; else persistent
-    blocks, as many as the card keeps resident, each with its carries in
-    global scratch.  ``threads`` is the block's size where it is not K
-    rounded up to a warp.  Returns (nblk, float32 scratch tensor or
-    None)."""
+    blocks (``scratch_blocks``), each with its carries in global scratch.
+    Returns (nblk, float32 scratch tensor or None)."""
     if fixed_bytes + carry_bytes <= smem_bytes(query, dev.index):
         return max(B, 1), None
-    threads = threads or (K + 31) // 32 * 32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblk = max(1, min(B, sms * max(1, 2048 // threads),
-                      SCRATCH_BUDGET // carry_bytes))
+    nblk = scratch_blocks(B, sms, threads, carry_bytes)
     return nblk, torch.empty(nblk * carry_bytes // 4, dtype=torch.float32,
                              device=dev)
 

@@ -11,10 +11,14 @@ K1, K2, K3, K4 and K5 read in place of the s20, sig2v and s2n tables
 
 ``forward`` is the entry point: CUDA tensors launch the kernel (or raise,
 outside its envelope); CPU tensors run ``forward_plain``, which is
-``core.engine.forward`` on the same inputs.  ``plan`` and ``grid`` map a
-K1 or K4 launch onto the card (csrc/walk.cuh): one warp per track for
-K <= 64, one block per track above, persistent blocks.  ``LAUNCHES``
-counts kernel launches, ``PLAIN_CALLS`` calls of the plain version.
+``core.engine.forward`` on the same inputs.  ``mapping_warps`` chooses
+each kernel's mapping of a register onto the card (csrc/walk.cuh,
+hist.cu, refine.cu): one warp per track up to 64 slots, a block per track
+with a thread a slot up to 1024 (K4, K5, K6) and a thread a fusion group
+up to 4096 (the wide mapping: K1 above 64 slots, the others above 1024);
+``plan`` and ``grid`` lay a K1 or K4 launch out as persistent blocks.
+``MAX_SLOTS`` is each kernel's envelope.  ``LAUNCHES`` counts kernel
+launches, ``PLAIN_CALLS`` calls of the plain version.
 """
 from __future__ import annotations
 
@@ -31,35 +35,67 @@ from extrack_tpu_torch.ops import cuda_lib
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
-MAX_SLOTS = 1024          # the block mapping: one thread per register slot
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
+BLOCK_MAX_K = 1024        # the block mapping: one thread per register slot
+WIDE_MAX_K = 4096         # the wide mapping: one thread per fusion group
+# each kernel's largest register: K1, K4, K5 and K6 map past 1024 slots
+# (csrc/walk.cuh, hist.cu, refine.cu); K2 and K3 run a thread a slot
+MAX_SLOTS = {"K1": WIDE_MAX_K, "K2": BLOCK_MAX_K, "K3": BLOCK_MAX_K,
+             "K4": WIDE_MAX_K, "K5": WIDE_MAX_K, "K6": WIDE_MAX_K}
+# the mappings of K1, K4, K5 and K6, narrowest first.  K1 skips the block
+# mapping: the wide one ran it 1.14-1.75x faster at every register of
+# 81..1024 slots measured; K4, K5 and K6 keep a thread a slot up to 1024
+# (K2 and K3: grad_kernel.plan)
+MAPPINGS = {"K1": ("warp", "wide"), "K4": ("warp", "block", "wide"),
+            "K5": ("block", "wide"), "K6": ("block", "wide")}
 WARPS = (4, 2, 1)         # warps a block the warp mapping may launch
+WIDE = -1                 # the C interface's warps of the wide mapping
 # the kernels that take the streamed displacement-variance table
 STREAMED = ("K1", "K2", "K3", "K4", "K5")
 
 
 class Plan(NamedTuple):
     """How one K1 / K4 launch maps tracks onto the card."""
-    warps: int            # warps a block of the warp mapping; 0: block
+    warps: int            # warps a block of the warp mapping; 0: block;
+                          # WIDE: the wide mapping
     stash_smem: bool      # K4's stash of fusion weights in shared memory
 
 
-def plan(K: int, fixed: int, stash_bytes: int, smem_limit: int, occupancy,
-         mapping: str | None = None, stash: str | None = None) -> Plan:
-    """The mapping of a K1 (``stash_bytes`` 0) or K4 launch: one warp per
-    track for K <= WARP_MAX_K, else one block per track (``mapping``
-    "warp"/"block" forces one).  ``fixed`` and ``stash_bytes`` are one
-    team's (a warp's, or a block's for the block mapping) shared bytes
-    besides K4's stash of fusion weights and the stash's bytes;
-    ``occupancy(warps, stash_smem)`` gives the blocks an SM keeps
-    resident.  The stash goes to shared memory where a block's share fits
-    ``smem_limit`` and, with the block size of WARPS that keeps the most
-    tracks resident, as many tracks stay resident as with the stash in
-    global scratch (``stash`` "smem"/"global" forces it)."""
-    mapping = mapping or ("warp" if K <= WARP_MAX_K else "block")
-    if mapping == "warp" and K > WARP_MAX_K:
-        raise ValueError(f"the warp mapping takes K <= {WARP_MAX_K}, got {K}")
-    sizes = WARPS if mapping == "warp" else (0,)
+def mapping_warps(kernel: str, K: int, mapping: str | None = None) -> int:
+    """The C interface's ``warps`` of ``kernel``'s mapping of a register
+    of K slots: 1 the warp mapping (one warp), 0 the block mapping, WIDE
+    the wide one.  The narrowest of MAPPINGS[kernel] that holds K, or
+    ``mapping`` ("warp"/"block"/"wide") where it forces one (tests,
+    tools); ValueError where that is not the kernel's or cannot hold K."""
+    limit = {"warp": WARP_MAX_K, "block": BLOCK_MAX_K, "wide": WIDE_MAX_K}
+    names = MAPPINGS[kernel]
+    if mapping is None:
+        mapping = next((m for m in names if K <= limit[m]), names[-1])
+    if mapping not in names:
+        raise ValueError(f"{kernel} has the mappings {names}, got "
+                         f"{mapping!r}")
+    if K > limit[mapping]:
+        raise ValueError(f"the {mapping} mapping takes K <= "
+                         f"{limit[mapping]}, got {K}")
+    return {"warp": 1, "block": 0, "wide": WIDE}[mapping]
+
+
+def plan(kernel: str, K: int, fixed: int, stash_bytes: int, smem_limit: int,
+         occupancy, mapping: str | None = None,
+         stash: str | None = None) -> Plan:
+    """The mapping of a K1 (``stash_bytes`` 0) or K4 launch (``kernel``):
+    ``mapping_warps``' (``mapping`` "warp"/"block"/"wide" forces one;
+    the wide mapping takes any K up to WIDE_MAX_K).  ``fixed`` and
+    ``stash_bytes`` are one team's (a warp's, or a block's for the block
+    and wide mappings) shared bytes besides K4's stash of fusion weights
+    and the stash's bytes; ``occupancy(warps, stash_smem)`` gives the
+    blocks an SM keeps resident.  The stash goes to shared memory where a
+    block's share fits ``smem_limit`` and, with the block size of WARPS
+    that keeps the most tracks resident, as many tracks stay resident as
+    with the stash in global scratch (``stash`` "smem"/"global" forces
+    it)."""
+    w = mapping_warps(kernel, K, mapping)
+    sizes = WARPS if w == 1 else (w,)
     if stash_bytes == 0:
         return Plan(sizes[0], False)
 
@@ -219,10 +255,12 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                    variable_dt: bool = False, dtype=torch.float32,
                    what: str = "batch", kernel: str = "K1"):
     """Raise NotImplementedError, naming ``what``, when ``kernel`` ("K1"
-    .. "K6") cannot run this configuration.  Variable dt is in the
-    envelope of the kernels in STREAMED only (K6 reads no dt table; K7
-    checks its own envelope, ``topk_kernel.check_envelope``, where
-    variable dt raises)."""
+    .. "K6") cannot run this configuration: past its register of
+    ``MAX_SLOTS[kernel]`` slots (naming that limit and the largest window
+    that fits), in another dtype than float32 or D outside 1..3.  Variable
+    dt is in the envelope of the kernels in STREAMED only (K6 reads no dt
+    table; K7 checks its own envelope, ``topk_kernel.check_envelope``,
+    where variable dt raises)."""
     K = S ** window
     reasons = []
     if dtype != torch.float32:
@@ -230,12 +268,15 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                        "pass float32 tensors)")
     if D not in (1, 2, 3):
         reasons.append(f"D={D} (kernels take 1..3 dimensions)")
-    if K > MAX_SLOTS:
-        fits = max((w for w in range(1, window) if S ** w <= MAX_SLOTS),
+    limit = MAX_SLOTS[kernel]
+    if K > limit:
+        fits = max((w for w in range(1, window) if S ** w <= limit),
                    default=0)
-        reasons.append(f"K=S**window={K} > {MAX_SLOTS} register slots "
-                       f"({kernel} runs a thread per slot; the largest "
-                       f"window that fits is {fits})")
+        how = ("a thread per slot" if limit == BLOCK_MAX_K
+               else "a thread per fusion group past 1024 slots")
+        reasons.append(f"K=S**window={K} > {limit} register slots "
+                       f"({kernel} maps at most {limit}, {how}; the "
+                       f"largest window that fits is {fits})")
     if window < nb_substeps + 1:
         reasons.append(f"window {window} < nb_substeps+1")
     if variable_dt and kernel not in STREAMED:
@@ -310,7 +351,8 @@ def validate(data, tabs, K: int, A: int):
 def launch(data, tabs, min_len: int,
            mapping: str | None = None) -> torch.Tensor:
     """Launch K1 on the current stream; returns logL (B,) float32.
-    ``mapping`` forces ``plan``'s choice (tests, tools)."""
+    ``mapping`` ("warp"/"block"/"wide") forces ``plan``'s choice (tests,
+    tools)."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape
@@ -319,7 +361,7 @@ def launch(data, tabs, min_len: int,
     P = stream_patterns(tabs)
     lib = cuda_lib.library()
     dev = xs.device
-    pl = plan(K, 0, 0, 0, None, mapping)
+    pl = plan("K1", K, 0, 0, 0, None, mapping)
     nblk, _ = grid(B, pl, _sms(dev.index), _occupancy(
         "extrack_forward_occupancy", D, K, A, T, pl.warps, P))
     logl = torch.empty(B, dtype=torch.float32, device=dev)

@@ -15,7 +15,8 @@ localization-error variances:
   through the stream's expand and ``tables.build_tables`` to the
   parameters.
 * CUDA tensors, no gradient wanted (``torch.no_grad`` or no input requires
-  grad): the cheaper forward kernel K1.
+  grad): the cheaper forward kernel K1, whose envelope reaches 4096 slots
+  (K2's stops at 1024).
 * CPU tensors: the plain version, torch autograd of ``core.engine.forward``.
 
 Positions get no gradient on the kernel path (the fit differentiates
@@ -205,21 +206,24 @@ def neg_log_likelihood_plain(positions, lengths, is_bleached,
 def neg_log_likelihood(positions, lengths, is_bleached, tables: ModelTables,
                        *, window: int = 6, nb_substeps: int = 1,
                        min_len: int = 3) -> torch.Tensor:
-    """-sum logL of a batch; see the module docstring for the paths."""
+    """-sum logL of a batch; see the module docstring for the paths.  On
+    the card a call that takes a gradient needs K2's envelope, a value
+    alone K1's."""
     if positions.device.type == "cpu":
         return neg_log_likelihood_plain(positions, lengths, is_bleached,
                                         tables, window=window,
                                         nb_substeps=nb_substeps,
                                         min_len=min_len)
     B, T, D = positions.shape
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tables)
     forward_kernel.check_envelope(
         T, D, tables.nb_states, window, nb_substeps,
         forward_kernel.classify_sig2(tables.sig2, T),
-        forward_kernel.kernel_dtype(positions, tables), kernel="K2")
+        forward_kernel.kernel_dtype(positions, tables),
+        kernel="K2" if grad else "K1")
     (xs, l2, lens, isbl), tabs = forward_kernel.kernel_inputs(
         positions, lengths, is_bleached, tables, window, nb_substeps)
-    if torch.is_grad_enabled() and (
-            l2.requires_grad or any(t.requires_grad for t in tabs)):
+    if grad:
         return NegLogLikelihood.apply(xs, lens, isbl, min_len, l2, *tabs)
     return -forward_kernel.launch((xs, l2, lens, isbl),
                                   [t.detach() for t in tabs], min_len).sum()

@@ -8,7 +8,9 @@ segment-length histogram of a batch, summed over its tracks:
 * CUDA tensors (float32): one K5 launch on the K1 per-slot tables
   (``forward_kernel.kernel_inputs``; with variable dt also the streamed
   (B, T-1, P) displacement variances) and the window's static segment
-  tables (``segment_tables``).  Outside the envelope it raises.
+  tables (``segment_tables``): a thread a slot up to 1024 slots, a thread
+  a fusion group up to 4096 (``forward_kernel.mapping_warps``).  Outside
+  the envelope it raises.
 * CPU tensors: ``hist_plain``, which is
   ``histograms.window_segment_histogram`` on the same inputs.
 
@@ -69,14 +71,15 @@ def device_segment_tables(S: int, W: int, T: int, n: int,
             torch.tensor(ext_np, device=device))
 
 
-def launch(data, tabs, min_len: int, S: int, W: int,
-           n: int = 1) -> torch.Tensor:
+def launch(data, tabs, min_len: int, S: int, W: int, n: int = 1,
+           mapping: str | None = None) -> torch.Tensor:
     """Launch K5 on the current stream with the tables of
     ``forward_kernel.kernel_inputs`` (W sub-steps, n a frame; with variable
     dt the eleventh, the stream, is read in place of s20 and sig2v);
     returns the (T, S) histogram, float32 (the per-track rows are summed
     in float64 by one reduction without atomics, so the same input gives
-    the same bits)."""
+    the same bits).  ``mapping`` forces ``forward_kernel.mapping_warps``'
+    choice (tests, tools)."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape
@@ -87,15 +90,17 @@ def launch(data, tabs, min_len: int, S: int, W: int,
     dev = xs.device
     seg, ext = device_segment_tables(S, W, T, n, dev)
     rows = torch.empty((B, S * T), dtype=torch.float32, device=dev)
-    threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S, A)
-    nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, K, fixed,
-                                  rows_bytes, threads=threads)
+    w = forward_kernel.mapping_warps("K5", K, mapping) == forward_kernel.WIDE
+    threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S, A,
+                                                 int(w))
+    nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, fixed,
+                                  rows_bytes, threads)
     rc = lib.extrack_hist(
         *(t.data_ptr() for t in (*data, *tabs[:6])),
         tabs[10].data_ptr() if P else None,
         *(t.data_ptr() for t in (seg, ext, rows)),
         None if scratch is None else scratch.data_ptr(),
-        B, T, D, K, A, P, int(min_len), S, window_frames(W, n), nblk,
+        B, T, D, K, A, P, int(min_len), S, window_frames(W, n), nblk, int(w),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "histogram")
     LAUNCHES += 1

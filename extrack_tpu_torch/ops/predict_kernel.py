@@ -7,9 +7,9 @@ per frame:
 
 * CUDA tensors (float32): one K4 launch on ``forward_kernel.kernel_inputs``
   (the K1 tables, and with variable dt the streamed displacement
-  variances), mapped as K1 (``forward_kernel.plan``), with its stash of
-  fusion weights in shared memory or global scratch.  Outside the
-  envelope it raises.
+  variances), mapped as K1 (``forward_kernel.plan``: up to 4096 slots),
+  with its stash of fusion weights in shared memory or global scratch.
+  Outside the envelope it raises.
 * CPU tensors: ``predict_plain``, which is ``core.engine.forward(...,
   return_preds=True)`` on the same inputs.
 
@@ -31,14 +31,15 @@ PLAIN_CALLS = 0
 
 
 @functools.cache
-def layout(T: int, D: int, K: int, S: int, W: int, warp: bool, P: int = 0):
+def layout(T: int, D: int, K: int, S: int, W: int, warps: int, P: int = 0):
     """(shared bytes of one team besides its stash, the stash's bytes) of
     a K4 launch (``P`` > 0: variable dt), as the kernel's source defines
-    its team (``extrack_predict_layout``; a warp, or a block for the block
-    mapping)."""
+    its team (``extrack_predict_layout``; ``warps`` from
+    ``forward_kernel.mapping_warps``: a warp, or a block for the block and
+    wide mappings)."""
     out = (ctypes.c_longlong * 3)()
     cuda_lib.check(cuda_lib.library().extrack_predict_layout(
-        T, D, K, S, W, int(warp), P, ctypes.addressof(out)), "K4 layout")
+        T, D, K, S, W, warps, P, ctypes.addressof(out)), "K4 layout")
     return out[1], out[2]
 
 
@@ -51,13 +52,12 @@ def setup(B: int, T: int, D: int, K: int, S: int, W: int, dev,
         return forward_kernel._occupancy("extrack_predict_occupancy", D, K,
                                          S, T, W, warps, int(smem), P)
 
-    warp = (mapping or ("warp" if K <= forward_kernel.WARP_MAX_K
-                        else "block")) == "warp"
-    fixed, stash_bytes = layout(T, D, K, S, W, warp, P)
-    pl = forward_kernel.plan(K, fixed, stash_bytes,
-                             cuda_lib.smem_bytes("extrack_predict_smem",
-                                                 dev.index),
-                             occ, mapping, stash)
+    fixed, stash_bytes = layout(
+        T, D, K, S, W, forward_kernel.mapping_warps("K4", K, mapping), P)
+    pl = forward_kernel.plan(
+        "K4", K, fixed, stash_bytes,
+        cuda_lib.smem_bytes("extrack_predict_smem", dev.index), occ,
+        mapping, stash)
     nblk, scratch = forward_kernel.grid(B, pl, forward_kernel._sms(dev.index),
                                         occ(pl.warps, pl.stash_smem),
                                         stash_bytes)
@@ -67,9 +67,9 @@ def setup(B: int, T: int, D: int, K: int, S: int, W: int, dev,
 def launch(data, tabs, min_len: int, S: int, W: int,
            mapping: str | None = None, stash: str | None = None):
     """Launch K4 on the current stream; returns logL (B,) and preds
-    (B, T, S), float32.  ``mapping`` ("warp"/"block") and ``stash`` (the
-    fusion weights' stash in "smem" or "global" memory) force
-    ``forward_kernel.plan``'s choices (tests, tools)."""
+    (B, T, S), float32.  ``mapping`` ("warp"/"block"/"wide") and
+    ``stash`` (the fusion weights' stash in "smem" or "global" memory)
+    force ``forward_kernel.plan``'s choices (tests, tools)."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape

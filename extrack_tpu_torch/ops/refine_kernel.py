@@ -6,7 +6,9 @@ moment-matched mean and standard deviation of every localization's true
 position:
 
 * CUDA tensors (float32): one K6 launch on ``build_refine_tables``' slot
-  tables.  Outside the envelope it raises.
+  tables: a thread a slot up to 1024 slots, a thread a fusion group up to
+  4096 (``forward_kernel.mapping_warps``).  Outside the envelope it
+  raises.
 * CPU tensors: ``refine_plain``, which is ``refine.refine_positions`` on
   the same inputs, in chunks that bound its S*(K/S)^2-component mixture.
 
@@ -46,10 +48,13 @@ def build_refine_tables(log_trans: torch.Tensor, sig2_states: torch.Tensor,
     return lt - (W - 2) * math.log(S), lt, sig2
 
 
-def launch(positions, lengths, l2, tabs, S: int):
+def launch(positions, lengths, l2, tabs, S: int,
+           mapping: str | None = None):
     """Launch K6 on the current stream: ``positions``, ``l2`` (B, T, D)
     float32, ``lengths`` (B,) int32, ``tabs`` the five (K,) float32 tables
-    (lp0f, ltf, lp0r, ltr, sig2v).  Returns mu, sigma (B, T, D)."""
+    (lp0f, ltf, lp0r, ltr, sig2v).  Returns mu, sigma (B, T, D).
+    ``mapping`` forces ``forward_kernel.mapping_warps``' choice (tests,
+    tools)."""
     global LAUNCHES
     B, T, D = positions.shape
     dev = positions.device
@@ -62,13 +67,15 @@ def launch(positions, lengths, l2, tabs, S: int):
     f32 = dict(dtype=torch.float32, device=dev)
     mu = torch.empty((B, T, D), **f32)
     sigma = torch.empty((B, T, D), **f32)
-    threads, fixed, stash = cuda_lib.layout("refine", T, D, K, S)
-    nblk, scratch = cuda_lib.grid("extrack_refine_smem", dev, B, K, fixed,
-                                  stash, threads=threads)
+    w = forward_kernel.mapping_warps("K6", K, mapping) == forward_kernel.WIDE
+    threads, fixed, stash = cuda_lib.layout("refine", T, D, K, S, int(w))
+    nblk, scratch = cuda_lib.grid("extrack_refine_smem", dev, B, fixed,
+                                  stash, threads)
     rc = lib.extrack_refine(
         *(t.data_ptr() for t in (positions, l2, lengths, *tabs, mu, sigma)),
         None if scratch is None else scratch.data_ptr(),
-        B, T, D, K, S, nblk, torch.cuda.current_stream(dev).cuda_stream)
+        B, T, D, K, S, nblk, int(w),
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "refinement")
     LAUNCHES += 1
     return mu, sigma

@@ -283,9 +283,11 @@ def default_window(nb_states: int, T: int = 16, D: int = 2) -> int:
     states at T=16, D=2).  ``position_refinement`` and ``refine_batch``
     call it with the batch's padded length and dimensions when
     ``frame_len`` is not given, so a refinement without ``frame_len``
-    uses the reference's window.  Where that window needs more than the
-    CUDA kernel's 1024 slots (6 states on short 1-D tracks), a CUDA
-    bucket raises and names a ``frame_len`` that fits."""
+    uses the reference's window.  Up to 64 states its register stays
+    inside the CUDA kernel's 4096 slots (K6 maps past 1024 with a thread a
+    fusion group; the largest default is 6^4 = 1296, 6 states on short
+    1-D tracks); a window past 4096 slots raises on a CUDA bucket and
+    names the largest window that fits."""
     S = int(nb_states)
     for w in range(7, 1, -1):
         K = S ** w

@@ -15,7 +15,9 @@ sequences, stably; only the f32 rounding of the sums differs), final
 weights of an unpruned register rtol 1e-4 / atol 1e-5.  Variable dt (the
 streamed displacement-variance table of K1..K5) and K5 past one sub-step
 are held to the same tolerances (K5 there against the plain version in
-float64 on the same inputs).
+float64 on the same inputs), and so are K1, K4, K5 and K6 on their wide
+mapping (a thread a fusion group), past 1024 slots up to 4096 and forced
+onto the small registers of the other tests.
 """
 import numpy as np
 import pytest
@@ -127,7 +129,8 @@ def test_cuda_value_only_and_envelope(cuda):
 
 # (S, W, n, B, T, D, dt): variable dt on K1, K2 and K4 (one sub-step), per
 # step and per track: the warp mapping at K = 64 (and forced onto the block
-# mapping), the block mapping at K = 243, two sub-steps, D = 1 and 3, and
+# mapping, K1 onto the wide one), the block mapping at K = 243 (K1: the
+# wide one), two sub-steps, D = 1 and 3, and
 # T = 2 per track (a per-step table at T = 2 is one row: a constant dt)
 DT_CASES = [c + (dt,) for c in [
     (2, 6, 1, 300, 9, 2), (3, 5, 1, 120, 9, 2), (2, 4, 2, 200, 8, 2),
@@ -380,9 +383,10 @@ def test_cuda_posteriors_match_plain(cuda, S, W, B, T, D):
     assert np.all(sums[~valid] == 0.0)
 
 
-# (S, W, n, B, T, D, per-peak LocErr): K1 on both mappings at K = 8, 16,
-# 32, 64 (warp and block; A = 2, 3, 4 unrolled and 8 at run time), and
-# on the block mapping at K = 243 and 1024 (S = 2 and 32)
+# (S, W, n, B, T, D, per-peak LocErr): K1 on both its mappings at K = 8,
+# 16, 32, 64 (warp and wide; A = 2, 3, 4 unrolled and 8 at run time), and
+# on the wide mapping at K = 243 and 1024 (S = 2 and 32); K1 has no block
+# mapping
 K1_MAPPING_CASES = [
     (2, 3, 1, 300, 9, 2, False), (2, 4, 1, 300, 9, 1, True),
     (2, 5, 1, 300, 9, 3, False), (2, 6, 1, 300, 9, 2, True),
@@ -399,7 +403,7 @@ def test_cuda_k1_mappings_match_plain(cuda, S, W, n, B, T, D, per_peak):
     want = forward_kernel.forward_plain(*args, **kw)
     data_, tabs = _kernel_args(args, W, n)
     K = S ** W
-    for mapping in (("warp", "block") if K <= 64 else ("block",)):
+    for mapping in (("warp",) if K <= 64 else ()) + ("wide",):
         got = forward_kernel.launch(data_, tabs, 2, mapping=mapping)
         again = forward_kernel.launch(data_, tabs, 2, mapping=mapping)
         assert torch.equal(got, again)        # no atomics: repeatable
@@ -407,12 +411,14 @@ def test_cuda_k1_mappings_match_plain(cuda, S, W, n, B, T, D, per_peak):
     if K > 64:
         with pytest.raises(ValueError, match="K <= 64"):
             forward_kernel.launch(data_, tabs, 2, mapping="warp")
+    with pytest.raises(ValueError, match="K1 has the mappings"):
+        forward_kernel.launch(data_, tabs, 2, mapping="block")
 
 
 # (S, W, B, T, D, per-peak LocErr): K4 on both mappings at K = 8, 16, 32,
-# 64 (warp and block), 243 and 1024 (block), each with its stash of
-# fusion weights in shared memory and in global scratch; T = 2 and a
-# window wider than the tracks among them
+# 64 (warp and block), 243 and 1024 (block), and each on the wide
+# mapping, with its stash of fusion weights in shared memory and in
+# global scratch; T = 2 and a window wider than the tracks among them
 K4_MAPPING_CASES = [
     (2, 3, 300, 9, 2, False), (2, 4, 300, 12, 1, True),
     (2, 5, 300, 20, 2, False), (2, 6, 200, 14, 3, True),
@@ -430,7 +436,8 @@ def test_cuda_k4_mappings_match_plain(cuda, S, W, B, T, D, per_peak):
     logl0, preds0 = predict_kernel.predict_plain(*args, **kw)
     data_, tabs = _kernel_args(args, W)
     K = S ** W
-    for mapping in (("warp", "block") if K <= 64 else ("block",)):
+    for mapping in (("warp", "block") if K <= 64 else ("block",)) + (
+            "wide",):
         for stash in ("smem", "global"):
             logl, preds = predict_kernel.launch(data_, tabs, 2, S, W,
                                                 mapping=mapping, stash=stash)
@@ -471,17 +478,35 @@ def test_predict_layout(cuda):
                                       4 * fixed, stash)
         assert lib.extrack_predict_layout(T, D, 81, 3, 4, 1, 0,
                                           ctypes.addressof(out)) != 0
+    # the wide mapping: two publish areas of (2D+1) floats a fusion group,
+    # the closings' and the harvest's partials, the softmax; a thread a
+    # group up to 1024
+    for S, W, T, D in ((6, 4, 5, 1), (3, 7, 20, 2), (5, 5, 9, 3),
+                       (2, 12, 14, 3), (4, 6, 10, 2), (2, 5, 10, 2)):
+        K, G = S ** W, S ** (W - 1)
+        out = (ctypes.c_longlong * 3)()
+        assert lib.extrack_predict_layout(T, D, K, S, W, -1, 0,
+                                          ctypes.addressof(out)) == 0
+        assert tuple(out) == (
+            min(1024, -(-G // 32) * 32),
+            4 * (2 * (2 * D + 1) * G + 128 + W * S * 32 + K),
+            4 * max(T - W, 0) * (K | 1))
+    assert lib.extrack_predict_layout(10, 2, 3 ** 8, 3, 8, -1, 0,
+                                      ctypes.addressof(out)) != 0
+    assert lib.extrack_predict_layout(10, 2, 2 ** 11, 2, 11, 0, 0,
+                                      ctypes.addressof(out)) != 0
 
 
 # every hist_kernel<D, NT> instantiation (NT = 128, 256, 512, 1024
 # threads), K = 8, 128, 243, 729 and 1024 among them, D = 1..3, and rows
-# in global scratch (K = 512 at T = 60, K = 729 at T = 24)
+# in global scratch (K = 512 at T = 60, K = 729 at T = 24, K = 1024 at
+# D = 1: 48 KB of dynamic shared memory beside the static partials)
 HIST_CASES = [
     (2, 5, 300, 9, 2), (3, 3, 77, 12, 3), (2, 4, 5, 2, 1), (2, 9, 40, 60, 2),
     (2, 3, 64, 7, 1), (2, 7, 64, 10, 2), (3, 4, 40, 9, 3), (3, 5, 40, 9, 1),
     (3, 5, 40, 9, 2), (3, 5, 40, 9, 3), (2, 9, 12, 8, 1), (7, 3, 12, 8, 2),
     (2, 9, 12, 8, 3), (3, 6, 12, 8, 2), (2, 10, 8, 6, 1), (4, 5, 8, 6, 3),
-    (3, 6, 8, 24, 3)]
+    (3, 6, 8, 24, 3), (2, 10, 8, 16, 1)]
 
 
 @pytest.mark.cuda
@@ -502,7 +527,7 @@ def test_cuda_histogram_matches_plain(cuda, S, W, B, T, D):
                     * torch.arange(1, T + 1)[:, None]).sum())
     np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
     with pytest.raises(NotImplementedError, match="largest window"):
-        hist_kernel.hist(pos, lens, isbl, tb, window=11 if S == 2 else 7)
+        hist_kernel.hist(pos, lens, isbl, tb, window=_past_envelope(S))
 
 
 # every refine_kernel<D, NT> instantiation (NT = 128, 256, 512, 1024
@@ -557,16 +582,31 @@ def test_refine_layout(cuda):
         for S, W in ((2, 3), (2, 7), (3, 5), (3, 6), (5, 3), (7, 3),
                      (2, 10)):
             K, KS = S ** W, S ** (W - 1)
-            n, fixed, stash = cuda_lib.layout("refine", 10, D, K, S)
+            n, fixed, stash = cuda_lib.layout("refine", 10, D, K, S, 0)
             frame = per * (-(-K // 4) * 4) * 4
             assert stash == 8 * frame and frame % 16 == 0
             assert fixed == (2 * frame + 2 * (2 + 2 * D) * K * 4
                              + 32 * (n // 32) * (2 + 2 * D) * 4)
             assert n % 32 == 0 and n >= K and n <= 1024
             assert n >= S * -(-KS // 2) * 2
-            assert cuda_lib.layout("refine", 2, D, K, S)[2] == 0
+            assert cuda_lib.layout("refine", 2, D, K, S, 0)[2] == 0
+        # the wide mapping: 1024 threads, the publish areas of (2D+1)
+        # floats a group and the ring in the fixed part; the two prefix
+        # frames travel with the stash
+        for S, W in ((6, 4), (2, 11), (3, 7), (5, 5), (2, 12), (16, 3),
+                     (2, 7)):
+            K, KS = S ** W, S ** (W - 1)
+            frame = per * (-(-K // 4) * 4) * 4
+            assert cuda_lib.layout("refine", 10, D, K, S, 1) == (
+                1024, 2 * (2 * D + 1) * KS * 4 + 32 * 32 * (2 + 2 * D) * 4,
+                10 * frame)
+            assert cuda_lib.layout("refine", 2, D, K, S, 1)[2] == 0
     with pytest.raises(RuntimeError):
-        cuda_lib.layout("refine", 10, 4, 128, 2)
+        cuda_lib.layout("refine", 10, 4, 128, 2, 0)
+    with pytest.raises(RuntimeError):
+        cuda_lib.layout("refine", 10, 2, 2 ** 11, 2, 0)
+    with pytest.raises(RuntimeError):
+        cuda_lib.layout("refine", 10, 2, 3 ** 8, 3, 1)
 
 
 @pytest.mark.cuda
@@ -579,27 +619,54 @@ def test_hist_layout(cuda):
                        (2, 3, 8, 2)):
         K, A = S ** W, S ** n
         for D in (1, 2, 3):
-            threads, fixed, rows = cuda_lib.layout("hist", T, D, K, S, A)
+            threads, fixed, rows = cuda_lib.layout("hist", T, D, K, S, A,
+                                                   0)
             assert threads == -(-K // 32) * 32
             assert rows == 2 * (K // A) * (1 + S) * T * 4
             assert fixed == (2 * (2 + 2 * D) + 4) * K * 4
+    # the wide mapping: a thread a fusion group (at most 1024), two publish
+    # areas of (2D+1) floats a group and K member weights; the same rows
+    for S, W, T, n in ((6, 4, 5, 1), (2, 11, 10, 1), (3, 7, 20, 1),
+                       (3, 7, 9, 2), (5, 5, 8, 2), (2, 12, 14, 1),
+                       (16, 3, 6, 2), (2, 7, 10, 1)):
+        K, A = S ** W, S ** n
+        G = K // A
+        for D in (1, 2, 3):
+            assert cuda_lib.layout("hist", T, D, K, S, A, 1) == (
+                min(1024, -(-G // 32) * 32),
+                (2 * (2 * D + 1) * G + K) * 4, 2 * G * (1 + S) * T * 4)
+    with pytest.raises(RuntimeError):
+        cuda_lib.layout("hist", 10, 2, 2 ** 11, 2, 2, 0)
+    with pytest.raises(RuntimeError):
+        cuda_lib.layout("hist", 10, 2, 3 ** 8, 3, 3, 1)
 
 
 @pytest.mark.cuda
 def test_cuda_refinement_window_past_the_envelope_raises(cuda):
     """The reference's default window for 6 states on short 1-D tracks
-    needs 6^4 > 1024 slots: the bucket raises and points to frame_len."""
+    needs 6^4 = 1296 slots: K6's wide mapping runs it, held to the plain
+    version; a window past 4096 slots raises, names the bucket and points
+    to frame_len."""
     from extrack_tpu_torch import refine
     rng = np.random.default_rng(0)
-    batch = data.from_dict({"3": rng.normal(0, 0.05, (5, 3, 1))},
+    batch = data.from_dict({"4": rng.normal(0, 0.05, (5, 4, 1))},
                            device=cuda)
-    assert refine.default_window(6, 3, 1) == 4
-    with pytest.raises(NotImplementedError, match="frame_len"):
-        refine.refine_batch(batch, 0.02, np.full(6, 0.05),
-                            np.full((6, 6), 1 / 6))
-    mu, _ = refine.refine_batch(batch, 0.02, np.full(6, 0.05),
-                                np.full((6, 6), 1 / 6), frame_len=3)
-    assert mu.shape == (5, 3, 1) and bool(torch.isfinite(mu).all())
+    assert refine.default_window(6, 4, 1) == 4
+    TrMat = np.full((6, 6), 0.02) + np.eye(6) * 0.88
+    before = refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS
+    mu, sig = refine.refine_batch(batch, 0.02, np.full(6, 0.05), TrMat)
+    assert (refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    cpu = data.from_dict({"4": batch.positions.double().cpu().numpy()},
+                         device="cpu")
+    mu0, sig0 = refine.refine_batch(cpu, 0.02, np.full(6, 0.05), TrMat)
+    torch.testing.assert_close(mu.double().cpu(), mu0, rtol=2e-4,
+                               atol=2e-5)
+    torch.testing.assert_close(sig.double().cpu(), sig0, rtol=2e-3,
+                               atol=2e-5)
+    with pytest.raises(NotImplementedError, match="bucket.*frame_len.*K6"):
+        refine.refine_batch(batch, 0.02, np.full(6, 0.05), TrMat,
+                            frame_len=5)
 
 
 @pytest.mark.cuda
@@ -744,3 +811,164 @@ def test_cuda_topk_pad_prefix_backpointers_match_plain(cuda, S, n, M, B, T,
                                                      **kw)
     assert torch.equal(par.long(), par0) and torch.equal(st, st0)
     torch.testing.assert_close(wf, wf0, rtol=1e-4, atol=1e-5)
+
+
+# ---- the wide mapping: 1024 < K <= 4096 -------------------------------
+
+
+def _past_envelope(S):
+    """The smallest window whose register passes the wide mapping's 4096
+    slots at S states."""
+    return next(w for w in range(1, 20) if S ** w > 4096)
+
+
+# (S, W, D, dt): K = 1296, 2048, 2187, 3125 and 4096 (2, 4 and 8 states),
+# each at D = 1..3 among them; variable dt per step and per track
+WIDE_WALK_CASES = [
+    (6, 4, 1, None), (6, 4, 2, "track"), (6, 4, 3, "step"),
+    (2, 11, 1, "step"), (2, 11, 2, None), (2, 11, 3, "track"),
+    (3, 7, 1, "track"), (3, 7, 2, None), (3, 7, 3, "step"),
+    (5, 5, 1, None), (5, 5, 2, "step"), (5, 5, 3, "track"),
+    (2, 12, 1, "track"), (4, 6, 2, None), (8, 4, 3, "step")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D,dt", WIDE_WALK_CASES)
+def test_cuda_wide_k1_k4_match_plain(cuda, S, W, D, dt):
+    # K1 and K4 past 1024 slots through their wrappers (the default
+    # mapping there is the wide one), K4 with its stash in shared memory
+    # and in global scratch; tracks longer than the window, so that frames
+    # leave it
+    T = W + 3
+    args = _case(cuda, S, 1, 24, T, D, seed=S + W, per_peak=(D == 2),
+                 dt=dt)
+    assert forward_kernel.plan("K1", S ** W, 0, 0, 0, None).warps == (
+        forward_kernel.WIDE)
+    kw = dict(window=W, min_len=2)
+    before = forward_kernel.LAUNCHES, predict_kernel.LAUNCHES
+    got = forward_kernel.forward(*args, **kw)
+    assert torch.equal(got, forward_kernel.forward(*args, **kw))
+    torch.testing.assert_close(got, forward_kernel.forward_plain(*args, **kw),
+                               rtol=2e-5, atol=2e-4)
+    logl0, preds0 = predict_kernel.predict_plain(*args, **kw)
+    logl, preds = predict_kernel.predict(*args, **kw)
+    assert (forward_kernel.LAUNCHES, predict_kernel.LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
+    data_, tabs = _kernel_args(args, W)
+    for stash in ("smem", "global"):
+        try:
+            logl, preds = predict_kernel.launch(data_, tabs, 2, S, W,
+                                                stash=stash)
+        except ValueError as e:       # a stash too large for shared memory
+            assert stash == "smem" and "does not fit" in str(e)
+            continue
+        torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
+    with pytest.raises(NotImplementedError, match="K4 maps at most 4096"):
+        predict_kernel.predict(*args, window=_past_envelope(S), min_len=2)
+
+
+# K5 past 1024 slots: (S, W, n, D, dt); two sub-steps where the window's
+# frames align (A = 4, 9, 25 and 256, the last a window of two frames, A
+# not dividing G)
+WIDE_HIST_CASES = [
+    (6, 4, 1, 1, None), (6, 4, 1, 3, "track"), (2, 11, 1, 2, "step"),
+    (2, 11, 2, 1, "track"), (3, 7, 1, 1, None), (3, 7, 1, 2, "track"),
+    (3, 7, 2, 3, "step"), (5, 5, 1, 3, None), (5, 5, 2, 2, "track"),
+    (2, 12, 1, 2, None), (4, 6, 1, 1, "step"), (16, 3, 2, 2, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,D,dt", WIDE_HIST_CASES)
+def test_cuda_wide_k5_matches_plain(cuda, S, W, n, D, dt):
+    wf = (W - 1) // n + 1
+    T = wf + 4
+    pos, lens, isbl, tb = _case(cuda, S, n, 20, T, D, seed=S * W + n, dt=dt)
+    kw = dict(window=W, min_len=2, nb_substeps=n)
+    before = hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS
+    got = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+    assert torch.equal(got, hist_kernel.hist(pos, lens, isbl, tb, **kw))
+    assert (hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    want = hist_kernel.hist_plain(pos.double(), lens, isbl.double(),
+                                  tables.ModelTables(*(f.double()
+                                                       for f in tb)), **kw)
+    torch.testing.assert_close(got.double(), want, rtol=2e-3, atol=2e-4)
+    L = lens.cpu().numpy()
+    frames = float((got.cpu().double()
+                    * torch.arange(1, T + 1)[:, None]).sum())
+    np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
+    with pytest.raises(NotImplementedError, match="K5 maps at most 4096"):
+        hist_kernel.hist(pos, lens, isbl, tb, window=_past_envelope(S))
+
+
+# K6 past 1024 slots: (S, W, B, T, D, per-peak LocErr)
+WIDE_REFINE_CASES = [
+    (6, 4, 12, 5, 1, False), (6, 4, 12, 9, 2, True), (6, 4, 8, 6, 3, False),
+    (2, 11, 6, 8, 1, True), (3, 7, 8, 9, 2, False), (3, 7, 6, 10, 3, True),
+    (5, 5, 6, 8, 1, False), (2, 12, 4, 6, 2, False), (4, 6, 4, 7, 3, True)]
+
+
+def _refine_args(dev, S, W, B, T, D, per_peak):
+    pos, lens, _, _ = _case(dev, S, 1, B, T, D)
+    rng = np.random.default_rng(S + W)
+    tr = np.full((S, S), 0.1 / (S - 1))
+    np.fill_diagonal(tr, 0.9)
+    tr[0, -1] = 0.0                                   # forbidden
+    tr /= tr.sum(1, keepdims=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    log_trans = tables.cap_log(torch.tensor(tr, **f32))
+    sig2 = torch.tensor((0.08 * (1 + np.arange(S))) ** 2, **f32)
+    l2 = (torch.tensor(rng.uniform(1e-4, 9e-4, (B, T, D)), **f32)
+          if per_peak else torch.full((1, 1, 1), 4e-4, **f32))
+    return pos, lens, l2, log_trans, sig2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,B,T,D,per_peak", WIDE_REFINE_CASES)
+def test_cuda_wide_k6_matches_plain(cuda, S, W, B, T, D, per_peak):
+    args = _refine_args(cuda, S, W, B, T, D, per_peak)
+    before = refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS
+    mu, sig = refine_kernel.refine(*args, window=W)
+    assert (refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    mu0, sig0 = refine_kernel.refine_plain(*args, window=W)
+    torch.testing.assert_close(mu, mu0, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(sig, sig0, rtol=2e-3, atol=2e-5)
+    L = args[1].cpu().numpy()
+    valid = np.arange(T)[None, :] < L[:, None]
+    assert np.all(mu.cpu().numpy()[~valid] == 0.0)
+    with pytest.raises(NotImplementedError, match="K6 maps at most 4096"):
+        refine_kernel.refine(*args, window=_past_envelope(S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HIST_CASES[:9])
+def test_cuda_k5_wide_mapping_on_small_registers(cuda, case):
+    # the wide mapping forced onto the block mapping's registers (a thread
+    # a group, G = K/S threads or fewer) gives the same histograms
+    S, W, B, T, D = case
+    pos, lens, isbl, tb = _case(cuda, S, 1, B, T, D)
+    data_, tabs = _kernel_args((pos, lens, isbl, tb), W)
+    want = hist_kernel.launch(data_, tabs, 3, S, W, mapping="block")
+    got = hist_kernel.launch(data_, tabs, 3, S, W, mapping="wide")
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REFINE_CASES[:9])
+def test_cuda_k6_wide_mapping_on_small_registers(cuda, case):
+    S, W, B, T, D, per_peak = case
+    pos, lens, l2, log_trans, sig2 = _refine_args(cuda, S, W, B, T, D,
+                                                  per_peak)
+    lp0f, ltf, sig2v = refine_kernel.build_refine_tables(log_trans, sig2, W)
+    lp0r, ltr, _ = refine_kernel.build_refine_tables(log_trans.T, sig2, W)
+    tabs = [t.contiguous() for t in (lp0f, ltf, lp0r, ltr, sig2v)]
+    lens = lens.to(torch.int32)
+    l2 = l2.expand(B, T, D).contiguous()
+    mu0, sig0 = refine_kernel.launch(pos, lens, l2, tabs, S, mapping="block")
+    mu, sig = refine_kernel.launch(pos, lens, l2, tabs, S, mapping="wide")
+    torch.testing.assert_close(mu, mu0, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(sig, sig0, rtol=2e-3, atol=2e-5)

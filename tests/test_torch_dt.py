@@ -226,9 +226,12 @@ def test_check_envelope_names_k5_and_k7_for_variable_dt():
     forward_kernel.check_envelope(10, 2, 2, 7, 1, kernel="K5")
     with pytest.raises(NotImplementedError, match=r"dt \(K7 .*device='cpu'"):
         topk_kernel.check_envelope(10, 2, 2, 512, variable_dt=True)
-    # past 1024 slots K5 still raises, naming itself
-    with pytest.raises(NotImplementedError, match=r"K=.*1024.*K5"):
-        forward_kernel.check_envelope(10, 2, 3, 7, 1, variable_dt=True,
+    # K5 maps past 1024 slots (3^7 = 2187, len_hist's default window at
+    # 3 states) with variable dt; past 4096 it raises, naming itself
+    forward_kernel.check_envelope(10, 2, 3, 7, 1, variable_dt=True,
+                                  kernel="K5")
+    with pytest.raises(NotImplementedError, match=r"K=.*4096.*K5"):
+        forward_kernel.check_envelope(10, 2, 3, 8, 1, variable_dt=True,
                                       kernel="K5")
 
 

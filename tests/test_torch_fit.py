@@ -105,3 +105,46 @@ def test_fit_options(dataset, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             tfit.param_fitting(tracks, 0.02, params=tspec, max_iter=1)
+
+
+# (start, tracks): param_fitting's default start (Ds 0, 0.375, 1.5), from
+# which L-BFGS-B stops after 4 evaluations at D2 ~ 1.2, and a rough guess
+# of the Ds, from which both packages converge to the simulated ones
+FIT3_STARTS = [(None, 1500), ([0.001, 0.01, 0.2], 600)]
+
+
+@pytest.mark.parametrize("estimated_Ds,nb_tracks", FIT3_STARTS)
+def test_three_state_param_fitting_matches_jax(estimated_Ds, nb_tracks):
+    """The README workflow's fit at 3 states and the JAX package's defaults
+    (window 5, K = 243): both packages' param_fitting stop at the same
+    evaluation with the same parameters; from a guess of the Ds, at the
+    simulated Ds."""
+    tr = np.full((3, 3), 0.05) + np.eye(3) * 0.85
+    sim_Ds = (0.0, 0.02, 0.1)
+    tracks, _, _ = jsim.sim_fov(
+        nb_tracks=nb_tracks, max_track_len=10, min_track_len=3, LocErr=0.02,
+        Ds=sim_Ds, TrMat=tr, dt=0.02, pBL=0.1,
+        cell_dims=(0.5, None, None), seed=5)
+    kw = dict(nb_states=3, cell_dims=(0.5,), verbose=0)
+    if estimated_Ds is None:
+        want = jfit.param_fitting(tracks, 0.02, **kw)
+        got = tfit.param_fitting(tracks, 0.02, device="cpu", **kw)
+    else:
+        start = dict(nb_states=3, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+                     D_max=3.0, estimated_Ds=estimated_Ds,
+                     estimated_transition_rates=0.1)
+        want = jfit.param_fitting(
+            tracks, 0.02, params=jparams.generate_params(**start), **kw)
+        got = tfit.param_fitting(
+            tracks, 0.02, params=tparams.generate_params(**start),
+            device="cpu", **kw)
+    assert (got.n_evals, got.message) == (want.n_evals, want.message)
+    assert list(got.params) == list(want.params)
+    for k, p in want.params.items():
+        np.testing.assert_allclose(got.params[k].value, float(p.value),
+                                   rtol=1e-6, atol=1e-9)
+    if estimated_Ds is not None:
+        assert got.n_evals > 4
+        for i in (1, 2):
+            assert abs(got.params[f"D{i}"].value - sim_Ds[i]) <= (
+                0.1 * sim_Ds[i])

@@ -13,7 +13,9 @@ masses in place of the weights, whose sums over the groups are the dropped
 frames' posteriors), while the frames still in the window come from the
 slots' digit codes.  In float64 every operation is exact to rounding, so
 it matches the engine within 1e-10.  Also here: the pure-Python ``plan``
-and ``grid`` that map a K1 or K4 launch onto the card.
+and ``grid`` that map a K1 or K4 launch onto the card, each kernel's
+register limit, and the wide mapping's blocks (K1, K4, K5 and K6 past
+1024 slots) at every register of its envelope.
 """
 import math
 
@@ -22,7 +24,7 @@ import pytest
 import torch
 
 from extrack_tpu_torch.core import engine, tables
-from extrack_tpu_torch.ops import forward_kernel
+from extrack_tpu_torch.ops import cuda_lib, forward_kernel
 
 LOG2E = 1.0 / math.log(2.0)
 NEG_BIG = -1e30
@@ -253,14 +255,14 @@ def test_walk_plan_warp_mapping_up_to_64_slots(S, W, T, plan):
     K = S ** W
     fixed, stash = _team_bytes(K, S, 2, T, W)
     occ = _occupancy(fixed, stash)
-    pl = forward_kernel.plan(K, fixed, stash, 227 * 1024, occ)
+    pl = forward_kernel.plan("K4", K, fixed, stash, 227 * 1024, occ)
     assert pl == forward_kernel.Plan(*plan)
-    assert forward_kernel.plan(K, fixed, stash, 227 * 1024, occ,
+    assert forward_kernel.plan("K4", K, fixed, stash, 227 * 1024, occ,
                                stash="smem").stash_smem
-    assert forward_kernel.plan(K, fixed, stash, 227 * 1024, occ,
+    assert forward_kernel.plan("K4", K, fixed, stash, 227 * 1024, occ,
                                stash="global") == forward_kernel.Plan(4, False)
     # K1 has no stash: four warps a block
-    assert forward_kernel.plan(K, fixed, 0, 227 * 1024, None) == (
+    assert forward_kernel.plan("K1", K, fixed, 0, 227 * 1024, None) == (
         forward_kernel.Plan(4, False))
 
 
@@ -271,18 +273,18 @@ def test_walk_plan_block_mapping_above_64_slots(S, W, T, smem):
     # one block a track above 64 slots.  At K = 81 and T = 30 the stash
     # would cost 7 of 21 resident blocks, so it goes to global scratch; at
     # T = 10 it costs none, and at K = 243, 256 and 1024 the registers bind
-    # first
+    # first.  K1 (no stash) runs the wide mapping there
     K = S ** W
     fixed, stash = _team_bytes(K, S, 2, T, W, warp=False)
     occ = _occupancy(fixed, stash, regs_warps=64, K=K)
-    assert forward_kernel.plan(K, fixed, stash, 227 * 1024, occ) == (
+    assert forward_kernel.plan("K4", K, fixed, stash, 227 * 1024, occ) == (
         forward_kernel.Plan(0, smem))
-    assert forward_kernel.plan(K, fixed, 0, 227 * 1024, None) == (
-        forward_kernel.Plan(0, False))
+    assert forward_kernel.plan("K1", K, fixed, 0, 227 * 1024, None) == (
+        forward_kernel.Plan(forward_kernel.WIDE, False))
     with pytest.raises(ValueError, match="K <= 64"):
-        forward_kernel.plan(K, fixed, stash, 227 * 1024, occ,
+        forward_kernel.plan("K4", K, fixed, stash, 227 * 1024, occ,
                             mapping="warp")
-    assert forward_kernel.plan(32, fixed, stash, 227 * 1024, occ,
+    assert forward_kernel.plan("K4", 32, fixed, stash, 227 * 1024, occ,
                                mapping="block", stash="smem") == (
         forward_kernel.Plan(0, True))
 
@@ -291,13 +293,14 @@ def test_walk_plan_stash_in_global_scratch_when_it_does_not_fit():
     # T = 2000 at K = 32: one warp's stash alone is 263 KB
     fixed, stash = _team_bytes(32, 2, 2, 2000, 5)
     occ = _occupancy(fixed, stash)
-    assert forward_kernel.plan(32, fixed, stash, 227 * 1024, occ) == (
+    assert forward_kernel.plan("K4", 32, fixed, stash, 227 * 1024, occ) == (
         forward_kernel.Plan(4, False))
     with pytest.raises(ValueError, match="does not fit"):
-        forward_kernel.plan(32, fixed, stash, 227 * 1024, occ, stash="smem")
+        forward_kernel.plan("K4", 32, fixed, stash, 227 * 1024, occ,
+                            stash="smem")
     # K = 243 at T = 200: it fits, but one block an SM against eight
     fixed, stash = _team_bytes(243, 3, 2, 200, 5, warp=False)
-    assert forward_kernel.plan(243, fixed, stash, 227 * 1024,
+    assert forward_kernel.plan("K4", 243, fixed, stash, 227 * 1024,
                                _occupancy(fixed, stash, 64, 243)) == (
         forward_kernel.Plan(0, False))
 
@@ -318,3 +321,174 @@ def test_walk_grid():
     nblk, nbytes = forward_kernel.grid(1 << 20, forward_kernel.Plan(4, False),
                                        132, 6, big)
     assert nblk == (1 << 30) // (4 * big) and nbytes == nblk * 4 * big
+
+
+# ---- the wide mapping: 1024 < K <= 4096 --------------------------------
+
+SMEM = 232448             # shared bytes a block may opt in to on an H100
+# every register of the wide mapping's envelope, K = S^W in (1024, 4096]
+WIDE_REGISTERS = [(S, W) for S in range(2, 65) for W in range(2, 13)
+                  if 1024 < S ** W <= 4096]
+
+
+def _wide_threads(G):
+    return min(1024, -(-G // 32) * 32)
+
+
+def _wide_walk_bytes(K, A, S, D, T, W, pred):
+    """A K1/K4 block of the wide mapping: its shared bytes besides K4's
+    stash, the stash's bytes and its threads (csrc/walk.cuh wide_layout;
+    the card test test_predict_layout reads the kernel's own)."""
+    G = K // A
+    fixed = 2 * (2 * D + 1) * G + 128 + ((W * S * 32 + K) if pred else 0)
+    stash = (T - W) * (K | 1) if pred and T > W else 0
+    return 4 * fixed, 4 * stash, _wide_threads(G)
+
+
+def _wide_hist_bytes(K, A, S, D, T):
+    """K5's wide block (csrc/hist.cu hist_layout): threads, shared bytes
+    besides the rows, the rows' bytes a track (test_hist_layout reads the
+    kernel's own)."""
+    G = K // A
+    return (_wide_threads(G), 4 * (2 * (2 * D + 1) * G + K),
+            4 * 2 * G * (1 + S) * T)
+
+
+def _wide_refine_bytes(K, S, D, T):
+    """K6's wide block (csrc/refine.cu refine_layout): threads, shared
+    bytes besides the forms, the forms' bytes a track (two prefix frames
+    and the stash; test_refine_layout reads the kernel's own)."""
+    frame = {1: 4, 2: 5, 3: 8}[D] * (-(-K // 4) * 4)
+    return (1024, 4 * (2 * (2 * D + 1) * (K // S) + 32 * 32 * (2 + 2 * D)),
+            4 * T * frame if T > 2 else 0)
+
+
+def test_mapping_choice_and_per_kernel_limits():
+    # K1: a warp up to 64 slots, a thread a fusion group above; K4: a warp
+    # up to 64, a thread a slot up to 1024, a thread a fusion group up to
+    # 4096; K5 and K6 (a block a track) go wide past 1024; K2 and K3 stop
+    # at 1024
+    W = forward_kernel.WIDE
+    Ks = (64, 65, 1024, 1025, 4096)
+    assert [forward_kernel.mapping_warps("K1", K) for K in Ks] == [
+        1, W, W, W, W]
+    assert [forward_kernel.mapping_warps("K4", K) for K in Ks] == [
+        1, 0, 0, W, W]
+    for k in ("K5", "K6"):
+        assert [forward_kernel.mapping_warps(k, K) for K in Ks] == [
+            0, 0, 0, W, W]
+    for K in (243, 2187):
+        assert forward_kernel.plan("K1", K, 0, 0, 0, None) == (
+            forward_kernel.Plan(W, False))
+    # K4 on tracks no longer than its window has no stash: still a block
+    assert forward_kernel.plan("K4", 243, 0, 0, 0, None) == (
+        forward_kernel.Plan(0, False))
+    assert forward_kernel.plan("K4", 729, 0, 0, 0, None, mapping="wide") == (
+        forward_kernel.Plan(W, False))
+    assert [forward_kernel.mapping_warps("K4", 64, m)
+            for m in ("warp", "block", "wide")] == [1, 0, W]
+    assert forward_kernel.mapping_warps("K5", 243, "wide") == W
+    with pytest.raises(ValueError, match="block mapping takes K <= 1024"):
+        forward_kernel.plan("K4", 2048, 0, 0, 0, None, mapping="block")
+    with pytest.raises(ValueError, match="wide mapping takes K <= 4096"):
+        forward_kernel.mapping_warps("K4", 8192, "wide")
+    with pytest.raises(ValueError, match="K1 has the mappings"):
+        forward_kernel.plan("K1", 243, 0, 0, 0, None, mapping="block")
+    with pytest.raises(ValueError, match="K6 has the mappings"):
+        forward_kernel.mapping_warps("K6", 64, "warp")
+    # a zero warp limit (the card tests' and chip_smoke's way to force
+    # the team mappings) moves K1 to the wide mapping and K4 to the block
+    saved = forward_kernel.WARP_MAX_K
+    try:
+        forward_kernel.WARP_MAX_K = 0
+        assert [forward_kernel.mapping_warps(k, 32)
+                for k in ("K1", "K4")] == [W, 0]
+    finally:
+        forward_kernel.WARP_MAX_K = saved
+    assert forward_kernel.MAX_SLOTS == {"K1": 4096, "K2": 1024, "K3": 1024,
+                                        "K4": 4096, "K5": 4096, "K6": 4096}
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
+def test_check_envelope_names_each_kernels_limit(kernel):
+    limit = forward_kernel.MAX_SLOTS[kernel]
+    forward_kernel.check_envelope(10, 2, 2, 10, 1, kernel=kernel)  # 1024
+    if limit == 4096:
+        forward_kernel.check_envelope(10, 2, 2, 12, 1, kernel=kernel)
+        forward_kernel.check_envelope(10, 2, 3, 7, 1, kernel=kernel)
+    # past the limit: the bucket, the kernel, its limit and the largest
+    # window that fits (3 states: 6 for 1024 slots, 7 for 4096)
+    with pytest.raises(NotImplementedError,
+                       match=(rf"bucket 2 .*K=S\*\*window=6561 > {limit} "
+                              rf"register slots \({kernel} maps at most "
+                              rf"{limit}.*window that fits is "
+                              rf"{6 if limit == 1024 else 7}")):
+        forward_kernel.check_envelope(10, 2, 3, 8, 1, what="bucket 2",
+                                      kernel=kernel)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_wide_walk_blocks_fit_every_register(D):
+    # K1 and K4 at every register of the envelope: at most 1024 threads,
+    # the publish areas and partials always fit a block's shared memory
+    # (so the block launches with its stash in global scratch), the stash
+    # in shared memory only where it fits, and global scratch within the
+    # budget
+    def occ_of(fixed, stash, threads):
+        def occ(warps, smem):
+            assert warps == forward_kernel.WIDE
+            block = fixed + (stash if smem else 0)
+            return min(2048 // threads, (228 * 1024) // (block + 1024))
+        return occ
+
+    for S, W in WIDE_REGISTERS:
+        K = S ** W
+        assert forward_kernel.mapping_warps("K4", K) == forward_kernel.WIDE
+        fixed, _, threads = _wide_walk_bytes(K, S, S, D, 0, W, False)
+        assert threads % 32 == 0 and 32 <= threads <= 1024
+        assert fixed <= SMEM
+        assert forward_kernel.plan("K1", K, fixed, 0, SMEM, None) == (
+            forward_kernel.Plan(forward_kernel.WIDE, False))
+        for T in (W + 1, 20, 60):
+            fixed, stash, threads = _wide_walk_bytes(K, S, S, D, T, W, True)
+            assert fixed <= SMEM
+            occ = occ_of(fixed, stash, threads)
+            pl = forward_kernel.plan("K4", K, fixed, stash, SMEM, occ)
+            assert pl.warps == forward_kernel.WIDE
+            assert not pl.stash_smem or fixed + stash <= SMEM
+            nblk, nbytes = forward_kernel.grid(1 << 17, pl, 132,
+                                               occ(pl.warps, pl.stash_smem),
+                                               stash)
+            assert 1 <= nblk <= 132 * (2048 // threads)
+            assert nbytes == (0 if pl.stash_smem else nblk * stash)
+            assert nbytes <= cuda_lib.SCRATCH_BUDGET
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_wide_hist_and_refine_blocks_fit_every_register(D):
+    # K5 at every sub-step count whose frames align and K6, at every
+    # register of the envelope: the fixed part fits (less K5's 132 static
+    # bytes), the rows / forms go to global scratch where they do not, and
+    # the scratch stays within the budget
+    for S, W in WIDE_REGISTERS:
+        K = S ** W
+        for n in (n for n in range(1, W) if (W - 1) % n == 0):
+            for T in (2, 8, 20, 60):
+                threads, fixed, carry = _wide_hist_bytes(K, S ** n, S, D, T)
+                assert threads % 32 == 0 and threads <= 1024
+                assert fixed <= SMEM - 132
+                if fixed + carry > SMEM - 132:
+                    nblk = cuda_lib.scratch_blocks(1 << 17, 132, threads,
+                                                   carry)
+                    assert nblk * carry <= cuda_lib.SCRATCH_BUDGET
+                    assert nblk <= 132 * (2048 // threads)
+        for T in (2, 5, 20, 60):
+            threads, fixed, carry = _wide_refine_bytes(K, S, D, T)
+            assert fixed <= SMEM
+            nblk = cuda_lib.scratch_blocks(1 << 17, 132, threads,
+                                           max(carry, 1))
+            assert nblk * carry <= cuda_lib.SCRATCH_BUDGET
+    # 3 states at len_hist's default window 7 (K = 2187): 729 groups, a
+    # track's rows at T = 20 466,560 bytes, in global scratch
+    threads, fixed, carry = _wide_hist_bytes(3 ** 7, 3, 3, D, 20)
+    assert (threads, carry) == (736, 466560) and fixed + carry > SMEM

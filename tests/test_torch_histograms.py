@@ -60,6 +60,8 @@ def _case(seed, S, B, T, n=1, per_peak=False, dtype=np.float64, dt=None):
     (2, 3, 1, 2, True, 1.0),     # T = 2: every track ends at t = 1
     (2, 6, 1, 4, False, 1.0),    # window wider than the tracks
     (2, 5, 2, 8, False, 1.0),    # two sub-steps per frame
+    (3, 7, 1, 8, False, 1.0),    # len_hist's default window at 3 states:
+    (3, 7, 1, 8, True, 1.0),     # K = 2187, K5's wide mapping on the card
 ])
 def test_window_histogram_matches_jax(S, W, n, T, per_peak, bl):
     xs, lengths, isbl, jt, tt = _case(S * 10 + W + T + n, S, 13, T, n=n,
@@ -354,6 +356,32 @@ def test_len_hist_with_dt_dict_and_substeps_matches_jax(sim, kind):
     np.testing.assert_allclose(
         frames, sum(v.shape[0] * v.shape[1] for v in tracks.values()
                     if v.shape[1] >= 2), rtol=1e-10)
+
+
+def test_len_hist_three_states_at_the_default_window_matches_jax():
+    """The README workflow's histogram at 3 states and JAX's default
+    window 7 (K = 2187, past the 1024 slots of a thread a slot: the card
+    runs K5's wide mapping), on the CPU against JAX's len_hist."""
+    tr = np.full((3, 3), 0.05) + np.eye(3) * 0.85
+    tracks, _, _ = jsim.sim_fov(
+        nb_tracks=16, max_track_len=9, min_track_len=3, LocErr=0.02,
+        Ds=(0.0, 0.02, 0.1), TrMat=tr, dt=0.02, pBL=0.1,
+        cell_dims=(0.5, None, None), seed=4)
+    values = {"LocErr": 0.02, "D0": 0.0, "D1": 0.02, "D2": 0.1,
+              "F0": 0.3, "F1": 0.3, "F2": 0.4, "pBL": 0.1,
+              **{f"p{i}{j}": 0.05 for i in range(3) for j in range(3)
+                 if i != j}}
+    want = jhist.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                          nb_states=3)
+    got = thist.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                         nb_states=3, device="cpu")
+    T = max(int(k) for k in tracks)
+    assert got.shape == want.shape == (T, 3)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-9)
+    frames = (got * np.arange(1, T + 1)[:, None]).sum()
+    np.testing.assert_allclose(
+        frames, sum(v.shape[0] * v.shape[1] for v in tracks.values()),
+        rtol=1e-10)
 
 
 def test_hist_batch_chunks_and_engines(sim):

@@ -51,6 +51,8 @@ def _case(seed, S, B, T, per_peak, bl):
     (3, 3, 7, False, 0.0),       # isBL off
     (2, 3, 2, True, 1.0),        # T = 2: every track closes at t = 1
     (2, 6, 4, False, 1.0),       # window wider than the tracks
+    (5, 5, 8, False, 1.0),       # predict_Bs' default at 5 states: K =
+                                 # 3125, K4's wide mapping on the card
 ])
 def test_engine_posteriors_match_jax(S, W, T, per_peak, bl):
     xs, lengths, isbl, jt, tt = _case(S * 10 + W + T, S, 11, T, per_peak, bl)
@@ -112,6 +114,31 @@ def test_predict_Bs_matches_jax(sim):
         np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-9,
                                    atol=1e-9)
         np.testing.assert_allclose(got[k].sum(-1), 1.0, atol=1e-9)
+
+
+def test_predict_Bs_five_states_at_the_default_frame_len_matches_jax():
+    """predict_Bs at 5 states and its default frame_len 5 (K = 3125: the
+    card runs K4's wide mapping), on the CPU against JAX's."""
+    S = 5
+    tr = np.full((S, S), 0.03) + np.eye(S) * (1 - 0.03 * S)
+    Ds = (0.0, 0.01, 0.03, 0.06, 0.1)
+    tracks, _, _ = jsim.sim_fov(
+        nb_tracks=16, max_track_len=8, min_track_len=2, LocErr=0.02, Ds=Ds,
+        TrMat=tr, dt=0.02, pBL=0.1, cell_dims=(0.5, None, None), seed=9)
+    values = {"LocErr": 0.02, "pBL": 0.1,
+              **{f"D{i}": d for i, d in enumerate(Ds)},
+              **{f"F{i}": 1 / S for i in range(S)},
+              **{f"p{i}{j}": 0.03 for i in range(S) for j in range(S)
+                 if i != j}}
+    want = jpredict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                               nb_states=S)
+    got = tpredict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                              nb_states=S, device="cpu")
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape == (len(tracks[k]), int(k), S)
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-9,
+                                   atol=1e-9)
 
 
 def test_predict_batch_chunks_and_parameters(sim):

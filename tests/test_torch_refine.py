@@ -55,6 +55,8 @@ def _case(seed, S, B, T, D=2, per_peak=False):
     (2, 3, 2, 2, False),         # T = 2: both ends, no interior
     (2, 6, 4, 1, False),         # window wider than the tracks, D = 1
     (3, 2, 6, 3, True),          # D = 3
+    (6, 4, 5, 1, False),         # the default window at 6 states on short
+                                 # 1-D tracks: K = 1296, K6's wide mapping
 ])
 def test_refine_positions_match_jax(S, W, T, D, per_peak):
     xs, lengths, tr, loc_err2, sig2 = _case(S * 10 + W + T, S, 11, T, D,
@@ -174,6 +176,27 @@ def test_position_refinement_default_window_matches_jax(tracks):
         all_tracks, 0.02, ds, [0.5, 0.5], tr, compute_engine="xla")
     mus, sigs = trefine.position_refinement(all_tracks, 0.02, ds, [0.5, 0.5],
                                             tr, device="cpu")
+    for k in all_tracks:
+        np.testing.assert_allclose(mus[k], mus_j[k], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(sigs[k], sigs_j[k], rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_position_refinement_six_states_1d_default_window_matches_jax():
+    """6 states on 1-D tracks of 3-5 frames: both packages take the
+    default window 4 (K = 1296: the card runs K6's wide mapping)."""
+    rng = np.random.default_rng(21)
+    all_tracks = {str(L): rng.normal(0, 0.05, (n, L, 1)).cumsum(1)
+                  for L, n in ((3, 6), (4, 5), (5, 5))}
+    S = 6
+    ds = np.linspace(0.01, 0.12, S)
+    tr = np.full((S, S), 0.02) + np.eye(S) * 0.88
+    Fs = np.full(S, 1 / S)
+    assert trefine.default_window(S, 5, 1) == 4
+    mus_j, sigs_j = jrefine.position_refinement(
+        all_tracks, 0.02, ds, Fs, tr, compute_engine="xla")
+    mus, sigs = trefine.position_refinement(all_tracks, 0.02, ds, Fs, tr,
+                                            device="cpu")
     for k in all_tracks:
         np.testing.assert_allclose(mus[k], mus_j[k], rtol=1e-9, atol=1e-12)
         np.testing.assert_allclose(sigs[k], sigs_j[k], rtol=1e-9,

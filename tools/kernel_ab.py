@@ -27,23 +27,22 @@ runs the two sides in the order (parent, change) when i is even and
 call weighs on both.  Each
 process prints the median of REPS timed passes (CUDA events, after two
 warm-up passes); the script prints one line per process, then each side's
-median over its rounds and the card's name and power limit.  ``--k1``
-times K1 alone (a check of a kernel whose source did not change, without
-the other kernels' heat in the same process) and then compares the SASS of
-K1's instantiation at the bench shape (D=2, K=64) in the two builds
-(``cuobjdump -sass``): ``forward_kernel<2>`` in a checkout that predates
-the warp mapping, ``walk_warp_kernel<2, 2, 2, false>`` after it (and
-``walk_warp_kernel<2, 2, 2, false, false>``, constant dt, once the walk
-has its variable-dt flag), so across the first change the two differ by
-construction.  ``--k4`` times K4 alone: at
-the bench shape, on the main path's tracks bare, and through
-``predict_Bs`` (host work included, so more passes).
+median over its rounds and the card's name and power limit.  Then it
+compares the two builds' SASS (``cuobjdump -sass``, instructions without
+addresses) function by function: every kernel instantiation both builds
+have is named identical or different, and those only the change has are
+listed (``--pairs 0``: the SASS alone, each side only built).  ``--k1``
+times K1 alone (a check of a kernel whose source did not
+change, without the other kernels' heat in the same process).  ``--k4``
+times K4 alone: at the bench shape, on the main path's tracks bare, and
+through ``predict_Bs`` (host work included, so more passes).
 """
 from __future__ import annotations
 
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -103,28 +102,6 @@ def k4_main_path(smoke, dev):
     return bare, entry
 
 
-def k5_runner(walk, smoke, bench, dev):
-    """Bare K5 launches at the bench shape (``tools/walk_profile.py``'s), in
-    the call form of the checkout under test: a K5 that predates its
-    sub-steps and stream takes the six (K,) tables and no sub-step count."""
-    import inspect
-
-    from extrack_tpu_torch.ops import forward_kernel, hist_kernel
-    if "n" in inspect.signature(hist_kernel.launch).parameters:
-        return walk.k5_runner(smoke, bench, dev)
-    tb = walk.bench_tables(dev, 2)
-    args = []
-    for b in bench:
-        d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
-                                               b.is_bleached, tb, 7, 1)
-        args.append((d, [t.detach() for t in tabs[:6]]))
-
-    def run():
-        for d, tabs in args:
-            hist_kernel.launch(d, tabs, 3, 2, 7)
-    return run
-
-
 def worker(root: str, only: str) -> None:
     """Time bare launches of every kernel of the package under ``root``
     (``only`` "--k1": K1 alone; "--k4": K4 alone, at the bench shape and
@@ -159,9 +136,13 @@ def worker(root: str, only: str) -> None:
         for d, tabs in args:
             forward_kernel.launch(d, tabs, 3)
 
+    lib = str(cuda_lib.library_path())
+    if only == "--lib":
+        print(json.dumps({"lib": lib}), flush=True)
+        return
     if only == "--k1":
         print(json.dumps({"K1": smoke.cuda_ms(k1, 2 * REPS, warmup=5),
-                          "lib": str(cuda_lib.library_path())}), flush=True)
+                          "lib": lib}), flush=True)
         return
     walk = load_module("walk", HERE / "tools" / "walk_profile.py")
     if only == "--k4":
@@ -170,7 +151,8 @@ def worker(root: str, only: str) -> None:
             "K4": smoke.cuda_ms(walk.k4_runner(smoke, bench, dev, 2, 5),
                                 2 * REPS, warmup=5),
             "K4 main path": smoke.cuda_ms(bare, 2 * REPS, warmup=5),
-            "predict_Bs": smoke.cuda_ms(entry, REPS, warmup=3)}), flush=True)
+            "predict_Bs": smoke.cuda_ms(entry, REPS, warmup=3),
+            "lib": lib}), flush=True)
         return
 
     def k2():
@@ -211,7 +193,7 @@ def worker(root: str, only: str) -> None:
     bare, entry = k4_main_path(smoke, dev)
     out["K4 main path"] = smoke.cuda_ms(bare, REPS, warmup=2)
     out["predict_Bs"] = smoke.cuda_ms(entry, REPS_K7, warmup=1)
-    out["K5"] = smoke.cuda_ms(k5_runner(walk, smoke, bench, dev), REPS,
+    out["K5"] = smoke.cuda_ms(walk.k5_runner(smoke, bench, dev), REPS,
                               warmup=2)
     out["K6"] = smoke.cuda_ms(walk.k6_runner(smoke, bench, dev, 2, 7), REPS_K6,
                               warmup=1)
@@ -228,6 +210,7 @@ def worker(root: str, only: str) -> None:
                                        REPS_K7)
         out["K7+decode T=30"] = smoke.cuda_ms(
             smoke.topk_wrapped(bench30, tb, 128), REPS_K7)
+    out["lib"] = lib
     print(json.dumps(out), flush=True)
 
 
@@ -262,19 +245,34 @@ def main() -> int:
             print(f"round {i} {side}: " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in t.items()), flush=True)
     for side, ts in times.items():
-        for k in ts[0]:
+        for k in (ts[0] if ts else ()):
             xs = sorted(t[k] for t in ts)
             print(f"{side} {k}: median {xs[len(xs) // 2]:.4f} ms, range "
                   f"{xs[0]:.4f}-{xs[-1]:.4f} ms over {len(xs)} processes")
-    for k in times["change"][0]:
+    for k in (times["change"][0] if a.pairs else ()):
         lower = sum(c[k] < p[k] for p, c in zip(times["parent"],
                                                 times["change"]))
         print(f"{k}: change lower in {lower} of {a.pairs} pairs")
-    if a.k1:
-        sass = {side: forward_sass(lib) for side, lib in libs.items()}
-        print(f"K1 (D=2, K=64) SASS: {len(sass['parent'])} and "
-              f"{len(sass['change'])} instructions, identical: "
-              f"{sass['parent'] == sass['change']}")
+    for side, root in sides.items():
+        if side not in libs:            # --pairs 0: build for the SASS only
+            out = subprocess.run(
+                [sys.executable, __file__, "--worker", root, "--lib"],
+                capture_output=True, text=True)
+            if out.returncode != 0:
+                print(out.stdout + out.stderr, file=sys.stderr)
+                return 1
+            libs[side] = json.loads(out.stdout.strip().splitlines()[-1])[
+                "lib"]
+    same, differ, new, gone = compare_sass(libs["parent"], libs["change"])
+    print(f"SASS: {len(same)} kernel functions of both builds identical, "
+          f"{len(differ)} differ, {len(new)} only in the change, "
+          f"{len(gone)} only in the parent")
+    for name in differ:
+        print(f"  differs: {name}")
+    for name in new:
+        print(f"  new: {name}")
+    for name in gone:
+        print(f"  gone: {name}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -282,27 +280,45 @@ def main() -> int:
     return 0
 
 
-# K1's instantiation at the bench shape: the block-per-track kernel, or the
-# warp mapping's (D=2, two slots a lane, A=2, no posteriors; constant dt
-# where the walk also has a variable-dt flag)
-K1_BENCH = ("_ZN7extrack14forward_kernelILi2E",
-            "_ZN7extrack16walk_warp_kernelILi2ELi2ELi2ELb0EE",
-            "_ZN7extrack16walk_warp_kernelILi2ELi2ELi2ELb0ELb0EE")
-
-
-def forward_sass(lib: str) -> list:
-    """The instructions of K1's bench-shape instantiation in a built
-    library, without addresses and encodings."""
+def kernel_sass(lib: str) -> dict:
+    """Every kernel function of a built library: its mangled name and its
+    instructions, without addresses, encodings and padding (``cuobjdump
+    -sass``); a call's target, an address that moves with the other
+    functions of the library, reads "<callee>"."""
     sys.path.insert(0, str(HERE))
     from extrack_tpu_torch.ops import cuda_lib
     tool = Path(cuda_lib.find_nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    body = next((b for b in text.split("Function : ")
-                 if b.startswith(K1_BENCH)), "")
-    return [line.split("*/")[1].strip() for line in body.splitlines()
+    out = {}
+    for body in text.split("Function : ")[1:]:
+        name, _, rest = body.partition("\n")
+        out[name.strip()] = [
+            re.sub(r"(CALL\.\S*) \S+", r"\1 <callee>",
+                   " ".join(line.split("*/")[1].split(";")[0].split()))
+            for line in rest.splitlines()
             if line.strip().startswith("/*") and "*/" in line
-            and line.split("*/")[1].strip()]
+            and line.split("*/")[1].split(";")[0].strip()]
+    return out
+
+
+def compare_sass(parent_lib: str, change_lib: str):
+    """(names identical in both builds, names that differ, names only in
+    the change, names only in the parent), each sorted: every
+    instantiation both builds have is held to its instructions."""
+    a, b = kernel_sass(parent_lib), kernel_sass(change_lib)
+    common = sorted(set(a) & set(b))
+    differ = []
+    for n in common:
+        if a[n] != b[n]:
+            first = next((i for i, (x, y) in enumerate(zip(a[n], b[n]))
+                          if x != y), min(len(a[n]), len(b[n])))
+            at = slice(first, first + 1)
+            differ.append(f"{n} ({len(a[n])} / {len(b[n])} instructions; "
+                          f"first difference at {first}: {a[n][at]} / "
+                          f"{b[n][at]})")
+    return ([n for n in common if a[n] == b[n]], differ,
+            sorted(set(b) - set(a)), sorted(set(a) - set(b)))
 
 
 if __name__ == "__main__":

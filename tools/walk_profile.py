@@ -4,11 +4,12 @@
 ``chip_smoke.py``'s bench shape: 2^20 tracks of lengths 3..10 in four
 length buckets, D=2, f32.  K1 runs a register of W=6 frames (K=64), K4
 W=5 (K=32), K5 and K6 W=7 (K=128), each as ``chip_smoke.py`` times it;
-``--states``/``--window`` change K1's, K4's and K6's register (e.g. 3
-states at W=5), ``--lengths LO:HI`` the track lengths (e.g. 15:20, the
-main path's longest bucket); ``--dt`` gives K5 per-track dt (the
-streamed table, as ``chip_smoke.py`` phase 10) and ``--substeps N`` N
-sub-steps a frame.
+``--states``/``--window`` change the register (e.g. 3 states at W=5),
+``--mapping block|wide`` forces K4's, K5's or K6's mapping (a thread a
+slot or a thread a fusion group; K1 has only the wide one), ``--lengths
+LO:HI`` the track lengths (e.g. 15:20, the main path's longest bucket);
+``--dt`` gives K5 per-track dt (the streamed table, as ``chip_smoke.py``
+phase 10) and ``--substeps N`` N sub-steps a frame.
 
     python3 tools/walk_profile.py [--kernel k1|k4|k5|k6|both]
     python3 tools/walk_profile.py --split [--kernel ...]
@@ -64,7 +65,13 @@ def bench_tables(dev, S: int, dt=0.02, n: int = 1):
         dt, cell_dims=(0.5,), nb_substeps=n)
 
 
-def k1_runner(smoke, bench, dev, S: int, W: int):
+def mapping_kw(mapping):
+    """The launch keyword that forces a mapping, where one is given (a
+    checkout that predates the keyword takes none)."""
+    return {} if mapping is None else {"mapping": mapping}
+
+
+def k1_runner(smoke, bench, dev, S: int, W: int, mapping=None):
     """Bare K1 launches over the bench buckets (``chip_smoke.py`` phase 4
     at S=2, W=6)."""
     from extrack_tpu_torch.ops import forward_kernel
@@ -77,11 +84,11 @@ def k1_runner(smoke, bench, dev, S: int, W: int):
 
     def run():
         for d, tabs in args:
-            forward_kernel.launch(d, tabs, 3)
+            forward_kernel.launch(d, tabs, 3, **mapping_kw(mapping))
     return run
 
 
-def k4_runner(smoke, bench, dev, S: int, W: int):
+def k4_runner(smoke, bench, dev, S: int, W: int, mapping=None):
     """Bare K4 launches over the bench buckets (``chip_smoke.py`` phase 6
     at S=2, W=5)."""
     from extrack_tpu_torch.ops import forward_kernel, predict_kernel
@@ -94,29 +101,30 @@ def k4_runner(smoke, bench, dev, S: int, W: int):
 
     def run():
         for d, tabs in args:
-            predict_kernel.launch(d, tabs, 3, S, W)
+            predict_kernel.launch(d, tabs, 3, S, W, **mapping_kw(mapping))
     return run
 
 
-def k5_runner(smoke, bench, dev, n: int = 1):
-    """Bare K5 launches over the bench buckets (W=7 sub-steps, 2 states,
-    n a frame; with the buckets' per-track dt where they have one), as
-    ``chip_smoke.py`` phases 7 and 10 time them."""
+def k5_runner(smoke, bench, dev, n: int = 1, S: int = 2, W: int = 7,
+              mapping=None):
+    """Bare K5 launches over the bench buckets (W sub-steps, S states, n
+    a frame; with the buckets' per-track dt where they have one), as
+    ``chip_smoke.py`` phases 7 and 10 time them at S=2, W=7."""
     from extrack_tpu_torch.ops import forward_kernel, hist_kernel
     args = []
     for b in bench:
-        tb = bench_tables(dev, 2, 0.02 if b.dt is None else b.dt, n)
+        tb = bench_tables(dev, S, 0.02 if b.dt is None else b.dt, n)
         d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
-                                               b.is_bleached, tb, 7, n)
+                                               b.is_bleached, tb, W, n)
         args.append((d, [t.detach() for t in tabs]))
 
     def run():
         for d, tabs in args:
-            hist_kernel.launch(d, tabs, 3, 2, 7, n)
+            hist_kernel.launch(d, tabs, 3, S, W, n, **mapping_kw(mapping))
     return run
 
 
-def k6_runner(smoke, bench, dev, S: int, W: int):
+def k6_runner(smoke, bench, dev, S: int, W: int, mapping=None):
     """Bare K6 launches over the bench buckets, as ``chip_smoke.py`` phase 8
     times them (S states, window W)."""
     from extrack_tpu_torch.core import tables
@@ -135,7 +143,8 @@ def k6_runner(smoke, bench, dev, S: int, W: int):
 
     def run():
         for pos, lens, l2_ in args:
-            refine_kernel.launch(pos, lens, l2_, tabs, S)
+            refine_kernel.launch(pos, lens, l2_, tabs, S,
+                                 **mapping_kw(mapping))
     return run
 
 
@@ -146,13 +155,16 @@ def main() -> int:
                     default="both")
     ap.add_argument("--states", type=int, default=2)
     ap.add_argument("--window", type=int, default=0,
-                    help="K1 6, K4 5, K6 7 unless given")
+                    help="K1 6, K4 5, K5 and K6 7 unless given")
     ap.add_argument("--lengths", default="3:10")
     ap.add_argument("--dt", action="store_true",
                     help="K5: per-track dt uniform in chip_smoke.BENCH_DT "
                          "(the streamed table)")
     ap.add_argument("--substeps", type=int, default=1,
                     help="K5: sub-steps a frame (W=7 sub-steps)")
+    ap.add_argument("--mapping", choices=("block", "wide"),
+                    help="force a block a track with a thread a slot or "
+                         "a thread a fusion group (K4, K5, K6; K1 wide)")
     a = ap.parse_args()
     lo, hi = (int(v) for v in a.lengths.split(":"))
     from extrack_tpu_torch.ops import cuda_lib
@@ -171,19 +183,24 @@ def main() -> int:
     if a.kernel == "k1":
         W = a.window or 6
         runs.append(("forward", f"K1 S={a.states} W={W} lengths {lo}..{hi}",
-                     k1_runner(smoke, bench, dev, a.states, W)))
+                     k1_runner(smoke, bench, dev, a.states, W,
+                               a.mapping)))
     if a.kernel == "k4":
         W = a.window or 5
         runs.append(("predict", f"K4 S={a.states} W={W} lengths {lo}..{hi}",
-                     k4_runner(smoke, bench, dev, a.states, W)))
+                     k4_runner(smoke, bench, dev, a.states, W,
+                               a.mapping)))
     if a.kernel in ("k5", "both"):
-        runs.append(("hist", f"K5 S=2 W=7 n={a.substeps}"
+        W = a.window or 7
+        runs.append(("hist", f"K5 S={a.states} W={W} n={a.substeps}"
                      + (" per-track dt" if a.dt else ""),
-                     k5_runner(smoke, bench, dev, a.substeps)))
+                     k5_runner(smoke, bench, dev, a.substeps, a.states, W,
+                               a.mapping)))
     if a.kernel in ("k6", "both"):
         W = a.window or 7
         runs.append(("refine", f"K6 S={a.states} W={W}",
-                     k6_runner(smoke, bench, dev, a.states, W)))
+                     k6_runner(smoke, bench, dev, a.states, W,
+                               a.mapping)))
     for name, what, run in runs:
         if a.split:
             run()
