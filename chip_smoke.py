@@ -138,7 +138,17 @@ Phases (each prints its lines; a failed check exits non-zero):
    default window 4 (K6, K = 1296), each with its launches, 0 plain calls,
    its wall time and its buckets' first tracks against the plain version;
    then each wide kernel's bare time on 2^16 random walks of lengths
-   3..10 (K6 on 2^14), beside its bound and its plain version's time.
+   3..10 (K6 on 2^14), beside its bound and its plain version's time;
+12. past 4096 register slots (K4 and K5 on the wide mapping, the carries
+   in global scratch where a block's shared memory cannot hold them), at
+   the JAX package's defaults on 2^12-2^13 ``sim_fov`` tracks each:
+   ``len_hist`` at 4 states (K = 16384) and at two sub-steps a frame
+   (K = 8192), ``predict_Bs`` at 6 states (K = 7776), each with its
+   launches, 0 plain calls, its wall time and each whole bucket against
+   its plain version; at 3 states ``tracking.Proba_Cs`` (K1) and
+   ``refine.get_best_estimates`` (K4 at K = 6561); then the three
+   kernels' bare times on 2^12-2^13 random walks beside their bounds and
+   plain versions (one unwarmed pass of the plain version).
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -288,6 +298,22 @@ WIDE_TIMES = [("K1 wide", 3, 7, 2), ("K4 wide", 5, 5, 2),
 WIDE_TRACKS = 1 << 16
 WIDE_K6_TRACKS = 1 << 14
 WIDE_PLAIN_CHUNK = 1 << 12    # the plain versions carry K*(T or (1+S)T)
+# phase 12: past 4096 slots at the JAX package's defaults, 2^12-2^13
+# tracks each: len_hist at 4 states (K = 4^7) and at two sub-steps a frame
+# (2 states, K = 2^13), predict_Bs at 6 states (K = 6^5) on 2-D tracks,
+# and phase 11's 3-state model for Proba_Cs and get_best_estimates
+TR4 = np.full((4, 4), 0.04) + np.eye(4) * 0.84
+SIM4 = dict(SIM, nb_tracks=4096, Ds=(0.0, 0.01, 0.04, 0.1), TrMat=TR4,
+            seed=8)
+SIM2N = dict(SIM, nb_tracks=4096, seed=9)
+SIM6P = dict(SIM, nb_tracks=4096, Ds=SIM6["Ds"], TrMat=TR6, seed=10)
+SIM3B = dict(SIM3, nb_tracks=8192, seed=11)
+PAST_PLAIN_CHUNK = 512        # the plain versions past 4096 slots
+BEST_CHECK = 64               # get_best_estimates' tracks run on the CPU
+# (kernel, S, W, nb_substeps, tracks): bare times at phase 12's registers
+PAST_TIMES = [("K4 past 4096", 6, 5, 1, 1 << 13),
+              ("K5 past 4096", 4, 7, 1, 1 << 12),
+              ("K5 n=2 past 4096", 2, 13, 2, 1 << 12)]
 BENCH_DT = (0.01, 0.03)       # phase 10's per-track intervals at the bench
 FIT_ITERS = 200
 BENCH_TRACKS = 1 << 20
@@ -738,6 +764,13 @@ def refine_case(S, W, D, B, T, per_peak, seed, dev):
             torch.tensor((0.08 * (1 + np.arange(S))) ** 2, **f32))
 
 
+def on_card(refined, dev):
+    """``refine.refine_batch``'s numpy (mu, sigma, B) as (mu, sigma)
+    tensors on ``dev``, for the checks against the plain version."""
+    mu, sig, _ = refined
+    return torch.as_tensor(mu, device=dev), torch.as_tensor(sig, device=dev)
+
+
 def check_refine(tag, mu, sig, mu0, sig0, pos, lens, l2) -> float:
     """K6's (mu, sigma) against the plain version's at TOL_K6_MU /
     TOL_K6_SIGMA; padded frames exact zeros, 1-frame rows the observation
@@ -1048,6 +1081,15 @@ def main() -> int:
                          "extrack_tpu/ops/pallas_hist.py:63"),
         "K6 wide": entry("refinement_wide", "refine.cu",
                          "extrack_tpu/ops/pallas_refine.py:108"),
+        # past 4096 slots: the wide mapping with its carries in global
+        # scratch where shared memory cannot hold them
+        "K4 past 4096": entry("posteriors_past_4096", "predict.cu",
+                              "extrack_tpu/ops/pallas_predict.py:65"),
+        "K5 past 4096": entry("duration_hist_past_4096", "hist.cu",
+                              "extrack_tpu/ops/pallas_hist.py:63"),
+        "K5 n=2 past 4096": entry("duration_hist_substeps_past_4096",
+                                  "hist.cu",
+                                  "extrack_tpu/ops/pallas_hist.py:63"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1075,6 +1117,7 @@ def main() -> int:
     entry_name = ""
     k5_new = {}     # spill bytes of K5's variable-dt and sub-step kernels
     wide_regs = {}  # registers and spill bytes of the wide instantiations
+    global_regs = {}  # the same of the wide ones with carries in scratch
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
@@ -1090,14 +1133,17 @@ def main() -> int:
             k5_new[key] = int(spilled.group(1)) + int(spilled.group(2))
         wide = re.match(r"_ZN7extrack1[68](walk|hist|refine)_wide_kernel",
                         entry_name)
+        scratch = re.match(r"_ZN7extrack23(walk|hist)_wide_global_kernel",
+                           entry_name)
         regs = re.search(r"Used (\d+) registers", line)
-        if wide and (spilled or regs):
-            key = entry_name[:60]
-            wide_regs.setdefault(key, [0, 0])
-            if regs:
-                wide_regs[key][0] = int(regs.group(1))
-            if spilled:
-                wide_regs[key][1] = (int(spilled.group(1))
+        for found, table in ((wide, wide_regs), (scratch, global_regs)):
+            if found and (spilled or regs):
+                key = entry_name[:60]
+                table.setdefault(key, [0, 0])
+                if regs:
+                    table[key][0] = int(regs.group(1))
+                if spilled:
+                    table[key][1] = (int(spilled.group(1))
                                      + int(spilled.group(2)))
         block = re.match(r"_ZN7extrack(?:1[13](?:hist|refine)_kernel|17walk_"
                          r"block_kernel)ILi\dELi(\d+)E", entry_name)
@@ -1123,6 +1169,15 @@ def main() -> int:
         fail(f"{len(wide_regs)} wide instantiations, not 21 (K1 and K4: D "
              "1..3 x constant and variable dt; K5: D 1..3 x constant and "
              "variable dt; K6: D 1..3)")
+    log("phase 0: K4's and K5's wide instantiations with their carries in "
+        "global scratch (1024 threads, K <= 16384; registers, spill bytes "
+        "stores + loads): " + ", ".join(
+            f"{k} {r} regs {b} B"
+            for k, (r, b) in sorted(global_regs.items())))
+    if len(global_regs) != 12:
+        fail(f"{len(global_regs)} wide instantiations with carries in global "
+             "scratch, not 12 (K4 and K5: D 1..3 x constant and variable "
+             "dt)")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -1734,7 +1789,7 @@ def main() -> int:
     lt8 = tables.cap_log(torch.tensor(tr8, **f32))
     sig2_8 = torch.tensor(ds8, **f32) ** 2
     for b in pbuckets:
-        mu, sig = refine.refine_batch(b, loc8, ds8, tr8)
+        mu, sig = on_card(refine.refine_batch(b, loc8, ds8, tr8), dev)
         got_mu, got_sig = data.to_dict(b, mu), data.to_dict(b, sig[..., 0])
         same = all(np.array_equal(got_mu[k], mus[k])
                    and np.array_equal(got_sig[k], sigmas[k]) for k in got_mu)
@@ -1852,7 +1907,8 @@ def main() -> int:
     # each bucket: the entry point's output is refine_batch's bit for bit,
     # and that output holds to the plain version on the first tracks
     for b in buckets3r:
-        mu, sig = refine.refine_batch(b, 0.02, ds3, tr3r, frame_len=W3)
+        mu, sig = on_card(refine.refine_batch(b, 0.02, ds3, tr3r,
+                                              frame_len=W3), dev)
         got_mu, got_sig = data.to_dict(b, mu), data.to_dict(b, sig[..., 0])
         same = all(np.array_equal(got_mu[k], mus3[k])
                    and np.array_equal(got_sig[k], sigmas3[k])
@@ -2086,6 +2142,7 @@ def main() -> int:
     phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3, ms4,
             ms5)
     phase11(dev, card, kinfo, errs, reset_counts, plain_calls)
+    phase12(dev, card, kinfo, errs, reset_counts, plain_calls)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
@@ -2724,7 +2781,7 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
     sig2_6 = torch.tensor(ds6, **f32) ** 2
     l2_6 = torch.full((1, 1, 1), 0.02 ** 2, **f32)
     for b in buckets:
-        mu, sig = refine.refine_batch(b, 0.02, ds6, TR6)
+        mu, sig = on_card(refine.refine_batch(b, 0.02, ds6, TR6), dev)
         got_mu = data.to_dict(b, mu)
         if not all(np.array_equal(got_mu[k], mus[k]) for k in got_mu):
             fail(f"6-state position_refinement differs from K6 on bucket "
@@ -2825,6 +2882,275 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
             f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
         del bench
     log(f"phase 11: {time.time() - t11:.1f} s")
+
+
+def phase12(dev, card, kinfo, errs, reset_counts, plain_calls):
+    """Past 4096 slots: K4 and K5 at the JAX package's defaults where the
+    register passes 4096 slots (``len_hist`` at 4 states, window 7, K =
+    16384; at two sub-steps a frame, window 7 = 13 sub-steps, K = 8192;
+    ``predict_Bs`` at 6 states, frame_len 5, K = 7776), each with its
+    launches, 0 plain calls, its wall time and each whole bucket against
+    its plain version; ``tracking.Proba_Cs`` (K1) and
+    ``refine.get_best_estimates`` (K4 at K = 3^8 = 6561) at 3 states; then
+    the three kernels' bare times beside their bounds and plain
+    versions."""
+    from extrack_tpu_torch import (data, histograms, params, predict,
+                                   refine, simulate, tracking)
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import (forward_kernel, hist_kernel,
+                                       predict_kernel)
+    t12 = time.time()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def values_of(S, Ds, p):
+        return {"LocErr": 0.02, "pBL": 0.1,
+                **{f"D{i}": d for i, d in enumerate(Ds)},
+                **{f"F{i}": 1 / S for i in range(S)},
+                **{f"p{i}{j}": p for i in range(S) for j in range(S)
+                   if i != j}}
+
+    def chunked(fn, b, n=PAST_PLAIN_CHUNK):
+        """``fn`` over a bucket's tracks in chunks of ``n`` (the plain
+        versions carry K floats per track and frame, and more)."""
+        with torch.no_grad():
+            return [fn(*(x[i:i + n] for x in (b.positions, b.lengths,
+                                               b.is_bleached)))
+                    for i in range(0, b.batch_size, n)]
+
+    # ---- len_hist past 4096 slots: 4 states (K = 4^7) and two sub-steps
+    # a frame (K = 2^13), at the default window 7 ----
+    for name, sim, S, n in (("K5 past 4096", SIM4, 4, 1),
+                            ("K5 n=2 past 4096", SIM2N, 2, 2)):
+        tracks, _, _ = simulate.sim_fov(**sim)
+        n_tr = sum(len(v) for v in tracks.values())
+        values = values_of(S, sim["Ds"], 0.04 if S == 4 else 0.1)
+        buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                          dtype=torch.float32)
+        W = n * 6 + 1
+        K = S ** W
+        reset_counts()
+        t0 = time.time()
+        hist = histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                                   nb_states=S, nb_substeps=n)
+        t_h = time.time() - t0
+        k5, plain = hist_kernel.LAUNCHES, plain_calls()
+        log(f"phase 12: len_hist(nb_states={S}, nb_substeps={n}) on {n_tr} "
+            f"tracks, window 7 ({W} sub-steps, K={K}) {t_h:.2f} s; K5 "
+            f"launches {k5}, plain calls {plain} [{card}]")
+        if k5 != len(buckets) or plain != 0:
+            fail(f"len_hist past 4096 slots (S={S}, n={n}): K5 launches "
+                 f"{k5}, plain calls {plain}")
+        kinfo[name]["launches"] = k5
+        Ds, Fs, rates, loc, pBL = params.extract_arrays(values, S, **f32)
+        tb = tables.build_tables(Ds, loc, Fs, rates, pBL, 0.02,
+                                 cell_dims=(0.5,), nb_substeps=n)
+        min_len = data.default_min_len(
+            np.concatenate([data.host_lengths(b) for b in buckets]))
+        kw = dict(window=W, min_len=min_len, nb_substeps=n)
+        summed = np.zeros_like(hist)
+        for b in buckets:
+            h = hist_kernel.hist(b.positions, b.lengths, b.is_bleached, tb,
+                                 **kw)
+            h0 = sum(chunked(lambda p, l_, i: hist_kernel.hist_plain(
+                p, l_, i, tb, **kw), b))
+            L = data.host_lengths(b)
+            errs[name].append(check_hist(
+                f"phase 12: {name}, bucket T={b.max_len} B={b.batch_size}",
+                h, h0, float(L[L >= 2].sum()), kernel=name))
+            summed[:b.max_len] += h.double().cpu().numpy()
+        frames = sum(int(k) * len(v) for k, v in tracks.items())
+        if not np.array_equal(summed, hist) or abs(
+                float((hist * np.arange(1, hist.shape[0] + 1)[:, None]
+                       ).sum()) - frames) > TOL_FRAMES * frames:
+            fail(f"len_hist (S={S}, n={n}) differs from its buckets or "
+                 "loses frames")
+        del tracks, buckets
+
+    # ---- predict_Bs at 6 states and its default frame_len 5 (K = 6^5) --
+    tracks, states, _ = simulate.sim_fov(**SIM6P)
+    n_tr = sum(len(v) for v in tracks.values())
+    values = values_of(6, SIM6P["Ds"], 0.02)
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    min_len = data.default_min_len(
+        np.concatenate([data.host_lengths(b) for b in buckets]))
+    reset_counts()
+    t0 = time.time()
+    out = predict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                             nb_states=6)
+    torch.cuda.synchronize()
+    t_pred = time.time() - t0
+    k4, plain = predict_kernel.LAUNCHES, plain_calls()
+    hits = sum(int((out[k].argmax(-1) == states[k]).sum()) for k in out)
+    total = sum(states[k].size for k in out)
+    log(f"phase 12: 6 states, predict_Bs on {n_tr} tracks (frame_len 5, "
+        f"K=7776) {t_pred:.2f} s; K4 launches {k4}, plain calls {plain}; "
+        f"most probable state the simulated one in {hits}/{total} frames "
+        f"[{card}]")
+    if k4 != len(buckets) or plain != 0:
+        fail(f"6-state predict_Bs: K4 launches {k4}, plain calls {plain}")
+    kinfo["K4 past 4096"]["launches"] = k4
+    Ds, Fs, rates, loc, pBL = params.extract_arrays(values, 6, **f32)
+    tb6 = tables.build_tables(Ds, loc, Fs, rates, pBL, 0.02,
+                              cell_dims=(0.5,))
+    for b in buckets:
+        logl, p = predict_kernel.predict(b.positions, b.lengths,
+                                         b.is_bleached, tb6, window=5,
+                                         min_len=min_len)
+        parts = chunked(lambda x, l_, i: predict_kernel.predict_plain(
+            x, l_, i, tb6, window=5, min_len=min_len), b)
+        logl0 = torch.cat([q[0] for q in parts])
+        p0 = torch.cat([q[1] for q in parts])
+        e = max(float((logl - logl0).abs().max()),
+                float((p - p0).abs().max()))
+        ok = (torch.allclose(logl, logl0, **TOL_K4_LOGL)
+              and torch.allclose(p, p0, **TOL_K4_PREDS))
+        got = data.to_dict(b, p)
+        same = all(np.array_equal(got[k], out[k]) for k in got)
+        log(f"phase 12: K4 past 4096, 6 states, W=5, bucket T={b.max_len} "
+            f"B={b.batch_size}: logL and preds max_abs_err {e:.3e}; "
+            f"predict_Bs gives the bucket's K4 result: {same} "
+            f"{'ok' if ok and same else 'FAIL'}")
+        if not (ok and same):
+            fail(f"K4 past 4096 slots disagrees with predict_plain or with "
+                 f"predict_Bs on bucket T={b.max_len}")
+        errs["K4 past 4096"].append(e)
+    del tracks, buckets, out
+
+    # ---- 3 states: Proba_Cs (K1) and get_best_estimates (K4, K = 3^8) on
+    # the simulated tracks of T_b frames ----
+    tracks, _, _ = simulate.sim_fov(**SIM3B)
+    # the most populated length past the window of 8 frames
+    T_b = max((int(k) for k in tracks if int(k) > 8),
+              key=lambda k: len(tracks[str(k)]))
+    Cs = tracks[str(T_b)]
+    ds3 = np.sqrt(2.0 * np.array(SIM3B["Ds"]) * 0.02)
+    Fs3 = np.full(3, 1 / 3)
+    reset_counts()
+    t0 = time.time()
+    logl = tracking.Proba_Cs(Cs, 0.02, ds3, Fs3, TR3, 0.1, 0, (0.5,))
+    torch.cuda.synchronize()
+    t_p = time.time() - t0
+    k1, plain = forward_kernel.LAUNCHES, plain_calls()
+    logl0 = tracking.Proba_Cs(Cs, 0.02, ds3, Fs3, TR3, 0.1, 0, (0.5,),
+                              device="cpu")
+    e = float((logl.double().cpu() - logl0).abs().max())
+    ok = (k1 == 1 and plain == 0 and torch.allclose(
+        logl.double().cpu(), logl0, **TOL_K1))
+    log(f"phase 12: Proba_Cs on {len(Cs)} 3-state tracks of {T_b} "
+        f"frames (frame_len 6, K=729: K1) {t_p:.3f} s; K1 launches {k1}, "
+        f"plain calls {plain}; against the plain engine in float64 "
+        f"max_abs_err {e:.3e} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail("Proba_Cs: K1 did not run once or disagrees with the plain "
+             "engine")
+    errs["K1 wide"].append(e)
+    reset_counts()
+    t0 = time.time()
+    mus, sigs = refine.get_best_estimates(Cs, 0.02, ds3, Fs3, TR3)
+    t_b = time.time() - t0
+    k4, plain = predict_kernel.LAUNCHES, plain_calls()
+    log(f"phase 12: get_best_estimates on {len(Cs)} 3-state tracks of "
+        f"{T_b} frames (window 8, K=6561: K4) {t_b:.3f} s; K4 launches "
+        f"{k4}, plain calls {plain} [{card}]")
+    if k4 != 1 or plain != 0:
+        fail(f"get_best_estimates: K4 launches {k4}, plain calls {plain}")
+    tb3 = refine.matrix_tables(0.02, ds3, Fs3, TR3, dev, torch.float32)
+    pos = torch.as_tensor(Cs, **f32)
+    lens = torch.full((len(Cs),), T_b, dtype=torch.int32, device=dev)
+    isbl = torch.zeros(len(Cs), **f32)
+    b3 = data.TrackBatch(pos, lens, is_bleached=isbl)
+    _, p = predict_kernel.predict(pos, lens, isbl, tb3, window=8, min_len=2)
+    p0 = torch.cat([q[1] for q in chunked(
+        lambda x, l_, i: predict_kernel.predict_plain(
+            x, l_, i, tb3, window=8, min_len=2), b3)])
+    e = float((p - p0).abs().max())
+    mu_k, sig_k = refine.refine_positions_fixed_states(
+        pos, lens, tb3.loc_err2, torch.as_tensor(ds3 ** 2, **f32),
+        p.argmax(-1))
+    mus64, _ = refine.get_best_estimates(Cs[:BEST_CHECK], 0.02, ds3, Fs3,
+                                         TR3, device="cpu")
+    near = float(np.mean(np.isclose(mus[:BEST_CHECK], mus64, **TOL_K6_MU)))
+    ok = (torch.allclose(p, p0, **TOL_K4_PREDS)
+          and np.array_equal(mus, mu_k.cpu().numpy())
+          and np.array_equal(sigs, sig_k.cpu().numpy()) and near >= 0.99)
+    log(f"phase 12: get_best_estimates' K4 posteriors against the plain "
+        f"version max_abs_err {e:.3e}; its positions are the fixed-state "
+        f"refinement's at the K4 argmax states; within mu's tolerance of "
+        f"the float64 plain run (first {BEST_CHECK} tracks, on the CPU) at "
+        f"{near:.4%} of the positions "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("get_best_estimates disagrees with its parts on the card")
+    errs["K4 past 4096"].append(e)
+    del tracks
+    log(f"phase 12: paths {time.time() - t12:.1f} s")
+
+    # ---- bare times at the paths' registers ----------------------------
+    for name, S, W, n, ntr in PAST_TIMES:
+        bench = bench_buckets(dev, n=ntr)
+        blens = np.concatenate([data.host_lengths(b) for b in bench])
+        K, A = S ** W, S ** n
+        info = kinfo[name]
+        rows = sum(b.positions.numel() for b in bench) * 4
+        rates = torch.full((S, S), 0.1, **f32)
+        rates.fill_diagonal_(0.0)
+        tb = tables.build_tables(
+            torch.linspace(0.0, 0.08, S, **f32), torch.tensor(0.02, **f32),
+            torch.full((S,), 1.0 / S, **f32), rates, torch.tensor(0.1, **f32),
+            0.02, cell_dims=(0.5,), nb_substeps=n)
+        args = []
+        for b in bench:
+            d, t = forward_kernel.kernel_inputs(
+                b.positions, b.lengths, b.is_bleached, tb, W, n)
+            args.append((b, d, [x.detach() for x in t]))
+        if name.startswith("K4"):
+            def bare():
+                for _, d, t in args:
+                    predict_kernel.launch(d, t, 3, S, W)
+
+            def plain_one(b):
+                return predict_kernel.predict_plain(
+                    b.positions, b.lengths, b.is_bleached, tb, window=W,
+                    min_len=3)
+            nbytes = 2 * rows + 12 * len(blens) + sum(
+                b.batch_size * b.max_len for b in bench) * S * 4
+            ops = walk_ops(blens, K, S, 2, "K4", T=10, W=W, S=S)
+        else:
+            wf = (W - 1) // n + 1
+
+            def bare():
+                for _, d, t in args:
+                    hist_kernel.launch(d, t, 3, S, W, n)
+
+            def plain_one(b):
+                return hist_kernel.hist_plain(
+                    b.positions, b.lengths, b.is_bleached, tb, window=W,
+                    min_len=3, nb_substeps=n)
+            nbytes = 2 * rows + 8 * len(blens) + sum(
+                (wf + 2) * S * b.max_len * K * 4 for b in bench)
+            ops = sum(walk_ops(data.host_lengths(b), K, A, 2, "K5",
+                               T=b.max_len, W=W, S=S) for b in bench)
+
+        def plain_run():
+            for b in bench:
+                for i in range(0, b.batch_size, PAST_PLAIN_CHUNK):
+                    sl = slice(i, i + PAST_PLAIN_CHUNK)
+                    with torch.no_grad():
+                        plain_one(data.TrackBatch(
+                            b.positions[sl], b.lengths[sl],
+                            is_bleached=b.is_bleached[sl]))
+        info["ms"] = cuda_ms(bare, 3)
+        info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
+        info["bound_ms"], info["bound_by"] = bound(nbytes, ops)
+        log(f"phase 12: {name} S={S} W={W} n={n} (K={K}) D=2, {len(blens)} "
+            f"tracks of lengths 3..10 ({len(bench)} buckets): kernel "
+            f"{info['ms']:.3f} ms = {len(blens) / info['ms'] * 1e3 / 1e6:.4f}"
+            f"M tracks/s; plain {info['plain_ms']:.3f} ms; bound "
+            f"{info['bound_ms']:.4f} ms ({info['bound_by']}), "
+            f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
+        del bench, args
+    log(f"phase 12: {time.time() - t12:.1f} s")
 
 
 if __name__ == "__main__":

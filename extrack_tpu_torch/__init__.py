@@ -21,8 +21,13 @@ _SUBMODULES = {
     "predict": "extrack_tpu_torch.predict",
     "refine": "extrack_tpu_torch.refine",
     "simulate": "extrack_tpu_torch.simulate",
+    "tracking": "extrack_tpu_torch.tracking",
     "engine": "extrack_tpu_torch.core.engine",
+    "gaussian": "extrack_tpu_torch.core.gaussian",
     "tables": "extrack_tpu_torch.core.tables",
+    # the reference's module names (extrack/__init__.py:1-10)
+    "refined_localization": "extrack_tpu_torch.refine",
+    "simulate_tracks": "extrack_tpu_torch.simulate",
     "forward_kernel": "extrack_tpu_torch.ops.forward_kernel",
     "grad_kernel": "extrack_tpu_torch.ops.grad_kernel",
     "hvp_kernel": "extrack_tpu_torch.ops.hvp_kernel",

@@ -292,3 +292,14 @@ def forward(positions: torch.Tensor,
         return logl, preds.permute(2, 0, 1)
     return logl
 
+
+
+def batch_log_likelihood(batch, tables: ModelTables, **kw) -> torch.Tensor:
+    """Sum of per-track log likelihoods for a TrackBatch: K1's on a CUDA
+    batch, the plain ``forward``'s on the CPU
+    (``ops.forward_kernel.forward``, imported here so that the plain
+    engine does not import the kernels).  ``kw``: ``window``,
+    ``nb_substeps``, ``min_len``."""
+    from extrack_tpu_torch.ops import forward_kernel
+    return forward_kernel.forward(batch.positions, batch.lengths,
+                                  batch.is_bleached, tables, **kw).sum()

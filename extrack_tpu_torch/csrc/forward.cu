@@ -38,8 +38,8 @@ static __device__ unsigned long long g_forward_prof[kProfSlots];
 // (variable dt, P = S^(n+1)) the (B, T-1, P) float32 displacement
 // variances, which replace s20, sig2v and s2n (null for P = 0); logl
 // float32 (B,).  nblk persistent blocks; warps > 0: the warp mapping with
-// that many warps a block (K <= 64), -1: the wide mapping (K <= 4096; K1
-// has no block mapping).  Launches on
+// that many warps a block (K <= 64), -1: the wide mapping (the wrapper
+// holds K1 to K <= 4096; K1 has no block mapping).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int extrack_forward(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,

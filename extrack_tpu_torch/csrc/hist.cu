@@ -68,7 +68,7 @@
 // device memory.  The transport adds (1+S)*(t+1)*(A+1) multiply-adds per
 // group at step t, and the harvest K*S*T multiply-adds per track.
 //
-// Past 1024 slots (up to 4096; hist_wide_kernel) a thread owns whole
+// Past 1024 slots (up to 16384; hist_wide_kernel) a thread owns whole
 // fusion groups, as K1's and K4's wide walk (walk.cuh): member c = g*A + o
 // of group g is child c / G of group c % G of the last fusion, so its
 // carry is that group's fused Gaussian from shared memory plus its child
@@ -80,7 +80,12 @@
 // their layout.  The harvest computes each slot's constants (c % S, c % G,
 // the oldest run's length through L1) in place of the per-slot tables in
 // shared memory.  At 3 states and window 7 (K = 2187, G = 729) a track's
-// rows at T = 20 take 466,560 bytes, in global scratch.
+// rows at T = 20 take 466,560 bytes, in global scratch.  Up to 16384 slots
+// the publish areas and the member weights stay in shared memory while
+// they fit what a block may opt in to; past that (4 states at window 7
+// and D = 3: 294,912 bytes) hist_wide_global_kernel keeps them in the
+// block's global scratch behind its rows, and the barrier that ends a
+// step makes them visible to the block as it does the rows.
 #include "common.cuh"
 
 namespace extrack {
@@ -417,10 +422,10 @@ __global__ void __launch_bounds__(NT, hist_min_blocks<NT>())
         cgr, cext, red);
 }
 
-// ---- the wide mapping: 1024 < K <= 4096 slots -------------------------
+// ---- the wide mapping: 1024 < K <= 16384 slots ------------------------
 
 constexpr int kHistWideThreads = 1024;  // the wide block's largest size
-constexpr int kHistWideMaxK = 4096;
+constexpr int kHistWideMaxK = 16384;
 
 // Group g's rows at step t, every bin, from `cur` into `nxt` (transport's
 // sums for all A children of the group); w: the group's A member weights,
@@ -690,6 +695,32 @@ __global__ void __launch_bounds__(kHistWideThreads, 1)
         scratch + (size_t)blockIdx.x * 2 * G * (1 + S) * T, pubs, spb, red);
 }
 
+// The wide mapping with the publish areas and member weights in global
+// scratch too: a block's scratch holds its two row buffers, then the two
+// publish areas of (2D+1)*G floats, then K floats of member weights
+// (hist_layout's carry at wide = 2).
+template <int D, bool VDT>
+__global__ void __launch_bounds__(kHistWideThreads, 1)
+    hist_wide_global_kernel(Tables tb, const float* __restrict__ xs,
+                            const float* __restrict__ l2s,
+                            const int* __restrict__ lengths,
+                            const float* __restrict__ isbls,
+                            const float* __restrict__ s2st,
+                            const float* __restrict__ seg,
+                            const int* __restrict__ ext, int B, int T, int S,
+                            int P, int Wf, float* __restrict__ rows,
+                            float* scratch) {
+  __shared__ float red[33];
+  const int K = tb.K, G = K / tb.A;
+  const size_t nrows = (size_t)2 * G * (1 + S) * T;
+  float* blk = scratch + (size_t)blockIdx.x *
+                             (nrows + (size_t)2 * (2 * D + 1) * G + K);
+  float* pubs = blk + nrows;
+  hist_wide_tracks<D, VDT>(tb, xs, l2s, lengths, isbls, s2st, seg, ext, B,
+                           T, S, P, Wf, rows, blk, pubs,
+                           pubs + (size_t)2 * (2 * D + 1) * G, red);
+}
+
 // The launch's arguments besides its geometry.
 struct HistArgs {
   Tables tb;
@@ -697,7 +728,8 @@ struct HistArgs {
   const int *lengths, *ext;
   float *rows, *scratch;
   int B, T, S, P, Wf;
-  bool wide;
+  int wide;     // 0: a thread a slot; 1: the wide mapping; 2: the wide
+                // mapping with its publish areas and weights in scratch
 };
 
 template <int D, int NT, bool VDT, bool SUB>
@@ -723,15 +755,18 @@ static int launch_nt(const HistArgs& h, int nblk, int threads, size_t smem,
 // (1+S)*T floats for each of the K/A fusion groups (the A children of a
 // group carry the same rows).  The wide mapping: a thread per group (at
 // most 1024), shared memory besides the rows two publish areas of
-// (2D+1)*G floats and K floats of member weights; the same rows.
+// (2D+1)*G floats and K floats of member weights; the same rows.  wide = 2:
+// the wide mapping with its publish areas and member weights in the carry
+// (global scratch) after the rows, and no dynamic shared memory.
 static BlockLayout hist_layout(int T, int D, int K, int S, int A,
-                               bool wide) {
+                               int wide) {
   const int G = K / A;
   const size_t carry = (size_t)2 * G * (1 + S) * T * sizeof(float);
   if (wide) {
     const int threads = (G + 31) / 32 * 32;
+    const size_t pub = ((size_t)2 * (2 * D + 1) * G + K) * sizeof(float);
     return {threads < kHistWideThreads ? threads : kHistWideThreads,
-            ((size_t)2 * (2 * D + 1) * G + K) * sizeof(float), carry};
+            wide == 2 ? 0 : pub, wide == 2 ? carry + pub : carry};
   }
   return {(K + 31) / 32 * 32,
           (size_t)(2 * (2 + 2 * D) + 4) * K * sizeof(float), carry};
@@ -739,7 +774,14 @@ static BlockLayout hist_layout(int T, int D, int K, int S, int A,
 
 template <int D, bool VDT>
 static int launch_wide(const HistArgs& h, int nblk, cudaStream_t stream) {
-  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A, true);
+  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A, h.wide);
+  if (h.wide == 2) {
+    if (h.B > 0)
+      hist_wide_global_kernel<D, VDT><<<nblk, lay.threads, 0, stream>>>(
+          h.tb, h.xs, h.l2, h.lengths, h.isbl, h.s2st, h.seg, h.ext, h.B,
+          h.T, h.S, h.P, h.Wf, h.rows, h.scratch);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = lay.fixed + (h.scratch != nullptr ? 0 : lay.carry);
   // always: at 48 KB of dynamic shared memory the static red[] passes the
   // default limit
@@ -755,7 +797,7 @@ static int launch_wide(const HistArgs& h, int nblk, cudaStream_t stream) {
 
 template <int D, bool VDT, bool SUB>
 static int launch_hist(const HistArgs& h, int nblk, cudaStream_t stream) {
-  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A, false);
+  const BlockLayout lay = hist_layout(h.T, D, h.tb.K, h.S, h.tb.A, 0);
   const int threads = lay.threads;
   const size_t smem = lay.fixed + (h.scratch != nullptr ? 0 : lay.carry);
   if (threads <= 128)
@@ -809,11 +851,14 @@ extern "C" int extrack_hist_smem(int device) {
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// K5's block for a launch (hist_layout; wide: the wide mapping, K <=
-// 4096): out = threads, shared bytes besides the rows, row bytes per track.
+// K5's block for a launch (hist_layout; wide: 1 the wide mapping, 2 the
+// wide mapping with its publish areas and member weights in global
+// scratch, K <= 16384; 0 a thread a slot): out = threads, shared bytes
+// besides the rows, row bytes per track (at 2: all the block's scratch).
 extern "C" int extrack_hist_layout(int T, int D, int K, int S, int A,
                                    int wide, long long* out) {
-  if (A < 1 || K % A || (wide && K > extrack::kHistWideMaxK))
+  if (A < 1 || K % A || wide < 0 || wide > 2 ||
+      (wide && K > extrack::kHistWideMaxK))
     return (int)cudaErrorInvalidValue;
   return extrack::write_layout(extrack::hist_layout(T, D, K, S, A, wide), D,
                                out);
@@ -829,9 +874,11 @@ extern "C" int extrack_hist_layout(int T, int D, int K, int S, int A,
 // expected histogram (bin s*T + m: segments of length m+1 in state s;
 // zero for tracks of fewer than 2 frames).  scratch: null to keep the
 // double-buffered rows in shared memory, or nblk times the row bytes of
-// extrack_hist_layout in global scratch.  wide: the wide mapping (a
-// thread per fusion group, K <= 4096), else a thread per slot (K <= 1024).
-// Blocks are persistent over nblk.  Returns cudaGetLastError().
+// extrack_hist_layout in global scratch.  wide: 1 the wide mapping (a
+// thread per fusion group, K <= 16384), 2 the same with its publish areas
+// and member weights in that scratch too (scratch required), 0 a thread
+// per slot (K <= 1024).  Blocks are persistent over nblk.  Returns
+// cudaGetLastError().
 extern "C" int extrack_hist(const float* xs, const float* l2,
                             const int* lengths, const float* isbl,
                             const float* lp0, const float* s20,
@@ -843,13 +890,14 @@ extern "C" int extrack_hist(const float* xs, const float* l2,
                             int min_len, int S, int Wf, int nblk, int wide,
                             void* stream) {
   if (A < 1 || K % A || (P > 0 && (s2st == nullptr || K % P)) ||
+      wide < 0 || wide > 2 || (wide == 2 && scratch == nullptr) ||
       K > (wide ? extrack::kHistWideMaxK : 1024))
     return (int)cudaErrorInvalidValue;
   const extrack::HistArgs h{
       {lp0, s20, lt, lsurv, endv, sig2v, nullptr, nullptr, nullptr, nullptr,
        K, A, min_len},
       xs, l2, isbl, s2st, seg, lengths, ext, rows, scratch, B, T, S, P, Wf,
-      wide != 0};
+      wide};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 1: return extrack::launch_dt<1>(h, nblk, st);

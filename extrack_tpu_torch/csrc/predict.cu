@@ -21,10 +21,11 @@
 // quadratic history mix (which took half the cycles at 15..20 frames on
 // an H100), and a harvest by warp reductions.  Variable dt reads the
 // (B, T-1, P) stream of displacement variances as K1 does (walk.cuh).
-// Past 1024 slots (up to 4096) a thread owns whole fusion groups and the
+// Past 1024 slots (up to 16384) a thread owns whole fusion groups and the
 // carries live in shared memory as the groups' fused Gaussians (walk.cuh's
-// wide mapping); the stash then holds each member's log2 weight until its
-// group's sum is known.
+// wide mapping), or in the block's global scratch where they pass what a
+// block may opt in to; the stash then holds each member's log2 weight
+// until its group's sum is known.
 #include "walk.cuh"
 
 namespace extrack {
@@ -54,12 +55,14 @@ extern "C" int extrack_predict_smem(int device) {
 }
 
 // One K4 team for a launch (warps > 0: a warp of the warp mapping, 0: a
-// block of the block mapping, -1: a block of the wide mapping; P > 0:
-// variable dt with P = S^2 patterns): out = threads a block, shared bytes
-// of a team besides the stash of fusion weights, the stash's bytes a team.
+// block of the block mapping, -1: a block of the wide mapping, -2: one of
+// the wide mapping with its carries in global scratch; P > 0: variable dt
+// with P = S^2 patterns): out = threads a block, shared bytes of a team
+// besides the stash of fusion weights, the stash's bytes a team (at -2:
+// the publish areas, the softmax and the stash, all in global scratch).
 extern "C" int extrack_predict_layout(int T, int D, int K, int S, int W,
                                       int warps, int P, long long* out) {
-  if (D < 1 || D > 3 || warps < -1 || (warps > 0 && K > 64) ||
+  if (D < 1 || D > 3 || warps < -2 || (warps > 0 && K > 64) ||
       K > (warps < 0 ? extrack::kWideMaxK : 1024))
     return (int)cudaErrorInvalidValue;
   const extrack::WalkLayout lay =
@@ -83,8 +86,8 @@ extern "C" int extrack_predict_occupancy(int D, int K, int S, int T, int W,
 // (every entry written).  stash_scratch: null when the stash of fusion
 // weights is in shared memory (stash_smem 1), else the stash bytes of
 // extrack_predict_layout for every team (nblk blocks of `warps` warps, or
-// nblk blocks; warps 0 the block mapping, -1 the wide one).  Returns
-// cudaGetLastError().
+// nblk blocks; warps 0 the block mapping, -1 the wide one, -2 the wide one
+// with its carries in that scratch too).  Returns cudaGetLastError().
 extern "C" int extrack_predict(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,
                                const float* lp0, const float* s20,
@@ -99,7 +102,7 @@ extern "C" int extrack_predict(const float* xs, const float* l2,
                                void* stream) {
   const extrack::Tables tb{lp0, s20, lt,  lsurv, endv, sig2v, ltn,
                            s2n, lsn, endn, K,    A,    min_len};
-  if (!stash_smem && stash_scratch == nullptr && T > W)
+  if (!stash_smem && stash_scratch == nullptr && (T > W || warps == -2))
     return (int)cudaErrorInvalidValue;
   const extrack::WalkArgs wa{tb,    xs,    l2,           lengths,
                              isbl,  B,     T,            S,

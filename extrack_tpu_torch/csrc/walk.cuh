@@ -12,11 +12,13 @@
 // * block mapping, 64 < K <= 1024, K4 only (walk_block_kernel): one
 //   persistent block walks one track at a time, thread k owning slot k,
 //   with one barrier per fusion step.
-// * wide mapping, 1024 < K <= 4096, and K1 from 65 slots on (it ran
+// * wide mapping, 1024 < K <= 16384, and K1 from 65 slots on (it ran
 //   1.14-1.75x faster than the block mapping at every K1 register of
 //   81..1024 slots measured) (walk_wide_kernel, below): one persistent
 //   block a track, a thread owning whole fusion groups; the carries live
-//   in shared memory as the G = K/A fused Gaussians.
+//   in shared memory as the G = K/A fused Gaussians, or, for K4 where
+//   they pass what a block may opt in to, in the block's global scratch
+//   (walk_wide_global_kernel).
 //
 // The warp and block mappings keep each slot's (K,) tables in registers
 // for the whole launch; all three fuse in base 2 on the special-function
@@ -646,7 +648,7 @@ __global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
         wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
 }
 
-// ---- the wide mapping: 1024 < K <= 4096 slots -------------------------
+// ---- the wide mapping: 1024 < K <= 16384 slots ------------------------
 //
 // One slot a thread stops at 1024 slots, and the per-slot (K,) and (K, A)
 // tables in registers stop well before: at K = 4096 and D = 3 a track's
@@ -669,8 +671,17 @@ __global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
 // are block reductions over the thread's partial sums; K4's stash of
 // fusion weights holds each member's log2 weight until its group's sum is
 // known, then the weight.
+//
+// Past what a block may opt in to (K4 at K = 16384 and D = 3 asks for
+// 299,008 bytes at 4 states, 528,384 at 2), walk_wide_global_kernel runs
+// the same walk with the publish areas and the softmax in the block's
+// global scratch, ahead of its stash (wide_global_layout): only the warp
+// partials stay in shared memory.  The barrier that ends a step makes the
+// groups' global writes visible to the block, as it does the shared ones;
+// the reads go through L1.  K1 stays at 4096 slots (the wrapper's
+// envelope): it has no such instantiation.
 static constexpr int kWideThreads = 1024;   // the block's largest size
-constexpr int kWideMaxK = 4096;             // the envelope of the mapping
+constexpr int kWideMaxK = 16384;            // the envelope of the mapping
 
 // One team's bytes of the wide mapping: two publish areas of (2D+1)*G
 // floats, the closings' warp partials (2*32 each), K4's harvest partials
@@ -686,6 +697,23 @@ static __host__ __device__ inline WalkLayout wide_layout(int K, int A,
   const int threads = (G + 31) / 32 * 32;
   return {threads < kWideThreads ? threads : kWideThreads, fixed * 4,
           stash * 4};
+}
+
+// K4's team of the wide mapping with its carries in global scratch: shared
+// memory holds the closings' and the harvest's warp partials; a block's
+// scratch holds the two publish areas, the softmax over the register (K)
+// and the stash, in that order.
+static __host__ __device__ inline WalkLayout wide_global_layout(int K, int A,
+                                                                int D, int T,
+                                                                int S,
+                                                                int W) {
+  const int G = K / A;
+  const size_t parts = 4 * 32 + (size_t)W * S * 32;
+  const size_t carries = (size_t)2 * (2 * D + 1) * G + K;
+  const size_t stash = T > W ? (size_t)(T - W) * (K | 1) : 0;
+  const int threads = (G + 31) / 32 * 32;
+  return {threads < kWideThreads ? threads : kWideThreads, parts * 4,
+          (carries + stash) * 4};
 }
 
 // One track's walk on the wide mapping (x, l2: its (T, D) rows; sg: its
@@ -931,7 +959,10 @@ static __device__ __forceinline__ void wide_track(
 }
 
 // The wide mapping's track loop (the kernel calls it at two sites).
-template <int D, bool PRED, bool VDT>
+// GLOBAL: K4's walk with its carries in global scratch, `sh` the warp
+// partials and `stash` the block's scratch (wide_global_layout: publish
+// areas, softmax, stash).
+template <int D, bool PRED, bool VDT, bool GLOBAL = false>
 static __device__ __forceinline__ void wide_tracks(const WalkArgs& wa,
                                                    float* sh, float* stash,
                                                    unsigned long long* prof) {
@@ -940,6 +971,12 @@ static __device__ __forceinline__ void wide_tracks(const WalkArgs& wa,
   float* pubs = sh;
   float* red = sh + 2 * (2 * D + 1) * G;
   float* scr = red + 128 + (PRED ? wa.W * wa.S * 32 : 0);
+  if constexpr (GLOBAL) {
+    red = sh;
+    pubs = stash;
+    scr = stash + (size_t)2 * (2 * D + 1) * G;
+    stash = scr + tb.K;
+  }
   Prof pf;
   pf.start();
   for (int b = blockIdx.x; b < wa.B; b += gridDim.x) {
@@ -974,10 +1011,24 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
 }
 
+// K4's wide walk with its carries in the block's global scratch
+// (wide_global_layout): publish areas, softmax, stash.
+template <int D, bool VDT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    walk_wide_global_kernel(WalkArgs wa, unsigned long long* prof) {
+  extern __shared__ __align__(16) float smem[];
+  const WalkLayout lay = wide_global_layout(wa.tb.K, wa.tb.A, D, wa.T, wa.S,
+                                            wa.W);
+  wide_tracks<D, true, VDT, true>(
+      wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
+}
+
 // The team layout of a launch: warps > 0 the warp mapping, 0 the block
-// mapping, -1 the wide mapping.
+// mapping, -1 the wide mapping, -2 K4's wide mapping with its carries in
+// global scratch.
 static inline WalkLayout team_layout(int warps, int K, int A, int D, int T,
                                      int S, int W, bool pred, int P) {
+  if (warps == -2) return wide_global_layout(K, A, D, T, S, W);
   return warps < 0 ? wide_layout(K, A, D, T, S, W, pred)
                    : walk_layout(warps, K, A, D, T, S, W, pred, P);
 }
@@ -985,9 +1036,16 @@ static inline WalkLayout team_layout(int warps, int K, int A, int D, int T,
 // The instantiation a launch runs: warps > 0, the warp mapping (J by K,
 // the fusion's A unrolled at 2 and 4: two states, or two sub-steps or four
 // states); 0, the block mapping by block size (K4 only: K1 goes from the
-// warp mapping to the wide one); -1, the wide mapping.
+// warp mapping to the wide one); -1, the wide mapping; -2, K4's wide
+// mapping with its carries in global scratch.
 template <int D, bool PRED, bool VDT>
 static const void* walk_instance(int K, int A, int warps) {
+  if (warps == -2) {
+    if constexpr (PRED)
+      return (const void*)walk_wide_global_kernel<D, VDT>;
+    else
+      return nullptr;
+  }
   if (warps < 0) return (const void*)walk_wide_kernel<D, PRED, VDT>;
   if (warps > 0) {
     if (K <= 32) {
@@ -1055,9 +1113,10 @@ template <bool PRED>
 static int launch_walk(const WalkArgs& wa, int D, int nblk, int warps,
                        unsigned long long* prof, cudaStream_t stream) {
   const int K = wa.tb.K, A = wa.tb.A, P = wa.P;
-  if (D < 1 || D > 3 || K > (warps < 0 ? kWideMaxK : 1024) || warps < -1 ||
+  if (D < 1 || D > 3 || K > (warps < 0 ? kWideMaxK : 1024) || warps < -2 ||
       32 * warps > kWalkWarpBlock || (warps > 0 && K > 64) ||
-      (!PRED && warps == 0) ||
+      (!PRED && warps == 0) || (!PRED && warps == -2) ||
+      (warps == -2 && (wa.stash_smem || wa.stash_all == nullptr)) ||
       (!PRED && wa.stash_smem) || (PRED && A != wa.S) || P < 0 ||
       (P > 0 && (wa.sig2s == nullptr || P % A != 0 || K % P != 0 ||
                  wa.T < 2)))

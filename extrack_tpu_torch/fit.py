@@ -76,7 +76,10 @@ def make_objective(batch,
                    window: Optional[int] = None,
                    min_len: Optional[int] = None,
                    matrix_type: int = 1,
-                   input_loc_err: bool = False) -> Callable:
+                   input_loc_err: bool = False,
+                   pallas_block: Optional[int] = None,
+                   sharded: bool = False,
+                   compute_engine: str = "auto") -> Callable:
     """Build -logL(z) over the unconstrained free-parameter tensor z.
 
     ``batch`` is a TrackBatch or a list of them (length buckets from
@@ -85,7 +88,18 @@ def make_objective(batch,
     extraction happens inside the objective so its gradient flows
     (cum_Proba_Cs, extrack/tracking.py:991-1088); ``min_len`` defaults to
     the shortest track length present (tracking.py:1009).
+    ``compute_engine``: 'auto' or 'pallas' run the CUDA kernels on a CUDA
+    batch, 'xla' raises there (``tdevice.check_compute_engine``); CPU
+    batches run the plain engine whatever the value.  ``pallas_block`` (the
+    TPU kernels' track block) is accepted and ignored: the CUDA kernels
+    choose their own mapping.  ``sharded=True`` is not ported yet and
+    raises.
     """
+    del pallas_block
+    if sharded:
+        raise NotImplementedError(
+            "sharded objectives wait for the torch.distributed port "
+            "(ROADMAP Queue 1)")
     if window is None:
         window = default_window(nb_states, nb_substeps)
     batches = list(batch) if isinstance(batch, (list, tuple)) else [batch]
@@ -94,6 +108,7 @@ def make_objective(batch,
         min_len = tdata.default_min_len(lens)
     device = batches[0].positions.device
     dtype = batches[0].positions.dtype
+    tdevice.check_compute_engine(compute_engine, device, "make_objective")
     if device.type == "cuda":
         # the objective's value runs K1; its gradient K2, whose envelope
         # (1024 slots) grad_kernel.neg_log_likelihood checks where a
@@ -201,7 +216,7 @@ def fit(batch,
         spec.set_values(state["values"])
     neg_logl = make_objective(batch, spec, dt, nb_states, cell_dims,
                               nb_substeps, window, min_len, matrix_type,
-                              input_loc_err)
+                              input_loc_err, compute_engine=compute_engine)
     device, dtype = neg_logl.device, neg_logl.dtype
 
     def as_z(z, grad=False):
@@ -362,10 +377,27 @@ def hessian_hvp_columns(batches, spec: tparams.Parameters, z_opt, dt,
 
 
 def hessian_hvp_exact(batches, spec: tparams.Parameters, z_opt, dt,
-                      nb_states: int, **kw) -> np.ndarray:
+                      nb_states: int, *, cell_dims=(1.0,), nb_substeps=1,
+                      window=6, min_len=3, matrix_type=1,
+                      input_loc_err=False, pallas_flags=None,
+                      has_len2s=None, sharded=False,
+                      block: int = 512) -> np.ndarray:
     """``hessian_hvp_columns`` symmetrised, 0.5 (H + H^T): the Hessian
-    fit(compute_errors=True) uses on CUDA."""
-    H = hessian_hvp_columns(batches, spec, z_opt, dt, nb_states, **kw)
+    fit(compute_errors=True) uses on CUDA.  ``pallas_flags``, ``has_len2s``
+    and ``block`` (the TPU kernels' per-bucket choices and track block) are
+    accepted and ignored: every CUDA bucket runs K3, and a CPU bucket the
+    plain double backward.  ``sharded=True`` is not ported yet and
+    raises."""
+    del pallas_flags, has_len2s, block
+    if sharded:
+        raise NotImplementedError(
+            "sharded Hessians wait for the torch.distributed port "
+            "(ROADMAP Queue 1)")
+    H = hessian_hvp_columns(batches, spec, z_opt, dt, nb_states,
+                            cell_dims=cell_dims, nb_substeps=nb_substeps,
+                            window=window, min_len=min_len,
+                            matrix_type=matrix_type,
+                            input_loc_err=input_loc_err)
     return 0.5 * (H + H.T)
 
 

@@ -443,8 +443,9 @@ def hist_batch(batch: tdata.TrackBatch,
                window: int = 7,
                chunk: Optional[int] = None,
                min_len: Optional[int] = None,
-               sharded: bool = False) -> torch.Tensor:
-    """(T, S) duration histogram of a TrackBatch, on its device.
+               sharded: bool = False) -> np.ndarray:
+    """(T, S) duration histogram of a TrackBatch, as a numpy array in the
+    batch's dtype (copied from its device), as the JAX package returns it.
 
     engine 'window' (or 'pallas' / 'xla'): ``window`` counts frames; with
     nb_substeps = n the register covers n*(window-1)+1 sub-steps.  A CUDA
@@ -463,7 +464,7 @@ def hist_batch(batch: tdata.TrackBatch,
         max_nb_states=max_nb_states, nb_substeps=nb_substeps,
         input_loc_err=input_loc_err, matrix_type=matrix_type,
         kind=_check_engine(engine, sharded, nb_substeps), window=window,
-        chunk=chunk, min_len=min_len)
+        chunk=chunk, min_len=min_len).cpu().numpy()
 
 
 def _hist_batch(batch: tdata.TrackBatch, params, dt, *, cell_dims,

@@ -164,8 +164,9 @@ def layout(kernel: str, *dims: int):
     source defines its block (``extrack_{kernel}_layout``): "hist" takes
     (T, D, K, S, A, wide), T frames, D dimensions, K slots, S states, A
     children a fusion group (S^nb_substeps) and 1 for the wide mapping (a
-    thread a fusion group), else 0 (a thread a slot); "refine" (T, D, K,
-    S, wide)."""
+    thread a fusion group), 2 for the wide mapping with its publish areas
+    and member weights in the carry (global scratch), else 0 (a thread a
+    slot); "refine" (T, D, K, S, wide)."""
     out = (ctypes.c_longlong * 3)()
     rc = getattr(library(), f"extrack_{kernel}_layout")(
         *dims, ctypes.addressof(out))

@@ -15,9 +15,11 @@ outside its envelope); CPU tensors run ``forward_plain``, which is
 each kernel's mapping of a register onto the card (csrc/walk.cuh,
 hist.cu, refine.cu): one warp per track up to 64 slots, a block per track
 with a thread a slot up to 1024 (K4, K5, K6) and a thread a fusion group
-up to 4096 (the wide mapping: K1 above 64 slots, the others above 1024);
-``plan`` and ``grid`` lay a K1 or K4 launch out as persistent blocks.
-``MAX_SLOTS`` is each kernel's envelope.  ``LAUNCHES`` counts kernel
+past that (the wide mapping: K1 above 64 slots, the others above 1024; up
+to 4096 slots for K1 and K6, 16384 for K4 and K5, whose carries go to
+global scratch where they pass a block's shared memory); ``plan`` and
+``grid`` lay a K1 or K4 launch out as persistent blocks.  ``MAX_SLOTS`` is
+each kernel's envelope.  ``LAUNCHES`` counts kernel
 launches, ``PLAIN_CALLS`` calls of the plain version.
 """
 from __future__ import annotations
@@ -38,10 +40,13 @@ PLAIN_CALLS = 0
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 BLOCK_MAX_K = 1024        # the block mapping: one thread per register slot
 WIDE_MAX_K = 4096         # the wide mapping: one thread per fusion group
+SCRATCH_MAX_K = 16384     # K4's and K5's wide mapping, its carries in
+                          # global scratch where shared memory cannot hold
+                          # them
 # each kernel's largest register: K1, K4, K5 and K6 map past 1024 slots
 # (csrc/walk.cuh, hist.cu, refine.cu); K2 and K3 run a thread a slot
 MAX_SLOTS = {"K1": WIDE_MAX_K, "K2": BLOCK_MAX_K, "K3": BLOCK_MAX_K,
-             "K4": WIDE_MAX_K, "K5": WIDE_MAX_K, "K6": WIDE_MAX_K}
+             "K4": SCRATCH_MAX_K, "K5": SCRATCH_MAX_K, "K6": WIDE_MAX_K}
 # the mappings of K1, K4, K5 and K6, narrowest first.  K1 skips the block
 # mapping: the wide one ran it 1.14-1.75x faster at every register of
 # 81..1024 slots measured; K4, K5 and K6 keep a thread a slot up to 1024
@@ -50,6 +55,8 @@ MAPPINGS = {"K1": ("warp", "wide"), "K4": ("warp", "block", "wide"),
             "K5": ("block", "wide"), "K6": ("block", "wide")}
 WARPS = (4, 2, 1)         # warps a block the warp mapping may launch
 WIDE = -1                 # the C interface's warps of the wide mapping
+WIDE_GLOBAL = -2          # K4's wide mapping with its carries in global
+                          # scratch (csrc/walk.cuh walk_wide_global_kernel)
 # the kernels that take the streamed displacement-variance table
 STREAMED = ("K1", "K2", "K3", "K4", "K5")
 
@@ -57,7 +64,8 @@ STREAMED = ("K1", "K2", "K3", "K4", "K5")
 class Plan(NamedTuple):
     """How one K1 / K4 launch maps tracks onto the card."""
     warps: int            # warps a block of the warp mapping; 0: block;
-                          # WIDE: the wide mapping
+                          # WIDE: the wide mapping; WIDE_GLOBAL: K4's
+                          # wide mapping, carries in global scratch
     stash_smem: bool      # K4's stash of fusion weights in shared memory
 
 
@@ -67,7 +75,8 @@ def mapping_warps(kernel: str, K: int, mapping: str | None = None) -> int:
     the wide one.  The narrowest of MAPPINGS[kernel] that holds K, or
     ``mapping`` ("warp"/"block"/"wide") where it forces one (tests,
     tools); ValueError where that is not the kernel's or cannot hold K."""
-    limit = {"warp": WARP_MAX_K, "block": BLOCK_MAX_K, "wide": WIDE_MAX_K}
+    limit = {"warp": WARP_MAX_K, "block": BLOCK_MAX_K,
+             "wide": MAX_SLOTS[kernel]}
     names = MAPPINGS[kernel]
     if mapping is None:
         mapping = next((m for m in names if K <= limit[m]), names[-1])
@@ -85,7 +94,7 @@ def plan(kernel: str, K: int, fixed: int, stash_bytes: int, smem_limit: int,
          stash: str | None = None) -> Plan:
     """The mapping of a K1 (``stash_bytes`` 0) or K4 launch (``kernel``):
     ``mapping_warps``' (``mapping`` "warp"/"block"/"wide" forces one;
-    the wide mapping takes any K up to WIDE_MAX_K).  ``fixed`` and
+    the wide mapping takes any K up to MAX_SLOTS[kernel]).  ``fixed`` and
     ``stash_bytes`` are one team's (a warp's, or a block's for the block
     and wide mappings) shared bytes besides K4's stash of fusion weights
     and the stash's bytes; ``occupancy(warps, stash_smem)`` gives the
@@ -93,9 +102,17 @@ def plan(kernel: str, K: int, fixed: int, stash_bytes: int, smem_limit: int,
     block's share fits ``smem_limit`` and, with the block size of WARPS
     that keeps the most tracks resident, as many tracks stay resident as
     with the stash in global scratch (``stash`` "smem"/"global" forces
-    it)."""
+    it).  K4's wide team whose ``fixed`` bytes pass ``smem_limit`` runs
+    WIDE_GLOBAL: its carries and stash in global scratch, at the bytes of
+    its own layout."""
     w = mapping_warps(kernel, K, mapping)
     sizes = WARPS if w == 1 else (w,)
+    if kernel == "K4" and w == WIDE and fixed > smem_limit:
+        if stash == "smem":
+            raise ValueError(f"K4's wide team ({fixed} bytes besides its "
+                             f"stash) does not fit {smem_limit} bytes of "
+                             "shared memory")
+        return Plan(WIDE_GLOBAL, False)
     if stash_bytes == 0:
         return Plan(sizes[0], False)
 
@@ -273,7 +290,9 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
         fits = max((w for w in range(1, window) if S ** w <= limit),
                    default=0)
         how = ("a thread per slot" if limit == BLOCK_MAX_K
-               else "a thread per fusion group past 1024 slots")
+               else "a thread per fusion group past 1024 slots"
+               + (", the carries in global scratch past shared memory"
+                  if limit == SCRATCH_MAX_K else ""))
         reasons.append(f"K=S**window={K} > {limit} register slots "
                        f"({kernel} maps at most {limit}, {how}; the "
                        f"largest window that fits is {fits})")

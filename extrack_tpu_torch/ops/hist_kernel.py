@@ -9,8 +9,10 @@ segment-length histogram of a batch, summed over its tracks:
   (``forward_kernel.kernel_inputs``; with variable dt also the streamed
   (B, T-1, P) displacement variances) and the window's static segment
   tables (``segment_tables``): a thread a slot up to 1024 slots, a thread
-  a fusion group up to 4096 (``forward_kernel.mapping_warps``).  Outside
-  the envelope it raises.
+  a fusion group up to 16384 (``forward_kernel.mapping_warps``), with the
+  publish areas and member weights in global scratch beside the rows
+  where a block's shared memory cannot hold them.  Outside the envelope
+  it raises.
 * CPU tensors: ``hist_plain``, which is
   ``histograms.window_segment_histogram`` on the same inputs.
 
@@ -90,9 +92,13 @@ def launch(data, tabs, min_len: int, S: int, W: int, n: int = 1,
     dev = xs.device
     seg, ext = device_segment_tables(S, W, T, n, dev)
     rows = torch.empty((B, S * T), dtype=torch.float32, device=dev)
-    w = forward_kernel.mapping_warps("K5", K, mapping) == forward_kernel.WIDE
-    threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S, A,
-                                                 int(w))
+    w = int(forward_kernel.mapping_warps("K5", K, mapping)
+            == forward_kernel.WIDE)
+    threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S, A, w)
+    if w and fixed > cuda_lib.smem_bytes("extrack_hist_smem", dev.index):
+        w = 2       # the wide publish areas and weights in global scratch
+        threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S, A,
+                                                     w)
     nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, fixed,
                                   rows_bytes, threads)
     rc = lib.extrack_hist(
@@ -100,7 +106,7 @@ def launch(data, tabs, min_len: int, S: int, W: int, n: int = 1,
         tabs[10].data_ptr() if P else None,
         *(t.data_ptr() for t in (seg, ext, rows)),
         None if scratch is None else scratch.data_ptr(),
-        B, T, D, K, A, P, int(min_len), S, window_frames(W, n), nblk, int(w),
+        B, T, D, K, A, P, int(min_len), S, window_frames(W, n), nblk, w,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "histogram")
     LAUNCHES += 1

@@ -7,9 +7,10 @@ per frame:
 
 * CUDA tensors (float32): one K4 launch on ``forward_kernel.kernel_inputs``
   (the K1 tables, and with variable dt the streamed displacement
-  variances), mapped as K1 (``forward_kernel.plan``: up to 4096 slots),
-  with its stash of fusion weights in shared memory or global scratch.
-  Outside the envelope it raises.
+  variances), mapped as K1 (``forward_kernel.plan``: up to 16384 slots,
+  past what a block's shared memory holds with the wide mapping's carries
+  in global scratch), with its stash of fusion weights in shared memory or
+  global scratch.  Outside the envelope it raises.
 * CPU tensors: ``predict_plain``, which is ``core.engine.forward(...,
   return_preds=True)`` on the same inputs.
 
@@ -36,7 +37,8 @@ def layout(T: int, D: int, K: int, S: int, W: int, warps: int, P: int = 0):
     a K4 launch (``P`` > 0: variable dt), as the kernel's source defines
     its team (``extrack_predict_layout``; ``warps`` from
     ``forward_kernel.mapping_warps``: a warp, or a block for the block and
-    wide mappings)."""
+    wide mappings; at ``forward_kernel.WIDE_GLOBAL`` the partials' bytes
+    and the block's global scratch: carries and stash)."""
     out = (ctypes.c_longlong * 3)()
     cuda_lib.check(cuda_lib.library().extrack_predict_layout(
         T, D, K, S, W, warps, P, ctypes.addressof(out)), "K4 layout")
@@ -58,6 +60,8 @@ def setup(B: int, T: int, D: int, K: int, S: int, W: int, dev,
         "K4", K, fixed, stash_bytes,
         cuda_lib.smem_bytes("extrack_predict_smem", dev.index), occ,
         mapping, stash)
+    if pl.warps == forward_kernel.WIDE_GLOBAL:
+        _, stash_bytes = layout(T, D, K, S, W, pl.warps, P)
     nblk, scratch = forward_kernel.grid(B, pl, forward_kernel._sms(dev.index),
                                         occ(pl.warps, pl.stash_smem),
                                         stash_bytes)

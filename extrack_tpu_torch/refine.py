@@ -30,6 +30,7 @@ import torch
 
 from extrack_tpu_torch import data as tdata
 from extrack_tpu_torch import device as tdevice
+from extrack_tpu_torch.core import gaussian as gaussian_ops
 from extrack_tpu_torch.core.engine import _moment_match, make_register_spec
 from extrack_tpu_torch.core.tables import (branch_log_trans, cap_log,
                                            state_codes)
@@ -300,8 +301,10 @@ def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
                  frame_len: Optional[int] = None,
                  compute_engine: str = "auto",
                  sharded: bool = False):
-    """TrackBatch-native refinement: (mu (B,T,D), sigma (B,T,D)) on the
-    batch's device.  ``LocErr`` may be a scalar or array, or anything
+    """TrackBatch-native refinement: (mu (B,T,D), sigma (B,T,D), B) as
+    numpy arrays in the batch's dtype (copied from its device) and the
+    number of tracks, as the JAX package returns them.  ``LocErr`` may be a
+    scalar or array, or anything
     dict-like to signal that ``batch.loc_err`` holds per-peak errors.
     ``TrMat`` is the (S, S) transition probability matrix, ``ds`` the
     per-state step stds sqrt(2*D*dt).  ``frame_len`` defaults to
@@ -333,10 +336,11 @@ def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
         loc_err2 = tensor(LocErr) ** 2
         loc_err2 = loc_err2.reshape((1,) * (3 - loc_err2.ndim)
                                     + loc_err2.shape)
-    return refine_kernel.refine(
+    mu, sigma = refine_kernel.refine(
         batch.positions, batch.lengths, loc_err2, log_trans, tensor(ds) ** 2,
         window=window, what=f"refinement bucket of {batch.batch_size} tracks "
                             "(pass frame_len to choose the window)")
+    return mu.cpu().numpy(), sigma.cpu().numpy(), batch.batch_size
 
 
 def position_refinement(all_tracks: Dict[str, np.ndarray],
@@ -385,9 +389,333 @@ def position_refinement(all_tracks: Dict[str, np.ndarray],
     mus: Dict[str, np.ndarray] = {}
     sigmas: Dict[str, np.ndarray] = {}
     for b in batches:
-        mu, sigma = refine_batch(b, LocErr, ds, TrMat, frame_len=frame_len,
-                                 compute_engine=compute_engine,
-                                 sharded=sharded)
+        mu, sigma, _ = refine_batch(b, LocErr, ds, TrMat,
+                                    frame_len=frame_len,
+                                    compute_engine=compute_engine,
+                                    sharded=sharded)
         mus.update(tdata.to_dict(b, mu))
         sigmas.update(tdata.to_dict(b, sigma[..., 0]))
     return mus, sigmas
+
+
+# ---------------------------------------------------------------------------
+# The raw mixture API (reference get_pos_PDF and its consumers), the
+# fixed-state refinement and the rendering (extrack_tpu/refine.py:259-560,
+# 742-784).  Plain torch where the JAX package computes in XLA; the
+# posteriors of ``get_best_estimates`` run K4 on the card.
+
+def _numpy_loc_err2(LocErr, device, dtype):
+    """A scalar, (D,) or per-peak localization error as squared variances
+    broadcastable to (B, T, D), leading axes prepended."""
+    le2 = torch.as_tensor(np.asarray(LocErr, dtype=np.float64) ** 2,
+                          dtype=dtype, device=device)
+    return le2.reshape((1,) * (3 - le2.ndim) + tuple(le2.shape))
+
+
+def get_pos_PDF(Cs, LocErr, ds, Fs, TrMat, frame_len: int = 7,
+                threshold: float = 0.2, max_nb_states: int = 1000, *,
+                device="cuda", dtype=None):
+    """Per-position Gaussian mixtures for a rectangular track array, on
+    ``device`` (the card by default) in ``dtype``.
+
+    Reference-compatible wrapper (get_pos_PDF,
+    refined_localization.py:207-302): returns ``(all_pos_means,
+    all_pos_stds, all_pos_weights, all_pos_Bs)``, lists over positions of
+    (n_tracks, C, D) means, (n_tracks, C, 1) stds, (n_tracks, C) log
+    weights and (C,) state labels, as numpy arrays (``position_mixtures``;
+    components with -inf weight are padding).  The fixed window replaces
+    threshold pruning (``threshold``/``max_nb_states`` accepted for
+    compatibility); ``Fs`` does not enter refinement.  A forbidden
+    transition gets ``tables.cap_log``'s finite floor, as in
+    ``refine_batch``."""
+    del threshold, max_nb_states, Fs
+    device, dtype = tdevice.resolve_device(device, dtype)
+    Cs = np.asarray(Cs)
+    n, T, D = Cs.shape
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
+                               device=device)
+
+    mu, var, lw, labels = position_mixtures(
+        tensor(Cs), torch.full((n,), T, device=device),
+        _numpy_loc_err2(LocErr, device, dtype), cap_log(tensor(TrMat)),
+        tensor(ds) ** 2, window=frame_len)
+    mu, var, lw = (a.cpu().numpy() for a in (mu, var, lw))
+    std = np.sqrt(var[..., :1])     # the reference's 1-column std
+    labels = labels.cpu().numpy()
+    return ([mu[:, k] for k in range(T)], [std[:, k] for k in range(T)],
+            [lw[:, k] for k in range(T)], [labels for _ in range(T)])
+
+
+def get_all_estimates(all_pos_weights, all_pos_Bs, all_pos_means,
+                      all_pos_stds):
+    """Maximum-weight mixture component per position.
+
+    Reference: get_all_estimates, refined_localization.py:340-365.  Returns
+    (best_mus (n, T, D), best_sigs (n, T, 1), best_Bs (n, T) int).
+    """
+    best_mus, best_sigs, best_Bs = [], [], []
+    for w, Bs, mus, sigs in zip(all_pos_weights, all_pos_Bs, all_pos_means,
+                                all_pos_stds):
+        w = np.asarray(w)
+        idx = np.argmax(w, axis=1)
+        rows = np.arange(len(w))
+        best_mus.append(np.asarray(mus)[rows, idx])
+        best_sigs.append(np.asarray(sigs)[rows, idx])
+        best_Bs.append(np.asarray(Bs)[idx] if np.ndim(Bs) == 1
+                       else np.asarray(Bs)[rows, idx])
+    return (np.stack(best_mus, axis=1), np.stack(best_sigs, axis=1),
+            np.stack(best_Bs, axis=1).astype(int))
+
+
+def get_global_sigs_mus(all_pos_means, all_pos_stds, all_pos_weights,
+                        idx: int = 0):
+    """Moment summary of one track's per-position mixtures.
+
+    Reference: get_global_sigs_mus, refined_localization.py:521-533: means
+    weighted by exp(LC), stds by exp(LC)^2 (the reference's formula, as
+    it is).  Padding components (weight -inf) contribute zero.  Returns
+    (w_mus (T, D), w_sigs (T,)).
+    """
+    w_mus, w_sigs = [], []
+    for mus, sigs, LC in zip(all_pos_means, all_pos_stds, all_pos_weights):
+        mus = np.asarray(mus)[idx]
+        sigs = np.asarray(sigs)[idx]
+        LC = np.asarray(LC)[idx]
+        LC = LC - np.max(LC)
+        w = np.exp(LC)[:, None]
+        w_sigs.append(np.sum(w ** 2 * sigs) / np.sum(w ** 2))
+        w_mus.append(np.sum(w * mus, axis=0) / np.sum(w, axis=0))
+    return np.array(w_mus), np.array(w_sigs)
+
+
+def matrix_tables(LocErr, ds, Fs, TrMat, device, dtype):
+    """The model tables of ``get_best_estimates``, straight from the
+    transition matrix as the JAX package builds them: pair variances
+    from the step stds ``ds``, no survival (no cell); the end term is
+    unread (no track is bleached) and pBL 0.1 keeps it finite."""
+    from extrack_tpu_torch.core.tables import build_tables
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
+                               device=device)
+
+    ds2 = np.asarray(ds, dtype=np.float64) ** 2
+    S = ds2.shape[0]
+    return build_tables(tensor(np.zeros(S)), tensor(LocErr), tensor(Fs),
+                        tensor(np.zeros((S, S))), 0.1, 1.0,
+                        cell_dims=())._replace(
+        log_trans=torch.log(tensor(TrMat)),
+        sig2=tensor(0.5 * (ds2[:, None] + ds2[None, :])).reshape(1, -1))
+
+
+def get_best_estimates(Cs, LocErr, ds, Fs, TrMat, frame_len: int = 10, *,
+                       device="cuda", dtype=None):
+    """Refined positions for the argmax-posterior state sequence, on
+    ``device`` (the card by default) in ``dtype``.
+
+    Reference: get_best_estimates, refined_localization.py:551-559: the
+    per-frame state posteriors (window min(frame_len, 8), one K4 launch on
+    the card, ``predict_kernel.predict``, on ``matrix_tables``), their
+    argmax states, then the fixed-state refinement.  (The reference's loop
+    keeps only the last track; all tracks are returned, as the JAX package
+    does.)  Returns (mus (n, T, D), sigs (n, T, D)) as numpy arrays.
+    """
+    from extrack_tpu_torch.ops import predict_kernel
+    device, dtype = tdevice.resolve_device(device, dtype)
+    n, T, _ = np.shape(Cs)
+    tb = matrix_tables(LocErr, ds, Fs, TrMat, device, dtype)
+    positions = torch.as_tensor(np.asarray(Cs, dtype=np.float64),
+                                dtype=dtype, device=device)
+    lengths = torch.full((n,), T, dtype=torch.int32, device=device)
+    _, preds = predict_kernel.predict(
+        positions, lengths, torch.zeros(n, dtype=dtype, device=device), tb,
+        window=min(frame_len, 8), min_len=2)
+    mus, sigs = refine_positions_fixed_states(
+        positions, lengths, tb.loc_err2,
+        torch.as_tensor(np.asarray(ds, dtype=np.float64) ** 2, dtype=dtype,
+                        device=device), torch.argmax(preds, dim=2))
+    return mus.cpu().numpy(), sigs.cpu().numpy()
+
+
+def refine_positions_fixed_states(positions, lengths, loc_err2, sig2_states,
+                                  states):
+    """Refined positions for known state sequences (one Gaussian per
+    position, no mixture): the reference's fixed-Bs variant
+    (get_pos_PDF_fixedBs, refined_localization.py:483-519), typically fed
+    with argmax-of-posterior states.  A forward and a backward Kalman pass
+    (the backward one on per-track reversed tracks), then the
+    precision-weighted product with the observation.
+
+    states: (B, T) integer per-frame states.  Returns (mu (B,T,D),
+    sigma (B,T,D)), zeros past each track's length.
+    """
+    B, T, D = positions.shape
+    dev, dtype = positions.device, positions.dtype
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    l2 = loc_err2.to(dtype).expand(B, T, D)
+    d2 = sig2_states.to(dtype)[states.to(device=dev, dtype=torch.int64)]
+    sig2_step = 0.5 * (d2[:, :-1] + d2[:, 1:])              # (B, T-1)
+
+    def one_direction(pos, l2_, s2step):
+        # the prior (m, s2) of r_t given x_{<t}, for t = 1 .. T-1
+        m = pos[:, 0]
+        s2 = l2_[:, 0] + s2step[:, 0][:, None]
+        s2pad = torch.cat([s2step, s2step[:, -1:]], dim=1)
+        ms, s2s = [torch.zeros_like(m)], [torch.zeros_like(s2)]
+        for t in range(1, T):
+            ms.append(m)
+            s2s.append(s2)
+            x_t, l2_t = pos[:, t], l2_[:, t]
+            tot = l2_t + s2
+            new_m = (m * l2_t + x_t * s2) / tot
+            new_s2 = s2pad[:, t][:, None] + l2_t * s2 / tot
+            live = (t < lengths - 1)[:, None]
+            m = torch.where(live, new_m, m)
+            s2 = torch.where(live, new_s2, s2)
+        return torch.stack(ms, 1), torch.stack(s2s, 1)
+
+    pm, ps2 = one_direction(positions, l2, sig2_step)
+    # sig2_step[t] is the edge t -> t+1: the reversed track's edge k is
+    # the original edge L-2-k, so the edges reverse with L-1 of them
+    rstep = _reverse_tracks(sig2_step, (lengths - 1).clamp_min(1))
+    sm, ss2 = one_direction(_reverse_tracks(positions, lengths),
+                            _reverse_tracks(l2, lengths), rstep)
+    sm = _reverse_tracks(sm, lengths)
+    ss2 = _reverse_tracks(ss2, lengths)
+
+    k_idx = torch.arange(T, device=dev)[None, :]
+    first = (k_idx == 0)[..., None]
+    last = (k_idx == lengths[:, None] - 1)[..., None]
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    # the precision-weighted product of the terms present (the
+    # observation always)
+    prec = 1.0 / l2
+    mu_num = positions * prec
+    prec = prec + torch.where(first, zero, 1.0 / ps2.clamp_min(_TINY))
+    mu_num = mu_num + torch.where(first, zero, pm / ps2.clamp_min(_TINY))
+    prec = prec + torch.where(last, zero, 1.0 / ss2.clamp_min(_TINY))
+    mu_num = mu_num + torch.where(last, zero, sm / ss2.clamp_min(_TINY))
+    var = 1.0 / prec
+    mu = mu_num * var
+    valid = (k_idx < lengths[:, None])[..., None]
+    return torch.where(valid, mu, zero), torch.where(valid, var.sqrt(), zero)
+
+
+def save_gifs(all_tracks: Dict[str, np.ndarray],
+              mus: Dict[str, np.ndarray],
+              sigmas: Dict[str, np.ndarray],
+              gif_pathnames: str = "./tracks",
+              nb_pix: int = 200,
+              fps: int = 1,
+              max_tracks: int = 3):
+    """Render per-position refined-position PDFs as animated GIFs: the
+    moment-matched Gaussian of each position over the observed track
+    (save_gifs, refined_localization.py:367-411).  Host numpy, matplotlib
+    and imageio (imported here, so that the package needs neither)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import imageio
+    from matplotlib import pyplot as plt
+
+    for key in all_tracks:
+        for i in range(min(len(all_tracks[key]), max_tracks)):
+            track = all_tracks[key][i]
+            mu = mus[key][i]
+            sig = np.broadcast_to(np.asarray(sigmas[key][i]).reshape(
+                len(track), -1)[:, :1], (len(track), 1))
+            lim = np.abs(track - track.mean(0)).max() * 1.2 + 1e-6
+            grid = np.linspace(-lim, lim, nb_pix)
+            frames = []
+            for k in range(len(track)):
+                fig, ax = plt.subplots(figsize=(4, 4))
+                gx = np.exp(-(grid[None, :] - (mu[k, 0] - track[:, 0].mean()))
+                            ** 2 / (2 * sig[k, 0] ** 2))
+                gy = np.exp(-(grid[:, None] - (mu[k, 1] - track[:, 1].mean()))
+                            ** 2 / (2 * sig[k, 0] ** 2))
+                ax.imshow(gy * gx, extent=[-lim, lim, -lim, lim],
+                          origin="lower", cmap="hot")
+                ax.plot(track[:, 0] - track[:, 0].mean(),
+                        track[:, 1] - track[:, 1].mean(), "c.-", lw=0.8)
+                ax.set_title(f"position {k}")
+                fig.canvas.draw()
+                frames.append(np.asarray(fig.canvas.buffer_rgba())[:, :, :3])
+                plt.close(fig)
+            imageio.mimsave(f"{gif_pathnames}{key}_{i}.gif", frames,
+                            duration=1000.0 / max(fps, 1))
+
+
+def do_gifs_from_params(all_tracks, params, dt, gif_pathnames="./tracks",
+                        frame_len: int = 7, nb_states: int = 2,
+                        nb_pix: int = 200, fps: int = 1,
+                        max_tracks: int = 3, *, device="cuda", dtype=None):
+    """Refine (``position_refinement`` on ``device``: K6 on the card) and
+    render per-position PDF GIFs straight from fitted parameters
+    (do_gifs_from_params, refined_localization.py:562-566)."""
+    from extrack_tpu_torch import params as tparams
+    from extrack_tpu_torch.core.tables import transition_matrix
+    vals = params.resolve() if hasattr(params, "resolve") else params
+    Ds, Fs, rates, loc_err, _ = tparams.extract_arrays(vals, nb_states)
+    tr = transition_matrix(rates).numpy()
+    ds = np.sqrt(2.0 * Ds.numpy() * dt)
+    mus, sigmas = position_refinement(
+        all_tracks, float(loc_err.reshape(-1)[0]), ds, Fs.numpy(), tr,
+        frame_len=frame_len, device=device, dtype=dtype)
+    save_gifs(all_tracks, mus, sigmas, gif_pathnames=gif_pathnames,
+              nb_pix=nb_pix, fps=fps, max_tracks=max_tracks)
+
+
+# ---------------------------------------------------------------------------
+# Reference-named Gaussian-product helpers (extrack/refined_localization.py:
+# 33-46): numpy in, numpy out, over core.gaussian on the CPU in float64.
+
+def _f64(*arrays):
+    return [torch.as_tensor(np.asarray(a, dtype=np.float64)) for a in arrays]
+
+
+def prod_2GaussPDF(sigma1, sigma2, mu1, mu2):
+    """Product of two Gaussian PDFs -> (sigma, mu, log_const); log_const is
+    summed over the trailing spatial axis (refined_localization.py:33-37)."""
+    return tuple(a.numpy() for a in gaussian_ops.product_2(
+        *_f64(sigma1, sigma2, mu1, mu2)))
+
+
+def prod_3GaussPDF(sigma1, sigma2, sigma3, mu1, mu2, mu3):
+    """Product of three Gaussian PDFs (refined_localization.py:39-43)."""
+    return tuple(a.numpy() for a in gaussian_ops.product_3(
+        *_f64(sigma1, sigma2, sigma3, mu1, mu2, mu3)))
+
+
+def gaussian(x, sig, mu):
+    """Isotropic Gaussian density, product over the trailing spatial axis
+    (refined_localization.py:45-46)."""
+    x, sig, mu = np.asarray(x), np.asarray(sig), np.asarray(mu)
+    return np.prod(np.exp(-(x - mu) ** 2 / (2 * sig ** 2))
+                   / np.sqrt(2 * np.pi * sig ** 2), axis=-1)
+
+
+def get_pos_PDF_fixedBs(Cs, LocErr, ds, Fs, TrMat, Bs, *, device="cuda",
+                        dtype=None):
+    """Refined (mu, sigma) per position for a known state sequence, on
+    ``device`` in ``dtype``: the reference signature and its single-track
+    return (get_pos_PDF_fixedBs, refined_localization.py:483-519), the
+    first track's (T, D) means and (T, D) stds as numpy.  ``Fs`` and
+    ``TrMat`` are accepted for compatibility (the fixed-sequence posterior
+    does not depend on them); ``Bs`` may be (B, T) or the reference's
+    (B, 1, T)."""
+    del Fs, TrMat
+    device, dtype = tdevice.resolve_device(device, dtype)
+    Cs = np.asarray(Cs, dtype=np.float64)
+    B, T, D = Cs.shape
+    Bs = np.asarray(Bs)
+    if Bs.ndim == 3:
+        Bs = Bs[:, 0]
+    mu, sigma = refine_positions_fixed_states(
+        torch.as_tensor(Cs, dtype=dtype, device=device),
+        torch.full((B,), T, device=device),
+        _numpy_loc_err2(LocErr, device, dtype),
+        torch.as_tensor(np.asarray(ds, dtype=np.float64) ** 2, dtype=dtype,
+                        device=device),
+        torch.as_tensor(Bs, device=device))
+    return mu[0].cpu().numpy(), sigma[0].cpu().numpy()

@@ -198,3 +198,7 @@ def sim_fov(nb_tracks: int = 10000,
         out_b[key] = st
         out_s[key] = sigma[:, :, :nb_dims]
     return out_c, out_b, out_s
+
+
+# the reference's name (extrack/simulate_tracks.py:123)
+sim_FOV = sim_fov

@@ -17,7 +17,10 @@ streamed displacement-variance table of K1..K5) and K5 past one sub-step
 are held to the same tolerances (K5 there against the plain version in
 float64 on the same inputs), and so are K1, K4, K5 and K6 on their wide
 mapping (a thread a fusion group), past 1024 slots up to 4096 and forced
-onto the small registers of the other tests.
+onto the small registers of the other tests, and K4 and K5 past 4096 up
+to 16384 slots (the JAX package's defaults of ``predict_Bs`` at 6 states
+and ``len_hist`` at 4 states or two sub-steps among them), with their
+carries in shared memory or, where that cannot hold them, global scratch.
 """
 import numpy as np
 import pytest
@@ -25,9 +28,9 @@ import torch
 
 from extrack_tpu_torch import data, fit, histograms, params
 from extrack_tpu_torch.core import tables
-from extrack_tpu_torch.ops import (forward_kernel, grad_kernel, hist_kernel,
-                                   hvp_kernel, predict_kernel, refine_kernel,
-                                   topk_kernel)
+from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, grad_kernel,
+                                   hist_kernel, hvp_kernel, predict_kernel,
+                                   refine_kernel, topk_kernel)
 
 
 @pytest.fixture
@@ -491,8 +494,18 @@ def test_predict_layout(cuda):
             min(1024, -(-G // 32) * 32),
             4 * (2 * (2 * D + 1) * G + 128 + W * S * 32 + K),
             4 * max(T - W, 0) * (K | 1))
-    assert lib.extrack_predict_layout(10, 2, 3 ** 8, 3, 8, -1, 0,
-                                      ctypes.addressof(out)) != 0
+    # past shared memory (-2): only the partials stay there; the publish
+    # areas, the softmax and the stash go to the block's global scratch
+    for S, W, T, D in ((4, 7, 10, 3), (2, 14, 17, 1), (6, 5, 4, 2)):
+        K, G = S ** W, S ** (W - 1)
+        assert lib.extrack_predict_layout(T, D, K, S, W, -2, 0,
+                                          ctypes.addressof(out)) == 0
+        assert tuple(out) == (
+            1024, 4 * (128 + W * S * 32),
+            4 * (2 * (2 * D + 1) * G + K + max(T - W, 0) * (K | 1)))
+    for warps in (-1, -2):
+        assert lib.extrack_predict_layout(10, 2, 3 ** 9, 3, 9, warps, 0,
+                                          ctypes.addressof(out)) != 0
     assert lib.extrack_predict_layout(10, 2, 2 ** 11, 2, 11, 0, 0,
                                       ctypes.addressof(out)) != 0
 
@@ -527,7 +540,8 @@ def test_cuda_histogram_matches_plain(cuda, S, W, B, T, D):
                     * torch.arange(1, T + 1)[:, None]).sum())
     np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
     with pytest.raises(NotImplementedError, match="largest window"):
-        hist_kernel.hist(pos, lens, isbl, tb, window=_past_envelope(S))
+        hist_kernel.hist(pos, lens, isbl, tb,
+                         window=_past_envelope(S, "K5"))
 
 
 # every refine_kernel<D, NT> instantiation (NT = 128, 256, 512, 1024
@@ -635,10 +649,19 @@ def test_hist_layout(cuda):
             assert cuda_lib.layout("hist", T, D, K, S, A, 1) == (
                 min(1024, -(-G // 32) * 32),
                 (2 * (2 * D + 1) * G + K) * 4, 2 * G * (1 + S) * T * 4)
+    # the publish areas and member weights in global scratch (wide = 2):
+    # no dynamic shared memory, the carry holds them after the rows
+    for S, W, T, n in ((4, 7, 10, 1), (2, 13, 9, 2), (2, 14, 8, 1)):
+        K, A = S ** W, S ** n
+        G = K // A
+        for D in (1, 2, 3):
+            assert cuda_lib.layout("hist", T, D, K, S, A, 2) == (
+                1024, 0, (2 * G * (1 + S) * T + 2 * (2 * D + 1) * G + K) * 4)
     with pytest.raises(RuntimeError):
         cuda_lib.layout("hist", 10, 2, 2 ** 11, 2, 2, 0)
-    with pytest.raises(RuntimeError):
-        cuda_lib.layout("hist", 10, 2, 3 ** 8, 3, 3, 1)
+    for wide in (1, 2):
+        with pytest.raises(RuntimeError):
+            cuda_lib.layout("hist", 10, 2, 3 ** 9, 3, 3, wide)
 
 
 @pytest.mark.cuda
@@ -654,16 +677,15 @@ def test_cuda_refinement_window_past_the_envelope_raises(cuda):
     assert refine.default_window(6, 4, 1) == 4
     TrMat = np.full((6, 6), 0.02) + np.eye(6) * 0.88
     before = refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS
-    mu, sig = refine.refine_batch(batch, 0.02, np.full(6, 0.05), TrMat)
+    mu, sig, n = refine.refine_batch(batch, 0.02, np.full(6, 0.05), TrMat)
+    assert n == 5 and mu.dtype == np.float32
     assert (refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS) == (
         before[0] + 1, before[1])
     cpu = data.from_dict({"4": batch.positions.double().cpu().numpy()},
                          device="cpu")
-    mu0, sig0 = refine.refine_batch(cpu, 0.02, np.full(6, 0.05), TrMat)
-    torch.testing.assert_close(mu.double().cpu(), mu0, rtol=2e-4,
-                               atol=2e-5)
-    torch.testing.assert_close(sig.double().cpu(), sig0, rtol=2e-3,
-                               atol=2e-5)
+    mu0, sig0, _ = refine.refine_batch(cpu, 0.02, np.full(6, 0.05), TrMat)
+    np.testing.assert_allclose(mu, mu0, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(sig, sig0, rtol=2e-3, atol=2e-5)
     with pytest.raises(NotImplementedError, match="bucket.*frame_len.*K6"):
         refine.refine_batch(batch, 0.02, np.full(6, 0.05), TrMat,
                             frame_len=5)
@@ -816,10 +838,11 @@ def test_cuda_topk_pad_prefix_backpointers_match_plain(cuda, S, n, M, B, T,
 # ---- the wide mapping: 1024 < K <= 4096 -------------------------------
 
 
-def _past_envelope(S):
-    """The smallest window whose register passes the wide mapping's 4096
-    slots at S states."""
-    return next(w for w in range(1, 20) if S ** w > 4096)
+def _past_envelope(S, kernel):
+    """The smallest window whose register passes ``kernel``'s envelope
+    (K1 and K6: 4096 slots; K4 and K5: 16384) at S states."""
+    limit = forward_kernel.MAX_SLOTS[kernel]
+    return next(w for w in range(1, 20) if S ** w > limit)
 
 
 # (S, W, D, dt): K = 1296, 2048, 2187, 3125 and 4096 (2, 4 and 8 states),
@@ -866,8 +889,12 @@ def test_cuda_wide_k1_k4_match_plain(cuda, S, W, D, dt):
             continue
         torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="K4 maps at most 4096"):
-        predict_kernel.predict(*args, window=_past_envelope(S), min_len=2)
+    with pytest.raises(NotImplementedError, match="K1 maps at most 4096"):
+        forward_kernel.forward(*args, window=_past_envelope(S, "K1"),
+                               min_len=2)
+    with pytest.raises(NotImplementedError, match="K4 maps at most 16384"):
+        predict_kernel.predict(*args, window=_past_envelope(S, "K4"),
+                               min_len=2)
 
 
 # K5 past 1024 slots: (S, W, n, D, dt); two sub-steps where the window's
@@ -900,8 +927,9 @@ def test_cuda_wide_k5_matches_plain(cuda, S, W, n, D, dt):
     frames = float((got.cpu().double()
                     * torch.arange(1, T + 1)[:, None]).sum())
     np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
-    with pytest.raises(NotImplementedError, match="K5 maps at most 4096"):
-        hist_kernel.hist(pos, lens, isbl, tb, window=_past_envelope(S))
+    with pytest.raises(NotImplementedError, match="K5 maps at most 16384"):
+        hist_kernel.hist(pos, lens, isbl, tb,
+                         window=_past_envelope(S, "K5"))
 
 
 # K6 past 1024 slots: (S, W, B, T, D, per-peak LocErr)
@@ -941,7 +969,7 @@ def test_cuda_wide_k6_matches_plain(cuda, S, W, B, T, D, per_peak):
     valid = np.arange(T)[None, :] < L[:, None]
     assert np.all(mu.cpu().numpy()[~valid] == 0.0)
     with pytest.raises(NotImplementedError, match="K6 maps at most 4096"):
-        refine_kernel.refine(*args, window=_past_envelope(S))
+        refine_kernel.refine(*args, window=_past_envelope(S, "K6"))
 
 
 @pytest.mark.cuda
@@ -972,3 +1000,113 @@ def test_cuda_k6_wide_mapping_on_small_registers(cuda, case):
     mu, sig = refine_kernel.launch(pos, lens, l2, tabs, S, mapping="wide")
     torch.testing.assert_close(mu, mu0, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(sig, sig0, rtol=2e-3, atol=2e-5)
+
+
+# ---- K4 and K5 past 4096 slots, up to 16384 ----------------------------
+
+# (S, W, D, dt): K = 7776 (6 states at predict_Bs's default frame_len 5),
+# 8192 and 16384 at D = 1..3; K4's carries in shared memory (6^5, 2^13 and
+# 4^7 at D = 1) or in global scratch (the others)
+PAST_4096_K4_CASES = [
+    (6, 5, 1, None), (6, 5, 2, "track"), (6, 5, 3, "step"),
+    (2, 13, 1, "step"), (2, 13, 2, None), (2, 13, 3, "track"),
+    (4, 7, 1, "track"), (4, 7, 2, "step"), (4, 7, 3, None),
+    (2, 14, 1, None), (2, 14, 2, "track"), (2, 14, 3, "step")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D,dt", PAST_4096_K4_CASES)
+def test_cuda_k4_past_4096_slots_matches_plain(cuda, S, W, D, dt):
+    # tracks longer than the window, so that frames leave it; the stash in
+    # shared memory where it fits, and forced to global scratch
+    T = W + 3
+    args = _case(cuda, S, 1, 12, T, D, seed=S + W + D, per_peak=(D == 2),
+                 dt=dt)
+    kw = dict(window=W, min_len=2)
+    logl0, preds0 = predict_kernel.predict_plain(*args, **kw)
+    before = predict_kernel.LAUNCHES, predict_kernel.PLAIN_CALLS
+    logl, preds = predict_kernel.predict(*args, **kw)
+    again = predict_kernel.predict(*args, **kw)
+    assert (predict_kernel.LAUNCHES, predict_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    assert torch.equal(logl, again[0]) and torch.equal(preds, again[1])
+    torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
+    data_, tabs = _kernel_args(args, W)
+    logl, preds = predict_kernel.launch(data_, tabs, 2, S, W, stash="global")
+    torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
+
+
+# (S, W, n, D, dt): K = 7776, 8192 (two states at two sub-steps, window 7
+# frames: len_hist(nb_substeps=2)'s default) and 16384 (four states at
+# window 7: len_hist(nb_states=4)'s default; two states at 14), D = 1..3;
+# the publish areas and weights in shared memory or global scratch
+PAST_4096_K5_CASES = [
+    (6, 5, 1, 1, None), (6, 5, 1, 3, "track"),
+    (2, 13, 2, 1, None), (2, 13, 2, 2, "track"), (2, 13, 2, 3, "step"),
+    (4, 7, 1, 1, "step"), (4, 7, 1, 2, None), (4, 7, 1, 3, "track"),
+    (2, 14, 1, 1, "track"), (2, 14, 1, 2, "step"), (2, 14, 1, 3, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,D,dt", PAST_4096_K5_CASES)
+def test_cuda_k5_past_4096_slots_matches_plain(cuda, S, W, n, D, dt):
+    wf = (W - 1) // n + 1
+    T = wf + 3
+    pos, lens, isbl, tb = _case(cuda, S, n, 16, T, D, seed=S * W + n + D,
+                                dt=dt)
+    kw = dict(window=W, min_len=2, nb_substeps=n)
+    before = hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS
+    got = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+    assert torch.equal(got, hist_kernel.hist(pos, lens, isbl, tb, **kw))
+    assert (hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    want = hist_kernel.hist_plain(pos.double(), lens, isbl.double(),
+                                  tables.ModelTables(*(f.double()
+                                                       for f in tb)), **kw)
+    torch.testing.assert_close(got.double(), want, rtol=2e-3, atol=2e-4)
+    L = lens.cpu().numpy()
+    frames = float((got.cpu().double()
+                    * torch.arange(1, T + 1)[:, None]).sum())
+    np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 11, 1, 2, None), (3, 7, 2, 3, "step"),
+                                  (16, 3, 2, 2, None)])
+def test_cuda_k5_global_publish_on_smaller_registers(cuda, case):
+    # the wide kernel with its publish areas and weights in global scratch
+    # (wide = 2) against the one with them in shared memory, at registers
+    # where both run
+    S, W, n, D, dt = case
+    T = (W - 1) // n + 5
+    pos, lens, isbl, tb = _case(cuda, S, n, 16, T, D, seed=W, dt=dt)
+    data_, tabs = _kernel_args((pos, lens, isbl, tb), W, n)
+    want = hist_kernel.launch(data_, tabs, 2, S, W, n, mapping="wide")
+    saved = cuda_lib.smem_bytes
+    try:
+        cuda_lib.smem_bytes = lambda query, index: 0
+        got = hist_kernel.launch(data_, tabs, 2, S, W, n, mapping="wide")
+    finally:
+        cuda_lib.smem_bytes = saved
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D", [(2, 11, 2), (3, 7, 3), (5, 5, 1)])
+def test_cuda_k4_global_carries_on_smaller_registers(cuda, S, W, D):
+    # K4's wide walk with its carries in global scratch against the one
+    # with them in shared memory, at registers where both run
+    T = W + 3
+    args = _case(cuda, S, 1, 12, T, D, seed=S * W)
+    data_, tabs = _kernel_args(args, W)
+    want = predict_kernel.launch(data_, tabs, 2, S, W, stash="global")
+    saved = cuda_lib.smem_bytes
+    try:
+        cuda_lib.smem_bytes = lambda query, index: 0
+        got = predict_kernel.launch(data_, tabs, 2, S, W)
+    finally:
+        cuda_lib.smem_bytes = saved
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-3, atol=2e-4)

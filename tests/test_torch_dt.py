@@ -227,11 +227,13 @@ def test_check_envelope_names_k5_and_k7_for_variable_dt():
     with pytest.raises(NotImplementedError, match=r"dt \(K7 .*device='cpu'"):
         topk_kernel.check_envelope(10, 2, 2, 512, variable_dt=True)
     # K5 maps past 1024 slots (3^7 = 2187, len_hist's default window at
-    # 3 states) with variable dt; past 4096 it raises, naming itself
-    forward_kernel.check_envelope(10, 2, 3, 7, 1, variable_dt=True,
-                                  kernel="K5")
-    with pytest.raises(NotImplementedError, match=r"K=.*4096.*K5"):
-        forward_kernel.check_envelope(10, 2, 3, 8, 1, variable_dt=True,
+    # 3 states; 3^8 = 6561, 4^7 = 16384 at 4 states) with variable dt;
+    # past 16384 it raises, naming itself
+    for S, W in ((3, 7), (3, 8), (4, 7)):
+        forward_kernel.check_envelope(10, 2, S, W, 1, variable_dt=True,
+                                      kernel="K5")
+    with pytest.raises(NotImplementedError, match=r"K=.*16384.*K5"):
+        forward_kernel.check_envelope(10, 2, 3, 9, 1, variable_dt=True,
                                       kernel="K5")
 
 

@@ -128,6 +128,12 @@ def test_classify_sig2_and_envelope():
     with pytest.raises(NotImplementedError,
                        match="K=S.*1024.*K2.*window that fits is 10"):
         forward_kernel.check_envelope(20, 2, 2, 11, 1, kernel="K2")
+    # K4 maps up to 16384 slots (its carries in global scratch past a
+    # block's shared memory)
+    forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K4")  # 8192
+    with pytest.raises(NotImplementedError,
+                       match="K=S.*16384.*K4.*window that fits is 14"):
+        forward_kernel.check_envelope(20, 2, 2, 15, 1, kernel="K4")
     with pytest.raises(NotImplementedError, match="float64"):
         forward_kernel.check_envelope(20, 2, 2, 6, 1, dtype=torch.float64)
     tb = ttables.build_tables(

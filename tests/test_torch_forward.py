@@ -15,7 +15,8 @@ slots' digit codes.  In float64 every operation is exact to rounding, so
 it matches the engine within 1e-10.  Also here: the pure-Python ``plan``
 and ``grid`` that map a K1 or K4 launch onto the card, each kernel's
 register limit, and the wide mapping's blocks (K1, K4, K5 and K6 past
-1024 slots) at every register of its envelope.
+1024 slots; K4 and K5 past 4096 with their carries in global scratch where
+shared memory cannot hold them) at every register of its envelope.
 """
 import math
 
@@ -323,35 +324,46 @@ def test_walk_grid():
     assert nblk == (1 << 30) // (4 * big) and nbytes == nblk * 4 * big
 
 
-# ---- the wide mapping: 1024 < K <= 4096 --------------------------------
+# ---- the wide mapping: 1024 < K <= 4096 (K1, K6), 16384 (K4, K5) -------
 
 SMEM = 232448             # shared bytes a block may opt in to on an H100
-# every register of the wide mapping's envelope, K = S^W in (1024, 4096]
+# every register of the wide mapping's envelope, K = S^W in (1024, 4096],
+# and K4's and K5's past it, in (4096, 16384]
 WIDE_REGISTERS = [(S, W) for S in range(2, 65) for W in range(2, 13)
                   if 1024 < S ** W <= 4096]
+PAST_4096_REGISTERS = [(S, W) for S in range(2, 129) for W in range(2, 15)
+                       if 4096 < S ** W <= 16384]
 
 
 def _wide_threads(G):
     return min(1024, -(-G // 32) * 32)
 
 
-def _wide_walk_bytes(K, A, S, D, T, W, pred):
+def _wide_walk_bytes(K, A, S, D, T, W, pred, carries_global=False):
     """A K1/K4 block of the wide mapping: its shared bytes besides K4's
     stash, the stash's bytes and its threads (csrc/walk.cuh wide_layout;
-    the card test test_predict_layout reads the kernel's own)."""
+    with ``carries_global`` K4's wide_global_layout: the partials' bytes,
+    and the publish areas, softmax and stash in global scratch; the card
+    test test_predict_layout reads the kernel's own)."""
     G = K // A
-    fixed = 2 * (2 * D + 1) * G + 128 + ((W * S * 32 + K) if pred else 0)
+    carries = 2 * (2 * D + 1) * G + ((W * S * 32 + K) if pred else 0)
     stash = (T - W) * (K | 1) if pred and T > W else 0
-    return 4 * fixed, 4 * stash, _wide_threads(G)
+    if carries_global:
+        return (4 * (128 + W * S * 32),
+                4 * (2 * (2 * D + 1) * G + K + stash), _wide_threads(G))
+    return 4 * (carries + 128), 4 * stash, _wide_threads(G)
 
 
-def _wide_hist_bytes(K, A, S, D, T):
+def _wide_hist_bytes(K, A, S, D, T, pub_global=False):
     """K5's wide block (csrc/hist.cu hist_layout): threads, shared bytes
-    besides the rows, the rows' bytes a track (test_hist_layout reads the
-    kernel's own)."""
+    besides the rows, the rows' bytes a track (with ``pub_global`` the
+    publish areas and member weights too, in global scratch after the
+    rows; test_hist_layout reads the kernel's own)."""
     G = K // A
-    return (_wide_threads(G), 4 * (2 * (2 * D + 1) * G + K),
-            4 * 2 * G * (1 + S) * T)
+    pub, rows = 4 * (2 * (2 * D + 1) * G + K), 4 * 2 * G * (1 + S) * T
+    if pub_global:
+        return _wide_threads(G), 0, rows + pub
+    return _wide_threads(G), pub, rows
 
 
 def _wide_refine_bytes(K, S, D, T):
@@ -364,10 +376,10 @@ def _wide_refine_bytes(K, S, D, T):
 
 
 def test_mapping_choice_and_per_kernel_limits():
-    # K1: a warp up to 64 slots, a thread a fusion group above; K4: a warp
-    # up to 64, a thread a slot up to 1024, a thread a fusion group up to
-    # 4096; K5 and K6 (a block a track) go wide past 1024; K2 and K3 stop
-    # at 1024
+    # K1: a warp up to 64 slots, a thread a fusion group above, up to 4096;
+    # K4: a warp up to 64, a thread a slot up to 1024, a thread a fusion
+    # group up to 16384; K5 and K6 (a block a track) go wide past 1024, K5
+    # up to 16384, K6 up to 4096; K2 and K3 stop at 1024
     W = forward_kernel.WIDE
     Ks = (64, 65, 1024, 1025, 4096)
     assert [forward_kernel.mapping_warps("K1", K) for K in Ks] == [
@@ -390,8 +402,13 @@ def test_mapping_choice_and_per_kernel_limits():
     assert forward_kernel.mapping_warps("K5", 243, "wide") == W
     with pytest.raises(ValueError, match="block mapping takes K <= 1024"):
         forward_kernel.plan("K4", 2048, 0, 0, 0, None, mapping="block")
-    with pytest.raises(ValueError, match="wide mapping takes K <= 4096"):
-        forward_kernel.mapping_warps("K4", 8192, "wide")
+    for k in ("K4", "K5"):
+        assert forward_kernel.mapping_warps(k, 16384) == W
+        with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
+            forward_kernel.mapping_warps(k, 16807, "wide")
+    for k in ("K1", "K6"):
+        with pytest.raises(ValueError, match="wide mapping takes K <= 4096"):
+            forward_kernel.mapping_warps(k, 7776)
     with pytest.raises(ValueError, match="K1 has the mappings"):
         forward_kernel.plan("K1", 243, 0, 0, 0, None, mapping="block")
     with pytest.raises(ValueError, match="K6 has the mappings"):
@@ -406,24 +423,33 @@ def test_mapping_choice_and_per_kernel_limits():
     finally:
         forward_kernel.WARP_MAX_K = saved
     assert forward_kernel.MAX_SLOTS == {"K1": 4096, "K2": 1024, "K3": 1024,
-                                        "K4": 4096, "K5": 4096, "K6": 4096}
+                                        "K4": 16384, "K5": 16384,
+                                        "K6": 4096}
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_check_envelope_names_each_kernels_limit(kernel):
     limit = forward_kernel.MAX_SLOTS[kernel]
     forward_kernel.check_envelope(10, 2, 2, 10, 1, kernel=kernel)  # 1024
-    if limit == 4096:
+    if limit >= 4096:
         forward_kernel.check_envelope(10, 2, 2, 12, 1, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 3, 7, 1, kernel=kernel)
+    if limit == 16384:
+        # the JAX package's defaults: predict_Bs at 6 states (6^5),
+        # len_hist at two sub-steps (2^13) and at 4 states (4^7)
+        forward_kernel.check_envelope(10, 2, 6, 5, 1, kernel=kernel)
+        forward_kernel.check_envelope(10, 2, 2, 13, 2, kernel=kernel)
+        forward_kernel.check_envelope(10, 2, 4, 7, 1, kernel=kernel)
     # past the limit: the bucket, the kernel, its limit and the largest
-    # window that fits (3 states: 6 for 1024 slots, 7 for 4096)
+    # window that fits (3 states: 6 for 1024 slots, 7 for 4096, 8 for
+    # 16384)
+    fits = {1024: 6, 4096: 7, 16384: 8}[limit]
+    K = 3 ** (fits + 1)
     with pytest.raises(NotImplementedError,
-                       match=(rf"bucket 2 .*K=S\*\*window=6561 > {limit} "
+                       match=(rf"bucket 2 .*K=S\*\*window={K} > {limit} "
                               rf"register slots \({kernel} maps at most "
-                              rf"{limit}.*window that fits is "
-                              rf"{6 if limit == 1024 else 7}")):
-        forward_kernel.check_envelope(10, 2, 3, 8, 1, what="bucket 2",
+                              rf"{limit}.*window that fits is {fits}")):
+        forward_kernel.check_envelope(10, 2, 3, fits + 1, 1, what="bucket 2",
                                       kernel=kernel)
 
 
@@ -465,6 +491,44 @@ def test_wide_walk_blocks_fit_every_register(D):
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])
+def test_k4_past_4096_slots_plans_fit_every_register(D):
+    # K4 at every register of (4096, 16384]: where its wide team passes a
+    # block's shared memory the plan takes WIDE_GLOBAL (carries and stash
+    # in global scratch, the partials alone in shared memory), else the
+    # wide mapping as below 4096; global scratch within the budget
+    def occ(warps, smem):
+        return 2
+    n_global = 0
+    for S, W in PAST_4096_REGISTERS:
+        K = S ** W
+        assert forward_kernel.mapping_warps("K4", K) == forward_kernel.WIDE
+        for T in (W, W + 1, 20, 60):
+            fixed, stash, threads = _wide_walk_bytes(K, S, S, D, T, W, True)
+            pl = forward_kernel.plan("K4", K, fixed, stash, SMEM, occ)
+            if fixed > SMEM:
+                n_global += 1
+                assert pl == forward_kernel.Plan(forward_kernel.WIDE_GLOBAL,
+                                                 False)
+                fixed, stash, threads = _wide_walk_bytes(K, S, S, D, T, W,
+                                                         True, True)
+            else:
+                assert pl.warps == forward_kernel.WIDE
+            assert fixed <= SMEM and threads <= 1024
+            nblk, nbytes = forward_kernel.grid(1 << 17, pl, 132, 2, stash)
+            assert 1 <= nblk <= 264
+            assert nbytes == (0 if pl.stash_smem else nblk * stash)
+            assert nbytes <= cuda_lib.SCRATCH_BUDGET
+    # 4^7 at D = 3 and 2^14 at every D pass shared memory; 6^5 never does
+    assert n_global > 0
+    with pytest.raises(ValueError, match="does not fit"):
+        forward_kernel.plan("K4", 2 ** 14, SMEM + 4, 0, SMEM, occ,
+                            stash="smem")
+    fixed, _, _ = _wide_walk_bytes(6 ** 5, 6, 6, D, 20, 5, True)
+    assert fixed <= SMEM
+    assert _wide_walk_bytes(2 ** 14, 2, 2, D, 20, 14, True)[0] > SMEM
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
 def test_wide_hist_and_refine_blocks_fit_every_register(D):
     # K5 at every sub-step count whose frames align and K6, at every
     # register of the envelope: the fixed part fits (less K5's 132 static
@@ -492,3 +556,25 @@ def test_wide_hist_and_refine_blocks_fit_every_register(D):
     # track's rows at T = 20 466,560 bytes, in global scratch
     threads, fixed, carry = _wide_hist_bytes(3 ** 7, 3, 3, D, 20)
     assert (threads, carry) == (736, 466560) and fixed + carry > SMEM
+    # past 4096 slots: where the publish areas and member weights pass a
+    # block's shared memory (less K5's static bytes) they go to global
+    # scratch after the rows; the scratch stays within the budget
+    for S, W in PAST_4096_REGISTERS:
+        K = S ** W
+        for n in (n for n in range(1, W) if (W - 1) % n == 0):
+            for T in (2, 8, 20, 60):
+                threads, fixed, carry = _wide_hist_bytes(K, S ** n, S, D, T)
+                if fixed > SMEM - 132:
+                    threads, fixed, carry = _wide_hist_bytes(
+                        K, S ** n, S, D, T, pub_global=True)
+                assert threads % 32 == 0 and threads <= 1024
+                if fixed + carry > SMEM - 132:
+                    nblk = cuda_lib.scratch_blocks(1 << 17, 132, threads,
+                                                   carry)
+                    assert nblk * carry <= cuda_lib.SCRATCH_BUDGET
+    # len_hist's defaults past 4096 slots: 4 states at window 7 (K =
+    # 16384, 4096 groups) passes shared memory at D = 3; 2 states at two
+    # sub-steps (window 13 sub-steps, K = 8192, A = 4) never does
+    pub = _wide_hist_bytes(4 ** 7, 4, 4, D, 20)[1]
+    assert (pub > SMEM - 132) == (D == 3)
+    assert _wide_hist_bytes(2 ** 13, 4, 2, D, 20)[1] <= SMEM - 132

@@ -330,7 +330,7 @@ def test_len_hist_matches_jax_and_ignores_buckets(sim):
     # one padded batch gives the same histogram as the 4 buckets
     one = thist.hist_batch(tdata.from_dict(tracks, device="cpu"), values, 0.02,
                            cell_dims=(0.5,), window=5)
-    np.testing.assert_allclose(got, one.numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got, one, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("kind", ["dt_dict", "substeps"])
@@ -384,6 +384,38 @@ def test_len_hist_three_states_at_the_default_window_matches_jax():
         rtol=1e-10)
 
 
+@pytest.mark.parametrize("S,n", [(4, 1), (2, 2)])
+def test_len_hist_past_4096_slots_at_the_default_window_matches_jax(S, n):
+    """len_hist at JAX's default window 7 past 4096 slots: 4 states (K =
+    4^7 = 16384) and 2 states at two sub-steps a frame (13 sub-steps, K =
+    2^13 = 8192).  The card runs K5's wide mapping with its carries in
+    global scratch where shared memory cannot hold them; here the plain
+    version against JAX's len_hist, and frames conserved."""
+    tr = np.full((S, S), 0.05) + np.eye(S) * (1 - 0.05 * S)
+    Ds = tuple(np.linspace(0.0, 0.1, S))
+    tracks, _, _ = jsim.sim_fov(
+        nb_tracks=8, max_track_len=8, min_track_len=3, LocErr=0.02,
+        Ds=Ds, TrMat=tr, dt=0.02, pBL=0.1, cell_dims=(0.5, None, None),
+        seed=4 + S + n)
+    values = {"LocErr": 0.02, "pBL": 0.1,
+              **{f"D{i}": d for i, d in enumerate(Ds)},
+              **{f"F{i}": 1 / S for i in range(S)},
+              **{f"p{i}{j}": 0.05 for i in range(S) for j in range(S)
+                 if i != j}}
+    kw = dict(cell_dims=(0.5,), nb_states=S, nb_substeps=n)
+    before = hist_kernel.PLAIN_CALLS
+    got = thist.len_hist(tracks, values, 0.02, device="cpu", **kw)
+    assert hist_kernel.PLAIN_CALLS > before
+    want = jhist.len_hist(tracks, values, 0.02, **kw)
+    T = max(int(k) for k in tracks)
+    assert got.shape == want.shape == (T, S)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-9)
+    frames = (got * np.arange(1, T + 1)[:, None]).sum()
+    np.testing.assert_allclose(
+        frames, sum(v.shape[0] * v.shape[1] for v in tracks.values()),
+        rtol=1e-10)
+
+
 def test_hist_batch_chunks_and_engines(sim):
     tracks, _, values = sim
     batch = tdata.from_dict(tracks, device="cpu")
@@ -391,14 +423,14 @@ def test_hist_batch_chunks_and_engines(sim):
                              window=4)
     chunked = thist.hist_batch(batch, values, 0.02, cell_dims=(0.5,),
                                window=4, chunk=23)
-    torch.testing.assert_close(chunked, whole, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(chunked, whole, rtol=1e-12, atol=1e-12)
     # the JAX package's names of its two window implementations run the
     # port's one implementation per device
     before = hist_kernel.PLAIN_CALLS
     for engine in ("pallas", "xla"):
-        assert torch.equal(thist.hist_batch(batch, values, 0.02,
-                                            cell_dims=(0.5,), window=4,
-                                            engine=engine), whole)
+        assert np.array_equal(thist.hist_batch(batch, values, 0.02,
+                                               cell_dims=(0.5,), window=4,
+                                               engine=engine), whole)
     assert hist_kernel.PLAIN_CALLS == before + 2
     with pytest.raises(NotImplementedError, match="nb_substeps > 1"):
         thist.hist_batch(batch, values, 0.02, engine="pallas", nb_substeps=2)

@@ -141,6 +141,33 @@ def test_predict_Bs_five_states_at_the_default_frame_len_matches_jax():
                                    atol=1e-9)
 
 
+def test_predict_Bs_six_states_at_the_default_frame_len_matches_jax():
+    """predict_Bs at 6 states and its default frame_len 5 (K = 6^5 = 7776,
+    past 4096 slots: the card runs K4's wide mapping), on the CPU against
+    JAX's; each frame's posteriors sum to one."""
+    S = 6
+    tr = np.full((S, S), 0.03) + np.eye(S) * (1 - 0.03 * S)
+    Ds = (0.0, 0.01, 0.02, 0.04, 0.07, 0.1)
+    tracks, _, _ = jsim.sim_fov(
+        nb_tracks=8, max_track_len=8, min_track_len=2, LocErr=0.02, Ds=Ds,
+        TrMat=tr, dt=0.02, pBL=0.1, cell_dims=(0.5, None, None), seed=11)
+    values = {"LocErr": 0.02, "pBL": 0.1,
+              **{f"D{i}": d for i, d in enumerate(Ds)},
+              **{f"F{i}": 1 / S for i in range(S)},
+              **{f"p{i}{j}": 0.03 for i in range(S) for j in range(S)
+                 if i != j}}
+    want = jpredict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                               nb_states=S)
+    got = tpredict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                              nb_states=S, device="cpu")
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape == (len(tracks[k]), int(k), S)
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-9,
+                                   atol=1e-9)
+        np.testing.assert_allclose(got[k].sum(-1), 1.0, rtol=1e-10)
+
+
 def test_predict_batch_chunks_and_parameters(sim):
     tracks, values = sim
     spec = tparams.generate_params(nb_states=2, D_max=1.0)

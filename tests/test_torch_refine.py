@@ -208,9 +208,10 @@ def test_refine_batch_defaults_and_sharding(tracks):
     ds, tr = np.array([0.02, 0.1, 0.2]), np.full((3, 3), 1 / 3)
     W = jrefine.default_window(3, batch.max_len, batch.nb_dims)
     assert W == 6                      # 3 states at T=9, D=2
-    mu, _ = trefine.refine_batch(batch, 0.02, ds, tr)
-    muW, _ = trefine.refine_batch(batch, 0.02, ds, tr, frame_len=W)
-    torch.testing.assert_close(mu, muW, rtol=0, atol=0)
+    mu, _, n = trefine.refine_batch(batch, 0.02, ds, tr)
+    muW, _, _ = trefine.refine_batch(batch, 0.02, ds, tr, frame_len=W)
+    assert n == batch.batch_size
+    np.testing.assert_array_equal(mu, muW)
     with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
         trefine.refine_batch(batch, 0.02, ds, tr, sharded=True)
 

@@ -168,8 +168,8 @@ def test_topk_engine_names_are_one_computation(sim):
     c = thist.hist_batch(batch, values, 0.02, engine="topk", chunk=17, **kw)
     assert (topk_kernel.PLAIN_CALLS, topk_kernel.LAUNCHES) == (
         before[0] + 2 + -(-batch.batch_size // 17), before[1])
-    assert torch.equal(a, b)
-    torch.testing.assert_close(c, a, rtol=1e-12, atol=1e-12)
+    assert np.array_equal(a, b)
+    np.testing.assert_allclose(c, a, rtol=1e-12, atol=1e-12)
 
 
 def test_segment_histogram_matches_pallas_interpret():
