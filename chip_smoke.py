@@ -148,7 +148,23 @@ Phases (each prints its lines; a failed check exits non-zero):
    its plain version; at 3 states ``tracking.Proba_Cs`` (K1) and
    ``refine.get_best_estimates`` (K4 at K = 6561); then the three
    kernels' bare times on 2^12-2^13 random walks beside their bounds and
-   plain versions (one unwarmed pass of the plain version).
+   plain versions (one unwarmed pass of the plain version);
+13. simulate -> fit -> sample on the card: ``simulate.sim_fov_batch`` at
+   the main path's model and 10^6 requested tracks (its wall time, batch
+   invariants and length histogram against phase 3's host ``sim_fov``),
+   ``fit.fit(compute_errors=True)`` on those batches (D1 and LocErr held
+   to the simulated ones, K2 and K3 launches), a ~10^4-track subset's
+   warm-start fit with error bars, then ``sample.sample_posterior`` from it
+   with its Fisher errors (acceptance, step size, R-hat, ESS, the
+   posterior of D1 against the 10^6-track fit's and the Fisher error, K2
+   launches against the sampler's formula with 0 plain calls, the wall
+   time per iteration against bare K2 time x launches); K2 at the
+   sampler's buckets against the plain version (at the fit's start), the
+   kernel launches and heaviest host operations of one gradient of the
+   HMC potential (``torch.profiler``), the potential's value and
+   z-gradient against the plain version in float64, the samples at
+   ``dispatch_chunk`` 4 and 10000 bit for bit, and
+   ``simulate.brownian_frames`` on 2^20 x 10 frames (time, moments).
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -314,6 +330,30 @@ BEST_CHECK = 64               # get_best_estimates' tracks run on the CPU
 PAST_TIMES = [("K4 past 4096", 6, 5, 1, 1 << 13),
               ("K5 past 4096", 4, 7, 1, 1 << 12),
               ("K5 n=2 past 4096", 2, 13, 2, 1 << 12)]
+# phase 13: the main path's model simulated on the card at 10^6 requested
+# tracks; the fit's D1 and LocErr within tests/test_simulate_device.py's
+# tolerances of the simulated ones
+SIM_DEV = dict(SIM, nb_tracks=1_000_000)
+TOL_SIM_FIT = {"D1": 0.015, "LocErr": 0.005}
+# the sampler's subset and budget (2 chains, 2 length buckets: at 10^4
+# tracks a gradient is ~40 ms of host work over 4 buckets against 0.6 ms
+# of K2, so the run is sized to about 50 s on an H100), its R-hat bound
+# and the posterior checks: the mean
+# of D1 within SAMPLE_SDS posterior sds of the 10^6-track fit's D1, the
+# sd within a factor SAMPLE_SDS of the warm-start fit's Fisher error
+SAMPLE_TRACKS = 10_000
+SAMPLE_KW = dict(num_chains=2, num_warmup=60, num_samples=90, n_leapfrog=6,
+                 max_buckets=2, seed=0)
+RHAT_MAX = 1.3
+SAMPLE_SDS = 4.0
+PROFILE_EVALS = 5             # gradients under torch.profiler
+# dispatch_chunk invariance at a tiny size
+CHUNK_TRACKS = 500
+CHUNK_KW = dict(num_chains=2, num_warmup=6, num_samples=7, n_leapfrog=3,
+                max_buckets=1, seed=5)
+BROWNIAN = dict(nb_tracks=1 << 20, track_len=10, Ds=(0.0, 0.08),
+                Fs=(0.5, 0.5), tr_mat=[[0.9, 0.1], [0.1, 0.9]], loc_err=0.02,
+                dt=0.02)
 BENCH_DT = (0.01, 0.03)       # phase 10's per-track intervals at the bench
 FIT_ITERS = 200
 BENCH_TRACKS = 1 << 20
@@ -1090,6 +1130,10 @@ def main() -> int:
         "K5 n=2 past 4096": entry("duration_hist_substeps_past_4096",
                                   "hist.cu",
                                   "extrack_tpu/ops/pallas_hist.py:63"),
+        # the HMC sampler's gradients (phase 13): K2 at its subset's
+        # buckets, as every leapfrog step launches it
+        "K2 sample": entry("loglik_grad_sampler", "grad.cu",
+                           "extrack_tpu/ops/pallas_grad.py:549"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1212,6 +1256,7 @@ def main() -> int:
     t0 = time.time()
     tracks, true_states, _ = simulate.sim_fov(**SIM)
     n_tr = sum(len(v) for v in tracks.values())
+    host_counts = {int(k): len(v) for k, v in tracks.items()}
     log(f"phase 3: simulated {n_tr} tracks in {time.time() - t0:.1f} s")
     # kernels vs plain at the fit's own bucket shapes, start parameters:
     # first each table cotangent per bucket, then the whole objective
@@ -2143,6 +2188,7 @@ def main() -> int:
             ms5)
     phase11(dev, card, kinfo, errs, reset_counts, plain_calls)
     phase12(dev, card, kinfo, errs, reset_counts, plain_calls)
+    phase13(dev, card, kinfo, errs, reset_counts, plain_calls, host_counts)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
@@ -3151,6 +3197,322 @@ def phase12(dev, card, kinfo, errs, reset_counts, plain_calls):
             f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
         del bench, args
     log(f"phase 12: {time.time() - t12:.1f} s")
+
+
+def phase13(dev, card, kinfo, errs, reset_counts, plain_calls, host_counts):
+    """Simulate on the card, fit, and draw HMC posterior samples from the
+    fit's warm start (``host_counts``: phase 3's host ``sim_fov`` lengths,
+    the same model at 10^5 requested tracks)."""
+    from extrack_tpu_torch import data, fit, params, sample, simulate
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
+                                       hvp_kernel)
+    t13 = time.time()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # ---- sim_fov_batch at 10^6 requested tracks ----------------------------
+    torch.cuda.synchronize()
+    t0 = time.time()
+    batches, states = simulate.sim_fov_batch(**SIM_DEV)
+    torch.cuda.synchronize()
+    t_sim = time.time() - t0
+    lens = np.concatenate([b.np_lengths for b in batches])
+    n_dev = len(lens)
+    bad = []
+    for b, st in zip(batches, states):
+        le = b.lengths.cpu().numpy()
+        valid = torch.arange(b.max_len, device=dev)[None, :] < b.lengths[:,
+                                                                          None]
+        if not (np.array_equal(le, b.np_lengths)
+                and le.min() >= SIM_DEV["min_track_len"]
+                and b.lengths.dtype == torch.int32
+                and st.dtype == torch.int8
+                and b.positions.dtype == torch.float32
+                and bool((b.positions[~valid] == 0).all())
+                and bool(torch.isfinite(b.positions).all())
+                and np.array_equal(b.is_bleached.cpu().numpy(),
+                                   (le < lens.max()).astype(np.float32))):
+            bad.append(b.max_len)
+    n_host = sum(host_counts.values())
+    req = SIM_DEV["nb_tracks"] / SIM["nb_tracks"]
+    mean_host = (sum(L * c for L, c in host_counts.items()) / n_host)
+    yield_err = abs(n_dev / req - n_host) / n_host
+    mean_err = abs(lens.mean() - mean_host) / mean_host
+    log(f"phase 13: sim_fov_batch on the card, {SIM_DEV['nb_tracks']} "
+        f"requested tracks (T={SIM_DEV['max_track_len']}, cells "
+        f"{SIM_DEV['cell_dims']}): {n_dev} tracks in {len(batches)} buckets "
+        f"(T={[b.max_len for b in batches]}) in {t_sim:.2f} s; invariants "
+        f"(lengths, dtypes, zero padding, bleach flags) "
+        f"{'ok' if not bad else f'FAIL at T={bad}'} [{card}]")
+    shares = []
+    for L in sorted(host_counts):
+        c_dev = int((lens == L).sum()) / req
+        c_host = host_counts[L]
+        rel = abs(c_dev - c_host) / c_host
+        shares.append(c_host < 400 or rel < 0.15)
+        log(f"phase 13: length {L}: card {int((lens == L).sum())} "
+            f"({c_dev:.1f} per 10^5 requested), host sim_fov {c_host}, "
+            f"rel {rel:.3f}")
+    ok = not bad and yield_err < 0.05 and mean_err < 0.03 and all(shares)
+    log(f"phase 13: yield per 10^5 requested {n_dev / req:.1f} vs host "
+        f"{n_host} (rel {yield_err:.4f}, tol 0.05), mean length "
+        f"{lens.mean():.4f} vs {mean_host:.4f} (rel {mean_err:.4f}, tol "
+        f"0.03), populous lengths within 0.15 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("sim_fov_batch: invariants or length distribution")
+    del states
+
+    # ---- the fit with error bars on the card's batches ---------------------
+    spec = params.generate_params(
+        nb_states=2, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+        D_max=3.0, estimated_transition_rates=0.1)
+    reset_counts()
+    t0 = time.time()
+    res = fit.fit(batches, spec, 0.02, 2, cell_dims=(0.5,),
+                  compute_errors=True, max_iter=FIT_ITERS)
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    k2, k3, plain = grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES, plain_calls()
+    d1, le_fit = res.params["D1"].value, res.params["LocErr"].value
+    d1_big = d1
+    ok = (abs(d1 - SIM["Ds"][1]) < TOL_SIM_FIT["D1"]
+          and abs(le_fit - SIM["LocErr"]) < TOL_SIM_FIT["LocErr"]
+          and k3 == len(spec.free_names()) * len(batches) and plain == 0
+          and k2 > 0)
+    log(f"phase 13: fit with error bars on {n_dev} card-simulated tracks "
+        f"{t_fit:.2f} s ({res.n_evals} evals, {res.message}): D1 {d1:.6f} "
+        f"+/- {res.std_errors['D1_minus_D0']:.2e} (simulated "
+        f"{SIM['Ds'][1]}, tol {TOL_SIM_FIT['D1']}), LocErr {le_fit:.6f} "
+        f"+/- {res.std_errors['LocErr']:.2e} (simulated {SIM['LocErr']}, "
+        f"tol {TOL_SIM_FIT['LocErr']}); K2 launches {k2}, K3 launches {k3}, "
+        f"plain calls {plain} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail("the fit on the card's simulation missed D1 or LocErr, or its "
+             "launches are off")
+
+    # ---- a ~10^4-track subset: warm-start fit with error bars --------------
+    step = max(1, n_dev // SAMPLE_TRACKS)
+    sub = {}
+    for b in batches:
+        part = data.TrackBatch(b.positions[::step], b.lengths[::step],
+                               np_lengths=b.np_lengths[::step])
+        sub.update(data.to_dict(part))
+    del batches
+    n_sub = sum(len(v) for v in sub.values())
+    reset_counts()
+    t0 = time.time()
+    warm = fit.param_fitting(sub, 0.02, params=res.params.copy(),
+                             nb_states=2, compute_errors=True,
+                             cell_dims=(0.5,), verbose=0, max_iter=FIT_ITERS)
+    torch.cuda.synchronize()
+    t_warm = time.time() - t0
+    k2, k3, plain = grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES, plain_calls()
+    fisher = warm.std_errors
+    log(f"phase 13: warm-start fit with error bars on a {n_sub}-track "
+        f"subset (every {step}th) {t_warm:.2f} s ({warm.n_evals} evals): "
+        + ", ".join(f"{k}={p.value:.5g} +/- {fisher.get(k, 0.0):.2e}"
+                    for k, p in warm.params.items() if k in fisher)
+        + f"; K2 launches {k2}, K3 launches {k3}, plain calls {plain} "
+        f"[{card}]")
+    if plain != 0 or k3 == 0:
+        fail("the warm-start fit did not run K2 and K3 alone")
+
+    # ---- K2 at the sampler's buckets: parity, bare time, bound -------------
+    nbk = SAMPLE_KW["max_buckets"]
+    buckets = data.from_dict_bucketed(sub, max_buckets=nbk, device=dev)
+    n_b = len(buckets)
+    sub_lens = np.concatenate([data.host_lengths(b) for b in buckets])
+    min_len = data.default_min_len(sub_lens)
+    # the tables at the fit's start (as phase 3): at the optimum the table
+    # cotangents are sums that cancel to near 0, below what f32 resolves
+    # against a relative tolerance (the potential's check below takes the
+    # warm start, against its absolute tolerance)
+    vals = spec.resolve()
+    Ds, Fs, rates, loc_err, pBL = params.extract_arrays(vals, 2, **f32)
+    tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, 0.02,
+                             cell_dims=(0.5,))
+    window = fit.default_window(2)
+    kw = dict(window=window, nb_substeps=1, min_len=min_len)
+    for b in buckets:
+        errs["K2 sample"].append(check_table_grads(
+            f"phase 13: K2 sampler bucket T={b.max_len} B={b.batch_size}",
+            b.positions, b.lengths, b.is_bleached, tb, **kw))
+    args = [forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                         b.is_bleached, tb, window, 1)
+            for b in buckets]
+    args = [(d, [t.detach() for t in tabs]) for d, tabs in args]
+
+    def k2_eval():
+        for d, tabs in args:
+            grad_kernel.launch(d, tabs, min_len)
+
+    def p2_eval():
+        for b in buckets:
+            grad_kernel.value_and_table_grads_plain(
+                b.positions, b.lengths, b.is_bleached, tb, **kw)
+
+    # the potential the sampler differentiates, as sample_posterior builds
+    # it: -logL over the same buckets minus the log-Jacobian
+    obj = fit.make_objective(buckets, warm.params, 0.02, 2,
+                             cell_dims=(0.5,))
+    z0 = torch.tensor(warm.params.to_unconstrained(), **f32)
+
+    def potential_eval(objective=obj, z=z0):
+        z = z.detach().requires_grad_(True)
+        u = objective(z) - warm.params.unconstrained_log_jacobian(z)
+        (g,) = torch.autograd.grad(u, z)
+        return u.detach(), g
+
+    info = kinfo["K2 sample"]
+    info["ms"] = cuda_ms(k2_eval, 20)
+    info["wrapper_ms"] = cuda_ms(potential_eval, 20)
+    info["plain_ms"] = cuda_ms(p2_eval, 3)
+    rows = sum(b.positions.numel() for b in buckets) * 4
+    info["bound_ms"], info["bound_by"] = bound(
+        3 * rows + 12 * n_sub, walk_ops(sub_lens, 2 ** window, 2, 2, "K2"))
+    log(f"phase 13: K2 on the sampler's {n_b} buckets ({n_sub} tracks, "
+        f"W={window}): one evaluation's launches {info['ms']:.4f} ms bare, "
+        f"{info['wrapper_ms']:.4f} ms as the sampler's potential (value and "
+        f"z-gradient); plain {info['plain_ms']:.3f} ms; bound "
+        f"{info['bound_ms']:.5f} ms ({info['bound_by']}) [{card}]")
+    # the potential and its z-gradient at z0 against the plain version in
+    # float64 on the same subset (on the CPU: the card's entry points take
+    # float32)
+    reset_counts()
+    u_k, g_k = potential_eval()
+    k2_pot, plain_pot = grad_kernel.LAUNCHES, plain_calls()
+    b64 = data.from_dict_bucketed(sub, max_buckets=nbk, device="cpu")
+    obj64 = fit.make_objective(b64, warm.params, 0.02, 2, cell_dims=(0.5,))
+    u_p, g_p = (x.to(dev) for x in potential_eval(obj64, z0.cpu().double()))
+    ok = (k2_pot == n_b and plain_pot == 0
+          and torch.allclose(u_k.double(), u_p, **TOL_K2_VALUE)
+          and torch.allclose(g_k.double(), g_p, **TOL_Z_GRAD))
+    log(f"phase 13: potential at z0 on the card {float(u_k):.4f} vs plain "
+        f"float64 {float(u_p):.4f} (rel "
+        f"{abs(float(u_k) - float(u_p)) / abs(float(u_p)):.2e}, tol "
+        f"{TOL_K2_VALUE}); z-gradient max_abs_err "
+        f"{float((g_k.double() - g_p).abs().max()):.3e} (|g|max "
+        f"{float(g_p.abs().max()):.3e}, tol {TOL_Z_GRAD}); K2 launches "
+        f"{k2_pot}, plain calls {plain_pot} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the HMC potential on the card disagrees with the plain "
+             "version")
+    del b64, obj64
+
+    # ---- sample_posterior from the warm start, with its Fisher errors -------
+    C, W, S = (SAMPLE_KW[k] for k in ("num_chains", "num_warmup",
+                                      "num_samples"))
+    L = SAMPLE_KW["n_leapfrog"]
+    steps_a = max(2 * W // 3, 1)
+    iters = steps_a + max(W - steps_a, 1) + S
+    want_k2 = C * n_b * (1 + iters * (L + 1))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = sample.sample_posterior(sub, 0.02, warm.params, nb_states=2,
+                                  cell_dims=(0.5,), fisher_sd=fisher,
+                                  **SAMPLE_KW)
+    torch.cuda.synchronize()
+    t_s = time.time() - t0
+    k2, k1, plain = (grad_kernel.LAUNCHES, forward_kernel.LAUNCHES,
+                     plain_calls())
+    info["launches"] = k2
+    d1s = out.samples["D1_minus_D0"] + out.samples["D0"]
+    mean, sd = float(d1s.mean()), float(d1s.std())
+    se = fisher["D1_minus_D0"]
+    rhat = out.rhat["D1_minus_D0"]
+    log(f"phase 13: sample_posterior on {n_sub} tracks ({n_b} buckets), "
+        f"{C} chains x ({W} warmup + {S} samples), {L} leapfrog steps: "
+        f"{t_s:.2f} s; acceptance {out.accept_rate:.3f}, step size "
+        f"{out.step_size:.4g} [{card}]")
+    for line in out.summary().splitlines():
+        log(f"phase 13:   {line}")
+    per_iter = t_s / (C * iters) * 1e3
+    k2_iter = info["ms"] * (L + 1)
+    log(f"phase 13: {per_iter:.3f} ms per HMC iteration against bare K2 "
+        f"{k2_iter:.4f} ms ({L + 1} evaluations x {n_b} launches): host "
+        f"share {1 - k2_iter / per_iter:.4f} [{card}]")
+    ok_k = k2 == want_k2 and k1 == 0 and plain == 0
+    log(f"phase 13: sampler K2 launches {k2} = {C} chains x {n_b} buckets x "
+        f"(1 + {iters} iterations x ({L} + 1)) = {want_k2}: {k2 == want_k2}; "
+        f"K1 launches {k1}, plain calls {plain} {'ok' if ok_k else 'FAIL'}")
+    if not ok_k:
+        fail("the sampler's launches differ from its formula, or it called "
+             "a plain version")
+    d_big = abs(mean - d1_big) / sd
+    d_sim = abs(mean - SIM["Ds"][1]) / sd
+    ok = (rhat < RHAT_MAX and d_big < SAMPLE_SDS
+          and se / SAMPLE_SDS < sd < SAMPLE_SDS * se
+          and 0.0 < out.accept_rate <= 1.0)
+    log(f"phase 13: posterior D1 {mean:.6f} +/- {sd:.3e}: R-hat {rhat:.4f} "
+        f"(< {RHAT_MAX}), ESS {out.ess['D1_minus_D0']:.1f}; "
+        f"{d_big:.2f} sd from the {n_dev}-track fit's D1 {d1_big:.6f} "
+        f"(< {SAMPLE_SDS}); sd / Fisher error {sd / se:.3f} (within "
+        f"{SAMPLE_SDS}x); {d_sim:.2f} sd from the simulated D1 "
+        f"{SIM['Ds'][1]} (the model's shortfall, shared with the JAX "
+        f"package: tests/fit_bias_check.py) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the posterior did not converge or misses the fit")
+
+    # where the potential's host time goes (after the timed run: the
+    # profiler's hooks stay out of it): CUDA launches and the heaviest
+    # host operations of PROFILE_EVALS gradients (torch.profiler)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_EVALS):
+            potential_eval()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+    top = sorted((e for e in ev if not e.key.startswith("cuda")),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
+    log(f"phase 13: one gradient of the potential makes "
+        f"{launches / PROFILE_EVALS:.0f} kernel launches; most host time "
+        f"(self, a gradient, under the profiler): " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / PROFILE_EVALS / 1e3:.3f} ms "
+            f"({e.count // PROFILE_EVALS} calls)" for e in top))
+
+    # ---- dispatch_chunk invariance on the card -----------------------------
+    tiny = {k: v[:max(1, CHUNK_TRACKS * len(v) // n_sub)]
+            for k, v in sub.items()}
+    runs = [sample.sample_posterior(tiny, 0.02, nb_states=2,
+                                    cell_dims=(0.5,), dispatch_chunk=c,
+                                    **CHUNK_KW) for c in (4, 10_000)]
+    same = all(np.array_equal(runs[0].samples[k], runs[1].samples[k])
+               for k in runs[0].samples)
+    log(f"phase 13: sample_posterior on {sum(len(v) for v in tiny.values())}"
+        f" tracks at dispatch_chunk 4 and 10000: samples bit-identical "
+        f"{same} {'ok' if same else 'FAIL'}")
+    if not same:
+        fail("dispatch_chunk changed the samples on the card")
+
+    # ---- brownian_frames at 2^20 x 10 frames -------------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    bf = dict(BROWNIAN)
+    ms_bf = cuda_ms(lambda: simulate.brownian_frames(gen, **bf), 5)
+    x, st = simulate.brownian_frames(gen, **bf)
+    x = x.double()
+    dx2 = ((x[:, 1:] - x[:, :-1]) ** 2).mean(-1)
+    d2 = 2.0 * torch.tensor(bf["Ds"], dtype=torch.float64, device=dev) \
+        * bf["dt"]
+    stl = st.long()
+    want = (d2[stl[:, :-1]] + d2[stl[:, 1:]]) / 2 + 2 * bf["loc_err"] ** 2
+    occ = float(st.double().mean())
+    switch = float((st[:, 1:] != st[:, :-1]).double().mean())
+    ratio = float(dx2.mean() / want.mean())
+    ok = (abs(occ - 0.5) < 0.005 and abs(switch - 0.1) < 0.003
+          and abs(ratio - 1.0) < 0.01 and tuple(x.shape) == (
+              bf["nb_tracks"], bf["track_len"], 2))
+    log(f"phase 13: brownian_frames {bf['nb_tracks']} x {bf['track_len']} "
+        f"frames {ms_bf:.3f} ms; state-1 share {occ:.4f} (0.5), switches "
+        f"{switch:.4f} (0.1), displacement variance / model "
+        f"{ratio:.4f} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail("brownian_frames moments")
+    log(f"phase 13: {time.time() - t13:.1f} s")
 
 
 if __name__ == "__main__":

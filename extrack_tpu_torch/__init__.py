@@ -2,8 +2,9 @@
 
 Single-particle-tracking state inference on the ExTrack model: maximum
 likelihood fitting of multi-state diffusion models on localization tracks,
-with Fisher error bars, per-frame state annotation, state-duration
-histograms and position refinement.  The likelihood, its gradient, its
+with Fisher error bars, HMC posterior samples, per-frame state annotation,
+state-duration histograms, position refinement and track simulation (on
+the host, or on the card).  The likelihood, its gradient, its
 Hessian-vector products, the posteriors, the histograms (window and
 top-K) and the refinement are hand-written CUDA kernels for NVIDIA Hopper
 (``ops/``);
@@ -20,6 +21,7 @@ _SUBMODULES = {
     "params": "extrack_tpu_torch.params",
     "predict": "extrack_tpu_torch.predict",
     "refine": "extrack_tpu_torch.refine",
+    "sample": "extrack_tpu_torch.sample",
     "simulate": "extrack_tpu_torch.simulate",
     "tracking": "extrack_tpu_torch.tracking",
     "engine": "extrack_tpu_torch.core.engine",

@@ -211,6 +211,17 @@ class Parameters:
         return {n: _from_z(z[i], self._params[n].min, self._params[n].max)
                 for i, n in enumerate(self.free_names())}
 
+    def unconstrained_log_jacobian(self, z: torch.Tensor) -> torch.Tensor:
+        """Sum of log |d theta_i / d z_i| over the free parameters: the
+        change-of-variables term that makes a flat prior on the bounded
+        parameters flat in unconstrained space (see sample.py);
+        differentiable in z."""
+        total = torch.zeros((), dtype=z.dtype, device=z.device)
+        for i, n in enumerate(self.free_names()):
+            p = self._params[n]
+            total = total + _logdet_from_z(z[i], p.min, p.max)
+        return total
+
     def set_values(self, values: Dict[str, float]):
         for n, v in values.items():
             if n in self._params:
@@ -249,6 +260,21 @@ def _from_z(z: torch.Tensor, lo, hi) -> torch.Tensor:
     if np.isinf(lo):
         return hi - torch.exp(-z)
     return lo + (hi - lo) * torch.clamp(torch.sigmoid(z), 1e-14, 1.0 - 1e-14)
+
+
+def _logdet_from_z(z: torch.Tensor, lo, hi) -> torch.Tensor:
+    """log |d _from_z(z)/dz|: the bijection's log-Jacobian, used by the
+    posterior sampler so flat priors on the BOUNDED parameters stay flat
+    after the change of variables to unconstrained space."""
+    if np.isinf(lo) and np.isinf(hi):
+        return torch.zeros_like(z)
+    if np.isinf(hi):
+        return z
+    if np.isinf(lo):
+        return -z
+    s = torch.sigmoid(z)
+    return (math.log(hi - lo) + torch.log(torch.clamp(s, min=1e-14))
+            + torch.log(torch.clamp(1.0 - s, min=1e-14)))
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ the port?  Fits ``chip_smoke.py``'s main-path draw (its ``SIM`` at
 ``--tracks`` tracks: two states, Ds 0 and 0.08, LocErr 0.02, dt 0.02,
 cells of 0.5, seed 0) with both packages' ``param_fitting`` on the CPU in
 float64, from the same default start, and prints each package's fitted
-parameters, evaluations and log likelihood.  It imports both packages, as
+parameters, evaluations and log likelihood, and D1's Fisher error with
+the simulated D1's distance from the fit in those errors (how many
+posterior sds a sampler on this draw should sit from the simulated D1).  It imports both packages, as
 the tests do; it is not collected by pytest (it takes minutes)::
 
     python -m tests.fit_bias_check [--tracks 10000]
@@ -39,7 +41,8 @@ def main() -> int:
             and all((tracks[k] == jtracks[k]).all() for k in tracks))
     print(f"{sum(len(v) for v in tracks.values())} tracks; the two "
           f"simulators drew the same tracks: {same}")
-    kw = dict(nb_states=2, verbose=0, cell_dims=(0.5,), max_iter=200)
+    kw = dict(nb_states=2, verbose=0, cell_dims=(0.5,), max_iter=200,
+              compute_errors=True)
     for name, run in (
             ("JAX", lambda: jfit.param_fitting(tracks, 0.02, **kw)),
             ("port", lambda: tfit.param_fitting(tracks, 0.02, device="cpu",
@@ -49,6 +52,10 @@ def main() -> int:
         print(f"{name}: {res.n_evals} evaluations in {time.time() - t0:.1f} "
               f"s, logL {res.logl:.6f}, " + ", ".join(
                   f"{k}={p.value:.6g}" for k, p in res.params.items()))
+        se = res.std_errors["D1_minus_D0"]
+        gap = abs(res.params["D1"].value - SIM["Ds"][1]) / se
+        print(f"{name}: D1 Fisher error {se:.6g}; the simulated D1 "
+              f"{SIM['Ds'][1]} lies {gap:.3f} errors from the fit")
     return 0
 
 

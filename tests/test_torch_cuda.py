@@ -21,12 +21,16 @@ onto the small registers of the other tests, and K4 and K5 past 4096 up
 to 16384 slots (the JAX package's defaults of ``predict_Bs`` at 6 states
 and ``len_hist`` at 4 states or two sub-steps among them), with their
 carries in shared memory or, where that cannot hold them, global scratch.
+The HMC sampler runs its gradients on K2 alone (its launches by the
+formula in ``sample``'s docstring) and draws the same samples for any
+``dispatch_chunk``; the device simulators run on the card by default.
 """
 import numpy as np
 import pytest
 import torch
 
-from extrack_tpu_torch import data, fit, histograms, params
+from extrack_tpu_torch import data, fit, histograms, params, sample, \
+    simulate
 from extrack_tpu_torch.core import tables
 from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, grad_kernel,
                                    hist_kernel, hvp_kernel, predict_kernel,
@@ -1110,3 +1114,41 @@ def test_cuda_k4_global_carries_on_smaller_registers(cuda, S, W, D):
         cuda_lib.smem_bytes = saved
     torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(got[1], want[1], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_runs_k2_alone_for_any_chunking(cuda):
+    tracks, _, _ = simulate.sim_fov(nb_tracks=300, max_track_len=8,
+                                    min_track_len=3, Ds=(0.0, 0.08),
+                                    cell_dims=(0.5,), seed=3)
+    C, W, S, L = 2, 9, 11, 4
+    kw = dict(nb_states=2, num_chains=C, num_warmup=W, num_samples=S,
+              n_leapfrog=L, cell_dims=(0.5,), seed=5)
+    n_b = len(data.from_dict_bucketed(tracks, device=cuda))
+    mods = (forward_kernel, grad_kernel, hvp_kernel)
+    for m in mods:
+        m.LAUNCHES = m.PLAIN_CALLS = 0
+    a = sample.sample_posterior(tracks, 0.02, dispatch_chunk=4, **kw)
+    steps_a = max(2 * W // 3, 1)
+    iters = steps_a + max(W - steps_a, 1) + S
+    assert grad_kernel.LAUNCHES == C * n_b * (1 + iters * (L + 1))
+    assert forward_kernel.LAUNCHES == hvp_kernel.LAUNCHES == 0
+    assert sum(m.PLAIN_CALLS for m in mods) == 0
+    b = sample.sample_posterior(tracks, 0.02, dispatch_chunk=10_000, **kw)
+    for k in a.samples:
+        assert a.samples[k].dtype == np.float32
+        np.testing.assert_array_equal(a.samples[k], b.samples[k])
+
+
+@pytest.mark.cuda
+def test_cuda_simulators_default_to_the_card(cuda):
+    batches, states = simulate.sim_fov_batch(nb_tracks=2000,
+                                             max_track_len=10, seed=1)
+    for b, s in zip(batches, states):
+        assert b.positions.device.type == "cuda" == s.device.type
+        assert b.positions.dtype == torch.float32
+        np.testing.assert_array_equal(b.lengths.cpu().numpy(), b.np_lengths)
+    x, s = simulate.brownian_frames(None, 100, 6, (0.0, 0.1), (0.5, 0.5),
+                                    [[0.9, 0.1], [0.1, 0.9]], 0.02, 0.02)
+    assert x.device.type == "cuda" and x.dtype == torch.float32
+    assert tuple(s.shape) == (100, 6)

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from extrack_tpu import fit as jfit, histograms as jhist, \
-    predict as jpredict, refine as jrefine
+    predict as jpredict, refine as jrefine, sample as jsample, \
+    simulate as jsim
 from extrack_tpu_torch import data as tdata, device as tdevice, \
     fit as tfit, histograms as thist, predict as tpredict, \
-    refine as trefine
+    refine as trefine, sample as tsample, simulate as tsim
 
 DRIVERS = [(jfit, tfit, "fit"), (jfit, tfit, "param_fitting"),
            (jrefine, trefine, "position_refinement"),
@@ -24,7 +25,9 @@ DRIVERS = [(jfit, tfit, "fit"), (jfit, tfit, "param_fitting"),
            (jpredict, tpredict, "predict_Bs"),
            (jpredict, tpredict, "predict_batch"),
            (jhist, thist, "len_hist"), (jhist, thist, "hist_batch"),
-           (jfit, tfit, "make_objective"), (jfit, tfit, "hessian_hvp_exact")]
+           (jfit, tfit, "make_objective"), (jfit, tfit, "hessian_hvp_exact"),
+           (jsample, tsample, "sample_posterior"),
+           (jsim, tsim, "sim_fov_batch"), (jsim, tsim, "sim_nobias")]
 
 
 def _params(fn):

@@ -12,7 +12,7 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import extrack_tpu_torch as e\n"
         "from extrack_tpu_torch import (data, fit, histograms, params, "
-        "predict, refine, simulate, tracking)\n"
+        "predict, refine, sample, simulate, tracking)\n"
         "from extrack_tpu_torch.core import engine, gaussian, tables\n"
         "from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, "
         "grad_kernel, hist_kernel, hvp_kernel, predict_kernel, "
@@ -26,7 +26,8 @@ def test_import_leaves_jax_out():
         "assert e.topk_kernel is topk_kernel\n"
         "assert e.tracking is tracking and e.gaussian is gaussian\n"
         "assert e.refined_localization is refine\n"
-        "assert e.simulate_tracks is simulate\n"
+        "assert e.simulate_tracks is simulate and e.sample is sample\n"
+        "assert simulate.sim_noBias is simulate.sim_nobias\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'extrack_tpu' or m.startswith('extrack_tpu.')]\n"
         "assert not bad, bad\n"

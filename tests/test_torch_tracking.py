@@ -38,11 +38,10 @@ PORTED = {
         "get_global_sigs_mus", "get_best_estimates", "save_gifs",
         "do_gifs_from_params", "prod_2GaussPDF", "prod_3GaussPDF",
         "gaussian", "get_pos_PDF_fixedBs"],
-    "simulate_tracks": ["sim_FOV"],
+    "simulate_tracks": ["sim_FOV", "sim_noBias", "markovian_process",
+                        "get_fractions_from_TrMat", "is_in_FOV"],
 }
-QUEUED = {"refined_localization": ["full_extrack_2_matrix"],
-          "simulate_tracks": ["sim_noBias", "markovian_process",
-                              "get_fractions_from_TrMat", "is_in_FOV"]}
+QUEUED = {"refined_localization": ["full_extrack_2_matrix"]}
 
 
 def test_symbol_presence():
