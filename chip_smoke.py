@@ -75,8 +75,8 @@ Phases (each prints its lines; a failed check exits non-zero):
    refined and raw positions' RMS error on random walks with known true
    positions; K6's time at 2^20 tracks (T=10, W=7, S=2), launched on
    prepared inputs and through ``refine_kernel.refine``, and the plain
-   version's time on the same 2^20 tracks (in the chunks ``refine_plain``
-   makes, about 40 s on an H100), with the SFU floor beside the bound (one
+   version's time on the first quarter of each bucket (in the chunks
+   ``refine_plain`` makes), with the SFU floor beside the bound (one
    rsqrt and one exp2 per pair at 16 a clock per SM); then a 3-state
    ``position_refinement`` at the JAX package's default window (tracks of
    up to 9 frames: W=6, K=729), its time, launches and each bucket's
@@ -116,7 +116,7 @@ Phases (each prints its lines; a failed check exits non-zero):
    constant-dt kernels, and K5's histogram per step and per track at one
    and two sub-steps a frame (K = 128 and 243); then the mixed-frame-rate
    main path: ``sim_fov``
-   at dt 0.02 (seed 0) and 0.05 (seed 1), 50,000 tracks each, merged into
+   at dt 0.02 (seed 0) and 0.05 (seed 1), 25,000 tracks each, merged into
    one length-keyed dict with a per-track dt dict; per bucket the
    objective's value and z-gradient against the plain version; then
    ``fit.param_fitting(dt=dt_dict, compute_errors=True)`` with its K2 and
@@ -129,7 +129,7 @@ Phases (each prints its lines; a failed check exits non-zero):
    beside their plain versions and the constant-dt times;
 11. past 1024 register slots (K1, K4, K5 and K6 on their wide mapping, a
    thread a fusion group): the README workflow at 3 states and the JAX
-   package's defaults on ~10^5 ``sim_fov`` tracks (``param_fitting(
+   package's defaults on ~5 x 10^4 ``sim_fov`` tracks (``param_fitting(
    compute_errors=True)`` from a rough guess of the Ds, its fitted Ds held
    to the simulated ones, ``predict_Bs``, ``len_hist`` at window 7 with
    K = 2187, ``position_refinement``), a value-only objective at window 7
@@ -164,7 +164,20 @@ Phases (each prints its lines; a failed check exits non-zero):
    HMC potential (``torch.profiler``), the potential's value and
    z-gradient against the plain version in float64, the samples at
    ``dispatch_chunk`` 4 and 10000 bit for bit, and
-   ``simulate.brownian_frames`` on 2^20 x 10 frames (time, moments).
+   ``simulate.brownian_frames`` on 2^20 x 10 frames (time, moments);
+14. the user's entry points on phase 3's tracks, written to a CSV:
+   ``io.readers.read_table`` with the native parser and with pandas (each
+   timed, the two dicts equal), ``pipeline.analyze`` from the CSV with CSV
+   and XML export (the launches of K2, K4, K5 and K6 with 0 plain calls,
+   its fitted values against phase 3's fit, its posteriors, histogram and
+   refined positions against the drivers called directly), the CLI in
+   subprocesses (``python -m extrack_tpu_torch.cli -v``: ``fit`` with its
+   K2 and K3 launches, ``predict``, ``histogram`` and ``refine`` against
+   ``analyze``'s results, ``sample`` on every 9th track, each timed),
+   ``auto_fitting.model_selection`` at 2 and 3 states and a headless
+   ``gui.Session``'s four runners on that subset, and
+   ``utils.observe.trace`` around ``predict_Bs``, whose Chrome trace must
+   name K4's kernel.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -177,7 +190,9 @@ The line before the last is a JSON object describing each kernel: ``ms``
 is the bare launches' time, ``wrapper_ms`` the same work through the
 wrapper a caller uses (``forward``, ``value_and_table_grads``,
 ``table_hvp``, ``predict``, ``hist``, ``refine``, ``segment_topk``), host
-work included;
+work included; ``plain_ms`` the plain version's time, on the same tracks
+as ``ms`` unless ``plain_tracks`` counts fewer (K3, K6, K3 with variable
+dt and the wide kernels time the first 1/PLAIN_SHARE of each bucket);
 the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without output of
 a result when no CUDA device is present.
@@ -280,15 +295,16 @@ SIM = dict(nb_tracks=100_000, max_track_len=20, min_track_len=3,
            Ds=(0.0, 0.08), LocErr=0.02, dt=0.02, pBL=0.1, cell_dims=(0.5,),
            seed=0)
 # phase 10's mixed frame rates: two movies of SIM's cells, at 50 and 20
-# frames a second
-SIM_DT = [dict(SIM, nb_tracks=50_000, dt=0.02, seed=0),
-          dict(SIM, nb_tracks=50_000, dt=0.05, seed=1)]
+# frames a second (25,000 requested tracks each since the entry points'
+# phase was added: the host simulator took 15 s for 2 x 50,000)
+SIM_DT = [dict(SIM, nb_tracks=25_000, dt=0.02, seed=0),
+          dict(SIM, nb_tracks=25_000, dt=0.05, seed=1)]
 # phase 11: the wide mapping's paths.  The README workflow at 3 states
 # (phase 9's model: Ds 0, 0.02, 0.1; 0.85 + 0.05 on the diagonal), 5
 # states annotated at frame_len 5, 6 states refined on 1-D tracks of 3-5
 # frames, each at the JAX package's defaults (K = 2187, 3125, 1296)
 TR3 = np.full((3, 3), 0.05) + np.eye(3) * 0.85
-SIM3 = dict(SIM, Ds=(0.0, 0.02, 0.1), TrMat=TR3, seed=5)
+SIM3 = dict(SIM, nb_tracks=50_000, Ds=(0.0, 0.02, 0.1), TrMat=TR3, seed=5)
 # the 3-state fit's start: param_fitting's own parameters but for a rough
 # guess of the Ds.  From param_fitting's default start (Ds 0, 0.375, 1.5)
 # L-BFGS-B stops after 4 evaluations at D2 ~ 1.2, in the JAX package
@@ -337,12 +353,12 @@ SIM_DEV = dict(SIM, nb_tracks=1_000_000)
 TOL_SIM_FIT = {"D1": 0.015, "LocErr": 0.005}
 # the sampler's subset and budget (2 chains, 2 length buckets: at 10^4
 # tracks a gradient is ~40 ms of host work over 4 buckets against 0.6 ms
-# of K2, so the run is sized to about 50 s on an H100), its R-hat bound
+# of K2, so the run is sized to about 30 s on an H100), its R-hat bound
 # and the posterior checks: the mean
 # of D1 within SAMPLE_SDS posterior sds of the 10^6-track fit's D1, the
 # sd within a factor SAMPLE_SDS of the warm-start fit's Fisher error
 SAMPLE_TRACKS = 10_000
-SAMPLE_KW = dict(num_chains=2, num_warmup=60, num_samples=90, n_leapfrog=6,
+SAMPLE_KW = dict(num_chains=2, num_warmup=40, num_samples=60, n_leapfrog=6,
                  max_buckets=2, seed=0)
 RHAT_MAX = 1.3
 SAMPLE_SDS = 4.0
@@ -354,9 +370,26 @@ CHUNK_KW = dict(num_chains=2, num_warmup=6, num_samples=7, n_leapfrog=3,
 BROWNIAN = dict(nb_tracks=1 << 20, track_len=10, Ds=(0.0, 0.08),
                 Fs=(0.5, 0.5), tr_mat=[[0.9, 0.1], [0.1, 0.9]], loc_err=0.02,
                 dt=0.02)
+# phase 14, the user's entry points on phase 3's tracks: the native
+# parser's positions against pandas' (its decimal conversion is not
+# correctly rounded: ~1e-13 relative on 10^6 localizations), analyze's
+# and the CLI's fits against phase 3's (relative, or a tenth of phase 3's
+# standard error where that is larger), every SUBSET_STRIDE-th track for
+# the CLI's sampler, model selection and the GUI session, and the
+# sampler's budget there
+TOL_NATIVE_REL = 1e-12
+TOL_ANALYZE_FIT = 1e-4
+SUBSET_STRIDE = 9
+CLI_SAMPLE = ["--samples", "10", "--warmup", "10", "--chains", "2",
+              "--n-leapfrog", "3"]
 BENCH_DT = (0.01, 0.03)       # phase 10's per-track intervals at the bench
 FIT_ITERS = 200
 BENCH_TRACKS = 1 << 20
+# the heaviest plain versions (K3 and K6 at the bench shape, K3 with
+# variable dt, the wide kernels: 4-30 s a pass) are timed on the first
+# 1/PLAIN_SHARE of each bucket's tracks; their entries' ``plain_tracks``
+# counts them (null: the plain version ran on the same tracks as ``ms``)
+PLAIN_SHARE = 4
 PLAIN_CHUNK = 1 << 17         # tracks per plain autograd call (memory)
 PLAIN_HVP_CHUNK = 1 << 15     # double backward keeps ~3x more per track
 PLAIN_HIST_CHUNK = 1 << 16    # the plain histogram carries ~4K*(1+S)*T
@@ -370,8 +403,12 @@ def fail(msg: str):
     sys.exit(1)
 
 
+_T0 = time.time()
+
+
 def log(msg: str):
-    print(msg, flush=True)
+    """Print a line with the seconds since the script started."""
+    print(f"[{time.time() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1073,7 +1110,8 @@ def main() -> int:
                 "source": f"extrack_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": None, "max_abs_err": None,
                 "ms": None, "wrapper_ms": None, "plain_ms": None,
-                "bound_ms": None, "bound_by": None, "library_ms": None}
+                "plain_tracks": None, "bound_ms": None, "bound_by": None,
+                "library_ms": None}
 
     # no single PyTorch call computes any of these recurrences, so
     # library_ms stays null (torch.topk does K7's selection only: its time
@@ -1346,6 +1384,7 @@ def main() -> int:
     kinfo["K1"]["launches"] = k1
     kinfo["K2"]["launches"] = k2
     kinfo["K3"]["launches"] = k3
+    fit3 = res                  # phase 14 holds the entry points to it
 
     # ---- phase 4: times at the benchmark shape ---------------------------
     bench = bench_buckets(dev)
@@ -1408,7 +1447,9 @@ def main() -> int:
         k2_other[f"{mapping}, history {stash or 'default'}"] = cuda_ms(
             k2_forced, 10)
     wms = {"K1": cuda_ms(k1_wrapped, 5), "K2": cuda_ms(k2_wrapped, 5)}
-    pms = {"K1": cuda_ms(p1_run, 3), "K2": cuda_ms(p2_run, 3)}
+    # the plain versions once each, unwarmed: seconds a pass at 2^20
+    pms = {"K1": cuda_ms(p1_run, 1, warmup=0),
+           "K2": cuda_ms(p2_run, 1, warmup=0)}
     # bytes: positions and l2 (B, T, D) in, lengths and isBL in, logL out;
     # K2 also writes d/dl2 (B, T, D); the tables are a few KB
     rows = sum(b.positions.numel() for b in bench) * 4
@@ -1509,8 +1550,9 @@ def main() -> int:
 
     def p3_run():
         for b in bench:
-            for i in range(0, b.batch_size, PLAIN_HVP_CHUNK):
-                sl = slice(i, i + PLAIN_HVP_CHUNK)
+            n = b.batch_size // PLAIN_SHARE
+            for i in range(0, n, PLAIN_HVP_CHUNK):
+                sl = slice(i, min(i + PLAIN_HVP_CHUNK, n))
                 hvp_kernel.table_hvp_plain(
                     b.positions[sl], b.lengths[sl], b.is_bleached[sl], tb,
                     tb_dot, **kw)
@@ -1524,6 +1566,8 @@ def main() -> int:
     pms3 = cuda_ms(p3_run, 1, warmup=0)
     dual_rows = sum(b.positions.numel() for b in bench) * 4
     kinfo["K3"]["ms"], kinfo["K3"]["plain_ms"] = ms3, pms3
+    kinfo["K3"]["plain_tracks"] = sum(b.batch_size // PLAIN_SHARE
+                                      for b in bench)
     kinfo["K3"]["wrapper_ms"] = wms3
     kinfo["K3"]["bound_ms"], kinfo["K3"]["bound_by"] = bound(
         dual_rows * (1 + 2 + 2) + 16 * n_bench,
@@ -1531,7 +1575,8 @@ def main() -> int:
     log(f"phase 5: K3 {n_bench} tracks ({len(bench)} buckets), one tangent "
         f"direction: kernel {ms3:.3f} ms (with its wrapper {wms3:.3f} ms); "
         f"plain (double backward, chunks of "
-        f"{PLAIN_HVP_CHUNK}) {pms3:.3f} ms; bound "
+        f"{PLAIN_HVP_CHUNK}) {pms3:.3f} ms on "
+        f"{kinfo['K3']['plain_tracks']} of the tracks; bound "
         f"{kinfo['K3']['bound_ms']:.4f} ms ({kinfo['K3']['bound_by']}); "
         f"block mapping {ms3_block:.3f} ms (for reading) [{card}]")
 
@@ -1656,7 +1701,7 @@ def main() -> int:
                         tb, window=5, min_len=3)
 
     ms4, wms4 = cuda_ms(k4_run, 10), cuda_ms(k4_wrapped, 5)
-    pms4 = cuda_ms(p4_run, 3)
+    pms4 = cuda_ms(p4_run, 1, warmup=0)
     preds_bytes = sum(b.batch_size * b.max_len for b in bench) * 2 * 4
     kinfo["K4"]["ms"], kinfo["K4"]["plain_ms"] = ms4, pms4
     kinfo["K4"]["wrapper_ms"] = wms4
@@ -1789,7 +1834,7 @@ def main() -> int:
         bare, wrapped, plain_run = k5_runs(bench, [tbk] * len(bench), n)
         info = kinfo[k]
         info["ms"], info["wrapper_ms"] = cuda_ms(bare, 10), cuda_ms(wrapped, 5)
-        info["plain_ms"] = cuda_ms(plain_run, 1)
+        info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
         info["bound_ms"], info["bound_by"] = k5_bound(bench, n)
         log(f"phase 7: {k} {n_bench} tracks ({len(bench)} buckets), W=7, "
             f"n={n}: kernel {info['ms']:.3f} ms = "
@@ -1891,15 +1936,20 @@ def main() -> int:
                                  window=7)
 
     def p6_run(n=None):
+        """The plain version on each bucket's first ``n`` tracks (default:
+        its first 1/PLAIN_SHARE)."""
         with torch.no_grad():
             for b in bench:
-                refine_kernel.refine_plain(b.positions[:n], b.lengths[:n],
+                m = b.batch_size // PLAIN_SHARE if n is None else n
+                refine_kernel.refine_plain(b.positions[:m], b.lengths[:m],
                                            l2_b, lt_b, sig2_b, window=7)
 
     ms6, wms6 = cuda_ms(k6_run, 5), cuda_ms(k6_wrapped, 3)
     p6_run(REFINE_PLAIN_WARMUP)         # warm-up on the first tracks only
     pms6 = cuda_ms(p6_run, 1, warmup=0)
     kinfo["K6"]["ms"], kinfo["K6"]["plain_ms"] = ms6, pms6
+    kinfo["K6"]["plain_tracks"] = sum(b.batch_size // PLAIN_SHARE
+                                      for b in bench)
     kinfo["K6"]["wrapper_ms"] = wms6
     kinfo["K6"]["bound_ms"], kinfo["K6"]["bound_by"] = bound(
         4 * rows + 4 * n_bench,
@@ -1910,8 +1960,8 @@ def main() -> int:
     sfu6 = sfu_ms(2 * pairs, dev)   # for the log only: not a measurement
     log(f"phase 8: K6 {n_bench} tracks ({len(bench)} buckets), W=7: kernel "
         f"{ms6:.3f} ms = {n_bench / ms6 * 1e3 / 1e6:.3f}M tracks/s (with "
-        f"its wrapper {wms6:.3f} ms); plain {pms6:.3f} ms on all "
-        f"{n_bench} tracks; "
+        f"its wrapper {wms6:.3f} ms); plain {pms6:.3f} ms on the first "
+        f"{kinfo['K6']['plain_tracks']} of them (a quarter of each bucket); "
         f"bound {kinfo['K6']['bound_ms']:.4f} ms "
         f"({kinfo['K6']['bound_by']}), SFU floor "
         f"{sfu6:.4f} ms ({pairs:.4g} pairs) [{card}]")
@@ -2189,11 +2239,12 @@ def main() -> int:
     phase11(dev, card, kinfo, errs, reset_counts, plain_calls)
     phase12(dev, card, kinfo, errs, reset_counts, plain_calls)
     phase13(dev, card, kinfo, errs, reset_counts, plain_calls, host_counts)
+    phase14(dev, card, reset_counts, plain_calls, tracks, fit3)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
-    log(card)
-    log(json.dumps({"kernels": list(kinfo.values())}))
+    print(card, flush=True)
+    print(json.dumps({"kernels": list(kinfo.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2499,12 +2550,14 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
                                                 tuple(tb_dot))
         args3.append((d, tabs, [t.contiguous() for t in dots]))
 
-    def each(fn, chunk=None):
+    def each(fn, chunk=None, share=1):
+        """fn over each bucket's first 1/share of the tracks, in chunks."""
         def run():
             for b, tb, dot in zip(bench, tbs, tb_dots):
-                step = chunk or b.batch_size
-                for i in range(0, b.batch_size, step):
-                    sl = slice(i, i + step)
+                n = b.batch_size // share
+                step = chunk or n
+                for i in range(0, n, step):
+                    sl = slice(i, min(i + step, n))
                     fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl],
                        tb._replace(sig2=tb.sig2[sl]), dot._replace(
                            sig2=dot.sig2[sl]))
@@ -2527,7 +2580,7 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
                   each(lambda p, l, i, tb, dot: hvp_kernel.table_hvp(
                       p, l, i, tb, dot, **kw)),
                   each(lambda p, l, i, tb, dot: hvp_kernel.table_hvp_plain(
-                      p, l, i, tb, dot, **kw), PLAIN_HVP_CHUNK)),
+                      p, l, i, tb, dot, **kw), PLAIN_HVP_CHUNK, PLAIN_SHARE)),
         "K4 dt": (lambda: [predict_kernel.launch(d, t, 3, 2, 5)
                            for d, t in args5],
                   each(lambda p, l, i, tb, _: predict_kernel.predict(
@@ -2553,20 +2606,22 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
         info = kinfo[k]
         info["ms"] = cuda_ms(bare, 10)
         info["wrapper_ms"] = cuda_ms(wrapped, 5)
-        if k in ("K3 dt", "K5 dt"):
+        with torch.no_grad() if k in ("K1 dt", "K4 dt") else (
+                torch.enable_grad()):
             info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
-        else:
-            with torch.no_grad() if k in ("K1 dt", "K4 dt") else (
-                    torch.enable_grad()):
-                info["plain_ms"] = cuda_ms(plain_run, 2)
+        if k == "K3 dt":
+            info["plain_tracks"] = sum(b.batch_size // PLAIN_SHARE
+                                       for b in bench)
         info["bound_ms"], info["bound_by"] = (
             k5_bound(bench, 1, stream) if k == "K5 dt"
             else bound(nbytes[k], nops[k]))
+        on = (f" on {info['plain_tracks']} of the tracks"
+              if info["plain_tracks"] else "")
         log(f"phase 10: {k} {n_bench} tracks ({len(bench)} buckets), "
             f"per-track dt in {BENCH_DT}: kernel {info['ms']:.3f} ms = "
             f"{info['ms'] / const[k]:.3f}x constant dt's {const[k]:.3f} ms "
             f"(with its wrapper {info['wrapper_ms']:.3f} ms); plain "
-            f"{info['plain_ms']:.3f} ms; bound {info['bound_ms']:.4f} ms "
+            f"{info['plain_ms']:.3f} ms{on}; bound {info['bound_ms']:.4f} ms "
             f"({info['bound_by']}; the stream {stream / 1e6:.1f} MB) "
             f"[{card}]")
     log(f"phase 10: {time.time() - t10:.1f} s")
@@ -2869,8 +2924,10 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
 
             def plain_run():
                 for b in bench:
-                    refine_kernel.refine_plain(b.positions, b.lengths, l2,
-                                               lt, s2, window=W)
+                    m = b.batch_size // PLAIN_SHARE
+                    refine_kernel.refine_plain(b.positions[:m],
+                                               b.lengths[:m], l2, lt, s2,
+                                               window=W)
             nbytes = 2 * rows + 4 * len(blens) + 2 * rows
             ops = walk_ops(blens, K, S, D, "K6", S=S)
         else:
@@ -2913,17 +2970,21 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
             def plain_run(_fn=plain_fn):
                 with torch.no_grad():
                     for b in bench:
-                        for i in range(0, b.batch_size, WIDE_PLAIN_CHUNK):
-                            sl = slice(i, i + WIDE_PLAIN_CHUNK)
+                        m = b.batch_size // PLAIN_SHARE
+                        for i in range(0, m, WIDE_PLAIN_CHUNK):
+                            sl = slice(i, min(i + WIDE_PLAIN_CHUNK, m))
                             _fn(b.positions[sl], b.lengths[sl],
                                 b.is_bleached[sl], tb, window=W, min_len=3)
         info["ms"] = cuda_ms(bare, 5)
-        info["plain_ms"] = cuda_ms(plain_run, 1)
+        info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
+        info["plain_tracks"] = sum(b.batch_size // PLAIN_SHARE
+                                   for b in bench)
         info["bound_ms"], info["bound_by"] = bound(nbytes, ops)
         log(f"phase 11: {name} S={S} W={W} (K={K}) D={D}, {len(blens)} "
             f"tracks of lengths 3..10 ({len(bench)} buckets): kernel "
             f"{info['ms']:.3f} ms = {len(blens) / info['ms'] * 1e3 / 1e6:.4f}"
-            f"M tracks/s; plain {info['plain_ms']:.3f} ms; bound "
+            f"M tracks/s; plain {info['plain_ms']:.3f} ms on "
+            f"{info['plain_tracks']} of the tracks; bound "
             f"{info['bound_ms']:.4f} ms ({info['bound_by']}), "
             f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
         del bench
@@ -3513,6 +3574,328 @@ def phase13(dev, card, kinfo, errs, reset_counts, plain_calls, host_counts):
     if not ok:
         fail("brownian_frames moments")
     log(f"phase 13: {time.time() - t13:.1f} s")
+
+
+def write_tracks_csv(path, tracks) -> int:
+    """The track dict as a CSV in the columns ``io.readers.read_table``
+    reads (TRACK_ID, POSITION_X, POSITION_Y, FRAME: tracks numbered in the
+    dict's order, frames 0..L-1), through pandas; returns the rows."""
+    import pandas as pd
+    parts, tid = [], 0
+    for k in sorted(tracks, key=int):
+        arr = np.asarray(tracks[k])
+        b, t = arr.shape[:2]
+        parts.append(pd.DataFrame({
+            "TRACK_ID": np.repeat(np.arange(tid, tid + b), t),
+            "POSITION_X": arr[:, :, 0].ravel(),
+            "POSITION_Y": arr[:, :, 1].ravel(),
+            "FRAME": np.tile(np.arange(t), b)}))
+        tid += b
+    df = pd.concat(parts, ignore_index=True)
+    df.to_csv(path, index=False)
+    return len(df)
+
+
+def counts_of(mods) -> dict:
+    return {k: m.LAUNCHES for k, m in mods.items()}
+
+
+def phase14(dev, card, reset_counts, plain_calls, tracks, fit3):
+    """The user's entry points on the card, on phase 3's tracks (``tracks``)
+    written to a CSV: the readers, ``pipeline.analyze``, the CLI in
+    subprocesses, model selection, a headless GUI session and a profiler
+    trace; ``fit3`` is phase 3's fit of the same tracks."""
+    import tempfile
+    from pathlib import Path
+
+    import pandas as pd
+
+    from extrack_tpu_torch import (auto_fitting, fit, gui, histograms,
+                                   params, pipeline, predict, refine)
+    from extrack_tpu_torch.io import readers
+    from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
+                                       hist_kernel, hvp_kernel,
+                                       predict_kernel, refine_kernel)
+    from extrack_tpu_torch.utils import observe
+    t14 = time.time()
+    mods = {"K1": forward_kernel, "K2": grad_kernel, "K3": hvp_kernel,
+            "K4": predict_kernel, "K5": hist_kernel, "K6": refine_kernel}
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        csv = str(tmp / "tracks.csv")
+        n_loc = write_tracks_csv(csv, tracks)
+        n_tr = sum(len(v) for v in tracks.values())
+
+        # ---- (a) the readers: native and pandas ---------------------------
+        lengths = list(range(3, SIM["max_track_len"] + 1))
+        read = {}
+        for engine in ("native", "pandas"):
+            t0 = time.time()
+            read[engine] = readers.read_table(csv, lengths=lengths,
+                                              engine=engine)
+            read[engine] += (time.time() - t0,)
+        (nt, nf, _, t_nat), (pt, pf, _, t_pan) = read["native"], \
+            read["pandas"]
+        same_keys = (list(nt) == list(pt) == list(nf)
+                     and {k: len(v) for k, v in nt.items()}
+                     == {k: len(v) for k, v in tracks.items() if len(v)})
+        same_frames = same_keys and all(np.array_equal(nf[k], pf[k])
+                                        for k in nf)
+        pos_err = max(float(np.max(np.abs(nt[k] - pt[k])
+                                   / np.maximum(np.abs(pt[k]), 1e-300)))
+                      for k in nt) if same_keys else math.inf
+        ok = same_keys and same_frames and pos_err <= TOL_NATIVE_REL
+        log(f"phase 14: {n_tr} tracks, {n_loc} localizations in a CSV; "
+            f"read_table native {t_nat:.3f} s, pandas {t_pan:.3f} s; keys, "
+            f"track counts and frames identical {same_keys and same_frames},"
+            f" positions max relative difference {pos_err:.3e} (<= "
+            f"{TOL_NATIVE_REL:g}: the native parser's decimal conversion) "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the native and pandas readers disagree")
+
+        # ---- (b) pipeline.analyze ------------------------------------------
+        start = params.generate_params(
+            nb_states=2, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+            D_max=3.0, estimated_transition_rates=0.1)
+        out_csv, out_xml = str(tmp / "analyzed.csv"), str(tmp / "an.xml")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = pipeline.analyze(csv, dt=0.02, nb_states=2, cell_dims=(0.5,),
+                               params=start, export_csv=out_csv,
+                               export_xml=out_xml,
+                               fit_kwargs={"max_iter": FIT_ITERS})
+        torch.cuda.synchronize()
+        t_an = time.time() - t0
+        n_an, plain = counts_of(mods), plain_calls()
+        rows = sum(1 for _ in open(out_csv)) - 1
+        log(f"phase 14: pipeline.analyze {t_an:.2f} s ({res.fit.n_evals} "
+            f"evals; " + ", ".join(f"{k} {v:.3f} s"
+                                   for k, v in res.timings.items())
+            + "; the export writes a CSV and an XML): launches " + ", ".join(
+                f"{k} {v}" for k, v in n_an.items())
+            + f", plain calls {plain}; exported CSV {rows} rows for "
+            f"{n_loc} localizations [{card}]")
+        if (plain or rows != n_loc
+                or not all(n_an[k] > 0 for k in ("K2", "K4", "K5", "K6"))):
+            fail("analyze did not run K2, K4, K5 and K6 alone, or its "
+                 "export lost rows")
+        values = res.fit.params.resolve()
+        se = fit3.std_errors or {}
+        ref3 = fit3.params.valuesdict()
+
+        def gap(vals):
+            """The largest difference from phase 3's fitted values, as a
+            fraction of its limit (TOL_ANALYZE_FIT relative or a tenth of
+            phase 3's standard error, whichever is larger)."""
+            return max(abs(vals[k] - v) / max(TOL_ANALYZE_FIT * abs(v),
+                                              0.1 * se.get(k, 0.0), 1e-300)
+                       for k, v in ref3.items())
+        worst = gap(res.fit.params.valuesdict())
+        log("phase 14: analyze's fit " + ", ".join(
+            f"{k}={res.fit.params[k].value:.6g} (phase 3: {p.value:.6g})"
+            for k, p in fit3.params.items())
+            + f"; largest difference {worst:.3f} of its limit (rel "
+            f"{TOL_ANALYZE_FIT:g} or 0.1 standard error) "
+            f"{'ok' if worst <= 1 else 'FAIL'}")
+        if worst > 1:
+            fail("analyze's fit differs from phase 3's fit of the tracks")
+        # the drivers, called directly on the same tracks and values
+        W = fit.default_window(2)
+        Wr = refine.default_window(2, max(int(k) for k in res.tracks))
+        preds = predict.predict_Bs(res.tracks, 0.02, values, nb_states=2,
+                                   cell_dims=(0.5,), frame_len=W)
+        hist = histograms.len_hist(res.tracks, values, 0.02,
+                                   cell_dims=(0.5,), nb_states=2, window=7)
+        loc_err, ds, Fs, tr = refine.refinement_args(values, 2, 0.02)
+        mus, sigmas = refine.position_refinement(res.tracks, loc_err, ds, Fs,
+                                                 tr, frame_len=Wr)
+
+        def diff(a, b):
+            return max(float(np.max(np.abs(np.asarray(a[k], np.float64)
+                                           - np.asarray(b[k], np.float64))))
+                       for k in b)
+        e4, e6m, e6s = diff(res.preds, preds), diff(res.mus, mus), \
+            diff(res.sigmas, sigmas)
+        e5 = float(np.max(np.abs(res.hist - hist)))
+        ok = (all(np.allclose(res.preds[k], preds[k], **TOL_K4_PREDS)
+                  and np.allclose(res.mus[k], mus[k], **TOL_K6_MU)
+                  and np.allclose(res.sigmas[k], sigmas[k], **TOL_K6_SIGMA)
+                  for k in preds)
+              and sorted(res.preds) == sorted(preds)
+              and np.allclose(res.hist, hist, **TOL_K5))
+        log(f"phase 14: analyze against the drivers (predict_Bs W={W}, "
+            f"len_hist W=7, position_refinement W={Wr}) at its fitted "
+            f"values: posteriors {e4:.3e}, histogram {e5:.3e}, refined "
+            f"positions {e6m:.3e}, sigmas {e6s:.3e} (TOL_K4_PREDS, TOL_K5, "
+            f"TOL_K6_MU, TOL_K6_SIGMA) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("analyze disagrees with the drivers")
+
+        # ---- (c) the CLI in subprocesses ------------------------------------
+        io_args = ["--dt", "0.02", "--min-len", "3", "--max-len",
+                   str(SIM["max_track_len"]), "--cell-dims", "0.5"]
+
+        def cli(*args):
+            t0 = time.time()
+            p = subprocess.run([sys.executable, "-m", "extrack_tpu_torch.cli",
+                                "-v", "--device", "cuda", *args],
+                               capture_output=True, text=True, cwd=root,
+                               timeout=600)
+            t = time.time() - t0
+            if p.returncode != 0:
+                log(p.stdout[-3000:] + p.stderr[-3000:])
+                fail(f"the CLI's {args[0]} exited with {p.returncode}")
+            line = [x for x in p.stdout.splitlines()
+                    if x.startswith("kernel launches: ")][-1]
+            n = json.loads(line[len("kernel launches: "):])
+            return t, {k: v["launches"] for k, v in n.items()}, sum(
+                v["plain_calls"] for v in n.values())
+
+        fit_json = str(tmp / "fit.json")
+        cli_t = {}
+        cli_t["fit"], n_fit, pl = cli("fit", csv, *io_args, "-o", fit_json)
+        d_fit = gap(json.load(open(fit_json))["values"])
+        ok = (n_fit.get("K2", 0) > 0 and n_fit.get("K3", 0) > 0 and pl == 0
+              and d_fit <= 1)
+        log(f"phase 14: CLI fit {cli_t['fit']:.2f} s (a new process: torch "
+            f"import, library load, read, fit with error bars): launches "
+            + ", ".join(f"{k} {v}" for k, v in n_fit.items() if v)
+            + f", plain calls {pl}; its values against phase 3's fit: "
+            f"largest difference {d_fit:.3f} of its limit "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the CLI's fit did not run K2 and K3 or differs")
+        pargs = ["--params", fit_json]
+        cli_t["predict"], n_p, pl_p = cli(
+            "predict", csv, *io_args, *pargs, "--window", str(W), "-o",
+            str(tmp / "pred.csv"))
+        pcols = ["PRED_0", "PRED_1"]
+        got = pd.read_csv(tmp / "pred.csv")[pcols].to_numpy()
+        want = pd.read_csv(out_csv)[pcols].to_numpy()
+        cli_t["histogram"], n_h, pl_h = cli(
+            "histogram", csv, *io_args, *pargs, "-o", str(tmp / "hist.csv"))
+        h_cli = np.loadtxt(tmp / "hist.csv", delimiter=",")
+        cli_t["refine"], n_r, pl_r = cli(
+            "refine", csv, *io_args, *pargs, "-o", str(tmp / "ref.csv"))
+        ref = pd.read_csv(tmp / "ref.csv")[["X_REFINED", "Y_REFINED"]]
+        ref = ref.to_numpy()
+        mus_all = np.concatenate([res.mus[k].reshape(-1, 2)
+                                  for k in sorted(res.tracks, key=int)])
+        same_shape = (got.shape == want.shape and ref.shape == mus_all.shape
+                      and len(ref) == n_loc and h_cli.shape == res.hist.shape)
+        e_pred = float(np.abs(got - want).max()) if same_shape else math.inf
+        e_hist = float(np.abs(h_cli - res.hist).max()) if same_shape else \
+            math.inf
+        e_ref = float(np.abs(ref - mus_all).max()) if same_shape else \
+            math.inf
+        ok = (same_shape and np.allclose(got, want, **TOL_K4_PREDS)
+              and np.allclose(h_cli, res.hist, **TOL_K5)
+              and np.allclose(ref, mus_all, **TOL_K6_MU)
+              and n_p.get("K4", 0) > 0 and n_h.get("K5", 0) > 0
+              and n_r.get("K6", 0) > 0 and pl_p + pl_h + pl_r == 0)
+        log(f"phase 14: CLI predict {cli_t['predict']:.2f} s (K4 "
+            f"{n_p.get('K4')}), histogram {cli_t['histogram']:.2f} s (K5 "
+            f"{n_h.get('K5')}), refine {cli_t['refine']:.2f} s (K6 "
+            f"{n_r.get('K6')}), plain calls {pl_p + pl_h + pl_r}; against "
+            f"analyze: posteriors {e_pred:.3e}, histogram {e_hist:.3e}, "
+            f"refined positions {e_ref:.3e} {'ok' if ok else 'FAIL'} "
+            f"[{card}]")
+        if not ok:
+            fail("the CLI's predict, histogram or refine disagrees")
+        sub = {k: v[::SUBSET_STRIDE] for k, v in res.tracks.items()
+               if len(v[::SUBSET_STRIDE])}
+        sub_csv = str(tmp / "subset.csv")
+        write_tracks_csv(sub_csv, sub)
+        n_sub = sum(len(v) for v in sub.values())
+        post = str(tmp / "post.npz")
+        cli_t["sample"], n_s, pl_s = cli(
+            "sample", sub_csv, *io_args, *pargs, "--window", str(W),
+            *CLI_SAMPLE, "-o", post)
+        draws = np.load(post)
+        shape = draws["D1_minus_D0"].shape
+        ok = (shape == (2, int(CLI_SAMPLE[1]))
+              and np.isfinite(draws["D1_minus_D0"]).all()
+              and n_s.get("K2", 0) > 0 and pl_s == 0)
+        log(f"phase 14: CLI sample on {n_sub} tracks "
+            f"{cli_t['sample']:.2f} s ({' '.join(CLI_SAMPLE)}, a warm-start "
+            f"fit with error bars first): K2 {n_s.get('K2')}, K3 "
+            f"{n_s.get('K3')}, plain calls {pl_s}; samples {shape}, "
+            f"acceptance {float(draws['accept_rate']):.3f}, R-hat "
+            f"{np.round(draws['rhat'], 3).tolist()} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the CLI's sample failed")
+
+        # ---- (d) model selection on the subset ------------------------------
+        reset_counts()
+        t0 = time.time()
+        sel = auto_fitting.model_selection(sub, 0.02, state_range=(2, 3),
+                                           cell_dims=(0.5,))
+        t_sel = time.time() - t0
+        n_sel, plain = counts_of(mods), plain_calls()
+        ok = plain == 0 and n_sel["K2"] > 0 and sel.best_nb_states in (2, 3)
+        log(f"phase 14: model_selection(state_range=(2, 3)) on {n_sub} "
+            f"tracks {t_sel:.2f} s (windows 6 and 5, K = 64 and 243): K2 "
+            f"{n_sel['K2']}, plain calls {plain}; best {sel.best_nb_states}"
+            f" states {'ok' if ok else 'FAIL'} [{card}]\n"
+            + sel.summary())
+        if not ok:
+            fail("model selection did not run on K2 alone")
+
+        # ---- (e) a headless GUI session --------------------------------------
+        out_dir = tmp / "gui"
+        out_dir.mkdir()
+        s = gui.Session(path=sub_csv, dt=0.02, min_len=3,
+                        max_len=SIM["max_track_len"], nb_states=2,
+                        cell_dims=(0.5,), nb_iters=1,
+                        output_dir=str(out_dir))
+        s.load()
+        msgs = []
+        times = {}
+        reset_counts()
+        for name, run in (("fit", gui.run_fitting),
+                          ("labels", gui.run_predictions),
+                          ("lifetime", gui.run_lifetime),
+                          ("refine", gui.run_refinement)):
+            t0 = time.time()
+            run(s, progress=msgs.append)
+            times[name] = time.time() - t0
+        n_gui, plain = counts_of(mods), plain_calls()
+        files = sorted(p.name for p in out_dir.iterdir())
+        # the lifetime's PNG only where matplotlib is installed
+        ok = (plain == 0 and {"extrack_fitted_params.json",
+                              "extrack_predictions.csv",
+                              "extrack_durations.csv",
+                              "extrack_refined.csv"} <= set(files)
+              and all(n_gui[k] > 0 for k in ("K2", "K3", "K4", "K5", "K6")))
+        log(f"phase 14: GUI session on {n_sub} tracks, the four runners "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+            + ": launches " + ", ".join(f"{k} {v}" for k, v in n_gui.items())
+            + f", plain calls {plain}; wrote {files} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the GUI session's runners did not run the kernels alone")
+
+        # ---- (f) a profiler trace around predict_Bs ------------------------
+        trace_dir = tmp / "trace"
+        with observe.trace(str(trace_dir)):
+            predict.predict_Bs(sub, 0.02, values, nb_states=2,
+                               cell_dims=(0.5,), frame_len=W)
+        events = json.load(open(trace_dir / "trace.json"))["traceEvents"]
+        k4 = sorted({e["name"] for e in events
+                     if e.get("cat") == "kernel"
+                     and re.search(r"walk_\w+_kernel<[^>]*\btrue\b",
+                                   e.get("name", ""))})
+        n_kern = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"phase 14: observe.trace around predict_Bs: {len(events)} "
+            f"events, {n_kern} kernel events; K4's: {k4} "
+            f"{'ok' if k4 else 'FAIL'}")
+        if not k4:
+            fail("the trace does not name K4's kernel")
+    log(f"phase 14: done in {time.time() - t14:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

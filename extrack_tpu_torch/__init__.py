@@ -4,7 +4,9 @@ Single-particle-tracking state inference on the ExTrack model: maximum
 likelihood fitting of multi-state diffusion models on localization tracks,
 with Fisher error bars, HMC posterior samples, per-frame state annotation,
 state-duration histograms, position refinement and track simulation (on
-the host, or on the card).  The likelihood, its gradient, its
+the host, or on the card), with readers and exporters of track files, the
+end-to-end ``pipeline.analyze``, automated fitting, a CLI
+(``extrack-tpu-torch``) and a Tk GUI.  The likelihood, its gradient, its
 Hessian-vector products, the posteriors, the histograms (window and
 top-K) and the refinement are hand-written CUDA kernels for NVIDIA Hopper
 (``ops/``);
@@ -24,6 +26,15 @@ _SUBMODULES = {
     "sample": "extrack_tpu_torch.sample",
     "simulate": "extrack_tpu_torch.simulate",
     "tracking": "extrack_tpu_torch.tracking",
+    "pipeline": "extrack_tpu_torch.pipeline",
+    "auto_fitting": "extrack_tpu_torch.auto_fitting",
+    "visualization": "extrack_tpu_torch.visualization",   # matplotlib
+    "gui": "extrack_tpu_torch.gui",                       # tkinter in Tk
+    "cli": "extrack_tpu_torch.cli",
+    "io": "extrack_tpu_torch.io",
+    "readers": "extrack_tpu_torch.io.readers",
+    "exporters": "extrack_tpu_torch.io.exporters",
+    "observe": "extrack_tpu_torch.utils.observe",
     "engine": "extrack_tpu_torch.core.engine",
     "gaussian": "extrack_tpu_torch.core.gaussian",
     "tables": "extrack_tpu_torch.core.tables",

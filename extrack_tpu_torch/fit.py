@@ -18,10 +18,7 @@ second-order autograd of the plain engine over chunks of tracks
 from __future__ import annotations
 
 import dataclasses
-import json
 import math
-import os
-import tempfile
 import time
 from typing import Callable, Dict, Optional
 
@@ -34,6 +31,7 @@ from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import engine, tables
 from extrack_tpu_torch.ops import forward_kernel, grad_kernel, hvp_kernel
+from extrack_tpu_torch.utils.observe import CheckpointManager
 
 
 @dataclasses.dataclass
@@ -150,20 +148,6 @@ def make_objective(batch,
     return neg_logl
 
 
-def _save_checkpoint(path: str, values: Dict[str, object], objective: float,
-                     n_eval: int):
-    """Atomic JSON checkpoint (same format as the JAX package's)."""
-    payload = {"values": {k: float(v) for k, v in values.items()
-                          if np.ndim(v) == 0},
-               "objective": float(objective), "n_eval": int(n_eval),
-               "extra": {}}
-    d = os.path.dirname(os.path.abspath(path)) or "."
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".ckpt")
-    with os.fdopen(fd, "w") as fh:
-        json.dump(payload, fh)
-    os.replace(tmp, path)
-
-
 def fit(batch,
         spec: tparams.Parameters,
         dt,
@@ -209,9 +193,9 @@ def fit(batch,
     first = batch[0] if isinstance(batch, (list, tuple)) else batch
     tdevice.check_compute_engine(compute_engine, first.positions.device,
                                   "fit")
-    if checkpoint_path and resume and os.path.exists(checkpoint_path):
-        with open(checkpoint_path) as fh:
-            state = json.load(fh)
+    ckpt = CheckpointManager(checkpoint_path) if checkpoint_path else None
+    state = ckpt.load() if ckpt and resume else None
+    if state is not None:
         spec = spec.copy()
         spec.set_values(state["values"])
     neg_logl = make_objective(batch, spec, dt, nb_states, cell_dims,
@@ -231,16 +215,16 @@ def fit(batch,
     def record(z, v):
         n_evals[0] += 1
         history.append(v)
-        if callback or checkpoint_path or verbose:
+        if callback or ckpt or verbose:
             with torch.no_grad():
                 vals = {k: float(x) for k, x in
                         spec.resolve(spec.from_unconstrained(as_z(z))).items()
                         if np.ndim(x) == 0}
             if callback:
                 callback(n_evals[0], v, vals)
-            if checkpoint_path and v < best[0]:
+            if ckpt and v < best[0]:
                 best[0] = v
-                _save_checkpoint(checkpoint_path, vals, v, n_evals[0])
+                ckpt.save(vals, v, n_evals[0])
             if verbose:
                 print(-v, {k: round(x, 6) for k, x in vals.items()})
 

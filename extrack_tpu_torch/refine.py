@@ -646,6 +646,21 @@ def save_gifs(all_tracks: Dict[str, np.ndarray],
                             duration=1000.0 / max(fps, 1))
 
 
+def refinement_args(params, nb_states: int, dt: float):
+    """``position_refinement``'s model arguments from fitted parameters (a
+    Parameters object or a resolved values dict): (LocErr, ds, Fs, TrMat)
+    with LocErr the first localization error as a float, ds = sqrt(2 D
+    dt) per state and TrMat the per-frame transition matrix, numpy in
+    float64, as the JAX package's entry points compute them."""
+    from extrack_tpu_torch import params as tparams
+    from extrack_tpu_torch.core.tables import transition_matrix
+    vals = params.resolve() if hasattr(params, "resolve") else params
+    Ds, Fs, rates, loc_err, _ = tparams.extract_arrays(vals, nb_states)
+    tr = transition_matrix(rates).numpy()
+    ds = np.sqrt(2.0 * Ds.numpy() * dt)
+    return float(loc_err.reshape(-1)[0]), ds, Fs.numpy(), tr
+
+
 def do_gifs_from_params(all_tracks, params, dt, gif_pathnames="./tracks",
                         frame_len: int = 7, nb_states: int = 2,
                         nb_pix: int = 200, fps: int = 1,
@@ -653,17 +668,45 @@ def do_gifs_from_params(all_tracks, params, dt, gif_pathnames="./tracks",
     """Refine (``position_refinement`` on ``device``: K6 on the card) and
     render per-position PDF GIFs straight from fitted parameters
     (do_gifs_from_params, refined_localization.py:562-566)."""
-    from extrack_tpu_torch import params as tparams
-    from extrack_tpu_torch.core.tables import transition_matrix
-    vals = params.resolve() if hasattr(params, "resolve") else params
-    Ds, Fs, rates, loc_err, _ = tparams.extract_arrays(vals, nb_states)
-    tr = transition_matrix(rates).numpy()
-    ds = np.sqrt(2.0 * Ds.numpy() * dt)
+    loc_err, ds, Fs, tr = refinement_args(params, nb_states, dt)
     mus, sigmas = position_refinement(
-        all_tracks, float(loc_err.reshape(-1)[0]), ds, Fs.numpy(), tr,
-        frame_len=frame_len, device=device, dtype=dtype)
+        all_tracks, loc_err, ds, Fs, tr, frame_len=frame_len,
+        device=device, dtype=dtype)
     save_gifs(all_tracks, mus, sigmas, gif_pathnames=gif_pathnames,
               nb_pix=nb_pix, fps=fps, max_tracks=max_tracks)
+
+
+def full_extrack_2_matrix(all_tracks, params, dt, all_frames=None,
+                          cell_dims=(1.0, None, None), nb_states: int = 2,
+                          frame_len: int = 15, *, device=None, dtype=None):
+    """Predict states, refine positions, and flatten everything into one
+    DataFrame [x, y, frame, track_id, pred_0.., X_REFINED, Y_REFINED,
+    SIGMA_REFINED] (full_extrack_2_matrix, refined_localization.py:
+    536-549), on ``device`` (the card by default: K4, then K6).
+
+    The posteriors take ``predict_Bs`` at ``min(frame_len, 8)``, the
+    refinement ``position_refinement`` at ``frame_len // 2 + 3`` (10 at
+    the default 15), as the JAX package does.  From 3 states on that
+    window passes K6's 4096 slots (3^10 = 59049), and a CUDA bucket
+    raises naming K6: pass a smaller ``frame_len``."""
+    from extrack_tpu_torch import predict
+    from extrack_tpu_torch.io import exporters
+    preds = predict.predict_Bs(all_tracks, dt, params, cell_dims=cell_dims,
+                               nb_states=nb_states,
+                               frame_len=min(frame_len, 8), device=device,
+                               dtype=dtype)
+    loc_err, ds, Fs, tr = refinement_args(params, nb_states, dt)
+    mus, sigmas = position_refinement(
+        all_tracks, loc_err, ds, Fs, tr, frame_len=frame_len // 2 + 3,
+        device=device, dtype=dtype)
+    df = exporters.extrack_2_pandas(all_tracks, preds, frames=all_frames)
+    df["X_REFINED"] = np.concatenate([mus[k][:, :, 0].reshape(-1)
+                                      for k in all_tracks])
+    df["Y_REFINED"] = np.concatenate([mus[k][:, :, 1].reshape(-1)
+                                      for k in all_tracks])
+    df["SIGMA_REFINED"] = np.concatenate(
+        [np.asarray(sigmas[k]).reshape(-1) for k in all_tracks])
+    return df
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,9 @@ setup(
     },
     entry_points={
         "console_scripts": ["extrack-tpu=extrack_tpu.cli:main",
-                            "extrack-tpu-gui=extrack_tpu.gui:main"],
+                            "extrack-tpu-gui=extrack_tpu.gui:main",
+                            "extrack-tpu-torch=extrack_tpu_torch.cli:main",
+                            "extrack-tpu-torch-gui="
+                            "extrack_tpu_torch.gui:main"],
     },
 )

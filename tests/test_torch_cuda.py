@@ -1152,3 +1152,94 @@ def test_cuda_simulators_default_to_the_card(cuda):
                                     [[0.9, 0.1], [0.1, 0.9]], 0.02, 0.02)
     assert x.device.type == "cuda" and x.dtype == torch.float32
     assert tuple(s.shape) == (100, 6)
+
+
+def _kernel_counts():
+    mods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
+            hist_kernel, refine_kernel, topk_kernel)
+    return ({f"K{i + 1}": m.LAUNCHES for i, m in enumerate(mods)},
+            sum(m.PLAIN_CALLS for m in mods))
+
+
+def _reset_counts():
+    for m in (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
+              hist_kernel, refine_kernel, topk_kernel):
+        m.LAUNCHES = m.PLAIN_CALLS = 0
+
+
+@pytest.fixture(scope="module")
+def small_csv(tmp_path_factory):
+    tracks, _, _ = simulate.sim_fov(
+        nb_tracks=600, max_track_len=9, min_track_len=3, LocErr=0.02,
+        Ds=(0.0, 0.08), dt=0.02, pBL=0.1, cell_dims=(0.5, None, None),
+        seed=2)
+    from extrack_tpu_torch.io import exporters
+    path = tmp_path_factory.mktemp("csv") / "tracks.csv"
+    exporters.save_extrack_2_CSV(str(path), tracks, {
+        k: np.zeros(v.shape[:2] + (2,)) for k, v in tracks.items()}, 0.02)
+    return path
+
+
+@pytest.mark.cuda
+def test_cuda_analyze_runs_the_kernels_alone(cuda, small_csv, tmp_path):
+    """pipeline.analyze on the card: K2 for the fit, K4, K5 and K6 for the
+    stages, no plain call; its stages equal the drivers on the card."""
+    from extrack_tpu_torch import pipeline, predict, refine
+    _reset_counts()
+    res = pipeline.analyze(str(small_csv), dt=0.02, cell_dims=(0.5,),
+                           export_csv=str(tmp_path / "out.csv"),
+                           fit_kwargs={"max_iter": 20})
+    counts, plain = _kernel_counts()
+    assert plain == 0
+    assert all(counts[k] > 0 for k in ("K2", "K4", "K5", "K6"))
+    values = res.fit.params.resolve()
+    preds = predict.predict_Bs(res.tracks, 0.02, values, cell_dims=(0.5,),
+                               frame_len=fit.default_window(2))
+    loc_err, ds, Fs, tr = refine.refinement_args(values, 2, 0.02)
+    mus, _ = refine.position_refinement(
+        res.tracks, loc_err, ds, Fs, tr,
+        frame_len=refine.default_window(2, 9))
+    for k in preds:
+        np.testing.assert_allclose(res.preds[k], preds[k], rtol=2e-3,
+                                   atol=2e-4)
+        np.testing.assert_allclose(res.mus[k], mus[k], rtol=2e-4,
+                                   atol=2e-5)
+    hist = histograms.len_hist(res.tracks, values, 0.02, cell_dims=(0.5,),
+                               window=7)
+    np.testing.assert_allclose(res.hist, hist, rtol=2e-3, atol=2e-4)
+    assert sum(1 for _ in open(tmp_path / "out.csv")) - 1 == sum(
+        int(k) * len(v) for k, v in res.tracks.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("command,kernels", [
+    (["fit"], ("K2", "K3")), (["predict"], ("K4",)),
+    (["histogram"], ("K5",)), (["refine"], ("K6",)),
+    (["sample", "--samples", "4", "--warmup", "4", "--n-leapfrog", "2"],
+     ("K2", "K3"))])
+def test_cuda_cli_runs_the_kernels_alone(cuda, small_csv, tmp_path, command,
+                                         kernels):
+    """Each analysis subcommand on the card (``-v`` reports the kernel
+    launches of the process): its kernels launched, no plain call."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = [command[0], str(small_csv), "--dt", "0.02", "--min-len", "3",
+            "--max-len", "9", "--cell-dims", "0.5", "-o",
+            str(tmp_path / "out"), *command[1:]]
+    if command[0] != "fit":
+        p = params.generate_params(nb_states=2, estimated_Ds=[0.0, 0.08])
+        from extrack_tpu_torch.io import exporters
+        exporters.save_params(p, str(tmp_path))
+        args += ["--params", str(tmp_path / "params.json")]
+    out = subprocess.run([sys.executable, "-m", "extrack_tpu_torch.cli",
+                          "-v", *args], capture_output=True, text=True,
+                         cwd=root, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [x for x in out.stdout.splitlines()
+            if x.startswith("kernel launches: ")][-1]
+    counts = json.loads(line[len("kernel launches: "):])
+    assert all(counts[k]["launches"] > 0 for k in kernels), counts
+    assert sum(v["plain_calls"] for v in counts.values()) == 0

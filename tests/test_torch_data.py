@@ -7,6 +7,7 @@ import torch
 
 from extrack_tpu import data as jdata, simulate as jsim
 from extrack_tpu_torch import data as tdata, simulate as tsim
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _tracks(seed=0):

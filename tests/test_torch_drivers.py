@@ -17,6 +17,7 @@ from extrack_tpu import fit as jfit, histograms as jhist, \
 from extrack_tpu_torch import data as tdata, device as tdevice, \
     fit as tfit, histograms as thist, predict as tpredict, \
     refine as trefine, sample as tsample, simulate as tsim
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 DRIVERS = [(jfit, tfit, "fit"), (jfit, tfit, "param_fitting"),
            (jrefine, trefine, "position_refinement"),

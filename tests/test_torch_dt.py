@@ -26,6 +26,7 @@ from extrack_tpu_torch import data as tdata, fit as tfit, params as tparams
 from extrack_tpu_torch import predict as tpredict
 from extrack_tpu_torch.core import engine as tengine, tables as ttables
 from extrack_tpu_torch.ops import forward_kernel, topk_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 @pytest.mark.parametrize("shape", [(9, 4), (6, 9, 4), (7, 1, 8)],

@@ -16,6 +16,7 @@ from extrack_tpu.core import engine as jengine, tables as jtables
 from extrack_tpu.ops import pallas_engine
 from extrack_tpu_torch.core import engine as tengine, tables as ttables
 from extrack_tpu_torch.ops import forward_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _case(seed, S=2, B=12, T=8, D=2, n=1, dt_mode="const", per_peak=False,

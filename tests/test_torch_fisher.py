@@ -15,6 +15,7 @@ import torch
 from extrack_tpu import data as jdata, fit as jfit
 from extrack_tpu_torch import data as tdata, fit as tfit
 from tests.test_torch_hvp import _dataset
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from extrack_tpu import data as jdata, fit as jfit, params as jparams
 from extrack_tpu import simulate as jsim
 from extrack_tpu_torch import data as tdata, fit as tfit, params as tparams
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ import torch
 
 from extrack_tpu_torch.core import engine, tables
 from extrack_tpu_torch.ops import cuda_lib, forward_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 LOG2E = 1.0 / math.log(2.0)
 NEG_BIG = -1e30

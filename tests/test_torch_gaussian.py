@@ -11,6 +11,7 @@ from scipy.stats import norm
 
 from extrack_tpu.core import gaussian as jgauss
 from extrack_tpu_torch.core import gaussian as tgauss
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 # leading shapes of the inputs, the spatial dimension last

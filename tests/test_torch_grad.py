@@ -20,6 +20,7 @@ from extrack_tpu.core import tables as jtables
 from extrack_tpu.ops import pallas_grad
 from extrack_tpu_torch.core import tables as ttables
 from extrack_tpu_torch.ops import cuda_lib, forward_kernel, grad_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 @pytest.fixture

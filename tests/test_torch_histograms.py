@@ -24,6 +24,7 @@ from extrack_tpu.ops import pallas_hist
 from extrack_tpu_torch import data as tdata, histograms as thist
 from extrack_tpu_torch.core import engine as tengine, tables as ttables
 from extrack_tpu_torch.ops import forward_kernel, hist_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _case(seed, S, B, T, n=1, per_peak=False, dtype=np.float64, dt=None):

@@ -23,6 +23,7 @@ from extrack_tpu import simulate as jsim
 from extrack_tpu_torch import data as tdata, fit as tfit, params as tparams
 from extrack_tpu_torch.core import tables as ttables
 from extrack_tpu_torch.ops import hvp_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _dataset(S, nb_tracks, max_len, seed):

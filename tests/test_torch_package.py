@@ -1,8 +1,11 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package, and its public entry points resolve."""
+package (nor tkinter, which only the GUI's windows import), no source
+file of it names either in an import, and its public entry points
+resolve."""
 import subprocess
 import sys
 from pathlib import Path
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -14,6 +17,15 @@ def test_import_leaves_jax_out():
         "from extrack_tpu_torch import (data, fit, histograms, params, "
         "predict, refine, sample, simulate, tracking)\n"
         "from extrack_tpu_torch.core import engine, gaussian, tables\n"
+        "from extrack_tpu_torch import (auto_fitting, cli, gui, io, "
+        "pipeline, visualization)\n"
+        "from extrack_tpu_torch.io import exporters, native, readers\n"
+        "from extrack_tpu_torch.utils import observe\n"
+        "assert e.pipeline is pipeline and e.auto_fitting is auto_fitting\n"
+        "assert e.cli is cli and e.gui is gui and e.io is io\n"
+        "assert e.visualization is visualization and e.observe is observe\n"
+        "assert e.readers is readers and e.exporters is exporters\n"
+        "assert 'tkinter' not in sys.modules\n"
         "from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, "
         "grad_kernel, hist_kernel, hvp_kernel, predict_kernel, "
         "refine_kernel, topk_kernel)\n"
@@ -54,3 +66,26 @@ def test_kernel_sources_present():
         "extrack_refine_layout"}
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert cuda_lib.library_path().parent == cuda_lib.BUILD_DIR
+
+
+def test_no_source_imports_jax():
+    """Every module of the package and chip_smoke.py, scanned for an
+    import of ``jax`` or of ``extrack_tpu`` (the JAX package), at any
+    depth of the code (functions import lazily)."""
+    import ast
+    bad = []
+    files = sorted((ROOT / "extrack_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 30
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names if n.split(".")[0] in ("jax",
+                                                          "extrack_tpu")]
+    assert not bad, bad

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from extrack_tpu import params as jparams
 from extrack_tpu_torch import params as tparams
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _records(jp):

@@ -22,6 +22,7 @@ from extrack_tpu_torch import data as tdata, params as tparams
 from extrack_tpu_torch import predict as tpredict
 from extrack_tpu_torch.core import engine as tengine, tables as ttables
 from extrack_tpu_torch.ops import predict_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _case(seed, S, B, T, per_peak, bl):

@@ -28,6 +28,7 @@ from extrack_tpu.ops import pallas_refine
 from extrack_tpu_torch import data as tdata, refine as trefine
 from extrack_tpu_torch.core import tables as ttables
 from extrack_tpu_torch.ops import refine_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _case(seed, S, B, T, D=2, per_peak=False):

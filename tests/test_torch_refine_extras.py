@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from extrack_tpu import refine as jrefine
 from extrack_tpu_torch import params as tparams, refine as trefine
 from extrack_tpu_torch.ops import predict_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 TOL = dict(rtol=1e-7, atol=1e-9)
 DS = np.array([0.0, 0.1])

@@ -6,6 +6,7 @@ log-Jacobian and its gradient at 1e-12 in every bound case, the HMC
 potential (-logL - log-Jacobian) and its z-gradient at rel 1e-9, the
 leapfrog integrator at rel 1e-9, R-hat and ESS at 1e-12.  The chains draw
 from ``torch.Generator``s, so they are held to the moments of their
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 targets (the tolerances of ``tests/test_sample.py``); the samples are
 identical for any ``dispatch_chunk``.  The end-to-end comparison with the
 JAX package's posterior is ``tests/test_torch_sample_posterior.py``.

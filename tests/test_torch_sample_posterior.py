@@ -10,6 +10,7 @@ import numpy as np
 
 from extrack_tpu import sample as jsample, simulate as jsim
 from extrack_tpu_torch import sample as tsample
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 SIM = dict(max_track_len=5, min_track_len=3, LocErr=0.02, Ds=(0.0, 0.08),
            TrMat=np.array([[0.9, 0.1], [0.1, 0.9]]), dt=0.02, pBL=0.05,

@@ -18,6 +18,7 @@ import jax
 
 from extrack_tpu import simulate as jsim
 from extrack_tpu_torch import simulate as tsim
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 TR = np.array([[0.9, 0.1], [0.1, 0.9]])
 KW = dict(nb_tracks=12000, max_track_len=12, min_track_len=3, LocErr=0.02,

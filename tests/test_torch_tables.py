@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from extrack_tpu.core import tables as jtables
 from extrack_tpu_torch.core import tables as ttables
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 F64 = dict(dtype=torch.float64)
 

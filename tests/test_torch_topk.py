@@ -29,6 +29,7 @@ from extrack_tpu_torch.core import tables as ttables
 from extrack_tpu_torch.ops import topk_kernel
 from tests.test_pallas import _setup
 from tests.test_torch_histograms import _case
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
 def _frames(hist, lengths):

@@ -21,12 +21,14 @@ from extrack_tpu_torch import data as tdata, params as tparams, \
     tracking as ttr
 from extrack_tpu_torch.core import engine as tengine, tables as ttables
 from extrack_tpu_torch.ops import forward_kernel
+import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 CPU = dict(device="cpu")
 
 # the reference's public names per module (tests/test_compat_symbols.py),
-# those the port has and those still queued (ROADMAP Queue 1)
+# those the port has and those still queued (ROADMAP Queue 1; none since
+# full_extrack_2_matrix, the I/O and the apps)
 PORTED = {
     "tracking": ["param_fitting", "predict_Bs", "generate_params",
                  "get_params", "Proba_Cs", "cum_Proba_Cs", "extract_params",
@@ -37,11 +39,18 @@ PORTED = {
         "position_refinement", "get_pos_PDF", "get_all_estimates",
         "get_global_sigs_mus", "get_best_estimates", "save_gifs",
         "do_gifs_from_params", "prod_2GaussPDF", "prod_3GaussPDF",
-        "gaussian", "get_pos_PDF_fixedBs"],
+        "gaussian", "get_pos_PDF_fixedBs", "full_extrack_2_matrix"],
     "simulate_tracks": ["sim_FOV", "sim_noBias", "markovian_process",
                         "get_fractions_from_TrMat", "is_in_FOV"],
+    "readers": ["read_table", "read_trackmate_xml"],
+    "exporters": ["save_params", "extrack_2_matrix", "extrack_2_pandas",
+                  "extrack_2_pandas2", "save_extrack_2_CSV",
+                  "save_extrack_2_xml", "save_extrack_2_input_xml"],
+    "visualization": ["visualize_states_durations", "visualize_tracks",
+                      "plot_tracks"],
+    "auto_fitting": ["fit_2states", "fit_3states"],
 }
-QUEUED = {"refined_localization": ["full_extrack_2_matrix"]}
+QUEUED = {}
 
 
 def test_symbol_presence():
