@@ -178,6 +178,19 @@ Phases (each prints its lines; a failed check exits non-zero):
    ``gui.Session``'s four runners on that subset, and
    ``utils.observe.trace`` around ``predict_Bs``, whose Chrome trace must
    name K4's kernel.
+15. the sharded paths (``extrack_tpu_torch.parallel``): on a mesh of the
+   one card, ``param_fitting(compute_errors=True)``, ``predict_Bs``,
+   ``len_hist`` and ``position_refinement`` with ``sharded=True`` on phase
+   3's tracks, bit for bit against phase 3's fit and the unsharded drivers
+   (K2..K6 launches, no plain call); two gloo processes sharing the card
+   (``phase15_rank``), each reading the tracks from a CSV and keeping its
+   ``process_slice`` through ``global_batch``: the sharded objective at
+   phase 3's optimum, a sharded fit with error bars (the two processes
+   bit for bit alike; against phase 3 by phase 14's rule and
+   TOL_STD_ERR) and the three post-fit drivers against the unsharded
+   ones; NCCL at world size 1 on every SUBSET_STRIDE-th track against the
+   in-process sharded fit.  The three processes run beside the
+   in-process part; their wall time is printed, and is not a speed.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -2240,6 +2253,7 @@ def main() -> int:
     phase12(dev, card, kinfo, errs, reset_counts, plain_calls)
     phase13(dev, card, kinfo, errs, reset_counts, plain_calls, host_counts)
     phase14(dev, card, reset_counts, plain_calls, tracks, fit3)
+    phase15(dev, card, reset_counts, plain_calls, tracks, fit3)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
@@ -3896,6 +3910,346 @@ def phase14(dev, card, reset_counts, plain_calls, tracks, fit3):
         if not k4:
             fail("the trace does not name K4's kernel")
     log(f"phase 14: done in {time.time() - t14:.1f} s [{card}]")
+
+
+def _gap_free(vals, fit3) -> float:
+    """The largest difference of ``vals`` from phase 3's fitted free
+    parameters as a fraction of phase 14's limit (TOL_ANALYZE_FIT relative
+    or a tenth of phase 3's standard error, whichever is larger); a
+    parameter pinned at a bound (standard error 0) has no error bar and is
+    not compared."""
+    se = fit3.std_errors or {}
+    return max(abs(vals[k] - fit3.params[k].value)
+               / max(TOL_ANALYZE_FIT * abs(fit3.params[k].value),
+                     0.1 * se[k], 1e-300)
+               for k in fit3.params.free_names() if se.get(k, 0) > 0)
+
+
+def _post15(tracks, values, sharded):
+    """The three post-fit drivers on the card at ``values``: posteriors
+    (frame_len 5), histogram (window 7), refinement (frame_len 7)."""
+    from extrack_tpu_torch import histograms, predict, refine
+    preds = predict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                               nb_states=2, frame_len=5, sharded=sharded)
+    hist = histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                               nb_states=2, window=7, sharded=sharded)
+    loc_err, ds, Fs, tr = refine.refinement_args(values, 2, 0.02)
+    mus, sigmas = refine.position_refinement(tracks, loc_err, ds, Fs, tr,
+                                             frame_len=7, sharded=sharded)
+    return preds, hist, mus, sigmas
+
+
+def _fit15_spec():
+    from extrack_tpu_torch import params
+    return params.generate_params(
+        nb_states=2, LocErr_type=1, LocErr_bounds=(0.005, 0.1), D_max=3.0,
+        estimated_transition_rates=0.1)
+
+
+def _global15(tracks, max_len, dev):
+    """This process's ``process_slice`` of the tracks as one batch (the
+    dataset's time axis and censoring length), through ``global_batch``."""
+    from extrack_tpu_torch import data
+    from extrack_tpu_torch.parallel import multihost
+    items = [(k, i) for k in sorted(tracks, key=int)
+             for i in range(len(tracks[k]))]
+    local = {}
+    for k, i in items[multihost.process_slice(len(items))]:
+        local.setdefault(k, []).append(tracks[k][i])
+    batch = data.from_dict({k: np.asarray(v) for k, v in local.items()},
+                           max_len=max_len, data_max=max_len, device=dev,
+                           dtype=torch.float32)
+    return multihost.global_batch(batch), len(items)
+
+
+def phase15_rank(argv) -> int:
+    """One process of phase 15's process groups: ``argv`` is (backend,
+    rank, world size, port, job JSON).  It reads the job's CSV, keeps its
+    ``process_slice`` through ``global_batch``, and runs the sharded
+    objective at phase 3's optimum, ``fit.fit`` and (``post``) the three
+    post-fit drivers, writing its results beside the job file."""
+    import datetime
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from extrack_tpu_torch import fit
+    from extrack_tpu_torch.io import readers
+    from extrack_tpu_torch.ops import (grad_kernel, hist_kernel, hvp_kernel,
+                                       predict_kernel, refine_kernel)
+    backend, rank, world, port, job_path = argv
+    rank, world = int(rank), int(world)
+    job = json.load(open(job_path))
+    mods = {"K2": grad_kernel, "K3": hvp_kernel, "K4": predict_kernel,
+            "K5": hist_kernel, "K6": refine_kernel}
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        t0 = time.time()
+        tracks, _, _ = readers.read_table(
+            job["csv"], lengths=list(range(3, job["max_len"] + 1)))
+        gb, n_items = _global15(tracks, job["max_len"], dev)
+        for m in mods.values():
+            m.LAUNCHES = m.PLAIN_CALLS = 0
+        spec = _fit15_spec()
+        neg = fit.make_objective(gb, spec, 0.02, 2, cell_dims=(0.5,),
+                                 sharded=True)
+        z = torch.tensor(job["z_fit"], dtype=torch.float32, device=dev,
+                         requires_grad=True)
+        v = neg(z)
+        (g,) = torch.autograd.grad(v, z)
+        t1 = time.time()
+        res = fit.fit(gb, spec, 0.02, 2, cell_dims=(0.5,),
+                      compute_errors=job["errors"], sharded=True,
+                      max_iter=FIT_ITERS)
+        torch.cuda.synchronize()
+        t_fit = time.time() - t1
+        out = {"rank": rank, "world": world, "backend": backend,
+               "n_items": n_items, "rows": gb.batch_size,
+               "min_len": neg.min_len, "value": float(v.detach()),
+               "grad": g.tolist(), "logl": res.logl, "n_evals": res.n_evals,
+               "values": res.params.valuesdict(),
+               "std_errors": res.std_errors, "t_fit": t_fit}
+        if job["post"]:
+            t1 = time.time()
+            preds, hist, mus, sigmas = _post15(tracks, job["values"], True)
+            torch.cuda.synchronize()
+            out["t_post"] = time.time() - t1
+            if rank == 0:
+                np.savez(Path(job_path).with_name("post.npz"), hist=hist,
+                         **{f"preds_{k}": v for k, v in preds.items()},
+                         **{f"mus_{k}": v for k, v in mus.items()},
+                         **{f"sigmas_{k}": v for k, v in sigmas.items()})
+        out["launches"] = counts_of(mods)
+        out["plain_calls"] = sum(m.PLAIN_CALLS for m in mods.values())
+        out["t_total"] = time.time() - t0
+        Path(job_path).with_name(f"rank{rank}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase15(dev, card, reset_counts, plain_calls, tracks, fit3):
+    """The sharded paths on the card (``parallel``): every driver with
+    ``sharded=True`` on a mesh of the one card, bit for bit against the
+    unsharded drivers; two gloo processes sharing the card, each with its
+    ``process_slice`` of phase 3's tracks (``global_batch``), against
+    phase 3; NCCL at world size 1 against the in-process sharded fit."""
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    from extrack_tpu_torch import data, fit
+    from extrack_tpu_torch.io import readers
+    from extrack_tpu_torch.ops import (grad_kernel, hist_kernel, hvp_kernel,
+                                       predict_kernel, refine_kernel)
+    from extrack_tpu_torch.parallel import mesh as pmesh
+    t15 = time.time()
+    mods = {"K2": grad_kernel, "K3": hvp_kernel, "K4": predict_kernel,
+            "K5": hist_kernel, "K6": refine_kernel}
+    root = Path(__file__).resolve().parent
+    max_len = SIM["max_track_len"]
+    values = {k: p.value for k, p in fit3.params.items()}
+    z_fit = fit3.params.to_unconstrained()
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        csv, sub_csv = str(tmp / "tracks.csv"), str(tmp / "subset.csv")
+        write_tracks_csv(csv, tracks)
+        sub = {k: v[::SUBSET_STRIDE] for k, v in tracks.items()
+               if len(v[::SUBSET_STRIDE])}
+        write_tracks_csv(sub_csv, sub)
+        # (b) and (c) start first and run beside (a): three processes
+        procs = []
+        for name, backend, world, job in (
+                ("gloo", "gloo", 2, dict(csv=csv, errors=True, post=True)),
+                ("nccl", "nccl", 1, dict(csv=sub_csv, errors=False,
+                                         post=False))):
+            d = tmp / name
+            d.mkdir()
+            job.update(max_len=max_len, z_fit=z_fit.tolist(), values=values)
+            (d / "job.json").write_text(json.dumps(job))
+            port = str(free_port())
+            for rank in range(world):
+                procs.append((name, rank, subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "sys.exit(chip_smoke.phase15_rank(sys.argv[1:]))",
+                     backend, str(rank), str(world), port,
+                     str(d / "job.json")], cwd=root, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)))
+        t_start = time.time()
+
+        # ---- (a) in process: a mesh of the one card ------------------------
+        mesh = pmesh.make_mesh()
+        log(f"phase 15: make_mesh(): devices {list(mesh.devices)}, group "
+            f"{mesh.group}, size {mesh.size}")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fit.param_fitting(tracks, 0.02, nb_states=2, compute_errors=True,
+                                max_iter=FIT_ITERS, verbose=0,
+                                cell_dims=(0.5,), sharded=True)
+        post = _post15(tracks, values, True)
+        torch.cuda.synchronize()
+        t_a = time.time() - t0
+        n_a, plain_a = counts_of(mods), plain_calls()
+        ref = _post15(tracks, values, False)
+        same_fit = (res.logl == fit3.logl and res.n_evals == fit3.n_evals
+                    and res.params.valuesdict() == fit3.params.valuesdict()
+                    and res.std_errors == fit3.std_errors)
+        same_post = (all(np.array_equal(post[i][k], ref[i][k])
+                         for i in (0, 2, 3) for k in ref[i])
+                     and set(post[0]) == set(ref[0])
+                     and np.array_equal(post[1], ref[1]))
+        ok = (same_fit and same_post and plain_a == 0
+              and all(n_a[k] > 0 for k in mods))
+        n_tr = sum(len(v) for v in tracks.values())
+        log(f"phase 15: one-card mesh, sharded=True on {n_tr} "
+            f"tracks: param_fitting(compute_errors=True) ({res.n_evals} "
+            f"evals), predict_Bs, len_hist, position_refinement {t_a:.2f} s"
+            f": launches " + ", ".join(f"{k} {v}" for k, v in n_a.items())
+            + f", plain calls {plain_a}; fit bit-equal to phase 3's "
+            f"{same_fit} (logL {res.logl:.4f}), posteriors, histogram and "
+            f"refinement bit-equal to the unsharded drivers {same_post} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the one-card sharded drivers differ from the unsharded "
+                 "ones or did not run on the kernels alone")
+
+        # the in-process sharded fit that NCCL at world size 1 must match
+        sub_read, _, _ = readers.read_table(
+            sub_csv, lengths=list(range(3, max_len + 1)))
+        gb_sub, _ = _global15(sub_read, max_len, dev)
+        res_sub = fit.fit(gb_sub, _fit15_spec(), 0.02, 2, cell_dims=(0.5,),
+                          sharded=True, max_iter=FIT_ITERS)
+        # the unsharded objective at phase 3's optimum, and the drivers on
+        # the tracks as the processes read them
+        read, _, _ = readers.read_table(csv,
+                                        lengths=list(range(3, max_len + 1)))
+        obj = fit.make_objective(
+            data.from_dict_bucketed(read, max_buckets=4, device=dev,
+                                    dtype=torch.float32),
+            _fit15_spec(), 0.02, 2, cell_dims=(0.5,))
+        z3 = torch.tensor(z_fit, dtype=torch.float32, device=dev,
+                          requires_grad=True)
+        v3 = obj(z3)
+        (g3,) = torch.autograd.grad(v3, z3)
+        ref_read = _post15(read, values, False)
+
+        # ---- (b), (c): the processes' results --------------------------------
+        outs = {}
+        for name, rank, p in procs:
+            try:
+                text, _ = p.communicate(timeout=max(
+                    10.0, 300 - (time.time() - t_start)))
+            except subprocess.TimeoutExpired:
+                for _, _, q in procs:
+                    q.kill()
+                fail(f"phase 15: {name} rank {rank} did not finish in 300 s")
+            if p.returncode != 0:
+                log(text[-4000:])
+                for _, _, q in procs:
+                    q.kill()
+                fail(f"phase 15: {name} rank {rank} exited with "
+                     f"{p.returncode}")
+            outs[name, rank] = json.loads(
+                (tmp / name / f"rank{rank}.json").read_text())
+        t_procs = time.time() - t_start
+        r0, r1 = outs["gloo", 0], outs["gloo", 1]
+        agree = all(r0[k] == r1[k] for k in (
+            "value", "grad", "logl", "n_evals", "values", "std_errors"))
+        e_v = abs(r0["value"] - float(v3.detach()))
+        g_r = torch.tensor(r0["grad"])
+        g_u = g3.detach().cpu()
+        ok_obj = (torch.allclose(torch.tensor(r0["value"]), v3.detach().cpu(),
+                                 **TOL_K2_VALUE)
+                  and torch.allclose(g_r, g_u, **TOL_Z_GRAD))
+        worst = _gap_free(r0["values"], fit3)
+        se3 = fit3.std_errors
+        se_rel = max(abs(r0["std_errors"][k] - se3[k]) / se3[k]
+                     for k in se3 if se3[k] > 0)
+        post_np = np.load(tmp / "gloo" / "post.npz")
+        e4 = max(float(np.abs(post_np[f"preds_{k}"] - ref_read[0][k]).max())
+                 for k in ref_read[0])
+        e5 = float(np.abs(post_np["hist"] - ref_read[1]).max())
+        e6 = max(float(np.abs(post_np[f"mus_{k}"] - ref_read[2][k]).max())
+                 for k in ref_read[2])
+        e6s = max(float(np.abs(post_np[f"sigmas_{k}"] - ref_read[3][k]).max())
+                  for k in ref_read[3])
+        ok_post = (all(np.allclose(post_np[f"preds_{k}"], ref_read[0][k],
+                                   **TOL_K4_PREDS)
+                       and np.allclose(post_np[f"mus_{k}"], ref_read[2][k],
+                                       **TOL_K6_MU)
+                       and np.allclose(post_np[f"sigmas_{k}"],
+                                       ref_read[3][k], **TOL_K6_SIGMA)
+                       for k in ref_read[0])
+                   and np.allclose(post_np["hist"], ref_read[1], **TOL_K5))
+        launched = all(r["launches"][k] > 0 for r in (r0, r1) for k in mods)
+        ok = (agree and ok_obj and worst <= 1 and se_rel <= TOL_STD_ERR
+              and ok_post and launched
+              and r0["plain_calls"] == r1["plain_calls"] == 0
+              and r0["min_len"] == data.default_min_len(
+                  np.array([int(k) for k in tracks if len(tracks[k])])))
+        log(f"phase 15: two gloo processes on the one card, "
+            f"{r0['n_items']} tracks ({r0['rows']} rows each): both ranks "
+            f"bit-equal {agree}; objective at phase 3's optimum "
+            f"{r0['value']:.4f} vs {float(v3.detach()):.4f} unsharded "
+            f"(abs {e_v:.3e}, TOL_K2_VALUE), z-gradient max abs "
+            f"{float((g_r - g_u).abs().max()):.3e} (TOL_Z_GRAD); fit "
+            f"{r0['n_evals']} evals logL {r0['logl']:.4f} (phase 3 "
+            f"{fit3.logl:.4f}), largest difference {worst:.3f} of phase "
+            f"14's limit, standard errors max rel {se_rel:.2e} "
+            f"(TOL_STD_ERR {TOL_STD_ERR}); posteriors {e4:.3e}, histogram "
+            f"{e5:.3e}, refined positions {e6:.3e}, sigmas {e6s:.3e} "
+            f"against the unsharded drivers; launches rank 0 "
+            + ", ".join(f"{k} {v}" for k, v in r0["launches"].items())
+            + ", rank 1 " + ", ".join(f"{k} {v}"
+                                      for k, v in r1["launches"].items())
+            + f", plain calls {r0['plain_calls'] + r1['plain_calls']} "
+            f"{'ok' if ok else 'FAIL'}")
+        log("phase 15: " + "; ".join(
+            f"{k}={r0['values'][k]:.6g} (phase 3 {fit3.params[k].value:.6g})"
+            f" +/- {r0['std_errors'].get(k, float('nan')):.4g}"
+            for k in fit3.params.free_names()))
+        log(f"phase 15: the two gloo processes' wall time (not a speed of "
+            f"the sharded path: both share the one card, beside a third "
+            f"process and this one): fit with error bars {r0['t_fit']:.2f} /"
+            f" {r1['t_fit']:.2f} s, post-fit drivers {r0['t_post']:.2f} / "
+            f"{r1['t_post']:.2f} s, each process's work {r0['t_total']:.2f}"
+            f" / {r1['t_total']:.2f} s, {t_procs:.2f} s from their start "
+            f"to their results [{card}]")
+        if not ok:
+            fail("the two gloo processes disagree with each other or with "
+                 "phase 3")
+        rn = outs["nccl", 0]
+        nccl_equal = (rn["logl"] == res_sub.logl
+                      and rn["n_evals"] == res_sub.n_evals
+                      and rn["values"] == res_sub.params.valuesdict())
+        gap_n = max(abs(rn["values"][k] - res_sub.params[k].value)
+                    / max(TOL_ANALYZE_FIT * abs(res_sub.params[k].value),
+                          1e-300)
+                    for k in res_sub.params.free_names())
+        ok = (gap_n <= 1 and rn["launches"]["K2"] > 0
+              and rn["plain_calls"] == 0)
+        log(f"phase 15: NCCL at world size 1 on {rn['n_items']} tracks: "
+            f"fit {rn['n_evals']} evals logL {rn['logl']:.4f} vs the "
+            f"in-process sharded fit {res_sub.n_evals} evals "
+            f"{res_sub.logl:.4f}: bit-equal {nccl_equal}, largest "
+            f"difference {gap_n:.3g} of TOL_ANALYZE_FIT; K2 "
+            f"{rn['launches']['K2']}, plain calls {rn['plain_calls']}; its "
+            f"work {rn['t_total']:.2f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the NCCL process's fit differs from the in-process one")
+    log(f"phase 15: done in {time.time() - t15:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ with Fisher error bars, HMC posterior samples, per-frame state annotation,
 state-duration histograms, position refinement and track simulation (on
 the host, or on the card), with readers and exporters of track files, the
 end-to-end ``pipeline.analyze``, automated fitting, a CLI
-(``extrack-tpu-torch``) and a Tk GUI.  The likelihood, its gradient, its
+(``extrack-tpu-torch``), a Tk GUI, and data parallelism over tracks on
+``torch.distributed`` (``parallel``: every driver's ``sharded``).  The likelihood, its gradient, its
 Hessian-vector products, the posteriors, the histograms (window and
 top-K) and the refinement are hand-written CUDA kernels for NVIDIA Hopper
 (``ops/``);
@@ -35,6 +36,7 @@ _SUBMODULES = {
     "readers": "extrack_tpu_torch.io.readers",
     "exporters": "extrack_tpu_torch.io.exporters",
     "observe": "extrack_tpu_torch.utils.observe",
+    "parallel": "extrack_tpu_torch.parallel",
     "engine": "extrack_tpu_torch.core.engine",
     "gaussian": "extrack_tpu_torch.core.gaussian",
     "tables": "extrack_tpu_torch.core.tables",

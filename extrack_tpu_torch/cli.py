@@ -12,11 +12,20 @@ matching ExTrack_GUI.py:273-278) is available through --quality-column.
 the analyses run: on the card every subcommand runs the CUDA kernels, and
 it raises where there is no card; ``--device cpu`` runs the plain engine.
 Run it as ``extrack-tpu-torch`` or ``python -m extrack_tpu_torch.cli``.
+
+``--sharded`` splits the tracks over a data mesh (``parallel.mesh``).
+Started by ``torchrun`` (its ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT`` in the environment), every process
+joins one process group (NCCL on the card, gloo on the CPU), drives its
+``LOCAL_RANK``'s GPU and runs its part of each analysis; every process
+gets the whole result and only rank 0 writes ``--output``.  Started
+alone, it shards over the visible GPUs of the one process.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import warnings
 
@@ -76,8 +85,8 @@ def _add_io_args(p):
     p.add_argument("--params", default=None,
                    help="JSON of fitted parameters (from the fit command)")
     p.add_argument("--sharded", action="store_true",
-                   help="shard tracks over several devices (waits for the "
-                        "torch.distributed port: raises)")
+                   help="shard tracks over a data mesh: the processes of a "
+                        "torchrun launch, else this process's GPUs")
     p.add_argument("--output", "-o", default=None)
     _device_arg(p, argparse.SUPPRESS)
 
@@ -418,14 +427,39 @@ def launch_counts() -> dict:
     return out
 
 
+def _join_group(device) -> bool:
+    """Join the process group of a torchrun launch (its environment
+    variables), NCCL on the card and gloo on the CPU; False when the
+    process was not started that way."""
+    if not all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                         "MASTER_ADDR", "MASTER_PORT")):
+        return False
+    import torch
+    import torch.distributed as dist
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method="env://")
+    return True
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     if args.command != "simulate":       # the host simulator needs no card
         from extrack_tpu_torch import device as tdevice
         tdevice.check_device(args.device)
-    {"fit": cmd_fit, "predict": cmd_predict, "histogram": cmd_hist,
-     "refine": cmd_refine, "simulate": cmd_simulate,
-     "sample": cmd_sample, "warmup": cmd_warmup}[args.command](args)
+    grouped = getattr(args, "sharded", False) and _join_group(args.device)
+    if grouped and int(os.environ["RANK"]) > 0:
+        args.output = None               # rank 0 writes the one output
+    try:
+        {"fit": cmd_fit, "predict": cmd_predict, "histogram": cmd_hist,
+         "refine": cmd_refine, "simulate": cmd_simulate,
+         "sample": cmd_sample, "warmup": cmd_warmup}[args.command](args)
+    finally:
+        if grouped:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     if args.verbose:
         print("kernel launches: " + json.dumps(launch_counts()))
 

@@ -30,11 +30,20 @@ class TrackBatch:
     dt : optional (B, T-1) per-step frame intervals; None means the scalar
         dt passed to the model applies everywhere.
     np_lengths : host copy of ``lengths`` (numpy), so callers never pull
-        them back from the device.
+        them back from the device.  In a batch of ``multihost.global_batch``
+        it holds the lengths of every process's rows, as the JAX package's
+        global batch does.
+    dt_repr : the survival tables' representative dt when it is not the
+        median of ``dt`` (``multihost.global_batch``: the median over every
+        process's rows); None otherwise.
+    process_local : True when the rows are this process's share of a batch
+        spread over a process group (``multihost.global_batch``); sharded
+        drivers then split them over this process's devices only.
     """
 
     def __init__(self, positions, lengths, loc_err=None, is_bleached=None,
-                 frames=None, dt=None, np_lengths=None):
+                 frames=None, dt=None, np_lengths=None, *, dt_repr=None,
+                 process_local=False):
         self.positions = positions
         self.lengths = lengths
         self.loc_err = loc_err
@@ -42,6 +51,8 @@ class TrackBatch:
         self.frames = frames
         self.dt = dt
         self.np_lengths = np_lengths
+        self.dt_repr = dt_repr
+        self.process_local = process_local
 
     @property
     def batch_size(self):
@@ -58,6 +69,74 @@ class TrackBatch:
     def __repr__(self):
         return (f"TrackBatch(B={self.batch_size}, T={self.max_len}, "
                 f"D={self.nb_dims}, device={self.positions.device})")
+
+    # -- padding -------------------------------------------------------------
+    # loc_err and dt pad with positive values: zeros would put log(0) and
+    # zero variances into masked lanes, whose NaNs leak through torch.where
+    # under autograd.  dt pads with its own median, so the median-based
+    # survival tables (tables.build_tables) are the same after padding.
+    def pad_batch_to(self, n: int) -> "TrackBatch":
+        """Pad the batch axis to ``n`` tracks; padded tracks get length 0 and
+        contribute nothing to likelihoods (the engine masks length < 2)."""
+        b = self.batch_size
+        if b == n:
+            return self
+        assert n > b
+
+        def pad(x, value=0.0):
+            if x is None:
+                return None
+            return torch.cat([x, torch.full((n - b,) + tuple(x.shape[1:]),
+                                            value, dtype=x.dtype,
+                                            device=x.device)])
+
+        return self._replace(
+            positions=pad(self.positions), lengths=pad(self.lengths, 0),
+            loc_err=pad(self.loc_err, 1.0), is_bleached=pad(self.is_bleached),
+            frames=pad(self.frames), dt=pad(self.dt, self._dt_fill()),
+            np_lengths=None if self.np_lengths is None else np.pad(
+                np.asarray(self.np_lengths), (0, n - b)))
+
+    def pad_len_to(self, t: int) -> "TrackBatch":
+        """Pad the time axis to ``t`` frames; padded frames are masked by
+        ``lengths`` and contribute nothing."""
+        cur = self.max_len
+        if cur == t:
+            return self
+        assert t > cur
+
+        def pad(x, value=0.0):
+            if x is None:
+                return None
+            shape = list(x.shape)
+            shape[1] = t - cur
+            return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                            device=x.device)], dim=1)
+
+        return self._replace(positions=pad(self.positions),
+                             loc_err=pad(self.loc_err, 1.0),
+                             frames=pad(self.frames),
+                             dt=pad(self.dt, self._dt_fill()))
+
+    def _dt_fill(self) -> float:
+        return 0.0 if self.dt is None else float(median(self.dt))
+
+    def _replace(self, **fields) -> "TrackBatch":
+        kw = {k: getattr(self, k) for k in (
+            "positions", "lengths", "loc_err", "is_bleached", "frames", "dt",
+            "np_lengths", "dt_repr", "process_local")}
+        kw.update(fields)
+        return TrackBatch(**kw)
+
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """The median of all elements, averaging the two middle values as
+    ``torch.quantile(x, 0.5)`` does (and without its size limit)."""
+    v = x.flatten().sort().values
+    n = v.numel()
+    if n % 2:
+        return v[n // 2]
+    return torch.lerp(v[n // 2 - 1], v[n // 2], 0.5)
 
 
 def from_dict(all_tracks: Dict[str, np.ndarray],

@@ -31,6 +31,7 @@ from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import engine, tables
 from extrack_tpu_torch.ops import forward_kernel, grad_kernel, hvp_kernel
+from extrack_tpu_torch.parallel import mesh as pmesh
 from extrack_tpu_torch.utils.observe import CheckpointManager
 
 
@@ -76,7 +77,7 @@ def make_objective(batch,
                    matrix_type: int = 1,
                    input_loc_err: bool = False,
                    pallas_block: Optional[int] = None,
-                   sharded: bool = False,
+                   sharded=False,
                    compute_engine: str = "auto") -> Callable:
     """Build -logL(z) over the unconstrained free-parameter tensor z.
 
@@ -90,23 +91,27 @@ def make_objective(batch,
     batch, 'xla' raises there (``tdevice.check_compute_engine``); CPU
     batches run the plain engine whatever the value.  ``pallas_block`` (the
     TPU kernels' track block) is accepted and ignored: the CUDA kernels
-    choose their own mapping.  ``sharded=True`` is not ported yet and
-    raises.
+    choose their own mapping.
+
+    ``sharded`` (True, or a ``parallel.mesh.Mesh``) splits every bucket
+    over the mesh's shards (``mesh.shard_batch``; True: ``mesh.mesh_for``
+    the batch's device); each shard builds its tables and runs the kernels
+    on its device.  With a process group each process sums its own shards
+    and the objective makes ONE all-reduce of [value, z-gradient] per
+    evaluation (of the value alone without a gradient), so every process
+    returns the same numbers and L-BFGS-B takes the same steps everywhere;
+    ``min_len`` then defaults to the shortest length over the group.
     """
     del pallas_block
-    if sharded:
-        raise NotImplementedError(
-            "sharded objectives wait for the torch.distributed port "
-            "(ROADMAP Queue 1)")
     if window is None:
         window = default_window(nb_states, nb_substeps)
     batches = list(batch) if isinstance(batch, (list, tuple)) else [batch]
-    if min_len is None:
-        lens = np.concatenate([tdata.host_lengths(b) for b in batches])
-        min_len = tdata.default_min_len(lens)
     device = batches[0].positions.device
     dtype = batches[0].positions.dtype
     tdevice.check_compute_engine(compute_engine, device, "make_objective")
+    mesh = pmesh.mesh_for(sharded, device) if sharded else None
+    if min_len is None:
+        min_len = _default_min_len(batches, mesh)
     if device.type == "cuda":
         # the objective's value runs K1; its gradient K2, whose envelope
         # (1024 slots) grad_kernel.neg_log_likelihood checks where a
@@ -117,35 +122,93 @@ def make_objective(batch,
                 variable_dt=b.dt is not None, dtype=dtype,
                 what=f"length bucket {i} ({b.batch_size} tracks, "
                      f"T={b.max_len})", kernel="K1")
+    units = batches if mesh is None else _local_shards(batches, mesh)
 
-    def neg_logl(z: torch.Tensor) -> torch.Tensor:
+    def local_neg_logl(z: torch.Tensor) -> torch.Tensor:
+        # -logL of this process's buckets (or shards)
         values = spec.resolve(spec.from_unconstrained(z))
         total = 0.0
         Fs = None
-        for b in batches:
+        for b in units:
+            dev = b.positions.device
             Ds, Fs, rates, loc_err, pBL = tparams.extract_arrays(
                 values, nb_states,
                 input_loc_err=b.loc_err if input_loc_err else None,
-                device=device, dtype=dtype)
+                device=dev, dtype=dtype)
             tb = tables.build_tables(
                 Ds, loc_err, Fs, rates, pBL,
                 b.dt if b.dt is not None else dt, cell_dims=cell_dims,
-                nb_substeps=nb_substeps, matrix_type=matrix_type)
-            total = total + grad_kernel.neg_log_likelihood(
-                b.positions, b.lengths, b.is_bleached, tb, window=window,
-                nb_substeps=nb_substeps, min_len=min_len)
+                nb_substeps=nb_substeps, matrix_type=matrix_type,
+                dt_repr=b.dt_repr)
+            with pmesh.launch_guard(dev):
+                nl = grad_kernel.neg_log_likelihood(
+                    b.positions, b.lengths, b.is_bleached, tb, window=window,
+                    nb_substeps=nb_substeps, min_len=min_len)
+            total = total + nl.to(z.device)
         # reference validity guard (tracking.py:1017): the derived last
         # fraction can go negative at >= 3 states; the finite log floor
         # would otherwise keep such a prior silently unnormalized
-        return torch.where((Fs >= 0).all(), total,
-                           torch.full_like(total, math.inf))
+        ok = (Fs >= 0).all().to(z.device)
+        return torch.where(ok, total, torch.full_like(total, math.inf))
+
+    if mesh is None or mesh.group is None:
+        neg_logl = local_neg_logl
+    else:
+        def neg_logl(z: torch.Tensor) -> torch.Tensor:
+            if not (torch.is_grad_enabled() and z.requires_grad):
+                with torch.no_grad():
+                    v = local_neg_logl(z)
+                return mesh.all_reduce(v.double()).to(v.dtype)
+            return _AllReducedObjective.apply(z, local_neg_logl, mesh)
 
     neg_logl.device = device
     neg_logl.dtype = dtype
     neg_logl.batches = batches
+    neg_logl.mesh = mesh
     neg_logl.window = window
     neg_logl.min_len = min_len
     return neg_logl
+
+
+_NO_LEN = 1 << 30
+
+
+def _default_min_len(batches, mesh) -> int:
+    """``tdata.default_min_len`` of the buckets' lengths, over the group
+    when the mesh has one (one all-reduce MIN)."""
+    lens = np.concatenate([tdata.host_lengths(b) for b in batches])
+    real = lens[lens >= 2]
+    lo = int(real.min()) if real.size else _NO_LEN
+    if mesh is not None and mesh.group is not None:
+        lo = int(mesh.all_reduce(torch.tensor([lo]), "min")[0])
+    return lo if lo < _NO_LEN else 2
+
+
+def _local_shards(batches, mesh) -> list:
+    """This process's shards of every bucket, bucket by bucket."""
+    return [s for b in batches for s in pmesh.shard_batch(b, mesh).shards]
+
+
+class _AllReducedObjective(torch.autograd.Function):
+    """A sharded objective over a process group: this process's value and
+    z-gradient, summed over the group in ONE all-reduce (float64), so the
+    value and the gradient are the same on every process."""
+
+    @staticmethod
+    def forward(ctx, z, local_fn, mesh):
+        with torch.enable_grad():
+            zl = z.detach().requires_grad_(True)
+            v = local_fn(zl)
+            (g,) = torch.autograd.grad(v, zl)
+        vg = mesh.all_reduce(torch.cat([v.detach().reshape(1),
+                                        g.to(v.dtype)]).double())
+        ctx.save_for_backward(vg[1:].to(z.dtype))
+        return vg[0].to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, gout):
+        (g,) = ctx.saved_tensors
+        return gout * g, None, None
 
 
 def fit(batch,
@@ -162,7 +225,7 @@ def fit(batch,
         verbose: int = 0,
         max_iter: int = 500,
         compute_errors: bool = False,
-        sharded: bool = False,
+        sharded=False,
         callback=None,
         checkpoint_path: Optional[str] = None,
         resume: bool = True,
@@ -184,12 +247,11 @@ def fit(batch,
     compute_engine: 'auto' or 'pallas' run the CUDA kernels on a CUDA
         batch; 'xla' raises there (``tdevice.check_compute_engine``).
         CPU batches run the plain engine whatever the value.
-    ``sharded=True`` (several devices) is not ported yet and raises.
+    sharded: True or a ``parallel.mesh.Mesh`` shards the objective
+        (``make_objective``) and the Hessian of the error bars
+        (``hessian_hvp_exact`` on the card, ``hessian_chunked`` on the CPU,
+        each process over its own shards, then one all-reduce).
     """
-    if sharded:
-        raise NotImplementedError(
-            "sharded fits wait for the torch.distributed port "
-            "(ROADMAP Queue 1)")
     first = batch[0] if isinstance(batch, (list, tuple)) else batch
     tdevice.check_compute_engine(compute_engine, first.positions.device,
                                   "fit")
@@ -200,7 +262,8 @@ def fit(batch,
         spec.set_values(state["values"])
     neg_logl = make_objective(batch, spec, dt, nb_states, cell_dims,
                               nb_substeps, window, min_len, matrix_type,
-                              input_loc_err, compute_engine=compute_engine)
+                              input_loc_err, sharded=sharded,
+                              compute_engine=compute_engine)
     device, dtype = neg_logl.device, neg_logl.dtype
 
     def as_z(z, grad=False):
@@ -279,12 +342,20 @@ def fit(batch,
 
     std_errors = None
     if compute_errors:
-        hessian = (hessian_hvp_exact if device.type == "cuda"
-                   else hessian_chunked)
-        H = hessian(neg_logl.batches, spec, res.x, dt, nb_states,
-                    cell_dims=cell_dims, nb_substeps=nb_substeps,
-                    window=neg_logl.window, min_len=neg_logl.min_len,
-                    matrix_type=matrix_type, input_loc_err=input_loc_err)
+        kw = dict(cell_dims=cell_dims, nb_substeps=nb_substeps,
+                  window=neg_logl.window, min_len=neg_logl.min_len,
+                  matrix_type=matrix_type, input_loc_err=input_loc_err)
+        mesh = neg_logl.mesh
+        if device.type == "cuda":
+            H = hessian_hvp_exact(neg_logl.batches, spec, res.x, dt,
+                                  nb_states, sharded=mesh or False, **kw)
+        elif mesh is None:
+            H = hessian_chunked(neg_logl.batches, spec, res.x, dt,
+                                nb_states, **kw)
+        else:
+            H = _all_reduce_np(hessian_chunked(
+                _local_shards(neg_logl.batches, mesh), spec, res.x, dt,
+                nb_states, **kw), mesh)
         std_errors = fisher_errors_from_hessian(H, fitted, res.x)
     return FitResult(params=fitted, logl=-float(res.fun),
                      success=bool(res.success), n_evals=n_evals[0],
@@ -306,7 +377,7 @@ def _tables_fn(b, spec, dt, nb_states, cell_dims, nb_substeps, matrix_type,
         return tables.build_tables(
             Ds, loc_err, Fs, rates, pBL, b.dt if b.dt is not None else dt,
             cell_dims=tuple(cell_dims), nb_substeps=nb_substeps,
-            matrix_type=matrix_type)
+            matrix_type=matrix_type, dt_repr=b.dt_repr)
     return tables_fn
 
 
@@ -326,11 +397,12 @@ def hessian_hvp_columns(batches, spec: tparams.Parameters, z_opt, dt,
     the kernels' envelope raises, naming the bucket."""
     device = batches[0].positions.device
     dtype = batches[0].positions.dtype
-    z = torch.as_tensor(np.asarray(z_opt), dtype=dtype, device=device)
-    n = int(z.shape[0])
+    z0 = torch.as_tensor(np.asarray(z_opt), dtype=dtype, device=device)
+    n = int(z0.shape[0])
     H = torch.zeros((n, n), dtype=torch.float64, device=device)
     for i, b in enumerate(batches):
-        if device.type == "cuda":
+        dev = b.positions.device
+        if dev.type == "cuda":
             forward_kernel.check_envelope(
                 b.max_len, b.nb_dims, nb_states, window, nb_substeps,
                 variable_dt=b.dt is not None, dtype=dtype,
@@ -338,25 +410,28 @@ def hessian_hvp_columns(batches, spec: tparams.Parameters, z_opt, dt,
                      f"T={b.max_len})", kernel="K3")
         tables_fn = _tables_fn(b, spec, dt, nb_states, cell_dims,
                                nb_substeps, matrix_type, input_loc_err)
+        z = z0.to(dev)
         with torch.no_grad():
             tb = tables.ModelTables(*(f.detach() for f in tables_fn(z)))
         # J_t column by column, one JVP per free parameter: with variable
         # dt sig2 is per track and step, and reverse mode would take one
         # pass per entry
-        eye = torch.eye(n, dtype=dtype, device=device)
+        eye = torch.eye(n, dtype=dtype, device=dev)
         cols = [torch.autograd.functional.jvp(
             lambda z_: tuple(tables_fn(z_)), z, eye[j])[1] for j in range(n)]
         jac = [torch.stack(c, dim=-1) for c in zip(*cols)]  # (*shape, n)
         for j in range(n):
-            _, g, hv = hvp_kernel.table_hvp(
-                b.positions, b.lengths, b.is_bleached, tb,
-                tables.ModelTables(*(J[..., j] for J in jac)),
-                window=window, nb_substeps=nb_substeps, min_len=min_len)
+            with pmesh.launch_guard(dev):
+                _, g, hv = hvp_kernel.table_hvp(
+                    b.positions, b.lengths, b.is_bleached, tb,
+                    tables.ModelTables(*(J[..., j] for J in jac)),
+                    window=window, nb_substeps=nb_substeps, min_len=min_len)
             H[:, j] += sum(torch.einsum("...i,...->i", J, hv[k]).double()
-                           for k, J in zip(tb._fields, jac))
+                           for k, J in zip(tb._fields, jac)).to(device)
         H += torch.autograd.functional.hessian(
             lambda z_: sum((f * g[k]).sum() for k, f in
-                           zip(tb._fields, tables_fn(z_))), z).double()
+                           zip(tb._fields, tables_fn(z_))), z
+        ).double().to(device)
     return H.cpu().numpy()
 
 
@@ -370,19 +445,30 @@ def hessian_hvp_exact(batches, spec: tparams.Parameters, z_opt, dt,
     fit(compute_errors=True) uses on CUDA.  ``pallas_flags``, ``has_len2s``
     and ``block`` (the TPU kernels' per-bucket choices and track block) are
     accepted and ignored: every CUDA bucket runs K3, and a CPU bucket the
-    plain double backward.  ``sharded=True`` is not ported yet and
-    raises."""
+    plain double backward.
+
+    ``sharded`` (True or a ``parallel.mesh.Mesh``): the Hessian is
+    additive over tracks, so each process runs K3 on its own shards of
+    every bucket (``mesh.shard_batch``) and the assembled matrices sum in
+    one all-reduce.  The JAX package refuses a sharded exact Hessian and
+    falls back to central differences; K3 covers K2's whole envelope, so
+    the port has no such fallback."""
     del pallas_flags, has_len2s, block
-    if sharded:
-        raise NotImplementedError(
-            "sharded Hessians wait for the torch.distributed port "
-            "(ROADMAP Queue 1)")
-    H = hessian_hvp_columns(batches, spec, z_opt, dt, nb_states,
-                            cell_dims=cell_dims, nb_substeps=nb_substeps,
-                            window=window, min_len=min_len,
-                            matrix_type=matrix_type,
-                            input_loc_err=input_loc_err)
+    mesh = (pmesh.mesh_for(sharded, batches[0].positions.device)
+            if sharded else None)
+    H = hessian_hvp_columns(
+        batches if mesh is None else _local_shards(batches, mesh), spec,
+        z_opt, dt, nb_states, cell_dims=cell_dims, nb_substeps=nb_substeps,
+        window=window, min_len=min_len, matrix_type=matrix_type,
+        input_loc_err=input_loc_err)
+    if mesh is not None:
+        H = _all_reduce_np(H, mesh)
     return 0.5 * (H + H.T)
+
+
+def _all_reduce_np(H: np.ndarray, mesh) -> np.ndarray:
+    """A float64 host array summed over the mesh's process group."""
+    return mesh.all_reduce(torch.as_tensor(H)).numpy()
 
 
 def hessian_chunked(batches, spec: tparams.Parameters, z_opt, dt,
@@ -406,7 +492,8 @@ def hessian_chunked(batches, spec: tparams.Parameters, z_opt, dt,
             part = tdata.TrackBatch(
                 b.positions[sl], b.lengths[sl],
                 None if b.loc_err is None else b.loc_err[sl],
-                b.is_bleached[sl], dt=None if b.dt is None else b.dt[sl])
+                b.is_bleached[sl], dt=None if b.dt is None else b.dt[sl],
+                dt_repr=b.dt_repr)
             tables_fn = _tables_fn(part, spec, dt, nb_states, cell_dims,
                                    nb_substeps, matrix_type, input_loc_err)
 

@@ -28,6 +28,7 @@ segments are counted (DEVIATIONS.md 3b).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -37,6 +38,7 @@ from extrack_tpu_torch import data as tdata
 from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import engine, tables
+from extrack_tpu_torch.parallel import mesh as pmesh
 
 _NEG = -1e30              # log weight of an unused register slot
 # engine names accepted by hist_batch / len_hist, as the JAX package's, and
@@ -413,7 +415,7 @@ def decode_segments(seqs, weights, lengths, nb_states: int,
     return bins.sum(1).reshape(T, S)
 
 
-def _check_engine(engine_name: str, sharded: bool, nb_substeps: int) -> str:
+def _check_engine(engine_name: str, nb_substeps: int) -> str:
     """The engine that ``engine_name`` runs, 'window' or 'topk'.  The JAX
     package's names of its two implementations of each ('pallas'/'xla',
     'topk_pallas') run the port's one implementation per device."""
@@ -423,11 +425,19 @@ def _check_engine(engine_name: str, sharded: bool, nb_substeps: int) -> str:
     if engine_name == "pallas" and nb_substeps != 1:
         raise NotImplementedError(
             "nb_substeps > 1 requires engine='window' or 'topk'")
-    if sharded:
-        raise NotImplementedError(
-            "sharded histograms wait for the torch.distributed port "
-            "(ROADMAP Queue 1)")
     return _ENGINES[engine_name]
+
+
+def _shard_choice(kind: str, engine_name: str, sharded):
+    """``sharded`` as the window engine takes it; the top-K engine warns
+    and runs unsharded, as the JAX package's does."""
+    if sharded and kind == "topk":
+        warnings.warn(
+            f"len_hist: sharded=True is not supported for engine="
+            f"{engine_name!r}; running on a single device.", RuntimeWarning,
+            stacklevel=3)
+        return False
+    return sharded
 
 
 def hist_batch(batch: tdata.TrackBatch,
@@ -443,7 +453,7 @@ def hist_batch(batch: tdata.TrackBatch,
                window: int = 7,
                chunk: Optional[int] = None,
                min_len: Optional[int] = None,
-               sharded: bool = False) -> np.ndarray:
+               sharded=False) -> np.ndarray:
     """(T, S) duration histogram of a TrackBatch, as a numpy array in the
     batch's dtype (copied from its device), as the JAX package returns it.
 
@@ -458,20 +468,27 @@ def hist_batch(batch: tdata.TrackBatch,
     (500 -> 512).  A CUDA batch is one K7 launch per 32768 tracks at most,
     each followed by the decode; CPU batches run the plain version in
     chunks.
+
+    ``sharded`` (True, or a ``parallel.mesh.Mesh``) splits each chunk's
+    tracks over the mesh's shards, K5 on each (``mesh.sharded_histogram``;
+    ``chunk`` then bounds the tracks of one shard), summed over the shards
+    and the process group.  The top-K engine warns and runs unsharded.
     """
+    kind = _check_engine(engine, nb_substeps)
     return _hist_batch(
         batch, params, dt, cell_dims=cell_dims, nb_states=nb_states,
         max_nb_states=max_nb_states, nb_substeps=nb_substeps,
         input_loc_err=input_loc_err, matrix_type=matrix_type,
-        kind=_check_engine(engine, sharded, nb_substeps), window=window,
-        chunk=chunk, min_len=min_len).cpu().numpy()
+        kind=kind, window=window, chunk=chunk, min_len=min_len,
+        sharded=_shard_choice(kind, engine, sharded)).cpu().numpy()
 
 
 def _hist_batch(batch: tdata.TrackBatch, params, dt, *, cell_dims,
                 nb_states: int, max_nb_states: int, nb_substeps: int,
                 input_loc_err: bool, matrix_type: int, kind: str,
                 window: int, chunk: Optional[int], min_len: Optional[int],
-                dt_repr: Optional[float] = None) -> torch.Tensor:
+                dt_repr: Optional[float] = None,
+                sharded=False) -> torch.Tensor:
     """``hist_batch`` after its engine check (``kind`` 'window' or
     'topk'), with the survival tables' representative dt ``dt_repr``
     (None: each table build's own, ``tables.build_tables``)."""
@@ -494,6 +511,11 @@ def _hist_batch(batch: tdata.TrackBatch, params, dt, *, cell_dims,
             chunk = max(1, (1 << 30) // (M * batch.max_len * 64))
     if kind == "topk" and on_card:
         chunk = min(chunk, TOPK_CHUNK)
+    mesh = None
+    if sharded:
+        # the chunk bound is per shard: each shard runs the same walk
+        mesh = pmesh.mesh_for(sharded, batch.positions.device)
+        chunk *= mesh.size
     dt_arr = batch.dt if batch.dt is not None else dt
     cell_dims = tuple(c for c in cell_dims if c is not None)
 
@@ -513,7 +535,13 @@ def _hist_batch(batch: tdata.TrackBatch, params, dt, *, cell_dims,
                                  nb_substeps=nb_substeps,
                                  matrix_type=matrix_type, dt_repr=dt_repr)
         args = (pos, batch.lengths[sl], batch.is_bleached[sl], tb)
-        if kind == "topk":
+        if mesh is not None:
+            part = tdata.TrackBatch(pos, args[1], is_bleached=args[2],
+                                    process_local=batch.process_local)
+            h = pmesh.sharded_histogram(part, tb, window=window_sub,
+                                        min_len=min_len, mesh=mesh,
+                                        nb_substeps=nb_substeps)
+        elif kind == "topk":
             h = topk_kernel.segment_topk(*args, max_nb_states=M,
                                          min_len=min_len,
                                          nb_substeps=nb_substeps)
@@ -537,7 +565,7 @@ def len_hist(all_tracks: Dict[str, np.ndarray],
              engine: str = "window",
              window: int = 7,
              chunk: Optional[int] = None,
-             sharded: bool = False,
+             sharded=False,
              *,
              device="cuda",
              dtype=None) -> np.ndarray:
@@ -556,11 +584,12 @@ def len_hist(all_tracks: Dict[str, np.ndarray],
     to a multiple of 128), one K7 launch per 32768 tracks of a bucket.
     With a dt dict every bucket's survival tables take the dataset's
     representative dt (``tdata.dt_median``), as JAX's one padded batch
-    does.
+    does.  ``sharded`` as ``hist_batch``, bucket by bucket.
     """
     del workers
     device, dtype = tdevice.resolve_device(device, dtype)
-    kind = _check_engine(engine, sharded, nb_substeps)
+    kind = _check_engine(engine, nb_substeps)
+    sharded = _shard_choice(kind, engine, sharded)
     dts = dt if isinstance(dt, dict) else None
     batches = tdata.from_dict_bucketed(
         all_tracks, max_buckets=4, input_loc_err=input_LocErr, dt=dts,
@@ -575,7 +604,8 @@ def len_hist(all_tracks: Dict[str, np.ndarray],
                         max_nb_states=max_nb_states, nb_substeps=nb_substeps,
                         input_loc_err=input_LocErr is not None,
                         matrix_type=matrix_type, kind=kind, window=window,
-                        chunk=chunk, min_len=min_len, dt_repr=dt_repr)
+                        chunk=chunk, min_len=min_len, dt_repr=dt_repr,
+                        sharded=sharded)
         out[:b.max_len] += h.double().cpu().numpy()
     return out
 

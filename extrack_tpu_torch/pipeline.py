@@ -59,7 +59,7 @@ def analyze(tracks_or_path,
             export_xml: Optional[str] = None,
             fit_kwargs: Optional[dict] = None,
             params: Optional[tparams.Parameters] = None,
-            sharded: bool = False,
+            sharded=False,
             verbose: int = 0,
             *,
             device=None,
@@ -75,16 +75,16 @@ def analyze(tracks_or_path,
     Here each stage runs on the same length buckets.  ``window`` (the fit's
     and the posteriors') defaults to ``fit.default_window``, the
     refinement's to ``refine.default_window`` at the longest bucket.
-    ``sharded=True`` waits for the torch.distributed port and raises.
+    ``sharded`` (True, or a ``parallel.mesh.Mesh``) shards every stage's
+    tracks over the mesh (``fit.fit``, ``predict_batch``, ``hist_batch``
+    and ``refine_batch`` with ``sharded``); with a process group every
+    process reads the same input, runs its part of each stage and gets
+    the whole result.
     """
     from extrack_tpu_torch import device as tdevice
     from extrack_tpu_torch import fit as tfit
     from extrack_tpu_torch import histograms, predict, refine
 
-    if sharded:
-        raise NotImplementedError(
-            "sharded analyses wait for the torch.distributed port (ROADMAP "
-            "Queue 1, item 6)")
     if (export_csv or export_xml) and not do_predict:
         raise ValueError("export_csv/export_xml need the state posteriors; "
                          "call with do_predict=True")
@@ -125,7 +125,7 @@ def analyze(tracks_or_path,
         estimated_transition_rates=0.1)
     res = tfit.fit(batches, spec, dt, nb_states, cell_dims=cell_dims,
                    nb_substeps=nb_substeps, window=window, verbose=verbose,
-                   **(fit_kwargs or {}))
+                   sharded=sharded, **(fit_kwargs or {}))
     values = res.params.resolve()
     lap("fit")
 
@@ -135,7 +135,8 @@ def analyze(tracks_or_path,
         for b in batches:
             _, preds = predict.predict_batch(b, values, dt, nb_states,
                                              cell_dims=cell_dims,
-                                             window=window, min_len=min_len)
+                                             window=window, min_len=min_len,
+                                             sharded=sharded)
             preds_dict.update(tdata.to_dict(b, preds))
         lap("predict")
 
@@ -144,7 +145,8 @@ def analyze(tracks_or_path,
         for b in batches:
             h = histograms.hist_batch(
                 b, values, dt, cell_dims=cell_dims, nb_states=nb_states,
-                nb_substeps=nb_substeps, window=hist_window, min_len=min_len)
+                nb_substeps=nb_substeps, window=hist_window, min_len=min_len,
+                sharded=sharded)
             if hist is None:
                 hist = np.array(h, dtype=np.float64)
             else:                      # buckets have different max lengths
@@ -159,7 +161,8 @@ def analyze(tracks_or_path,
         mus, sigmas = {}, {}
         for b in batches:
             mu, sig, _ = refine.refine_batch(b, loc_err, ds, trmat,
-                                             frame_len=refine_frame_len)
+                                             frame_len=refine_frame_len,
+                                             sharded=sharded)
             mus.update(tdata.to_dict(b, mu))
             sigmas.update(tdata.to_dict(b, sig[..., 0]))
         lap("refine")

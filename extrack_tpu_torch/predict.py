@@ -19,6 +19,22 @@ from extrack_tpu_torch import device as tdevice
 from extrack_tpu_torch import params as tparams
 from extrack_tpu_torch.core import tables
 from extrack_tpu_torch.ops import forward_kernel, predict_kernel
+from extrack_tpu_torch.parallel import mesh as pmesh
+
+
+def tables_from_values(values, loc_err_in, dt_arr, *, nb_states, cell_dims,
+                       device, dtype, matrix_type=1, nb_substeps=1,
+                       dt_repr=None) -> tables.ModelTables:
+    """Parameter extraction and table build on ``device`` in ``dtype``:
+    ``values`` is the resolved parameter dict, ``loc_err_in`` the per-peak
+    error batch or None, ``dt_repr`` the survival tables' representative
+    dt (None: the median of ``dt_arr``)."""
+    Ds, Fs, rates, loc_err, pBL = tparams.extract_arrays(
+        values, nb_states, input_loc_err=loc_err_in, device=device,
+        dtype=dtype)
+    return tables.build_tables(Ds, loc_err, Fs, rates, pBL, dt_arr,
+                               cell_dims=cell_dims, nb_substeps=nb_substeps,
+                               matrix_type=matrix_type, dt_repr=dt_repr)
 
 
 def forward_from_values(values, positions, lengths, is_bleached,
@@ -26,17 +42,13 @@ def forward_from_values(values, positions, lengths, is_bleached,
                         window, min_len, matrix_type=1, nb_substeps=1,
                         return_preds=True, dt_repr=None):
     """Parameter extraction, table build and the walk in one call, on the
-    device and in the dtype of ``positions``.  ``values`` is the resolved
-    parameter dict; ``loc_err_in`` is the per-peak error batch or None;
-    ``dt_repr`` the survival tables' representative dt (None: the median
-    of ``dt_arr``).  Returns ``(logl, preds)`` with ``return_preds`` (one
-    sub-step only), else ``logl``."""
-    Ds, Fs, rates, loc_err, pBL = tparams.extract_arrays(
-        values, nb_states, input_loc_err=loc_err_in,
-        device=positions.device, dtype=positions.dtype)
-    tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, dt_arr,
-                             cell_dims=cell_dims, nb_substeps=nb_substeps,
-                             matrix_type=matrix_type, dt_repr=dt_repr)
+    device and in the dtype of ``positions`` (``tables_from_values``).
+    Returns ``(logl, preds)`` with ``return_preds`` (one sub-step only),
+    else ``logl``."""
+    tb = tables_from_values(values, loc_err_in, dt_arr, nb_states=nb_states,
+                            cell_dims=cell_dims, device=positions.device,
+                            dtype=positions.dtype, matrix_type=matrix_type,
+                            nb_substeps=nb_substeps, dt_repr=dt_repr)
     if return_preds:
         if nb_substeps != 1:
             raise ValueError("posteriors require nb_substeps == 1")
@@ -45,13 +57,6 @@ def forward_from_values(values, positions, lengths, is_bleached,
     return forward_kernel.forward(positions, lengths, is_bleached, tb,
                                   window=window, nb_substeps=nb_substeps,
                                   min_len=min_len)
-
-
-def _check_unsharded(sharded: bool):
-    if sharded:
-        raise NotImplementedError(
-            "sharded posteriors wait for the torch.distributed port "
-            "(ROADMAP Queue 1)")
 
 
 def predict_batch(batch: tdata.TrackBatch,
@@ -65,30 +70,35 @@ def predict_batch(batch: tdata.TrackBatch,
                   input_loc_err: bool = False,
                   chunk_size: int = 16384,
                   compute_engine: str = "auto",
-                  sharded: bool = False):
+                  sharded=False):
     """(logl (B,), preds (B, T, S)) for a TrackBatch, on its device.
 
     The plain engine carries K*(T+W)*S history floats per track, so CPU
     batches run in ``chunk_size`` chunks; K4 keeps the history on chip
     and takes a CUDA batch in one launch.  ``compute_engine``: 'auto' or
     'pallas' run K4 on a CUDA batch, 'xla' raises there; a CPU batch runs
-    the plain engine whatever the value.  ``sharded=True`` (several
-    devices) is not ported yet and raises.
+    the plain engine whatever the value.
+
+    ``sharded`` (True, or a ``parallel.mesh.Mesh``) splits the tracks
+    over the mesh's shards: K4 on each CUDA shard
+    (``mesh.sharded_posteriors``; the tables built once for the batch), the
+    outputs in the batch's order.  With a process group each process runs
+    its part and every process gets the whole result.
     """
-    _check_unsharded(sharded)
     tdevice.check_compute_engine(compute_engine, batch.positions.device,
                                   "predict_batch")
     return _predict_batch(batch, spec_or_values, dt, nb_states,
                           cell_dims=cell_dims, window=window,
                           min_len=min_len, matrix_type=matrix_type,
-                          input_loc_err=input_loc_err, chunk_size=chunk_size)
+                          input_loc_err=input_loc_err, chunk_size=chunk_size,
+                          sharded=sharded)
 
 
 def _predict_batch(batch: tdata.TrackBatch, spec_or_values, dt,
                    nb_states: int, *, cell_dims, window: int,
                    min_len: Optional[int], input_loc_err: bool,
                    matrix_type: int = 1, chunk_size: int = 16384,
-                   dt_repr: Optional[float] = None):
+                   dt_repr: Optional[float] = None, sharded=False):
     """``predict_batch`` after its checks, with the survival tables'
     representative dt ``dt_repr`` (None: each chunk's own)."""
     values = (spec_or_values.resolve()
@@ -97,6 +107,15 @@ def _predict_batch(batch: tdata.TrackBatch, spec_or_values, dt,
     if min_len is None:
         min_len = tdata.default_min_len(tdata.host_lengths(batch))
     dt_arr = batch.dt if batch.dt is not None else dt
+    if sharded:
+        mesh = pmesh.mesh_for(sharded, batch.positions.device)
+        tb = tables_from_values(
+            values, batch.loc_err if input_loc_err else None, dt_arr,
+            nb_states=nb_states, cell_dims=tuple(cell_dims),
+            device=batch.positions.device, dtype=batch.positions.dtype,
+            matrix_type=matrix_type, dt_repr=dt_repr)
+        return pmesh.sharded_posteriors(batch, tb, window=window,
+                                        min_len=min_len, mesh=mesh)
     B = batch.batch_size
     step = max(1, B if batch.positions.device.type == "cuda"
                else chunk_size)
@@ -130,7 +149,7 @@ def predict_Bs(all_tracks: Dict[str, np.ndarray],
                input_LocErr=None,
                verbose: int = 0,
                nb_max: int = 1,
-               sharded: bool = False,
+               sharded=False,
                *,
                device="cuda",
                dtype=None) -> Dict[str, np.ndarray]:
@@ -142,11 +161,10 @@ def predict_Bs(all_tracks: Dict[str, np.ndarray],
     ``workers``/``nb_max``/``threshold``/``max_nb_states``/``verbose`` are
     accepted for API compatibility; the fixed window (``frame_len``)
     replaces threshold pruning.  Returns the length-keyed dict of (n, L, S)
-    posteriors.
+    posteriors.  ``sharded`` as ``predict_batch``, bucket by bucket.
     """
     del max_nb_states, threshold, workers, verbose, nb_max
     device, dtype = tdevice.resolve_device(device, dtype)
-    _check_unsharded(sharded)
     dts = dt if isinstance(dt, dict) else None
     batches = tdata.from_dict_bucketed(
         all_tracks, max_buckets=4, input_loc_err=input_LocErr, dt=dts,
@@ -159,6 +177,7 @@ def predict_Bs(all_tracks: Dict[str, np.ndarray],
         _, preds = _predict_batch(
             b, params, dt if dts is None else 0.0, nb_states,
             cell_dims=cell_dims, window=frame_len, min_len=min_len,
-            input_loc_err=input_LocErr is not None, dt_repr=dt_repr)
+            input_loc_err=input_LocErr is not None, dt_repr=dt_repr,
+            sharded=sharded)
         out.update(tdata.to_dict(b, preds))
     return out

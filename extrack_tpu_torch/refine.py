@@ -300,7 +300,7 @@ def default_window(nb_states: int, T: int = 16, D: int = 2) -> int:
 def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
                  frame_len: Optional[int] = None,
                  compute_engine: str = "auto",
-                 sharded: bool = False):
+                 sharded=False):
     """TrackBatch-native refinement: (mu (B,T,D), sigma (B,T,D), B) as
     numpy arrays in the batch's dtype (copied from its device) and the
     number of tracks, as the JAX package returns them.  ``LocErr`` may be a
@@ -312,13 +312,13 @@ def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
     transition (a zero in ``TrMat``) gets the finite log floor of
     ``tables.cap_log``.  ``compute_engine``: 'auto' or 'pallas' run K6 on
     a CUDA batch, 'xla' raises there; a CPU batch runs the plain version
-    whatever the value.  ``sharded=True`` (several devices) is not ported
-    yet and raises."""
+    whatever the value.  ``sharded`` (True, or a ``parallel.mesh.Mesh``)
+    splits the tracks over the mesh's shards, K6 on each
+    (``mesh.sharded_refine``), the outputs in the batch's order; with a
+    process group each process runs its part and every process gets the
+    whole result."""
     from extrack_tpu_torch.ops import refine_kernel
-    if sharded:
-        raise NotImplementedError(
-            "sharded refinement waits for the torch.distributed port "
-            "(ROADMAP Queue 1)")
+    from extrack_tpu_torch.parallel import mesh as pmesh
     dev, dtype = batch.positions.device, batch.positions.dtype
     tdevice.check_compute_engine(compute_engine, dev, "refine_batch")
 
@@ -336,10 +336,18 @@ def refine_batch(batch: tdata.TrackBatch, LocErr, ds, TrMat,
         loc_err2 = tensor(LocErr) ** 2
         loc_err2 = loc_err2.reshape((1,) * (3 - loc_err2.ndim)
                                     + loc_err2.shape)
-    mu, sigma = refine_kernel.refine(
-        batch.positions, batch.lengths, loc_err2, log_trans, tensor(ds) ** 2,
-        window=window, what=f"refinement bucket of {batch.batch_size} tracks "
-                            "(pass frame_len to choose the window)")
+    if sharded:
+        mu, sigma = pmesh.sharded_refine(
+            batch.positions, batch.lengths, loc_err2, log_trans,
+            tensor(ds) ** 2, window=window,
+            mesh=pmesh.mesh_for(sharded, dev),
+            process_local=batch.process_local)
+    else:
+        mu, sigma = refine_kernel.refine(
+            batch.positions, batch.lengths, loc_err2, log_trans,
+            tensor(ds) ** 2, window=window,
+            what=f"refinement bucket of {batch.batch_size} tracks (pass "
+                 "frame_len to choose the window)")
     return mu.cpu().numpy(), sigma.cpu().numpy(), batch.batch_size
 
 
@@ -352,7 +360,7 @@ def position_refinement(all_tracks: Dict[str, np.ndarray],
                         threshold: float = 0.1,
                         max_nb_states: int = 1000,
                         compute_engine: str = "auto",
-                        sharded: bool = False,
+                        sharded=False,
                         *,
                         device="cuda",
                         dtype=None

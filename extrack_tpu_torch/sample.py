@@ -301,7 +301,7 @@ def sample_posterior(all_tracks: Dict[str, np.ndarray],
                      matrix_type: int = 1,
                      input_LocErr=None,
                      max_buckets: int = 4,
-                     sharded: bool = False,
+                     sharded=False,
                      dispatch_chunk: int = 256,
                      fisher_sd: Optional[Dict[str, float]] = None,
                      init_spread: float = 0.1,
@@ -337,8 +337,11 @@ def sample_posterior(all_tracks: Dict[str, np.ndarray],
     the posterior arbitrarily sharp in z, and identity-mass warmup from
     fixed-width starts then leaves chains stranded far apart.  Entries
     that are missing, zero (pinned at a bound), or non-finite keep the
-    identity metric for that coordinate.  ``sharded=True`` (several
-    devices) is not ported yet and raises.
+    identity metric for that coordinate.  ``sharded`` (True, or a
+    ``parallel.mesh.Mesh``) runs the sharded objective
+    (``fit.make_objective``): with a process group every process draws
+    from the same seeds and gets the same all-reduced potential and
+    gradient, so every chain's accept/reject agrees across processes.
     """
     if dispatch_chunk < 1:
         raise ValueError(
@@ -347,10 +350,6 @@ def sample_posterior(all_tracks: Dict[str, np.ndarray],
         raise ValueError(f"num_chains must be >= 1, got {num_chains}")
     if not 0.0 <= jitter < 1.0:
         raise ValueError(f"jitter must be in [0, 1), got {jitter}")
-    if sharded:
-        raise NotImplementedError(
-            "sharded sampling waits for the torch.distributed port "
-            "(ROADMAP Queue 1 item 6)")
     device, dtype = tdevice.resolve_device(device, dtype)
     if params is None:
         params = tparams.generate_params(nb_states=nb_states,
@@ -363,7 +362,7 @@ def sample_posterior(all_tracks: Dict[str, np.ndarray],
         batches, spec, dt if not isinstance(dt, dict) else 0.0, nb_states,
         cell_dims=cell_dims, nb_substeps=nb_substeps, window=window,
         min_len=min_len, matrix_type=matrix_type,
-        input_loc_err=input_LocErr is not None)
+        input_loc_err=input_LocErr is not None, sharded=sharded)
 
     def vg(z, data):
         # U = -log posterior = neg_logl - log|dtheta/dz| (flat prior); on

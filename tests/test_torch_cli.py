@@ -188,3 +188,45 @@ def test_cli_warmup_and_device(work):
     with pytest.raises(FileNotFoundError):
         cli.main(["--device", "cpu", "fit", str(d / "missing.csv"), "--dt",
                   "0.02"])
+
+
+def test_cli_sharded_fit_in_a_torchrun_group(work):
+    """``--sharded`` under torchrun's environment variables: two processes
+    join one gloo group on the CPU, each fits its part of every bucket
+    with one all-reduce an evaluation, both print the same fit and only
+    rank 0 writes ``-o``; the values are the JAX package's fit of the
+    file within 1e-5."""
+    import socket
+    d = work[0]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, OMP_NUM_THREADS="1", WORLD_SIZE="2",
+               MASTER_ADDR="localhost", MASTER_PORT=port,
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    outs = [str(d / f"sharded{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "extrack_tpu_torch.cli", "--device", "cpu",
+         "fit", str(d / "sim.csv"), *IO, "--window", "3", "--sharded", "-o",
+         outs[r]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=str(d), env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+        for r in range(2)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, res):
+        assert p.returncode == 0, err[-3000:]
+    fit_lines = [[ln for ln in out.splitlines() if ln.startswith(
+        ("FitResult", "  "))] for out, _ in res]
+    assert fit_lines[0] and fit_lines[0] == fit_lines[1]
+    assert os.path.exists(outs[0]) and not os.path.exists(outs[1])
+    got = json.loads(open(outs[0]).read())
+    want = jfit.param_fitting(work[1], 0.02, nb_states=2, frame_len=3,
+                              cell_dims=(0.5,), verbose=0)
+    for k, v in want.params.valuesdict().items():
+        np.testing.assert_allclose(got["values"][k], v, rtol=1e-5,
+                                   atol=1e-9)

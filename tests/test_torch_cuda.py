@@ -1243,3 +1243,49 @@ def test_cuda_cli_runs_the_kernels_alone(cuda, small_csv, tmp_path, command,
     counts = json.loads(line[len("kernel launches: "):])
     assert all(counts[k]["launches"] > 0 for k in kernels), counts
     assert sum(v["plain_calls"] for v in counts.values()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_drivers_on_one_card(cuda, small_csv):
+    """Every driver with ``sharded=True`` on a mesh of the one card: the
+    unsharded drivers bit for bit (one shard, the same buckets), K2, K3,
+    K4, K5 and K6 launched, no plain call; the one-card mesh has no
+    process group."""
+    from extrack_tpu_torch import predict, refine
+    from extrack_tpu_torch.io import readers
+    from extrack_tpu_torch.parallel import mesh as pmesh
+    tracks, _, _ = readers.read_table(str(small_csv),
+                                      lengths=list(range(3, 10)))
+    mesh = pmesh.make_mesh()
+    assert mesh.group is None
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count()))
+    if mesh.size != 1:
+        pytest.skip("the bit-for-bit check needs a mesh of one card")
+    values = params.generate_params(nb_states=2,
+                                    estimated_Ds=[0.0, 0.08]).resolve()
+    loc_err, ds, Fs, tr = refine.refinement_args(values, 2, 0.02)
+
+    def run(sharded):
+        res = fit.param_fitting(tracks, 0.02, cell_dims=(0.5,), verbose=0,
+                                compute_errors=True, max_iter=15,
+                                sharded=sharded)
+        return (res, predict.predict_Bs(tracks, 0.02, values,
+                                        cell_dims=(0.5,), sharded=sharded),
+                histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                                    sharded=sharded),
+                refine.position_refinement(tracks, loc_err, ds, Fs, tr,
+                                           sharded=sharded))
+
+    want = run(False)
+    _reset_counts()
+    got = run(True)
+    counts, plain = _kernel_counts()
+    assert plain == 0
+    assert all(counts[k] > 0 for k in ("K2", "K3", "K4", "K5", "K6"))
+    assert got[0].logl == want[0].logl
+    assert got[0].std_errors == want[0].std_errors
+    for k in want[1]:
+        np.testing.assert_array_equal(got[1][k], want[1][k])
+        np.testing.assert_array_equal(got[3][0][k], want[3][0][k])
+    np.testing.assert_array_equal(got[2], want[2])

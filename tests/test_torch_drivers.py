@@ -3,8 +3,9 @@ in the same order and of the same kinds, so that a call means the same in
 both; the port's keyword-only extras (``device``, ``dtype``) follow them.
 The batch drivers return what the JAX package's return: ``refine_batch``
 (mu, sigma, B) and ``hist_batch`` the histogram, as numpy arrays.  Also
-the validation of the JAX package's ``compute_engine`` and ``sharded``
-options in the port."""
+the validation of the JAX package's ``compute_engine`` option in the
+port, and its ``sharded`` option giving the unsharded results (one CPU
+shard bit for bit, three shards within rounding)."""
 import inspect
 
 import numpy as np
@@ -17,6 +18,7 @@ from extrack_tpu import fit as jfit, histograms as jhist, \
 from extrack_tpu_torch import data as tdata, device as tdevice, \
     fit as tfit, histograms as thist, predict as tpredict, \
     refine as trefine, sample as tsample, simulate as tsim
+from extrack_tpu_torch.parallel import mesh as pmesh
 import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 DRIVERS = [(jfit, tfit, "fit"), (jfit, tfit, "param_fitting"),
@@ -76,8 +78,14 @@ def test_refine_batch_engines_on_the_cpu(tracks):
         assert np.array_equal(mu, mu2) and np.array_equal(sig, sig2)
     with pytest.raises(ValueError, match="unknown compute_engine"):
         trefine.refine_batch(batch, 0.02, ds, tr, 4, "tpu")
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        trefine.refine_batch(batch, 0.02, ds, tr, 4, "auto", True)
+    # sharded: one CPU shard bit for bit, three shards within rounding
+    mu1, sig1, n = trefine.refine_batch(batch, 0.02, ds, tr, 4, "auto", True)
+    assert n == batch.batch_size
+    assert np.array_equal(mu, mu1) and np.array_equal(sig, sig1)
+    mu3, sig3, _ = trefine.refine_batch(batch, 0.02, ds, tr, 4, "auto",
+                                        pmesh.make_mesh(devices=["cpu"] * 3))
+    np.testing.assert_allclose(mu3, mu, rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(sig3, sig, rtol=1e-12, atol=1e-14)
 
 
 def test_batch_driver_returns_match_jax(tracks):
@@ -111,13 +119,18 @@ def test_objective_and_hessian_reject_sharded_and_unknown_engines(tracks):
     from extrack_tpu_torch import params as tparams
     batch = tdata.from_dict(tracks, device="cpu")
     spec = tparams.generate_params(nb_states=2)
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        tfit.make_objective(batch, spec, 0.02, 2, sharded=True)
     with pytest.raises(ValueError, match="unknown compute_engine"):
         tfit.make_objective(batch, spec, 0.02, 2, compute_engine="tpu")
     # the TPU knobs are accepted and change nothing
     z = torch.tensor(spec.to_unconstrained())
     a = tfit.make_objective(batch, spec, 0.02, 2, window=4)(z)
+    # sharded objectives: one CPU shard bit for bit, three within rounding
+    assert torch.equal(tfit.make_objective(batch, spec, 0.02, 2, window=4,
+                                           sharded=True)(z), a)
+    mesh3 = pmesh.make_mesh(devices=["cpu"] * 3)
+    torch.testing.assert_close(tfit.make_objective(
+        batch, spec, 0.02, 2, window=4, sharded=mesh3)(z), a, rtol=1e-12,
+        atol=0)
     b = tfit.make_objective(batch, spec, 0.02, 2, window=4, pallas_block=256,
                             compute_engine="xla")(z)
     assert torch.equal(a, b)
@@ -127,21 +140,29 @@ def test_objective_and_hessian_reject_sharded_and_unknown_engines(tracks):
                                 pallas_flags=[False], has_len2s=[True],
                                 block=128, **kw)
     np.testing.assert_array_equal(H, H2)
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        tfit.hessian_hvp_exact([batch], spec, z.numpy(), 0.02, 2,
-                               sharded=True, **kw)
+    np.testing.assert_array_equal(tfit.hessian_hvp_exact(
+        [batch], spec, z.numpy(), 0.02, 2, sharded=True, **kw), H)
+    np.testing.assert_allclose(tfit.hessian_hvp_exact(
+        [batch], spec, z.numpy(), 0.02, 2, sharded=mesh3, **kw), H,
+        rtol=1e-10, atol=1e-8)
 
 
 def test_fit_rejects_sharded_and_unknown_engines(tracks):
     from extrack_tpu_torch import params as tparams
     batch = tdata.from_dict(tracks, device="cpu")
     spec = tparams.generate_params(nb_states=2)
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        tfit.fit(batch, spec, 0.02, 2, sharded=True)
+    # sharded fits on one CPU shard: the unsharded fits bit for bit
+    kw = dict(window=4, max_iter=8)
+    want = tfit.fit(batch, spec, 0.02, 2, **kw)
+    got = tfit.fit(batch, spec, 0.02, 2, sharded=True, **kw)
+    assert (got.logl, got.n_evals, got.history) == (
+        want.logl, want.n_evals, want.history)
     with pytest.raises(ValueError, match="unknown compute_engine"):
         tfit.fit(batch, spec, 0.02, 2, compute_engine="tpu")
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        tfit.param_fitting(tracks, 0.02, nb_states=2, sharded=True,
-                           device="cpu")
+    kw = dict(nb_states=2, frame_len=4, max_iter=8, verbose=0, device="cpu")
+    want = tfit.param_fitting(tracks, 0.02, **kw)
+    got = tfit.param_fitting(tracks, 0.02, sharded=True, **kw)
+    assert (got.logl, got.n_evals) == (want.logl, want.n_evals)
+    assert got.params.valuesdict() == want.params.valuesdict()
     with pytest.raises(ValueError, match="unknown compute_engine"):
         tpredict.predict_batch(batch, spec, 0.02, 2, compute_engine="tpu")

@@ -24,6 +24,7 @@ from extrack_tpu.ops import pallas_hist
 from extrack_tpu_torch import data as tdata, histograms as thist
 from extrack_tpu_torch.core import engine as tengine, tables as ttables
 from extrack_tpu_torch.ops import forward_kernel, hist_kernel
+from extrack_tpu_torch.parallel import mesh as pmesh
 import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
@@ -437,8 +438,15 @@ def test_hist_batch_chunks_and_engines(sim):
         thist.hist_batch(batch, values, 0.02, engine="pallas", nb_substeps=2)
     with pytest.raises(ValueError, match="unknown engine"):
         thist.hist_batch(batch, values, 0.02, engine="exact")
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        thist.hist_batch(batch, values, 0.02, sharded=True)
+    # sharded: one CPU shard bit for bit; three shards of 23-track
+    # chunks (69 tracks a chunk) within rounding
+    assert np.array_equal(thist.hist_batch(batch, values, 0.02,
+                                           cell_dims=(0.5,), window=4,
+                                           sharded=True), whole)
+    np.testing.assert_allclose(thist.hist_batch(
+        batch, values, 0.02, cell_dims=(0.5,), window=4, chunk=23,
+        sharded=pmesh.make_mesh(devices=["cpu"] * 3)), whole, rtol=1e-12,
+        atol=1e-12)
 
 
 def test_len_hist_defaults_to_the_card(sim):

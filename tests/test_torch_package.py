@@ -21,6 +21,8 @@ def test_import_leaves_jax_out():
         "pipeline, visualization)\n"
         "from extrack_tpu_torch.io import exporters, native, readers\n"
         "from extrack_tpu_torch.utils import observe\n"
+        "from extrack_tpu_torch.parallel import mesh, multihost\n"
+        "assert e.parallel.mesh is mesh\n"
         "assert e.pipeline is pipeline and e.auto_fitting is auto_fitting\n"
         "assert e.cli is cli and e.gui is gui and e.io is io\n"
         "assert e.visualization is visualization and e.observe is observe\n"

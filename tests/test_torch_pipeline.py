@@ -126,8 +126,17 @@ def test_analyze_csv_path_and_default_windows(tracks, tmp_path):
 
 
 def test_analyze_refuses(tracks):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        pipeline.analyze(tracks, 0.02, sharded=True, device="cpu")
+    # sharded=True on the CPU: one shard, the unsharded analysis bit for bit
+    kw = dict(window=3, hist_window=3, refine_frame_len=3,
+              fit_kwargs=dict(max_iter=3), device="cpu")
+    want = pipeline.analyze(tracks, 0.02, **kw)
+    got = pipeline.analyze(tracks, 0.02, sharded=True, **kw)
+    assert (got.fit.logl, got.fit.n_evals) == (want.fit.logl,
+                                               want.fit.n_evals)
+    assert np.array_equal(got.hist, want.hist)
+    for k in want.preds:
+        assert np.array_equal(got.preds[k], want.preds[k])
+        assert np.array_equal(got.mus[k], want.mus[k])
     with pytest.raises(ValueError, match="do_predict"):
         pipeline.analyze(tracks, 0.02, do_predict=False, export_csv="x.csv",
                          device="cpu")

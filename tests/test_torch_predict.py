@@ -22,6 +22,7 @@ from extrack_tpu_torch import data as tdata, params as tparams
 from extrack_tpu_torch import predict as tpredict
 from extrack_tpu_torch.core import engine as tengine, tables as ttables
 from extrack_tpu_torch.ops import predict_kernel
+from extrack_tpu_torch.parallel import mesh as pmesh
 import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
@@ -181,8 +182,16 @@ def test_predict_batch_chunks_and_parameters(sim):
                                              chunk_size=37)
     torch.testing.assert_close(logl_c, logl, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(preds_c, preds, rtol=1e-12, atol=1e-12)
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        tpredict.predict_batch(batch, spec, 0.02, 2, sharded=True)
+    # sharded: one CPU shard bit for bit, three shards within rounding
+    logl_s, preds_s = tpredict.predict_batch(batch, spec, 0.02, 2,
+                                             cell_dims=(0.5,), window=4,
+                                             sharded=True)
+    assert torch.equal(logl_s, logl) and torch.equal(preds_s, preds)
+    logl_s, preds_s = tpredict.predict_batch(
+        batch, spec, 0.02, 2, cell_dims=(0.5,), window=4,
+        sharded=pmesh.make_mesh(devices=["cpu"] * 3))
+    torch.testing.assert_close(logl_s, logl, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(preds_s, preds, rtol=1e-12, atol=1e-12)
 
 
 def test_predict_Bs_defaults_to_the_card(sim):

@@ -28,6 +28,7 @@ from extrack_tpu.ops import pallas_refine
 from extrack_tpu_torch import data as tdata, refine as trefine
 from extrack_tpu_torch.core import tables as ttables
 from extrack_tpu_torch.ops import refine_kernel
+from extrack_tpu_torch.parallel import mesh as pmesh
 import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 
@@ -213,8 +214,12 @@ def test_refine_batch_defaults_and_sharding(tracks):
     muW, _, _ = trefine.refine_batch(batch, 0.02, ds, tr, frame_len=W)
     assert n == batch.batch_size
     np.testing.assert_array_equal(mu, muW)
-    with pytest.raises(NotImplementedError, match=r"port \(ROADMAP Queue 1\)"):
-        trefine.refine_batch(batch, 0.02, ds, tr, sharded=True)
+    # sharded: one CPU shard bit for bit, three shards within rounding
+    mu1, _, n1 = trefine.refine_batch(batch, 0.02, ds, tr, sharded=True)
+    assert n1 == n and np.array_equal(mu1, mu)
+    mu3, _, _ = trefine.refine_batch(
+        batch, 0.02, ds, tr, sharded=pmesh.make_mesh(devices=["cpu"] * 3))
+    np.testing.assert_allclose(mu3, mu, rtol=1e-12, atol=1e-14)
 
 
 def test_position_refinement_defaults_to_the_card(tracks):

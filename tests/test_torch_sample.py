@@ -227,8 +227,13 @@ def test_sample_posterior_validates_inputs():
         # the JAX package's messages
         with pytest.raises(ValueError, match=msg):
             jsample.sample_posterior(tracks, 0.02, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tsample.sample_posterior(tracks, 0.02, sharded=True, device="cpu")
+    # sharded=True on the CPU: one shard, the unsharded samples bit for bit
+    kw = dict(num_samples=3, num_warmup=2, n_leapfrog=2, window=3,
+              max_buckets=1, device="cpu")
+    want = tsample.sample_posterior(tracks, 0.02, **kw)
+    got = tsample.sample_posterior(tracks, 0.02, sharded=True, **kw)
+    for k in want.samples:
+        np.testing.assert_array_equal(got.samples[k], want.samples[k])
     if not torch.cuda.is_available():
         # the card by default, raising where there is none
         with pytest.raises(RuntimeError, match="device='cpu'"):
