@@ -11,7 +11,8 @@ Phases (each prints its lines; a failed check exits non-zero):
    K5 or K6 instantiation of up to 512 threads, constant or variable dt
    (K5's variable-dt instantiations listed with their spill bytes, and
    the 21 instantiations of the wide mapping with their registers and
-   spill bytes);
+   spill bytes, then K2's and K3's 12: float and dual numbers, D 1..3,
+   constant and variable dt);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
@@ -20,7 +21,10 @@ Phases (each prints its lines; a failed check exits non-zero):
    ``value_and_table_grads_plain`` (torch autograd of the engine), at the
    same configurations, then on both of its mappings (the warp mapping
    at K = 8, 16, 32, 64 and the block mapping at the same K and at
-   K = 243);
+   K = 243); then K2 and K3 (against ``table_hvp_plain`` in float64) on
+   their wide mapping past 1024 slots, K = 1296, 2048 (two sub-steps),
+   2187, 3125 and 4096 at D = 1..3 with constant and variable dt, and
+   the wide mapping forced at K = 243 and 1024;
 3. the fit main path on 10^5 simulated tracks: first the kernels against
    the plain version at the fit's own bucket shapes (each table cotangent
    per bucket, then the objective's value and each z-gradient component);
@@ -191,6 +195,21 @@ Phases (each prints its lines; a failed check exits non-zero):
    ones; NCCL at world size 1 on every SUBSET_STRIDE-th track against the
    in-process sharded fit.  The three processes run beside the
    in-process part; their wall time is printed, and is not a speed.
+16. the fit past 1024 slots (K2 and K3 on their wide mapping, a thread a
+   fusion group): ``param_fitting(nb_states=4, frame_len=6,
+   compute_errors=True)`` on ~1.5 x 10^4 4-state ``sim_fov`` tracks (K =
+   4096, the GUI's seeded frame_len; its launches, 0 plain calls, its
+   wall time; at its start the objective's value and z-gradient against
+   the plain version on each bucket's first tracks, the Hessian columns
+   on the two shortest buckets' first tracks), the GUI ``Session``'s
+   Model Fitting runner at its seeded frame_len 6 on ~2,500 of those
+   tracks, the 3-state fit with error bars at frame_len 7 (K = 2187) on
+   ~7,700 ``sim_fov`` tracks, and ``sample_posterior(window=7)`` from it
+   on ~2,000 tracks (R-hat printed, K2 launches against the sampler's
+   formula); then K2's and K3's bare times
+   on 2^14 random walks at (S, W) = (4, 6) and (3, 7) beside their bounds
+   and one pass of their plain versions on the first quarter of each
+   bucket.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -407,6 +426,40 @@ PLAIN_CHUNK = 1 << 17         # tracks per plain autograd call (memory)
 PLAIN_HVP_CHUNK = 1 << 15     # double backward keeps ~3x more per track
 PLAIN_HIST_CHUNK = 1 << 16    # the plain histogram carries ~4K*(1+S)*T
 HESS_CHUNK = 1 << 14          # hessian_chunked on the main path
+# phase 2, K2 and K3 past 1024 slots: (S, W, n, D, dt) at K = 1296,
+# 2048 (two sub-steps), 2187, 3125 and 4096, D = 1..3, constant dt and
+# variable dt per step and per track; WIDE_GRAD_B tracks of up to 10
+# frames each (the plain versions carry B*T*K per intermediate); then the
+# wide mapping forced at K = 243 and 1024
+WIDE_GRAD_CASES = [(6, 4, 1, 1, None), (6, 4, 1, 3, "track"),
+                   (2, 11, 2, 2, None), (2, 11, 2, 3, "step"),
+                   (3, 7, 1, 1, "step"), (3, 7, 1, 2, None),
+                   (3, 7, 1, 3, "track"), (5, 5, 1, 2, "track"),
+                   (5, 5, 1, 3, None), (4, 6, 1, 1, None),
+                   (4, 6, 1, 2, "step"), (4, 6, 1, 3, "track"),
+                   (4, 6, 1, 3, None)]
+WIDE_GRAD_FORCED = [(3, 5, 2), (4, 5, 3)]
+WIDE_GRAD_B = 512
+# phase 16: the fit past 1024 slots.  Phase 12's 4-state model at 2^14
+# requested tracks (K = 4^6 at the GUI's frame_len 6) from a rough guess
+# of the Ds, its start held to the plain version on each bucket's first
+# FIT16_CHECK tracks; the GUI's runner on every GUI16_STRIDE-th track;
+# the 3-state window-7 fit on phase 11's model at 2^13 requested tracks
+# and the sampler on every SAMPLE16_STRIDE-th of them
+SIM4F = dict(SIM, nb_tracks=1 << 14, Ds=(0.0, 0.01, 0.04, 0.1),
+             TrMat=np.full((4, 4), 0.04) + np.eye(4) * 0.84, seed=12)
+FIT4_START = dict(nb_states=4, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+                  D_max=3.0, estimated_Ds=[0.001, 0.005, 0.03, 0.2],
+                  estimated_transition_rates=0.1)
+FIT16_CHECK = 128
+GUI16_STRIDE = 6
+SIM3F = dict(SIM, nb_tracks=1 << 13, Ds=(0.0, 0.02, 0.1),
+             TrMat=np.full((3, 3), 0.05) + np.eye(3) * 0.85, seed=13)
+SAMPLE16_STRIDE = 4
+SAMPLE16_KW = dict(num_chains=2, num_warmup=8, num_samples=12,
+                   n_leapfrog=4, max_buckets=2, seed=0)
+WIDE16_TIMES = [(4, 6), (3, 7)]
+WIDE16_TRACKS = 1 << 14
 PEAK_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
@@ -1185,6 +1238,13 @@ def main() -> int:
         # buckets, as every leapfrog step launches it
         "K2 sample": entry("loglik_grad_sampler", "grad.cu",
                            "extrack_tpu/ops/pallas_grad.py:549"),
+        # K2 and K3 past 1024 slots, the wide mapping: JAX runs its XLA
+        # engine there, past pallas_grad.supports / pallas_hvp.supports
+        # (extrack_tpu/fit.py:104-117, :575-582)
+        "K2 past 1024": entry("loglik_grad_past_1024", "grad.cu",
+                              "extrack_tpu/ops/pallas_grad.py:549"),
+        "K3 past 1024": entry("loglik_hvp_past_1024", "hvp.cu",
+                              "extrack_tpu/ops/pallas_hvp.py:78"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1213,6 +1273,7 @@ def main() -> int:
     k5_new = {}     # spill bytes of K5's variable-dt and sub-step kernels
     wide_regs = {}  # registers and spill bytes of the wide instantiations
     global_regs = {}  # the same of the wide ones with carries in scratch
+    grad_regs = {}  # the same of K2's and K3's wide instantiations
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
@@ -1230,8 +1291,10 @@ def main() -> int:
                         entry_name)
         scratch = re.match(r"_ZN7extrack23(walk|hist)_wide_global_kernel",
                            entry_name)
+        grad_wide = re.match(r"_ZN7extrack16grad_wide_kernel", entry_name)
         regs = re.search(r"Used (\d+) registers", line)
-        for found, table in ((wide, wide_regs), (scratch, global_regs)):
+        for found, table in ((wide, wide_regs), (scratch, global_regs),
+                             (grad_wide, grad_regs)):
             if found and (spilled or regs):
                 key = entry_name[:60]
                 table.setdefault(key, [0, 0])
@@ -1273,6 +1336,12 @@ def main() -> int:
         fail(f"{len(global_regs)} wide instantiations with carries in global "
              "scratch, not 12 (K4 and K5: D 1..3 x constant and variable "
              "dt)")
+    log("phase 0: K2's and K3's wide instantiations (1024 threads, K <= "
+        "4096; registers, spill bytes stores + loads): " + ", ".join(
+            f"{k} {r} regs {b} B" for k, (r, b) in sorted(grad_regs.items())))
+    if len(grad_regs) != 12:
+        fail(f"{len(grad_regs)} wide K2/K3 instantiations, not 12 (float "
+             "and dual: D 1..3 x constant and variable dt)")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -1302,6 +1371,7 @@ def main() -> int:
                         f"(K={S ** W})", pos, lens, isbl, tb, **kw))
                 finally:
                     mod.WARP_MAX_K = saved
+    wide_grad_parity(dev, errs)
 
     # ---- phase 3: the fit main path --------------------------------------
     t0 = time.time()
@@ -2254,6 +2324,7 @@ def main() -> int:
     phase13(dev, card, kinfo, errs, reset_counts, plain_calls, host_counts)
     phase14(dev, card, reset_counts, plain_calls, tracks, fit3)
     phase15(dev, card, reset_counts, plain_calls, tracks, fit3)
+    phase16(dev, card, kinfo, errs, reset_counts, plain_calls)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
@@ -2639,6 +2710,42 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
             f"({info['bound_by']}; the stream {stream / 1e6:.1f} MB) "
             f"[{card}]")
     log(f"phase 10: {time.time() - t10:.1f} s")
+
+
+def wide_grad_parity(dev, errs):
+    """Phase 2's K2 and K3 past 1024 slots (their wide mapping), against
+    their plain versions (with variable dt, and for K3 always, in float64
+    on the same inputs); then the wide mapping forced at K = 243 and
+    1024."""
+    from extrack_tpu_torch.ops import grad_kernel
+    for S, W, n, D, dt in WIDE_GRAD_CASES:
+        pos, lens, isbl, tb = parity_case(S, W, n, 170 + S * W + D, dev,
+                                          B=WIDE_GRAD_B, T=10, D=D,
+                                          per_peak=(D == 2), dt=dt)
+        kw = dict(window=W, nb_substeps=n, min_len=2)
+        tag = (f"wide S={S} W={W} n={n} (K={S ** W}) D={D} B={WIDE_GRAD_B} "
+               f"T=10 dt={dt or 'constant'}")
+        errs["K2 past 1024"].append(check_table_grads(
+            f"phase 2: K2 {tag}", pos, lens, isbl, tb, ref64=dt is not None,
+            **kw))
+        errs["K3 past 1024"].append(check_table_hvp(
+            f"phase 2: K3 {tag}", pos, lens, isbl, tb, S * W + D, **kw))
+    # the wide mapping forced where the block mapping runs by default
+    saved = grad_kernel.BLOCK_MAX_K
+    for S, W, D in WIDE_GRAD_FORCED:
+        pos, lens, isbl, tb = parity_case(S, W, 1, 190 + S * W, dev,
+                                          B=WIDE_GRAD_B, T=10, D=D,
+                                          dt="track")
+        kw = dict(window=W, nb_substeps=1, min_len=2)
+        tag = f"wide mapping forced S={S} W={W} (K={S ** W}) D={D} dt=track"
+        grad_kernel.BLOCK_MAX_K = 0
+        try:
+            errs["K2 past 1024"].append(check_table_grads(
+                f"phase 2: K2 {tag}", pos, lens, isbl, tb, ref64=True, **kw))
+            errs["K3 past 1024"].append(check_table_hvp(
+                f"phase 2: K3 {tag}", pos, lens, isbl, tb, S * W, **kw))
+        finally:
+            grad_kernel.BLOCK_MAX_K = saved
 
 
 def wide_bucket_checks(tag, buckets, fn, plain, check, n=WIDE_CHECK):
@@ -4250,6 +4357,284 @@ def phase15(dev, card, reset_counts, plain_calls, tracks, fit3):
         if not ok:
             fail("the NCCL process's fit differs from the in-process one")
     log(f"phase 15: done in {time.time() - t15:.1f} s [{card}]")
+
+
+def phase16(dev, card, kinfo, errs, reset_counts, plain_calls):
+    """The fit past 1024 slots: K2 and K3 on their wide mapping (a thread a
+    fusion group, csrc/grad.cuh) on the paths that reach them, where the
+    JAX package fits through XLA: the 4-state fit at the GUI's frame_len 6
+    (K = 4096) with error bars, its start held to the plain versions; the
+    GUI's Model Fitting runner; the 3-state fit at window 7 (K = 2187);
+    the sampler at window 7; then K2's and K3's bare times beside their
+    bounds and plain versions."""
+    import tempfile
+    from pathlib import Path
+
+    from extrack_tpu_torch import data, fit, gui, params, sample, simulate
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
+                                       hvp_kernel)
+    t16 = time.time()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # ---- 4 states at window 6 (K = 4096): the fit with error bars -------
+    tracks, _, _ = simulate.sim_fov(**SIM4F)
+    n_tr = sum(len(v) for v in tracks.values())
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    lens = np.concatenate([data.host_lengths(b) for b in buckets])
+    min_len = data.default_min_len(lens)
+    spec = params.generate_params(**FIT4_START)
+    reset_counts()
+    t0 = time.time()
+    res = fit.param_fitting(tracks, 0.02, params=spec, nb_states=4,
+                            frame_len=6, compute_errors=True,
+                            max_iter=FIT_ITERS, verbose=0, cell_dims=(0.5,))
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    k2, k3, plain = grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES, plain_calls()
+    n_free = len(spec.free_names())
+    log(f"phase 16: 4 states, window 6 (K=4096: K2 and K3 wide), {n_tr} "
+        f"tracks ({len(buckets)} buckets): param_fitting(compute_errors="
+        f"True) {t_fit:.2f} s, {res.n_evals} evals ({res.message}), logL "
+        f"{res.logl:.4f}; K2 launches {k2}, K3 launches {k3}, plain calls "
+        f"{plain} [{card}]")
+    log("phase 16: fitted " + ", ".join(
+        f"{k}={p.value:.4g} +/- {res.std_errors.get(k, float('nan')):.2e}"
+        for k, p in res.params.items() if k in res.std_errors))
+    if (k2 == 0 or k3 != n_free * len(buckets) or plain != 0
+            or not math.isfinite(res.logl)
+            or not all(math.isfinite(v) for v in res.std_errors.values())):
+        fail(f"the 4-state fit at window 6: K2 launches {k2}, K3 launches "
+             f"{k3} (want {n_free} x {len(buckets)}), plain calls {plain}")
+    kinfo["K2 past 1024"]["launches"] = k2
+    kinfo["K3 past 1024"]["launches"] = k3
+
+    # at the fit's start, each bucket's first FIT16_CHECK tracks: the
+    # objective's value and z-gradient, then the Hessian columns, against
+    # the plain versions
+    sub = [data.TrackBatch(b.positions[:FIT16_CHECK],
+                           b.lengths[:FIT16_CHECK],
+                           is_bleached=b.is_bleached[:FIT16_CHECK])
+           for b in buckets]
+    kw = dict(cell_dims=(0.5,), window=6, min_len=min_len)
+    obj = fit.make_objective(sub, spec, 0.02, 4, **kw)
+    z0 = torch.tensor(spec.to_unconstrained(), requires_grad=True, **f32)
+    v_k = obj(z0)
+    (g_k,) = torch.autograd.grad(v_k, z0)
+    saved = grad_kernel.neg_log_likelihood
+    grad_kernel.neg_log_likelihood = grad_kernel.neg_log_likelihood_plain
+    try:
+        v_p = obj(z0)
+        (g_p,) = torch.autograd.grad(v_p, z0)
+    finally:
+        grad_kernel.neg_log_likelihood = saved
+    err_g = float((g_k - g_p).abs().max())
+    ok = (torch.allclose(v_k, v_p, **TOL_K2_VALUE)
+          and torch.allclose(g_k, g_p, **TOL_Z_GRAD))
+    log(f"phase 16: objective at the start on {len(sub)} buckets' first "
+        f"{FIT16_CHECK} tracks, K2 vs plain: value {float(v_k.detach()):.4f}"
+        f" vs {float(v_p.detach()):.4f}, z-gradient max_abs_err "
+        f"{err_g:.3e} (|g|max {float(g_p.abs().max()):.3e}; value "
+        f"{TOL_K2_VALUE}, z-grad "
+        f"{TOL_Z_GRAD}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the 4-state objective at window 6: K2 disagrees with plain")
+    errs["K2 past 1024"].append(max(abs(float((v_k - v_p).detach())),
+                                    err_g))
+    # the Hessian on the two shortest buckets' tracks: the plain double
+    # backward takes ~0.2 s a column at K = 4096 (the fit ran K3 on every
+    # bucket, phase 2 held it to the plain version at T = 10)
+    z_np = spec.to_unconstrained()
+    t0 = time.time()
+    H = fit.hessian_hvp_columns(sub[:2], spec, z_np, 0.02, 4, **kw)
+    t_h = time.time() - t0
+    H0 = plain_hessian_columns(sub[:2], spec, z_np, 0.02, 4, **kw)
+    errs["K3 past 1024"].append(check_hessian(
+        f"phase 16: K3 wide Hessian columns at the start, buckets T="
+        f"{[b.max_len for b in sub[:2]]} ({t_h:.2f} s), K=4096", H, H0))
+    del sub, obj
+
+    # ---- the GUI's Model Fitting runner at its seeded frame_len 6 -------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gsub = {k: v[::GUI16_STRIDE] for k, v in tracks.items()
+                if len(v[::GUI16_STRIDE])}
+        write_tracks_csv(str(tmp / "gui4.csv"), gsub)
+        n_g = sum(len(v) for v in gsub.values())
+        s = gui.Session(path=str(tmp / "gui4.csv"), dt=0.02, min_len=3,
+                        max_len=SIM4F["max_track_len"], nb_states=4,
+                        cell_dims=(0.5,), nb_iters=1, output_dir=str(tmp))
+        s.load()
+        W_gui = gui.seeded_options("Model Fitting", s)["frame_len"]
+        reset_counts()
+        t0 = time.time()
+        res_g = gui.run_fitting(s, progress=lambda m: None)
+        t_gui = time.time() - t0
+        k2g, k3g, plain = (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
+                           plain_calls())
+        ok = (W_gui == 6 and k2g > 0 and k3g > 0 and plain == 0
+              and (tmp / "extrack_fitted_params.json").exists()
+              and math.isfinite(res_g.logl))
+        log(f"phase 16: GUI Session, 4 states, Model Fitting at its seeded "
+            f"frame_len {W_gui} (K={4 ** W_gui}) on {n_g} tracks {t_gui:.2f}"
+            f" s ({res_g.n_evals} evals): logL {res_g.logl:.4f}; K2 "
+            f"launches {k2g}, K3 launches {k3g}, plain calls {plain} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the GUI's 4-state fit did not run on K2 and K3 alone")
+    del tracks, buckets
+
+    # ---- 3 states at window 7 (K = 2187): the fit with error bars -------
+    tracks, _, _ = simulate.sim_fov(**SIM3F)
+    n_tr = sum(len(v) for v in tracks.values())
+    nb3 = len(data.from_dict_bucketed(tracks, max_buckets=4, device=dev))
+    spec3 = params.generate_params(**FIT3_START)
+    reset_counts()
+    t0 = time.time()
+    res3 = fit.param_fitting(tracks, 0.02, params=spec3, nb_states=3,
+                             frame_len=7, compute_errors=True,
+                             max_iter=FIT_ITERS, verbose=0, cell_dims=(0.5,))
+    torch.cuda.synchronize()
+    t_fit3 = time.time() - t0
+    k2, k3, plain = grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES, plain_calls()
+    Ds = [res3.params[f"D{i}"].value for i in range(3)]
+    log(f"phase 16: 3 states, window 7 (K=2187: K2 and K3 wide), {n_tr} "
+        f"tracks: param_fitting(compute_errors=True) {t_fit3:.2f} s, "
+        f"{res3.n_evals} evals ({res3.message}); Ds {Ds[0]:.4g}, "
+        f"{Ds[1]:.4g}, {Ds[2]:.4g} (simulated {SIM3F['Ds']}); K2 launches "
+        f"{k2}, K3 launches {k3}, plain calls {plain} [{card}]")
+    if (k2 == 0 or k3 != len(spec3.free_names()) * nb3 or plain != 0
+            or not all(math.isfinite(v) for v in res3.std_errors.values())):
+        fail(f"the 3-state fit at window 7: K2 {k2}, K3 {k3}, plain {plain}")
+
+    # ---- the sampler at window 7 from that fit ----------------------------
+    ssub = {k: v[::SAMPLE16_STRIDE] for k, v in tracks.items()
+            if len(v[::SAMPLE16_STRIDE])}
+    n_s = sum(len(v) for v in ssub.values())
+    n_b = len(data.from_dict_bucketed(
+        ssub, max_buckets=SAMPLE16_KW["max_buckets"], device=dev))
+    C, Wu, Sa = (SAMPLE16_KW[k] for k in ("num_chains", "num_warmup",
+                                           "num_samples"))
+    L = SAMPLE16_KW["n_leapfrog"]
+    steps_a = max(2 * Wu // 3, 1)
+    iters = steps_a + max(Wu - steps_a, 1) + Sa
+    want_k2 = C * n_b * (1 + iters * (L + 1))
+    reset_counts()
+    t0 = time.time()
+    out = sample.sample_posterior(ssub, 0.02, res3.params, nb_states=3,
+                                  window=7, cell_dims=(0.5,),
+                                  fisher_sd=res3.std_errors, **SAMPLE16_KW)
+    torch.cuda.synchronize()
+    t_s = time.time() - t0
+    k2, k1, plain = (grad_kernel.LAUNCHES, forward_kernel.LAUNCHES,
+                     plain_calls())
+    rh = {k: float(v) for k, v in out.rhat.items()}
+    ok = (k2 == want_k2 and k1 == 0 and plain == 0
+          and all(math.isfinite(v) for v in rh.values())
+          and 0.0 < out.accept_rate <= 1.0)
+    log(f"phase 16: sample_posterior(window=7) at 3 states on {n_s} tracks "
+        f"({n_b} buckets), {C} chains x ({Wu} warmup + {Sa} samples), {L} "
+        f"leapfrog steps: {t_s:.2f} s, acceptance {out.accept_rate:.3f}; "
+        f"R-hat (a few iterations: not a convergence check) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rh.items())
+        + f"; K2 launches {k2} = {C} x {n_b} x (1 + {iters} x ({L} + 1)) = "
+        f"{want_k2}: {k2 == want_k2}; K1 {k1}, plain calls {plain} "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail("the sampler at window 7 did not run on K2 alone, or its "
+             "launches differ from its formula")
+    del tracks, ssub
+    log(f"phase 16: paths {time.time() - t16:.1f} s")
+
+    # ---- bare times at (S, W) = (4, 6) and (3, 7) ------------------------
+    bench = bench_buckets(dev, n=WIDE16_TRACKS)
+    blens = np.concatenate([data.host_lengths(b) for b in bench])
+    rows = sum(b.positions.numel() for b in bench) * 4
+    D = bench[0].positions.shape[-1]
+    for S, W in WIDE16_TIMES:
+        K = S ** W
+        rates = torch.full((S, S), 0.1, **f32)
+        rates.fill_diagonal_(0.0)
+        tb = tables.build_tables(
+            torch.linspace(0.0, 0.08, S, **f32), torch.tensor(0.02, **f32),
+            torch.full((S,), 1.0 / S, **f32), rates,
+            torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,))
+        gen = torch.Generator(device="cpu").manual_seed(K)
+        dot = tables.ModelTables(*(
+            1e-2 * torch.randn(f.shape, generator=gen).to(dev) for f in tb))
+        args = []
+        for b in bench:
+            d, t = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                                b.is_bleached, tb, W, 1)
+            _, t_dot = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                                    b.is_bleached, dot, W, 1)
+            args.append((d, [x.detach() for x in t],
+                         torch.zeros_like(d[1]),
+                         [x.detach().contiguous() for x in t_dot]))
+
+        def k2_bare():
+            for d, t, _, _ in args:
+                grad_kernel.launch(d, t, 3)
+
+        def k3_bare():
+            for d, t, l2_dot, t_dot in args:
+                hvp_kernel.launch(d, t, l2_dot, t_dot, 3)
+
+        def k2_wrapped():
+            for b in bench:
+                grad_kernel.value_and_table_grads(
+                    b.positions, b.lengths, b.is_bleached, tb, window=W,
+                    min_len=3)
+
+        def k3_wrapped():
+            for b in bench:
+                hvp_kernel.table_hvp(b.positions, b.lengths, b.is_bleached,
+                                     tb, dot, window=W, min_len=3)
+
+        def plain_run(fn):
+            for b in bench:
+                m = b.batch_size // PLAIN_SHARE
+                for i in range(0, m, WIDE_PLAIN_CHUNK):
+                    sl = slice(i, min(i + WIDE_PLAIN_CHUNK, m))
+                    fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl])
+
+        def k2_plain():
+            plain_run(lambda p, l_, i_:
+                      grad_kernel.value_and_table_grads_plain(
+                          p, l_, i_, tb, window=W, min_len=3))
+
+        def k3_plain():
+            plain_run(lambda p, l_, i_: hvp_kernel.table_hvp_plain(
+                p, l_, i_, tb, dot, window=W, min_len=3))
+
+        ms2, ms3 = cuda_ms(k2_bare, 3), cuda_ms(k3_bare, 3)
+        wms2, wms3 = cuda_ms(k2_wrapped, 3), cuda_ms(k3_wrapped, 3)
+        pms2 = cuda_ms(k2_plain, 1, warmup=0)
+        pms3 = cuda_ms(k3_plain, 1, warmup=0)
+        plain_tracks = sum(b.batch_size // PLAIN_SHARE for b in bench)
+        # bytes: positions and l2 in (K3: l2 with its tangent), lengths and
+        # flags, logL and the l2 cotangent out (K3: each with its tangent)
+        b2 = bound(3 * rows + 12 * len(blens),
+                   walk_ops(blens, K, S, D, "K2"))
+        b3 = bound(5 * rows + 16 * len(blens),
+                   walk_ops(blens, K, S, D, "K3"))
+        for name, ms_, wms_, pms_, (bms, by) in (
+                ("K2", ms2, wms2, pms2, b2), ("K3", ms3, wms3, pms3, b3)):
+            log(f"phase 16: {name} wide S={S} W={W} (K={K}) D={D}, "
+                f"{len(blens)} tracks of lengths 3..10 ({len(bench)} "
+                f"buckets): kernel {ms_:.3f} ms, {wms_:.3f} ms with its "
+                f"wrapper; plain {pms_:.3f} ms on "
+                f"{plain_tracks} of the tracks; bound {bms:.4f} ms ({by}), "
+                f"{ms_ / bms:.1f}x [{card}]")
+            if (S, W) == WIDE16_TIMES[0]:
+                info = kinfo[f"{name} past 1024"]
+                info["ms"], info["plain_ms"] = ms_, pms_
+                info["wrapper_ms"] = wms_
+                info["plain_tracks"] = plain_tracks
+                info["bound_ms"], info["bound_by"] = bms, by
+        del args
+    log(f"phase 16: {time.time() - t16:.1f} s")
 
 
 if __name__ == "__main__":

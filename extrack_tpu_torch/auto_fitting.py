@@ -9,8 +9,8 @@ This module is the JAX package's working equivalent
 (``extrack_tpu/auto_fitting.py``), plus its model-selection scan: fit an
 increasing number of states and compare penalized likelihoods.  Every fit
 is ``fit.param_fitting`` on ``device`` (the card by default: K2 for each
-gradient); the heuristic's cap (S^W <= 1024) keeps every fit inside K2's
-envelope.
+gradient); the heuristic's cap (S^W <= 1024) is the JAX package's own
+register budget, well inside K2's envelope of 4096 slots.
 """
 from __future__ import annotations
 

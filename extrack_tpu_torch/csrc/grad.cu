@@ -12,7 +12,7 @@
 // each step once more on the way back, from each step's entering carry
 // ((T-1) * (2D+1) * K floats per track, 11.5 KB at S=2, W=6, D=2, T=10).
 // Everything else of a step (update, fusion weights) is recomputed from
-// the carry.  Two mappings (grad.cuh), picked per launch by the host
+// the carry.  Three mappings (grad.cuh), picked per launch by the host
 // (ops/grad_kernel.plan):
 //   * warp mapping, K <= 64 (the fit's windows at 2 states, and S=3 up to
 //     W=3): one warp per track, several tracks per block, each lane owning
@@ -24,7 +24,15 @@
 //     block's slices fit the card's opt-in limit, else in global scratch.
 //   * block mapping, any K up to 1024: one block per track, one thread per
 //     slot, block reductions, the carry history in global scratch.
-// Blocks are persistent in both: block i (warp w) walks tracks i, i+grid,
+//   * wide mapping, 1024 < K <= 4096 (any K when forced): one block per
+//     track, a thread per fusion group (K1's wide walk, walk.cuh).  The
+//     history is the fused groups of each step ((T-3) * (2D+1) * K/A
+//     scalars a track, in global scratch); the backward trades the
+//     members' carry cotangents through one (2D+1)*K exchange, in shared
+//     memory where it fits, else in global scratch.  The JAX package
+//     runs its XLA engine there (extrack_tpu/fit.py:104-117, past
+//     pallas_grad.supports).
+// Blocks are persistent in all three: block i (warp w) walks tracks i, i+grid,
 // ..., so global scratch is one history per block (warp) however many
 // tracks there are, and the host sizes the grid to the card's residency
 // and a fixed byte budget.
@@ -50,12 +58,14 @@
 // lsn, endn) in that order; with P > 0 (variable dt) ct_s2 (B, T-1, P) =
 // d(sum logL)/d(sig2s), zeroed by the caller (rows from a track's length
 // on are not written), and the s20, sig2v and s2n columns of ct_tab are
-// 0.  Mapping: warps = 0 for the block mapping,
-// else the warp mapping with `warps` (1..4) warps per block (K <= 64);
-// stash_smem = 1 keeps the warp mapping's carry history in shared memory.
-// Scratch: stash, unless stash_smem, one (T-1)*(2D+1)*K-float history per
-// block (block mapping) or per warp (nblk*warps of them); partial
-// nblk*(6K + 4KA) floats.  Returns cudaGetLastError().
+// 0.  Mapping: warps = 0 for the block mapping, -1 for the wide mapping
+// (-2: its exchange in global scratch), else the warp mapping with
+// `warps` (1..4) warps per block (K <= 64); stash_smem = 1 keeps the warp
+// mapping's carry history in shared memory.  Scratch: stash, unless
+// stash_smem, one (T-1)*(2D+1)*K-float history per block (block mapping)
+// or per warp (nblk*warps of them), or a wide block's
+// (extrack_grad_layout); partial nblk*(6K + 4KA) floats.  Returns
+// cudaGetLastError().
 extern "C" int extrack_grad(const float* xs, const float* l2,
                             const int* lengths, const float* isbl,
                             const float* lp0, const float* s20,
@@ -80,6 +90,21 @@ extern "C" int extrack_grad(const float* xs, const float* l2,
 extern "C" int extrack_grad_occupancy(int D, int K, int A, int T, int warps,
                                       int stash_smem, int P) {
   return extrack::grad_occupancy_c<float>(D, K, A, T, warps, stash_smem, P);
+}
+
+// One block of the wide mapping (warps -1 or -2) for scalars of
+// `itemsize` bytes (4: K2, 8: K3's dual numbers): out[0] threads, out[1]
+// dynamic shared bytes, out[2] global scratch bytes (grad_wide_layout).
+extern "C" int extrack_grad_layout(int K, int A, int D, int T, int warps,
+                                   int itemsize, long long* out) {
+  if (D < 1 || D > 3 || A < 1 || K % A != 0 || (warps != -1 && warps != -2))
+    return (int)cudaErrorInvalidValue;
+  const extrack::GradWideLayout lay =
+      extrack::grad_wide_layout(K, A, D, T, warps, (size_t)itemsize);
+  out[0] = lay.threads;
+  out[1] = (long long)lay.smem;
+  out[2] = (long long)lay.scratch;
+  return 0;
 }
 
 // Dynamic shared memory one block of the warp mapping may opt in to on

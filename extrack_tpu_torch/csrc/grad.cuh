@@ -1,8 +1,10 @@
 // The gradient walk of K2 (grad.cu), templated over the scalar type so that
 // K3 (hvp.cu) runs the same code on dual numbers.  See grad.cu for what the
-// kernel replaces and how it is laid out.  Two mappings of a track onto
-// threads: grad_warp_kernel (one warp per track, K <= 64) and grad_kernel
-// (one block per track, any K up to 1024); the host picks one per launch.
+// kernel replaces and how it is laid out.  Three mappings of a track onto
+// threads: grad_warp_kernel (one warp per track, K <= 64), grad_kernel
+// (one block per track, a thread a slot, any K up to 1024) and
+// grad_wide_kernel (one block per track, a thread a fusion group, any K up
+// to 4096); the host picks one per launch.
 //
 // Variable dt (the VDT template flag, so that the constant-dt
 // instantiations keep their code): the displacement variances come from a
@@ -368,6 +370,494 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 #ifdef EXTRACK_PROFILE
   pf.flush(g_prof, k == 0);
 #endif
+}
+
+// ---- the wide mapping: 1024 < K <= 4096 slots ------------------------
+//
+// A thread a slot stops at 1024 slots.  The wide mapping gives a thread
+// whole fusion groups g = tid, tid + blockDim.x (G = K/A groups, at most
+// kGradWideGroups a thread), as K1's wide walk does (walk.cuh): group g's
+// members are slots g*A .. g*A+A-1, and member c's carry entering step t is
+// group c % G of step t-1's fusion plus child c's terms (lt, lsurv, the
+// displacement variance).  No slot lives in registers between steps.
+//
+// Forward: a fusion step reads each member's group, updates the member
+// against the frame and mixes the group's A updates in registers (an
+// online log-sum-exp that rescales its sums on a new maximum, its shift
+// carrying no tangent), and writes the G fused Gaussians, (2D+1) scalars
+// each, to the track's history in the block's global scratch: row t-1
+// holds step t's fusion, the carries of step t+1.  The history is all the
+// backward needs: a member's carry is recomputed from its group's row and
+// its own child terms, (T-3)(2D+1)G scalars a track in place of the block
+// mapping's (T-1)(2D+1)K.  Closings are two passes (the block max, then
+// the shifted sums) over every member.
+//
+// Backward: member c of step t+1 is child c / G of group c % G of step t,
+// and the thread that computes member c's carry cotangent owns group c / A,
+// not group c % G.  So each step publishes its members' carry cotangents,
+// (2D+1)K scalars (the exchange); after a barrier the owner of group g
+// sums its children g + a*G in a order into the fused group's cotangent,
+// holds it in registers across a second barrier, and overwrites the
+// exchange with its own members' cotangents: one exchange area, two
+// barriers a step, no atomics.  The (K,) and (K, A) table cotangents stay
+// per slot, added by the thread that owns the slot's group into the
+// block's partial row (reduce_partials sums the rows in block order); a
+// member's child terms (lt, lsurv, sig2v) take the cotangent of the carry
+// they built, one step later than the block mapping adds them, with the
+// gate of the fusion that built it.  Variable dt: each stream row a
+// pattern's sum over its slots in slot order, as the block mapping's, from
+// the exchange (rows 0 .. L-3) and from the partial row's s2n columns (the
+// look-ahead row L-2).
+//
+// The exchange sits in shared memory after the reductions' scratch where
+// it fits (4096 slots take 114,688 bytes at D = 3 in float, 229,376 as
+// dual numbers), else (warps = -2 in the C interface) in the block's
+// global scratch after the history; grad_wide_layout is the one
+// definition of both, with a host twin in ops/grad_kernel.py.
+constexpr int kGradWideThreads = 1024;   // the block's largest size
+constexpr int kGradWideGroups = 2;       // groups a thread owns (G <= 2048)
+constexpr int kGradWideMaxK = 4096;      // the envelope of the mapping
+constexpr int kRedScalars = 64;          // block reductions' scratch (33)
+
+// One block of the wide mapping: its threads, its dynamic shared bytes and
+// its global scratch bytes (the history, then the exchange where it is not
+// in shared memory: warps == -2).
+struct GradWideLayout {
+  int threads;
+  size_t smem, scratch;
+};
+
+static __host__ __device__ inline size_t grad_wide_history(int K, int A,
+                                                           int D, int T) {
+  return (size_t)(T > 3 ? T - 3 : 0) * (2 * D + 1) * (K / A);
+}
+
+static __host__ __device__ inline GradWideLayout grad_wide_layout(
+    int K, int A, int D, int T, int warps, size_t itemsize) {
+  const size_t xch = (size_t)(2 * D + 1) * K;
+  const bool global = warps == -2;
+  const int G = K / A, threads = (G + 31) / 32 * 32;
+  return {threads < kGradWideThreads ? threads : kGradWideThreads,
+          (kRedScalars + (global ? 0 : xch)) * itemsize,
+          (grad_wide_history(K, A, D, T) + (global ? xch : 0)) * itemsize};
+}
+
+template <typename Real, int D, bool VDT>
+__global__ void __launch_bounds__(kGradWideThreads, 1)
+    grad_wide_kernel(TablesT<Real> tb, const float* __restrict__ xs,
+                     const Real* __restrict__ l2s,
+                     const int* __restrict__ lengths,
+                     const float* __restrict__ isbls, int B, int T,
+                     Real* __restrict__ logl, Real* __restrict__ ct_l2,
+                     Real* __restrict__ scratch_all,
+                     Real* __restrict__ partial, int xch_global,
+                     StreamT<Real> st) {
+  extern __shared__ __align__(16) unsigned char sh_raw[];
+  Real* red = reinterpret_cast<Real*>(sh_raw);
+  const int K = tb.K, A = tb.A, G = K / A, F = 2 * D + 1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float cl2pi = 0.5f * D * kLog2Pi;
+  const int P = VDT ? st.P : 0;
+  const size_t hist_n = grad_wide_history(K, A, D, T);
+  Real* hist = scratch_all + (size_t)blockIdx.x *
+                                 (hist_n + (xch_global ? (size_t)F * K : 0));
+  // the exchange: member c's carry cotangent (lp, then m and s2 per
+  // dimension)
+  Real* xlp = xch_global ? hist + hist_n : red + kRedScalars;
+  Real* xm = xlp + K;
+  Real* xs2 = xm + D * K;
+
+  const size_t ncols = (size_t)6 * K + (size_t)4 * K * A;
+  Real* part = partial + blockIdx.x * ncols;
+  Real* p_ltn = part + 6 * K;
+  Real* p_s2n = p_ltn + K * A;
+  Real* p_lsn = p_s2n + K * A;
+  Real* p_endn = p_lsn + K * A;
+  // the (K,) tables' cotangents: part[f * K + c] for lp0, s20, lt, lsurv,
+  // endv, sig2v
+  enum { kLp0 = 0, kS20 = 1, kLt = 2, kLsurv = 3, kEnd = 4, kSig2v = 5 };
+#pragma unroll
+  for (int j = 0; j < kGradWideGroups; ++j) {
+    const int g = tid + j * nt;
+    if (g >= G) continue;
+    for (int c = g * A; c < (g + 1) * A; ++c) {
+      for (int f = 0; f < 6; ++f) part[f * K + c] = Real(0.f);
+      for (int a = 0; a < A; ++a)
+        p_ltn[c * A + a] = p_s2n[c * A + a] = p_lsn[c * A + a] =
+            p_endn[c * A + a] = Real(0.f);
+    }
+  }
+
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int L = min(lengths[b], T);
+    if (L < 2) {            // empty / 1-frame rows: logL 0, ct_l2 stays 0
+      if (tid == 0) logl[b] = Real(0.f);
+      continue;
+    }
+    const float* x = xs + (size_t)b * T * D;
+    const Real* l2 = l2s + (size_t)b * T * D;
+    Real* cl2 = ct_l2 + (size_t)b * T * D;
+    const Real* sg = VDT ? st.s2 + (size_t)b * (T - 1) * P : nullptr;
+    Real* csg = VDT ? st.ct + (size_t)b * (T - 1) * P : nullptr;
+    const float isbl = isbls[b];
+    const int tlast = L == 2 ? 1 : L - 2;
+
+    // member c's carry entering step t: the first frame at t = 1, else
+    // group c % G of step t-1's fusion (history row t-2) plus child c's
+    // terms, with the gate of that fusion
+    auto carry = [&](int c, int t, Real* m, Real* s2, Real& lp) {
+      if (t == 1) {
+        lp = tb.lp0[c];
+        const Real s20 = VDT ? sg[c / st.KP] : tb.s20[c];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          m[d] = Real(x[d]);
+          s2[d] = l2[d] + s20;
+        }
+      } else {
+        const Real* prev = hist + (size_t)(t - 2) * F * G;
+        const int gp = c % G;
+        const float gate_prev = t >= tb.min_len ? 1.f : 0.f;
+        const Real sv = VDT ? sg[(t - 1) * P + c / st.KP] : tb.sig2v[c];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          m[d] = prev[d * G + gp];
+          s2[d] = sv + prev[(D + d) * G + gp];
+        }
+        lp = prev[2 * D * G + gp] + tb.lt[c] + gate_prev * tb.lsurv[c];
+      }
+    };
+    // group g's sums at step t over its members' updates: their largest
+    // base log weight mx, the exp-sum sw shifted by it and the weighted
+    // means mf and tails tf (group_sums' quantities, in one pass)
+    auto group_online = [&](int g, int t, const float* xt, const Real* l2t,
+                            Real& mx, Real& sw, Real* mf, Real* tf) {
+      mx = Real(-INFINITY);
+      sw = Real(0.f);
+#pragma unroll
+      for (int d = 0; d < D; ++d) mf[d] = tf[d] = Real(0.f);
+      for (int c = g * A; c < (g + 1) * A; ++c) {
+        Real m[D], s2[D], lp;
+        carry(c, t, m, s2, lp);
+        Prep<Real, D> p;
+        prep<Real, D>(m, s2, xt, l2t, p);
+        const Real base = lp - p.quad;
+        if (val(base) > val(mx)) {
+          // a new maximum: the shifts carry no tangent
+          const Real nmx = shift_max(mx, base);
+          const Real sc = xexp(mx - nmx);
+          sw = sw * sc;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            mf[d] = mf[d] * sc;
+            tf[d] = tf[d] * sc;
+          }
+          mx = nmx;
+        }
+        const Real w = xexp(base - mx) * xrsqrt(p.prod);
+        sw += w;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          mf[d] += w * p.nm[d];
+          tf[d] += w * p.tl[d];
+        }
+      }
+    };
+
+    // forward walk
+    Real cmx = Real(0.f), csum = Real(1.f), out = Real(0.f);
+    for (int t = 1; t <= tlast; ++t) {
+      float xt[D];
+      Real l2t[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        xt[d] = x[t * D + d];
+        l2t[d] = l2[t * D + d];
+      }
+      const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
+      if (t == tlast) {
+        // closing: on the register (2-frame tracks) or on the look-ahead
+        // children; the block max, then the shifted sums
+        float xn[D];
+        Real l2n[D], invn[D], diffn[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          xn[d] = L == 2 ? 0.f : x[(t + 1) * D + d];
+          l2n[d] = L == 2 ? Real(0.f) : l2[(t + 1) * D + d];
+        }
+        Real mx = Real(-INFINITY), s = Real(0.f);
+        for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+          for (int j = 0; j < kGradWideGroups; ++j) {
+            const int g = tid + j * nt;
+            if (g >= G) continue;
+            for (int c = g * A; c < (g + 1) * A; ++c) {
+              Real m[D], s2[D], lp;
+              carry(c, t, m, s2, lp);
+              Prep<Real, D> p;
+              prep<Real, D>(m, s2, xt, l2t, p);
+              if (L == 2) {
+                const Real fin = lp + isbl * tb.endv[c] -
+                                 0.5f * xlog(p.prod) - p.quad - cl2pi;
+                if (pass == 0)
+                  mx = shift_max(mx, fin);
+                else
+                  s += xexp(fin - mx);
+                continue;
+              }
+              const Real base_n = lp - p.quad - 0.5f * xlog(p.prod) - cl2pi;
+              for (int a = 0; a < A; ++a) {
+                const int ka = c * A + a;
+                Real r;
+                const Real gl =
+                    base_n + tb.ltn[ka] + gate * tb.lsn[ka] +
+                    isbl * tb.endn[ka] +
+                    look_child<Real, D>(
+                        p, xn, l2n,
+                        VDT ? sg[t * P + a * st.S + c / st.KS] : tb.s2n[ka],
+                        invn, diffn, r);
+                if (pass == 0)
+                  mx = shift_max(mx, gl);
+                else
+                  s += xexp(gl - mx) * r;
+              }
+            }
+          }
+          if (pass == 0) mx = block_max(mx, red);
+        }
+        s = block_sum(s, red);
+        cmx = mx;
+        csum = s;
+        out = mx + xlog(s);
+      } else {
+        // fusion: group g's Gaussian into history row t-1
+        Real* row = hist + (size_t)(t - 1) * F * G;
+#pragma unroll
+        for (int j = 0; j < kGradWideGroups; ++j) {
+          const int g = tid + j * nt;
+          if (g >= G) continue;
+          Real mx, sw, mf[D], tf[D];
+          group_online(g, t, xt, l2t, mx, sw, mf, tf);
+          const Real inv_sw = 1.0f / clamp_min(sw, kTiny);
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            row[d * G + g] = mf[d] * inv_sw;
+            row[(D + d) * G + g] = tf[d] * inv_sw;
+          }
+          row[2 * D * G + g] = mx + xlog(clamp_min(sw, kTiny));
+        }
+        __syncthreads();
+      }
+    }
+    if (tid == 0) logl[b] = out;
+
+    // backward walk: at step t each member's carry cotangent (of the
+    // carry entering step t) goes to the exchange
+    for (int t = tlast; t >= 1; --t) {
+      float xt[D];
+      Real l2t[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        xt[d] = x[t * D + d];
+        l2t[d] = l2[t * D + d];
+      }
+      const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
+      const float gate_prev = t >= tb.min_len ? 1.f : 0.f;
+      const bool fuse = t < tlast;
+      const bool look = t == tlast && L > 2;
+      // the fused groups' cotangents (lp, m, s2): the sums over each
+      // group's children of the exchange that step t+1 wrote
+      Real gc[kGradWideGroups][2 * D + 1];
+      if (fuse) {
+#pragma unroll
+        for (int j = 0; j < kGradWideGroups; ++j) {
+          const int g = tid + j * nt;
+#pragma unroll
+          for (int f = 0; f < 2 * D + 1; ++f) gc[j][f] = Real(0.f);
+          if (g >= G) continue;
+          for (int c = g; c < K; c += G) {
+            gc[j][0] += xlp[c];
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              gc[j][1 + d] += xm[d * K + c];
+              gc[j][1 + D + d] += xs2[d * K + c];
+            }
+          }
+        }
+        __syncthreads();      // every read of the exchange before it is
+                              // overwritten
+      }
+      float xn[D];
+      Real l2n[D], cl2n[D], dl2s[D], c0[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        xn[d] = look ? x[(t + 1) * D + d] : 0.f;
+        l2n[d] = look ? l2[(t + 1) * D + d] : Real(0.f);
+        cl2n[d] = dl2s[d] = c0[d] = Real(0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kGradWideGroups; ++j) {
+        const int g = tid + j * nt;
+        if (g >= G) continue;
+        Real mx = Real(0.f), inv_sw = Real(0.f), fac = Real(0.f);
+        if (fuse) {
+          Real sw, mf[D], tf[D];
+          group_online(g, t, xt, l2t, mx, sw, mf, tf);
+          inv_sw = 1.0f / clamp_min(sw, kTiny);
+          // the guard's indicator has a zero tangent
+          const float ok = val(sw) >= kTiny ? 1.f : 0.f;
+          // softmax-mixture rule: the sw factors cancel against wn
+          fac = gc[j][0];
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            fac -= (gc[j][1 + d] * mf[d] + gc[j][1 + D + d] * tf[d]) * inv_sw;
+          fac = ok * fac;
+        }
+        for (int c = g * A; c < (g + 1) * A; ++c) {
+          Real m[D], s2[D], lp;
+          carry(c, t, m, s2, lp);
+          Prep<Real, D> p;
+          prep<Real, D>(m, s2, xt, l2t, p);
+          Real cb = Real(0.f), cnm[D], ctl[D];
+#pragma unroll
+          for (int d = 0; d < D; ++d) cnm[d] = ctl[d] = Real(0.f);
+          if (L == 2) {
+            // 2-frame closing: softmax posterior over the slots
+            const Real fin = lp + isbl * tb.endv[c] - 0.5f * xlog(p.prod) -
+                             p.quad - cl2pi;
+            const Real q = xexp(fin - cmx) / csum;
+            part[kEnd * K + c] += isbl * q;
+            cb = q;
+          } else if (look) {
+            // look-ahead closing: q = posterior weight of child (c, a)
+            const Real base_n = lp - p.quad - 0.5f * xlog(p.prod) - cl2pi;
+            const Real inv_sum = 1.0f / csum;
+            for (int a = 0; a < A; ++a) {
+              const int ka = c * A + a;
+              Real r, invn[D], diffn[D];
+              const Real gl =
+                  base_n + tb.ltn[ka] + gate * tb.lsn[ka] +
+                  isbl * tb.endn[ka] +
+                  look_child<Real, D>(
+                      p, xn, l2n,
+                      VDT ? sg[t * P + a * st.S + c / st.KS] : tb.s2n[ka],
+                      invn, diffn, r);
+              const Real q = xexp(gl - cmx) * r * inv_sum;
+              p_ltn[ka] += q;
+              p_lsn[ka] += gate * q;
+              p_endn[ka] += isbl * q;
+              Real cs = Real(0.f);
+#pragma unroll
+              for (int d = 0; d < D; ++d) {
+                const Real dn = diffn[d] * invn[d];
+                const Real ct_totn =
+                    0.5f * q * (diffn[d] * dn - 1.f) * invn[d];
+                cnm[d] += q * dn;
+                ctl[d] += ct_totn;
+                cl2n[d] += ct_totn;
+                cs += ct_totn;
+              }
+              // variable dt: this track's look-ahead cotangents, summed
+              // into the stream below
+              if constexpr (VDT)
+                p_s2n[ka] = cs;
+              else
+                p_s2n[ka] += cs;
+              cb += q;
+            }
+          } else {
+            // fusion pullback of member c of group g
+            const Real wn = xexp(lp - p.quad - mx) * xrsqrt(p.prod) * inv_sw;
+            Real own = Real(0.f);
+#pragma unroll
+            for (int d = 0; d < D; ++d)
+              own += gc[j][1 + d] * p.nm[d] + gc[j][1 + D + d] * p.tl[d];
+            cb = (fac + own) * wn;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              cnm[d] = gc[j][1 + d] * wn;
+              ctl[d] = gc[j][1 + D + d] * wn;
+            }
+          }
+          Real dm[D], ds2[D], dl2[D];
+          prep_bwd<Real, D>(m, s2, xt, l2t, p, cb, cnm, ctl, dm, ds2, dl2);
+          Real cs = Real(0.f);
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            xm[d * K + c] = dm[d];
+            xs2[d * K + c] = ds2[d];
+            dl2s[d] += dl2[d];
+            c0[d] += ds2[d];
+            cs += ds2[d];
+          }
+          xlp[c] = cb;
+          // the terms that built member c's carry: the initial register's,
+          // or child c's of step t-1's fusion
+          if (t == 1) {
+            part[kLp0 * K + c] += cb;
+            if constexpr (!VDT) part[kS20 * K + c] += cs;
+          } else {
+            part[kLt * K + c] += cb;
+            part[kLsurv * K + c] += gate_prev * cb;
+            if constexpr (!VDT) part[kSig2v * K + c] += cs;
+          }
+        }
+      }
+      if (look) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const Real v = block_sum(cl2n[d], red);
+          if (tid == 0) cl2[(t + 1) * D + d] = v;
+        }
+        if constexpr (VDT) {
+          // row t, pattern q = a*S + s: child (kk, a) over the slots kk of
+          // newest digit s
+          for (int q = tid; q < P; q += nt) {
+            const int a = q / st.S, s0 = (q % st.S) * st.KS;
+            Real v = Real(0.f);
+            for (int kk = s0; kk < s0 + st.KS; ++kk) v += p_s2n[kk * A + a];
+            csg[t * P + q] = v;
+          }
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const Real v = block_sum(dl2s[d], red);
+        if (tid == 0) cl2[t * D + d] = v;
+      }
+      if constexpr (VDT) {
+        // row t-1: the variance cotangents of the carries entering step t
+        // over each pattern's slots (the block sums' barriers published
+        // the exchange)
+        for (int q = tid; q < P; q += nt) {
+          Real v = Real(0.f);
+          for (int kk = q * st.KP; kk < (q + 1) * st.KP; ++kk)
+#pragma unroll
+            for (int d = 0; d < D; ++d) v += xs2[d * K + kk];
+          csg[(t - 1) * P + q] = v;
+        }
+      }
+      if (t == 1) {
+        // initial register: s2 = l2_0 + s20
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const Real v = block_sum(c0[d], red);
+          if (tid == 0) cl2[d] = v;
+        }
+      }
+    }
+  }
+  if constexpr (VDT) {
+    // the look-ahead scratch out of the s2n partials (their table is unused)
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kGradWideGroups; ++j) {
+      const int g = tid + j * nt;
+      if (g >= G) continue;
+      for (int ka = g * A * A; ka < (g + 1) * A * A; ++ka)
+        p_s2n[ka] = Real(0.f);
+    }
+  }
 }
 
 
@@ -950,9 +1440,12 @@ static __global__ void reduce_partials(const float* __restrict__ partial,
 }
 
 // The kernel instantiation that launch_grad runs for this K and mapping
-// (warps > 0: the warp mapping with `warps` warps per block).
+// (warps > 0: the warp mapping with `warps` warps per block; 0 the block
+// mapping; -1 the wide mapping, -2 the wide mapping with its exchange in
+// global scratch).
 template <typename Real, int D, bool VDT>
 static const void* grad_instance(int K, int warps) {
+  if (warps < 0) return (const void*)grad_wide_kernel<Real, D, VDT>;
   if (warps > 0)
     return K <= 32 ? (const void*)grad_warp_kernel<Real, D, 1, VDT>
                    : (const void*)grad_warp_kernel<Real, D, 2, VDT>;
@@ -975,9 +1468,16 @@ static const void* grad_instance(int K, int warps, int P) {
 template <typename Real>
 static size_t grad_smem(int K, int A, int D, int T, int warps,
                         int stash_smem, int P) {
+  if (warps < 0) return grad_wide_layout(K, A, D, T, warps, sizeof(Real)).smem;
   return (warps > 0 ? warps * warp_slice(K, A, D, T, stash_smem, P)
                     : (size_t)(3 + 4 * D) * K) *
          sizeof(Real);
+}
+
+// Threads of one block of a launch.
+static int grad_threads(int K, int A, int D, int T, int warps) {
+  if (warps < 0) return grad_wide_layout(K, A, D, T, warps, 4).threads;
+  return warps > 0 ? 32 * warps : (K + 31) / 32 * 32;
 }
 
 // Blocks of a K2 (or K3) launch one SM keeps resident, or -error.
@@ -986,7 +1486,7 @@ static int grad_occupancy(int K, int A, int T, int warps, int stash_smem,
                           int P) {
   const void* fn = grad_instance<Real, D>(K, warps, P);
   const size_t smem = grad_smem<Real>(K, A, D, T, warps, stash_smem, P);
-  const int threads = warps > 0 ? 32 * warps : (K + 31) / 32 * 32;
+  const int threads = grad_threads(K, A, D, T, warps);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
@@ -1004,8 +1504,11 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
                        int nblk, int warps, int stash_smem,
                        cudaStream_t stream) {
   const int K = tb.K, P = st.P;
-  if (warps < 0 || 32 * warps > kWarpBlock || (warps > 0 && K > 64) ||
-      (warps == 0 && stash_smem) || P < 0 ||
+  if (warps < -2 || 32 * warps > kWarpBlock || (warps > 0 && K > 64) ||
+      (warps == 0 && K > 1024) || (warps <= 0 && stash_smem) ||
+      (warps < 0 && (K > kGradWideMaxK ||
+                     K / tb.A > kGradWideGroups * kGradWideThreads)) ||
+      P < 0 ||
       (P > 0 && (st.s2 == nullptr || st.ct == nullptr || P % tb.A != 0 ||
                  K % P != 0 || T < 2)))
     return (int)cudaErrorInvalidValue;
@@ -1014,12 +1517,14 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
   // the opt-in covers the static shared memory's share of the 48 KB too
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const int threads = warps > 0 ? 32 * warps : (K + 31) / 32 * 32;
-  if (warps > 0) {
+  const int threads = grad_threads(K, tb.A, D, T, warps);
+  if (warps != 0) {
+    // the warp mapping's stash_smem, the wide mapping's xch_global
+    int flag = warps > 0 ? stash_smem : (int)(warps == -2);
     void* args[] = {(void*)&tb, (void*)&xs, (void*)&l2, (void*)&lengths,
                     (void*)&isbl, (void*)&B, (void*)&T, (void*)&logl,
                     (void*)&ct_l2, (void*)&stash, (void*)&partial,
-                    (void*)&stash_smem, (void*)&st};
+                    (void*)&flag, (void*)&st};
     cudaLaunchKernel(fn, nblk, threads, args, smem, stream);
   } else {
     void* args[] = {(void*)&tb, (void*)&xs, (void*)&l2, (void*)&lengths,

@@ -14,9 +14,12 @@
 // What bounds it on Hopper: as K2, instruction throughput and latency;
 // every operation of the walk becomes about three (value, product rule),
 // and the live state and the carry history double (2 * (T-1) * (2D+1) * K
-// floats per track, 48.6 KB at S=2, W=6, D=2, T=20).  It runs either of
-// K2's mappings (grad.cu), as ops/hvp_kernel picks; the envelope is K2's
-// (K <= 1024).
+// floats per track, 48.6 KB at S=2, W=6, D=2, T=20).  It runs any of
+// K2's three mappings (grad.cu), as ops/hvp_kernel picks; the envelope is
+// K2's (K <= 4096: past 1024 slots the wide mapping, whose exchange of
+// carry cotangents, 229,376 bytes at K = 4096 and D = 3 as dual numbers,
+// still fits a block's shared memory on Hopper).  Past 1024 slots the JAX
+// package takes extrack_tpu/fit.py:575-582 (hessian_chunked on XLA).
 // The tangent columns are reduced with K2's deterministic block-order
 // partial sums, so a Hessian is repeatable from run to run.  It runs once
 // per Hessian column at the end of a fit, never inside the optimizer loop.

@@ -113,15 +113,14 @@ def make_objective(batch,
     if min_len is None:
         min_len = _default_min_len(batches, mesh)
     if device.type == "cuda":
-        # the objective's value runs K1; its gradient K2, whose envelope
-        # (1024 slots) grad_kernel.neg_log_likelihood checks where a
-        # gradient is taken
+        # the objective takes its gradient through K2 (its value alone
+        # through K1, whose envelope is K2's: 4096 slots)
         for i, b in enumerate(batches):
             forward_kernel.check_envelope(
                 b.max_len, b.nb_dims, nb_states, window, nb_substeps,
                 variable_dt=b.dt is not None, dtype=dtype,
                 what=f"length bucket {i} ({b.batch_size} tracks, "
-                     f"T={b.max_len})", kernel="K1")
+                     f"T={b.max_len})", kernel="K2")
     units = batches if mesh is None else _local_shards(batches, mesh)
 
     def local_neg_logl(z: torch.Tensor) -> torch.Tensor:

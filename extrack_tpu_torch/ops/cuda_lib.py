@@ -45,6 +45,7 @@ _SIGNATURES = {
     "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],
     "extrack_hist_layout": [_I] * 6 + [_P],
     "extrack_refine_layout": [_I] * 5 + [_P],
+    "extrack_grad_layout": [_I] * 6 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
 _SMEM_QUERIES = ("extrack_grad_smem", "extrack_predict_smem", "extrack_hist_smem",
@@ -166,7 +167,10 @@ def layout(kernel: str, *dims: int):
     children a fusion group (S^nb_substeps) and 1 for the wide mapping (a
     thread a fusion group), 2 for the wide mapping with its publish areas
     and member weights in the carry (global scratch), else 0 (a thread a
-    slot); "refine" (T, D, K, S, wide)."""
+    slot); "refine" (T, D, K, S, wide); "grad" (K, A, D, T, warps,
+    itemsize), K2's and K3's wide mapping (warps -1, or -2 with its
+    exchange in global scratch; itemsize 4, or 8 for K3's dual numbers),
+    whose third entry is the global scratch a block."""
     out = (ctypes.c_longlong * 3)()
     rc = getattr(library(), f"extrack_{kernel}_layout")(
         *dims, ctypes.addressof(out))

@@ -13,11 +13,12 @@ K1, K2, K3, K4 and K5 read in place of the s20, sig2v and s2n tables
 outside its envelope); CPU tensors run ``forward_plain``, which is
 ``core.engine.forward`` on the same inputs.  ``mapping_warps`` chooses
 each kernel's mapping of a register onto the card (csrc/walk.cuh,
-hist.cu, refine.cu): one warp per track up to 64 slots, a block per track
-with a thread a slot up to 1024 (K4, K5, K6) and a thread a fusion group
-past that (the wide mapping: K1 above 64 slots, the others above 1024; up
-to 4096 slots for K1 and K6, 16384 for K4 and K5, whose carries go to
-global scratch where they pass a block's shared memory); ``plan`` and
+hist.cu, refine.cu; K2 and K3: grad.cuh, ``grad_kernel.plan``): one warp
+per track up to 64 slots, a block per track with a thread a slot up to
+1024 (K2, K3, K4, K5, K6) and a thread a fusion group past that (the wide
+mapping: K1 above 64 slots, the others above 1024; up to 4096 slots for
+K1, K2, K3 and K6, 16384 for K4 and K5, whose carries go to global
+scratch where they pass a block's shared memory); ``plan`` and
 ``grid`` lay a K1 or K4 launch out as persistent blocks.  ``MAX_SLOTS`` is
 each kernel's envelope.  ``LAUNCHES`` counts kernel
 launches, ``PLAIN_CALLS`` calls of the plain version.
@@ -43,14 +44,15 @@ WIDE_MAX_K = 4096         # the wide mapping: one thread per fusion group
 SCRATCH_MAX_K = 16384     # K4's and K5's wide mapping, its carries in
                           # global scratch where shared memory cannot hold
                           # them
-# each kernel's largest register: K1, K4, K5 and K6 map past 1024 slots
-# (csrc/walk.cuh, hist.cu, refine.cu); K2 and K3 run a thread a slot
-MAX_SLOTS = {"K1": WIDE_MAX_K, "K2": BLOCK_MAX_K, "K3": BLOCK_MAX_K,
+# each kernel's largest register: every kernel maps past 1024 slots
+# (csrc/walk.cuh, grad.cuh, hist.cu, refine.cu); K1, K2, K3 and K6 stop at
+# 4096, K4 and K5 go on with their carries in global scratch
+MAX_SLOTS = {"K1": WIDE_MAX_K, "K2": WIDE_MAX_K, "K3": WIDE_MAX_K,
              "K4": SCRATCH_MAX_K, "K5": SCRATCH_MAX_K, "K6": WIDE_MAX_K}
 # the mappings of K1, K4, K5 and K6, narrowest first.  K1 skips the block
 # mapping: the wide one ran it 1.14-1.75x faster at every register of
 # 81..1024 slots measured; K4, K5 and K6 keep a thread a slot up to 1024
-# (K2 and K3: grad_kernel.plan)
+# (K2 and K3, warp, block and wide: grad_kernel.plan)
 MAPPINGS = {"K1": ("warp", "wide"), "K4": ("warp", "block", "wide"),
             "K5": ("block", "wide"), "K6": ("block", "wide")}
 WARPS = (4, 2, 1)         # warps a block the warp mapping may launch
@@ -289,8 +291,7 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
     if K > limit:
         fits = max((w for w in range(1, window) if S ** w <= limit),
                    default=0)
-        how = ("a thread per slot" if limit == BLOCK_MAX_K
-               else "a thread per fusion group past 1024 slots"
+        how = ("a thread per fusion group past 1024 slots"
                + (", the carries in global scratch past shared memory"
                   if limit == SCRATCH_MAX_K else ""))
         reasons.append(f"K=S**window={K} > {limit} register slots "

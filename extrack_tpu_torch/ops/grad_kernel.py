@@ -7,16 +7,20 @@ w.r.t. the model tables (hence the physical parameters upstream) and the
 localization-error variances:
 
 * CUDA tensors (float32 only), gradient wanted: one K2 launch computes the value and every
-  table cotangent; ``backward`` only scales them.  ``plan`` picks K2's
-  mapping: one warp per track for K <= 64 (its carry history in shared
-  memory when it fits), one block per track above.  With variable dt the
+  table cotangent; ``backward`` only scales them.  ``plan`` picks one of
+  K2's three mappings: one warp per track for K <= 64 (its carry history
+  in shared memory when it fits), one block per track with a thread a
+  slot up to 1024 slots, and one block per track with a thread a fusion
+  group (the wide mapping) up to 4096, its exchange of carry cotangents
+  in shared memory where ``wide_layout``'s fits, else in global scratch.
+  With variable dt the
   kernel reads the streamed displacement variances (``kernel_inputs``'
   eleventh tensor) and returns their cotangent, which autograd carries
   through the stream's expand and ``tables.build_tables`` to the
   parameters.
 * CUDA tensors, no gradient wanted (``torch.no_grad`` or no input requires
-  grad): the cheaper forward kernel K1, whose envelope reaches 4096 slots
-  (K2's stops at 1024).
+  grad): the cheaper forward kernel K1, whose envelope (4096 slots) is
+  K2's.
 * CPU tensors: the plain version, torch autograd of ``core.engine.forward``.
 
 Positions get no gradient on the kernel path (the fit differentiates
@@ -41,13 +45,29 @@ PLAIN_CALLS = 0
 # scratch
 STASH_BUDGET = 1 << 30
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
+# the block mapping's largest register (a thread a slot); 0 moves every
+# register past WARP_MAX_K to the wide mapping (tests, chip_smoke.py)
+BLOCK_MAX_K = forward_kernel.BLOCK_MAX_K
 WARPS = (4, 2, 1)         # warps per block the warp mapping may launch
+WIDE = -1                 # the C interface's warps of the wide mapping
+WIDE_GLOBAL = -2          # the wide mapping, its exchange in global scratch
+WIDE_THREADS = 1024       # csrc/grad.cuh kGradWideThreads
+WIDE_GROUPS = 2           # fusion groups a thread of it owns, at most
+RED_SCALARS = 64          # its block reductions' shared scratch
 
 
 class Plan(NamedTuple):
     """How one K2 / K3 launch maps tracks onto the card."""
-    warps: int            # warps per block of the warp mapping; 0: block
+    warps: int            # warps per block of the warp mapping; 0: block;
+                          # WIDE / WIDE_GLOBAL: the wide mapping
     stash_smem: bool      # the warp mapping's carry history in shared memory
+
+
+class WideLayout(NamedTuple):
+    """One block of the wide mapping (csrc/grad.cuh grad_wide_layout)."""
+    threads: int
+    smem: int             # dynamic shared bytes
+    scratch: int          # global scratch bytes: history, exchange if global
 
 
 def history_floats(T: int, D: int, K: int) -> int:
@@ -67,11 +87,39 @@ def warp_slice_bytes(K: int, A: int, D: int, T: int, stash_smem: bool,
                        + (history_floats(T, D, K) if stash_smem else 0))
 
 
+def wide_history_floats(K: int, A: int, D: int, T: int) -> int:
+    """Scalars of one track's history on the wide mapping: the fused
+    groups of steps 1 .. T-3, (T-3)(2D+1)K/A."""
+    return max(T - 3, 0) * (2 * D + 1) * (K // A)
+
+
+def wide_layout(K: int, A: int, D: int, T: int, exchange_global: bool,
+                itemsize: int = 4) -> WideLayout:
+    """The host twin of csrc/grad.cuh's grad_wide_layout: a thread a
+    fusion group (G = K/A, up to WIDE_THREADS); shared memory holds the
+    block reductions' scratch and, unless ``exchange_global``, the
+    exchange of the members' carry cotangents, (2D+1)K scalars; global
+    scratch holds the history (``wide_history_floats``) and, with
+    ``exchange_global``, the exchange."""
+    G = K // A
+    xch = (2 * D + 1) * K
+    return WideLayout(min(WIDE_THREADS, -(-G // 32) * 32),
+                      (RED_SCALARS + (0 if exchange_global else xch))
+                      * itemsize,
+                      (wide_history_floats(K, A, D, T)
+                       + (xch if exchange_global else 0)) * itemsize)
+
+
 def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
          itemsize: int = 4, mapping: str | None = None,
          stash: str | None = None, P: int = 0) -> Plan:
     """K2's mapping for one launch: the warp mapping for K <= WARP_MAX_K,
-    else the block mapping (``mapping`` "warp"/"block" forces one).  The
+    the block mapping up to BLOCK_MAX_K, the wide
+    mapping above, up to ``forward_kernel.WIDE_MAX_K`` (``mapping``
+    "warp"/"block"/"wide" forces one).  The wide mapping keeps its
+    exchange in shared memory where ``wide_layout``'s block fits
+    ``smem_limit``, else in global scratch (Plan WIDE_GLOBAL; ``stash``
+    "smem"/"global" forces where).  The
     warp mapping keeps the carry history in shared memory where it fits:
     where one warp's slice with it fits ``smem_limit`` (the opt-in limit a
     block may ask for) and, with the warps per block of WARPS that keep the
@@ -80,8 +128,24 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
     scratch; else in global scratch, 4 warps per block (``stash``
     "smem"/"global" forces where).  ``P`` > 0: variable dt, whose
     streamed rows take a warp's slice too."""
-    mapping = mapping or ("warp" if K <= WARP_MAX_K else "block")
+    mapping = mapping or ("warp" if K <= WARP_MAX_K else "block"
+                          if K <= BLOCK_MAX_K else "wide")
+    if mapping == "wide":
+        if (K > forward_kernel.WIDE_MAX_K
+                or K // A > WIDE_GROUPS * WIDE_THREADS):
+            raise ValueError(f"the wide mapping takes K <= "
+                             f"{forward_kernel.WIDE_MAX_K}, got {K}")
+        fits = wide_layout(K, A, D, T, False, itemsize).smem <= smem_limit
+        if stash == "smem" and not fits:
+            raise ValueError(f"the wide mapping's exchange ({K=}, {D=}) "
+                             f"does not fit {smem_limit} bytes of shared "
+                             "memory")
+        return Plan(WIDE if fits and stash != "global" else WIDE_GLOBAL,
+                    False)
     if mapping == "block":
+        if K > forward_kernel.BLOCK_MAX_K:
+            raise ValueError(f"the block mapping takes K <= "
+                             f"{forward_kernel.BLOCK_MAX_K}, got {K}")
         if stash == "smem":
             raise ValueError("the block mapping keeps its carry history in "
                              "global scratch")
@@ -104,11 +168,18 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
 
 
 def grid(B: int, T: int, D: int, K: int, pl: Plan, sms: int, occupancy: int,
-         itemsize: int = 4):
+         itemsize: int = 4, A: int = 0):
     """(blocks, scratch floats) of a persistent launch on ``sms`` SMs: as
     many blocks as the card keeps resident (``occupancy`` blocks per SM),
     no more than the tracks need, and no more than STASH_BUDGET of carry
-    history in global scratch (one history per block, or per warp)."""
+    history in global scratch (one history per block, or per warp; the
+    wide mapping's ``wide_layout`` scratch, which needs ``A``)."""
+    if pl.warps < 0:
+        per_block = wide_layout(K, A, D, T, pl.warps == WIDE_GLOBAL,
+                                itemsize).scratch
+        nblk = min(B, sms * max(1, occupancy))
+        nblk = max(1, min(nblk, STASH_BUDGET // max(1, per_block)))
+        return nblk, nblk * per_block // 4
     per_block = max(1, pl.warps) * history_floats(T, D, K)
     nblk = min(-(-B // max(1, pl.warps)), sms * max(1, occupancy))
     if pl.stash_smem:
@@ -131,7 +202,7 @@ def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
               occ, itemsize, mapping, stash, P)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nblk, scratch = grid(B, T, D, K, pl, sms, occ(pl.warps, pl.stash_smem),
-                         itemsize)
+                         itemsize, A)
     return pl, nblk, scratch
 
 

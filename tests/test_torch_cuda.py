@@ -1289,3 +1289,167 @@ def test_cuda_sharded_drivers_on_one_card(cuda, small_csv):
         np.testing.assert_array_equal(got[1][k], want[1][k])
         np.testing.assert_array_equal(got[3][0][k], want[3][0][k])
     np.testing.assert_array_equal(got[2], want[2])
+
+
+# ---- K2 and K3 past 1024 slots: the wide mapping ----------------------
+
+# (S, W, n, D, dt): K = 1296, 2048 (two sub-steps), 2187, 3125 and 4096,
+# D = 1..3, constant dt and variable dt per step and per track
+WIDE_GRAD_CASES = [
+    (6, 4, 1, 1, None), (6, 4, 1, 3, "track"), (2, 11, 2, 2, None),
+    (2, 11, 2, 1, "step"), (3, 7, 1, 2, "track"), (3, 7, 1, 3, None),
+    (5, 5, 1, 1, "step"), (5, 5, 1, 2, None), (4, 6, 1, 1, "track"),
+    (4, 6, 1, 2, None), (4, 6, 1, 3, "step"), (4, 6, 1, 3, None)]
+
+
+def _table_hvp64(args, seed, **kw):
+    """K3's H.v along a random tangent of every table, and the plain
+    double backward's in float64 on the same inputs."""
+    pos, lens, isbl, tb = args
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dot = tables.ModelTables(*(
+        1e-2 * torch.randn(f.shape, generator=gen).to(f.device)
+        for f in tb))
+    _, _, hv = hvp_kernel.table_hvp(pos, lens, isbl, tb, dot, **kw)
+    _, _, hv0 = hvp_kernel.table_hvp_plain(
+        pos.double(), lens, isbl.double(),
+        tables.ModelTables(*(f.double() for f in tb)),
+        tables.ModelTables(*(f.double() for f in dot)), **kw)
+    return hv, hv0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,D,dt", WIDE_GRAD_CASES)
+def test_cuda_wide_k2_k3_match_plain(cuda, S, W, n, D, dt):
+    # through the wrappers, whose default mapping past 1024 slots is the
+    # wide one; tracks longer than the window, so that the register fuses
+    T = W + 3
+    args = _case(cuda, S, n, 24, T, D, seed=S + W + D, per_peak=(D == 2),
+                 dt=dt)
+    kw = dict(window=W, nb_substeps=n, min_len=2)
+    data_, tabs = _kernel_args(args, W, n)
+    K, A = S ** W, S ** n
+    dev_index = cuda.index or 0
+    pl, _, _ = grad_kernel.setup(
+        cuda_lib.library(), cuda_lib.library().extrack_grad_occupancy,
+        24, T, D, K, A, torch.device("cuda", dev_index), 4)
+    assert pl.warps == grad_kernel.WIDE
+    before = (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
+              grad_kernel.PLAIN_CALLS + hvp_kernel.PLAIN_CALLS)
+    v, g = grad_kernel.value_and_table_grads(*args, **kw)
+    v0, g0 = grad_kernel.value_and_table_grads_plain(*args, **kw)
+    torch.testing.assert_close(v, v0, rtol=2e-5, atol=0.0)
+    for k in g:
+        torch.testing.assert_close(g[k], g0[k], rtol=2e-3, atol=2e-3)
+    # two launches bit-equal (no atomics), and the exchange in global
+    # scratch against it in shared memory
+    a = grad_kernel.launch(data_, tabs, 2)
+    b = grad_kernel.launch(data_, tabs, 2)
+    c = grad_kernel.launch(data_, tabs, 2, stash="global")
+    for x, y, z in zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2]),
+                       (c[0], c[1], *c[2])):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    hv, hv0 = _table_hvp64(args, S + W, **kw)
+    for name in hv0:
+        scale = float(hv0[name].abs().max())
+        torch.testing.assert_close(hv[name].double(), hv0[name], rtol=5e-3,
+                                   atol=1e-3 * scale)
+    assert (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
+            grad_kernel.PLAIN_CALLS + hvp_kernel.PLAIN_CALLS) == (
+        before[0] + 4, before[1] + 1, before[2] + 2)
+    # past 4096 slots: K2 and K3 raise, naming the kernel and the window
+    # that fits
+    W_past = _past_envelope(S, "K2")
+    for fn, name in ((grad_kernel.value_and_table_grads, "K2"),
+                     (lambda *a_, **k_: hvp_kernel.table_hvp(
+                         *a_, args[3], **k_), "K3")):
+        with pytest.raises(NotImplementedError,
+                           match=rf"{name} maps at most 4096.*window that "
+                                 rf"fits is {W_past - 1}"):
+            fn(*args, window=W_past, nb_substeps=1, min_len=2)
+
+
+# (S, W, D): the wide mapping forced onto registers the warp and block
+# mappings hold (K = 8 .. 1024; G from 4 to 512), against the block
+# mapping, K2 and K3
+WIDE_SMALL_GRAD_CASES = [(2, 3, 2), (2, 6, 1), (3, 5, 3), (2, 10, 2),
+                         (4, 5, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D", WIDE_SMALL_GRAD_CASES)
+def test_cuda_k2_k3_wide_mapping_on_small_registers(cuda, S, W, D):
+    args = _case(cuda, S, 1, 60, W + 3, D, seed=W, dt="track")
+    data_, tabs = _kernel_args(args, W)
+    K = S ** W
+    wide = grad_kernel.launch(data_, tabs, 2, mapping="wide")
+    block = grad_kernel.launch(data_, tabs, 2, mapping="block")
+    torch.testing.assert_close(wide[0], block[0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(wide[1], block[1], rtol=2e-4,
+                               atol=2e-5 * float(block[1].abs().max()))
+    for c, c0 in zip(wide[2], block[2]):
+        torch.testing.assert_close(c, c0, rtol=2e-4,
+                                   atol=2e-5 * float(c0.abs().max()))
+    rng = np.random.default_rng(K)
+    dots = [torch.tensor(rng.normal(0, 1, t.shape), dtype=torch.float32,
+                         device=cuda) for t in tabs]
+    l2_dot = torch.zeros_like(data_[1])
+    hw = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2, mapping="wide")
+    hb = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2, mapping="block")
+    for (a, a_dot), (b, b_dot) in zip(hw[:2], hb[:2]):
+        torch.testing.assert_close(a, b, rtol=2e-4,
+                                   atol=2e-5 * float(b.abs().max()))
+        torch.testing.assert_close(a_dot, b_dot, rtol=2e-4,
+                                   atol=2e-5 * float(b_dot.abs().max()))
+    for a, b in zip(hw[2][0] + hw[2][1], hb[2][0] + hb[2][1]):
+        torch.testing.assert_close(a, b, rtol=2e-4,
+                                   atol=2e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_grad_layout(cuda):
+    """K2's and K3's wide block as the source defines it
+    (``extrack_grad_layout``) against the host twin ``wide_layout``, at
+    every register of the envelope's shapes, both exchanges, float and
+    dual numbers; below 1024 slots the default mappings stay the warp and
+    block ones."""
+    for S, W, n in ((6, 4, 1), (2, 11, 2), (3, 7, 1), (5, 5, 1), (4, 6, 1),
+                    (2, 12, 1), (3, 5, 1)):
+        K, A = S ** W, S ** n
+        for D in (1, 2, 3):
+            for T in (2, 9, 40):
+                for warps in (grad_kernel.WIDE, grad_kernel.WIDE_GLOBAL):
+                    for item in (4, 8):
+                        assert cuda_lib.layout(
+                            "grad", K, A, D, T, warps, item) == tuple(
+                            grad_kernel.wide_layout(
+                                K, A, D, T,
+                                warps == grad_kernel.WIDE_GLOBAL, item))
+    smem = cuda_lib.smem_bytes("extrack_grad_smem", cuda.index or 0)
+    for K, A, want in ((64, 2, 4), (243, 3, 0), (1024, 4, 0),
+                       (4096, 4, grad_kernel.WIDE)):
+        pl = grad_kernel.plan(K, A, 3, 20, smem, lambda w, s: 1, 8)
+        assert pl.warps == want
+
+
+@pytest.mark.cuda
+def test_cuda_fit_at_4096_slots_runs_k2_k3_alone(cuda):
+    # param_fitting at 4 states and the GUI's frame_len 6 (K = 4096) with
+    # error bars: every gradient a K2 launch, every Hessian column a K3
+    # one, no plain call
+    tr = np.full((4, 4), 0.04) + np.eye(4) * 0.84
+    tracks, _, _ = simulate.sim_fov(
+        nb_tracks=400, max_track_len=9, min_track_len=3,
+        Ds=(0.0, 0.01, 0.04, 0.1), TrMat=tr, cell_dims=(0.5,), seed=8)
+    mods = (forward_kernel, grad_kernel, hvp_kernel)
+    for m in mods:
+        m.LAUNCHES = m.PLAIN_CALLS = 0
+    res = fit.param_fitting(tracks, 0.02, nb_states=4, frame_len=6,
+                            compute_errors=True, max_iter=3, verbose=0,
+                            cell_dims=(0.5,))
+    n_b = len(data.from_dict_bucketed(tracks, device=cuda))
+    assert grad_kernel.LAUNCHES >= n_b
+    assert hvp_kernel.LAUNCHES == len(res.std_errors) * n_b
+    assert sum(m.PLAIN_CALLS for m in mods) == 0
+    assert np.isfinite(res.logl)
+    assert all(np.isfinite(v) for v in res.std_errors.values())

@@ -120,15 +120,16 @@ def test_classify_sig2_and_envelope():
     forward_kernel.check_envelope(20, 2, 3, 5, 1)
     with pytest.raises(NotImplementedError, match="D=4"):
         forward_kernel.check_envelope(20, 4, 2, 6, 1)
-    # K1 maps up to 4096 slots, K2 and K3 up to 1024; each raise names the
-    # kernel, its limit and the largest window that fits
+    # K1, K2 and K3 map up to 4096 slots; each raise names the kernel, its
+    # limit and the largest window that fits
     forward_kernel.check_envelope(20, 2, 2, 11, 1)          # K = 2048
     with pytest.raises(NotImplementedError,
                        match="K=S.*4096.*K1.*window that fits is 12"):
         forward_kernel.check_envelope(20, 2, 2, 13, 1)      # K = 8192
+    forward_kernel.check_envelope(20, 2, 2, 11, 1, kernel="K2")
     with pytest.raises(NotImplementedError,
-                       match="K=S.*1024.*K2.*window that fits is 10"):
-        forward_kernel.check_envelope(20, 2, 2, 11, 1, kernel="K2")
+                       match="K=S.*4096.*K2.*window that fits is 12"):
+        forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K2")
     # K4 maps up to 16384 slots (its carries in global scratch past a
     # block's shared memory)
     forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K4")  # 8192

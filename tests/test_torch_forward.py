@@ -423,7 +423,7 @@ def test_mapping_choice_and_per_kernel_limits():
                 for k in ("K1", "K4")] == [W, 0]
     finally:
         forward_kernel.WARP_MAX_K = saved
-    assert forward_kernel.MAX_SLOTS == {"K1": 4096, "K2": 1024, "K3": 1024,
+    assert forward_kernel.MAX_SLOTS == {"K1": 4096, "K2": 4096, "K3": 4096,
                                         "K4": 16384, "K5": 16384,
                                         "K6": 4096}
 

@@ -232,3 +232,101 @@ def test_k2_grid():
     # block mapping: one history per block
     assert grad_kernel.grid(1 << 20, 10, 2, 243, grad_kernel.Plan(0, False),
                             132, 8) == (1056, 1056 * 9 * 5 * 243)
+
+
+# ---- the wide mapping: 1024 < K <= 4096 (a thread a fusion group) ------
+
+H100_OPTIN = 232448           # bytes of shared memory a block may opt in to
+
+
+@pytest.mark.parametrize("K,A,want", [
+    (243, 3, 0), (1024, 2, 0), (1024, 4, 0), (1296, 6, -1), (2048, 4, -1),
+    (2187, 3, -1), (3125, 5, -1), (4096, 4, -1), (4096, 2, -1)])
+def test_k2_plan_wide_mapping_exactly_past_1024_slots(K, A, want):
+    occ = _occupancy(min(K, 64), 2, 10)
+    for itemsize in (4, 8):               # K2, and K3's dual numbers
+        pl = grad_kernel.plan(K, A, 3, 20, H100_OPTIN, occ, itemsize)
+        assert pl == grad_kernel.Plan(want, False)
+    assert grad_kernel.WIDE == -1 and grad_kernel.WIDE_GLOBAL == -2
+    if want == 0:
+        # forced: the wide mapping at any register up to 4096 slots
+        assert grad_kernel.plan(K, A, 2, 10, H100_OPTIN, occ,
+                                mapping="wide").warps == grad_kernel.WIDE
+    else:
+        with pytest.raises(ValueError, match="K <= 1024"):
+            grad_kernel.plan(K, A, 2, 10, H100_OPTIN, occ, mapping="block")
+    for K_past, A_past in ((4 ** 7, 4), (6 ** 5, 6)):
+        with pytest.raises(ValueError, match="K <= 4096"):
+            grad_kernel.plan(K_past, A_past, 2, 10, H100_OPTIN, occ)
+
+
+@pytest.mark.parametrize("K,A", [(1296, 6), (2048, 2), (2187, 3),
+                                 (3125, 5), (4096, 4), (4096, 2)])
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_k2_wide_layout_and_its_global_variant(K, A, D, itemsize):
+    T = 12
+    G = K // A
+    # by hand: a thread a group, at most 1024; shared memory holds the 64
+    # scalars of the block reductions and the (2D+1)K exchange; global
+    # scratch the (T-3)(2D+1)G history, and the exchange in the global
+    # variant
+    lay = grad_kernel.wide_layout(K, A, D, T, False, itemsize)
+    assert lay == (min(1024, -(-G // 32) * 32),
+                   (64 + (2 * D + 1) * K) * itemsize,
+                   (T - 3) * (2 * D + 1) * G * itemsize)
+    glob = grad_kernel.wide_layout(K, A, D, T, True, itemsize)
+    assert glob == (lay.threads, 64 * itemsize,
+                    lay.scratch + (2 * D + 1) * K * itemsize)
+    assert lay.threads * grad_kernel.WIDE_GROUPS >= G
+    # every register of the envelope fits an H100 block's opt-in, dual
+    # numbers at K = 4096 and D = 3 with 2,560 bytes to spare
+    assert lay.smem <= H100_OPTIN
+    # the global variant exactly where the opt-in limit is passed
+    occ = _occupancy(64, 2, 10)
+    assert grad_kernel.plan(K, A, D, T, lay.smem, occ, itemsize) == (
+        grad_kernel.Plan(grad_kernel.WIDE, False))
+    assert grad_kernel.plan(K, A, D, T, lay.smem - 1, occ, itemsize) == (
+        grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False))
+    with pytest.raises(ValueError, match="does not fit"):
+        grad_kernel.plan(K, A, D, T, lay.smem - 1, occ, itemsize,
+                         stash="smem")
+    assert grad_kernel.plan(K, A, D, T, lay.smem, occ, itemsize,
+                            stash="global").warps == grad_kernel.WIDE_GLOBAL
+
+
+def test_k2_wide_grid_under_the_stash_budget():
+    lay = grad_kernel.wide_layout(4096, 4, 2, 20, False, 8)
+    for pl in (grad_kernel.Plan(grad_kernel.WIDE, False),
+               grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False)):
+        per = grad_kernel.wide_layout(4096, 4, 2, 20,
+                                      pl.warps == grad_kernel.WIDE_GLOBAL,
+                                      8).scratch
+        # one resident block an SM, no more blocks than tracks
+        assert grad_kernel.grid(1 << 20, 20, 2, 4096, pl, 132, 1, 8,
+                                A=4) == (132, 132 * per // 4)
+        assert grad_kernel.grid(7, 20, 2, 4096, pl, 132, 1, 8,
+                                A=4) == (7, 7 * per // 4)
+    assert lay.scratch == 17 * 5 * 1024 * 8
+    # long tracks: the history caps the blocks at STASH_BUDGET
+    T = 4000
+    per = grad_kernel.wide_layout(4096, 4, 3, T, False, 8).scratch
+    nblk, floats = grad_kernel.grid(1 << 20, T, 3, 4096,
+                                    grad_kernel.Plan(grad_kernel.WIDE, False),
+                                    132, 1, 8, A=4)
+    assert nblk == grad_kernel.STASH_BUDGET // per < 132
+    assert floats * 4 == nblk * per <= grad_kernel.STASH_BUDGET
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_k2_k3_envelope_reaches_4096_slots(kernel):
+    forward_kernel.check_envelope(20, 3, 4, 6, 1, kernel=kernel)   # 4096
+    forward_kernel.check_envelope(20, 2, 3, 7, 1, variable_dt=True,
+                                  kernel=kernel)                   # 2187
+    for S, W, fits in ((4, 7, 6), (6, 5, 4)):
+        with pytest.raises(NotImplementedError,
+                           match=(rf"bucket 1 .*K=S\*\*window={S ** W} > "
+                                  rf"4096 register slots \({kernel} maps at "
+                                  rf"most 4096.*window that fits is {fits}")):
+            forward_kernel.check_envelope(20, 2, S, W, 1, what="bucket 1",
+                                          kernel=kernel)

@@ -22,6 +22,7 @@ def test_import_leaves_jax_out():
         "from extrack_tpu_torch.io import exporters, native, readers\n"
         "from extrack_tpu_torch.utils import observe\n"
         "from extrack_tpu_torch.parallel import mesh, multihost\n"
+        "from extrack_tpu_torch import baselines\n"
         "assert e.parallel.mesh is mesh\n"
         "assert e.pipeline is pipeline and e.auto_fitting is auto_fitting\n"
         "assert e.cli is cli and e.gui is gui and e.io is io\n"
@@ -65,7 +66,7 @@ def test_kernel_sources_present():
         "extrack_forward_occupancy", "extrack_grad_occupancy",
         "extrack_hvp_occupancy", "extrack_predict_occupancy",
         "extrack_predict_layout", "extrack_hist_layout",
-        "extrack_refine_layout"}
+        "extrack_refine_layout", "extrack_grad_layout"}
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert cuda_lib.library_path().parent == cuda_lib.BUILD_DIR
 
@@ -79,6 +80,7 @@ def test_no_source_imports_jax():
     files = sorted((ROOT / "extrack_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    assert ROOT / "extrack_tpu_torch" / "baselines.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -4,8 +4,11 @@
 buckets, f32 (``--states``/``--window`` change the register; ``--hvp``
 times K3 on tangents drawn from one seed instead).
 
-    python3 tools/k2_profile.py [--mapping block|warp] [--stash smem|global]
+    python3 tools/k2_profile.py [--mapping block|warp|wide]
+        [--stash smem|global] [--tracks N]
     python3 tools/k2_profile.py --split [--mapping ...] [--stash ...]
+    python3 tools/k2_profile.py --mappings block,wide [--states S
+        --window W] [--hvp]
 
 Without ``--split`` it times REPS bare launches over the four buckets by
 CUDA events and splits one pass's device time between the walk and the
@@ -16,7 +19,11 @@ the same launches and prints each section's share of the cycles that the
 tracks' lead threads spent (a cycle count summed over all tracks; the
 marks themselves cost a little, so read shares, not times).
 ``--mapping``/``--stash`` force K2's mapping and where its carry history
-lives; by default the wrapper chooses.  The last line is the card's name
+(the wide mapping: its exchange of carry cotangents) lives; by default the
+wrapper chooses.  ``--mappings`` times two or more mappings of the same
+launches against each other in one process, in turns (A, B, B, A over
+ROUNDS rounds), and prints each one's median.  ``--tracks`` takes fewer
+random walks than the bench's 2^20.  The last line is the card's name
 and power limit.
 """
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
 REPS = 10
+ROUNDS = 4
 SECTIONS = ["forward: carry history writes", "forward: update and fusion",
             "forward: closing", "backward: carry history reads",
             "backward: update recomputed", "backward: closing pullback",
@@ -42,7 +50,10 @@ SECTIONS = ["forward: carry history writes", "forward: update and fusion",
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--split", action="store_true")
-    ap.add_argument("--mapping", choices=("block", "warp"))
+    ap.add_argument("--mapping", choices=("block", "warp", "wide"))
+    ap.add_argument("--mappings", help="comma-separated mappings to time "
+                    "against each other, in turns")
+    ap.add_argument("--tracks", type=int, default=1 << 20)
     ap.add_argument("--stash", choices=("smem", "global"))
     ap.add_argument("--states", type=int, default=2)
     ap.add_argument("--window", type=int, default=6)
@@ -71,7 +82,7 @@ def main() -> int:
         0.02, cell_dims=(0.5,))
     args = []
     gen = torch.Generator(device="cpu").manual_seed(5)
-    for b in smoke.bench_buckets(dev):
+    for b in smoke.bench_buckets(dev, n=a.tracks):
         d, tabs = forward_kernel.kernel_inputs(b.positions, b.lengths,
                                                b.is_bleached, tb, a.window,
                                                1)
@@ -90,10 +101,26 @@ def main() -> int:
             else:
                 grad_kernel.launch(d, tabs, 3, **opts)
 
+    if a.mappings:
+        names = a.mappings.split(",")
+        times = {m: [] for m in names}
+        kernel = 'K3' if a.hvp else 'K2'
+        for r in range(ROUNDS):
+            for m in (names if r % 2 == 0 else names[::-1]):
+                opts["mapping"] = m
+                times[m].append(smoke.cuda_ms(run, REPS, warmup=2))
+        for m in names:
+            print(f"{kernel} S={S} W={a.window} (K={S ** a.window}) D=2, "
+                  f"{a.tracks} tracks of lengths 3..10, {m} mapping: "
+                  f"{sorted(times[m])[len(times[m]) // 2]:.3f} ms per pass "
+                  f"(median of {ROUNDS} rounds of {REPS}; rounds "
+                  + ", ".join(f"{t:.3f}" for t in times[m]) + ")")
     what = (f"{'K3' if a.hvp else 'K2'} S={S} W={a.window}, mapping "
             f"{a.mapping or 'default'}, carry history "
             f"{a.stash or 'default'}")
-    if a.split:
+    if a.mappings:
+        pass
+    elif a.split:
         run()
         torch.cuda.synchronize()
         cuda_lib.profile_counters("grad")
