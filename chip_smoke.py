@@ -12,7 +12,8 @@ Phases (each prints its lines; a failed check exits non-zero):
    (K5's variable-dt instantiations listed with their spill bytes, and
    the 21 instantiations of the wide mapping with their registers and
    spill bytes, then K2's and K3's 12: float and dual numbers, D 1..3,
-   constant and variable dt);
+   constant and variable dt, and K7's 6: D 1..3, constant and variable
+   dt);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
@@ -128,9 +129,12 @@ Phases (each prints its lines; a failed check exits non-zero):
    ``predict.predict_Bs(dt=dt_dict)`` with its K4 launches and
    ``histograms.len_hist(dt=dt_dict)`` (window 7) with its K5 launches,
    each bucket against the plain version (the histogram's frames
-   conserved); the variable-dt kernels' times at the bench shape with
-   per-track dt uniform in 0.01..0.03, bare and through their wrappers,
-   beside their plain versions and the constant-dt times;
+   conserved), and ``len_hist(dt=dt_dict, engine="topk")`` with its K7
+   launches (K7 on the stream), each bucket against the plain version in
+   float32 and in float64; the variable-dt kernels' times at the bench
+   shape with per-track dt uniform in 0.01..0.03, bare and through their
+   wrappers, beside their plain versions and the constant-dt times (K7's
+   at M=512 beside phase 9's);
 11. past 1024 register slots (K1, K4, K5 and K6 on their wide mapping, a
    thread a fusion group): the README workflow at 3 states and the JAX
    package's defaults on ~5 x 10^4 ``sim_fov`` tracks (``param_fitting(
@@ -152,7 +156,14 @@ Phases (each prints its lines; a failed check exits non-zero):
    its plain version; at 3 states ``tracking.Proba_Cs`` (K1) and
    ``refine.get_best_estimates`` (K4 at K = 6561); then the three
    kernels' bare times on 2^12-2^13 random walks beside their bounds and
-   plain versions (one unwarmed pass of the plain version);
+   plain versions (one unwarmed pass of the plain version); then K4 past
+   16384 slots (up to 65536): ``predict_Bs`` at 7 states (K = 16807) and
+   the GUI ``Session``'s State Labeling runner at 3 states and its seeded
+   frame_len 10 (K = 59049), each on ~3.9k ``sim_fov`` tracks with its
+   launches, 0 plain calls, its wall time, each whole bucket through K4
+   equal to the entry point's output and its first tracks against the
+   plain version, then K4's bare time on the labeling's buckets beside its
+   bound and the plain version's time on the checked tracks;
 13. simulate -> fit -> sample on the card: ``simulate.sim_fov_batch`` at
    the main path's model and 10^6 requested tracks (its wall time, batch
    invariants and length histogram against phase 3's host ``sim_fov``),
@@ -372,6 +383,17 @@ SIM4 = dict(SIM, nb_tracks=4096, Ds=(0.0, 0.01, 0.04, 0.1), TrMat=TR4,
 SIM2N = dict(SIM, nb_tracks=4096, seed=9)
 SIM6P = dict(SIM, nb_tracks=4096, Ds=SIM6["Ds"], TrMat=TR6, seed=10)
 SIM3B = dict(SIM3, nb_tracks=8192, seed=11)
+# phase 12 past 16384 slots (K4): predict_Bs at 7 states (its default
+# frame_len 5, K = 7^5) and the GUI's State Labeling runner at 3 states at
+# its seeded frame_len 10 (K = 3^10), each on ~3.9k sim_fov tracks; the
+# first PAST16384_CHECK tracks of each bucket held to the plain version in
+# chunks of PAST16384_PLAIN_CHUNK (it carries K*S*T floats a track)
+TR7 = np.full((7, 7), 0.02) + np.eye(7) * 0.86
+SIM7P = dict(SIM, nb_tracks=4096, Ds=(0.0, 0.005, 0.01, 0.02, 0.04, 0.07,
+                                      0.1), TrMat=TR7, seed=14)
+SIM3G = dict(SIM3, nb_tracks=4096, seed=15)
+PAST16384_CHECK = 128
+PAST16384_PLAIN_CHUNK = 32
 PAST_PLAIN_CHUNK = 512        # the plain versions past 4096 slots
 BEST_CHECK = 64               # get_best_estimates' tracks run on the CPU
 # (kernel, S, W, nb_substeps, tracks): bare times at phase 12's registers
@@ -569,14 +591,17 @@ def topk_bare(buckets, tb, M: int, dev):
     ``buckets`` (min_len 3), in the chunks hist_batch cuts, reusing one set
     of output buffers per bucket across its chunks: fused (histogram rows
     out), or raw (backpointers out) where the package predates the fused
-    decode (tools/kernel_ab.py runs this against a parent checkout)."""
+    decode (tools/kernel_ab.py runs this against a parent checkout).
+    ``tb``: one table for every bucket, or a list of one per bucket
+    (variable dt: the stream is cut with the chunks)."""
     from extrack_tpu_torch.histograms import TOPK_CHUNK
     from extrack_tpu_torch.ops import topk_kernel
     fused = hasattr(topk_kernel, "launch_fused")
+    tbs = tb if isinstance(tb, list) else [tb] * len(buckets)
     prep = []
-    for b in buckets:
+    for b, tb_b in zip(buckets, tbs):
         d, t = topk_kernel.kernel_inputs(b.positions, b.lengths,
-                                         b.is_bleached, tb, M, 1)
+                                         b.is_bleached, tb_b, M, 1)
         n, T = min(TOPK_CHUNK, b.batch_size), b.max_len
         if fused:
             out = (torch.empty((n, T * 2), device=dev),
@@ -603,13 +628,32 @@ def topk_bare(buckets, tb, M: int, dev):
 
 def topk_wrapped(buckets, tb, M: int):
     """A function that runs ``topk_kernel.segment_topk`` (K7 and the
-    decode) over ``buckets`` in the chunks hist_batch cuts."""
+    decode) over ``buckets`` in the chunks hist_batch cuts (``tb`` as
+    ``topk_bare``'s)."""
     from extrack_tpu_torch.ops import topk_kernel
+    tbs = tb if isinstance(tb, list) else [tb] * len(buckets)
 
     def run():
-        for b in buckets:
-            topk_chunks(b, M, topk_kernel.segment_topk, tb)
+        for b, tb_b in zip(buckets, tbs):
+            topk_chunks(b, M, topk_kernel.segment_topk, tb_b)
     return run
+
+
+def k7_bounds(buckets, lengths, M: int, stream: float = 0.0):
+    """K7's bound as its function needs it (positions and l2, lengths and
+    isBL in, with variable dt the ``stream`` bytes, the histogram rows out;
+    the live rows' work, ``topk_ops``), and the count of all M rows beside
+    it (``walk_ops``, the backpointers out): two (ms, by) pairs, for
+    2-state ``buckets``."""
+    rows_in = sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
+                  for b in buckets) + stream
+    new = bound(rows_in + sum(b.batch_size * b.max_len * 2 * 4
+                              for b in buckets),
+                topk_ops(lengths, M, 2, 2, 4))
+    old = bound(rows_in + sum(b.batch_size * M * (4 + 3 * (b.max_len - 1))
+                              for b in buckets),
+                walk_ops(lengths, M, 2, 2, "K7"))
+    return new, old
 
 
 def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
@@ -874,12 +918,15 @@ def live_backpointers_equal(got, want, P: int):
 
 def topk_chunks(b, M, fn, tb, min_len=3):
     """Sum of ``fn`` (segment_topk or its plain version) over the chunks of
-    bucket ``b`` that hist_batch cuts for K7."""
+    bucket ``b`` that hist_batch cuts for K7 (a per-track table of
+    variable dt cut with them)."""
     from extrack_tpu_torch.histograms import TOPK_CHUNK
     out = None
     for i in range(0, b.batch_size, TOPK_CHUNK):
         sl = slice(i, i + TOPK_CHUNK)
-        h = fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl], tb,
+        tb_i = (tb._replace(sig2=tb.sig2[sl]) if tb.sig2.ndim == 3
+                and tb.sig2.shape[0] == b.batch_size > 1 else tb)
+        h = fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl], tb_i,
                max_nb_states=M, min_len=min_len)
         out = h if out is None else out + h
     return out
@@ -1234,6 +1281,16 @@ def main() -> int:
         "K5 n=2 past 4096": entry("duration_hist_substeps_past_4096",
                                   "hist.cu",
                                   "extrack_tpu/ops/pallas_hist.py:63"),
+        # K4 past 16384 slots (up to 65536): the GUI's labeling at 3
+        # states and predict_Bs at 7; JAX runs XLA past its kernel's VMEM
+        # budget (extrack_tpu/predict.py:113-121)
+        "K4 past 16384": entry("posteriors_past_16384", "predict.cu",
+                               "extrack_tpu/ops/pallas_predict.py:65"),
+        # K7 with variable dt: the TPU kernel takes constant dt only
+        # (pallas_topk.py:276-278); JAX runs its XLA top-K engine there
+        # (extrack_tpu/histograms.py:59-208)
+        "K7 dt": entry("topk_hist_variable_dt", "topk.cu",
+                       "extrack_tpu/ops/pallas_topk.py:113"),
         # the HMC sampler's gradients (phase 13): K2 at its subset's
         # buckets, as every leapfrog step launches it
         "K2 sample": entry("loglik_grad_sampler", "grad.cu",
@@ -1274,6 +1331,7 @@ def main() -> int:
     wide_regs = {}  # registers and spill bytes of the wide instantiations
     global_regs = {}  # the same of the wide ones with carries in scratch
     grad_regs = {}  # the same of K2's and K3's wide instantiations
+    topk_regs = {}  # the same of K7's (constant and variable dt)
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
@@ -1292,9 +1350,10 @@ def main() -> int:
         scratch = re.match(r"_ZN7extrack23(walk|hist)_wide_global_kernel",
                            entry_name)
         grad_wide = re.match(r"_ZN7extrack16grad_wide_kernel", entry_name)
+        topk = re.match(r"_ZN7extrack1[15]topk_(vdt_)?kernel", entry_name)
         regs = re.search(r"Used (\d+) registers", line)
         for found, table in ((wide, wide_regs), (scratch, global_regs),
-                             (grad_wide, grad_regs)):
+                             (grad_wide, grad_regs), (topk, topk_regs)):
             if found and (spilled or regs):
                 key = entry_name[:60]
                 table.setdefault(key, [0, 0])
@@ -1342,6 +1401,12 @@ def main() -> int:
     if len(grad_regs) != 12:
         fail(f"{len(grad_regs)} wide K2/K3 instantiations, not 12 (float "
              "and dual: D 1..3 x constant and variable dt)")
+    log("phase 0: K7's instantiations (1024 threads; registers, spill "
+        "bytes stores + loads): " + ", ".join(
+            f"{k} {r} regs {b} B" for k, (r, b) in sorted(topk_regs.items())))
+    if len(topk_regs) != 6:
+        fail(f"{len(topk_regs)} K7 instantiations, not 6 (D 1..3 x "
+             "constant and variable dt)")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -2281,21 +2346,8 @@ def main() -> int:
     keys = torch.randn((n_bench, 1024), device=dev)
     tk_ms = cuda_ms(lambda: torch.topk(keys, 512, dim=1), 3)
     del keys
-    # bound: what the function needs, positions and l2 (and lengths and
-    # isBL) in, the histogram rows out, the live rows' work (topk_ops);
-    # the count of all M rows (``walk_ops``, the backpointers out) beside it
-    def k7_bounds(bench9, lens9, M9):
-        rows_in = sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
-                      for b in bench9)
-        new = bound(rows_in + sum(b.batch_size * b.max_len * 2 * 4
-                                  for b in bench9),
-                    topk_ops(lens9, M9, 2, 2, 4))
-        old = bound(rows_in + sum(b.batch_size * M9 * (4 + 3 * (b.max_len
-                                                                - 1))
-                                  for b in bench9),
-                    walk_ops(lens9, M9, 2, 2, "K7"))
-        return new, old
-
+    # bound: what the function needs (k7_bounds: the live rows' work), the
+    # count of all M rows beside it
     (b7, by7), (b7_old, by7_old) = k7_bounds(bench, bench_lens, 512)
     kinfo["K7"]["ms"], kinfo["K7"]["plain_ms"] = ms7, pms7
     kinfo["K7"]["wrapper_ms"] = wms7
@@ -2346,7 +2398,7 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
     from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
                                        hist_kernel, hvp_kernel,
-                                       predict_kernel)
+                                       predict_kernel, topk_kernel)
     t10 = time.time()
     # parity, kernel against the plain version in float64 on the same
     # (float32) inputs: the f32 plain version's own rounding of the
@@ -2596,6 +2648,52 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
     if not ok:
         fail("mixed-frame-rate len_hist differs from its buckets or loses "
              "frames")
+    # the top-K histogram of the mixed frame rates (K7 on the stream): its
+    # launches, each bucket against the plain version in float32 at the
+    # large cases' tolerance and in float64 (on the same float32 inputs)
+    # at a pruned register's (a near-tie may keep another sequence)
+    TOPK_CHUNK = histograms.TOPK_CHUNK
+    reset_counts()
+    t0 = time.time()
+    hist7 = histograms.len_hist(tracks, values, dts, cell_dims=(0.5,),
+                                nb_states=2, engine="topk")
+    t_h7 = time.time() - t0
+    k7, plain = topk_kernel.LAUNCHES, plain_calls()
+    want7 = sum(-(-b.batch_size // TOPK_CHUNK) for b in buckets)
+    log(f"phase 10: len_hist(engine='topk') on {n_tr} mixed-frame-rate "
+        f"tracks (M=512) {t_h7:.2f} s; K7 launches {k7} (want {want7}), "
+        f"plain calls {plain} [{card}]")
+    if k7 != want7 or plain != 0:
+        fail(f"mixed-frame-rate top-K histogram: K7 launches {k7} (want "
+             f"{want7}), plain calls {plain}")
+    kinfo["K7 dt"]["launches"] = k7
+    summed = np.zeros_like(hist7)
+    for b in buckets:
+        tb = tables.build_tables(Ds, loc_err, Fs, rates, pBL, b.dt,
+                                 cell_dims=(0.5,), dt_repr=dt_repr)
+        h = topk_chunks(b, 512, topk_kernel.segment_topk, tb, min_len)
+        h0 = topk_chunks(b, 512, topk_kernel.segment_topk_plain, tb, min_len)
+        p64, i64, t64 = float64(b.positions, b.is_bleached, tb)
+        h64 = topk_chunks(data.TrackBatch(p64, b.lengths, is_bleached=i64),
+                          512, topk_kernel.segment_topk_plain, t64, min_len)
+        L = data.host_lengths(b)
+        tag = (f"phase 10: K7 mixed frame rates, bucket T={b.max_len} "
+               f"B={b.batch_size}")
+        errs["K7 dt"].append(check_hist(
+            f"{tag}, plain in float32", h, h0, float(L[L >= 2].sum()),
+            topk_tol("large", h0), "K7 dt"))
+        check_hist(f"{tag}, plain in float64", h.double(), h64,
+                   float(L[L >= 2].sum()), TOL_TOPK_PRUNED, "K7 dt")
+        summed[:b.max_len] += h.double().cpu().numpy()
+    counted = float((hist7 * np.arange(1, hist7.shape[0] + 1)[:, None]).sum())
+    ok = (np.array_equal(summed, hist7)
+          and abs(counted - frames) <= TOL_FRAMES * frames)
+    log(f"phase 10: len_hist(engine='topk') = the sum of its buckets' K7 "
+        f"histograms: {np.array_equal(summed, hist7)}; frames "
+        f"{counted:.1f} of {frames} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("mixed-frame-rate top-K len_hist differs from its buckets or "
+             "loses frames")
     del tracks, buckets, out
     log(f"phase 10: parity and main path {time.time() - t10:.1f} s")
 
@@ -2709,6 +2807,37 @@ def phase10(dev, card, kinfo, errs, reset_counts, plain_calls, ms, ms3,
             f"{info['plain_ms']:.3f} ms{on}; bound {info['bound_ms']:.4f} ms "
             f"({info['bound_by']}; the stream {stream / 1e6:.1f} MB) "
             f"[{card}]")
+    # K7 on the stream at the bench shape (M = 512), beside phase 9's
+    # constant-dt time; the plain version on the first 1/PLAIN_SHARE of
+    # each bucket
+    info = kinfo["K7 dt"]
+    info["ms"] = cuda_ms(topk_bare(bench, tbs, 512, dev), 5)
+    info["wrapper_ms"] = cuda_ms(topk_wrapped(bench, tbs, 512), 2)
+    share = [data.TrackBatch(b.positions[:b.batch_size // PLAIN_SHARE],
+                             b.lengths[:b.batch_size // PLAIN_SHARE],
+                             is_bleached=b.is_bleached[
+                                 :b.batch_size // PLAIN_SHARE])
+             for b in bench]
+    share_tbs = [tb._replace(sig2=tb.sig2[:b.batch_size])
+                 for b, tb in zip(share, tbs)]
+
+    def p7_run():
+        with torch.no_grad():
+            for b, tb in zip(share, share_tbs):
+                topk_chunks(b, 512, topk_kernel.segment_topk_plain, tb)
+    info["plain_ms"] = cuda_ms(p7_run, 1, warmup=0)
+    info["plain_tracks"] = sum(b.batch_size for b in share)
+    stream7 = sum(b.batch_size * (b.max_len - 1) * 4 for b in bench) * 4
+    (info["bound_ms"], info["bound_by"]), _ = k7_bounds(
+        bench, bench_lens, 512, stream7)
+    ms7 = kinfo["K7"]["ms"]
+    log(f"phase 10: K7 dt {n_bench} tracks ({len(bench)} buckets, T=10), "
+        f"M=512, per-track dt in {BENCH_DT}: kernel {info['ms']:.3f} ms = "
+        f"{info['ms'] / ms7:.3f}x constant dt's {ms7:.3f} ms (through "
+        f"segment_topk {info['wrapper_ms']:.3f} ms); plain "
+        f"{info['plain_ms']:.3f} ms on {info['plain_tracks']} of the "
+        f"tracks; bound {info['bound_ms']:.4f} ms ({info['bound_by']}; the "
+        f"stream {stream7 / 1e6:.1f} MB) [{card}]")
     log(f"phase 10: {time.time() - t10:.1f} s")
 
 
@@ -3121,7 +3250,7 @@ def phase12(dev, card, kinfo, errs, reset_counts, plain_calls):
     its plain version; ``tracking.Proba_Cs`` (K1) and
     ``refine.get_best_estimates`` (K4 at K = 3^8 = 6561) at 3 states; then
     the three kernels' bare times beside their bounds and plain
-    versions."""
+    versions; then K4 past 16384 slots (``phase12_past_16384``)."""
     from extrack_tpu_torch import (data, histograms, params, predict,
                                    refine, simulate, tracking)
     from extrack_tpu_torch.core import tables
@@ -3378,7 +3507,171 @@ def phase12(dev, card, kinfo, errs, reset_counts, plain_calls):
             f"{info['bound_ms']:.4f} ms ({info['bound_by']}), "
             f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
         del bench, args
+    phase12_past_16384(dev, card, kinfo, errs, reset_counts, plain_calls,
+                       values_of)
     log(f"phase 12: {time.time() - t12:.1f} s")
+
+
+def phase12_past_16384(dev, card, kinfo, errs, reset_counts, plain_calls,
+                       values_of):
+    """Phase 12's K4 past 16384 slots: ``predict_Bs`` at 7 states (K =
+    7^5 = 16807) and the GUI's State Labeling runner at 3 states and its
+    seeded frame_len 10 (K = 3^10 = 59049), each with its launches, 0
+    plain calls, its wall time, predict_Bs's output against K4 on each
+    whole bucket and each bucket's first PAST16384_CHECK tracks against
+    the plain version; then K4's bare time on the labeling's buckets beside
+    its bound and the plain version's time on the checked tracks."""
+    import tempfile
+    from pathlib import Path
+    from extrack_tpu_torch import data, gui, params, predict, simulate
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import forward_kernel, predict_kernel
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def hold_to_plain(tag, buckets, tb, W, min_len, out):
+        """Each bucket through K4 against ``out`` (the entry point's
+        dict, bit for bit) and its first tracks against the plain
+        version; returns the checked share as batches."""
+        share = []
+        for b in buckets:
+            logl, p = predict_kernel.predict(b.positions, b.lengths,
+                                             b.is_bleached, tb, window=W,
+                                             min_len=min_len)
+            got = data.to_dict(b, p)
+            same = all(np.array_equal(got[k], out[k]) for k in got)
+            n = min(PAST16384_CHECK, b.batch_size)
+            sub = data.TrackBatch(b.positions[:n], b.lengths[:n],
+                                  is_bleached=b.is_bleached[:n])
+            share.append(sub)
+            parts = []
+            with torch.no_grad():
+                for i in range(0, n, PAST16384_PLAIN_CHUNK):
+                    sl = slice(i, i + PAST16384_PLAIN_CHUNK)
+                    parts.append(predict_kernel.predict_plain(
+                        sub.positions[sl], sub.lengths[sl],
+                        sub.is_bleached[sl], tb, window=W, min_len=min_len))
+            logl0 = torch.cat([q[0] for q in parts])
+            p0 = torch.cat([q[1] for q in parts])
+            e = max(float((logl[:n] - logl0).abs().max()),
+                    float((p[:n] - p0).abs().max()))
+            ok = (torch.allclose(logl[:n], logl0, **TOL_K4_LOGL)
+                  and torch.allclose(p[:n], p0, **TOL_K4_PREDS)
+                  and bool(torch.isfinite(p).all()))
+            log(f"phase 12: {tag}, bucket T={b.max_len} B={b.batch_size}: "
+                f"the entry point's posteriors are K4's: {same}; first {n} "
+                f"tracks against the plain version: logL and preds "
+                f"max_abs_err {e:.3e} {'ok' if ok and same else 'FAIL'}")
+            if not (ok and same):
+                fail(f"K4 past 16384 slots disagrees with predict_plain or "
+                     f"with its entry point ({tag}, bucket T={b.max_len})")
+            errs["K4 past 16384"].append(e)
+        return share
+
+    # ---- predict_Bs at 7 states and its default frame_len 5 ------------
+    tracks, _, _ = simulate.sim_fov(**SIM7P)
+    n_tr = sum(len(v) for v in tracks.values())
+    values = values_of(7, SIM7P["Ds"], 0.02)
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    min_len = data.default_min_len(
+        np.concatenate([data.host_lengths(b) for b in buckets]))
+    reset_counts()
+    t0 = time.time()
+    out = predict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                             nb_states=7)
+    torch.cuda.synchronize()
+    t_pred = time.time() - t0
+    k4_7, plain = predict_kernel.LAUNCHES, plain_calls()
+    log(f"phase 12: 7 states, predict_Bs on {n_tr} tracks (frame_len 5, "
+        f"K=16807) {t_pred:.2f} s; K4 launches {k4_7}, plain calls {plain} "
+        f"[{card}]")
+    if k4_7 != len(buckets) or plain != 0:
+        fail(f"7-state predict_Bs: K4 launches {k4_7}, plain calls {plain}")
+    Ds, Fs, rates, loc, pBL = params.extract_arrays(values, 7, **f32)
+    tb7 = tables.build_tables(Ds, loc, Fs, rates, pBL, 0.02,
+                              cell_dims=(0.5,))
+    hold_to_plain("7 states, W=5", buckets, tb7, 5, min_len, out)
+    del tracks, buckets, out
+
+    # ---- the GUI's State Labeling at 3 states, seeded frame_len 10 -----
+    tracks, _, _ = simulate.sim_fov(**SIM3G)
+    values = values_of(3, SIM3G["Ds"], 0.05)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_tracks_csv(str(tmp / "gui3.csv"), tracks)
+        s = gui.Session(path=str(tmp / "gui3.csv"), dt=0.02, min_len=3,
+                        max_len=SIM3G["max_track_len"], nb_states=3,
+                        cell_dims=(0.5,), output_dir=str(tmp),
+                        params_values=values)
+        n_g = s.load()
+        W = int(gui.seeded_options("State Labeling", s)["frame_len"])
+        reset_counts()
+        t0 = time.time()
+        out = gui.run_predictions(s, progress=lambda m: None)
+        torch.cuda.synchronize()
+        t_gui = time.time() - t0
+        k4_g, plain = predict_kernel.LAUNCHES, plain_calls()
+        buckets = data.from_dict_bucketed(s.tracks, max_buckets=4,
+                                          device=dev, dtype=torch.float32)
+        ok = (W == 10 and k4_g == len(buckets) and plain == 0
+              and (tmp / "extrack_predictions.csv").stat().st_size > 0)
+        log(f"phase 12: GUI Session, 3 states, State Labeling at its "
+            f"seeded frame_len {W} (K={3 ** W}) on {n_g} tracks "
+            f"{t_gui:.2f} s (the annotated CSV included); K4 launches "
+            f"{k4_g}, plain calls {plain} {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the GUI's 3-state labeling did not run on K4 alone")
+    kinfo["K4 past 16384"]["launches"] = k4_g + k4_7
+    min_len = data.default_min_len(
+        np.concatenate([data.host_lengths(b) for b in buckets]))
+    Ds, Fs, rates, loc, pBL = params.extract_arrays(values, 3, **f32)
+    tb3 = tables.build_tables(Ds, loc, Fs, rates, pBL, 0.02,
+                              cell_dims=(0.5,))
+    share = hold_to_plain("3 states, W=10 (the GUI's labeling)", buckets,
+                          tb3, W, min_len, out)
+
+    # ---- K4's bare time on the labeling's buckets -----------------------
+    info = kinfo["K4 past 16384"]
+    args = []
+    for b in buckets:
+        d, t = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                            b.is_bleached, tb3, W, 1)
+        args.append((d, [x.detach() for x in t]))
+
+    def bare():
+        for d, t in args:
+            predict_kernel.launch(d, t, min_len, 3, W)
+
+    def plain_run():
+        with torch.no_grad():
+            for b in share:
+                for i in range(0, b.batch_size, PAST16384_PLAIN_CHUNK):
+                    sl = slice(i, i + PAST16384_PLAIN_CHUNK)
+                    predict_kernel.predict_plain(
+                        b.positions[sl], b.lengths[sl], b.is_bleached[sl],
+                        tb3, window=W, min_len=min_len)
+    info["ms"] = cuda_ms(bare, 3)
+    info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
+    info["plain_tracks"] = sum(b.batch_size for b in share)
+    blens = np.concatenate([data.host_lengths(b) for b in buckets])
+    rows = sum(b.positions.numel() for b in buckets) * 4
+    nbytes = 2 * rows + 12 * len(blens) + sum(
+        b.batch_size * b.max_len for b in buckets) * 3 * 4
+    info["bound_ms"], info["bound_by"] = bound(
+        nbytes, walk_ops(blens, 3 ** W, 3, 2, "K4", W=W, S=3))
+    K = 3 ** W
+    pl, nblk, scratch = predict_kernel.setup(
+        buckets[-1].batch_size, buckets[-1].max_len, 2, K, 3, W, dev)
+    log(f"phase 12: K4 past 16384 S=3 W={W} (K={K}) D=2 on the labeling's "
+        f"{len(blens)} tracks ({len(buckets)} buckets, T = "
+        f"{[b.max_len for b in buckets]}; the longest's plan warps "
+        f"{pl.warps}, {nblk} blocks, {scratch / 1e6:.1f} MB of scratch): "
+        f"kernel {info['ms']:.3f} ms = "
+        f"{len(blens) / info['ms'] * 1e3 / 1e6:.4f}M tracks/s; plain "
+        f"{info['plain_ms']:.3f} ms on {info['plain_tracks']} of the "
+        f"tracks; bound {info['bound_ms']:.4f} ms ({info['bound_by']}), "
+        f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
+    del tracks, buckets, args, share
 
 
 def phase13(dev, card, kinfo, errs, reset_counts, plain_calls, host_counts):

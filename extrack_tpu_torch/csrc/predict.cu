@@ -21,7 +21,7 @@
 // quadratic history mix (which took half the cycles at 15..20 frames on
 // an H100), and a harvest by warp reductions.  Variable dt reads the
 // (B, T-1, P) stream of displacement variances as K1 does (walk.cuh).
-// Past 1024 slots (up to 16384) a thread owns whole fusion groups and the
+// Past 1024 slots (up to 65536) a thread owns whole fusion groups and the
 // carries live in shared memory as the groups' fused Gaussians (walk.cuh's
 // wide mapping), or in the block's global scratch where they pass what a
 // block may opt in to; the stash then holds each member's log2 weight

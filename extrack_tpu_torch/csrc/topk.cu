@@ -66,6 +66,18 @@
 //   * Decode.  A thread's backtrack reads (T-1) parents and states; the
 //     columns are summed with warp shuffles and then a fixed-order pass, so
 //     the same input gives the same bits (no atomics).
+//
+// Variable dt (topk_vdt_kernel, the template flag VDT of the walk): the
+// displacement variances come per track and step from the (B, T-1, P)
+// stream of K1..K5 (P = S^(n+1) = A*S patterns, row t holding step
+// t -> t+1) in place of the constant sig2 block of `tab`, indexed alike
+// (a*S + newest).  The initial rows read the track's row 0 (unused rows
+// take pattern 0, as the constant s20 does); step t's children read row
+// t, the plain version's row min(t, T-2): the walk scores only at
+// t <= L-2 <= T-2.  The stream is read from global memory through L1, as
+// the scoring and the rebuild read the constant block; the constant-dt
+// kernel (topk_kernel) is the same walk at VDT = false, so its code is as
+// it was.
 #include "common.cuh"
 
 namespace extrack {
@@ -212,17 +224,17 @@ static __host__ __device__ inline size_t walk_bytes(int M, int A, int D) {
          (size_t)4 * (2 * D + 4) * M;
 }
 
-template <int D>
-__global__ void __launch_bounds__(1024, 1)
-    topk_kernel(const float* __restrict__ xs, const float* __restrict__ l2s,
-                const int* __restrict__ lengths,
-                const float* __restrict__ isbls,
-                const float* __restrict__ lp0, const float* __restrict__ s20,
-                const int* __restrict__ nw0, const float* __restrict__ tab,
-                int T, int M, int S, int A, int newest_div, int min_len,
-                int raw, int bp_smem, int region, int chunk,
-                float* __restrict__ w_final, short* __restrict__ parents,
-                signed char* __restrict__ states, float* __restrict__ rows) {
+// One track's walk and decode (the kernels below are its two entry
+// points).  sig2s: with VDT, the (B, T-1, A*S) stream of displacement
+// variances (T >= 2), read in place of tab's sig2 block and of s20.
+template <int D, bool VDT>
+static __device__ __forceinline__ void topk_walk(
+    const float* xs, const float* l2s, const int* lengths,
+    const float* isbls, const float* lp0, const float* s20, const int* nw0,
+    const float* tab, const float* sig2s, int T, int M, int S, int A,
+    int newest_div, int min_len, int raw, int bp_smem, int region,
+    int chunk, float* w_final, short* parents, signed char* states,
+    float* rows) {
   extern __shared__ unsigned long long smem_w[];
   __shared__ float red[33];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_w);
@@ -249,6 +261,9 @@ __global__ void __launch_bounds__(1024, 1)
   const float* x = xs + (size_t)b * T * D;
   const float* l2 = l2s + (size_t)b * T * D;
   const float isbl = isbls[b];
+  // VDT: the track's (T-1, P) rows of the stream
+  const int P = A * S;
+  const float* sg = VDT ? sig2s + (size_t)b * (T - 1) * P : nullptr;
   // backpointers: the block's slice of device memory (raw output, or
   // fused scratch), else shared memory after the walk's region
   short* par = bp_smem ? reinterpret_cast<short*>(smem + region)
@@ -267,7 +282,7 @@ __global__ void __launch_bounds__(1024, 1)
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       m[d] = x[d];
-      s2[d] = l2[d] + s20[r];
+      s2[d] = l2[d] + (VDT ? sg[r < P ? r : 0] : s20[r]);
     }
   }
   int live = __syncthreads_count(own && lp > kLiveMin);
@@ -318,6 +333,8 @@ __global__ void __launch_bounds__(1024, 1)
     // `sorted`; else run a of them goes to keys[a*NR ..]
     const int N = A * live;
     const bool full = N > M;
+    // step t's displacement variances (VDT: the track's row t)
+    const float* sgt = VDT ? sg + (size_t)t * P : sig2;
     const int NR = full ? pow2_at_least(live) : pow2_at_least(N);
     float xn[D], l2n[D];
 #pragma unroll
@@ -328,7 +345,7 @@ __global__ void __launch_bounds__(1024, 1)
     for (int i = r; i < N; i += nthr) {
       const int a = i / live, p = i - a * live;
       const int q = (int)f_nw[p];
-      const float sv = sig2[a * S + q];
+      const float sv = sgt[a * S + q];
       float look = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -379,7 +396,7 @@ __global__ void __launch_bounds__(1024, 1)
         a = c / M;
         p = c - a * M;
         const int q = (int)f_nw[p];
-        const float sv = sig2[a * S + q];
+        const float sv = sgt[a * S + q];
 #pragma unroll
         for (int d = 0; d < D; ++d) {
           m[d] = f_nm[d * M + p];
@@ -466,28 +483,78 @@ __global__ void __launch_bounds__(1024, 1)
 }
 
 template <int D>
+__global__ void __launch_bounds__(1024, 1)
+    topk_kernel(const float* __restrict__ xs, const float* __restrict__ l2s,
+                const int* __restrict__ lengths,
+                const float* __restrict__ isbls,
+                const float* __restrict__ lp0, const float* __restrict__ s20,
+                const int* __restrict__ nw0, const float* __restrict__ tab,
+                int T, int M, int S, int A, int newest_div, int min_len,
+                int raw, int bp_smem, int region, int chunk,
+                float* __restrict__ w_final, short* __restrict__ parents,
+                signed char* __restrict__ states, float* __restrict__ rows) {
+  topk_walk<D, false>(xs, l2s, lengths, isbls, lp0, s20, nw0, tab, nullptr,
+                      T, M, S, A, newest_div, min_len, raw, bp_smem, region,
+                      chunk, w_final, parents, states, rows);
+}
+
+// Variable dt: the walk reading the stream `sig2s` (B, T-1, A*S).
+template <int D>
+__global__ void __launch_bounds__(1024, 1)
+    topk_vdt_kernel(const float* __restrict__ xs,
+                    const float* __restrict__ l2s,
+                    const int* __restrict__ lengths,
+                    const float* __restrict__ isbls,
+                    const float* __restrict__ lp0,
+                    const float* __restrict__ s20,
+                    const int* __restrict__ nw0,
+                    const float* __restrict__ tab,
+                    const float* __restrict__ sig2s, int T, int M, int S,
+                    int A, int newest_div, int min_len, int raw, int bp_smem,
+                    int region, int chunk, float* __restrict__ w_final,
+                    short* __restrict__ parents,
+                    signed char* __restrict__ states,
+                    float* __restrict__ rows) {
+  topk_walk<D, true>(xs, l2s, lengths, isbls, lp0, s20, nw0, tab, sig2s, T,
+                     M, S, A, newest_div, min_len, raw, bp_smem, region,
+                     chunk, w_final, parents, states, rows);
+}
+
+template <int D>
 static int launch_topk(const float* xs, const float* l2, const int* lengths,
                        const float* isbl, const float* lp0, const float* s20,
-                       const int* nw0, const float* tab, float* w_final,
-                       short* parents, signed char* states, float* rows,
-                       int B, int T, int M, int S, int A, int newest_div,
-                       int min_len, int raw, int bp_smem, int region,
-                       int chunk, cudaStream_t stream) {
+                       const int* nw0, const float* tab, const float* sig2s,
+                       float* w_final, short* parents, signed char* states,
+                       float* rows, int B, int T, int M, int S, int A,
+                       int newest_div, int min_len, int raw, int bp_smem,
+                       int region, int chunk, cudaStream_t stream) {
   const int threads = (M + 31) / 32 * 32;
   if (M < 1 || threads > 1024 || (size_t)region < walk_bytes(M, A, D) ||
-      (!raw && (chunk < 1 || (size_t)chunk * threads * 4 > (size_t)region)))
+      (!raw && (chunk < 1 || (size_t)chunk * threads * 4 > (size_t)region)) ||
+      (sig2s != nullptr && T < 2))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)region + (bp_smem ? (size_t)3 * (T - 1) * M : 0);
   // the opt-in covers the static shared memory's share of the 48 KB too
-  cudaFuncSetAttribute(topk_kernel<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  if (B > 0)
-    topk_kernel<D><<<B, threads, smem, stream>>>(
-        xs, l2, lengths, isbl, lp0, s20, nw0, tab, T, M, S, A, newest_div,
-        min_len, raw, bp_smem, region, chunk, w_final, parents, states,
-        rows);
+  if (sig2s == nullptr) {
+    cudaFuncSetAttribute(topk_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    if (B > 0)
+      topk_kernel<D><<<B, threads, smem, stream>>>(
+          xs, l2, lengths, isbl, lp0, s20, nw0, tab, T, M, S, A, newest_div,
+          min_len, raw, bp_smem, region, chunk, w_final, parents, states,
+          rows);
+  } else {
+    cudaFuncSetAttribute(topk_vdt_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    if (B > 0)
+      topk_vdt_kernel<D><<<B, threads, smem, stream>>>(
+          xs, l2, lengths, isbl, lp0, s20, nw0, tab, sig2s, T, M, S, A,
+          newest_div, min_len, raw, bp_smem, region, chunk, w_final,
+          parents, states, rows);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -509,7 +576,9 @@ extern "C" int extrack_topk_smem(int device) {
 // Inputs: xs, l2 (B, T, D), lengths (B,), isbl (B,); the register's
 // initial rows lp0, s20 (M,) float and nw0 (2, M) int, their newest then
 // their oldest state; tab = lt (A, S) | lsurv (A,) | end (S,) | sig2
-// (A*S,) (ops/topk_kernel.topk_tables).  Shared memory: `region` bytes for
+// (A*S,) (ops/topk_kernel.topk_tables); sig2s: null for constant dt, else
+// the (B, T-1, A*S) stream of variable dt (T >= 2), read in place of s20
+// and tab's sig2.  Shared memory: `region` bytes for
 // the walk (at least walk_bytes) and the decode's columns (chunk bins of
 // blockDim floats), then, when bp_smem, the backpointers ((T-1)*M int16
 // and int8).
@@ -525,7 +594,8 @@ extern "C" int extrack_topk_smem(int device) {
 extern "C" int extrack_topk(const float* xs, const float* l2,
                             const int* lengths, const float* isbl,
                             const float* lp0, const float* s20,
-                            const int* nw0, const float* tab, float* w_final,
+                            const int* nw0, const float* tab,
+                            const float* sig2s, float* w_final,
                             short* parents, signed char* states, float* rows,
                             int B, int T, int D, int M, int S, int A,
                             int newest_div, int min_len, int raw, int bp_smem,
@@ -534,19 +604,22 @@ extern "C" int extrack_topk(const float* xs, const float* l2,
   switch (D) {
     case 1:
       return extrack::launch_topk<1>(xs, l2, lengths, isbl, lp0, s20, nw0,
-                                     tab, w_final, parents, states, rows, B,
-                                     T, M, S, A, newest_div, min_len, raw,
-                                     bp_smem, region, chunk, st);
+                                     tab, sig2s, w_final, parents, states,
+                                     rows, B, T, M, S, A, newest_div,
+                                     min_len, raw, bp_smem, region, chunk,
+                                     st);
     case 2:
       return extrack::launch_topk<2>(xs, l2, lengths, isbl, lp0, s20, nw0,
-                                     tab, w_final, parents, states, rows, B,
-                                     T, M, S, A, newest_div, min_len, raw,
-                                     bp_smem, region, chunk, st);
+                                     tab, sig2s, w_final, parents, states,
+                                     rows, B, T, M, S, A, newest_div,
+                                     min_len, raw, bp_smem, region, chunk,
+                                     st);
     case 3:
       return extrack::launch_topk<3>(xs, l2, lengths, isbl, lp0, s20, nw0,
-                                     tab, w_final, parents, states, rows, B,
-                                     T, M, S, A, newest_div, min_len, raw,
-                                     bp_smem, region, chunk, st);
+                                     tab, sig2s, w_final, parents, states,
+                                     rows, B, T, M, S, A, newest_div,
+                                     min_len, raw, bp_smem, region, chunk,
+                                     st);
     default:
       return (int)cudaErrorInvalidValue;
   }

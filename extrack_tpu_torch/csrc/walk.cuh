@@ -12,7 +12,7 @@
 // * block mapping, 64 < K <= 1024, K4 only (walk_block_kernel): one
 //   persistent block walks one track at a time, thread k owning slot k,
 //   with one barrier per fusion step.
-// * wide mapping, 1024 < K <= 16384, and K1 from 65 slots on (it ran
+// * wide mapping, 1024 < K <= 65536, and K1 from 65 slots on (it ran
 //   1.14-1.75x faster than the block mapping at every K1 register of
 //   81..1024 slots measured) (walk_wide_kernel, below): one persistent
 //   block a track, a thread owning whole fusion groups; the carries live
@@ -648,7 +648,7 @@ __global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
         wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
 }
 
-// ---- the wide mapping: 1024 < K <= 16384 slots ------------------------
+// ---- the wide mapping: 1024 < K <= 65536 slots ------------------------
 //
 // One slot a thread stops at 1024 slots, and the per-slot (K,) and (K, A)
 // tables in registers stop well before: at K = 4096 and D = 3 a track's
@@ -680,8 +680,17 @@ __global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
 // groups' global writes visible to the block, as it does the shared ones;
 // the reads go through L1.  K1 stays at 4096 slots (the wrapper's
 // envelope): it has no such instantiation.
+//
+// The same kernels run K4 up to 65536 slots (the GUI's labeling window at
+// 3 states, 3^10 = 59049; 7^5 = 16807 still fits shared memory): a thread
+// owns G / 1024 groups or more (20 at 59049 slots, 32 at 2^16), every
+// offset into the stash is 64-bit, and a block's scratch (its carries,
+// 1.0 MB at 59049 slots and D = 2, and (T-W) stash rows of 236 KB) bounds
+// the persistent grid by the card's free memory (the wrapper's
+// forward_kernel.grid).  Nothing in the walk depends on K past 16384: the
+// limit is the wrapper's and this constant's.
 static constexpr int kWideThreads = 1024;   // the block's largest size
-constexpr int kWideMaxK = 16384;            // the envelope of the mapping
+constexpr int kWideMaxK = 65536;            // the envelope of the mapping
 
 // One team's bytes of the wide mapping: two publish areas of (2D+1)*G
 // floats, the closings' warp partials (2*32 each), K4's harvest partials

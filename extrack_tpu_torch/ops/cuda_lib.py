@@ -42,7 +42,7 @@ _SIGNATURES = {
     "extrack_predict_layout": [_I] * 7 + [_P],
     "extrack_hist": [_P] * 15 + [_I] * 11 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 7 + [_P],
-    "extrack_topk": [_P] * 12 + [_I] * 12 + [_P],
+    "extrack_topk": [_P] * 13 + [_I] * 12 + [_P],
     "extrack_hist_layout": [_I] * 6 + [_P],
     "extrack_refine_layout": [_I] * 5 + [_P],
     "extrack_grad_layout": [_I] * 6 + [_P],
@@ -187,6 +187,16 @@ def smem_bytes(query: str, device_index: int) -> int:
     if rc < 0:
         check(-rc, f"{query} (shared memory query)")
     return rc
+
+
+def scratch_budget(dev) -> int:
+    """Bytes of global scratch one launch may take on ``dev``:
+    SCRATCH_BUDGET, or half of what the card has left where that is less
+    (free device memory and the allocator's cached, unused blocks)."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = (torch.cuda.memory_reserved(dev)
+              - torch.cuda.memory_allocated(dev))
+    return min(SCRATCH_BUDGET, (free + cached) // 2)
 
 
 def scratch_blocks(B: int, sms: int, threads: int, carry_bytes: int):

@@ -7,7 +7,8 @@ the transition table, and lays the track data out as (B, T, D) float32.
 With variable dt (per-track or per-step intervals) it also streams the
 displacement-variance table, (B, T-1, P) float32 (``sig2_stream``), which
 K1, K2, K3, K4 and K5 read in place of the s20, sig2v and s2n tables
-(``stream_index`` says which entry each slot reads).
+(``stream_index`` says which entry each slot reads), and K7 in place of
+its own (``topk_kernel.kernel_inputs``).
 
 ``forward`` is the entry point: CUDA tensors launch the kernel (or raise,
 outside its envelope); CPU tensors run ``forward_plain``, which is
@@ -17,8 +18,8 @@ hist.cu, refine.cu; K2 and K3: grad.cuh, ``grad_kernel.plan``): one warp
 per track up to 64 slots, a block per track with a thread a slot up to
 1024 (K2, K3, K4, K5, K6) and a thread a fusion group past that (the wide
 mapping: K1 above 64 slots, the others above 1024; up to 4096 slots for
-K1, K2, K3 and K6, 16384 for K4 and K5, whose carries go to global
-scratch where they pass a block's shared memory); ``plan`` and
+K1, K2, K3 and K6, 16384 for K5 and 65536 for K4, whose carries go to
+global scratch where they pass a block's shared memory); ``plan`` and
 ``grid`` lay a K1 or K4 launch out as persistent blocks.  ``MAX_SLOTS`` is
 each kernel's envelope.  ``LAUNCHES`` counts kernel
 launches, ``PLAIN_CALLS`` calls of the plain version.
@@ -41,14 +42,16 @@ PLAIN_CALLS = 0
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 BLOCK_MAX_K = 1024        # the block mapping: one thread per register slot
 WIDE_MAX_K = 4096         # the wide mapping: one thread per fusion group
-SCRATCH_MAX_K = 16384     # K4's and K5's wide mapping, its carries in
-                          # global scratch where shared memory cannot hold
-                          # them
+SCRATCH_MAX_K = 16384     # K5's wide mapping, its carries in global
+                          # scratch where shared memory cannot hold them
+PREDICT_MAX_K = 65536     # K4's: the GUI's labeling window at 3 states
+                          # (3^10 = 59049) and predict_Bs at 7 states
+                          # (7^5) and 6 states (6^6) need more than 16384
 # each kernel's largest register: every kernel maps past 1024 slots
 # (csrc/walk.cuh, grad.cuh, hist.cu, refine.cu); K1, K2, K3 and K6 stop at
 # 4096, K4 and K5 go on with their carries in global scratch
 MAX_SLOTS = {"K1": WIDE_MAX_K, "K2": WIDE_MAX_K, "K3": WIDE_MAX_K,
-             "K4": SCRATCH_MAX_K, "K5": SCRATCH_MAX_K, "K6": WIDE_MAX_K}
+             "K4": PREDICT_MAX_K, "K5": SCRATCH_MAX_K, "K6": WIDE_MAX_K}
 # the mappings of K1, K4, K5 and K6, narrowest first.  K1 skips the block
 # mapping: the wide one ran it 1.14-1.75x faster at every register of
 # 81..1024 slots measured; K4, K5 and K6 keep a thread a slot up to 1024
@@ -135,17 +138,27 @@ def plan(kernel: str, K: int, fixed: int, stash_bytes: int, smem_limit: int,
     return Plan(sizes[0], False)
 
 
-def grid(B: int, pl: Plan, sms: int, occupancy: int, stash_bytes: int = 0):
+def grid(B: int, pl: Plan, sms: int, occupancy: int, stash_bytes: int = 0,
+         budget: int | None = None):
     """(blocks, bytes of global stash scratch) of a persistent launch on
     ``sms`` SMs: as many blocks as the card keeps resident (``occupancy``
-    an SM), no more than the tracks need, and no more than
-    cuda_lib.SCRATCH_BUDGET of stash (``stash_bytes`` a team) in global
-    scratch."""
+    an SM), no more than the tracks need, and no more than ``budget``
+    bytes (None: cuda_lib.SCRATCH_BUDGET; the wrappers pass
+    ``cuda_lib.scratch_budget``, which the card's free memory bounds too)
+    of stash (``stash_bytes`` a team) in global scratch.  Raises
+    RuntimeError where one team's stash alone passes the budget."""
     team = max(1, pl.warps)
     nblk = max(1, min(-(-B // team), sms * max(1, occupancy)))
     if pl.stash_smem or stash_bytes == 0:
         return nblk, 0
-    nblk = max(1, min(nblk, cuda_lib.SCRATCH_BUDGET // (team * stash_bytes)))
+    budget = cuda_lib.SCRATCH_BUDGET if budget is None else budget
+    if team * stash_bytes > budget:
+        raise RuntimeError(
+            f"one team's global scratch ({team * stash_bytes} bytes: the "
+            f"carries and stash of its tracks' longest length) passes the "
+            f"{budget} bytes the card can give it; split the longest "
+            "tracks' bucket or free device memory")
+    nblk = max(1, min(nblk, budget // (team * stash_bytes)))
     return nblk, nblk * team * stash_bytes
 
 
@@ -279,7 +292,7 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
     that fits), in another dtype than float32 or D outside 1..3.  Variable
     dt is in the envelope of the kernels in STREAMED only (K6 reads no dt
     table; K7 checks its own envelope, ``topk_kernel.check_envelope``,
-    where variable dt raises)."""
+    and reads the stream too)."""
     K = S ** window
     reasons = []
     if dtype != torch.float32:
@@ -293,7 +306,7 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                    default=0)
         how = ("a thread per fusion group past 1024 slots"
                + (", the carries in global scratch past shared memory"
-                  if limit == SCRATCH_MAX_K else ""))
+                  if limit > WIDE_MAX_K else ""))
         reasons.append(f"K=S**window={K} > {limit} register slots "
                        f"({kernel} maps at most {limit}, {how}; the "
                        f"largest window that fits is {fits})")

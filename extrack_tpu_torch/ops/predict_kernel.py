@@ -7,10 +7,12 @@ per frame:
 
 * CUDA tensors (float32): one K4 launch on ``forward_kernel.kernel_inputs``
   (the K1 tables, and with variable dt the streamed displacement
-  variances), mapped as K1 (``forward_kernel.plan``: up to 16384 slots,
+  variances), mapped as K1 (``forward_kernel.plan``: up to 65536 slots,
   past what a block's shared memory holds with the wide mapping's carries
   in global scratch), with its stash of fusion weights in shared memory or
-  global scratch.  Outside the envelope it raises.
+  global scratch; the persistent grid takes no more scratch than the
+  card's free memory allows (``cuda_lib.scratch_budget``).  Outside the
+  envelope it raises.
 * CPU tensors: ``predict_plain``, which is ``core.engine.forward(...,
   return_preds=True)`` on the same inputs.
 
@@ -62,9 +64,11 @@ def setup(B: int, T: int, D: int, K: int, S: int, W: int, dev,
         mapping, stash)
     if pl.warps == forward_kernel.WIDE_GLOBAL:
         _, stash_bytes = layout(T, D, K, S, W, pl.warps, P)
+    budget = (cuda_lib.scratch_budget(dev)
+              if stash_bytes and not pl.stash_smem else None)
     nblk, scratch = forward_kernel.grid(B, pl, forward_kernel._sms(dev.index),
                                         occ(pl.warps, pl.stash_smem),
-                                        stash_bytes)
+                                        stash_bytes, budget)
     return pl, nblk, scratch
 
 

@@ -5,7 +5,9 @@ segment_topk_pallas).  ``segment_topk`` returns the (T, S)
 posterior-expected segment-length histogram of the top-K engine, summed
 over a batch's tracks:
 
-* CUDA tensors (float32, constant dt): one K7 launch (``launch_fused``)
+* CUDA tensors (float32; constant dt, or with variable dt the streamed
+  (B, T-1, P) displacement variances of K1..K5,
+  ``forward_kernel.sig2_stream``): one K7 launch (``launch_fused``)
   walks each track's register of M sequences, backtracks its final
   sequences from backpointers it keeps in shared memory and writes the
   track's (T*S) histogram row; one float64 sum over the rows follows, in
@@ -80,7 +82,9 @@ def check_envelope(T: int, D: int, S: int, M: int, nb_substeps: int = 1,
     """Raise NotImplementedError when K7 cannot run this configuration.
     ``smem_limit`` is the dynamic shared memory one block may opt in to
     (``cuda_lib.smem_bytes("extrack_topk_smem", device)``); None skips
-    that check.  The message names the largest M that fits."""
+    that check.  The message names the largest M that fits.  Variable dt
+    (``variable_dt``, per step or per track) is in the envelope: K7 reads
+    the stream (``kernel_inputs``)."""
     A = S ** nb_substeps
     P = S * A
     reasons = []
@@ -89,11 +93,6 @@ def check_envelope(T: int, D: int, S: int, M: int, nb_substeps: int = 1,
                        "float32 tensors)")
     if D not in (1, 2, 3):
         reasons.append(f"D={D} (K7 takes 1..3 dimensions)")
-    if variable_dt:
-        reasons.append("per-step / per-track dt (K7 takes constant dt "
-                       "only, as the TPU kernel does: it does not read the "
-                       "streamed displacement-variance table; device='cpu' "
-                       "runs the plain version, which takes variable dt)")
     if M < P:
         reasons.append(f"max_nb_states={M} < nb_states^(nb_substeps+1)"
                        f"={P}")
@@ -143,13 +142,22 @@ def topk_tables(tb: ModelTables, M: int, n: int):
 def kernel_inputs(positions, lengths, is_bleached, tables: ModelTables,
                   M: int, nb_substeps: int):
     """K7's arguments: the track data (xs, l2 (B, T, D) float32, lengths
-    (B,) int32, isBL (B,) float32), contiguous, and ``topk_tables``."""
+    (B,) int32, isBL (B,) float32, and with variable dt at T >= 2
+    (``forward_kernel.classify_sig2``) the (B, T-1, P) stream,
+    ``forward_kernel.sig2_stream``), contiguous, and ``topk_tables``.
+    The stream is per track, so it travels with the data: a slice of the
+    tracks slices it too.  Under it K7 reads each track's row 0 in place
+    of ``s20`` (pattern r for row r < P, else pattern 0) and step t's row
+    in place of ``tab``'s sig2 block: the rows ``histograms.
+    segment_backpointers`` reads."""
     B, T, D = positions.shape
     f32 = torch.float32
     data = (positions.to(f32).contiguous(),
             tables.loc_err2.to(f32).expand(B, T, D).contiguous(),
             lengths.to(torch.int32).contiguous(),
             is_bleached.to(f32).contiguous())
+    if T >= 2 and forward_kernel.classify_sig2(tables.sig2, T):
+        data += (forward_kernel.sig2_stream(tables.sig2, B, T),)
     return data, topk_tables(tables, M, nb_substeps)
 
 
@@ -166,7 +174,8 @@ def _launch(data, tabs, S: int, nb_substeps: int, min_len: int, w_final,
             bp, rows, region: int, chunk: int, bp_smem: bool):
     """One K7 launch on the current stream, raw (``rows`` None: w_final
     and the backpointers ``bp`` out) or fused (``rows`` out, ``bp`` the
-    backpointers' global scratch unless ``bp_smem``)."""
+    backpointers' global scratch unless ``bp_smem``); a fifth entry of
+    ``data`` is the stream of variable dt."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape
@@ -175,10 +184,16 @@ def _launch(data, tabs, S: int, nb_substeps: int, min_len: int, w_final,
     dev = xs.device
     f32, i32 = torch.float32, torch.int32
     steps = (B, max(T - 1, 0), M)
-    want = list(zip((*data, *tabs),
+    stream = data[4] if len(data) > 4 else None
+    want = list(zip((*data[:4], *tabs),
                     [(B, T, D), (B, T, D), (B,), (B,), (M,), (M,), (2, M),
                      (2 * A * S + A + S,)],
                     [f32, f32, i32, f32, f32, f32, i32, f32]))
+    if stream is not None:
+        if T < 2:
+            raise ValueError(f"a stream of displacement variances needs "
+                             f"T >= 2, got T={T}")
+        want.append((stream, (B, T - 1, A * S), f32))
     if rows is None:
         want.append((w_final, (B, M), f32))
     else:
@@ -190,7 +205,8 @@ def _launch(data, tabs, S: int, nb_substeps: int, min_len: int, w_final,
     def ptr(t):
         return None if t is None else t.data_ptr()
     rc = cuda_lib.library().extrack_topk(
-        *(t.data_ptr() for t in (*data, *tabs)), ptr(w_final),
+        *(t.data_ptr() for t in (*data[:4], *tabs)), ptr(stream),
+        ptr(w_final),
         *((None, None) if bp is None else map(ptr, bp)), ptr(rows),
         B, T, D, M, S, A, S ** (nb_substeps - 1), int(min_len),
         int(rows is None), int(bp_smem), region, chunk,
@@ -277,8 +293,8 @@ def segment_topk(positions, lengths, is_bleached, tables: ModelTables, *,
                  nb_substeps: int = 1):
     """(T, S) segment-length histogram of the top-K engine, summed over the
     tracks.  CUDA inputs run K7 with its decode fused in (float32, constant
-    dt; anything outside its envelope raises) and one float64 sum of the
-    tracks' rows; CPU inputs run the plain version."""
+    or variable dt; anything outside its envelope raises) and one float64
+    sum of the tracks' rows; CPU inputs run the plain version."""
     if positions.device.type == "cpu":
         return segment_topk_plain(positions, lengths, is_bleached, tables,
                                   max_nb_states=max_nb_states,

@@ -9,7 +9,9 @@ for value-only evaluations; ``predict.predict_batch`` on K4;
 ``histograms.hist_batch`` on K5; ``refine.refine_batch`` on K6); each
 stage's results come back to the host once per bucket.  The JAX package's
 ``canonical_shapes`` padding has no counterpart: eager PyTorch compiles no
-program per shape.
+program per shape.  Only its trace in the results is kept: the histogram
+has the JAX package's row count, the canonical length of the longest
+track (``_hist_rows``), its rows past that track zero.
 """
 from __future__ import annotations
 
@@ -40,6 +42,15 @@ class PipelineResult:
     # wall seconds of each stage that ran (read, batch, fit, predict,
     # hist, refine, export), each ending with its results on the host
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _hist_rows(t: int) -> int:
+    """The row count of the JAX package's ``analyze`` histogram for a
+    longest track of ``t`` frames: its buckets are padded to the canonical
+    length (extrack_tpu/data.py ``canonical_len``), multiples of 4 up to 32
+    and of 8 beyond, at least 4."""
+    step = 4 if t <= 32 else 8
+    return max(4, -(-t // step) * step)
 
 
 def analyze(tracks_or_path,
@@ -153,6 +164,9 @@ def analyze(tracks_or_path,
                 if h.shape[0] > hist.shape[0]:
                     hist, h = np.array(h, dtype=np.float64), hist
                 hist[:h.shape[0]] += h
+        rows = _hist_rows(max(b.max_len for b in batches))
+        hist = np.concatenate([hist, np.zeros((rows - hist.shape[0],
+                                               hist.shape[1]))])
         lap("hist")
 
     mus = sigmas = None

@@ -17,10 +17,13 @@ streamed displacement-variance table of K1..K5) and K5 past one sub-step
 are held to the same tolerances (K5 there against the plain version in
 float64 on the same inputs), and so are K1, K4, K5 and K6 on their wide
 mapping (a thread a fusion group), past 1024 slots up to 4096 and forced
-onto the small registers of the other tests, and K4 and K5 past 4096 up
-to 16384 slots (the JAX package's defaults of ``predict_Bs`` at 6 states
+onto the small registers of the other tests, K4 and K5 past 4096 up to
+16384 slots (the JAX package's defaults of ``predict_Bs`` at 6 states
 and ``len_hist`` at 4 states or two sub-steps among them), with their
-carries in shared memory or, where that cannot hold them, global scratch.
+carries in shared memory or, where that cannot hold them, global scratch,
+and K4 past 16384 up to 65536 (``predict_Bs`` at 7 states, the GUI's
+labeling window at 3 states).  K7 reads the streamed table of variable
+dt too, held to the same tolerances as with a constant dt.
 The HMC sampler runs its gradients on K2 alone (its launches by the
 formula in ``sample``'s docstring) and draws the same samples for any
 ``dispatch_chunk``; the device simulators run on the card by default.
@@ -281,8 +284,8 @@ def test_cuda_hessian_columns_per_track_dt_match_plain(cuda, S, W, n):
 
 @pytest.mark.cuda
 def test_cuda_histograms_with_variable_dt_raise_naming_the_kernel(cuda):
-    # K5 reads the streamed table; K7 takes constant dt only: the card
-    # raises there, naming the kernel
+    # K5 and K7 read the streamed table: each matches its plain version,
+    # and len_hist with a dt dict matches the CPU's on both engines
     pos, lens, isbl, tb = _case(cuda, 2, 1, 40, 8, 2, dt="track")
     before = hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS
     got = hist_kernel.hist(pos, lens, isbl, tb, window=5, min_len=2)
@@ -291,9 +294,15 @@ def test_cuda_histograms_with_variable_dt_raise_naming_the_kernel(cuda):
     torch.testing.assert_close(
         got, hist_kernel.hist_plain(pos, lens, isbl, tb, window=5,
                                     min_len=2), rtol=2e-3, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="K7"):
-        topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=64,
-                                 min_len=2)
+    before = topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS
+    got = topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=64,
+                                   min_len=2)
+    assert (topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    want = topk_kernel.segment_topk_plain(pos, lens, isbl, tb,
+                                          max_nb_states=64, min_len=2)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
     rng = np.random.default_rng(3)
     tracks = {"6": rng.normal(0, 0.05, (20, 6, 2)).cumsum(1)}
     values = {"LocErr": 0.02, "D0": 0.0, "D1": 0.08, "F0": 0.5, "F1": 0.5,
@@ -303,9 +312,14 @@ def test_cuda_histograms_with_variable_dt_raise_naming_the_kernel(cuda):
     h0 = histograms.len_hist(tracks, values, dts, nb_states=2, window=5,
                              device="cpu")
     np.testing.assert_allclose(h, h0, rtol=2e-3, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="K7"):
-        histograms.len_hist(tracks, values, dts, nb_states=2,
-                            engine="topk")
+    dts = {"6": rng.uniform(0.01, 0.05, (20, 5))}
+    before = topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS
+    h = histograms.len_hist(tracks, values, dts, nb_states=2, engine="topk")
+    assert (topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    h0 = histograms.len_hist(tracks, values, dts, nb_states=2, engine="topk",
+                             device="cpu")
+    np.testing.assert_allclose(h, h0, rtol=2e-3, atol=2e-4)
 
 
 # K5 with variable dt and past one sub-step: (S, W, n, B, T, D, dt);
@@ -500,7 +514,10 @@ def test_predict_layout(cuda):
             4 * max(T - W, 0) * (K | 1))
     # past shared memory (-2): only the partials stay there; the publish
     # areas, the softmax and the stash go to the block's global scratch
-    for S, W, T, D in ((4, 7, 10, 3), (2, 14, 17, 1), (6, 5, 4, 2)):
+    # (K4 past 16384 slots: the GUI's labeling window at 3 states, 2^16
+    # and 6^6)
+    for S, W, T, D in ((4, 7, 10, 3), (2, 14, 17, 1), (6, 5, 4, 2),
+                       (3, 10, 40, 2), (2, 16, 20, 3), (6, 6, 9, 1)):
         K, G = S ** W, S ** (W - 1)
         assert lib.extrack_predict_layout(T, D, K, S, W, -2, 0,
                                           ctypes.addressof(out)) == 0
@@ -508,7 +525,7 @@ def test_predict_layout(cuda):
             1024, 4 * (128 + W * S * 32),
             4 * (2 * (2 * D + 1) * G + K + max(T - W, 0) * (K | 1)))
     for warps in (-1, -2):
-        assert lib.extrack_predict_layout(10, 2, 3 ** 9, 3, 9, warps, 0,
+        assert lib.extrack_predict_layout(10, 2, 3 ** 11, 3, 11, warps, 0,
                                           ctypes.addressof(out)) != 0
     assert lib.extrack_predict_layout(10, 2, 2 ** 11, 2, 11, 0, 0,
                                       ctypes.addressof(out)) != 0
@@ -725,9 +742,23 @@ def test_cuda_topk_matches_plain(cuda, S, n, M, B, T, D):
     with pytest.raises(NotImplementedError, match="largest max_nb_states"):
         topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=2048,
                                  nb_substeps=n)
+    # a per-track table: K7 on the stream, the plain version's histogram
+    # (and, unpruned, its backpointers)
     per_track = tb._replace(sig2=tb.sig2.expand(B, T - 1, -1))
-    with pytest.raises(NotImplementedError, match="dt"):
-        topk_kernel.segment_topk(pos, lens, isbl, per_track, **kw)
+    before = topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS
+    got = topk_kernel.segment_topk(pos, lens, isbl, per_track, **kw)
+    assert (topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    want = topk_kernel.segment_topk_plain(pos, lens, isbl, per_track, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    if S ** T <= M:
+        par, st, wf = topk_kernel.backpointers(pos, lens, isbl, per_track,
+                                               **kw)
+        par0, st0, wf0 = histograms.segment_backpointers(
+            pos, lens, isbl, per_track, **kw)
+        assert torch.equal(par.long(), par0) and torch.equal(st, st0)
+        torch.testing.assert_close(wf, wf0, rtol=1e-4, atol=1e-5)
     # K5 reads the per-track table (one and two sub-steps a frame)
     kw5 = dict(window=3, min_len=3, nb_substeps=n)
     torch.testing.assert_close(
@@ -844,7 +875,7 @@ def test_cuda_topk_pad_prefix_backpointers_match_plain(cuda, S, n, M, B, T,
 
 def _past_envelope(S, kernel):
     """The smallest window whose register passes ``kernel``'s envelope
-    (K1 and K6: 4096 slots; K4 and K5: 16384) at S states."""
+    (K1 and K6: 4096 slots; K5: 16384; K4: 65536) at S states."""
     limit = forward_kernel.MAX_SLOTS[kernel]
     return next(w for w in range(1, 20) if S ** w > limit)
 
@@ -896,7 +927,7 @@ def test_cuda_wide_k1_k4_match_plain(cuda, S, W, D, dt):
     with pytest.raises(NotImplementedError, match="K1 maps at most 4096"):
         forward_kernel.forward(*args, window=_past_envelope(S, "K1"),
                                min_len=2)
-    with pytest.raises(NotImplementedError, match="K4 maps at most 16384"):
+    with pytest.raises(NotImplementedError, match="K4 maps at most 65536"):
         predict_kernel.predict(*args, window=_past_envelope(S, "K4"),
                                min_len=2)
 
@@ -1076,6 +1107,36 @@ def test_cuda_k5_past_4096_slots_matches_plain(cuda, S, W, n, D, dt):
     np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
 
 
+# ---- K4 past 16384 slots, up to 65536 ----------------------------------
+
+# (S, W, D, dt): K = 16807 (predict_Bs at 7 states, its carries in shared
+# memory), 46656 (6 states at frame_len 6), 59049 (the GUI's labeling
+# window at 3 states) and 65536 (2 states at 16), in global scratch
+PAST_16384_K4_CASES = [
+    (7, 5, 2, None), (7, 5, 3, "track"), (6, 6, 1, "step"),
+    (3, 10, 2, None), (3, 10, 3, "track"), (2, 16, 2, "step")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D,dt", PAST_16384_K4_CASES)
+def test_cuda_k4_past_16384_slots_matches_plain(cuda, S, W, D, dt):
+    # tracks longer than the window, so that frames leave it, and K4 alone
+    # through predict (no plain call), bit-repeatable
+    T = W + 3
+    args = _case(cuda, S, 1, 8, T, D, seed=S + W + D, per_peak=(D == 2),
+                 dt=dt)
+    kw = dict(window=W, min_len=2)
+    logl0, preds0 = predict_kernel.predict_plain(*args, **kw)
+    before = predict_kernel.LAUNCHES, predict_kernel.PLAIN_CALLS
+    logl, preds = predict_kernel.predict(*args, **kw)
+    again = predict_kernel.predict(*args, **kw)
+    assert (predict_kernel.LAUNCHES, predict_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    assert torch.equal(logl, again[0]) and torch.equal(preds, again[1])
+    torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(2, 11, 1, 2, None), (3, 7, 2, 3, "step"),
                                   (16, 3, 2, 2, None)])
@@ -1206,7 +1267,12 @@ def test_cuda_analyze_runs_the_kernels_alone(cuda, small_csv, tmp_path):
                                    atol=2e-5)
     hist = histograms.len_hist(res.tracks, values, 0.02, cell_dims=(0.5,),
                                window=7)
-    np.testing.assert_allclose(res.hist, hist, rtol=2e-3, atol=2e-4)
+    # analyze's histogram has the JAX package's rows: zeros past the
+    # longest track, up to its canonical length
+    T = hist.shape[0]
+    assert res.hist.shape == (pipeline._hist_rows(T), 2)
+    np.testing.assert_allclose(res.hist[:T], hist, rtol=2e-3, atol=2e-4)
+    assert not res.hist[T:].any()
     assert sum(1 for _ in open(tmp_path / "out.csv")) - 1 == sum(
         int(k) * len(v) for k, v in res.tracks.items())
 

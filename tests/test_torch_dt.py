@@ -218,15 +218,19 @@ def test_check_envelope_streams_variable_dt_through_k1_to_k4(kernel):
 
 
 def test_check_envelope_names_k5_and_k7_for_variable_dt():
-    # K5 reads the stream (one and two sub-steps a frame); K7 raises for
-    # variable dt, naming itself and the CPU's plain version
+    # K5 reads the stream (one and two sub-steps a frame); so does K7, at
+    # len_hist's register (M = 512) and at two sub-steps a frame
     forward_kernel.check_envelope(10, 2, 2, 7, 1, variable_dt=True,
                                   what="histogram batch", kernel="K5")
     forward_kernel.check_envelope(10, 2, 2, 7, 2, variable_dt=True,
                                   what="histogram batch", kernel="K5")
     forward_kernel.check_envelope(10, 2, 2, 7, 1, kernel="K5")
-    with pytest.raises(NotImplementedError, match=r"dt \(K7 .*device='cpu'"):
-        topk_kernel.check_envelope(10, 2, 2, 512, variable_dt=True)
+    topk_kernel.check_envelope(10, 2, 2, 512, variable_dt=True)
+    topk_kernel.check_envelope(10, 2, 2, 128, 2, variable_dt=True)
+    # what still raises under variable dt names K7 and its reason
+    with pytest.raises(NotImplementedError, match=r"K7 computes in float32"):
+        topk_kernel.check_envelope(10, 2, 2, 512, variable_dt=True,
+                                   dtype=torch.float64)
     # K5 maps past 1024 slots (3^7 = 2187, len_hist's default window at
     # 3 states; 3^8 = 6561, 4^7 = 16384 at 4 states) with variable dt;
     # past 16384 it raises, naming itself

@@ -130,12 +130,13 @@ def test_classify_sig2_and_envelope():
     with pytest.raises(NotImplementedError,
                        match="K=S.*4096.*K2.*window that fits is 12"):
         forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K2")
-    # K4 maps up to 16384 slots (its carries in global scratch past a
+    # K4 maps up to 65536 slots (its carries in global scratch past a
     # block's shared memory)
     forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K4")  # 8192
+    forward_kernel.check_envelope(20, 2, 2, 16, 1, kernel="K4")  # 65536
     with pytest.raises(NotImplementedError,
-                       match="K=S.*16384.*K4.*window that fits is 14"):
-        forward_kernel.check_envelope(20, 2, 2, 15, 1, kernel="K4")
+                       match="K=S.*65536.*K4.*window that fits is 16"):
+        forward_kernel.check_envelope(20, 2, 2, 17, 1, kernel="K4")
     with pytest.raises(NotImplementedError, match="float64"):
         forward_kernel.check_envelope(20, 2, 2, 6, 1, dtype=torch.float64)
     tb = ttables.build_tables(

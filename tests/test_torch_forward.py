@@ -334,6 +334,9 @@ WIDE_REGISTERS = [(S, W) for S in range(2, 65) for W in range(2, 13)
                   if 1024 < S ** W <= 4096]
 PAST_4096_REGISTERS = [(S, W) for S in range(2, 129) for W in range(2, 15)
                        if 4096 < S ** W <= 16384]
+# and K4's past that, in (16384, 65536]
+PAST_16384_REGISTERS = [(S, W) for S in range(2, 257) for W in range(2, 17)
+                        if 16384 < S ** W <= 65536]
 
 
 def _wide_threads(G):
@@ -379,8 +382,8 @@ def _wide_refine_bytes(K, S, D, T):
 def test_mapping_choice_and_per_kernel_limits():
     # K1: a warp up to 64 slots, a thread a fusion group above, up to 4096;
     # K4: a warp up to 64, a thread a slot up to 1024, a thread a fusion
-    # group up to 16384; K5 and K6 (a block a track) go wide past 1024, K5
-    # up to 16384, K6 up to 4096; K2 and K3 stop at 1024
+    # group up to 65536; K5 and K6 (a block a track) go wide past 1024, K5
+    # up to 16384, K6 up to 4096; K2 and K3 (grad_kernel.plan) to 4096
     W = forward_kernel.WIDE
     Ks = (64, 65, 1024, 1025, 4096)
     assert [forward_kernel.mapping_warps("K1", K) for K in Ks] == [
@@ -405,8 +408,14 @@ def test_mapping_choice_and_per_kernel_limits():
         forward_kernel.plan("K4", 2048, 0, 0, 0, None, mapping="block")
     for k in ("K4", "K5"):
         assert forward_kernel.mapping_warps(k, 16384) == W
-        with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
-            forward_kernel.mapping_warps(k, 16807, "wide")
+    # K4 goes on to 65536 (7^5, 6^6, 3^10, 2^16); K5 stops at 16384
+    for K in (16807, 46656, 59049, 65536):
+        assert forward_kernel.mapping_warps("K4", K) == W
+        assert forward_kernel.mapping_warps("K4", K, "wide") == W
+    with pytest.raises(ValueError, match="wide mapping takes K <= 65536"):
+        forward_kernel.mapping_warps("K4", 65537, "wide")
+    with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
+        forward_kernel.mapping_warps("K5", 16807, "wide")
     for k in ("K1", "K6"):
         with pytest.raises(ValueError, match="wide mapping takes K <= 4096"):
             forward_kernel.mapping_warps(k, 7776)
@@ -424,7 +433,7 @@ def test_mapping_choice_and_per_kernel_limits():
     finally:
         forward_kernel.WARP_MAX_K = saved
     assert forward_kernel.MAX_SLOTS == {"K1": 4096, "K2": 4096, "K3": 4096,
-                                        "K4": 16384, "K5": 16384,
+                                        "K4": 65536, "K5": 16384,
                                         "K6": 4096}
 
 
@@ -435,16 +444,21 @@ def test_check_envelope_names_each_kernels_limit(kernel):
     if limit >= 4096:
         forward_kernel.check_envelope(10, 2, 2, 12, 1, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 3, 7, 1, kernel=kernel)
-    if limit == 16384:
+    if limit >= 16384:
         # the JAX package's defaults: predict_Bs at 6 states (6^5),
         # len_hist at two sub-steps (2^13) and at 4 states (4^7)
         forward_kernel.check_envelope(10, 2, 6, 5, 1, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 2, 13, 2, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 4, 7, 1, kernel=kernel)
+    if limit == 65536:
+        # K4: predict_Bs at 7 states (7^5) and 6 states at frame_len 6
+        # (6^6), the GUI's labeling window at 3 states (3^10)
+        for S, W in ((7, 5), (6, 6), (3, 10), (4, 8), (2, 16)):
+            forward_kernel.check_envelope(10, 2, S, W, 1, kernel=kernel)
     # past the limit: the bucket, the kernel, its limit and the largest
     # window that fits (3 states: 6 for 1024 slots, 7 for 4096, 8 for
-    # 16384)
-    fits = {1024: 6, 4096: 7, 16384: 8}[limit]
+    # 16384, 10 for 65536)
+    fits = {1024: 6, 4096: 7, 16384: 8, 65536: 10}[limit]
     K = 3 ** (fits + 1)
     with pytest.raises(NotImplementedError,
                        match=(rf"bucket 2 .*K=S\*\*window={K} > {limit} "
@@ -527,6 +541,55 @@ def test_k4_past_4096_slots_plans_fit_every_register(D):
     fixed, _, _ = _wide_walk_bytes(6 ** 5, 6, 6, D, 20, 5, True)
     assert fixed <= SMEM
     assert _wide_walk_bytes(2 ** 14, 2, 2, D, 20, 14, True)[0] > SMEM
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_k4_past_16384_slots_plans_fit_every_register(D):
+    # K4 at every register of (16384, 65536]: where the wide team fits a
+    # block's shared memory it stays there (its stash in global scratch),
+    # else WIDE_GLOBAL; a team's scratch grows with the bucket's length,
+    # and the grid takes no more blocks than the budget holds
+    def occ(warps, smem):
+        return 1
+    shared = set()
+    for S, W in PAST_16384_REGISTERS:
+        K = S ** W
+        assert forward_kernel.mapping_warps("K4", K) == forward_kernel.WIDE
+        for T in (W, W + 1, 20, 60):
+            fixed, stash, threads = _wide_walk_bytes(K, S, S, D, T, W, True)
+            pl = forward_kernel.plan("K4", K, fixed, stash, SMEM, occ)
+            if fixed > SMEM:
+                assert pl == forward_kernel.Plan(forward_kernel.WIDE_GLOBAL,
+                                                 False)
+                fixed, stash, threads = _wide_walk_bytes(K, S, S, D, T, W,
+                                                         True, True)
+            else:
+                shared.add((S, W))
+                assert pl.warps == forward_kernel.WIDE
+            assert fixed <= SMEM and threads <= 1024
+            nblk, nbytes = forward_kernel.grid(1 << 17, pl, 132, 1, stash)
+            assert nbytes == (0 if pl.stash_smem else nblk * stash)
+            assert nbytes <= cuda_lib.SCRATCH_BUDGET
+            # a smaller budget (the card's free memory) takes fewer blocks
+            if stash and not pl.stash_smem:
+                nblk, nbytes = forward_kernel.grid(1 << 17, pl, 132, 1,
+                                                   stash, 20 * stash + 1)
+                assert nblk == min(20, 132) and nbytes == 20 * stash
+    # many states keep few groups: 7^5 (2401) in shared memory; the
+    # labeling and predict_Bs registers of 2, 3, 4 and 6 states do not
+    assert (7, 5) in shared
+    assert not shared & {(2, 16), (3, 10), (4, 8), (6, 6)}
+    # the GUI's labeling window at 3 states: 3^10 slots, 19683 groups, a
+    # thread 19 or 20 of them; the carries 1.0 MB and 236,196 bytes a
+    # stash row
+    fixed, stash, threads = _wide_walk_bytes(3 ** 10, 3, 3, 2, 40, 10, True,
+                                             True)
+    assert threads == 1024 and 4 * (2 * 5 * 3 ** 9 + 3 ** 10) == 1023516
+    assert stash == 1023516 + 30 * 4 * 3 ** 10 == 8109396
+    # one team's scratch past the budget raises, naming its bytes
+    pl = forward_kernel.Plan(forward_kernel.WIDE_GLOBAL, False)
+    with pytest.raises(RuntimeError, match=r"scratch \(8109396 bytes"):
+        forward_kernel.grid(64, pl, 132, 1, stash, stash - 1)
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])

@@ -63,6 +63,27 @@ def test_rows_and_options_match_jax(S, csv_path):
                                          for r in jgui.spec_rows(js.spec())]
 
 
+def test_state_labeling_seeded_options_at_3_states_fit_k4():
+    """The State Labeling window seeds frame_len 10 (ExTrack_GUI.py:1207):
+    3^10 = 59049 slots at 3 states, inside K4's envelope (65536); at 4
+    states (4^10) the card raises, naming K4 and the largest frame_len
+    that fits."""
+    from extrack_tpu_torch.ops import forward_kernel
+    ts, js = tgui.Session(nb_states=3), jgui.Session(nb_states=3)
+    got = tgui.seeded_options("State Labeling", ts)
+    assert got == jgui.seeded_options("State Labeling", js)
+    W = int(got["frame_len"])
+    assert 3 ** W == 59049
+    forward_kernel.check_envelope(int(ts.max_len), 2, 3, W, 1,
+                                  what="the GUI's labeling", kernel="K4")
+    with pytest.raises(NotImplementedError,
+                       match="the GUI's labeling.*K4 maps at most 65536.*"
+                             "window that fits is 8"):
+        forward_kernel.check_envelope(int(ts.max_len), 2, 4, W, 1,
+                                      what="the GUI's labeling",
+                                      kernel="K4")
+
+
 def test_session_runs_the_four_analyses(csv_path, tmp_path):
     tdir, jdir = tmp_path / "t", tmp_path / "j"
     tdir.mkdir()

@@ -56,17 +56,27 @@ def test_analyze_matches_jax(results):
                                    rtol=1e-6, atol=1e-9)
     _dicts_close(got.preds, want.preds)
     # JAX pads its buckets to canonical lengths (canonical_shapes, not
-    # ported): its histogram's rows past the longest track are zeros
-    T = got.hist.shape[0]
-    assert T == max(int(k) for k in got.preds)
-    np.testing.assert_allclose(got.hist, want.hist[:T], **TOL)
-    assert not np.asarray(want.hist)[T:].any()
+    # ported): the port's histogram has its row count, zeros past the
+    # longest track
+    T = max(int(k) for k in got.preds)
+    assert got.hist.shape == np.asarray(want.hist).shape == (
+        pipeline._hist_rows(T), 2)
+    np.testing.assert_allclose(got.hist, want.hist, **TOL)
+    assert not got.hist[T:].any()
     _dicts_close(got.mus, want.mus)
     _dicts_close(got.sigmas, want.sigmas)
     csv_t, csv_j = pd.read_csv(d / "t.csv"), pd.read_csv(d / "j.csv")
     assert list(csv_t.columns) == list(csv_j.columns)
     np.testing.assert_allclose(csv_t.to_numpy(np.float64),
                                csv_j.to_numpy(np.float64), **TOL)
+
+
+def test_hist_rows_are_jax_canonical_len():
+    """The port's own copy of the rounding rule that sets the row count
+    of JAX's ``analyze`` histogram (extrack_tpu/data.py canonical_len)."""
+    from extrack_tpu import data as jdata
+    for t in range(0, 130):
+        assert pipeline._hist_rows(t) == jdata.canonical_len(t)
 
 
 def test_analyze_matches_the_drivers(results, tracks):

@@ -170,6 +170,55 @@ def test_predict_Bs_six_states_at_the_default_frame_len_matches_jax():
         np.testing.assert_allclose(got[k].sum(-1), 1.0, rtol=1e-10)
 
 
+def test_predict_Bs_past_16384_slots_matches_jax():
+    """predict_Bs past 16384 slots (2 states at frame_len 15: K = 2^15,
+    K4's wide mapping with its carries in global scratch on the card), on
+    the CPU against JAX's (its XLA engine, past the TPU kernel's VMEM
+    budget); each frame's posteriors sum to one."""
+    rng = np.random.default_rng(16)
+    tracks = {str(T): (rng.normal(0, 0.05, (2, T, 2)).cumsum(1)
+                       + rng.normal(0, 0.02, (2, T, 2)))
+              for T in (16, 17)}
+    values = {"LocErr": 0.02, "D0": 0.0, "D1": 0.08, "F0": 0.4, "F1": 0.6,
+              "p01": 0.1, "p10": 0.05, "pBL": 0.1}
+    want = jpredict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                               nb_states=2, frame_len=15)
+    got = tpredict.predict_Bs(tracks, 0.02, values, cell_dims=(0.5,),
+                              nb_states=2, frame_len=15, device="cpu")
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape == (2, int(k), 2)
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-9,
+                                   atol=1e-9)
+        np.testing.assert_allclose(got[k].sum(-1), 1.0, rtol=1e-10)
+
+
+def test_k4_envelope_and_plan_past_16384_slots():
+    """K4 takes registers up to 65536 slots: predict_Bs at 7 states W=5
+    (16807) and 6 states W=6 (46656), the GUI's labeling at 3 states W=10
+    (59049), 4 states W=8 and 2 states W=16 (65536); past it the bucket
+    raises, naming K4, 65536 and the largest frame_len that fits.  At
+    59049 slots the plan is the wide mapping with its carries in global
+    scratch."""
+    from extrack_tpu_torch.ops import forward_kernel
+    from tests.test_torch_forward import SMEM, _wide_walk_bytes
+    for S, W in ((7, 5), (6, 6), (3, 10), (4, 8), (2, 16)):
+        forward_kernel.check_envelope(20, 2, S, W, 1, kernel="K4",
+                                      what="predict_Bs bucket 0")
+    for S, W, fits in ((3, 11, 10), (7, 6, 5), (2, 17, 16)):
+        with pytest.raises(NotImplementedError,
+                           match=(rf"bucket 3 .*K=S\*\*window={S ** W} > "
+                                  rf"65536 register slots \(K4 maps at most "
+                                  rf"65536.*window that fits is {fits}")):
+            forward_kernel.check_envelope(20, 2, S, W, 1, kernel="K4",
+                                          what="predict_Bs bucket 3")
+    K = 3 ** 10
+    fixed, stash, _ = _wide_walk_bytes(K, 3, 3, 2, 20, 10, True)
+    pl = forward_kernel.plan("K4", K, fixed, stash, SMEM,
+                             lambda warps, smem: 1)
+    assert pl == forward_kernel.Plan(forward_kernel.WIDE_GLOBAL, False)
+
+
 def test_predict_batch_chunks_and_parameters(sim):
     tracks, values = sim
     spec = tparams.generate_params(nb_states=2, D_max=1.0)

@@ -26,7 +26,7 @@ from extrack_tpu.ops import pallas_topk
 from extrack_tpu_torch import (data as tdata, histograms as thist,
                                params as tparams)
 from extrack_tpu_torch.core import tables as ttables
-from extrack_tpu_torch.ops import topk_kernel
+from extrack_tpu_torch.ops import forward_kernel, topk_kernel
 from tests.test_pallas import _setup
 from tests.test_torch_histograms import _case
 import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
@@ -193,8 +193,10 @@ def test_segment_histogram_matches_pallas_interpret():
 def test_check_envelope():
     ok = dict(T=10, D=2, S=2, M=512)
     topk_kernel.check_envelope(**ok, smem_limit=227 * 1024)
-    with pytest.raises(NotImplementedError, match="dt"):
-        topk_kernel.check_envelope(**ok, variable_dt=True)
+    # variable dt is in the envelope: K7 reads the stream
+    topk_kernel.check_envelope(**ok, variable_dt=True,
+                               smem_limit=227 * 1024)
+    topk_kernel.check_envelope(10, 2, 2, 128, 2, variable_dt=True)
     with pytest.raises(NotImplementedError, match="float64"):
         topk_kernel.check_envelope(**ok, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="< nb_states"):
@@ -216,6 +218,80 @@ def test_check_envelope():
         for D in (1, 2, 3):
             topk_kernel.check_envelope(10, D, S, 512, n,
                                        smem_limit=227 * 1024)
+
+
+@pytest.mark.parametrize("S,n,kind", [(2, 1, "step"), (2, 1, "track"),
+                                       (3, 1, "track"), (2, 2, "step")])
+def test_kernel_inputs_stream_the_rows_segment_backpointers_reads(S, n,
+                                                                   kind):
+    """Under variable dt K7's data carry the (B, T-1, P) stream; the
+    kernel's initial rows read each track's row 0 (pattern r for row r <
+    P, else pattern 0) and step t's children row t: the variances
+    ``segment_backpointers`` reads (``sig2_at``, its row min(t, R-1))."""
+    B, T, M = 5, 6, 32
+    P = S ** (n + 1)
+    rng = np.random.default_rng(S + 10 * n)
+    dt = rng.uniform(0.01, 0.04, (B, T - 1) if kind == "track" else T - 1)
+    rates = np.full((S, S), 0.1)
+    np.fill_diagonal(rates, 0.0)
+    tb = ttables.build_tables(*(torch.tensor(v) for v in (
+        np.linspace(0.0, 0.1, S), 0.02, np.full(S, 1 / S), rates, 0.08,
+        dt)), cell_dims=(0.6,), nb_substeps=n)
+    pos = torch.tensor(rng.normal(0, 0.05, (B, T, 2)).cumsum(1))
+    lens = torch.full((B,), T)
+    isbl = torch.zeros(B)
+    data, tabs = topk_kernel.kernel_inputs(pos, lens, isbl, tb, M, n)
+    assert len(data) == 5
+    stream = data[4]
+    assert stream.shape == (B, T - 1, P) and stream.dtype == torch.float32
+    assert stream.is_contiguous()
+    sig2 = tb.sig2.to(torch.float32)
+    R = sig2.shape[-2]
+    for t in range(T - 1):
+        want = sig2[..., min(t, R - 1), :].expand(B, P)
+        assert torch.equal(stream[:, t], want)
+    # the initial register's per-track variances, as the plain walk pads
+    # them
+    s20 = stream[:, 0, np.pad(np.arange(P), (0, M - P))]
+    want = sig2[..., 0, :][..., np.pad(np.arange(P), (0, M - P))]
+    assert torch.equal(s20, want.reshape(-1, M).expand(B, M))
+    # tracks sliced off the data take their rows of the stream along
+    assert torch.equal(data[4][2:4], forward_kernel.sig2_stream(
+        tb.sig2[2:4] if tb.sig2.ndim == 3 else tb.sig2, 2, T))
+    # a constant dt streams nothing; nor does T = 1
+    const = ttables.build_tables(*(torch.tensor(v) for v in (
+        np.linspace(0.0, 0.1, S), 0.02, np.full(S, 1 / S), rates, 0.08,
+        0.02)), cell_dims=(0.6,), nb_substeps=n)
+    assert len(topk_kernel.kernel_inputs(pos, lens, isbl, const, M,
+                                         n)[0]) == 4
+    assert len(topk_kernel.kernel_inputs(pos[:, :1], lens.clamp(max=1),
+                                         isbl, tb, M, n)[0]) == 4
+
+
+def test_len_hist_topk_with_dt_dict_matches_jax(sim):
+    """The opt-in top-K histogram of movies at mixed frame rates: a
+    per-track dt dict, on the CPU in float64 against JAX's len_hist (its
+    XLA top-K engine); frames conserved.  On the card the same call runs
+    K7 on the stream (tests/test_torch_cuda.py, chip_smoke.py phase 10)."""
+    tracks, values = sim
+    rng = np.random.default_rng(13)
+    dt = {k: rng.uniform(0.01, 0.05, (v.shape[0], v.shape[1] - 1))
+          for k, v in tracks.items()}
+    kw = dict(cell_dims=(0.5,), nb_states=2, engine="topk",
+              max_nb_states=128)
+    want = np.asarray(jhist.len_hist(tracks, values, dt, **kw))
+    before = topk_kernel.PLAIN_CALLS
+    got = thist.len_hist(tracks, values, dt, device="cpu", **kw)
+    assert topk_kernel.PLAIN_CALLS > before
+    assert got.shape == want.shape == (9, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    frames = (got * np.arange(1, 10)[:, None]).sum()
+    np.testing.assert_allclose(
+        frames, sum(v.shape[0] * v.shape[1] for v in tracks.values()
+                    if v.shape[1] >= 2), rtol=1e-10)
+    # the dt dict matters: a constant dt gives another histogram
+    const = thist.len_hist(tracks, values, 0.02, device="cpu", **kw)
+    assert np.abs(const - got).max() > 1e-6
 
 
 def test_topk_tables_layout():
