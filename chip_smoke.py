@@ -13,7 +13,9 @@ Phases (each prints its lines; a failed check exits non-zero):
    the 21 instantiations of the wide mapping with their registers and
    spill bytes, then K2's and K3's 12: float and dual numbers, D 1..3,
    constant and variable dt, and K7's 6: D 1..3, constant and variable
-   dt);
+   dt; past 4096 slots K2's and K3's 12 deep instantiations (up to eight
+   fusion groups a thread) and K1's 6 with its publish areas in global
+   scratch);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
@@ -25,7 +27,11 @@ Phases (each prints its lines; a failed check exits non-zero):
    K = 243); then K2 and K3 (against ``table_hvp_plain`` in float64) on
    their wide mapping past 1024 slots, K = 1296, 2048 (two sub-steps),
    2187, 3125 and 4096 at D = 1..3 with constant and variable dt, and
-   the wide mapping forced at K = 243 and 1024;
+   the wide mapping forced at K = 243 and 1024; then K1, K2 and K3 past
+   4096 slots (K = 6561, 7776, 15,625 and 16,384 at 4 states and at 2
+   states with one and two sub-steps), D = 1..3, constant and variable
+   dt, K2's exchange in global scratch bit for bit against its plan's and
+   K1 with its publish areas forced to global scratch;
 3. the fit main path on 10^5 simulated tracks: first the kernels against
    the plain version at the fit's own bucket shapes (each table cotangent
    per bucket, then the objective's value and each z-gradient component);
@@ -221,6 +227,18 @@ Phases (each prints its lines; a failed check exits non-zero):
    on 2^14 random walks at (S, W) = (4, 6) and (3, 7) beside their bounds
    and one pass of their plain versions on the first quarter of each
    bucket.
+17. the fit past 4096 slots (K2 and K3 with up to eight fusion groups a
+   thread, their exchange in global scratch): ``param_fitting(nb_states=5,
+   frame_len=6, compute_errors=True)`` on ~4,000 5-state ``sim_fov``
+   tracks (K = 15,625, the GUI's seeded frame_len at 5 states; its
+   launches, 0 plain calls; at its start the objective and the Hessian
+   columns against the plain versions as in phase 16), the value-only
+   objective at its optimum (K1 against K2's value), the GUI
+   ``Session``'s Model Fitting runner at 5 states on every
+   GUI17_STRIDE-th track; then K1's, K2's and K3's bare and wrapper
+   times on 2^14 random walks at (S, W) = (5, 6) and (4, 7) beside the
+   same walks at (4, 6) (K = 4096), their bounds and their plain
+   versions on the first quarter of each bucket.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -482,6 +500,31 @@ SAMPLE16_KW = dict(num_chains=2, num_warmup=8, num_samples=12,
                    n_leapfrog=4, max_buckets=2, seed=0)
 WIDE16_TIMES = [(4, 6), (3, 7)]
 WIDE16_TRACKS = 1 << 14
+# phase 2, K1, K2 and K3 past 4096 slots: (S, W, n, D, dt) at K = 6561,
+# 7776, 15,625 and 16,384 (4 states, and 2 states with one and two
+# sub-steps: 8192 and 4096 fusion groups), D = 1..3, constant dt and
+# variable dt per step and per track, PAST4096_B tracks of up to 10 frames
+PAST4096_GRAD_CASES = [(3, 8, 1, 1, None), (3, 8, 1, 3, "track"),
+                       (6, 5, 1, 2, "step"), (5, 6, 1, 1, "track"),
+                       (5, 6, 1, 2, None), (5, 6, 1, 3, "step"),
+                       (4, 7, 1, 1, None), (4, 7, 1, 2, "track"),
+                       (4, 7, 1, 3, None), (2, 14, 1, 2, "step"),
+                       (2, 14, 1, 3, None), (2, 14, 2, 1, "track"),
+                       (2, 14, 2, 3, None)]
+PAST4096_B = 256
+# phase 17: the fit past 4096 slots.  Phase 5's 5-state model (SIM5's
+# Ds and TR5) at 2^12 requested tracks (K = 5^6 at the GUI's frame_len 6)
+# from a rough guess of the Ds, its start held to the plain version on
+# each bucket's first FIT16_CHECK tracks; the GUI's runner on every
+# GUI17_STRIDE-th track; the bare times at (S, W) = (5, 6) and (4, 7)
+# beside (4, 6)
+SIM5F = dict(SIM, nb_tracks=1 << 12, Ds=(0.0, 0.01, 0.03, 0.06, 0.1),
+             TrMat=np.full((5, 5), 0.03) + np.eye(5) * 0.85, seed=16)
+FIT5_START = dict(nb_states=5, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+                  D_max=3.0, estimated_Ds=[0.001, 0.005, 0.02, 0.05, 0.2],
+                  estimated_transition_rates=0.1)
+GUI17_STRIDE = 4
+PAST4096_TIMES = [(5, 6), (4, 7), (4, 6)]
 PEAK_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
@@ -1302,6 +1345,15 @@ def main() -> int:
                               "extrack_tpu/ops/pallas_grad.py:549"),
         "K3 past 1024": entry("loglik_hvp_past_1024", "hvp.cu",
                               "extrack_tpu/ops/pallas_hvp.py:78"),
+        # K1, K2 and K3 past 4096 slots (to 16384): the fit at 5 states
+        # and the GUI's frame_len 6, where JAX fits through XLA
+        # (extrack_tpu/fit.py:104-117, :575-582)
+        "K1 past 4096": entry("forward_loglik_past_4096", "forward.cu",
+                              "extrack_tpu/ops/pallas_engine.py:218"),
+        "K2 past 4096": entry("loglik_grad_past_4096", "grad.cu",
+                              "extrack_tpu/ops/pallas_grad.py:549"),
+        "K3 past 4096": entry("loglik_hvp_past_4096", "hvp.cu",
+                              "extrack_tpu/ops/pallas_hvp.py:78"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1331,6 +1383,8 @@ def main() -> int:
     wide_regs = {}  # registers and spill bytes of the wide instantiations
     global_regs = {}  # the same of the wide ones with carries in scratch
     grad_regs = {}  # the same of K2's and K3's wide instantiations
+    deep_regs = {}  # the same of their deep ones (past 2048 groups)
+    k1_global_regs = {}  # K1's wide one with its publish areas in scratch
     topk_regs = {}  # the same of K7's (constant and variable dt)
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
@@ -1350,10 +1404,15 @@ def main() -> int:
         scratch = re.match(r"_ZN7extrack23(walk|hist)_wide_global_kernel",
                            entry_name)
         grad_wide = re.match(r"_ZN7extrack16grad_wide_kernel", entry_name)
+        deep = re.match(r"_ZN7extrack21grad_wide_deep_kernel", entry_name)
+        k1_global = re.match(r"_ZN7extrack26forward_wide_global_kernel",
+                             entry_name)
         topk = re.match(r"_ZN7extrack1[15]topk_(vdt_)?kernel", entry_name)
         regs = re.search(r"Used (\d+) registers", line)
         for found, table in ((wide, wide_regs), (scratch, global_regs),
-                             (grad_wide, grad_regs), (topk, topk_regs)):
+                             (grad_wide, grad_regs), (deep, deep_regs),
+                             (k1_global, k1_global_regs),
+                             (topk, topk_regs)):
             if found and (spilled or regs):
                 key = entry_name[:60]
                 table.setdefault(key, [0, 0])
@@ -1401,6 +1460,17 @@ def main() -> int:
     if len(grad_regs) != 12:
         fail(f"{len(grad_regs)} wide K2/K3 instantiations, not 12 (float "
              "and dual: D 1..3 x constant and variable dt)")
+    log("phase 0: past 4096 slots, K2's and K3's deep instantiations (up "
+        "to 8 fusion groups a thread, 1024 threads, K <= 16384) and K1's "
+        "with its publish areas in global scratch (registers, spill bytes "
+        "stores + loads): " + ", ".join(
+            f"{k} {r} regs {b} B" for k, (r, b) in sorted(
+                {**deep_regs, **k1_global_regs}.items())))
+    if len(deep_regs) != 12 or len(k1_global_regs) != 6:
+        fail(f"{len(deep_regs)} deep K2/K3 instantiations (not 12: float "
+             f"and dual, D 1..3 x constant and variable dt) and "
+             f"{len(k1_global_regs)} K1 ones with global publish areas "
+             "(not 6: D 1..3 x constant and variable dt)")
     log("phase 0: K7's instantiations (1024 threads; registers, spill "
         "bytes stores + loads): " + ", ".join(
             f"{k} {r} regs {b} B" for k, (r, b) in sorted(topk_regs.items())))
@@ -1437,6 +1507,7 @@ def main() -> int:
                 finally:
                     mod.WARP_MAX_K = saved
     wide_grad_parity(dev, errs)
+    past_4096_grad_parity(dev, errs)
 
     # ---- phase 3: the fit main path --------------------------------------
     t0 = time.time()
@@ -2377,6 +2448,7 @@ def main() -> int:
     phase14(dev, card, reset_counts, plain_calls, tracks, fit3)
     phase15(dev, card, reset_counts, plain_calls, tracks, fit3)
     phase16(dev, card, kinfo, errs, reset_counts, plain_calls)
+    phase17(dev, card, kinfo, errs, reset_counts, plain_calls)
 
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
@@ -2875,6 +2947,56 @@ def wide_grad_parity(dev, errs):
                 f"phase 2: K3 {tag}", pos, lens, isbl, tb, S * W, **kw))
         finally:
             grad_kernel.BLOCK_MAX_K = saved
+
+
+def past_4096_grad_parity(dev, errs):
+    """Phase 2's K1, K2 and K3 past 4096 slots (PAST4096_GRAD_CASES)
+    against their plain versions (with variable dt, and for K3 always, in
+    float64 on the same inputs); K2 with its exchange in global scratch
+    bit for bit against its plan's, K1 with its publish areas forced to
+    global scratch (shared memory reported as 0 bytes) against the plain
+    version."""
+    from extrack_tpu_torch.ops import cuda_lib, forward_kernel, grad_kernel
+    for S, W, n, D, dt in PAST4096_GRAD_CASES:
+        pos, lens, isbl, tb = parity_case(S, W, n, 210 + S * W + D, dev,
+                                          B=PAST4096_B, T=10, D=D,
+                                          per_peak=(D == 2), dt=dt)
+        kw = dict(window=W, nb_substeps=n, min_len=2)
+        K, A = S ** W, S ** n
+        tag = (f"past 4096 S={S} W={W} n={n} (K={K}, {K // A} groups) D={D} "
+               f"B={PAST4096_B} T=10 dt={dt or 'constant'}")
+        ref64 = dt is not None
+        errs["K1 past 4096"].append(check_forward(
+            f"phase 1: K1 {tag}", pos, lens, isbl, tb, ref64=ref64, **kw))
+        errs["K2 past 4096"].append(check_table_grads(
+            f"phase 2: K2 {tag}", pos, lens, isbl, tb, ref64=ref64, **kw))
+        errs["K3 past 4096"].append(check_table_hvp(
+            f"phase 2: K3 {tag}", pos, lens, isbl, tb, S * W + D, **kw))
+        data_, tabs = forward_kernel.kernel_inputs(pos, lens, isbl, tb, W, n)
+        tabs = [t.detach() for t in tabs]
+        a = grad_kernel.launch(data_, tabs, 2)
+        b = grad_kernel.launch(data_, tabs, 2, stash="global")
+        same = all(torch.equal(x, y) for x, y in zip((a[0], a[1], *a[2]),
+                                                     (b[0], b[1], *b[2])))
+        saved = cuda_lib.smem_bytes
+        cuda_lib.smem_bytes = lambda query, index: 0
+        try:
+            k1g = forward_kernel.launch(data_, tabs, 2)
+        finally:
+            cuda_lib.smem_bytes = saved
+        if ref64:
+            p64, i64, tb64 = float64(pos, isbl, tb)
+            want = forward_kernel.forward_plain(p64, lens, i64, tb64, **kw)
+        else:
+            want = forward_kernel.forward_plain(pos, lens, isbl, tb, **kw)
+        err = float((k1g.double() - want.double()).abs().max())
+        ok = same and torch.allclose(k1g.to(want.dtype), want, **TOL_K1)
+        log(f"phase 2: {tag}: K2's exchange in global scratch bit for bit "
+            f"{same}; K1 with its publish areas in global scratch "
+            f"max_abs_err {err:.3e} (tol {TOL_K1}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K2's global exchange or K1's global publish areas at {tag}")
+        errs["K1 past 4096"].append(err)
 
 
 def wide_bucket_checks(tag, buckets, fn, plain, check, n=WIDE_CHECK):
@@ -4664,7 +4786,6 @@ def phase16(dev, card, kinfo, errs, reset_counts, plain_calls):
     from pathlib import Path
 
     from extrack_tpu_torch import data, fit, gui, params, sample, simulate
-    from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
                                        hvp_kernel)
     t16 = time.time()
@@ -4842,92 +4963,276 @@ def phase16(dev, card, kinfo, errs, reset_counts, plain_calls):
 
     # ---- bare times at (S, W) = (4, 6) and (3, 7) ------------------------
     bench = bench_buckets(dev, n=WIDE16_TRACKS)
+    for S, W in WIDE16_TIMES:
+        times = grad_times(dev, card, 16, S, W, bench, ("K2", "K3"))
+        if (S, W) == WIDE16_TIMES[0]:
+            for name, t in times.items():
+                kinfo[f"{name} past 1024"].update(t)
+    log(f"phase 16: {time.time() - t16:.1f} s")
+
+
+def grad_times(dev, card, phase, S, W, bench, kernels=("K1", "K2", "K3")):
+    """Bare, wrapper and plain times of K1, K2 and K3 (``kernels``) on the
+    random walks ``bench`` at S states and window W (min_len 3; K3 along
+    one random tangent of every table), beside their bounds; logs a line
+    each and returns {kernel: kinfo fields}.  The plain versions run once,
+    unwarmed, on the first 1/PLAIN_SHARE of each bucket, in chunks that
+    bound their memory."""
+    from extrack_tpu_torch import data
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import forward_kernel, grad_kernel, hvp_kernel
+    f32 = dict(dtype=torch.float32, device=dev)
+    K = S ** W
     blens = np.concatenate([data.host_lengths(b) for b in bench])
     rows = sum(b.positions.numel() for b in bench) * 4
     D = bench[0].positions.shape[-1]
-    for S, W in WIDE16_TIMES:
-        K = S ** W
-        rates = torch.full((S, S), 0.1, **f32)
-        rates.fill_diagonal_(0.0)
-        tb = tables.build_tables(
-            torch.linspace(0.0, 0.08, S, **f32), torch.tensor(0.02, **f32),
-            torch.full((S,), 1.0 / S, **f32), rates,
-            torch.tensor(0.1, **f32), 0.02, cell_dims=(0.5,))
-        gen = torch.Generator(device="cpu").manual_seed(K)
-        dot = tables.ModelTables(*(
-            1e-2 * torch.randn(f.shape, generator=gen).to(dev) for f in tb))
-        args = []
-        for b in bench:
-            d, t = forward_kernel.kernel_inputs(b.positions, b.lengths,
-                                                b.is_bleached, tb, W, 1)
-            _, t_dot = forward_kernel.kernel_inputs(b.positions, b.lengths,
-                                                    b.is_bleached, dot, W, 1)
-            args.append((d, [x.detach() for x in t],
-                         torch.zeros_like(d[1]),
-                         [x.detach().contiguous() for x in t_dot]))
+    rates = torch.full((S, S), 0.1, **f32)
+    rates.fill_diagonal_(0.0)
+    tb = tables.build_tables(
+        torch.linspace(0.0, 0.08, S, **f32), torch.tensor(0.02, **f32),
+        torch.full((S,), 1.0 / S, **f32), rates, torch.tensor(0.1, **f32),
+        0.02, cell_dims=(0.5,))
+    gen = torch.Generator(device="cpu").manual_seed(K)
+    dot = tables.ModelTables(*(
+        1e-2 * torch.randn(f.shape, generator=gen).to(dev) for f in tb))
+    args = []
+    for b in bench:
+        d, t = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                            b.is_bleached, tb, W, 1)
+        _, t_dot = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                                b.is_bleached, dot, W, 1)
+        args.append((d, [x.detach() for x in t], torch.zeros_like(d[1]),
+                     [x.detach().contiguous() for x in t_dot]))
+    kw = dict(window=W, min_len=3)
 
-        def k2_bare():
-            for d, t, _, _ in args:
-                grad_kernel.launch(d, t, 3)
+    def k1_bare():
+        for d, t, _, _ in args:
+            forward_kernel.launch(d, t, 3)
 
-        def k3_bare():
-            for d, t, l2_dot, t_dot in args:
-                hvp_kernel.launch(d, t, l2_dot, t_dot, 3)
+    def k2_bare():
+        for d, t, _, _ in args:
+            grad_kernel.launch(d, t, 3)
 
-        def k2_wrapped():
+    def k3_bare():
+        for d, t, l2_dot, t_dot in args:
+            hvp_kernel.launch(d, t, l2_dot, t_dot, 3)
+
+    def each(fn):
+        def run():
             for b in bench:
-                grad_kernel.value_and_table_grads(
-                    b.positions, b.lengths, b.is_bleached, tb, window=W,
-                    min_len=3)
+                fn(b.positions, b.lengths, b.is_bleached)
+        return run
 
-        def k3_wrapped():
-            for b in bench:
-                hvp_kernel.table_hvp(b.positions, b.lengths, b.is_bleached,
-                                     tb, dot, window=W, min_len=3)
+    def plain(fn):
+        chunk = WIDE_PLAIN_CHUNK if K <= 4096 else PAST_PLAIN_CHUNK
 
-        def plain_run(fn):
+        def run():
             for b in bench:
                 m = b.batch_size // PLAIN_SHARE
-                for i in range(0, m, WIDE_PLAIN_CHUNK):
-                    sl = slice(i, min(i + WIDE_PLAIN_CHUNK, m))
+                for i in range(0, m, chunk):
+                    sl = slice(i, min(i + chunk, m))
                     fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl])
+        return run
 
-        def k2_plain():
-            plain_run(lambda p, l_, i_:
-                      grad_kernel.value_and_table_grads_plain(
-                          p, l_, i_, tb, window=W, min_len=3))
+    def no_grad(fn):
+        def run(*a):
+            with torch.no_grad():
+                fn(*a)
+        return run
 
-        def k3_plain():
-            plain_run(lambda p, l_, i_: hvp_kernel.table_hvp_plain(
-                p, l_, i_, tb, dot, window=W, min_len=3))
+    # bytes: positions and l2 in (K3: l2 with its tangent), lengths and
+    # flags, logL (K2: and the l2 cotangent) out (K3: each with its tangent)
+    runs = {
+        "K1": (k1_bare, no_grad(lambda p, l_, i_: forward_kernel.forward(
+            p, l_, i_, tb, **kw)), no_grad(
+            lambda p, l_, i_: forward_kernel.forward_plain(p, l_, i_, tb,
+                                                           **kw)),
+            2 * rows + 12 * len(blens)),
+        "K2": (k2_bare, lambda p, l_, i_: grad_kernel.value_and_table_grads(
+            p, l_, i_, tb, **kw),
+            lambda p, l_, i_: grad_kernel.value_and_table_grads_plain(
+                p, l_, i_, tb, **kw), 3 * rows + 12 * len(blens)),
+        "K3": (k3_bare, lambda p, l_, i_: hvp_kernel.table_hvp(
+            p, l_, i_, tb, dot, **kw),
+            lambda p, l_, i_: hvp_kernel.table_hvp_plain(p, l_, i_, tb, dot,
+                                                         **kw),
+            5 * rows + 16 * len(blens))}
+    plain_tracks = sum(b.batch_size // PLAIN_SHARE for b in bench)
+    out = {}
+    for name in kernels:
+        bare, wrapped, plain_fn, nbytes = runs[name]
+        ms_, wms_ = cuda_ms(bare, 3), cuda_ms(each(wrapped), 3)
+        pms_ = cuda_ms(plain(plain_fn), 1, warmup=0)
+        bms, by = bound(nbytes, walk_ops(blens, K, S, D, name))
+        log(f"phase {phase}: {name} wide S={S} W={W} (K={K}) D={D}, "
+            f"{len(blens)} tracks of lengths 3..10 ({len(bench)} buckets): "
+            f"kernel {ms_:.3f} ms, {wms_:.3f} ms with its wrapper; plain "
+            f"{pms_:.3f} ms on {plain_tracks} of the tracks; bound "
+            f"{bms:.4f} ms ({by}), {ms_ / bms:.1f}x [{card}]")
+        out[name] = dict(ms=ms_, wrapper_ms=wms_, plain_ms=pms_,
+                         plain_tracks=plain_tracks, bound_ms=bms,
+                         bound_by=by)
+    return out
 
-        ms2, ms3 = cuda_ms(k2_bare, 3), cuda_ms(k3_bare, 3)
-        wms2, wms3 = cuda_ms(k2_wrapped, 3), cuda_ms(k3_wrapped, 3)
-        pms2 = cuda_ms(k2_plain, 1, warmup=0)
-        pms3 = cuda_ms(k3_plain, 1, warmup=0)
-        plain_tracks = sum(b.batch_size // PLAIN_SHARE for b in bench)
-        # bytes: positions and l2 in (K3: l2 with its tangent), lengths and
-        # flags, logL and the l2 cotangent out (K3: each with its tangent)
-        b2 = bound(3 * rows + 12 * len(blens),
-                   walk_ops(blens, K, S, D, "K2"))
-        b3 = bound(5 * rows + 16 * len(blens),
-                   walk_ops(blens, K, S, D, "K3"))
-        for name, ms_, wms_, pms_, (bms, by) in (
-                ("K2", ms2, wms2, pms2, b2), ("K3", ms3, wms3, pms3, b3)):
-            log(f"phase 16: {name} wide S={S} W={W} (K={K}) D={D}, "
-                f"{len(blens)} tracks of lengths 3..10 ({len(bench)} "
-                f"buckets): kernel {ms_:.3f} ms, {wms_:.3f} ms with its "
-                f"wrapper; plain {pms_:.3f} ms on "
-                f"{plain_tracks} of the tracks; bound {bms:.4f} ms ({by}), "
-                f"{ms_ / bms:.1f}x [{card}]")
-            if (S, W) == WIDE16_TIMES[0]:
-                info = kinfo[f"{name} past 1024"]
-                info["ms"], info["plain_ms"] = ms_, pms_
-                info["wrapper_ms"] = wms_
-                info["plain_tracks"] = plain_tracks
-                info["bound_ms"], info["bound_by"] = bms, by
-        del args
-    log(f"phase 16: {time.time() - t16:.1f} s")
+
+def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
+    """The fit past 4096 slots: K2 and K3 with up to eight fusion groups a
+    thread and their exchange in global scratch (csrc/grad.cuh
+    grad_wide_deep_kernel), K1 with its publish areas there where shared
+    memory cannot hold them, on the paths that reach them where the JAX
+    package fits through XLA: the 5-state fit at the GUI's frame_len 6 (K
+    = 15,625) with error bars, its start held to the plain versions; the
+    value-only objective at its optimum (K1); the GUI's Model Fitting
+    runner at 5 states; then K1's, K2's and K3's bare times at (5, 6) and
+    (4, 7) beside (4, 6), with their bounds and plain versions."""
+    import tempfile
+    from pathlib import Path
+
+    from extrack_tpu_torch import data, fit, gui, params, simulate
+    from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
+                                       hvp_kernel)
+    t17 = time.time()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # ---- 5 states at window 6 (K = 15,625): the fit with error bars -----
+    tracks, _, _ = simulate.sim_fov(**SIM5F)
+    n_tr = sum(len(v) for v in tracks.values())
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    lens = np.concatenate([data.host_lengths(b) for b in buckets])
+    min_len = data.default_min_len(lens)
+    spec = params.generate_params(**FIT5_START)
+    reset_counts()
+    t0 = time.time()
+    res = fit.param_fitting(tracks, 0.02, params=spec, nb_states=5,
+                            frame_len=6, compute_errors=True,
+                            max_iter=FIT_ITERS, verbose=0, cell_dims=(0.5,))
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    k1, k2, k3, plain = (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
+                         hvp_kernel.LAUNCHES, plain_calls())
+    n_free = len(spec.free_names())
+    log(f"phase 17: 5 states, window 6 (K=15625: K2 and K3 past 4096, "
+        f"{15625 // 5} fusion groups), {n_tr} tracks ({len(buckets)} "
+        f"buckets, T={[b.max_len for b in buckets]}): param_fitting("
+        f"compute_errors=True) {t_fit:.2f} s, {res.n_evals} evals "
+        f"({res.message}), logL {res.logl:.4f}; K2 launches {k2}, K3 "
+        f"launches {k3}, K1 {k1}, plain calls {plain} [{card}]")
+    log("phase 17: fitted " + ", ".join(
+        f"{k}={p.value:.4g} +/- {res.std_errors.get(k, float('nan')):.2e}"
+        for k, p in res.params.items() if k in res.std_errors))
+    if (k2 == 0 or k3 != n_free * len(buckets) or plain != 0
+            or not math.isfinite(res.logl)
+            or not all(math.isfinite(v) for v in res.std_errors.values())):
+        fail(f"the 5-state fit at window 6: K2 launches {k2}, K3 launches "
+             f"{k3} (want {n_free} x {len(buckets)}), plain calls {plain}")
+    kinfo["K2 past 4096"]["launches"] = k2
+    kinfo["K3 past 4096"]["launches"] = k3
+
+    # at the fit's start, each bucket's first FIT16_CHECK tracks: the
+    # objective's value and z-gradient, then the Hessian columns on the
+    # two shortest buckets, against the plain versions
+    sub = [data.TrackBatch(b.positions[:FIT16_CHECK],
+                           b.lengths[:FIT16_CHECK],
+                           is_bleached=b.is_bleached[:FIT16_CHECK])
+           for b in buckets]
+    kw = dict(cell_dims=(0.5,), window=6, min_len=min_len)
+    obj = fit.make_objective(sub, spec, 0.02, 5, **kw)
+    z0 = torch.tensor(spec.to_unconstrained(), requires_grad=True, **f32)
+    v_k = obj(z0)
+    (g_k,) = torch.autograd.grad(v_k, z0)
+    saved = grad_kernel.neg_log_likelihood
+    grad_kernel.neg_log_likelihood = grad_kernel.neg_log_likelihood_plain
+    try:
+        v_p = obj(z0)
+        (g_p,) = torch.autograd.grad(v_p, z0)
+    finally:
+        grad_kernel.neg_log_likelihood = saved
+    err_g = float((g_k - g_p).abs().max())
+    ok = (torch.allclose(v_k, v_p, **TOL_K2_VALUE)
+          and torch.allclose(g_k, g_p, **TOL_Z_GRAD))
+    log(f"phase 17: objective at the start on {len(sub)} buckets' first "
+        f"{FIT16_CHECK} tracks, K2 vs plain: value {float(v_k.detach()):.4f}"
+        f" vs {float(v_p.detach()):.4f}, z-gradient max_abs_err "
+        f"{err_g:.3e} (|g|max {float(g_p.abs().max()):.3e}; value "
+        f"{TOL_K2_VALUE}, z-grad {TOL_Z_GRAD}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the 5-state objective at window 6: K2 disagrees with plain")
+    errs["K2 past 4096"].append(max(abs(float((v_k - v_p).detach())),
+                                    err_g))
+    z_np = spec.to_unconstrained()
+    t0 = time.time()
+    H = fit.hessian_hvp_columns(sub[:2], spec, z_np, 0.02, 5, **kw)
+    t_h = time.time() - t0
+    H0 = plain_hessian_columns(sub[:2], spec, z_np, 0.02, 5, **kw)
+    errs["K3 past 4096"].append(check_hessian(
+        f"phase 17: K3 Hessian columns at the start, buckets T="
+        f"{[b.max_len for b in sub[:2]]} ({t_h:.2f} s), K=15625", H, H0))
+    del sub, obj
+
+    # ---- the value-only objective at the optimum (K1) --------------------
+    obj = fit.make_objective(buckets, res.params, 0.02, 5, cell_dims=(0.5,),
+                             window=6, min_len=min_len)
+    z = torch.tensor(res.params.to_unconstrained(), requires_grad=True,
+                     **f32)
+    v2 = float(obj(z).detach())
+    reset_counts()
+    t0 = time.time()
+    with torch.no_grad():
+        v = float(obj(z))
+    t_obj = time.time() - t0
+    k1, plain = forward_kernel.LAUNCHES, plain_calls()
+    ok = (k1 == len(buckets) and plain == 0
+          and abs(v - v2) <= TOL_K2_VALUE["rtol"] * abs(v2))
+    log(f"phase 17: value-only objective at the optimum (K1 past 4096) "
+        f"{v:.4f} in {t_obj:.3f} s (K2's {v2:.4f}); K1 launches {k1}, plain "
+        f"calls {plain} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail(f"the 5-state value-only objective: K1 launches {k1}, plain "
+             f"{plain}, value {v} against K2's {v2}")
+    kinfo["K1 past 4096"]["launches"] = k1
+    errs["K1 past 4096"].append(abs(v - v2))
+    del obj
+
+    # ---- the GUI's Model Fitting runner at 5 states ----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gsub = {k: v[::GUI17_STRIDE] for k, v in tracks.items()
+                if len(v[::GUI17_STRIDE])}
+        write_tracks_csv(str(tmp / "gui5.csv"), gsub)
+        n_g = sum(len(v) for v in gsub.values())
+        s = gui.Session(path=str(tmp / "gui5.csv"), dt=0.02, min_len=3,
+                        max_len=SIM5F["max_track_len"], nb_states=5,
+                        cell_dims=(0.5,), nb_iters=1, output_dir=str(tmp))
+        s.load()
+        W_gui = gui.seeded_options("Model Fitting", s)["frame_len"]
+        reset_counts()
+        t0 = time.time()
+        res_g = gui.run_fitting(s, progress=lambda m: None)
+        t_gui = time.time() - t0
+        k2g, k3g, plain = (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
+                           plain_calls())
+        ok = (W_gui == 6 and k2g > 0 and k3g > 0 and plain == 0
+              and (tmp / "extrack_fitted_params.json").exists()
+              and math.isfinite(res_g.logl))
+        log(f"phase 17: GUI Session, 5 states, Model Fitting at its seeded "
+            f"frame_len {W_gui} (K={5 ** W_gui}) on {n_g} tracks {t_gui:.2f}"
+            f" s ({res_g.n_evals} evals): logL {res_g.logl:.4f}; K2 "
+            f"launches {k2g}, K3 launches {k3g}, plain calls {plain} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the GUI's 5-state fit did not run on K2 and K3 alone")
+    del tracks, buckets
+    log(f"phase 17: paths {time.time() - t17:.1f} s")
+
+    # ---- bare times at (S, W) = (5, 6) and (4, 7), beside (4, 6) ---------
+    bench = bench_buckets(dev, n=WIDE16_TRACKS)
+    for S, W in PAST4096_TIMES:
+        times = grad_times(dev, card, 17, S, W, bench)
+        if (S, W) == PAST4096_TIMES[0]:
+            for name, t in times.items():
+                kinfo[f"{name} past 4096"].update(t)
+    log(f"phase 17: {time.time() - t17:.1f} s")
 
 
 if __name__ == "__main__":

@@ -15,9 +15,10 @@
 // took 42% of the cycles on an H100), persistent blocks, the slot tables
 // in registers, the base-2 fusion on the special-function unit and a
 // one-pass closing; one persistent block per track above 64 slots, a
-// thread a fusion group up to 4096 (walk.cuh's wide mapping: the carries
-// in shared memory as the groups' fused Gaussians, the tables read
-// through L1).
+// thread a fusion group up to 16384 (walk.cuh's wide mapping: the carries
+// in shared memory as the groups' fused Gaussians, or in the block's
+// global scratch where they pass what a block may opt in to; the tables
+// read through L1).
 // Tracks are independent, so nothing is reduced across teams and the
 // result is bitwise repeatable.
 //
@@ -38,9 +39,11 @@ static __device__ unsigned long long g_forward_prof[kProfSlots];
 // (variable dt, P = S^(n+1)) the (B, T-1, P) float32 displacement
 // variances, which replace s20, sig2v and s2n (null for P = 0); logl
 // float32 (B,).  nblk persistent blocks; warps > 0: the warp mapping with
-// that many warps a block (K <= 64), -1: the wide mapping (the wrapper
-// holds K1 to K <= 4096; K1 has no block mapping).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// that many warps a block (K <= 64), -1: the wide mapping, -2: the wide
+// mapping with its publish areas in `scratch`, 2 * (2D+1) * K/A floats a
+// block (null otherwise; the wrapper holds K1 to K <= 16384; K1 has no
+// block mapping).  Launches on `stream` and returns cudaGetLastError() (0
+// on success).
 extern "C" int extrack_forward(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,
                                const float* lp0, const float* s20,
@@ -48,20 +51,39 @@ extern "C" int extrack_forward(const float* xs, const float* l2,
                                const float* endv, const float* sig2v,
                                const float* ltn, const float* s2n,
                                const float* lsn, const float* endn,
-                               const float* sig2s, float* logl, int B, int T,
-                               int D, int K, int A, int P, int min_len,
-                               int nblk, int warps, void* stream) {
+                               const float* sig2s, float* logl,
+                               float* scratch, int B, int T, int D, int K,
+                               int A, int P, int min_len, int nblk,
+                               int warps, void* stream) {
   const extrack::Tables tb{lp0, s20, lt,  lsurv, endv, sig2v, ltn,
                            s2n, lsn, endn, K,    A,    min_len};
   const extrack::WalkArgs wa{tb,   xs,      l2,      lengths, isbl,
                              B,    T,       A,       0,       logl,
-                             nullptr, nullptr, 0,    sig2s,   P};
+                             nullptr, scratch, 0,    sig2s,   P};
   unsigned long long* prof = nullptr;
 #ifdef EXTRACK_PROFILE
   cudaGetSymbolAddress((void**)&prof, extrack::g_forward_prof);
 #endif
   return extrack::launch_walk<false>(wa, D, nblk, warps, prof,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// One K1 team for a launch (warps > 0: a warp of the warp mapping, -1: a
+// block of the wide mapping, -2: one of the wide mapping with its publish
+// areas in global scratch; P > 0: variable dt): out = threads a block,
+// shared bytes a team, global scratch bytes a team (at -2: the publish
+// areas).
+extern "C" int extrack_forward_layout(int T, int D, int K, int A, int warps,
+                                      int P, long long* out) {
+  if (D < 1 || D > 3 || warps < -2 || warps == 0 || (warps > 0 && K > 64) ||
+      K > (warps < 0 ? extrack::kWideMaxK : 64) || A < 1 || K % A != 0)
+    return (int)cudaErrorInvalidValue;
+  const extrack::WalkLayout lay =
+      extrack::team_layout(warps, K, A, D, T, A, 0, false, P);
+  out[0] = lay.threads;
+  out[1] = (long long)lay.fixed;
+  out[2] = (long long)lay.stash;
+  return 0;
 }
 
 // Blocks of a K1 launch one SM keeps resident (warps and P as

@@ -3,8 +3,8 @@
 // kernel replaces and how it is laid out.  Three mappings of a track onto
 // threads: grad_warp_kernel (one warp per track, K <= 64), grad_kernel
 // (one block per track, a thread a slot, any K up to 1024) and
-// grad_wide_kernel (one block per track, a thread a fusion group, any K up
-// to 4096); the host picks one per launch.
+// grad_wide_kernel / grad_wide_deep_kernel (one block per track, a thread
+// a fusion group, any K up to 16384); the host picks one per launch.
 //
 // Variable dt (the VDT template flag, so that the constant-dt
 // instantiations keep their code): the displacement variances come from a
@@ -372,14 +372,14 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 #endif
 }
 
-// ---- the wide mapping: 1024 < K <= 4096 slots ------------------------
+// ---- the wide mapping: 1024 < K <= 16384 slots -----------------------
 //
 // A thread a slot stops at 1024 slots.  The wide mapping gives a thread
-// whole fusion groups g = tid, tid + blockDim.x (G = K/A groups, at most
-// kGradWideGroups a thread), as K1's wide walk does (walk.cuh): group g's
-// members are slots g*A .. g*A+A-1, and member c's carry entering step t is
-// group c % G of step t-1's fusion plus child c's terms (lt, lsurv, the
-// displacement variance).  No slot lives in registers between steps.
+// whole fusion groups g = tid, tid + blockDim.x, ... (G = K/A groups), as
+// K1's wide walk does (walk.cuh): group g's members are slots g*A ..
+// g*A+A-1, and member c's carry entering step t is group c % G of step
+// t-1's fusion plus child c's terms (lt, lsurv, the displacement
+// variance).  No slot lives in registers between steps.
 //
 // Forward: a fusion step reads each member's group, updates the member
 // against the frame and mixes the group's A updates in registers (an
@@ -395,28 +395,40 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 // Backward: member c of step t+1 is child c / G of group c % G of step t,
 // and the thread that computes member c's carry cotangent owns group c / A,
 // not group c % G.  So each step publishes its members' carry cotangents,
-// (2D+1)K scalars (the exchange); after a barrier the owner of group g
-// sums its children g + a*G in a order into the fused group's cotangent,
-// holds it in registers across a second barrier, and overwrites the
+// (2D+1)K scalars (the exchange), and the owner of group g sums its
+// children g + a*G in a order into the fused group's cotangent.  Up to
+// 2048 groups (grad_wide_kernel, K <= 4096 and 6^5), a thread owns at most
+// kGradWideGroups of them: it sums its groups' children after a barrier,
+// holds the sums in registers across a second barrier, and overwrites the
 // exchange with its own members' cotangents: one exchange area, two
-// barriers a step, no atomics.  The (K,) and (K, A) table cotangents stay
-// per slot, added by the thread that owns the slot's group into the
-// block's partial row (reduce_partials sums the rows in block order); a
-// member's child terms (lt, lsurv, sig2v) take the cotangent of the carry
-// they built, one step later than the block mapping adds them, with the
-// gate of the fusion that built it.  Variable dt: each stream row a
-// pattern's sum over its slots in slot order, as the block mapping's, from
-// the exchange (rows 0 .. L-3) and from the partial row's s2n columns (the
-// look-ahead row L-2).
+// barriers a step.  Past 2048 groups (grad_wide_deep_kernel, up to 8192: 3
+// states at W = 8, 4 at W = 7, 5 at W = 6, 2 at W = 14) a thread owns up
+// to eight groups, and holding their sums would spill (8 * (2D+1) dual
+// numbers against the 64 registers of a 1024-thread block).  Its exchange
+// is double-buffered: step t reads the area step t+1 wrote and writes the
+// other, so a group's sums are read where they are used, nothing is held
+// across a barrier, and the block sums of the step's l2 cotangents are
+// the barrier between one step's writes and the next one's reads.  No
+// atomics in either.  The (K,) and (K, A) table cotangents stay per slot,
+// added by the thread that owns the slot's group into the block's partial
+// row (reduce_partials sums the rows in block order); a member's child
+// terms (lt, lsurv, sig2v) take the cotangent of the carry they built, one
+// step later than the block mapping adds them, with the gate of the fusion
+// that built it.  Variable dt: each stream row a pattern's sum over its
+// slots in slot order, as the block mapping's, from the exchange (rows 0
+// .. L-3) and from the partial row's s2n columns (the look-ahead row L-2).
 //
 // The exchange sits in shared memory after the reductions' scratch where
 // it fits (4096 slots take 114,688 bytes at D = 3 in float, 229,376 as
 // dual numbers), else (warps = -2 in the C interface) in the block's
 // global scratch after the history; grad_wide_layout is the one
-// definition of both, with a host twin in ops/grad_kernel.py.
+// definition of both, with a host twin in ops/grad_kernel.py.  Slot and
+// group indices stay in int; every offset that a block index, T or A
+// multiplies into scratch is size_t.
 constexpr int kGradWideThreads = 1024;   // the block's largest size
 constexpr int kGradWideGroups = 2;       // groups a thread owns (G <= 2048)
-constexpr int kGradWideMaxK = 4096;      // the envelope of the mapping
+constexpr int kGradDeepGroups = 8;       // the deep kernel's (G <= 8192)
+constexpr int kGradWideMaxK = 16384;     // the envelope of the mapping
 constexpr int kRedScalars = 64;          // block reductions' scratch (33)
 
 // One block of the wide mapping: its threads, its dynamic shared bytes and
@@ -432,9 +444,16 @@ static __host__ __device__ inline size_t grad_wide_history(int K, int A,
   return (size_t)(T > 3 ? T - 3 : 0) * (2 * D + 1) * (K / A);
 }
 
+// Past kGradWideGroups groups a thread: grad_wide_deep_kernel, whose
+// exchange is double-buffered.
+static __host__ __device__ inline bool grad_wide_deep(int K, int A) {
+  return K / A > kGradWideGroups * kGradWideThreads;
+}
+
 static __host__ __device__ inline GradWideLayout grad_wide_layout(
     int K, int A, int D, int T, int warps, size_t itemsize) {
-  const size_t xch = (size_t)(2 * D + 1) * K;
+  const size_t xch =
+      (size_t)(grad_wide_deep(K, A) ? 2 : 1) * (2 * D + 1) * K;
   const bool global = warps == -2;
   const int G = K / A, threads = (G + 31) / 32 * 32;
   return {threads < kGradWideThreads ? threads : kGradWideThreads,
@@ -442,28 +461,30 @@ static __host__ __device__ inline GradWideLayout grad_wide_layout(
           (grad_wide_history(K, A, D, T) + (global ? xch : 0)) * itemsize};
 }
 
-template <typename Real, int D, bool VDT>
-__global__ void __launch_bounds__(kGradWideThreads, 1)
-    grad_wide_kernel(TablesT<Real> tb, const float* __restrict__ xs,
-                     const Real* __restrict__ l2s,
-                     const int* __restrict__ lengths,
-                     const float* __restrict__ isbls, int B, int T,
-                     Real* __restrict__ logl, Real* __restrict__ ct_l2,
-                     Real* __restrict__ scratch_all,
-                     Real* __restrict__ partial, int xch_global,
-                     StreamT<Real> st) {
+// The wide walk of one block (the two kernels below call it): DEEP, past
+// kGradWideGroups groups a thread, with the exchange double-buffered.
+template <typename Real, int D, bool VDT, bool DEEP>
+static __device__ __forceinline__ void grad_wide_walk(
+    TablesT<Real> tb, const float* xs, const Real* l2s, const int* lengths,
+    const float* isbls, int B, int T, Real* logl, Real* ct_l2,
+    Real* scratch_all, Real* partial, int xch_global, StreamT<Real> st) {
   extern __shared__ __align__(16) unsigned char sh_raw[];
   Real* red = reinterpret_cast<Real*>(sh_raw);
   const int K = tb.K, A = tb.A, G = K / A, F = 2 * D + 1;
   const int tid = threadIdx.x, nt = blockDim.x;
+  // groups a thread owns, at most: a constant of the unrolled loops below,
+  // a loop bound of the deep kernel
+  const int ng = DEEP ? (G + nt - 1) / nt : kGradWideGroups;
   const float cl2pi = 0.5f * D * kLog2Pi;
   const int P = VDT ? st.P : 0;
   const size_t hist_n = grad_wide_history(K, A, D, T);
+  const size_t xch_n = (size_t)(DEEP ? 2 : 1) * F * K;
   Real* hist = scratch_all + (size_t)blockIdx.x *
-                                 (hist_n + (xch_global ? (size_t)F * K : 0));
+                                 (hist_n + (xch_global ? xch_n : 0));
   // the exchange: member c's carry cotangent (lp, then m and s2 per
-  // dimension)
-  Real* xlp = xch_global ? hist + hist_n : red + kRedScalars;
+  // dimension); DEEP: two areas, step t writing area t & 1
+  Real* const xbase = xch_global ? hist + hist_n : red + kRedScalars;
+  Real* xlp = xbase;
   Real* xm = xlp + K;
   Real* xs2 = xm + D * K;
 
@@ -477,7 +498,7 @@ __global__ void __launch_bounds__(kGradWideThreads, 1)
   // endv, sig2v
   enum { kLp0 = 0, kS20 = 1, kLt = 2, kLsurv = 3, kEnd = 4, kSig2v = 5 };
 #pragma unroll
-  for (int j = 0; j < kGradWideGroups; ++j) {
+  for (int j = 0; j < ng; ++j) {
     const int g = tid + j * nt;
     if (g >= G) continue;
     for (int c = g * A; c < (g + 1) * A; ++c) {
@@ -588,7 +609,7 @@ __global__ void __launch_bounds__(kGradWideThreads, 1)
         Real mx = Real(-INFINITY), s = Real(0.f);
         for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-          for (int j = 0; j < kGradWideGroups; ++j) {
+          for (int j = 0; j < ng; ++j) {
             const int g = tid + j * nt;
             if (g >= G) continue;
             for (int c = g * A; c < (g + 1) * A; ++c) {
@@ -633,7 +654,7 @@ __global__ void __launch_bounds__(kGradWideThreads, 1)
         // fusion: group g's Gaussian into history row t-1
         Real* row = hist + (size_t)(t - 1) * F * G;
 #pragma unroll
-        for (int j = 0; j < kGradWideGroups; ++j) {
+        for (int j = 0; j < ng; ++j) {
           const int g = tid + j * nt;
           if (g >= G) continue;
           Real mx, sw, mf[D], tf[D];
@@ -665,10 +686,16 @@ __global__ void __launch_bounds__(kGradWideThreads, 1)
       const float gate_prev = t >= tb.min_len ? 1.f : 0.f;
       const bool fuse = t < tlast;
       const bool look = t == tlast && L > 2;
+      if constexpr (DEEP) {
+        xlp = xbase + (size_t)(t & 1) * F * K;
+        xm = xlp + K;
+        xs2 = xm + D * K;
+      }
       // the fused groups' cotangents (lp, m, s2): the sums over each
-      // group's children of the exchange that step t+1 wrote
-      Real gc[kGradWideGroups][2 * D + 1];
-      if (fuse) {
+      // group's children of the exchange that step t+1 wrote (DEEP: one
+      // group's at a time, summed where it is used)
+      Real gc[DEEP ? 1 : kGradWideGroups][2 * D + 1];
+      if (!DEEP && fuse) {
 #pragma unroll
         for (int j = 0; j < kGradWideGroups; ++j) {
           const int g = tid + j * nt;
@@ -696,21 +723,37 @@ __global__ void __launch_bounds__(kGradWideThreads, 1)
         cl2n[d] = dl2s[d] = c0[d] = Real(0.f);
       }
 #pragma unroll
-      for (int j = 0; j < kGradWideGroups; ++j) {
+      for (int j = 0; j < ng; ++j) {
         const int g = tid + j * nt;
         if (g >= G) continue;
+        const int jg = DEEP ? 0 : j;        // g's row of gc
         Real mx = Real(0.f), inv_sw = Real(0.f), fac = Real(0.f);
         if (fuse) {
+          if constexpr (DEEP) {
+            // group g's children in the area step t+1 wrote
+            const Real* rlp = xbase + (size_t)((t + 1) & 1) * F * K;
+#pragma unroll
+            for (int f = 0; f < 2 * D + 1; ++f) gc[0][f] = Real(0.f);
+            for (int c = g; c < K; c += G) {
+              gc[0][0] += rlp[c];
+#pragma unroll
+              for (int d = 0; d < D; ++d) {
+                gc[0][1 + d] += rlp[(1 + d) * K + c];
+                gc[0][1 + D + d] += rlp[(1 + D + d) * K + c];
+              }
+            }
+          }
           Real sw, mf[D], tf[D];
           group_online(g, t, xt, l2t, mx, sw, mf, tf);
           inv_sw = 1.0f / clamp_min(sw, kTiny);
           // the guard's indicator has a zero tangent
           const float ok = val(sw) >= kTiny ? 1.f : 0.f;
           // softmax-mixture rule: the sw factors cancel against wn
-          fac = gc[j][0];
+          fac = gc[jg][0];
 #pragma unroll
           for (int d = 0; d < D; ++d)
-            fac -= (gc[j][1 + d] * mf[d] + gc[j][1 + D + d] * tf[d]) * inv_sw;
+            fac -= (gc[jg][1 + d] * mf[d] + gc[jg][1 + D + d] * tf[d]) *
+                   inv_sw;
           fac = ok * fac;
         }
         for (int c = g * A; c < (g + 1) * A; ++c) {
@@ -771,12 +814,12 @@ __global__ void __launch_bounds__(kGradWideThreads, 1)
             Real own = Real(0.f);
 #pragma unroll
             for (int d = 0; d < D; ++d)
-              own += gc[j][1 + d] * p.nm[d] + gc[j][1 + D + d] * p.tl[d];
+              own += gc[jg][1 + d] * p.nm[d] + gc[jg][1 + D + d] * p.tl[d];
             cb = (fac + own) * wn;
 #pragma unroll
             for (int d = 0; d < D; ++d) {
-              cnm[d] = gc[j][1 + d] * wn;
-              ctl[d] = gc[j][1 + D + d] * wn;
+              cnm[d] = gc[jg][1 + d] * wn;
+              ctl[d] = gc[jg][1 + D + d] * wn;
             }
           }
           Real dm[D], ds2[D], dl2[D];
@@ -851,13 +894,46 @@ __global__ void __launch_bounds__(kGradWideThreads, 1)
     // the look-ahead scratch out of the s2n partials (their table is unused)
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kGradWideGroups; ++j) {
+    for (int j = 0; j < ng; ++j) {
       const int g = tid + j * nt;
       if (g >= G) continue;
       for (int ka = g * A * A; ka < (g + 1) * A * A; ++ka)
         p_s2n[ka] = Real(0.f);
     }
   }
+}
+
+// The wide mapping up to kGradWideGroups groups a thread (G <= 2048).
+template <typename Real, int D, bool VDT>
+__global__ void __launch_bounds__(kGradWideThreads, 1)
+    grad_wide_kernel(TablesT<Real> tb, const float* __restrict__ xs,
+                     const Real* __restrict__ l2s,
+                     const int* __restrict__ lengths,
+                     const float* __restrict__ isbls, int B, int T,
+                     Real* __restrict__ logl, Real* __restrict__ ct_l2,
+                     Real* __restrict__ scratch_all,
+                     Real* __restrict__ partial, int xch_global,
+                     StreamT<Real> st) {
+  grad_wide_walk<Real, D, VDT, false>(tb, xs, l2s, lengths, isbls, B, T,
+                                      logl, ct_l2, scratch_all, partial,
+                                      xch_global, st);
+}
+
+// The wide mapping past 2048 groups (up to kGradDeepGroups a thread), its
+// exchange double-buffered.
+template <typename Real, int D, bool VDT>
+__global__ void __launch_bounds__(kGradWideThreads, 1)
+    grad_wide_deep_kernel(TablesT<Real> tb, const float* __restrict__ xs,
+                          const Real* __restrict__ l2s,
+                          const int* __restrict__ lengths,
+                          const float* __restrict__ isbls, int B, int T,
+                          Real* __restrict__ logl, Real* __restrict__ ct_l2,
+                          Real* __restrict__ scratch_all,
+                          Real* __restrict__ partial, int xch_global,
+                          StreamT<Real> st) {
+  grad_wide_walk<Real, D, VDT, true>(tb, xs, l2s, lengths, isbls, B, T,
+                                     logl, ct_l2, scratch_all, partial,
+                                     xch_global, st);
 }
 
 
@@ -1439,13 +1515,16 @@ static __global__ void reduce_partials(const float* __restrict__ partial,
   out[j] = (float)s;
 }
 
-// The kernel instantiation that launch_grad runs for this K and mapping
+// The kernel instantiation that launch_grad runs for this K, A and mapping
 // (warps > 0: the warp mapping with `warps` warps per block; 0 the block
 // mapping; -1 the wide mapping, -2 the wide mapping with its exchange in
-// global scratch).
+// global scratch; past 2048 groups the wide mapping's deep kernel).
 template <typename Real, int D, bool VDT>
-static const void* grad_instance(int K, int warps) {
-  if (warps < 0) return (const void*)grad_wide_kernel<Real, D, VDT>;
+static const void* grad_instance(int K, int A, int warps) {
+  if (warps < 0)
+    return grad_wide_deep(K, A)
+               ? (const void*)grad_wide_deep_kernel<Real, D, VDT>
+               : (const void*)grad_wide_kernel<Real, D, VDT>;
   if (warps > 0)
     return K <= 32 ? (const void*)grad_warp_kernel<Real, D, 1, VDT>
                    : (const void*)grad_warp_kernel<Real, D, 2, VDT>;
@@ -1459,9 +1538,9 @@ static const void* grad_instance(int K, int warps) {
 
 // grad_instance with P > 0 for variable dt.
 template <typename Real, int D>
-static const void* grad_instance(int K, int warps, int P) {
-  return P > 0 ? grad_instance<Real, D, true>(K, warps)
-               : grad_instance<Real, D, false>(K, warps);
+static const void* grad_instance(int K, int A, int warps, int P) {
+  return P > 0 ? grad_instance<Real, D, true>(K, A, warps)
+               : grad_instance<Real, D, false>(K, A, warps);
 }
 
 // Dynamic shared memory of one block, as launch_grad asks for it.
@@ -1484,7 +1563,7 @@ static int grad_threads(int K, int A, int D, int T, int warps) {
 template <typename Real, int D>
 static int grad_occupancy(int K, int A, int T, int warps, int stash_smem,
                           int P) {
-  const void* fn = grad_instance<Real, D>(K, warps, P);
+  const void* fn = grad_instance<Real, D>(K, A, warps, P);
   const size_t smem = grad_smem<Real>(K, A, D, T, warps, stash_smem, P);
   const int threads = grad_threads(K, A, D, T, warps);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1507,12 +1586,12 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
   if (warps < -2 || 32 * warps > kWarpBlock || (warps > 0 && K > 64) ||
       (warps == 0 && K > 1024) || (warps <= 0 && stash_smem) ||
       (warps < 0 && (K > kGradWideMaxK ||
-                     K / tb.A > kGradWideGroups * kGradWideThreads)) ||
+                     K / tb.A > kGradDeepGroups * kGradWideThreads)) ||
       P < 0 ||
       (P > 0 && (st.s2 == nullptr || st.ct == nullptr || P % tb.A != 0 ||
                  K % P != 0 || T < 2)))
     return (int)cudaErrorInvalidValue;
-  const void* fn = grad_instance<Real, D>(K, warps, P);
+  const void* fn = grad_instance<Real, D>(K, tb.A, warps, P);
   const size_t smem = grad_smem<Real>(K, tb.A, D, T, warps, stash_smem, P);
   // the opt-in covers the static shared memory's share of the 48 KB too
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -16,9 +16,9 @@
 //   1.14-1.75x faster than the block mapping at every K1 register of
 //   81..1024 slots measured) (walk_wide_kernel, below): one persistent
 //   block a track, a thread owning whole fusion groups; the carries live
-//   in shared memory as the G = K/A fused Gaussians, or, for K4 where
-//   they pass what a block may opt in to, in the block's global scratch
-//   (walk_wide_global_kernel).
+//   in shared memory as the G = K/A fused Gaussians, or, where they pass
+//   what a block may opt in to, in the block's global scratch
+//   (walk_wide_global_kernel for K4, forward_wide_global_kernel for K1).
 //
 // The warp and block mappings keep each slot's (K,) tables in registers
 // for the whole launch; all three fuse in base 2 on the special-function
@@ -182,7 +182,8 @@ struct WalkArgs {
   int B, T, S, W;
   float* logl;
   float* preds;           // K4: (B, T, S)
-  float* stash_all;       // K4: global stash scratch, or null
+  float* stash_all;       // global scratch (K4's stash, carries in the
+                          // wide global walks), or null
   int stash_smem;         // K4: the stash in the team's shared memory
   const float* sig2s;     // variable dt: (B, T-1, P) displacement variances
   int P;                  // their patterns, S^(n+1); 0: constant dt
@@ -678,8 +679,11 @@ __global__ void __launch_bounds__(NT, walk_block_min_blocks<NT>())
 // global scratch, ahead of its stash (wide_global_layout): only the warp
 // partials stay in shared memory.  The barrier that ends a step makes the
 // groups' global writes visible to the block, as it does the shared ones;
-// the reads go through L1.  K1 stays at 4096 slots (the wrapper's
-// envelope): it has no such instantiation.
+// the reads go through L1.  K1 (up to 16384 slots, the wrapper's
+// envelope) runs the same walk in forward_wide_global_kernel where its two
+// publish areas pass the opt-in (2 states at W = 14, 327,680 bytes at D =
+// 2; 4 states at W = 7 fits, 229,376 bytes at D = 3): it has no stash, so
+// its scratch is the publish areas alone.
 //
 // The same kernels run K4 up to 65536 slots (the GUI's labeling window at
 // 3 states, 3^10 = 59049; 7^5 = 16807 still fits shared memory): a thread
@@ -708,18 +712,16 @@ static __host__ __device__ inline WalkLayout wide_layout(int K, int A,
           stash * 4};
 }
 
-// K4's team of the wide mapping with its carries in global scratch: shared
-// memory holds the closings' and the harvest's warp partials; a block's
-// scratch holds the two publish areas, the softmax over the register (K)
-// and the stash, in that order.
-static __host__ __device__ inline WalkLayout wide_global_layout(int K, int A,
-                                                                int D, int T,
-                                                                int S,
-                                                                int W) {
+// The wide mapping's team with its carries in global scratch: shared
+// memory holds the closings' and (K4) the harvest's warp partials; a
+// block's scratch holds the two publish areas and, for K4 (pred), the
+// softmax over the register (K) and the stash, in that order.
+static __host__ __device__ inline WalkLayout wide_global_layout(
+    int K, int A, int D, int T, int S, int W, bool pred) {
   const int G = K / A;
-  const size_t parts = 4 * 32 + (size_t)W * S * 32;
-  const size_t carries = (size_t)2 * (2 * D + 1) * G + K;
-  const size_t stash = T > W ? (size_t)(T - W) * (K | 1) : 0;
+  const size_t parts = 4 * 32 + (pred ? (size_t)W * S * 32 : 0);
+  const size_t carries = (size_t)2 * (2 * D + 1) * G + (pred ? K : 0);
+  const size_t stash = pred && T > W ? (size_t)(T - W) * (K | 1) : 0;
   const int threads = (G + 31) / 32 * 32;
   return {threads < kWideThreads ? threads : kWideThreads, parts * 4,
           (carries + stash) * 4};
@@ -1027,17 +1029,28 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     walk_wide_global_kernel(WalkArgs wa, unsigned long long* prof) {
   extern __shared__ __align__(16) float smem[];
   const WalkLayout lay = wide_global_layout(wa.tb.K, wa.tb.A, D, wa.T, wa.S,
-                                            wa.W);
+                                            wa.W, true);
   wide_tracks<D, true, VDT, true>(
       wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
 }
 
+// K1's wide walk with its publish areas in the block's global scratch.
+template <int D, bool VDT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    forward_wide_global_kernel(WalkArgs wa, unsigned long long* prof) {
+  extern __shared__ __align__(16) float smem[];
+  const WalkLayout lay = wide_global_layout(wa.tb.K, wa.tb.A, D, wa.T, wa.S,
+                                            wa.W, false);
+  wide_tracks<D, false, VDT, true>(
+      wa, smem, wa.stash_all + (size_t)blockIdx.x * (lay.stash / 4), prof);
+}
+
 // The team layout of a launch: warps > 0 the warp mapping, 0 the block
-// mapping, -1 the wide mapping, -2 K4's wide mapping with its carries in
+// mapping, -1 the wide mapping, -2 the wide mapping with its carries in
 // global scratch.
 static inline WalkLayout team_layout(int warps, int K, int A, int D, int T,
                                      int S, int W, bool pred, int P) {
-  if (warps == -2) return wide_global_layout(K, A, D, T, S, W);
+  if (warps == -2) return wide_global_layout(K, A, D, T, S, W, pred);
   return warps < 0 ? wide_layout(K, A, D, T, S, W, pred)
                    : walk_layout(warps, K, A, D, T, S, W, pred, P);
 }
@@ -1045,7 +1058,7 @@ static inline WalkLayout team_layout(int warps, int K, int A, int D, int T,
 // The instantiation a launch runs: warps > 0, the warp mapping (J by K,
 // the fusion's A unrolled at 2 and 4: two states, or two sub-steps or four
 // states); 0, the block mapping by block size (K4 only: K1 goes from the
-// warp mapping to the wide one); -1, the wide mapping; -2, K4's wide
+// warp mapping to the wide one); -1, the wide mapping; -2, the wide
 // mapping with its carries in global scratch.
 template <int D, bool PRED, bool VDT>
 static const void* walk_instance(int K, int A, int warps) {
@@ -1053,7 +1066,7 @@ static const void* walk_instance(int K, int A, int warps) {
     if constexpr (PRED)
       return (const void*)walk_wide_global_kernel<D, VDT>;
     else
-      return nullptr;
+      return (const void*)forward_wide_global_kernel<D, VDT>;
   }
   if (warps < 0) return (const void*)walk_wide_kernel<D, PRED, VDT>;
   if (warps > 0) {
@@ -1124,7 +1137,7 @@ static int launch_walk(const WalkArgs& wa, int D, int nblk, int warps,
   const int K = wa.tb.K, A = wa.tb.A, P = wa.P;
   if (D < 1 || D > 3 || K > (warps < 0 ? kWideMaxK : 1024) || warps < -2 ||
       32 * warps > kWalkWarpBlock || (warps > 0 && K > 64) ||
-      (!PRED && warps == 0) || (!PRED && warps == -2) ||
+      (!PRED && warps == 0) ||
       (warps == -2 && (wa.stash_smem || wa.stash_all == nullptr)) ||
       (!PRED && wa.stash_smem) || (PRED && A != wa.S) || P < 0 ||
       (P > 0 && (wa.sig2s == nullptr || P % A != 0 || K % P != 0 ||

@@ -8,10 +8,11 @@ analysis windows — Model Fitting, State Labeling, State Lifetime
 Histogram, Position Refinement (ExTrack_GUI.py:1288-1293).  On the card
 (``Session.device``, default the card) every analysis runs the CUDA
 kernels (K2 and K3 for the fit, K4, K5, K6); the Model Fitting window's
-seeded frame_len 6 at 4 states (4^6 = 4096 slots) runs K2 and K3 on their
-wide mapping, and a choice past a kernel's envelope (frame_len 7 at 4
-states passes K2's 4096 slots) raises as the driver does, naming the
-kernel.
+seeded frame_len 6 runs K2 and K3 on their wide mapping from 4 states on
+(4^6 = 4096 slots; 5^6 = 15,625 at 5 states, with their exchange in
+global scratch), and a choice past a kernel's envelope (frame_len 8 at 4
+states passes K2's 16384 slots) raises as ``fit.param_fitting`` does,
+naming the kernel.
 
 Design: every analysis is a plain function over a ``Session`` dataclass
 (testable without a display); the Tk layer is a thin shell that fills the

@@ -31,8 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer arguments, then int arguments, then the stream
 _SIGNATURES = {
-    "extrack_forward": [_P] * 16 + [_I] * 9 + [_P],
+    "extrack_forward": [_P] * 17 + [_I] * 9 + [_P],
     "extrack_forward_occupancy": [_I] * 6,
+    "extrack_forward_layout": [_I] * 6 + [_P],
     "extrack_grad": [_P] * 21 + [_I] * 10 + [_P],
     "extrack_hvp": [_P] * 21 + [_I] * 10 + [_P],
     "extrack_grad_occupancy": [_I] * 7,
@@ -189,14 +190,25 @@ def smem_bytes(query: str, device_index: int) -> int:
     return rc
 
 
+@functools.cache
+def _card_bytes(index: int) -> int:
+    """Bytes this process could hold on card ``index`` at its first query:
+    the free memory ``cudaMemGetInfo`` reports and the caching allocator's
+    reserved blocks.  Queried once a card: the two queries cost host time
+    before every launch, which the first of a series of launches waits
+    for (about 0.7 ms of K2's 36 ms on four buckets at 4096 slots, NVIDIA
+    H100 80GB HBM3)."""
+    free, _ = torch.cuda.mem_get_info(index)
+    return free + torch.cuda.memory_reserved(index)
+
+
 def scratch_budget(dev) -> int:
-    """Bytes of global scratch one launch may take on ``dev``:
-    SCRATCH_BUDGET, or half of what the card has left where that is less
-    (free device memory and the allocator's cached, unused blocks)."""
-    free, _ = torch.cuda.mem_get_info(dev)
-    cached = (torch.cuda.memory_reserved(dev)
-              - torch.cuda.memory_allocated(dev))
-    return min(SCRATCH_BUDGET, (free + cached) // 2)
+    """Bytes of global scratch one launch may take on ``dev`` (a CUDA
+    device with its index): SCRATCH_BUDGET, or half of what the card has
+    left where that is less (what this process could hold at its first
+    query, less what its tensors hold now)."""
+    left = _card_bytes(dev.index) - torch.cuda.memory_allocated(dev)
+    return min(SCRATCH_BUDGET, max(left, 0) // 2)
 
 
 def scratch_blocks(B: int, sms: int, threads: int, carry_bytes: int):

@@ -18,14 +18,16 @@ hist.cu, refine.cu; K2 and K3: grad.cuh, ``grad_kernel.plan``): one warp
 per track up to 64 slots, a block per track with a thread a slot up to
 1024 (K2, K3, K4, K5, K6) and a thread a fusion group past that (the wide
 mapping: K1 above 64 slots, the others above 1024; up to 4096 slots for
-K1, K2, K3 and K6, 16384 for K5 and 65536 for K4, whose carries go to
-global scratch where they pass a block's shared memory); ``plan`` and
-``grid`` lay a K1 or K4 launch out as persistent blocks.  ``MAX_SLOTS`` is
-each kernel's envelope.  ``LAUNCHES`` counts kernel
-launches, ``PLAIN_CALLS`` calls of the plain version.
+K6, 16384 for K1, K2, K3 and K5 and 65536 for K4; K1's, K4's and K5's
+carries and K2's and K3's exchange go to global scratch where they pass
+a block's shared memory); ``plan`` and ``grid`` lay a K1 or K4 launch out
+as persistent blocks.  ``MAX_SLOTS`` is each kernel's envelope.
+``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the plain
+version.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -42,15 +44,17 @@ PLAIN_CALLS = 0
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 BLOCK_MAX_K = 1024        # the block mapping: one thread per register slot
 WIDE_MAX_K = 4096         # the wide mapping: one thread per fusion group
-SCRATCH_MAX_K = 16384     # K5's wide mapping, its carries in global
-                          # scratch where shared memory cannot hold them
+SCRATCH_MAX_K = 16384     # K1's, K2's, K3's and K5's wide mapping, past
+                          # shared memory with global scratch (K2, K3: up
+                          # to eight fusion groups a thread)
 PREDICT_MAX_K = 65536     # K4's: the GUI's labeling window at 3 states
                           # (3^10 = 59049) and predict_Bs at 7 states
                           # (7^5) and 6 states (6^6) need more than 16384
 # each kernel's largest register: every kernel maps past 1024 slots
-# (csrc/walk.cuh, grad.cuh, hist.cu, refine.cu); K1, K2, K3 and K6 stop at
-# 4096, K4 and K5 go on with their carries in global scratch
-MAX_SLOTS = {"K1": WIDE_MAX_K, "K2": WIDE_MAX_K, "K3": WIDE_MAX_K,
+# (csrc/walk.cuh, grad.cuh, hist.cu, refine.cu); K6 stops at 4096, K1, K2,
+# K3 and K5 at 16384 and K4 at 65536, each going on with its carries (K2,
+# K3: the exchange of carry cotangents) in global scratch
+MAX_SLOTS = {"K1": SCRATCH_MAX_K, "K2": SCRATCH_MAX_K, "K3": SCRATCH_MAX_K,
              "K4": PREDICT_MAX_K, "K5": SCRATCH_MAX_K, "K6": WIDE_MAX_K}
 # the mappings of K1, K4, K5 and K6, narrowest first.  K1 skips the block
 # mapping: the wide one ran it 1.14-1.75x faster at every register of
@@ -60,8 +64,10 @@ MAPPINGS = {"K1": ("warp", "wide"), "K4": ("warp", "block", "wide"),
             "K5": ("block", "wide"), "K6": ("block", "wide")}
 WARPS = (4, 2, 1)         # warps a block the warp mapping may launch
 WIDE = -1                 # the C interface's warps of the wide mapping
-WIDE_GLOBAL = -2          # K4's wide mapping with its carries in global
-                          # scratch (csrc/walk.cuh walk_wide_global_kernel)
+WIDE_GLOBAL = -2          # K1's and K4's wide mapping with its carries in
+                          # global scratch (csrc/walk.cuh
+                          # forward_wide_global_kernel and
+                          # walk_wide_global_kernel)
 # the kernels that take the streamed displacement-variance table
 STREAMED = ("K1", "K2", "K3", "K4", "K5")
 
@@ -69,8 +75,8 @@ STREAMED = ("K1", "K2", "K3", "K4", "K5")
 class Plan(NamedTuple):
     """How one K1 / K4 launch maps tracks onto the card."""
     warps: int            # warps a block of the warp mapping; 0: block;
-                          # WIDE: the wide mapping; WIDE_GLOBAL: K4's
-                          # wide mapping, carries in global scratch
+                          # WIDE: the wide mapping; WIDE_GLOBAL: the wide
+                          # mapping, carries in global scratch
     stash_smem: bool      # K4's stash of fusion weights in shared memory
 
 
@@ -107,16 +113,16 @@ def plan(kernel: str, K: int, fixed: int, stash_bytes: int, smem_limit: int,
     block's share fits ``smem_limit`` and, with the block size of WARPS
     that keeps the most tracks resident, as many tracks stay resident as
     with the stash in global scratch (``stash`` "smem"/"global" forces
-    it).  K4's wide team whose ``fixed`` bytes pass ``smem_limit`` runs
-    WIDE_GLOBAL: its carries and stash in global scratch, at the bytes of
-    its own layout."""
+    it).  A wide team whose ``fixed`` bytes pass ``smem_limit`` runs
+    WIDE_GLOBAL: its carries (and K4's stash) in global scratch, at the
+    bytes of its own layout."""
     w = mapping_warps(kernel, K, mapping)
     sizes = WARPS if w == 1 else (w,)
-    if kernel == "K4" and w == WIDE and fixed > smem_limit:
+    if w == WIDE and fixed > smem_limit:
         if stash == "smem":
-            raise ValueError(f"K4's wide team ({fixed} bytes besides its "
-                             f"stash) does not fit {smem_limit} bytes of "
-                             "shared memory")
+            raise ValueError(f"{kernel}'s wide team ({fixed} bytes besides "
+                             f"its stash) does not fit {smem_limit} bytes "
+                             "of shared memory")
         return Plan(WIDE_GLOBAL, False)
     if stash_bytes == 0:
         return Plan(sizes[0], False)
@@ -140,13 +146,14 @@ def plan(kernel: str, K: int, fixed: int, stash_bytes: int, smem_limit: int,
 
 def grid(B: int, pl: Plan, sms: int, occupancy: int, stash_bytes: int = 0,
          budget: int | None = None):
-    """(blocks, bytes of global stash scratch) of a persistent launch on
-    ``sms`` SMs: as many blocks as the card keeps resident (``occupancy``
-    an SM), no more than the tracks need, and no more than ``budget``
-    bytes (None: cuda_lib.SCRATCH_BUDGET; the wrappers pass
-    ``cuda_lib.scratch_budget``, which the card's free memory bounds too)
-    of stash (``stash_bytes`` a team) in global scratch.  Raises
-    RuntimeError where one team's stash alone passes the budget."""
+    """(blocks, bytes of global scratch) of a persistent launch on ``sms``
+    SMs: as many blocks as the card keeps resident (``occupancy`` an SM),
+    no more than the tracks need, and no more than ``budget`` bytes (None:
+    cuda_lib.SCRATCH_BUDGET; the wrappers pass ``cuda_lib.scratch_budget``,
+    which the card's free memory bounds too) of global scratch
+    (``stash_bytes`` a team: K4's stash, and at WIDE_GLOBAL K1's or K4's
+    carries).  Raises RuntimeError where one team's scratch alone passes
+    the budget."""
     team = max(1, pl.warps)
     nblk = max(1, min(-(-B // team), sms * max(1, occupancy)))
     if pl.stash_smem or stash_bytes == 0:
@@ -160,6 +167,19 @@ def grid(B: int, pl: Plan, sms: int, occupancy: int, stash_bytes: int = 0,
             "tracks' bucket or free device memory")
     nblk = max(1, min(nblk, budget // (team * stash_bytes)))
     return nblk, nblk * team * stash_bytes
+
+
+@functools.cache
+def layout(T: int, D: int, K: int, A: int, warps: int, P: int = 0):
+    """(shared bytes of one team, its global scratch bytes) of a K1
+    launch (``P`` > 0: variable dt), as the kernel's source defines its
+    team (``extrack_forward_layout``; ``warps`` a warp of the warp
+    mapping, WIDE a block of the wide one, WIDE_GLOBAL the wide one with
+    its publish areas in global scratch)."""
+    out = (ctypes.c_longlong * 3)()
+    cuda_lib.check(cuda_lib.library().extrack_forward_layout(
+        T, D, K, A, warps, P, ctypes.addressof(out)), "K1 layout")
+    return out[1], out[2]
 
 
 @functools.cache
@@ -394,13 +414,24 @@ def launch(data, tabs, min_len: int,
     P = stream_patterns(tabs)
     lib = cuda_lib.library()
     dev = xs.device
-    pl = plan("K1", K, 0, 0, 0, None, mapping)
-    nblk, _ = grid(B, pl, _sms(dev.index), _occupancy(
-        "extrack_forward_occupancy", D, K, A, T, pl.warps, P))
+    w = mapping_warps("K1", K, mapping)
+    fixed = layout(T, D, K, A, w, P)[0] if w == WIDE else 0
+    pl = plan("K1", K, fixed, 0,
+              cuda_lib.smem_bytes("extrack_predict_smem", dev.index), None,
+              mapping)
+    # WIDE_GLOBAL: the publish areas in each block's global scratch
+    team = layout(T, D, K, A, pl.warps, P)[1] if pl.warps == WIDE_GLOBAL \
+        else 0
+    nblk, nbytes = grid(B, pl, _sms(dev.index), _occupancy(
+        "extrack_forward_occupancy", D, K, A, T, pl.warps, P), team,
+        cuda_lib.scratch_budget(dev) if team else None)
     logl = torch.empty(B, dtype=torch.float32, device=dev)
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+               if nbytes else None)
     rc = lib.extrack_forward(
         *(t.data_ptr() for t in (*data, *tabs[:10])),
-        tabs[10].data_ptr() if P else None, logl.data_ptr(),
+        *(None if t is None else t.data_ptr()
+          for t in (tabs[10] if P else None, logl, scratch)),
         B, T, D, K, A, P, int(min_len), nblk, pl.warps,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "forward")

@@ -11,15 +11,19 @@ localization-error variances:
   K2's three mappings: one warp per track for K <= 64 (its carry history
   in shared memory when it fits), one block per track with a thread a
   slot up to 1024 slots, and one block per track with a thread a fusion
-  group (the wide mapping) up to 4096, its exchange of carry cotangents
-  in shared memory where ``wide_layout``'s fits, else in global scratch.
+  group (the wide mapping) up to 16384, its exchange of carry cotangents
+  in shared memory where ``wide_layout``'s fits, else in global scratch
+  (past 2048 groups a thread owns up to eight of them, and the exchange is
+  double-buffered).  The persistent grid takes no more global scratch
+  (history, exchange, partial rows) than the card's free memory allows
+  (``cuda_lib.scratch_budget``).
   With variable dt the
   kernel reads the streamed displacement variances (``kernel_inputs``'
   eleventh tensor) and returns their cotangent, which autograd carries
   through the stream's expand and ``tables.build_tables`` to the
   parameters.
 * CUDA tensors, no gradient wanted (``torch.no_grad`` or no input requires
-  grad): the cheaper forward kernel K1, whose envelope (4096 slots) is
+  grad): the cheaper forward kernel K1, whose envelope (16384 slots) is
   K2's.
 * CPU tensors: the plain version, torch autograd of ``core.engine.forward``.
 
@@ -41,9 +45,6 @@ from extrack_tpu_torch.ops import cuda_lib, forward_kernel
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
-# bytes of per-step carry history the persistent blocks may hold in global
-# scratch
-STASH_BUDGET = 1 << 30
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 # the block mapping's largest register (a thread a slot); 0 moves every
 # register past WARP_MAX_K to the wide mapping (tests, chip_smoke.py)
@@ -52,7 +53,8 @@ WARPS = (4, 2, 1)         # warps per block the warp mapping may launch
 WIDE = -1                 # the C interface's warps of the wide mapping
 WIDE_GLOBAL = -2          # the wide mapping, its exchange in global scratch
 WIDE_THREADS = 1024       # csrc/grad.cuh kGradWideThreads
-WIDE_GROUPS = 2           # fusion groups a thread of it owns, at most
+WIDE_GROUPS = 2           # fusion groups a thread of grad_wide_kernel owns
+DEEP_GROUPS = 8           # and of grad_wide_deep_kernel (kGradDeepGroups)
 RED_SCALARS = 64          # its block reductions' shared scratch
 
 
@@ -68,6 +70,12 @@ class WideLayout(NamedTuple):
     threads: int
     smem: int             # dynamic shared bytes
     scratch: int          # global scratch bytes: history, exchange if global
+
+
+def wide_deep(K: int, A: int) -> bool:
+    """Whether the wide mapping runs its deep kernel (more than
+    WIDE_GROUPS groups a thread, a double-buffered exchange)."""
+    return K // A > WIDE_GROUPS * WIDE_THREADS
 
 
 def history_floats(T: int, D: int, K: int) -> int:
@@ -98,11 +106,12 @@ def wide_layout(K: int, A: int, D: int, T: int, exchange_global: bool,
     """The host twin of csrc/grad.cuh's grad_wide_layout: a thread a
     fusion group (G = K/A, up to WIDE_THREADS); shared memory holds the
     block reductions' scratch and, unless ``exchange_global``, the
-    exchange of the members' carry cotangents, (2D+1)K scalars; global
-    scratch holds the history (``wide_history_floats``) and, with
-    ``exchange_global``, the exchange."""
+    exchange of the members' carry cotangents, (2D+1)K scalars (twice
+    that for the deep kernel, ``wide_deep``); global scratch holds the
+    history (``wide_history_floats``) and, with ``exchange_global``, the
+    exchange."""
     G = K // A
-    xch = (2 * D + 1) * K
+    xch = (2 if wide_deep(K, A) else 1) * (2 * D + 1) * K
     return WideLayout(min(WIDE_THREADS, -(-G // 32) * 32),
                       (RED_SCALARS + (0 if exchange_global else xch))
                       * itemsize,
@@ -114,13 +123,12 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
          itemsize: int = 4, mapping: str | None = None,
          stash: str | None = None, P: int = 0) -> Plan:
     """K2's mapping for one launch: the warp mapping for K <= WARP_MAX_K,
-    the block mapping up to BLOCK_MAX_K, the wide
-    mapping above, up to ``forward_kernel.WIDE_MAX_K`` (``mapping``
-    "warp"/"block"/"wide" forces one).  The wide mapping keeps its
-    exchange in shared memory where ``wide_layout``'s block fits
-    ``smem_limit``, else in global scratch (Plan WIDE_GLOBAL; ``stash``
-    "smem"/"global" forces where).  The
-    warp mapping keeps the carry history in shared memory where it fits:
+    the block mapping up to BLOCK_MAX_K, the wide mapping above, up to
+    ``forward_kernel.MAX_SLOTS["K2"]`` with at most DEEP_GROUPS groups a
+    thread (``mapping`` "warp"/"block"/"wide" forces one).  The wide
+    mapping keeps its exchange in shared memory where ``wide_layout``'s
+    block fits ``smem_limit``, else in global scratch (Plan WIDE_GLOBAL;
+    ``stash`` "smem"/"global" forces where).  The warp mapping keeps the carry history in shared memory where it fits:
     where one warp's slice with it fits ``smem_limit`` (the opt-in limit a
     block may ask for) and, with the warps per block of WARPS that keep the
     most warps resident on an SM (``occupancy(warps, stash_smem)`` gives
@@ -131,10 +139,11 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
     mapping = mapping or ("warp" if K <= WARP_MAX_K else "block"
                           if K <= BLOCK_MAX_K else "wide")
     if mapping == "wide":
-        if (K > forward_kernel.WIDE_MAX_K
-                or K // A > WIDE_GROUPS * WIDE_THREADS):
-            raise ValueError(f"the wide mapping takes K <= "
-                             f"{forward_kernel.WIDE_MAX_K}, got {K}")
+        limit = forward_kernel.MAX_SLOTS["K2"]
+        if K > limit or K // A > DEEP_GROUPS * WIDE_THREADS:
+            raise ValueError(f"the wide mapping takes K <= {limit} and at "
+                             f"most {DEEP_GROUPS * WIDE_THREADS} fusion "
+                             f"groups, got K={K}, A={A}")
         fits = wide_layout(K, A, D, T, False, itemsize).smem <= smem_limit
         if stash == "smem" and not fits:
             raise ValueError(f"the wide mapping's exchange ({K=}, {D=}) "
@@ -167,32 +176,51 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
     return Plan(WARPS[0], False)
 
 
+def partial_bytes(K: int, A: int, itemsize: int = 4) -> int:
+    """Bytes of one block's row of table-cotangent partials, 6K + 4KA
+    scalars."""
+    return (6 * K + 4 * K * A) * itemsize
+
+
 def grid(B: int, T: int, D: int, K: int, pl: Plan, sms: int, occupancy: int,
-         itemsize: int = 4, A: int = 0):
+         itemsize: int = 4, A: int = 0, budget: int | None = None):
     """(blocks, scratch floats) of a persistent launch on ``sms`` SMs: as
     many blocks as the card keeps resident (``occupancy`` blocks per SM),
-    no more than the tracks need, and no more than STASH_BUDGET of carry
-    history in global scratch (one history per block, or per warp; the
-    wide mapping's ``wide_layout`` scratch, which needs ``A``)."""
+    no more than the tracks need, and no more than ``budget`` bytes (None:
+    cuda_lib.SCRATCH_BUDGET; ``setup`` passes ``cuda_lib.scratch_budget``,
+    which the card's free memory bounds too) of the buffers a block takes
+    in global memory: its row of partials (``partial_bytes``) and its
+    global scratch (the carry history of the block, or of each warp; the
+    wide mapping's ``wide_layout`` scratch: history and, at WIDE_GLOBAL,
+    the exchange).  Raises RuntimeError, naming the bytes, where one block
+    alone passes the budget."""
+    budget = cuda_lib.SCRATCH_BUDGET if budget is None else budget
     if pl.warps < 0:
-        per_block = wide_layout(K, A, D, T, pl.warps == WIDE_GLOBAL,
-                                itemsize).scratch
+        scratch = wide_layout(K, A, D, T, pl.warps == WIDE_GLOBAL,
+                              itemsize).scratch
         nblk = min(B, sms * max(1, occupancy))
-        nblk = max(1, min(nblk, STASH_BUDGET // max(1, per_block)))
-        return nblk, nblk * per_block // 4
-    per_block = max(1, pl.warps) * history_floats(T, D, K)
-    nblk = min(-(-B // max(1, pl.warps)), sms * max(1, occupancy))
-    if pl.stash_smem:
-        return max(1, nblk), 0
-    nblk = max(1, min(nblk, STASH_BUDGET // max(1, per_block * itemsize)))
-    return nblk, nblk * per_block * itemsize // 4
+    else:
+        scratch = (0 if pl.stash_smem else
+                   max(1, pl.warps) * history_floats(T, D, K) * itemsize)
+        nblk = min(-(-B // max(1, pl.warps)), sms * max(1, occupancy))
+    per_block = scratch + partial_bytes(K, A, itemsize)
+    if per_block > budget:
+        raise RuntimeError(
+            f"one block's global memory ({per_block} bytes: {scratch} of "
+            f"scratch, {per_block - scratch} of partials, for tracks of "
+            f"{T} frames at K={K}, D={D}) passes the {budget} bytes the "
+            "card can give it; split the longest tracks' bucket or free "
+            "device memory")
+    nblk = max(1, min(nblk, budget // per_block))
+    return nblk, nblk * scratch // 4
 
 
 def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
           itemsize: int, mapping=None, stash=None, P: int = 0):
     """The plan and grid of one K2 (``occupancy_fn`` extrack_grad_occupancy)
     or K3 launch on ``dev`` (``P`` > 0: variable dt): (Plan, blocks, global
-    scratch floats)."""
+    scratch floats); the grid's budget is ``cuda_lib.scratch_budget``, and
+    a block that alone passes it raises, naming the batch's shape."""
     def occ(warps, smem):
         n = occupancy_fn(D, K, A, T, warps, int(smem), P)
         if n < 0:
@@ -201,8 +229,13 @@ def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
     pl = plan(K, A, D, T, cuda_lib.smem_bytes("extrack_grad_smem", dev.index),
               occ, itemsize, mapping, stash, P)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblk, scratch = grid(B, T, D, K, pl, sms, occ(pl.warps, pl.stash_smem),
-                         itemsize, A)
+    try:
+        nblk, scratch = grid(B, T, D, K, pl, sms,
+                             occ(pl.warps, pl.stash_smem), itemsize, A,
+                             cuda_lib.scratch_budget(dev))
+    except RuntimeError as e:
+        raise RuntimeError(f"the batch of {B} tracks of {T} frames "
+                           f"(D={D}, K={K}, A={A}): {e}") from None
     return pl, nblk, scratch
 
 

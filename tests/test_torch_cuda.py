@@ -875,7 +875,7 @@ def test_cuda_topk_pad_prefix_backpointers_match_plain(cuda, S, n, M, B, T,
 
 def _past_envelope(S, kernel):
     """The smallest window whose register passes ``kernel``'s envelope
-    (K1 and K6: 4096 slots; K5: 16384; K4: 65536) at S states."""
+    (K6: 4096 slots; K1, K2, K3 and K5: 16384; K4: 65536) at S states."""
     limit = forward_kernel.MAX_SLOTS[kernel]
     return next(w for w in range(1, 20) if S ** w > limit)
 
@@ -924,7 +924,7 @@ def test_cuda_wide_k1_k4_match_plain(cuda, S, W, D, dt):
             continue
         torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="K1 maps at most 4096"):
+    with pytest.raises(NotImplementedError, match="K1 maps at most 16384"):
         forward_kernel.forward(*args, window=_past_envelope(S, "K1"),
                                min_len=2)
     with pytest.raises(NotImplementedError, match="K4 maps at most 65536"):
@@ -1423,14 +1423,14 @@ def test_cuda_wide_k2_k3_match_plain(cuda, S, W, n, D, dt):
     assert (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
             grad_kernel.PLAIN_CALLS + hvp_kernel.PLAIN_CALLS) == (
         before[0] + 4, before[1] + 1, before[2] + 2)
-    # past 4096 slots: K2 and K3 raise, naming the kernel and the window
+    # past 16384 slots: K2 and K3 raise, naming the kernel and the window
     # that fits
     W_past = _past_envelope(S, "K2")
     for fn, name in ((grad_kernel.value_and_table_grads, "K2"),
                      (lambda *a_, **k_: hvp_kernel.table_hvp(
                          *a_, args[3], **k_), "K3")):
         with pytest.raises(NotImplementedError,
-                           match=rf"{name} maps at most 4096.*window that "
+                           match=rf"{name} maps at most 16384.*window that "
                                  rf"fits is {W_past - 1}"):
             fn(*args, window=W_past, nb_substeps=1, min_len=2)
 
@@ -1480,7 +1480,8 @@ def test_grad_layout(cuda):
     dual numbers; below 1024 slots the default mappings stay the warp and
     block ones."""
     for S, W, n in ((6, 4, 1), (2, 11, 2), (3, 7, 1), (5, 5, 1), (4, 6, 1),
-                    (2, 12, 1), (3, 5, 1)):
+                    (2, 12, 1), (3, 5, 1), (6, 5, 1), (3, 8, 1), (5, 6, 1),
+                    (4, 7, 1), (2, 13, 1), (2, 14, 1), (2, 14, 2)):
         K, A = S ** W, S ** n
         for D in (1, 2, 3):
             for T in (2, 9, 40):
@@ -1493,9 +1494,141 @@ def test_grad_layout(cuda):
                                 warps == grad_kernel.WIDE_GLOBAL, item))
     smem = cuda_lib.smem_bytes("extrack_grad_smem", cuda.index or 0)
     for K, A, want in ((64, 2, 4), (243, 3, 0), (1024, 4, 0),
-                       (4096, 4, grad_kernel.WIDE)):
+                       (4096, 4, grad_kernel.WIDE),
+                       (16384, 4, grad_kernel.WIDE_GLOBAL)):
         pl = grad_kernel.plan(K, A, 3, 20, smem, lambda w, s: 1, 8)
         assert pl.warps == want
+
+
+# K1, K2 and K3 past 4096 slots (S, W, n, D, dt): 6^5 and 3^8 on
+# grad_wide_kernel's register count, 5^6 (the GUI's frame_len 6 at 5
+# states), 4^7 and 2^14 on the deep kernel (4 and 8 groups a thread); K1's
+# publish areas in global scratch at 2^14 from D = 2
+PAST_4096_GRAD_CASES = [
+    (6, 5, 1, 1, None), (3, 8, 1, 2, "track"), (5, 6, 1, 1, "step"),
+    (5, 6, 1, 3, None), (4, 7, 1, 2, None), (4, 7, 1, 3, "track"),
+    (2, 14, 1, 2, "step"), (2, 14, 1, 3, None), (2, 14, 2, 1, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,D,dt", PAST_4096_GRAD_CASES)
+def test_cuda_k1_k2_k3_past_4096_slots_match_plain(cuda, S, W, n, D, dt):
+    # through the wrappers; K1 and K2 repeatable bit for bit, K2 with its
+    # exchange in global scratch equal to the plan's, K1 with its publish
+    # areas forced to global scratch against the plain version (the two
+    # instantiations may round differently: not bit-equal at D = 1); K3
+    # against the plain double backward in float64
+    T = 9
+    args = _case(cuda, S, n, 20, T, D, seed=S * W + D, per_peak=(D == 2),
+                 dt=dt)
+    kw = dict(window=W, nb_substeps=n, min_len=2)
+    before = (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
+              hvp_kernel.LAUNCHES)
+    logl = forward_kernel.forward(*args, **kw)
+    torch.testing.assert_close(logl, forward_kernel.forward_plain(*args,
+                                                                  **kw),
+                               rtol=2e-5, atol=2e-4)
+    v, g = grad_kernel.value_and_table_grads(*args, **kw)
+    v0, g0 = grad_kernel.value_and_table_grads_plain(*args, **kw)
+    torch.testing.assert_close(v, v0, rtol=2e-5, atol=0.0)
+    for k in g:
+        torch.testing.assert_close(g[k], g0[k], rtol=2e-3, atol=2e-3)
+    hv, hv0 = _table_hvp64(args, S + W + D, **kw)
+    for name in hv0:
+        scale = float(hv0[name].abs().max())
+        torch.testing.assert_close(hv[name].double(), hv0[name], rtol=5e-3,
+                                   atol=1e-3 * scale)
+    assert (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
+            hvp_kernel.LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                     before[2] + 1)
+    data_, tabs = _kernel_args(args, W, n)
+    a = grad_kernel.launch(data_, tabs, 2)
+    b = grad_kernel.launch(data_, tabs, 2)
+    c = grad_kernel.launch(data_, tabs, 2, stash="global")
+    for x, y, z in zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2]),
+                       (c[0], c[1], *c[2])):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    k1 = forward_kernel.launch(data_, tabs, 2)
+    assert torch.equal(k1, forward_kernel.launch(data_, tabs, 2))
+    saved = cuda_lib.smem_bytes
+    try:
+        cuda_lib.smem_bytes = lambda query, index: 0
+        k1g = forward_kernel.launch(data_, tabs, 2)
+    finally:
+        cuda_lib.smem_bytes = saved
+    torch.testing.assert_close(k1g, forward_kernel.forward_plain(*args,
+                                                                 **kw),
+                               rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_forward_layout(cuda):
+    """K1's team as its source defines it (``extrack_forward_layout``):
+    the wide mapping's two publish areas of (2D+1) floats a fusion group
+    and the closings' partials in shared memory, or (-2) the partials
+    alone there and the publish areas in the block's global scratch; a
+    thread a group up to 1024; no block mapping."""
+    import ctypes
+    lib = cuda_lib.library()
+    out = (ctypes.c_longlong * 3)()
+    for S, W, n, D in ((3, 7, 1, 2), (6, 5, 1, 1), (5, 6, 1, 3),
+                       (4, 7, 1, 3), (2, 14, 1, 2), (2, 14, 2, 1)):
+        K, G = S ** W, S ** (W - n)
+        for P in (0, S ** (n + 1)):
+            assert lib.extrack_forward_layout(
+                10, D, K, S ** n, -1, P, ctypes.addressof(out)) == 0
+            assert tuple(out) == (min(1024, -(-G // 32) * 32),
+                                  4 * (2 * (2 * D + 1) * G + 128), 0)
+            assert lib.extrack_forward_layout(
+                10, D, K, S ** n, -2, P, ctypes.addressof(out)) == 0
+            assert tuple(out) == (min(1024, -(-G // 32) * 32), 4 * 128,
+                                  4 * 2 * (2 * D + 1) * G)
+    for warps in (0, -3):
+        assert lib.extrack_forward_layout(10, 2, 243, 3, warps, 0,
+                                          ctypes.addressof(out)) != 0
+    assert lib.extrack_forward_layout(10, 2, 3 ** 11, 3, -1, 0,
+                                      ctypes.addressof(out)) != 0
+    # the plan: 2^14 at D = 3 passes the opt-in, 4^7 at D = 3 fits it
+    smem = cuda_lib.smem_bytes("extrack_predict_smem", cuda.index or 0)
+    for K, A, D, want in ((2 ** 14, 2, 3, forward_kernel.WIDE_GLOBAL),
+                          (4 ** 7, 4, 3, forward_kernel.WIDE)):
+        fixed = forward_kernel.layout(10, D, K, A, forward_kernel.WIDE)[0]
+        assert forward_kernel.plan("K1", K, fixed, 0, smem, None).warps == (
+            want)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_fit_at_5_states_window_6(cuda, tmp_path):
+    """``cli fit --states 5 --window 6`` (K = 15,625, the GUI's frame_len
+    at 5 states) on a few hundred tracks: K2 and K3 launched, no plain
+    call, a fit with error bars written."""
+    import json
+    import os
+    import subprocess
+    import sys
+    tr = np.full((5, 5), 0.03) + np.eye(5) * 0.85
+    tracks, _, _ = simulate.sim_fov(
+        nb_tracks=400, max_track_len=8, min_track_len=3, LocErr=0.02,
+        Ds=(0.0, 0.01, 0.03, 0.06, 0.1), TrMat=tr, dt=0.02, pBL=0.1,
+        cell_dims=(0.5, None, None), seed=17)
+    from extrack_tpu_torch.io import exporters
+    csv = tmp_path / "tracks5.csv"
+    exporters.save_extrack_2_CSV(str(csv), tracks, {
+        k: np.zeros(v.shape[:2] + (2,)) for k, v in tracks.items()}, 0.02)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "extrack_tpu_torch.cli", "-v", "fit",
+         str(csv), "--dt", "0.02", "--min-len", "3", "--max-len", "8",
+         "--cell-dims", "0.5", "--states", "5", "--window", "6", "-o",
+         str(tmp_path / "fit5.json")], capture_output=True, text=True,
+        cwd=root, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [x for x in out.stdout.splitlines()
+            if x.startswith("kernel launches: ")][-1]
+    counts = json.loads(line[len("kernel launches: "):])
+    assert counts["K2"]["launches"] > 0 and counts["K3"]["launches"] > 0
+    assert sum(v["plain_calls"] for v in counts.values()) == 0
+    assert (tmp_path / "fit5.json").exists()
 
 
 @pytest.mark.cuda

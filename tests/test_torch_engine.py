@@ -120,16 +120,21 @@ def test_classify_sig2_and_envelope():
     forward_kernel.check_envelope(20, 2, 3, 5, 1)
     with pytest.raises(NotImplementedError, match="D=4"):
         forward_kernel.check_envelope(20, 4, 2, 6, 1)
-    # K1, K2 and K3 map up to 4096 slots; each raise names the kernel, its
-    # limit and the largest window that fits
+    # K1, K2 and K3 map up to 16384 slots; each raise names the kernel,
+    # its limit and the largest window that fits
     forward_kernel.check_envelope(20, 2, 2, 11, 1)          # K = 2048
+    forward_kernel.check_envelope(20, 2, 2, 13, 1)          # K = 8192
+    forward_kernel.check_envelope(20, 2, 2, 14, 1)          # K = 16384
     with pytest.raises(NotImplementedError,
-                       match="K=S.*4096.*K1.*window that fits is 12"):
-        forward_kernel.check_envelope(20, 2, 2, 13, 1)      # K = 8192
-    forward_kernel.check_envelope(20, 2, 2, 11, 1, kernel="K2")
-    with pytest.raises(NotImplementedError,
-                       match="K=S.*4096.*K2.*window that fits is 12"):
-        forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K2")
+                       match="K=S.*16384.*K1.*window that fits is 14"):
+        forward_kernel.check_envelope(20, 2, 2, 15, 1)      # K = 32768
+    for kernel in ("K2", "K3"):
+        forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel=kernel)
+        forward_kernel.check_envelope(20, 2, 5, 6, 1, kernel=kernel)
+        with pytest.raises(NotImplementedError,
+                           match=f"K=S.*16384.*{kernel}.*window that fits "
+                                 "is 14"):
+            forward_kernel.check_envelope(20, 2, 2, 15, 1, kernel=kernel)
     # K4 maps up to 65536 slots (its carries in global scratch past a
     # block's shared memory)
     forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K4")  # 8192

@@ -15,8 +15,10 @@ slots' digit codes.  In float64 every operation is exact to rounding, so
 it matches the engine within 1e-10.  Also here: the pure-Python ``plan``
 and ``grid`` that map a K1 or K4 launch onto the card, each kernel's
 register limit, and the wide mapping's blocks (K1, K4, K5 and K6 past
-1024 slots; K4 and K5 past 4096 with their carries in global scratch where
-shared memory cannot hold them) at every register of its envelope.
+1024 slots; K1, K4 and K5 past 4096 with their carries in global scratch
+where shared memory cannot hold them, and K2's and K3's, a thread up to
+eight fusion groups, with their exchange there) at every register of its
+envelope.
 """
 import math
 
@@ -25,7 +27,7 @@ import pytest
 import torch
 
 from extrack_tpu_torch.core import engine, tables
-from extrack_tpu_torch.ops import cuda_lib, forward_kernel
+from extrack_tpu_torch.ops import cuda_lib, forward_kernel, grad_kernel
 import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
 
 LOG2E = 1.0 / math.log(2.0)
@@ -346,15 +348,17 @@ def _wide_threads(G):
 def _wide_walk_bytes(K, A, S, D, T, W, pred, carries_global=False):
     """A K1/K4 block of the wide mapping: its shared bytes besides K4's
     stash, the stash's bytes and its threads (csrc/walk.cuh wide_layout;
-    with ``carries_global`` K4's wide_global_layout: the partials' bytes,
-    and the publish areas, softmax and stash in global scratch; the card
-    test test_predict_layout reads the kernel's own)."""
+    with ``carries_global`` wide_global_layout: the partials' bytes, and
+    the publish areas (K4: softmax and stash too) in global scratch; the
+    card tests test_predict_layout and test_forward_layout read the
+    kernel's own)."""
     G = K // A
     carries = 2 * (2 * D + 1) * G + ((W * S * 32 + K) if pred else 0)
     stash = (T - W) * (K | 1) if pred and T > W else 0
     if carries_global:
-        return (4 * (128 + W * S * 32),
-                4 * (2 * (2 * D + 1) * G + K + stash), _wide_threads(G))
+        return (4 * (128 + (W * S * 32 if pred else 0)),
+                4 * (2 * (2 * D + 1) * G + (K if pred else 0) + stash),
+                _wide_threads(G))
     return 4 * (carries + 128), 4 * stash, _wide_threads(G)
 
 
@@ -380,10 +384,11 @@ def _wide_refine_bytes(K, S, D, T):
 
 
 def test_mapping_choice_and_per_kernel_limits():
-    # K1: a warp up to 64 slots, a thread a fusion group above, up to 4096;
-    # K4: a warp up to 64, a thread a slot up to 1024, a thread a fusion
-    # group up to 65536; K5 and K6 (a block a track) go wide past 1024, K5
-    # up to 16384, K6 up to 4096; K2 and K3 (grad_kernel.plan) to 4096
+    # K1: a warp up to 64 slots, a thread a fusion group above, up to
+    # 16384; K4: a warp up to 64, a thread a slot up to 1024, a thread a
+    # fusion group up to 65536; K5 and K6 (a block a track) go wide past
+    # 1024, K5 up to 16384, K6 up to 4096; K2 and K3 (grad_kernel.plan) to
+    # 16384
     W = forward_kernel.WIDE
     Ks = (64, 65, 1024, 1025, 4096)
     assert [forward_kernel.mapping_warps("K1", K) for K in Ks] == [
@@ -416,9 +421,13 @@ def test_mapping_choice_and_per_kernel_limits():
         forward_kernel.mapping_warps("K4", 65537, "wide")
     with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
         forward_kernel.mapping_warps("K5", 16807, "wide")
-    for k in ("K1", "K6"):
-        with pytest.raises(ValueError, match="wide mapping takes K <= 4096"):
-            forward_kernel.mapping_warps(k, 7776)
+    with pytest.raises(ValueError, match="wide mapping takes K <= 4096"):
+        forward_kernel.mapping_warps("K6", 7776)
+    # K1 goes on to 16384 (6^5, 5^6, 4^7, 2^14) and stops there
+    for K in (7776, 15625, 16384):
+        assert forward_kernel.mapping_warps("K1", K) == W
+    with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
+        forward_kernel.mapping_warps("K1", 16807)
     with pytest.raises(ValueError, match="K1 has the mappings"):
         forward_kernel.plan("K1", 243, 0, 0, 0, None, mapping="block")
     with pytest.raises(ValueError, match="K6 has the mappings"):
@@ -432,9 +441,9 @@ def test_mapping_choice_and_per_kernel_limits():
                 for k in ("K1", "K4")] == [W, 0]
     finally:
         forward_kernel.WARP_MAX_K = saved
-    assert forward_kernel.MAX_SLOTS == {"K1": 4096, "K2": 4096, "K3": 4096,
-                                        "K4": 65536, "K5": 16384,
-                                        "K6": 4096}
+    assert forward_kernel.MAX_SLOTS == {"K1": 16384, "K2": 16384,
+                                        "K3": 16384, "K4": 65536,
+                                        "K5": 16384, "K6": 4096}
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
@@ -503,6 +512,115 @@ def test_wide_walk_blocks_fit_every_register(D):
             assert 1 <= nblk <= 132 * (2048 // threads)
             assert nbytes == (0 if pl.stash_smem else nblk * stash)
             assert nbytes <= cuda_lib.SCRATCH_BUDGET
+
+
+# K1, K2 and K3 past 4096 slots: every (S, W, n) with 4096 < S^W <= 16384,
+# S <= 8 states and n <= 2 sub-steps (A = S^n children a fusion group)
+PAST_4096_FIT = [(S, W, n) for S in range(2, 9) for W in range(2, 15)
+                 for n in (1, 2) if 4096 < S ** W <= 16384 and n < W]
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_k1_past_4096_slots_plans_fit_every_register(D):
+    # K1's wide team past 4096 slots: WIDE_GLOBAL exactly where its two
+    # publish areas and partials pass a block's opt-in, and then nonzero
+    # scratch from grid (the publish areas, no stash), within the budget
+    def occ(warps, smem):
+        return 1
+    n_global = 0
+    for S, W, n in PAST_4096_FIT:
+        K, A = S ** W, S ** n
+        assert forward_kernel.mapping_warps("K1", K) == forward_kernel.WIDE
+        fixed, stash, threads = _wide_walk_bytes(K, A, S, D, 20, W, False)
+        assert stash == 0 and threads <= 1024
+        pl = forward_kernel.plan("K1", K, fixed, 0, SMEM, occ)
+        if fixed > SMEM:
+            n_global += 1
+            assert pl == forward_kernel.Plan(forward_kernel.WIDE_GLOBAL,
+                                             False)
+            fixed, team, threads = _wide_walk_bytes(K, A, S, D, 20, W,
+                                                    False, True)
+            assert fixed <= SMEM and team == 4 * 2 * (2 * D + 1) * (K // A)
+            nblk, nbytes = forward_kernel.grid(1 << 17, pl, 132, occ(0, 0),
+                                               team)
+            assert nbytes == nblk * team > 0 and nblk == 132
+            assert nbytes <= cuda_lib.SCRATCH_BUDGET
+            # the card's free memory bounds the grid
+            assert forward_kernel.grid(1 << 17, pl, 132, 1, team,
+                                       5 * team) == (5, 5 * team)
+        else:
+            assert pl == forward_kernel.Plan(forward_kernel.WIDE, False)
+            assert forward_kernel.grid(1 << 17, pl, 132, 1) == (132, 0)
+    # 2 states at W = 14 (8192 groups) pass the opt-in from D = 2 on
+    # (327,680 bytes of publish areas; 196,608 at D = 1); 4 states at W = 7
+    # (4096 groups) fit it even at D = 3, 229,376 bytes
+    assert (n_global > 0) == (D > 1)
+    assert (_wide_walk_bytes(2 ** 14, 2, 2, D, 20, 14, False)[0] > SMEM) == (
+        D > 1)
+    assert _wide_walk_bytes(4 ** 7, 4, 4, 3, 20, 7, False)[0] == (
+        229376 + 512) <= SMEM
+    with pytest.raises(ValueError, match="K1's wide team"):
+        forward_kernel.plan("K1", 2 ** 14, SMEM + 4, 0, SMEM, occ,
+                            stash="smem")
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_k2_k3_past_4096_slots_plans_fit_every_register(D, itemsize):
+    # K2 (floats) and K3 (dual numbers) past 4096 slots: at most 1024
+    # threads and DEEP_GROUPS groups a thread (the deep kernel past
+    # WIDE_GROUPS, its exchange double-buffered); the exchange in shared
+    # memory only where the block fits the opt-in; the blocks' scratch and
+    # partial rows within the budget handed in
+    def occ(warps, smem):
+        return 1
+    deep = shared = 0
+    for S, W, n in PAST_4096_FIT:
+        K, A = S ** W, S ** n
+        G = K // A
+        for T in (2, 9, 20, 40):
+            pl = grad_kernel.plan(K, A, D, T, SMEM, occ, itemsize)
+            assert pl.warps in (grad_kernel.WIDE, grad_kernel.WIDE_GLOBAL)
+            glob = pl.warps == grad_kernel.WIDE_GLOBAL
+            lay = grad_kernel.wide_layout(K, A, D, T, glob, itemsize)
+            assert lay.threads % 32 == 0 and lay.threads <= 1024
+            per_thread = -(-G // lay.threads)
+            xch = (2 * D + 1) * K
+            if grad_kernel.wide_deep(K, A):
+                deep += 1
+                assert grad_kernel.WIDE_GROUPS < per_thread <= (
+                    grad_kernel.DEEP_GROUPS)
+                xch *= 2
+            else:
+                assert per_thread <= grad_kernel.WIDE_GROUPS
+            hist = max(T - 3, 0) * (2 * D + 1) * G
+            if glob:
+                assert lay.smem == 64 * itemsize
+                assert lay.scratch == (hist + xch) * itemsize
+                assert (64 + xch) * itemsize > SMEM
+            else:
+                shared += 1
+                assert lay.smem == (64 + xch) * itemsize <= SMEM
+                assert lay.scratch == hist * itemsize
+            per = lay.scratch + grad_kernel.partial_bytes(K, A, itemsize)
+            for budget in (cuda_lib.SCRATCH_BUDGET, 7 * per):
+                nblk, floats = grad_kernel.grid(1 << 14, T, D, K, pl, 132,
+                                                1, itemsize, A, budget)
+                assert nblk == min(132, budget // per)
+                assert floats * 4 == nblk * lay.scratch
+                assert nblk * per <= budget
+    # the deep kernel at 3 states W = 8, 4 at W = 7, 5 at W = 6 and 2 at
+    # W = 13 and 14 (3, 4, 4, 4 and 8 groups a thread); 6^5 (1296 groups)
+    # stays on grad_wide_kernel
+    assert deep > 0 and not grad_kernel.wide_deep(6 ** 5, 6)
+    assert [-(-(S ** W // S) // 1024) for S, W in
+            ((3, 8), (4, 7), (5, 6), (2, 14))] == [3, 4, 4, 8]
+    if (D, itemsize) == (1, 4):
+        assert shared > 0     # 6^5 keeps its exchange in shared memory
+    # past 8192 groups the wide mapping refuses
+    with pytest.raises(ValueError, match="at most 8192 fusion groups"):
+        grad_kernel.plan(2 ** 14, 1, D, 20, SMEM, occ, itemsize,
+                         mapping="wide")
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])

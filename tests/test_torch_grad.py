@@ -221,14 +221,21 @@ def test_k2_grid():
     # resident blocks fill the card, no more blocks than the tracks need
     assert grad_kernel.grid(1 << 20, 10, 2, 64, pl, 132, 7) == (924, 0)
     assert grad_kernel.grid(5, 10, 2, 64, pl, 132, 7) == (3, 0)
-    # global scratch: one history per warp, capped by STASH_BUDGET
+    # global scratch: one history per warp, capped by the budget of the
+    # block's global memory (its histories and its row of partials)
     nblk, floats = grad_kernel.grid(1 << 20, 10, 2, 64,
                                     grad_kernel.Plan(4, False), 132, 4)
     assert (nblk, floats) == (528, 528 * 4 * 9 * 5 * 64)
     hist = grad_kernel.history_floats(2000, 2, 64) * 4
-    nblk, _ = grad_kernel.grid(1 << 20, 2000, 2, 64,
-                               grad_kernel.Plan(4, False), 132, 4)
-    assert nblk == grad_kernel.STASH_BUDGET // (4 * hist)
+    part = grad_kernel.partial_bytes(64, 2)
+    assert part == 4 * (6 * 64 + 4 * 64 * 2)
+    nblk, floats = grad_kernel.grid(1 << 20, 2000, 2, 64,
+                                    grad_kernel.Plan(4, False), 132, 4, A=2)
+    assert nblk == cuda_lib.SCRATCH_BUDGET // (4 * hist + part)
+    assert floats * 4 == nblk * 4 * hist
+    # a smaller budget (the card's free memory) takes fewer blocks
+    assert grad_kernel.grid(1 << 20, 2000, 2, 64, grad_kernel.Plan(4, False),
+                            132, 4, A=2, budget=3 * (4 * hist + part))[0] == 3
     # block mapping: one history per block
     assert grad_kernel.grid(1 << 20, 10, 2, 243, grad_kernel.Plan(0, False),
                             132, 8) == (1056, 1056 * 9 * 5 * 243)
@@ -255,8 +262,8 @@ def test_k2_plan_wide_mapping_exactly_past_1024_slots(K, A, want):
     else:
         with pytest.raises(ValueError, match="K <= 1024"):
             grad_kernel.plan(K, A, 2, 10, H100_OPTIN, occ, mapping="block")
-    for K_past, A_past in ((4 ** 7, 4), (6 ** 5, 6)):
-        with pytest.raises(ValueError, match="K <= 4096"):
+    for K_past, A_past in ((3 ** 9, 3), (2 ** 15, 2), (7 ** 5, 7)):
+        with pytest.raises(ValueError, match="K <= 16384"):
             grad_kernel.plan(K_past, A_past, 2, 10, H100_OPTIN, occ)
 
 
@@ -297,6 +304,7 @@ def test_k2_wide_layout_and_its_global_variant(K, A, D, itemsize):
 
 def test_k2_wide_grid_under_the_stash_budget():
     lay = grad_kernel.wide_layout(4096, 4, 2, 20, False, 8)
+    part = grad_kernel.partial_bytes(4096, 4, 8)
     for pl in (grad_kernel.Plan(grad_kernel.WIDE, False),
                grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False)):
         per = grad_kernel.wide_layout(4096, 4, 2, 20,
@@ -308,14 +316,33 @@ def test_k2_wide_grid_under_the_stash_budget():
         assert grad_kernel.grid(7, 20, 2, 4096, pl, 132, 1, 8,
                                 A=4) == (7, 7 * per // 4)
     assert lay.scratch == 17 * 5 * 1024 * 8
-    # long tracks: the history caps the blocks at STASH_BUDGET
+    assert part == (6 * 4096 + 4 * 4096 * 4) * 8
+    # long tracks: the history and the partial rows cap the blocks at the
+    # budget (by default cuda_lib.SCRATCH_BUDGET)
     T = 4000
     per = grad_kernel.wide_layout(4096, 4, 3, T, False, 8).scratch
     nblk, floats = grad_kernel.grid(1 << 20, T, 3, 4096,
                                     grad_kernel.Plan(grad_kernel.WIDE, False),
                                     132, 1, 8, A=4)
-    assert nblk == grad_kernel.STASH_BUDGET // per < 132
-    assert floats * 4 == nblk * per <= grad_kernel.STASH_BUDGET
+    assert nblk == cuda_lib.SCRATCH_BUDGET // (per + part) < 132
+    assert floats * 4 == nblk * per
+    assert nblk * (per + part) <= cuda_lib.SCRATCH_BUDGET
+    # K3 at 4 states, W = 7, D = 3, T = 20 (the issue's count): history
+    # 487,424 scalars, the double-buffered exchange 2 x 114,688 and the
+    # partial row 360,448, about 8.6 MB a block in dual numbers; the card's
+    # free memory shrinks the grid, and one block past the budget raises
+    glob = grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False)
+    lay = grad_kernel.wide_layout(4 ** 7, 4, 3, 20, True, 8)
+    part = grad_kernel.partial_bytes(4 ** 7, 4, 8)
+    assert lay.scratch == (487424 + 2 * 114688) * 8
+    assert part == 360448 * 8
+    assert grad_kernel.grid(1 << 14, 20, 3, 4 ** 7, glob, 132, 1, 8, A=4,
+                            budget=50 * (lay.scratch + part)) == (
+        50, 50 * lay.scratch // 4)
+    with pytest.raises(RuntimeError, match=r"one block's global memory \("
+                       rf"{lay.scratch + part} bytes"):
+        grad_kernel.grid(1 << 14, 20, 3, 4 ** 7, glob, 132, 1, 8, A=4,
+                         budget=lay.scratch + part - 1)
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
@@ -323,10 +350,17 @@ def test_k2_k3_envelope_reaches_4096_slots(kernel):
     forward_kernel.check_envelope(20, 3, 4, 6, 1, kernel=kernel)   # 4096
     forward_kernel.check_envelope(20, 2, 3, 7, 1, variable_dt=True,
                                   kernel=kernel)                   # 2187
-    for S, W, fits in ((4, 7, 6), (6, 5, 4)):
+    # past 4096 up to 16384: 6^5, 3^8, 5^6 (the GUI's frame_len 6 at 5
+    # states), 4^7 and 2^14
+    for S, W in ((6, 5), (3, 8), (5, 6), (4, 7), (2, 14)):
+        forward_kernel.check_envelope(20, 3, S, W, 1, kernel=kernel)
+        forward_kernel.check_envelope(20, 2, S, W, 1, variable_dt=True,
+                                      kernel=kernel)
+    for S, W, fits in ((4, 8, 7), (6, 6, 5), (3, 9, 8), (5, 7, 6)):
         with pytest.raises(NotImplementedError,
                            match=(rf"bucket 1 .*K=S\*\*window={S ** W} > "
-                                  rf"4096 register slots \({kernel} maps at "
-                                  rf"most 4096.*window that fits is {fits}")):
+                                  rf"16384 register slots \({kernel} maps "
+                                  rf"at most 16384.*window that fits is "
+                                  rf"{fits}")):
             forward_kernel.check_envelope(20, 2, S, W, 1, what="bucket 1",
                                           kernel=kernel)

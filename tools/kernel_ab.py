@@ -5,7 +5,7 @@
 (csrc/topk.cu) for two checkouts of the port, alternated on one card.
 
     python3 tools/kernel_ab.py PARENT_ROOT CHANGE_ROOT [--pairs N]
-        [--k1 | --k4]
+        [--k1 | --k4 | --wide]
 
 Each side runs in a process of its own, importing ``extrack_tpu_torch``
 from its root (and building that root's kernels there), at
@@ -35,7 +35,11 @@ listed (``--pairs 0``: the SASS alone, each side only built).  ``--k1``
 times K1 alone (a check of a kernel whose source did not
 change, without the other kernels' heat in the same process).  ``--k4``
 times K4 alone: at the bench shape, on the main path's tracks bare, and
-through ``predict_Bs`` (host work included, so more passes).
+through ``predict_Bs`` (host work included, so more passes).  ``--wide``
+times K2 and K3 alone on their wide mapping at 4 states, W=6 (K=4096)
+and 3 states, W=7 (K=2187), on ``chip_smoke.py``'s phase-16 bench
+(``WIDE16_TRACKS`` walks of lengths 3..10, D=2), and at K=4096 with
+per-track dt in ``BENCH_DT`` (the variable-dt instantiations).
 """
 from __future__ import annotations
 
@@ -102,6 +106,50 @@ def k4_main_path(smoke, dev):
     return bare, entry
 
 
+def wide_times(smoke, dev) -> dict:
+    """K2's and K3's bare times (ms) on the wide mapping at (S, W) = (4, 6)
+    and (3, 7), as ``chip_smoke.py``'s phase 16 times them, and at (4, 6)
+    with per-track dt."""
+    import torch
+
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import forward_kernel, grad_kernel, hvp_kernel
+    f32 = dict(dtype=torch.float32, device=dev)
+    benches = {False: smoke.bench_buckets(dev, n=smoke.WIDE16_TRACKS),
+               True: smoke.bench_buckets(dev, n=smoke.WIDE16_TRACKS,
+                                         dt_range=smoke.BENCH_DT)}
+    out = {}
+    for S, W, dt in ((4, 6, False), (3, 7, False), (4, 6, True)):
+        rates = torch.full((S, S), 0.1, **f32)
+        rates.fill_diagonal_(0.0)
+        gen = torch.Generator(device="cpu").manual_seed(S ** W)
+        args = []
+        for b in benches[dt]:
+            tb = tables.build_tables(
+                torch.linspace(0.0, 0.08, S, **f32),
+                torch.tensor(0.02, **f32), torch.full((S,), 1.0 / S, **f32),
+                rates, torch.tensor(0.1, **f32), b.dt if dt else 0.02,
+                cell_dims=(0.5,))
+            d, t = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                                b.is_bleached, tb, W, 1)
+            t = [x.detach() for x in t]
+            args.append((d, t, [1e-3 * torch.randn(
+                x.shape, generator=gen).to(dev) for x in t]))
+
+        def k2():
+            for d, t, _ in args:
+                grad_kernel.launch(d, t, 3)
+
+        def k3():
+            for d, t, t_dot in args:
+                hvp_kernel.launch(d, t, torch.zeros_like(d[1]), t_dot, 3)
+
+        tag = f"S={S} W={W}" + (" dt" if dt else "")
+        out[f"K2 {tag}"] = smoke.cuda_ms(k2, REPS, warmup=2)
+        out[f"K3 {tag}"] = smoke.cuda_ms(k3, REPS, warmup=2)
+    return out
+
+
 def worker(root: str, only: str) -> None:
     """Time bare launches of every kernel of the package under ``root``
     (``only`` "--k1": K1 alone; "--k4": K4 alone, at the bench shape and
@@ -119,6 +167,10 @@ def worker(root: str, only: str) -> None:
         Path(root).resolve()), forward_kernel.__file__
     cuda_lib.library()
     dev = torch.device("cuda", 0)
+    if only == "--wide":
+        print(json.dumps({**wide_times(smoke, dev),
+                          "lib": str(cuda_lib.library_path())}), flush=True)
+        return
     f32 = dict(dtype=torch.float32, device=dev)
     tb = tables.build_tables(
         torch.tensor([0.0, 0.08], **f32), torch.tensor(0.02, **f32),
@@ -225,6 +277,7 @@ def main() -> int:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--k1", action="store_true")
     only.add_argument("--k4", action="store_true")
+    only.add_argument("--wide", action="store_true")
     a = ap.parse_args()
     sides = {"parent": a.parent, "change": a.change}
     times = {"parent": [], "change": []}
@@ -234,7 +287,8 @@ def main() -> int:
                      else ("change", "parent")):
             out = subprocess.run(
                 [sys.executable, __file__, "--worker", sides[side],
-                 *(["--k1"] if a.k1 else ["--k4"] if a.k4 else [])],
+                 *(["--k1"] if a.k1 else ["--k4"] if a.k4 else
+                   ["--wide"] if a.wide else [])],
                 capture_output=True, text=True)
             if out.returncode != 0:
                 print(out.stdout + out.stderr, file=sys.stderr)
