@@ -15,7 +15,8 @@ Phases (each prints its lines; a failed check exits non-zero):
    constant and variable dt, and K7's 6: D 1..3, constant and variable
    dt; past 4096 slots K2's and K3's 12 deep instantiations (up to eight
    fusion groups a thread) and K1's 6 with its publish areas in global
-   scratch);
+   scratch; past 16384 slots K5's 6 with the harvest from the slots'
+   digits and past 4096 K6's 3 with its publish areas in global scratch);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
@@ -236,9 +237,24 @@ Phases (each prints its lines; a failed check exits non-zero):
    objective at its optimum (K1 against K2's value), the GUI
    ``Session``'s Model Fitting runner at 5 states on every
    GUI17_STRIDE-th track; then K1's, K2's and K3's bare and wrapper
-   times on 2^14 random walks at (S, W) = (5, 6) and (4, 7) beside the
+   times on 2^12 random walks at (S, W) = (5, 6) and (4, 7) beside the
    same walks at (4, 6) (K = 4096), their bounds and their plain
    versions on the first quarter of each bucket.
+18. K5 past 16384 slots (the harvest from the slots' digits, no segment
+   tables) and K6 past 4096 (its forms, and where they pass the opt-in
+   its publish areas, in global scratch): ``len_hist`` at its default
+   window 7 at 5 states (K = 78,125) on ~4,000 ``sim_fov`` tracks and at
+   6 states (K = 279,936) on ~1,000, the GUI ``Session``'s State Lifetime
+   Histogram at 4 states and its seeded window 8 (K = 65,536), each with
+   its launches, 0 plain calls, its wall time, its buckets' K5 histograms
+   summing to the entry point's and their first PAST18_CHECK tracks
+   against the plain version; K5 with per-track dt and with two
+   sub-steps (2^15 slots) against the plain version in float64;
+   ``position_refinement`` at frame_len 7 at 4 states (K = 16,384) and 6
+   at 5 states (K = 15,625), D = 1..3, each bucket's K6 result the entry
+   point's and its first REFINE18_CHECK tracks against the plain version;
+   then K5's (5^7) and K6's (4^7) bare and wrapper times beside their
+   bounds and plain times.  The run ends with each phase's seconds.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -525,6 +541,38 @@ FIT5_START = dict(nb_states=5, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
                   estimated_transition_rates=0.1)
 GUI17_STRIDE = 4
 PAST4096_TIMES = [(5, 6), (4, 7), (4, 6)]
+PAST4096_TRACKS = 1 << 12     # their random walks
+# phase 18: K5 past 16384 slots and K6 past 4096.  len_hist at its
+# default window 7 at 5 states (phase 5's model, K = 78,125) on ~4k
+# sim_fov tracks and at 6 states (K = 279,936) on ~1k; the GUI's State
+# Lifetime Histogram at 4 states (phase 12's model, window 8, K = 65,536)
+# on ~2k; position_refinement at the reference's frame_len 7 at 4 states
+# (K = 16,384) and frame_len 6 at 5 states (K = 15,625) on PAST18_REFINE
+# requested tracks at D = 1..3.  Each bucket's first PAST18_CHECK tracks
+# (K6: REFINE18_CHECK) against the plain version in chunks of
+# PAST18_PLAIN_CHUNK; K5 on PAST18_DT_B random walks of (S, W, n, dt) in
+# PAST18_DT_CASES (per-track dt, two sub-steps) against the plain version
+# in float64; the bare times on PAST18_TRACKS walks of lengths 3..10
+TR6H = np.full((6, 6), 0.02) + np.eye(6) * 0.88
+SIM5H = dict(SIM, nb_tracks=1 << 12, Ds=SIM5["Ds"], TrMat=TR5, seed=17)
+SIM6H = dict(SIM, nb_tracks=1 << 10, Ds=SIM6["Ds"], TrMat=TR6H, seed=18)
+SIM4L = dict(SIM4, nb_tracks=1 << 11, seed=19)
+# (S, sim, off-diagonal transition, window): len_hist's runs; (S, frames,
+# sim, TrMat): the refinements; the GUI lifetime's states; the bare
+# times' (S, W) of K5 and (S, W, D) of K6
+PAST18_HIST = [(5, SIM5H, 0.03, 7), (6, SIM6H, 0.02, 7)]
+PAST18_REFINE_CASES = [(4, 7, SIM4, TR4), (5, 6, SIM5, TR5)]
+PAST18_GUI_STATES = 4
+PAST18_K5_TIME = (5, 7)
+PAST18_K6_TIME = (4, 7, 2)
+PAST18_REFINE = 1 << 9
+PAST18_CHECK = 16
+REFINE18_CHECK = 2
+PAST18_PLAIN_CHUNK = 4
+PAST18_DT_CASES = [(5, 7, 1, "track"), (2, 15, 2, None), (2, 15, 2, "track")]
+PAST18_DT_B = 24
+PAST18_TRACKS = 1 << 12
+PAST18_K6_TRACKS = 1 << 10
 PEAK_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
@@ -535,11 +583,27 @@ def fail(msg: str):
 
 
 _T0 = time.time()
+_PHASES = {}      # phase number: seconds since the start of its last line
 
 
 def log(msg: str):
-    """Print a line with the seconds since the script started."""
-    print(f"[{time.time() - _T0:7.1f} s] {msg}", flush=True)
+    """Print a line with the seconds since the script started; a line of
+    phase N marks the phase's end so far (``phase_seconds``)."""
+    now = time.time() - _T0
+    m = re.match(r"phase (\d+)", msg)
+    if m:
+        _PHASES[int(m.group(1))] = now
+    print(f"[{now:7.1f} s] {msg}", flush=True)
+
+
+def phase_seconds() -> str:
+    """Each phase's seconds: from the previous phase's last line to its
+    own."""
+    out, last = [], 0.0
+    for n, end in sorted(_PHASES.items()):
+        out.append(f"{n}: {end - last:.1f}")
+        last = end
+    return ", ".join(out)
 
 
 def card_line() -> str:
@@ -716,7 +780,9 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
     members' (1+S)*min(t+1, T) run/hist bins at step t, 2 per bin and
     member (where the oldest frame drops, the run mixes the A/S members
     whose run goes on and the histogram adds the (S-1)A/S whose run ends:
-    A members a bin all the same), and a harvest of 4 per slot and bin.
+    A members a bin all the same), and a harvest of 4 per slot and bin
+    ("K5 runs", past 16384 slots: the harvest from the slots' digits, per
+    fusion group 2A + 4Wf and 2 per bin, 4 per run bin of its state).
     K6 runs 2(L-2) transition-only
     fusions (the suffix and the prefix scan), two one-sided ends of
     9D+5 per slot, and at each of the L-2 interior positions the two
@@ -729,12 +795,20 @@ def walk_ops(lengths, K, A, D, kind, T=0, W=0, S=0) -> float:
     G = K // A
     step = K * (14 * D + 2) + G * (A * (5 + 4 * D) + 3 * D + 3) \
         + K * (D + 3)
-    if kind == "K5":
+    if kind in ("K5", "K5 runs"):
         ops = 0.0
         for t in range(1, int(L.max(initial=2)) - 1):
             bins = (1 + S) * min(t + 1, T)
             ops += float((L - 2 >= t).sum()) * (step + G * A * 2 * bins)
-        return ops + float(L.size) * K * (14 * D + 7 + 4 * S * T)
+        if kind == "K5":
+            return ops + float(L.size) * K * (14 * D + 7 + 4 * S * T)
+        # past 16384 slots the harvest reads each slot's runs from its
+        # digits: per group its children's sums (2A), W runs, then 2 per
+        # bin and group for the carried histogram, 4 per bin and group of
+        # the oldest state for the carried run
+        wf = (W - 1) // int(round(math.log(A, S))) + 1
+        return ops + float(L.size) * (K * (14 * D + 7) + G * (
+            2 * A + 4 * wf + 2 * S * T + 4 * T))
     if kind == "K6":
         pairs = S * (K // S) ** 2 * (11 * D + 8) + K * (13 * D + 6)
         return float((2 * (L - 2) * step + 2 * K * (9 * D + 5)
@@ -1297,7 +1371,7 @@ def main() -> int:
                        "extrack_tpu/ops/pallas_hvp.py:78"),
         "K4 dt": entry("posteriors_variable_dt", "predict.cu",
                        "extrack_tpu/ops/pallas_predict.py:65"),
-        "K5 dt": entry("duration_hist_variable_dt", "hist.cu",
+        "K5 dt": entry("duration_hist_variable_dt", "hist_vdt.cu",
                        "extrack_tpu/ops/pallas_hist.py:63"),
         # two sub-steps a frame: the TPU kernel stops at one, and JAX runs
         # its XLA window engine there (extrack_tpu/histograms.py:290)
@@ -1311,7 +1385,7 @@ def main() -> int:
                          "extrack_tpu/ops/pallas_engine.py:218"),
         "K4 wide": entry("posteriors_wide", "predict.cu",
                          "extrack_tpu/ops/pallas_predict.py:65"),
-        "K5 wide": entry("duration_hist_wide", "hist.cu",
+        "K5 wide": entry("duration_hist_wide", "hist_wide.cu",
                          "extrack_tpu/ops/pallas_hist.py:63"),
         "K6 wide": entry("refinement_wide", "refine.cu",
                          "extrack_tpu/ops/pallas_refine.py:108"),
@@ -1319,10 +1393,10 @@ def main() -> int:
         # scratch where shared memory cannot hold them
         "K4 past 4096": entry("posteriors_past_4096", "predict.cu",
                               "extrack_tpu/ops/pallas_predict.py:65"),
-        "K5 past 4096": entry("duration_hist_past_4096", "hist.cu",
+        "K5 past 4096": entry("duration_hist_past_4096", "hist_wide.cu",
                               "extrack_tpu/ops/pallas_hist.py:63"),
         "K5 n=2 past 4096": entry("duration_hist_substeps_past_4096",
-                                  "hist.cu",
+                                  "hist_wide.cu",
                                   "extrack_tpu/ops/pallas_hist.py:63"),
         # K4 past 16384 slots (up to 65536): the GUI's labeling at 3
         # states and predict_Bs at 7; JAX runs XLA past its kernel's VMEM
@@ -1354,6 +1428,15 @@ def main() -> int:
                               "extrack_tpu/ops/pallas_grad.py:549"),
         "K3 past 4096": entry("loglik_hvp_past_4096", "hvp.cu",
                               "extrack_tpu/ops/pallas_hvp.py:78"),
+        # K5 past 16384 slots (to 2^19: len_hist's default window at 5
+        # and 6 states, the GUI's lifetime window at 4) and K6 past 4096
+        # (to 16384: refinement at the reference's frame_len 7 at 4
+        # states); JAX runs XLA there (extrack_tpu/histograms.py:631-645,
+        # refine.py:654-668)
+        "K5 past 16384": entry("duration_hist_past_16384", "hist_wide.cu",
+                               "extrack_tpu/ops/pallas_hist.py:63"),
+        "K6 past 4096": entry("refinement_past_4096", "refine.cu",
+                              "extrack_tpu/ops/pallas_refine.py:108"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1385,6 +1468,8 @@ def main() -> int:
     grad_regs = {}  # the same of K2's and K3's wide instantiations
     deep_regs = {}  # the same of their deep ones (past 2048 groups)
     k1_global_regs = {}  # K1's wide one with its publish areas in scratch
+    runs_regs = {}  # K5's past 16384 slots (the digits' harvest)
+    refine_global_regs = {}  # K6's with its publish areas in scratch
     topk_regs = {}  # the same of K7's (constant and variable dt)
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
@@ -1408,11 +1493,15 @@ def main() -> int:
         k1_global = re.match(r"_ZN7extrack26forward_wide_global_kernel",
                              entry_name)
         topk = re.match(r"_ZN7extrack1[15]topk_(vdt_)?kernel", entry_name)
+        runs = re.match(r"_ZN7extrack16hist_runs_kernel", entry_name)
+        refine_global = re.match(r"_ZN7extrack25refine_wide_global_kernel",
+                                 entry_name)
         regs = re.search(r"Used (\d+) registers", line)
         for found, table in ((wide, wide_regs), (scratch, global_regs),
                              (grad_wide, grad_regs), (deep, deep_regs),
                              (k1_global, k1_global_regs),
-                             (topk, topk_regs)):
+                             (topk, topk_regs), (runs, runs_regs),
+                             (refine_global, refine_global_regs)):
             if found and (spilled or regs):
                 key = entry_name[:60]
                 table.setdefault(key, [0, 0])
@@ -1477,6 +1566,17 @@ def main() -> int:
     if len(topk_regs) != 6:
         fail(f"{len(topk_regs)} K7 instantiations, not 6 (D 1..3 x "
              "constant and variable dt)")
+    log("phase 0: past 16384 slots, K5's instantiations with the harvest "
+        "from the slots' digits, and past 4096 K6's with its publish areas "
+        "in global scratch (1024 threads; registers, spill bytes stores + "
+        "loads): " + ", ".join(
+            f"{k} {r} regs {b} B" for k, (r, b) in sorted(
+                {**runs_regs, **refine_global_regs}.items())))
+    if len(runs_regs) != 6 or len(refine_global_regs) != 3:
+        fail(f"{len(runs_regs)} K5 instantiations past 16384 slots (not 6: "
+             f"D 1..3 x constant and variable dt) and "
+             f"{len(refine_global_regs)} K6 ones with global publish areas "
+             "(not 3: D 1..3)")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -2449,7 +2549,9 @@ def main() -> int:
     phase15(dev, card, reset_counts, plain_calls, tracks, fit3)
     phase16(dev, card, kinfo, errs, reset_counts, plain_calls)
     phase17(dev, card, kinfo, errs, reset_counts, plain_calls)
+    phase18(dev, card, kinfo, errs, reset_counts, plain_calls)
 
+    log(f"phase seconds: {phase_seconds()}; all {time.time() - _T0:.1f} s")
     for k in kinfo:
         kinfo[k]["max_abs_err"] = max(errs[k])
     print(card, flush=True)
@@ -5226,7 +5328,7 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
     log(f"phase 17: paths {time.time() - t17:.1f} s")
 
     # ---- bare times at (S, W) = (5, 6) and (4, 7), beside (4, 6) ---------
-    bench = bench_buckets(dev, n=WIDE16_TRACKS)
+    bench = bench_buckets(dev, n=PAST4096_TRACKS)
     for S, W in PAST4096_TIMES:
         times = grad_times(dev, card, 17, S, W, bench)
         if (S, W) == PAST4096_TIMES[0]:
@@ -5234,6 +5336,351 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
                 kinfo[f"{name} past 4096"].update(t)
     log(f"phase 17: {time.time() - t17:.1f} s")
 
+
+def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
+    """K5 past 16384 slots (csrc/hist_wide.cu hist_runs_kernel: the
+    harvest from each slot's digits, no segment tables) and K6 past 4096
+    (refine_wide_kernel with its forms in global scratch,
+    refine_wide_global_kernel where the publish areas pass the opt-in), on
+    the paths where the JAX package runs XLA: ``len_hist`` at its default
+    window 7 at 5 and 6 states and the GUI's State Lifetime Histogram at 4
+    states (window 8), each whole bucket through K5 summing to the entry
+    point's histogram and its first PAST18_CHECK tracks against the plain
+    version; K5 with per-track dt and with two sub-steps against the plain
+    version in float64; ``position_refinement`` at frame_len 7 at 4 states
+    and 6 at 5 states, D = 1..3, each bucket's K6 result the entry
+    point's and its first REFINE18_CHECK tracks against the plain version;
+    then both kernels' bare times beside their bounds and plain times."""
+    import tempfile
+    from pathlib import Path
+
+    from extrack_tpu_torch import data, gui, histograms, params, refine
+    from extrack_tpu_torch import simulate
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, hist_kernel,
+                                       refine_kernel)
+    t18 = time.time()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def values_of(S, Ds, p):
+        return {"LocErr": 0.02, "pBL": 0.1,
+                **{f"D{i}": d for i, d in enumerate(Ds)},
+                **{f"F{i}": 1 / S for i in range(S)},
+                **{f"p{i}{j}": p for i in range(S) for j in range(S)
+                   if i != j}}
+
+    def hold_hist(tag, tracks, values, S, W, hist):
+        """Each bucket of ``tracks`` through K5 (their sum the entry
+        point's ``hist``) and its first tracks against the plain version;
+        returns the checked tracks as batches."""
+        buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                          dtype=torch.float32)
+        min_len = data.default_min_len(
+            np.concatenate([data.host_lengths(b) for b in buckets]))
+        Ds, Fs, rates, loc, pBL = params.extract_arrays(values, S, **f32)
+        tb = tables.build_tables(Ds, loc, Fs, rates, pBL, 0.02,
+                                 cell_dims=(0.5,))
+        kw = dict(window=W, min_len=min_len)
+        summed = np.zeros_like(hist)
+        share = []
+        for b in buckets:
+            h = hist_kernel.hist(b.positions, b.lengths, b.is_bleached, tb,
+                                 **kw)
+            summed[:b.max_len] += h.double().cpu().numpy()
+            n = min(PAST18_CHECK, b.batch_size)
+            sub = data.TrackBatch(b.positions[:n], b.lengths[:n],
+                                  is_bleached=b.is_bleached[:n])
+            share.append(sub)
+            got = hist_kernel.hist(sub.positions, sub.lengths,
+                                   sub.is_bleached, tb, **kw)
+            with torch.no_grad():
+                want = sum(hist_kernel.hist_plain(
+                    sub.positions[i:i + PAST18_PLAIN_CHUNK],
+                    sub.lengths[i:i + PAST18_PLAIN_CHUNK],
+                    sub.is_bleached[i:i + PAST18_PLAIN_CHUNK], tb, **kw)
+                    for i in range(0, n, PAST18_PLAIN_CHUNK))
+            L = data.host_lengths(sub)
+            errs["K5 past 16384"].append(check_hist(
+                f"phase 18: {tag}, bucket T={b.max_len} B={b.batch_size}, "
+                f"first {n} tracks", got, want, float(L[L >= 2].sum()),
+                kernel="K5 past 16384"))
+        frames = sum(int(k) * len(v) for k, v in tracks.items()
+                     if int(k) >= 2)
+        counted = float((hist * np.arange(1, hist.shape[0] + 1)[:, None]
+                         ).sum())
+        if (not np.array_equal(summed, hist)
+                or abs(counted - frames) > TOL_FRAMES * frames):
+            fail(f"{tag}: the entry point differs from its buckets' K5 "
+                 "histograms or loses frames")
+        return buckets, tb, min_len, share
+
+    # ---- len_hist at its default window 7: 5 states, then 6 ---------------
+    k5_path = 0
+    for S, sim, p, W in PAST18_HIST:
+        tracks, _, _ = simulate.sim_fov(**sim)
+        n_tr = sum(len(v) for v in tracks.values())
+        values = values_of(S, sim["Ds"], p)
+        reset_counts()
+        t0 = time.time()
+        hist = histograms.len_hist(tracks, values, 0.02, cell_dims=(0.5,),
+                                   nb_states=S, window=W)
+        t_h = time.time() - t0
+        k5, plain = hist_kernel.LAUNCHES, plain_calls()
+        nb = len(data.from_dict_bucketed(tracks, max_buckets=4))
+        log(f"phase 18: len_hist(nb_states={S}) on {n_tr} tracks, window "
+            f"{W} (K={S ** W}: K5 past 16384, the harvest from "
+            f"the slots' digits) {t_h:.2f} s; K5 launches {k5}, plain calls "
+            f"{plain} [{card}]")
+        if k5 != nb or plain != 0:
+            fail(f"len_hist at {S} states: K5 launches {k5}, plain calls "
+                 f"{plain}")
+        k5_path += k5
+        hold_hist(f"len_hist, {S} states, W={W}", tracks, values, S, W,
+                  hist)
+        del tracks
+
+    # ---- the GUI's State Lifetime Histogram at 4 states (window 8) -------
+    tracks, _, _ = simulate.sim_fov(**SIM4L)
+    S = PAST18_GUI_STATES
+    values = values_of(S, SIM4L["Ds"], 0.04)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_tracks_csv(str(tmp / "gui4.csv"), tracks)
+        s = gui.Session(path=str(tmp / "gui4.csv"), dt=0.02, min_len=3,
+                        max_len=SIM4L["max_track_len"], nb_states=S,
+                        cell_dims=(0.5,), output_dir=str(tmp),
+                        params_values=values)
+        n_g = s.load()
+        W = int(gui.seeded_options("State Lifetime Histogram",
+                                   s)["frame_len"])
+        reset_counts()
+        t0 = time.time()
+        hist = gui.run_lifetime(s, progress=lambda m: None)
+        t_gui = time.time() - t0
+        k5_g, plain = hist_kernel.LAUNCHES, plain_calls()
+        nb = len(data.from_dict_bucketed(s.tracks, max_buckets=4))
+        ok = (W == 8 and k5_g == nb and plain == 0
+              and (tmp / "extrack_durations.csv").stat().st_size > 0)
+        log(f"phase 18: GUI Session, {S} states, State Lifetime Histogram "
+            f"at its seeded frame_len {W} (K={S ** W}) on {n_g} tracks "
+            f"{t_gui:.2f} s (its CSV included); K5 launches {k5_g}, plain "
+            f"calls {plain} {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail(f"the GUI's {S}-state lifetime histogram did not run on "
+                 "K5 alone")
+        hold_hist(f"the GUI's lifetime histogram, {S} states, W={W}",
+                  s.tracks, values, S, W, hist)
+    kinfo["K5 past 16384"]["launches"] = k5_path + k5_g
+    del tracks
+
+    # ---- per-track dt and two sub-steps, in float64 ----------------------
+    for S, W, n, dt in PAST18_DT_CASES:
+        wf = (W - 1) // n + 1
+        T = wf + 3
+        rng = np.random.default_rng(S * W + n)
+        lengths = rng.integers(2, T + 1, PAST18_DT_B)
+        lengths[0] = T
+        xs = rng.normal(0.0, 0.06, (PAST18_DT_B, T, 2)).cumsum(1)
+        dts = 0.02
+        if dt == "track":
+            d = rng.uniform(0.01, 0.05, (PAST18_DT_B, T - 1))
+            d[np.arange(T - 1)[None, :] >= lengths[:, None] - 1] = 0.02
+            dts = torch.tensor(d, **f32)
+        rates = torch.full((S, S), 0.08, **f32)
+        rates[0, -1] = 0.0
+        tb = tables.build_tables(
+            torch.linspace(0, 0.12, S, **f32), torch.tensor(0.02, **f32),
+            torch.full((S,), 1.0 / S, **f32), rates,
+            torch.tensor(0.1, **f32), dts, cell_dims=(0.8,), nb_substeps=n)
+        pos = torch.tensor(xs, **f32)
+        lens = torch.tensor(lengths, device=dev)
+        isbl = (lens < T).to(torch.float32)
+        kw = dict(window=W, min_len=2, nb_substeps=n)
+        reset_counts()
+        got = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+        k5, plain = hist_kernel.LAUNCHES, plain_calls()
+        tb64 = tables.ModelTables(*(f.double() for f in tb))
+        want = 0.0
+        with torch.no_grad():
+            for i in range(0, PAST18_DT_B, PAST18_PLAIN_CHUNK):
+                sl = slice(i, i + PAST18_PLAIN_CHUNK)
+                want = want + hist_kernel.hist_plain(
+                    pos[sl].double(), lens[sl], isbl[sl].double(),
+                    tb64._replace(sig2=tb64.sig2[sl] if tb64.sig2.ndim == 3
+                                  else tb64.sig2), **kw)
+        if k5 != 1 or plain != 0:
+            fail(f"K5 past 16384 at S={S}, W={W}, n={n}: launches {k5}, "
+                 f"plain calls {plain}")
+        errs["K5 past 16384"].append(check_hist(
+            f"phase 18: K5 past 16384, S={S} W={W} n={n} (K={S ** W}), "
+            f"{'per-track' if dt else 'constant'} dt, {PAST18_DT_B} walks "
+            f"of up to {T} frames, against the plain version in float64",
+            got.double(), want, float(lengths[lengths >= 2].sum()),
+            kernel="K5 past 16384"))
+    log(f"phase 18: K5 paths {time.time() - t18:.1f} s")
+
+    # ---- position_refinement at frame_len 7 (4 states), 6 (5 states) ----
+    k6_path = 0
+    t_k6 = time.time()
+    for S, W, base, tr in PAST18_REFINE_CASES:
+        ds = np.sqrt(2.0 * np.array(base["Ds"]) * 0.02)
+        lt = tables.cap_log(torch.tensor(tr, **f32))
+        sig2 = torch.tensor(ds, **f32) ** 2
+        l2 = torch.full((1, 1, 1), 0.02 ** 2, **f32)
+        for D in (1, 2, 3):
+            sim = dict(base, nb_tracks=PAST18_REFINE, nb_dims=D,
+                       seed=22 + S * 3 + D)
+            tracks, _, _ = simulate.sim_fov(**sim)
+            n_tr = sum(len(v) for v in tracks.values())
+            buckets = data.from_dict_bucketed(tracks, max_buckets=4,
+                                              device=dev)
+            reset_counts()
+            t0 = time.time()
+            mus, _ = refine.position_refinement(tracks, 0.02, ds,
+                                                [1 / S] * S, tr,
+                                                frame_len=W)
+            torch.cuda.synchronize()
+            t_ref = time.time() - t0
+            k6, plain = refine_kernel.LAUNCHES, plain_calls()
+            w, _, _, carry = refine_kernel.plan(
+                buckets[-1].max_len, D, S ** W, S,
+                cuda_lib.smem_bytes("extrack_refine_smem", dev.index))
+            log(f"phase 18: {S} states, position_refinement(frame_len={W})"
+                f" on {n_tr} {D}-D tracks (K={S ** W}: K6 past 4096, "
+                f"{'publish areas and forms' if w == 2 else 'forms'} in "
+                f"global scratch, {carry / 1e6:.2f} MB a block at T="
+                f"{buckets[-1].max_len}) {t_ref:.3f} s; K6 launches {k6}, "
+                f"plain calls {plain} [{card}]")
+            if k6 != len(buckets) or plain != 0:
+                fail(f"refinement at {S} states, frame_len {W}, D={D}: K6 "
+                     f"launches {k6}, plain calls {plain}")
+            k6_path += k6
+            for b in buckets:
+                mu, sig = on_card(refine.refine_batch(b, 0.02, ds, tr,
+                                                      frame_len=W), dev)
+                got_mu = data.to_dict(b, mu)
+                if not all(np.array_equal(got_mu[k], mus[k])
+                           for k in got_mu):
+                    fail(f"position_refinement at {S} states differs from "
+                         f"K6 on bucket T={b.max_len}")
+                n = min(REFINE18_CHECK, b.batch_size)
+                with torch.no_grad():
+                    mu0, sig0 = refine_kernel.refine_plain(
+                        b.positions[:n], b.lengths[:n], l2, lt, sig2,
+                        window=W)
+                errs["K6 past 4096"].append(check_refine(
+                    f"phase 18: K6 past 4096, {S} states, W={W}, D={D}, "
+                    f"bucket T={b.max_len}, first {n} tracks", mu[:n],
+                    sig[:n], mu0, sig0, b.positions[:n], b.lengths[:n], l2))
+            del tracks, buckets, mus
+    kinfo["K6 past 4096"]["launches"] = k6_path
+    log(f"phase 18: K6 paths {time.time() - t_k6:.1f} s")
+
+    # ---- bare times: K5 at 5^7, K6 at 4^7 (D = 2) -------------------------
+    info = kinfo["K5 past 16384"]
+    S, W = PAST18_K5_TIME
+    K = S ** W
+    bench = bench_buckets(dev, n=PAST18_TRACKS)
+    blens = np.concatenate([data.host_lengths(b) for b in bench])
+    rows = sum(b.positions.numel() for b in bench) * 4
+    rates = torch.full((S, S), 0.1, **f32)
+    rates.fill_diagonal_(0.0)
+    tb = tables.build_tables(
+        torch.linspace(0.0, 0.08, S, **f32), torch.tensor(0.02, **f32),
+        torch.full((S,), 1.0 / S, **f32), rates, torch.tensor(0.1, **f32),
+        0.02, cell_dims=(0.5,))
+    args = []
+    for b in bench:
+        d, t = forward_kernel.kernel_inputs(b.positions, b.lengths,
+                                            b.is_bleached, tb, W, 1)
+        args.append((d, [x.detach() for x in t]))
+    share = [data.TrackBatch(b.positions[:PAST18_CHECK],
+                             b.lengths[:PAST18_CHECK],
+                             is_bleached=b.is_bleached[:PAST18_CHECK])
+             for b in bench]
+
+    def k5_bare():
+        for d, t in args:
+            hist_kernel.launch(d, t, 3, S, W)
+
+    def k5_wrapped():
+        for b in bench:
+            hist_kernel.hist(b.positions, b.lengths, b.is_bleached, tb,
+                             window=W, min_len=3)
+
+    def k5_plain():
+        with torch.no_grad():
+            for b in share:
+                for i in range(0, b.batch_size, PAST18_PLAIN_CHUNK):
+                    sl = slice(i, i + PAST18_PLAIN_CHUNK)
+                    hist_kernel.hist_plain(b.positions[sl], b.lengths[sl],
+                                           b.is_bleached[sl], tb, window=W,
+                                           min_len=3)
+    info["ms"] = cuda_ms(k5_bare, 3)
+    info["wrapper_ms"] = cuda_ms(k5_wrapped, 3)
+    info["plain_ms"] = cuda_ms(k5_plain, 1, warmup=0)
+    info["plain_tracks"] = sum(b.batch_size for b in share)
+    info["bound_ms"], info["bound_by"] = bound(
+        2 * rows + 8 * len(blens) + sum(S * b.max_len * 4 for b in bench),
+        sum(walk_ops(data.host_lengths(b), K, S, 2, "K5 runs", T=b.max_len,
+                     W=W, S=S) for b in bench))
+    blk = cuda_lib.layout("hist", 10, 2, K, S, S, hist_kernel.RUNS)[2]
+    log(f"phase 18: K5 past 16384 S={S} W={W} (K={K}) D=2, {len(blens)} "
+        f"tracks of lengths 3..10 ({len(bench)} buckets; {blk / 1e6:.2f} "
+        f"MB of scratch a block at T=10): kernel {info['ms']:.3f} ms, "
+        f"{info['wrapper_ms']:.3f} ms with its wrapper; plain "
+        f"{info['plain_ms']:.3f} ms on {info['plain_tracks']} of the "
+        f"tracks; bound {info['bound_ms']:.4f} ms ({info['bound_by']}), "
+        f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
+    del bench, args, share
+
+    info = kinfo["K6 past 4096"]
+    S, W, D = PAST18_K6_TIME
+    K = S ** W
+    bench = bench_buckets(dev, n=PAST18_K6_TRACKS, D=D)
+    blens = np.concatenate([data.host_lengths(b) for b in bench])
+    rows = sum(b.positions.numel() for b in bench) * 4
+    tr = np.full((S, S), 0.1 / (S - 1)) + np.eye(S) * (0.9 - 0.1 / (S - 1))
+    lt = tables.cap_log(torch.tensor(tr, **f32))
+    s2 = torch.tensor((0.08 * (1 + np.arange(S))) ** 2, **f32)
+    l2 = torch.full((1, 1, 1), 4e-4, **f32)
+    tabs = [t.contiguous() for t in (
+        *refine_kernel.build_refine_tables(lt, s2, W)[:2],
+        *refine_kernel.build_refine_tables(lt.T, s2, W))]
+    prep = [(b.positions, b.lengths.to(torch.int32),
+             l2.expand(b.positions.shape).contiguous()) for b in bench]
+
+    def k6_bare():
+        for p_, l_, e_ in prep:
+            refine_kernel.launch(p_, l_, e_, tabs, S)
+
+    def k6_wrapped():
+        for b in bench:
+            refine_kernel.refine(b.positions, b.lengths, l2, lt, s2,
+                                 window=W)
+
+    def k6_plain():
+        with torch.no_grad():
+            for b in bench:
+                refine_kernel.refine_plain(b.positions[:REFINE18_CHECK],
+                                           b.lengths[:REFINE18_CHECK], l2,
+                                           lt, s2, window=W)
+    info["ms"] = cuda_ms(k6_bare, 3)
+    info["wrapper_ms"] = cuda_ms(k6_wrapped, 3)
+    info["plain_ms"] = cuda_ms(k6_plain, 1, warmup=0)
+    info["plain_tracks"] = REFINE18_CHECK * len(bench)
+    info["bound_ms"], info["bound_by"] = bound(
+        2 * rows + 4 * len(blens) + 2 * rows,
+        walk_ops(blens, K, S, D, "K6", S=S))
+    log(f"phase 18: K6 past 4096 S={S} W={W} (K={K}) D={D}, {len(blens)} "
+        f"tracks of lengths 3..10 ({len(bench)} buckets): kernel "
+        f"{info['ms']:.3f} ms, {info['wrapper_ms']:.3f} ms with its "
+        f"wrapper; plain {info['plain_ms']:.3f} ms on "
+        f"{info['plain_tracks']} of the tracks; bound "
+        f"{info['bound_ms']:.4f} ms ({info['bound_by']}), "
+        f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
+    del bench, prep
+    log(f"phase 18: {time.time() - t18:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -64,6 +64,17 @@
 // threads in turn.  The two prefix-form frames go with the stash (at K =
 // 4096, D = 3 they alone take 262,144 bytes): in shared memory when both
 // fit, else in global scratch.
+//
+// Past 4096 slots (up to 16384: refinement at the reference's frame_len 7
+// at 4 states, 6 at 5 states, 8 at 3 states, 5 at 6 states) the same
+// kernel runs while its publish areas and ring fit what a block may opt
+// in to, the forms in global scratch; where they do not (4^7 at D = 3:
+// 2 * 7 * 4096 floats of publish areas and the ring, 262,144 bytes; 2^14
+// from D = 2) refine_wide_global_kernel keeps the publish areas after the
+// forms in the block's global scratch and the ring in static shared
+// memory.  Both scans then give a thread up to 8 fusion groups (2^14 at 2
+// states), and the pair loop, S*(K/S)^2 pairs a position (67.1 M at 4^7),
+// bounds it as below 4096 slots.
 #include "common.cuh"
 
 namespace extrack {
@@ -522,10 +533,10 @@ __global__ void __launch_bounds__(NT, PairShape<NT>::kMinBlocks)
   pf.flush(g_refine_prof, threadIdx.x == 0);
 }
 
-// ---- the wide mapping: 1024 < K <= 4096 slots -------------------------
+// ---- the wide mapping: 1024 < K <= 16384 slots ------------------------
 
 constexpr int kRefineWideThreads = 1024;
-constexpr int kRefineWideMaxK = 4096;
+constexpr int kRefineWideMaxK = 16384;
 
 // Both scans and the pair loop of one block on the wide mapping.  `forms`:
 // two frames of prefix forms, then the suffix stash (shared memory or
@@ -753,6 +764,31 @@ __global__ void __launch_bounds__(kRefineWideThreads, 1)
                           forms_scratch + (size_t)blockIdx.x * nforms);
 }
 
+// The wide mapping with its publish areas in global scratch too, after
+// the block's forms (refine_layout at wide = 2), and the ring of partials
+// in static shared memory.
+template <int D>
+__global__ void __launch_bounds__(kRefineWideThreads, 1)
+    refine_wide_global_kernel(const float* __restrict__ xs,
+                              const float* __restrict__ l2s,
+                              const int* __restrict__ lengths,
+                              const float* __restrict__ lp0f,
+                              const float* __restrict__ ltf,
+                              const float* __restrict__ lp0r,
+                              const float* __restrict__ ltr,
+                              const float* __restrict__ sig2v, int B, int T,
+                              int K, int S, float* __restrict__ mu_out,
+                              float* __restrict__ sig_out, float* scratch) {
+  __shared__ float4 ring4[kRing * (kRefineWideThreads / 32) * (2 + 2 * D) /
+                          4];
+  const size_t nforms = T > 2 ? (size_t)T * form_floats(D) * pad4(K) : 0;
+  float* forms = scratch + (size_t)blockIdx.x *
+                               (nforms + pad4(2 * (2 * D + 1) * (K / S)));
+  refine_wide_tracks<D>(xs, l2s, lengths, lp0f, ltf, lp0r, ltr, sig2v, B, T,
+                        K, S, mu_out, sig_out, forms + nforms,
+                        reinterpret_cast<float*>(ring4), forms);
+}
+
 // K6's block for T frames, D dimensions, K slots at S states.  Threads: one
 // per slot, and enough for the pair loop's S * ceil(K/S / R) * R threads.
 // Shared memory besides the stash: two frames of prefix forms, two fusion
@@ -761,15 +797,19 @@ __global__ void __launch_bounds__(kRefineWideThreads, 1)
 // forms for each interior position 1 .. T-2.  The wide mapping: 1024
 // threads; shared memory besides the forms two publish areas of (2D+1)*K/S
 // floats and the ring; carry: the two prefix frames and the stash, T frames
-// of forms (none for T = 2, which has no interior position).
-static BlockLayout refine_layout(int T, int D, int K, int S, bool wide) {
+// of forms (none for T = 2, which has no interior position).  wide = 2:
+// the publish areas (padded to a multiple of 4 floats) after the forms in
+// the carry, the ring in static shared memory, no dynamic shared memory.
+static BlockLayout refine_layout(int T, int D, int K, int S, int wide) {
   if (wide) {
     const size_t FS = (size_t)form_floats(D) * pad4(K);
-    const size_t fixed = (size_t)2 * (2 * D + 1) * (K / S) +
-                         (size_t)kRing * (kRefineWideThreads / 32) *
-                             (2 + 2 * D);
-    return {kRefineWideThreads, fixed * sizeof(float),
-            (T > 2 ? (size_t)T * FS : 0) * sizeof(float)};
+    const size_t forms = (T > 2 ? (size_t)T * FS : 0) * sizeof(float);
+    const size_t pubs = (size_t)2 * (2 * D + 1) * (K / S);
+    if (wide == 2)
+      return {kRefineWideThreads, 0, forms + pad4(pubs) * sizeof(float)};
+    const size_t fixed = pubs + (size_t)kRing * (kRefineWideThreads / 32) *
+                                    (2 + 2 * D);
+    return {kRefineWideThreads, fixed * sizeof(float), forms};
   }
   const int KS = K / S;
   const int t = max(K, S * ((KS + kRows - 1) / kRows) * kRows);
@@ -805,10 +845,17 @@ static int launch_refine(const float* xs, const float* l2, const int* lengths,
                          const float* lp0r, const float* ltr,
                          const float* sig2v, float* mu, float* sig,
                          float* stash_scratch, int B, int T, int K, int S,
-                         int nblk, bool wide, cudaStream_t stream) {
+                         int nblk, int wide, cudaStream_t stream) {
   const BlockLayout lay = refine_layout(T, D, K, S, wide);
   const int threads = lay.threads;
   const size_t smem = lay.fixed + (stash_scratch != nullptr ? 0 : lay.carry);
+  if (wide == 2) {
+    if (B > 0)
+      refine_wide_global_kernel<D><<<nblk, threads, 0, stream>>>(
+          xs, l2, lengths, lp0f, ltf, lp0r, ltr, sig2v, B, T, K, S, mu, sig,
+          stash_scratch);
+    return (int)cudaGetLastError();
+  }
   if (wide) {
     cudaFuncSetAttribute(refine_wide_kernel<D>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -855,12 +902,14 @@ extern "C" int extrack_refine_smem(int device) {
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// K6's block for a launch (refine_layout; wide: the wide mapping, K <=
-// 4096): out = threads, shared bytes besides the stash (wide: besides the
-// forms), stash (forms) bytes per track.
+// K6's block for a launch (refine_layout; wide: 1 the wide mapping, 2 the
+// same with its publish areas in global scratch, K <= 16384): out =
+// threads, shared bytes besides the stash (wide: besides the forms), stash
+// (forms; at 2 forms and publish areas) bytes per track.
 extern "C" int extrack_refine_layout(int T, int D, int K, int S, int wide,
                                      long long* out) {
-  if (S < 1 || K % S || (wide && K > extrack::kRefineWideMaxK))
+  if (S < 1 || K % S || wide < 0 || wide > 2 ||
+      (wide && K > extrack::kRefineWideMaxK))
     return (int)cudaErrorInvalidValue;
   return extrack::write_layout(extrack::refine_layout(T, D, K, S, wide), D,
                                out);
@@ -874,9 +923,11 @@ extern "C" int extrack_refine_layout(int T, int D, int K, int S, int wide,
 // Outputs mu, sig (B, T, D), every entry written (zeros past each track's
 // length).  stash_scratch: null to keep the suffix stash in shared memory,
 // or nblk times the stash bytes of extrack_refine_layout in global
-// scratch (wide: the forms, both prefix frames and the stash).  wide: the
-// wide mapping (K <= 4096), else a thread per slot (K <= 1024).  Blocks
-// are persistent over nblk.  Returns cudaGetLastError().
+// scratch (wide: the forms, both prefix frames and the stash; wide = 2:
+// and the publish areas, scratch required).  wide: 1 the wide mapping, 2
+// the same with its publish areas in global scratch (K <= 16384), else a
+// thread per slot (K <= 1024).  Blocks are persistent over nblk.  Returns
+// cudaGetLastError().
 extern "C" int extrack_refine(const float* xs, const float* l2,
                               const int* lengths, const float* lp0f,
                               const float* ltf, const float* lp0r,
@@ -884,7 +935,8 @@ extern "C" int extrack_refine(const float* xs, const float* l2,
                               float* mu, float* sig, float* stash_scratch,
                               int B, int T, int D, int K, int S, int nblk,
                               int wide, void* stream) {
-  if (S < 1 || K % S ||
+  if (S < 1 || K % S || wide < 0 || wide > 2 ||
+      (wide == 2 && stash_scratch == nullptr) ||
       K > (wide ? extrack::kRefineWideMaxK : 1024))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

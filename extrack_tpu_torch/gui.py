@@ -12,7 +12,9 @@ seeded frame_len 6 runs K2 and K3 on their wide mapping from 4 states on
 (4^6 = 4096 slots; 5^6 = 15,625 at 5 states, with their exchange in
 global scratch), and a choice past a kernel's envelope (frame_len 8 at 4
 states passes K2's 16384 slots) raises as ``fit.param_fitting`` does,
-naming the kernel.
+naming the kernel.  The State Lifetime Histogram's window 8 runs K5 past
+16384 slots from 4 states on (4^8 = 65,536; 5^8 = 390,625 of its 2^19),
+harvesting from each slot's digits.
 
 Design: every analysis is a plain function over a ``Session`` dataclass
 (testable without a display); the Tk layer is a thin shell that fills the
@@ -184,7 +186,7 @@ def seeded_options(analysis: str, s: Session) -> dict:
     elif analysis == "Position Refinement":
         # per-state-count schedule (refine.default_window, the JAX
         # package's): the static 2-state default 7 is a register of
-        # S**7 slots, past K6's 4096 from 4 states on.  Resolved at the
+        # S**7 slots, past K6's 16384 from 5 states on.  Resolved at the
         # session's real track length (loaded tracks, else the loader's
         # max-len filter), as the schedule depends on it
         from extrack_tpu_torch import refine

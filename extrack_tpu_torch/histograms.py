@@ -48,45 +48,63 @@ _ENGINES = {"window": "window", "pallas": "window", "xla": "window",
 TOPK_CHUNK = 32768        # tracks per K7 launch: the backpointers dominate
 
 
-def _segment_tables(codes: np.ndarray, W: int, T: int, S: int,
-                    stride: int = 1):
-    """Static per-slot segment decorations of the W-frame window.
+def slot_frames(S: int, W: int, n: int = 1, device=None) -> torch.Tensor:
+    """Each register slot's frame states, oldest to newest: (K, Wf) int64,
+    K = S**W, Wf = (W-1)/n + 1.  Frame j of slot k is its base-S digit at
+    position j*n (the slot encoding keeps the oldest sub-step in the lowest
+    digit and the newest in the highest)."""
+    Wf = (W - 1) // n + 1
+    step = torch.tensor([(S ** n) ** j for j in range(Wf)], device=device)
+    return (torch.arange(S ** W, device=device)[:, None] // step) % S
 
-    For each register slot (its W states known in advance, oldest ->
-    newest order = reversed code digits):
-      * seg_int (K, T, S): completed runs fully inside the window, excluding
-        the run touching the window's oldest frame (that one joins the
-        carried run distribution);
-      * seg_all (W+1, K, T, S): all runs among the newest v window digits,
-        for every v (tracks shorter than the window never drop frames);
-      * ext (K,): length of the run at the window's oldest end.
+
+def slot_runs(S: int, W: int, n: int = 1, v: Optional[int] = None,
+              device=None):
+    """Each slot's runs among its window's newest ``v`` frames (all Wf by
+    default), from its digits: (state, length), (K, v) int64 each, column
+    r the slot's run r, oldest first, length 0 past its last run.  The
+    plain version of K5's harvest past 16384 slots (csrc/hist_wide.cu
+    ``harvest_runs``), which adds each run's weight to bin s*T + min(len,
+    T) - 1; the oldest run's length over the whole window is K5's ``ext``.
     """
-    K = codes.shape[0]
-    Wf = (W - 1) // stride + 1        # frames in the window
-    seg_int = np.zeros((K, T, S), np.float64)
-    seg_all = np.zeros((Wf + 1, K, T, S), np.float64)
-    ext = np.zeros((K,), np.int32)
+    f = slot_frames(S, W, n, device)
+    f = f[:, f.shape[1] - (f.shape[1] if v is None else v):]
+    start = torch.ones_like(f, dtype=torch.bool)
+    start[:, 1:] = f[:, 1:] != f[:, :-1]
+    rid = start.cumsum(1) - 1                  # each frame's run
+    length = torch.zeros_like(f).scatter_add_(1, rid, torch.ones_like(f))
+    state = torch.zeros_like(f).scatter_(1, rid, f)
+    return state, length
 
-    def runs(a):
-        out, start = [], 0
-        for j in range(1, len(a) + 1):
-            if j == len(a) or a[j] != a[j - 1]:
-                out.append((j - start, int(a[j - 1])))
-                start = j
-        return out
 
-    for k in range(K):
-        # frame states oldest -> newest: every stride-th sub-digit starting
-        # from the oldest (frames sit at digit positions W-1, W-1-n, ..., 0)
-        seq = codes[k, ::-1][::stride]
-        r = runs(seq)
-        ext[k] = r[0][0]
-        for ln, s in r[1:]:
-            seg_int[k, min(ln, T) - 1, s] += 1
-        for v in range(2, Wf + 1):
-            for ln, s in runs(seq[Wf - v:]):
-                seg_all[v, k, min(ln, T) - 1, s] += 1
-    return seg_int, seg_all, ext
+def segment_tables(S: int, W: int, T: int, n: int = 1, device=None,
+                   dtype=torch.float64):
+    """The window's static segment decorations, built from ``slot_runs``
+    vectorized over the slots: (seg (Wf+2, K, S*T), ext (K,) int64) on
+    ``device``.  ``seg[v]`` for 2 <= v <= Wf counts each slot's runs
+    among its newest v frames (tracks shorter than the window never drop
+    frames; rows 0 and 1 stay zero: a track's first harvest holds two
+    frames), ``seg[Wf+1]`` the runs completed inside the window, all but
+    the one touching its oldest frame (that one joins the carried run
+    distribution); bin s*T + min(len, T) - 1 counts a length-len run in
+    state s.  ``ext`` is the length in frames of the run at each window's
+    oldest end.  The JAX package builds the same counts slot by slot
+    (``extrack_tpu.histograms._segment_tables``)."""
+    Wf = (W - 1) // n + 1
+    seg = torch.zeros((Wf + 2, S ** W, S * T), dtype=dtype, device=device)
+
+    def add(row, state, length, skip_oldest=False):
+        ok = length > 0
+        if skip_oldest:
+            ok[:, 0] = False
+        bins = state * T + length.clamp(1, T) - 1
+        seg[row].scatter_add_(1, torch.where(ok, bins, 0), ok.to(dtype))
+
+    for v in range(2, Wf + 1):
+        add(v, *slot_runs(S, W, n, v, device))
+    state, length = slot_runs(S, W, n, None, device)
+    add(Wf + 1, state, length, skip_oldest=True)
+    return seg, length[:, 0]
 
 
 def window_segment_histogram(positions, lengths, is_bleached,
@@ -131,11 +149,9 @@ def window_segment_histogram(positions, lengths, is_bleached,
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     # static segment decorations, per-slot histograms flattened (K, S*T)
-    seg_int_np, seg_all_np, ext_np = _segment_tables(spec.codes, W, T, S,
-                                                     stride=n)
-    seg_int = const(seg_int_np.transpose(0, 2, 1).reshape(K, S * T))
-    seg_all = const(seg_all_np.transpose(0, 1, 3, 2).reshape(Wf + 1, K,
-                                                             S * T))
+    seg, ext = segment_tables(S, W, T, n, device=dev, dtype=dtype)
+    seg_int, seg_all = seg[Wf + 1], seg[:Wf + 1]
+    ext_np = ext.cpu().numpy()
     e_old = const(spec.codes[:, W - 1, None] == np.arange(S))       # (K, S)
     # boundary-run shift: bin m reads carried bin m - (ext-1)
     src = np.arange(T)[None, :] - (ext_np[:, None] - 1)

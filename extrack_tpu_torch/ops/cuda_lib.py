@@ -167,11 +167,13 @@ def layout(kernel: str, *dims: int):
     (T, D, K, S, A, wide), T frames, D dimensions, K slots, S states, A
     children a fusion group (S^nb_substeps) and 1 for the wide mapping (a
     thread a fusion group), 2 for the wide mapping with its publish areas
-    and member weights in the carry (global scratch), else 0 (a thread a
-    slot); "refine" (T, D, K, S, wide); "grad" (K, A, D, T, warps,
-    itemsize), K2's and K3's wide mapping (warps -1, or -2 with its
-    exchange in global scratch; itemsize 4, or 8 for K3's dual numbers),
-    whose third entry is the global scratch a block."""
+    and member weights in the carry (global scratch), 3 for the same with
+    the harvest from the slots' digits (past 16384 slots), else 0 (a
+    thread a slot); "refine" (T, D, K, S, wide), wide 1 for the wide
+    mapping, 2 for the same with its publish areas in the carry; "grad"
+    (K, A, D, T, warps, itemsize), K2's and K3's wide mapping (warps -1,
+    or -2 with its exchange in global scratch; itemsize 4, or 8 for K3's
+    dual numbers), whose third entry is the global scratch a block."""
     out = (ctypes.c_longlong * 3)()
     rc = getattr(library(), f"extrack_{kernel}_layout")(
         *dims, ctypes.addressof(out))
@@ -202,13 +204,14 @@ def _card_bytes(index: int) -> int:
     return free + torch.cuda.memory_reserved(index)
 
 
-def scratch_budget(dev) -> int:
+def scratch_budget(dev, cap: int = SCRATCH_BUDGET) -> int:
     """Bytes of global scratch one launch may take on ``dev`` (a CUDA
-    device with its index): SCRATCH_BUDGET, or half of what the card has
-    left where that is less (what this process could hold at its first
-    query, less what its tensors hold now)."""
+    device with its index): ``cap`` (SCRATCH_BUDGET; K5 past 16384 slots
+    has its own), or half of what the card has left where that is less
+    (what this process could hold at its first query, less what its
+    tensors hold now)."""
     left = _card_bytes(dev.index) - torch.cuda.memory_allocated(dev)
-    return min(SCRATCH_BUDGET, max(left, 0) // 2)
+    return min(cap, max(left, 0) // 2)
 
 
 def scratch_blocks(B: int, sms: int, threads: int, carry_bytes: int):
@@ -220,14 +223,17 @@ def scratch_blocks(B: int, sms: int, threads: int, carry_bytes: int):
 
 
 def grid(query: str, dev, B: int, fixed_bytes: int, carry_bytes: int,
-         threads: int):
+         threads: int, in_scratch: bool = False):
     """Blocks and scratch for a kernel that walks one track per block of
     ``threads`` (K5, K6, from ``layout``).  When ``fixed_bytes`` of shared
     memory plus the track's ``carry_bytes`` fit what a block may opt in to
-    (``query``), one block per track and no scratch; else persistent
-    blocks (``scratch_blocks``), each with its carries in global scratch.
-    Returns (nblk, float32 scratch tensor or None)."""
-    if fixed_bytes + carry_bytes <= smem_bytes(query, dev.index):
+    (``query``), one block per track and no scratch (unless
+    ``in_scratch``: a kernel whose carries are in global scratch by
+    design); else persistent blocks (``scratch_blocks``), each with its
+    carries in global scratch.  Returns (nblk, float32 scratch tensor or
+    None)."""
+    if (not in_scratch
+            and fixed_bytes + carry_bytes <= smem_bytes(query, dev.index)):
         return max(B, 1), None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nblk = scratch_blocks(B, sms, threads, carry_bytes)

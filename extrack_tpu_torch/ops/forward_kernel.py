@@ -17,11 +17,12 @@ each kernel's mapping of a register onto the card (csrc/walk.cuh,
 hist.cu, refine.cu; K2 and K3: grad.cuh, ``grad_kernel.plan``): one warp
 per track up to 64 slots, a block per track with a thread a slot up to
 1024 (K2, K3, K4, K5, K6) and a thread a fusion group past that (the wide
-mapping: K1 above 64 slots, the others above 1024; up to 4096 slots for
-K6, 16384 for K1, K2, K3 and K5 and 65536 for K4; K1's, K4's and K5's
-carries and K2's and K3's exchange go to global scratch where they pass
-a block's shared memory); ``plan`` and ``grid`` lay a K1 or K4 launch out
-as persistent blocks.  ``MAX_SLOTS`` is each kernel's envelope.
+mapping: K1 above 64 slots, the others above 1024; up to 16384 slots for
+K1, K2, K3 and K6, 65536 for K4 and 2^19 for K5; K1's, K4's, K5's and
+K6's carries and K2's and K3's exchange go to global scratch where they
+pass a block's shared memory; K5 past 16384 slots harvests from each
+slot's digits); ``plan`` and ``grid`` lay a K1 or K4 launch out as
+persistent blocks.  ``MAX_SLOTS`` is each kernel's envelope.
 ``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the plain
 version.
 """
@@ -44,18 +45,24 @@ PLAIN_CALLS = 0
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 BLOCK_MAX_K = 1024        # the block mapping: one thread per register slot
 WIDE_MAX_K = 4096         # the wide mapping: one thread per fusion group
-SCRATCH_MAX_K = 16384     # K1's, K2's, K3's and K5's wide mapping, past
+SCRATCH_MAX_K = 16384     # K1's, K2's, K3's and K6's wide mapping, past
                           # shared memory with global scratch (K2, K3: up
-                          # to eight fusion groups a thread)
+                          # to eight fusion groups a thread); K5's with the
+                          # static segment tables
 PREDICT_MAX_K = 65536     # K4's: the GUI's labeling window at 3 states
                           # (3^10 = 59049) and predict_Bs at 7 states
                           # (7^5) and 6 states (6^6) need more than 16384
+HIST_MAX_K = 1 << 19      # K5's, harvesting from the slots' digits past
+                          # 16384: len_hist's default window 7 at 5 and 6
+                          # states (78,125, 279,936), window 8 at 5 states
+HIST_MAX_BINS = 64        # S * frames: K5's (state, run length) bins a
+                          # thread keeps past 16384 slots (kRunsMaxBins)
 # each kernel's largest register: every kernel maps past 1024 slots
-# (csrc/walk.cuh, grad.cuh, hist.cu, refine.cu); K6 stops at 4096, K1, K2,
-# K3 and K5 at 16384 and K4 at 65536, each going on with its carries (K2,
-# K3: the exchange of carry cotangents) in global scratch
+# (csrc/walk.cuh, grad.cuh, hist.cu, hist_wide.cu, refine.cu); K1, K2, K3
+# and K6 stop at 16384, K4 at 65536 and K5 at 2^19, each going on with its
+# carries (K2, K3: the exchange of carry cotangents) in global scratch
 MAX_SLOTS = {"K1": SCRATCH_MAX_K, "K2": SCRATCH_MAX_K, "K3": SCRATCH_MAX_K,
-             "K4": PREDICT_MAX_K, "K5": SCRATCH_MAX_K, "K6": WIDE_MAX_K}
+             "K4": PREDICT_MAX_K, "K5": HIST_MAX_K, "K6": SCRATCH_MAX_K}
 # the mappings of K1, K4, K5 and K6, narrowest first.  K1 skips the block
 # mapping: the wide one ran it 1.14-1.75x faster at every register of
 # 81..1024 slots measured; K4, K5 and K6 keep a thread a slot up to 1024
@@ -326,12 +333,20 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                    default=0)
         how = ("a thread per fusion group past 1024 slots"
                + (", the carries in global scratch past shared memory"
-                  if limit > WIDE_MAX_K else ""))
+                  if limit > WIDE_MAX_K else "")
+               + (", the harvest from the slots' digits past 16384"
+                  if limit > PREDICT_MAX_K else ""))
         reasons.append(f"K=S**window={K} > {limit} register slots "
                        f"({kernel} maps at most {limit}, {how}; the "
                        f"largest window that fits is {fits})")
     if window < nb_substeps + 1:
         reasons.append(f"window {window} < nb_substeps+1")
+    elif (kernel == "K5" and SCRATCH_MAX_K < K <= limit
+          and S * ((window - 1) // nb_substeps + 1) > HIST_MAX_BINS):
+        reasons.append(f"{S} states x {(window - 1) // nb_substeps + 1} "
+                       f"frames > {HIST_MAX_BINS} (state, run length) bins "
+                       "(K5's harvest past 16384 slots keeps them a "
+                       "thread)")
     if variable_dt and kernel not in STREAMED:
         reasons.append(f"per-step / per-track dt ({kernel} takes constant "
                        "dt only: it does not read the streamed "

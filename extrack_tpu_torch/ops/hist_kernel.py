@@ -1,18 +1,23 @@
-"""K5: the duration-histogram kernel (csrc/hist.cu) and its host side.
+"""K5: the duration-histogram kernel (csrc/hist.cu, hist_wide.cu) and its
+host side.
 
 Replaces extrack_tpu/ops/pallas_hist.py:_kernel (driven by hist_pallas),
 and JAX's XLA window engine where that kernel stops (more than one
-sub-step a frame).  ``hist`` returns the (T, S) posterior-expected
-segment-length histogram of a batch, summed over its tracks:
+sub-step a frame, past its VMEM budget).  ``hist`` returns the (T, S)
+posterior-expected segment-length histogram of a batch, summed over its
+tracks:
 
 * CUDA tensors (float32): one K5 launch on the K1 per-slot tables
   (``forward_kernel.kernel_inputs``; with variable dt also the streamed
-  (B, T-1, P) displacement variances) and the window's static segment
-  tables (``segment_tables``): a thread a slot up to 1024 slots, a thread
-  a fusion group up to 16384 (``forward_kernel.mapping_warps``), with the
-  publish areas and member weights in global scratch beside the rows
-  where a block's shared memory cannot hold them.  Outside the envelope
-  it raises.
+  (B, T-1, P) displacement variances): a thread a slot up to 1024 slots,
+  a thread a fusion group up to 2^19 (``forward_kernel.mapping_warps``),
+  with the publish areas and member weights in global scratch beside the
+  rows where a block's shared memory cannot hold them.  Up to 16384 slots
+  the harvest reads the window's static segment tables
+  (``device_segment_tables``, built on the card); past them it takes each
+  slot's runs from its digits (``histograms.slot_runs`` is its plain
+  version) and no table is built, on a persistent grid bounded by
+  HIST_SCRATCH_BUDGET (``runs_grid``).  Outside the envelope it raises.
 * CPU tensors: ``hist_plain``, which is
   ``histograms.window_segment_histogram`` on the same inputs.
 
@@ -22,11 +27,9 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from extrack_tpu_torch import histograms
-from extrack_tpu_torch.core import engine
 from extrack_tpu_torch.core.tables import ModelTables
 from extrack_tpu_torch.ops import cuda_lib, forward_kernel
 
@@ -44,33 +47,63 @@ def window_frames(W: int, n: int) -> int:
     return (W - 1) // n + 1
 
 
-@functools.lru_cache(maxsize=16)
-def segment_tables(S: int, W: int, T: int, n: int = 1):
-    """K5's static tables as numpy: ``seg`` (Wf+2, S*T, K) float32 and
-    ``ext`` (K,) int32, for a window of W sub-steps at n a frame (Wf
-    frames, ``window_frames``).  ``seg[v]`` for v <= Wf counts the runs
-    among the newest v frames of each slot's window (``seg_all``),
-    ``seg[Wf+1]`` the runs completed inside the window (``seg_int``); bin
-    j = s*T + m is a length-(m+1) segment in state s, and the slot axis is
-    last so that a warp reads consecutive slots.  ``ext`` is the length in
-    frames of the run at each window's oldest end."""
-    Wf = window_frames(W, n)
-    spec = engine.make_register_spec(S, W, n)
-    seg_int, seg_all, ext = histograms._segment_tables(spec.codes, W, T, S,
-                                                       stride=n)
-    seg = np.concatenate([seg_all, seg_int[None]])        # (Wf+2, K, T, S)
-    seg = seg.transpose(0, 3, 2, 1).reshape(Wf + 2, S * T, S ** W)
-    return (np.ascontiguousarray(seg, dtype=np.float32),
-            ext.astype(np.int32))
+# global scratch one launch past 16384 slots may take, less where the
+# card has less free memory (``cuda_lib.scratch_budget``): a block's rows
+# are (1+S)*T floats a fusion group, double-buffered (52 MB at 6^7 and T =
+# 20), so K2's, K3's and K4's 1 GiB would keep 19 of 132 SMs busy there
+HIST_SCRATCH_BUDGET = 16 << 30
+RUNS = 3                  # the C interface's ``wide`` of the digits' harvest
 
 
 @functools.lru_cache(maxsize=16)
 def device_segment_tables(S: int, W: int, T: int, n: int,
                           device: torch.device):
-    """``segment_tables`` as tensors on ``device``, built once per shape."""
-    seg_np, ext_np = segment_tables(S, W, T, n)
-    return (torch.tensor(seg_np, device=device),
-            torch.tensor(ext_np, device=device))
+    """K5's static tables on ``device``, built there once per shape from
+    ``histograms.segment_tables`` (vectorized over the slots): ``seg``
+    (Wf+2, S*T, K) float32, the slot axis last so that a warp reads
+    consecutive slots, and ``ext`` (K,) int32 (``window_frames`` gives
+    Wf).  Up to SCRATCH_MAX_K slots only: past them the kernel takes
+    each slot's runs from its digits (``harvest_tables``)."""
+    seg, ext = histograms.segment_tables(S, W, T, n, device=device,
+                                         dtype=torch.float32)
+    return (seg.transpose(1, 2).contiguous(),
+            ext.to(torch.int32).contiguous())
+
+
+def segment_tables(S: int, W: int, T: int, n: int = 1):
+    """``device_segment_tables`` on the host, as numpy (tests, tools)."""
+    seg, ext = device_segment_tables(S, W, T, n, torch.device("cpu"))
+    return seg.numpy(), ext.numpy()
+
+
+def harvest_tables(S: int, W: int, T: int, n: int, device):
+    """What a K5 launch's harvest reads besides its rows: the static
+    segment tables (``device_segment_tables``) up to SCRATCH_MAX_K slots;
+    past them (None, None), no table built."""
+    if S ** W > forward_kernel.SCRATCH_MAX_K:
+        return None, None
+    return device_segment_tables(S, W, T, n, device)
+
+
+def runs_grid(B: int, T: int, K: int, block_bytes: int, sms: int,
+              threads: int, budget: int):
+    """(blocks, scratch floats) of a K5 launch past 16384 slots: as many
+    persistent blocks as ``sms`` SMs keep resident (1024 threads an SM at
+    the wide kernels' 64 registers), no more than the ``B`` tracks, and no
+    more than ``budget`` bytes of ``block_bytes`` each (the rows, publish
+    areas and member weights of one track of T frames).  Raises
+    RuntimeError, naming the batch and the bytes, where one block alone
+    passes the budget."""
+    if block_bytes > budget:
+        raise RuntimeError(
+            f"one K5 block's global scratch ({block_bytes} bytes: the rows, "
+            f"publish areas and member weights of a track of {T} frames at "
+            f"K={K}, batch of {B} tracks) passes the {budget} bytes the card "
+            "can give it; split the longest tracks' bucket or free device "
+            "memory")
+    nblk = max(1, min(B, sms * max(1, 1024 // threads),
+                      budget // block_bytes))
+    return nblk, nblk * block_bytes // 4
 
 
 def launch(data, tabs, min_len: int, S: int, W: int, n: int = 1,
@@ -90,21 +123,34 @@ def launch(data, tabs, min_len: int, S: int, W: int, n: int = 1,
     P = forward_kernel.stream_patterns(tabs)
     lib = cuda_lib.library()
     dev = xs.device
-    seg, ext = device_segment_tables(S, W, T, n, dev)
+    seg, ext = harvest_tables(S, W, T, n, dev)
     rows = torch.empty((B, S * T), dtype=torch.float32, device=dev)
     w = int(forward_kernel.mapping_warps("K5", K, mapping)
             == forward_kernel.WIDE)
-    threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S, A, w)
-    if w and fixed > cuda_lib.smem_bytes("extrack_hist_smem", dev.index):
-        w = 2       # the wide publish areas and weights in global scratch
+    if seg is None:
+        # past 16384 slots: the harvest from the slots' digits
+        threads, _, block_bytes = cuda_lib.layout("hist", T, D, K, S, A,
+                                                  RUNS)
+        nblk, floats = runs_grid(
+            B, T, K, block_bytes,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            threads, cuda_lib.scratch_budget(dev, HIST_SCRATCH_BUDGET))
+        w, scratch = RUNS, torch.empty(floats, dtype=torch.float32,
+                                       device=dev)
+    else:
         threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S, A,
                                                      w)
-    nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, fixed,
-                                  rows_bytes, threads)
+        if w and fixed > cuda_lib.smem_bytes("extrack_hist_smem",
+                                             dev.index):
+            w = 2   # the wide publish areas and weights in global scratch
+            threads, fixed, rows_bytes = cuda_lib.layout("hist", T, D, K, S,
+                                                         A, w)
+        nblk, scratch = cuda_lib.grid("extrack_hist_smem", dev, B, fixed,
+                                      rows_bytes, threads)
     rc = lib.extrack_hist(
         *(t.data_ptr() for t in (*data, *tabs[:6])),
         tabs[10].data_ptr() if P else None,
-        *(t.data_ptr() for t in (seg, ext, rows)),
+        *(None if t is None else t.data_ptr() for t in (seg, ext, rows)),
         None if scratch is None else scratch.data_ptr(),
         B, T, D, K, A, P, int(min_len), S, window_frames(W, n), nblk, w,
         torch.cuda.current_stream(dev).cuda_stream)

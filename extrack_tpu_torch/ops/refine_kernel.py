@@ -7,8 +7,10 @@ position:
 
 * CUDA tensors (float32): one K6 launch on ``build_refine_tables``' slot
   tables: a thread a slot up to 1024 slots, a thread a fusion group up to
-  4096 (``forward_kernel.mapping_warps``).  Outside the envelope it
-  raises.
+  16384 (``forward_kernel.mapping_warps``), the forms in global scratch
+  where shared memory cannot hold them, and past 4096 slots the publish
+  areas too where they pass what a block may opt in to
+  (``refine_wide_global_kernel``).  Outside the envelope it raises.
 * CPU tensors: ``refine_plain``, which is ``refine.refine_positions`` on
   the same inputs, in chunks that bound its S*(K/S)^2-component mixture.
 
@@ -48,6 +50,25 @@ def build_refine_tables(log_trans: torch.Tensor, sig2_states: torch.Tensor,
     return lt - (W - 2) * math.log(S), lt, sig2
 
 
+def plan(T: int, D: int, K: int, S: int, smem_limit: int,
+         mapping: str | None = None, layout=None):
+    """(wide, threads, shared bytes, carry bytes) of a K6 launch:
+    ``forward_kernel.mapping_warps``' mapping (``mapping`` forces it), wide
+    0 a thread a slot, 1 the wide mapping, 2 the wide mapping with its
+    publish areas in global scratch, exactly where the wide block's fixed
+    shared bytes (publish areas and ring) pass ``smem_limit``.  ``layout``
+    (T, D, K, S, wide) -> (threads, fixed, carry) is the kernel's own
+    (``cuda_lib.layout``) unless given (tests)."""
+    layout = layout or (lambda *dims: cuda_lib.layout("refine", *dims))
+    w = int(forward_kernel.mapping_warps("K6", K, mapping)
+            == forward_kernel.WIDE)
+    threads, fixed, carry = layout(T, D, K, S, w)
+    if w and fixed > smem_limit:
+        w = 2       # the publish areas in global scratch after the forms
+        threads, fixed, carry = layout(T, D, K, S, w)
+    return w, threads, fixed, carry
+
+
 def launch(positions, lengths, l2, tabs, S: int,
            mapping: str | None = None):
     """Launch K6 on the current stream: ``positions``, ``l2`` (B, T, D)
@@ -67,14 +88,15 @@ def launch(positions, lengths, l2, tabs, S: int,
     f32 = dict(dtype=torch.float32, device=dev)
     mu = torch.empty((B, T, D), **f32)
     sigma = torch.empty((B, T, D), **f32)
-    w = forward_kernel.mapping_warps("K6", K, mapping) == forward_kernel.WIDE
-    threads, fixed, stash = cuda_lib.layout("refine", T, D, K, S, int(w))
+    w, threads, fixed, stash = plan(
+        T, D, K, S, cuda_lib.smem_bytes("extrack_refine_smem", dev.index),
+        mapping)
     nblk, scratch = cuda_lib.grid("extrack_refine_smem", dev, B, fixed,
-                                  stash, threads)
+                                  stash, threads, in_scratch=w == 2)
     rc = lib.extrack_refine(
         *(t.data_ptr() for t in (positions, l2, lengths, *tabs, mu, sigma)),
         None if scratch is None else scratch.data_ptr(),
-        B, T, D, K, S, nblk, int(w),
+        B, T, D, K, S, nblk, w,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "refinement")
     LAUNCHES += 1
@@ -84,13 +106,13 @@ def launch(positions, lengths, l2, tabs, S: int,
 def refine_plain(positions, lengths, loc_err2, log_trans, sig2_states, *,
                  window: int = 7):
     """The plain version of K6: ``refine.refine_positions``, in chunks of
-    tracks that keep its (chunk, T, C) mixture, C = S*(K/S)^2 components
-    per position, at about 2^26 components."""
+    tracks that keep its (chunk, K/S, K/S, D) block of pairs at about 2^26
+    floats."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     B, T, D = positions.shape
     S = log_trans.shape[0]
-    chunk = max(8, (1 << 26) // (T * S ** (2 * window - 1)))
+    chunk = max(1, (1 << 26) // (S ** (2 * window - 2) * D))
     l2 = loc_err2.expand(B, T, D)
     parts = [trefine.refine_positions(positions[i:i + chunk],
                                       lengths[i:i + chunk],

@@ -106,6 +106,63 @@ def _reverse_tracks(arr, lengths):
     return torch.gather(arr, 1, idx)
 
 
+def _sides(positions, lengths, l2, log_trans, sig2_states, window):
+    """Both scans' registers at every position: the prefix side (priors
+    from earlier positions, transitions in forward time) and the suffix
+    side, the prefix scan on reversed tracks with the transposed
+    transition matrix (refined_localization.py:216-218), each (m (B,T,K,D),
+    s2 (B,T,K,D), lp (B,T,K))."""
+    pre = _refine_scan(positions, l2, lengths, log_trans, sig2_states,
+                       window)
+    suf = _refine_scan(_reverse_tracks(positions, lengths),
+                       _reverse_tracks(l2, lengths), lengths, log_trans.T,
+                       sig2_states, window)
+    return pre, tuple(_reverse_tracks(a, lengths) for a in suf)
+
+
+def _ends(positions, lengths, l2, pre, suf):
+    """The track ends' products, observation x prior from the one side
+    available: (mu, var (B,T,K,D), lw (B,T,K)) of the suffix side (for
+    position 0; a 1-frame track's position is its observation alone) and
+    of the prefix side (for position L-1)."""
+    x = positions[:, :, None, :]
+    l2k = l2[:, :, None, :]
+
+    def prod2(m, s2, lp):
+        tot = s2 + l2k
+        mu = (x * s2 + m * l2k) / tot
+        var = s2 * l2k / tot
+        lw = lp + (-0.5 * torch.log(2 * math.pi * tot)
+                   - (x - m) ** 2 / (2 * tot)).sum(-1)
+        return mu, var, lw
+
+    mu_s, var_s, lw_s = prod2(*suf)
+    lone = (lengths == 1)[:, None, None, None]
+    mu_s = torch.where(lone, x.expand_as(mu_s), mu_s)
+    var_s = torch.where(lone, l2k.expand_as(var_s), var_s)
+    lw_s = torch.where(lone[..., 0], torch.zeros_like(lw_s), lw_s)
+    return (mu_s, var_s, lw_s), prod2(*pre)
+
+
+def _pairs(x, l2, m1, v1, lp1, m2, v2, lp2):
+    """The interior's three-way products of state-matched slot pairs:
+    prefix prior (m1, v1, lp1) x suffix prior (m2, v2, lp2) x the
+    observation (x, l2), broadcast against each other (D last; lp without
+    it): (mu, var, lw)."""
+    tot12 = v1 + v2
+    mu12 = (m1 * v2 + m2 * v1) / tot12
+    var12 = v1 * v2 / tot12
+    lc12 = (-0.5 * torch.log(2 * math.pi * tot12)
+            - (m1 - m2) ** 2 / (2 * tot12)).sum(-1)
+    tot_o = var12 + l2
+    mu = (x * var12 + mu12 * l2) / tot_o
+    var = var12 * l2 / tot_o
+    lw = (lp1 + lp2 + lc12
+          + (-0.5 * torch.log(2 * math.pi * tot_o)
+             - (x - mu12) ** 2 / (2 * tot_o)).sum(-1))
+    return mu, var, lw
+
+
 def position_mixtures(positions, lengths, loc_err2, log_trans, sig2_states,
                       *, window: int = 7):
     """The full per-position true-position Gaussian mixture.
@@ -127,67 +184,23 @@ def position_mixtures(positions, lengths, loc_err2, log_trans, sig2_states,
     dev = positions.device
     lengths = lengths.to(device=dev, dtype=torch.int64)
     l2 = loc_err2.to(positions.dtype).expand(B, T, D)
-
-    # prefix: priors from earlier positions (transitions in forward time)
-    pm, ps2, plp = _refine_scan(positions, l2, lengths, log_trans,
-                                sig2_states, window)
-    # suffix: priors from later positions, the prefix scan on reversed
-    # tracks with the transposed transition matrix
-    # (refined_localization.py:216-218)
-    sm, ss2, slp = _refine_scan(_reverse_tracks(positions, lengths),
-                                _reverse_tracks(l2, lengths), lengths,
-                                log_trans.T, sig2_states, window)
-    sm = _reverse_tracks(sm, lengths)
-    ss2 = _reverse_tracks(ss2, lengths)
-    slp = _reverse_tracks(slp, lengths)
-
-    x = positions[:, :, None, :]
-    l2k = l2[:, :, None, :]
-
-    # ---- end products: obs x prior from the single available side ------
-    def prod2(m, s2, lp):
-        tot = s2 + l2k
-        mu = (x * s2 + m * l2k) / tot
-        var = s2 * l2k / tot
-        lw = lp + (-0.5 * torch.log(2 * math.pi * tot)
-                   - (x - m) ** 2 / (2 * tot)).sum(-1)
-        return mu, var, lw                          # (B,T,K,D) x2, (B,T,K)
-
-    mu_s, var_s, lw_s = prod2(sm, ss2, slp)         # for k = 0
-    mu_p, var_p, lw_p = prod2(pm, ps2, plp)         # for k = L-1
-    # a 1-frame track has no side: its position is the observation
-    lone = (lengths == 1)[:, None, None, None]
-    mu_s = torch.where(lone, x.expand_as(mu_s), mu_s)
-    var_s = torch.where(lone, l2k.expand_as(var_s), var_s)
-    lw_s = torch.where(lone[..., 0], torch.zeros_like(lw_s), lw_s)
+    pre, suf = _sides(positions, lengths, l2, log_trans, sig2_states, window)
+    (mu_s, var_s, lw_s), (mu_p, var_p, lw_p) = _ends(positions, lengths, l2,
+                                                     pre, suf)
 
     # ---- interior: state-matched three-way products --------------------
     # slots are ordered newest-state-major: block s = slots [s*KS, (s+1)*KS)
     def blocks(a, extra):
         return a.reshape((B, T, S, KS) + extra)
 
-    pmb, ps2b, plpb = blocks(pm, (D,)), blocks(ps2, (D,)), blocks(plp, ())
-    smb, ss2b, slpb = blocks(sm, (D,)), blocks(ss2, (D,)), blocks(slp, ())
-
-    # product of prefix and suffix priors (per state block, all slot pairs)
-    v1 = ps2b[:, :, :, :, None, :]                  # (B,T,S,KS,1,D)
-    v2 = ss2b[:, :, :, None, :, :]                  # (B,T,S,1,KS,D)
-    m1 = pmb[:, :, :, :, None, :]
-    m2 = smb[:, :, :, None, :, :]
-    tot12 = v1 + v2
-    mu12 = (m1 * v2 + m2 * v1) / tot12
-    var12 = v1 * v2 / tot12
-    lc12 = (-0.5 * torch.log(2 * math.pi * tot12)
-            - (m1 - m2) ** 2 / (2 * tot12)).sum(-1)
-    # then product with the observation
-    xl = positions[:, :, None, None, None, :]       # (B,T,1,1,1,D)
-    l2i = l2[:, :, None, None, None, :]
-    tot_o = var12 + l2i
-    mu_i = (xl * var12 + mu12 * l2i) / tot_o
-    var_i = var12 * l2i / tot_o
-    lw_i = (plpb[:, :, :, :, None] + slpb[:, :, :, None, :] + lc12
-            + (-0.5 * torch.log(2 * math.pi * tot_o)
-               - (xl - mu12) ** 2 / (2 * tot_o)).sum(-1))
+    (pmb, ps2b, plpb), (smb, ss2b, slpb) = (
+        (blocks(m, (D,)), blocks(s2, (D,)), blocks(lp, ()))
+        for m, s2, lp in (pre, suf))
+    mu_i, var_i, lw_i = _pairs(
+        positions[:, :, None, None, None, :], l2[:, :, None, None, None, :],
+        pmb[:, :, :, :, None, :], ps2b[:, :, :, :, None, :],
+        plpb[:, :, :, :, None], smb[:, :, :, None, :, :],
+        ss2b[:, :, :, None, :, :], slpb[:, :, :, None, :])
 
     C = S * KS * KS
     mu_i = mu_i.reshape(B, T, C, D)
@@ -247,15 +260,54 @@ def refine_positions(positions, lengths, loc_err2, log_trans, sig2_states,
     Returns (mu (B,T,D), sigma (B,T,D)), the moment-matched mean and std
     of the true-position mixture at every localization
     (position_refinement, refined_localization.py:304-338); zeros past
-    each track's length.
+    each track's length.  The moments of ``position_mixtures``' mixture,
+    taken position by position and state block by state block (the K/S x
+    K/S pairs of one block at a time, their weights rescaled to a running
+    maximum), so that no more than one block's pairs are held: at 4^7
+    slots a position's mixture has 67.1 M components.
     """
     B, T, D = positions.shape
-    lengths = lengths.to(device=positions.device, dtype=torch.int64)
-    mu_c, var_c, lw, _ = position_mixtures(
-        positions, lengths, loc_err2, log_trans, sig2_states, window=window)
-    mu, var = _moment_match_mixture(mu_c, var_c, lw)
-    valid = (torch.arange(T, device=positions.device)[None, :]
-             < lengths[:, None])[..., None]
+    S = log_trans.shape[0]
+    KS = S ** window // S
+    dev, dtype = positions.device, positions.dtype
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    l2 = loc_err2.to(dtype).expand(B, T, D)
+    pre, suf = _sides(positions, lengths, l2, log_trans, sig2_states, window)
+    (mu_s, var_s, lw_s), (mu_p, var_p, lw_p) = _ends(positions, lengths, l2,
+                                                     pre, suf)
+    mu_first, var_first = _moment_match_mixture(mu_s, var_s, lw_s)
+    mu_last, var_last = _moment_match_mixture(mu_p, var_p, lw_p)
+    mu_int = torch.zeros((B, T, D), dtype=dtype, device=dev)
+    var_int = torch.zeros((B, T, D), dtype=dtype, device=dev)
+    for t in range(1, T - 1):
+        mx = torch.full((B, 1), -math.inf, dtype=dtype, device=dev)
+        sw = torch.zeros((B, 1), dtype=dtype, device=dev)
+        smu = torch.zeros((B, D), dtype=dtype, device=dev)
+        svar = torch.zeros((B, D), dtype=dtype, device=dev)
+        for s in range(S):
+            blk = slice(s * KS, (s + 1) * KS)
+            mu, var, lw = _pairs(
+                positions[:, t, None, None, :], l2[:, t, None, None, :],
+                pre[0][:, t, blk, None, :], pre[1][:, t, blk, None, :],
+                pre[2][:, t, blk, None], suf[0][:, t, None, blk, :],
+                suf[1][:, t, None, blk, :], suf[2][:, t, None, blk])
+            lw = lw.reshape(B, KS * KS)
+            new = torch.maximum(mx, lw.amax(dim=1, keepdim=True))
+            ref = torch.where(torch.isfinite(new), new, torch.zeros_like(new))
+            scale = torch.exp(mx - ref)
+            w = torch.exp(lw - ref)
+            sw = sw * scale + w.sum(dim=1, keepdim=True)
+            smu = smu * scale + (w[..., None] * mu.reshape(B, -1, D)).sum(1)
+            svar = svar * scale + (w[..., None] * var.reshape(B, -1, D)).sum(1)
+            mx = new
+        sw = sw.clamp_min(_TINY)
+        mu_int[:, t] = smu / sw
+        var_int[:, t] = svar / sw
+    k_idx = torch.arange(T, device=dev)[None, :, None]
+    first, last = k_idx == 0, k_idx == lengths[:, None, None] - 1
+    mu = torch.where(first, mu_first, torch.where(last, mu_last, mu_int))
+    var = torch.where(first, var_first, torch.where(last, var_last, var_int))
+    valid = k_idx < lengths[:, None, None]
     zero = torch.zeros((), dtype=mu.dtype, device=mu.device)
     return torch.where(valid, mu, zero), torch.where(valid, var.sqrt(), zero)
 
@@ -285,9 +337,9 @@ def default_window(nb_states: int, T: int = 16, D: int = 2) -> int:
     call it with the batch's padded length and dimensions when
     ``frame_len`` is not given, so a refinement without ``frame_len``
     uses the reference's window.  Up to 64 states its register stays
-    inside the CUDA kernel's 4096 slots (K6 maps past 1024 with a thread a
-    fusion group; the largest default is 6^4 = 1296, 6 states on short
-    1-D tracks); a window past 4096 slots raises on a CUDA bucket and
+    inside the CUDA kernel's 16384 slots (K6 maps past 1024 with a thread
+    a fusion group; the largest default is 6^4 = 1296, 6 states on short
+    1-D tracks); a window past 16384 slots raises on a CUDA bucket and
     names the largest window that fits."""
     S = int(nb_states)
     for w in range(7, 1, -1):
@@ -695,7 +747,7 @@ def full_extrack_2_matrix(all_tracks, params, dt, all_frames=None,
     The posteriors take ``predict_Bs`` at ``min(frame_len, 8)``, the
     refinement ``position_refinement`` at ``frame_len // 2 + 3`` (10 at
     the default 15), as the JAX package does.  From 3 states on that
-    window passes K6's 4096 slots (3^10 = 59049), and a CUDA bucket
+    window passes K6's 16384 slots (3^10 = 59049), and a CUDA bucket
     raises naming K6: pass a smaller ``frame_len``."""
     from extrack_tpu_torch import predict
     from extrack_tpu_torch.io import exporters

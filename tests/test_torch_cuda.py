@@ -640,8 +640,20 @@ def test_refine_layout(cuda):
         cuda_lib.layout("refine", 10, 4, 128, 2, 0)
     with pytest.raises(RuntimeError):
         cuda_lib.layout("refine", 10, 2, 2 ** 11, 2, 0)
+        # past 4096 slots, the publish areas in global scratch (wide = 2):
+        # no dynamic shared memory, the carry holds them (padded to 4
+        # floats) after the forms
+        for S, W in ((4, 7), (2, 14), (3, 8), (5, 6)):
+            K, KS = S ** W, S ** (W - 1)
+            frame = per * (-(-K // 4) * 4) * 4
+            pubs = -(-2 * (2 * D + 1) * KS // 4) * 4 * 4
+            assert cuda_lib.layout("refine", 10, D, K, S, 2) == (
+                1024, 0, 10 * frame + pubs)
+            assert cuda_lib.layout("refine", 2, D, K, S, 2)[2] == pubs
     with pytest.raises(RuntimeError):
-        cuda_lib.layout("refine", 10, 2, 3 ** 8, 3, 1)
+        cuda_lib.layout("refine", 10, 2, 3 ** 9, 3, 1)
+    with pytest.raises(RuntimeError):
+        cuda_lib.layout("refine", 10, 2, 3 ** 9, 3, 2)
 
 
 @pytest.mark.cuda
@@ -678,18 +690,29 @@ def test_hist_layout(cuda):
         for D in (1, 2, 3):
             assert cuda_lib.layout("hist", T, D, K, S, A, 2) == (
                 1024, 0, (2 * G * (1 + S) * T + 2 * (2 * D + 1) * G + K) * 4)
+    # past 16384 slots (wide = 3, the harvest from the slots' digits): the
+    # layout of wide = 2, up to 2^19
+    for S, W, T, n in ((5, 7, 10, 1), (6, 7, 20, 1), (4, 8, 9, 1),
+                       (2, 15, 10, 2), (2, 19, 4, 1)):
+        K, A = S ** W, S ** n
+        G = K // A
+        for D in (1, 2, 3):
+            assert cuda_lib.layout("hist", T, D, K, S, A, 3) == (
+                1024, 0, (2 * G * (1 + S) * T + 2 * (2 * D + 1) * G + K) * 4)
     with pytest.raises(RuntimeError):
         cuda_lib.layout("hist", 10, 2, 2 ** 11, 2, 2, 0)
     for wide in (1, 2):
         with pytest.raises(RuntimeError):
             cuda_lib.layout("hist", 10, 2, 3 ** 9, 3, 3, wide)
+    with pytest.raises(RuntimeError):
+        cuda_lib.layout("hist", 10, 2, 3 ** 12, 3, 3, 3)
 
 
 @pytest.mark.cuda
 def test_cuda_refinement_window_past_the_envelope_raises(cuda):
     """The reference's default window for 6 states on short 1-D tracks
     needs 6^4 = 1296 slots: K6's wide mapping runs it, held to the plain
-    version; a window past 4096 slots raises, names the bucket and points
+    version; a window past 16384 slots raises, names the bucket and points
     to frame_len."""
     from extrack_tpu_torch import refine
     rng = np.random.default_rng(0)
@@ -709,7 +732,7 @@ def test_cuda_refinement_window_past_the_envelope_raises(cuda):
     np.testing.assert_allclose(sig, sig0, rtol=2e-3, atol=2e-5)
     with pytest.raises(NotImplementedError, match="bucket.*frame_len.*K6"):
         refine.refine_batch(batch, 0.02, np.full(6, 0.05), TrMat,
-                            frame_len=5)
+                            frame_len=6)
 
 
 @pytest.mark.cuda
@@ -875,9 +898,9 @@ def test_cuda_topk_pad_prefix_backpointers_match_plain(cuda, S, n, M, B, T,
 
 def _past_envelope(S, kernel):
     """The smallest window whose register passes ``kernel``'s envelope
-    (K6: 4096 slots; K1, K2, K3 and K5: 16384; K4: 65536) at S states."""
+    (K1, K2, K3 and K6: 16384 slots; K4: 65536; K5: 2^19) at S states."""
     limit = forward_kernel.MAX_SLOTS[kernel]
-    return next(w for w in range(1, 20) if S ** w > limit)
+    return next(w for w in range(1, 24) if S ** w > limit)
 
 
 # (S, W, D, dt): K = 1296, 2048, 2187, 3125 and 4096 (2, 4 and 8 states),
@@ -962,7 +985,7 @@ def test_cuda_wide_k5_matches_plain(cuda, S, W, n, D, dt):
     frames = float((got.cpu().double()
                     * torch.arange(1, T + 1)[:, None]).sum())
     np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
-    with pytest.raises(NotImplementedError, match="K5 maps at most 16384"):
+    with pytest.raises(NotImplementedError, match="K5 maps at most 524288"):
         hist_kernel.hist(pos, lens, isbl, tb,
                          window=_past_envelope(S, "K5"))
 
@@ -1003,7 +1026,7 @@ def test_cuda_wide_k6_matches_plain(cuda, S, W, B, T, D, per_peak):
     L = args[1].cpu().numpy()
     valid = np.arange(T)[None, :] < L[:, None]
     assert np.all(mu.cpu().numpy()[~valid] == 0.0)
-    with pytest.raises(NotImplementedError, match="K6 maps at most 4096"):
+    with pytest.raises(NotImplementedError, match="K6 maps at most 16384"):
         refine_kernel.refine(*args, window=_past_envelope(S, "K6"))
 
 
@@ -1105,6 +1128,82 @@ def test_cuda_k5_past_4096_slots_matches_plain(cuda, S, W, n, D, dt):
     frames = float((got.cpu().double()
                     * torch.arange(1, T + 1)[:, None]).sum())
     np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
+
+
+# ---- K5 past 16384 slots (up to 2^19), K6 past 4096 (up to 16384) -----
+
+# (S, W, n, D, dt): len_hist's default window 7 at 5 and 6 states (K =
+# 78,125 and 279,936), the GUI's lifetime window 8 at 4 states (65,536)
+# and two sub-steps at window 8 frames (2^15), D = 1..3, constant and
+# variable dt: the harvest from the slots' digits (hist_runs_kernel)
+PAST_16384_K5_CASES = [
+    (5, 7, 1, 1, None), (5, 7, 1, 2, "track"), (5, 7, 1, 3, "step"),
+    (6, 7, 1, 2, None), (4, 8, 1, 2, "track"), (4, 8, 1, 3, None),
+    (2, 15, 2, 1, "step"), (2, 15, 2, 2, "track"), (2, 15, 2, 3, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,D,dt", PAST_16384_K5_CASES)
+def test_cuda_k5_past_16384_slots_matches_plain(cuda, S, W, n, D, dt):
+    # tracks longer than the window (frames leave it) and shorter ones,
+    # against the plain version in float64; bit-repeatable
+    wf = (W - 1) // n + 1
+    T = wf + 3
+    pos, lens, isbl, tb = _case(cuda, S, n, 6, T, D, seed=S * W + n + D,
+                                dt=dt)
+    kw = dict(window=W, min_len=2, nb_substeps=n)
+    before = hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS
+    got = hist_kernel.hist(pos, lens, isbl, tb, **kw)
+    assert torch.equal(got, hist_kernel.hist(pos, lens, isbl, tb, **kw))
+    assert (hist_kernel.LAUNCHES, hist_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    want = hist_kernel.hist_plain(pos.double(), lens, isbl.double(),
+                                  tables.ModelTables(*(f.double()
+                                                       for f in tb)), **kw)
+    torch.testing.assert_close(got.double(), want, rtol=2e-3, atol=2e-4)
+    L = lens.cpu().numpy()
+    frames = float((got.cpu().double()
+                    * torch.arange(1, T + 1)[:, None]).sum())
+    np.testing.assert_allclose(frames, L[L >= 2].sum(), rtol=2e-3)
+
+
+# (S, W, D, per-peak LocErr): 6^5 (1-D), 3^8, 5^6 (the reference's
+# frame_len 6 at 5 states) and 4^7 (its frame_len 7 at 4 states) with the
+# publish areas in shared memory, 4^7 at D = 3 and 2^14 in global scratch
+PAST_4096_K6_CASES = [
+    (6, 5, 1, False), (3, 8, 2, True), (5, 6, 3, False), (4, 7, 1, True),
+    (4, 7, 3, False), (2, 14, 2, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D,per_peak", PAST_4096_K6_CASES)
+def test_cuda_k6_past_4096_slots_matches_plain(cuda, S, W, D, per_peak):
+    args = _refine_args(cuda, S, W, 4, 6, D, per_peak)
+    before = refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS
+    mu, sig = refine_kernel.refine(*args, window=W)
+    assert (refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1])
+    mu0, sig0 = refine_kernel.refine_plain(*args, window=W)
+    torch.testing.assert_close(mu, mu0, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(sig, sig0, rtol=2e-3, atol=2e-5)
+    with pytest.raises(NotImplementedError, match="K6 maps at most 16384"):
+        refine_kernel.refine(*args, window=_past_envelope(S, "K6"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D", [(6, 4, 2), (3, 7, 3), (3, 8, 1)])
+def test_cuda_k6_global_publish_areas_match_shared(cuda, S, W, D,
+                                                   monkeypatch):
+    # refine_wide_global_kernel forced onto registers whose publish areas
+    # fit shared memory (the opt-in patched to 0) gives refine_wide_kernel's
+    # results
+    from extrack_tpu_torch.ops import cuda_lib
+    args = _refine_args(cuda, S, W, 8, 7, D, D == 1)
+    want = refine_kernel.refine(*args, window=W)
+    monkeypatch.setattr(cuda_lib, "smem_bytes", lambda *a: 0)
+    got = refine_kernel.refine(*args, window=W)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
 
 
 # ---- K4 past 16384 slots, up to 65536 ----------------------------------

@@ -232,13 +232,13 @@ def test_check_envelope_names_k5_and_k7_for_variable_dt():
         topk_kernel.check_envelope(10, 2, 2, 512, variable_dt=True,
                                    dtype=torch.float64)
     # K5 maps past 1024 slots (3^7 = 2187, len_hist's default window at
-    # 3 states; 3^8 = 6561, 4^7 = 16384 at 4 states) with variable dt;
-    # past 16384 it raises, naming itself
-    for S, W in ((3, 7), (3, 8), (4, 7)):
+    # 3 states; 3^8 = 6561, 4^7 = 16384 at 4 states; 5^7 and 6^7 past
+    # 16384) with variable dt; past 2^19 it raises, naming itself
+    for S, W in ((3, 7), (3, 8), (4, 7), (5, 7), (6, 7)):
         forward_kernel.check_envelope(10, 2, S, W, 1, variable_dt=True,
                                       kernel="K5")
-    with pytest.raises(NotImplementedError, match=r"K=.*16384.*K5"):
-        forward_kernel.check_envelope(10, 2, 3, 9, 1, variable_dt=True,
+    with pytest.raises(NotImplementedError, match=r"K=.*524288.*K5"):
+        forward_kernel.check_envelope(10, 2, 3, 12, 1, variable_dt=True,
                                       kernel="K5")
 
 

@@ -387,7 +387,7 @@ def test_mapping_choice_and_per_kernel_limits():
     # K1: a warp up to 64 slots, a thread a fusion group above, up to
     # 16384; K4: a warp up to 64, a thread a slot up to 1024, a thread a
     # fusion group up to 65536; K5 and K6 (a block a track) go wide past
-    # 1024, K5 up to 16384, K6 up to 4096; K2 and K3 (grad_kernel.plan) to
+    # 1024, K5 up to 2^19, K6 up to 16384; K2 and K3 (grad_kernel.plan) to
     # 16384
     W = forward_kernel.WIDE
     Ks = (64, 65, 1024, 1025, 4096)
@@ -413,16 +413,21 @@ def test_mapping_choice_and_per_kernel_limits():
         forward_kernel.plan("K4", 2048, 0, 0, 0, None, mapping="block")
     for k in ("K4", "K5"):
         assert forward_kernel.mapping_warps(k, 16384) == W
-    # K4 goes on to 65536 (7^5, 6^6, 3^10, 2^16); K5 stops at 16384
+    # K4 goes on to 65536 (7^5, 6^6, 3^10, 2^16); K5 to 2^19 (5^7, 6^7,
+    # 4^8, 5^8), K6 to 16384 (6^5, 3^8, 5^6, 4^7)
     for K in (16807, 46656, 59049, 65536):
         assert forward_kernel.mapping_warps("K4", K) == W
         assert forward_kernel.mapping_warps("K4", K, "wide") == W
     with pytest.raises(ValueError, match="wide mapping takes K <= 65536"):
         forward_kernel.mapping_warps("K4", 65537, "wide")
+    for K in (78125, 279936, 65536, 390625, 1 << 19):
+        assert forward_kernel.mapping_warps("K5", K, "wide") == W
+    with pytest.raises(ValueError, match="wide mapping takes K <= 524288"):
+        forward_kernel.mapping_warps("K5", 3 ** 12, "wide")
+    for K in (7776, 6561, 15625, 16384):
+        assert forward_kernel.mapping_warps("K6", K) == W
     with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
-        forward_kernel.mapping_warps("K5", 16807, "wide")
-    with pytest.raises(ValueError, match="wide mapping takes K <= 4096"):
-        forward_kernel.mapping_warps("K6", 7776)
+        forward_kernel.mapping_warps("K6", 16807)
     # K1 goes on to 16384 (6^5, 5^6, 4^7, 2^14) and stops there
     for K in (7776, 15625, 16384):
         assert forward_kernel.mapping_warps("K1", K) == W
@@ -443,7 +448,7 @@ def test_mapping_choice_and_per_kernel_limits():
         forward_kernel.WARP_MAX_K = saved
     assert forward_kernel.MAX_SLOTS == {"K1": 16384, "K2": 16384,
                                         "K3": 16384, "K4": 65536,
-                                        "K5": 16384, "K6": 4096}
+                                        "K5": 524288, "K6": 16384}
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
@@ -459,15 +464,19 @@ def test_check_envelope_names_each_kernels_limit(kernel):
         forward_kernel.check_envelope(10, 2, 6, 5, 1, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 2, 13, 2, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 4, 7, 1, kernel=kernel)
-    if limit == 65536:
+    if limit >= 65536:
         # K4: predict_Bs at 7 states (7^5) and 6 states at frame_len 6
-        # (6^6), the GUI's labeling window at 3 states (3^10)
+        # (6^6), the GUI's labeling window at 3 states (3^10); K5 too
         for S, W in ((7, 5), (6, 6), (3, 10), (4, 8), (2, 16)):
+            forward_kernel.check_envelope(10, 2, S, W, 1, kernel=kernel)
+    if limit == 1 << 19:
+        # K5: len_hist's default window 7 at 5 and 6 states, window 8 at 5
+        for S, W in ((5, 7), (6, 7), (5, 8), (2, 19)):
             forward_kernel.check_envelope(10, 2, S, W, 1, kernel=kernel)
     # past the limit: the bucket, the kernel, its limit and the largest
     # window that fits (3 states: 6 for 1024 slots, 7 for 4096, 8 for
-    # 16384, 10 for 65536)
-    fits = {1024: 6, 4096: 7, 16384: 8, 65536: 10}[limit]
+    # 16384, 10 for 65536, 11 for 2^19)
+    fits = {1024: 6, 4096: 7, 16384: 8, 65536: 10, 524288: 11}[limit]
     K = 3 ** (fits + 1)
     with pytest.raises(NotImplementedError,
                        match=(rf"bucket 2 .*K=S\*\*window={K} > {limit} "

@@ -57,7 +57,8 @@ def test_kernel_sources_present():
     from extrack_tpu_torch.ops import cuda_lib
     names = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu*"))
     assert names == ["common.cuh", "dual.cuh", "forward.cu", "grad.cu",
-                     "grad.cuh", "hist.cu", "hvp.cu", "predict.cu",
+                     "grad.cuh", "hist.cu", "hist.cuh", "hist_block.cuh",
+                     "hist_vdt.cu", "hist_wide.cu", "hvp.cu", "predict.cu",
                      "refine.cu", "topk.cu", "walk.cuh"]
     # every C entry point the wrappers call has a ctypes signature
     assert set(cuda_lib._SIGNATURES) == {
