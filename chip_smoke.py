@@ -215,7 +215,7 @@ Phases (each prints its lines; a failed check exits non-zero):
    in-process part; their wall time is printed, and is not a speed.
 16. the fit past 1024 slots (K2 and K3 on their wide mapping, a thread a
    fusion group): ``param_fitting(nb_states=4, frame_len=6,
-   compute_errors=True)`` on ~1.5 x 10^4 4-state ``sim_fov`` tracks (K =
+   compute_errors=True, max_iter=FIT_PAST_ITERS)`` on ~1.5 x 10^4 4-state ``sim_fov`` tracks (K =
    4096, the GUI's seeded frame_len; its launches, 0 plain calls, its
    wall time; at its start the objective's value and z-gradient against
    the plain version on each bucket's first tracks, the Hessian columns
@@ -230,11 +230,11 @@ Phases (each prints its lines; a failed check exits non-zero):
    bucket.
 17. the fit past 4096 slots (K2 and K3 with up to eight fusion groups a
    thread, their exchange in global scratch): ``param_fitting(nb_states=5,
-   frame_len=6, compute_errors=True)`` on ~4,000 5-state ``sim_fov``
+   frame_len=6, compute_errors=True, max_iter=FIT_PAST_ITERS)`` on ~4,000 5-state ``sim_fov``
    tracks (K = 15,625, the GUI's seeded frame_len at 5 states; its
    launches, 0 plain calls; at its start the objective and the Hessian
    columns against the plain versions as in phase 16), the value-only
-   objective at its optimum (K1 against K2's value), the GUI
+   objective at the fit's end (K1 against K2's value), the GUI
    ``Session``'s Model Fitting runner at 5 states on every
    GUI17_STRIDE-th track; then K1's, K2's and K3's bare and wrapper
    times on 2^12 random walks at (S, W) = (5, 6) and (4, 7) beside the
@@ -254,7 +254,31 @@ Phases (each prints its lines; a failed check exits non-zero):
    at 5 states (K = 15,625), D = 1..3, each bucket's K6 result the entry
    point's and its first REFINE18_CHECK tracks against the plain version;
    then K5's (5^7) and K6's (4^7) bare and wrapper times beside their
-   bounds and plain times.  The run ends with each phase's seconds.
+   bounds and plain times.
+19. K1, K2 and K3 past 16384 slots (up to 65536, sixteen fusion groups a
+   thread) and K7 past 1024 register rows (up to 4096, a thread several
+   rows): ``param_fitting(nb_states=6, frame_len=6, compute_errors=True,
+   max_iter=FIT19_ITERS)`` on ~1,000 6-state ``sim_fov`` tracks (K =
+   46,656, the GUI's seeded frame_len at 6 states; K3 launches = free
+   parameters x buckets, 0 plain calls; at its start the objective on
+   each bucket's first tracks, K1's per-track logL there and the Hessian
+   columns on the shortest bucket's against the plain versions), the
+   value-only objective at its end (K1's launches, its value beside
+   K2's), the GUI ``Session``'s Model Fitting runner at 6 states on every
+   GUI19_STRIDE-th track, the 4-state objective, K1 and K3's columns at
+   window 8 (K = 65,536, sixteen groups a thread) against the plain
+   versions; K1's, K2's and K3's bare and wrapper times on 2^12 random
+   walks at 6^6 and 4^8 beside their bounds and their plain versions on
+   1/PAST16384_SHARE of the walks; ``len_hist(engine="topk")`` at 3
+   states with max_nb_states 2000 and 4000 (its launches, 0 plain calls,
+   frames conserved; each bucket's first TOPK19_CHECK tracks against the
+   plain version), K7 at 4096 rows on walks of 21..30 frames (the walk
+   and the fused backpointers in global scratch), fused and raw, against
+   the plain version, K7's bare and wrapper times at 2048 and 4096 rows
+   on 2^12 3-state walks beside its bound, its plain version and
+   ``torch.topk`` of one step's scores, and the one-row-a-thread K7
+   against its wide kernel forced at 512 and 128 rows.
+   The run ends with each phase's seconds.
 
 Every kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -472,6 +496,11 @@ CLI_SAMPLE = ["--samples", "10", "--warmup", "10", "--chains", "2",
               "--n-leapfrog", "3"]
 BENCH_DT = (0.01, 0.03)       # phase 10's per-track intervals at the bench
 FIT_ITERS = 200
+# the 4-state (phase 16) and 5-state (phase 17) fits with error bars stop
+# after this many iterations: their checks (launches, finite error bars,
+# the start against the plain versions) need no optimum, and the whole
+# run stays inside its time limit on a slower host
+FIT_PAST_ITERS = 15
 BENCH_TRACKS = 1 << 20
 # the heaviest plain versions (K3 and K6 at the bench shape, K3 with
 # variable dt, the wide kernels: 4-30 s a pass) are timed on the first
@@ -573,6 +602,47 @@ PAST18_DT_CASES = [(5, 7, 1, "track"), (2, 15, 2, None), (2, 15, 2, "track")]
 PAST18_DT_B = 24
 PAST18_TRACKS = 1 << 12
 PAST18_K6_TRACKS = 1 << 10
+# phase 19: K1, K2 and K3 past 16384 slots (to 65536, up to 16 fusion
+# groups a thread) and K7 past 1024 register rows (to 4096).  The 6-state
+# fit at the GUI's frame_len 6 (K = 46,656) on SIM6F's ~1k tracks from a
+# rough guess of the Ds (FIT6_START), FIT19_ITERS iterations, with error
+# bars; its start held to the plain versions on each bucket's first
+# FIT19_CHECK tracks (the Hessian columns on the shortest bucket's); the
+# value-only objective at its end (K1); the GUI's runner at 6 states on
+# every GUI19_STRIDE-th track; the 4-state objective at window 8 (K =
+# 65,536) on SIM4E's tracks against the plain version (each bucket's first
+# FIT19_CHECK); the bare times at PAST16384_TIMES on PAST16384_TRACKS
+# random walks (plain on 1/PAST16384_SHARE of them, in chunks of
+# PAST16384_CHUNK); len_hist(engine="topk") at 3 states with
+# max_nb_states in TOPK19_M on SIM3T's tracks, each bucket's first
+# TOPK19_CHECK tracks against the plain version; K7 at 4096 rows on
+# TOPK19_LONG_TRACKS walks of TOPK19_LONG frames (the walk and the fused
+# backpointers in global scratch), fused and raw, against the plain
+# version; K7's bare times at TOPK19_M's registers on TOPK19_TRACKS 3-state
+# walks; at each (M, T) of TOPK19_FORK, K7's one-row-a-thread kernel
+# against its wide kernel forced, on TOPK19_TRACKS walks of 3..T frames
+SIM6F = dict(SIM, nb_tracks=1 << 10,
+             Ds=(0.0, 0.005, 0.01, 0.03, 0.06, 0.1), TrMat=TR6H, seed=20)
+FIT6_START = dict(nb_states=6, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
+                  D_max=3.0,
+                  estimated_Ds=[0.001, 0.004, 0.01, 0.02, 0.05, 0.2],
+                  estimated_transition_rates=0.1)
+FIT19_ITERS = 3
+FIT19_CHECK = 16
+GUI19_STRIDE = 8
+SIM4E = dict(SIM4, nb_tracks=1 << 8, seed=21)
+PAST16384_TIMES = [(6, 6), (4, 8)]
+PAST16384_TRACKS = 1 << 12
+PAST16384_SHARE = 16
+PAST16384_CHUNK = 64
+SIM3T = dict(SIM, nb_tracks=1 << 11, Ds=(0.0, 0.02, 0.1),
+             TrMat=np.full((3, 3), 0.05) + np.eye(3) * 0.85, seed=22)
+TOPK19_M = (2000, 4000)
+TOPK19_CHECK = 64
+TOPK19_TRACKS = 1 << 12
+TOPK19_LONG = (21, 30)        # walks whose backpointers pass the opt-in
+TOPK19_LONG_TRACKS = 64
+TOPK19_FORK = ((512, 10), (128, 30))    # K7's two kernels at one M
 PEAK_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
@@ -1437,6 +1507,18 @@ def main() -> int:
                                "extrack_tpu/ops/pallas_hist.py:63"),
         "K6 past 4096": entry("refinement_past_4096", "refine.cu",
                               "extrack_tpu/ops/pallas_refine.py:108"),
+        # K1, K2 and K3 past 16384 slots (to 65536, up to 16 fusion groups
+        # a thread): the fit at 6 states and the GUI's frame_len 6; K7 past
+        # 1024 register rows (to 4096): JAX runs XLA there
+        # (extrack_tpu/fit.py:104-119, :551-558; histograms.py:59-208)
+        "K1 past 16384": entry("forward_loglik_past_16384", "forward.cu",
+                               "extrack_tpu/ops/pallas_engine.py:218"),
+        "K2 past 16384": entry("loglik_grad_past_16384", "grad.cu",
+                               "extrack_tpu/ops/pallas_grad.py:549"),
+        "K3 past 16384": entry("loglik_hvp_past_16384", "hvp.cu",
+                               "extrack_tpu/ops/pallas_hvp.py:78"),
+        "K7 past 1024": entry("topk_hist_past_1024", "topk.cu",
+                              "extrack_tpu/ops/pallas_topk.py:113"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1471,6 +1553,7 @@ def main() -> int:
     runs_regs = {}  # K5's past 16384 slots (the digits' harvest)
     refine_global_regs = {}  # K6's with its publish areas in scratch
     topk_regs = {}  # the same of K7's (constant and variable dt)
+    topk_wide_regs = {}  # K7's wide ones (a thread several rows)
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
@@ -1493,6 +1576,7 @@ def main() -> int:
         k1_global = re.match(r"_ZN7extrack26forward_wide_global_kernel",
                              entry_name)
         topk = re.match(r"_ZN7extrack1[15]topk_(vdt_)?kernel", entry_name)
+        topk_wide = re.match(r"_ZN7extrack16topk_wide_kernel", entry_name)
         runs = re.match(r"_ZN7extrack16hist_runs_kernel", entry_name)
         refine_global = re.match(r"_ZN7extrack25refine_wide_global_kernel",
                                  entry_name)
@@ -1500,7 +1584,8 @@ def main() -> int:
         for found, table in ((wide, wide_regs), (scratch, global_regs),
                              (grad_wide, grad_regs), (deep, deep_regs),
                              (k1_global, k1_global_regs),
-                             (topk, topk_regs), (runs, runs_regs),
+                             (topk, topk_regs), (topk_wide, topk_wide_regs),
+                             (runs, runs_regs),
                              (refine_global, refine_global_regs)):
             if found and (spilled or regs):
                 key = entry_name[:60]
@@ -1550,7 +1635,7 @@ def main() -> int:
         fail(f"{len(grad_regs)} wide K2/K3 instantiations, not 12 (float "
              "and dual: D 1..3 x constant and variable dt)")
     log("phase 0: past 4096 slots, K2's and K3's deep instantiations (up "
-        "to 8 fusion groups a thread, 1024 threads, K <= 16384) and K1's "
+        "to 16 fusion groups a thread, 1024 threads, K <= 65536) and K1's "
         "with its publish areas in global scratch (registers, spill bytes "
         "stores + loads): " + ", ".join(
             f"{k} {r} regs {b} B" for k, (r, b) in sorted(
@@ -1566,6 +1651,13 @@ def main() -> int:
     if len(topk_regs) != 6:
         fail(f"{len(topk_regs)} K7 instantiations, not 6 (D 1..3 x "
              "constant and variable dt)")
+    log("phase 0: past 1024 rows, K7's wide instantiations (1024 threads, "
+        "a thread up to 4 rows; registers, spill bytes stores + loads): "
+        + ", ".join(f"{k} {r} regs {b} B"
+                    for k, (r, b) in sorted(topk_wide_regs.items())))
+    if len(topk_wide_regs) != 6:
+        fail(f"{len(topk_wide_regs)} wide K7 instantiations, not 6 (D 1..3 "
+             "x constant and variable dt)")
     log("phase 0: past 16384 slots, K5's instantiations with the harvest "
         "from the slots' digits, and past 4096 K6's with its publish areas "
         "in global scratch (1024 threads; registers, spill bytes stores + "
@@ -2550,6 +2642,7 @@ def main() -> int:
     phase16(dev, card, kinfo, errs, reset_counts, plain_calls)
     phase17(dev, card, kinfo, errs, reset_counts, plain_calls)
     phase18(dev, card, kinfo, errs, reset_counts, plain_calls)
+    phase19(dev, card, kinfo, errs, reset_counts, plain_calls)
 
     log(f"phase seconds: {phase_seconds()}; all {time.time() - _T0:.1f} s")
     for k in kinfo:
@@ -4905,14 +4998,16 @@ def phase16(dev, card, kinfo, errs, reset_counts, plain_calls):
     t0 = time.time()
     res = fit.param_fitting(tracks, 0.02, params=spec, nb_states=4,
                             frame_len=6, compute_errors=True,
-                            max_iter=FIT_ITERS, verbose=0, cell_dims=(0.5,))
+                            max_iter=FIT_PAST_ITERS, verbose=0,
+                            cell_dims=(0.5,))
     torch.cuda.synchronize()
     t_fit = time.time() - t0
     k2, k3, plain = grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES, plain_calls()
     n_free = len(spec.free_names())
     log(f"phase 16: 4 states, window 6 (K=4096: K2 and K3 wide), {n_tr} "
         f"tracks ({len(buckets)} buckets): param_fitting(compute_errors="
-        f"True) {t_fit:.2f} s, {res.n_evals} evals ({res.message}), logL "
+        f"True, max_iter={FIT_PAST_ITERS}) {t_fit:.2f} s, {res.n_evals} "
+        f"evals ({res.message}), logL "
         f"{res.logl:.4f}; K2 launches {k2}, K3 launches {k3}, plain calls "
         f"{plain} [{card}]")
     log("phase 16: fitted " + ", ".join(
@@ -5073,13 +5168,15 @@ def phase16(dev, card, kinfo, errs, reset_counts, plain_calls):
     log(f"phase 16: {time.time() - t16:.1f} s")
 
 
-def grad_times(dev, card, phase, S, W, bench, kernels=("K1", "K2", "K3")):
+def grad_times(dev, card, phase, S, W, bench, kernels=("K1", "K2", "K3"),
+               share=PLAIN_SHARE, chunk=None, reps=3):
     """Bare, wrapper and plain times of K1, K2 and K3 (``kernels``) on the
     random walks ``bench`` at S states and window W (min_len 3; K3 along
-    one random tangent of every table), beside their bounds; logs a line
-    each and returns {kernel: kinfo fields}.  The plain versions run once,
-    unwarmed, on the first 1/PLAIN_SHARE of each bucket, in chunks that
-    bound their memory."""
+    one random tangent of every table), each the median of ``reps``
+    timed runs after one warm-up, beside their bounds; logs a line each
+    and returns {kernel: kinfo fields}.  The plain versions run once,
+    unwarmed, on the first 1/``share`` of each bucket, in chunks of
+    ``chunk`` tracks (None: by K) that bound their memory."""
     from extrack_tpu_torch import data
     from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import forward_kernel, grad_kernel, hvp_kernel
@@ -5125,14 +5222,14 @@ def grad_times(dev, card, phase, S, W, bench, kernels=("K1", "K2", "K3")):
                 fn(b.positions, b.lengths, b.is_bleached)
         return run
 
-    def plain(fn):
-        chunk = WIDE_PLAIN_CHUNK if K <= 4096 else PAST_PLAIN_CHUNK
+    step = chunk or (WIDE_PLAIN_CHUNK if K <= 4096 else PAST_PLAIN_CHUNK)
 
+    def plain(fn):
         def run():
             for b in bench:
-                m = b.batch_size // PLAIN_SHARE
-                for i in range(0, m, chunk):
-                    sl = slice(i, min(i + chunk, m))
+                m = b.batch_size // share
+                for i in range(0, m, step):
+                    sl = slice(i, min(i + step, m))
                     fn(b.positions[sl], b.lengths[sl], b.is_bleached[sl])
         return run
 
@@ -5159,11 +5256,11 @@ def grad_times(dev, card, phase, S, W, bench, kernels=("K1", "K2", "K3")):
             lambda p, l_, i_: hvp_kernel.table_hvp_plain(p, l_, i_, tb, dot,
                                                          **kw),
             5 * rows + 16 * len(blens))}
-    plain_tracks = sum(b.batch_size // PLAIN_SHARE for b in bench)
+    plain_tracks = sum(b.batch_size // share for b in bench)
     out = {}
     for name in kernels:
         bare, wrapped, plain_fn, nbytes = runs[name]
-        ms_, wms_ = cuda_ms(bare, 3), cuda_ms(each(wrapped), 3)
+        ms_, wms_ = cuda_ms(bare, reps), cuda_ms(each(wrapped), reps)
         pms_ = cuda_ms(plain(plain_fn), 1, warmup=0)
         bms, by = bound(nbytes, walk_ops(blens, K, S, D, name))
         log(f"phase {phase}: {name} wide S={S} W={W} (K={K}) D={D}, "
@@ -5208,7 +5305,8 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
     t0 = time.time()
     res = fit.param_fitting(tracks, 0.02, params=spec, nb_states=5,
                             frame_len=6, compute_errors=True,
-                            max_iter=FIT_ITERS, verbose=0, cell_dims=(0.5,))
+                            max_iter=FIT_PAST_ITERS, verbose=0,
+                            cell_dims=(0.5,))
     torch.cuda.synchronize()
     t_fit = time.time() - t0
     k1, k2, k3, plain = (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
@@ -5217,7 +5315,8 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
     log(f"phase 17: 5 states, window 6 (K=15625: K2 and K3 past 4096, "
         f"{15625 // 5} fusion groups), {n_tr} tracks ({len(buckets)} "
         f"buckets, T={[b.max_len for b in buckets]}): param_fitting("
-        f"compute_errors=True) {t_fit:.2f} s, {res.n_evals} evals "
+        f"compute_errors=True, max_iter={FIT_PAST_ITERS}) {t_fit:.2f} s, "
+        f"{res.n_evals} evals "
         f"({res.message}), logL {res.logl:.4f}; K2 launches {k2}, K3 "
         f"launches {k3}, K1 {k1}, plain calls {plain} [{card}]")
     log("phase 17: fitted " + ", ".join(
@@ -5272,7 +5371,7 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
         f"{[b.max_len for b in sub[:2]]} ({t_h:.2f} s), K=15625", H, H0))
     del sub, obj
 
-    # ---- the value-only objective at the optimum (K1) --------------------
+    # ---- the value-only objective at the fit's end (K1) ------------------
     obj = fit.make_objective(buckets, res.params, 0.02, 5, cell_dims=(0.5,),
                              window=6, min_len=min_len)
     z = torch.tensor(res.params.to_unconstrained(), requires_grad=True,
@@ -5286,7 +5385,7 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
     k1, plain = forward_kernel.LAUNCHES, plain_calls()
     ok = (k1 == len(buckets) and plain == 0
           and abs(v - v2) <= TOL_K2_VALUE["rtol"] * abs(v2))
-    log(f"phase 17: value-only objective at the optimum (K1 past 4096) "
+    log(f"phase 17: value-only objective at the fit's end (K1 past 4096) "
         f"{v:.4f} in {t_obj:.3f} s (K2's {v2:.4f}); K1 launches {k1}, plain "
         f"calls {plain} {'ok' if ok else 'FAIL'} [{card}]")
     if not ok:
@@ -5681,6 +5780,423 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
         f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
     del bench, prep
     log(f"phase 18: {time.time() - t18:.1f} s")
+
+
+def phase19(dev, card, kinfo, errs, reset_counts, plain_calls):
+    """K1, K2 and K3 past 16384 slots (to 65536, csrc/grad.cuh
+    grad_wide_deep_kernel up to sixteen fusion groups a thread) and K7 past
+    1024 register rows (to 4096, csrc/topk.cu topk_wide_kernel), on the
+    paths where the JAX package runs XLA: the 6-state fit with error bars
+    at the GUI's frame_len 6 (K = 46,656), its start held to the plain
+    versions; the value-only objective at its end (K1); the GUI's Model
+    Fitting runner at 6 states; the 4-state objective at window 8 (K =
+    65,536) against the plain version; K1's per-track logL at 6^6 and 4^8
+    and K3's Hessian columns at both against the plain versions; the bare
+    times of K1, K2 and K3 at 6^6 and 4^8; ``len_hist(engine="topk")`` at
+    3 states with max_nb_states 2000 and 4000, each bucket's first tracks
+    against the plain version; K7 at 4096 rows on walks past 20 frames
+    (walk and backpointers in global scratch), fused and raw, against the
+    plain version; K7's bare times at 2048 and 4096 rows, with its bound
+    and torch.topk's time for one step's selection; K7's one-row-a-thread
+    kernel against its wide kernel forced at M = 512 and 128."""
+    import tempfile
+    from pathlib import Path
+
+    from extrack_tpu_torch import data, fit, gui, histograms, params
+    from extrack_tpu_torch import simulate
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.histograms import TOPK_CHUNK
+    from extrack_tpu_torch.ops import (forward_kernel, grad_kernel,
+                                       hvp_kernel, topk_kernel)
+    t19 = time.time()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def firsts(buckets, n):
+        return [data.TrackBatch(b.positions[:n], b.lengths[:n],
+                                is_bleached=b.is_bleached[:n])
+                for b in buckets]
+
+    def objective_vs_plain(tag, sub, spec, S, W, min_len):
+        """The objective's value and z-gradient on ``sub`` at ``spec``'s
+        start, K2 against the plain version; returns the largest error."""
+        obj = fit.make_objective(sub, spec, 0.02, S, cell_dims=(0.5,),
+                                 window=W, min_len=min_len)
+        z0 = torch.tensor(spec.to_unconstrained(), requires_grad=True,
+                          **f32)
+        v_k = obj(z0)
+        (g_k,) = torch.autograd.grad(v_k, z0)
+        saved = grad_kernel.neg_log_likelihood
+        grad_kernel.neg_log_likelihood = grad_kernel.neg_log_likelihood_plain
+        try:
+            v_p = obj(z0)
+            (g_p,) = torch.autograd.grad(v_p, z0)
+        finally:
+            grad_kernel.neg_log_likelihood = saved
+        err_g = float((g_k - g_p).abs().max())
+        ok = (torch.allclose(v_k, v_p, **TOL_K2_VALUE)
+              and torch.allclose(g_k, g_p, **TOL_Z_GRAD))
+        log(f"phase 19: {tag}, K2 vs plain on {len(sub)} buckets' first "
+            f"{FIT19_CHECK} tracks: value {float(v_k.detach()):.4f} vs "
+            f"{float(v_p.detach()):.4f}, z-gradient max_abs_err "
+            f"{err_g:.3e} (|g|max {float(g_p.abs().max()):.3e}; value "
+            f"{TOL_K2_VALUE}, z-grad {TOL_Z_GRAD}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{tag}: K2 disagrees with the plain version")
+        return max(abs(float((v_k - v_p).detach())), err_g)
+
+    def k1_vs_plain(tag, sub, spec, S, W, min_len):
+        """K1's per-track logL on each bucket of ``sub`` at ``spec``'s
+        start against ``forward_plain``'s; returns the largest error."""
+        z0 = torch.tensor(spec.to_unconstrained(), **f32)
+        Ds, Fs, rates, loc, pBL = params.extract_arrays(
+            spec.resolve(spec.from_unconstrained(z0)), S, **f32)
+        tb = tables.build_tables(Ds, loc, Fs, rates, pBL, 0.02,
+                                 cell_dims=(0.5,))
+        return max(check_forward(
+            f"phase 19: K1 at {tag}, bucket T={b.max_len} first "
+            f"{b.batch_size} tracks", b.positions, b.lengths, b.is_bleached,
+            tb, window=W, min_len=min_len) for b in sub)
+
+    # ---- 6 states at window 6 (K = 46,656): the fit with error bars -----
+    tracks, _, _ = simulate.sim_fov(**SIM6F)
+    n_tr = sum(len(v) for v in tracks.values())
+    buckets = data.from_dict_bucketed(tracks, max_buckets=4, device=dev,
+                                      dtype=torch.float32)
+    lens = np.concatenate([data.host_lengths(b) for b in buckets])
+    min_len = data.default_min_len(lens)
+    spec = params.generate_params(**FIT6_START)
+    sub = firsts(buckets, FIT19_CHECK)
+    errs["K2 past 16384"].append(objective_vs_plain(
+        "6 states, window 6 (K=46656), objective at the start", sub, spec,
+        6, 6, min_len))
+    errs["K1 past 16384"].append(k1_vs_plain(
+        "6 states, window 6 (K=46656)", sub, spec, 6, 6, min_len))
+    kw = dict(cell_dims=(0.5,), window=6, min_len=min_len)
+    z_np = spec.to_unconstrained()
+    t0 = time.time()
+    H = fit.hessian_hvp_columns(sub[:1], spec, z_np, 0.02, 6, **kw)
+    t_h = time.time() - t0
+    H0 = plain_hessian_columns(sub[:1], spec, z_np, 0.02, 6, **kw)
+    errs["K3 past 16384"].append(check_hessian(
+        f"phase 19: K3 Hessian columns at the start, bucket T="
+        f"{sub[0].max_len} ({t_h:.2f} s), K=46656", H, H0))
+    del sub
+    reset_counts()
+    t0 = time.time()
+    res = fit.param_fitting(tracks, 0.02, params=spec, nb_states=6,
+                            frame_len=6, compute_errors=True,
+                            max_iter=FIT19_ITERS, verbose=0,
+                            cell_dims=(0.5,))
+    torch.cuda.synchronize()
+    t_fit = time.time() - t0
+    k1, k2, k3, plain = (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
+                         hvp_kernel.LAUNCHES, plain_calls())
+    n_free = len(spec.free_names())
+    log(f"phase 19: 6 states, window 6 (K=46656: K2 and K3 past 16384, "
+        f"{46656 // 6} fusion groups, 8 a thread), {n_tr} tracks "
+        f"({len(buckets)} buckets, T={[b.max_len for b in buckets]}): "
+        f"param_fitting(compute_errors=True, max_iter={FIT19_ITERS}) "
+        f"{t_fit:.2f} s, {res.n_evals} evals ({res.message}), logL "
+        f"{res.logl:.4f}; K2 launches {k2}, K3 launches {k3}, K1 {k1}, "
+        f"plain calls {plain} [{card}]")
+    log("phase 19: fitted " + ", ".join(
+        f"{k}={p.value:.4g} +/- {res.std_errors.get(k, float('nan')):.2e}"
+        for k, p in res.params.items() if k in res.std_errors))
+    if (k2 == 0 or k3 != n_free * len(buckets) or plain != 0
+            or not math.isfinite(res.logl)
+            or not all(math.isfinite(v) for v in res.std_errors.values())):
+        fail(f"the 6-state fit at window 6: K2 launches {k2}, K3 launches "
+             f"{k3} (want {n_free} x {len(buckets)}), plain calls {plain}, "
+             "or a value that is not finite")
+    kinfo["K2 past 16384"]["launches"] = k2
+    kinfo["K3 past 16384"]["launches"] = k3
+
+    # ---- the value-only objective at the fit's end (K1, beside K2's) -----
+    obj = fit.make_objective(buckets, res.params, 0.02, 6, cell_dims=(0.5,),
+                             window=6, min_len=min_len)
+    z = torch.tensor(res.params.to_unconstrained(), requires_grad=True,
+                     **f32)
+    v2 = float(obj(z).detach())
+    reset_counts()
+    with torch.no_grad():
+        v = float(obj(z))
+    k1, plain = forward_kernel.LAUNCHES, plain_calls()
+    ok = (k1 == len(buckets) and plain == 0
+          and abs(v - v2) <= TOL_K2_VALUE["rtol"] * abs(v2))
+    log(f"phase 19: value-only objective at the fit's end (K1 past 16384) "
+        f"{v:.4f} (K2's {v2:.4f}); K1 launches {k1}, plain calls {plain} "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail(f"the 6-state value-only objective: K1 launches {k1}, plain "
+             f"{plain}, value {v} against K2's {v2}")
+    kinfo["K1 past 16384"]["launches"] = k1
+    del obj
+
+    # ---- the GUI's Model Fitting runner at 6 states ----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gsub = {k: v[::GUI19_STRIDE] for k, v in tracks.items()
+                if len(v[::GUI19_STRIDE])}
+        write_tracks_csv(str(tmp / "gui6.csv"), gsub)
+        n_g = sum(len(v) for v in gsub.values())
+        s = gui.Session(path=str(tmp / "gui6.csv"), dt=0.02, min_len=3,
+                        max_len=SIM6F["max_track_len"], nb_states=6,
+                        cell_dims=(0.5,), nb_iters=1, output_dir=str(tmp))
+        s.load()
+        W_gui = gui.seeded_options("Model Fitting", s)["frame_len"]
+        reset_counts()
+        t0 = time.time()
+        res_g = gui.run_fitting(s, progress=lambda m: None)
+        t_gui = time.time() - t0
+        k2g, k3g, plain = (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
+                           plain_calls())
+        ok = (W_gui == 6 and k2g > 0 and k3g > 0 and plain == 0
+              and (tmp / "extrack_fitted_params.json").exists()
+              and math.isfinite(res_g.logl))
+        log(f"phase 19: GUI Session, 6 states, Model Fitting at its seeded "
+            f"frame_len {W_gui} (K={6 ** W_gui}) on {n_g} tracks {t_gui:.2f}"
+            f" s ({res_g.n_evals} evals): logL {res_g.logl:.4f}; K2 "
+            f"launches {k2g}, K3 launches {k3g}, plain calls {plain} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail("the GUI's 6-state fit did not run on K2 and K3 alone")
+    del tracks, buckets
+
+    # ---- 4 states at window 8 (K = 65,536): the objective ----------------
+    tracks4, _, _ = simulate.sim_fov(**SIM4E)
+    b4 = data.from_dict_bucketed(tracks4, max_buckets=4, device=dev,
+                                 dtype=torch.float32)
+    spec4 = params.generate_params(**FIT4_START)
+    sub4 = firsts(b4, FIT19_CHECK)
+    min4 = data.default_min_len(np.concatenate(
+        [data.host_lengths(b) for b in b4]))
+    errs["K2 past 16384"].append(objective_vs_plain(
+        "4 states, window 8 (K=65536, 16 fusion groups a thread), the "
+        "objective", sub4, spec4, 4, 8, min4))
+    errs["K1 past 16384"].append(k1_vs_plain(
+        "4 states, window 8 (K=65536)", sub4, spec4, 4, 8, min4))
+    kw = dict(cell_dims=(0.5,), window=8, min_len=min4)
+    z4 = spec4.to_unconstrained()
+    t0 = time.time()
+    H = fit.hessian_hvp_columns(sub4[:1], spec4, z4, 0.02, 4, **kw)
+    t_h = time.time() - t0
+    H0 = plain_hessian_columns(sub4[:1], spec4, z4, 0.02, 4, **kw)
+    errs["K3 past 16384"].append(check_hessian(
+        f"phase 19: K3 Hessian columns (16 fusion groups a thread), bucket "
+        f"T={sub4[0].max_len} first {sub4[0].batch_size} tracks "
+        f"({t_h:.2f} s), K=65536", H, H0))
+    del tracks4, b4, sub4
+    log(f"phase 19: the fit's paths {time.time() - t19:.1f} s")
+
+    # ---- bare times at 6^6 and 4^8 ---------------------------------------
+    bench = bench_buckets(dev, n=PAST16384_TRACKS)
+    for S, W in PAST16384_TIMES:
+        times = grad_times(dev, card, 19, S, W, bench, share=PAST16384_SHARE,
+                           chunk=PAST16384_CHUNK, reps=2)
+        if (S, W) == PAST16384_TIMES[0]:
+            for name, t in times.items():
+                kinfo[f"{name} past 16384"].update(t)
+    del bench
+
+    # ---- K7 past 1024 rows: len_hist(engine="topk") at 3 states ----------
+    tracks3, _, _ = simulate.sim_fov(**SIM3T)
+    values3 = {"LocErr": 0.02, "pBL": 0.1,
+               **{f"D{i}": d for i, d in enumerate(SIM3T["Ds"])},
+               **{f"F{i}": 1 / 3 for i in range(3)},
+               **{f"p{i}{j}": 0.05 for i in range(3) for j in range(3)
+                  if i != j}}
+    buckets3 = data.from_dict_bucketed(tracks3, max_buckets=4, device=dev,
+                                       dtype=torch.float32)
+    min3 = data.default_min_len(np.concatenate(
+        [data.host_lengths(b) for b in buckets3]))
+    Ds, Fs, rates, loc, pBL = params.extract_arrays(values3, 3, **f32)
+    tb3 = tables.build_tables(Ds, loc, Fs, rates, pBL, 0.02,
+                              cell_dims=(0.5,))
+    frames3 = sum(int(k) * len(v) for k, v in tracks3.items())
+    for M_req in TOPK19_M:
+        M = -(-M_req // 128) * 128
+        reset_counts()
+        t0 = time.time()
+        hist = histograms.len_hist(tracks3, values3, 0.02, cell_dims=(0.5,),
+                                   nb_states=3, engine="topk",
+                                   max_nb_states=M_req)
+        t_h = time.time() - t0
+        k7, plain = topk_kernel.LAUNCHES, plain_calls()
+        counted = float((hist * np.arange(1, hist.shape[0] + 1)[:, None]
+                         ).sum())
+        want_k7 = sum(-(-b.batch_size // TOPK_CHUNK) for b in buckets3)
+        ok = (k7 == want_k7 and plain == 0 and np.isfinite(hist).all()
+              and abs(counted - frames3) <= TOL_FRAMES * frames3)
+        log(f"phase 19: len_hist(nb_states=3, engine='topk', max_nb_states="
+            f"{M_req}: {M} rows, K7's wide kernel) on "
+            f"{sum(b.batch_size for b in buckets3)} tracks {t_h:.2f} s: K7 "
+            f"launches {k7} (want {want_k7}), plain calls {plain}, frames "
+            f"{counted:.1f} of {frames3} {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail(f"len_hist(engine='topk', max_nb_states={M_req}) did not "
+                 "run through K7 alone or lost frames")
+        if M_req == TOPK19_M[-1]:
+            kinfo["K7 past 1024"]["launches"] = k7
+        for b in firsts(buckets3, TOPK19_CHECK):
+            got = topk_kernel.segment_topk(b.positions, b.lengths,
+                                           b.is_bleached, tb3,
+                                           max_nb_states=M, min_len=min3)
+            with torch.no_grad():
+                want = topk_kernel.segment_topk_plain(
+                    b.positions, b.lengths, b.is_bleached, tb3,
+                    max_nb_states=M, min_len=min3)
+            err = float((got.double() - want.double()).abs().max())
+            tol = topk_tol("large", want)
+            ok = torch.allclose(got, want.to(got.dtype), **tol)
+            log(f"phase 19: K7 at M={M}, 3 states, bucket T={b.max_len} "
+                f"first {b.batch_size} tracks vs plain: max_abs_err "
+                f"{err:.3e} (max|hist| {float(want.abs().max()):.3e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K7 at M={M} disagrees with the plain version")
+            errs["K7 past 1024"].append(err)
+    del tracks3, buckets3
+
+    # ---- K7 at 4096 rows on walks past 20 frames: the walk and the fused
+    # backpointers both in the block's slice of global scratch ------------
+    M = -(-TOPK19_M[-1] // 128) * 128
+    limit = topk_kernel._smem_limit(dev)
+    codes = tables.state_codes(3, 2)
+    for b in bench_buckets(dev, T=TOPK19_LONG[1], lo=TOPK19_LONG[0],
+                           n=TOPK19_LONG_TRACKS, seed=19):
+        lay = topk_kernel.wide_layout(M, 2, 3, 3, b.max_len, limit)
+        got = topk_kernel.segment_topk(b.positions, b.lengths, b.is_bleached,
+                                       tb3, max_nb_states=M, min_len=3)
+        par, st, wf = topk_kernel.backpointers(
+            b.positions, b.lengths, b.is_bleached, tb3, max_nb_states=M,
+            min_len=3)
+        raw = histograms.decode_backpointers(par, st, wf, b.lengths, codes,
+                                             3, M)
+        with torch.no_grad():
+            want = topk_kernel.segment_topk_plain(
+                b.positions, b.lengths, b.is_bleached, tb3,
+                max_nb_states=M, min_len=3)
+        err = max(float((x.double() - want.double()).abs().max())
+                  for x in (got, raw))
+        tol = topk_tol("large", want)
+        ok = (not lay.walk_smem and not lay.bp_smem
+              and torch.allclose(got, want.to(got.dtype), **tol)
+              and torch.allclose(raw.to(got.dtype), want.to(got.dtype),
+                                 **tol))
+        log(f"phase 19: K7 at M={M}, 3 states, {b.batch_size} walks of "
+            f"{int(b.lengths.min())}..{b.max_len} frames (walk in "
+            f"{'shared' if lay.walk_smem else 'global'} memory, fused "
+            f"backpointers in {'shared' if lay.bp_smem else 'global'} "
+            f"memory, {lay.slice} bytes of scratch a block), fused and raw "
+            f"vs plain: max_abs_err {err:.3e} (max|hist| "
+            f"{float(want.abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K7 at M={M} on walks of {b.max_len} frames: the walk or "
+                 "the backpointers not in global scratch, or a disagreement "
+                 "with the plain version")
+        errs["K7 past 1024"].append(err)
+
+    # ---- K7's bare times at 2048 and 4096 rows on 3-state walks ----------
+    bench = bench_buckets(dev, n=TOPK19_TRACKS)
+    blens = np.concatenate([data.host_lengths(b) for b in bench])
+    for M_req in TOPK19_M:
+        M = -(-M_req // 128) * 128
+        prep = []
+        for b in bench:
+            d, t = topk_kernel.kernel_inputs(b.positions, b.lengths,
+                                             b.is_bleached, tb3, M, 1)
+            n, T = min(TOPK_CHUNK, b.batch_size), b.max_len
+            prep.append((d, t, torch.empty((n, T * 3), **f32),
+                         topk_kernel.fused_layout(n, T, 2, M, 3, 1, dev)))
+
+        def k7_bare():
+            for d, t, rows, plan in prep:
+                for i in range(0, d[0].shape[0], TOPK_CHUNK):
+                    n = min(TOPK_CHUNK, d[0].shape[0] - i)
+                    topk_kernel.launch_fused([x[i:i + n] for x in d], t,
+                                             rows[:n], 3, 1, 3, plan)
+
+        def k7_plain():
+            with torch.no_grad():
+                for b in bench:
+                    m = b.batch_size // PAST16384_SHARE
+                    topk_kernel.segment_topk_plain(
+                        b.positions[:m], b.lengths[:m], b.is_bleached[:m],
+                        tb3, max_nb_states=M, min_len=3)
+        info = {"ms": cuda_ms(k7_bare, 3),
+                "wrapper_ms": cuda_ms(topk_wrapped(bench, tb3, M), 2),
+                "plain_ms": cuda_ms(k7_plain, 1, warmup=0),
+                "plain_tracks": sum(b.batch_size // PAST16384_SHARE
+                                    for b in bench)}
+        rows_io = sum(2 * b.positions.numel() * 4 + 8 * b.batch_size
+                      + b.batch_size * b.max_len * 3 * 4 for b in bench)
+        info["bound_ms"], info["bound_by"] = bound(
+            rows_io, topk_ops(blens, M, 3, 2, 9))
+        keys = torch.randn((len(blens), 3 * M), **f32)
+        tk_ms = cuda_ms(lambda: torch.topk(keys, M, dim=1), 3)
+        del keys
+        lay = prep[-1][3][0]
+        log(f"phase 19: K7 past 1024 rows, M={M}, 3 states, {len(blens)} "
+            f"walks of lengths 3..10 ({len(bench)} buckets; the longest "
+            f"bucket's block: walk in {'shared' if lay.walk_smem else 'global'}"
+            f" memory, backpointers in "
+            f"{'shared' if lay.bp_smem else 'global'} memory, "
+            f"{lay.slice} bytes of scratch): kernel {info['ms']:.3f} ms, "
+            f"{info['wrapper_ms']:.3f} ms through segment_topk; plain "
+            f"{info['plain_ms']:.3f} ms on {info['plain_tracks']} of the "
+            f"tracks; bound {info['bound_ms']:.4f} ms ({info['bound_by']}; "
+            f"live rows, histogram rows out), "
+            f"{info['ms'] / info['bound_ms']:.1f}x; torch.topk(k={M}) of one "
+            f"step's ({len(blens)}, {3 * M}) scores {tk_ms:.3f} ms (for "
+            f"reading: the selection only) [{card}]")
+        if M_req == TOPK19_M[-1]:
+            kinfo["K7 past 1024"].update(info)
+        del prep
+    del bench
+
+    # ---- K7's two kernels at one M: the one-row-a-thread kernel as the
+    # main path runs it against the wide kernel forced, on the same walks -
+    for M, T in TOPK19_FORK:
+        bench = bench_buckets(dev, T=T, n=TOPK19_TRACKS)
+        prep = []
+        for b in bench:
+            d, t = topk_kernel.kernel_inputs(b.positions, b.lengths,
+                                             b.is_bleached, tb3, M, 1)
+            n, Tb = min(TOPK_CHUNK, b.batch_size), b.max_len
+            prep.append((d, t, torch.empty((b.batch_size, Tb * 3), **f32),
+                         topk_kernel.fused_layout(n, Tb, 2, M, 3, 1, dev),
+                         (topk_kernel.wide_layout(M, 2, 3, 3, Tb, limit),
+                          None)))
+        assert not isinstance(prep[-1][3][0], topk_kernel.WideLayout)
+
+        def k7_run(which):
+            def run():
+                for d, t, rows, *plans in prep:
+                    for i in range(0, d[0].shape[0], TOPK_CHUNK):
+                        n = min(TOPK_CHUNK, d[0].shape[0] - i)
+                        topk_kernel.launch_fused(
+                            [x[i:i + n] for x in d], t, rows[i:i + n], 3, 1,
+                            3, plans[which])
+            return run
+        k7_run(0)()
+        rows0 = [p[2].clone() for p in prep]
+        k7_run(1)()
+        err = max(float((p[2] - r).abs().max()) for p, r in zip(prep, rows0))
+        scale = max(float(r.abs().max()) for r in rows0)
+        ms = [cuda_ms(k7_run(w), 3) for w in (0, 1, 0, 1)]
+        ok = err <= TOL_TOPK_LARGE * scale
+        log(f"phase 19: K7 at M={M}, 3 states, {TOPK19_TRACKS} walks of "
+            f"lengths 3..{T}: topk_kernel (the main path's) {ms[0]:.3f} / "
+            f"{ms[2]:.3f} ms, topk_wide_kernel forced "
+            f"{ms[1]:.3f} / {ms[3]:.3f} ms (wide / one-row "
+            f"{(ms[1] + ms[3]) / (ms[0] + ms[2]):.2f}x); rows max_abs_err "
+            f"{err:.3e} (max|row| {scale:.3e}) {'ok' if ok else 'FAIL'} "
+            f"[{card}]")
+        if not ok:
+            fail(f"K7's two kernels disagree at M={M}")
+        del prep, bench
+    log(f"phase 19: {time.time() - t19:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -10,7 +10,7 @@ This module is the JAX package's working equivalent
 increasing number of states and compare penalized likelihoods.  Every fit
 is ``fit.param_fitting`` on ``device`` (the card by default: K2 for each
 gradient); the heuristic's cap (S^W <= 1024) is the JAX package's own
-register budget, well inside K2's envelope of 16384 slots.
+register budget, well inside K2's envelope of 65536 slots.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@
 // took 42% of the cycles on an H100), persistent blocks, the slot tables
 // in registers, the base-2 fusion on the special-function unit and a
 // one-pass closing; one persistent block per track above 64 slots, a
-// thread a fusion group up to 16384 (walk.cuh's wide mapping: the carries
+// thread a fusion group up to 65536 (walk.cuh's wide mapping: the carries
 // in shared memory as the groups' fused Gaussians, or in the block's
 // global scratch where they pass what a block may opt in to; the tables
 // read through L1).
@@ -41,9 +41,9 @@ static __device__ unsigned long long g_forward_prof[kProfSlots];
 // float32 (B,).  nblk persistent blocks; warps > 0: the warp mapping with
 // that many warps a block (K <= 64), -1: the wide mapping, -2: the wide
 // mapping with its publish areas in `scratch`, 2 * (2D+1) * K/A floats a
-// block (null otherwise; the wrapper holds K1 to K <= 16384; K1 has no
-// block mapping).  Launches on `stream` and returns cudaGetLastError() (0
-// on success).
+// block (null otherwise; the wrapper holds K1 to K <= 65536 and 16384
+// fusion groups; K1 has no block mapping).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int extrack_forward(const float* xs, const float* l2,
                                const int* lengths, const float* isbl,
                                const float* lp0, const float* s20,

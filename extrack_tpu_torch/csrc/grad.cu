@@ -24,14 +24,15 @@
 //     block's slices fit the card's opt-in limit, else in global scratch.
 //   * block mapping, any K up to 1024: one block per track, one thread per
 //     slot, block reductions, the carry history in global scratch.
-//   * wide mapping, 1024 < K <= 16384 (any K when forced): one block per
+//   * wide mapping, 1024 < K <= 65536 (any K when forced): one block per
 //     track, a thread per fusion group (K1's wide walk, walk.cuh).  The
 //     history is the fused groups of each step ((T-3) * (2D+1) * K/A
 //     scalars a track, in global scratch); the backward trades the
 //     members' carry cotangents through a (2D+1)*K exchange, in shared
 //     memory where it fits, else in global scratch; past 2048 groups
-//     (5 states at W = 6, 4 at W = 7) a thread owns up to eight of them
-//     and the exchange is double-buffered (grad_wide_deep_kernel).  The
+//     (5 states at W = 6, 4 at W = 7, 6 at W = 6) a thread owns up to
+//     sixteen of them (16384 groups) and the exchange is double-buffered
+//     (grad_wide_deep_kernel).  The
 //     JAX package runs its XLA engine there (extrack_tpu/fit.py:104-117,
 //     past pallas_grad.supports).
 // Blocks are persistent in all three: block i (warp w) walks tracks i, i+grid,

@@ -4,7 +4,8 @@
 // threads: grad_warp_kernel (one warp per track, K <= 64), grad_kernel
 // (one block per track, a thread a slot, any K up to 1024) and
 // grad_wide_kernel / grad_wide_deep_kernel (one block per track, a thread
-// a fusion group, any K up to 16384); the host picks one per launch.
+// a fusion group, any K up to 65536 with at most 16384 groups); the host
+// picks one per launch.
 //
 // Variable dt (the VDT template flag, so that the constant-dt
 // instantiations keep their code): the displacement variances come from a
@@ -21,6 +22,8 @@
 // whose s2n columns the stream leaves unused).  Rows past a track's length
 // stay as the caller zeroed them.
 #pragma once
+
+#include <climits>
 
 #include <cuda_pipeline.h>
 
@@ -372,7 +375,7 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 #endif
 }
 
-// ---- the wide mapping: 1024 < K <= 16384 slots -----------------------
+// ---- the wide mapping: 1024 < K <= 65536 slots -----------------------
 //
 // A thread a slot stops at 1024 slots.  The wide mapping gives a thread
 // whole fusion groups g = tid, tid + blockDim.x, ... (G = K/A groups), as
@@ -401,10 +404,12 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 // kGradWideGroups of them: it sums its groups' children after a barrier,
 // holds the sums in registers across a second barrier, and overwrites the
 // exchange with its own members' cotangents: one exchange area, two
-// barriers a step.  Past 2048 groups (grad_wide_deep_kernel, up to 8192: 3
-// states at W = 8, 4 at W = 7, 5 at W = 6, 2 at W = 14) a thread owns up
-// to eight groups, and holding their sums would spill (8 * (2D+1) dual
-// numbers against the 64 registers of a 1024-thread block).  Its exchange
+// barriers a step.  Past 2048 groups (grad_wide_deep_kernel, up to 16384:
+// 3 states at W = 8 and 9, 4 at W = 7 and 8, 5 at W = 6, 6 at W = 6, 2 at
+// W = 14 and 15) a thread owns up to sixteen groups (a loop whose bound
+// is the launch's, nothing sized by it), and holding their sums would
+// spill (8 * (2D+1) dual numbers against the 64 registers of a
+// 1024-thread block).  Its exchange
 // is double-buffered: step t reads the area step t+1 wrote and writes the
 // other, so a group's sums are read where they are used, nothing is held
 // across a barrier, and the block sums of the step's l2 cotangents are
@@ -423,12 +428,13 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 // dual numbers), else (warps = -2 in the C interface) in the block's
 // global scratch after the history; grad_wide_layout is the one
 // definition of both, with a host twin in ops/grad_kernel.py.  Slot and
-// group indices stay in int; every offset that a block index, T or A
-// multiplies into scratch is size_t.
+// group indices stay in int (K * A, a (K, A) table's size, stays below
+// 2^31: launch_grad refuses more); every offset that a block index, T or
+// A multiplies into scratch is size_t.
 constexpr int kGradWideThreads = 1024;   // the block's largest size
 constexpr int kGradWideGroups = 2;       // groups a thread owns (G <= 2048)
-constexpr int kGradDeepGroups = 8;       // the deep kernel's (G <= 8192)
-constexpr int kGradWideMaxK = 16384;     // the envelope of the mapping
+constexpr int kGradDeepGroups = 16;      // the deep kernel's (G <= 16384)
+constexpr int kGradWideMaxK = 65536;     // the envelope of the mapping
 constexpr int kRedScalars = 64;          // block reductions' scratch (33)
 
 // One block of the wide mapping: its threads, its dynamic shared bytes and
@@ -1583,7 +1589,11 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
                        int nblk, int warps, int stash_smem,
                        cudaStream_t stream) {
   const int K = tb.K, P = st.P;
-  if (warps < -2 || 32 * warps > kWarpBlock || (warps > 0 && K > 64) ||
+  // the partial row's columns, as floats (a Dual column is two)
+  const size_t ncols = ((size_t)6 * K + (size_t)4 * K * tb.A) *
+                       (sizeof(Real) / sizeof(float));
+  if (ncols > (size_t)INT_MAX || warps < -2 || 32 * warps > kWarpBlock ||
+      (warps > 0 && K > 64) ||
       (warps == 0 && K > 1024) || (warps <= 0 && stash_smem) ||
       (warps < 0 && (K > kGradWideMaxK ||
                      K / tb.A > kGradDeepGroups * kGradWideThreads)) ||
@@ -1614,10 +1624,8 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const int ncols = (6 * K + 4 * K * tb.A) *
-                    (int)(sizeof(Real) / sizeof(float));
-  reduce_partials<<<(ncols + 255) / 256, 256, 0, stream>>>(
-      reinterpret_cast<const float*>(partial), nblk, ncols,
+  reduce_partials<<<(unsigned)((ncols + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float*>(partial), nblk, (int)ncols,
       reinterpret_cast<float*>(ct_tab));
   return (int)cudaGetLastError();
 }

@@ -16,10 +16,11 @@
 // and the live state and the carry history double (2 * (T-1) * (2D+1) * K
 // floats per track, 48.6 KB at S=2, W=6, D=2, T=20).  It runs any of
 // K2's three mappings (grad.cu), as ops/hvp_kernel picks; the envelope is
-// K2's (K <= 16384: past 1024 slots the wide mapping, whose exchange of
-// carry cotangents, 229,376 bytes at K = 4096 and D = 3 as dual numbers,
-// still fits a block's shared memory on Hopper; past it the exchange goes
-// to the block's global scratch, double-buffered past 2048 groups).  Past
+// K2's (K <= 65536 and 16384 fusion groups: past 1024 slots the wide
+// mapping, whose exchange of carry cotangents, 229,376 bytes at K = 4096
+// and D = 3 as dual numbers, still fits a block's shared memory on
+// Hopper; past it the exchange goes to the block's global scratch,
+// double-buffered past 2048 groups).  Past
 // 1024 slots the JAX package takes extrack_tpu/fit.py:575-582
 // (hessian_chunked on XLA).
 // The tangent columns are reduced with K2's deterministic block-order

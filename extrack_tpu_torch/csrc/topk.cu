@@ -32,7 +32,11 @@
 // plain version's frozen tracks), for segment_backpointers' layout.
 //
 // Mapping: one block per track, thread r owns register row r in registers
-// for the whole walk (blockDim = M rounded up to a warp).
+// for the whole walk (blockDim = M rounded up to a warp), up to 1024 rows.
+// Past them (up to 4096, len_hist's max_nb_states past 1024) or where the
+// walk's words pass a block's shared memory, topk_wide_kernel (below):
+// persistent blocks of up to 1024 threads, a thread several rows, the rows
+// in shared memory or the block's slice of global scratch.
 //
 // What bounds it on Hopper: the selection and its barriers, then the
 // scoring's D logs and divisions per child.  The design does only the work
@@ -558,6 +562,367 @@ static int launch_topk(const float* xs, const float* l2, const int* lengths,
   return (int)cudaGetLastError();
 }
 
+// ---- past 1024 register rows (up to 4096): a thread several rows ------
+//
+// One thread a row stops at a block's 1024 threads.  topk_wide_kernel
+// gives thread r of a block rows r, r + blockDim.x, ... (at most four at
+// M = 4096) and keeps no row in registers between steps: a row's mean and
+// variance per dimension, lp, ll, final weight and newest state sit in the
+// row arrays ahead of the walk's words and fold (wide_walk_bytes); the
+// fold reads them, the rebuild writes them.  The scoring, the run sort and
+// the merge-path top-M already loop over children and words, so they carry
+// over as they are, and so do the exact-rounded scores, the stable tie
+// order on child index and the live prefix: a row's arithmetic is
+// topk_walk's, operation for operation.  The closing's softmax takes each
+// thread's rows' max and sum, then the block's.
+//
+// Memory.  The walk region (rows, words, fold) sits in shared memory where
+// it fits what a block may opt in to (M = 2048 at A = 3, D = 2: 212,992
+// bytes), else in the block's slice of global scratch; the fused
+// backpointers ((T-1)*M int16 and int8) follow it in shared memory where
+// they fit beside it, else in the block's slice (after the walk region
+// when that is there too).  The grid is persistent: block i walks tracks
+// i, i + gridDim.x, ..., so the scratch is one slice a block however many
+// tracks there are (ops/topk_kernel.wide_layout is the host's twin).  Raw
+// mode writes the plain version's layout to device memory, as topk_walk.
+// The decode's columns ([bin][thread], chunk bins a pass) overlay the
+// words and the fold; each thread adds its rows' weights into its own
+// column, and the block sums the columns as topk_walk does (no atomics:
+// the same input gives the same bits).
+constexpr int kTopkMaxRows = 4096;
+
+// Bytes of the wide walk's region: the rows ((2D+4) floats a row), then
+// walk_bytes' words and fold.
+static __host__ __device__ inline size_t wide_walk_bytes(int M, int A,
+                                                         int D) {
+  return (size_t)4 * (2 * D + 4) * M + walk_bytes(M, A, D);
+}
+
+// One block's walk of its tracks on the wide mapping.  sig2s: with VDT,
+// the (B, T-1, A*S) stream.  slice: bytes of the block's global scratch.
+template <int D, bool VDT>
+static __device__ __forceinline__ void topk_wide_walk(
+    const float* xs, const float* l2s, const int* lengths,
+    const float* isbls, const float* lp0, const float* s20, const int* nw0,
+    const float* tab, const float* sig2s, int B, int T, int M, int S, int A,
+    int newest_div, int min_len, int raw, int walk_smem, int bp_smem,
+    int region, int chunk, size_t slice, float* w_final, short* parents,
+    signed char* states, float* rows, unsigned char* scratch) {
+  extern __shared__ unsigned long long smem_w[];
+  __shared__ float red[33];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_w);
+  unsigned char* gslice = scratch + slice * blockIdx.x;
+  const int r0 = threadIdx.x, nthr = blockDim.x;
+  const int NSM = pow2_at_least(M);
+  float* const rw = reinterpret_cast<float*>(walk_smem ? smem : gslice);
+  float* r_m = rw;                         // D rows: means
+  float* r_s2 = rw + D * M;                // D rows: variances
+  float* r_lp = rw + 2 * D * M;
+  float* r_ll = r_lp + M;
+  float* r_w = r_ll + M;                   // the final weight
+  float* r_nw = r_w + M;                   // newest state, as a float
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(rw + (size_t)(2 * D + 4) * M);
+  unsigned long long* sorted = keys + (size_t)A * NSM;
+  unsigned long long* spare = sorted + NSM;
+  float* fold = reinterpret_cast<float*>(spare + NSM);
+  float* f_nm = fold;
+  float* f_tl = fold + D * M;
+  float* f_lp = fold + 2 * D * M;
+  float* f_lc = f_lp + M;
+  float* f_ll = f_lc + M;
+  float* f_nw = f_ll + M;
+  unsigned char* bp = bp_smem ? smem + (walk_smem ? region : 0)
+                              : gslice + (walk_smem ? 0 : region);
+  const float* lt_tab = tab;               // (A, S)
+  const float* lsurv = tab + A * S;        // (A,)
+  const float* endv = lsurv + A;           // (S,)
+  const float* sig2 = endv + S;            // (A*S,), index a*S + newest
+  const int P = A * S;
+
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    __syncthreads();        // the last track's rows, words and columns
+    const int L = min(lengths[b], T);
+    const float* x = xs + (size_t)b * T * D;
+    const float* l2 = l2s + (size_t)b * T * D;
+    const float isbl = isbls[b];
+    const float* sg = VDT ? sig2s + (size_t)b * (T - 1) * P : nullptr;
+    short* par = raw ? parents + (size_t)b * (T - 1) * M
+                     : reinterpret_cast<short*>(bp);
+    signed char* st = raw ? states + (size_t)b * (T - 1) * M
+                          : reinterpret_cast<signed char*>(
+                                bp + (size_t)2 * (T - 1) * M);
+    int nl = 0;
+    for (int i = r0; i < M; i += nthr) {
+      const float l0 = lp0[i];
+      r_lp[i] = l0;
+      r_ll[i] = 0.f;
+      r_w[i] = 0.f;
+      r_nw[i] = (float)nw0[i];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        r_m[d * M + i] = x[d];
+        r_s2[d * M + i] = l2[d] + (VDT ? sg[i < P ? i : 0] : s20[i]);
+      }
+      nl += l0 > kLiveMin;
+    }
+    // the live rows, a prefix (an exact count in float)
+    int live = (int)block_sum((float)nl, red);
+    int t = 1;
+    for (; t < L; ++t) {
+      const bool close = t == L - 1;
+      // fold the observation at frame t into the live rows; at the
+      // closing, r_w holds each live row's final log weight
+      float fmx = -INFINITY;
+      for (int i = r0; i < live; i += nthr) {
+        float lc = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const float xt = x[t * D + d], l2t = l2[t * D + d];
+          const float m = r_m[d * M + i], s2 = r_s2[d * M + i];
+          const float tot = l2t + s2;
+          const float q = log_normal(xt, m, tot);
+          lc = d == 0 ? q : lc + q;
+          if (!close) {
+            f_nm[d * M + i] =
+                __fdiv_rn(__fmul_rn(m, l2t) + __fmul_rn(xt, s2), tot);
+            f_tl[d * M + i] = __fdiv_rn(__fmul_rn(l2t, s2), tot);
+          }
+        }
+        if (close) {
+          const float fin = r_lp[i] + r_ll[i] +
+                            __fmul_rn(isbl, endv[(int)r_nw[i]]) + lc;
+          r_w[i] = fin;
+          fmx = fmaxf(fmx, fin);
+        } else {
+          f_lp[i] = r_lp[i];
+          f_lc[i] = lc;
+          f_ll[i] = r_ll[i];
+          f_nw[i] = r_nw[i];
+        }
+      }
+      if (close) {
+        // the softmax over the live rows; the others weigh 0
+        const float mx = block_max(fmx, red);
+        float e_sum = 0.f;
+        for (int i = r0; i < live; i += nthr) {
+          const float e = expf(r_w[i] - mx);
+          r_w[i] = e;
+          e_sum += e;
+        }
+        const float se = block_sum(e_sum, red);
+        for (int i = r0; i < live; i += nthr)
+          r_w[i] = r_w[i] / fmaxf(se, kTiny);
+        break;
+      }
+      __syncthreads();
+
+      // score the live children i = a*live + p (child a*M + p) against
+      // frame t+1, as topk_walk
+      const int N = A * live;
+      const bool full = N > M;
+      const float* sgt = VDT ? sg + (size_t)t * P : sig2;
+      const int NR = full ? pow2_at_least(live) : pow2_at_least(N);
+      float xn[D], l2n[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        xn[d] = x[(t + 1) * D + d];
+        l2n[d] = l2[(t + 1) * D + d];
+      }
+      for (int i = r0; i < N; i += nthr) {
+        const int a = i / live, p = i - a * live;
+        const int q = (int)f_nw[p];
+        const float sv = sgt[a * S + q];
+        float look = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const float v = log_normal(xn[d], f_nm[d * M + p],
+                                     l2n[d] + (sv + f_tl[d * M + p]));
+          look = d == 0 ? v : look + v;
+        }
+        const float key = (f_lp[p] + lt_tab[a * S + q]) + f_lc[p] + look;
+        (full ? keys + a * NR + p : sorted + i)[0] =
+            sort_word(key, a * M + p);
+      }
+      if (full) {
+        for (int i = r0; i < A * (NR - live); i += nthr)
+          keys[(i / (NR - live)) * NR + live + i % (NR - live)] = 0ull;
+      } else {
+        for (int i = N + r0; i < NR; i += nthr) sorted[i] = 0ull;
+      }
+      __syncthreads();
+      if (full) {
+        sort_desc(keys, A * NR, NR);
+        const unsigned long long* src = keys;
+        int nsrc = live;
+        for (int a = 1; a < A; ++a) {
+          unsigned long long* out = (A - 1 - a) % 2 == 0 ? sorted : spare;
+          const int cnt = min(M, nsrc + live);
+          for (int i = r0; i < cnt; i += nthr)
+            out[i] = merge_at(src, nsrc, keys + a * NR, live, i);
+          __syncthreads();
+          src = out;
+          nsrc = cnt;
+        }
+      } else {
+        sort_desc(sorted, NR, NR);
+      }
+
+      // survivor i rebuilds its row from its parent's fold; past the live
+      // children, the unused ones in closed form
+      const int nlive = min(N, M);
+      for (int i = r0; i < M; i += nthr) {
+        int a, p;
+        if (i < nlive) {
+          const int c = word_index(sorted[i]);
+          a = c / M;
+          p = c - a * M;
+          const int q = (int)f_nw[p];
+          const float sv = sgt[a * S + q];
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            r_m[d * M + i] = f_nm[d * M + p];
+            r_s2[d * M + i] = sv + f_tl[d * M + p];
+          }
+          r_lp[i] = (f_lp[p] + lt_tab[a * S + q]) + f_lc[p];
+          r_ll[i] = f_ll[p] + (t + 1 >= min_len ? lsurv[a] : 0.f);
+        } else {
+          const int k = i - nlive;
+          a = k / (M - live);
+          p = live + (k - a * (M - live));
+        }
+        const int nw = a / newest_div;
+        r_nw[i] = (float)nw;
+        par[(size_t)(t - 1) * M + i] = (short)p;
+        st[(size_t)(t - 1) * M + i] = (signed char)nw;
+      }
+      live = nlive;
+      __syncthreads();   // the fold and the words are rewritten next step
+    }
+    if (raw) {
+      // w_final, then steps t..T-1: identity parents, unchanged newest
+      // state
+      for (int i = r0; i < M; i += nthr) {
+        w_final[(size_t)b * M + i] = r_w[i];
+        const signed char nw = (signed char)(int)r_nw[i];
+        for (int k = t - 1; k < T - 1; ++k) {
+          par[(size_t)k * M + i] = (short)i;
+          st[(size_t)k * M + i] = nw;
+        }
+      }
+      continue;
+    }
+    // fused decode: thread r0 backtracks its final rows and adds their
+    // weights to its column, `chunk` bins a pass, over the words and fold
+    __syncthreads();
+    float* col = reinterpret_cast<float*>(keys);      // [bin][thread]
+    const int nbins = T * S, lane = r0 & 31, wid = r0 >> 5;
+    for (int b0 = 0; b0 < nbins; b0 += chunk) {
+      const int nb = min(chunk, nbins - b0);
+      for (int q = 0; q < nb; ++q) col[q * nthr + r0] = 0.f;
+      for (int i = r0; L >= 2 && i < live; i += nthr) {
+        const float w = r_w[i];
+        int cur = i, prev = -1, run = 0;
+        for (int f = L - 1; f >= 0; --f) {
+          int s;
+          if (f >= 2) {
+            const size_t at = (size_t)(f - 2) * M + cur;
+            s = st[at];
+            cur = par[at];
+          } else {
+            s = nw0[f == 1 ? cur : M + cur];
+          }
+          if (s == prev) {
+            ++run;
+          } else {
+            const int bin = (run - 1) * S + prev - b0;
+            if (run > 0 && bin >= 0 && bin < nb) col[bin * nthr + r0] += w;
+            prev = s;
+            run = 1;
+          }
+        }
+        const int bin = (run - 1) * S + prev - b0;
+        if (bin >= 0 && bin < nb) col[bin * nthr + r0] += w;
+      }
+      __syncthreads();
+      const int nwarps = nthr >> 5;
+      for (int q = wid; q < nb; q += nwarps) {
+        float v = 0.f;
+        for (int i = lane; i < nthr; i += 32) v += col[q * nthr + i];
+        v = warp_sum(v);
+        if (lane == 0) rows[(size_t)b * nbins + b0 + q] = v;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <int D, bool VDT>
+__global__ void __launch_bounds__(1024, 1) topk_wide_kernel(
+    const float* __restrict__ xs, const float* __restrict__ l2s,
+    const int* __restrict__ lengths, const float* __restrict__ isbls,
+    const float* __restrict__ lp0, const float* __restrict__ s20,
+    const int* __restrict__ nw0, const float* __restrict__ tab,
+    const float* __restrict__ sig2s, int B, int T, int M, int S, int A,
+    int newest_div, int min_len, int raw, int walk_smem, int bp_smem,
+    int region, int chunk, size_t slice, float* __restrict__ w_final,
+    short* __restrict__ parents, signed char* __restrict__ states,
+    float* __restrict__ rows, unsigned char* __restrict__ scratch) {
+  topk_wide_walk<D, VDT>(xs, l2s, lengths, isbls, lp0, s20, nw0, tab,
+                         sig2s, B, T, M, S, A, newest_div, min_len, raw,
+                         walk_smem, bp_smem, region, chunk, slice, w_final,
+                         parents, states, rows, scratch);
+}
+
+template <int D>
+static int launch_topk_wide(const float* xs, const float* l2,
+                            const int* lengths, const float* isbl,
+                            const float* lp0, const float* s20,
+                            const int* nw0, const float* tab,
+                            const float* sig2s, float* w_final,
+                            short* parents, signed char* states, float* rows,
+                            unsigned char* scratch, int B, int T, int M,
+                            int S, int A, int newest_div, int min_len,
+                            int raw, int walk_smem, int bp_smem, int region,
+                            int chunk, int nblk, long long slice,
+                            cudaStream_t stream) {
+  const int threads = M < 1024 ? (M + 31) / 32 * 32 : 1024;
+  // the words and fold, which the decode's columns overlay (read only
+  // once region is known to hold the rows)
+  const size_t words = (size_t)region - (size_t)4 * (2 * D + 4) * M;
+  const size_t bp = raw ? 0 : (size_t)3 * (T > 1 ? T - 1 : 0) * M;
+  const size_t in_scratch = (walk_smem ? 0 : (size_t)region) +
+                            (raw || bp_smem ? 0 : bp);
+  if (M < 1 || M > kTopkMaxRows || T < 1 || nblk < 1 ||
+      (size_t)region < wide_walk_bytes(M, A, D) || slice < 0 ||
+      (size_t)slice < in_scratch || (raw && bp_smem) ||
+      (in_scratch > 0 && scratch == nullptr) ||
+      (!raw && (chunk < 1 || (size_t)chunk * threads * 4 > words)) ||
+      (sig2s != nullptr && T < 2))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (walk_smem ? (size_t)region : 0) + (bp_smem ? bp : 0);
+  const void* fn = sig2s == nullptr
+                       ? (const void*)topk_wide_kernel<D, false>
+                       : (const void*)topk_wide_kernel<D, true>;
+  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  if (B > 0) {
+    const size_t sl = (size_t)slice;
+    void* args[] = {(void*)&xs,       (void*)&l2,        (void*)&lengths,
+                    (void*)&isbl,     (void*)&lp0,       (void*)&s20,
+                    (void*)&nw0,      (void*)&tab,       (void*)&sig2s,
+                    (void*)&B,        (void*)&T,         (void*)&M,
+                    (void*)&S,        (void*)&A,         (void*)&newest_div,
+                    (void*)&min_len,  (void*)&raw,       (void*)&walk_smem,
+                    (void*)&bp_smem,  (void*)&region,    (void*)&chunk,
+                    (void*)&sl,       (void*)&w_final,   (void*)&parents,
+                    (void*)&states,   (void*)&rows,      (void*)&scratch};
+    cudaLaunchKernel(fn, nblk, threads, args, smem, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace extrack
 
 // Dynamic shared memory one K7 block may opt in to on `device` (as
@@ -620,6 +985,46 @@ extern "C" int extrack_topk(const float* xs, const float* l2,
                                      rows, B, T, M, S, A, newest_div,
                                      min_len, raw, bp_smem, region, chunk,
                                      st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K7 on the wide mapping (a thread several register rows, up to
+// kTopkMaxRows; the host takes it past 1024 rows, or where topk_kernel's
+// walk does not fit a block's shared memory): the arguments of
+// extrack_topk, with `region` at least wide_walk_bytes (the rows, the
+// words and the fold) and `chunk` decode bins of the block's threads over
+// the words and fold; walk_smem: the region in shared memory, else at the
+// front of the block's scratch slice; bp_smem (fused only): the
+// backpointers in shared memory after the region (or at its front), else
+// in the block's slice after the region.  nblk persistent blocks, block i
+// with `slice` bytes of `scratch` at i * slice (null where nothing goes
+// there).  Returns cudaGetLastError().
+extern "C" int extrack_topk_wide(const float* xs, const float* l2,
+                                 const int* lengths, const float* isbl,
+                                 const float* lp0, const float* s20,
+                                 const int* nw0, const float* tab,
+                                 const float* sig2s, float* w_final,
+                                 short* parents, signed char* states,
+                                 float* rows, unsigned char* scratch, int B,
+                                 int T, int D, int M, int S, int A,
+                                 int newest_div, int min_len, int raw,
+                                 int walk_smem, int bp_smem, int region,
+                                 int chunk, int nblk, long long slice,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+#define EXTRACK_TOPK_WIDE(DD)                                               \
+  case DD:                                                                  \
+    return extrack::launch_topk_wide<DD>(                                   \
+        xs, l2, lengths, isbl, lp0, s20, nw0, tab, sig2s, w_final, parents, \
+        states, rows, scratch, B, T, M, S, A, newest_div, min_len, raw,     \
+        walk_smem, bp_smem, region, chunk, nblk, slice, st);
+    EXTRACK_TOPK_WIDE(1)
+    EXTRACK_TOPK_WIDE(2)
+    EXTRACK_TOPK_WIDE(3)
+#undef EXTRACK_TOPK_WIDE
     default:
       return (int)cudaErrorInvalidValue;
   }

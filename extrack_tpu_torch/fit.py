@@ -114,7 +114,8 @@ def make_objective(batch,
         min_len = _default_min_len(batches, mesh)
     if device.type == "cuda":
         # the objective takes its gradient through K2 (its value alone
-        # through K1, whose envelope is K2's: 16384 slots)
+        # through K1, whose envelope is K2's: 65536 slots, 16384 fusion
+        # groups)
         for i, b in enumerate(batches):
             forward_kernel.check_envelope(
                 b.max_len, b.nb_dims, nb_states, window, nb_substeps,

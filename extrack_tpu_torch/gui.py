@@ -9,12 +9,14 @@ Histogram, Position Refinement (ExTrack_GUI.py:1288-1293).  On the card
 (``Session.device``, default the card) every analysis runs the CUDA
 kernels (K2 and K3 for the fit, K4, K5, K6); the Model Fitting window's
 seeded frame_len 6 runs K2 and K3 on their wide mapping from 4 states on
-(4^6 = 4096 slots; 5^6 = 15,625 at 5 states, with their exchange in
-global scratch), and a choice past a kernel's envelope (frame_len 8 at 4
-states passes K2's 16384 slots) raises as ``fit.param_fitting`` does,
-naming the kernel.  The State Lifetime Histogram's window 8 runs K5 past
-16384 slots from 4 states on (4^8 = 65,536; 5^8 = 390,625 of its 2^19),
-harvesting from each slot's digits.
+(4^6 = 4096 slots; 5^6 = 15,625 at 5 states and 6^6 = 46,656 at 6, with
+their exchange in global scratch; frame_len 8 at 4 states, 65,536 slots,
+too), and a choice past a kernel's envelope (frame_len 7 at 5 states
+passes K2's 65536 slots, frame_len 10 at 3 states its 16384 fusion
+groups) raises as ``fit.param_fitting`` does, naming the kernel.  The
+State Lifetime Histogram's window 8 runs K5 past 16384 slots from 4
+states on (4^8 = 65,536; 5^8 = 390,625 of its 2^19), harvesting from
+each slot's digits.
 
 Design: every analysis is a plain function over a ``Session`` dataclass
 (testable without a display); the Tk layer is a thin shell that fills the

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "extrack_hist": [_P] * 15 + [_I] * 11 + [_P],
     "extrack_refine": [_P] * 11 + [_I] * 7 + [_P],
     "extrack_topk": [_P] * 13 + [_I] * 12 + [_P],
+    "extrack_topk_wide": [_P] * 14 + [_I] * 14 + [ctypes.c_longlong, _P],
     "extrack_hist_layout": [_I] * 6 + [_P],
     "extrack_refine_layout": [_I] * 5 + [_P],
     "extrack_grad_layout": [_I] * 6 + [_P],
@@ -54,6 +55,13 @@ _SMEM_QUERIES = ("extrack_grad_smem", "extrack_predict_smem", "extrack_hist_smem
 # bytes of per-track carries the persistent blocks may hold in global
 # scratch when the carries do not fit in shared memory
 SCRATCH_BUDGET = 1 << 30
+# the same for K1, K2, K3 and K5 past WIDE_SCRATCH_K register slots
+# (``scratch_budget``): a block there takes tens of MB (K2's history,
+# exchange and partial row 11.9 MB at 6^6, T = 20, D = 3, K3's twice that;
+# K5's rows 52 MB at 6^7), so SCRATCH_BUDGET would keep most of an H100's
+# 132 SMs idle
+WIDE_SCRATCH_K = 16384
+WIDE_SCRATCH_BUDGET = 16 << 30
 
 
 PROFILE_SECTIONS = 12      # kProfSlots in csrc/common.cuh
@@ -204,12 +212,13 @@ def _card_bytes(index: int) -> int:
     return free + torch.cuda.memory_reserved(index)
 
 
-def scratch_budget(dev, cap: int = SCRATCH_BUDGET) -> int:
+def scratch_budget(dev, K: int = 0) -> int:
     """Bytes of global scratch one launch may take on ``dev`` (a CUDA
-    device with its index): ``cap`` (SCRATCH_BUDGET; K5 past 16384 slots
-    has its own), or half of what the card has left where that is less
-    (what this process could hold at its first query, less what its
-    tensors hold now)."""
+    device with its index): SCRATCH_BUDGET, WIDE_SCRATCH_BUDGET for a
+    kernel past WIDE_SCRATCH_K register slots (``K``), or half of what the
+    card has left where that is less (what this process could hold at its
+    first query, less what its tensors hold now)."""
+    cap = WIDE_SCRATCH_BUDGET if K > WIDE_SCRATCH_K else SCRATCH_BUDGET
     left = _card_bytes(dev.index) - torch.cuda.memory_allocated(dev)
     return min(cap, max(left, 0) // 2)
 

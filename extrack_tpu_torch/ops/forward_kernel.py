@@ -18,7 +18,8 @@ hist.cu, refine.cu; K2 and K3: grad.cuh, ``grad_kernel.plan``): one warp
 per track up to 64 slots, a block per track with a thread a slot up to
 1024 (K2, K3, K4, K5, K6) and a thread a fusion group past that (the wide
 mapping: K1 above 64 slots, the others above 1024; up to 16384 slots for
-K1, K2, K3 and K6, 65536 for K4 and 2^19 for K5; K1's, K4's, K5's and
+K6, 65536 for K1, K2, K3 (at most 16384 fusion groups) and K4, and 2^19
+for K5; K1's, K4's, K5's and
 K6's carries and K2's and K3's exchange go to global scratch where they
 pass a block's shared memory; K5 past 16384 slots harvests from each
 slot's digits); ``plan`` and ``grid`` lay a K1 or K4 launch out as
@@ -45,10 +46,13 @@ PLAIN_CALLS = 0
 WARP_MAX_K = 64           # the warp mapping's largest register (2 per lane)
 BLOCK_MAX_K = 1024        # the block mapping: one thread per register slot
 WIDE_MAX_K = 4096         # the wide mapping: one thread per fusion group
-SCRATCH_MAX_K = 16384     # K1's, K2's, K3's and K6's wide mapping, past
-                          # shared memory with global scratch (K2, K3: up
-                          # to eight fusion groups a thread); K5's with the
-                          # static segment tables
+SCRATCH_MAX_K = 16384     # K6's wide mapping, past shared memory with
+                          # global scratch; K5's with the static segment
+                          # tables
+FIT_MAX_K = 65536         # K1's, K2's and K3's: the GUI's Model Fitting
+                          # at 6 states (6^6 = 46,656) and 4^8
+FIT_MAX_GROUPS = 16384    # and their fusion groups (K/A): K2 and K3 take
+                          # up to sixteen a thread of 1024
 PREDICT_MAX_K = 65536     # K4's: the GUI's labeling window at 3 states
                           # (3^10 = 59049) and predict_Bs at 7 states
                           # (7^5) and 6 states (6^6) need more than 16384
@@ -58,11 +62,14 @@ HIST_MAX_K = 1 << 19      # K5's, harvesting from the slots' digits past
 HIST_MAX_BINS = 64        # S * frames: K5's (state, run length) bins a
                           # thread keeps past 16384 slots (kRunsMaxBins)
 # each kernel's largest register: every kernel maps past 1024 slots
-# (csrc/walk.cuh, grad.cuh, hist.cu, hist_wide.cu, refine.cu); K1, K2, K3
-# and K6 stop at 16384, K4 at 65536 and K5 at 2^19, each going on with its
+# (csrc/walk.cuh, grad.cuh, hist.cu, hist_wide.cu, refine.cu); K6 stops at
+# 16384, K1, K2, K3 and K4 at 65536 and K5 at 2^19, each going on with its
 # carries (K2, K3: the exchange of carry cotangents) in global scratch
-MAX_SLOTS = {"K1": SCRATCH_MAX_K, "K2": SCRATCH_MAX_K, "K3": SCRATCH_MAX_K,
+MAX_SLOTS = {"K1": FIT_MAX_K, "K2": FIT_MAX_K, "K3": FIT_MAX_K,
              "K4": PREDICT_MAX_K, "K5": HIST_MAX_K, "K6": SCRATCH_MAX_K}
+# the kernels that also stop at a count of fusion groups
+MAX_GROUPS = {"K1": FIT_MAX_GROUPS, "K2": FIT_MAX_GROUPS,
+              "K3": FIT_MAX_GROUPS}
 # the mappings of K1, K4, K5 and K6, narrowest first.  K1 skips the block
 # mapping: the wide one ran it 1.14-1.75x faster at every register of
 # 81..1024 slots measured; K4, K5 and K6 keep a thread a slot up to 1024
@@ -315,12 +322,13 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
                    what: str = "batch", kernel: str = "K1"):
     """Raise NotImplementedError, naming ``what``, when ``kernel`` ("K1"
     .. "K6") cannot run this configuration: past its register of
-    ``MAX_SLOTS[kernel]`` slots (naming that limit and the largest window
-    that fits), in another dtype than float32 or D outside 1..3.  Variable
+    ``MAX_SLOTS[kernel]`` slots or (K1, K2, K3) ``MAX_GROUPS[kernel]``
+    fusion groups (naming that limit and the largest window that fits),
+    in another dtype than float32 or D outside 1..3.  Variable
     dt is in the envelope of the kernels in STREAMED only (K6 reads no dt
     table; K7 checks its own envelope, ``topk_kernel.check_envelope``,
     and reads the stream too)."""
-    K = S ** window
+    K, A = S ** window, S ** nb_substeps
     reasons = []
     if dtype != torch.float32:
         reasons.append(f"dtype {dtype} (the kernels compute in float32: "
@@ -328,9 +336,10 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
     if D not in (1, 2, 3):
         reasons.append(f"D={D} (kernels take 1..3 dimensions)")
     limit = MAX_SLOTS[kernel]
+    groups = MAX_GROUPS.get(kernel, K)
+    fits = max((w for w in range(1, window)
+                if S ** w <= limit and S ** w // A <= groups), default=0)
     if K > limit:
-        fits = max((w for w in range(1, window) if S ** w <= limit),
-                   default=0)
         how = ("a thread per fusion group past 1024 slots"
                + (", the carries in global scratch past shared memory"
                   if limit > WIDE_MAX_K else "")
@@ -339,6 +348,11 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
         reasons.append(f"K=S**window={K} > {limit} register slots "
                        f"({kernel} maps at most {limit}, {how}; the "
                        f"largest window that fits is {fits})")
+    elif K // A > groups:
+        reasons.append(f"K/A={K // A} > {groups} fusion groups ({kernel} "
+                       f"maps at most {groups}, up to "
+                       f"{groups // 1024} a thread of 1024; the largest "
+                       f"window that fits is {fits})")
     if window < nb_substeps + 1:
         reasons.append(f"window {window} < nb_substeps+1")
     elif (kernel == "K5" and SCRATCH_MAX_K < K <= limit
@@ -439,7 +453,7 @@ def launch(data, tabs, min_len: int,
         else 0
     nblk, nbytes = grid(B, pl, _sms(dev.index), _occupancy(
         "extrack_forward_occupancy", D, K, A, T, pl.warps, P), team,
-        cuda_lib.scratch_budget(dev) if team else None)
+        cuda_lib.scratch_budget(dev, K) if team else None)
     logl = torch.empty(B, dtype=torch.float32, device=dev)
     scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
                if nbytes else None)

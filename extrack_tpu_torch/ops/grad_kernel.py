@@ -11,20 +11,22 @@ localization-error variances:
   K2's three mappings: one warp per track for K <= 64 (its carry history
   in shared memory when it fits), one block per track with a thread a
   slot up to 1024 slots, and one block per track with a thread a fusion
-  group (the wide mapping) up to 16384, its exchange of carry cotangents
-  in shared memory where ``wide_layout``'s fits, else in global scratch
-  (past 2048 groups a thread owns up to eight of them, and the exchange is
-  double-buffered).  The persistent grid takes no more global scratch
-  (history, exchange, partial rows) than the card's free memory allows
-  (``cuda_lib.scratch_budget``).
+  group (the wide mapping) up to 65536 slots and 16384 groups, its
+  exchange of carry cotangents in shared memory where ``wide_layout``'s
+  fits, else in global scratch (past 2048 groups a thread owns up to
+  sixteen of them, and the exchange is double-buffered).  The persistent
+  grid takes no more global scratch (history, exchange, partial rows) than
+  the card's free memory allows, up to ``cuda_lib.scratch_budget(dev,
+  K)``'s cap: past 16384 slots a block takes tens of MB, and the common
+  cap would leave most SMs idle.
   With variable dt the
   kernel reads the streamed displacement variances (``kernel_inputs``'
   eleventh tensor) and returns their cotangent, which autograd carries
   through the stream's expand and ``tables.build_tables`` to the
   parameters.
 * CUDA tensors, no gradient wanted (``torch.no_grad`` or no input requires
-  grad): the cheaper forward kernel K1, whose envelope (16384 slots) is
-  K2's.
+  grad): the cheaper forward kernel K1, whose envelope (65536 slots,
+  16384 fusion groups) is K2's.
 * CPU tensors: the plain version, torch autograd of ``core.engine.forward``.
 
 Positions get no gradient on the kernel path (the fit differentiates
@@ -54,7 +56,7 @@ WIDE = -1                 # the C interface's warps of the wide mapping
 WIDE_GLOBAL = -2          # the wide mapping, its exchange in global scratch
 WIDE_THREADS = 1024       # csrc/grad.cuh kGradWideThreads
 WIDE_GROUPS = 2           # fusion groups a thread of grad_wide_kernel owns
-DEEP_GROUPS = 8           # and of grad_wide_deep_kernel (kGradDeepGroups)
+DEEP_GROUPS = 16          # and of grad_wide_deep_kernel (kGradDeepGroups)
 RED_SCALARS = 64          # its block reductions' shared scratch
 
 
@@ -219,8 +221,9 @@ def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
           itemsize: int, mapping=None, stash=None, P: int = 0):
     """The plan and grid of one K2 (``occupancy_fn`` extrack_grad_occupancy)
     or K3 launch on ``dev`` (``P`` > 0: variable dt): (Plan, blocks, global
-    scratch floats); the grid's budget is ``cuda_lib.scratch_budget``, and
-    a block that alone passes it raises, naming the batch's shape."""
+    scratch floats); the grid's budget is ``cuda_lib.scratch_budget(dev, K)``,
+    and a block that alone passes it
+    raises, naming the batch's shape."""
     def occ(warps, smem):
         n = occupancy_fn(D, K, A, T, warps, int(smem), P)
         if n < 0:
@@ -232,7 +235,7 @@ def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
     try:
         nblk, scratch = grid(B, T, D, K, pl, sms,
                              occ(pl.warps, pl.stash_smem), itemsize, A,
-                             cuda_lib.scratch_budget(dev))
+                             cuda_lib.scratch_budget(dev, K))
     except RuntimeError as e:
         raise RuntimeError(f"the batch of {B} tracks of {T} frames "
                            f"(D={D}, K={K}, A={A}): {e}") from None

@@ -17,7 +17,7 @@ tracks:
   (``device_segment_tables``, built on the card); past them it takes each
   slot's runs from its digits (``histograms.slot_runs`` is its plain
   version) and no table is built, on a persistent grid bounded by
-  HIST_SCRATCH_BUDGET (``runs_grid``).  Outside the envelope it raises.
+  ``cuda_lib.scratch_budget`` past 16384 slots (``runs_grid``).  Outside the envelope it raises.
 * CPU tensors: ``hist_plain``, which is
   ``histograms.window_segment_histogram`` on the same inputs.
 
@@ -47,11 +47,6 @@ def window_frames(W: int, n: int) -> int:
     return (W - 1) // n + 1
 
 
-# global scratch one launch past 16384 slots may take, less where the
-# card has less free memory (``cuda_lib.scratch_budget``): a block's rows
-# are (1+S)*T floats a fusion group, double-buffered (52 MB at 6^7 and T =
-# 20), so K2's, K3's and K4's 1 GiB would keep 19 of 132 SMs busy there
-HIST_SCRATCH_BUDGET = 16 << 30
 RUNS = 3                  # the C interface's ``wide`` of the digits' harvest
 
 
@@ -134,7 +129,7 @@ def launch(data, tabs, min_len: int, S: int, W: int, n: int = 1,
         nblk, floats = runs_grid(
             B, T, K, block_bytes,
             torch.cuda.get_device_properties(dev).multi_processor_count,
-            threads, cuda_lib.scratch_budget(dev, HIST_SCRATCH_BUDGET))
+            threads, cuda_lib.scratch_budget(dev, K))
         w, scratch = RUNS, torch.empty(floats, dtype=torch.float32,
                                        device=dev)
     else:

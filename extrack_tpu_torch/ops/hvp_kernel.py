@@ -40,7 +40,8 @@ def launch(data, tabs, l2_dot, tabs_dot, min_len: int,
     cotangents with their tangents (with variable dt the stream's last),
     each as (value, tangent) pairs.  The mapping is K2's
     (``grad_kernel.plan`` on dual scalars: warp, block, or wide past 1024
-    slots up to 16384); ``mapping`` and ``stash`` force it."""
+    slots up to 65536 and 16384 fusion groups); ``mapping`` and ``stash``
+    force it."""
     global LAUNCHES
     xs, l2 = data[0], data[1]
     B, T, D = xs.shape

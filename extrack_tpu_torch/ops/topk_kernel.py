@@ -11,7 +11,13 @@ over a batch's tracks:
   walks each track's register of M sequences, backtracks its final
   sequences from backpointers it keeps in shared memory and writes the
   track's (T*S) histogram row; one float64 sum over the rows follows, in
-  a fixed order, so the same input gives the same bits.  No (B, M, T)
+  a fixed order, so the same input gives the same bits.  Up to 1024
+  register rows a thread owns one row, a block one track; past them (up
+  to MAX_ROWS = 4096), or where that walk's words pass a block's shared
+  memory, persistent blocks of the wide kernel give a thread several rows,
+  with the walk and the backpointers in shared memory where they fit and
+  in each block's slice of global scratch where not (``wide_layout``,
+  ``wide_grid``).  No (B, M, T)
   tensor and no per-frame loop on the host.  ``backpointers`` runs the
   same kernel in its raw mode, which writes the final weights and the
   parent/state backpointers instead (the plain version's layout).
@@ -28,6 +34,8 @@ bitonic network is not stable (pallas_topk.py:22-26), so in the port
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -38,7 +46,8 @@ from extrack_tpu_torch.ops import cuda_lib, forward_kernel
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
-MAX_ROWS = 1024           # one thread per register row, one block per track
+THREAD_ROWS = 1024        # one thread per register row, one block per track
+MAX_ROWS = 4096           # the wide kernel: up to four rows a thread
 REGISTERS = 64            # a thread's registers under K7's launch bounds
 
 
@@ -77,14 +86,13 @@ def layout(M: int, D: int, A: int, S: int, T: int, smem_limit: int):
 
 
 def check_envelope(T: int, D: int, S: int, M: int, nb_substeps: int = 1,
-                   variable_dt: bool = False, dtype=torch.float32,
-                   smem_limit: int | None = None):
-    """Raise NotImplementedError when K7 cannot run this configuration.
-    ``smem_limit`` is the dynamic shared memory one block may opt in to
-    (``cuda_lib.smem_bytes("extrack_topk_smem", device)``); None skips
-    that check.  The message names the largest M that fits.  Variable dt
+                   variable_dt: bool = False, dtype=torch.float32):
+    """Raise NotImplementedError when K7 cannot run this configuration,
+    naming the largest M that fits past MAX_ROWS.  Variable dt
     (``variable_dt``, per step or per track) is in the envelope: K7 reads
-    the stream (``kernel_inputs``)."""
+    the stream (``kernel_inputs``).  Any M from nb_states^(nb_substeps+1)
+    to MAX_ROWS runs: where a one-row-a-thread walk does not fit a block's
+    shared memory, the wide kernel takes it (``wide``)."""
     A = S ** nb_substeps
     P = S * A
     reasons = []
@@ -96,20 +104,80 @@ def check_envelope(T: int, D: int, S: int, M: int, nb_substeps: int = 1,
     if M < P:
         reasons.append(f"max_nb_states={M} < nb_states^(nb_substeps+1)"
                        f"={P}")
-    else:
-        fits = [m for m in range(P, MAX_ROWS + 1)
-                if smem_limit is None or walk_bytes(m, D, A) <= smem_limit]
-        if M not in fits:
-            reasons.append(
-                f"max_nb_states={M}: K7 holds at most {MAX_ROWS} rows and "
-                f"{smem_limit} bytes of shared memory per block (the "
-                f"largest max_nb_states that fits is "
-                f"{max(fits, default=0)})")
+    elif M > MAX_ROWS:
+        reasons.append(
+            f"max_nb_states={M}: K7 holds at most {MAX_ROWS} rows (a thread "
+            f"up to {MAX_ROWS // THREAD_ROWS} of them; the largest "
+            f"max_nb_states that fits is {MAX_ROWS})")
     if reasons:
         raise NotImplementedError(
             f"top-K histogram batch (T={T}, D={D}, S={S}, max_nb_states={M}, "
             f"nb_substeps={nb_substeps}) is outside K7's envelope: "
             + "; ".join(reasons))
+
+
+def wide(M: int, D: int, A: int, smem_limit: int) -> bool:
+    """Whether K7 runs its wide kernel: past THREAD_ROWS rows, or where
+    the one-row-a-thread walk (``walk_bytes``) passes ``smem_limit``."""
+    return M > THREAD_ROWS or walk_bytes(M, D, A) > smem_limit
+
+
+class WideLayout(NamedTuple):
+    """One block of K7's wide kernel (csrc/topk.cu topk_wide_walk)."""
+    threads: int
+    region: int           # bytes of the walk: rows, words, fold
+    chunk: int            # decode bins a pass (fused)
+    walk_smem: bool       # the walk in shared memory, else in scratch
+    bp_smem: bool         # the fused backpointers in shared memory
+    smem: int             # dynamic shared bytes
+    slice: int            # global scratch bytes a block
+
+
+def wide_walk_bytes(M: int, D: int, A: int) -> int:
+    """The wide kernel's walk region (topk.cu's wide_walk_bytes): the
+    rows, 2D+4 floats each (mean and variance per dimension, lp, ll, the
+    final weight, the newest state), then ``walk_bytes``' words and
+    fold."""
+    return 4 * (2 * D + 4) * M + walk_bytes(M, D, A)
+
+
+def wide_layout(M: int, D: int, A: int, S: int, T: int, smem_limit: int,
+                raw: bool = False) -> WideLayout:
+    """The wide kernel's block: up to THREAD_ROWS threads, a thread rows
+    r, r + threads, ...; the walk region in shared memory where it fits
+    ``smem_limit``, else at the front of the block's slice of global
+    scratch; the fused backpointers ((T-1)*M int16 and int8) in shared
+    memory where they fit beside what is there, else in the slice; the
+    decode's columns (a float a thread and bin) over the words and fold,
+    as many bins a pass as fit, up to T*S.  The slice is rounded up to 16
+    bytes."""
+    threads = min(THREAD_ROWS, -(-M // 32) * 32)
+    region = wide_walk_bytes(M, D, A)
+    bp = 0 if raw else 3 * max(T - 1, 0) * M
+    walk_smem = region <= smem_limit
+    used = region if walk_smem else 0
+    bp_smem = bp > 0 and used + bp <= smem_limit
+    words = region - 4 * (2 * D + 4) * M
+    scratch = (0 if walk_smem else region) + (0 if bp_smem else bp)
+    return WideLayout(threads, region,
+                      max(1, min(T * S, words // (4 * threads))), walk_smem,
+                      bp_smem, used + (bp if bp_smem else 0),
+                      -(-scratch // 16) * 16)
+
+
+def wide_grid(B: int, lay: WideLayout, sms: int, budget: int) -> int:
+    """Persistent blocks of a wide launch: as many as ``sms`` SMs keep
+    resident by threads and registers (2048 and 65536 an SM, REGISTERS a
+    thread), no more than the ``B`` tracks, and no more slices of scratch
+    than ``budget`` bytes hold; RuntimeError where one slice alone passes
+    it."""
+    resident = min(2048 // lay.threads, 65536 // (REGISTERS * lay.threads))
+    nblk = max(1, min(B, sms * max(1, resident)))
+    if lay.slice > budget:
+        raise RuntimeError(
+            f"one K7 block's global scratch ({lay.slice} bytes) passes the "
+            f"{budget} bytes the card can give it; free device memory")
+    return max(1, min(nblk, budget // lay.slice)) if lay.slice else nblk
 
 
 def topk_tables(tb: ModelTables, M: int, n: int):
@@ -170,18 +238,13 @@ def buffers(B: int, T: int, M: int, device):
             torch.empty(steps, dtype=torch.int8, device=device))
 
 
-def _launch(data, tabs, S: int, nb_substeps: int, min_len: int, w_final,
-            bp, rows, region: int, chunk: int, bp_smem: bool):
-    """One K7 launch on the current stream, raw (``rows`` None: w_final
-    and the backpointers ``bp`` out) or fused (``rows`` out, ``bp`` the
-    backpointers' global scratch unless ``bp_smem``); a fifth entry of
-    ``data`` is the stream of variable dt."""
-    global LAUNCHES
+def _check_inputs(data, tabs, S, nb_substeps, w_final, bp, rows):
+    """The checks before raw pointers go to K7: the track data (and the
+    stream of variable dt), the tables and the outputs."""
     xs = data[0]
     B, T, D = xs.shape
     M = tabs[0].shape[0]
     A = S ** nb_substeps
-    dev = xs.device
     f32, i32 = torch.float32, torch.int32
     steps = (B, max(T - 1, 0), M)
     stream = data[4] if len(data) > 4 else None
@@ -200,36 +263,92 @@ def _launch(data, tabs, S: int, nb_substeps: int, min_len: int, w_final,
         want.append((rows, (B, T * S), f32))
     if bp is not None:
         want += [(bp[0], steps, torch.int16), (bp[1], steps, torch.int8)]
-    cuda_lib.check_args(want, dev)
+    cuda_lib.check_args(want, xs.device)
+    return stream
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(data, tabs, S: int, nb_substeps: int, min_len: int, w_final,
+            bp, rows, region: int, chunk: int, bp_smem: bool):
+    """One K7 launch on the current stream, raw (``rows`` None: w_final
+    and the backpointers ``bp`` out) or fused (``rows`` out, ``bp`` the
+    backpointers' global scratch unless ``bp_smem``); a fifth entry of
+    ``data`` is the stream of variable dt."""
+    global LAUNCHES
+    xs = data[0]
+    B, T, D = xs.shape
+    M = tabs[0].shape[0]
+    stream = _check_inputs(data, tabs, S, nb_substeps, w_final, bp, rows)
     rc = cuda_lib.library().extrack_topk(
-        *(t.data_ptr() for t in (*data[:4], *tabs)), ptr(stream),
-        ptr(w_final),
-        *((None, None) if bp is None else map(ptr, bp)), ptr(rows),
-        B, T, D, M, S, A, S ** (nb_substeps - 1), int(min_len),
-        int(rows is None), int(bp_smem), region, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(t.data_ptr() for t in (*data[:4], *tabs)), _ptr(stream),
+        _ptr(w_final),
+        *((None, None) if bp is None else map(_ptr, bp)), _ptr(rows),
+        B, T, D, M, S, S ** nb_substeps, S ** (nb_substeps - 1),
+        int(min_len), int(rows is None), int(bp_smem), region, chunk,
+        torch.cuda.current_stream(xs.device).cuda_stream)
     cuda_lib.check(rc, "top-K histogram")
     LAUNCHES += 1
 
 
+def _launch_wide(data, tabs, S: int, nb_substeps: int, min_len: int,
+                 w_final, bp, rows, lay: WideLayout):
+    """One launch of K7's wide kernel on the current stream, raw (``rows``
+    None: w_final and the backpointers ``bp`` out) or fused (``rows``
+    out), on ``wide_grid``'s blocks, each with its slice of scratch."""
+    global LAUNCHES
+    xs = data[0]
+    B, T, D = xs.shape
+    M = tabs[0].shape[0]
+    dev = xs.device
+    stream = _check_inputs(data, tabs, S, nb_substeps, w_final, bp, rows)
+    nblk = wide_grid(B, lay, forward_kernel._sms(dev.index),
+                     cuda_lib.scratch_budget(dev))
+    scratch = (torch.empty(nblk * lay.slice, dtype=torch.uint8, device=dev)
+               if lay.slice else None)
+    rc = cuda_lib.library().extrack_topk_wide(
+        *(t.data_ptr() for t in (*data[:4], *tabs)), _ptr(stream),
+        _ptr(w_final), *((None, None) if bp is None else map(_ptr, bp)),
+        _ptr(rows), _ptr(scratch), B, T, D, M, S, S ** nb_substeps,
+        S ** (nb_substeps - 1), int(min_len), int(rows is None),
+        int(lay.walk_smem), int(lay.bp_smem), lay.region, lay.chunk, nblk,
+        lay.slice, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(rc, "top-K histogram (wide)")
+    LAUNCHES += 1
+
+
+def _smem_limit(device) -> int:
+    return cuda_lib.smem_bytes("extrack_topk_smem", device.index)
+
+
 def launch(data, tabs, outs, S: int, nb_substeps: int, min_len: int):
     """Launch K7 raw on the current stream into ``outs`` (``buffers``'
-    three tensors, for the B tracks of ``data``)."""
-    _, _, D = data[0].shape
-    region = walk_bytes(tabs[0].shape[0], D, S ** nb_substeps)
+    three tensors, for the B tracks of ``data``): the one-row-a-thread
+    kernel, or the wide one (``wide``)."""
+    _, T, D = data[0].shape
+    M, A = tabs[0].shape[0], S ** nb_substeps
+    limit = _smem_limit(data[0].device)
+    if wide(M, D, A, limit):
+        _launch_wide(data, tabs, S, nb_substeps, min_len, outs[0], outs[1:],
+                     None, wide_layout(M, D, A, S, T, limit, raw=True))
+        return
     _launch(data, tabs, S, nb_substeps, min_len, outs[0], outs[1:], None,
-            region, 1, False)
+            walk_bytes(M, D, A), 1, False)
 
 
 def fused_layout(B: int, T: int, D: int, M: int, S: int, nb_substeps: int,
                  device):
-    """``layout`` of a fused launch on ``device``, and the backpointers'
-    global scratch where they do not fit in shared memory (else None)."""
-    lay = layout(M, D, S ** nb_substeps, S, T,
-                 cuda_lib.smem_bytes("extrack_topk_smem", device.index))
+    """The plan of a fused launch on ``device``: ``layout`` and the
+    backpointers' global scratch where they do not fit in shared memory
+    (else None); for the wide kernel, its ``wide_layout`` and None (each
+    launch takes its blocks' slices of scratch)."""
+    A = S ** nb_substeps
+    limit = _smem_limit(device)
+    if wide(M, D, A, limit):
+        return wide_layout(M, D, A, S, T, limit), None
+    lay = layout(M, D, A, S, T, limit)
     return lay, (None if lay[2] else buffers(B, T, M, device)[1:])
 
 
@@ -240,8 +359,13 @@ def launch_fused(data, tabs, rows, S: int, nb_substeps: int, min_len: int,
     output for these shapes (made here when None)."""
     B, T, D = data[0].shape
     M = tabs[0].shape[0]
-    (region, chunk, bp_smem), bp = plan or fused_layout(
-        B, T, D, M, S, nb_substeps, data[0].device)
+    lay, bp = plan or fused_layout(B, T, D, M, S, nb_substeps,
+                                   data[0].device)
+    if isinstance(lay, WideLayout):
+        _launch_wide(data, tabs, S, nb_substeps, min_len, None, None, rows,
+                     lay)
+        return
+    region, chunk, bp_smem = lay
     _launch(data, tabs, S, nb_substeps, min_len, None, bp, rows, region,
             chunk, bp_smem)
 
@@ -251,9 +375,7 @@ def _prepare(positions, lengths, is_bleached, tables, M, nb_substeps):
     _, T, D = positions.shape
     check_envelope(T, D, tables.nb_states, M, nb_substeps,
                    forward_kernel.classify_sig2(tables.sig2, T),
-                   forward_kernel.kernel_dtype(positions, tables),
-                   cuda_lib.smem_bytes("extrack_topk_smem",
-                                       positions.device.index))
+                   forward_kernel.kernel_dtype(positions, tables))
     with torch.no_grad():
         return kernel_inputs(positions, lengths, is_bleached, tables, M,
                              nb_substeps)

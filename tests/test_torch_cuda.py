@@ -22,8 +22,11 @@ onto the small registers of the other tests, K4 and K5 past 4096 up to
 and ``len_hist`` at 4 states or two sub-steps among them), with their
 carries in shared memory or, where that cannot hold them, global scratch,
 and K4 past 16384 up to 65536 (``predict_Bs`` at 7 states, the GUI's
-labeling window at 3 states).  K7 reads the streamed table of variable
-dt too, held to the same tolerances as with a constant dt.
+labeling window at 3 states), K1, K2 and K3 up to 65536 slots and 16384
+fusion groups (the GUI's Model Fitting at 6 states).  K7 reads the
+streamed table of variable dt too, held to the same tolerances as with a
+constant dt, and past 1024 register rows (up to 4096) runs its wide
+kernel, held to the same tolerances.
 The HMC sampler runs its gradients on K2 alone (its launches by the
 formula in ``sample``'s docstring) and draws the same samples for any
 ``dispatch_chunk``; the device simulators run on the card by default.
@@ -763,7 +766,7 @@ def test_cuda_topk_matches_plain(cuda, S, n, M, B, T, D):
         assert torch.equal(par.long(), par0) and torch.equal(st, st0)
         torch.testing.assert_close(wf, wf0, rtol=1e-4, atol=1e-5)
     with pytest.raises(NotImplementedError, match="largest max_nb_states"):
-        topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=2048,
+        topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=4224,
                                  nb_substeps=n)
     # a per-track table: K7 on the stream, the plain version's histogram
     # (and, unpruned, its backpointers)
@@ -898,9 +901,12 @@ def test_cuda_topk_pad_prefix_backpointers_match_plain(cuda, S, n, M, B, T,
 
 def _past_envelope(S, kernel):
     """The smallest window whose register passes ``kernel``'s envelope
-    (K1, K2, K3 and K6: 16384 slots; K4: 65536; K5: 2^19) at S states."""
+    (K6: 16384 slots; K1, K2, K3: 65536 and 16384 fusion groups; K4:
+    65536; K5: 2^19) at S states, one sub-step."""
     limit = forward_kernel.MAX_SLOTS[kernel]
-    return next(w for w in range(1, 24) if S ** w > limit)
+    groups = forward_kernel.MAX_GROUPS.get(kernel, limit)
+    return next(w for w in range(1, 24)
+                if S ** w > limit or S ** (w - 1) > groups)
 
 
 # (S, W, D, dt): K = 1296, 2048, 2187, 3125 and 4096 (2, 4 and 8 states),
@@ -947,7 +953,8 @@ def test_cuda_wide_k1_k4_match_plain(cuda, S, W, D, dt):
             continue
         torch.testing.assert_close(logl, logl0, rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(preds, preds0, rtol=2e-3, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="K1 maps at most 16384"):
+    with pytest.raises(NotImplementedError,
+                       match="K1 maps at most (65536|16384)"):
         forward_kernel.forward(*args, window=_past_envelope(S, "K1"),
                                min_len=2)
     with pytest.raises(NotImplementedError, match="K4 maps at most 65536"):
@@ -1522,15 +1529,15 @@ def test_cuda_wide_k2_k3_match_plain(cuda, S, W, n, D, dt):
     assert (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
             grad_kernel.PLAIN_CALLS + hvp_kernel.PLAIN_CALLS) == (
         before[0] + 4, before[1] + 1, before[2] + 2)
-    # past 16384 slots: K2 and K3 raise, naming the kernel and the window
-    # that fits
+    # past 65536 slots or 16384 fusion groups: K2 and K3 raise, naming
+    # the kernel and the window that fits
     W_past = _past_envelope(S, "K2")
     for fn, name in ((grad_kernel.value_and_table_grads, "K2"),
                      (lambda *a_, **k_: hvp_kernel.table_hvp(
                          *a_, args[3], **k_), "K3")):
         with pytest.raises(NotImplementedError,
-                           match=rf"{name} maps at most 16384.*window that "
-                                 rf"fits is {W_past - 1}"):
+                           match=rf"{name} maps at most (65536|16384).*"
+                                 rf"window that fits is {W_past - 1}"):
             fn(*args, window=W_past, nb_substeps=1, min_len=2)
 
 
@@ -1580,7 +1587,8 @@ def test_grad_layout(cuda):
     block ones."""
     for S, W, n in ((6, 4, 1), (2, 11, 2), (3, 7, 1), (5, 5, 1), (4, 6, 1),
                     (2, 12, 1), (3, 5, 1), (6, 5, 1), (3, 8, 1), (5, 6, 1),
-                    (4, 7, 1), (2, 13, 1), (2, 14, 1), (2, 14, 2)):
+                    (4, 7, 1), (2, 13, 1), (2, 14, 1), (2, 14, 2),
+                    (6, 6, 1), (4, 8, 1), (2, 15, 1), (3, 9, 1)):
         K, A = S ** W, S ** n
         for D in (1, 2, 3):
             for T in (2, 9, 40):
@@ -1594,7 +1602,9 @@ def test_grad_layout(cuda):
     smem = cuda_lib.smem_bytes("extrack_grad_smem", cuda.index or 0)
     for K, A, want in ((64, 2, 4), (243, 3, 0), (1024, 4, 0),
                        (4096, 4, grad_kernel.WIDE),
-                       (16384, 4, grad_kernel.WIDE_GLOBAL)):
+                       (16384, 4, grad_kernel.WIDE_GLOBAL),
+                       (46656, 6, grad_kernel.WIDE_GLOBAL),
+                       (65536, 4, grad_kernel.WIDE_GLOBAL)):
         pl = grad_kernel.plan(K, A, 3, 20, smem, lambda w, s: 1, 8)
         assert pl.warps == want
 
@@ -1658,6 +1668,143 @@ def test_cuda_k1_k2_k3_past_4096_slots_match_plain(cuda, S, W, n, D, dt):
     torch.testing.assert_close(k1g, forward_kernel.forward_plain(*args,
                                                                  **kw),
                                rtol=2e-5, atol=2e-4)
+
+
+# K1, K2 and K3 past 16384 slots (S, W, n, D, dt): 6^6 (the GUI's frame_len
+# 6 at 6 states, 8 groups a thread) and 4^8 (16 groups a thread) at D =
+# 1..3 with constant and variable dt, 2^15 (16384 groups) with K3's
+# columns; 2^16 at two sub-steps (16384 groups of 4)
+PAST_16384_GRAD_CASES = [
+    (6, 6, 1, 1, None), (6, 6, 1, 2, "track"), (6, 6, 1, 3, "step"),
+    (4, 8, 1, 1, "step"), (4, 8, 1, 2, None), (4, 8, 1, 3, "track"),
+    (2, 15, 1, 2, None), (2, 16, 2, 1, "track")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,n,D,dt", PAST_16384_GRAD_CASES)
+def test_cuda_k1_k2_k3_past_16384_slots_match_plain(cuda, S, W, n, D, dt):
+    # through the wrappers against the plain versions (K3 against the
+    # plain double backward in float64), K1 and K2 bit for bit on a second
+    # launch; one window more raises, naming the kernel
+    T = 7
+    args = _case(cuda, S, n, 8, T, D, seed=S * W + D, per_peak=(D == 2),
+                 dt=dt)
+    kw = dict(window=W, nb_substeps=n, min_len=2)
+    before = (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
+              hvp_kernel.LAUNCHES, forward_kernel.PLAIN_CALLS,
+              grad_kernel.PLAIN_CALLS, hvp_kernel.PLAIN_CALLS)
+    logl = forward_kernel.forward(*args, **kw)
+    v, g = grad_kernel.value_and_table_grads(*args, **kw)
+    hv, hv0 = _table_hvp64(args, S + W + D, **kw)
+    assert (forward_kernel.LAUNCHES, grad_kernel.LAUNCHES,
+            hvp_kernel.LAUNCHES, forward_kernel.PLAIN_CALLS,
+            grad_kernel.PLAIN_CALLS) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3],
+        before[4])
+    torch.testing.assert_close(logl, forward_kernel.forward_plain(*args,
+                                                                  **kw),
+                               rtol=2e-5, atol=2e-4)
+    v0, g0 = grad_kernel.value_and_table_grads_plain(*args, **kw)
+    torch.testing.assert_close(v, v0, rtol=2e-5, atol=0.0)
+    for k in g:
+        torch.testing.assert_close(g[k], g0[k], rtol=2e-3, atol=2e-3)
+    for name in hv0:
+        scale = float(hv0[name].abs().max())
+        torch.testing.assert_close(hv[name].double(), hv0[name], rtol=5e-3,
+                                   atol=1e-3 * scale)
+    data_, tabs = _kernel_args(args, W, n)
+    a = grad_kernel.launch(data_, tabs, 2)
+    b = grad_kernel.launch(data_, tabs, 2)
+    for x, y in zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2])):
+        assert torch.equal(x, y)
+    k1 = forward_kernel.launch(data_, tabs, 2)
+    assert torch.equal(k1, forward_kernel.launch(data_, tabs, 2))
+    with pytest.raises(NotImplementedError,
+                       match="K2 maps at most (65536|16384)"):
+        grad_kernel.value_and_table_grads(*args, window=W + 1,
+                                          nb_substeps=n, min_len=2)
+
+
+@pytest.mark.cuda
+def test_cuda_hessian_columns_at_32768_slots(cuda):
+    # K3's Hessian columns at 2^15 (16384 fusion groups, sixteen a thread)
+    # through hessian_hvp_exact against the plain double backward, and
+    # symmetric
+    tr = np.full((2, 2), 0.1) + np.eye(2) * 0.8
+    tracks, _, _ = simulate.sim_fov(
+        nb_tracks=60, max_track_len=8, min_track_len=3, Ds=(0.0, 0.08),
+        TrMat=tr, cell_dims=(0.5,), seed=3)
+    spec = params.generate_params(nb_states=2, D_max=1.0,
+                                  estimated_Ds=[0.001, 0.05])
+    z = spec.to_unconstrained()
+    kw = dict(cell_dims=(0.5,), window=15, min_len=2)
+    gpu = data.from_dict_bucketed(tracks, device=cuda)
+    cpu64 = data.from_dict_bucketed(tracks, device="cpu",
+                                    dtype=torch.float64)
+    before = hvp_kernel.LAUNCHES, hvp_kernel.PLAIN_CALLS
+    H = fit.hessian_hvp_exact(gpu, spec, z, 0.02, 2, **kw)
+    assert (hvp_kernel.LAUNCHES - before[0], hvp_kernel.PLAIN_CALLS) == (
+        len(spec.free_names()) * len(gpu), before[1])
+    H0 = fit.hessian_hvp_exact(cpu64, spec, z, 0.02, 2, **kw)
+    scale = float(np.abs(H0).max())
+    np.testing.assert_allclose(H, H0, rtol=5e-3, atol=1e-3 * scale)
+    np.testing.assert_allclose(H, H.T, atol=2e-3 * scale)
+
+
+# K7 past 1024 register rows (S, n, M, B, T, D, dt): 2048 and 4096 rows,
+# pruned (3 states) and unpruned (2 states, 2^11 = 2048 sequences), the
+# walk in shared memory (2048 rows at D = 1, 2) and in global scratch
+PAST_1024_TOPK_CASES = [
+    (3, 1, 2048, 60, 10, 2, None), (3, 1, 4096, 60, 10, 3, "track"),
+    (2, 1, 2048, 40, 11, 1, None), (2, 1, 4096, 40, 12, 2, "step"),
+    (2, 2, 4096, 30, 8, 2, None), (3, 1, 4096, 8, 30, 3, "step")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,M,B,T,D,dt", PAST_1024_TOPK_CASES)
+def test_cuda_topk_past_1024_rows_matches_plain(cuda, S, n, M, B, T, D, dt):
+    # fused and raw, through the wrappers, against the plain version; the
+    # same bits on a second launch; the fused rows against the raw
+    # backpointers decoded; unpruned, every backpointer the plain one's
+    pos, lens, isbl, tb = _case(cuda, S, n, B, T, D, seed=M + T + D, dt=dt)
+    kw = dict(max_nb_states=M, min_len=3, nb_substeps=n)
+    smem = cuda_lib.smem_bytes("extrack_topk_smem", cuda.index or 0)
+    assert topk_kernel.wide(M, D, S ** n, smem)
+    lay = topk_kernel.wide_layout(M, D, S ** n, S, T, smem)
+    if T > 20:
+        # at 4096 rows the walk passes the opt-in and, past 20 frames, so
+        # do the fused backpointers: both in the block's global scratch
+        assert not lay.walk_smem and not lay.bp_smem
+    before = topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS
+    got = topk_kernel.segment_topk(pos, lens, isbl, tb, **kw)
+    again = topk_kernel.segment_topk(pos, lens, isbl, tb, **kw)
+    assert (topk_kernel.LAUNCHES, topk_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    assert torch.equal(got, again)
+    want = topk_kernel.segment_topk_plain(pos, lens, isbl, tb, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    par, st, wf = topk_kernel.backpointers(pos, lens, isbl, tb, **kw)
+    par2, st2, wf2 = topk_kernel.backpointers(pos, lens, isbl, tb, **kw)
+    assert torch.equal(par, par2) and torch.equal(st, st2)
+    assert torch.equal(wf, wf2)
+    data_, tabs = topk_kernel.kernel_inputs(pos, lens, isbl, tb, M, n)
+    rows = torch.empty((B, T * S), device=cuda)
+    topk_kernel.launch_fused(data_, tabs, rows, S, n, 3)
+    dec = histograms.decode_backpointers(
+        par, st, wf, lens, tables.state_codes(S, n + 1), S, M,
+        per_track=True)
+    torch.testing.assert_close(rows.view(B, T, S), dec, rtol=1e-5,
+                               atol=1e-6)
+    if S ** (n + 1) * (S ** n) ** (T - 2) <= M:
+        par0, st0, wf0 = histograms.segment_backpointers(pos, lens, isbl,
+                                                         tb, **kw)
+        assert torch.equal(par.long(), par0) and torch.equal(st, st0)
+        torch.testing.assert_close(wf, wf0, rtol=1e-4, atol=1e-5)
+    with pytest.raises(NotImplementedError,
+                       match="largest max_nb_states that fits is 4096"):
+        topk_kernel.segment_topk(pos, lens, isbl, tb, max_nb_states=4097,
+                                 nb_substeps=n)
 
 
 @pytest.mark.cuda

@@ -120,21 +120,25 @@ def test_classify_sig2_and_envelope():
     forward_kernel.check_envelope(20, 2, 3, 5, 1)
     with pytest.raises(NotImplementedError, match="D=4"):
         forward_kernel.check_envelope(20, 4, 2, 6, 1)
-    # K1, K2 and K3 map up to 16384 slots; each raise names the kernel,
-    # its limit and the largest window that fits
+    # K1, K2 and K3 map up to 65536 slots and 16384 fusion groups; each
+    # raise names the kernel, its limit and the largest window that fits
     forward_kernel.check_envelope(20, 2, 2, 11, 1)          # K = 2048
-    forward_kernel.check_envelope(20, 2, 2, 13, 1)          # K = 8192
     forward_kernel.check_envelope(20, 2, 2, 14, 1)          # K = 16384
+    forward_kernel.check_envelope(20, 2, 2, 15, 1)          # K = 32768
+    forward_kernel.check_envelope(20, 2, 2, 16, 2)          # 16384 groups
     with pytest.raises(NotImplementedError,
-                       match="K=S.*16384.*K1.*window that fits is 14"):
-        forward_kernel.check_envelope(20, 2, 2, 15, 1)      # K = 32768
+                       match="K/A=32768 > 16384 fusion groups.*K1.*window "
+                             "that fits is 15"):
+        forward_kernel.check_envelope(20, 2, 2, 16, 1)      # K = 65536
     for kernel in ("K2", "K3"):
         forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel=kernel)
         forward_kernel.check_envelope(20, 2, 5, 6, 1, kernel=kernel)
+        forward_kernel.check_envelope(20, 2, 6, 6, 1, kernel=kernel)
+        forward_kernel.check_envelope(20, 2, 4, 8, 1, kernel=kernel)
         with pytest.raises(NotImplementedError,
-                           match=f"K=S.*16384.*{kernel}.*window that fits "
-                                 "is 14"):
-            forward_kernel.check_envelope(20, 2, 2, 15, 1, kernel=kernel)
+                           match=f"K=S.*65536.*{kernel}.*window that fits "
+                                 "is 6"):
+            forward_kernel.check_envelope(20, 2, 5, 7, 1, kernel=kernel)
     # K4 maps up to 65536 slots (its carries in global scratch past a
     # block's shared memory)
     forward_kernel.check_envelope(20, 2, 2, 13, 1, kernel="K4")  # 8192

@@ -114,7 +114,7 @@ def test_gui_seeded_fit_options_at_5_states_are_jax_and_in_envelope():
         forward_kernel.check_envelope(20, 2, 5, W, 1, what="the GUI's fit",
                                       kernel=kernel)
     with pytest.raises(NotImplementedError,
-                       match="the GUI's fit.*K3 maps at most 16384.*window "
+                       match="the GUI's fit.*K3 maps at most 65536.*window "
                              "that fits is 6"):
         forward_kernel.check_envelope(20, 2, 5, W + 1, 1,
                                       what="the GUI's fit", kernel="K3")

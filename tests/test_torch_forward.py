@@ -388,7 +388,7 @@ def test_mapping_choice_and_per_kernel_limits():
     # 16384; K4: a warp up to 64, a thread a slot up to 1024, a thread a
     # fusion group up to 65536; K5 and K6 (a block a track) go wide past
     # 1024, K5 up to 2^19, K6 up to 16384; K2 and K3 (grad_kernel.plan) to
-    # 16384
+    # 65536
     W = forward_kernel.WIDE
     Ks = (64, 65, 1024, 1025, 4096)
     assert [forward_kernel.mapping_warps("K1", K) for K in Ks] == [
@@ -428,11 +428,11 @@ def test_mapping_choice_and_per_kernel_limits():
         assert forward_kernel.mapping_warps("K6", K) == W
     with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
         forward_kernel.mapping_warps("K6", 16807)
-    # K1 goes on to 16384 (6^5, 5^6, 4^7, 2^14) and stops there
-    for K in (7776, 15625, 16384):
+    # K1 goes on to 65536 (6^5, 5^6, 4^7, 2^14, 6^6, 4^8) and stops there
+    for K in (7776, 15625, 16384, 46656, 65536):
         assert forward_kernel.mapping_warps("K1", K) == W
-    with pytest.raises(ValueError, match="wide mapping takes K <= 16384"):
-        forward_kernel.mapping_warps("K1", 16807)
+    with pytest.raises(ValueError, match="wide mapping takes K <= 65536"):
+        forward_kernel.mapping_warps("K1", 78125)
     with pytest.raises(ValueError, match="K1 has the mappings"):
         forward_kernel.plan("K1", 243, 0, 0, 0, None, mapping="block")
     with pytest.raises(ValueError, match="K6 has the mappings"):
@@ -446,9 +446,11 @@ def test_mapping_choice_and_per_kernel_limits():
                 for k in ("K1", "K4")] == [W, 0]
     finally:
         forward_kernel.WARP_MAX_K = saved
-    assert forward_kernel.MAX_SLOTS == {"K1": 16384, "K2": 16384,
-                                        "K3": 16384, "K4": 65536,
+    assert forward_kernel.MAX_SLOTS == {"K1": 65536, "K2": 65536,
+                                        "K3": 65536, "K4": 65536,
                                         "K5": 524288, "K6": 16384}
+    assert forward_kernel.MAX_GROUPS == {"K1": 16384, "K2": 16384,
+                                         "K3": 16384}
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
@@ -464,25 +466,39 @@ def test_check_envelope_names_each_kernels_limit(kernel):
         forward_kernel.check_envelope(10, 2, 6, 5, 1, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 2, 13, 2, kernel=kernel)
         forward_kernel.check_envelope(10, 2, 4, 7, 1, kernel=kernel)
+    groups = forward_kernel.MAX_GROUPS.get(kernel)
     if limit >= 65536:
         # K4: predict_Bs at 7 states (7^5) and 6 states at frame_len 6
-        # (6^6), the GUI's labeling window at 3 states (3^10); K5 too
+        # (6^6), the GUI's labeling window at 3 states (3^10); K5 too.
+        # K1, K2 and K3 stop at 16384 fusion groups (3^10, 2^16), naming
+        # the largest window that fits
         for S, W in ((7, 5), (6, 6), (3, 10), (4, 8), (2, 16)):
-            forward_kernel.check_envelope(10, 2, S, W, 1, kernel=kernel)
+            if groups is None or S ** (W - 1) <= groups:
+                forward_kernel.check_envelope(10, 2, S, W, 1, kernel=kernel)
+                continue
+            with pytest.raises(NotImplementedError,
+                               match=rf"K/A={S ** (W - 1)} > {groups} "
+                                     rf"fusion groups \({kernel} maps at "
+                                     rf"most {groups}.*window that fits is "
+                                     rf"{W - 1}\)"):
+                forward_kernel.check_envelope(10, 2, S, W, 1, kernel=kernel)
     if limit == 1 << 19:
         # K5: len_hist's default window 7 at 5 and 6 states, window 8 at 5
         for S, W in ((5, 7), (6, 7), (5, 8), (2, 19)):
             forward_kernel.check_envelope(10, 2, S, W, 1, kernel=kernel)
     # past the limit: the bucket, the kernel, its limit and the largest
     # window that fits (3 states: 6 for 1024 slots, 7 for 4096, 8 for
-    # 16384, 10 for 65536, 11 for 2^19)
+    # 16384, 10 for 65536 (9 within 16384 fusion groups), 11 for 2^19)
     fits = {1024: 6, 4096: 7, 16384: 8, 65536: 10, 524288: 11}[limit]
-    K = 3 ** (fits + 1)
+    past = fits + 1                  # the first window past the slots
+    if groups is not None:
+        fits = 9
+    K = 3 ** past
     with pytest.raises(NotImplementedError,
                        match=(rf"bucket 2 .*K=S\*\*window={K} > {limit} "
                               rf"register slots \({kernel} maps at most "
                               rf"{limit}.*window that fits is {fits}")):
-        forward_kernel.check_envelope(10, 2, 3, fits + 1, 1, what="bucket 2",
+        forward_kernel.check_envelope(10, 2, 3, past, 1, what="bucket 2",
                                       kernel=kernel)
 
 
@@ -626,9 +642,9 @@ def test_k2_k3_past_4096_slots_plans_fit_every_register(D, itemsize):
             ((3, 8), (4, 7), (5, 6), (2, 14))] == [3, 4, 4, 8]
     if (D, itemsize) == (1, 4):
         assert shared > 0     # 6^5 keeps its exchange in shared memory
-    # past 8192 groups the wide mapping refuses
-    with pytest.raises(ValueError, match="at most 8192 fusion groups"):
-        grad_kernel.plan(2 ** 14, 1, D, 20, SMEM, occ, itemsize,
+    # past 16384 groups the wide mapping refuses
+    with pytest.raises(ValueError, match="at most 16384 fusion groups"):
+        grad_kernel.plan(2 ** 15, 1, D, 20, SMEM, occ, itemsize,
                          mapping="wide")
 
 

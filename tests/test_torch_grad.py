@@ -262,8 +262,9 @@ def test_k2_plan_wide_mapping_exactly_past_1024_slots(K, A, want):
     else:
         with pytest.raises(ValueError, match="K <= 1024"):
             grad_kernel.plan(K, A, 2, 10, H100_OPTIN, occ, mapping="block")
-    for K_past, A_past in ((3 ** 9, 3), (2 ** 15, 2), (7 ** 5, 7)):
-        with pytest.raises(ValueError, match="K <= 16384"):
+    for K_past, A_past in ((5 ** 7, 5), (2 ** 16, 2), (3 ** 10, 3)):
+        with pytest.raises(ValueError, match="K <= 65536 and at most 16384 "
+                                             "fusion groups"):
             grad_kernel.plan(K_past, A_past, 2, 10, H100_OPTIN, occ)
 
 
@@ -350,17 +351,27 @@ def test_k2_k3_envelope_reaches_4096_slots(kernel):
     forward_kernel.check_envelope(20, 3, 4, 6, 1, kernel=kernel)   # 4096
     forward_kernel.check_envelope(20, 2, 3, 7, 1, variable_dt=True,
                                   kernel=kernel)                   # 2187
-    # past 4096 up to 16384: 6^5, 3^8, 5^6 (the GUI's frame_len 6 at 5
-    # states), 4^7 and 2^14
-    for S, W in ((6, 5), (3, 8), (5, 6), (4, 7), (2, 14)):
+    # past 4096 up to 65536: 6^5, 3^8, 5^6 (the GUI's frame_len 6 at 5
+    # states), 4^7 and 2^14, and past 16384 6^6 (the GUI's at 6 states),
+    # 4^8, 3^9, 7^5, 8^5 and 2^15 (16384 fusion groups)
+    for S, W in ((6, 5), (3, 8), (5, 6), (4, 7), (2, 14), (6, 6), (4, 8),
+                 (3, 9), (7, 5), (8, 5), (2, 15)):
         forward_kernel.check_envelope(20, 3, S, W, 1, kernel=kernel)
         forward_kernel.check_envelope(20, 2, S, W, 1, variable_dt=True,
                                       kernel=kernel)
-    for S, W, fits in ((4, 8, 7), (6, 6, 5), (3, 9, 8), (5, 7, 6)):
+    for S, W, fits in ((5, 7, 6), (7, 6, 5)):
         with pytest.raises(NotImplementedError,
                            match=(rf"bucket 1 .*K=S\*\*window={S ** W} > "
-                                  rf"16384 register slots \({kernel} maps "
-                                  rf"at most 16384.*window that fits is "
+                                  rf"65536 register slots \({kernel} maps "
+                                  rf"at most 65536.*window that fits is "
                                   rf"{fits}")):
+            forward_kernel.check_envelope(20, 2, S, W, 1, what="bucket 1",
+                                          kernel=kernel)
+    for S, W, fits in ((3, 10, 9), (2, 16, 15)):
+        with pytest.raises(NotImplementedError,
+                           match=(rf"bucket 1 .*K/A={S ** (W - 1)} > 16384 "
+                                  rf"fusion groups \({kernel} maps at most "
+                                  rf"16384, up to 16 a thread of 1024; the "
+                                  rf"largest window that fits is {fits}")):
             forward_kernel.check_envelope(20, 2, S, W, 1, what="bucket 1",
                                           kernel=kernel)

@@ -268,7 +268,7 @@ def test_k5_past_16384_slots_plans_fit_every_register(D):
     dynamic shared memory and its static bytes within the opt-in, the
     (state, length) bins within the kernel's; the grid's scratch within
     the budget, or a raise naming the batch and its bytes."""
-    budget = hist_kernel.HIST_SCRATCH_BUDGET
+    budget = cuda_lib.WIDE_SCRATCH_BUDGET
     assert budget > cuda_lib.SCRATCH_BUDGET == 1 << 30
     assert STATIC <= SMEM
     for S, W in PAST_16384_REGISTERS:

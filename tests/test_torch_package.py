@@ -64,7 +64,7 @@ def test_kernel_sources_present():
     assert set(cuda_lib._SIGNATURES) == {
         "extrack_forward", "extrack_grad", "extrack_hvp", "extrack_predict",
         "extrack_hist", "extrack_refine", "extrack_topk",
-        "extrack_forward_occupancy", "extrack_grad_occupancy",
+        "extrack_topk_wide", "extrack_forward_occupancy", "extrack_grad_occupancy",
         "extrack_hvp_occupancy", "extrack_predict_occupancy",
         "extrack_predict_layout", "extrack_hist_layout",
         "extrack_refine_layout", "extrack_grad_layout",

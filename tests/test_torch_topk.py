@@ -192,10 +192,9 @@ def test_segment_histogram_matches_pallas_interpret():
 
 def test_check_envelope():
     ok = dict(T=10, D=2, S=2, M=512)
-    topk_kernel.check_envelope(**ok, smem_limit=227 * 1024)
+    topk_kernel.check_envelope(**ok)
     # variable dt is in the envelope: K7 reads the stream
-    topk_kernel.check_envelope(**ok, variable_dt=True,
-                               smem_limit=227 * 1024)
+    topk_kernel.check_envelope(**ok, variable_dt=True)
     topk_kernel.check_envelope(10, 2, 2, 128, 2, variable_dt=True)
     with pytest.raises(NotImplementedError, match="float64"):
         topk_kernel.check_envelope(**ok, dtype=torch.float64)
@@ -206,18 +205,20 @@ def test_check_envelope():
     # 2 runs of 512 children's words and two merge buffers (16 KB) + 8
     # floats per row (16 KB) at M=512
     assert topk_kernel.walk_bytes(512, 2, 2) == 16384 + 16384
-    with pytest.raises(NotImplementedError,
-                       match="largest max_nb_states that fits is 256"):
-        topk_kernel.check_envelope(**ok, smem_limit=topk_kernel.walk_bytes(
-            256, 2, 2))
-    with pytest.raises(NotImplementedError, match="that fits is 1024"):
-        topk_kernel.check_envelope(T=10, D=2, S=2, M=1152)
+    # a walk past a block's shared memory runs the wide kernel (its walk
+    # in global scratch), not a raise
+    assert topk_kernel.wide(512, 2, 2, topk_kernel.walk_bytes(256, 2, 2))
+    assert not topk_kernel.wide(512, 2, 2, topk_kernel.walk_bytes(512, 2,
+                                                                  2))
+    topk_kernel.check_envelope(T=10, D=2, S=2, M=1152)
+    with pytest.raises(NotImplementedError, match="that fits is 4096"):
+        topk_kernel.check_envelope(T=10, D=2, S=2, M=4224)
     # len_hist's register, M = 512, at S = 2, 3, 4 (n = 1) and S = 2, n = 2,
-    # D = 1..3, inside an H100 block's 227 KB
+    # D = 1..3, inside an H100 block's 227 KB: the one-row-a-thread kernel
     for S, n in ((2, 1), (3, 1), (4, 1), (2, 2)):
         for D in (1, 2, 3):
-            topk_kernel.check_envelope(10, D, S, 512, n,
-                                       smem_limit=227 * 1024)
+            topk_kernel.check_envelope(10, D, S, 512, n)
+            assert not topk_kernel.wide(512, D, S ** n, 227 * 1024)
 
 
 @pytest.mark.parametrize("S,n,kind", [(2, 1, "step"), (2, 1, "track"),
