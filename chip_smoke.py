@@ -11,12 +11,12 @@ Phases (each prints its lines; a failed check exits non-zero):
    K5 or K6 instantiation of up to 512 threads, constant or variable dt
    (K5's variable-dt instantiations listed with their spill bytes, and
    the 21 instantiations of the wide mapping with their registers and
-   spill bytes, then K2's and K3's 12: float and dual numbers, D 1..3,
-   constant and variable dt, and K7's 6: D 1..3, constant and variable
-   dt; past 4096 slots K2's and K3's 12 deep instantiations (up to eight
-   fusion groups a thread) and K1's 6 with its publish areas in global
-   scratch; past 16384 slots K5's 6 with the harvest from the slots'
-   digits and past 4096 K6's 3 with its publish areas in global scratch);
+   spill bytes, then K2's and K3's 12 (``grad_cluster_kernel``, a
+   cluster of blocks a track): float and dual numbers, D 1..3, constant
+   and variable dt, and K7's 6: D 1..3, constant and variable dt; past
+   4096 slots K1's 6 with its publish areas in global scratch; past 16384
+   slots K5's 6 with the harvest from the slots' digits and past 4096
+   K6's 3 with its publish areas in global scratch);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
@@ -213,9 +213,10 @@ Phases (each prints its lines; a failed check exits non-zero):
    ones; NCCL at world size 1 on every SUBSET_STRIDE-th track against the
    in-process sharded fit.  The three processes run beside the
    in-process part; their wall time is printed, and is not a speed.
-16. the fit past 1024 slots (K2 and K3 on their wide mapping, a thread a
-   fusion group): ``param_fitting(nb_states=4, frame_len=6,
-   compute_errors=True, max_iter=FIT_PAST_ITERS)`` on ~1.5 x 10^4 4-state ``sim_fov`` tracks (K =
+16. the fit past 1024 slots (K2 and K3 on their wide mapping, a cluster of
+   blocks a track, a thread one or two fusion groups):
+   ``param_fitting(nb_states=4, frame_len=6, compute_errors=True,
+   max_iter=FIT_PAST_ITERS)`` on ~1.5 x 10^4 4-state ``sim_fov`` tracks (K =
    4096, the GUI's seeded frame_len; its launches, 0 plain calls, its
    wall time; at its start the objective's value and z-gradient against
    the plain version on each bucket's first tracks, the Hessian columns
@@ -228,15 +229,18 @@ Phases (each prints its lines; a failed check exits non-zero):
    on 2^14 random walks at (S, W) = (4, 6) and (3, 7) beside their bounds
    and one pass of their plain versions on the first quarter of each
    bucket.
-17. the fit past 4096 slots (K2 and K3 with up to eight fusion groups a
-   thread, their exchange in global scratch): ``param_fitting(nb_states=5,
+17. the fit past 4096 slots (K2 and K3 on clusters of two or more blocks,
+   their exchange in the blocks' shared memory): ``param_fitting(nb_states=5,
    frame_len=6, compute_errors=True, max_iter=FIT_PAST_ITERS)`` on ~4,000 5-state ``sim_fov``
    tracks (K = 15,625, the GUI's seeded frame_len at 5 states; its
    launches, 0 plain calls; at its start the objective and the Hessian
    columns against the plain versions as in phase 16), the value-only
    objective at the fit's end (K1 against K2's value), the GUI
    ``Session``'s Model Fitting runner at 5 states on every
-   GUI17_STRIDE-th track; then K1's, K2's and K3's bare and wrapper
+   GUI17_STRIDE-th track; K2 and K3 at 5^6 against their plain versions
+   at D = 1..3 (one case with per-track dt), each twice bit for bit and
+   K2 with its exchange in global scratch bit for bit
+   (``cluster_checks``); then K1's, K2's and K3's bare and wrapper
    times on 2^12 random walks at (S, W) = (5, 6) and (4, 7) beside the
    same walks at (4, 6) (K = 4096), their bounds and their plain
    versions on the first quarter of each bucket.
@@ -255,9 +259,9 @@ Phases (each prints its lines; a failed check exits non-zero):
    point's and its first REFINE18_CHECK tracks against the plain version;
    then K5's (5^7) and K6's (4^7) bare and wrapper times beside their
    bounds and plain times.
-19. K1, K2 and K3 past 16384 slots (up to 65536, sixteen fusion groups a
-   thread) and K7 past 1024 register rows (up to 4096, a thread several
-   rows): ``param_fitting(nb_states=6, frame_len=6, compute_errors=True,
+19. K1, K2 and K3 past 16384 slots (up to 65536; K2 and K3 on clusters of
+   up to sixteen blocks) and K7 past 1024 register rows (up to 4096, a
+   thread several rows): ``param_fitting(nb_states=6, frame_len=6, compute_errors=True,
    max_iter=FIT19_ITERS)`` on ~1,000 6-state ``sim_fov`` tracks (K =
    46,656, the GUI's seeded frame_len at 6 states; K3 launches = free
    parameters x buckets, 0 plain calls; at its start the objective on
@@ -266,9 +270,11 @@ Phases (each prints its lines; a failed check exits non-zero):
    value-only objective at its end (K1's launches, its value beside
    K2's), the GUI ``Session``'s Model Fitting runner at 6 states on every
    GUI19_STRIDE-th track, the 4-state objective, K1 and K3's columns at
-   window 8 (K = 65,536, sixteen groups a thread) against the plain
-   versions; K1's, K2's and K3's bare and wrapper times on 2^12 random
-   walks at 6^6 and 4^8 beside their bounds and their plain versions on
+   window 8 (K = 65,536, 16,384 groups; the launches of the ``K2
+   cluster`` and ``K3 cluster`` entries) against the plain versions; K2
+   and K3 at 6^6 and 4^8, D = 1..3, as phase 17's ``cluster_checks``;
+   K1's, K2's and K3's bare and wrapper times on 2^12 random walks at 6^6
+   and 4^8 beside their bounds and their plain versions on
    1/PAST16384_SHARE of the walks; ``len_hist(engine="topk")`` at 3
    states with max_nb_states 2000 and 4000 (its launches, 0 plain calls,
    frames conserved; each bucket's first TOPK19_CHECK tracks against the
@@ -602,8 +608,9 @@ PAST18_DT_CASES = [(5, 7, 1, "track"), (2, 15, 2, None), (2, 15, 2, "track")]
 PAST18_DT_B = 24
 PAST18_TRACKS = 1 << 12
 PAST18_K6_TRACKS = 1 << 10
-# phase 19: K1, K2 and K3 past 16384 slots (to 65536, up to 16 fusion
-# groups a thread) and K7 past 1024 register rows (to 4096).  The 6-state
+# phase 19: K1, K2 and K3 past 16384 slots (to 65536; K1 up to 16 fusion
+# groups a thread, K2 and K3 on clusters of blocks) and K7 past 1024
+# register rows (to 4096).  The 6-state
 # fit at the GUI's frame_len 6 (K = 46,656) on SIM6F's ~1k tracks from a
 # rough guess of the Ds (FIT6_START), FIT19_ITERS iterations, with error
 # bars; its start held to the plain versions on each bucket's first
@@ -643,6 +650,14 @@ TOPK19_TRACKS = 1 << 12
 TOPK19_LONG = (21, 30)        # walks whose backpointers pass the opt-in
 TOPK19_LONG_TRACKS = 64
 TOPK19_FORK = ((512, 10), (128, 30))    # K7's two kernels at one M
+# K2 and K3 on the wide mapping's clusters past 2048 fusion groups,
+# (S, W, D, dt): 5^6 (phase 17), 6^6 and 4^8 (phase 19) at D = 1..3, one
+# variable-dt case a shape; CLUSTER_B tracks of CLUSTER_T frames
+CLUSTER_CASES = {17: [(5, 6, 1, None), (5, 6, 2, "track"), (5, 6, 3, None)],
+                 19: [(6, 6, 1, None), (6, 6, 2, None), (6, 6, 3, "step"),
+                      (4, 8, 1, "track"), (4, 8, 2, None), (4, 8, 3, None)]}
+CLUSTER_B = 8
+CLUSTER_T = 7
 PEAK_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
@@ -1507,8 +1522,9 @@ def main() -> int:
                                "extrack_tpu/ops/pallas_hist.py:63"),
         "K6 past 4096": entry("refinement_past_4096", "refine.cu",
                               "extrack_tpu/ops/pallas_refine.py:108"),
-        # K1, K2 and K3 past 16384 slots (to 65536, up to 16 fusion groups
-        # a thread): the fit at 6 states and the GUI's frame_len 6; K7 past
+        # K1, K2 and K3 past 16384 slots (to 65536; K1 up to 16 fusion
+        # groups a thread, K2 and K3 on clusters of blocks): the fit at 6
+        # states and the GUI's frame_len 6; K7 past
         # 1024 register rows (to 4096): JAX runs XLA there
         # (extrack_tpu/fit.py:104-119, :551-558; histograms.py:59-208)
         "K1 past 16384": entry("forward_loglik_past_16384", "forward.cu",
@@ -1519,6 +1535,13 @@ def main() -> int:
                                "extrack_tpu/ops/pallas_hvp.py:78"),
         "K7 past 1024": entry("topk_hist_past_1024", "topk.cu",
                               "extrack_tpu/ops/pallas_topk.py:113"),
+        # K2 and K3 at 4^8 (65,536 slots, 16,384 fusion groups): the wide
+        # mapping's clusters of 8 (K2) and 16 (K3) blocks; its launches
+        # the 4-state objective's and Hessian's at window 8 (phase 19)
+        "K2 cluster": entry("loglik_grad_cluster", "grad.cu",
+                            "extrack_tpu/ops/pallas_grad.py:549"),
+        "K3 cluster": entry("loglik_hvp_cluster", "hvp.cu",
+                            "extrack_tpu/ops/pallas_hvp.py:78"),
     }
     kmods = (forward_kernel, grad_kernel, hvp_kernel, predict_kernel,
              hist_kernel, refine_kernel, topk_kernel)
@@ -1547,8 +1570,7 @@ def main() -> int:
     k5_new = {}     # spill bytes of K5's variable-dt and sub-step kernels
     wide_regs = {}  # registers and spill bytes of the wide instantiations
     global_regs = {}  # the same of the wide ones with carries in scratch
-    grad_regs = {}  # the same of K2's and K3's wide instantiations
-    deep_regs = {}  # the same of their deep ones (past 2048 groups)
+    grad_regs = {}  # the same of K2's and K3's wide (cluster) ones
     k1_global_regs = {}  # K1's wide one with its publish areas in scratch
     runs_regs = {}  # K5's past 16384 slots (the digits' harvest)
     refine_global_regs = {}  # K6's with its publish areas in scratch
@@ -1571,8 +1593,7 @@ def main() -> int:
                         entry_name)
         scratch = re.match(r"_ZN7extrack23(walk|hist)_wide_global_kernel",
                            entry_name)
-        grad_wide = re.match(r"_ZN7extrack16grad_wide_kernel", entry_name)
-        deep = re.match(r"_ZN7extrack21grad_wide_deep_kernel", entry_name)
+        grad_wide = re.match(r"_ZN7extrack19grad_cluster_kernel", entry_name)
         k1_global = re.match(r"_ZN7extrack26forward_wide_global_kernel",
                              entry_name)
         topk = re.match(r"_ZN7extrack1[15]topk_(vdt_)?kernel", entry_name)
@@ -1582,7 +1603,7 @@ def main() -> int:
                                  entry_name)
         regs = re.search(r"Used (\d+) registers", line)
         for found, table in ((wide, wide_regs), (scratch, global_regs),
-                             (grad_wide, grad_regs), (deep, deep_regs),
+                             (grad_wide, grad_regs),
                              (k1_global, k1_global_regs),
                              (topk, topk_regs), (topk_wide, topk_wide_regs),
                              (runs, runs_regs),
@@ -1628,23 +1649,21 @@ def main() -> int:
         fail(f"{len(global_regs)} wide instantiations with carries in global "
              "scratch, not 12 (K4 and K5: D 1..3 x constant and variable "
              "dt)")
-    log("phase 0: K2's and K3's wide instantiations (1024 threads, K <= "
-        "4096; registers, spill bytes stores + loads): " + ", ".join(
+    log("phase 0: K2's and K3's wide instantiations (grad_cluster_kernel: "
+        "a cluster of 1 to 16 blocks of up to 1024 threads a track, K <= "
+        "65536; registers, spill bytes stores + loads): " + ", ".join(
             f"{k} {r} regs {b} B" for k, (r, b) in sorted(grad_regs.items())))
     if len(grad_regs) != 12:
         fail(f"{len(grad_regs)} wide K2/K3 instantiations, not 12 (float "
              "and dual: D 1..3 x constant and variable dt)")
-    log("phase 0: past 4096 slots, K2's and K3's deep instantiations (up "
-        "to 16 fusion groups a thread, 1024 threads, K <= 65536) and K1's "
-        "with its publish areas in global scratch (registers, spill bytes "
-        "stores + loads): " + ", ".join(
+    log("phase 0: past 4096 slots, K1's wide instantiations with their "
+        "publish areas in global scratch (registers, spill bytes stores + "
+        "loads): " + ", ".join(
             f"{k} {r} regs {b} B" for k, (r, b) in sorted(
-                {**deep_regs, **k1_global_regs}.items())))
-    if len(deep_regs) != 12 or len(k1_global_regs) != 6:
-        fail(f"{len(deep_regs)} deep K2/K3 instantiations (not 12: float "
-             f"and dual, D 1..3 x constant and variable dt) and "
-             f"{len(k1_global_regs)} K1 ones with global publish areas "
-             "(not 6: D 1..3 x constant and variable dt)")
+                k1_global_regs.items())))
+    if len(k1_global_regs) != 6:
+        fail(f"{len(k1_global_regs)} K1 instantiations with global publish "
+             "areas, not 6 (D 1..3 x constant and variable dt)")
     log("phase 0: K7's instantiations (1024 threads; registers, spill "
         "bytes stores + loads): " + ", ".join(
             f"{k} {r} regs {b} B" for k, (r, b) in sorted(topk_regs.items())))
@@ -3192,6 +3211,64 @@ def past_4096_grad_parity(dev, errs):
         if not ok:
             fail(f"K2's global exchange or K1's global publish areas at {tag}")
         errs["K1 past 4096"].append(err)
+
+
+def cluster_checks(dev, errs, phase: int):
+    """K2 and K3 on the wide mapping's clusters (csrc/grad.cuh
+    grad_cluster_kernel) at ``CLUSTER_CASES[phase]``: through the wrappers
+    against their plain versions (TOL_K2_*; K3 at TOL_H in float64; K2's
+    plain version in float64 too with variable dt), then two launches of
+    each bit for bit (identical bytes) and K2 with its exchange in global
+    scratch bit for bit against its plan's (the slices in the blocks'
+    shared memory)."""
+    from extrack_tpu_torch.ops import (cuda_lib, forward_kernel, grad_kernel,
+                                       hvp_kernel)
+    for S, W, D, dt in CLUSTER_CASES[phase]:
+        K = S ** W
+        pos, lens, isbl, tb = parity_case(S, W, 1, 240 + S * W + D, dev,
+                                          B=CLUSTER_B, T=CLUSTER_T, D=D,
+                                          per_peak=(D == 2), dt=dt)
+        kw = dict(window=W, nb_substeps=1, min_len=2)
+        data_, tabs = forward_kernel.kernel_inputs(pos, lens, isbl, tb, W, 1)
+        tabs = [t.detach() for t in tabs]
+        pl2 = grad_kernel.plan(K, S, D, CLUSTER_T, cuda_lib.smem_bytes(
+            "extrack_grad_smem", dev.index or 0), None, 4)
+        pl3 = grad_kernel.plan(K, S, D, CLUSTER_T, cuda_lib.smem_bytes(
+            "extrack_grad_smem", dev.index or 0), None, 8)
+        tag = (f"cluster S={S} W={W} (K={K}, {K // S} groups; K2 "
+               f"{pl2.cluster} blocks, K3 {pl3.cluster}) D={D} "
+               f"dt={dt or 'constant'}")
+        key = "past 4096" if K <= 16384 else "past 16384"
+        errs[f"K2 {key}"].append(check_table_grads(
+            f"phase {phase}: K2 {tag}", pos, lens, isbl, tb,
+            ref64=dt is not None, **kw))
+        errs[f"K3 {key}"].append(check_table_hvp(
+            f"phase {phase}: K3 {tag}", pos, lens, isbl, tb, K + D, **kw))
+        gen = torch.Generator(device="cpu").manual_seed(K)
+        dots = [1e-2 * torch.randn(t.shape, generator=gen).to(dev)
+                for t in tabs]
+        z = torch.zeros_like(data_[1])
+
+        def flat(out):
+            return [out[0], out[1], *out[2]]
+
+        def flat3(out):
+            return [*out[0], *out[1], *out[2][0], *out[2][1]]
+
+        a, b = (grad_kernel.launch(data_, tabs, 2) for _ in range(2))
+        g = grad_kernel.launch(data_, tabs, 2, stash="global")
+        h1, h2 = (hvp_kernel.launch(data_, tabs, z, dots, 2)
+                  for _ in range(2))
+        torch.cuda.synchronize()
+        same2 = all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+        sameg = all(torch.equal(x, y) for x, y in zip(flat(a), flat(g)))
+        same3 = all(torch.equal(x, y) for x, y in zip(flat3(h1), flat3(h2)))
+        ok = same2 and sameg and same3
+        log(f"phase {phase}: {tag}: two launches bit for bit K2 {same2}, K3 "
+            f"{same3}; K2's exchange in global scratch bit for bit {sameg} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K2 or K3 not repeatable bit for bit at {tag}")
 
 
 def wide_bucket_checks(tag, buckets, fn, plain, check, n=WIDE_CHECK):
@@ -4970,8 +5047,9 @@ def phase15(dev, card, reset_counts, plain_calls, tracks, fit3):
 
 
 def phase16(dev, card, kinfo, errs, reset_counts, plain_calls):
-    """The fit past 1024 slots: K2 and K3 on their wide mapping (a thread a
-    fusion group, csrc/grad.cuh) on the paths that reach them, where the
+    """The fit past 1024 slots: K2 and K3 on their wide mapping (a cluster
+    of blocks a track, a thread one or two fusion groups, csrc/grad.cuh
+    grad_cluster_kernel) on the paths that reach them, where the
     JAX package fits through XLA: the 4-state fit at the GUI's frame_len 6
     (K = 4096) with error bars, its start held to the plain versions; the
     GUI's Model Fitting runner; the 3-state fit at window 7 (K = 2187);
@@ -5275,15 +5353,17 @@ def grad_times(dev, card, phase, S, W, bench, kernels=("K1", "K2", "K3"),
 
 
 def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
-    """The fit past 4096 slots: K2 and K3 with up to eight fusion groups a
-    thread and their exchange in global scratch (csrc/grad.cuh
-    grad_wide_deep_kernel), K1 with its publish areas there where shared
+    """The fit past 4096 slots: K2 and K3 on clusters of blocks, a thread
+    one or two fusion groups (csrc/grad.cuh grad_cluster_kernel), K1 with
+    its publish areas in global scratch where shared
     memory cannot hold them, on the paths that reach them where the JAX
     package fits through XLA: the 5-state fit at the GUI's frame_len 6 (K
     = 15,625) with error bars, its start held to the plain versions; the
     value-only objective at its optimum (K1); the GUI's Model Fitting
-    runner at 5 states; then K1's, K2's and K3's bare times at (5, 6) and
-    (4, 7) beside (4, 6), with their bounds and plain versions."""
+    runner at 5 states; K2 and K3 at 5^6, D = 1..3, against their plain
+    versions and bit for bit (``cluster_checks``); then K1's, K2's and
+    K3's bare times at (5, 6) and (4, 7) beside (4, 6), with their bounds
+    and plain versions."""
     import tempfile
     from pathlib import Path
 
@@ -5425,6 +5505,7 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
             fail("the GUI's 5-state fit did not run on K2 and K3 alone")
     del tracks, buckets
     log(f"phase 17: paths {time.time() - t17:.1f} s")
+    cluster_checks(dev, errs, 17)
 
     # ---- bare times at (S, W) = (5, 6) and (4, 7), beside (4, 6) ---------
     bench = bench_buckets(dev, n=PAST4096_TRACKS)
@@ -5784,7 +5865,7 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
 
 def phase19(dev, card, kinfo, errs, reset_counts, plain_calls):
     """K1, K2 and K3 past 16384 slots (to 65536, csrc/grad.cuh
-    grad_wide_deep_kernel up to sixteen fusion groups a thread) and K7 past
+    grad_cluster_kernel on clusters of up to sixteen blocks) and K7 past
     1024 register rows (to 4096, csrc/topk.cu topk_wide_kernel), on the
     paths where the JAX package runs XLA: the 6-state fit with error bars
     at the GUI's frame_len 6 (K = 46,656), its start held to the plain
@@ -5894,7 +5975,7 @@ def phase19(dev, card, kinfo, errs, reset_counts, plain_calls):
                          hvp_kernel.LAUNCHES, plain_calls())
     n_free = len(spec.free_names())
     log(f"phase 19: 6 states, window 6 (K=46656: K2 and K3 past 16384, "
-        f"{46656 // 6} fusion groups, 8 a thread), {n_tr} tracks "
+        f"{46656 // 6} fusion groups), {n_tr} tracks "
         f"({len(buckets)} buckets, T={[b.max_len for b in buckets]}): "
         f"param_fitting(compute_errors=True, max_iter={FIT19_ITERS}) "
         f"{t_fit:.2f} s, {res.n_evals} evals ({res.message}), logL "
@@ -5971,9 +6052,11 @@ def phase19(dev, card, kinfo, errs, reset_counts, plain_calls):
     sub4 = firsts(b4, FIT19_CHECK)
     min4 = data.default_min_len(np.concatenate(
         [data.host_lengths(b) for b in b4]))
-    errs["K2 past 16384"].append(objective_vs_plain(
-        "4 states, window 8 (K=65536, 16 fusion groups a thread), the "
-        "objective", sub4, spec4, 4, 8, min4))
+    reset_counts()
+    errs["K2 cluster"].append(objective_vs_plain(
+        "4 states, window 8 (K=65536, 16384 fusion groups), the objective",
+        sub4, spec4, 4, 8, min4))
+    kinfo["K2 cluster"]["launches"] = grad_kernel.LAUNCHES
     errs["K1 past 16384"].append(k1_vs_plain(
         "4 states, window 8 (K=65536)", sub4, spec4, 4, 8, min4))
     kw = dict(cell_dims=(0.5,), window=8, min_len=min4)
@@ -5982,21 +6065,28 @@ def phase19(dev, card, kinfo, errs, reset_counts, plain_calls):
     H = fit.hessian_hvp_columns(sub4[:1], spec4, z4, 0.02, 4, **kw)
     t_h = time.time() - t0
     H0 = plain_hessian_columns(sub4[:1], spec4, z4, 0.02, 4, **kw)
-    errs["K3 past 16384"].append(check_hessian(
-        f"phase 19: K3 Hessian columns (16 fusion groups a thread), bucket "
+    kinfo["K3 cluster"]["launches"] = hvp_kernel.LAUNCHES
+    if not (kinfo["K2 cluster"]["launches"] and hvp_kernel.LAUNCHES):
+        fail("the 4-state objective and Hessian at window 8 did not launch "
+             "K2 and K3")
+    errs["K3 cluster"].append(check_hessian(
+        f"phase 19: K3 Hessian columns (16384 fusion groups), bucket "
         f"T={sub4[0].max_len} first {sub4[0].batch_size} tracks "
         f"({t_h:.2f} s), K=65536", H, H0))
     del tracks4, b4, sub4
     log(f"phase 19: the fit's paths {time.time() - t19:.1f} s")
+    cluster_checks(dev, errs, 19)
 
     # ---- bare times at 6^6 and 4^8 ---------------------------------------
     bench = bench_buckets(dev, n=PAST16384_TRACKS)
     for S, W in PAST16384_TIMES:
         times = grad_times(dev, card, 19, S, W, bench, share=PAST16384_SHARE,
                            chunk=PAST16384_CHUNK, reps=2)
-        if (S, W) == PAST16384_TIMES[0]:
-            for name, t in times.items():
+        for name, t in times.items():
+            if (S, W) == PAST16384_TIMES[0]:
                 kinfo[f"{name} past 16384"].update(t)
+            elif name != "K1":
+                kinfo[f"{name} cluster"].update(t)
     del bench
 
     # ---- K7 past 1024 rows: len_hist(engine="topk") at 3 states ----------

@@ -24,22 +24,23 @@
 //     block's slices fit the card's opt-in limit, else in global scratch.
 //   * block mapping, any K up to 1024: one block per track, one thread per
 //     slot, block reductions, the carry history in global scratch.
-//   * wide mapping, 1024 < K <= 65536 (any K when forced): one block per
-//     track, a thread per fusion group (K1's wide walk, walk.cuh).  The
-//     history is the fused groups of each step ((T-3) * (2D+1) * K/A
-//     scalars a track, in global scratch); the backward trades the
-//     members' carry cotangents through a (2D+1)*K exchange, in shared
-//     memory where it fits, else in global scratch; past 2048 groups
-//     (5 states at W = 6, 4 at W = 7, 6 at W = 6) a thread owns up to
-//     sixteen of them (16384 groups) and the exchange is double-buffered
-//     (grad_wide_deep_kernel).  The
-//     JAX package runs its XLA engine there (extrack_tpu/fit.py:104-117,
-//     past pallas_grad.supports).
-// Blocks are persistent in all three: block i (warp w) walks tracks i, i+grid,
-// ..., so global scratch is one history per block (warp) however many
-// tracks there are, and the host sizes the grid to the card's residency
-// and the card's free memory (every per-block buffer counted: history,
-// exchange, partial row).
+//   * wide mapping, 1024 < K <= 65536 with at most 16384 fusion groups
+//     (any K when forced): a cluster of C blocks (1 to 16, on
+//     neighbouring SMs) per track, a thread one or two fusion groups (K1's
+//     wide walk, walk.cuh; grad_cluster_kernel).  The history is the
+//     fused groups of each step ((T-3) * (2D+1) * K/A scalars a track, in
+//     the cluster's global scratch); the backward trades the members'
+//     carry cotangents through a (2D+1)*K exchange split over the
+//     cluster's shared memory (distributed shared memory), in global
+//     scratch where a block's slice does not fit; the closings deal
+//     members, not groups, over the threads, for coalesced (K, A) reads
+//     and adds.  The JAX package runs its XLA engine there
+//     (extrack_tpu/fit.py:104-119, past pallas_grad.supports).
+// Blocks (clusters) are persistent in all three: block i (warp w, cluster
+// c) walks tracks i, i+grid, ..., so global scratch is one history per
+// block (warp, cluster) however many tracks there are, and the host sizes
+// the grid to the card's residency and the card's free memory (every such
+// buffer counted: history, exchange, partial row).
 //
 // Table cotangents: each thread sums its own slots' (K,) cotangents in
 // registers and its (K, A) rows in its block's slice of a partial buffer
@@ -63,13 +64,14 @@
 // d(sum logL)/d(sig2s), zeroed by the caller (rows from a track's length
 // on are not written), and the s20, sig2v and s2n columns of ct_tab are
 // 0.  Mapping: warps = 0 for the block mapping, -1 for the wide mapping
-// (-2: its exchange in global scratch), else the warp mapping with
-// `warps` (1..4) warps per block (K <= 64); stash_smem = 1 keeps the warp
-// mapping's carry history in shared memory.  Scratch: stash, unless
-// stash_smem, one (T-1)*(2D+1)*K-float history per block (block mapping)
-// or per warp (nblk*warps of them), or a wide block's
-// (extrack_grad_layout); partial nblk*(6K + 4KA) floats.  Returns
-// cudaGetLastError().
+// with `cluster` blocks a cluster (-2: its exchange in global scratch),
+// else the warp mapping with `warps` (1..4) warps per block (K <= 64);
+// stash_smem = 1 keeps the warp mapping's carry history in shared memory;
+// cluster is 1 but on the wide mapping, and nblk a multiple of it there.
+// Scratch: stash, unless stash_smem, one (T-1)*(2D+1)*K-float history per
+// block (block mapping) or per warp (nblk*warps of them), or a cluster's
+// (extrack_grad_layout); partial (nblk / cluster)*(6K + 4KA) floats.
+// Returns cudaGetLastError().
 extern "C" int extrack_grad(const float* xs, const float* l2,
                             const int* lengths, const float* isbl,
                             const float* lp0, const float* s20,
@@ -81,30 +83,44 @@ extern "C" int extrack_grad(const float* xs, const float* l2,
                             float* ct_tab, float* ct_s2, float* stash,
                             float* partial, int B, int T, int D, int K, int A,
                             int P, int min_len, int nblk, int warps,
-                            int stash_smem, void* stream) {
+                            int stash_smem, int cluster,
+                            void* stream) {
   const float* tabs[10] = {lp0, s20, lt, lsurv, endv,
                            sig2v, ltn, s2n, lsn, endn};
   return extrack::launch_grad_c<float>(
       xs, l2, lengths, isbl, tabs, sig2s, logl, ct_l2, ct_tab, ct_s2, stash,
-      partial, B, T, D, K, A, P, min_len, nblk, warps, stash_smem, stream);
+      partial, B, T, D, K, A, P, min_len, nblk, warps, stash_smem, cluster,
+      stream);
 }
 
-// Blocks of one K2 launch (arguments as extrack_grad's) that one SM keeps
-// resident, or -(CUDA error).
+// Blocks of one K2 launch on the warp or block mapping (arguments as
+// extrack_grad's) that one SM keeps resident, or -(CUDA error).
 extern "C" int extrack_grad_occupancy(int D, int K, int A, int T, int warps,
                                       int stash_smem, int P) {
   return extrack::grad_occupancy_c<float>(D, K, A, T, warps, stash_smem, P);
 }
 
-// One block of the wide mapping (warps -1 or -2) for scalars of
-// `itemsize` bytes (4: K2, 8: K3's dual numbers): out[0] threads, out[1]
-// dynamic shared bytes, out[2] global scratch bytes (grad_wide_layout).
+// Clusters of `cluster` blocks of one K2 launch on the wide mapping (warps
+// -1 or -2) that the card keeps resident at once, or -(CUDA error).
+extern "C" int extrack_grad_cluster_occupancy(int D, int K, int A, int T,
+                                              int warps, int cluster,
+                                              int P) {
+  return extrack::grad_cluster_occupancy_c<float>(D, K, A, T, warps, cluster,
+                                                  P);
+}
+
+// One block of the wide mapping (warps -1 or -2) in a cluster of `cluster`
+// blocks, for scalars of `itemsize` bytes (4: K2, 8: K3's dual numbers):
+// out[0] threads, out[1] dynamic shared bytes, out[2] the cluster's
+// global scratch bytes (grad_wide_layout).
 extern "C" int extrack_grad_layout(int K, int A, int D, int T, int warps,
-                                   int itemsize, long long* out) {
-  if (D < 1 || D > 3 || A < 1 || K % A != 0 || (warps != -1 && warps != -2))
+                                   int cluster, int itemsize,
+                                   long long* out) {
+  if (D < 1 || D > 3 || A < 1 || K % A != 0 || cluster < 1 ||
+      cluster > extrack::kGradClusterMax || (warps != -1 && warps != -2))
     return (int)cudaErrorInvalidValue;
-  const extrack::GradWideLayout lay =
-      extrack::grad_wide_layout(K, A, D, T, warps, (size_t)itemsize);
+  const extrack::GradWideLayout lay = extrack::grad_wide_layout(
+      K, A, D, T, cluster, warps == -2, (size_t)itemsize);
   out[0] = lay.threads;
   out[1] = (long long)lay.smem;
   out[2] = (long long)lay.scratch;

@@ -3,9 +3,9 @@
 // kernel replaces and how it is laid out.  Three mappings of a track onto
 // threads: grad_warp_kernel (one warp per track, K <= 64), grad_kernel
 // (one block per track, a thread a slot, any K up to 1024) and
-// grad_wide_kernel / grad_wide_deep_kernel (one block per track, a thread
-// a fusion group, any K up to 65536 with at most 16384 groups); the host
-// picks one per launch.
+// grad_cluster_kernel (the wide mapping: a cluster of 1 to 16 blocks per
+// track, a thread one or two fusion groups, any K up to 65536 with at most
+// 16384 groups); the host picks one per launch.
 //
 // Variable dt (the VDT template flag, so that the constant-dt
 // instantiations keep their code): the displacement variances come from a
@@ -25,6 +25,7 @@
 
 #include <climits>
 
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -41,6 +42,21 @@ enum {
   kPfL2Sum = 7,       // prep_bwd and the per-step l2-cotangent sums
   kPfInit = 8,        // the initial register's sums
   kPfPartials = 9,    // per-slot partial writes
+};
+// Sections of the wide walks' split (tools/k2_profile.py --split on the
+// wide mapping): barriers and block sums are sections of their own, so a
+// thread's wait for the slowest shows apart from its own work.
+enum {
+  kPwFuse = 0,        // forward: fusion steps (updates, history writes)
+  kPwFuseSync = 1,    // forward: the fusion steps' barriers
+  kPwClose = 2,       // forward: the closing (both passes, reductions)
+  kPwXchRead = 3,     // backward: the children's sums from the exchange
+  kPwOnline = 4,      // backward: the fusion weights recomputed
+  kPwMember = 5,      // backward: members' pullbacks, exchange, partials
+  kPwLook = 6,        // backward: a closing's pullback
+  kPwSums = 7,        // backward: l2 sums, stream rows, their barriers
+  kPwXchSync = 8,     // backward: the barrier before the exchange is reused
+  kPwSetup = 9,       // partial rows zeroed, tracks skipped
 };
 #ifdef EXTRACK_PROFILE
 static __device__ unsigned long long g_prof[kProfSlots];
@@ -378,68 +394,88 @@ __global__ void __launch_bounds__(MaxT, block_min_blocks<MaxT>())
 // ---- the wide mapping: 1024 < K <= 65536 slots -----------------------
 //
 // A thread a slot stops at 1024 slots.  The wide mapping gives a thread
-// whole fusion groups g = tid, tid + blockDim.x, ... (G = K/A groups), as
-// K1's wide walk does (walk.cuh): group g's members are slots g*A ..
-// g*A+A-1, and member c's carry entering step t is group c % G of step
-// t-1's fusion plus child c's terms (lt, lsurv, the displacement
-// variance).  No slot lives in registers between steps.
+// whole fusion groups (G = K/A groups), as K1's wide walk does (walk.cuh):
+// group g's members are slots g*A .. g*A+A-1, and member c's carry
+// entering step t is group c % G of step t-1's fusion plus child c's
+// terms (lt, lsurv, the displacement variance).  No slot lives in
+// registers between steps.
 //
 // Forward: a fusion step reads each member's group, updates the member
 // against the frame and mixes the group's A updates in registers (an
 // online log-sum-exp that rescales its sums on a new maximum, its shift
 // carrying no tangent), and writes the G fused Gaussians, (2D+1) scalars
-// each, to the track's history in the block's global scratch: row t-1
-// holds step t's fusion, the carries of step t+1.  The history is all the
-// backward needs: a member's carry is recomputed from its group's row and
-// its own child terms, (T-3)(2D+1)G scalars a track in place of the block
-// mapping's (T-1)(2D+1)K.  Closings are two passes (the block max, then
-// the shifted sums) over every member.
+// each, to the track's history in global scratch: row t-1 holds step t's
+// fusion, the carries of step t+1.  The history is all the backward
+// needs: a member's carry is recomputed from its group's row and its own
+// child terms, (T-3)(2D+1)G scalars a track in place of the block
+// mapping's (T-1)(2D+1)K.  The closing is one pass over every member's
+// look-ahead children: an online max and sum shifted to it, combined over
+// the block and then the cluster.
 //
 // Backward: member c of step t+1 is child c / G of group c % G of step t,
 // and the thread that computes member c's carry cotangent owns group c / A,
 // not group c % G.  So each step publishes its members' carry cotangents,
 // (2D+1)K scalars (the exchange), and the owner of group g sums its
-// children g + a*G in a order into the fused group's cotangent.  Up to
-// 2048 groups (grad_wide_kernel, K <= 4096 and 6^5), a thread owns at most
-// kGradWideGroups of them: it sums its groups' children after a barrier,
-// holds the sums in registers across a second barrier, and overwrites the
-// exchange with its own members' cotangents: one exchange area, two
-// barriers a step.  Past 2048 groups (grad_wide_deep_kernel, up to 16384:
-// 3 states at W = 8 and 9, 4 at W = 7 and 8, 5 at W = 6, 6 at W = 6, 2 at
-// W = 14 and 15) a thread owns up to sixteen groups (a loop whose bound
-// is the launch's, nothing sized by it), and holding their sums would
-// spill (8 * (2D+1) dual numbers against the 64 registers of a
-// 1024-thread block).  Its exchange
-// is double-buffered: step t reads the area step t+1 wrote and writes the
-// other, so a group's sums are read where they are used, nothing is held
-// across a barrier, and the block sums of the step's l2 cotangents are
-// the barrier between one step's writes and the next one's reads.  No
-// atomics in either.  The (K,) and (K, A) table cotangents stay per slot,
-// added by the thread that owns the slot's group into the block's partial
-// row (reduce_partials sums the rows in block order); a member's child
-// terms (lt, lsurv, sig2v) take the cotangent of the carry they built, one
-// step later than the block mapping adds them, with the gate of the fusion
-// that built it.  Variable dt: each stream row a pattern's sum over its
-// slots in slot order, as the block mapping's, from the exchange (rows 0
-// .. L-3) and from the partial row's s2n columns (the look-ahead row L-2).
+// children g + a*G in a order into the fused group's cotangent.  A
+// member's child terms (lt, lsurv, sig2v) take the cotangent of the carry
+// they built, one step later than the block mapping adds them, with the
+// gate of the fusion that built it.  No atomics.
 //
-// The exchange sits in shared memory after the reductions' scratch where
-// it fits (4096 slots take 114,688 bytes at D = 3 in float, 229,376 as
-// dual numbers), else (warps = -2 in the C interface) in the block's
-// global scratch after the history; grad_wide_layout is the one
-// definition of both, with a host twin in ops/grad_kernel.py.  Slot and
-// group indices stay in int (K * A, a (K, A) table's size, stays below
-// 2^31: launch_grad refuses more); every offset that a block index, T or
-// A multiplies into scratch is size_t.
+// A track is walked by a cluster of C blocks on neighbouring SMs
+// (Hopper's thread-block clusters; C = 1 .. 16, the host's choice), so a
+// thread owns one or two groups at any K (up to 16384 groups) and holds
+// their children's sums in registers across the step's barriers.  Rank r
+// of the cluster owns the Gc = ceil(G/C) groups r*Gc .. r*Gc+Gc-1 (the
+// last rank fewer, or none), thread i of it local groups i and
+// i + blockDim.x; the rank owns the members of its groups, slots r*M ..
+// with M = Gc*A.  The exchange is split the same way: each rank keeps its
+// own members' (2D+1)*M scalars in its shared memory, and the owner of
+// group g reads its children from the ranks that own them (distributed
+// shared memory).  It is single-buffered: step t reads the exchange of
+// step t+1, a cluster barrier, then step t writes its own, a second
+// cluster barrier.  Where a rank's slice does not fit its shared memory,
+// the slices sit in the cluster's global scratch after the history (warps
+// = -2 in the C interface), read through the same generic pointer.  The
+// history is one per cluster in global scratch, each rank writing its
+// groups' entries and reading any group's (the cluster barriers' release
+// and acquire order those global writes and reads too).
+//
+// The closings take most of the walk's time (tools/k2_profile.py
+// --split): A look-ahead children a member, each reading four (K, A)
+// tables and adding to four (K, A) partials.  Dealt by groups, a warp's
+// threads would sit a group's A*A entries apart, and the closings' lines
+// would not stay in L1 (at 6^6: 590 KB an SM).  So the closings deal the
+// rank's members over its threads (member r*M + i to thread
+// i % blockDim.x, neighbours on neighbours), and the (K, A) partials are
+// kept pattern-major ([a][c], reduce_partials_ak puts them back), so that
+// a warp's adds to one pattern are one line.  The fusion steps keep the
+// group dealing their sums need.
+//
+// Reductions over the track (the closing's max and sum, the l2 cotangents
+// of a step) are block reductions first, each into its block's slot, then
+// the C slots in rank order: every value has one order of summation, so
+// K2 and K3 are bit-repeatable.  A cluster's blocks write disjoint slot
+// ranges of one partial row (one row a cluster, summed in cluster order).
+// Variable dt: each stream row a pattern's sum over its slots, from the
+// exchange (rows 0 .. L-3) and from the partial row's s2n columns (the
+// look-ahead row L-2), a warp of the cluster a pattern (its lanes' strided
+// sums, then the warp's; a thread a pattern left most of the cluster
+// waiting on a few long sums at a barrier).  grad_wide_layout is the one
+// definition of a
+// block, with a host twin in ops/grad_kernel.py.  Slot and group indices
+// stay in int (K * A, a (K, A) table's size, stays below 2^31:
+// launch_grad refuses more); every offset that a cluster index, T or A
+// multiplies into scratch is size_t.
 constexpr int kGradWideThreads = 1024;   // the block's largest size
-constexpr int kGradWideGroups = 2;       // groups a thread owns (G <= 2048)
-constexpr int kGradDeepGroups = 16;      // the deep kernel's (G <= 16384)
+constexpr int kGradWideGroups = 2;       // groups a thread owns, at most
 constexpr int kGradWideMaxK = 65536;     // the envelope of the mapping
+constexpr int kGradClusterMax = 16;      // blocks a cluster (8 portable)
 constexpr int kRedScalars = 64;          // block reductions' scratch (33)
+constexpr int kClusterSlot = 40;         // red[40..]: a block's sums for
+enum { kSlotMax = 0, kSlotSum = 1, kSlotL2 = 2 };   // the cluster, 2 + 3D
 
 // One block of the wide mapping: its threads, its dynamic shared bytes and
-// its global scratch bytes (the history, then the exchange where it is not
-// in shared memory: warps == -2).
+// its cluster's global scratch bytes.
 struct GradWideLayout {
   int threads;
   size_t smem, scratch;
@@ -450,77 +486,91 @@ static __host__ __device__ inline size_t grad_wide_history(int K, int A,
   return (size_t)(T > 3 ? T - 3 : 0) * (2 * D + 1) * (K / A);
 }
 
-// Past kGradWideGroups groups a thread: grad_wide_deep_kernel, whose
-// exchange is double-buffered.
-static __host__ __device__ inline bool grad_wide_deep(int K, int A) {
-  return K / A > kGradWideGroups * kGradWideThreads;
-}
-
+// One block of a cluster of C: its threads (one or two groups each), its
+// shared bytes (the reductions' scratch, then its slice of the exchange
+// unless xch_global) and the cluster's global scratch bytes (the history,
+// then the C slices with xch_global).
 static __host__ __device__ inline GradWideLayout grad_wide_layout(
-    int K, int A, int D, int T, int warps, size_t itemsize) {
-  const size_t xch =
-      (size_t)(grad_wide_deep(K, A) ? 2 : 1) * (2 * D + 1) * K;
-  const bool global = warps == -2;
-  const int G = K / A, threads = (G + 31) / 32 * 32;
+    int K, int A, int D, int T, int C, bool xch_global, size_t itemsize) {
+  const int Gc = (K / A + C - 1) / C;
+  const size_t slice = (size_t)(2 * D + 1) * Gc * A;
+  const int threads = (Gc + 31) / 32 * 32;
   return {threads < kGradWideThreads ? threads : kGradWideThreads,
-          (kRedScalars + (global ? 0 : xch)) * itemsize,
-          (grad_wide_history(K, A, D, T) + (global ? xch : 0)) * itemsize};
+          (kRedScalars + (xch_global ? 0 : slice)) * itemsize,
+          (grad_wide_history(K, A, D, T) + (xch_global ? C * slice : 0)) *
+              itemsize};
 }
 
-// The wide walk of one block (the two kernels below call it): DEEP, past
-// kGradWideGroups groups a thread, with the exchange double-buffered.
-template <typename Real, int D, bool VDT, bool DEEP>
-static __device__ __forceinline__ void grad_wide_walk(
-    TablesT<Real> tb, const float* xs, const Real* l2s, const int* lengths,
-    const float* isbls, int B, int T, Real* logl, Real* ct_l2,
-    Real* scratch_all, Real* partial, int xch_global, StreamT<Real> st) {
+template <typename Real, int D, bool VDT>
+__global__ void __launch_bounds__(kGradWideThreads, 1)
+    grad_cluster_kernel(TablesT<Real> tb, const float* __restrict__ xs,
+                        const Real* __restrict__ l2s,
+                        const int* __restrict__ lengths,
+                        const float* __restrict__ isbls, int B, int T,
+                        Real* __restrict__ logl, Real* __restrict__ ct_l2,
+                        Real* __restrict__ scratch_all,
+                        Real* __restrict__ partial, int xch_global,
+                        StreamT<Real> st) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char sh_raw[];
   Real* red = reinterpret_cast<Real*>(sh_raw);
+  Real* slot = red + kClusterSlot;
   const int K = tb.K, A = tb.A, G = K / A, F = 2 * D + 1;
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
   const int tid = threadIdx.x, nt = blockDim.x;
-  // groups a thread owns, at most: a constant of the unrolled loops below,
-  // a loop bound of the deep kernel
-  const int ng = DEEP ? (G + nt - 1) / nt : kGradWideGroups;
+  const int Gc = (G + C - 1) / C, g0 = rank * Gc;
+  const int Gr = max(0, min(Gc, G - g0));   // this rank's groups
+  const int M = Gc * A, c0 = rank * M;      // a slice's members, the first
+  const int Mr = Gr * A;                    // this rank's members
+  const size_t xn = (size_t)F * M;
   const float cl2pi = 0.5f * D * kLog2Pi;
   const int P = VDT ? st.P : 0;
   const size_t hist_n = grad_wide_history(K, A, D, T);
-  const size_t xch_n = (size_t)(DEEP ? 2 : 1) * F * K;
-  Real* hist = scratch_all + (size_t)blockIdx.x *
-                                 (hist_n + (xch_global ? xch_n : 0));
-  // the exchange: member c's carry cotangent (lp, then m and s2 per
-  // dimension); DEEP: two areas, step t writing area t & 1
-  Real* const xbase = xch_global ? hist + hist_n : red + kRedScalars;
-  Real* xlp = xbase;
-  Real* xm = xlp + K;
-  Real* xs2 = xm + D * K;
+  Real* hist = scratch_all + (size_t)cid *
+                                 (hist_n + (xch_global ? C * xn : 0));
+  // rank r's slice of the exchange: member r*M + i's carry cotangent, lp
+  // at [i], m at [(1+d)*M + i], s2 at [(1+D+d)*M + i]
+  Real* const xown = xch_global ? hist + hist_n + (size_t)rank * xn
+                                : red + kRedScalars;
+  auto xslice = [&](int r) -> const Real* {
+    return xch_global ? hist + hist_n + (size_t)r * xn
+                      : cl.map_shared_rank(red + kRedScalars, r);
+  };
+  // a slot of every rank summed in rank order
+  auto slots = [&](int i) {
+    Real v = Real(0.f);
+    for (int r = 0; r < C; ++r) v += *cl.map_shared_rank(slot + i, r);
+    return v;
+  };
 
+  // the partial row: the (K,) tables' cotangents at [f*K + c] (lp0, s20,
+  // lt, lsurv, endv, sig2v), then the (K, A) tables' pattern-major,
+  // [a*K + c] (ltn, s2n, lsn, endn)
   const size_t ncols = (size_t)6 * K + (size_t)4 * K * A;
-  Real* part = partial + blockIdx.x * ncols;
+  Real* part = partial + (size_t)cid * ncols;
   Real* p_ltn = part + 6 * K;
   Real* p_s2n = p_ltn + K * A;
   Real* p_lsn = p_s2n + K * A;
   Real* p_endn = p_lsn + K * A;
-  // the (K,) tables' cotangents: part[f * K + c] for lp0, s20, lt, lsurv,
-  // endv, sig2v
   enum { kLp0 = 0, kS20 = 1, kLt = 2, kLsurv = 3, kEnd = 4, kSig2v = 5 };
-#pragma unroll
-  for (int j = 0; j < ng; ++j) {
-    const int g = tid + j * nt;
-    if (g >= G) continue;
-    for (int c = g * A; c < (g + 1) * A; ++c) {
-      for (int f = 0; f < 6; ++f) part[f * K + c] = Real(0.f);
-      for (int a = 0; a < A; ++a)
-        p_ltn[c * A + a] = p_s2n[c * A + a] = p_lsn[c * A + a] =
-            p_endn[c * A + a] = Real(0.f);
-    }
+  Prof pf;
+  pf.start();
+  for (int c = c0 + tid; c < c0 + Mr; c += nt) {
+    for (int f = 0; f < 6; ++f) part[f * K + c] = Real(0.f);
+    for (int a = 0; a < A; ++a)
+      p_ltn[a * K + c] = p_s2n[a * K + c] = p_lsn[a * K + c] =
+          p_endn[a * K + c] = Real(0.f);
   }
 
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+  for (int b = cid; b < B; b += ncl) {
     const int L = min(lengths[b], T);
     if (L < 2) {            // empty / 1-frame rows: logL 0, ct_l2 stays 0
-      if (tid == 0) logl[b] = Real(0.f);
+      if (rank == 0 && tid == 0) logl[b] = Real(0.f);
       continue;
     }
+    pf.mark(kPwSetup);
     const float* x = xs + (size_t)b * T * D;
     const Real* l2 = l2s + (size_t)b * T * D;
     Real* cl2 = ct_l2 + (size_t)b * T * D;
@@ -570,7 +620,6 @@ static __device__ __forceinline__ void grad_wide_walk(
         prep<Real, D>(m, s2, xt, l2t, p);
         const Real base = lp - p.quad;
         if (val(base) > val(mx)) {
-          // a new maximum: the shifts carry no tangent
           const Real nmx = shift_max(mx, base);
           const Real sc = xexp(mx - nmx);
           sw = sw * sc;
@@ -590,6 +639,44 @@ static __device__ __forceinline__ void grad_wide_walk(
         }
       }
     };
+    // what step t leaves to the cluster, read after its barrier: the l2
+    // cotangents of its block sums (rank 0), the stream's rows (variable
+    // dt: row t-1 from the exchange, the look-ahead row t from the
+    // partial row)
+    auto publish = [&](int t) {
+      const bool lk = t == tlast && L > 2;
+      if (rank == 0 && tid < D) {
+        cl2[t * D + tid] = slots(kSlotL2 + tid);
+        if (lk) cl2[(t + 1) * D + tid] = slots(kSlotL2 + D + tid);
+        if (t == 1) cl2[tid] = slots(kSlotL2 + 2 * D + tid);
+      }
+      if constexpr (VDT) {
+        // a warp a pattern: each lane's sum over its share of the
+        // pattern's slots, then the warp's (a fixed order)
+        const int lane = tid & 31;
+        const int wq = (rank * nt + tid) >> 5, nwq = (C * nt) >> 5;
+        if (lk)
+          for (int q = wq; q < P; q += nwq) {
+            const int a = q / st.S, s0 = (q % st.S) * st.KS;
+            Real v = Real(0.f);
+            for (int kk = s0 + lane; kk < s0 + st.KS; kk += 32)
+              v += p_s2n[a * K + kk];
+            v = warp_sum(v);
+            if (lane == 0) csg[t * P + q] = v;
+          }
+        for (int q = wq; q < P; q += nwq) {
+          Real v = Real(0.f);
+          for (int kk = q * st.KP + lane; kk < (q + 1) * st.KP; kk += 32) {
+            const int r = kk / A / Gc;
+            const Real* xr = xslice(r) + (1 + D) * M + (kk - r * M);
+#pragma unroll
+            for (int d = 0; d < D; ++d) v += xr[d * M];
+          }
+          v = warp_sum(v);
+          if (lane == 0) csg[(t - 1) * P + q] = v;
+        }
+      }
+    };
 
     // forward walk
     Real cmx = Real(0.f), csum = Real(1.f), out = Real(0.f);
@@ -603,8 +690,9 @@ static __device__ __forceinline__ void grad_wide_walk(
       }
       const float gate = (t + 1 >= tb.min_len) ? 1.f : 0.f;
       if (t == tlast) {
-        // closing: on the register (2-frame tracks) or on the look-ahead
-        // children; the block max, then the shifted sums
+        // closing, over the rank's members, in one pass: each thread's
+        // max and its sum shifted to it, rescaled on a new maximum (the
+        // shifts carry no tangent); then the block's, then the cluster's
         float xn[D];
         Real l2n[D], invn[D], diffn[D];
 #pragma unroll
@@ -613,56 +701,69 @@ static __device__ __forceinline__ void grad_wide_walk(
           l2n[d] = L == 2 ? Real(0.f) : l2[(t + 1) * D + d];
         }
         Real mx = Real(-INFINITY), s = Real(0.f);
-        for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-          for (int j = 0; j < ng; ++j) {
-            const int g = tid + j * nt;
-            if (g >= G) continue;
-            for (int c = g * A; c < (g + 1) * A; ++c) {
-              Real m[D], s2[D], lp;
-              carry(c, t, m, s2, lp);
-              Prep<Real, D> p;
-              prep<Real, D>(m, s2, xt, l2t, p);
-              if (L == 2) {
-                const Real fin = lp + isbl * tb.endv[c] -
-                                 0.5f * xlog(p.prod) - p.quad - cl2pi;
-                if (pass == 0)
-                  mx = shift_max(mx, fin);
-                else
-                  s += xexp(fin - mx);
-                continue;
-              }
-              const Real base_n = lp - p.quad - 0.5f * xlog(p.prod) - cl2pi;
-              for (int a = 0; a < A; ++a) {
-                const int ka = c * A + a;
-                Real r;
-                const Real gl =
-                    base_n + tb.ltn[ka] + gate * tb.lsn[ka] +
-                    isbl * tb.endn[ka] +
-                    look_child<Real, D>(
-                        p, xn, l2n,
-                        VDT ? sg[t * P + a * st.S + c / st.KS] : tb.s2n[ka],
-                        invn, diffn, r);
-                if (pass == 0)
-                  mx = shift_max(mx, gl);
-                else
-                  s += xexp(gl - mx) * r;
-              }
-            }
+        auto shift_to = [&](const Real& v) {
+          if (val(v) > val(mx)) {
+            const Real nmx = shift_max(mx, v);
+            s = s * xexp(mx - nmx);
+            mx = nmx;
           }
-          if (pass == 0) mx = block_max(mx, red);
+        };
+        for (int c = c0 + tid; c < c0 + Mr; c += nt) {
+          Real m[D], s2[D], lp;
+          carry(c, t, m, s2, lp);
+          Prep<Real, D> p;
+          prep<Real, D>(m, s2, xt, l2t, p);
+          if (L == 2) {
+            const Real fin = lp + isbl * tb.endv[c] - 0.5f * xlog(p.prod) -
+                             p.quad - cl2pi;
+            shift_to(fin);
+            s += xexp(fin - mx);
+            continue;
+          }
+          const Real base_n = lp - p.quad - 0.5f * xlog(p.prod) - cl2pi;
+          for (int a = 0; a < A; ++a) {
+            const int ka = c * A + a;
+            Real r;
+            const Real gl =
+                base_n + tb.ltn[ka] + gate * tb.lsn[ka] + isbl * tb.endn[ka] +
+                look_child<Real, D>(
+                    p, xn, l2n,
+                    VDT ? sg[t * P + a * st.S + c / st.KS] : tb.s2n[ka],
+                    invn, diffn, r);
+            shift_to(gl);
+            s += xexp(gl - mx) * r;
+          }
         }
-        s = block_sum(s, red);
+        // a thread without a term (mx -inf) adds nothing
+        const Real bmx = block_max(mx, red);
+        s = block_sum(val(mx) == -INFINITY ? Real(0.f) : s * xexp(mx - bmx),
+                      red);
+        if (tid == 0) {
+          slot[kSlotMax] = bmx;
+          slot[kSlotSum] = s;
+        }
+        cl.sync();
+        mx = Real(-INFINITY);
+        for (int r = 0; r < C; ++r)
+          mx = shift_max(mx, *cl.map_shared_rank(slot + kSlotMax, r));
+        s = Real(0.f);
+        for (int r = 0; r < C; ++r) {
+          const Real mr = *cl.map_shared_rank(slot + kSlotMax, r);
+          if (val(mr) != -INFINITY)
+            s += *cl.map_shared_rank(slot + kSlotSum, r) * xexp(mr - mx);
+        }
         cmx = mx;
         csum = s;
         out = mx + xlog(s);
+        pf.mark(kPwClose);
       } else {
-        // fusion: group g's Gaussian into history row t-1
+        // fusion: this rank's groups' Gaussians into history row t-1
         Real* row = hist + (size_t)(t - 1) * F * G;
 #pragma unroll
-        for (int j = 0; j < ng; ++j) {
-          const int g = tid + j * nt;
-          if (g >= G) continue;
+        for (int j = 0; j < kGradWideGroups; ++j) {
+          const int lg = tid + j * nt;
+          if (lg >= Gr) continue;
+          const int g = g0 + lg;
           Real mx, sw, mf[D], tf[D];
           group_online(g, t, xt, l2t, mx, sw, mf, tf);
           const Real inv_sw = 1.0f / clamp_min(sw, kTiny);
@@ -673,13 +774,15 @@ static __device__ __forceinline__ void grad_wide_walk(
           }
           row[2 * D * G + g] = mx + xlog(clamp_min(sw, kTiny));
         }
-        __syncthreads();
+        pf.mark(kPwFuse);
+        cl.sync();
+        pf.mark(kPwFuseSync);
       }
     }
-    if (tid == 0) logl[b] = out;
+    if (rank == 0 && tid == 0) logl[b] = out;
 
-    // backward walk: at step t each member's carry cotangent (of the
-    // carry entering step t) goes to the exchange
+    // backward walk: at step t each member's carry cotangent goes to its
+    // rank's slice of the exchange
     for (int t = tlast; t >= 1; --t) {
       float xt[D];
       Real l2t[D];
@@ -692,77 +795,112 @@ static __device__ __forceinline__ void grad_wide_walk(
       const float gate_prev = t >= tb.min_len ? 1.f : 0.f;
       const bool fuse = t < tlast;
       const bool look = t == tlast && L > 2;
-      if constexpr (DEEP) {
-        xlp = xbase + (size_t)(t & 1) * F * K;
-        xm = xlp + K;
-        xs2 = xm + D * K;
-      }
-      // the fused groups' cotangents (lp, m, s2): the sums over each
-      // group's children of the exchange that step t+1 wrote (DEEP: one
-      // group's at a time, summed where it is used)
-      Real gc[DEEP ? 1 : kGradWideGroups][2 * D + 1];
-      if (!DEEP && fuse) {
+      Real dl2s[D], c0s[D], cl2n[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) dl2s[d] = c0s[d] = cl2n[d] = Real(0.f);
+      // member c's pullback through its update, given the cotangents of
+      // its log weight (cb), posterior mean and tail: the carry's
+      // cotangent to the exchange, the terms that built the carry (the
+      // initial register's, or child c's of step t-1's fusion) to the
+      // partial row, the l2 cotangents to the step's sums
+      auto pull = [&](int c, const Real* m, const Real* s2,
+                      const Prep<Real, D>& p, Real cb, const Real* cnm,
+                      const Real* ctl) {
+        Real dm[D], ds2[D], dl2[D];
+        prep_bwd<Real, D>(m, s2, xt, l2t, p, cb, cnm, ctl, dm, ds2, dl2);
+        Real cs = Real(0.f);
+        Real* xw = xown + (c - c0);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          xw[(1 + d) * M] = dm[d];
+          xw[(1 + D + d) * M] = ds2[d];
+          dl2s[d] += dl2[d];
+          c0s[d] += ds2[d];
+          cs += ds2[d];
+        }
+        xw[0] = cb;
+        if (t == 1) {
+          part[kLp0 * K + c] += cb;
+          if constexpr (!VDT) part[kS20 * K + c] += cs;
+        } else {
+          part[kLt * K + c] += cb;
+          part[kLsurv * K + c] += gate_prev * cb;
+          if constexpr (!VDT) part[kSig2v * K + c] += cs;
+        }
+      };
+      if (fuse) {
+        // the fused groups' cotangents (lp, m, s2): the sums over each
+        // group's children, in the exchange that step t+1 wrote
+        Real gc[kGradWideGroups][2 * D + 1];
 #pragma unroll
         for (int j = 0; j < kGradWideGroups; ++j) {
-          const int g = tid + j * nt;
+          const int lg = tid + j * nt;
 #pragma unroll
           for (int f = 0; f < 2 * D + 1; ++f) gc[j][f] = Real(0.f);
-          if (g >= G) continue;
-          for (int c = g; c < K; c += G) {
-            gc[j][0] += xlp[c];
+          if (lg >= Gr) continue;
+          for (int c = g0 + lg; c < K; c += G) {
+            const int r = c / A / Gc;
+            const Real* xr = xslice(r) + (c - r * M);
+            gc[j][0] += xr[0];
 #pragma unroll
             for (int d = 0; d < D; ++d) {
-              gc[j][1 + d] += xm[d * K + c];
-              gc[j][1 + D + d] += xs2[d * K + c];
+              gc[j][1 + d] += xr[(1 + d) * M];
+              gc[j][1 + D + d] += xr[(1 + D + d) * M];
             }
           }
         }
-        __syncthreads();      // every read of the exchange before it is
-                              // overwritten
-      }
-      float xn[D];
-      Real l2n[D], cl2n[D], dl2s[D], c0[D];
+        pf.mark(kPwXchRead);
+        publish(t + 1);
+        pf.mark(kPwSums);
+        cl.sync();            // every read of the exchange and the slots
+                              // before they are overwritten
+        pf.mark(kPwXchSync);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        xn[d] = look ? x[(t + 1) * D + d] : 0.f;
-        l2n[d] = look ? l2[(t + 1) * D + d] : Real(0.f);
-        cl2n[d] = dl2s[d] = c0[d] = Real(0.f);
-      }
-#pragma unroll
-      for (int j = 0; j < ng; ++j) {
-        const int g = tid + j * nt;
-        if (g >= G) continue;
-        const int jg = DEEP ? 0 : j;        // g's row of gc
-        Real mx = Real(0.f), inv_sw = Real(0.f), fac = Real(0.f);
-        if (fuse) {
-          if constexpr (DEEP) {
-            // group g's children in the area step t+1 wrote
-            const Real* rlp = xbase + (size_t)((t + 1) & 1) * F * K;
-#pragma unroll
-            for (int f = 0; f < 2 * D + 1; ++f) gc[0][f] = Real(0.f);
-            for (int c = g; c < K; c += G) {
-              gc[0][0] += rlp[c];
-#pragma unroll
-              for (int d = 0; d < D; ++d) {
-                gc[0][1 + d] += rlp[(1 + d) * K + c];
-                gc[0][1 + D + d] += rlp[(1 + D + d) * K + c];
-              }
-            }
-          }
-          Real sw, mf[D], tf[D];
+        for (int j = 0; j < kGradWideGroups; ++j) {
+          const int lg = tid + j * nt;
+          if (lg >= Gr) continue;
+          const int g = g0 + lg;
+          Real mx, sw, mf[D], tf[D];
           group_online(g, t, xt, l2t, mx, sw, mf, tf);
-          inv_sw = 1.0f / clamp_min(sw, kTiny);
+          const Real inv_sw = 1.0f / clamp_min(sw, kTiny);
           // the guard's indicator has a zero tangent
           const float ok = val(sw) >= kTiny ? 1.f : 0.f;
           // softmax-mixture rule: the sw factors cancel against wn
-          fac = gc[jg][0];
+          Real fac = gc[j][0];
 #pragma unroll
           for (int d = 0; d < D; ++d)
-            fac -= (gc[jg][1 + d] * mf[d] + gc[jg][1 + D + d] * tf[d]) *
+            fac -= (gc[j][1 + d] * mf[d] + gc[j][1 + D + d] * tf[d]) *
                    inv_sw;
           fac = ok * fac;
+          pf.mark(kPwOnline);
+          for (int c = g * A; c < (g + 1) * A; ++c) {
+            // fusion pullback of member c of group g
+            Real m[D], s2[D], lp;
+            carry(c, t, m, s2, lp);
+            Prep<Real, D> p;
+            prep<Real, D>(m, s2, xt, l2t, p);
+            const Real wn = xexp(lp - p.quad - mx) * xrsqrt(p.prod) * inv_sw;
+            Real own = Real(0.f), cnm[D], ctl[D];
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              own += gc[j][1 + d] * p.nm[d] + gc[j][1 + D + d] * p.tl[d];
+              cnm[d] = gc[j][1 + d] * wn;
+              ctl[d] = gc[j][1 + D + d] * wn;
+            }
+            pull(c, m, s2, p, (fac + own) * wn, cnm, ctl);
+          }
+          pf.mark(kPwMember);
         }
-        for (int c = g * A; c < (g + 1) * A; ++c) {
+      } else {
+        // the closing's pullback, over the rank's members
+        float xn[D];
+        Real l2n[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          xn[d] = look ? x[(t + 1) * D + d] : 0.f;
+          l2n[d] = look ? l2[(t + 1) * D + d] : Real(0.f);
+        }
+        for (int c = c0 + tid; c < c0 + Mr; c += nt) {
           Real m[D], s2[D], lp;
           carry(c, t, m, s2, lp);
           Prep<Real, D> p;
@@ -770,19 +908,19 @@ static __device__ __forceinline__ void grad_wide_walk(
           Real cb = Real(0.f), cnm[D], ctl[D];
 #pragma unroll
           for (int d = 0; d < D; ++d) cnm[d] = ctl[d] = Real(0.f);
-          if (L == 2) {
+          if (!look) {
             // 2-frame closing: softmax posterior over the slots
             const Real fin = lp + isbl * tb.endv[c] - 0.5f * xlog(p.prod) -
                              p.quad - cl2pi;
             const Real q = xexp(fin - cmx) / csum;
             part[kEnd * K + c] += isbl * q;
             cb = q;
-          } else if (look) {
+          } else {
             // look-ahead closing: q = posterior weight of child (c, a)
             const Real base_n = lp - p.quad - 0.5f * xlog(p.prod) - cl2pi;
             const Real inv_sum = 1.0f / csum;
             for (int a = 0; a < A; ++a) {
-              const int ka = c * A + a;
+              const int ka = c * A + a, ak = a * K + c;
               Real r, invn[D], diffn[D];
               const Real gl =
                   base_n + tb.ltn[ka] + gate * tb.lsn[ka] +
@@ -792,9 +930,9 @@ static __device__ __forceinline__ void grad_wide_walk(
                       VDT ? sg[t * P + a * st.S + c / st.KS] : tb.s2n[ka],
                       invn, diffn, r);
               const Real q = xexp(gl - cmx) * r * inv_sum;
-              p_ltn[ka] += q;
-              p_lsn[ka] += gate * q;
-              p_endn[ka] += isbl * q;
+              p_ltn[ak] += q;
+              p_lsn[ak] += gate * q;
+              p_endn[ak] += isbl * q;
               Real cs = Real(0.f);
 #pragma unroll
               for (int d = 0; d < D; ++d) {
@@ -807,139 +945,54 @@ static __device__ __forceinline__ void grad_wide_walk(
                 cs += ct_totn;
               }
               // variable dt: this track's look-ahead cotangents, summed
-              // into the stream below
+              // into the stream after the step's barrier
               if constexpr (VDT)
-                p_s2n[ka] = cs;
+                p_s2n[ak] = cs;
               else
-                p_s2n[ka] += cs;
+                p_s2n[ak] += cs;
               cb += q;
             }
-          } else {
-            // fusion pullback of member c of group g
-            const Real wn = xexp(lp - p.quad - mx) * xrsqrt(p.prod) * inv_sw;
-            Real own = Real(0.f);
-#pragma unroll
-            for (int d = 0; d < D; ++d)
-              own += gc[jg][1 + d] * p.nm[d] + gc[jg][1 + D + d] * p.tl[d];
-            cb = (fac + own) * wn;
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-              cnm[d] = gc[jg][1 + d] * wn;
-              ctl[d] = gc[jg][1 + D + d] * wn;
-            }
           }
-          Real dm[D], ds2[D], dl2[D];
-          prep_bwd<Real, D>(m, s2, xt, l2t, p, cb, cnm, ctl, dm, ds2, dl2);
-          Real cs = Real(0.f);
-#pragma unroll
-          for (int d = 0; d < D; ++d) {
-            xm[d * K + c] = dm[d];
-            xs2[d * K + c] = ds2[d];
-            dl2s[d] += dl2[d];
-            c0[d] += ds2[d];
-            cs += ds2[d];
-          }
-          xlp[c] = cb;
-          // the terms that built member c's carry: the initial register's,
-          // or child c's of step t-1's fusion
-          if (t == 1) {
-            part[kLp0 * K + c] += cb;
-            if constexpr (!VDT) part[kS20 * K + c] += cs;
-          } else {
-            part[kLt * K + c] += cb;
-            part[kLsurv * K + c] += gate_prev * cb;
-            if constexpr (!VDT) part[kSig2v * K + c] += cs;
-          }
+          pull(c, m, s2, p, cb, cnm, ctl);
         }
+        pf.mark(kPwLook);
       }
-      if (look) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const Real v = block_sum(cl2n[d], red);
-          if (tid == 0) cl2[(t + 1) * D + d] = v;
-        }
-        if constexpr (VDT) {
-          // row t, pattern q = a*S + s: child (kk, a) over the slots kk of
-          // newest digit s
-          for (int q = tid; q < P; q += nt) {
-            const int a = q / st.S, s0 = (q % st.S) * st.KS;
-            Real v = Real(0.f);
-            for (int kk = s0; kk < s0 + st.KS; ++kk) v += p_s2n[kk * A + a];
-            csg[t * P + q] = v;
-          }
-        }
-      }
+      // the step's l2 cotangents: block sums into this block's slots
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         const Real v = block_sum(dl2s[d], red);
-        if (tid == 0) cl2[t * D + d] = v;
+        if (tid == 0) slot[kSlotL2 + d] = v;
       }
-      if constexpr (VDT) {
-        // row t-1: the variance cotangents of the carries entering step t
-        // over each pattern's slots (the block sums' barriers published
-        // the exchange)
-        for (int q = tid; q < P; q += nt) {
-          Real v = Real(0.f);
-          for (int kk = q * st.KP; kk < (q + 1) * st.KP; ++kk)
-#pragma unroll
-            for (int d = 0; d < D; ++d) v += xs2[d * K + kk];
-          csg[(t - 1) * P + q] = v;
-        }
-      }
-      if (t == 1) {
-        // initial register: s2 = l2_0 + s20
+      if (look)
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          const Real v = block_sum(c0[d], red);
-          if (tid == 0) cl2[d] = v;
+          const Real v = block_sum(cl2n[d], red);
+          if (tid == 0) slot[kSlotL2 + D + d] = v;
         }
-      }
+      if (t == 1)
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const Real v = block_sum(c0s[d], red);
+          if (tid == 0) slot[kSlotL2 + 2 * D + d] = v;
+        }
+      pf.mark(kPwSums);
+      cl.sync();              // the exchange and the slots of step t
+      pf.mark(kPwXchSync);
     }
+    publish(1);
+    cl.sync();                // step 1's reads before the next track
+    pf.mark(kPwSums);
   }
   if constexpr (VDT) {
-    // the look-ahead scratch out of the s2n partials (their table is unused)
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < ng; ++j) {
-      const int g = tid + j * nt;
-      if (g >= G) continue;
-      for (int ka = g * A * A; ka < (g + 1) * A * A; ++ka)
-        p_s2n[ka] = Real(0.f);
-    }
+    // the look-ahead scratch out of the s2n partials (their table is
+    // unused); every rank's reads of them ended at a cluster barrier
+    for (int c = c0 + tid; c < c0 + Mr; c += nt)
+      for (int a = 0; a < A; ++a) p_s2n[a * K + c] = Real(0.f);
   }
-}
-
-// The wide mapping up to kGradWideGroups groups a thread (G <= 2048).
-template <typename Real, int D, bool VDT>
-__global__ void __launch_bounds__(kGradWideThreads, 1)
-    grad_wide_kernel(TablesT<Real> tb, const float* __restrict__ xs,
-                     const Real* __restrict__ l2s,
-                     const int* __restrict__ lengths,
-                     const float* __restrict__ isbls, int B, int T,
-                     Real* __restrict__ logl, Real* __restrict__ ct_l2,
-                     Real* __restrict__ scratch_all,
-                     Real* __restrict__ partial, int xch_global,
-                     StreamT<Real> st) {
-  grad_wide_walk<Real, D, VDT, false>(tb, xs, l2s, lengths, isbls, B, T,
-                                      logl, ct_l2, scratch_all, partial,
-                                      xch_global, st);
-}
-
-// The wide mapping past 2048 groups (up to kGradDeepGroups a thread), its
-// exchange double-buffered.
-template <typename Real, int D, bool VDT>
-__global__ void __launch_bounds__(kGradWideThreads, 1)
-    grad_wide_deep_kernel(TablesT<Real> tb, const float* __restrict__ xs,
-                          const Real* __restrict__ l2s,
-                          const int* __restrict__ lengths,
-                          const float* __restrict__ isbls, int B, int T,
-                          Real* __restrict__ logl, Real* __restrict__ ct_l2,
-                          Real* __restrict__ scratch_all,
-                          Real* __restrict__ partial, int xch_global,
-                          StreamT<Real> st) {
-  grad_wide_walk<Real, D, VDT, true>(tb, xs, l2s, lengths, isbls, B, T,
-                                     logl, ct_l2, scratch_all, partial,
-                                     xch_global, st);
+  pf.mark(kPwSetup);
+#ifdef EXTRACK_PROFILE
+  pf.flush(g_prof, tid == 0);
+#endif
 }
 
 
@@ -1521,16 +1574,34 @@ static __global__ void reduce_partials(const float* __restrict__ partial,
   out[j] = (float)s;
 }
 
-// The kernel instantiation that launch_grad runs for this K, A and mapping
+// reduce_partials for the cluster mapping's rows, whose (K, A) columns are
+// pattern-major: out[6K + f*K*A + c*A + a] sums partial[..][6K + f*K*A +
+// a*K + c], in row order, in double.  `width` floats a scalar (2: Dual).
+static __global__ void reduce_partials_ak(const float* __restrict__ partial,
+                                          int nrow, int ncols, int K, int A,
+                                          int width,
+                                          float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ncols) return;
+  const int col = j / width, part = j % width;
+  int src = col;
+  if (col >= 6 * K) {
+    const int ka = (col - 6 * K) % (K * A);
+    src = col - ka + (ka % A) * K + ka / A;
+  }
+  src = src * width + part;
+  double s = 0.0;
+  for (int i = 0; i < nrow; ++i) s += partial[(size_t)i * ncols + src];
+  out[j] = (float)s;
+}
+
+// The kernel instantiation that launch_grad runs for this K and mapping
 // (warps > 0: the warp mapping with `warps` warps per block; 0 the block
 // mapping; -1 the wide mapping, -2 the wide mapping with its exchange in
-// global scratch; past 2048 groups the wide mapping's deep kernel).
+// global scratch).
 template <typename Real, int D, bool VDT>
-static const void* grad_instance(int K, int A, int warps) {
-  if (warps < 0)
-    return grad_wide_deep(K, A)
-               ? (const void*)grad_wide_deep_kernel<Real, D, VDT>
-               : (const void*)grad_wide_kernel<Real, D, VDT>;
+static const void* grad_instance(int K, int warps) {
+  if (warps < 0) return (const void*)grad_cluster_kernel<Real, D, VDT>;
   if (warps > 0)
     return K <= 32 ? (const void*)grad_warp_kernel<Real, D, 1, VDT>
                    : (const void*)grad_warp_kernel<Real, D, 2, VDT>;
@@ -1544,34 +1615,38 @@ static const void* grad_instance(int K, int A, int warps) {
 
 // grad_instance with P > 0 for variable dt.
 template <typename Real, int D>
-static const void* grad_instance(int K, int A, int warps, int P) {
-  return P > 0 ? grad_instance<Real, D, true>(K, A, warps)
-               : grad_instance<Real, D, false>(K, A, warps);
+static const void* grad_instance(int K, int warps, int P) {
+  return P > 0 ? grad_instance<Real, D, true>(K, warps)
+               : grad_instance<Real, D, false>(K, warps);
 }
 
-// Dynamic shared memory of one block, as launch_grad asks for it.
+// Dynamic shared memory of one block, as launch_grad asks for it (C: the
+// wide mapping's blocks a cluster).
 template <typename Real>
 static size_t grad_smem(int K, int A, int D, int T, int warps,
-                        int stash_smem, int P) {
-  if (warps < 0) return grad_wide_layout(K, A, D, T, warps, sizeof(Real)).smem;
+                        int stash_smem, int P, int C) {
+  if (warps < 0)
+    return grad_wide_layout(K, A, D, T, C, warps == -2, sizeof(Real)).smem;
   return (warps > 0 ? warps * warp_slice(K, A, D, T, stash_smem, P)
                     : (size_t)(3 + 4 * D) * K) *
          sizeof(Real);
 }
 
 // Threads of one block of a launch.
-static int grad_threads(int K, int A, int D, int T, int warps) {
-  if (warps < 0) return grad_wide_layout(K, A, D, T, warps, 4).threads;
+static int grad_threads(int K, int A, int D, int T, int warps, int C) {
+  if (warps < 0) return grad_wide_layout(K, A, D, T, C, false, 4).threads;
   return warps > 0 ? 32 * warps : (K + 31) / 32 * 32;
 }
 
-// Blocks of a K2 (or K3) launch one SM keeps resident, or -error.
+// Blocks of a K2 (or K3) launch on the warp or block mapping one SM keeps
+// resident, or -error.
 template <typename Real, int D>
 static int grad_occupancy(int K, int A, int T, int warps, int stash_smem,
                           int P) {
-  const void* fn = grad_instance<Real, D>(K, A, warps, P);
-  const size_t smem = grad_smem<Real>(K, A, D, T, warps, stash_smem, P);
-  const int threads = grad_threads(K, A, D, T, warps);
+  if (warps < 0) return -(int)cudaErrorInvalidValue;
+  const void* fn = grad_instance<Real, D>(K, warps, P);
+  const size_t smem = grad_smem<Real>(K, A, D, T, warps, stash_smem, P, 1);
+  const int threads = grad_threads(K, A, D, T, warps, 1);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
@@ -1581,41 +1656,103 @@ static int grad_occupancy(int K, int A, int T, int warps, int stash_smem,
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// A cluster launch's configuration: nblk blocks in clusters of C, and the
+// attributes a cluster of more than 8 blocks needs; the dynamic shared
+// memory opted in.
+static cudaError_t cluster_config(const void* fn, int nblk, int threads,
+                                  size_t smem, int C, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr,
+                                  cudaLaunchConfig_t* cfg) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(nblk);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+// Clusters of C blocks of one K2 (or K3) launch on the wide mapping
+// (warps -1 or -2) that the card keeps resident at once, or -error.
+template <typename Real, int D>
+static int grad_cluster_occupancy(int K, int A, int T, int warps, int C,
+                                  int P) {
+  if (C < 1 || C > kGradClusterMax || (warps != -1 && warps != -2))
+    return -(int)cudaErrorInvalidValue;
+  const void* fn = grad_instance<Real, D>(K, warps, P);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(
+      fn, C, grad_threads(K, A, D, T, warps, C),
+      grad_smem<Real>(K, A, D, T, warps, 0, P, C), C, 0, &attr, &cfg);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 template <typename Real, int D>
 static int launch_grad(const TablesT<Real>& tb, const float* xs,
                        const Real* l2, const int* lengths, const float* isbl,
                        Real* logl, Real* ct_l2, Real* ct_tab, Real* stash,
                        Real* partial, StreamT<Real> st, int B, int T,
-                       int nblk, int warps, int stash_smem,
+                       int nblk, int warps, int stash_smem, int C,
                        cudaStream_t stream) {
   const int K = tb.K, P = st.P;
   // the partial row's columns, as floats (a Dual column is two)
   const size_t ncols = ((size_t)6 * K + (size_t)4 * K * tb.A) *
                        (sizeof(Real) / sizeof(float));
+  const bool clustered = warps < 0;
+  if (clustered &&
+      (C < 1 || C > kGradClusterMax || nblk % C != 0 ||
+       (K / tb.A + C - 1) / C > kGradWideGroups * kGradWideThreads))
+    return (int)cudaErrorInvalidValue;
+  if (!clustered && C != 1) return (int)cudaErrorInvalidValue;
   if (ncols > (size_t)INT_MAX || warps < -2 || 32 * warps > kWarpBlock ||
       (warps > 0 && K > 64) ||
       (warps == 0 && K > 1024) || (warps <= 0 && stash_smem) ||
-      (warps < 0 && (K > kGradWideMaxK ||
-                     K / tb.A > kGradDeepGroups * kGradWideThreads)) ||
+      (warps < 0 && K > kGradWideMaxK) ||
       P < 0 ||
       (P > 0 && (st.s2 == nullptr || st.ct == nullptr || P % tb.A != 0 ||
                  K % P != 0 || T < 2)))
     return (int)cudaErrorInvalidValue;
-  const void* fn = grad_instance<Real, D>(K, tb.A, warps, P);
-  const size_t smem = grad_smem<Real>(K, tb.A, D, T, warps, stash_smem, P);
-  // the opt-in covers the static shared memory's share of the 48 KB too
-  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const int threads = grad_threads(K, tb.A, D, T, warps);
-  if (warps != 0) {
-    // the warp mapping's stash_smem, the wide mapping's xch_global
-    int flag = warps > 0 ? stash_smem : (int)(warps == -2);
+  const void* fn = grad_instance<Real, D>(K, warps, P);
+  const size_t smem =
+      grad_smem<Real>(K, tb.A, D, T, warps, stash_smem, P, C);
+  const int threads = grad_threads(K, tb.A, D, T, warps, C);
+  if (clustered) {
+    int flag = warps == -2;
     void* args[] = {(void*)&tb, (void*)&xs, (void*)&l2, (void*)&lengths,
                     (void*)&isbl, (void*)&B, (void*)&T, (void*)&logl,
                     (void*)&ct_l2, (void*)&stash, (void*)&partial,
                     (void*)&flag, (void*)&st};
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    const cudaError_t err =
+        cluster_config(fn, nblk, threads, smem, C, stream, &attr, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchKernelExC(&cfg, fn, args);
+  } else if (warps != 0) {
+    void* args[] = {(void*)&tb, (void*)&xs, (void*)&l2, (void*)&lengths,
+                    (void*)&isbl, (void*)&B, (void*)&T, (void*)&logl,
+                    (void*)&ct_l2, (void*)&stash, (void*)&partial,
+                    (void*)&stash_smem, (void*)&st};
+    // the opt-in covers the static shared memory's share of the 48 KB too
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
     cudaLaunchKernel(fn, nblk, threads, args, smem, stream);
   } else {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
     void* args[] = {(void*)&tb, (void*)&xs, (void*)&l2, (void*)&lengths,
                     (void*)&isbl, (void*)&B, (void*)&T, (void*)&logl,
                     (void*)&ct_l2, (void*)&stash, (void*)&partial,
@@ -1624,6 +1761,14 @@ static int launch_grad(const TablesT<Real>& tb, const float* xs,
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
+  if (clustered) {
+    // one row of partials a cluster, its (K, A) columns pattern-major
+    reduce_partials_ak<<<(unsigned)((ncols + 255) / 256), 256, 0, stream>>>(
+        reinterpret_cast<const float*>(partial), nblk / C, (int)ncols, K,
+        tb.A, (int)(sizeof(Real) / sizeof(float)),
+        reinterpret_cast<float*>(ct_tab));
+    return (int)cudaGetLastError();
+  }
   reduce_partials<<<(unsigned)((ncols + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float*>(partial), nblk, (int)ncols,
       reinterpret_cast<float*>(ct_tab));
@@ -1641,7 +1786,8 @@ static int launch_grad_c(const float* xs, const float* l2,
                          float* logl, float* ct_l2, float* ct_tab,
                          float* ct_s2, float* stash, float* partial, int B,
                          int T, int D, int K, int A, int P, int min_len,
-                         int nblk, int warps, int stash_smem, void* stream) {
+                         int nblk, int warps, int stash_smem, int cluster,
+                         void* stream) {
   const Real* t[10];
   for (int i = 0; i < 10; ++i) t[i] = reinterpret_cast<const Real*>(tabs[i]);
   const TablesT<Real> tb{t[0], t[1], t[2], t[3], t[4], t[5], t[6],
@@ -1660,13 +1806,16 @@ static int launch_grad_c(const float* xs, const float* l2,
   switch (D) {
     case 1:
       return launch_grad<Real, 1>(tb, xs, l2r, lengths, isbl, lo, cl, ct, sa,
-                                  pa, sm, B, T, nblk, warps, stash_smem, st);
+                                  pa, sm, B, T, nblk, warps, stash_smem,
+                                  cluster, st);
     case 2:
       return launch_grad<Real, 2>(tb, xs, l2r, lengths, isbl, lo, cl, ct, sa,
-                                  pa, sm, B, T, nblk, warps, stash_smem, st);
+                                  pa, sm, B, T, nblk, warps, stash_smem,
+                                  cluster, st);
     case 3:
       return launch_grad<Real, 3>(tb, xs, l2r, lengths, isbl, lo, cl, ct, sa,
-                                  pa, sm, B, T, nblk, warps, stash_smem, st);
+                                  pa, sm, B, T, nblk, warps, stash_smem,
+                                  cluster, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1680,6 +1829,19 @@ static int grad_occupancy_c(int D, int K, int A, int T, int warps,
     case 1: return grad_occupancy<Real, 1>(K, A, T, warps, stash_smem, P);
     case 2: return grad_occupancy<Real, 2>(K, A, T, warps, stash_smem, P);
     case 3: return grad_occupancy<Real, 3>(K, A, T, warps, stash_smem, P);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// Cluster occupancy behind extrack_grad_cluster_occupancy /
+// extrack_hvp_cluster_occupancy.
+template <typename Real>
+static int grad_cluster_occupancy_c(int D, int K, int A, int T, int warps,
+                                    int C, int P) {
+  switch (D) {
+    case 1: return grad_cluster_occupancy<Real, 1>(K, A, T, warps, C, P);
+    case 2: return grad_cluster_occupancy<Real, 2>(K, A, T, warps, C, P);
+    case 3: return grad_cluster_occupancy<Real, 3>(K, A, T, warps, C, P);
     default: return -(int)cudaErrorInvalidValue;
   }
 }

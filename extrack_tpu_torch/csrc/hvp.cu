@@ -17,14 +17,14 @@
 // floats per track, 48.6 KB at S=2, W=6, D=2, T=20).  It runs any of
 // K2's three mappings (grad.cu), as ops/hvp_kernel picks; the envelope is
 // K2's (K <= 65536 and 16384 fusion groups: past 1024 slots the wide
-// mapping, whose exchange of carry cotangents, 229,376 bytes at K = 4096
-// and D = 3 as dual numbers, still fits a block's shared memory on
-// Hopper; past it the exchange goes to the block's global scratch,
-// double-buffered past 2048 groups).  Past
-// 1024 slots the JAX package takes extrack_tpu/fit.py:575-582
+// mapping, a cluster of blocks a track, whose exchange of carry
+// cotangents, split over the cluster's shared memory, takes a block up to
+// 229,376 bytes at 4^8 and D = 3 as dual numbers in clusters of 16).
+// Past 1024 slots the JAX package takes extrack_tpu/fit.py:575-582
 // (hessian_chunked on XLA).
 // The tangent columns are reduced with K2's deterministic block-order
-// partial sums, so a Hessian is repeatable from run to run.  It runs once
+// (cluster-order) partial sums, so a Hessian is repeatable from run to
+// run.  It runs once
 // per Hessian column at the end of a fit, never inside the optimizer loop.
 #include "grad.cuh"
 
@@ -49,12 +49,14 @@ extern "C" int extrack_hvp(const float* xs, const float* l2,
                            float* ct_tab, float* ct_s2, float* stash,
                            float* partial, int B, int T, int D, int K, int A,
                            int P, int min_len, int nblk, int warps,
-                           int stash_smem, void* stream) {
+                           int stash_smem, int cluster,
+                           void* stream) {
   const float* tabs[10] = {lp0, s20, lt, lsurv, endv,
                            sig2v, ltn, s2n, lsn, endn};
   return extrack::launch_grad_c<extrack::Dual>(
       xs, l2, lengths, isbl, tabs, sig2s, logl, ct_l2, ct_tab, ct_s2, stash,
-      partial, B, T, D, K, A, P, min_len, nblk, warps, stash_smem, stream);
+      partial, B, T, D, K, A, P, min_len, nblk, warps, stash_smem, cluster,
+      stream);
 }
 
 // Blocks of one K3 launch that one SM keeps resident (as
@@ -64,3 +66,22 @@ extern "C" int extrack_hvp_occupancy(int D, int K, int A, int T, int warps,
   return extrack::grad_occupancy_c<extrack::Dual>(D, K, A, T, warps,
                                                   stash_smem, P);
 }
+
+// Clusters of one K3 launch on the wide mapping that the card keeps
+// resident at once (as extrack_grad_cluster_occupancy).
+extern "C" int extrack_hvp_cluster_occupancy(int D, int K, int A, int T,
+                                             int warps, int cluster, int P) {
+  return extrack::grad_cluster_occupancy_c<extrack::Dual>(D, K, A, T, warps,
+                                                          cluster, P);
+}
+
+#ifdef EXTRACK_PROFILE
+// Profile builds only: K3's cycle split (as extrack_grad_prof), then zeroed.
+extern "C" int extrack_hvp_prof(unsigned long long* out) {
+  static const unsigned long long zero[extrack::kProfSlots] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, extrack::g_prof, sizeof zero);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(extrack::g_prof, zero, sizeof zero);
+  return (int)err;
+}
+#endif

@@ -34,10 +34,12 @@ _SIGNATURES = {
     "extrack_forward": [_P] * 17 + [_I] * 9 + [_P],
     "extrack_forward_occupancy": [_I] * 6,
     "extrack_forward_layout": [_I] * 6 + [_P],
-    "extrack_grad": [_P] * 21 + [_I] * 10 + [_P],
-    "extrack_hvp": [_P] * 21 + [_I] * 10 + [_P],
+    "extrack_grad": [_P] * 21 + [_I] * 11 + [_P],
+    "extrack_hvp": [_P] * 21 + [_I] * 11 + [_P],
     "extrack_grad_occupancy": [_I] * 7,
     "extrack_hvp_occupancy": [_I] * 7,
+    "extrack_grad_cluster_occupancy": [_I] * 7,
+    "extrack_hvp_cluster_occupancy": [_I] * 7,
     "extrack_predict": [_P] * 18 + [_I] * 12 + [_P],
     "extrack_predict_occupancy": [_I] * 8,
     "extrack_predict_layout": [_I] * 7 + [_P],
@@ -47,7 +49,7 @@ _SIGNATURES = {
     "extrack_topk_wide": [_P] * 14 + [_I] * 14 + [ctypes.c_longlong, _P],
     "extrack_hist_layout": [_I] * 6 + [_P],
     "extrack_refine_layout": [_I] * 5 + [_P],
-    "extrack_grad_layout": [_I] * 6 + [_P],
+    "extrack_grad_layout": [_I] * 7 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
 _SMEM_QUERIES = ("extrack_grad_smem", "extrack_predict_smem", "extrack_hist_smem",
@@ -179,9 +181,10 @@ def layout(kernel: str, *dims: int):
     the harvest from the slots' digits (past 16384 slots), else 0 (a
     thread a slot); "refine" (T, D, K, S, wide), wide 1 for the wide
     mapping, 2 for the same with its publish areas in the carry; "grad"
-    (K, A, D, T, warps, itemsize), K2's and K3's wide mapping (warps -1,
-    or -2 with its exchange in global scratch; itemsize 4, or 8 for K3's
-    dual numbers), whose third entry is the global scratch a block."""
+    (K, A, D, T, warps, cluster, itemsize), a block of K2's and K3's wide
+    mapping in a cluster of ``cluster`` blocks (warps -1, or -2 with its
+    exchange in global scratch; itemsize 4, or 8 for K3's dual numbers),
+    whose third entry is the global scratch a cluster."""
     out = (ctypes.c_longlong * 3)()
     rc = getattr(library(), f"extrack_{kernel}_layout")(
         *dims, ctypes.addressof(out))

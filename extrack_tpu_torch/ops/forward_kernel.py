@@ -20,8 +20,10 @@ per track up to 64 slots, a block per track with a thread a slot up to
 mapping: K1 above 64 slots, the others above 1024; up to 16384 slots for
 K6, 65536 for K1, K2, K3 (at most 16384 fusion groups) and K4, and 2^19
 for K5; K1's, K4's, K5's and
-K6's carries and K2's and K3's exchange go to global scratch where they
-pass a block's shared memory; K5 past 16384 slots harvests from each
+K6's carries go to global scratch where they pass a block's shared
+memory, K2's and K3's exchange where a block's slice of it does (their
+wide mapping walks a track with a cluster of blocks); K5 past 16384
+slots harvests from each
 slot's digits); ``plan`` and ``grid`` lay a K1 or K4 launch out as
 persistent blocks.  ``MAX_SLOTS`` is each kernel's envelope.
 ``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the plain
@@ -51,8 +53,9 @@ SCRATCH_MAX_K = 16384     # K6's wide mapping, past shared memory with
                           # tables
 FIT_MAX_K = 65536         # K1's, K2's and K3's: the GUI's Model Fitting
                           # at 6 states (6^6 = 46,656) and 4^8
-FIT_MAX_GROUPS = 16384    # and their fusion groups (K/A): K2 and K3 take
-                          # up to sixteen a thread of 1024
+FIT_MAX_GROUPS = 16384    # and their fusion groups (K/A): K1 takes up to
+                          # sixteen a thread of 1024, K2 and K3 up to two a
+                          # thread of a cluster of sixteen such blocks
 PREDICT_MAX_K = 65536     # K4's: the GUI's labeling window at 3 states
                           # (3^10 = 59049) and predict_Bs at 7 states
                           # (7^5) and 6 states (6^6) need more than 16384
@@ -229,7 +232,8 @@ def stream_index(S: int, W: int, n: int):
     return pat, nxt
 
 
-def sig2_stream(sig2: torch.Tensor, B: int, T: int) -> torch.Tensor:
+def sig2_stream(sig2: torch.Tensor, B: int, T: int,
+                dtype=torch.float32) -> torch.Tensor:
     """The kernels' streamed displacement-variance table: (B, T-1, P)
     float32, contiguous, row t of track b holding step t -> t+1, from a
     per-step (T-1, P), per-track (B, T-1, P) or constant (1, P) table
@@ -237,8 +241,8 @@ def sig2_stream(sig2: torch.Tensor, B: int, T: int) -> torch.Tensor:
     ``sig2``: a shared table is expanded over the tracks (and a one-row
     table over the steps).  The JAX package's counterpart is
     ``pallas_engine._sig2_stream``, which also moves the tracks onto the
-    TPU's lanes."""
-    s = sig2.to(torch.float32)
+    TPU's lanes.  ``dtype``: as ``kernel_inputs``'."""
+    s = sig2.to(dtype)
     if s.ndim == 2:
         s = s[None]
     return s.expand(B, T - 1, s.shape[-1]).contiguous()
@@ -374,9 +378,10 @@ def check_envelope(T: int, D: int, S: int, window: int, nb_substeps: int,
 
 
 def kernel_inputs(positions, lengths, is_bleached, tables: ModelTables,
-                  window: int, nb_substeps: int):
+                  window: int, nb_substeps: int, dtype=torch.float32):
     """Kernel arguments: (xs, l2, lengths, isbl) as contiguous (B, T, D) /
-    (B,) tensors, and the ten table tensors in float32 (lp0, s20, lt, lsurv,
+    (B,) tensors, and the ten table tensors in ``dtype`` (the kernels'
+    float32; float64 for a model of a kernel) (lp0, s20, lt, lsurv,
     end, sig2v, ltn, s2n, lsn, endn), differentiable w.r.t. ``tables``;
     with variable dt (``classify_sig2``) an eleventh, the streamed
     displacement variances (``sig2_stream``), which the kernels read in
@@ -385,7 +390,7 @@ def kernel_inputs(positions, lengths, is_bleached, tables: ModelTables,
     normalizers; every fusion adds lt, so the constant folds into lt
     (exact, and lt's cotangent is unchanged)."""
     B, T, D = positions.shape
-    f32 = torch.float32
+    f32 = dtype
     lp0, sig2v, lt, lsurv, end, _ = (
         v.to(f32) for v in build_slot_tables(tables, window, nb_substeps))
     lt = lt - 0.5 * D * math.log(2 * math.pi)
@@ -401,7 +406,7 @@ def kernel_inputs(positions, lengths, is_bleached, tables: ModelTables,
     tabs = [lp0.contiguous(), sig2v, lt.contiguous(), lsurv.contiguous(),
             end.contiguous(), sig2v] + nxt
     if T >= 2 and classify_sig2(tables.sig2, T):
-        tabs.append(sig2_stream(tables.sig2, B, T))
+        tabs.append(sig2_stream(tables.sig2, B, T, dtype))
     return (xs, l2, lens, isbl), tabs
 
 

@@ -10,14 +10,14 @@ localization-error variances:
   table cotangent; ``backward`` only scales them.  ``plan`` picks one of
   K2's three mappings: one warp per track for K <= 64 (its carry history
   in shared memory when it fits), one block per track with a thread a
-  slot up to 1024 slots, and one block per track with a thread a fusion
-  group (the wide mapping) up to 65536 slots and 16384 groups, its
-  exchange of carry cotangents in shared memory where ``wide_layout``'s
-  fits, else in global scratch (past 2048 groups a thread owns up to
-  sixteen of them, and the exchange is double-buffered).  The persistent
-  grid takes no more global scratch (history, exchange, partial rows) than
+  slot up to 1024 slots, and a cluster of 1 to 16 blocks per track with a
+  thread one or two fusion groups (the wide mapping) up to 65536 slots
+  and 16384 groups, its exchange of carry cotangents split over the
+  cluster's shared memory where a block's slice fits
+  (``cluster_size``), else in global scratch.  The persistent grid
+  takes no more global scratch (history, exchange, partial rows) than
   the card's free memory allows, up to ``cuda_lib.scratch_budget(dev,
-  K)``'s cap: past 16384 slots a block takes tens of MB, and the common
+  K)``'s cap: past 16384 slots a cluster takes tens of MB, and the common
   cap would leave most SMs idle.
   With variable dt the
   kernel reads the streamed displacement variances (``kernel_inputs``'
@@ -55,9 +55,10 @@ WARPS = (4, 2, 1)         # warps per block the warp mapping may launch
 WIDE = -1                 # the C interface's warps of the wide mapping
 WIDE_GLOBAL = -2          # the wide mapping, its exchange in global scratch
 WIDE_THREADS = 1024       # csrc/grad.cuh kGradWideThreads
-WIDE_GROUPS = 2           # fusion groups a thread of grad_wide_kernel owns
-DEEP_GROUPS = 16          # and of grad_wide_deep_kernel (kGradDeepGroups)
-RED_SCALARS = 64          # its block reductions' shared scratch
+WIDE_GROUPS = 2           # fusion groups a thread owns, at most
+RED_SCALARS = 64          # a block's reductions' shared scratch
+CLUSTER_SIZES = (1, 2, 4, 8, 16)   # blocks a cluster (kGradClusterMax 16;
+                                   # past 8 a size is not portable)
 
 
 class Plan(NamedTuple):
@@ -65,6 +66,7 @@ class Plan(NamedTuple):
     warps: int            # warps per block of the warp mapping; 0: block;
                           # WIDE / WIDE_GLOBAL: the wide mapping
     stash_smem: bool      # the warp mapping's carry history in shared memory
+    cluster: int = 1      # blocks a cluster (the wide mapping)
 
 
 class WideLayout(NamedTuple):
@@ -72,12 +74,6 @@ class WideLayout(NamedTuple):
     threads: int
     smem: int             # dynamic shared bytes
     scratch: int          # global scratch bytes: history, exchange if global
-
-
-def wide_deep(K: int, A: int) -> bool:
-    """Whether the wide mapping runs its deep kernel (more than
-    WIDE_GROUPS groups a thread, a double-buffered exchange)."""
-    return K // A > WIDE_GROUPS * WIDE_THREADS
 
 
 def history_floats(T: int, D: int, K: int) -> int:
@@ -103,34 +99,58 @@ def wide_history_floats(K: int, A: int, D: int, T: int) -> int:
     return max(T - 3, 0) * (2 * D + 1) * (K // A)
 
 
-def wide_layout(K: int, A: int, D: int, T: int, exchange_global: bool,
-                itemsize: int = 4) -> WideLayout:
-    """The host twin of csrc/grad.cuh's grad_wide_layout: a thread a
-    fusion group (G = K/A, up to WIDE_THREADS); shared memory holds the
-    block reductions' scratch and, unless ``exchange_global``, the
-    exchange of the members' carry cotangents, (2D+1)K scalars (twice
-    that for the deep kernel, ``wide_deep``); global scratch holds the
-    history (``wide_history_floats``) and, with ``exchange_global``, the
-    exchange."""
-    G = K // A
-    xch = (2 if wide_deep(K, A) else 1) * (2 * D + 1) * K
-    return WideLayout(min(WIDE_THREADS, -(-G // 32) * 32),
+def wide_layout(K: int, A: int, D: int, T: int, C: int,
+                exchange_global: bool, itemsize: int = 4) -> WideLayout:
+    """The host twin of csrc/grad.cuh's grad_wide_layout: one block of a
+    cluster of ``C`` that walks a track, rank r owning the Gc = ceil(G/C)
+    fusion groups from r*Gc, a thread up to two of them (at most
+    WIDE_THREADS threads); shared memory holds the block reductions'
+    scratch and, unless ``exchange_global``, the rank's slice of the
+    exchange, its members' (2D+1)*Gc*A carry cotangents; the cluster's
+    global scratch (``scratch``) holds the history
+    (``wide_history_floats``) and, with ``exchange_global``, the C
+    slices."""
+    Gc = -(-(K // A) // C)
+    xch = (2 * D + 1) * Gc * A
+    return WideLayout(min(WIDE_THREADS, -(-Gc // 32) * 32),
                       (RED_SCALARS + (0 if exchange_global else xch))
                       * itemsize,
                       (wide_history_floats(K, A, D, T)
-                       + (xch if exchange_global else 0)) * itemsize)
+                       + (C * xch if exchange_global else 0)) * itemsize)
+
+
+def cluster_size(K: int, A: int, D: int, T: int, smem_limit: int,
+                 itemsize: int = 4) -> tuple[int, bool]:
+    """The wide mapping's blocks a cluster and whether its exchange sits
+    in global scratch: the smallest of CLUSTER_SIZES at which a thread
+    owns at most WIDE_GROUPS groups and a block's slice of the exchange
+    fits ``smem_limit``; where none fits, the smallest at which the
+    groups do, with the exchange in global scratch."""
+    G = K // A
+    sizes = [C for C in CLUSTER_SIZES
+             if -(-G // C) <= WIDE_GROUPS * WIDE_THREADS]
+    if not sizes:
+        raise ValueError(f"{G} fusion groups pass {CLUSTER_SIZES[-1]} "
+                         f"blocks of {WIDE_THREADS} threads")
+    for C in sizes:
+        if wide_layout(K, A, D, T, C, False, itemsize).smem <= smem_limit:
+            return C, False
+    return sizes[0], True
 
 
 def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
          itemsize: int = 4, mapping: str | None = None,
-         stash: str | None = None, P: int = 0) -> Plan:
+         stash: str | None = None, P: int = 0,
+         cluster: int | None = None) -> Plan:
     """K2's mapping for one launch: the warp mapping for K <= WARP_MAX_K,
     the block mapping up to BLOCK_MAX_K, the wide mapping above, up to
-    ``forward_kernel.MAX_SLOTS["K2"]`` with at most DEEP_GROUPS groups a
-    thread (``mapping`` "warp"/"block"/"wide" forces one).  The wide
-    mapping keeps its exchange in shared memory where ``wide_layout``'s
-    block fits ``smem_limit``, else in global scratch (Plan WIDE_GLOBAL;
-    ``stash`` "smem"/"global" forces where).  The warp mapping keeps the carry history in shared memory where it fits:
+    ``forward_kernel.MAX_SLOTS["K2"]`` slots and ``MAX_GROUPS["K2"]``
+    fusion groups (``mapping`` "warp"/"block"/"wide" forces one).  The
+    wide mapping takes ``cluster_size``'s blocks a cluster (``cluster``
+    forces it) and keeps its exchange in shared memory where a block's
+    slice fits ``smem_limit`` (Plan WIDE), else in global scratch
+    (WIDE_GLOBAL; ``stash`` "smem"/"global" forces where).  The warp
+    mapping keeps the carry history in shared memory where it fits:
     where one warp's slice with it fits ``smem_limit`` (the opt-in limit a
     block may ask for) and, with the warps per block of WARPS that keep the
     most warps resident on an SM (``occupancy(warps, stash_smem)`` gives
@@ -142,17 +162,27 @@ def plan(K: int, A: int, D: int, T: int, smem_limit: int, occupancy,
                           if K <= BLOCK_MAX_K else "wide")
     if mapping == "wide":
         limit = forward_kernel.MAX_SLOTS["K2"]
-        if K > limit or K // A > DEEP_GROUPS * WIDE_THREADS:
+        groups = forward_kernel.MAX_GROUPS["K2"]
+        if K > limit or K // A > groups:
             raise ValueError(f"the wide mapping takes K <= {limit} and at "
-                             f"most {DEEP_GROUPS * WIDE_THREADS} fusion "
-                             f"groups, got K={K}, A={A}")
-        fits = wide_layout(K, A, D, T, False, itemsize).smem <= smem_limit
-        if stash == "smem" and not fits:
-            raise ValueError(f"the wide mapping's exchange ({K=}, {D=}) "
-                             f"does not fit {smem_limit} bytes of shared "
-                             "memory")
-        return Plan(WIDE if fits and stash != "global" else WIDE_GLOBAL,
-                    False)
+                             f"most {groups} fusion groups, got K={K}, "
+                             f"A={A}")
+        if cluster is None:
+            C, glob = cluster_size(K, A, D, T, smem_limit, itemsize)
+        elif cluster in CLUSTER_SIZES and (
+                -(-(K // A) // cluster) <= WIDE_GROUPS * WIDE_THREADS):
+            C = cluster
+            glob = wide_layout(K, A, D, T, C, False,
+                               itemsize).smem > smem_limit
+        else:
+            raise ValueError(f"{cluster} blocks a cluster do not take "
+                             f"{K // A} fusion groups")
+        if stash == "smem" and glob:
+            raise ValueError(f"the wide mapping's exchange ({K=}, {D=}, "
+                             f"{C} blocks a cluster) does not fit "
+                             f"{smem_limit} bytes of shared memory")
+        return Plan(WIDE_GLOBAL if glob or stash == "global" else WIDE,
+                    False, C)
     if mapping == "block":
         if K > forward_kernel.BLOCK_MAX_K:
             raise ValueError(f"the block mapping takes K <= "
@@ -187,20 +217,22 @@ def partial_bytes(K: int, A: int, itemsize: int = 4) -> int:
 def grid(B: int, T: int, D: int, K: int, pl: Plan, sms: int, occupancy: int,
          itemsize: int = 4, A: int = 0, budget: int | None = None):
     """(blocks, scratch floats) of a persistent launch on ``sms`` SMs: as
-    many blocks as the card keeps resident (``occupancy`` blocks per SM),
-    no more than the tracks need, and no more than ``budget`` bytes (None:
+    many blocks as the card keeps resident (``occupancy`` blocks per SM;
+    the wide mapping: clusters of ``pl.cluster`` blocks on the card), no
+    more than the tracks need, and no more than ``budget`` bytes (None:
     cuda_lib.SCRATCH_BUDGET; ``setup`` passes ``cuda_lib.scratch_budget``,
-    which the card's free memory bounds too) of the buffers a block takes
-    in global memory: its row of partials (``partial_bytes``) and its
-    global scratch (the carry history of the block, or of each warp; the
-    wide mapping's ``wide_layout`` scratch: history and, at WIDE_GLOBAL,
-    the exchange).  Raises RuntimeError, naming the bytes, where one block
-    alone passes the budget."""
+    which the card's free memory bounds too) of the buffers a block (a
+    cluster) takes in global memory: its row of partials
+    (``partial_bytes``) and its global scratch (the carry history of the
+    block, or of each warp; the wide mapping's ``wide_layout`` scratch:
+    history and, at WIDE_GLOBAL, the exchange).  Raises RuntimeError,
+    naming the bytes, where one block (cluster) alone passes the
+    budget."""
     budget = cuda_lib.SCRATCH_BUDGET if budget is None else budget
     if pl.warps < 0:
-        scratch = wide_layout(K, A, D, T, pl.warps == WIDE_GLOBAL,
-                              itemsize).scratch
-        nblk = min(B, sms * max(1, occupancy))
+        scratch = wide_layout(K, A, D, T, pl.cluster,
+                              pl.warps == WIDE_GLOBAL, itemsize).scratch
+        nblk = min(B, max(1, occupancy))
     else:
         scratch = (0 if pl.stash_smem else
                    max(1, pl.warps) * history_floats(T, D, K) * itemsize)
@@ -214,27 +246,37 @@ def grid(B: int, T: int, D: int, K: int, pl: Plan, sms: int, occupancy: int,
             "card can give it; split the longest tracks' bucket or free "
             "device memory")
     nblk = max(1, min(nblk, budget // per_block))
-    return nblk, nblk * scratch // 4
+    return nblk * pl.cluster, nblk * scratch // 4
 
 
-def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
-          itemsize: int, mapping=None, stash=None, P: int = 0):
-    """The plan and grid of one K2 (``occupancy_fn`` extrack_grad_occupancy)
-    or K3 launch on ``dev`` (``P`` > 0: variable dt): (Plan, blocks, global
-    scratch floats); the grid's budget is ``cuda_lib.scratch_budget(dev, K)``,
-    and a block that alone passes it
-    raises, naming the batch's shape."""
-    def occ(warps, smem):
-        n = occupancy_fn(D, K, A, T, warps, int(smem), P)
+def setup(lib, kernel: str, B: int, T: int, D: int, K: int, A: int, dev,
+          itemsize: int, mapping=None, stash=None, P: int = 0,
+          cluster: int | None = None):
+    """The plan and grid of one K2 (``kernel`` "grad") or K3 ("hvp")
+    launch on ``dev`` (``P`` > 0: variable dt): (Plan, blocks, global
+    scratch floats); the grid's budget is ``cuda_lib.scratch_budget(dev,
+    K)``, and a block (a cluster) that alone passes it raises, naming the
+    batch's shape, as does a plan the card cannot keep one block (cluster)
+    of resident."""
+    def occ(warps, arg):
+        # the warp and block mappings: blocks an SM (arg: stash_smem); the
+        # wide mapping: clusters of ``arg`` blocks on the card
+        query = "cluster_occupancy" if warps < 0 else "occupancy"
+        n = getattr(lib, f"extrack_{kernel}_{query}")(D, K, A, T, warps,
+                                                      int(arg), P)
         if n < 0:
             cuda_lib.check(-n, "occupancy query")
         return n
     pl = plan(K, A, D, T, cuda_lib.smem_bytes("extrack_grad_smem", dev.index),
-              occ, itemsize, mapping, stash, P)
+              occ, itemsize, mapping, stash, P, cluster)
+    resident = occ(pl.warps, pl.cluster if pl.warps < 0 else pl.stash_smem)
+    if resident == 0:
+        raise RuntimeError(
+            f"the card keeps no block of K2's plan {pl} resident (K={K}, "
+            f"A={A}, D={D}, T={T}, {itemsize}-byte scalars)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     try:
-        nblk, scratch = grid(B, T, D, K, pl, sms,
-                             occ(pl.warps, pl.stash_smem), itemsize, A,
+        nblk, scratch = grid(B, T, D, K, pl, sms, resident, itemsize, A,
                              cuda_lib.scratch_budget(dev, K))
     except RuntimeError as e:
         raise RuntimeError(f"the batch of {B} tracks of {T} frames "
@@ -243,11 +285,12 @@ def setup(lib, occupancy_fn, B: int, T: int, D: int, K: int, A: int, dev,
 
 
 def launch(data, tabs, min_len: int, mapping: str | None = None,
-           stash: str | None = None):
+           stash: str | None = None, cluster: int | None = None):
     """Launch K2 on the current stream.  Returns logL (B,), d(sum logL)/d l2
     (B, T, D) and the table cotangents, shaped like ``tabs`` (with
     variable dt the stream's last, its rows past each track's length 0).
-    ``mapping`` and ``stash`` force ``plan``'s choices (tests, tools)."""
+    ``mapping``, ``stash`` and ``cluster`` force ``plan``'s choices (tests,
+    tools)."""
     global LAUNCHES
     xs = data[0]
     B, T, D = xs.shape
@@ -256,22 +299,23 @@ def launch(data, tabs, min_len: int, mapping: str | None = None,
     P = forward_kernel.stream_patterns(tabs)
     lib = cuda_lib.library()
     dev = xs.device
-    pl, nblk, nscratch = setup(lib, lib.extrack_grad_occupancy, B, T, D, K,
-                               A, dev, 4, mapping, stash, P)
+    pl, nblk, nscratch = setup(lib, "grad", B, T, D, K, A, dev, 4, mapping,
+                               stash, P, cluster)
     ncols = 6 * K + 4 * K * A
     logl = torch.empty(B, dtype=torch.float32, device=dev)
     ct_l2 = torch.zeros((B, T, D), dtype=torch.float32, device=dev)
     ct_tab = torch.empty(ncols, dtype=torch.float32, device=dev)
     ct_s2 = torch.zeros_like(tabs[10]) if P else None
     scratch = torch.empty(max(1, nscratch), dtype=torch.float32, device=dev)
-    partial = torch.empty(nblk * ncols, dtype=torch.float32, device=dev)
+    partial = torch.empty(nblk // pl.cluster * ncols, dtype=torch.float32,
+                          device=dev)
     rc = lib.extrack_grad(
         *(t.data_ptr() for t in (*data, *tabs[:10])),
         *(None if t is None else t.data_ptr()
           for t in (tabs[10] if P else None, logl, ct_l2, ct_tab, ct_s2,
                     scratch, partial)),
         B, T, D, K, A, P, int(min_len), nblk, pl.warps, int(pl.stash_smem),
-        torch.cuda.current_stream(dev).cuda_stream)
+        pl.cluster, torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "gradient")
     LAUNCHES += 1
     vecs = ct_tab[:6 * K].view(6, K).unbind(0)

@@ -33,15 +33,16 @@ PLAIN_CALLS = 0
 
 
 def launch(data, tabs, l2_dot, tabs_dot, min_len: int,
-           mapping: str | None = None, stash: str | None = None):
+           mapping: str | None = None, stash: str | None = None,
+           cluster: int | None = None):
     """Launch K3 on the current stream.  ``data`` and ``tabs`` as for K2,
     ``l2_dot`` and ``tabs_dot`` their tangents (same shapes).  Returns
     (logL, its tangent), (d(sum logL)/d l2, its tangent) and the table
     cotangents with their tangents (with variable dt the stream's last),
     each as (value, tangent) pairs.  The mapping is K2's
     (``grad_kernel.plan`` on dual scalars: warp, block, or wide past 1024
-    slots up to 65536 and 16384 fusion groups); ``mapping`` and ``stash``
-    force it."""
+    slots, a cluster of blocks a track, up to 65536 slots and 16384
+    fusion groups); ``mapping``, ``stash`` and ``cluster`` force it."""
     global LAUNCHES
     xs, l2 = data[0], data[1]
     B, T, D = xs.shape
@@ -57,9 +58,8 @@ def launch(data, tabs, l2_dot, tabs_dot, min_len: int,
     def dual(v, t):
         return torch.stack([v, t], dim=-1).contiguous()
 
-    pl, nblk, nscratch = grad_kernel.setup(lib, lib.extrack_hvp_occupancy,
-                                           B, T, D, K, A, dev, 8, mapping,
-                                           stash, P)
+    pl, nblk, nscratch = grad_kernel.setup(lib, "hvp", B, T, D, K, A, dev,
+                                           8, mapping, stash, P, cluster)
     ncols = 6 * K + 4 * K * A
     f32 = dict(dtype=torch.float32, device=dev)
     logl = torch.empty((B, 2), **f32)
@@ -67,14 +67,14 @@ def launch(data, tabs, l2_dot, tabs_dot, min_len: int,
     ct_tab = torch.empty((ncols, 2), **f32)
     ct_s2 = torch.zeros((B, T - 1, P, 2), **f32) if P else None
     scratch = torch.empty(max(1, nscratch), **f32)
-    partial = torch.empty(nblk * ncols * 2, **f32)
+    partial = torch.empty(nblk // pl.cluster * ncols * 2, **f32)
     duals = [dual(t, d) for t, d in zip(tabs, tabs_dot)]
     args = (xs, dual(l2, l2_dot), data[2], data[3], *duals[:10],
             duals[10] if P else None, logl, ct_l2, ct_tab, ct_s2, scratch,
             partial)
     rc = lib.extrack_hvp(
         *(None if t is None else t.data_ptr() for t in args), B, T, D, K, A,
-        P, int(min_len), nblk, pl.warps, int(pl.stash_smem),
+        P, int(min_len), nblk, pl.warps, int(pl.stash_smem), pl.cluster,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "Hessian-vector product")
     LAUNCHES += 1

@@ -1503,8 +1503,8 @@ def test_cuda_wide_k2_k3_match_plain(cuda, S, W, n, D, dt):
     K, A = S ** W, S ** n
     dev_index = cuda.index or 0
     pl, _, _ = grad_kernel.setup(
-        cuda_lib.library(), cuda_lib.library().extrack_grad_occupancy,
-        24, T, D, K, A, torch.device("cuda", dev_index), 4)
+        cuda_lib.library(), "grad", 24, T, D, K, A,
+        torch.device("cuda", dev_index), 4)
     assert pl.warps == grad_kernel.WIDE
     before = (grad_kernel.LAUNCHES, hvp_kernel.LAUNCHES,
               grad_kernel.PLAIN_CALLS + hvp_kernel.PLAIN_CALLS)
@@ -1582,9 +1582,10 @@ def test_cuda_k2_k3_wide_mapping_on_small_registers(cuda, S, W, D):
 def test_grad_layout(cuda):
     """K2's and K3's wide block as the source defines it
     (``extrack_grad_layout``) against the host twin ``wide_layout``, at
-    every register of the envelope's shapes, both exchanges, float and
-    dual numbers; below 1024 slots the default mappings stay the warp and
-    block ones."""
+    every register of the envelope's shapes, every cluster size, both
+    exchanges, float and dual numbers; below 1024 slots the default
+    mappings stay the warp and block ones, above them the wide mapping's
+    clusters, each of which the card keeps resident."""
     for S, W, n in ((6, 4, 1), (2, 11, 2), (3, 7, 1), (5, 5, 1), (4, 6, 1),
                     (2, 12, 1), (3, 5, 1), (6, 5, 1), (3, 8, 1), (5, 6, 1),
                     (4, 7, 1), (2, 13, 1), (2, 14, 1), (2, 14, 2),
@@ -1593,26 +1594,32 @@ def test_grad_layout(cuda):
         for D in (1, 2, 3):
             for T in (2, 9, 40):
                 for warps in (grad_kernel.WIDE, grad_kernel.WIDE_GLOBAL):
-                    for item in (4, 8):
-                        assert cuda_lib.layout(
-                            "grad", K, A, D, T, warps, item) == tuple(
-                            grad_kernel.wide_layout(
-                                K, A, D, T,
-                                warps == grad_kernel.WIDE_GLOBAL, item))
+                    for C in grad_kernel.CLUSTER_SIZES:
+                        for item in (4, 8):
+                            assert cuda_lib.layout(
+                                "grad", K, A, D, T, warps, C,
+                                item) == tuple(grad_kernel.wide_layout(
+                                    K, A, D, T, C,
+                                    warps == grad_kernel.WIDE_GLOBAL, item))
     smem = cuda_lib.smem_bytes("extrack_grad_smem", cuda.index or 0)
+    lib = cuda_lib.library()
     for K, A, want in ((64, 2, 4), (243, 3, 0), (1024, 4, 0),
                        (4096, 4, grad_kernel.WIDE),
-                       (16384, 4, grad_kernel.WIDE_GLOBAL),
-                       (46656, 6, grad_kernel.WIDE_GLOBAL),
-                       (65536, 4, grad_kernel.WIDE_GLOBAL)):
+                       (16384, 4, grad_kernel.WIDE),
+                       (46656, 6, grad_kernel.WIDE),
+                       (65536, 4, grad_kernel.WIDE)):
         pl = grad_kernel.plan(K, A, 3, 20, smem, lambda w, s: 1, 8)
         assert pl.warps == want
+        if want < 0:
+            for query in (lib.extrack_grad_cluster_occupancy,
+                          lib.extrack_hvp_cluster_occupancy):
+                assert query(3, K, A, 20, pl.warps, pl.cluster, 0) > 0
 
 
-# K1, K2 and K3 past 4096 slots (S, W, n, D, dt): 6^5 and 3^8 on
-# grad_wide_kernel's register count, 5^6 (the GUI's frame_len 6 at 5
-# states), 4^7 and 2^14 on the deep kernel (4 and 8 groups a thread); K1's
-# publish areas in global scratch at 2^14 from D = 2
+# K1, K2 and K3 past 4096 slots (S, W, n, D, dt): 6^5 (one block a
+# cluster) and 3^8, 5^6 (the GUI's frame_len 6 at 5 states), 4^7 and 2^14
+# on clusters of several blocks; K1's publish areas in global scratch at
+# 2^14 from D = 2
 PAST_4096_GRAD_CASES = [
     (6, 5, 1, 1, None), (3, 8, 1, 2, "track"), (5, 6, 1, 1, "step"),
     (5, 6, 1, 3, None), (4, 7, 1, 2, None), (4, 7, 1, 3, "track"),
@@ -1671,7 +1678,7 @@ def test_cuda_k1_k2_k3_past_4096_slots_match_plain(cuda, S, W, n, D, dt):
 
 
 # K1, K2 and K3 past 16384 slots (S, W, n, D, dt): 6^6 (the GUI's frame_len
-# 6 at 6 states, 8 groups a thread) and 4^8 (16 groups a thread) at D =
+# 6 at 6 states) and 4^8 (16384 groups) at D =
 # 1..3 with constant and variable dt, 2^15 (16384 groups) with K3's
 # columns; 2^16 at two sub-steps (16384 groups of 4)
 PAST_16384_GRAD_CASES = [
@@ -1725,9 +1732,69 @@ def test_cuda_k1_k2_k3_past_16384_slots_match_plain(cuda, S, W, n, D, dt):
                                           nb_substeps=n, min_len=2)
 
 
+# K2 and K3 on the wide mapping's clusters past 2048 fusion groups (S, W,
+# D, dt): 5^6 (two blocks a cluster), 6^6 (4 to 16) and 4^8 (8 and 16)
+CLUSTER_GRAD_CASES = [
+    (5, 6, 1, None), (5, 6, 2, "track"), (5, 6, 3, "step"),
+    (6, 6, 1, "track"), (6, 6, 2, None), (6, 6, 3, None),
+    (4, 8, 1, None), (4, 8, 2, "step"), (4, 8, 3, "track")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D,dt", CLUSTER_GRAD_CASES)
+def test_cuda_cluster_k2_k3_match_plain(cuda, S, W, D, dt):
+    # through the wrappers (whose plan is a cluster of more than one
+    # block) against the plain versions; two launches of K2 and of K3 bit
+    # for bit; K2 with its exchange in global scratch bit for bit; K2 on
+    # twice the plan's cluster size (another order of block sums) within
+    # the float32 tolerances
+    T = 7
+    args = _case(cuda, S, 1, 8, T, D, seed=3 * S * W + D, per_peak=(D == 2),
+                 dt=dt)
+    kw = dict(window=W, nb_substeps=1, min_len=2)
+    data_, tabs = _kernel_args(args, W)
+    K = S ** W
+    P = forward_kernel.stream_patterns(tabs)
+    dev = torch.device("cuda", cuda.index or 0)
+    lib = cuda_lib.library()
+    pl, nblk, _ = grad_kernel.setup(lib, "grad", 8, T, D, K, S, dev, 4, P=P)
+    assert pl.warps == grad_kernel.WIDE and pl.cluster > 1
+    assert nblk % pl.cluster == 0
+    v, g = grad_kernel.value_and_table_grads(*args, **kw)
+    v0, g0 = grad_kernel.value_and_table_grads_plain(*args, **kw)
+    torch.testing.assert_close(v, v0, rtol=2e-5, atol=0.0)
+    for k in g:
+        torch.testing.assert_close(g[k], g0[k], rtol=2e-3, atol=2e-3)
+    hv, hv0 = _table_hvp64(args, S + W + D, **kw)
+    for name in hv0:
+        scale = float(hv0[name].abs().max())
+        torch.testing.assert_close(hv[name].double(), hv0[name], rtol=5e-3,
+                                   atol=1e-3 * scale)
+    a = grad_kernel.launch(data_, tabs, 2)
+    b = grad_kernel.launch(data_, tabs, 2)
+    c = grad_kernel.launch(data_, tabs, 2, stash="global")
+    for x, y, z in zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2]),
+                       (c[0], c[1], *c[2])):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    if pl.cluster < 16:
+        d = grad_kernel.launch(data_, tabs, 2, cluster=2 * pl.cluster)
+        for x, y in zip((a[0], a[1], *a[2]), (d[0], d[1], *d[2])):
+            torch.testing.assert_close(x, y, rtol=2e-4,
+                                       atol=2e-5 * float(y.abs().max()))
+    rng = np.random.default_rng(K + D)
+    dots = [torch.tensor(rng.normal(0, 1e-2, t.shape), dtype=torch.float32,
+                         device=cuda) for t in tabs]
+    l2_dot = torch.zeros_like(data_[1])
+    h1 = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2)
+    h2 = hvp_kernel.launch(data_, tabs, l2_dot, dots, 2)
+    for x, y in zip([*h1[0], *h1[1], *h1[2][0], *h1[2][1]],
+                    [*h2[0], *h2[1], *h2[2][0], *h2[2][1]]):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 def test_cuda_hessian_columns_at_32768_slots(cuda):
-    # K3's Hessian columns at 2^15 (16384 fusion groups, sixteen a thread)
+    # K3's Hessian columns at 2^15 (16384 fusion groups, clusters of 16)
     # through hessian_hvp_exact against the plain double backward, and
     # symmetric
     tr = np.full((2, 2), 0.1) + np.eye(2) * 0.8

@@ -101,41 +101,42 @@ def _card_budget(monkeypatch, K, card_bytes=80 * 10 ** 9, held=0):
 @pytest.mark.parametrize("D", [1, 2, 3])
 def test_k2_k3_plans_past_16384_slots_fill_the_card(monkeypatch, D,
                                                     itemsize):
-    # 6^6 (7776 groups, 8 a thread) and 4^8 (16384 groups, 16 a thread):
-    # the deep kernel with its exchange in global scratch, and one block
-    # per SM for 2^12 tracks of 20 frames under the fit's budget on an
-    # 80 GB card (the common 1 GiB cap would leave most SMs idle)
-    def occ(warps, smem):
-        return 1
+    # 6^6 (7776 groups) and 4^8 (16384 groups): the wide mapping in
+    # clusters of C blocks (the smallest C at which a thread owns at most
+    # two groups and a block's slice of the exchange fits an H100's
+    # opt-in), as many clusters as the card keeps resident for 2^12
+    # tracks of 2..40 frames under the fit's budget on an 80 GB card
+    want = {(6, 4): (4, 8, 8), (6, 8): (8, 16, 16), (4, 4): (8, 8, 8),
+            (4, 8): (8, 16, 16)}
     for S, W in ((6, 6), (4, 8)):
         K, A = S ** W, S
         G = K // A
+        C = want[(S, itemsize)][D - 1]
+        resident = 132 // C           # one block an SM
         budget = _card_budget(monkeypatch, K)
         assert budget == cuda_lib.WIDE_SCRATCH_BUDGET == 16 << 30
         for T in (2, 9, 20, 40):
-            pl = grad_kernel.plan(K, A, D, T, SMEM, occ, itemsize)
-            assert pl == grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False)
-            assert grad_kernel.wide_deep(K, A)
-            lay = grad_kernel.wide_layout(K, A, D, T, True, itemsize)
-            assert lay.threads == 1024
-            assert -(-G // lay.threads) == {7776: 8, 16384: 16}[G] <= (
-                grad_kernel.DEEP_GROUPS)
+            pl = grad_kernel.plan(K, A, D, T, SMEM, None, itemsize)
+            assert pl == grad_kernel.Plan(grad_kernel.WIDE, False, C)
+            lay = grad_kernel.wide_layout(K, A, D, T, C, False, itemsize)
+            Gc = -(-G // C)
+            assert lay.threads == min(1024, -(-Gc // 32) * 32)
+            assert -(-Gc // lay.threads) <= grad_kernel.WIDE_GROUPS
             hist = max(T - 3, 0) * (2 * D + 1) * G
-            xch = 2 * (2 * D + 1) * K
-            assert lay.smem == 64 * itemsize
-            assert lay.scratch == (hist + xch) * itemsize
+            assert lay.smem == (64 + (2 * D + 1) * Gc * A) * itemsize <= SMEM
+            assert lay.scratch == hist * itemsize
             per = lay.scratch + grad_kernel.partial_bytes(K, A, itemsize)
-            nblk, floats = grad_kernel.grid(1 << 12, T, D, K, pl, 132, 1,
-                                            itemsize, A, budget)
-            assert (nblk, floats * 4) == (132, 132 * lay.scratch)
-            assert nblk * per <= budget
-            # under the common cap a block of 4^8 at T = 20 takes 17.3 MB
-            # (K2) or 34.5 MB (K3): fewer blocks than SMs
-            if T == 20 and D == 3:
-                old = grad_kernel.grid(1 << 12, T, D, K, pl, 132, 1,
-                                       itemsize, A,
-                                       cuda_lib.SCRATCH_BUDGET)[0]
-                assert old == cuda_lib.SCRATCH_BUDGET // per < 132
+            nblk, floats = grad_kernel.grid(1 << 12, T, D, K, pl, 132,
+                                            resident, itemsize, A, budget)
+            assert (nblk, floats * 4) == (resident * C,
+                                          resident * lay.scratch)
+            assert resident * per <= budget
+            # one history and one partial row a cluster: the common cap
+            # runs them all too (a cluster of 4^8 at T = 20, D = 3 takes
+            # 26.6 MB as K3's dual numbers)
+            assert grad_kernel.grid(1 << 12, T, D, K, pl, 132, resident,
+                                    itemsize, A, cuda_lib.SCRATCH_BUDGET
+                                    )[0] == resident * C
         # the card's free memory bounds the budget too: half of what is left
         held = 80 * 10 ** 9 - 10 * 2 ** 30
         assert _card_budget(monkeypatch, K, held=held) == 5 * 2 ** 30

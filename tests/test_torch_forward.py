@@ -592,59 +592,52 @@ def test_k1_past_4096_slots_plans_fit_every_register(D):
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("D", [1, 2, 3])
 def test_k2_k3_past_4096_slots_plans_fit_every_register(D, itemsize):
-    # K2 (floats) and K3 (dual numbers) past 4096 slots: at most 1024
-    # threads and DEEP_GROUPS groups a thread (the deep kernel past
-    # WIDE_GROUPS, its exchange double-buffered); the exchange in shared
-    # memory only where the block fits the opt-in; the blocks' scratch and
-    # partial rows within the budget handed in
-    def occ(warps, smem):
-        return 1
-    deep = shared = 0
+    # K2 (floats) and K3 (dual numbers) past 4096 slots: the wide mapping
+    # in clusters of C blocks of at most 1024 threads, a thread at most
+    # WIDE_GROUPS groups; each block's slice of the exchange in its shared
+    # memory (every register here fits at some C); the clusters' scratch
+    # and partial rows within the budget handed in
+    clustered = 0
     for S, W, n in PAST_4096_FIT:
         K, A = S ** W, S ** n
         G = K // A
         for T in (2, 9, 20, 40):
-            pl = grad_kernel.plan(K, A, D, T, SMEM, occ, itemsize)
-            assert pl.warps in (grad_kernel.WIDE, grad_kernel.WIDE_GLOBAL)
-            glob = pl.warps == grad_kernel.WIDE_GLOBAL
-            lay = grad_kernel.wide_layout(K, A, D, T, glob, itemsize)
+            pl = grad_kernel.plan(K, A, D, T, SMEM, None, itemsize)
+            assert pl.warps == grad_kernel.WIDE
+            C = pl.cluster
+            assert C in grad_kernel.CLUSTER_SIZES
+            lay = grad_kernel.wide_layout(K, A, D, T, C, False, itemsize)
+            Gc = -(-G // C)
             assert lay.threads % 32 == 0 and lay.threads <= 1024
-            per_thread = -(-G // lay.threads)
-            xch = (2 * D + 1) * K
-            if grad_kernel.wide_deep(K, A):
-                deep += 1
-                assert grad_kernel.WIDE_GROUPS < per_thread <= (
-                    grad_kernel.DEEP_GROUPS)
-                xch *= 2
-            else:
-                assert per_thread <= grad_kernel.WIDE_GROUPS
-            hist = max(T - 3, 0) * (2 * D + 1) * G
-            if glob:
-                assert lay.smem == 64 * itemsize
-                assert lay.scratch == (hist + xch) * itemsize
-                assert (64 + xch) * itemsize > SMEM
-            else:
-                shared += 1
-                assert lay.smem == (64 + xch) * itemsize <= SMEM
-                assert lay.scratch == hist * itemsize
+            assert -(-Gc // lay.threads) <= grad_kernel.WIDE_GROUPS
+            xch = (2 * D + 1) * Gc * A
+            assert lay.smem == (64 + xch) * itemsize <= SMEM
+            assert lay.scratch == max(T - 3, 0) * (2 * D + 1) * G * itemsize
+            # the smallest such C: one size less leaves a thread more
+            # than two groups or a slice past the opt-in
+            if C > 1:
+                half = grad_kernel.wide_layout(K, A, D, T, C // 2, False,
+                                               itemsize)
+                assert (-(-G // (C // 2)) > 2 * 1024
+                        or half.smem > SMEM)
+                clustered += 1
             per = lay.scratch + grad_kernel.partial_bytes(K, A, itemsize)
+            resident = 132 // C
             for budget in (cuda_lib.SCRATCH_BUDGET, 7 * per):
                 nblk, floats = grad_kernel.grid(1 << 14, T, D, K, pl, 132,
-                                                1, itemsize, A, budget)
-                assert nblk == min(132, budget // per)
-                assert floats * 4 == nblk * lay.scratch
-                assert nblk * per <= budget
-    # the deep kernel at 3 states W = 8, 4 at W = 7, 5 at W = 6 and 2 at
-    # W = 13 and 14 (3, 4, 4, 4 and 8 groups a thread); 6^5 (1296 groups)
-    # stays on grad_wide_kernel
-    assert deep > 0 and not grad_kernel.wide_deep(6 ** 5, 6)
-    assert [-(-(S ** W // S) // 1024) for S, W in
-            ((3, 8), (4, 7), (5, 6), (2, 14))] == [3, 4, 4, 8]
-    if (D, itemsize) == (1, 4):
-        assert shared > 0     # 6^5 keeps its exchange in shared memory
+                                                resident, itemsize, A,
+                                                budget)
+                assert nblk == C * min(resident, budget // per)
+                assert floats * 4 == nblk // C * lay.scratch
+                assert nblk // C * per <= budget
+    # past 2048 groups (3 states at W = 8, 4 at W = 7, 5 at W = 6, 2 at W
+    # = 13 and 14) a cluster of more than one block
+    assert clustered > 0
+    assert [grad_kernel.cluster_size(S ** W, S, D, 20, SMEM, itemsize)[0]
+            > 1 for S, W in ((3, 8), (4, 7), (5, 6), (2, 14))] == [True] * 4
     # past 16384 groups the wide mapping refuses
     with pytest.raises(ValueError, match="at most 16384 fusion groups"):
-        grad_kernel.plan(2 ** 15, 1, D, 20, SMEM, occ, itemsize,
+        grad_kernel.plan(2 ** 15, 1, D, 20, SMEM, None, itemsize,
                          mapping="wide")
 
 

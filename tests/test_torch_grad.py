@@ -275,74 +275,82 @@ def test_k2_plan_wide_mapping_exactly_past_1024_slots(K, A, want):
 def test_k2_wide_layout_and_its_global_variant(K, A, D, itemsize):
     T = 12
     G = K // A
-    # by hand: a thread a group, at most 1024; shared memory holds the 64
-    # scalars of the block reductions and the (2D+1)K exchange; global
-    # scratch the (T-3)(2D+1)G history, and the exchange in the global
-    # variant
-    lay = grad_kernel.wide_layout(K, A, D, T, False, itemsize)
+    # by hand, a cluster of one block: a thread a group, at most 1024;
+    # shared memory holds the 64 scalars of the block reductions and the
+    # (2D+1)K exchange; global scratch the (T-3)(2D+1)G history, and the
+    # exchange in the global variant
+    lay = grad_kernel.wide_layout(K, A, D, T, 1, False, itemsize)
     assert lay == (min(1024, -(-G // 32) * 32),
                    (64 + (2 * D + 1) * K) * itemsize,
                    (T - 3) * (2 * D + 1) * G * itemsize)
-    glob = grad_kernel.wide_layout(K, A, D, T, True, itemsize)
+    glob = grad_kernel.wide_layout(K, A, D, T, 1, True, itemsize)
     assert glob == (lay.threads, 64 * itemsize,
                     lay.scratch + (2 * D + 1) * K * itemsize)
     assert lay.threads * grad_kernel.WIDE_GROUPS >= G
-    # every register of the envelope fits an H100 block's opt-in, dual
-    # numbers at K = 4096 and D = 3 with 2,560 bytes to spare
+    # every register up to 4096 slots fits an H100 block's opt-in in one
+    # block, dual numbers at K = 4096 and D = 3 with 2,560 bytes to spare
     assert lay.smem <= H100_OPTIN
-    # the global variant exactly where the opt-in limit is passed
+    # one block where its exchange fits the opt-in limit; a byte less and
+    # the exchange splits over a cluster of two blocks; the global variant
+    # where no cluster's slice fits
     occ = _occupancy(64, 2, 10)
     assert grad_kernel.plan(K, A, D, T, lay.smem, occ, itemsize) == (
         grad_kernel.Plan(grad_kernel.WIDE, False))
+    half = grad_kernel.wide_layout(K, A, D, T, 2, False, itemsize)
+    assert half.smem < lay.smem
     assert grad_kernel.plan(K, A, D, T, lay.smem - 1, occ, itemsize) == (
+        grad_kernel.Plan(grad_kernel.WIDE, False, 2))
+    assert grad_kernel.plan(K, A, D, T, 64 * itemsize, occ, itemsize) == (
         grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False))
     with pytest.raises(ValueError, match="does not fit"):
-        grad_kernel.plan(K, A, D, T, lay.smem - 1, occ, itemsize,
+        grad_kernel.plan(K, A, D, T, 64 * itemsize, occ, itemsize,
                          stash="smem")
     assert grad_kernel.plan(K, A, D, T, lay.smem, occ, itemsize,
                             stash="global").warps == grad_kernel.WIDE_GLOBAL
 
 
 def test_k2_wide_grid_under_the_stash_budget():
-    lay = grad_kernel.wide_layout(4096, 4, 2, 20, False, 8)
+    lay = grad_kernel.wide_layout(4096, 4, 2, 20, 1, False, 8)
     part = grad_kernel.partial_bytes(4096, 4, 8)
     for pl in (grad_kernel.Plan(grad_kernel.WIDE, False),
                grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False)):
-        per = grad_kernel.wide_layout(4096, 4, 2, 20,
+        per = grad_kernel.wide_layout(4096, 4, 2, 20, 1,
                                       pl.warps == grad_kernel.WIDE_GLOBAL,
                                       8).scratch
-        # one resident block an SM, no more blocks than tracks
-        assert grad_kernel.grid(1 << 20, 20, 2, 4096, pl, 132, 1, 8,
+        # as many clusters as the card keeps resident (132 of one block),
+        # no more than tracks
+        assert grad_kernel.grid(1 << 20, 20, 2, 4096, pl, 132, 132, 8,
                                 A=4) == (132, 132 * per // 4)
-        assert grad_kernel.grid(7, 20, 2, 4096, pl, 132, 1, 8,
+        assert grad_kernel.grid(7, 20, 2, 4096, pl, 132, 132, 8,
                                 A=4) == (7, 7 * per // 4)
     assert lay.scratch == 17 * 5 * 1024 * 8
     assert part == (6 * 4096 + 4 * 4096 * 4) * 8
-    # long tracks: the history and the partial rows cap the blocks at the
-    # budget (by default cuda_lib.SCRATCH_BUDGET)
+    # long tracks: the history and the partial rows cap the clusters at
+    # the budget (by default cuda_lib.SCRATCH_BUDGET)
     T = 4000
-    per = grad_kernel.wide_layout(4096, 4, 3, T, False, 8).scratch
+    per = grad_kernel.wide_layout(4096, 4, 3, T, 1, False, 8).scratch
     nblk, floats = grad_kernel.grid(1 << 20, T, 3, 4096,
                                     grad_kernel.Plan(grad_kernel.WIDE, False),
-                                    132, 1, 8, A=4)
+                                    132, 132, 8, A=4)
     assert nblk == cuda_lib.SCRATCH_BUDGET // (per + part) < 132
     assert floats * 4 == nblk * per
     assert nblk * (per + part) <= cuda_lib.SCRATCH_BUDGET
-    # K3 at 4 states, W = 7, D = 3, T = 20 (the issue's count): history
-    # 487,424 scalars, the double-buffered exchange 2 x 114,688 and the
-    # partial row 360,448, about 8.6 MB a block in dual numbers; the card's
-    # free memory shrinks the grid, and one block past the budget raises
-    glob = grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False)
-    lay = grad_kernel.wide_layout(4 ** 7, 4, 3, 20, True, 8)
+    # K3 at 4 states, W = 7, D = 3, T = 20 in clusters of two with their
+    # exchange in global scratch: history 487,424 scalars, the two slices
+    # 2 x 57,344 and the partial row 360,448, about 7.6 MB a cluster in
+    # dual numbers; the card's free memory shrinks the grid (in clusters
+    # of two blocks), and one cluster past the budget raises
+    glob = grad_kernel.Plan(grad_kernel.WIDE_GLOBAL, False, 2)
+    lay = grad_kernel.wide_layout(4 ** 7, 4, 3, 20, 2, True, 8)
     part = grad_kernel.partial_bytes(4 ** 7, 4, 8)
-    assert lay.scratch == (487424 + 2 * 114688) * 8
+    assert lay.scratch == (487424 + 2 * 57344) * 8
     assert part == 360448 * 8
-    assert grad_kernel.grid(1 << 14, 20, 3, 4 ** 7, glob, 132, 1, 8, A=4,
+    assert grad_kernel.grid(1 << 14, 20, 3, 4 ** 7, glob, 132, 66, 8, A=4,
                             budget=50 * (lay.scratch + part)) == (
-        50, 50 * lay.scratch // 4)
+        100, 50 * lay.scratch // 4)
     with pytest.raises(RuntimeError, match=r"one block's global memory \("
                        rf"{lay.scratch + part} bytes"):
-        grad_kernel.grid(1 << 14, 20, 3, 4 ** 7, glob, 132, 1, 8, A=4,
+        grad_kernel.grid(1 << 14, 20, 3, 4 ** 7, glob, 132, 66, 8, A=4,
                          budget=lay.scratch + part - 1)
 
 

@@ -68,7 +68,8 @@ def test_kernel_sources_present():
         "extrack_hvp_occupancy", "extrack_predict_occupancy",
         "extrack_predict_layout", "extrack_hist_layout",
         "extrack_refine_layout", "extrack_grad_layout",
-        "extrack_forward_layout"}
+        "extrack_forward_layout", "extrack_grad_cluster_occupancy",
+        "extrack_hvp_cluster_occupancy"}
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert cuda_lib.library_path().parent == cuda_lib.BUILD_DIR
 

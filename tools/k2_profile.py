@@ -18,11 +18,12 @@ the kernels with their clock64 marks (``cuda_lib.enable_profile``), runs
 the same launches and prints each section's share of the cycles that the
 tracks' lead threads spent (a cycle count summed over all tracks; the
 marks themselves cost a little, so read shares, not times).
-``--mapping``/``--stash`` force K2's mapping and where its carry history
-(the wide mapping: its exchange of carry cotangents) lives; by default the
-wrapper chooses.  ``--mappings`` times two or more mappings of the same
-launches against each other in one process, in turns (A, B, B, A over
-ROUNDS rounds), and prints each one's median.  ``--tracks`` takes fewer
+``--mapping``/``--stash`` force K2's mapping ("wide:8": the wide mapping
+with 8 blocks a cluster) and where its carry history (the wide mapping:
+its exchange of carry cotangents) lives; by default the wrapper chooses.
+``--mappings`` times two or more mappings of the same launches against
+each other in one process, in turns (A, B, B, A over ROUNDS rounds), and
+prints each one's median.  ``--tracks`` takes fewer
 random walks than the bench's 2^20.  The last line is the card's name
 and power limit.
 """
@@ -45,12 +46,22 @@ SECTIONS = ["forward: carry history writes", "forward: update and fusion",
             "backward: update recomputed", "backward: closing pullback",
             "backward: fusion pullback", "backward: prep_bwd and l2 sums",
             "initial register sums", "partial writes", "", ""]
+# the wide mapping's sections (csrc/grad.cuh kPw*)
+WIDE_SECTIONS = ["forward: fusion steps", "forward: fusion barriers",
+                 "forward: closing", "backward: exchange reads",
+                 "backward: fusion weights recomputed",
+                 "backward: members' pullbacks and writes",
+                 "backward: closing pullback",
+                 "backward: l2 sums, stream rows, barriers",
+                 "backward: barrier before the exchange is reused",
+                 "set-up and partial rows", "", ""]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--split", action="store_true")
-    ap.add_argument("--mapping", choices=("block", "warp", "wide"))
+    ap.add_argument("--mapping", help="block, warp, wide or wide:C (C "
+                    "blocks a cluster)")
     ap.add_argument("--mappings", help="comma-separated mappings to time "
                     "against each other, in turns")
     ap.add_argument("--tracks", type=int, default=1 << 20)
@@ -90,8 +101,16 @@ def main() -> int:
         dots = [1e-3 * torch.randn(t.shape, generator=gen).to(dev)
                 for t in tabs]
         args.append((d, tabs, dots))
-    opts = {k: v for k, v in (("mapping", a.mapping), ("stash", a.stash))
-            if v is not None}
+    def forced(mapping):
+        """The launch options that force ``mapping`` ("wide:C": the wide
+        mapping with C blocks a cluster) and ``--stash``."""
+        name, _, size = (mapping or "").partition(":")
+        return {k: v for k, v in (("mapping", name or None),
+                                  ("stash", a.stash),
+                                  ("cluster", int(size) if size else None))
+                if v is not None}
+
+    opts = forced(a.mapping)
 
     def run():
         for d, tabs, dots in args:
@@ -107,7 +126,7 @@ def main() -> int:
         kernel = 'K3' if a.hvp else 'K2'
         for r in range(ROUNDS):
             for m in (names if r % 2 == 0 else names[::-1]):
-                opts["mapping"] = m
+                opts = forced(m)
                 times[m].append(smoke.cuda_ms(run, REPS, warmup=2))
         for m in names:
             print(f"{kernel} S={S} W={a.window} (K={S ** a.window}) D=2, "
@@ -123,13 +142,16 @@ def main() -> int:
     elif a.split:
         run()
         torch.cuda.synchronize()
-        cuda_lib.profile_counters("grad")
+        unit = "hvp" if a.hvp else "grad"
+        cuda_lib.profile_counters(unit)
         ms = smoke.cuda_ms(run, REPS, warmup=0)
-        cyc = cuda_lib.profile_counters("grad")
+        cyc = cuda_lib.profile_counters(unit)
         total = sum(cyc)
+        wide = (a.mapping.startswith("wide") if a.mapping
+                else S ** a.window > grad_kernel.BLOCK_MAX_K)
         print(f"{what}, profile build: {ms:.3f} ms per pass (marks "
               f"included); lead-thread cycles over {REPS} passes:")
-        for name, c in zip(SECTIONS, cyc):
+        for name, c in zip(WIDE_SECTIONS if wide else SECTIONS, cyc):
             if c:
                 print(f"  {c / total * 100:6.2f}%  {c:16d}  {name}")
     else:

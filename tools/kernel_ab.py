@@ -5,7 +5,7 @@
 (csrc/topk.cu) for two checkouts of the port, alternated on one card.
 
     python3 tools/kernel_ab.py PARENT_ROOT CHANGE_ROOT [--pairs N]
-        [--k1 | --k4 | --wide]
+        [--k1 | --k4 | --wide | --deep]
 
 Each side runs in a process of its own, importing ``extrack_tpu_torch``
 from its root (and building that root's kernels there), at
@@ -38,8 +38,13 @@ times K4 alone: at the bench shape, on the main path's tracks bare, and
 through ``predict_Bs`` (host work included, so more passes).  ``--wide``
 times K2 and K3 alone on their wide mapping at 4 states, W=6 (K=4096)
 and 3 states, W=7 (K=2187), on ``chip_smoke.py``'s phase-16 bench
-(``WIDE16_TRACKS`` walks of lengths 3..10, D=2), and at K=4096 with
-per-track dt in ``BENCH_DT`` (the variable-dt instantiations).
+(``WIDE16_TRACKS`` walks of lengths 3..10, D=2), at K=4096 with
+per-track dt in ``BENCH_DT`` (the variable-dt instantiations), and at
+6^5, 6^4 and 2^12.
+``--deep`` times K2 and K3 past 2048 fusion groups (5^6, 4^7, 6^6, 4^8,
+3^9, D=2) on ``chip_smoke.PAST4096_TRACKS`` walks of lengths 3..10, as
+phases 17 and 19 time them, REPS_DEEP passes a side and round, each side
+on its own plan.
 """
 from __future__ import annotations
 
@@ -106,20 +111,31 @@ def k4_main_path(smoke, dev):
     return bare, entry
 
 
-def wide_times(smoke, dev) -> dict:
-    """K2's and K3's bare times (ms) on the wide mapping at (S, W) = (4, 6)
-    and (3, 7), as ``chip_smoke.py``'s phase 16 times them, and at (4, 6)
-    with per-track dt."""
+WIDE_SHAPES = ((4, 6, False), (3, 7, False), (4, 6, True), (6, 5, False),
+               (6, 4, False), (2, 12, False))
+DEEP_SHAPES = ((5, 6, False), (4, 7, False), (6, 6, False), (4, 8, False),
+               (3, 9, False))
+REPS_DEEP = 5
+
+
+def wide_times(smoke, dev, deep: bool = False) -> dict:
+    """K2's and K3's bare times (ms) on the wide mapping at WIDE_SHAPES:
+    (S, W) = (4, 6) and (3, 7), as ``chip_smoke.py``'s phase 16 times
+    them, (4, 6) with per-track dt, and 6^5, 6^4 and 2^12 (1296, 216 and
+    2048 fusion groups); ``deep``: past 2048 fusion groups instead
+    (DEEP_SHAPES, on ``chip_smoke.PAST4096_TRACKS`` walks, as phases 17
+    and 19 time them)."""
     import torch
 
     from extrack_tpu_torch.core import tables
     from extrack_tpu_torch.ops import forward_kernel, grad_kernel, hvp_kernel
     f32 = dict(dtype=torch.float32, device=dev)
-    benches = {False: smoke.bench_buckets(dev, n=smoke.WIDE16_TRACKS),
-               True: smoke.bench_buckets(dev, n=smoke.WIDE16_TRACKS,
-                                         dt_range=smoke.BENCH_DT)}
+    n = smoke.PAST4096_TRACKS if deep else smoke.WIDE16_TRACKS
+    reps = REPS_DEEP if deep else REPS
+    benches = {False: smoke.bench_buckets(dev, n=n),
+               True: smoke.bench_buckets(dev, n=n, dt_range=smoke.BENCH_DT)}
     out = {}
-    for S, W, dt in ((4, 6, False), (3, 7, False), (4, 6, True)):
+    for S, W, dt in DEEP_SHAPES if deep else WIDE_SHAPES:
         rates = torch.full((S, S), 0.1, **f32)
         rates.fill_diagonal_(0.0)
         gen = torch.Generator(device="cpu").manual_seed(S ** W)
@@ -145,8 +161,8 @@ def wide_times(smoke, dev) -> dict:
                 hvp_kernel.launch(d, t, torch.zeros_like(d[1]), t_dot, 3)
 
         tag = f"S={S} W={W}" + (" dt" if dt else "")
-        out[f"K2 {tag}"] = smoke.cuda_ms(k2, REPS, warmup=2)
-        out[f"K3 {tag}"] = smoke.cuda_ms(k3, REPS, warmup=2)
+        out[f"K2 {tag}"] = smoke.cuda_ms(k2, reps, warmup=2)
+        out[f"K3 {tag}"] = smoke.cuda_ms(k3, reps, warmup=2)
     return out
 
 
@@ -167,8 +183,8 @@ def worker(root: str, only: str) -> None:
         Path(root).resolve()), forward_kernel.__file__
     cuda_lib.library()
     dev = torch.device("cuda", 0)
-    if only == "--wide":
-        print(json.dumps({**wide_times(smoke, dev),
+    if only in ("--wide", "--deep"):
+        print(json.dumps({**wide_times(smoke, dev, only == "--deep"),
                           "lib": str(cuda_lib.library_path())}), flush=True)
         return
     f32 = dict(dtype=torch.float32, device=dev)
@@ -278,6 +294,7 @@ def main() -> int:
     only.add_argument("--k1", action="store_true")
     only.add_argument("--k4", action="store_true")
     only.add_argument("--wide", action="store_true")
+    only.add_argument("--deep", action="store_true")
     a = ap.parse_args()
     sides = {"parent": a.parent, "change": a.change}
     times = {"parent": [], "change": []}
@@ -288,7 +305,7 @@ def main() -> int:
             out = subprocess.run(
                 [sys.executable, __file__, "--worker", sides[side],
                  *(["--k1"] if a.k1 else ["--k4"] if a.k4 else
-                   ["--wide"] if a.wide else [])],
+                   ["--wide"] if a.wide else ["--deep"] if a.deep else [])],
                 capture_output=True, text=True)
             if out.returncode != 0:
                 print(out.stdout + out.stderr, file=sys.stderr)
