@@ -15,8 +15,9 @@ Phases (each prints its lines; a failed check exits non-zero):
    cluster of blocks a track): float and dual numbers, D 1..3, constant
    and variable dt, and K7's 6: D 1..3, constant and variable dt; past
    4096 slots K1's 6 with its publish areas in global scratch; past 16384
-   slots K5's 6 with the harvest from the slots' digits and past 4096
-   K6's 3 with its publish areas in global scratch);
+   slots K5's 6 with the harvest from the slots' digits; K6's tiled wide
+   mapping past 1024 slots: 6 scan, 3 pair and 3 merge kernels, and the
+   one-block-a-track wide kernels it replaced gone);
 1. K1 (csrc/forward.cu) against its plain version ``forward_plain`` in f32
    on the card, three register configurations, ~3000 tracks each, then on
    both of its mappings (the warp mapping at K = 8, 16, 32, 64 and the
@@ -142,8 +143,10 @@ Phases (each prints its lines; a failed check exits non-zero):
    shape with per-track dt uniform in 0.01..0.03, bare and through their
    wrappers, beside their plain versions and the constant-dt times (K7's
    at M=512 beside phase 9's);
-11. past 1024 register slots (K1, K4, K5 and K6 on their wide mapping, a
-   thread a fusion group): the README workflow at 3 states and the JAX
+11. past 1024 register slots (K1, K4 and K5 on their wide mapping, a
+   thread a fusion group; K6 on its tiled wide mapping: a scan kernel a
+   thread a fusion group, the pair kernel a (track, position, state block,
+   row tile) a block): the README workflow at 3 states and the JAX
    package's defaults on ~5 x 10^4 ``sim_fov`` tracks (``param_fitting(
    compute_errors=True)`` from a rough guess of the Ds, its fitted Ds held
    to the simulated ones, ``predict_Bs``, ``len_hist`` at window 7 with
@@ -151,9 +154,11 @@ Phases (each prints its lines; a failed check exits non-zero):
    (K1), ``predict_Bs`` at 5 states and frame_len 5 (K4, K = 3125) and
    ``position_refinement`` of 6-state 1-D tracks of 3-5 frames at the
    default window 4 (K6, K = 1296), each with its launches, 0 plain calls,
-   its wall time and its buckets' first tracks against the plain version;
-   then each wide kernel's bare time on 2^16 random walks of lengths
-   3..10 (K6 on 2^14), beside its bound and its plain version's time;
+   its wall time and its buckets' first tracks against the plain version
+   (K6: each bucket's result also the entry point's, bit for bit); then
+   each wide kernel's bare time on 2^16 random walks of lengths 3..10 (K6
+   on 2^14, also through its wrapper), beside its bound and its plain
+   version's time;
 12. past 4096 register slots (K4 and K5 on the wide mapping, the carries
    in global scratch where a block's shared memory cannot hold them), at
    the JAX package's defaults on 2^12-2^13 ``sim_fov`` tracks each:
@@ -245,8 +250,8 @@ Phases (each prints its lines; a failed check exits non-zero):
    same walks at (4, 6) (K = 4096), their bounds and their plain
    versions on the first quarter of each bucket.
 18. K5 past 16384 slots (the harvest from the slots' digits, no segment
-   tables) and K6 past 4096 (its forms, and where they pass the opt-in
-   its publish areas, in global scratch): ``len_hist`` at its default
+   tables) and K6 past 4096 (the tiled wide mapping: its forms, and where
+   they pass the opt-in the scan's publish areas, in global scratch): ``len_hist`` at its default
    window 7 at 5 states (K = 78,125) on ~4,000 ``sim_fov`` tracks and at
    6 states (K = 279,936) on ~1,000, the GUI ``Session``'s State Lifetime
    Histogram at 4 states and its seeded window 8 (K = 65,536), each with
@@ -255,10 +260,12 @@ Phases (each prints its lines; a failed check exits non-zero):
    against the plain version; K5 with per-track dt and with two
    sub-steps (2^15 slots) against the plain version in float64;
    ``position_refinement`` at frame_len 7 at 4 states (K = 16,384) and 6
-   at 5 states (K = 15,625), D = 1..3, each bucket's K6 result the entry
-   point's and its first REFINE18_CHECK tracks against the plain version;
-   then K5's (5^7) and K6's (4^7) bare and wrapper times beside their
-   bounds and plain times.
+   at 5 states (K = 15,625), D = 1..3, and at frame_len 14 at 2 states (K
+   = 16,384, D = 2, the scan's publish areas in global scratch; the phase
+   fails unless both plans ran), each bucket's K6 result the entry
+   point's bit for bit and its first REFINE18_CHECK tracks against the
+   plain version; then K5's (5^7) and K6's (4^7) bare and wrapper times
+   beside their bounds and plain times.
 19. K1, K2 and K3 past 16384 slots (up to 65536; K2 and K3 on clusters of
    up to sixteen blocks) and K7 past 1024 register rows (up to 4096, a
    thread several rows): ``param_fitting(nb_states=6, frame_len=6, compute_errors=True,
@@ -498,6 +505,7 @@ BROWNIAN = dict(nb_tracks=1 << 20, track_len=10, Ds=(0.0, 0.08),
 TOL_NATIVE_REL = 1e-12
 TOL_ANALYZE_FIT = 1e-4
 SUBSET_STRIDE = 9
+SAMPLE_STRIDE = 3             # the CLI's sampler: every 27th track
 CLI_SAMPLE = ["--samples", "10", "--warmup", "10", "--chains", "2",
               "--n-leapfrog", "3"]
 BENCH_DT = (0.01, 0.03)       # phase 10's per-track intervals at the bench
@@ -583,20 +591,24 @@ PAST4096_TRACKS = 1 << 12     # their random walks
 # Lifetime Histogram at 4 states (phase 12's model, window 8, K = 65,536)
 # on ~2k; position_refinement at the reference's frame_len 7 at 4 states
 # (K = 16,384) and frame_len 6 at 5 states (K = 15,625) on PAST18_REFINE
-# requested tracks at D = 1..3.  Each bucket's first PAST18_CHECK tracks
+# requested tracks at D = 1..3, and at frame_len 14 at 2 states (K =
+# 16,384, D = 2: the scan's publish areas in global scratch).  Each bucket's first PAST18_CHECK tracks
 # (K6: REFINE18_CHECK) against the plain version in chunks of
 # PAST18_PLAIN_CHUNK; K5 on PAST18_DT_B random walks of (S, W, n, dt) in
 # PAST18_DT_CASES (per-track dt, two sub-steps) against the plain version
 # in float64; the bare times on PAST18_TRACKS walks of lengths 3..10
 TR6H = np.full((6, 6), 0.02) + np.eye(6) * 0.88
+TR2R = np.full((2, 2), 0.1) + np.eye(2) * 0.8
 SIM5H = dict(SIM, nb_tracks=1 << 12, Ds=SIM5["Ds"], TrMat=TR5, seed=17)
 SIM6H = dict(SIM, nb_tracks=1 << 10, Ds=SIM6["Ds"], TrMat=TR6H, seed=18)
 SIM4L = dict(SIM4, nb_tracks=1 << 11, seed=19)
 # (S, sim, off-diagonal transition, window): len_hist's runs; (S, frames,
-# sim, TrMat): the refinements; the GUI lifetime's states; the bare
+# sim, TrMat, dims): the refinements; the GUI lifetime's states; the bare
 # times' (S, W) of K5 and (S, W, D) of K6
 PAST18_HIST = [(5, SIM5H, 0.03, 7), (6, SIM6H, 0.02, 7)]
-PAST18_REFINE_CASES = [(4, 7, SIM4, TR4), (5, 6, SIM5, TR5)]
+PAST18_REFINE_CASES = [(4, 7, SIM4, TR4, (1, 2, 3)),
+                       (5, 6, SIM5, TR5, (1, 2, 3)),
+                       (2, 14, dict(SIM, TrMat=TR2R), TR2R, (2,))]
 PAST18_GUI_STATES = 4
 PAST18_K5_TIME = (5, 7)
 PAST18_K6_TIME = (4, 7, 2)
@@ -636,7 +648,7 @@ FIT6_START = dict(nb_states=6, LocErr_type=1, LocErr_bounds=(0.005, 0.1),
                   estimated_transition_rates=0.1)
 FIT19_ITERS = 3
 FIT19_CHECK = 16
-GUI19_STRIDE = 8
+GUI19_STRIDE = 16             # the GUI runner's checks need no more tracks
 SIM4E = dict(SIM4, nb_tracks=1 << 8, seed=21)
 PAST16384_TIMES = [(6, 6), (4, 8)]
 PAST16384_TRACKS = 1 << 12
@@ -658,6 +670,8 @@ CLUSTER_CASES = {17: [(5, 6, 1, None), (5, 6, 2, "track"), (5, 6, 3, None)],
                       (4, 8, 1, "track"), (4, 8, 2, None), (4, 8, 3, None)]}
 CLUSTER_B = 8
 CLUSTER_T = 7
+# K6's tiled wide mapping (csrc/refine.cu), named in the kernels line
+K6_TILED = "refine_scan_kernel + refine_pairs_kernel + refine_merge_kernel"
 PEAK_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
@@ -1472,8 +1486,10 @@ def main() -> int:
                          "extrack_tpu/ops/pallas_predict.py:65"),
         "K5 wide": entry("duration_hist_wide", "hist_wide.cu",
                          "extrack_tpu/ops/pallas_hist.py:63"),
-        "K6 wide": entry("refinement_wide", "refine.cu",
-                         "extrack_tpu/ops/pallas_refine.py:108"),
+        # K6 past 1024 slots: the tiled wide mapping's three kernels
+        "K6 wide": dict(entry("refinement_wide", "refine.cu",
+                              "extrack_tpu/ops/pallas_refine.py:108"),
+                        kernel=K6_TILED),
         # past 4096 slots: the wide mapping with its carries in global
         # scratch where shared memory cannot hold them
         "K4 past 4096": entry("posteriors_past_4096", "predict.cu",
@@ -1520,8 +1536,9 @@ def main() -> int:
         # refine.py:654-668)
         "K5 past 16384": entry("duration_hist_past_16384", "hist_wide.cu",
                                "extrack_tpu/ops/pallas_hist.py:63"),
-        "K6 past 4096": entry("refinement_past_4096", "refine.cu",
-                              "extrack_tpu/ops/pallas_refine.py:108"),
+        "K6 past 4096": dict(entry("refinement_past_4096", "refine.cu",
+                                   "extrack_tpu/ops/pallas_refine.py:108"),
+                             kernel=K6_TILED),
         # K1, K2 and K3 past 16384 slots (to 65536; K1 up to 16 fusion
         # groups a thread, K2 and K3 on clusters of blocks): the fit at 6
         # states and the GUI's frame_len 6; K7 past
@@ -1573,7 +1590,8 @@ def main() -> int:
     grad_regs = {}  # the same of K2's and K3's wide (cluster) ones
     k1_global_regs = {}  # K1's wide one with its publish areas in scratch
     runs_regs = {}  # K5's past 16384 slots (the digits' harvest)
-    refine_global_regs = {}  # K6's with its publish areas in scratch
+    refine_tiled_regs = {}  # K6's tiled wide mapping: scan, pairs, merge
+    refine_gone = set()  # K6's one-block-a-track wide kernels (deleted)
     topk_regs = {}  # the same of K7's (constant and variable dt)
     topk_wide_regs = {}  # K7's wide ones (a thread several rows)
     for line in lib_path.with_suffix(".log").read_text().splitlines():
@@ -1599,15 +1617,18 @@ def main() -> int:
         topk = re.match(r"_ZN7extrack1[15]topk_(vdt_)?kernel", entry_name)
         topk_wide = re.match(r"_ZN7extrack16topk_wide_kernel", entry_name)
         runs = re.match(r"_ZN7extrack16hist_runs_kernel", entry_name)
-        refine_global = re.match(r"_ZN7extrack25refine_wide_global_kernel",
-                                 entry_name)
+        refine_tiled = re.match(
+            r"_ZN7extrack1[89]refine_(scan|pairs|merge)_kernel", entry_name)
+        if re.match(r"_ZN7extrack(18|25)refine_wide(_global)?_kernel",
+                    entry_name):
+            refine_gone.add(entry_name)
         regs = re.search(r"Used (\d+) registers", line)
         for found, table in ((wide, wide_regs), (scratch, global_regs),
                              (grad_wide, grad_regs),
                              (k1_global, k1_global_regs),
                              (topk, topk_regs), (topk_wide, topk_wide_regs),
                              (runs, runs_regs),
-                             (refine_global, refine_global_regs)):
+                             (refine_tiled, refine_tiled_regs)):
             if found and (spilled or regs):
                 key = entry_name[:60]
                 table.setdefault(key, [0, 0])
@@ -1620,14 +1641,17 @@ def main() -> int:
                          r"block_kernel)ILi\dELi(\d+)E", entry_name)
         threads = (int(block.group(1)) if block
                    else 128 if entry_name.startswith(
-                       "_ZN7extrack16walk_warp_kernel") else 0)
+                       "_ZN7extrack16walk_warp_kernel")
+                   else 256 if entry_name.startswith(
+                       "_ZN7extrack19refine_pairs_kernel") else 0)
         if (spilled and 0 < threads <= 512
                 and (int(spilled.group(1)) or int(spilled.group(2)))):
             spills.append(entry_name)
     if spills:
         fail(f"K1/K4/K5/K6 instantiations of <= 512 threads spill: {spills}")
     log("phase 0: no K1, K4, K5 (constant or variable dt) or K6 "
-        "instantiation of <= 512 threads spills; K5's variable-dt and "
+        "instantiation of <= 512 threads (K6's pair kernel among them) "
+        "spills; K5's variable-dt and "
         "sub-step instantiations, spill bytes (stores + loads): "
         + ", ".join(f"{k} {v}" for k, v in sorted(k5_new.items())))
     if len(k5_new) != 36:
@@ -1636,10 +1660,10 @@ def main() -> int:
     log("phase 0: the wide mapping's instantiations (1024 threads, K <= "
         "4096; registers, spill bytes stores + loads): " + ", ".join(
             f"{k} {r} regs {b} B" for k, (r, b) in sorted(wide_regs.items())))
-    if len(wide_regs) != 21:
-        fail(f"{len(wide_regs)} wide instantiations, not 21 (K1 and K4: D "
+    if len(wide_regs) != 18:
+        fail(f"{len(wide_regs)} wide instantiations, not 18 (K1 and K4: D "
              "1..3 x constant and variable dt; K5: D 1..3 x constant and "
-             "variable dt; K6: D 1..3)")
+             "variable dt)")
     log("phase 0: K4's and K5's wide instantiations with their carries in "
         "global scratch (1024 threads, K <= 16384; registers, spill bytes "
         "stores + loads): " + ", ".join(
@@ -1678,16 +1702,26 @@ def main() -> int:
         fail(f"{len(topk_wide_regs)} wide K7 instantiations, not 6 (D 1..3 "
              "x constant and variable dt)")
     log("phase 0: past 16384 slots, K5's instantiations with the harvest "
-        "from the slots' digits, and past 4096 K6's with its publish areas "
-        "in global scratch (1024 threads; registers, spill bytes stores + "
-        "loads): " + ", ".join(
-            f"{k} {r} regs {b} B" for k, (r, b) in sorted(
-                {**runs_regs, **refine_global_regs}.items())))
-    if len(runs_regs) != 6 or len(refine_global_regs) != 3:
+        "from the slots' digits (1024 threads; registers, spill bytes stores "
+        "+ loads): " + ", ".join(
+            f"{k} {r} regs {b} B" for k, (r, b) in sorted(runs_regs.items())))
+    if len(runs_regs) != 6:
         fail(f"{len(runs_regs)} K5 instantiations past 16384 slots (not 6: "
-             f"D 1..3 x constant and variable dt) and "
-             f"{len(refine_global_regs)} K6 ones with global publish areas "
-             "(not 3: D 1..3)")
+             f"D 1..3 x constant and variable dt)")
+    log("phase 0: K6's tiled wide mapping past 1024 slots "
+        "(refine_scan_kernel up to 1024 threads, refine_pairs_kernel up to "
+        "256, refine_merge_kernel 128; registers, spill bytes stores + "
+        "loads): " + ", ".join(
+            f"{k} {r} regs {b} B"
+            for k, (r, b) in sorted(refine_tiled_regs.items()))
+        + "; gone: refine_wide_kernel, refine_wide_global_kernel "
+        + ("(none built)" if not refine_gone else
+           f"(still built: {sorted(refine_gone)})"))
+    if len(refine_tiled_regs) != 12 or refine_gone:
+        fail(f"{len(refine_tiled_regs)} K6 tiled instantiations (not 12: "
+             "scan D 1..3 x publish areas in shared or global memory, pairs "
+             "D 1..3, merge D 1..3), "
+             f"{len(refine_gone)} of the deleted wide kernels built")
 
     # ---- phase 1/2: kernel parity on the card ---------------------------
     for S, W, n, D, B, T in PARITY_CASES:
@@ -3527,10 +3561,13 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
     l2_6 = torch.full((1, 1, 1), 0.02 ** 2, **f32)
     for b in buckets:
         mu, sig = on_card(refine.refine_batch(b, 0.02, ds6, TR6), dev)
-        got_mu = data.to_dict(b, mu)
-        if not all(np.array_equal(got_mu[k], mus[k]) for k in got_mu):
+        # position_refinement's sigmas are the first dimension's
+        got_mu, got_sig = data.to_dict(b, mu), data.to_dict(b, sig[..., 0])
+        if not all(np.array_equal(got_mu[k], mus[k])
+                   and np.array_equal(got_sig[k], sigmas[k])
+                   for k in got_mu):
             fail(f"6-state position_refinement differs from K6 on bucket "
-                 f"T={b.max_len}")
+                 f"T={b.max_len} (two launches, bit for bit)")
         n = min(WIDE_CHECK, b.batch_size)
         mu0, sig0 = refine_kernel.refine_plain(
             b.positions[:n], b.lengths[:n], l2_6, lt6, sig2_6, window=W6)
@@ -3565,6 +3602,11 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
             def bare():
                 for p_, l_, e_ in prep:
                     refine_kernel.launch(p_, l_, e_, tabs, S)
+
+            def wrapped():
+                for b in bench:
+                    refine_kernel.refine(b.positions, b.lengths, l2, lt, s2,
+                                         window=W)
 
             def plain_run():
                 for b in bench:
@@ -3620,6 +3662,8 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
                             _fn(b.positions[sl], b.lengths[sl],
                                 b.is_bleached[sl], tb, window=W, min_len=3)
         info["ms"] = cuda_ms(bare, 5)
+        if name == "K6 wide":
+            info["wrapper_ms"] = cuda_ms(wrapped, 5)
         info["plain_ms"] = cuda_ms(plain_run, 1, warmup=0)
         info["plain_tracks"] = sum(b.batch_size // PLAIN_SHARE
                                    for b in bench)
@@ -3627,7 +3671,10 @@ def phase11(dev, card, kinfo, errs, reset_counts, plain_calls):
         log(f"phase 11: {name} S={S} W={W} (K={K}) D={D}, {len(blens)} "
             f"tracks of lengths 3..10 ({len(bench)} buckets): kernel "
             f"{info['ms']:.3f} ms = {len(blens) / info['ms'] * 1e3 / 1e6:.4f}"
-            f"M tracks/s; plain {info['plain_ms']:.3f} ms on "
+            f"M tracks/s"
+            + (f", {info['wrapper_ms']:.3f} ms with its wrapper ("
+               f"{K6_TILED})" if name == "K6 wide" else "")
+            + f"; plain {info['plain_ms']:.3f} ms on "
             f"{info['plain_tracks']} of the tracks; bound "
             f"{info['bound_ms']:.4f} ms ({info['bound_by']}), "
             f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")
@@ -4619,15 +4666,20 @@ def phase14(dev, card, reset_counts, plain_calls, tracks, fit3):
         write_tracks_csv(sub_csv, sub)
         n_sub = sum(len(v) for v in sub.values())
         post = str(tmp / "post.npz")
+        sub_s = {k: v[::SAMPLE_STRIDE] for k, v in sub.items()
+                 if len(v[::SAMPLE_STRIDE])}
+        sample_csv = str(tmp / "sample.csv")
+        write_tracks_csv(sample_csv, sub_s)
+        n_samp = sum(len(v) for v in sub_s.values())
         cli_t["sample"], n_s, pl_s = cli(
-            "sample", sub_csv, *io_args, *pargs, "--window", str(W),
+            "sample", sample_csv, *io_args, *pargs, "--window", str(W),
             *CLI_SAMPLE, "-o", post)
         draws = np.load(post)
         shape = draws["D1_minus_D0"].shape
         ok = (shape == (2, int(CLI_SAMPLE[1]))
               and np.isfinite(draws["D1_minus_D0"]).all()
               and n_s.get("K2", 0) > 0 and pl_s == 0)
-        log(f"phase 14: CLI sample on {n_sub} tracks "
+        log(f"phase 14: CLI sample on {n_samp} tracks "
             f"{cli_t['sample']:.2f} s ({' '.join(CLI_SAMPLE)}, a warm-start "
             f"fit with error bars first): K2 {n_s.get('K2')}, K3 "
             f"{n_s.get('K3')}, plain calls {pl_s}; samples {shape}, "
@@ -5520,8 +5572,9 @@ def phase17(dev, card, kinfo, errs, reset_counts, plain_calls):
 def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
     """K5 past 16384 slots (csrc/hist_wide.cu hist_runs_kernel: the
     harvest from each slot's digits, no segment tables) and K6 past 4096
-    (refine_wide_kernel with its forms in global scratch,
-    refine_wide_global_kernel where the publish areas pass the opt-in), on
+    (the tiled wide mapping: the scan kernel's forms in global scratch,
+    its publish areas too where they pass the opt-in; the pair and merge
+    kernels), on
     the paths where the JAX package runs XLA: ``len_hist`` at its default
     window 7 at 5 and 6 states and the GUI's State Lifetime Histogram at 4
     states (window 8), each whole bucket through K5 summing to the entry
@@ -5529,8 +5582,9 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
     version; K5 with per-track dt and with two sub-steps against the plain
     version in float64; ``position_refinement`` at frame_len 7 at 4 states
     and 6 at 5 states, D = 1..3, each bucket's K6 result the entry
-    point's and its first REFINE18_CHECK tracks against the plain version;
-    then both kernels' bare times beside their bounds and plain times."""
+    point's bit for bit (two launches) and its first REFINE18_CHECK tracks
+    against the plain version; then both kernels' bare times beside their
+    bounds and plain times."""
     import tempfile
     from pathlib import Path
 
@@ -5699,15 +5753,17 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
             kernel="K5 past 16384"))
     log(f"phase 18: K5 paths {time.time() - t18:.1f} s")
 
-    # ---- position_refinement at frame_len 7 (4 states), 6 (5 states) ----
+    # ---- position_refinement at frame_len 7 (4 states), 6 (5 states) and
+    # 14 (2 states) ----
     k6_path = 0
+    wides = set()       # the plans' wide values: 2 = publish areas global
     t_k6 = time.time()
-    for S, W, base, tr in PAST18_REFINE_CASES:
+    for S, W, base, tr, dims in PAST18_REFINE_CASES:
         ds = np.sqrt(2.0 * np.array(base["Ds"]) * 0.02)
         lt = tables.cap_log(torch.tensor(tr, **f32))
         sig2 = torch.tensor(ds, **f32) ** 2
         l2 = torch.full((1, 1, 1), 0.02 ** 2, **f32)
-        for D in (1, 2, 3):
+        for D in dims:
             sim = dict(base, nb_tracks=PAST18_REFINE, nb_dims=D,
                        seed=22 + S * 3 + D)
             tracks, _, _ = simulate.sim_fov(**sim)
@@ -5716,20 +5772,22 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
                                               device=dev)
             reset_counts()
             t0 = time.time()
-            mus, _ = refine.position_refinement(tracks, 0.02, ds,
-                                                [1 / S] * S, tr,
-                                                frame_len=W)
+            mus, sigs = refine.position_refinement(tracks, 0.02, ds,
+                                                   [1 / S] * S, tr,
+                                                   frame_len=W)
             torch.cuda.synchronize()
             t_ref = time.time() - t0
             k6, plain = refine_kernel.LAUNCHES, plain_calls()
-            w, _, _, carry = refine_kernel.plan(
+            pl = refine_kernel.plan(
                 buckets[-1].max_len, D, S ** W, S,
                 cuda_lib.smem_bytes("extrack_refine_smem", dev.index))
+            wides.add(pl.wide)
             log(f"phase 18: {S} states, position_refinement(frame_len={W})"
-                f" on {n_tr} {D}-D tracks (K={S ** W}: K6 past 4096, "
-                f"{'publish areas and forms' if w == 2 else 'forms'} in "
-                f"global scratch, {carry / 1e6:.2f} MB a block at T="
-                f"{buckets[-1].max_len}) {t_ref:.3f} s; K6 launches {k6}, "
+                f" on {n_tr} {D}-D tracks (K={S ** W}: K6's tiled wide "
+                f"mapping, forms{' and publish areas' if pl.wide == 2 else ''}"
+                f" in global scratch, {pl.carry / 1e6:.2f} MB a track at T="
+                f"{buckets[-1].max_len}, pair blocks of {pl.pair_threads} "
+                f"threads) {t_ref:.3f} s; K6 launches {k6}, "
                 f"plain calls {plain} [{card}]")
             if k6 != len(buckets) or plain != 0:
                 fail(f"refinement at {S} states, frame_len {W}, D={D}: K6 "
@@ -5739,10 +5797,13 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
                 mu, sig = on_card(refine.refine_batch(b, 0.02, ds, tr,
                                                       frame_len=W), dev)
                 got_mu = data.to_dict(b, mu)
+                got_sig = data.to_dict(b, sig[..., 0])   # the first dim's
                 if not all(np.array_equal(got_mu[k], mus[k])
+                           and np.array_equal(got_sig[k], sigs[k])
                            for k in got_mu):
                     fail(f"position_refinement at {S} states differs from "
-                         f"K6 on bucket T={b.max_len}")
+                         f"K6 on bucket T={b.max_len} (two launches, bit "
+                         "for bit)")
                 n = min(REFINE18_CHECK, b.batch_size)
                 with torch.no_grad():
                     mu0, sig0 = refine_kernel.refine_plain(
@@ -5752,8 +5813,12 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
                     f"phase 18: K6 past 4096, {S} states, W={W}, D={D}, "
                     f"bucket T={b.max_len}, first {n} tracks", mu[:n],
                     sig[:n], mu0, sig0, b.positions[:n], b.lengths[:n], l2))
-            del tracks, buckets, mus
+            del tracks, buckets, mus, sigs
     kinfo["K6 past 4096"]["launches"] = k6_path
+    if wides != {1, 2}:
+        fail(f"phase 18's refinements took the wide plans {sorted(wides)}, "
+             "not both 1 (publish areas in shared memory) and 2 (in global "
+             "scratch)")
     log(f"phase 18: K6 paths {time.time() - t_k6:.1f} s")
 
     # ---- bare times: K5 at 5^7, K6 at 4^7 (D = 2) -------------------------
@@ -5853,9 +5918,9 @@ def phase18(dev, card, kinfo, errs, reset_counts, plain_calls):
         2 * rows + 4 * len(blens) + 2 * rows,
         walk_ops(blens, K, S, D, "K6", S=S))
     log(f"phase 18: K6 past 4096 S={S} W={W} (K={K}) D={D}, {len(blens)} "
-        f"tracks of lengths 3..10 ({len(bench)} buckets): kernel "
-        f"{info['ms']:.3f} ms, {info['wrapper_ms']:.3f} ms with its "
-        f"wrapper; plain {info['plain_ms']:.3f} ms on "
+        f"tracks of lengths 3..10 ({len(bench)} buckets): kernel ("
+        f"{K6_TILED}) {info['ms']:.3f} ms, {info['wrapper_ms']:.3f} ms with "
+        f"its wrapper; plain {info['plain_ms']:.3f} ms on "
         f"{info['plain_tracks']} of the tracks; bound "
         f"{info['bound_ms']:.4f} ms ({info['bound_by']}), "
         f"{info['ms'] / info['bound_ms']:.1f}x [{card}]")

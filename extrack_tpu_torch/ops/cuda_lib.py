@@ -44,11 +44,12 @@ _SIGNATURES = {
     "extrack_predict_occupancy": [_I] * 8,
     "extrack_predict_layout": [_I] * 7 + [_P],
     "extrack_hist": [_P] * 15 + [_I] * 11 + [_P],
-    "extrack_refine": [_P] * 11 + [_I] * 7 + [_P],
+    "extrack_refine": [_P] * 11 + [_I] * 6 + [_P],
+    "extrack_refine_wide": [_P] * 11 + [_I] * 7 + [_P],
     "extrack_topk": [_P] * 13 + [_I] * 12 + [_P],
     "extrack_topk_wide": [_P] * 14 + [_I] * 14 + [ctypes.c_longlong, _P],
     "extrack_hist_layout": [_I] * 6 + [_P],
-    "extrack_refine_layout": [_I] * 5 + [_P],
+    "extrack_refine_layout": [_I] * 6 + [_P],
     "extrack_grad_layout": [_I] * 7 + [_P],
 }
 # dynamic shared memory one block of a kernel may opt in to, per device
@@ -57,11 +58,12 @@ _SMEM_QUERIES = ("extrack_grad_smem", "extrack_predict_smem", "extrack_hist_smem
 # bytes of per-track carries the persistent blocks may hold in global
 # scratch when the carries do not fit in shared memory
 SCRATCH_BUDGET = 1 << 30
-# the same for K1, K2, K3 and K5 past WIDE_SCRATCH_K register slots
-# (``scratch_budget``): a block there takes tens of MB (K2's history,
-# exchange and partial row 11.9 MB at 6^6, T = 20, D = 3, K3's twice that;
-# K5's rows 52 MB at 6^7), so SCRATCH_BUDGET would keep most of an H100's
-# 132 SMs idle
+# the same for K1, K2, K3 and K5 past WIDE_SCRATCH_K register slots and
+# K6's wide mapping (``scratch_budget``): a block there takes tens of MB
+# (K2's history, exchange and partial row 11.9 MB at 6^6, T = 20, D = 3,
+# K3's twice that; K5's rows 52 MB at 6^7; K6's forms 18.9 MB a track at
+# 4^7, T = 20, D = 3), so SCRATCH_BUDGET would keep most of an H100's 132
+# SMs idle
 WIDE_SCRATCH_K = 16384
 WIDE_SCRATCH_BUDGET = 16 << 30
 
@@ -179,8 +181,10 @@ def layout(kernel: str, *dims: int):
     thread a fusion group), 2 for the wide mapping with its publish areas
     and member weights in the carry (global scratch), 3 for the same with
     the harvest from the slots' digits (past 16384 slots), else 0 (a
-    thread a slot); "refine" (T, D, K, S, wide), wide 1 for the wide
-    mapping, 2 for the same with its publish areas in the carry; "grad"
+    thread a slot); "refine" (T, D, K, S, wide, rows), wide 1 for the
+    tiled wide mapping (rows: the pair kernel's prefix rows a block; its
+    third entry the carry a track), 2 for the same with the scan's publish
+    areas in the carry, 0 a thread a slot (rows 0); "grad"
     (K, A, D, T, warps, cluster, itemsize), a block of K2's and K3's wide
     mapping in a cluster of ``cluster`` blocks (warps -1, or -2 with its
     exchange in global scratch; itemsize 4, or 8 for K3's dual numbers),
@@ -215,13 +219,15 @@ def _card_bytes(index: int) -> int:
     return free + torch.cuda.memory_reserved(index)
 
 
-def scratch_budget(dev, K: int = 0) -> int:
+def scratch_budget(dev, K: int = 0, wide: bool = False) -> int:
     """Bytes of global scratch one launch may take on ``dev`` (a CUDA
     device with its index): SCRATCH_BUDGET, WIDE_SCRATCH_BUDGET for a
-    kernel past WIDE_SCRATCH_K register slots (``K``), or half of what the
-    card has left where that is less (what this process could hold at its
-    first query, less what its tensors hold now)."""
-    cap = WIDE_SCRATCH_BUDGET if K > WIDE_SCRATCH_K else SCRATCH_BUDGET
+    kernel past WIDE_SCRATCH_K register slots (``K``) or on K6's wide
+    mapping (``wide``), or half of what the card has left where that is
+    less (what this process could hold at its first query, less what its
+    tensors hold now)."""
+    cap = (WIDE_SCRATCH_BUDGET if wide or K > WIDE_SCRATCH_K
+           else SCRATCH_BUDGET)
     left = _card_bytes(dev.index) - torch.cuda.memory_allocated(dev)
     return min(cap, max(left, 0) // 2)
 

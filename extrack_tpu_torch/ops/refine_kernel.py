@@ -6,11 +6,16 @@ moment-matched mean and standard deviation of every localization's true
 position:
 
 * CUDA tensors (float32): one K6 launch on ``build_refine_tables``' slot
-  tables: a thread a slot up to 1024 slots, a thread a fusion group up to
-  16384 (``forward_kernel.mapping_warps``), the forms in global scratch
-  where shared memory cannot hold them, and past 4096 slots the publish
-  areas too where they pass what a block may opt in to
-  (``refine_wide_global_kernel``).  Outside the envelope it raises.
+  tables: a thread a slot up to 1024 slots (the suffix stash in global
+  scratch where shared memory cannot hold it); past that, up to 16384,
+  the tiled wide mapping (``forward_kernel.mapping_warps``): a scan
+  kernel a thread a fusion group that writes both sides' forms to global
+  scratch (its publish areas there too where they pass what a block may
+  opt in to), the pair kernel over (track, interior position, state
+  block, row tile) with two prefix rows a thread (``pair_threads``) and
+  the merge, on chunks of tracks whose carries fit
+  ``cuda_lib.scratch_budget`` (``chunk_tracks``).  Outside the envelope
+  it raises.
 * CPU tensors: ``refine_plain``, which is ``refine.refine_positions`` on
   the same inputs, in chunks that bound its S*(K/S)^2-component mixture.
 
@@ -19,6 +24,7 @@ position:
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,32 +56,76 @@ def build_refine_tables(log_trans: torch.Tensor, sig2_states: torch.Tensor,
     return lt - (W - 2) * math.log(S), lt, sig2
 
 
+PAIR_THREADS = 256        # csrc/refine.cu kPairThreads
+PAIR_ROWS = 2             # csrc/refine.cu kPairRows, prefix rows a thread
+
+
+class Plan(NamedTuple):
+    """A K6 launch: ``wide`` 0 a thread a slot, 1 the tiled wide mapping,
+    2 the same with the scan's publish areas in global scratch; the
+    (scan) block's threads, its shared bytes besides the carries, the
+    carry bytes a track; on the wide mapping the pair kernel's threads
+    ``pair_threads`` (PAIR_ROWS rows each)."""
+    wide: int
+    threads: int
+    fixed: int
+    carry: int
+    pair_threads: int = 0
+
+
+def pair_threads(KS: int) -> int:
+    """The pair kernel's threads for a state block of KS rows: the fewest
+    row tiles of at most PAIR_ROWS * PAIR_THREADS rows, each with the
+    fewest threads, a multiple of 32, that cover KS."""
+    nrt = -(-KS // (PAIR_ROWS * PAIR_THREADS))
+    return -(-KS // (PAIR_ROWS * nrt * 32)) * 32
+
+
 def plan(T: int, D: int, K: int, S: int, smem_limit: int,
-         mapping: str | None = None, layout=None):
-    """(wide, threads, shared bytes, carry bytes) of a K6 launch:
-    ``forward_kernel.mapping_warps``' mapping (``mapping`` forces it), wide
-    0 a thread a slot, 1 the wide mapping, 2 the wide mapping with its
-    publish areas in global scratch, exactly where the wide block's fixed
-    shared bytes (publish areas and ring) pass ``smem_limit``.  ``layout``
-    (T, D, K, S, wide) -> (threads, fixed, carry) is the kernel's own
-    (``cuda_lib.layout``) unless given (tests)."""
+         mapping: str | None = None, layout=None) -> Plan:
+    """The ``Plan`` of a K6 launch: ``forward_kernel.mapping_warps``'
+    mapping (``mapping`` forces it); on the wide mapping the pair kernel's
+    ``pair_threads``, and the publish areas in global
+    scratch (wide 2) exactly where the scan block's shared bytes pass
+    ``smem_limit``.  ``layout`` (T, D, K, S, wide, rows) -> (threads,
+    fixed, carry) is the kernel's own (``cuda_lib.layout``) unless given
+    (tests)."""
     layout = layout or (lambda *dims: cuda_lib.layout("refine", *dims))
-    w = int(forward_kernel.mapping_warps("K6", K, mapping)
-            == forward_kernel.WIDE)
-    threads, fixed, carry = layout(T, D, K, S, w)
-    if w and fixed > smem_limit:
-        w = 2       # the publish areas in global scratch after the forms
-        threads, fixed, carry = layout(T, D, K, S, w)
-    return w, threads, fixed, carry
+    if forward_kernel.mapping_warps("K6", K, mapping) != forward_kernel.WIDE:
+        return Plan(0, *layout(T, D, K, S, 0, 0))
+    nt = pair_threads(K // S)
+    w = 1
+    scan, fixed, carry = layout(T, D, K, S, w, PAIR_ROWS * nt)
+    if fixed > smem_limit:
+        w = 2
+        scan, fixed, carry = layout(T, D, K, S, w, PAIR_ROWS * nt)
+    return Plan(w, scan, fixed, carry, nt)
+
+
+def chunk_tracks(B: int, carry: int, budget: int,
+                 what: str = "refinement batch") -> int:
+    """Tracks a chunk of the wide mapping takes: as many carries of
+    ``carry`` bytes as ``budget`` holds, no more than the ``B`` tracks.
+    Raises RuntimeError, naming the batch and the bytes, where one track's
+    carry alone passes the budget."""
+    if carry > budget:
+        raise RuntimeError(
+            f"one track's K6 scratch ({carry} bytes: both sides' forms of "
+            f"every interior frame and the pair kernel's partials, {what} "
+            f"of {B} tracks) passes the {budget} bytes the card can give "
+            "it; split the longest tracks' bucket or free device memory")
+    return max(1, min(B, budget // max(carry, 1)))
 
 
 def launch(positions, lengths, l2, tabs, S: int,
-           mapping: str | None = None):
+           mapping: str | None = None, what: str = "refinement batch"):
     """Launch K6 on the current stream: ``positions``, ``l2`` (B, T, D)
     float32, ``lengths`` (B,) int32, ``tabs`` the five (K,) float32 tables
     (lp0f, ltf, lp0r, ltr, sig2v).  Returns mu, sigma (B, T, D).
     ``mapping`` forces ``forward_kernel.mapping_warps``' choice (tests,
-    tools)."""
+    tools).  The wide
+    mapping runs one launch of its three kernels a chunk of tracks
+    (``chunk_tracks``); it counts as one K6 launch."""
     global LAUNCHES
     B, T, D = positions.shape
     dev = positions.device
@@ -88,17 +138,34 @@ def launch(positions, lengths, l2, tabs, S: int,
     f32 = dict(dtype=torch.float32, device=dev)
     mu = torch.empty((B, T, D), **f32)
     sigma = torch.empty((B, T, D), **f32)
-    w, threads, fixed, stash = plan(
-        T, D, K, S, cuda_lib.smem_bytes("extrack_refine_smem", dev.index),
-        mapping)
-    nblk, scratch = cuda_lib.grid("extrack_refine_smem", dev, B, fixed,
-                                  stash, threads, in_scratch=w == 2)
-    rc = lib.extrack_refine(
-        *(t.data_ptr() for t in (positions, l2, lengths, *tabs, mu, sigma)),
-        None if scratch is None else scratch.data_ptr(),
-        B, T, D, K, S, nblk, w,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(rc, "refinement")
+    pl = plan(T, D, K, S,
+              cuda_lib.smem_bytes("extrack_refine_smem", dev.index),
+              mapping)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tab_ptrs = [t.data_ptr() for t in tabs]
+    if pl.wide:
+        n = chunk_tracks(B, pl.carry,
+                         cuda_lib.scratch_budget(dev, K, wide=True), what)
+        scratch = torch.empty(max(n * pl.carry // 4, 4), **f32)
+        row = T * D * 4
+        for i in range(0, max(B, 1), n):
+            m = min(n, B - i)
+            rc = lib.extrack_refine_wide(
+                positions.data_ptr() + i * row, l2.data_ptr() + i * row,
+                lengths.data_ptr() + i * 4, *tab_ptrs,
+                mu.data_ptr() + i * row, sigma.data_ptr() + i * row,
+                scratch.data_ptr(), m, T, D, K, S, pl.wide, pl.pair_threads,
+                stream)
+            cuda_lib.check(rc, "refinement")
+    else:
+        nblk, scratch = cuda_lib.grid("extrack_refine_smem", dev, B,
+                                      pl.fixed, pl.carry, pl.threads)
+        rc = lib.extrack_refine(
+            positions.data_ptr(), l2.data_ptr(), lengths.data_ptr(),
+            *tab_ptrs, mu.data_ptr(), sigma.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            B, T, D, K, S, nblk, stream)
+        cuda_lib.check(rc, "refinement")
     LAUNCHES += 1
     return mu, sigma
 
@@ -145,4 +212,4 @@ def refine(positions, lengths, loc_err2, log_trans, sig2_states, *,
     lp0r, ltr, _ = build_refine_tables(log_trans.T, sig2_states, window)
     tabs = [t.contiguous() for t in (lp0f, ltf, lp0r, ltr, sig2v)]
     return launch(positions.contiguous(), lengths.to(torch.int32).contiguous(),
-                  loc_err2.expand(B, T, D).contiguous(), tabs, S)
+                  loc_err2.expand(B, T, D).contiguous(), tabs, S, what=what)

@@ -614,49 +614,44 @@ def test_refine_layout(cuda):
     """K6's block as its source defines it (``cuda_lib.layout``): frames of
     forms 16-byte aligned, a stash frame per interior position, and a
     thread for every slot and every pair-loop thread of two prefix slots
-    (odd K included)."""
+    (odd K included); the tiled wide mapping's scan block, shared bytes and
+    carry a track as the host twin (tests/refine_tiled_twin.py) has
+    them."""
     from extrack_tpu_torch.ops import cuda_lib
+    from tests.refine_tiled_twin import layout as _layout
     for D, per in ((1, 4), (2, 5), (3, 8)):
         for S, W in ((2, 3), (2, 7), (3, 5), (3, 6), (5, 3), (7, 3),
                      (2, 10)):
             K, KS = S ** W, S ** (W - 1)
-            n, fixed, stash = cuda_lib.layout("refine", 10, D, K, S, 0)
+            n, fixed, stash = cuda_lib.layout("refine", 10, D, K, S, 0, 0)
             frame = per * (-(-K // 4) * 4) * 4
             assert stash == 8 * frame and frame % 16 == 0
             assert fixed == (2 * frame + 2 * (2 + 2 * D) * K * 4
                              + 32 * (n // 32) * (2 + 2 * D) * 4)
             assert n % 32 == 0 and n >= K and n <= 1024
             assert n >= S * -(-KS // 2) * 2
-            assert cuda_lib.layout("refine", 2, D, K, S, 0)[2] == 0
-        # the wide mapping: 1024 threads, the publish areas of (2D+1)
-        # floats a group and the ring in the fixed part; the two prefix
-        # frames travel with the stash
+            assert cuda_lib.layout("refine", 2, D, K, S, 0, 0)[2] == 0
+        # the tiled wide mapping, its publish areas in shared memory (1)
+        # or in the carry (2), at several pair-kernel row tiles
         for S, W in ((6, 4), (2, 11), (3, 7), (5, 5), (2, 12), (16, 3),
-                     (2, 7)):
-            K, KS = S ** W, S ** (W - 1)
-            frame = per * (-(-K // 4) * 4) * 4
-            assert cuda_lib.layout("refine", 10, D, K, S, 1) == (
-                1024, 2 * (2 * D + 1) * KS * 4 + 32 * 32 * (2 + 2 * D) * 4,
-                10 * frame)
-            assert cuda_lib.layout("refine", 2, D, K, S, 1)[2] == 0
+                     (2, 7), (4, 7), (2, 14), (3, 8), (5, 6)):
+            K = S ** W
+            for wide in (1, 2):
+                for rows in (64, 512, 1024):
+                    for T in (2, 10):
+                        assert cuda_lib.layout("refine", T, D, K, S, wide,
+                                               rows) == _layout(
+                            T, D, K, S, wide, rows)
+            assert cuda_lib.layout("refine", 2, D, K, S, 1, 512)[2] == 0
     with pytest.raises(RuntimeError):
-        cuda_lib.layout("refine", 10, 4, 128, 2, 0)
+        cuda_lib.layout("refine", 10, 4, 128, 2, 0, 0)
     with pytest.raises(RuntimeError):
-        cuda_lib.layout("refine", 10, 2, 2 ** 11, 2, 0)
-        # past 4096 slots, the publish areas in global scratch (wide = 2):
-        # no dynamic shared memory, the carry holds them (padded to 4
-        # floats) after the forms
-        for S, W in ((4, 7), (2, 14), (3, 8), (5, 6)):
-            K, KS = S ** W, S ** (W - 1)
-            frame = per * (-(-K // 4) * 4) * 4
-            pubs = -(-2 * (2 * D + 1) * KS // 4) * 4 * 4
-            assert cuda_lib.layout("refine", 10, D, K, S, 2) == (
-                1024, 0, 10 * frame + pubs)
-            assert cuda_lib.layout("refine", 2, D, K, S, 2)[2] == pubs
-    with pytest.raises(RuntimeError):
-        cuda_lib.layout("refine", 10, 2, 3 ** 9, 3, 1)
-    with pytest.raises(RuntimeError):
-        cuda_lib.layout("refine", 10, 2, 3 ** 9, 3, 2)
+        cuda_lib.layout("refine", 10, 2, 2 ** 11, 2, 0, 0)
+    for wide in (1, 2):
+        with pytest.raises(RuntimeError):
+            cuda_lib.layout("refine", 10, 2, 3 ** 9, 3, wide, 512)
+        with pytest.raises(RuntimeError):
+            cuda_lib.layout("refine", 10, 2, 3 ** 7, 3, wide, 0)
 
 
 @pytest.mark.cuda
@@ -1201,9 +1196,9 @@ def test_cuda_k6_past_4096_slots_matches_plain(cuda, S, W, D, per_peak):
 @pytest.mark.parametrize("S,W,D", [(6, 4, 2), (3, 7, 3), (3, 8, 1)])
 def test_cuda_k6_global_publish_areas_match_shared(cuda, S, W, D,
                                                    monkeypatch):
-    # refine_wide_global_kernel forced onto registers whose publish areas
-    # fit shared memory (the opt-in patched to 0) gives refine_wide_kernel's
-    # results
+    # the scan kernel with its publish areas in global scratch, forced
+    # onto registers whose publish areas fit shared memory (the opt-in
+    # patched to 0), gives the shared-memory scan's results
     from extrack_tpu_torch.ops import cuda_lib
     args = _refine_args(cuda, S, W, 8, 7, D, D == 1)
     want = refine_kernel.refine(*args, window=W)
@@ -1211,6 +1206,85 @@ def test_cuda_k6_global_publish_areas_match_shared(cuda, S, W, D,
     got = refine_kernel.refine(*args, window=W)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+# the tiled wide mapping (csrc/refine.cu refine_scan_kernel,
+# refine_pairs_kernel, refine_merge_kernel): (S, W, D, B, T) at 6^4 (1-D,
+# as phase 11), 3^7, 5^5, 4^7, 5^6 and 2^14, D = 1..3; tracks of 1, 2 and
+# T frames in every case
+TILED_K6_CASES = [(6, 4, 1, 24, 5)] + [
+    (S, W, D, B, T) for S, W, B, T in ((3, 7, 12, 9), (5, 5, 10, 7),
+                                       (4, 7, 6, 6), (5, 6, 6, 6),
+                                       (2, 14, 4, 5))
+    for D in (1, 2, 3)]
+
+
+def _tiled_args(dev, S, W, D, B, T, per_peak):
+    pos, lens, l2, lt, s2 = _refine_args(dev, S, W, B, T, D, per_peak)
+    lens[:4] = torch.tensor([T, 2, 1, 0])
+    return pos, lens, l2, lt, s2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D,B,T", TILED_K6_CASES)
+def test_cuda_tiled_k6_matches_plain_bit_for_bit_twice(cuda, S, W, D, B, T):
+    args = _tiled_args(cuda, S, W, D, B, T, D != 2)
+    before = refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS
+    mu, sig = refine_kernel.refine(*args, window=W)
+    mu2, sig2 = refine_kernel.refine(*args, window=W)
+    assert (refine_kernel.LAUNCHES, refine_kernel.PLAIN_CALLS) == (
+        before[0] + 2, before[1])
+    assert torch.equal(mu, mu2) and torch.equal(sig, sig2)
+    mu0, sig0 = refine_kernel.refine_plain(*args, window=W)
+    torch.testing.assert_close(mu, mu0, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(sig, sig0, rtol=2e-3, atol=2e-5)
+    pos, l2 = args[0], args[2].expand(B, T, D)
+    assert torch.equal(mu[2, 0], pos[2, 0])
+    assert torch.equal(sig[2, 0], l2[2, 0].sqrt())
+    assert not mu[3].any() and not sig[3].any()
+
+
+# every block size of the pair kernel that plan picks (pair_threads, two
+# rows a thread), each at two shapes: (S, W, D, its threads)
+TILED_K6_PAIR_SHAPES = [(6, 4, 1, 128), (6, 4, 2, 128), (5, 5, 2, 160),
+                        (5, 5, 3, 160), (3, 7, 1, 192), (3, 7, 3, 192),
+                        (5, 6, 2, 224), (3, 8, 3, 224), (4, 6, 2, 256),
+                        (4, 7, 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,W,D,threads", TILED_K6_PAIR_SHAPES)
+def test_cuda_tiled_k6_every_pair_shape(cuda, S, W, D, threads):
+    # through the entry point, against the plain version
+    from extrack_tpu_torch.ops import cuda_lib
+    B, T = 6, 7
+    args = _tiled_args(cuda, S, W, D, B, T, True)
+    pl = refine_kernel.plan(T, D, S ** W, S, cuda_lib.smem_bytes(
+        "extrack_refine_smem", cuda.index or 0))
+    assert pl.wide and pl.pair_threads == threads
+    mu, sig = refine_kernel.refine(*args, window=W)
+    mu0, sig0 = refine_kernel.refine_plain(*args, window=W)
+    torch.testing.assert_close(mu, mu0, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(sig, sig0, rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_k6_chunks_match_one_launch(cuda, monkeypatch):
+    # a budget of two tracks' carries cuts 4^7's batch in chunks of two:
+    # the same results bit for bit
+    from extrack_tpu_torch.ops import cuda_lib
+    args = _tiled_args(cuda, 4, 7, 2, 7, 6, False)
+    want = refine_kernel.refine(*args, window=7)
+    carry = refine_kernel.plan(6, 2, 4 ** 7, 4, cuda_lib.smem_bytes(
+        "extrack_refine_smem", cuda.index or 0)).carry
+    monkeypatch.setattr(cuda_lib, "scratch_budget",
+                        lambda *a, **k: 2 * carry)
+    got = refine_kernel.refine(*args, window=7)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    monkeypatch.setattr(cuda_lib, "scratch_budget",
+                        lambda *a, **k: carry - 1)
+    with pytest.raises(RuntimeError, match="K6 scratch"):
+        refine_kernel.refine(*args, window=7)
 
 
 # ---- K4 past 16384 slots, up to 65536 ----------------------------------

@@ -63,7 +63,8 @@ def test_kernel_sources_present():
     # every C entry point the wrappers call has a ctypes signature
     assert set(cuda_lib._SIGNATURES) == {
         "extrack_forward", "extrack_grad", "extrack_hvp", "extrack_predict",
-        "extrack_hist", "extrack_refine", "extrack_topk",
+        "extrack_hist", "extrack_refine", "extrack_refine_wide",
+        "extrack_topk",
         "extrack_topk_wide", "extrack_forward_occupancy", "extrack_grad_occupancy",
         "extrack_hvp_occupancy", "extrack_predict_occupancy",
         "extrack_predict_layout", "extrack_hist_layout",

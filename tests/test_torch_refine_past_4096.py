@@ -1,8 +1,8 @@
 """K6 past 4096 register slots (up to 16384), where the port's card runs
-``refine_wide_kernel`` with its forms in global scratch, and
-``refine_wide_global_kernel`` (csrc/refine.cu) where the publish areas
-pass what a block may opt in to; the JAX package runs its XLA mixture
-path there.
+the tiled wide mapping (csrc/refine.cu: the scan kernel, its publish
+areas in global scratch where they pass what a block may opt in to, the
+pair kernel and the merge); the JAX package runs its XLA mixture path
+there.
 
 * refinement at 6^5 and 3^8 (1-D) through the port's CPU path (the
   plain ``refine_positions``, which takes the mixture's moments block by
@@ -12,9 +12,10 @@ path there.
 * the block-by-block moments equal those of ``position_mixtures``' whole
   mixture (1e-12), ends, lone observations and padding included;
 * the launch plan at every (S, W, D) with 4096 < S^W <= 16384 (S <= 8):
-  1024 threads, the fixed shared bytes within the opt-in, the global
-  variant chosen exactly where the wide block's do not fit, each block's
-  scratch within the budget; past 16384 slots K6 raises naming 16384.
+  a scan block of 1024 threads, its shared bytes within the opt-in, the
+  publish areas in global scratch exactly where they do not fit, the
+  chunks' scratch within the budget; past 16384 slots K6 raises naming
+  16384.
 """
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from extrack_tpu import refine as jrefine
 from extrack_tpu_torch import refine as trefine
 from extrack_tpu_torch.ops import cuda_lib, forward_kernel, refine_kernel
 import tests.torch_threads  # noqa: F401,E402  (one intra-op thread)
+from tests.refine_tiled_twin import layout as _layout
 
 SMEM = 232448             # shared bytes a block may opt in to on an H100
 
@@ -93,47 +95,33 @@ PAST_4096_REGISTERS = [(S, W) for S in range(2, 9) for W in range(2, 15)
                        if 4096 < S ** W <= 16384]
 
 
-def _layout(T, D, K, S, wide):
-    """K6's block (csrc/refine.cu refine_layout): threads, fixed shared
-    bytes (wide 1: two publish areas of (2D+1)K/S floats and the ring of
-    32 positions' warp partials; wide 2: none, the ring static), carry
-    bytes a track (the forms, T frames of them; wide 2: and the publish
-    areas, padded to 4 floats); the card test test_refine_layout reads the
-    kernel's own."""
-    forms = 4 * T * {1: 4, 2: 5, 3: 8}[D] * (-(-K // 4) * 4) if T > 2 else 0
-    pubs = 2 * (2 * D + 1) * (K // S)
-    if wide == 2:
-        return 1024, 0, forms + 4 * (-(-pubs // 4) * 4)
-    return 1024, 4 * (pubs + 32 * 32 * (2 + 2 * D)), forms
-
-
 @pytest.mark.parametrize("D", [1, 2, 3])
 def test_k6_past_4096_slots_plans_fit_every_register(D):
-    """At every register of (4096, 16384]: the wide mapping; its global
-    variant exactly where the wide block's fixed bytes pass the opt-in
-    (its static ring within the 48 KB of static shared memory), and the
-    persistent grid's scratch within the budget."""
+    """At every register of (4096, 16384]: the tiled wide mapping; the
+    scan's publish areas in global scratch exactly where its shared bytes
+    pass the opt-in, and the chunks' scratch within the budget of an 80 GB
+    card (``_layout``, the kernel's layout's host twin)."""
     global_at = set()
+    budget = min(cuda_lib.WIDE_SCRATCH_BUDGET, 40 * 10 ** 9)
     for S, W in PAST_4096_REGISTERS:
         K = S ** W
         assert forward_kernel.mapping_warps("K6", K) == forward_kernel.WIDE
         forward_kernel.check_envelope(20, D, S, W, 1, kernel="K6")
+        rows = refine_kernel.PAIR_ROWS * refine_kernel.pair_threads(K // S)
         for T in (2, 5, 20, 60):
-            w, threads, fixed, carry = refine_kernel.plan(T, D, K, S, SMEM,
-                                                          layout=_layout)
-            assert w == (2 if _layout(T, D, K, S, 1)[1] > SMEM else 1)
-            assert threads == 1024 and fixed <= SMEM
-            if w == 2:
+            pl = refine_kernel.plan(T, D, K, S, SMEM, layout=_layout)
+            assert pl.wide == (
+                2 if _layout(T, D, K, S, 1, rows)[1] > SMEM else 1)
+            assert pl.threads == 1024 and pl.fixed <= SMEM
+            if pl.wide == 2:
                 global_at.add((S, W))
-                assert 4 * 32 * 32 * (2 + 2 * D) <= 48 * 1024
-            nblk = cuda_lib.scratch_blocks(1 << 17, 132, threads,
-                                           max(carry, 1))
-            assert nblk * carry <= cuda_lib.SCRATCH_BUDGET
-    # the reference's frame_len 7 at 4 states passes the opt-in at D = 3
-    # (2 * 7 * 4096 floats of publish areas and the ring: 262,144 bytes),
-    # 2^14 (8192 groups, 8 a thread) from D = 2; 8 at 3 states, 6 at 5
-    # and 5 at 6 never do
-    assert ((4, 7) in global_at) == (D == 3)
+            n = refine_kernel.chunk_tracks(1 << 17, pl.carry, budget)
+            assert n * pl.carry <= budget
+    # the scan's publish areas and partials fit the opt-in at 4^7 for
+    # every D (2 * 7 * 4096 floats and two positions' partials at D = 3:
+    # 231,424 bytes); 2^14 (8192 groups) passes it from D = 2; 8 at 3
+    # states, 6 at 5 and 5 at 6 never do
+    assert (4, 7) not in global_at
     assert ((2, 14) in global_at) == (D >= 2)
     assert not global_at & {(3, 8), (6, 5), (5, 6)}
     for S, fits in ((3, 8), (4, 7), (5, 6)):

@@ -5,7 +5,7 @@
 (csrc/topk.cu) for two checkouts of the port, alternated on one card.
 
     python3 tools/kernel_ab.py PARENT_ROOT CHANGE_ROOT [--pairs N]
-        [--k1 | --k4 | --wide | --deep]
+        [--k1 | --k4 | --wide | --deep | --refine]
 
 Each side runs in a process of its own, importing ``extrack_tpu_torch``
 from its root (and building that root's kernels there), at
@@ -45,6 +45,13 @@ per-track dt in ``BENCH_DT`` (the variable-dt instantiations), and at
 3^9, D=2) on ``chip_smoke.PAST4096_TRACKS`` walks of lengths 3..10, as
 phases 17 and 19 time them, REPS_DEEP passes a side and round, each side
 on its own plan.
+``--refine`` times K6 alone on its wide mapping past 1024 slots
+(REFINE_SHAPES: 6^4, 3^7, 4^6, 5^5 and, past 4096 slots, 4^7, 5^6, 3^8
+and 2^14, each at D = 1..3, on random walks of lengths 3..10 as
+``chip_smoke.py`` phases 11 and 18 time them), REPS_REFINE passes a side
+and round, each side on its own plan; its SASS check then names every
+differing function outside K6's wide mapping (``refine_*`` kernels other
+than ``refine_kernel``, K6's block mapping) and fails on one.
 """
 from __future__ import annotations
 
@@ -116,6 +123,46 @@ WIDE_SHAPES = ((4, 6, False), (3, 7, False), (4, 6, True), (6, 5, False),
 DEEP_SHAPES = ((5, 6, False), (4, 7, False), (6, 6, False), (4, 8, False),
                (3, 9, False))
 REPS_DEEP = 5
+# K6's wide shapes (S, W, walks), each at D = 1..3: 2^14 walks at 6^4 (as
+# phase 11), 2^12 to 4096 slots, 2^10 past it (as phase 18), 2^9 at 2^14
+# (twice 4^7's pairs a position)
+REFINE_SHAPES = ((6, 4, 1 << 14), (3, 7, 1 << 12), (4, 6, 1 << 12),
+                 (5, 5, 1 << 12), (4, 7, 1 << 10), (5, 6, 1 << 10),
+                 (3, 8, 1 << 10), (2, 14, 1 << 9))
+REPS_REFINE = 3
+
+
+def refine_times(smoke, dev) -> dict:
+    """K6's bare times (ms) at REFINE_SHAPES, D = 1..3: the model of
+    ``chip_smoke.py``'s phase-18 timing (a 0.9 diagonal, the states'
+    displacement variances (0.08 (s+1))^2, l2 = 4e-4)."""
+    import torch
+
+    from extrack_tpu_torch.core import tables
+    from extrack_tpu_torch.ops import refine_kernel
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {}
+    for S, W, n in REFINE_SHAPES:
+        tr = np.full((S, S), 0.1 / (S - 1)) + np.eye(S) * (0.9 - 0.1
+                                                           / (S - 1))
+        lt = tables.cap_log(torch.tensor(tr, **f32))
+        s2 = torch.tensor((0.08 * (1 + np.arange(S))) ** 2, **f32)
+        tabs = [t.contiguous() for t in (
+            *refine_kernel.build_refine_tables(lt, s2, W)[:2],
+            *refine_kernel.build_refine_tables(lt.T, s2, W))]
+        for D in (1, 2, 3):
+            bench = smoke.bench_buckets(dev, n=n, D=D)
+            prep = [(b.positions, b.lengths.to(torch.int32),
+                     torch.full(b.positions.shape, 4e-4, **f32))
+                    for b in bench]
+
+            def run():
+                for p_, l_, e_ in prep:
+                    refine_kernel.launch(p_, l_, e_, tabs, S)
+            out[f"K6 S={S} W={W} D={D}"] = smoke.cuda_ms(
+                run, REPS_REFINE, warmup=1)
+            del bench, prep
+    return out
 
 
 def wide_times(smoke, dev, deep: bool = False) -> dict:
@@ -183,6 +230,10 @@ def worker(root: str, only: str) -> None:
         Path(root).resolve()), forward_kernel.__file__
     cuda_lib.library()
     dev = torch.device("cuda", 0)
+    if only == "--refine":
+        print(json.dumps({**refine_times(smoke, dev),
+                          "lib": str(cuda_lib.library_path())}), flush=True)
+        return
     if only in ("--wide", "--deep"):
         print(json.dumps({**wide_times(smoke, dev, only == "--deep"),
                           "lib": str(cuda_lib.library_path())}), flush=True)
@@ -295,6 +346,7 @@ def main() -> int:
     only.add_argument("--k4", action="store_true")
     only.add_argument("--wide", action="store_true")
     only.add_argument("--deep", action="store_true")
+    only.add_argument("--refine", action="store_true")
     a = ap.parse_args()
     sides = {"parent": a.parent, "change": a.change}
     times = {"parent": [], "change": []}
@@ -305,7 +357,8 @@ def main() -> int:
             out = subprocess.run(
                 [sys.executable, __file__, "--worker", sides[side],
                  *(["--k1"] if a.k1 else ["--k4"] if a.k4 else
-                   ["--wide"] if a.wide else ["--deep"] if a.deep else [])],
+                   ["--wide"] if a.wide else ["--deep"] if a.deep else
+                   ["--refine"] if a.refine else [])],
                 capture_output=True, text=True)
             if out.returncode != 0:
                 print(out.stdout + out.stderr, file=sys.stderr)
@@ -348,6 +401,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip())
+    if a.refine:
+        # K6's wide mapping: the refine_* kernels but the block mapping's
+        outside = [d for d in differ if not (
+            d.startswith("_ZN7extrack") and "refine_" in d.split("I")[0]
+            and "13refine_kernel" not in d.split("I")[0])]
+        print(f"SASS outside K6's wide mapping: {len(outside)} differ")
+        return 1 if outside else 0
     return 0
 
 

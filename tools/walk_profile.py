@@ -9,11 +9,16 @@ W=5 (K=32), K5 and K6 W=7 (K=128), each as ``chip_smoke.py`` times it;
 slot or a thread a fusion group; K1 has only the wide one), ``--lengths
 LO:HI`` the track lengths (e.g. 15:20, the main path's longest bucket);
 ``--dt`` gives K5 per-track dt (the streamed table, as ``chip_smoke.py``
-phase 10) and ``--substeps N`` N sub-steps a frame.
+phase 10) and ``--substeps N`` N sub-steps a frame; ``--walks N`` and
+``--dims D`` the number of random walks (2^20 unless given) and their
+dimensions (2), e.g. K6's wide shapes on 2^10 walks as ``chip_smoke.py``
+phase 18 times them.
 
     python3 tools/walk_profile.py [--kernel k1|k4|k5|k6|both]
     python3 tools/walk_profile.py --split [--kernel ...]
     python3 tools/walk_profile.py --kernel k5 [--dt] [--substeps N]
+    python3 tools/walk_profile.py --split --kernel k6 --states 4 \
+        --window 7 --walks 1024
 
 Without ``--split`` it times REPS bare launches over the four buckets by
 CUDA events, then prints nvcc's register and spill report of the chosen
@@ -21,8 +26,10 @@ kernels' instantiations.  With ``--split`` it builds the kernels with
 their clock64 marks (``cuda_lib.enable_profile``), runs the same launches
 and prints each section's share of the cycles that the tracks' lead
 threads spent (summed over all tracks; the marks cost a little, so read
-shares, not times).  ``both`` is K5 and K6.  The last line is the card's
-name and power limit.
+shares, not times; K6's wide mapping prints its scan kernel's and its
+pair kernel's sections each as shares of that kernel's lead-thread cycles,
+after each kernel's device time from ``torch.profiler``).  ``both`` is K5
+and K6.  The last line is the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -42,9 +49,13 @@ SECTIONS = {
                 "barriers"],
     "predict": ["track set-up", "update and fusion", "closing",
                 "fusion-weight stash", "harvest", "barriers"],
+    # K6 past 1024 slots: the scan kernel's sections (the pair loop and
+    # stash writes are the block mapping's), then the pair kernel's
     "refine": ["suffix scan (fusions)", "suffix stash writes",
-               "precision forms", "pair loop", "finish reductions",
-               "prefix scan (fusions)"],
+               "prefix scan: forms and fusions", "pair loop",
+               "finish reductions", "prefix scan: barriers",
+               "pair kernel: tile waits", "pair kernel: pair loop",
+               "pair kernel: block partial"],
     "hist": ["buffer zeroing and track set-up", "update and fusion",
              "run/hist transport", "the step's barrier",
              "harvest"],
@@ -148,6 +159,23 @@ def k6_runner(smoke, bench, dev, S: int, W: int, mapping=None):
     return run
 
 
+def kernel_times(run):
+    """(kernel name, device ms) of one pass of ``run`` under
+    torch.profiler, longest first."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if t and "extrack" in e.key:
+            out.append((e.key.split("(")[0], t / 1e3))
+    return sorted(out, key=lambda kt: -kt[1])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--split", action="store_true")
@@ -162,6 +190,10 @@ def main() -> int:
                          "(the streamed table)")
     ap.add_argument("--substeps", type=int, default=1,
                     help="K5: sub-steps a frame (W=7 sub-steps)")
+    ap.add_argument("--walks", type=int, default=0,
+                    help="random walks (chip_smoke.BENCH_TRACKS unless "
+                         "given)")
+    ap.add_argument("--dims", type=int, default=2)
     ap.add_argument("--mapping", choices=("block", "wide"),
                     help="force a block a track with a thread a slot or "
                          "a thread a fusion group (K4, K5, K6; K1 wide)")
@@ -178,7 +210,8 @@ def main() -> int:
     lib_path = cuda_lib.build()
     cuda_lib.library()
     bench = smoke.bench_buckets(dev, T=hi, lo=lo,
-                                dt_range=smoke.BENCH_DT if a.dt else None)
+                                dt_range=smoke.BENCH_DT if a.dt else None,
+                                n=a.walks or smoke.BENCH_TRACKS, D=a.dims)
     runs = []
     if a.kernel == "k1":
         W = a.window or 6
@@ -198,7 +231,8 @@ def main() -> int:
                                a.mapping)))
     if a.kernel in ("k6", "both"):
         W = a.window or 7
-        runs.append(("refine", f"K6 S={a.states} W={W}",
+        runs.append(("refine", f"K6 S={a.states} W={W} D={a.dims}, "
+                     f"{a.walks or smoke.BENCH_TRACKS} walks of {lo}..{hi}",
                      k6_runner(smoke, bench, dev, a.states, W,
                                a.mapping)))
     for name, what, run in runs:
@@ -208,12 +242,20 @@ def main() -> int:
             cuda_lib.profile_counters(name)
             ms = smoke.cuda_ms(run, REPS, warmup=0)
             cyc = cuda_lib.profile_counters(name)
-            total = max(sum(cyc), 1)
             print(f"{what}, profile build: {ms:.3f} ms per pass (marks "
                   f"included); lead-thread cycles over {REPS} passes:")
-            for sec, c in zip(SECTIONS[name], cyc):
-                if sec:
-                    print(f"  {c / total * 100:6.2f}%  {c:16d}  {sec}")
+            if name == "refine" and sum(cyc[6:9]):
+                for kname, t in kernel_times(run):
+                    print(f"  {t:10.3f} ms a pass  {kname}")
+                groups = [range(0, 6), range(6, 9)]
+            else:
+                groups = [range(len(SECTIONS[name]))]
+            for g in groups:
+                total = max(sum(cyc[i] for i in g), 1)
+                for i in g:
+                    if SECTIONS[name][i]:
+                        print(f"  {cyc[i] / total * 100:6.2f}%  "
+                              f"{cyc[i]:16d}  {SECTIONS[name][i]}")
         else:
             ms = smoke.cuda_ms(run, REPS, warmup=2)
             print(f"{what}: {ms:.3f} ms per pass (CUDA events, median of "
